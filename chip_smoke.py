@@ -4,9 +4,11 @@
 
 Phases (each prints one JSON line; any failure exits non-zero):
   1. device       CUDA must be available; the card's name and power limit.
-  2. build        nvcc builds every kernel of the main path from csrc/.
-  3. kernel       each kernel against its plain PyTorch version on the card,
-                  at the main path's shapes (bitwise t, exact tri).
+  2. build        nvcc builds every kernel source under csrc/, in parallel.
+  3. kernel       each of the five kernels against its plain PyTorch version
+                  on the card, at its path's shapes (bitwise t; exact
+                  cluster, slot, triangle id and occlusion; the fused
+                  kernels' early_skip / sub_skip gates on == off).
   4. main_path    the benchmark render (blob subdiv 6 + room, 1920x1080,
                   2 spp, 5 bounces, seed 0, waves of 2^20, blocks of 64)
                   through path_tracer_ai_tpu_torch.engine.wavefront.render:
@@ -15,8 +17,17 @@ Phases (each prints one JSON line; any failure exits non-zero):
   4b. profile     one more such render under torch.profiler: device kernel
                   time by kernel and by wave type, and the device's busy
                   share of the timed pass.
-  5. consistency  wavefront vs oracle on the card (96x54, 4 spp, 5 bounces,
-                  blob subdiv 4): must agree bitwise.
+  4c. path_pallas the same bench render with backend="pallas",
+                  block_size=64 (accel.cuda_sweep: one launch per wave): a
+                  small warm render, counts zeroed, one timed render; the
+                  image agrees with the main path's at atol 1e-5.
+  4d. path_fused  the same on the hybrid backend with the fused cascades
+                  (cascade_fused closest; packets_fused shadows with
+                  early_skip and sub_skip); the image equals the main
+                  path's bitwise.
+  5. consistency  the three paths vs the oracle on the card (96x54, 4 spp,
+                  5 bounces, blob subdiv 4): main and fused bitwise, pallas
+                  at atol 1e-5 (its tie rule keeps the first candidate).
 Then the kernels line, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
@@ -82,14 +93,47 @@ def phase_device():
 
 def phase_build():
     from path_tracer_ai_tpu_torch import cuda_build
-    from path_tracer_ai_tpu_torch.accel import cuda_ctiles
+    from path_tracer_ai_tpu_torch.accel import (
+        cuda_anyhit,
+        cuda_closest,
+        cuda_ctiles,
+        cuda_sweep,
+    )
 
     t0 = time.perf_counter()
-    built = cuda_build.build_all([cuda_ctiles.SOURCE])
+    built = cuda_build.build_all([m.SOURCE for m in (
+        cuda_ctiles, cuda_sweep, cuda_anyhit, cuda_closest)])
     ptxas = {k: v["ptxas"].strip().splitlines()[-2:]
              for k, v in cuda_build.build_log.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(built), "ptxas": ptxas})
+
+
+def _bound(nbytes: int, tests: int) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the tests' f32 operations over the f32 peak. `tests`
+    are the ray/triangle tests this run's data needs: those of the lanes
+    that are live (t_max >= 0) and, for an any-hit kernel, not yet occluded
+    when a cluster or sub-slab is swept. Dead and occluded lanes need none,
+    though a kernel may spend some on them."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S
+    by_ops = tests * MT_OPS / PEAK_F32_PER_S
+    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes > by_ops else "operations",
+            "bytes": nbytes, "tests": tests}
+
+
+def _bits_equal(a, b) -> bool:
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def _max_abs_err(a, b) -> float:
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _tile_rays(accel, nt, t_lanes, rng, dead_every=7):
@@ -122,25 +166,21 @@ def _check_tile_sweep(accel, t_lanes, nt, rng, reps):
     t_k, tri_k = cuda_ctiles.tile_sweep(pack, rays, cid)
     t_p, tri_p = cuda_ctiles.tile_sweep_plain(pack, rays, cid)
     torch.cuda.synchronize()
-    bitwise = bool(torch.equal(t_k.view(torch.int32), t_p.view(torch.int32)))
+    bitwise = _bits_equal(t_k, t_p)
     tri_eq = bool(torch.equal(tri_k, tri_p))
-    fin = torch.isfinite(t_k) & torch.isfinite(t_p)
-    err = float((t_k[fin] - t_p[fin]).abs().max()) if bool(fin.any()) else 0.0
     hits = int((tri_k != cuda_ctiles.I32_MAX).sum())
     ms = cuda_ms(lambda: cuda_ctiles.tile_sweep(pack, rays, cid), reps)
     plain_ms = cuda_ms(lambda: cuda_ctiles.tile_sweep_plain(pack, rays, cid), 2)
     s = accel.cluster_size
     n_used = int(torch.unique(cid).numel())
-    nbytes = (n_used * 10 * s * 4 + rays.numel() * 4 + cid.numel() * 4
-              + 2 * nt * t_lanes * 4)
-    ops = nt * t_lanes * s * MT_OPS
-    bound_ms = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S) * 1e3
-    bound_by = "bytes" if nbytes / PEAK_BYTES_PER_S > ops / PEAK_F32_PER_S \
-        else "operations"
+    nbytes = n_used * 10 * s * 4 + _nbytes(rays, cid, t_k, tri_k)
+    live_lanes = int((rays[:, 6] >= 0.0).sum())
     res = {"phase": "kernel", "name": "tile_sweep", "T": t_lanes, "S": s,
            "nt": nt, "t_bitwise": bitwise, "tri_equal": tri_eq,
-           "max_abs_err": err, "hit_lanes": hits, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "matches_plain": bitwise and tri_eq,
+           "max_abs_err": _max_abs_err(t_k, t_p), "hit_lanes": hits, "ms": ms,
+           "plain_ms": plain_ms, "swept_tests": nt * t_lanes * s,
+           **_bound(nbytes, live_lanes * s),
            "gtests_per_s": nt * t_lanes * s / ms / 1e6}
     emit(res)
     if not (bitwise and tri_eq):
@@ -150,56 +190,364 @@ def _check_tile_sweep(accel, t_lanes, nt, rng, reps):
     return res
 
 
+def _bounce_wave(accel, n, rng, shadow):
+    """n bounce-like rays: they leave points near the accel's triangles in
+    random directions, with t_max inf as in a closest wave or, with
+    `shadow`, finite lengths as in a shadow wave."""
+    dev = accel.v0.device
+    v0 = accel.v0.cpu().numpy().reshape(-1, 3)
+    v0 = v0[accel.tri_id.cpu().numpy().reshape(-1) >= 0]
+    o = v0[rng.integers(0, v0.shape[0], n)]
+    o = o + rng.standard_normal(o.shape).astype(np.float32) * 1e-2
+    d = rng.standard_normal(o.shape).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tm = (rng.uniform(0.5, 15.0, n) if shadow else np.full(n, np.inf))
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                  device=dev)
+    return t(o), t(d), t(tm)
+
+
+def _kill_every_seventh(rays):
+    """A dead lane (t_max = -1) in every seventh place of each block, set
+    after the sort and cull so that live and dead lanes share blocks."""
+    rays = rays.clone()
+    rays[:, 6, ::7] = -1.0
+    return rays
+
+
+def _check_sweeps(accel, rng, nb=2048, r=64):
+    """closest_sweep and anyhit_sweep (the pallas backend's kernels) at
+    B = 2048 blocks of R = 64 lanes, candidate lists from the port's own
+    sort and cull of a bounce-like wave over the bench accel. The bound
+    counts the (block, cluster) visits the plain version really made: per
+    visit the 4-byte order (and entry) word and the S tests of every lane
+    that needs them (live; for the any-hit, not yet occluded)."""
+    from path_tracer_ai_tpu_torch.accel import cuda_sweep
+
+    slab = cuda_sweep.build_slab_table(accel)
+    s = accel.cluster_size
+    out = {}
+
+    def inputs(shadow):
+        o, d, tm = _bounce_wave(accel, nb * r, rng, shadow)
+        rays, order, entry, n_cand, _perm = cuda_sweep._prep_wave(
+            accel, o, d, tm, r, True)
+        listed = torch.arange(order.shape[1], device=order.device) \
+            < n_cand[:, None]
+        slab_bytes = int(torch.unique(order[listed]).numel()) * 9 * s * 4
+        return _kill_every_seventh(rays), order, entry, n_cand, slab_bytes
+
+    rays, order, entry, n_cand, slab_bytes = inputs(shadow=False)
+    st = {}
+    k_t, k_cid, k_slot = cuda_sweep.closest_sweep(slab, rays, order, entry,
+                                                  n_cand)
+    p_t, p_cid, p_slot = cuda_sweep.closest_sweep_plain(
+        slab, rays, order, entry, n_cand, stats=st)
+    torch.cuda.synchronize()
+    ok = {"t_bitwise": _bits_equal(k_t, p_t),
+          "cid_equal": bool(torch.equal(k_cid, p_cid)),
+          "slot_equal": bool(torch.equal(k_slot, p_slot))}
+    hits = int((k_cid >= 0).sum())
+    ms = cuda_ms(lambda: cuda_sweep.closest_sweep(slab, rays, order, entry,
+                                                  n_cand), 10)
+    plain_ms = cuda_ms(lambda: cuda_sweep.closest_sweep_plain(
+        slab, rays, order, entry, n_cand), 1)
+    nbytes = (slab_bytes + _nbytes(rays, n_cand, k_t, k_cid, k_slot)
+              + st["visits"] * 8)
+    res = {"phase": "kernel", "name": "closest_sweep", "B": nb, "R": r, "S": s,
+           "c_pad": order.shape[1], "mean_candidates": float(n_cand.float().mean()),
+           "visits": st["visits"], **ok, "matches_plain": all(ok.values()),
+           "max_abs_err": _max_abs_err(k_t, p_t), "hit_lanes": hits, "ms": ms,
+           "plain_ms": plain_ms, "swept_tests": st["visits"] * r * s,
+           **_bound(nbytes, st["lane_tests"])}
+    emit(res)
+    if not all(ok.values()):
+        fail("kernel", "closest_sweep disagrees with its plain version")
+    if hits == 0:
+        fail("kernel", "closest_sweep check wave hit nothing")
+    out["closest_sweep"] = res
+
+    rays, order, _entry, n_cand, slab_bytes = inputs(shadow=True)
+    st = {}
+    k_occ = cuda_sweep.anyhit_sweep(slab, rays, order, n_cand)
+    p_occ = cuda_sweep.anyhit_sweep_plain(slab, rays, order, n_cand, stats=st)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(k_occ, p_occ))
+    hits = int(k_occ.sum())
+    ms = cuda_ms(lambda: cuda_sweep.anyhit_sweep(slab, rays, order, n_cand), 10)
+    plain_ms = cuda_ms(lambda: cuda_sweep.anyhit_sweep_plain(
+        slab, rays, order, n_cand), 1)
+    nbytes = slab_bytes + _nbytes(rays, n_cand, k_occ) + st["visits"] * 4
+    res = {"phase": "kernel", "name": "anyhit_sweep", "B": nb, "R": r, "S": s,
+           "c_pad": order.shape[1], "mean_candidates": float(n_cand.float().mean()),
+           "visits": st["visits"], "occ_equal": equal, "matches_plain": equal,
+           "max_abs_err": float((k_occ != p_occ).sum()),  # lanes that differ
+           "hit_lanes": hits, "ms": ms, "plain_ms": plain_ms,
+           "swept_tests": st["visits"] * r * s,
+           **_bound(nbytes, st["lane_tests"])}
+    emit(res)
+    if not equal:
+        fail("kernel", "anyhit_sweep disagrees with its plain version")
+    if hits == 0:
+        fail("kernel", "anyhit_sweep check wave hit nothing")
+    out["anyhit_sweep"] = res
+    return out
+
+
+def _check_fused(accel, rng, size=2048, t_lanes=128):
+    """block_anyhit and block_closest (the fused cascades' kernels) at
+    size = 2048 blocks of T = 128 lanes against the first GROUP = 8
+    candidates of each block, from the port's own sort and cull. Options off
+    and on must give the same bits. Timed and bounded with the options the
+    path sets (early_skip + sub_skip; sub_skip); the bound counts, over the
+    sub-slab sweeps the plain version really made, the tests of every lane
+    that needs them (live; for the any-hit, not yet occluded)."""
+    from path_tracer_ai_tpu_torch.accel import (
+        cuda_anyhit,
+        cuda_closest,
+        cuda_ctiles,
+    )
+
+    pack = cuda_anyhit.pack_tris_dummy(accel)
+    s = accel.cluster_size
+    out = {}
+
+    def inputs(sort_mode, shadow):
+        o, d, tm = _bounce_wave(accel, size * t_lanes, rng, shadow)
+        o, d, tm, _perm, _nc, _ent, order_g = cuda_anyhit.prepare_fused_wave(
+            accel, o, d, tm, t_lanes, True, sort_mode)
+        rays = cuda_ctiles.pack_rays_tiles(o, d, tm, t_lanes)
+        cid8 = order_g[:, 0].reshape(-1).contiguous()
+        used = int(torch.unique(cid8).numel())
+        return _kill_every_seventh(rays), cid8, used * 16 * s * 4
+
+    rays, cid8, pack_bytes = inputs("dir", shadow=True)
+    st_on, st_off = {}, {}
+    p_occ = cuda_anyhit.block_anyhit_plain(pack, rays, cid8, stats=st_off)
+    cuda_anyhit.block_anyhit_plain(pack, rays, cid8, True, True, stats=st_on)
+    variants = {}
+    lanes_differing = 0
+    for early_skip in (False, True):
+        for sub_skip in (False, True):
+            k_occ = cuda_anyhit.block_anyhit(pack, rays, cid8,
+                                             early_skip=early_skip,
+                                             sub_skip=sub_skip)
+            torch.cuda.synchronize()
+            variants[f"early{int(early_skip)}_sub{int(sub_skip)}"] = bool(
+                torch.equal(k_occ, p_occ))
+            lanes_differing = max(lanes_differing,
+                                  int((k_occ != p_occ).sum()))
+    hits = int(p_occ.sum())
+    ms = cuda_ms(lambda: cuda_anyhit.block_anyhit(
+        pack, rays, cid8, early_skip=True, sub_skip=True), 10)
+    ms_off = cuda_ms(lambda: cuda_anyhit.block_anyhit(pack, rays, cid8), 10)
+    plain_ms = cuda_ms(lambda: cuda_anyhit.block_anyhit_plain(
+        pack, rays, cid8, True, True), 1)
+    nbytes = pack_bytes + _nbytes(rays, cid8, p_occ)
+    res = {"phase": "kernel", "name": "block_anyhit", "size": size,
+           "T": t_lanes, "S": s, "equals_plain": variants,
+           "matches_plain": all(variants.values()),
+           "tests_options_off": st_off["tests"],
+           "max_abs_err": float(lanes_differing),  # lanes that differ
+           "hit_lanes": hits, "ms": ms, "ms_options_off": ms_off,
+           "plain_ms": plain_ms, "swept_tests": st_on["tests"],
+           **_bound(nbytes, st_on["lane_tests"])}
+    emit(res)
+    if not all(variants.values()):
+        fail("kernel", f"block_anyhit disagrees with its plain version: {variants}")
+    if hits == 0:
+        fail("kernel", "block_anyhit check wave hit nothing")
+    out["block_anyhit"] = res
+
+    rays, cid8, pack_bytes = inputs("octorig", shadow=False)
+    st_on, st_off = {}, {}
+    p_t, p_tri = cuda_closest.block_closest_plain(pack, rays, cid8, True,
+                                                  stats=st_on)
+    cuda_closest.block_closest_plain(pack, rays, cid8, False, stats=st_off)
+    variants = {}
+    err = 0.0
+    for sub_skip in (False, True):
+        k_t, k_tri = cuda_closest.block_closest(pack, rays, cid8, sub_skip)
+        torch.cuda.synchronize()
+        variants[f"sub{int(sub_skip)}"] = (
+            _bits_equal(k_t, p_t) and bool(torch.equal(k_tri, p_tri)))
+        err = max(err, _max_abs_err(k_t, p_t))
+    hits = int((p_tri != cuda_ctiles.I32_MAX).sum())
+    ms = cuda_ms(lambda: cuda_closest.block_closest(pack, rays, cid8, True), 10)
+    ms_off = cuda_ms(lambda: cuda_closest.block_closest(pack, rays, cid8,
+                                                        False), 10)
+    plain_ms = cuda_ms(lambda: cuda_closest.block_closest_plain(
+        pack, rays, cid8, True), 1)
+    nbytes = pack_bytes + _nbytes(rays, cid8, p_t, p_tri)
+    res = {"phase": "kernel", "name": "block_closest", "size": size,
+           "T": t_lanes, "S": s, "equals_plain": variants,
+           "matches_plain": all(variants.values()),
+           "tests_options_off": st_off["tests"],
+           "max_abs_err": err, "hit_lanes": hits, "ms": ms,
+           "ms_options_off": ms_off, "plain_ms": plain_ms,
+           "swept_tests": st_on["tests"],
+           **_bound(nbytes, st_on["lane_tests"])}
+    emit(res)
+    if not all(variants.values()):
+        fail("kernel", f"block_closest disagrees with its plain version: {variants}")
+    if hits == 0:
+        fail("kernel", "block_closest check wave hit nothing")
+    out["block_closest"] = res
+    return out
+
+
 def phase_kernels(accel_base, accel_c):
+    """{kernel name: its check at the shape its path gives it}."""
     rng = np.random.default_rng(0)
-    main = _check_tile_sweep(accel_c, 128, 2048, rng, reps=20)  # closest path
-    shadow = _check_tile_sweep(accel_base, 64, 2048, rng, reps=20)  # cascade
-    return main, shadow
+    out = {"tile_sweep": _check_tile_sweep(accel_c, 128, 2048, rng, reps=20)}
+    _check_tile_sweep(accel_base, 64, 2048, rng, reps=20)  # shadow cascade
+    out.update(_check_sweeps(accel_base, rng))
+    out.update(_check_fused(accel_base, rng))
+    return out
 
 
-def phase_main_path(scene, accel_base, accel_c, card):
-    from path_tracer_ai_tpu_torch.accel import cuda_ctiles
+BENCH = dict(width=1920, height=1080, samples_per_pixel=2, max_bounces=5,
+             seed=0)
+FUSED_ENGINES = dict(
+    HYBRID_CLOSEST_KW=dict(engine="cascade_fused"),
+    HYBRID_OCCLUDE_KW=dict(engine="packets_fused", early_skip=True,
+                           sub_skip=True))
+
+
+class _engines:
+    """Sets the hybrid backend's engine tables for the duration of a block."""
+
+    def __init__(self, tables):
+        self.tables = tables or {}
+
+    def __enter__(self):
+        from path_tracer_ai_tpu_torch.engine import wavefront
+
+        self.saved = {k: getattr(wavefront, k) for k in self.tables}
+        for k, v in self.tables.items():
+            setattr(wavefront, k, v)
+
+    def __exit__(self, *exc):
+        from path_tracer_ai_tpu_torch.engine import wavefront
+
+        for k, v in self.saved.items():
+            setattr(wavefront, k, v)
+
+
+def _reset_counts():
+    from path_tracer_ai_tpu_torch.accel import (
+        cuda_anyhit,
+        cuda_closest,
+        cuda_ctiles,
+        cuda_sweep,
+    )
+    from path_tracer_ai_tpu_torch.utils import sync
+
+    for mod in (cuda_ctiles, cuda_sweep, cuda_anyhit, cuda_closest):
+        mod.reset_launches()
+    sync.reset()
+
+
+def _read_counts() -> dict:
+    from path_tracer_ai_tpu_torch.accel import (
+        cuda_anyhit,
+        cuda_closest,
+        cuda_ctiles,
+        cuda_sweep,
+    )
+
+    return {"tile_sweep": cuda_ctiles.launches, **cuda_sweep.launches,
+            "block_anyhit": cuda_anyhit.launches,
+            "block_closest": cuda_closest.launches}
+
+
+def _bench_render(phase, scene, card, kernels, warm_small, engines=None,
+                  **render_kw):
+    """One path's bench render: a warm pass (the bench render itself, or a
+    96x54 one), then the launch counts and host syncs set to 0, the timed
+    render, and the counts read. Fails unless every kernel in `kernels` was
+    launched and the image is finite, free of magenta and mostly lit."""
     from path_tracer_ai_tpu_torch.config import RenderSettings
     from path_tracer_ai_tpu_torch.engine import wavefront
-    from path_tracer_ai_tpu_torch.io.image import save_image
     from path_tracer_ai_tpu_torch.scene.camera import default_camera
     from path_tracer_ai_tpu_torch.utils import sync
 
-    settings = RenderSettings(width=1920, height=1080, samples_per_pixel=2,
-                              max_bounces=5, seed=0)
+    settings = RenderSettings(**BENCH)
+    warm = RenderSettings(**{**BENCH, "width": 96, "height": 54}) \
+        if warm_small else settings
     cam = default_camera("cuda")
-    kw = dict(accel=accel_base, accel_closest=accel_c, wave_size=1 << 20,
-              device="cuda")
-    t0 = time.perf_counter()
-    wavefront.render(scene, cam, settings, **kw)  # warm pass
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
+    kw = dict(wave_size=1 << 20, device="cuda", **render_kw)
+    with _engines(engines):
+        t0 = time.perf_counter()
+        wavefront.render(scene, cam, warm, **kw)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
 
-    cuda_ctiles.reset_launches()
-    sync.reset()
-    stats = wavefront.RenderStats()
-    img = wavefront.render(scene, cam, settings, stats=stats, **kw)
-    launches = cuda_ctiles.launches
-    syncs = sync.count
+        _reset_counts()
+        stats = wavefront.RenderStats()
+        img = wavefront.render(scene, cam, settings, stats=stats, **kw)
+        launches = _read_counts()
+        syncs = sync.count
 
     finite = bool(np.isfinite(img).all())
     magenta = float(np.all(img == np.asarray([1.0, 0.0, 1.0], np.float32),
                            axis=-1).mean())
     nonblack = float((img.max(axis=-1) > 0).mean())
-    png = os.path.join(tempfile.gettempdir(), "chip_smoke_bench.png")
-    save_image(png, img, settings.gamma)
-    res = {"phase": "main_path", "card": card, "warm_seconds": warm_s,
+    res = {"phase": phase, "card": card,
+           "warm": "96x54" if warm_small else "bench render",
+           "warm_seconds": warm_s,
            "seconds": stats.seconds, "closest_rays": stats.closest_rays,
            "shadow_rays": stats.shadow_rays, "mrays_per_s": stats.mrays_per_s,
-           "tile_sweep_launches": launches, "host_syncs": syncs,
+           "launches": launches, "host_syncs": syncs,
            "finite": finite, "magenta_share": magenta,
-           "nonblack_share": nonblack, "image_mean": float(img.mean()),
-           "png": png}
+           "nonblack_share": nonblack, "image_mean": float(img.mean())}
+    missing = [k for k in kernels if launches[k] <= 0]
+    return res, img, missing, (finite and magenta == 0.0 and nonblack >= 0.5)
+
+
+def _finish_path(res, missing, image_ok):
     emit(res)
-    if launches <= 0:
-        fail("main_path", "the render launched no tile_sweep kernel")
-    if not finite or magenta > 0.0 or nonblack < 0.5:
-        fail("main_path", "bad image (non-finite, magenta or mostly black)")
+    if missing:
+        fail(res["phase"], f"the render launched no {', '.join(missing)} kernel")
+    if not image_ok:
+        fail(res["phase"], "bad image (non-finite, magenta or mostly black)")
+
+
+def phase_main_path(scene, accel_base, accel_c, card):
+    from path_tracer_ai_tpu_torch.io.image import save_image
+
+    res, img, missing, image_ok = _bench_render(
+        "main_path", scene, card, ["tile_sweep"], warm_small=False,
+        accel=accel_base, accel_closest=accel_c)
+    png = os.path.join(tempfile.gettempdir(), "chip_smoke_bench.png")
+    save_image(png, img, 2.2)
+    res["png"] = png
+    _finish_path(res, missing, image_ok)
+    return res, img
+
+
+def phase_path_pallas(scene, accel_base, card, img_main):
+    res, img, missing, image_ok = _bench_render(
+        "path_pallas", scene, card, ["closest_sweep", "anyhit_sweep"],
+        warm_small=True, accel=accel_base, backend="pallas", block_size=64)
+    diff = np.abs(img - img_main)
+    res["max_abs_diff_vs_main"] = float(diff.max())
+    res["pixels_differing_from_main"] = int((diff.max(axis=-1) > 0).sum())
+    res["pixels_over_1e-5"] = int((diff.max(axis=-1) > 1e-5).sum())
+    _finish_path(res, missing, image_ok)
+    if res["pixels_over_1e-5"]:
+        fail("path_pallas", "image differs from the main path's beyond 1e-5")
+    return res
+
+
+def phase_path_fused(scene, accel_base, card, img_main):
+    res, img, missing, image_ok = _bench_render(
+        "path_fused", scene, card, ["block_anyhit", "block_closest"],
+        warm_small=True, engines=FUSED_ENGINES, accel=accel_base)
+    res["bitwise_equal_to_main"] = bool(np.array_equal(img, img_main))
+    _finish_path(res, missing, image_ok)
+    if not res["bitwise_equal_to_main"]:
+        fail("path_fused", "image differs from the main path's")
     return res
 
 
@@ -275,17 +623,49 @@ def phase_consistency():
                               max_bounces=5, seed=0)
     cam = default_camera("cuda")
     t0 = time.perf_counter()
-    img_w = wavefront.render(scene, cam, settings, wave_size=1 << 14,
-                             device="cuda")
+    kw = dict(wave_size=1 << 14, device="cuda")
     img_o = oracle.render(scene, cam, settings, device="cuda")
-    diff = float(np.abs(img_w - img_o).max())
-    res = {"phase": "consistency", "max_abs_diff": diff,
-           "bitwise": bool(np.array_equal(img_w, img_o)),
+    img_w = wavefront.render(scene, cam, settings, **kw)
+    with _engines(FUSED_ENGINES):
+        img_f = wavefront.render(scene, cam, settings, **kw)
+    img_p = wavefront.render(scene, cam, settings, backend="pallas",
+                             block_size=64, **kw)
+    diff = {"main": float(np.abs(img_w - img_o).max()),
+            "fused": float(np.abs(img_f - img_o).max()),
+            "pallas": float(np.abs(img_p - img_o).max())}
+    res = {"phase": "consistency", "max_abs_diff_vs_oracle": diff,
+           "main_bitwise": bool(np.array_equal(img_w, img_o)),
+           "fused_bitwise": bool(np.array_equal(img_f, img_o)),
+           "pallas_pixels_differing": int(
+               (np.abs(img_p - img_o).max(axis=-1) > 0).sum()),
            "image_mean": float(img_o.mean()),
            "seconds": time.perf_counter() - t0}
     emit(res)
-    if diff != 0.0:  # tests/test_torch_render.py holds this pair bitwise
-        fail("consistency", f"wavefront and oracle differ by {diff}")
+    # tests/test_torch_render.py holds the same pairs on the CPU
+    if diff["main"] != 0.0 or diff["fused"] != 0.0:
+        fail("consistency", f"wavefront and oracle differ: {diff}")
+    if diff["pallas"] > 1e-5:
+        fail("consistency", f"pallas backend and oracle differ: {diff}")
+
+
+# name -> (source under path_tracer_ai_tpu_torch/csrc, TPU kernel it replaces,
+#          phase whose render gives its launch count)
+KERNELS = {
+    "tile_sweep": ("ctiles_sweep.cu",
+                   "path_tracer_ai_tpu/accel/pallas_ctiles.py:239", "main_path"),
+    "block_anyhit": ("fused_anyhit.cu",
+                     "path_tracer_ai_tpu/accel/pallas_anyhit.py:181",
+                     "path_fused"),
+    "block_closest": ("fused_closest.cu",
+                      "path_tracer_ai_tpu/accel/pallas_closest.py:140",
+                      "path_fused"),
+    "closest_sweep": ("packet_sweep.cu",
+                      "path_tracer_ai_tpu/accel/pallas_sweep.py:179",
+                      "path_pallas"),
+    "anyhit_sweep": ("packet_sweep.cu",
+                     "path_tracer_ai_tpu/accel/pallas_sweep.py:321",
+                     "path_pallas"),
+}
 
 
 def main() -> int:
@@ -307,21 +687,26 @@ def main() -> int:
           "clusters_s256": accel_c.num_clusters,
           "seconds": time.perf_counter() - t0})
 
-    main_k, _shadow_k = phase_kernels(accel_base, accel_c)
-    render = phase_main_path(scene, accel_base, accel_c, card)
+    checks = phase_kernels(accel_base, accel_c)
+    render, img_main = phase_main_path(scene, accel_base, accel_c, card)
     phase_profile(scene, accel_base, accel_c, render["seconds"])
+    paths = {"main_path": render,
+             "path_pallas": phase_path_pallas(scene, accel_base, card, img_main),
+             "path_fused": phase_path_fused(scene, accel_base, card, img_main)}
     phase_consistency()
 
     emit({"kernels": [{
-        "name": "tile_sweep", "route": "cuda",
-        "source": "path_tracer_ai_tpu_torch/csrc/ctiles_sweep.cu",
-        "replaces": "path_tracer_ai_tpu/accel/pallas_ctiles.py:239",
-        "launches": render["tile_sweep_launches"],
-        "matches_plain": True,
-        "max_abs_err": main_k["max_abs_err"], "ms": main_k["ms"],
-        "plain_ms": main_k["plain_ms"], "bound_ms": main_k["bound_ms"],
-        "bound_by": main_k["bound_by"], "library_ms": None,
-    }], "seconds": time.perf_counter() - t_start})
+        "name": name, "route": "cuda",
+        "source": "path_tracer_ai_tpu_torch/csrc/" + source,
+        "replaces": replaces, "path": phase,
+        "launches": paths[phase]["launches"][name],
+        "matches_plain": checks[name]["matches_plain"],
+        "max_abs_err": checks[name]["max_abs_err"], "ms": checks[name]["ms"],
+        "plain_ms": checks[name]["plain_ms"],
+        "bound_ms": checks[name]["bound_ms"],
+        "bound_by": checks[name]["bound_by"], "library_ms": None,
+    } for name, (source, replaces, phase) in KERNELS.items()],
+        "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

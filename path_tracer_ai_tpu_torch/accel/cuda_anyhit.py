@@ -1,0 +1,279 @@
+"""The fused any-hit cascade for shadow waves.
+
+Counterpart of path_tracer_ai_tpu/accel/pallas_anyhit.py. `any_hit_fused`
+keeps the packet cascade's structure (coherence sort, conservative interval
+cull, block retirement and compaction: traverse._cascade_traverse) and
+sweeps GROUP = 8 candidate clusters per block and iteration in ONE kernel
+launch. `block_anyhit` replaces the Pallas kernel of the same name: on a
+CUDA tensor it launches csrc/fused_anyhit.cu (or raises), on a CPU tensor it
+runs `block_anyhit_plain`, the same function as eager torch ops. The
+kernel's design and bound are described in the CUDA source.
+
+Layouts:
+  tri_pack [C+1, 16, S] f32 (pack_tris_dummy): cuda_ctiles.pack_tris16 plus
+           an all-zero dummy cluster C with inverted sub-slab boxes, the
+           no-hit sink that candidate-list padding points at.
+  rays     [size, 8, T] f32 (cuda_ctiles.pack_rays_tiles; row 7 = t_min).
+  cid8     [size * GROUP] i32, block i's candidates at i*GROUP.., in [0, C].
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from path_tracer_ai_tpu_torch.accel import cuda_ctiles, traverse
+from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
+    RAY_ROWS,
+    SUB,
+    _check,
+    n_subs,
+    pack_rays_tiles,
+    sub_pred,
+    sweep_rows_plain,
+)
+from path_tracer_ai_tpu_torch.utils import sync
+
+GROUP = 8  # candidate clusters consumed per block per cascade iteration
+PACK_ROWS = 16
+MAX_SUBS = 32
+SOURCE = "fused_anyhit"
+
+# Kernel launches since the last reset (the plain version never counts).
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def pack_tris_dummy(accel) -> torch.Tensor:
+    """[C+1, 16, S] triangle pack with an all-zero dummy cluster at index C.
+    A zero triangle has determinant 0 and fails |a| > MT_EPSILON on every
+    lane; the dummy's sub-slab boxes are inverted so sub_skip never sweeps
+    it."""
+    pack = cuda_ctiles.pack_tris16(accel)
+    dummy = torch.zeros((1,) + pack.shape[1:], dtype=pack.dtype,
+                        device=pack.device)
+    dummy[0, 10:13] = float("inf")
+    dummy[0, 13:16] = float("-inf")
+    return torch.cat([pack, dummy], dim=0)
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def sub_slab_ranges(s: int, sub_skip: bool):
+    """Slot ranges one cluster is swept in: its sub-slabs under sub_skip,
+    else the whole cluster."""
+    if not sub_skip:
+        return [(0, s)]
+    return [(k * SUB, min((k + 1) * SUB, s)) for k in range(n_subs(s))]
+
+
+def block_anyhit_plain(tri_pack, rays_pack, cid8, early_skip=False,
+                       sub_skip=False, stats: Optional[dict] = None):
+    """The kernel's function in eager torch ([size, T] bool), with the same
+    block-uniform skips. stats["tests"] counts the ray/triangle tests of the
+    (block, cluster or sub-slab) sweeps made over all T lanes,
+    stats["lane_tests"] those of the lanes that entered a sweep live and not
+    yet occluded (the others need none)."""
+    size, _, t_lanes = rays_pack.shape
+    s = tri_pack.shape[2]
+    dummy = tri_pack.shape[0] - 1
+    cid = cid8.reshape(size, GROUP).long()
+    occ = torch.zeros((size, t_lanes), dtype=torch.bool, device=rays_pack.device)
+    dead = rays_pack[:, 6] < 0.0
+    inv = 1.0 / rays_pack[:, 3:6] if sub_skip else None
+    tests = 0
+    lane_tests = torch.zeros((), dtype=torch.int64, device=occ.device)
+    for j in range(GROUP):
+        cj = cid[:, j]
+        guard = None
+        if early_skip:
+            guard = (cj < dummy) & ~(occ | dead).all(dim=1)
+        for k, (lo, hi) in enumerate(sub_slab_ranges(s, sub_skip)):
+            go = guard
+            if sub_skip:
+                box = tri_pack[cj, 10:16, k]                    # [size, 6]
+                pred = sub_pred(box, rays_pack, inv, rays_pack[:, 7],
+                                rays_pack[:, 6])
+                go = pred if guard is None else pred & guard
+            idx = (torch.arange(size, device=occ.device) if go is None
+                   else torch.nonzero(go).squeeze(1))
+            if idx.numel() == 0:
+                continue
+            tests += idx.numel() * t_lanes * (hi - lo)
+            if stats is not None:
+                lane_tests += (~(occ | dead))[idx].sum() * (hi - lo)
+            occ[idx] |= sweep_rows_plain(tri_pack, cj[idx], rays_pack[idx],
+                                         lo, hi, any_hit=True)
+    if stats is not None:
+        stats["tests"] = stats.get("tests", 0) + tests
+        stats["lane_tests"] = stats.get("lane_tests", 0) + int(lane_tests)
+    return occ
+
+
+def check_fused_inputs(tri_pack, rays_pack, cid8, rows_staged: int):
+    """Shapes, types and index range of one fused-kernel call; raises on
+    what the kernels do not take (one host read for the cluster ids).
+    Returns (size, s, t_lanes, dummy)."""
+    dev = rays_pack.device
+    _check("tri_pack", tri_pack, torch.float32, 3, dev)
+    _check("rays_pack", rays_pack, torch.float32, 3, dev)
+    _check("cid8", cid8, torch.int32, 1, dev)
+    c1, rows, s = tri_pack.shape
+    size, ray_rows, t_lanes = rays_pack.shape
+    if rows != PACK_ROWS or ray_rows != RAY_ROWS or c1 < 2:
+        raise ValueError(f"pack shapes {tuple(tri_pack.shape)} / "
+                         f"{tuple(rays_pack.shape)} are not [C+1,16,S] / "
+                         "[size,8,T]")
+    if cid8.shape[0] != size * GROUP:
+        raise ValueError(f"cid8 has {cid8.shape[0]} ids, expected "
+                         f"{size} x {GROUP}")
+    if not 0 < t_lanes <= 1024:
+        raise ValueError(f"T = {t_lanes} lanes per block is outside (0, 1024]")
+    if n_subs(s) > MAX_SUBS:
+        raise ValueError(f"S = {s} has more than {MAX_SUBS} sub-slabs")
+    if (rows_staged * s + 6 * n_subs(s)) * 4 > 48 * 1024:
+        raise ValueError(f"S = {s} needs more than 48 KB of shared memory")
+    if size:
+        lo, hi = torch.stack([cid8.min(), cid8.max()]).tolist()
+        sync.note()
+        if lo < 0 or hi > c1 - 1:
+            raise ValueError(f"cid8 holds cluster ids in [{lo}, {hi}], "
+                             f"outside [0, {c1 - 1}]")
+    return size, s, t_lanes, c1 - 1
+
+
+def _kernel():
+    from path_tracer_ai_tpu_torch import cuda_build
+
+    fn = cuda_build.load(SOURCE).block_anyhit
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def block_anyhit(tri_pack, rays_pack, cid8, early_skip=False, sub_skip=False):
+    """occluded [size, T] bool. CUDA tensors launch the kernel (or raise);
+    CPU tensors take the plain version."""
+    global launches
+    dev = rays_pack.device
+    if dev.type == "cpu":
+        return block_anyhit_plain(tri_pack, rays_pack, cid8, early_skip,
+                                  sub_skip)
+    if dev.type != "cuda":
+        raise ValueError(f"block_anyhit runs on cuda or cpu, not {dev}")
+    size, s, t_lanes, dummy = check_fused_inputs(tri_pack, rays_pack, cid8, 9)
+    occ = torch.empty((size, t_lanes), dtype=torch.bool, device=dev)
+    if size == 0:
+        return occ
+    err = _kernel()(tri_pack.data_ptr(), rays_pack.data_ptr(), cid8.data_ptr(),
+                    occ.data_ptr(), size, s, t_lanes, dummy, int(early_skip),
+                    int(sub_skip), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"block_anyhit launch failed: cudaError {err}")
+    launches += 1
+    return occ
+
+
+def prepare_fused_wave(accel, origins, directions, t_max, block_size, sort,
+                       sort_mode):
+    """The part both fused cascades share: pad the wave to a power-of-two
+    block count >= 32 with dead lanes (o 0, d 1, t_max -1), sort, cull per
+    block, and point the candidate slots past n_cand at the dummy cluster.
+    Returns (origins, directions, t_max, perm, n_cand, entry [nb, c_pad],
+    order_g [nb, c_pad / GROUP, GROUP]) over the padded, sorted wave."""
+    n0 = origins.shape[0]
+    dev = origins.device
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                               device=dev), (n0,))
+    nb = max(32, _next_pow2(-(-n0 // block_size)))
+    pad = nb * block_size - n0
+    if pad:
+        origins = torch.nn.functional.pad(origins, (0, 0, 0, pad))
+        directions = torch.nn.functional.pad(directions, (0, 0, 0, pad),
+                                             value=1.0)
+        t_max = torch.nn.functional.pad(t_max, (0, pad), value=-1.0)
+    perm = None
+    if sort:
+        origins, directions, t_max, perm = traverse._sort_rays(
+            accel, origins, directions, t_max, sort_mode)
+    order, n_cand, entry = traverse._block_candidates(
+        accel, origins.reshape(nb, block_size, 3),
+        directions.reshape(nb, block_size, 3), t_max.reshape(nb, block_size))
+    c = accel.num_clusters
+    c_pad = -(-c // GROUP) * GROUP
+    if c_pad - c:
+        order = torch.nn.functional.pad(order, (0, c_pad - c))
+        entry = torch.nn.functional.pad(entry, (0, c_pad - c),
+                                        value=float("inf"))
+    cols = torch.arange(c_pad, dtype=torch.int32, device=dev)
+    order = torch.where(cols[None, :] < n_cand[:, None], order, c)
+    return (origins, directions, t_max, perm, n_cand, entry,
+            order.reshape(nb, c_pad // GROUP, GROUP))
+
+
+def any_hit_fused(accel, origins, directions, t_min, t_max,
+                  block_size: int = 128, sort_mode: str = "dir",
+                  early_skip: bool = False, kernel_chunk: int = 8192,
+                  sort: bool = True, sub_skip: bool = False,
+                  exact_cull: int = 0, tri_pack=None) -> torch.Tensor:
+    """Occlusion query over a wave through the fused cascade ([N] bool).
+
+    Exact per ray; accepts any wave size (pads with dead lanes that sort to
+    the end and retire in the first compaction). sort=False skips the
+    coherence sort and the unsort; the cull's live-masked bounds keep
+    interleaved dead lanes from widening the blocks. Each iteration sweeps
+    the ACTIVE blocks only, `kernel_chunk` blocks per launch. tri_pack:
+    pack_tris_dummy(accel), if the caller holds one."""
+    if exact_cull:
+        raise ValueError("exact_cull is not ported "
+                         "(traverse._exact_block_candidates)")
+    n0 = origins.shape[0]
+    origins, directions, t_max, perm, n_cand, _entry, order_g = (
+        prepare_fused_wave(accel, origins, directions, t_max, block_size,
+                           sort, sort_mode))
+    nb = n_cand.shape[0]
+    n = nb * block_size
+    max_k = order_g.shape[1] - 1
+    if tri_pack is None:
+        tri_pack = pack_tris_dummy(accel)
+    rays_pack = pack_rays_tiles(origins, directions, t_max, block_size,
+                                t_min=float(t_min))
+
+    def active_fn(k, blocks, carry):
+        # Dead lanes (t_max < 0, ray row 6) can never be occluded and count
+        # as resolved, or a mixed block would only retire by exhaustion.
+        rays_pk, nc = blocks[:2]
+        resolved = carry[0] | (rays_pk[:, 6, :] < 0.0)
+        return (k * GROUP < nc) & ~resolved.all(dim=1)
+
+    def sweep_update(k, blocks, carry, idx):
+        rays_pk, _nc, ordg = blocks
+        (occ,) = carry
+        cid8 = ordg[idx, min(k, max_k)]                    # [n_act, GROUP]
+        r_act = rays_pk[idx]
+        for lo in range(0, idx.numel(), kernel_chunk):
+            hi = lo + kernel_chunk
+            hit = block_anyhit(tri_pack, r_act[lo:hi],
+                               cid8[lo:hi].reshape(-1), early_skip=early_skip,
+                               sub_skip=sub_skip)
+            occ[idx[lo:hi]] |= hit  # in place: the carry is this call's own
+        return (occ,)
+
+    carry, blk_index = traverse._cascade_traverse(
+        (rays_pack, n_cand, order_g),
+        (torch.zeros((nb, block_size), dtype=torch.bool,
+                     device=origins.device),),
+        sweep_update,
+        active_fn,
+    )
+    occluded = traverse._unpermute_blocks(carry[0], blk_index).reshape(n)
+    return traverse._unsort(occluded, perm)[:n0]

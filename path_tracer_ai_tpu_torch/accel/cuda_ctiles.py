@@ -15,8 +15,10 @@ design and its bound are described in the CUDA source.
 
 Layouts:
   tri_pack [C, 10, S] f32 (pack_tris): v0.xyz, e1.xyz, e2.xyz, tri id
-           bit-cast to f32. (The TPU pack's rows 10-15, sub-slab boxes for
-           the `sub_skip` option, are not ported yet.)
+           bit-cast to f32. pack_tris16 adds the TPU pack's rows 10-15, the
+           sub-slab boxes that the fused cascades' `sub_skip` gate reads
+           (accel.cuda_anyhit, accel.cuda_closest); tile_sweep's own
+           `sub_skip` is not ported and takes the 10-row pack only.
   rays     [nt, 8, T] f32 (pack_rays_tiles): ox oy oz dx dy dz t_max t_min.
   tile_cid [nt] i32.
 """
@@ -50,6 +52,59 @@ def pack_tris(accel) -> torch.Tensor:
     rows += [accel.e2[:, :, k] for k in range(3)]
     rows.append(accel.tri_id.view(torch.float32))
     return torch.stack(rows, dim=1).contiguous()
+
+
+SUB = 32  # sub-slab width: triangles per box of pack rows 10-15
+
+
+def n_subs(s: int) -> int:
+    """Sub-slabs per cluster for an S-wide accel."""
+    return -(-s // SUB)
+
+
+def pack_tris16(accel) -> torch.Tensor:
+    """[C, 16, S] f32 pack (pallas_ctiles.pack_tris): rows 0-9 as pack_tris;
+    rows 10-12 / 13-15 hold lo.xyz / hi.xyz of sub-slab k's AABB at lane k,
+    for k < n_subs(S). Padding slots, all-padding sub-slabs and the lanes
+    past n_subs hold inverted boxes (lo = +inf, hi = -inf), which fail
+    every slab test."""
+    c, s = accel.v0.shape[:2]
+    ns = n_subs(s)
+    pad_s = ns * SUB - s
+    v0, v1, v2 = accel.v0, accel.v0 + accel.e1, accel.v0 + accel.e2
+    valid = (accel.tri_id >= 0)[..., None]
+    inf = float("inf")
+    lo = torch.where(valid, torch.minimum(torch.minimum(v0, v1), v2), inf)
+    hi = torch.where(valid, torch.maximum(torch.maximum(v0, v1), v2), -inf)
+    if pad_s:
+        lo = torch.nn.functional.pad(lo, (0, 0, 0, pad_s), value=inf)
+        hi = torch.nn.functional.pad(hi, (0, 0, 0, pad_s), value=-inf)
+    sub_lo = lo.reshape(c, ns, SUB, 3).amin(dim=2)            # [C, ns, 3]
+    sub_hi = hi.reshape(c, ns, SUB, 3).amax(dim=2)
+    box_rows = torch.empty((c, 6, s), dtype=torch.float32, device=v0.device)
+    box_rows[:, :3] = inf
+    box_rows[:, 3:] = -inf
+    box_rows[:, :3, :ns] = sub_lo.transpose(1, 2)
+    box_rows[:, 3:, :ns] = sub_hi.transpose(1, 2)
+    return torch.cat([pack_tris(accel), box_rows], dim=1).contiguous()
+
+
+def sub_pred(box, rays, inv, t_lo, t_hi) -> torch.Tensor:
+    """[n] bool: does ANY lane's [t_lo, t_hi] segment touch its block's
+    sub-slab box (pallas_ctiles._sub_pred)? box [n, 6] lo.xyz hi.xyz, rays
+    [n, 8, T], inv [n, 3, T] = 1/d, t_lo / t_hi [n, T]. Inclusive slab in
+    comparison-select form: a NaN keeps the running bound (over-includes).
+    Dead lanes (t_hi < 0) fail."""
+    lo, hi = t_lo, t_hi
+    for axis in range(3):
+        o_row, inv_row = rays[:, axis], inv[:, axis]
+        t0 = (box[:, axis, None] - o_row) * inv_row
+        t1 = (box[:, 3 + axis, None] - o_row) * inv_row
+        neg = inv_row < 0.0
+        near, far = torch.where(neg, t1, t0), torch.where(neg, t0, t1)
+        lo = torch.where(near > lo, near, lo)
+        hi = torch.where(far < hi, far, hi)
+    return (hi >= lo).any(dim=1)
 
 
 def pack_rays_tiles(o, d, t_max, t_lanes: int, t_min=1e-3) -> torch.Tensor:
@@ -88,30 +143,46 @@ def mt_sweep_rows(ox, oy, oz, dx, dy, dz, v0x, v0y, v0z,
     return torch.where(ok, t, torch.full_like(t, float("inf"))), ok
 
 
-PLAIN_CHUNK = 64  # tiles per step of the plain version ([64, T, S] temporaries)
+PLAIN_ELEMS = 1 << 22  # [blocks, T, rows] elements per step of sweep_rows_plain
+
+
+def sweep_rows_plain(tri_pack, cid, rays, lo: int, hi: int, t_max=None,
+                     any_hit: bool = False):
+    """Blocks of T rays against slots lo..hi-1 of ONE cluster each, in eager
+    torch: tri_pack [C, >=10, S], cid [n] i64, rays [n, 8, T]; t_max [n, T]
+    replaces ray row 6. Returns (best t [n, T], min tri id at best t [n, T]
+    i32, INT32_MAX on a miss), or with any_hit the [n, T] bool "some slot
+    passes". Chunked so the [blocks, T, rows] temporaries stay small."""
+    n, _, t_lanes = rays.shape
+    dev = rays.device
+    step = max(1, PLAIN_ELEMS // (t_lanes * max(hi - lo, 1)))
+    hit = torch.empty((n, t_lanes), dtype=torch.bool, device=dev)
+    t_out = torch.empty((n, t_lanes), dtype=torch.float32, device=dev)
+    tri_out = torch.empty((n, t_lanes), dtype=torch.int32, device=dev)
+    for a in range(0, n, step):
+        b = min(a + step, n)
+        tp = tri_pack[cid[a:b], :, lo:hi]                  # [c, rows, w]
+        rp = rays[a:b]
+        ray = [rp[:, k, :, None] for k in range(RAY_ROWS)]  # [c, T, 1]
+        tri = [tp[:, k, None, :] for k in range(9)]         # [c, 1, w]
+        cap = ray[6] if t_max is None else t_max[a:b, :, None]
+        tt, ok = mt_sweep_rows(*ray[:6], *tri, ray[7], cap)
+        if any_hit:
+            hit[a:b] = ok.any(dim=-1)
+            continue
+        best = tt.amin(dim=-1)
+        tid = tp[:, 9, None, :].view(torch.int32)
+        t_out[a:b] = best
+        tri_out[a:b] = torch.where(ok & (tt <= best[..., None]), tid,
+                                   I32_MAX).amin(dim=-1).to(torch.int32)
+    return hit if any_hit else (t_out, tri_out)
 
 
 def tile_sweep_plain(tri_pack, rays_pack, tile_cid):
     """The kernel's function in eager torch: the [tiles, T, S] sweep plus
     the min / min-tri-at-min reduction, chunked over tiles."""
-    nt, _, t_lanes = rays_pack.shape
-    dev = rays_pack.device
-    t_out = torch.empty((nt, t_lanes), dtype=torch.float32, device=dev)
-    tri_out = torch.empty((nt, t_lanes), dtype=torch.int32, device=dev)
-    for lo in range(0, nt, PLAIN_CHUNK):
-        hi = min(lo + PLAIN_CHUNK, nt)
-        tp = tri_pack[tile_cid[lo:hi].long()]             # [c, 10, S]
-        rp = rays_pack[lo:hi]                             # [c, 8, T]
-        ray = [rp[:, k, :, None] for k in range(RAY_ROWS)]  # [c, T, 1]
-        tri = [tp[:, k, None, :] for k in range(9)]         # [c, 1, S]
-        tt, ok = mt_sweep_rows(*ray[:6], *tri, ray[7], ray[6])
-        best = tt.amin(dim=-1)                            # [c, T]
-        tid = tp[:, 9, None, :].view(torch.int32)
-        tri_min = torch.where(ok & (tt <= best[..., None]), tid,
-                              I32_MAX).amin(dim=-1)
-        t_out[lo:hi] = best
-        tri_out[lo:hi] = tri_min.to(torch.int32)
-    return t_out, tri_out
+    return sweep_rows_plain(tri_pack, tile_cid.long(), rays_pack, 0,
+                            tri_pack.shape[2])
 
 
 def _check(name, x, dtype, ndim, device):

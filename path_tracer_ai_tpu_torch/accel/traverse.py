@@ -76,6 +76,16 @@ def _sort_rays(accel, origins, directions, t_max, mode: str):
     return packed[:, 0:3], packed[:, 3:6], packed[:, 6], perm
 
 
+def _unsort(x, perm):
+    """Undo _sort_rays on a per-ray result: out[perm[i]] = x[i]. perm None
+    (the wave was not sorted) returns x."""
+    if perm is None:
+        return x
+    out = torch.empty_like(x)
+    out[perm] = x
+    return out
+
+
 def _interval_slab(bmin, bmax, olo, ohi, dlo, dhi):
     """Interval-arithmetic slab bounds of ray blocks vs shared [K,3] boxes.
 
@@ -273,9 +283,4 @@ def any_hit_packets(accel: ClusterAccel, origins, directions, t_min, t_max,
         sweep_update,
         active_fn,
     )
-    out = _unpermute_blocks(carry[0], blk_index).reshape(n)
-    if sort:
-        res = torch.empty_like(out)
-        res[perm] = out
-        out = res
-    return out
+    return _unsort(_unpermute_blocks(carry[0], blk_index).reshape(n), perm)

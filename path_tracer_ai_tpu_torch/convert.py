@@ -53,6 +53,44 @@ def accel_from_numpy(bmin, bmax, v0, e1, e2, tri_id, scene_min, scene_max,
     )
 
 
+def _same_bits(name, ours: torch.Tensor, theirs) -> None:
+    theirs = np.asarray(theirs)
+    ours = ours.cpu().numpy()
+    if ours.shape != theirs.shape or ours.dtype != theirs.dtype:
+        raise ValueError(f"{name}: {ours.dtype}{ours.shape} here, "
+                         f"{theirs.dtype}{theirs.shape} there")
+    view = np.int32 if ours.dtype.itemsize == 4 else np.uint8
+    diff = int((ours.view(view) != theirs.view(view)).sum())
+    if diff:
+        raise ValueError(f"{name}: {diff} words differ")
+
+
+def check_packs_match(accel: ClusterAccel, slab=None, pack16=None,
+                      pack_dummy=None) -> None:
+    """Hold the port's kernel packs of a converted accel against the JAX
+    package's, bit for bit; raises ValueError on the first that differs.
+
+    slab: (tri [C,9,S], tri_id [C,S]) of pallas_sweep.build_slab_table;
+    pack16: pallas_ctiles.pack_tris [C,16,S]; pack_dummy:
+    pallas_anyhit.pack_tris_dummy [C+1,16,S]; each as numpy arrays, each
+    optional."""
+    from path_tracer_ai_tpu_torch.accel import (
+        cuda_anyhit,
+        cuda_ctiles,
+        cuda_sweep,
+    )
+
+    if slab is not None:
+        ours = cuda_sweep.build_slab_table(accel)
+        _same_bits("slab.tri", ours.tri, slab[0])
+        _same_bits("slab.tri_id", ours.tri_id, slab[1])
+    if pack16 is not None:
+        _same_bits("pack_tris16", cuda_ctiles.pack_tris16(accel), pack16)
+    if pack_dummy is not None:
+        _same_bits("pack_tris_dummy", cuda_anyhit.pack_tris_dummy(accel),
+                   pack_dummy)
+
+
 def camera_from_numpy(position, forward, right, up, fov_deg,
                       device="cpu") -> Camera:
     f = lambda a: _t(a, device, np.float32)

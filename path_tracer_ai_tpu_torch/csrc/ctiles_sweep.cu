@@ -30,24 +30,16 @@
 // The design spends nothing beyond the arithmetic: no intermediate leaves
 // registers, and the triangle rows come from shared memory.
 //
-// Exactness. The arithmetic keeps traverse._mt_sweep's op order term for
-// term and computes f = 1/a with IEEE division. It must be built with
-// --fmad=false and without --use_fast_math or -prec-div=false: otherwise
-// x*y - z*w contracts to an FMA and t moves by a few ulps. Dead lanes
-// (t_max = -1) fail every test through t <= t_max; padding triangles (all
-// zero) fail |a| > MT_EPSILON. The fold is the oracle's lexicographic
-// rule: a passing test with t < best replaces it; one with t == best keeps
-// the smaller id, so a passing test whose t is +inf still sets tri (the
-// any-hit reading `tri != INT32_MAX` relies on that).
+// Exactness. The arithmetic is mt.cuh's mt_test (traverse._mt_sweep's op
+// order, IEEE division; build with --fmad=false). Dead lanes (t_max = -1)
+// fail every test through t <= t_max; padding triangles (all zero) fail
+// |a| > MT_EPSILON. The fold is the oracle's lexicographic rule
+// (mt.cuh fold_min_tri); the any-hit reading `tri != INT32_MAX` relies on a
+// passing test with t = +inf still setting tri.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "mt.cuh"
 
 #define PACK_ROWS 10
-#define RAY_ROWS 8
-#define I32_MAX 2147483647
-#define MT_EPSILON 1.0e-7f
 
 __global__ void ctiles_sweep_kernel(const float* __restrict__ tri_pack,
                                     const float* __restrict__ rays,
@@ -69,45 +61,16 @@ __global__ void ctiles_sweep_kernel(const float* __restrict__ tri_pack,
 
   for (int lane = threadIdx.x; lane < t_lanes; lane += blockDim.x) {
     const float* r = rays + (size_t)tile * RAY_ROWS * t_lanes + lane;
-    const float ox = r[0 * t_lanes], oy = r[1 * t_lanes], oz = r[2 * t_lanes];
-    const float dx = r[3 * t_lanes], dy = r[4 * t_lanes], dz = r[5 * t_lanes];
+    const Ray ray = load_ray(r, t_lanes);
     const float tmax = r[6 * t_lanes], tmin = r[7 * t_lanes];
 
     float best_t = INFINITY;
     int best_tri = I32_MAX;
     const int n = cid_ok ? s : 0;
     for (int j = 0; j < n; ++j) {
-      const float v0x = tri[0 * s + j], v0y = tri[1 * s + j], v0z = tri[2 * s + j];
-      const float e1x = tri[3 * s + j], e1y = tri[4 * s + j], e1z = tri[5 * s + j];
-      const float e2x = tri[6 * s + j], e2y = tri[7 * s + j], e2z = tri[8 * s + j];
-      const int tid = __float_as_int(tri[9 * s + j]);
-
-      // h = d x e2
-      const float hx = dy * e2z - dz * e2y;
-      const float hy = dz * e2x - dx * e2z;
-      const float hz = dx * e2y - dy * e2x;
-      const float a = e1x * hx + e1y * hy + e1z * hz;
-      bool ok = fabsf(a) > MT_EPSILON;
-      const float f = 1.0f / (ok ? a : 1.0f);
-      const float sx = ox - v0x;
-      const float sy = oy - v0y;
-      const float sz = oz - v0z;
-      const float u = f * (sx * hx + sy * hy + sz * hz);
-      // q = s x e1
-      const float qx = sy * e1z - sz * e1y;
-      const float qy = sz * e1x - sx * e1z;
-      const float qz = sx * e1y - sy * e1x;
-      const float v = f * (dx * qx + dy * qy + dz * qz);
-      const float t = f * (e2x * qx + e2y * qy + e2z * qz);
-      ok = ok && (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) && (u + v <= 1.0f);
-      ok = ok && (t >= tmin) && (t <= tmax);
-      if (ok) {
-        if (t < best_t) {
-          best_t = t;
-          best_tri = tid;
-        } else if (t == best_t && tid < best_tri) {
-          best_tri = tid;
-        }
+      float t;
+      if (mt_test(ray, tri, s, j, tmin, tmax, &t)) {
+        fold_min_tri(t, __float_as_int(tri[9 * s + j]), &best_t, &best_tri);
       }
     }
     t_out[(size_t)tile * t_lanes + lane] = best_t;

@@ -1,11 +1,11 @@
 """Builds the port's CUDA sources with nvcc and loads them with ctypes.
 
 Each source `csrc/<name>.cu` exposes a plain C entry point and becomes
-`_build/<name>-<hash>.so`, where the hash covers the source and the flags,
-so an edited source is rebuilt at its next use and an unchanged one never
-is. Nothing here runs at import time: the package imports on machines
-without nvcc or a GPU, and a build happens at a kernel's first launch (or
-ahead of it, through `build_all`).
+`_build/<name>-<hash>.so`, where the hash covers the source, the shared
+headers (`csrc/*.cuh`) and the flags, so an edited source is rebuilt at its
+next use and an unchanged one never is. Nothing here runs at import time:
+the package imports on machines without nvcc or a GPU, and a build happens
+at a kernel's first launch (or ahead of it, through `build_all`).
 
 Flags: sm_90a, -O3, and --fmad=false so that `x*y - z*w` is never
 contracted into an FMA (the kernels must match their plain PyTorch
@@ -45,8 +45,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -1,20 +1,29 @@
 """Wavefront engine: the accelerated render path (counterpart of
-engine/wavefront.py, `render` with scheduler="wave" on the hybrid backend).
+engine/wavefront.py, `render` with scheduler="wave").
 
 Rays are processed in fixed-size waves:
 
   generate wave -> [bounce loop, stepped from the host] -> accumulate
 
+The traversal backend (`packet_backend`) is "hybrid" by default:
 - closest waves: accel.ctiles over a second accel of S=256 clusters
   (HYBRID_CLOSEST_CLUSTER_SIZE), built from the original triangles so the
-  edge vectors stay bit-identical to the oracle's;
+  edge vectors stay bit-identical to the oracle's; or, with
+  HYBRID_CLOSEST_KW = dict(engine="cascade_fused"), the fused closest
+  cascade (accel.cuda_closest) over the base accel;
 - shadow waves: accel.traverse.any_hit_packets over the S=128 base accel
-  (blocks of `block_size` rays, groups of 2 candidates, "dir" sort);
+  (blocks of `block_size` rays, groups of 2 candidates, "dir" sort); or,
+  with HYBRID_OCCLUDE_KW = dict(engine="packets_fused", ...), the fused
+  any-hit cascade (accel.cuda_anyhit);
 - bounce 0 skips the coherence sort of both wave types (primary rays in
-  pixel order are already coherent);
-- live-lane compaction: when the live count fits in half the current wave,
-  the live lanes are gathered into a power-of-2 bucket and their radiance
-  scattered back at the end.
+  pixel order are already coherent).
+backend="pallas" (or use_pallas=True) sends both wave types through the
+per-block candidate walks of accel.cuda_sweep, one kernel launch per wave.
+On cuda every engine launches its kernels; on cpu their plain versions.
+
+Live-lane compaction: when the live count fits in half the current wave,
+the live lanes are gathered into a power-of-2 bucket and their radiance
+scattered back at the end.
 
 RNG streams are keyed by (pixel, sample, bounce, purpose) only, so the
 image does not depend on wave size or compaction, and equals the oracle's
@@ -31,7 +40,14 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from path_tracer_ai_tpu_torch.accel import cuda_ctiles, ctiles, traverse
+from path_tracer_ai_tpu_torch.accel import (
+    ctiles,
+    cuda_anyhit,
+    cuda_closest,
+    cuda_ctiles,
+    cuda_sweep,
+    traverse,
+)
 from path_tracer_ai_tpu_torch.accel.clusters import ClusterAccel, build_clusters
 from path_tracer_ai_tpu_torch.config import RenderSettings
 from path_tracer_ai_tpu_torch.core import sampling, threefry
@@ -50,13 +66,22 @@ from path_tracer_ai_tpu_torch.utils.logging import get_logger, render_banner
 
 log = get_logger(__name__)
 
-# Shadow waves: the packet cascade, groups of 2 candidates per iteration.
-HYBRID_OCCLUDE_KW = dict(block_size=64, group_size=2)
-# Closest waves: ctiles with the reference's committed defaults.
+# Shadow-wave engine of the hybrid backend: "packets" (the packet cascade,
+# groups of 2 candidates per iteration) or "packets_fused" (accel.cuda_anyhit;
+# takes early_skip, sub_skip, sort, sort_mode, block_size).
+HYBRID_OCCLUDE_KW = dict(engine="packets", group_size=2)
+# Closest-wave engine of the hybrid backend: "ctiles" or "cascade_fused"
+# (accel.cuda_closest, on the base accel; takes sub_skip, sort, sort_mode,
+# block_size, kernel_chunk).
+HYBRID_CLOSEST_KW = dict(engine="ctiles")
+# ctiles closest waves: the reference's committed defaults.
 CTILES_CLOSEST_KW = dict(cap=48, tile_chunk=2048, fallback_compact=1 << 12)
 HYBRID_CLOSEST_CLUSTER_SIZE = 256
 # Compaction never shrinks a wave below this many lanes.
 COMPACT_MIN_BUCKET = 1 << 16
+# Backends of the reference's packet_backend that the port does not have.
+UNPORTED_BACKENDS = ("packets", "worklist", "kslots", "ctiles", "pairs",
+                     "perray")
 
 
 class RenderStats:
@@ -77,26 +102,135 @@ class RenderStats:
         return self.total_rays / self.seconds / 1e6 if self.seconds > 0 else 0.0
 
 
-def hybrid_backend(accel: ClusterAccel, accel_closest: ClusterAccel,
-                   pack, pack_closest, sort: bool):
-    """(closest_fn, occlude_fn) of the hybrid backend. `pack` and
-    `pack_closest` are the tile-sweep triangle packs of the two accels;
-    `sort` turns the coherence sort of both wave types on."""
+def default_backend(accel: Optional[ClusterAccel] = None) -> str:
+    """ "hybrid" for every scene. The reference sends scenes past 2048
+    clusters to its worklist backend; until that is ported the hybrid
+    backend, whose culls have no cluster limit, draws them too."""
+    return "hybrid"
 
-    # The labels name the two wave types in a torch.profiler trace.
-    def closest(o, d, t_min, t_max):
-        with record_function("closest_wave"):
+
+def resolve_backend(accel, block_size: int, use_pallas: bool,
+                    backend: Optional[str]) -> str:
+    """The backend's name; None resolves through the reference's legacy
+    flags (use_pallas=True -> "pallas", block_size == 1 -> "perray"), else
+    to default_backend(accel)."""
+    if backend is not None:
+        return backend
+    if use_pallas:
+        return "pallas"
+    if block_size == 1:
+        return "perray"
+    return default_backend(accel)
+
+
+def _labelled(label, fn):
+    """fn under a label that names the wave type in a torch.profiler trace."""
+    def run(*args):
+        with record_function(label):
+            return fn(*args)
+    return run
+
+
+def packet_backend(accel: ClusterAccel, block_size: int = 256,
+                   use_pallas: bool = False, backend: Optional[str] = None,
+                   accel_closest: Optional[ClusterAccel] = None,
+                   occlude_sort: Optional[bool] = None,
+                   closest_sort: Optional[bool] = None,
+                   packs: Optional[dict] = None):
+    """(closest_fn, occlude_fn) over the cluster structure.
+
+    backend: "hybrid" (per-wave-type engines, see HYBRID_CLOSEST_KW and
+    HYBRID_OCCLUDE_KW) or "pallas" (accel.cuda_sweep); None: see
+    resolve_backend. occlude_sort / closest_sort override the hybrid
+    engines' coherence sort (the bounce-0 no-sort); the pallas backend
+    always sorts, as in the reference. packs: a dict that keeps the
+    triangle packs and the slab table between calls over the same accels
+    (render builds its two backends from one). The reference's other
+    backends and engines raise ValueError: they are not ported."""
+    backend = resolve_backend(accel, block_size, use_pallas, backend)
+    packs = {} if packs is None else packs
+
+    def packed(build, acc):
+        name = (build.__name__, id(acc))
+        if name not in packs:
+            packs[name] = build(acc)
+        return packs[name]
+
+    if backend == "pallas":
+        slab = packed(cuda_sweep.build_slab_table, accel)
+
+        def closest(o, d, t_min, t_max):
+            return cuda_sweep.closest_hit_pallas(
+                accel, slab, o, d, RAY_TMIN, t_max, block_size=block_size)
+
+        def occlude(o, d, t_max):
+            return cuda_sweep.any_hit_pallas(
+                accel, slab, o, d, RAY_TMIN, t_max, block_size=block_size)
+
+        return (_labelled("closest_wave", closest),
+                _labelled("shadow_wave", occlude))
+
+    if backend != "hybrid":
+        known = backend in UNPORTED_BACKENDS
+        raise ValueError(f"backend {backend!r} is "
+                         + ("not ported" if known else "unknown"))
+
+    closest_eng = HYBRID_CLOSEST_KW.get("engine", "ctiles")
+    cckw = {k: v for k, v in HYBRID_CLOSEST_KW.items() if k != "engine"}
+    if closest_sort is not None:
+        cckw["sort"] = closest_sort
+    if closest_eng == "cascade_fused":
+        pack_fused = packed(cuda_anyhit.pack_tris_dummy, accel)
+
+        def closest(o, d, t_min, t_max):
+            return cuda_closest.closest_hit_fused(
+                accel, o, d, RAY_TMIN, t_max, tri_pack=pack_fused, **cckw)
+    elif closest_eng == "ctiles":
+        accel_cl = accel_closest if accel_closest is not None else accel
+        pack_cl = packed(cuda_ctiles.pack_tris, accel_cl)
+        ckw = dict(CTILES_CLOSEST_KW)
+        if closest_sort is not None:
+            ckw["sort"] = closest_sort
+
+        def closest(o, d, t_min, t_max):
             return ctiles.closest_hit_ctiles(
-                accel_closest, o, d, RAY_TMIN, t_max, sort=sort,
-                tri_pack=pack_closest, **CTILES_CLOSEST_KW)
+                accel_cl, o, d, RAY_TMIN, t_max, tri_pack=pack_cl, **ckw)
+    else:
+        raise ValueError(f"hybrid closest engine {closest_eng!r} is not "
+                         "ported")
 
-    def occlude(o, d, t_max):
-        with record_function("shadow_wave"):
+    occlude_eng = HYBRID_OCCLUDE_KW.get("engine")
+    okw = {k: v for k, v in HYBRID_OCCLUDE_KW.items() if k != "engine"}
+    if okw.get("exact_cull", 0):
+        raise ValueError("exact_cull is not ported "
+                         "(traverse._exact_block_candidates)")
+    sort = okw.get("sort", True) if occlude_sort is None else occlude_sort
+    if okw.get("sort_mode", "dir") != "dir" and occlude_eng == "packets":
+        raise ValueError("the packet cascade is ported with sort_mode 'dir'")
+    if occlude_eng == "packets":
+        pack = packed(cuda_ctiles.pack_tris, accel)
+        pkw = dict(block_size=okw.get("block_size", block_size),
+                   group_size=okw.get("group_size", 8), sort=sort)
+
+        def occlude(o, d, t_max):
             return traverse.any_hit_packets(
-                accel, o, d, RAY_TMIN, t_max, sort=sort, tri_pack=pack,
-                **HYBRID_OCCLUDE_KW)
+                accel, o, d, RAY_TMIN, t_max, tri_pack=pack, **pkw)
+    elif occlude_eng == "packets_fused":
+        pack_dummy = packed(cuda_anyhit.pack_tris_dummy, accel)
+        fkw = dict(block_size=okw.get("block_size", 128),
+                   sort_mode=okw.get("sort_mode", "dir"),
+                   early_skip=okw.get("early_skip", False),
+                   sub_skip=okw.get("sub_skip", False), sort=sort)
 
-    return closest, occlude
+        def occlude(o, d, t_max):
+            return cuda_anyhit.any_hit_fused(
+                accel, o, d, RAY_TMIN, t_max, tri_pack=pack_dummy, **fkw)
+    else:
+        raise ValueError(f"hybrid shadow engine {occlude_eng!r} is not "
+                         "ported")
+
+    return (_labelled("closest_wave", closest),
+            _labelled("shadow_wave", occlude))
 
 
 def _compact_bucket(n_live: int) -> int:
@@ -201,13 +335,16 @@ def _scatter_back(radiance_full, radiance_c, idx):
 
 def render(scene: SceneData, camera: Camera, settings: RenderSettings,
            accel: Optional[ClusterAccel] = None, wave_size: int = 1 << 20,
-           stats: Optional[RenderStats] = None,
+           block_size: int = 64, stats: Optional[RenderStats] = None,
+           use_pallas: bool = False, backend: Optional[str] = None,
            accel_closest: Optional[ClusterAccel] = None,
            device=None) -> np.ndarray:
     """Full-frame wavefront render -> linear [H, W, 3] float32 (numpy).
 
-    device: None means cuda (raises without a GPU); "cpu" runs the plain
-    versions of the kernels."""
+    block_size: rays per traversal block (the packet cascade's and the
+    pallas backend's; waves are padded to it). backend / use_pallas: see
+    packet_backend. device: None means cuda (raises without a GPU); "cpu"
+    runs the plain versions of the kernels."""
     dev = resolve_device(device)
     scene = scene_to(scene, dev)
     camera = camera.to(dev)
@@ -222,30 +359,35 @@ def render(scene: SceneData, camera: Camera, settings: RenderSettings,
                  accel.num_clusters, accel.cluster_size,
                  time.perf_counter() - t0)
     accel = accel.to(dev)
+    # Dual-accel hybrid: ctiles closest waves run at another cluster size,
+    # built from the ORIGINAL triangles. The fused closest cascade and the
+    # pallas backend run on the base accel.
     accel_c = accel_closest
-    if accel_c is None:
-        accel_c = accel
-        if HYBRID_CLOSEST_CLUSTER_SIZE != accel.cluster_size:
-            t0 = time.perf_counter()
-            accel_c = build_clusters(
-                scene.triangles, cluster_size=HYBRID_CLOSEST_CLUSTER_SIZE,
-                device=dev)
-            log.info("Built closest-path accel: %d clusters x %d slots (%.3fs)",
-                     accel_c.num_clusters, accel_c.cluster_size,
-                     time.perf_counter() - t0)
-    accel_c = accel_c.to(dev)
-    pack, pack_c = cuda_ctiles.pack_tris(accel), cuda_ctiles.pack_tris(accel_c)
+    backend = resolve_backend(accel, block_size, use_pallas, backend)
+    if (accel_c is None and backend == "hybrid"
+            and HYBRID_CLOSEST_KW.get("engine", "ctiles") == "ctiles"
+            and HYBRID_CLOSEST_CLUSTER_SIZE != accel.cluster_size):
+        t0 = time.perf_counter()
+        accel_c = build_clusters(
+            scene.triangles, cluster_size=HYBRID_CLOSEST_CLUSTER_SIZE,
+            device=dev)
+        log.info("Built closest-path accel: %d clusters x %d slots (%.3fs)",
+                 accel_c.num_clusters, accel_c.cluster_size,
+                 time.perf_counter() - t0)
+    if accel_c is not None:
+        accel_c = accel_c.to(dev)
     # Primary rays in pixel order are already coherent: bounce 0 skips the
-    # sort of both wave types.
-    backends = (hybrid_backend(accel, accel_c, pack, pack_c, sort=False),
-                hybrid_backend(accel, accel_c, pack, pack_c, sort=True))
+    # sort of both wave types (hybrid engines only).
+    bkw = dict(backend=backend, accel_closest=accel_c, packs={})
+    backends = (packet_backend(accel, block_size, occlude_sort=False,
+                               closest_sort=False, **bkw),
+                packet_backend(accel, block_size, **bkw))
 
     base_key = threefry.key(resolve_seed(settings), device=dev)
     npix = w * h
     pix_chunk = min(npix, wave_size)
     sc = min(max(1, wave_size // pix_chunk), spp)
-    block = HYBRID_OCCLUDE_KW["block_size"]  # shadow waves: whole blocks
-    lanes_padded = -(-(pix_chunk * sc) // block) * block
+    lanes_padded = -(-(pix_chunk * sc) // block_size) * block_size
     n_pix_chunks = math.ceil(npix / pix_chunk)
     pix = torch.arange(n_pix_chunks * pix_chunk, dtype=torch.int64, device=dev)
     pix = torch.where(pix < npix, pix, 0)  # padded pixel slots replay pixel 0

@@ -3,14 +3,20 @@
 They skip where torch sees no CUDA device. On the GPU machine, which has
 no JAX (tests/conftest.py imports it):
     python -m pytest tests/test_torch_cuda.py -q --noconftest
-The kernel must equal its plain version bit for bit (t) and exactly (tri).
+Every kernel must equal its plain version bit for bit (t) and exactly
+(cluster, slot, triangle id, occlusion).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from path_tracer_ai_tpu_torch.accel import cuda_ctiles
+from path_tracer_ai_tpu_torch.accel import (
+    cuda_anyhit,
+    cuda_closest,
+    cuda_ctiles,
+    cuda_sweep,
+)
 from path_tracer_ai_tpu_torch.accel.clusters import build_clusters
 from path_tracer_ai_tpu_torch.scene.scene import blob_room_arrays
 
@@ -85,3 +91,159 @@ def test_wavefront_equals_oracle_on_gpu(cuda):
     assert cuda_ctiles.launches > before
     img_o = oracle.render(scene, default_camera(cuda), s, device=cuda)
     np.testing.assert_array_equal(img_w, img_o)
+
+
+# --- the pallas backend's sweeps and the fused cascades' block kernels ------
+
+
+def _accel(cuda, s=128, subdiv=4):
+    from types import SimpleNamespace
+
+    arr = blob_room_arrays(subdiv)
+    return build_clusters(SimpleNamespace(v0=arr[0], v1=arr[1], v2=arr[2]),
+                          cluster_size=s, device=cuda)
+
+
+def _bounce_wave(acc, n, rng, dead_every=7):
+    """Rays that leave points near the triangles in random directions; half
+    with a finite t_max, every `dead_every`-th lane dead."""
+    v0 = acc.v0.cpu().numpy().reshape(-1, 3)
+    v0 = v0[acc.tri_id.cpu().numpy().reshape(-1) >= 0]
+    o = v0[rng.integers(0, v0.shape[0], n)]
+    o = o + rng.standard_normal(o.shape).astype(np.float32) * 1e-2
+    d = rng.standard_normal(o.shape).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tm = np.full(n, np.inf, np.float32)
+    tm[1::2] = rng.uniform(0.5, 15.0, n // 2).astype(np.float32)
+    tm[::dead_every] = -1.0
+    dev = acc.v0.device
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+    return t(o), t(d), t(tm)
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("block_size", [64, 128])
+def test_sweep_kernels_match_plain(cuda, rng, block_size):
+    acc = _accel(cuda)
+    slab = cuda_sweep.build_slab_table(acc)
+    o, d, tm = _bounce_wave(acc, 256 * block_size, rng)
+    rays, order, entry, n_cand, _perm = cuda_sweep._prep_wave(
+        acc, o, d, tm, block_size, True)
+    before = dict(cuda_sweep.launches)
+    bt, bc, bs = cuda_sweep.closest_sweep(slab, rays, order, entry, n_cand)
+    occ = cuda_sweep.anyhit_sweep(slab, rays, order, n_cand)
+    torch.cuda.synchronize()
+    assert cuda_sweep.launches["closest_sweep"] == before["closest_sweep"] + 1
+    assert cuda_sweep.launches["anyhit_sweep"] == before["anyhit_sweep"] + 1
+    pt, pc, ps = cuda_sweep.closest_sweep_plain(slab, rays, order, entry, n_cand)
+    pocc = cuda_sweep.anyhit_sweep_plain(slab, rays, order, n_cand)
+    assert cuda_sweep.launches["closest_sweep"] == before["closest_sweep"] + 1
+    assert (bc >= 0).float().mean() > 0.2 and occ.any() and not occ.all()
+    assert torch.equal(_bits(bt), _bits(pt))
+    assert torch.equal(bc, pc) and torch.equal(bs, ps)
+    assert torch.equal(occ, pocc)
+    assert not occ.reshape(-1)[rays[:, 6].reshape(-1) < 0].any()
+
+
+@pytest.mark.parametrize("s", [128, 64])
+def test_fused_kernels_match_plain(cuda, rng, s):
+    acc = _accel(cuda, s)
+    pack = cuda_anyhit.pack_tris_dummy(acc)
+    o, d, tm = _bounce_wave(acc, 256 * 128, rng)
+    o, d, tm, _perm, n_cand, _entry, order_g = cuda_anyhit.prepare_fused_wave(
+        acc, o, d, tm, 128, True, "dir")
+    rays = cuda_ctiles.pack_rays_tiles(o, d, tm, 128)
+    assert int(n_cand.max()) > cuda_anyhit.GROUP
+    hits = 0
+    for k in (0, 1, order_g.shape[1] - 1):
+        cid8 = order_g[:, k].reshape(-1).contiguous()
+        before = cuda_anyhit.launches
+        ref = cuda_anyhit.block_anyhit_plain(pack, rays, cid8)
+        for early_skip in (False, True):
+            for sub_skip in (False, True):
+                occ = cuda_anyhit.block_anyhit(pack, rays, cid8,
+                                               early_skip=early_skip,
+                                               sub_skip=sub_skip)
+                assert torch.equal(occ, ref), (k, early_skip, sub_skip)
+        assert cuda_anyhit.launches == before + 4
+        before = cuda_closest.launches
+        pt, ptri = cuda_closest.block_closest_plain(pack, rays, cid8, True)
+        for sub_skip in (False, True):
+            kt, ktri = cuda_closest.block_closest(pack, rays, cid8, sub_skip)
+            assert torch.equal(_bits(kt), _bits(pt)), (k, sub_skip)
+            assert torch.equal(ktri, ptri), (k, sub_skip)
+        assert cuda_closest.launches == before + 2
+        hits += int((ptri != cuda_ctiles.I32_MAX).sum())
+        torch.cuda.synchronize()
+    assert hits > 1000
+
+
+def test_sweep_wrappers_reject_bad_inputs(cuda):
+    slab = cuda_sweep.SlabTable(tri=torch.zeros((2, 9, 128), device=cuda),
+                                tri_id=torch.zeros((2, 128), dtype=torch.int32,
+                                                   device=cuda))
+    rays = torch.zeros((4, 8, 64), device=cuda)
+    order = torch.zeros((4, 128), dtype=torch.int32, device=cuda)
+    entry = torch.zeros((4, 128), device=cuda)
+    n_cand = torch.ones((4,), dtype=torch.int32, device=cuda)
+    cuda_sweep.closest_sweep(slab, rays, order, entry, n_cand)  # well-formed
+    with pytest.raises(TypeError):
+        cuda_sweep.closest_sweep(slab, rays, order.long(), entry, n_cand)
+    with pytest.raises(ValueError):
+        cuda_sweep.closest_sweep(slab, rays, order + 2, entry, n_cand)
+    with pytest.raises(ValueError):
+        cuda_sweep.closest_sweep(slab, rays, order, entry[:, :64], n_cand)
+    with pytest.raises(ValueError):
+        cuda_sweep.anyhit_sweep(slab, rays, order, n_cand + 128)
+    with pytest.raises(ValueError):
+        cuda_sweep.anyhit_sweep(slab, rays, order.cpu(), n_cand)
+    with pytest.raises(ValueError):
+        cuda_sweep.anyhit_sweep(slab, rays[:, :, ::2], order, n_cand)
+
+
+def test_fused_wrappers_reject_bad_inputs(cuda):
+    pack = torch.zeros((3, 16, 128), device=cuda)
+    rays = torch.zeros((4, 8, 128), device=cuda)
+    cid8 = torch.zeros((32,), dtype=torch.int32, device=cuda)
+    for fn in (cuda_anyhit.block_anyhit, cuda_closest.block_closest):
+        fn(pack, rays, cid8 + 2)  # the dummy cluster is a valid id
+        with pytest.raises(TypeError):
+            fn(pack, rays, cid8.long())
+        with pytest.raises(ValueError):
+            fn(pack, rays, cid8 + 3)
+        with pytest.raises(ValueError):
+            fn(pack, rays, cid8[:24])
+        with pytest.raises(ValueError):
+            fn(pack[:, :10].contiguous(), rays, cid8)
+        with pytest.raises(ValueError):
+            fn(pack, rays, cid8.cpu())
+
+
+def test_fused_and_pallas_renders_on_gpu(cuda, monkeypatch):
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import oracle, wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+    from path_tracer_ai_tpu_torch.scene.scene import blob_scene
+
+    scene = blob_scene(subdivisions=3, device=cuda)
+    s = RenderSettings(width=48, height=27, samples_per_pixel=2,
+                       max_bounces=4, seed=3)
+    cam = default_camera(cuda)
+    img_o = oracle.render(scene, cam, s, device=cuda)
+    before = dict(cuda_sweep.launches)
+    img_p = wavefront.render(scene, cam, s, wave_size=1 << 11,
+                             backend="pallas", device=cuda)
+    assert all(cuda_sweep.launches[k] > before[k] for k in before)
+    np.testing.assert_allclose(img_p, img_o, atol=1e-5)
+    monkeypatch.setattr(wavefront, "HYBRID_OCCLUDE_KW", dict(
+        engine="packets_fused", early_skip=True, sub_skip=True))
+    monkeypatch.setattr(wavefront, "HYBRID_CLOSEST_KW",
+                        dict(engine="cascade_fused"))
+    before = (cuda_anyhit.launches, cuda_closest.launches)
+    img_f = wavefront.render(scene, cam, s, wave_size=1 << 11, device=cuda)
+    assert cuda_anyhit.launches > before[0]
+    assert cuda_closest.launches > before[1]
+    np.testing.assert_array_equal(img_f, img_o)

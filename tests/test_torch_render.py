@@ -133,3 +133,176 @@ def test_port_builds_its_own_accels(both, port_images):
                            _settings(RenderSettings), wave_size=1 << 11,
                            device="cpu")
     np.testing.assert_array_equal(img, port_images["wave"])
+
+
+# --- the two further paths: backend="pallas" and the fused cascades ---------
+
+FUSED_OCCLUDE_KW = dict(engine="packets_fused", early_skip=True, sub_skip=True)
+FUSED_CLOSEST_KW = dict(engine="cascade_fused")
+
+
+def _port_render(b, **kw):
+    return wavefront.render(b["scene"], b["camera"], _settings(RenderSettings),
+                            accel=b["accel"], wave_size=1 << 11, device="cpu",
+                            **kw)
+
+
+@pytest.fixture
+def fused_engines(monkeypatch):
+    monkeypatch.setattr(wavefront, "HYBRID_OCCLUDE_KW", FUSED_OCCLUDE_KW)
+    monkeypatch.setattr(wavefront, "HYBRID_CLOSEST_KW", FUSED_CLOSEST_KW)
+
+
+def test_fused_render_equals_oracle_bitwise(both, port_images, fused_engines):
+    """Both fused cascades keep the oracle's (t, min tri) rule, so the
+    image is the oracle's bit for bit; no second accel is built or used."""
+    stats = wavefront.RenderStats()
+    img = _port_render(both, stats=stats)
+    np.testing.assert_array_equal(img, port_images["oracle"])
+    assert stats.closest_rays > 0 and stats.shadow_rays > 0
+
+
+@pytest.mark.parametrize("kw", [dict(backend="pallas"),
+                                dict(use_pallas=True, block_size=128)])
+def test_pallas_render_close_to_hybrid(both, port_images, kw):
+    """The pallas backend keeps the first candidate on an exact tie where
+    the other backends keep the smallest triangle id, so it is held at
+    atol 1e-5 (as tests/test_pallas.py holds the JAX pair), not bitwise."""
+    img = _port_render(both, **kw)
+    np.testing.assert_allclose(img, port_images["wave"], atol=1e-5)
+
+
+def test_pallas_render_matches_jax_pallas(both, monkeypatch):
+    """Against the JAX package's pallas backend, its kernels in interpret
+    mode (16x9: interpret mode is slow)."""
+    import functools
+
+    small = dict(width=16, height=9, samples_per_pixel=SPP,
+                 max_bounces=BOUNCES, seed=SEED)
+    monkeypatch.setattr(jwavefront, "packet_backend", functools.partial(
+        jwavefront.packet_backend, interpret=True))
+    jwavefront.clear_executable_caches()
+    try:
+        ref = np.asarray(jwavefront.render(
+            both["jscene"], jcamera(), JSettings(**small),
+            accel=both["jaccel"], wave_size=1 << 11, block_size=64,
+            use_pallas=True))
+    finally:
+        monkeypatch.undo()
+        jwavefront.clear_executable_caches()
+    img = wavefront.render(both["scene"], both["camera"],
+                           RenderSettings(**small), accel=both["accel"],
+                           wave_size=1 << 11, backend="pallas", device="cpu")
+    assert (ref.max(-1) > 0).mean() > 0.5
+    _assert_close(img, ref)
+
+
+def test_fused_render_matches_jax_fused(both, monkeypatch):
+    """Against the JAX package's fused cascades, their kernels in interpret
+    mode (16x9: interpret mode is slow)."""
+    small = dict(width=16, height=9, samples_per_pixel=SPP,
+                 max_bounces=BOUNCES, seed=SEED)
+    monkeypatch.setattr(jwavefront, "HYBRID_OCCLUDE_KW",
+                        dict(FUSED_OCCLUDE_KW, interpret=True))
+    monkeypatch.setattr(jwavefront, "HYBRID_CLOSEST_KW",
+                        dict(FUSED_CLOSEST_KW, interpret=True))
+    jwavefront.clear_executable_caches()
+    try:
+        ref = np.asarray(jwavefront.render(
+            both["jscene"], jcamera(), JSettings(**small),
+            accel=both["jaccel"], wave_size=1 << 11, block_size=64,
+            backend="hybrid"))
+    finally:
+        monkeypatch.undo()
+        jwavefront.clear_executable_caches()
+    monkeypatch.setattr(wavefront, "HYBRID_OCCLUDE_KW", FUSED_OCCLUDE_KW)
+    monkeypatch.setattr(wavefront, "HYBRID_CLOSEST_KW", FUSED_CLOSEST_KW)
+    img = wavefront.render(both["scene"], both["camera"],
+                           RenderSettings(**small), accel=both["accel"],
+                           wave_size=1 << 11, device="cpu")
+    assert (ref.max(-1) > 0).mean() > 0.5
+    _assert_close(img, ref)
+
+
+@pytest.mark.parametrize("backend", ["packets", "worklist", "kslots", "ctiles",
+                                     "pairs", "perray", "no_such_backend"])
+def test_unported_backends_raise(both, backend):
+    with pytest.raises(ValueError, match=backend):
+        _port_render(both, backend=backend)
+
+
+@pytest.mark.parametrize("closest_kw,occlude_kw,match", [
+    (dict(engine="ctiles"), dict(engine="ctiles"), "ctiles"),
+    (dict(engine="ctiles"), dict(engine="worklist"), "worklist"),
+    (dict(engine="pairs"), dict(engine="packets"), "pairs"),
+    (dict(engine="ctiles"), dict(engine="packets", exact_cull=6), "exact_cull"),
+    (dict(engine="ctiles"), dict(engine="packets_fused", exact_cull=16),
+     "exact_cull"),
+    (dict(engine="cascade_fused", exact_cull=16), dict(engine="packets"),
+     "exact_cull"),
+])
+def test_unported_engines_and_exact_cull_raise(both, monkeypatch, closest_kw,
+                                               occlude_kw, match):
+    monkeypatch.setattr(wavefront, "HYBRID_CLOSEST_KW", closest_kw)
+    monkeypatch.setattr(wavefront, "HYBRID_OCCLUDE_KW", occlude_kw)
+    with pytest.raises(ValueError, match=match):
+        _port_render(both)
+
+
+def test_block_size_one_means_perray(both):
+    """The reference's legacy spelling of backend="perray"."""
+    with pytest.raises(ValueError, match="perray"):
+        _port_render(both, block_size=1)
+
+
+def test_default_render_past_2048_clusters():
+    """The reference sends such scenes to its worklist backend; until that
+    is ported the default stays the hybrid backend, which has no cluster
+    limit (backend="worklist" by name raises, above)."""
+    from path_tracer_ai_tpu_torch.accel.clusters import build_clusters
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+    from path_tracer_ai_tpu_torch.scene.scene import blob_scene
+
+    scene = blob_scene(4, device="cpu")
+    accel = build_clusters(scene.triangles, cluster_size=2, device="cpu")
+    assert accel.num_clusters > 2048
+    assert wavefront.resolve_backend(accel, 64, False, None) == "hybrid"
+    settings = RenderSettings(width=16, height=9, samples_per_pixel=1,
+                              max_bounces=2, seed=1)
+    img = wavefront.render(scene, default_camera(), settings, accel=accel,
+                           wave_size=1 << 8, device="cpu")
+    np.testing.assert_array_equal(
+        img, oracle.render(scene, default_camera(), settings, device="cpu"))
+
+
+@pytest.mark.parametrize("engines,kw,builders", [
+    (None, {}, ["pack_tris", "pack_tris"]),  # base accel and closest accel
+    # (the 16-row pack holds the 10-row one)
+    ("fused", {}, ["pack_tris_dummy", "pack_tris"]),
+    (None, dict(backend="pallas"), ["build_slab_table"]),
+])
+def test_render_builds_each_pack_once(both, monkeypatch, engines, kw, builders):
+    """render makes two backends (bounce 0 unsorted, the rest sorted) from
+    one set of triangle packs."""
+    from path_tracer_ai_tpu_torch.accel import (
+        cuda_anyhit,
+        cuda_ctiles,
+        cuda_sweep,
+    )
+
+    if engines:
+        monkeypatch.setattr(wavefront, "HYBRID_OCCLUDE_KW", FUSED_OCCLUDE_KW)
+        monkeypatch.setattr(wavefront, "HYBRID_CLOSEST_KW", FUSED_CLOSEST_KW)
+    built = []
+    for mod, name in ((cuda_ctiles, "pack_tris"),
+                      (cuda_anyhit, "pack_tris_dummy"),
+                      (cuda_sweep, "build_slab_table")):
+        def counted(accel, _fn=getattr(mod, name), _name=name):
+            built.append(_name)
+            return _fn(accel)
+        counted.__name__ = name
+        monkeypatch.setattr(mod, name, counted)
+    if not engines and not kw:
+        kw = dict(accel_closest=both["accel_c"])
+    _port_render(both, **kw)
+    assert built == builders
