@@ -1,19 +1,30 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # everything below
+    python3 chip_smoke.py --kernels-only  # phases 1-3, then stop (no "ok" line)
+    python3 chip_smoke.py --kernels-only --sass out/sass
+        # also: cuobjdump's SASS of every library into a directory
 
 Phases (each prints one JSON line; any failure exits non-zero):
   1. device       CUDA must be available; the card's name and power limit.
-  2. build        nvcc builds every kernel source under csrc/, in parallel.
+  2. build        nvcc builds every kernel source under csrc/, in parallel;
+                  registers and spills of every kernel as ptxas reports them,
+                  and the resident warps per SM of the two closest-hit
+                  kernels at their paths' shapes.
   3. kernel       each of the five kernels against its plain PyTorch version
                   on the card, at its path's shapes (bitwise t; exact
                   cluster, slot, triangle id and occlusion; the fused
                   kernels' early_skip / sub_skip gates on == off).
+                  tile_sweep at its three shapes: the closest path's
+                  (T 128, S 256), the shadow cascade's with one cluster a
+                  tile (T 64, S 128) and with two (tile_cid [nt, 2]), the
+                  last also against two single-cluster launches folded.
   4. main_path    the benchmark render (blob subdiv 6 + room, 1920x1080,
                   2 spp, 5 bounces, seed 0, waves of 2^20, blocks of 64)
                   through path_tracer_ai_tpu_torch.engine.wavefront.render:
                   a warm pass, then a timed pass with the launch counts
-                  zeroed just before it and read just after.
+                  zeroed just before it and read just after; tile_sweep's
+                  launches and tiles also split by shape (T, S, G).
   4b. profile     one more such render under torch.profiler: device kernel
                   time by kernel and by wave type, and the device's busy
                   share of the timed pass.
@@ -34,8 +45,10 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -91,6 +104,18 @@ def phase_device():
     return card
 
 
+def dump_sass(out_dir: str) -> None:
+    """cuobjdump -sass of every library built so far, one file each."""
+    from path_tracer_ai_tpu_torch import cuda_build
+
+    os.makedirs(out_dir, exist_ok=True)
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    for name in cuda_build.build_log:
+        with open(os.path.join(out_dir, name + ".sass"), "w") as fh:
+            subprocess.run([tool, "-sass", cuda_build.library_path(name)],
+                           stdout=fh, stderr=subprocess.STDOUT, timeout=300)
+
+
 def phase_build():
     from path_tracer_ai_tpu_torch import cuda_build
     from path_tracer_ai_tpu_torch.accel import (
@@ -103,10 +128,24 @@ def phase_build():
     t0 = time.perf_counter()
     built = cuda_build.build_all([m.SOURCE for m in (
         cuda_ctiles, cuda_sweep, cuda_anyhit, cuda_closest)])
-    ptxas = {k: v["ptxas"].strip().splitlines()[-2:]
+    seconds = time.perf_counter() - t0
+    entry = re.compile(
+        r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
+        r"(\d+) bytes spill loads.*?Used (\d+) registers", re.S)
+    ptxas = {k: [{"entry": m[0], "registers": int(m[3]),
+                  "spill_bytes": int(m[1]) + int(m[2])}
+                 for m in entry.findall(v["ptxas"])]
              for k, v in cuda_build.build_log.items()}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": sorted(built), "ptxas": ptxas})
+    # the instances the three renders launch
+    occupancy = {
+        "tile_sweep T128 S256": cuda_ctiles.kernel_occupancy(256, 128),
+        "tile_sweep T64 S128": cuda_ctiles.kernel_occupancy(128, 64),
+        "block_closest T128 S128": cuda_closest.kernel_occupancy(128, 128),
+    }
+    emit({"phase": "build", "seconds": seconds, "built": sorted(built),
+          "spilling": [e["entry"] for es in ptxas.values() for e in es
+                       if e["spill_bytes"]],
+          "ptxas": ptxas, "occupancy": occupancy})
 
 
 def _bound(nbytes: int, tests: int) -> dict:
@@ -136,18 +175,19 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _tile_rays(accel, nt, t_lanes, rng, dead_every=7):
+def _tile_rays(accel, nt, t_lanes, rng, g=1, dead_every=7):
     """Bounce-like tiles: tile i's rays leave points near the triangles of
-    cluster cid[i] in random directions (bench.py's exactness wave), t_max
-    inf, with every `dead_every`-th lane dead (t_max = -1)."""
+    its first cluster in random directions (bench.py's exactness wave),
+    t_max inf, with every `dead_every`-th lane dead (t_max = -1). Cluster
+    ids [nt] for g = 1, else [nt, g]."""
     from path_tracer_ai_tpu_torch.accel import cuda_ctiles
 
     dev = accel.v0.device
     c, s = accel.num_clusters, accel.cluster_size
-    cid = rng.integers(0, c, nt).astype(np.int32)
+    cid = rng.integers(0, c, (nt, g)).astype(np.int32)
     v0 = accel.v0.cpu().numpy()
     slot = rng.integers(0, s, (nt, t_lanes))
-    o = v0[cid[:, None], slot].reshape(-1, 3)
+    o = v0[cid[:, :1], slot].reshape(-1, 3)
     o = o + rng.standard_normal(o.shape).astype(np.float32) * 1e-3
     d = rng.standard_normal(o.shape).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
@@ -155,14 +195,17 @@ def _tile_rays(accel, nt, t_lanes, rng, dead_every=7):
     tm[::dead_every] = -1.0
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
     rays = cuda_ctiles.pack_rays_tiles(t(o), t(d), t(tm), t_lanes)
-    return rays, t(cid)
+    return rays, t(cid if g > 1 else cid[:, 0])
 
 
-def _check_tile_sweep(accel, t_lanes, nt, rng, reps):
+def _check_tile_sweep(accel, t_lanes, nt, rng, reps, g=1):
+    """tile_sweep against its plain version at one shape; with g > 1 the
+    [nt, g] form, also against g single-cluster launches folded with
+    combine_min_tri (and timed beside them)."""
     from path_tracer_ai_tpu_torch.accel import cuda_ctiles
 
     pack = cuda_ctiles.pack_tris(accel)
-    rays, cid = _tile_rays(accel, nt, t_lanes, rng)
+    rays, cid = _tile_rays(accel, nt, t_lanes, rng, g)
     t_k, tri_k = cuda_ctiles.tile_sweep(pack, rays, cid)
     t_p, tri_p = cuda_ctiles.tile_sweep_plain(pack, rays, cid)
     torch.cuda.synchronize()
@@ -176,15 +219,32 @@ def _check_tile_sweep(accel, t_lanes, nt, rng, reps):
     nbytes = n_used * 10 * s * 4 + _nbytes(rays, cid, t_k, tri_k)
     live_lanes = int((rays[:, 6] >= 0.0).sum())
     res = {"phase": "kernel", "name": "tile_sweep", "T": t_lanes, "S": s,
-           "nt": nt, "t_bitwise": bitwise, "tri_equal": tri_eq,
+           "G": g, "nt": nt, "t_bitwise": bitwise, "tri_equal": tri_eq,
            "matches_plain": bitwise and tri_eq,
            "max_abs_err": _max_abs_err(t_k, t_p), "hit_lanes": hits, "ms": ms,
-           "plain_ms": plain_ms, "swept_tests": nt * t_lanes * s,
-           **_bound(nbytes, live_lanes * s),
-           "gtests_per_s": nt * t_lanes * s / ms / 1e6}
+           "plain_ms": plain_ms, "swept_tests": nt * t_lanes * s * g,
+           **_bound(nbytes, live_lanes * s * g),
+           "gtests_per_s": nt * t_lanes * s * g / ms / 1e6}
+    if g > 1:
+        cols = [cid[:, j].contiguous() for j in range(g)]
+
+        def folded():
+            t_f, tri_f = cuda_ctiles.tile_sweep(pack, rays, cols[0])
+            for col in cols[1:]:
+                t_f, tri_f = cuda_ctiles.combine_min_tri(
+                    t_f, tri_f, *cuda_ctiles.tile_sweep(pack, rays, col))
+            return t_f, tri_f
+
+        t_f, tri_f = folded()
+        res["matches_single_calls"] = (_bits_equal(t_k, t_f)
+                                       and bool(torch.equal(tri_k, tri_f)))
+        res["single_calls_folded_ms"] = cuda_ms(folded, reps)
+        res["matches_plain"] = res["matches_plain"] and res["matches_single_calls"]
+    res["ms_over_bound"] = ms / res["bound_ms"]
     emit(res)
-    if not (bitwise and tri_eq):
-        fail("kernel", f"tile_sweep T={t_lanes} disagrees with its plain version")
+    if not res["matches_plain"]:
+        fail("kernel", f"tile_sweep T={t_lanes} G={g} disagrees with its plain "
+                       "version or with single-cluster launches")
     if hits == 0:
         fail("kernel", f"tile_sweep T={t_lanes} check wave hit nothing")
     return res
@@ -302,11 +362,7 @@ def _check_fused(accel, rng, size=2048, t_lanes=128):
     path sets (early_skip + sub_skip; sub_skip); the bound counts, over the
     sub-slab sweeps the plain version really made, the tests of every lane
     that needs them (live; for the any-hit, not yet occluded)."""
-    from path_tracer_ai_tpu_torch.accel import (
-        cuda_anyhit,
-        cuda_closest,
-        cuda_ctiles,
-    )
+    from path_tracer_ai_tpu_torch.accel import cuda_anyhit, cuda_ctiles
 
     pack = cuda_anyhit.pack_tris_dummy(accel)
     s = accel.cluster_size
@@ -320,6 +376,14 @@ def _check_fused(accel, rng, size=2048, t_lanes=128):
         cid8 = order_g[:, 0].reshape(-1).contiguous()
         used = int(torch.unique(cid8).numel())
         return _kill_every_seventh(rays), cid8, used * 16 * s * 4
+
+    out["block_anyhit"] = _check_block_anyhit(pack, inputs, size, t_lanes, s)
+    out["block_closest"] = _check_block_closest(pack, inputs, size, t_lanes, s)
+    return out
+
+
+def _check_block_anyhit(pack, inputs, size, t_lanes, s):
+    from path_tracer_ai_tpu_torch.accel import cuda_anyhit
 
     rays, cid8, pack_bytes = inputs("dir", shadow=True)
     st_on, st_off = {}, {}
@@ -357,7 +421,11 @@ def _check_fused(accel, rng, size=2048, t_lanes=128):
         fail("kernel", f"block_anyhit disagrees with its plain version: {variants}")
     if hits == 0:
         fail("kernel", "block_anyhit check wave hit nothing")
-    out["block_anyhit"] = res
+    return res
+
+
+def _check_block_closest(pack, inputs, size, t_lanes, s):
+    from path_tracer_ai_tpu_torch.accel import cuda_closest, cuda_ctiles
 
     rays, cid8, pack_bytes = inputs("octorig", shadow=False)
     st_on, st_off = {}, {}
@@ -387,22 +455,27 @@ def _check_fused(accel, rng, size=2048, t_lanes=128):
            "ms_options_off": ms_off, "plain_ms": plain_ms,
            "swept_tests": st_on["tests"],
            **_bound(nbytes, st_on["lane_tests"])}
+    res["ms_over_bound"] = ms / res["bound_ms"]
     emit(res)
     if not all(variants.values()):
         fail("kernel", f"block_closest disagrees with its plain version: {variants}")
     if hits == 0:
         fail("kernel", "block_closest check wave hit nothing")
-    out["block_closest"] = res
-    return out
+    return res
 
 
 def phase_kernels(accel_base, accel_c):
-    """{kernel name: its check at the shape its path gives it}."""
+    """{kernel name: its check at the shape its path gives it}; tile_sweep
+    also at the shadow cascade's shape, one and two clusters a tile."""
     rng = np.random.default_rng(0)
-    out = {"tile_sweep": _check_tile_sweep(accel_c, 128, 2048, rng, reps=20)}
-    _check_tile_sweep(accel_base, 64, 2048, rng, reps=20)  # shadow cascade
+    out = {"tile_sweep": _check_tile_sweep(accel_c, 128, 2048, rng, reps=20),
+           "tile_sweep_t64": _check_tile_sweep(accel_base, 64, 2048, rng,
+                                               reps=20)}
     out.update(_check_sweeps(accel_base, rng))
     out.update(_check_fused(accel_base, rng))
+    # last, so that the checks above draw the same waves as they always have
+    out["tile_sweep_t64_g2"] = _check_tile_sweep(accel_base, 64, 2048, rng,
+                                                 reps=20, g=2)
     return out
 
 
@@ -467,6 +540,7 @@ def _bench_render(phase, scene, card, kernels, warm_small, engines=None,
     96x54 one), then the launch counts and host syncs set to 0, the timed
     render, and the counts read. Fails unless every kernel in `kernels` was
     launched and the image is finite, free of magenta and mostly lit."""
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles
     from path_tracer_ai_tpu_torch.config import RenderSettings
     from path_tracer_ai_tpu_torch.engine import wavefront
     from path_tracer_ai_tpu_torch.scene.camera import default_camera
@@ -488,6 +562,10 @@ def _bench_render(phase, scene, card, kernels, warm_small, engines=None,
         img = wavefront.render(scene, cam, settings, stats=stats, **kw)
         launches = _read_counts()
         syncs = sync.count
+        tile_shapes = [
+            {"T": t, "S": s_, "G": g, "launches": n, "tiles": tiles}
+            for (t, s_, g), (n, tiles) in sorted(
+                cuda_ctiles.launch_shapes.items())]
 
     finite = bool(np.isfinite(img).all())
     magenta = float(np.all(img == np.asarray([1.0, 0.0, 1.0], np.float32),
@@ -498,7 +576,8 @@ def _bench_render(phase, scene, card, kernels, warm_small, engines=None,
            "warm_seconds": warm_s,
            "seconds": stats.seconds, "closest_rays": stats.closest_rays,
            "shadow_rays": stats.shadow_rays, "mrays_per_s": stats.mrays_per_s,
-           "launches": launches, "host_syncs": syncs,
+           "launches": launches, "tile_sweep_shapes": tile_shapes,
+           "host_syncs": syncs,
            "finite": finite, "magenta_share": magenta,
            "nonblack_share": nonblack, "image_mean": float(img.mean())}
     missing = [k for k in kernels if launches[k] <= 0]
@@ -594,6 +673,7 @@ def phase_profile(scene, accel_base, accel_c, timed_seconds):
                and e.key not in labels]
     busy_us = sum(_device_us(e) for e in kernels)
     top = sorted(kernels, key=_device_us, reverse=True)[:8]
+    sweeps = [e for e in kernels if "tile_sweep_kernel" in e.key]
     host = [e for e in avgs
             if e.key in labels and not str(e.device_type).endswith("CUDA")]
     ranges = {e.key: _range_us(e) / 1e6 for e in host}
@@ -602,6 +682,10 @@ def phase_profile(scene, accel_base, accel_c, timed_seconds):
     res = {"phase": "profile", "profiled_wall_seconds": wall,
            "device_kernel_seconds": busy_us / 1e6,
            "device_kernels": int(sum(e.count for e in kernels)),
+           "tile_sweep_kernel_seconds": sum(_device_us(e) for e in sweeps) / 1e6,
+           "tile_sweep_kernels": [{"name": e.key[:80], "count": e.count,
+                                   "seconds": _device_us(e) / 1e6}
+                                  for e in sweeps],
            "busy_share_of_timed_pass": (busy_us / 1e6 / timed_seconds
                                         if busy_us else "not measured"),
            "wave_kernel_seconds": ranges,
@@ -669,11 +753,19 @@ KERNELS = {
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="build and check the kernels, then stop")
+    parser.add_argument("--sass", metavar="DIR",
+                        help="write cuobjdump's SASS of every library there")
+    args = parser.parse_args()
     t_start = time.perf_counter()
     import path_tracer_ai_tpu_torch  # noqa: F401  (fails outside the repo)
 
     card = phase_device()
     phase_build()
+    if args.sass:
+        dump_sass(args.sass)
 
     from path_tracer_ai_tpu_torch.accel.clusters import build_clusters
     from path_tracer_ai_tpu_torch.scene.scene import blob_scene
@@ -688,6 +780,8 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     checks = phase_kernels(accel_base, accel_c)
+    if args.kernels_only:
+        return 0
     render, img_main = phase_main_path(scene, accel_base, accel_c, card)
     phase_profile(scene, accel_base, accel_c, render["seconds"])
     paths = {"main_path": render,
@@ -695,6 +789,11 @@ def main() -> int:
              "path_fused": phase_path_fused(scene, accel_base, card, img_main)}
     phase_consistency()
 
+    emit({"phase": "tile_sweep_shapes", "card": card, "checks": [
+        {k: checks[name][k] for k in ("T", "S", "G", "nt", "ms", "bound_ms",
+                                      "ms_over_bound", "matches_plain")}
+        for name in ("tile_sweep", "tile_sweep_t64", "tile_sweep_t64_g2")],
+        "main_path_launches": render["tile_sweep_shapes"]})
     emit({"kernels": [{
         "name": name, "route": "cuda",
         "source": "path_tracer_ai_tpu_torch/csrc/" + source,

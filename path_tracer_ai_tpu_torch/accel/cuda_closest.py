@@ -9,8 +9,11 @@ shrinks to its best so far, and a block retires once the next group's
 conservative entry exceeds every live lane's best. `block_closest` replaces
 the Pallas kernel of the same name: on a CUDA tensor it launches
 csrc/fused_closest.cu (or raises), on a CPU tensor it runs
-`block_closest_plain`. Results are exact with the oracle's lexicographic
-(t, tri) tie rule. Runs on the base accel (no second closest-path accel).
+`block_closest_plain`. The kernel is compiled for S in {64, 128, 256} and
+T in {64, 128} (one warp per 32 lanes of a ray block; design and bound in
+the CUDA source); another shape on a CUDA tensor raises ValueError. Results are exact
+with the oracle's lexicographic (t, tri) tie rule. Runs on the base accel
+(no second closest-path accel).
 
 Layouts: as accel.cuda_anyhit (tri_pack [C+1, 16, S], rays [size, 8, T]
 with row 6 = min(t_max, best so far), cid8 [size * GROUP]).
@@ -33,7 +36,10 @@ from path_tracer_ai_tpu_torch.accel.cuda_anyhit import (
 )
 from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
     I32_MAX,
+    NO_INSTANCE,
+    combine_min_tri,
     pack_rays_tiles,
+    read_occupancy,
     sub_pred,
     sweep_rows_plain,
 )
@@ -51,21 +57,15 @@ def reset_launches() -> None:
     launches = 0
 
 
-def combine_min_tri(t_a, tri_a, t_b, tri_b):
-    """Lexicographic (t, tri) minimum of two candidates per lane."""
-    t_new = torch.minimum(t_a, t_b)
-    tri_new = torch.minimum(torch.where(t_a <= t_new, tri_a, I32_MAX),
-                            torch.where(t_b <= t_new, tri_b, I32_MAX))
-    return t_new, tri_new.to(torch.int32)
-
-
 def block_closest_plain(tri_pack, rays_pack, cid8, sub_skip=True,
                         stats: Optional[dict] = None):
     """The kernel's function in eager torch -> (t [size, T] f32, tri
-    [size, T] i32), with the same block-uniform skips: the dummy cluster
-    always, and under sub_skip every sub-slab whose box no lane's
-    [t_min, min(t_max, running best)] segment touches. stats["tests"]
-    counts the ray/triangle tests of the sweeps made."""
+    [size, T] i32), with block-uniform skips: the dummy cluster always, and
+    under sub_skip every sub-slab whose box no lane's [t_min, min(t_max,
+    running best)] segment touches. (The kernel votes per warp of 32 lanes,
+    so it sweeps a subset of these sub-slabs, to the same bits.)
+    stats["tests"] counts the ray/triangle tests of the sweeps made here,
+    stats["lane_tests"] those of their live lanes."""
     size, _, t_lanes = rays_pack.shape
     dev = rays_pack.device
     s = tri_pack.shape[2]
@@ -113,10 +113,20 @@ def _kernel():
     return fn
 
 
+def kernel_occupancy(s: int, t_lanes: int) -> dict:
+    """Registers per thread and resident warps (ray blocks) per SM of
+    block_closest's (S, T) instance (needs the card)."""
+    from path_tracer_ai_tpu_torch import cuda_build
+
+    return read_occupancy(cuda_build.load(SOURCE).block_closest_occupancy,
+                          s, t_lanes)
+
+
 def block_closest(tri_pack, rays_pack, cid8, sub_skip=True):
     """(t [size, T] f32 inf = miss, tri [size, T] i32 INT32_MAX = none).
-    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    version."""
+    CUDA tensors launch the kernel (or raise; ValueError for an (S, T) it is
+    not compiled for: S in 64, 128, 256 and T in 64, 128); CPU tensors take
+    the plain version."""
     global launches
     dev = rays_pack.device
     if dev.type == "cpu":
@@ -132,6 +142,9 @@ def block_closest(tri_pack, rays_pack, cid8, sub_skip=True):
                     t_out.data_ptr(), tri_out.data_ptr(), size, s, t_lanes,
                     dummy, int(sub_skip),
                     torch.cuda.current_stream(dev).cuda_stream)
+    if err == NO_INSTANCE:
+        raise ValueError(f"block_closest has no compiled instance for S = {s}, "
+                         f"T = {t_lanes} (S in 64, 128, 256; T in 64, 128)")
     if err != 0:
         raise RuntimeError(f"block_closest launch failed: cudaError {err}")
     launches += 1

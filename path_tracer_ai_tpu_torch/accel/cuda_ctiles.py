@@ -2,16 +2,21 @@
 
 Replaces path_tracer_ai_tpu/accel/pallas_ctiles.py `tile_sweep` (the
 Pallas kernel `_sweep_kernel`/`_mt_rows`). `tile_sweep(tri_pack,
-rays_pack, tile_cid)` tests each tile of T rays against ONE cluster's S
-triangles and returns, per lane, the best t and the minimum triangle id
-at that t (INT32_MAX on a miss). The same call serves the closest-hit
-ctiles sweep (T = 128), the shadow cascade (T = 64; occluded =
-tri != INT32_MAX) and the overflow fallback.
+rays_pack, tile_cid)` tests each tile of T rays against the S triangles of
+its cluster, or of each of its G clusters, and returns, per lane, the best
+t and the minimum triangle id at that t (INT32_MAX on a miss). The same
+call serves the closest-hit ctiles sweep (T = 128, S = 256, one cluster a
+tile), the overflow fallback (the same shape) and the shadow cascade
+(T = 64, S = 128, an iteration's G candidates a tile; occluded =
+tri != INT32_MAX). G clusters in one call equal G calls folded with
+`combine_min_tri`.
 
 On a CUDA tensor the wrapper launches csrc/ctiles_sweep.cu (built with
 nvcc at first use, see cuda_build) or raises; on a CPU tensor it runs
-`tile_sweep_plain`, the same arithmetic as eager torch ops. The kernel's
-design and its bound are described in the CUDA source.
+`tile_sweep_plain`, the same arithmetic as eager torch ops. The kernel is
+compiled for S in {128, 256} and T in {64, 128, 256}; another shape on a CUDA
+tensor raises ValueError. The kernel's design and its bound are described
+in the CUDA source.
 
 Layouts:
   tri_pack [C, 10, S] f32 (pack_tris): v0.xyz, e1.xyz, e2.xyz, tri id
@@ -20,7 +25,7 @@ Layouts:
            (accel.cuda_anyhit, accel.cuda_closest); tile_sweep's own
            `sub_skip` is not ported and takes the 10-row pack only.
   rays     [nt, 8, T] f32 (pack_rays_tiles): ox oy oz dx dy dz t_max t_min.
-  tile_cid [nt] i32.
+  tile_cid [nt] or [nt, G] i32.
 """
 
 from __future__ import annotations
@@ -36,13 +41,24 @@ PACK_ROWS = 10
 RAY_ROWS = 8
 SOURCE = "ctiles_sweep"
 
-# Kernel launches since the last reset (the plain version never counts).
+# Kernel launches since the last reset (the plain version never counts),
+# and the same split by shape: (T, S, G) -> [launches, tiles].
 launches = 0
+launch_shapes: dict = {}
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    launch_shapes.clear()
+
+
+def combine_min_tri(t_a, tri_a, t_b, tri_b):
+    """Lexicographic (t, tri) minimum of two candidates per lane."""
+    t_new = torch.minimum(t_a, t_b)
+    tri_new = torch.minimum(torch.where(t_a <= t_new, tri_a, I32_MAX),
+                            torch.where(t_b <= t_new, tri_b, I32_MAX))
+    return t_new, tri_new.to(torch.int32)
 
 
 def pack_tris(accel) -> torch.Tensor:
@@ -148,20 +164,26 @@ PLAIN_ELEMS = 1 << 22  # [blocks, T, rows] elements per step of sweep_rows_plain
 
 def sweep_rows_plain(tri_pack, cid, rays, lo: int, hi: int, t_max=None,
                      any_hit: bool = False):
-    """Blocks of T rays against slots lo..hi-1 of ONE cluster each, in eager
-    torch: tri_pack [C, >=10, S], cid [n] i64, rays [n, 8, T]; t_max [n, T]
-    replaces ray row 6. Returns (best t [n, T], min tri id at best t [n, T]
-    i32, INT32_MAX on a miss), or with any_hit the [n, T] bool "some slot
-    passes". Chunked so the [blocks, T, rows] temporaries stay small."""
+    """Blocks of T rays against slots lo..hi-1 of ONE cluster each (cid [n]
+    i64) or of G clusters each (cid [n, G], one reduction over their G *
+    (hi - lo) slots), in eager torch: tri_pack [C, >=10, S], rays [n, 8, T];
+    t_max [n, T] replaces ray row 6. Returns (best t [n, T], min tri id at
+    best t [n, T] i32, INT32_MAX on a miss), or with any_hit the [n, T] bool
+    "some slot passes". Chunked so the [blocks, T, rows] temporaries stay
+    small."""
     n, _, t_lanes = rays.shape
     dev = rays.device
-    step = max(1, PLAIN_ELEMS // (t_lanes * max(hi - lo, 1)))
+    if cid.dim() == 1:
+        cid = cid[:, None]
+    g = cid.shape[1]
+    step = max(1, PLAIN_ELEMS // (t_lanes * max(hi - lo, 1) * g))
     hit = torch.empty((n, t_lanes), dtype=torch.bool, device=dev)
     t_out = torch.empty((n, t_lanes), dtype=torch.float32, device=dev)
     tri_out = torch.empty((n, t_lanes), dtype=torch.int32, device=dev)
     for a in range(0, n, step):
         b = min(a + step, n)
-        tp = tri_pack[cid[a:b], :, lo:hi]                  # [c, rows, w]
+        tp = tri_pack[cid[a:b], :, lo:hi]                  # [c, g, rows, w]
+        tp = tp.transpose(1, 2).reshape(b - a, tri_pack.shape[1], -1)
         rp = rays[a:b]
         ray = [rp[:, k, :, None] for k in range(RAY_ROWS)]  # [c, T, 1]
         tri = [tp[:, k, None, :] for k in range(9)]         # [c, 1, w]
@@ -179,8 +201,9 @@ def sweep_rows_plain(tri_pack, cid, rays, lo: int, hi: int, t_max=None,
 
 
 def tile_sweep_plain(tri_pack, rays_pack, tile_cid):
-    """The kernel's function in eager torch: the [tiles, T, S] sweep plus
-    the min / min-tri-at-min reduction, chunked over tiles."""
+    """The kernel's function in eager torch: the [tiles, T, G * S] sweep
+    plus the min / min-tri-at-min reduction, chunked over tiles. tile_cid
+    [nt] or [nt, G]."""
     return sweep_rows_plain(tri_pack, tile_cid.long(), rays_pack, 0,
                             tri_pack.shape[2])
 
@@ -202,16 +225,56 @@ def _kernel():
     lib = cuda_build.load(SOURCE)
     fn = lib.ctiles_sweep
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+NO_INSTANCE = -1  # the entry points' answer to an (S, T) they lack
+
+
+def read_occupancy(fn, *shape) -> dict:
+    """Registers per thread and resident warps per SM of a compiled kernel
+    instance, through its `<name>_occupancy` entry point (needs the card)."""
+    regs, warps = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(*shape, ctypes.byref(regs), ctypes.byref(warps))
+    if err != 0:
+        raise RuntimeError(f"occupancy query {shape} failed: cudaError {err}")
+    return {"registers": regs.value, "warps_per_sm": warps.value}
+
+
+def rcp_mismatches() -> int:
+    """How many of the float bit patterns in its range the kernels'
+    reciprocal (csrc/mt.cuh rcp_fast) inverts to other bits than the IEEE
+    division does: 0 on a card where the kernels are exact. Needs the card."""
+    from path_tracer_ai_tpu_torch import cuda_build
+
+    fn = cuda_build.load(SOURCE).rcp_check
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    count = torch.zeros((1,), dtype=torch.int64, device="cuda")
+    err = fn(count.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rcp_check launch failed: cudaError {err}")
+    return int(count.item())
+
+
+def kernel_occupancy(s: int, t_lanes: int) -> dict:
+    """tile_sweep's (S, T) instance (needs the card)."""
+    from path_tracer_ai_tpu_torch import cuda_build
+
+    return read_occupancy(cuda_build.load(SOURCE).ctiles_sweep_occupancy,
+                          s, t_lanes)
 
 
 def tile_sweep(tri_pack, rays_pack, tile_cid):
     """(t [nt, T] f32, tri [nt, T] i32); tri = INT32_MAX on a miss.
 
-    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
-    version. tile_cid values must lie in [0, C)."""
+    tile_cid [nt] (one cluster a tile) or [nt, G] (tile i against its G
+    clusters, folded with the lexicographic (t, min tri) rule). CUDA tensors
+    launch the kernel (or raise; ValueError for an (S, T) it is not compiled
+    for); CPU tensors take the plain version. tile_cid values must lie in
+    [0, C)."""
     global launches
     dev = rays_pack.device
     if dev.type == "cpu":
@@ -220,18 +283,16 @@ def tile_sweep(tri_pack, rays_pack, tile_cid):
         raise ValueError(f"tile_sweep runs on cuda or cpu, not {dev}")
     _check("tri_pack", tri_pack, torch.float32, 3, dev)
     _check("rays_pack", rays_pack, torch.float32, 3, dev)
-    _check("tile_cid", tile_cid, torch.int32, 1, dev)
     c, rows, s = tri_pack.shape
     nt, ray_rows, t_lanes = rays_pack.shape
     if rows != PACK_ROWS or ray_rows != RAY_ROWS:
         raise ValueError(f"pack shapes {tuple(tri_pack.shape)} / "
                          f"{tuple(rays_pack.shape)} are not [C,10,S] / [nt,8,T]")
-    if tile_cid.shape[0] != nt:
-        raise ValueError(f"tile_cid has {tile_cid.shape[0]} tiles, rays {nt}")
-    if not 0 < t_lanes <= 1024:
-        raise ValueError(f"T = {t_lanes} lanes per tile is outside (0, 1024]")
-    if PACK_ROWS * s * 4 > 48 * 1024:
-        raise ValueError(f"S = {s} needs more than 48 KB of shared memory")
+    g = tile_cid.shape[1] if tile_cid.dim() == 2 else 1
+    if tile_cid.dim() not in (1, 2) or tile_cid.shape[0] != nt or g < 1:
+        raise ValueError(f"tile_cid has shape {tuple(tile_cid.shape)}, "
+                         f"expected [{nt}] or [{nt}, G >= 1]")
+    _check("tile_cid", tile_cid, torch.int32, tile_cid.dim(), dev)
     t_out = torch.empty((nt, t_lanes), dtype=torch.float32, device=dev)
     tri_out = torch.empty((nt, t_lanes), dtype=torch.int32, device=dev)
     if nt == 0:
@@ -239,8 +300,14 @@ def tile_sweep(tri_pack, rays_pack, tile_cid):
     fn = _kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(tri_pack.data_ptr(), rays_pack.data_ptr(), tile_cid.data_ptr(),
-             t_out.data_ptr(), tri_out.data_ptr(), nt, s, t_lanes, c, stream)
+             t_out.data_ptr(), tri_out.data_ptr(), nt, g, s, t_lanes, c, stream)
+    if err == NO_INSTANCE:
+        raise ValueError(f"tile_sweep has no compiled instance for S = {s}, "
+                         f"T = {t_lanes} (S in 128, 256; T in 64, 128, 256)")
     if err != 0:
         raise RuntimeError(f"ctiles_sweep launch failed: cudaError {err}")
     launches += 1
+    shape = launch_shapes.setdefault((t_lanes, s, g), [0, 0])
+    shape[0] += 1
+    shape[1] += nt
     return t_out, tri_out

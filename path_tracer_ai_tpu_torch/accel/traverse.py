@@ -12,11 +12,13 @@ Counterpart of accel/traverse.py, the parts the main path runs:
            its blocks are active, then compacts them to the front (one
            whole-array gather) and continues on half the slice.
 
-The sweep of one (block, cluster) pair is the cluster-tile kernel
-(accel.cuda_ctiles.tile_sweep, T = block_size lanes, occluded =
-tri != INT32_MAX): the same Möller–Trumbore arithmetic as _mt_sweep, with
-no [blocks, rays, triangles] intermediate in device memory. The cascade's
-loop conditions are host reads (`.item()`/nonzero), one per iteration.
+The sweep of an iteration's active blocks against their `group_size`
+candidates is ONE launch of the cluster-tile kernel
+(accel.cuda_ctiles.tile_sweep with [n_act, g] cluster ids, T = block_size
+lanes, occluded = tri != INT32_MAX): the same Möller–Trumbore arithmetic as
+_mt_sweep, with no [blocks, rays, triangles] intermediate in device memory.
+The cascade's loop conditions are host reads (`.item()`/nonzero), one per
+iteration.
 """
 
 from __future__ import annotations
@@ -266,13 +268,13 @@ def any_hit_packets(accel: ClusterAccel, origins, directions, t_min, t_max,
         ordg, rp = blocks[2], blocks[3]
         (occ,) = carry
         cid = ordg[idx, min(k, max_k)]                  # [n_act, g]
+        # One launch folds the g candidates. Lanes occluded in an earlier
+        # iteration go in dead (t_max = -1): they need no test, and a warp
+        # of dead lanes is not walked.
         r_act = rp[idx]                                 # [n_act, 8, R]
-        hit = torch.zeros((idx.numel(), block_size), dtype=torch.bool,
-                          device=dev)
-        for j in range(g):
-            _t, tri = cuda_ctiles.tile_sweep(tri_pack, r_act,
-                                             cid[:, j].contiguous())
-            hit |= tri != cuda_ctiles.I32_MAX
+        r_act[:, 6].masked_fill_(occ[idx], -1.0)
+        _t, tri = cuda_ctiles.tile_sweep(tri_pack, r_act, cid)
+        hit = tri != cuda_ctiles.I32_MAX
         occ = occ.clone()
         occ[idx] |= hit
         return (occ,)

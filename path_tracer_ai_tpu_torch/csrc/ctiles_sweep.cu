@@ -1,37 +1,47 @@
 // Cluster-tile Möller–Trumbore sweep for Hopper (sm_90a).
 //
 // Replaces the TPU kernel path_tracer_ai_tpu/accel/pallas_ctiles.py
-// `tile_sweep` (`_sweep_kernel`, `_mt_rows`). For each tile of T rays that
-// share ONE cluster, every ray is tested against the cluster's S triangles
-// and reduces to (best t, min triangle id at best t), or (+inf, INT32_MAX)
-// on a miss.
+// `tile_sweep` (`_sweep_kernel`, `_mt_rows`). Each tile of T rays is tested
+// against the S triangles of each of its G clusters and reduces, per ray,
+// to (best t, min triangle id at best t), or (+inf, INT32_MAX) on a miss.
+// G = 1 on the closest path and in the overflow fallback; the shadow
+// cascade hands over an iteration's G candidates at once. The fold is a
+// lexicographic minimum, so G clusters in one launch equal G launches
+// combined with cuda_ctiles.combine_min_tri.
 //
 // Layouts (see accel/cuda_ctiles.py):
 //   tri_pack [C, 10, S] f32: rows 0-8 = v0.xyz, e1.xyz, e2.xyz; row 9 =
 //            the global triangle id, bit-cast to f32 (-1 = padding slot).
 //   rays     [nt, 8, T] f32: rows ox oy oz dx dy dz t_max t_min.
-//   tile_cid [nt] i32 cluster id per tile.
+//   tile_cid [nt, G] i32 cluster ids per tile; an id outside [0, C) is
+//            skipped.
 //   t_out    [nt, T] f32, tri_out [nt, T] i32.
 //
-// Design. One thread block per tile, one thread per ray lane (T is a
-// runtime value: 128 on the closest path, 64 in the shadow cascade). The
-// block stages its cluster's 10 x S rows in shared memory (10 KB at
-// S = 256), and every thread walks the S triangles reading the same
-// shared word at the same time (a broadcast, no bank conflicts), keeping
-// (best_t, best_tri) in registers. The TPU kernel's 8-tile groups exist
-// only because Mosaic needs (8, 128) output blocks; here each tile loads
-// its own cluster id, so callers pad per tile.
+// Design (the inner loop is mt.cuh's, shared with fused_closest.cu). One
+// warp per 32 R lanes of a tile, R rays per thread in registers (4 at
+// T = 128, one warp a tile; 1 at T = 64 and 256, two and eight warps a
+// tile: the cascade's launches are small, 1,400 tiles on average, and fill
+// the card better with more warps), four warps a thread block that share
+// nothing, so there is no __syncthreads. S (128, 256), T (64, 128, 256) and
+// R are template parameters: the triangle loop unrolls and every
+// shared-memory address is an immediate. The warp stages
+// each of its G clusters transposed (12 words a triangle, 12 KB at S = 256)
+// with cp.async and walks it; other warps of the SM cover the copy. A slot
+// of 32 lanes that are all dead is not walked, and a warp with no live lane
+// stages nothing. The TPU kernel's 8-tile groups exist only because Mosaic
+// needs (8, 128) output blocks; here each tile loads its own cluster ids.
+// One buffer per warp: a second one, with cluster g + 1 copied while
+// cluster g is tested, halves the resident warps and hides nothing that
+// they do not (measured, PERF.md).
 //
-// What bounds it. Each (ray, triangle) test is ~46 f32 operations
-// including one IEEE division, against 40 bytes of triangle data that are
-// read once per tile from device memory and then S*T times from shared
-// memory; per tile that is T*S*46 operations for 10*S*4 + 8*T*4 bytes, so
-// the sweep is bound by f32 arithmetic (non-tensor-core), not by memory.
-// The design spends nothing beyond the arithmetic: no intermediate leaves
-// registers, and the triangle rows come from shared memory.
+// What bounds it: instruction issue, not memory. Per tile and cluster the
+// warp reads 40 * S bytes (mostly from L2) for 32 * R * S tests of about 70
+// instructions each; see mt.cuh for why --fmad=false puts the floor at
+// about twice the operations term of the bound.
 //
-// Exactness. The arithmetic is mt.cuh's mt_test (traverse._mt_sweep's op
-// order, IEEE division; build with --fmad=false). Dead lanes (t_max = -1)
+// Exactness. The arithmetic is mt.cuh's mt_test (traverse._mt_sweep's
+// op order; the reciprocal has the IEEE division's bits, see rcp_fast; build
+// with --fmad=false). Dead lanes (t_max = -1)
 // fail every test through t <= t_max; padding triangles (all zero) fail
 // |a| > MT_EPSILON. The fold is the oracle's lexicographic rule
 // (mt.cuh fold_min_tri); the any-hit reading `tri != INT32_MAX` relies on a
@@ -41,54 +51,143 @@
 
 #define PACK_ROWS 10
 
-__global__ void ctiles_sweep_kernel(const float* __restrict__ tri_pack,
-                                    const float* __restrict__ rays,
-                                    const int* __restrict__ tile_cid,
-                                    float* __restrict__ t_out,
-                                    int* __restrict__ tri_out,
-                                    int s, int t_lanes, int n_clusters) {
-  extern __shared__ float tri[];  // [PACK_ROWS, s]
-  const int tile = blockIdx.x;
-  const int cid = tile_cid[tile];
-  const bool cid_ok = cid >= 0 && cid < n_clusters;
-  if (cid_ok) {
-    const float* src = tri_pack + (size_t)cid * PACK_ROWS * s;
-    for (int i = threadIdx.x; i < PACK_ROWS * s; i += blockDim.x) {
-      tri[i] = src[i];
+template <int S, int T, int R>
+__global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(R))
+    tile_sweep_kernel(const float* __restrict__ tri_pack,
+                      const float* __restrict__ rays,
+                      const int* __restrict__ tile_cid,
+                      float* __restrict__ t_out, int* __restrict__ tri_out,
+                      int nt, int g, int n_clusters) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int WPT = T / (32 * R);  // warps per tile
+  const int unit = blockIdx.x * SWEEP_WARPS + warp;
+  if (unit >= nt * WPT) return;  // whole warps leave; there is no block barrier
+  const size_t tile = (size_t)(unit / WPT);
+  const int base = (unit % WPT) * 32 * R;
+  TriRec* buf = reinterpret_cast<TriRec*>(smem) + (size_t)warp * S;
+
+  Ray ray[R];
+  float tmin[R], tmax[R], best_t[R];
+  int best_tri[R];
+  const unsigned live =
+      load_slots<T, R>(rays, tile, base, lane, ray, tmin, tmax);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    best_t[r] = INFINITY;
+    best_tri[r] = I32_MAX;
+  }
+
+  if (live != 0u) {
+    for (int i = 0; i < g; ++i) {
+      const int cid = tile_cid[tile * g + i];
+      if (cid < 0 || cid >= n_clusters) continue;
+      stage_cluster_warp<S>(buf, tri_pack + (size_t)cid * PACK_ROWS * S, lane);
+      cp_async_wait_all();
+      __syncwarp();
+      sweep_live<R, S>(buf, live, ray, tmin, tmax, best_t, best_tri);
+      __syncwarp();  // every lane is done with the buffer
     }
   }
-  __syncthreads();
-
-  for (int lane = threadIdx.x; lane < t_lanes; lane += blockDim.x) {
-    const float* r = rays + (size_t)tile * RAY_ROWS * t_lanes + lane;
-    const Ray ray = load_ray(r, t_lanes);
-    const float tmax = r[6 * t_lanes], tmin = r[7 * t_lanes];
-
-    float best_t = INFINITY;
-    int best_tri = I32_MAX;
-    const int n = cid_ok ? s : 0;
-    for (int j = 0; j < n; ++j) {
-      float t;
-      if (mt_test(ray, tri, s, j, tmin, tmax, &t)) {
-        fold_min_tri(t, __float_as_int(tri[9 * s + j]), &best_t, &best_tri);
-      }
-    }
-    t_out[(size_t)tile * t_lanes + lane] = best_t;
-    tri_out[(size_t)tile * t_lanes + lane] = best_tri;
-  }
+  store_slots<T, R>(t_out, tri_out, tile, base, lane, best_t, best_tri);
 }
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
+// Four warps' buffers: 48 KB at S = 256, the most a launch gets without
+// asking for more.
+template <int S>
+constexpr size_t smem_bytes() {
+  static_assert(SWEEP_WARPS * S * sizeof(TriRec) <= 48 * 1024,
+                "the staging buffers exceed the default shared memory");
+  return SWEEP_WARPS * S * sizeof(TriRec);
+}
+
+template <int S, int T, int R>
+static int launch(const void* tri_pack, const void* rays, const void* tile_cid,
+                  void* t_out, void* tri_out, int nt, int g, int n_clusters,
+                  cudaStream_t stream) {
+  const int units = nt * (T / (32 * R));
+  const int blocks = (units + SWEEP_WARPS - 1) / SWEEP_WARPS;
+  tile_sweep_kernel<S, T, R>
+      <<<blocks, SWEEP_WARPS * 32, smem_bytes<S>(), stream>>>(
+          (const float*)tri_pack, (const float*)rays, (const int*)tile_cid,
+          (float*)t_out, (int*)tri_out, nt, g, n_clusters);
+  return (int)cudaGetLastError();
+}
+
+template <int S, int T, int R>
+static int occupancy(int* regs, int* warps_per_sm) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, tile_sweep_kernel<S, T, R>);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, tile_sweep_kernel<S, T, R>, SWEEP_WARPS * 32, smem_bytes<S>());
+  *warps_per_sm = blocks * SWEEP_WARPS;
+  return (int)err;
+}
+
+// Rays a thread: four at T = 128, the closest path's tiles (one warp a tile,
+// a quarter of the staging); one at the shadow cascade's T = 64 and 256,
+// whose launches are small and need the warps.
+constexpr int rays_per_thread(int t_lanes) { return t_lanes == 128 ? 4 : 1; }
+
+#define NO_INSTANCE (-1)  // no cudaError_t is negative
+#define FOR_INSTANCES(CALL)                                              \
+  CALL(128, 64) CALL(128, 128) CALL(128, 256) CALL(256, 64) CALL(256, 128) \
+  CALL(256, 256)
+
+// Launches on `stream`; returns the cudaError_t of the launch (0 = ok), or
+// NO_INSTANCE for an (S, T) that is not compiled.
 extern "C" int ctiles_sweep(const void* tri_pack, const void* rays,
                             const void* tile_cid, void* t_out, void* tri_out,
-                            int nt, int s, int t_lanes, int n_clusters,
+                            int nt, int g, int s, int t_lanes, int n_clusters,
                             void* stream) {
   if (nt <= 0) return 0;
-  int threads = t_lanes < 1024 ? t_lanes : 1024;
-  threads = ((threads + 31) / 32) * 32;
-  const size_t smem = (size_t)PACK_ROWS * s * sizeof(float);
-  ctiles_sweep_kernel<<<nt, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)tri_pack, (const float*)rays, (const int*)tile_cid,
-      (float*)t_out, (int*)tri_out, s, t_lanes, n_clusters);
+  if (g < 1) return (int)cudaErrorInvalidValue;
+#define LAUNCH(S_, T_)                                                       \
+  if (s == S_ && t_lanes == T_)                                              \
+    return launch<S_, T_, rays_per_thread(T_)>(                              \
+        tri_pack, rays, tile_cid, t_out, tri_out, nt, g, n_clusters,         \
+        (cudaStream_t)stream);
+  FOR_INSTANCES(LAUNCH)
+#undef LAUNCH
+  return NO_INSTANCE;
+}
+
+// Registers per thread of the (S, T) instance and the warps an SM holds of
+// it.
+extern "C" int ctiles_sweep_occupancy(int s, int t_lanes, int* regs,
+                                      int* warps_per_sm) {
+#define OCCUPANCY(S_, T_) \
+  if (s == S_ && t_lanes == T_) \
+    return occupancy<S_, T_, rays_per_thread(T_)>(regs, warps_per_sm);
+  FOR_INSTANCES(OCCUPANCY)
+#undef OCCUPANCY
+  return NO_INSTANCE;
+}
+
+// Counts, over the 2^32 bit patterns, the x in rcp_fast's range whose
+// rcp_fast(x) differs in any bit from 1.0f / x (one atomic add per thread
+// that found some).
+__global__ void rcp_check_kernel(unsigned long long* mismatches) {
+  const unsigned stride = gridDim.x * blockDim.x;  // 2^20: 4096 trips each
+  unsigned bits = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned long long bad = 0;
+  for (unsigned k = 0; k < (1ull << 32) / stride; ++k, bits += stride) {
+    const float x = __uint_as_float(bits);
+    const float ax = fabsf(x);
+    if (!(ax >= 1.17549435e-38f && ax < RCP_FAST_BELOW)) continue;
+    if (__float_as_uint(rcp_fast(x)) != __float_as_uint(1.0f / x)) ++bad;
+  }
+  if (bad) atomicAdd(mismatches, bad);
+}
+
+// Mismatches between mt.cuh's rcp_fast(x) and 1.0f / x over every float bit
+// pattern in rcp_fast's range, written to *mismatches (a zeroed u64 on the
+// device).
+extern "C" int rcp_check(void* mismatches, void* stream) {
+  rcp_check_kernel<<<4096, 256, 0, (cudaStream_t)stream>>>(
+      (unsigned long long*)mismatches);
   return (int)cudaGetLastError();
 }

@@ -20,105 +20,191 @@
 // hits in near sub-slabs prune far ones inside one call. The dummy cluster
 // (id C) is always skipped.
 //
-// Design. One thread block per ray block, one thread per lane; running
-// (t, tri) in registers. Per candidate the block stages the 6 * ns box
-// floats, and only if some lane touches some box at the current bounds
-// (bounds only shrink, so this first vote is conservative) the 10 x S
-// triangle rows (5 KB at S = 128); then one __syncthreads_or per sub-slab
-// with the current bounds, and each thread walks the live sub-slabs. The
-// skips are block-uniform, so every barrier is reached by all threads.
+// Design (the inner loop is mt.cuh's, shared with ctiles_sweep.cu). A ray
+// block is split over T / 32 warps of one ray per thread (running (t, tri)
+// in registers) that share nothing: four warps a thread block, no
+// __syncthreads. Each warp reads the eight ids once (one lane each), walks
+// the real candidates through a ballot, and stages each candidate for
+// itself with cp.async: S transposed triangles (TriRec) and the sub-slab
+// boxes (six contiguous runs of ns floats in pack rows 10-15), 6.3 KB at
+// S = 128, which lets an SM hold 32 warps. The gate is the warp's: each lane
+// evaluates each box once, just before its sub-slab, with its bound of that
+// moment, and one __any_sync over the warp's 32 lanes decides. That is finer
+// than the plain version's vote over all T lanes, so fewer sub-slabs are
+// swept; the result is the same bit for bit, because a lane whose segment
+// misses a box can pass no test in it. Inside a sub-slab the warp votes once
+// more per triangle, after u (mt.cuh sweep_run): with one ray a thread no
+// lane has 0 <= u <= 1 for most triangles, and v and t are then not
+// computed.
 //
-// What bounds it: as fused_anyhit.cu, arithmetic where anything is swept.
-// Build with --fmad=false (see mt.cuh).
+// Why the unit of work is a warp of 32 lanes and not the ray block: the
+// launch lasts as long as the unit that skips least, and small units with
+// their own gates spread that work; one buffer per warp, because a second
+// one with the next candidate on its way costs more in resident warps than
+// it hides (both measured, PERF.md).
+//
+// What bounds it: instruction issue where anything is swept (see mt.cuh:
+// about 70 instructions a test, and with --fmad=false about twice the
+// operations term of the bound at best); the number of sub-slabs swept
+// depends on the data. Build with --fmad=false (see mt.cuh).
 
 #include "mt.cuh"
 
 #define GROUP 8
 #define PACK_ROWS 16
-#define MAX_SUBS 32
+#define BOX_WORDS 8  // lo.xyz, pad, hi.xyz, pad
 
-__global__ void block_closest_kernel(const float* __restrict__ tri_pack,
-                                     const float* __restrict__ rays,
-                                     const int* __restrict__ cid8,
-                                     float* __restrict__ t_out,
-                                     int* __restrict__ tri_out,
-                                     int s, int t_lanes, int dummy,
-                                     int sub_skip) {
-  extern __shared__ float smem[];
-  float* tri = smem;            // [10, s]
-  float* box = smem + 10 * s;   // [ns, 6]
-  const int blk = blockIdx.x;
-  const int lane = threadIdx.x;
-  const bool in_range = lane < t_lanes;
-  const int ns = (s + SUB - 1) / SUB;
+template <int S>
+struct alignas(16) Staged {
+  TriRec tri[S];
+  float box[((S + SUB - 1) / SUB) * BOX_WORDS];
+};
 
-  Ray ray = {0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f};
-  float tmax = -1.0f, tmin = 0.0f;
-  if (in_range) {
-    const float* r = rays + (size_t)blk * RAY_ROWS * t_lanes + lane;
-    ray = load_ray(r, t_lanes);
-    tmax = r[6 * t_lanes];
-    tmin = r[7 * t_lanes];
-  }
-  const float invx = 1.0f / ray.dx, invy = 1.0f / ray.dy, invz = 1.0f / ray.dz;
-
-  float best_t = INFINITY;
-  int best_tri = I32_MAX;
-  for (int j = 0; j < GROUP; ++j) {
-    // Barrier between the previous candidate's tests and this staging.
-    __syncthreads();
-    const int cid = cid8[(size_t)blk * GROUP + j];
-    if (cid >= dummy) continue;
-    const float* cluster = tri_pack + (size_t)cid * PACK_ROWS * s;
-
-    if (sub_skip) {
-      stage_boxes(box, cluster, s, ns);
-      __syncthreads();
-      const float cap = fminf(tmax, best_t);
-      bool any = false;
-      for (int k = 0; k < ns; ++k) {
-        any = any || sub_slab_lane(box + k * 6, ray, invx, invy, invz, tmin,
-                                   cap);
-      }
-      if (!__syncthreads_or(any)) continue;
-    }
-    stage_rows(tri, cluster, 10 * s);
-    __syncthreads();
-    for (int k = 0; k < ns; ++k) {
-      const float cap = fminf(tmax, best_t);
-      if (sub_skip &&
-          !__syncthreads_or(sub_slab_lane(box + k * 6, ray, invx, invy, invz,
-                                          tmin, cap))) {
-        continue;
-      }
-      const int hi = min((k + 1) * SUB, s);
-      for (int i = k * SUB; i < hi; ++i) {
-        float t;
-        if (mt_test(ray, tri, s, i, tmin, cap, &t)) {
-          fold_min_tri(t, __float_as_int(tri[9 * s + i]), &best_t, &best_tri);
-        }
-      }
-    }
-  }
-  if (in_range) {
-    const size_t o = (size_t)blk * t_lanes + lane;
-    t_out[o] = best_t;
-    tri_out[o] = best_tri;
+// One warp starts the copy of a cluster's triangles and sub-slab boxes.
+template <int S>
+__device__ __forceinline__ void stage_candidate(Staged<S>* dst,
+                                                const float* cluster,
+                                                int lane) {
+  constexpr int NS = (S + SUB - 1) / SUB;
+  stage_cluster_warp<S>(dst->tri, cluster, lane);
+  for (int i = lane; i < 6 * NS; i += 32) {
+    const int a = i / NS, k = i % NS;  // pack row 10 + a, sub-slab k
+    cp_async_f32(dst->box + k * BOX_WORDS + a + (a >= 3 ? 1 : 0),
+                 cluster + (10 + a) * S + k);
   }
 }
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
+template <int S, int T>
+__global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(1))
+    block_closest_kernel(const float* __restrict__ tri_pack,
+                         const float* __restrict__ rays,
+                         const int* __restrict__ cid8,
+                         float* __restrict__ t_out, int* __restrict__ tri_out,
+                         int size, int dummy, int sub_skip) {
+  constexpr int NS = (S + SUB - 1) / SUB;
+  constexpr int WPB = T / 32;  // warps per ray block
+  static_assert(S % SUB == 0, "whole sub-slabs only");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int unit = blockIdx.x * SWEEP_WARPS + warp;
+  if (unit >= size * WPB) return;  // whole warps leave: no block barrier
+  const size_t blk = (size_t)(unit / WPB);
+  const int off = (unit % WPB) * 32 + lane;  // this thread's lane of T
+  Staged<S>* st = reinterpret_cast<Staged<S>*>(smem) + warp;
+
+  const float* rp = rays + blk * RAY_ROWS * T + off;
+  const Ray ray = load_ray(rp, T);
+  const float tmax = rp[6 * T], tmin = rp[7 * T];
+  const float invx = 1.0f / ray.dx, invy = 1.0f / ray.dy, invz = 1.0f / ray.dz;
+  float best_t = INFINITY;
+  int best_tri = I32_MAX;
+
+  // Lane j < GROUP holds candidate j; `todo` has a bit per real candidate
+  // (none if every lane of the warp is dead and can pass no test).
+  const int my_cid = lane < GROUP ? cid8[blk * GROUP + lane] : dummy;
+  unsigned todo = __ballot_sync(FULL_MASK, my_cid >= 0 && my_cid < dummy);
+  if (!__any_sync(FULL_MASK, tmax >= tmin)) todo = 0u;
+
+  while (todo != 0u) {
+    const int cid = __shfl_sync(FULL_MASK, my_cid, __ffs(todo) - 1);
+    todo &= todo - 1u;
+    stage_candidate<S>(st, tri_pack + (size_t)cid * PACK_ROWS * S, lane);
+    cp_async_wait_all();
+    __syncwarp();
+#pragma unroll 1
+    for (int k = 0; k < NS; ++k) {
+      const float cap = fminf(tmax, best_t);
+      if (sub_skip) {
+        const float4 lo =
+            *reinterpret_cast<const float4*>(st->box + k * BOX_WORDS);
+        const float4 hi =
+            *reinterpret_cast<const float4*>(st->box + k * BOX_WORDS + 4);
+        const float box[6] = {lo.x, lo.y, lo.z, hi.x, hi.y, hi.z};
+        const bool touch =
+            sub_slab_lane(box, ray, invx, invy, invz, tmin, cap);
+        if (!__any_sync(FULL_MASK, touch)) continue;
+      }
+      sweep_run<1, SUB>(st->tri + k * SUB, &ray, &tmin, &cap, &best_t,
+                        &best_tri);
+    }
+    __syncwarp();  // every lane is done with the buffer
+  }
+  t_out[blk * T + off] = best_t;
+  tri_out[blk * T + off] = best_tri;
+}
+
+template <int S>
+constexpr size_t smem_bytes() {
+  return SWEEP_WARPS * sizeof(Staged<S>);
+}
+
+// Allows the kernel its dynamic shared memory (above the default 48 KB at
+// S = 256) on the current device.
+template <int S, int T>
+static cudaError_t configure() {
+  return cudaFuncSetAttribute(block_closest_kernel<S, T>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_bytes<S>());
+}
+
+template <int S, int T>
+static int launch(const void* tri_pack, const void* rays, const void* cid8,
+                  void* t_out, void* tri_out, int size, int dummy,
+                  int sub_skip, cudaStream_t stream) {
+  const cudaError_t err = configure<S, T>();
+  if (err != cudaSuccess) return (int)err;
+  const int units = size * (T / 32);
+  const int blocks = (units + SWEEP_WARPS - 1) / SWEEP_WARPS;
+  block_closest_kernel<S, T>
+      <<<blocks, SWEEP_WARPS * 32, smem_bytes<S>(), stream>>>(
+          (const float*)tri_pack, (const float*)rays, (const int*)cid8,
+          (float*)t_out, (int*)tri_out, size, dummy, sub_skip);
+  return (int)cudaGetLastError();
+}
+
+template <int S, int T>
+static int occupancy(int* regs, int* warps_per_sm) {
+  cudaError_t err = configure<S, T>();
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, block_closest_kernel<S, T>);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, block_closest_kernel<S, T>, SWEEP_WARPS * 32, smem_bytes<S>());
+  *warps_per_sm = blocks * SWEEP_WARPS;
+  return (int)err;
+}
+
+#define NO_INSTANCE (-1)  // no cudaError_t is negative
+#define FOR_INSTANCES(CALL)                                             \
+  CALL(64, 64) CALL(64, 128) CALL(128, 64) CALL(128, 128) CALL(256, 64) \
+  CALL(256, 128)
+
+// Launches on `stream`; returns the cudaError_t of the launch (0 = ok), or
+// NO_INSTANCE for an (S, T) that is not compiled.
 extern "C" int block_closest(const void* tri_pack, const void* rays,
                              const void* cid8, void* t_out, void* tri_out,
                              int size, int s, int t_lanes, int dummy,
                              int sub_skip, void* stream) {
   if (size <= 0) return 0;
-  const int ns = (s + SUB - 1) / SUB;
-  if (ns > MAX_SUBS) return (int)cudaErrorInvalidValue;
-  const int threads = ((t_lanes + 31) / 32) * 32;
-  const size_t smem = (size_t)(10 * s + 6 * ns) * sizeof(float);
-  block_closest_kernel<<<size, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)tri_pack, (const float*)rays, (const int*)cid8,
-      (float*)t_out, (int*)tri_out, s, t_lanes, dummy, sub_skip);
-  return (int)cudaGetLastError();
+#define LAUNCH(S_, T_)                                                      \
+  if (s == S_ && t_lanes == T_)                                             \
+    return launch<S_, T_>(tri_pack, rays, cid8, t_out, tri_out, size, dummy, \
+                          sub_skip, (cudaStream_t)stream);
+  FOR_INSTANCES(LAUNCH)
+#undef LAUNCH
+  return NO_INSTANCE;
+}
+
+// Registers per thread of the (S, T) instance and the warps an SM holds of
+// it.
+extern "C" int block_closest_occupancy(int s, int t_lanes, int* regs,
+                                       int* warps_per_sm) {
+#define OCCUPANCY(S_, T_) \
+  if (s == S_ && t_lanes == T_) return occupancy<S_, T_>(regs, warps_per_sm);
+  FOR_INSTANCES(OCCUPANCY)
+#undef OCCUPANCY
+  return NO_INSTANCE;
 }

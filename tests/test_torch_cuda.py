@@ -35,33 +35,75 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("t_lanes,s", [(128, 256), (64, 128)])
-def test_tile_sweep_kernel_matches_plain(cuda, rng, t_lanes, s):
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("t_lanes,s", [(128, 256), (64, 128), (128, 128),
+                                       (64, 256), (256, 128), (256, 256)])
+def test_tile_sweep_kernel_matches_plain(cuda, rng, t_lanes, s, g):
+    """Every compiled (T, S) with one and two clusters a tile; every seventh
+    lane dead, whole 32-lane slots dead in some tiles, some tiles all dead."""
     from types import SimpleNamespace
 
     arr = blob_room_arrays(4)
     acc = build_clusters(SimpleNamespace(v0=arr[0], v1=arr[1], v2=arr[2]),
                          cluster_size=s, device=cuda)
     nt = 256
-    cid = rng.integers(0, acc.num_clusters, nt).astype(np.int32)
+    cid = rng.integers(0, acc.num_clusters, (nt, g)).astype(np.int32)
     v0 = acc.v0.cpu().numpy()
-    o = v0[cid[:, None], rng.integers(0, s, (nt, t_lanes))].reshape(-1, 3)
+    o = v0[cid[:, :1], rng.integers(0, s, (nt, t_lanes))].reshape(-1, 3)
     o = o + rng.standard_normal(o.shape).astype(np.float32) * 1e-3
     d = rng.standard_normal(o.shape).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tm = np.full(o.shape[0], np.inf, np.float32)
-    tm[::7] = -1.0
+    tm = np.full((nt, t_lanes), np.inf, np.float32)
+    tm.reshape(-1)[::7] = -1.0
+    tm[1::5, 32:64] = -1.0          # a dead slot (one warp's second ray)
+    tm[2::5, :t_lanes - 32] = -1.0  # only the last slot lives
+    tm[3::11] = -1.0                # all lanes dead
+    tm = tm.reshape(-1)
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=cuda)
     rays = cuda_ctiles.pack_rays_tiles(t(o), t(d), t(tm), t_lanes)
     pack = cuda_ctiles.pack_tris(acc)
+    cid_t = t(cid) if g > 1 else t(cid[:, 0])
     before = cuda_ctiles.launches
-    t_k, tri_k = cuda_ctiles.tile_sweep(pack, rays, t(cid))
+    t_k, tri_k = cuda_ctiles.tile_sweep(pack, rays, cid_t)
     assert cuda_ctiles.launches == before + 1
-    t_p, tri_p = cuda_ctiles.tile_sweep_plain(pack, rays, t(cid))
+    assert cuda_ctiles.launch_shapes[(t_lanes, s, g)][1] >= nt
+    t_p, tri_p = cuda_ctiles.tile_sweep_plain(pack, rays, cid_t)
     torch.cuda.synchronize()
     assert (tri_k != cuda_ctiles.I32_MAX).any()
     assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
     assert torch.equal(tri_k, tri_p)
+    assert (tri_k[3::11] == cuda_ctiles.I32_MAX).all()
+    if g > 1:  # one launch over G clusters == G launches folded
+        t_f, tri_f = cuda_ctiles.tile_sweep(pack, rays, cid_t[:, 0].contiguous())
+        for j in range(1, g):
+            t_j, tri_j = cuda_ctiles.tile_sweep(pack, rays,
+                                                cid_t[:, j].contiguous())
+            t_f, tri_f = cuda_ctiles.combine_min_tri(t_f, tri_f, t_j, tri_j)
+        assert torch.equal(t_k.view(torch.int32), t_f.view(torch.int32))
+        assert torch.equal(tri_k, tri_f)
+
+
+def test_kernel_reciprocal_is_the_ieee_division(cuda):
+    """The closest-hit kernels invert the determinant without the division's
+    range check; over every float bit pattern in its range (2^-126 <= |x| <
+    2^126, about 4.2e9 values) the result has the division's bits."""
+    assert cuda_ctiles.rcp_mismatches() == 0
+
+
+def test_uncompiled_shapes_raise(cuda):
+    """An (S, T) without a template instance is a ValueError naming it."""
+    cid = torch.zeros((4,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="S = 96, T = 64"):
+        cuda_ctiles.tile_sweep(torch.zeros((2, 10, 96), device=cuda),
+                               torch.zeros((4, 8, 64), device=cuda), cid)
+    with pytest.raises(ValueError, match="S = 128, T = 96"):
+        cuda_ctiles.tile_sweep(torch.zeros((2, 10, 128), device=cuda),
+                               torch.zeros((4, 8, 96), device=cuda), cid)
+    with pytest.raises(ValueError, match="S = 128, T = 32"):
+        cuda_closest.block_closest(
+            torch.zeros((3, 16, 128), device=cuda),
+            torch.zeros((4, 8, 32), device=cuda),
+            torch.zeros((32,), dtype=torch.int32, device=cuda))
 
 
 def test_wrapper_rejects_bad_inputs(cuda):
@@ -91,6 +133,29 @@ def test_wavefront_equals_oracle_on_gpu(cuda):
     assert cuda_ctiles.launches > before
     img_o = oracle.render(scene, default_camera(cuda), s, device=cuda)
     np.testing.assert_array_equal(img_w, img_o)
+
+
+@pytest.mark.parametrize("block_size", [None, 64, 128])
+def test_any_hit_packets_on_gpu(cuda, rng, block_size):
+    """The shadow cascade on the card, with its default arguments (blocks of
+    256, groups of 8) and with the renders' block sizes, against brute
+    force."""
+    from path_tracer_ai_tpu_torch.accel import traverse
+    from path_tracer_ai_tpu_torch.engine import intersect
+    from path_tracer_ai_tpu_torch.scene.scene import blob_scene
+
+    tris = blob_scene(subdivisions=3, device=cuda).triangles
+    acc = build_clusters(tris, cluster_size=128)
+    o, d, tm = _bounce_wave(acc, 256 * 32, rng)
+    kw = {} if block_size is None else dict(block_size=block_size, group_size=2)
+    before = cuda_ctiles.launches
+    occ = traverse.any_hit_packets(acc, o, d, 1e-3, tm, **kw)
+    assert cuda_ctiles.launches > before
+    t_lanes, g = (256, 8) if block_size is None else (block_size, 2)
+    assert (t_lanes, 128, g) in cuda_ctiles.launch_shapes
+    brute = intersect.any_hit(tris, o, d, 1e-3, tm)
+    assert occ.any() and not occ.all()
+    assert torch.equal(occ, brute)
 
 
 # --- the pallas backend's sweeps and the fused cascades' block kernels ------
@@ -148,7 +213,7 @@ def test_sweep_kernels_match_plain(cuda, rng, block_size):
     assert not occ.reshape(-1)[rays[:, 6].reshape(-1) < 0].any()
 
 
-@pytest.mark.parametrize("s", [128, 64])
+@pytest.mark.parametrize("s", [128, 64, 256])
 def test_fused_kernels_match_plain(cuda, rng, s):
     acc = _accel(cuda, s)
     pack = cuda_anyhit.pack_tris_dummy(acc)
@@ -171,6 +236,8 @@ def test_fused_kernels_match_plain(cuda, rng, s):
         assert cuda_anyhit.launches == before + 4
         before = cuda_closest.launches
         pt, ptri = cuda_closest.block_closest_plain(pack, rays, cid8, True)
+        qt, qtri = cuda_closest.block_closest_plain(pack, rays, cid8, False)
+        assert torch.equal(_bits(qt), _bits(pt)) and torch.equal(qtri, ptri)
         for sub_skip in (False, True):
             kt, ktri = cuda_closest.block_closest(pack, rays, cid8, sub_skip)
             assert torch.equal(_bits(kt), _bits(pt)), (k, sub_skip)

@@ -61,6 +61,39 @@ def test_any_hit_packets_matches_jax(rng, sort):
     np.testing.assert_array_equal(occ_t.numpy(), brute.numpy())
 
 
+@pytest.mark.parametrize("group_size", [1, 3, 8])
+def test_any_hit_packets_one_sweep_per_iteration(rng, monkeypatch, group_size):
+    """The cascade hands each iteration's [n_act, g] candidates to ONE
+    tile_sweep call, with the lanes occluded so far marked dead, and still
+    equals the JAX any_hit_packets exactly and brute force."""
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles
+
+    ja, pa, ptris, o, d, tm = _setup(rng, 1500, 128, 64 * 64)
+    calls = []
+    real = cuda_ctiles.tile_sweep
+
+    def spy(tri_pack, rays_pack, tile_cid):
+        calls.append((tuple(tile_cid.shape), rays_pack.shape[0],
+                      int((rays_pack[:, 6] < 0).sum())))
+        return real(tri_pack, rays_pack, tile_cid)
+
+    monkeypatch.setattr(cuda_ctiles, "tile_sweep", spy)
+    syncs = traverse.sync.count
+    occ_t = traverse.any_hit_packets(pa, T(o), T(d), 1e-3, T(tm),
+                                     block_size=64, group_size=group_size)
+    iterations = traverse.sync.count - syncs  # one host read per vote
+    assert calls and len(calls) <= iterations
+    assert all(shape == (n, group_size) for shape, n, _dead in calls)
+    # later iterations carry the occluded lanes as dead ones
+    assert calls[-1][2] / calls[-1][1] > calls[0][2] / calls[0][1]
+    occ_j = np.asarray(jtraverse.any_hit_packets(
+        ja, jnp.asarray(o), jnp.asarray(d), 1e-3, jnp.asarray(tm),
+        block_size=64, group_size=group_size))
+    np.testing.assert_array_equal(occ_t.numpy(), occ_j)
+    brute = intersect.any_hit(ptris, T(o), T(d), 1e-3, T(tm))
+    np.testing.assert_array_equal(occ_t.numpy(), brute.numpy())
+
+
 def _closest_kw(cap, fallback_compact):
     # the port's block (8) and tile_blocks (16) are the reference defaults
     return dict(cap=cap, tile_chunk=4, fallback_compact=fallback_compact)
