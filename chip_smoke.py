@@ -9,8 +9,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
   1. device       CUDA must be available; the card's name and power limit.
   2. build        nvcc builds every kernel source under csrc/, in parallel;
                   registers and spills of every kernel as ptxas reports them,
-                  and the resident warps per SM of the two closest-hit
-                  kernels at their paths' shapes.
+                  and the registers and resident warps per SM of the four
+                  kernels on mt.cuh's inner loops at their paths' shapes.
   3. kernel       each of the five kernels against its plain PyTorch version
                   on the card, at its path's shapes (bitwise t; exact
                   cluster, slot, triangle id and occlusion; the fused
@@ -27,7 +27,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   launches and tiles also split by shape (T, S, G).
   4b. profile     one more such render under torch.profiler: device kernel
                   time by kernel and by wave type, and the device's busy
-                  share of the timed pass.
+                  share of the timed pass; the same for the next two paths
+                  (profile_pallas, profile_fused, each after its own timed
+                  render), with the time of the path's own kernels.
   4c. path_pallas the same bench render with backend="pallas",
                   block_size=64 (accel.cuda_sweep: one launch per wave): a
                   small warm render, counts zeroed, one timed render; the
@@ -141,6 +143,8 @@ def phase_build():
         "tile_sweep T128 S256": cuda_ctiles.kernel_occupancy(256, 128),
         "tile_sweep T64 S128": cuda_ctiles.kernel_occupancy(128, 64),
         "block_closest T128 S128": cuda_closest.kernel_occupancy(128, 128),
+        "block_anyhit T128 S128": cuda_anyhit.kernel_occupancy(128, 128),
+        "anyhit_sweep S128": cuda_sweep.kernel_occupancy(128),
     }
     emit({"phase": "build", "seconds": seconds, "built": sorted(built),
           "spilling": [e["entry"] for es in ptxas.values() for e in es
@@ -275,6 +279,19 @@ def _kill_every_seventh(rays):
     return rays
 
 
+def _warp_visits(cuda_sweep, slab, rays, order, n_cand) -> int:
+    """The (warp, cluster) visits of anyhit_sweep's walk, which stops warp by
+    warp: the plain version's visits over the blocks cut into 32 lanes."""
+    b, rows, r = rays.shape
+    w = r // 32
+    st = {}
+    cuda_sweep.anyhit_sweep_plain(
+        slab, rays.reshape(b, rows, w, 32).transpose(1, 2).reshape(
+            b * w, rows, 32), order.repeat_interleave(w, dim=0),
+        n_cand.repeat_interleave(w), stats=st)
+    return st["visits"]
+
+
 def _check_sweeps(accel, rng, nb=2048, r=64):
     """closest_sweep and anyhit_sweep (the pallas backend's kernels) at
     B = 2048 blocks of R = 64 lanes, candidate lists from the port's own
@@ -340,11 +357,14 @@ def _check_sweeps(accel, rng, nb=2048, r=64):
     nbytes = slab_bytes + _nbytes(rays, n_cand, k_occ) + st["visits"] * 4
     res = {"phase": "kernel", "name": "anyhit_sweep", "B": nb, "R": r, "S": s,
            "c_pad": order.shape[1], "mean_candidates": float(n_cand.float().mean()),
-           "visits": st["visits"], "occ_equal": equal, "matches_plain": equal,
+           "visits": st["visits"],
+           "warp_visits": _warp_visits(cuda_sweep, slab, rays, order, n_cand),
+           "occ_equal": equal, "matches_plain": equal,
            "max_abs_err": float((k_occ != p_occ).sum()),  # lanes that differ
            "hit_lanes": hits, "ms": ms, "plain_ms": plain_ms,
            "swept_tests": st["visits"] * r * s,
            **_bound(nbytes, st["lane_tests"])}
+    res["ms_over_bound"] = ms / res["bound_ms"]
     emit(res)
     if not equal:
         fail("kernel", "anyhit_sweep disagrees with its plain version")
@@ -352,6 +372,11 @@ def _check_sweeps(accel, rng, nb=2048, r=64):
         fail("kernel", "anyhit_sweep check wave hit nothing")
     out["anyhit_sweep"] = res
     return out
+
+
+# Launches a timing of the fused kernels averages over: their 0.2-0.5 ms
+# read 0.43-0.51 ms across runs of one kernel when averaged over 10.
+FUSED_REPS = 50
 
 
 def _check_fused(accel, rng, size=2048, t_lanes=128):
@@ -403,8 +428,9 @@ def _check_block_anyhit(pack, inputs, size, t_lanes, s):
                                   int((k_occ != p_occ).sum()))
     hits = int(p_occ.sum())
     ms = cuda_ms(lambda: cuda_anyhit.block_anyhit(
-        pack, rays, cid8, early_skip=True, sub_skip=True), 10)
-    ms_off = cuda_ms(lambda: cuda_anyhit.block_anyhit(pack, rays, cid8), 10)
+        pack, rays, cid8, early_skip=True, sub_skip=True), FUSED_REPS)
+    ms_off = cuda_ms(lambda: cuda_anyhit.block_anyhit(pack, rays, cid8),
+                     FUSED_REPS)
     plain_ms = cuda_ms(lambda: cuda_anyhit.block_anyhit_plain(
         pack, rays, cid8, True, True), 1)
     nbytes = pack_bytes + _nbytes(rays, cid8, p_occ)
@@ -416,6 +442,7 @@ def _check_block_anyhit(pack, inputs, size, t_lanes, s):
            "hit_lanes": hits, "ms": ms, "ms_options_off": ms_off,
            "plain_ms": plain_ms, "swept_tests": st_on["tests"],
            **_bound(nbytes, st_on["lane_tests"])}
+    res["ms_over_bound"] = ms / res["bound_ms"]
     emit(res)
     if not all(variants.values()):
         fail("kernel", f"block_anyhit disagrees with its plain version: {variants}")
@@ -441,9 +468,10 @@ def _check_block_closest(pack, inputs, size, t_lanes, s):
             _bits_equal(k_t, p_t) and bool(torch.equal(k_tri, p_tri)))
         err = max(err, _max_abs_err(k_t, p_t))
     hits = int((p_tri != cuda_ctiles.I32_MAX).sum())
-    ms = cuda_ms(lambda: cuda_closest.block_closest(pack, rays, cid8, True), 10)
+    ms = cuda_ms(lambda: cuda_closest.block_closest(pack, rays, cid8, True),
+                 FUSED_REPS)
     ms_off = cuda_ms(lambda: cuda_closest.block_closest(pack, rays, cid8,
-                                                        False), 10)
+                                                        False), FUSED_REPS)
     plain_ms = cuda_ms(lambda: cuda_closest.block_closest_plain(
         pack, rays, cid8, True), 1)
     nbytes = pack_bytes + _nbytes(rays, cid8, p_t, p_tri)
@@ -644,54 +672,90 @@ def _range_us(evt) -> float:
     return 0.0
 
 
-def phase_profile(scene, accel_base, accel_c, timed_seconds):
-    """One more bench render under torch.profiler: device kernel time by
-    name and by wave type. The busy share divides the device time by the
-    UNPROFILED timed pass's wall time (profiling slows the host, not the
-    kernels)."""
+def _profiled_render(scene, engines=None, **render_kw):
+    """One bench render under torch.profiler -> (its key_averages(), the
+    profiled wall seconds)."""
     from torch.profiler import ProfilerActivity, profile
 
     from path_tracer_ai_tpu_torch.config import RenderSettings
     from path_tracer_ai_tpu_torch.engine import wavefront
     from path_tracer_ai_tpu_torch.scene.camera import default_camera
 
-    settings = RenderSettings(width=1920, height=1080, samples_per_pixel=2,
-                              max_bounces=5, seed=0)
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wavefront.render(scene, default_camera("cuda"), settings,
-                         accel=accel_base, accel_closest=accel_c,
-                         wave_size=1 << 20, device="cuda")
+    with _engines(engines), profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+        wavefront.render(scene, default_camera("cuda"),
+                         RenderSettings(**BENCH), wave_size=1 << 20,
+                         device="cuda", **render_kw)
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    avgs = prof.key_averages()
-    labels = ("closest_wave", "shadow_wave")
-    # Device-side entries are kernels and copies; the labelled ranges also
-    # appear there (as spans, gaps included) and are reported apart.
+    return prof.key_averages(), time.perf_counter() - t0
+
+
+WAVE_LABELS = ("closest_wave", "shadow_wave")  # wavefront's record_function
+
+
+def _kernel_time(phase, avgs, wall, timed_seconds, names):
+    """The profile line's common part: device kernel time in all and, for
+    each of `names` (substrings of kernel symbols), the time and count of
+    the kernels that match. Device-side entries are kernels and copies; the
+    labelled ranges also appear there (as spans, gaps included) and are
+    left out. The busy share divides the device time by the UNPROFILED
+    timed pass's wall time (profiling slows the host, not the kernels)."""
     kernels = [e for e in avgs if str(e.device_type).endswith("CUDA")
-               and e.key not in labels]
+               and e.key not in WAVE_LABELS]
     busy_us = sum(_device_us(e) for e in kernels)
     top = sorted(kernels, key=_device_us, reverse=True)[:8]
-    sweeps = [e for e in kernels if "tile_sweep_kernel" in e.key]
+    own = {}
+    for name in names:
+        match = [e for e in kernels if name in e.key]
+        sec = sum(_device_us(e) for e in match) / 1e6
+        own[name] = {"count": int(sum(e.count for e in match)),
+                     "seconds": sec,
+                     "share_of_device_time": sec / (busy_us / 1e6)
+                     if busy_us else "not measured",
+                     "instances": [{"name": e.key[:80], "count": e.count,
+                                    "seconds": _device_us(e) / 1e6}
+                                   for e in match]}
+    return {"phase": phase, "profiled_wall_seconds": wall,
+            "timed_pass_seconds": timed_seconds,
+            "device_kernel_seconds": busy_us / 1e6,
+            "device_kernels": int(sum(e.count for e in kernels)),
+            "busy_share_of_timed_pass": (busy_us / 1e6 / timed_seconds
+                                         if busy_us else "not measured"),
+            "path_kernels": own,
+            "top_kernels": [{"name": e.key[:80], "count": e.count,
+                             "seconds": _device_us(e) / 1e6} for e in top]}
+
+
+def phase_profile(scene, accel_base, accel_c, timed_seconds):
+    """The main path's bench render under torch.profiler: device kernel
+    time by name and by wave type."""
+    avgs, wall = _profiled_render(scene, accel=accel_base,
+                                  accel_closest=accel_c)
+    res = _kernel_time("profile", avgs, wall, timed_seconds,
+                       ["tile_sweep_kernel"])
+    sweeps = res["path_kernels"]["tile_sweep_kernel"]
     host = [e for e in avgs
-            if e.key in labels and not str(e.device_type).endswith("CUDA")]
-    ranges = {e.key: _range_us(e) / 1e6 for e in host}
-    # host wall inside each label, syncs included (inflated by profiling)
-    host_s = {e.key: float(e.cpu_time_total) / 1e6 for e in host}
-    res = {"phase": "profile", "profiled_wall_seconds": wall,
-           "device_kernel_seconds": busy_us / 1e6,
-           "device_kernels": int(sum(e.count for e in kernels)),
-           "tile_sweep_kernel_seconds": sum(_device_us(e) for e in sweeps) / 1e6,
-           "tile_sweep_kernels": [{"name": e.key[:80], "count": e.count,
-                                   "seconds": _device_us(e) / 1e6}
-                                  for e in sweeps],
-           "busy_share_of_timed_pass": (busy_us / 1e6 / timed_seconds
-                                        if busy_us else "not measured"),
-           "wave_kernel_seconds": ranges,
-           "wave_profiled_host_seconds": host_s,
-           "top_kernels": [{"name": e.key[:80], "count": e.count,
-                            "seconds": _device_us(e) / 1e6} for e in top]}
+            if e.key in WAVE_LABELS
+            and not str(e.device_type).endswith("CUDA")]
+    res.update({
+        "tile_sweep_kernel_seconds": sweeps["seconds"],
+        "tile_sweep_kernels": sweeps["instances"],
+        "wave_kernel_seconds": {e.key: _range_us(e) / 1e6 for e in host},
+        # host wall inside each label, syncs included (inflated by profiling)
+        "wave_profiled_host_seconds": {e.key: float(e.cpu_time_total) / 1e6
+                                       for e in host}})
+    emit(res)
+    return res
+
+
+def phase_profile_path(phase, scene, accel_base, timed_seconds, names,
+                       engines=None, **render_kw):
+    """A path's bench render under torch.profiler, as phase_profile: device
+    kernel time, busy share, and the time of the path's own kernels."""
+    avgs, wall = _profiled_render(scene, engines, accel=accel_base,
+                                  **render_kw)
+    res = _kernel_time(phase, avgs, wall, timed_seconds, names)
     emit(res)
     return res
 
@@ -785,8 +849,16 @@ def main() -> int:
     render, img_main = phase_main_path(scene, accel_base, accel_c, card)
     phase_profile(scene, accel_base, accel_c, render["seconds"])
     paths = {"main_path": render,
-             "path_pallas": phase_path_pallas(scene, accel_base, card, img_main),
-             "path_fused": phase_path_fused(scene, accel_base, card, img_main)}
+             "path_pallas": phase_path_pallas(scene, accel_base, card, img_main)}
+    phase_profile_path("profile_pallas", scene, accel_base,
+                       paths["path_pallas"]["seconds"],
+                       ["closest_sweep_kernel", "anyhit_sweep_kernel"],
+                       backend="pallas", block_size=64)
+    paths["path_fused"] = phase_path_fused(scene, accel_base, card, img_main)
+    phase_profile_path("profile_fused", scene, accel_base,
+                       paths["path_fused"]["seconds"],
+                       ["block_closest_kernel", "block_anyhit_kernel"],
+                       engines=FUSED_ENGINES)
     phase_consistency()
 
     emit({"phase": "tile_sweep_shapes", "card": card, "checks": [

@@ -6,8 +6,10 @@ cull, block retirement and compaction: traverse._cascade_traverse) and
 sweeps GROUP = 8 candidate clusters per block and iteration in ONE kernel
 launch. `block_anyhit` replaces the Pallas kernel of the same name: on a
 CUDA tensor it launches csrc/fused_anyhit.cu (or raises), on a CPU tensor it
-runs `block_anyhit_plain`, the same function as eager torch ops. The
-kernel's design and bound are described in the CUDA source.
+runs `block_anyhit_plain`, the same function as eager torch ops. The kernel
+is compiled for S in {64, 128, 256} and T in {64, 128} (one warp per 32
+lanes of a ray block; design and bound in the CUDA source); another shape
+on a CUDA tensor raises ValueError.
 
 Layouts:
   tri_pack [C+1, 16, S] f32 (pack_tris_dummy): cuda_ctiles.pack_tris16 plus
@@ -26,11 +28,13 @@ import torch
 
 from path_tracer_ai_tpu_torch.accel import cuda_ctiles, traverse
 from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
+    NO_INSTANCE,
     RAY_ROWS,
     SUB,
     _check,
     n_subs,
     pack_rays_tiles,
+    read_occupancy,
     sub_pred,
     sweep_rows_plain,
 )
@@ -38,7 +42,6 @@ from path_tracer_ai_tpu_torch.utils import sync
 
 GROUP = 8  # candidate clusters consumed per block per cascade iteration
 PACK_ROWS = 16
-MAX_SUBS = 32
 SOURCE = "fused_anyhit"
 
 # Kernel launches since the last reset (the plain version never counts).
@@ -77,8 +80,10 @@ def sub_slab_ranges(s: int, sub_skip: bool):
 
 def block_anyhit_plain(tri_pack, rays_pack, cid8, early_skip=False,
                        sub_skip=False, stats: Optional[dict] = None):
-    """The kernel's function in eager torch ([size, T] bool), with the same
-    block-uniform skips. stats["tests"] counts the ray/triangle tests of the
+    """The kernel's function in eager torch ([size, T] bool), with
+    block-uniform skips. (The kernel's gates are finer, per warp of 32 lanes
+    and over its lanes still open, so it sweeps a subset of these sub-slabs,
+    to the same bits.) stats["tests"] counts the ray/triangle tests of the
     (block, cluster or sub-slab) sweeps made over all T lanes,
     stats["lane_tests"] those of the lanes that entered a sweep live and not
     yet occluded (the others need none)."""
@@ -118,7 +123,7 @@ def block_anyhit_plain(tri_pack, rays_pack, cid8, early_skip=False,
     return occ
 
 
-def check_fused_inputs(tri_pack, rays_pack, cid8, rows_staged: int):
+def check_fused_inputs(tri_pack, rays_pack, cid8):
     """Shapes, types and index range of one fused-kernel call; raises on
     what the kernels do not take (one host read for the cluster ids).
     Returns (size, s, t_lanes, dummy)."""
@@ -135,12 +140,6 @@ def check_fused_inputs(tri_pack, rays_pack, cid8, rows_staged: int):
     if cid8.shape[0] != size * GROUP:
         raise ValueError(f"cid8 has {cid8.shape[0]} ids, expected "
                          f"{size} x {GROUP}")
-    if not 0 < t_lanes <= 1024:
-        raise ValueError(f"T = {t_lanes} lanes per block is outside (0, 1024]")
-    if n_subs(s) > MAX_SUBS:
-        raise ValueError(f"S = {s} has more than {MAX_SUBS} sub-slabs")
-    if (rows_staged * s + 6 * n_subs(s)) * 4 > 48 * 1024:
-        raise ValueError(f"S = {s} needs more than 48 KB of shared memory")
     if size:
         lo, hi = torch.stack([cid8.min(), cid8.max()]).tolist()
         sync.note()
@@ -160,9 +159,19 @@ def _kernel():
     return fn
 
 
+def kernel_occupancy(s: int, t_lanes: int) -> dict:
+    """Registers per thread and resident warps per SM of block_anyhit's
+    (S, T) instance (needs the card)."""
+    from path_tracer_ai_tpu_torch import cuda_build
+
+    return read_occupancy(cuda_build.load(SOURCE).block_anyhit_occupancy,
+                          s, t_lanes)
+
+
 def block_anyhit(tri_pack, rays_pack, cid8, early_skip=False, sub_skip=False):
-    """occluded [size, T] bool. CUDA tensors launch the kernel (or raise);
-    CPU tensors take the plain version."""
+    """occluded [size, T] bool. CUDA tensors launch the kernel (or raise;
+    ValueError for an (S, T) it is not compiled for: S in 64, 128, 256 and
+    T in 64, 128); CPU tensors take the plain version."""
     global launches
     dev = rays_pack.device
     if dev.type == "cpu":
@@ -170,13 +179,16 @@ def block_anyhit(tri_pack, rays_pack, cid8, early_skip=False, sub_skip=False):
                                   sub_skip)
     if dev.type != "cuda":
         raise ValueError(f"block_anyhit runs on cuda or cpu, not {dev}")
-    size, s, t_lanes, dummy = check_fused_inputs(tri_pack, rays_pack, cid8, 9)
+    size, s, t_lanes, dummy = check_fused_inputs(tri_pack, rays_pack, cid8)
     occ = torch.empty((size, t_lanes), dtype=torch.bool, device=dev)
     if size == 0:
         return occ
     err = _kernel()(tri_pack.data_ptr(), rays_pack.data_ptr(), cid8.data_ptr(),
                     occ.data_ptr(), size, s, t_lanes, dummy, int(early_skip),
                     int(sub_skip), torch.cuda.current_stream(dev).cuda_stream)
+    if err == NO_INSTANCE:
+        raise ValueError(f"block_anyhit has no compiled instance for S = {s}, "
+                         f"T = {t_lanes} (S in 64, 128, 256; T in 64, 128)")
     if err != 0:
         raise RuntimeError(f"block_anyhit launch failed: cudaError {err}")
     launches += 1

@@ -133,7 +133,7 @@ def block_closest(tri_pack, rays_pack, cid8, sub_skip=True):
         return block_closest_plain(tri_pack, rays_pack, cid8, sub_skip)
     if dev.type != "cuda":
         raise ValueError(f"block_closest runs on cuda or cpu, not {dev}")
-    size, s, t_lanes, dummy = check_fused_inputs(tri_pack, rays_pack, cid8, 10)
+    size, s, t_lanes, dummy = check_fused_inputs(tri_pack, rays_pack, cid8)
     t_out = torch.empty((size, t_lanes), dtype=torch.float32, device=dev)
     tri_out = torch.empty((size, t_lanes), dtype=torch.int32, device=dev)
     if size == 0:

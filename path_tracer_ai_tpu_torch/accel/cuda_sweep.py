@@ -9,6 +9,8 @@ in between. `closest_sweep` / `anyhit_sweep` replace the Pallas kernels
 csrc/packet_sweep.cu (or raise), on a CPU tensor they run
 `closest_sweep_plain` / `anyhit_sweep_plain`, the same function as eager
 torch ops. The kernels' design and bound are described in the CUDA source.
+`anyhit_sweep` is compiled for S in {64, 128, 256} (R is a runtime argument
+in (0, 1024]); another S on a CUDA tensor raises ValueError.
 
 Tie rule: a candidate replaces the best only with t < best, so on an exact
 tie the first slot of the first candidate wins; the other backends keep
@@ -32,10 +34,12 @@ import torch
 from path_tracer_ai_tpu_torch.accel import traverse
 from path_tracer_ai_tpu_torch.accel.clusters import ClusterAccel
 from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
+    NO_INSTANCE,
     PLAIN_ELEMS,
     RAY_ROWS,
     _check,
     mt_sweep_rows,
+    read_occupancy,
 )
 from path_tracer_ai_tpu_torch.accel.traverse import PacketHit
 from path_tracer_ai_tpu_torch.utils import sync
@@ -132,20 +136,21 @@ def closest_sweep_plain(slab, rays, order, entry, n_cand, t_min=1e-3,
 def anyhit_sweep_plain(slab, rays, order, n_cand, t_min=1e-3,
                        stats: Optional[dict] = None):
     """The any-hit kernel's function in eager torch ([B, R] bool). A block
-    walks on while some lane is not occluded; a dead lane never is.
-    stats["visits"] counts the (block, cluster) pairs swept,
-    stats["lane_tests"] the tests of the lanes that entered a visit live and
-    not yet occluded (the others need none)."""
+    walks on while some lane is neither occluded nor dead (t_cap < t_min: it
+    can pass no test); the kernel's walk is per warp of 32 lanes, so it
+    makes at most these visits. stats["visits"] counts the (block, cluster)
+    pairs swept, stats["lane_tests"] the tests of the lanes that entered a
+    visit open (the others need none)."""
     b, _, r = rays.shape
     s = slab.tri.shape[2]
     dev = rays.device
     occ = torch.zeros((b, r), dtype=torch.bool, device=dev)
-    dead = rays[:, 6] < 0.0
+    dead = ~(rays[:, 6] >= t_min)
     step = _plain_step(rays, s)
     visits = 0
     open_lanes = torch.zeros((), dtype=torch.int64, device=dev)
     for k in range(order.shape[1]):
-        act = torch.nonzero((k < n_cand) & ~occ.all(dim=1)).squeeze(1)
+        act = torch.nonzero((k < n_cand) & ~(occ | dead).all(dim=1)).squeeze(1)
         if act.numel() == 0:
             break
         visits += act.numel()
@@ -236,9 +241,18 @@ def closest_sweep(slab: SlabTable, rays, order, entry, n_cand, t_min=1e-3):
     return best_t, best_cid, best_slot
 
 
+def kernel_occupancy(s: int) -> dict:
+    """Registers per thread and resident warps per SM of anyhit_sweep's S
+    instance (needs the card)."""
+    from path_tracer_ai_tpu_torch import cuda_build
+
+    return read_occupancy(cuda_build.load(SOURCE).anyhit_sweep_occupancy, s)
+
+
 def anyhit_sweep(slab: SlabTable, rays, order, n_cand, t_min=1e-3):
-    """occluded [B, R] bool. CUDA tensors launch the kernel (or raise); CPU
-    tensors take the plain version."""
+    """occluded [B, R] bool. CUDA tensors launch the kernel (or raise;
+    ValueError for an S it is not compiled for: 64, 128, 256); CPU tensors
+    take the plain version."""
     dev = rays.device
     if dev.type == "cpu":
         return anyhit_sweep_plain(slab, rays, order, n_cand, t_min)
@@ -252,6 +266,9 @@ def anyhit_sweep(slab: SlabTable, rays, order, n_cand, t_min=1e-3):
     err = fn(slab.tri.data_ptr(), rays.data_ptr(), order.data_ptr(),
              n_cand.data_ptr(), occ.data_ptr(), b, s, r, order.shape[1],
              float(t_min), torch.cuda.current_stream(dev).cuda_stream)
+    if err == NO_INSTANCE:
+        raise ValueError(f"anyhit_sweep has no compiled instance for S = {s} "
+                         "(S in 64, 128, 256)")
     if err != 0:
         raise RuntimeError(f"anyhit_sweep launch failed: cudaError {err}")
     launches["anyhit_sweep"] += 1

@@ -20,10 +20,9 @@ Torch has no full uint32 arithmetic (its int32 `>>` is arithmetic), so
 words are held in int64 tensors masked to 32 bits. A key is an int64
 tensor [..., 2]; leading dims batch independent streams.
 
-Key data and `uniform` are bit-equal to JAX. `normal` goes through log1p,
-whose last-ulp rounding differs between XLA's CPU code and torch's: about
-99% of draws are bit-equal and the rest within 3 ulps
-(tests/test_torch_rng.py holds that bound).
+Key data, `uniform` and `normal` are bit-equal to JAX. `normal` needs
+log1p as XLA's CPU code computes it in f32 (`log1p_xla`; torch.log1p
+rounds its last ulp differently on about 1% of draws).
 """
 
 from __future__ import annotations
@@ -112,12 +111,78 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                0.00943887047, 1.00167406, 2.83297682)
 
 
+def _f32(bits: int) -> float:
+    return float(np.uint32(bits).view(np.float32))
+
+
+_FLT_MIN = _f32(0x00800000)
+# log1p's two branches as XLA's CPU code evaluates them in f32: Cephes'
+# rational approximation P(x) / Q(x) for |x| < sqrt(2) - 1, else log(1 + x)
+# with the mantissa m in [sqrt(1/2), sqrt(2)) and Cephes logf's polynomial
+# in three interleaved chains; ln 2 in two parts.
+_LOG1P_P = tuple(_f32(b) for b in (
+    0x383DE04B, 0x3EFF40C5, 0x40D284FA, 0x41EF4B9C, 0x4273CC76, 0x426473AD,
+    0x41A05101))
+_LOG1P_Q = tuple(_f32(b) for b in (
+    0x417101AD, 0x42A6185B, 0x435DC32D, 0x439A8CA3, 0x43586D8A, 0x42707982))
+_LOG_C = tuple(_f32(b) for b in (
+    0x3D9021BB, 0xBDEBD1B8, 0x3DEF251A,     # chain a: c0 c1, then c2
+    0xBDFE5D4F, 0x3E11E9BF, 0xBE2AAE50,     # chain b: c3 c4, then c5
+    0x3E4CCEAC, 0xBE7FFFFC, 0x3EAAAAAA))    # chain c: c6 c7, then c8
+_LN2_LO, _LN2_HI = _f32(0xB95E8083), _f32(0x3F318000)
+_SQRT_HALF, _LOG1P_SMALL = _f32(0x3F3504F3), _f32(0x3ED413CD)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 a * b + c rounded once, as an FMA instruction does: the product
+    of two f32 is exact in f64, and on the inputs log1p_xla gives it, the
+    f64 sum rounded to f32 is the FMA's result (checked over its whole
+    domain, tests/test_torch_rng.py)."""
+    if torch.is_tensor(b):
+        b = b.double()
+    return (a.double() * b + c).float()
+
+
+def log1p_xla(x: torch.Tensor) -> torch.Tensor:
+    """f32 log1p with the operations, fusions and order of XLA's CPU code
+    (its optimized LLVM IR and machine code for `jnp.log1p`), bit-equal to
+    it on every f32 in (-1, 0], the domain erf_inv needs. Denormal inputs
+    count as zero, as XLA's CPU code runs with denormals off."""
+    x = torch.where(x.abs() < _FLT_MIN, x * 0.0, x)
+    # |x| < sqrt(2) - 1: x - x^2 / 2 + x^3 P(x) / Q(x)
+    x2 = x * x
+    q = torch.ones_like(x)
+    for c in _LOG1P_Q:
+        q = _fma(x, q, c)
+    p = torch.full_like(x, _LOG1P_P[0])
+    for c in _LOG1P_P[1:]:
+        p = _fma(x, p, c)
+    small = x + _fma(x2, -0.5, (x * x2) * (p / q))
+    # log(1 + x) = e ln 2 + log(1 + xm), 1 + xm = m in [sqrt(1/2), sqrt(2))
+    bits = torch.clamp_min(x + 1.0, _FLT_MIN).view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)  # [1/2, 1)
+    low = m < _SQRT_HALF
+    xm = (m - 1.0) + torch.where(low, m, 0.0)
+    e = torch.where(low, e - 1.0, e)
+    z = xm * xm
+    x3 = xm * z
+    a, b, c = (_fma(xm, _LOG_C[i], _LOG_C[i + 1]) for i in (0, 3, 6))
+    a, b, c = (_fma(xm, acc, _LOG_C[i + 2]) for acc, i in ((a, 0), (b, 3),
+                                                          (c, 6)))
+    poly = _fma(x3, _fma(x3, _fma(x3, a, b), c), e * _LN2_LO)
+    large = _fma(e, _LN2_HI, _fma(z, -0.5, xm) + poly)
+    return torch.where(x.abs() < _LOG1P_SMALL, small, large)
+
+
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
     """f32 erf_inv with the op sequence of XLA's chlo.erf_inv lowering
     (not torch.erfinv, whose algorithm differs)."""
-    w = -torch.log1p(x * -x)
+    w = -log1p_xla(x * -x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    # sqrt through f64: correctly rounded, as XLA's is (torch's f32 sqrt on
+    # the CPU is not, on about 0.6% of inputs)
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
     dev = x.device
 
     def coef(i):
@@ -143,6 +208,6 @@ _SQRT2 = float(np.float32(np.sqrt(2.0)))
 
 
 def normal(k: torch.Tensor, shape=()) -> torch.Tensor:
-    """jax.random.normal(key, shape, float32) per key (to a few ulps)."""
+    """jax.random.normal(key, shape, float32) per key."""
     u = uniform(k, shape, _NORMAL_LO, 1.0)
     return _SQRT2 * erf_inv(u)

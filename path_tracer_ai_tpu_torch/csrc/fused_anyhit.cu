@@ -16,106 +16,171 @@
 //            with seven unused rows was Mosaic's block shape, not needed.)
 //
 // Options, both gates that never change the result:
-//   early_skip  once every lane of the block is occluded or dead, or the
-//               candidate is the dummy, the remaining clusters are skipped;
-//   sub_skip    each 32-triangle sub-slab is swept only if some lane's
-//               [t_min, t_max] segment touches its box.
+//   early_skip  a warp skips the remaining candidates once each of its 32
+//               lanes is occluded or dead, and skips the dummy candidate;
+//   sub_skip    a 32-triangle sub-slab is swept only if some lane of the
+//               warp that is still open has a [t_min, t_max] segment that
+//               touches its box.
+// Both are finer than the plain version's block-wide gates (a warp in
+// place of the T lanes, open lanes in place of all); a lane skips only
+// tests it cannot pass or no longer needs, so every output bit stays.
 //
-// Design. One thread block per ray block, one thread per lane. Per
-// candidate the block first stages only the 6 * ns box floats and votes
-// (__syncthreads_or per sub-slab); the 9 x S triangle rows (4.6 KB at
-// S = 128) are staged only if some sub-slab is live, and each thread walks
-// the live sub-slabs, reading the same shared word at the same time. A
-// lane that is already occluded skips its tests. Every barrier and vote is
-// reached by all threads: the skips are block-uniform.
+// Design (the inner loop is mt.cuh's anyhit_run; the layout of the work is
+// fused_closest.cu's). A ray block is split over T / 32 warps of one ray a
+// thread that share nothing: four warps a thread block, no __syncthreads.
+// Each warp reads the eight ids once (one lane each), walks the candidates
+// through a ballot, and stages each one for itself with cp.async (mt.cuh
+// stage_candidate, as fused_closest.cu: S transposed triangles and the
+// sub-slab boxes; staging only the sub-slabs the gate lets through measured
+// no faster). Whatever the options, the warp leaves a candidate as soon as
+// each of its lanes is occluded or dead (a vote before each sub-slab).
 //
-// What bounds it. A swept sub-slab is T*32 tests of ~46 f32 operations for
-// 1.2 KB of rows, mostly from L2: arithmetic bound where anything is swept;
-// the number of sweeps depends on the data. Build with --fmad=false.
+// What bounds it: instruction issue where anything is swept (mt.cuh: about
+// 70 instructions a test, and under --fmad=false about twice the operations
+// term of the bound at best); how much is swept depends on the data. Build
+// with --fmad=false (see mt.cuh).
 
 #include "mt.cuh"
 
 #define GROUP 8
 #define PACK_ROWS 16
-#define MAX_SUBS 32
+// Thread blocks an SM must hold: 8 caps the kernel at 64 registers, 32
+// resident warps at S = 128; left at 79 registers it holds 24 and ran
+// slower (PERF.md).
+#define ANYHIT_MIN_BLOCKS 8
 
-__global__ void block_anyhit_kernel(const float* __restrict__ tri_pack,
-                                    const float* __restrict__ rays,
-                                    const int* __restrict__ cid8,
-                                    unsigned char* __restrict__ occ_out,
-                                    int s, int t_lanes, int dummy,
-                                    int early_skip, int sub_skip) {
-  extern __shared__ float smem[];
-  float* tri = smem;           // [9, s]
-  float* box = smem + 9 * s;   // [ns, 6]
-  const int blk = blockIdx.x;
-  const int lane = threadIdx.x;
-  const bool in_range = lane < t_lanes;
-  const int ns = (s + SUB - 1) / SUB;
+template <int S, int T>
+__global__ void __launch_bounds__(SWEEP_WARPS * 32, ANYHIT_MIN_BLOCKS)
+    block_anyhit_kernel(const float* __restrict__ tri_pack,
+                        const float* __restrict__ rays,
+                        const int* __restrict__ cid8,
+                        unsigned char* __restrict__ occ_out, int size,
+                        int dummy, int early_skip, int sub_skip) {
+  constexpr int NS = S / SUB;
+  constexpr int WPB = T / 32;  // warps per ray block
+  static_assert(S % SUB == 0, "whole sub-slabs only");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int unit = blockIdx.x * SWEEP_WARPS + warp;
+  if (unit >= size * WPB) return;  // whole warps leave: no block barrier
+  const size_t blk = (size_t)(unit / WPB);
+  const int off = (unit % WPB) * 32 + lane;  // this thread's lane of T
+  Staged<S>* st = reinterpret_cast<Staged<S>*>(smem) + warp;
 
-  Ray ray = {0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f};
-  float tmax = -1.0f, tmin = 0.0f;
-  if (in_range) {
-    const float* r = rays + (size_t)blk * RAY_ROWS * t_lanes + lane;
-    ray = load_ray(r, t_lanes);
-    tmax = r[6 * t_lanes];
-    tmin = r[7 * t_lanes];
-  }
-  const bool dead = tmax < 0.0f;
+  const float* rp = rays + blk * RAY_ROWS * T + off;
+  const Ray ray = load_ray(rp, T);
+  const float tmax = rp[6 * T], tmin = rp[7 * T];
+  const bool dead = !(tmax >= tmin);  // can pass no test
   const float invx = 1.0f / ray.dx, invy = 1.0f / ray.dy, invz = 1.0f / ray.dz;
-
   bool occ = false;
-  for (int j = 0; j < GROUP; ++j) {
-    // The vote is also the barrier between the previous candidate's tests
-    // and this one's staging.
-    const bool done = __syncthreads_and(occ || dead);
-    const int cid = cid8[(size_t)blk * GROUP + j];
-    if (early_skip && (done || cid >= dummy)) continue;
-    const float* cluster = tri_pack + (size_t)cid * PACK_ROWS * s;
 
-    unsigned live_subs = 0xffffffffu;
-    if (sub_skip) {
-      stage_boxes(box, cluster, s, ns);
-      __syncthreads();
-      live_subs = 0u;
-      for (int k = 0; k < ns; ++k) {
-        const bool p = sub_slab_lane(box + k * 6, ray, invx, invy, invz,
-                                     tmin, tmax);
-        if (__syncthreads_or(p)) live_subs |= 1u << k;
+  // Lane j < GROUP holds candidate j; `todo` has a bit per candidate to
+  // walk (none if every lane of the warp is dead).
+  const int my_cid = lane < GROUP ? cid8[blk * GROUP + lane] : dummy;
+  unsigned todo = __ballot_sync(
+      FULL_MASK, lane < GROUP && !(early_skip && my_cid >= dummy));
+  if (__all_sync(FULL_MASK, dead)) todo = 0u;
+
+  while (todo != 0u) {
+    if (early_skip && __all_sync(FULL_MASK, occ || dead)) break;
+    const int cid = __shfl_sync(FULL_MASK, my_cid, __ffs(todo) - 1);
+    todo &= todo - 1u;
+    stage_candidate<S>(st, tri_pack + (size_t)cid * PACK_ROWS * S, lane);
+    cp_async_wait_all();
+    __syncwarp();
+#pragma unroll 1
+    for (int k = 0; k < NS; ++k) {
+      const bool open = !(occ || dead);
+      if (!__any_sync(FULL_MASK, open)) break;
+      if (sub_skip) {
+        const float4 lo =
+            *reinterpret_cast<const float4*>(st->box + k * BOX_WORDS);
+        const float4 hi =
+            *reinterpret_cast<const float4*>(st->box + k * BOX_WORDS + 4);
+        const float box[6] = {lo.x, lo.y, lo.z, hi.x, hi.y, hi.z};
+        const bool touch =
+            open && sub_slab_lane(box, ray, invx, invy, invz, tmin, tmax);
+        if (!__any_sync(FULL_MASK, touch)) continue;
       }
-      if (live_subs == 0u) continue;
+      occ = anyhit_run<SUB>(st->tri + k * SUB, ray, tmin, tmax, dead, occ);
     }
-    stage_rows(tri, cluster, 9 * s);
-    __syncthreads();
-    if (!occ) {
-      for (int k = 0; k < ns && !occ; ++k) {
-        if (!((live_subs >> k) & 1u)) continue;
-        const int hi = min((k + 1) * SUB, s);
-        for (int i = k * SUB; i < hi; ++i) {
-          float t;
-          if (mt_test(ray, tri, s, i, tmin, tmax, &t)) {
-            occ = true;
-            break;
-          }
-        }
-      }
-    }
+    __syncwarp();  // every lane is done with the buffer
   }
-  if (in_range) occ_out[(size_t)blk * t_lanes + lane] = occ ? 1 : 0;
+  occ_out[blk * T + off] = occ ? 1 : 0;
 }
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
+template <int S>
+constexpr size_t smem_bytes() {
+  return SWEEP_WARPS * sizeof(Staged<S>);
+}
+
+// Allows the kernel its dynamic shared memory (above the default 48 KB at
+// S = 256) on the current device.
+template <int S, int T>
+static cudaError_t configure() {
+  return cudaFuncSetAttribute(block_anyhit_kernel<S, T>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_bytes<S>());
+}
+
+template <int S, int T>
+static int launch(const void* tri_pack, const void* rays, const void* cid8,
+                  void* occ, int size, int dummy, int early_skip,
+                  int sub_skip, cudaStream_t stream) {
+  const cudaError_t err = configure<S, T>();
+  if (err != cudaSuccess) return (int)err;
+  const int units = size * (T / 32);
+  const int blocks = (units + SWEEP_WARPS - 1) / SWEEP_WARPS;
+  block_anyhit_kernel<S, T>
+      <<<blocks, SWEEP_WARPS * 32, smem_bytes<S>(), stream>>>(
+          (const float*)tri_pack, (const float*)rays, (const int*)cid8,
+          (unsigned char*)occ, size, dummy, early_skip, sub_skip);
+  return (int)cudaGetLastError();
+}
+
+template <int S, int T>
+static int occupancy(int* regs, int* warps_per_sm) {
+  cudaError_t err = configure<S, T>();
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, block_anyhit_kernel<S, T>);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, block_anyhit_kernel<S, T>, SWEEP_WARPS * 32, smem_bytes<S>());
+  *warps_per_sm = blocks * SWEEP_WARPS;
+  return (int)err;
+}
+
+#define NO_INSTANCE (-1)  // no cudaError_t is negative
+#define FOR_INSTANCES(CALL)                                             \
+  CALL(64, 64) CALL(64, 128) CALL(128, 64) CALL(128, 128) CALL(256, 64) \
+  CALL(256, 128)
+
+// Launches on `stream`; returns the cudaError_t of the launch (0 = ok), or
+// NO_INSTANCE for an (S, T) that is not compiled.
 extern "C" int block_anyhit(const void* tri_pack, const void* rays,
                             const void* cid8, void* occ, int size, int s,
                             int t_lanes, int dummy, int early_skip,
                             int sub_skip, void* stream) {
   if (size <= 0) return 0;
-  const int ns = (s + SUB - 1) / SUB;
-  if (ns > MAX_SUBS) return (int)cudaErrorInvalidValue;
-  const int threads = ((t_lanes + 31) / 32) * 32;
-  const size_t smem = (size_t)(9 * s + 6 * ns) * sizeof(float);
-  block_anyhit_kernel<<<size, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)tri_pack, (const float*)rays, (const int*)cid8,
-      (unsigned char*)occ, s, t_lanes, dummy, early_skip, sub_skip);
-  return (int)cudaGetLastError();
+#define LAUNCH(S_, T_)                                                  \
+  if (s == S_ && t_lanes == T_)                                         \
+    return launch<S_, T_>(tri_pack, rays, cid8, occ, size, dummy,       \
+                          early_skip, sub_skip, (cudaStream_t)stream);
+  FOR_INSTANCES(LAUNCH)
+#undef LAUNCH
+  return NO_INSTANCE;
+}
+
+// Registers per thread of the (S, T) instance and the warps an SM holds of
+// it.
+extern "C" int block_anyhit_occupancy(int s, int t_lanes, int* regs,
+                                      int* warps_per_sm) {
+#define OCCUPANCY(S_, T_) \
+  if (s == S_ && t_lanes == T_) return occupancy<S_, T_>(regs, warps_per_sm);
+  FOR_INSTANCES(OCCUPANCY)
+#undef OCCUPANCY
+  return NO_INSTANCE;
 }

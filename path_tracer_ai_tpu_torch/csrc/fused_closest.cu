@@ -25,8 +25,8 @@
 // in registers) that share nothing: four warps a thread block, no
 // __syncthreads. Each warp reads the eight ids once (one lane each), walks
 // the real candidates through a ballot, and stages each candidate for
-// itself with cp.async: S transposed triangles (TriRec) and the sub-slab
-// boxes (six contiguous runs of ns floats in pack rows 10-15), 6.3 KB at
+// itself with cp.async (mt.cuh stage_candidate): S transposed triangles
+// (TriRec) and the sub-slab boxes (pack rows 10-15), 6.3 KB at
 // S = 128, which lets an SM hold 32 warps. The gate is the warp's: each lane
 // evaluates each box once, just before its sub-slab, with its bound of that
 // moment, and one __any_sync over the warp's 32 lanes decides. That is finer
@@ -52,27 +52,6 @@
 
 #define GROUP 8
 #define PACK_ROWS 16
-#define BOX_WORDS 8  // lo.xyz, pad, hi.xyz, pad
-
-template <int S>
-struct alignas(16) Staged {
-  TriRec tri[S];
-  float box[((S + SUB - 1) / SUB) * BOX_WORDS];
-};
-
-// One warp starts the copy of a cluster's triangles and sub-slab boxes.
-template <int S>
-__device__ __forceinline__ void stage_candidate(Staged<S>* dst,
-                                                const float* cluster,
-                                                int lane) {
-  constexpr int NS = (S + SUB - 1) / SUB;
-  stage_cluster_warp<S>(dst->tri, cluster, lane);
-  for (int i = lane; i < 6 * NS; i += 32) {
-    const int a = i / NS, k = i % NS;  // pack row 10 + a, sub-slab k
-    cp_async_f32(dst->box + k * BOX_WORDS + a + (a >= 3 ? 1 : 0),
-                 cluster + (10 + a) * S + k);
-  }
-}
 
 template <int S, int T>
 __global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(1))

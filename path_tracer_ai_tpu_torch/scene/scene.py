@@ -23,6 +23,7 @@ from path_tracer_ai_tpu_torch.core.types import (
     i32,
     triangles_from_numpy,
 )
+from path_tracer_ai_tpu_torch.device import resolve_device
 
 ROOM_SIZE = 8.0           # scene.cpp:119
 ROOM_HEIGHT = 4.0         # scene.cpp:120
@@ -96,7 +97,8 @@ def _room_triangle_arrays():
     return v0, v1, v2, nrm, nrm.copy(), nrm.copy(), uv0, uv1, uv2, mat
 
 
-def pack_materials(mats: List[HostMaterial], device="cpu") -> MaterialTable:
+def pack_materials(mats: List[HostMaterial], device=None) -> MaterialTable:
+    device = resolve_device(device)
     return MaterialTable(
         mtype=i32([m.mtype for m in mats], device),
         albedo=f32([m.albedo for m in mats], device),
@@ -106,7 +108,8 @@ def pack_materials(mats: List[HostMaterial], device="cpu") -> MaterialTable:
     )
 
 
-def default_lights(device="cpu") -> Lights:
+def default_lights(device=None) -> Lights:
+    device = resolve_device(device)
     return Lights(
         position=f32([l[0] for l in DEFAULT_LIGHTS], device),
         color=f32([l[1] for l in DEFAULT_LIGHTS], device),
@@ -118,9 +121,11 @@ def build_scene_from_arrays(
     v0, v1, v2, n0, n1, n2, uv0, uv1, uv2, mat_id,
     materials: Optional[List[HostMaterial]] = None,
     lights: Optional[Lights] = None,
-    device="cpu",
+    device=None,
 ) -> SceneData:
-    """Assemble a SceneData on `device` from raw triangle arrays."""
+    """Assemble a SceneData on `device` (None: the card) from raw triangle
+    arrays."""
+    device = resolve_device(device)
     if materials is None:
         materials = [_default_model_material(), _wall_material()]
     return SceneData(
@@ -169,9 +174,7 @@ def blob_materials() -> List[HostMaterial]:
 
 def blob_scene(subdivisions: int = 6, device=None) -> SceneData:
     """The benchmark scene: room, 4 lights, gold blob of 20*4^n triangles."""
-    from path_tracer_ai_tpu_torch.device import resolve_device
-
     return build_scene_from_arrays(
         *blob_room_arrays(subdivisions), materials=blob_materials(),
-        device=resolve_device(device),
+        device=device,
     )

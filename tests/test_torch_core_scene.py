@@ -69,7 +69,7 @@ def test_blob_scene_arrays_match_jax():
 
     jscene, jaccel = _demo_scene(subdivisions=2)
     scene = build_scene_from_arrays(*blob_room_arrays(2),
-                                    materials=blob_materials())
+                                    materials=blob_materials(), device="cpu")
     for a, b in zip(scene.triangles, jscene.triangles):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     for a, b in zip(scene.materials, jscene.materials):
@@ -116,3 +116,33 @@ def test_png_round_trip(tmp_path, rng):
     path = str(tmp_path / "x.png")
     write_png(path, u8)
     np.testing.assert_array_equal(read_png(path), u8)
+
+
+def _first_tensor(x):
+    while not torch.is_tensor(x):
+        x = x[0]
+    return x
+
+
+@pytest.mark.parametrize("name", ["build_scene_from_arrays",
+                                  "pack_materials", "default_lights",
+                                  "blob_scene"])
+def test_scene_entry_points_default_to_the_card(name):
+    """device=None means the card: without one these raise, as every entry
+    point of the port does; the CPU runs only when asked for."""
+    from path_tracer_ai_tpu_torch.scene import scene as sc
+
+    call = {
+        "build_scene_from_arrays": lambda **kw: sc.build_scene_from_arrays(
+            *blob_room_arrays(1), **kw),
+        "pack_materials": lambda **kw: sc.pack_materials(blob_materials(),
+                                                         **kw),
+        "default_lights": sc.default_lights,
+        "blob_scene": lambda **kw: sc.blob_scene(1, **kw),
+    }[name]
+    assert _first_tensor(call(device="cpu")).device.type == "cpu"
+    if torch.cuda.is_available():
+        assert _first_tensor(call()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

@@ -106,6 +106,21 @@ def test_uncompiled_shapes_raise(cuda):
             torch.zeros((32,), dtype=torch.int32, device=cuda))
 
 
+    with pytest.raises(ValueError, match="S = 128, T = 32"):
+        cuda_anyhit.block_anyhit(
+            torch.zeros((3, 16, 128), device=cuda),
+            torch.zeros((4, 8, 32), device=cuda),
+            torch.zeros((32,), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="S = 96"):
+        cuda_sweep.anyhit_sweep(
+            cuda_sweep.SlabTable(tri=torch.zeros((2, 9, 96), device=cuda),
+                                 tri_id=torch.zeros((2, 96), dtype=torch.int32,
+                                                    device=cuda)),
+            torch.zeros((4, 8, 64), device=cuda),
+            torch.zeros((4, 128), dtype=torch.int32, device=cuda),
+            torch.ones((4,), dtype=torch.int32, device=cuda))
+
+
 def test_wrapper_rejects_bad_inputs(cuda):
     pack = torch.zeros((2, 10, 128), device=cuda)
     rays = torch.zeros((4, 8, 64), device=cuda)
@@ -190,6 +205,25 @@ def _bits(x):
     return x.view(torch.int32)
 
 
+def aim_block_at_cluster(rays, blk, tri, cid, dead_lanes=()):
+    """Points every lane of ray block `blk` of a [B, 8, R] pack at a
+    triangle of cluster `cid` (rows 0-8 of tri [C, >=9, S]: v0, e1, e2):
+    from 0.5 in front of its centroid, along its normal, t_max (row 6) 1.
+    Each such lane is occluded by the cluster; the lanes in `dead_lanes`
+    get t_max = -1."""
+    v0, e1, e2 = (tri[cid, k:k + 3].T for k in (0, 3, 6))      # [S, 3]
+    n = torch.linalg.cross(e1, e2)
+    area = n.norm(dim=1)
+    slots = torch.nonzero(area > 1e-4).squeeze(1)
+    pick = slots[torch.arange(rays.shape[2], device=slots.device)
+                 % slots.numel()]
+    nrm = n[pick] / area[pick, None]
+    rays[blk, 0:3] = (v0[pick] + (e1[pick] + e2[pick]) / 3 + 0.5 * nrm).T
+    rays[blk, 3:6] = -nrm.T
+    rays[blk, 6] = 1.0
+    rays[blk, 6, list(dead_lanes)] = -1.0
+
+
 @pytest.mark.parametrize("block_size", [64, 128])
 def test_sweep_kernels_match_plain(cuda, rng, block_size):
     acc = _accel(cuda)
@@ -246,6 +280,66 @@ def test_fused_kernels_match_plain(cuda, rng, s):
         hits += int((ptri != cuda_ctiles.I32_MAX).sum())
         torch.cuda.synchronize()
     assert hits > 1000
+
+
+@pytest.mark.parametrize("s", [128, 64, 256])
+@pytest.mark.parametrize("r_lanes", [64, 128, 48])
+def test_anyhit_sweep_kernel_matches_plain(cuda, rng, r_lanes, s):
+    """Every compiled S at R = 64, 128 and 48 (the last warp of each block
+    half empty); every seventh lane dead, one block all dead, one block
+    whose live lanes all hit its first candidate."""
+    acc = _accel(cuda, s)
+    slab = cuda_sweep.build_slab_table(acc)
+    o, d, tm = _bounce_wave(acc, 128 * r_lanes, rng)
+    rays, order, _entry, n_cand, _perm = cuda_sweep._prep_wave(
+        acc, o, d, tm, r_lanes, True)
+    rays[:, 6, ::7] = -1.0
+    rays[3, 6] = -1.0
+    assert int(n_cand[5]) > 1
+    aim_block_at_cluster(rays, 5, slab.tri, int(order[5, 0]), dead_lanes=[1])
+    before = cuda_sweep.launches["anyhit_sweep"]
+    occ = cuda_sweep.anyhit_sweep(slab, rays, order, n_cand)
+    assert cuda_sweep.launches["anyhit_sweep"] == before + 1
+    st = {}
+    pocc = cuda_sweep.anyhit_sweep_plain(slab, rays, order, n_cand, stats=st)
+    torch.cuda.synchronize()
+    assert torch.equal(occ, pocc)
+    assert occ.any() and not occ.all() and not occ[3].any()
+    live = rays[5, 6] >= 0
+    assert occ[5][live].all() and not occ[5][~live].any()
+
+
+@pytest.mark.parametrize("t_lanes", [64, 128])
+@pytest.mark.parametrize("s", [128, 64, 256])
+def test_block_anyhit_kernel_matches_plain(cuda, rng, s, t_lanes):
+    """Every compiled (S, T) with all four option settings; every seventh
+    lane dead, one block all dead, one block whose live lanes all hit its
+    first candidate."""
+    acc = _accel(cuda, s)
+    pack = cuda_anyhit.pack_tris_dummy(acc)
+    o, d, tm = _bounce_wave(acc, 256 * t_lanes, rng)
+    o, d, tm, _perm, _nc, _entry, order_g = cuda_anyhit.prepare_fused_wave(
+        acc, o, d, tm, t_lanes, True, "dir")
+    rays = cuda_ctiles.pack_rays_tiles(o, d, tm, t_lanes)
+    rays[:, 6, ::7] = -1.0
+    rays[3, 6] = -1.0
+    cid8 = order_g[:, 0].reshape(-1).contiguous()
+    first = int(cid8[5 * cuda_anyhit.GROUP])
+    assert first < acc.num_clusters
+    aim_block_at_cluster(rays, 5, pack, first, dead_lanes=[1])
+    ref = cuda_anyhit.block_anyhit_plain(pack, rays, cid8)
+    before = cuda_anyhit.launches
+    for early_skip in (False, True):
+        for sub_skip in (False, True):
+            occ = cuda_anyhit.block_anyhit(pack, rays, cid8,
+                                           early_skip=early_skip,
+                                           sub_skip=sub_skip)
+            torch.cuda.synchronize()
+            assert torch.equal(occ, ref), (early_skip, sub_skip)
+    assert cuda_anyhit.launches == before + 4
+    assert ref.any() and not ref.all() and not ref[3].any()
+    live = rays[5, 6] >= 0
+    assert ref[5][live].all() and not ref[5][~live].any()
 
 
 def test_sweep_wrappers_reject_bad_inputs(cuda):

@@ -26,6 +26,7 @@ from path_tracer_ai_tpu_torch.convert import (
 from path_tracer_ai_tpu_torch.core.types import triangles_from_numpy
 from path_tracer_ai_tpu_torch.engine import intersect
 from tests.test_accel import random_rays, random_soup
+from tests.test_torch_cuda import aim_block_at_cluster
 
 T = torch.as_tensor
 T_TOL = dict(rtol=1e-6, atol=2e-6)
@@ -121,6 +122,33 @@ def test_plain_sweeps_match_pallas_interpret(setup, rng, block_size,
     jo = jsweep.anyhit_sweep_pallas(setup["jslab"], jargs[0], jargs[1],
                                     jargs[3], t_min=1e-3, interpret=True)
     assert 0.05 < np.asarray(jo).mean() < 0.95
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(jo))
+
+
+def test_anyhit_walk_stops_once_live_lanes_are_occluded(setup):
+    """One dead lane per block and every live lane aimed at a triangle of
+    the block's first candidate: the walk stops after that candidate (a
+    dead lane counts as done), one visit per block where the TPU kernel
+    walks all three, and the occlusion is the Pallas kernel's."""
+    pa = setup["pa"]
+    slab = cuda_sweep.build_slab_table(pa)
+    b, c = 4, pa.num_clusters
+    order = torch.zeros((b, 128), dtype=torch.int32)
+    order[:, :3] = (torch.arange(b)[:, None] + torch.arange(3)) % c
+    n_cand = torch.full((b,), 3, dtype=torch.int32)
+    rays = torch.zeros((b, 8, 64))
+    for i in range(b):
+        aim_block_at_cluster(rays, i, slab.tri, int(order[i, 0]),
+                             dead_lanes=[7 * i])
+    st = {}
+    occ = cuda_sweep.anyhit_sweep_plain(slab, rays, order, n_cand, stats=st)
+    assert st["visits"] == b
+    assert st["lane_tests"] == b * 63 * pa.cluster_size
+    live = rays[:, 6] >= 0
+    assert occ[live].all() and not occ[~live].any()
+    jo = jsweep.anyhit_sweep_pallas(
+        setup["jslab"], *(jnp.asarray(a.numpy()) for a in (rays, order, n_cand)),
+        t_min=1e-3, interpret=True)
     np.testing.assert_array_equal(occ.numpy(), np.asarray(jo))
 
 
