@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # everything below
-    python3 chip_smoke.py --kernels-only  # phases 1-3, then stop (no "ok" line)
+    python3 chip_smoke.py --kernels-only  # phases 1-3b, then stop (no "ok" line)
     python3 chip_smoke.py --kernels-only --sass out/sass
         # also: cuobjdump's SASS of every library into a directory
 
@@ -9,8 +9,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
   1. device       CUDA must be available; the card's name and power limit.
   2. build        nvcc builds every kernel source under csrc/, in parallel;
                   registers and spills of every kernel as ptxas reports them,
-                  and the registers and resident warps per SM of the four
-                  kernels on mt.cuh's inner loops at their paths' shapes.
+                  and the registers and resident warps per SM of the five
+                  kernels at their paths' shapes.
   3. kernel       each of the five kernels against its plain PyTorch version
                   on the card, at its path's shapes (bitwise t; exact
                   cluster, slot, triangle id and occlusion; the fused
@@ -19,6 +19,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   (T 128, S 256), the shadow cascade's with one cluster a
                   tile (T 64, S 128) and with two (tile_cid [nt, 2]), the
                   last also against two single-cluster launches folded.
+  3b. sweep_waves closest_sweep on the pallas bench render's own waves (wave
+                  0 at bounce 0 and 1, kept from one render): bitwise
+                  against its plain version, timed and bounded on each whole
+                  wave, and timed on its first 2048 blocks alone.
   4. main_path    the benchmark render (blob subdiv 6 + room, 1920x1080,
                   2 spp, 5 bounces, seed 0, waves of 2^20, blocks of 64)
                   through path_tracer_ai_tpu_torch.engine.wavefront.render:
@@ -48,6 +52,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -144,12 +149,14 @@ def phase_build():
         "tile_sweep T64 S128": cuda_ctiles.kernel_occupancy(128, 64),
         "block_closest T128 S128": cuda_closest.kernel_occupancy(128, 128),
         "block_anyhit T128 S128": cuda_anyhit.kernel_occupancy(128, 128),
-        "anyhit_sweep S128": cuda_sweep.kernel_occupancy(128),
+        "closest_sweep S128 R64": cuda_sweep.closest_occupancy(128, 64),
+        "anyhit_sweep S128": cuda_sweep.anyhit_occupancy(128),
     }
     emit({"phase": "build", "seconds": seconds, "built": sorted(built),
           "spilling": [e["entry"] for es in ptxas.values() for e in es
                        if e["spill_bytes"]],
           "ptxas": ptxas, "occupancy": occupancy})
+    return occupancy
 
 
 def _bound(nbytes: int, tests: int) -> dict:
@@ -292,6 +299,48 @@ def _warp_visits(cuda_sweep, slab, rays, order, n_cand) -> int:
     return st["visits"]
 
 
+def _listed_slab_bytes(order, n_cand, s) -> int:
+    """Bytes of the slab rows of every cluster some block lists."""
+    listed = torch.arange(order.shape[1], device=order.device) \
+        < n_cand[:, None]
+    return int(torch.unique(order[listed]).numel()) * 9 * s * 4
+
+
+def _closest_check(slab, rays, order, entry, n_cand, slab_bytes,
+                   t_min=1e-3, reps=10) -> dict:
+    """closest_sweep against its plain version on one wave (t as bits,
+    cluster, slot) and its time over `reps` launches. The bound counts the
+    (block, cluster) visits the plain version really made: per visit the
+    4-byte order and entry words and the S tests of every live lane."""
+    from path_tracer_ai_tpu_torch.accel import cuda_sweep
+
+    b, _, r = rays.shape
+    s = slab.tri.shape[2]
+    st = {}
+    k_t, k_cid, k_slot = cuda_sweep.closest_sweep(slab, rays, order, entry,
+                                                  n_cand, t_min)
+    p_t, p_cid, p_slot = cuda_sweep.closest_sweep_plain(
+        slab, rays, order, entry, n_cand, t_min, stats=st)
+    torch.cuda.synchronize()
+    ok = {"t_bitwise": _bits_equal(k_t, p_t),
+          "cid_equal": bool(torch.equal(k_cid, p_cid)),
+          "slot_equal": bool(torch.equal(k_slot, p_slot))}
+    ms = cuda_ms(lambda: cuda_sweep.closest_sweep(slab, rays, order, entry,
+                                                  n_cand, t_min), reps)
+    nbytes = (slab_bytes + _nbytes(rays, n_cand, k_t, k_cid, k_slot)
+              + st["visits"] * 8)
+    res = {"B": b, "R": r, "S": s, "c_pad": order.shape[1],
+           "mean_candidates": float(n_cand.float().mean()),
+           "visits": st["visits"], **ok, "matches_plain": all(ok.values()),
+           "max_abs_err": _max_abs_err(k_t, p_t),
+           "hit_lanes": int((k_cid >= 0).sum()), "ms": ms,
+           "swept_tests": st["visits"] * r * s,
+           "gtests_per_s": st["visits"] * r * s / ms / 1e6,
+           **_bound(nbytes, st["lane_tests"])}
+    res["ms_over_bound"] = ms / res["bound_ms"]
+    return res
+
+
 def _check_sweeps(accel, rng, nb=2048, r=64):
     """closest_sweep and anyhit_sweep (the pallas backend's kernels) at
     B = 2048 blocks of R = 64 lanes, candidate lists from the port's own
@@ -309,38 +358,18 @@ def _check_sweeps(accel, rng, nb=2048, r=64):
         o, d, tm = _bounce_wave(accel, nb * r, rng, shadow)
         rays, order, entry, n_cand, _perm = cuda_sweep._prep_wave(
             accel, o, d, tm, r, True)
-        listed = torch.arange(order.shape[1], device=order.device) \
-            < n_cand[:, None]
-        slab_bytes = int(torch.unique(order[listed]).numel()) * 9 * s * 4
-        return _kill_every_seventh(rays), order, entry, n_cand, slab_bytes
+        return (_kill_every_seventh(rays), order, entry, n_cand,
+                _listed_slab_bytes(order, n_cand, s))
 
     rays, order, entry, n_cand, slab_bytes = inputs(shadow=False)
-    st = {}
-    k_t, k_cid, k_slot = cuda_sweep.closest_sweep(slab, rays, order, entry,
-                                                  n_cand)
-    p_t, p_cid, p_slot = cuda_sweep.closest_sweep_plain(
-        slab, rays, order, entry, n_cand, stats=st)
-    torch.cuda.synchronize()
-    ok = {"t_bitwise": _bits_equal(k_t, p_t),
-          "cid_equal": bool(torch.equal(k_cid, p_cid)),
-          "slot_equal": bool(torch.equal(k_slot, p_slot))}
-    hits = int((k_cid >= 0).sum())
-    ms = cuda_ms(lambda: cuda_sweep.closest_sweep(slab, rays, order, entry,
-                                                  n_cand), 10)
-    plain_ms = cuda_ms(lambda: cuda_sweep.closest_sweep_plain(
-        slab, rays, order, entry, n_cand), 1)
-    nbytes = (slab_bytes + _nbytes(rays, n_cand, k_t, k_cid, k_slot)
-              + st["visits"] * 8)
-    res = {"phase": "kernel", "name": "closest_sweep", "B": nb, "R": r, "S": s,
-           "c_pad": order.shape[1], "mean_candidates": float(n_cand.float().mean()),
-           "visits": st["visits"], **ok, "matches_plain": all(ok.values()),
-           "max_abs_err": _max_abs_err(k_t, p_t), "hit_lanes": hits, "ms": ms,
-           "plain_ms": plain_ms, "swept_tests": st["visits"] * r * s,
-           **_bound(nbytes, st["lane_tests"])}
+    res = {"phase": "kernel", "name": "closest_sweep",
+           **_closest_check(slab, rays, order, entry, n_cand, slab_bytes),
+           "plain_ms": cuda_ms(lambda: cuda_sweep.closest_sweep_plain(
+               slab, rays, order, entry, n_cand), 1)}
     emit(res)
-    if not all(ok.values()):
+    if not res["matches_plain"]:
         fail("kernel", "closest_sweep disagrees with its plain version")
-    if hits == 0:
+    if res["hit_lanes"] == 0:
         fail("kernel", "closest_sweep check wave hit nothing")
     out["closest_sweep"] = res
 
@@ -507,6 +536,63 @@ def phase_kernels(accel_base, accel_c):
     return out
 
 
+def phase_sweep_waves(scene, accel_base, card, n_first=2048):
+    """closest_sweep on the pallas bench render's own waves: the inputs of
+    its first two launches (wave 0 at bounce 0 and at bounce 1) are kept
+    from one bench render; on each whole wave the kernel is held bitwise
+    against its plain version, timed and bounded, and timed again on the
+    wave's first `n_first` blocks alone (with few blocks, the longest walk
+    among them rather than the throughput sets that time)."""
+    from path_tracer_ai_tpu_torch.accel import cuda_sweep
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+
+    kernel = cuda_sweep.closest_sweep
+    kept = []
+
+    def keep(slab, rays, order, entry, n_cand, t_min=1e-3):
+        if len(kept) < 2:
+            kept.append((slab, rays.clone(), order.clone(), entry.clone(),
+                         n_cand.clone(), t_min))
+        return kernel(slab, rays, order, entry, n_cand, t_min)
+
+    cuda_sweep.closest_sweep = keep
+    try:
+        wavefront.render(scene, default_camera("cuda"),
+                         RenderSettings(**BENCH), wave_size=1 << 20,
+                         device="cuda", accel=accel_base, backend="pallas",
+                         block_size=64)
+    finally:
+        cuda_sweep.closest_sweep = kernel
+    out = []
+    for bounce, (slab, rays, order, entry, n_cand, t_min) in enumerate(kept):
+        s = slab.tri.shape[2]
+        t0 = time.perf_counter()
+        res = {"phase": "sweep_waves", "card": card, "wave": 0,
+               "bounce": bounce,
+               **_closest_check(slab, rays, order, entry, n_cand,
+                                _listed_slab_bytes(order, n_cand, s), t_min,
+                                reps=5)}
+        first = [a[:n_first].contiguous() for a in (rays, order, entry, n_cand)]
+        res.update({
+            "max_candidates": int(n_cand.max()),
+            "first_blocks": first[0].shape[0],
+            "first_blocks_ms": cuda_ms(lambda: kernel(slab, *first, t_min), 5),
+            "seconds": time.perf_counter() - t0})
+        emit(res)
+        if not res["matches_plain"]:
+            fail("sweep_waves", f"closest_sweep disagrees with its plain "
+                                f"version on the bounce-{bounce} wave")
+        if res["hit_lanes"] == 0:
+            fail("sweep_waves", f"the bounce-{bounce} wave hit nothing")
+        out.append(res)
+    if len(out) != 2:
+        fail("sweep_waves", f"the render launched closest_sweep {len(kept)} "
+                            "times, not at least twice")
+    return out
+
+
 BENCH = dict(width=1920, height=1080, samples_per_pixel=2, max_bounces=5,
              seed=0)
 FUSED_ENGINES = dict(
@@ -607,7 +693,8 @@ def _bench_render(phase, scene, card, kernels, warm_small, engines=None,
            "launches": launches, "tile_sweep_shapes": tile_shapes,
            "host_syncs": syncs,
            "finite": finite, "magenta_share": magenta,
-           "nonblack_share": nonblack, "image_mean": float(img.mean())}
+           "nonblack_share": nonblack, "image_mean": float(img.mean()),
+           "image_sha256": hashlib.sha256(img.tobytes()).hexdigest()}
     missing = [k for k in kernels if launches[k] <= 0]
     return res, img, missing, (finite and magenta == 0.0 and nonblack >= 0.5)
 
@@ -827,7 +914,7 @@ def main() -> int:
     import path_tracer_ai_tpu_torch  # noqa: F401  (fails outside the repo)
 
     card = phase_device()
-    phase_build()
+    occupancy = phase_build()
     if args.sass:
         dump_sass(args.sass)
 
@@ -844,6 +931,7 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     checks = phase_kernels(accel_base, accel_c)
+    sweep_waves = phase_sweep_waves(scene, accel_base, card)
     if args.kernels_only:
         return 0
     render, img_main = phase_main_path(scene, accel_base, accel_c, card)
@@ -876,6 +964,13 @@ def main() -> int:
         "plain_ms": checks[name]["plain_ms"],
         "bound_ms": checks[name]["bound_ms"],
         "bound_by": checks[name]["bound_by"], "library_ms": None,
+        "ms_over_bound": checks[name]["ms_over_bound"],
+        "occupancy": {k: v for k, v in occupancy.items()
+                      if k.split()[0] == name},
+        **({"render_waves": [
+            {k: w[k] for k in ("bounce", "B", "visits", "ms", "bound_ms",
+                               "ms_over_bound", "matches_plain")}
+            for w in sweep_waves]} if name == "closest_sweep" else {}),
     } for name, (source, replaces, phase) in KERNELS.items()],
         "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",

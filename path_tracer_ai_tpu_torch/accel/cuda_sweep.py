@@ -9,8 +9,8 @@ in between. `closest_sweep` / `anyhit_sweep` replace the Pallas kernels
 csrc/packet_sweep.cu (or raise), on a CPU tensor they run
 `closest_sweep_plain` / `anyhit_sweep_plain`, the same function as eager
 torch ops. The kernels' design and bound are described in the CUDA source.
-`anyhit_sweep` is compiled for S in {64, 128, 256} (R is a runtime argument
-in (0, 1024]); another S on a CUDA tensor raises ValueError.
+Both are compiled for S in {64, 128, 256} (R is a runtime argument in
+(0, 1024]); another S on a CUDA tensor raises ValueError.
 
 Tie rule: a candidate replaces the best only with t < best, so on an exact
 tie the first slot of the first candidate wins; the other backends keep
@@ -199,8 +199,6 @@ def _check_tables(slab, rays, order, n_cand, entry=None):
                              f"{tuple(order.shape)}")
     if not 0 < r <= 1024:
         raise ValueError(f"R = {r} lanes per block is outside (0, 1024]")
-    if SLAB_ROWS * s * 4 > 48 * 1024:
-        raise ValueError(f"S = {s} needs more than 48 KB of shared memory")
     if b:
         lo, hi, n_lo, n_hi = torch.stack(
             [order.min(), order.max(), n_cand.min(), n_cand.max()]).tolist()
@@ -216,8 +214,9 @@ def _check_tables(slab, rays, order, n_cand, entry=None):
 
 def closest_sweep(slab: SlabTable, rays, order, entry, n_cand, t_min=1e-3):
     """(best_t [B, R] f32 inf = miss, best_cid [B, R] i32 -1 = none,
-    best_slot [B, R] i32). CUDA tensors launch the kernel (or raise); CPU
-    tensors take the plain version."""
+    best_slot [B, R] i32). CUDA tensors launch the kernel (or raise;
+    ValueError for an S it is not compiled for: 64, 128, 256); CPU tensors
+    take the plain version."""
     dev = rays.device
     if dev.type == "cpu":
         return closest_sweep_plain(slab, rays, order, entry, n_cand, t_min)
@@ -229,19 +228,35 @@ def closest_sweep(slab: SlabTable, rays, order, entry, n_cand, t_min=1e-3):
     best_slot = torch.empty((b, r), dtype=torch.int32, device=dev)
     if b == 0:
         return best_t, best_cid, best_slot
-    fn = _kernel("closest_sweep", 8, 4)
+    # Blocks start longest list first: a wave's time is at least its
+    # longest walk's, and a long walk started last would add to it.
+    block_order = torch.argsort(n_cand, descending=True, stable=True).to(
+        torch.int32)
+    fn = _kernel("closest_sweep", 9, 4)
     err = fn(slab.tri.data_ptr(), rays.data_ptr(), order.data_ptr(),
-             entry.data_ptr(), n_cand.data_ptr(), best_t.data_ptr(),
-             best_cid.data_ptr(), best_slot.data_ptr(), b, s, r,
-             order.shape[1], float(t_min),
+             entry.data_ptr(), n_cand.data_ptr(), block_order.data_ptr(),
+             best_t.data_ptr(), best_cid.data_ptr(), best_slot.data_ptr(), b,
+             s, r, order.shape[1], float(t_min),
              torch.cuda.current_stream(dev).cuda_stream)
+    if err == NO_INSTANCE:
+        raise ValueError(f"closest_sweep has no compiled instance for S = {s} "
+                         "(S in 64, 128, 256)")
     if err != 0:
         raise RuntimeError(f"closest_sweep launch failed: cudaError {err}")
     launches["closest_sweep"] += 1
     return best_t, best_cid, best_slot
 
 
-def kernel_occupancy(s: int) -> dict:
+def closest_occupancy(s: int, r_lanes: int) -> dict:
+    """Registers per thread and resident warps per SM of the closest_sweep
+    instance that serves (S, R) (needs the card)."""
+    from path_tracer_ai_tpu_torch import cuda_build
+
+    return read_occupancy(cuda_build.load(SOURCE).closest_sweep_occupancy, s,
+                          r_lanes)
+
+
+def anyhit_occupancy(s: int) -> dict:
     """Registers per thread and resident warps per SM of anyhit_sweep's S
     instance (needs the card)."""
     from path_tracer_ai_tpu_torch import cuda_build

@@ -2,7 +2,9 @@
 
 With these, a test runs both packages on the same scene, accel, camera and
 key bits. Every function takes plain numpy arrays (`np.asarray` of the
-JAX arrays), never JAX objects, so this module imports no JAX.
+JAX arrays), never JAX objects, so this module imports no JAX. Like every
+entry point of the port they put the tensors on the card unless the caller
+names another device (`device="cpu"`, as the CPU tests do).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from path_tracer_ai_tpu_torch.core.types import (
     SceneData,
     triangles_from_numpy,
 )
+from path_tracer_ai_tpu_torch.device import resolve_device
 from path_tracer_ai_tpu_torch.scene.camera import Camera
 
 
@@ -25,10 +28,11 @@ def _t(a, device, dtype=None):
     return torch.as_tensor(np.array(a, dtype=dtype), device=device)
 
 
-def scene_from_numpy(triangles, materials, lights, device="cpu") -> SceneData:
+def scene_from_numpy(triangles, materials, lights, device=None) -> SceneData:
     """triangles: the 10 arrays of a TrianglesSoA (v0 v1 v2 n0 n1 n2 uv0
     uv1 uv2 mat_id); materials: (mtype, albedo, roughness, metallic, ior);
     lights: (position, color, intensity)."""
+    device = resolve_device(device)
     return SceneData(
         triangles=triangles_from_numpy(*triangles, device=device),
         materials=MaterialTable(
@@ -43,7 +47,8 @@ def scene_from_numpy(triangles, materials, lights, device="cpu") -> SceneData:
 
 
 def accel_from_numpy(bmin, bmax, v0, e1, e2, tri_id, scene_min, scene_max,
-                     sbmin, sbmax, cbmin, cbmax, device="cpu") -> ClusterAccel:
+                     sbmin, sbmax, cbmin, cbmax, device=None) -> ClusterAccel:
+    device = resolve_device(device)
     f = lambda a: _t(a, device, np.float32)
     return ClusterAccel(
         bmin=f(bmin), bmax=f(bmax), v0=f(v0), e1=f(e1), e2=f(e2),
@@ -92,13 +97,14 @@ def check_packs_match(accel: ClusterAccel, slab=None, pack16=None,
 
 
 def camera_from_numpy(position, forward, right, up, fov_deg,
-                      device="cpu") -> Camera:
+                      device=None) -> Camera:
+    device = resolve_device(device)
     f = lambda a: _t(a, device, np.float32)
     return Camera(position=f(position), forward=f(forward), right=f(right),
                   up=f(up), fov_deg=f(fov_deg))
 
 
-def key_from_data(data, device="cpu") -> torch.Tensor:
+def key_from_data(data, device=None) -> torch.Tensor:
     """uint32[2] key data (jax.random.key_data) -> the port's int64 key."""
     return torch.as_tensor(np.asarray(data, np.uint32).astype(np.int64),
-                           device=device)
+                           device=resolve_device(device))

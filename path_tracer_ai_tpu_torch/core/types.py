@@ -11,6 +11,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from path_tracer_ai_tpu_torch.device import resolve_device
+
 # Material type codes (mirror MaterialType, material.hpp:6-10).
 MATERIAL_DIFFUSE = 0
 MATERIAL_SPECULAR = 1
@@ -83,8 +85,10 @@ def i32(a, device) -> torch.Tensor:
 
 
 def triangles_from_numpy(
-    v0, v1, v2, n0, n1, n2, uv0, uv1, uv2, mat_id, device="cpu"
+    v0, v1, v2, n0, n1, n2, uv0, uv1, uv2, mat_id, device=None
 ) -> TrianglesSoA:
+    """The ten arrays of a TrianglesSoA on `device` (None: the card)."""
+    device = resolve_device(device)
     return TrianglesSoA(
         v0=f32(v0, device), v1=f32(v1, device), v2=f32(v2, device),
         n0=f32(n0, device), n1=f32(n1, device), n2=f32(n2, device),

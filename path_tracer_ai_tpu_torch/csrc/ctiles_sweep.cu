@@ -39,7 +39,7 @@
 // instructions each; see mt.cuh for why --fmad=false puts the floor at
 // about twice the operations term of the bound.
 //
-// Exactness. The arithmetic is mt.cuh's mt_test (traverse._mt_sweep's
+// Exactness. The arithmetic is mt.cuh's sweep_run (traverse._mt_sweep's
 // op order; the reciprocal has the IEEE division's bits, see rcp_fast; build
 // with --fmad=false). Dead lanes (t_max = -1)
 // fail every test through t <= t_max; padding triangles (all zero) fail

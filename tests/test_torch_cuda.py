@@ -111,14 +111,18 @@ def test_uncompiled_shapes_raise(cuda):
             torch.zeros((3, 16, 128), device=cuda),
             torch.zeros((4, 8, 32), device=cuda),
             torch.zeros((32,), dtype=torch.int32, device=cuda))
+    slab96 = cuda_sweep.SlabTable(
+        tri=torch.zeros((2, 9, 96), device=cuda),
+        tri_id=torch.zeros((2, 96), dtype=torch.int32, device=cuda))
+    order = torch.zeros((4, 128), dtype=torch.int32, device=cuda)
+    n_cand = torch.ones((4,), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="S = 96"):
-        cuda_sweep.anyhit_sweep(
-            cuda_sweep.SlabTable(tri=torch.zeros((2, 9, 96), device=cuda),
-                                 tri_id=torch.zeros((2, 96), dtype=torch.int32,
-                                                    device=cuda)),
-            torch.zeros((4, 8, 64), device=cuda),
-            torch.zeros((4, 128), dtype=torch.int32, device=cuda),
-            torch.ones((4,), dtype=torch.int32, device=cuda))
+        cuda_sweep.anyhit_sweep(slab96, torch.zeros((4, 8, 64), device=cuda),
+                                order, n_cand)
+    with pytest.raises(ValueError, match="S = 96"):
+        cuda_sweep.closest_sweep(slab96, torch.zeros((4, 8, 64), device=cuda),
+                                 order, torch.zeros((4, 128), device=cuda),
+                                 n_cand)
 
 
 def test_wrapper_rejects_bad_inputs(cuda):
@@ -224,13 +228,24 @@ def aim_block_at_cluster(rays, blk, tri, cid, dead_lanes=()):
     rays[blk, 6, list(dead_lanes)] = -1.0
 
 
-@pytest.mark.parametrize("block_size", [64, 128])
-def test_sweep_kernels_match_plain(cuda, rng, block_size):
-    acc = _accel(cuda)
+@pytest.mark.parametrize("s", [128, 64, 256])
+@pytest.mark.parametrize("block_size", [64, 128, 32, 48, 96, 256, 1024])
+def test_sweep_kernels_match_plain(cuda, rng, block_size, s):
+    """Both pallas-backend kernels at every compiled S and at R = 32, 48
+    (a half-empty warp), 64 (closest_sweep splits each visit over four warp
+    groups up to here), 96, 128 (two groups), 256 and 1024 (one):
+    every seventh lane dead, lanes with 0 <= t_cap < t_min (they can pass no
+    test but keep their block walking), blocks with no candidate, one block
+    all dead."""
+    acc = _accel(cuda, s)
     slab = cuda_sweep.build_slab_table(acc)
     o, d, tm = _bounce_wave(acc, 256 * block_size, rng)
     rays, order, entry, n_cand, _perm = cuda_sweep._prep_wave(
         acc, o, d, tm, block_size, True)
+    rays[:, 6, ::7] = -1.0
+    rays[1::4, 6, 3::5] = 5e-4  # t_min is 1e-3
+    rays[3, 6] = -1.0
+    n_cand[6::9] = 0
     before = dict(cuda_sweep.launches)
     bt, bc, bs = cuda_sweep.closest_sweep(slab, rays, order, entry, n_cand)
     occ = cuda_sweep.anyhit_sweep(slab, rays, order, n_cand)
@@ -244,7 +259,48 @@ def test_sweep_kernels_match_plain(cuda, rng, block_size):
     assert torch.equal(_bits(bt), _bits(pt))
     assert torch.equal(bc, pc) and torch.equal(bs, ps)
     assert torch.equal(occ, pocc)
-    assert not occ.reshape(-1)[rays[:, 6].reshape(-1) < 0].any()
+    assert not occ.reshape(-1)[rays[:, 6].reshape(-1) < 1e-3].any()
+    for blk in (3, 6):  # all dead; no candidate
+        assert torch.isinf(bt[blk]).all() and (bc[blk] == -1).all()
+        assert (bs[blk] == 0).all()
+
+
+def exact_tie_case(s, device):
+    """Two copies of one triangle in different clusters of an S-slot slab
+    (slots 5 and 9 of cluster 0, ids 40 and 12; slot 2 of cluster 1, id 3)
+    and one block of 32 rays that hit it at t = 2 -> (slab, rays, order,
+    entry, n_cand)."""
+    v0 = np.zeros((2, s, 3), np.float32)
+    e1 = np.zeros((2, s, 3), np.float32)
+    e2 = np.zeros((2, s, 3), np.float32)
+    tri_id = np.full((2, s), -1, np.int32)
+    for c, slot, tid in ((0, 5, 40), (0, 9, 12), (1, 2, 3)):
+        v0[c, slot] = (-1, -1, 0)
+        e1[c, slot] = (2, 0, 0)
+        e2[c, slot] = (0, 2, 0)
+        tri_id[c, slot] = tid
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    slab = cuda_sweep.SlabTable(
+        tri=t(np.concatenate([a.transpose(0, 2, 1) for a in (v0, e1, e2)], 1)),
+        tri_id=t(tri_id))
+    rays = torch.zeros((1, 8, 32), device=device)
+    rays[0, 0:2] = -0.5
+    rays[0, 2] = -2.0
+    rays[0, 5] = 1.0
+    rays[0, 6] = float("inf")
+    order = torch.zeros((1, 128), dtype=torch.int32, device=device)
+    order[0, 1] = 1
+    entry = torch.full((1, 128), float("inf"), device=device)
+    entry[0, :2] = 0.0
+    n_cand = torch.tensor([2], dtype=torch.int32, device=device)
+    return slab, rays, order, entry, n_cand
+
+
+def test_closest_sweep_first_candidate_wins_an_exact_tie(cuda):
+    """The kernel keeps the first candidate's first slot on an exact tie
+    (strict t < best), as the plain version does on the CPU."""
+    bt, bc, bs = cuda_sweep.closest_sweep(*exact_tie_case(64, cuda))
+    assert (bt == 2.0).all() and (bc == 0).all() and (bs == 5).all()
 
 
 @pytest.mark.parametrize("s", [128, 64, 256])

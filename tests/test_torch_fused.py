@@ -45,8 +45,8 @@ def _np(tree):
 def _scene(rng, n_tris, s):
     jtris = random_soup(rng, n_tris)
     ja = jbuild(jtris, cluster_size=s)
-    return dict(ja=ja, pa=accel_from_numpy(*_np(ja)), v0=np.asarray(jtris.v0),
-                ptris=triangles_from_numpy(*_np(jtris)))
+    return dict(ja=ja, pa=accel_from_numpy(*_np(ja), device="cpu"), v0=np.asarray(jtris.v0),
+                ptris=triangles_from_numpy(*_np(jtris), device="cpu"))
 
 
 def _wave(rng, sc, n, dead_every=4, tmax=(0.5, 15.0)):
@@ -187,7 +187,7 @@ def test_block_closest_ties_keep_min_tri():
         tri_id[c, slot] = tid
     bb = np.zeros((2, 3), np.float32)
     acc = accel_from_numpy(bb, bb, v0, e1, e2, tri_id, bb[0], bb[0], bb, bb,
-                           bb[None], bb[None])
+                           bb[None], bb[None], device="cpu")
     pack = cuda_anyhit.pack_tris_dummy(acc)
     o = np.tile([[-0.5, -0.5, -2.0]], (128, 1)).astype(np.float32)
     d = np.tile([[0.0, 0.0, 1.0]], (128, 1)).astype(np.float32)

@@ -6,6 +6,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 import path_tracer_ai_tpu_torch
 
 PKG_DIR = os.path.dirname(path_tracer_ai_tpu_torch.__file__)
@@ -71,3 +73,48 @@ def test_cuda_entry_points_refuse_without_gpu():
     else:
         with pytest.raises(RuntimeError):
             resolve_device(None)
+
+
+def _constructor_calls():
+    """Each constructor that carries host arrays onto a device, called with
+    no device, and a tensor of what it returned."""
+    import numpy as np
+
+    from path_tracer_ai_tpu_torch import convert
+    from path_tracer_ai_tpu_torch.core.types import triangles_from_numpy
+    from path_tracer_ai_tpu_torch.scene import camera
+
+    f = lambda *shape: np.zeros(shape, np.float32)
+    tris = [f(2, 3)] * 6 + [f(2, 2)] * 3 + [np.zeros(2, np.int32)]
+    materials = (np.zeros(1, np.int32), f(1, 3), f(1), f(1), f(1))
+    lights = (f(1, 3), f(1, 3), f(1))
+    accel = ([f(1, 3)] * 2 + [f(1, 4, 3)] * 3 + [np.zeros((1, 4), np.int32)]
+             + [f(3)] * 2 + [f(1, 4, 3)] * 2 + [f(1, 1, 3)] * 2)
+    return {
+        "default_camera": lambda: camera.default_camera().position,
+        "make_camera": lambda: camera.make_camera(
+            (0, 0, 1), (0, 0, 0), (0, 1, 0), 45.0).forward,
+        "scene_from_numpy": lambda: convert.scene_from_numpy(
+            tris, materials, lights).triangles.v0,
+        "accel_from_numpy": lambda: convert.accel_from_numpy(*accel).v0,
+        "camera_from_numpy": lambda: convert.camera_from_numpy(
+            f(3), f(3), f(3), f(3), np.float32(45.0)).up,
+        "key_from_data": lambda: convert.key_from_data(
+            np.zeros(2, np.uint32)),
+        "triangles_from_numpy": lambda: triangles_from_numpy(*tris).mat_id,
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_constructor_calls()))
+def test_constructors_default_to_the_card(name):
+    """With no device the camera and the array converters put their tensors
+    on the card, and raise where there is none; they never fall back to the
+    CPU."""
+    import torch
+
+    call = _constructor_calls()[name]
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

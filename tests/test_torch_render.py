@@ -45,12 +45,12 @@ def both():
     jaccel_c = jbuild(SimpleNamespace(v0=np.asarray(t.v0), v1=np.asarray(t.v1),
                                       v2=np.asarray(t.v2)), cluster_size=256)
     scene = scene_from_numpy(_np(jscene.triangles), _np(jscene.materials),
-                             _np(jscene.lights))
+                             _np(jscene.lights), device="cpu")
     return dict(
         jscene=jscene, jaccel=jaccel, jaccel_c=jaccel_c, scene=scene,
-        accel=accel_from_numpy(*_np(jaccel)),
-        accel_c=accel_from_numpy(*_np(jaccel_c)),
-        camera=camera_from_numpy(*_np(jcamera())),
+        accel=accel_from_numpy(*_np(jaccel), device="cpu"),
+        accel_c=accel_from_numpy(*_np(jaccel_c), device="cpu"),
+        camera=camera_from_numpy(*_np(jcamera()), device="cpu"),
     )
 
 
@@ -269,10 +269,10 @@ def test_default_render_past_2048_clusters():
     assert wavefront.resolve_backend(accel, 64, False, None) == "hybrid"
     settings = RenderSettings(width=16, height=9, samples_per_pixel=1,
                               max_bounces=2, seed=1)
-    img = wavefront.render(scene, default_camera(), settings, accel=accel,
+    img = wavefront.render(scene, default_camera(device="cpu"), settings, accel=accel,
                            wave_size=1 << 8, device="cpu")
     np.testing.assert_array_equal(
-        img, oracle.render(scene, default_camera(), settings, device="cpu"))
+        img, oracle.render(scene, default_camera(device="cpu"), settings, device="cpu"))
 
 
 @pytest.mark.parametrize("engines,kw,builders", [

@@ -26,7 +26,7 @@ from path_tracer_ai_tpu_torch.convert import (
 from path_tracer_ai_tpu_torch.core.types import triangles_from_numpy
 from path_tracer_ai_tpu_torch.engine import intersect
 from tests.test_accel import random_rays, random_soup
-from tests.test_torch_cuda import aim_block_at_cluster
+from tests.test_torch_cuda import aim_block_at_cluster, exact_tie_case
 
 T = torch.as_tensor
 T_TOL = dict(rtol=1e-6, atol=2e-6)
@@ -48,8 +48,8 @@ def setup():
     ja = jbuild(jtris, cluster_size=128)
     return dict(ja=ja, jslab=jsweep.build_slab_table(ja),
                 v0=np.asarray(jtris.v0),
-                pa=accel_from_numpy(*_np(ja)),
-                ptris=triangles_from_numpy(*_np(jtris)))
+                pa=accel_from_numpy(*_np(ja), device="cpu"),
+                ptris=triangles_from_numpy(*_np(jtris), device="cpu"))
 
 
 def _wave(rng, n, dead_every=None, tmax=None, v0=None):
@@ -196,8 +196,8 @@ def test_any_hit_pallas_matches_jax_and_bruteforce(setup, rng, sort):
 @pytest.mark.parametrize("s", [16, 64])
 def test_other_cluster_sizes_against_bruteforce(rng, s):
     jtris = random_soup(rng, 300)
-    pa = accel_from_numpy(*_np(jbuild(jtris, cluster_size=s)))
-    ptris = triangles_from_numpy(*_np(jtris))
+    pa = accel_from_numpy(*_np(jbuild(jtris, cluster_size=s)), device="cpu")
+    ptris = triangles_from_numpy(*_np(jtris), device="cpu")
     slab = cuda_sweep.build_slab_table(pa)
     o, d, tm = _wave(rng, 256, dead_every=4, tmax=(0.5, 15.0))
     ph = cuda_sweep.closest_hit_pallas(pa, slab, T(o), T(d), 1e-3, T(tm),
@@ -233,31 +233,41 @@ def test_all_dead_wave_and_scalar_tmax(setup, rng):
 def test_first_candidate_wins_an_exact_tie():
     """Two copies of one triangle in different clusters: the sweep keeps
     the first candidate's slot (strict t < best), whatever its id."""
-    s = 16
-    v0 = np.zeros((2, s, 3), np.float32)
-    e1 = np.zeros((2, s, 3), np.float32)
-    e2 = np.zeros((2, s, 3), np.float32)
-    tri_id = np.full((2, s), -1, np.int32)
-    for c, slot, tid in ((0, 5, 40), (0, 9, 12), (1, 2, 3)):
-        v0[c, slot] = (-1, -1, 0)
-        e1[c, slot] = (2, 0, 0)
-        e2[c, slot] = (0, 2, 0)
-        tri_id[c, slot] = tid
-    slab = cuda_sweep.SlabTable(
-        tri=T(np.concatenate([a.transpose(0, 2, 1) for a in (v0, e1, e2)], 1)),
-        tri_id=T(tri_id))
-    rays = torch.zeros((1, 8, 32))
-    rays[0, 0:2] = -0.5
-    rays[0, 2] = -2.0
-    rays[0, 5] = 1.0
-    rays[0, 6] = float("inf")
-    order = torch.zeros((1, 128), dtype=torch.int32)
-    order[0, 1] = 1
-    entry = torch.full((1, 128), float("inf"))
-    entry[0, :2] = 0.0
-    bt, bc, bs = cuda_sweep.closest_sweep(
-        slab, rays, order, entry, torch.tensor([2], dtype=torch.int32))
+    bt, bc, bs = cuda_sweep.closest_sweep(*exact_tie_case(16, "cpu"))
     assert (bt == 2.0).all() and (bc == 0).all() and (bs == 5).all()
+
+
+def test_closest_walk_is_held_by_a_lane_below_t_min(setup):
+    """The walk's "live" is !(t_cap < 0), not t_cap >= t_min: a block whose
+    only lane that is not dead has 0 <= t_cap < t_min passes no test, yet
+    walks every candidate (its best_t stays inf); a block all dead walks
+    none. Results and the Pallas kernel's agree."""
+    pa = setup["pa"]
+    slab = cuda_sweep.build_slab_table(pa)
+    b, n = 2, 3
+    order = torch.zeros((b, 128), dtype=torch.int32)
+    order[:, :n] = torch.arange(n, dtype=torch.int32) % pa.num_clusters
+    entry = torch.full((b, 128), float("inf"))
+    entry[:, :n] = torch.arange(n, dtype=torch.float32)
+    n_cand = torch.full((b,), n, dtype=torch.int32)
+    o, d, _ = _wave(np.random.default_rng(5), b * 64, v0=setup["v0"])
+    rays = cuda_sweep._prep_wave(pa, T(o), T(d), float("inf"), 64,
+                                 False)[0]
+    rays[:, 6] = -1.0
+    rays[0, 6, 5] = 5e-4  # t_min is 1e-3
+    st = {}
+    bt, bc, bs = cuda_sweep.closest_sweep_plain(slab, rays, order, entry,
+                                                n_cand, stats=st)
+    assert st["visits"] == n
+    assert st["lane_tests"] == n * pa.cluster_size
+    assert torch.isinf(bt).all() and (bc == -1).all() and (bs == 0).all()
+    jt, jc, js = jsweep.closest_sweep_pallas(
+        setup["jslab"],
+        *(jnp.asarray(a.numpy()) for a in (rays, order, entry, n_cand)),
+        t_min=1e-3, interpret=True)
+    np.testing.assert_array_equal(bt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(bc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(bs.numpy(), np.asarray(js))
 
 
 def test_wrappers_reject_bad_waves_and_devices(setup):

@@ -19,7 +19,7 @@ from tests.test_accel import random_rays, random_soup
 
 def _accel_pair(rng, n_tris, s):
     ja = jbuild(random_soup(rng, n_tris), cluster_size=s)
-    return ja, accel_from_numpy(*(np.asarray(a) for a in ja))
+    return ja, accel_from_numpy(*(np.asarray(a) for a in ja), device="cpu")
 
 
 @pytest.mark.parametrize("t_lanes,s", [(128, 128), (64, 128), (128, 256)])
@@ -66,7 +66,7 @@ def test_tile_sweep_ties_keep_min_tri():
         tri_id[0, slot] = tid
     bb = np.zeros((2, 3), np.float32)
     acc = accel_from_numpy(bb, bb, v0, e1, e2, tri_id, bb[0], bb[0], bb, bb,
-                           bb[None], bb[None])
+                           bb[None], bb[None], device="cpu")
     o = np.tile([[-0.5, -0.5, -2.0]], (2 * t_lanes, 1)).astype(np.float32)
     d = np.tile([[0.0, 0.0, 1.0]], (2 * t_lanes, 1)).astype(np.float32)
     tm = np.full(2 * t_lanes, np.inf, np.float32)
@@ -154,7 +154,7 @@ def test_tile_sweep_groups_tie_across_clusters_keeps_min_tri(order):
         tri_id[cl, slot] = tid
     bb = np.zeros((3, 3), np.float32)
     acc = accel_from_numpy(bb, bb, v0, e1, e2, tri_id, bb[0], bb[0], bb, bb,
-                           bb[None], bb[None])
+                           bb[None], bb[None], device="cpu")
     o = np.tile([[-0.5, -0.5, -2.0]], (2 * t_lanes, 1)).astype(np.float32)
     d = np.tile([[0.0, 0.0, 1.0]], (2 * t_lanes, 1)).astype(np.float32)
     tm = np.full(2 * t_lanes, np.inf, np.float32)

@@ -34,8 +34,8 @@ T_TOL = dict(rtol=1e-6, atol=2e-6)
 def _setup(rng, n_tris, s, n_rays, dead_every=6):
     jtris = random_soup(rng, n_tris)
     ja = jbuild(jtris, cluster_size=s)
-    pa = accel_from_numpy(*(np.asarray(a) for a in ja))
-    ptris = triangles_from_numpy(*(np.asarray(a) for a in jtris))
+    pa = accel_from_numpy(*(np.asarray(a) for a in ja), device="cpu")
+    ptris = triangles_from_numpy(*(np.asarray(a) for a in jtris), device="cpu")
     # bounce-like rays: leave triangle surfaces in random directions
     v0 = np.asarray(jtris.v0)
     o = (v0[rng.integers(0, n_tris, n_rays)]
