@@ -44,7 +44,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   path's bitwise.
   5. consistency  the three paths vs the oracle on the card (96x54, 4 spp,
                   5 bounces, blob subdiv 4): main and fused bitwise, pallas
-                  at atol 1e-5 (its tie rule keeps the first candidate).
+                  at atol 1e-5 (its tie rule keeps the first candidate);
+                  the same with Russian roulette from bounce 2, and
+                  rr_start=5 (never reached in 5 bounces) bitwise the
+                  rr-off image.
+  6. cli          the CLI (path_tracer_ai_tpu_torch.cli.main, in-process) on
+                  an OBJ scene: the blob subdiv 6 written as blob.obj + a
+                  two-material blob.mtl, loaded once by scene.build_scene
+                  (parser, seconds, 81,928 triangles with the room), then
+                  `-m gpu -w 1920 -h 1080 -s 2 -b 5 --seed 0 --validate
+                  --checkpoint a.npz` as a warm run and a timed run with the
+                  launch counts zeroed just before it (tile_sweep > 0; PNG
+                  free of magenta, audit finite); the same with
+                  `--backend pallas` (closest_sweep, anyhit_sweep > 0) and
+                  with `--rr 2`, whose live rays (wavefront.RenderStats of
+                  the same settings) must be fewer than without; a 1-spp
+                  render stopped at a checkpoint and resumed to 2 spp
+                  equals the uninterrupted render bitwise; `-m cpu` and
+                  `-m gpu` on a blob subdiv 4 OBJ (96x54, 2 spp, 3 bounces)
+                  write equal PNGs.
 Then the kernels line, and last {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
@@ -54,6 +72,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import logging
 import os
 import re
 import subprocess
@@ -854,33 +873,258 @@ def phase_consistency():
     from path_tracer_ai_tpu_torch.scene.scene import blob_scene
 
     scene = blob_scene(subdivisions=4, device="cuda")
-    settings = RenderSettings(width=96, height=54, samples_per_pixel=4,
-                              max_bounces=5, seed=0)
     cam = default_camera("cuda")
-    t0 = time.perf_counter()
     kw = dict(wave_size=1 << 14, device="cuda")
-    img_o = oracle.render(scene, cam, settings, device="cuda")
-    img_w = wavefront.render(scene, cam, settings, **kw)
-    with _engines(FUSED_ENGINES):
-        img_f = wavefront.render(scene, cam, settings, **kw)
-    img_p = wavefront.render(scene, cam, settings, backend="pallas",
-                             block_size=64, **kw)
-    diff = {"main": float(np.abs(img_w - img_o).max()),
-            "fused": float(np.abs(img_f - img_o).max()),
-            "pallas": float(np.abs(img_p - img_o).max())}
-    res = {"phase": "consistency", "max_abs_diff_vs_oracle": diff,
-           "main_bitwise": bool(np.array_equal(img_w, img_o)),
-           "fused_bitwise": bool(np.array_equal(img_f, img_o)),
-           "pallas_pixels_differing": int(
-               (np.abs(img_p - img_o).max(axis=-1) > 0).sum()),
-           "image_mean": float(img_o.mean()),
-           "seconds": time.perf_counter() - t0}
+
+    def paths(settings):
+        img_o = oracle.render(scene, cam, settings, device="cuda")
+        img_w = wavefront.render(scene, cam, settings, **kw)
+        with _engines(FUSED_ENGINES):
+            img_f = wavefront.render(scene, cam, settings, **kw)
+        img_p = wavefront.render(scene, cam, settings, backend="pallas",
+                                 block_size=64, **kw)
+        return img_o, img_w, img_f, img_p
+
+    res = {"phase": "consistency"}
+    t0 = time.perf_counter()
+    for rr in (0, 2):
+        settings = RenderSettings(width=96, height=54, samples_per_pixel=4,
+                                  max_bounces=5, seed=0, rr_start=rr)
+        img_o, img_w, img_f, img_p = paths(settings)
+        diff = {"main": float(np.abs(img_w - img_o).max()),
+                "fused": float(np.abs(img_f - img_o).max()),
+                "pallas": float(np.abs(img_p - img_o).max())}
+        res[f"rr{rr}"] = {
+            "max_abs_diff_vs_oracle": diff,
+            "main_bitwise": bool(np.array_equal(img_w, img_o)),
+            "fused_bitwise": bool(np.array_equal(img_f, img_o)),
+            "pallas_pixels_differing": int(
+                (np.abs(img_p - img_o).max(axis=-1) > 0).sum()),
+            "image_mean": float(img_o.mean())}
+        if rr == 0:
+            img_off = img_w
+        if diff["main"] != 0.0 or diff["fused"] != 0.0:
+            res["seconds"] = time.perf_counter() - t0
+            emit(res)
+            fail("consistency", f"rr_start={rr}: wavefront and oracle "
+                                f"differ: {diff}")
+        if diff["pallas"] > 1e-5:
+            res["seconds"] = time.perf_counter() - t0
+            emit(res)
+            fail("consistency", f"rr_start={rr}: pallas backend and oracle "
+                                f"differ: {diff}")
+    # roulette from bounce 5 never fires within 5 bounces
+    img_late = wavefront.render(scene, cam, RenderSettings(
+        width=96, height=54, samples_per_pixel=4, max_bounces=5, seed=0,
+        rr_start=5), **kw)
+    res["rr5_bitwise_rr0"] = bool(np.array_equal(img_late, img_off))
+    res["rr2_differs_from_rr0"] = not np.array_equal(img_w, img_off)
+    res["seconds"] = time.perf_counter() - t0
     emit(res)
-    # tests/test_torch_render.py holds the same pairs on the CPU
-    if diff["main"] != 0.0 or diff["fused"] != 0.0:
-        fail("consistency", f"wavefront and oracle differ: {diff}")
-    if diff["pallas"] > 1e-5:
-        fail("consistency", f"pallas backend and oracle differ: {diff}")
+    # tests/test_torch_render.py and tests/test_torch_rr.py hold the same
+    # pairs on the CPU
+    if not res["rr5_bitwise_rr0"]:
+        fail("consistency", "rr_start=5 changed the 5-bounce image")
+    if not res["rr2_differs_from_rr0"]:
+        fail("consistency", "rr_start=2 left the image unchanged")
+
+
+class _LogRecords(logging.Handler):
+    """The port's log records of a block, at INFO (the CLI reports its
+    audit, times and parser through logging)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+        self.logger = logging.getLogger("path_tracer_ai_tpu_torch")
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def __enter__(self):
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.level)
+
+    def args(self, msg: str) -> list:
+        """The arguments of every record logged with format `msg`."""
+        return [r.args for r in self.records if r.msg == msg]
+
+
+CLI_BENCH = ["-m", "gpu", "-w", str(BENCH["width"]), "-h",
+             str(BENCH["height"]), "-s", str(BENCH["samples_per_pixel"]),
+             "-b", str(BENCH["max_bounces"]), "--seed", str(BENCH["seed"])]
+
+
+def _cli_run(argv, png):
+    """cli.main(argv + -o png) -> (seconds, its log records); fails unless
+    it returns 0 and the PNG it wrote holds no magenta pixel."""
+    from path_tracer_ai_tpu_torch import cli
+    from path_tracer_ai_tpu_torch.io.png import read_png
+
+    with _LogRecords() as logs:
+        t0 = time.perf_counter()
+        rc = cli.main(argv + ["-o", png])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    if rc != 0:
+        fail("cli", f"cli.main({' '.join(argv)}) returned {rc}")
+    img = read_png(png)
+    if np.all(img == np.asarray([255, 0, 255], np.uint8), axis=-1).any():
+        fail("cli", f"magenta pixels in {png}")
+    return seconds, logs
+
+
+def _render_seconds(logs) -> float:
+    return float(logs.args("Rendering completed in %.3f seconds")[-1][0])
+
+
+def phase_cli(card):
+    """The CLI on an OBJ scene at the bench render's size (see the module
+    docstring, phase 6)."""
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import wavefront
+    from path_tracer_ai_tpu_torch.engine.oracle import finish_image
+    from path_tracer_ai_tpu_torch.io import checkpoint as ckpt
+    from path_tracer_ai_tpu_torch.io.png import read_png
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+    from path_tracer_ai_tpu_torch.scene.procgen import write_blob_obj
+    from path_tracer_ai_tpu_torch.scene.scene import build_scene
+    from path_tracer_ai_tpu_torch.utils import sync
+
+    res = {"phase": "cli", "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = os.path.join(tmp, "blob.obj")
+        t0 = time.perf_counter()
+        res["obj_faces"] = write_blob_obj(obj, subdivisions=6)
+        res["write_seconds"] = time.perf_counter() - t0
+
+        with _LogRecords() as logs:
+            t0 = time.perf_counter()
+            scene = build_scene(obj, device="cuda")
+            torch.cuda.synchronize()
+            res["load_seconds"] = time.perf_counter() - t0
+        res["parser"] = logs.args("Parsed %s with the %s parser")[0][1]
+        res["triangles"] = scene.triangles.count
+        res["materials"] = scene.materials.count
+        print(f"cli: {res['parser']} parser, {res['load_seconds']:.3f} s, "
+              f"{res['triangles']} triangles", flush=True)
+        if res["triangles"] != 81928:
+            emit(res)
+            fail("cli", f"the OBJ scene has {res['triangles']} triangles, "
+                        "not 81,928")
+
+        ck_a = os.path.join(tmp, "a.npz")
+        argv = CLI_BENCH + ["-i", obj, "--validate", "--checkpoint", ck_a]
+        png = os.path.join(tmp, "a.png")
+        res["warm_seconds"], _ = _cli_run(argv, png)
+        os.remove(ck_a)  # else the timed run resumes from a finished render
+        _reset_counts()
+        res["seconds"], logs = _cli_run(argv, png)
+        res["launches"] = _read_counts()
+        res["host_syncs"] = sync.count
+        res["render_seconds"] = _render_seconds(logs)
+        audit = logs.args("Image audit: %s")[0][0]
+        res["audit"] = audit._asdict()
+        img_cli = finish_image(*ckpt.load(ck_a, ckpt.peek_fingerprint(ck_a))[:2],
+                               BENCH["width"], BENCH["height"])
+        print(f"cli: 1080p timed run {res['seconds']:.3f} s, launches "
+              f"{res['launches']}", flush=True)
+        if res["launches"]["tile_sweep"] <= 0:
+            emit(res)
+            fail("cli", "the CLI render launched no tile_sweep kernel")
+        if not (audit.finite and audit.n_nan == 0 and audit.n_inf == 0
+                and audit.n_magenta == 0):
+            emit(res)
+            fail("cli", f"image audit: {audit}")
+
+        _reset_counts()
+        sec, logs = _cli_run(CLI_BENCH + ["-i", obj, "--backend", "pallas"],
+                             os.path.join(tmp, "p.png"))
+        res["pallas"] = {"seconds": sec, "render_seconds": _render_seconds(logs),
+                         "launches": _read_counts()}
+        if min(res["pallas"]["launches"][k]
+               for k in ("closest_sweep", "anyhit_sweep")) <= 0:
+            emit(res)
+            fail("cli", "--backend pallas launched no closest_sweep or "
+                        "anyhit_sweep kernel")
+
+        sec, logs = _cli_run(CLI_BENCH + ["-i", obj, "--rr", "2",
+                                          "--validate"],
+                             os.path.join(tmp, "rr.png"))
+        audit = logs.args("Image audit: %s")[0][0]
+        res["rr2"] = {"seconds": sec, "render_seconds": _render_seconds(logs),
+                      "audit": audit._asdict()}
+        if not (audit.finite and audit.n_magenta == 0):
+            emit(res)
+            fail("cli", f"--rr 2 image audit: {audit}")
+        cam = default_camera("cuda")
+        rays = {}
+        for rr in (0, 2):
+            stats = wavefront.RenderStats()
+            img = wavefront.render(scene, cam, RenderSettings(
+                **BENCH, rr_start=rr), stats=stats, device="cuda")
+            rays[rr] = stats
+            if rr == 0:
+                img_full = img
+        res["rr0"] = {}
+        for rr, st in rays.items():
+            res[f"rr{rr}"].update(closest_rays=st.closest_rays,
+                                  shadow_rays=st.shadow_rays,
+                                  api_render_seconds=st.seconds)
+        res["cli_image_equals_api_image"] = bool(np.array_equal(img_cli,
+                                                                img_full))
+        print(f"cli: --rr 2 {res['rr2']['seconds']:.3f} s, live rays "
+              f"{rays[2].total_rays} against {rays[0].total_rays}", flush=True)
+        if rays[2].total_rays >= rays[0].total_rays:
+            emit(res)
+            fail("cli", "--rr 2 traced no fewer rays than --rr 0")
+        if not res["cli_image_equals_api_image"]:
+            emit(res)
+            fail("cli", "the CLI's image differs from wavefront.render's")
+
+        # stop after 1 of 2 samples, restamp under the 2-spp fingerprint
+        # (tests/test_wavefront.py:162-173), resume
+        ck_b = os.path.join(tmp, "b.npz")
+        full = RenderSettings(**BENCH)
+        half = full.replace(samples_per_pixel=1)
+        n_tri = scene.triangles.count
+        wavefront.render(scene, cam, half, checkpoint_path=ck_b, device="cuda")
+        acc, cnt, nxt = ckpt.load(ck_b, ckpt.fingerprint(half, n_tri,
+                                                          BENCH["seed"]))
+        ckpt.save(ck_b, acc, cnt, nxt,
+                  ckpt.fingerprint(full, n_tri, BENCH["seed"]))
+        resumed_stats = wavefront.RenderStats()
+        img_resumed = wavefront.render(scene, cam, full, checkpoint_path=ck_b,
+                                       stats=resumed_stats, device="cuda")
+        res["resume"] = {
+            "next_sample": nxt,
+            "resumed_closest_rays": resumed_stats.closest_rays,
+            "bitwise_equal_to_uninterrupted": bool(
+                np.array_equal(img_resumed, img_full))}
+        if not res["resume"]["bitwise_equal_to_uninterrupted"]:
+            emit(res)
+            fail("cli", "the resumed render differs from the uninterrupted one")
+
+        small = os.path.join(tmp, "small.obj")
+        write_blob_obj(small, subdivisions=4)
+        common = ["-w", "96", "-h", "54", "-s", "2", "-b", "3", "-i", small]
+        pngs = {}
+        for mode in ("cpu", "gpu"):
+            pngs[mode] = os.path.join(tmp, f"mode_{mode}.png")
+            res[f"mode_{mode}_seconds"], _ = _cli_run(["-m", mode] + common,
+                                                      pngs[mode])
+        res["modes_equal"] = bool(np.array_equal(read_png(pngs["cpu"]),
+                                                 read_png(pngs["gpu"])))
+    emit(res)
+    if not res["modes_equal"]:
+        fail("cli", "-m cpu and -m gpu wrote different PNGs")
+    return res
 
 
 # name -> (source under path_tracer_ai_tpu_torch/csrc, TPU kernel it replaces,
@@ -948,6 +1192,7 @@ def main() -> int:
                        ["block_closest_kernel", "block_anyhit_kernel"],
                        engines=FUSED_ENGINES)
     phase_consistency()
+    cli = phase_cli(card)
 
     emit({"phase": "tile_sweep_shapes", "card": card, "checks": [
         {k: checks[name][k] for k in ("T", "S", "G", "nt", "ms", "bound_ms",
@@ -959,6 +1204,8 @@ def main() -> int:
         "source": "path_tracer_ai_tpu_torch/csrc/" + source,
         "replaces": replaces, "path": phase,
         "launches": paths[phase]["launches"][name],
+        "cli_launches": cli["launches"][name],
+        "cli_pallas_launches": cli["pallas"]["launches"][name],
         "matches_plain": checks[name]["matches_plain"],
         "max_abs_err": checks[name]["max_abs_err"], "ms": checks[name]["ms"],
         "plain_ms": checks[name]["plain_ms"],

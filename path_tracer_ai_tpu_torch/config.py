@@ -22,6 +22,11 @@ class RenderSettings:
     aspect_mode: str = "fixed"
     # None seeds from entropy, like the reference's std::random_device.
     seed: int | None = 0
+    # Russian roulette, an extension the reference lacks (it cuts paths at
+    # a fixed depth only; 0 keeps that). N >= 1 roulettes every path
+    # continuation leaving a vertex of depth >= N: survive with
+    # p = clamp(max(beta), rr floor, 1), then beta /= p (unbiased).
+    rr_start: int = 0
 
     def aspect_ratio(self) -> float:
         if self.aspect_mode == "fixed":
@@ -30,3 +35,10 @@ class RenderSettings:
 
     def replace(self, **kw) -> "RenderSettings":
         return dataclasses.replace(self, **kw)
+
+
+# Struct defaults of the reference CPU renderer (include/renderer.hpp:23-28),
+# kept for API parity. RenderSettings() gives the CLI's defaults.
+RENDERER_STRUCT_DEFAULTS = RenderSettings(
+    width=800, height=450, samples_per_pixel=10, max_bounces=3, gamma=2.2
+)

@@ -2,7 +2,7 @@
 
 The oracle engine's exact traversal: nearest hit over all triangles with
 t in [t_min, t_max], ties to the lowest triangle index. Triangles are
-swept in chunks, so peak memory is R x CHUNK.
+swept in chunks of `chunk_size`, so peak memory is R x chunk_size.
 """
 
 from __future__ import annotations
@@ -16,7 +16,6 @@ from path_tracer_ai_tpu_torch.core.geometry import moller_trumbore
 from path_tracer_ai_tpu_torch.core.types import TrianglesSoA
 
 _BIG = torch.iinfo(torch.int32).max
-CHUNK = 512  # triangles per step ([R, 512] temporaries)
 
 
 class ClosestHit(NamedTuple):
@@ -25,14 +24,14 @@ class ClosestHit(NamedTuple):
     tri: torch.Tensor  # [R] i32 (0 on miss)
 
 
-def closest_hit(tris: TrianglesSoA, origins, directions, t_min, t_max
-                ) -> ClosestHit:
+def closest_hit(tris: TrianglesSoA, origins, directions, t_min, t_max,
+                chunk_size: int = 512) -> ClosestHit:
     r = origins.shape[0]
     dev = origins.device
     best_t = torch.full((r,), float("inf"), dtype=torch.float32, device=dev)
     best_i = torch.zeros((r,), dtype=torch.int32, device=dev)
-    for lo in range(0, tris.v0.shape[0], CHUNK):
-        hi = min(lo + CHUNK, tris.v0.shape[0])
+    for lo in range(0, tris.v0.shape[0], chunk_size):
+        hi = min(lo + chunk_size, tris.v0.shape[0])
         hits = moller_trumbore(origins, directions, tris.v0[lo:hi],
                                tris.v1[lo:hi], tris.v2[lo:hi], t_min, t_max)
         ct = hits.t.amin(dim=-1)
@@ -44,13 +43,13 @@ def closest_hit(tris: TrianglesSoA, origins, directions, t_min, t_max
     return ClosestHit(hit=torch.isfinite(best_t), t=best_t, tri=best_i)
 
 
-def any_hit(tris: TrianglesSoA, origins, directions, t_min, t_max
-            ) -> torch.Tensor:
+def any_hit(tris: TrianglesSoA, origins, directions, t_min, t_max,
+            chunk_size: int = 512) -> torch.Tensor:
     """Occlusion query: any triangle with t in [t_min, t_max]."""
     occluded = torch.zeros((origins.shape[0],), dtype=torch.bool,
                            device=origins.device)
-    for lo in range(0, tris.v0.shape[0], CHUNK):
-        hi = min(lo + CHUNK, tris.v0.shape[0])
+    for lo in range(0, tris.v0.shape[0], chunk_size):
+        hi = min(lo + chunk_size, tris.v0.shape[0])
         hits = moller_trumbore(origins, directions, tris.v0[lo:hi],
                                tris.v1[lo:hi], tris.v2[lo:hi], t_min, t_max)
         occluded |= hits.valid.any(dim=-1)

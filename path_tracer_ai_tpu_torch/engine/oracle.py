@@ -26,7 +26,7 @@ from path_tracer_ai_tpu_torch.utils.logging import get_logger, render_banner
 log = get_logger(__name__)
 
 MAGENTA = np.asarray([1.0, 0.0, 1.0], np.float32)  # invalid-pixel sentinel
-CHUNK_PIXELS = 16384  # pixels per batch
+CHUNK_PIXELS = 16384  # pixels per batch (render's chunk_pixels)
 
 _fold_all = sampling.fold_all
 
@@ -55,9 +55,29 @@ def finish_image(acc: np.ndarray, cnt: np.ndarray, w: int, h: int) -> np.ndarray
     return img.reshape(h, w, 3)
 
 
+def trace_paths(scene: SceneData, origins, directions, keys, max_bounces: int,
+                tri_chunk: int = 512, rr_start: int = 0):
+    """Iterative tracePath over a lane batch with the exact brute-force
+    traversal. Returns (radiance [N,3], valid [N])."""
+    closest, occlude = tracer.brute_force_backend(scene, tri_chunk)
+    radiance, valid, _stats = tracer.trace_paths(
+        scene, origins, directions, keys, max_bounces, closest, occlude,
+        rr_start=rr_start,
+    )
+    return radiance, valid
+
+
 def render(scene: SceneData, camera: Camera, settings: RenderSettings,
+           chunk_pixels: int = CHUNK_PIXELS, tri_chunk: int = 512,
+           show_progress: bool = False, spp_chunk: int = 0,
            device=None) -> np.ndarray:
-    """Full-frame render -> linear [H, W, 3] float32 (numpy)."""
+    """Full-frame render -> linear [H, W, 3] float32 (numpy).
+
+    chunk_pixels: pixels a batch; tri_chunk: triangles a step of the
+    brute-force sweep. spp_chunk > 0 sums the samples of each pixel batch
+    in blocks of that many and adds the blocks' sums: the samples are the
+    same, only the f32 summation is grouped differently (as across wave
+    sizes). device: None means cuda (raises without a GPU)."""
     dev = resolve_device(device)
     scene = scene_to(scene, dev)
     camera = camera.to(dev)
@@ -65,10 +85,11 @@ def render(scene: SceneData, camera: Camera, settings: RenderSettings,
     aspect = settings.aspect_ratio()
     render_banner(log, settings)
     base_key = threefry.key(resolve_seed(settings), device=dev)
-    closest, occlude = tracer.brute_force_backend(scene)
+    zero = torch.zeros((), device=dev)
 
     npix = w * h
-    chunk = min(CHUNK_PIXELS, npix)
+    chunk = min(chunk_pixels, npix)
+    sc = max(1, spp if spp_chunk <= 0 else min(spp_chunk, spp))
     acc = np.zeros((npix, 3), np.float32)
     cnt = np.zeros((npix,), np.int32)
     for ci in range(math.ceil(npix / chunk)):
@@ -76,17 +97,24 @@ def render(scene: SceneData, camera: Camera, settings: RenderSettings,
         hi = min(lo + chunk, npix)
         pix = torch.arange(lo, hi, dtype=torch.int64, device=dev)
         xs, ys = pix % w, pix // w
-        a = torch.zeros((hi - lo, 3), dtype=torch.float32, device=dev)
-        c = torch.zeros((hi - lo,), dtype=torch.int32, device=dev)
-        for s in range(spp):
-            keys = _fold_all(base_key, pix, s)
-            o, d = camera_rays(camera, keys, xs, ys, w, h, aspect)
-            radiance, valid, _ = tracer.trace_paths(
-                scene, o, d, keys, settings.max_bounces, closest, occlude
-            )
-            a = a + torch.where(valid[..., None], radiance,
-                                torch.zeros((), device=dev))
-            c = c + valid.to(torch.int32)
-        acc[lo:hi] = a.cpu().numpy()
-        cnt[lo:hi] = c.cpu().numpy()
+        a = c = None
+        for s_lo in range(0, spp, sc):
+            ab = torch.zeros((hi - lo, 3), dtype=torch.float32, device=dev)
+            cb = torch.zeros((hi - lo,), dtype=torch.int32, device=dev)
+            for s in range(s_lo, min(s_lo + sc, spp)):
+                keys = _fold_all(base_key, pix, s)
+                o, d = camera_rays(camera, keys, xs, ys, w, h, aspect)
+                radiance, valid = trace_paths(
+                    scene, o, d, keys, settings.max_bounces,
+                    tri_chunk=tri_chunk, rr_start=settings.rr_start)
+                ab = ab + torch.where(valid[..., None], radiance, zero)
+                cb = cb + valid.to(torch.int32)
+            a = ab if a is None else a + ab
+            c = cb if c is None else c + cb
+        if a is not None:
+            acc[lo:hi] = a.cpu().numpy()
+            cnt[lo:hi] = c.cpu().numpy()
+        if show_progress:
+            log.info("Rendering progress: %d%% (%d/%d pixels)",
+                     (hi * 100) // npix, hi, npix)
     return finish_image(acc, cnt, w, h)

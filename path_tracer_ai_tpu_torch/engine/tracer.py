@@ -29,11 +29,17 @@ _MAGENTA = (1.0, 0.0, 1.0)
 
 
 def bounce_step(scene: SceneData, closest_fn: ClosestFn, occlude_fn: OccludeFn,
-                o, d, beta, radiance, alive, keys, depth: int):
+                o, d, beta, radiance, alive, keys, depth: int,
+                rr_start: int = 0, rr_floor: float = 0.05):
     """ONE shading vertex of tracePath for a lane batch.
 
     keys: [N, 2] per-lane stream keys; the RNG draws of this vertex depend
     only on (key, depth, purpose), so scheduling never changes a sample.
+    rr_start >= 1 (RenderSettings.rr_start): a vertex of depth >= rr_start
+    roulettes its continuation on the updated throughput, survival
+    p = clamp(max(beta), rr_floor, 1) then beta /= p, drawn on the TAG_RR
+    stream of (lane, depth). 0 (and every vertex below rr_start) runs no
+    op of it, which gives the same bits as a roulette no lane enters.
     Returns (o, d, beta, radiance, alive, n_closest, n_shadow); the counts
     are 0-dim tensors (no host sync here).
     """
@@ -80,12 +86,21 @@ def bounce_step(scene: SceneData, closest_fn: ClosestFn, occlude_fn: OccludeFn,
     o = torch.where(act, bs.origin, o)
     d = torch.where(act, bs.direction, d)
 
+    if rr_start and depth >= rr_start:
+        u_rr = threefry.uniform(threefry.fold_in(kb, sampling.TAG_RR))
+        p = torch.clamp(beta.amax(dim=-1), rr_floor, 1.0)
+        # every active lane is at depth >= rr_start, so each one roulettes
+        survive = active & (u_rr < p)
+        beta = torch.where(survive[..., None], beta / p[..., None], beta)
+        active = survive
+
     n_closest = alive.sum()
     return o, d, beta, radiance, active, n_closest, n_shadow
 
 
 def trace_paths(scene: SceneData, origins, directions, keys, max_bounces: int,
-                closest_fn: ClosestFn, occlude_fn: OccludeFn):
+                closest_fn: ClosestFn, occlude_fn: OccludeFn,
+                rr_start: int = 0):
     """Returns (radiance [N,3], valid [N], (n_closest, n_shadow))."""
     n = origins.shape[0]
     dev = origins.device
@@ -98,7 +113,7 @@ def trace_paths(scene: SceneData, origins, directions, keys, max_bounces: int,
     for depth in range(max_bounces):
         o, d, beta, radiance, alive, nc, ns = bounce_step(
             scene, closest_fn, occlude_fn, o, d, beta, radiance, alive, keys,
-            depth,
+            depth, rr_start=rr_start,
         )
         n_closest = n_closest + nc
         n_shadow = n_shadow + ns
@@ -107,14 +122,16 @@ def trace_paths(scene: SceneData, origins, directions, keys, max_bounces: int,
     return radiance, valid, (n_closest, n_shadow)
 
 
-def brute_force_backend(scene: SceneData):
+def brute_force_backend(scene: SceneData, tri_chunk: int = 512):
     """Exact traversal backend of the oracle engine."""
     tris = scene.triangles
 
     def closest(o, d, t_min, t_max):
-        return intersect.closest_hit(tris, o, d, t_min, t_max)
+        return intersect.closest_hit(tris, o, d, t_min, t_max,
+                                     chunk_size=tri_chunk)
 
     def occlude(o, d, t_max):
-        return intersect.any_hit(tris, o, d, RAY_TMIN, t_max)
+        return intersect.any_hit(tris, o, d, RAY_TMIN, t_max,
+                                 chunk_size=tri_chunk)
 
     return closest, occlude

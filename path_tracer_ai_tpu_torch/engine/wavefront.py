@@ -59,6 +59,7 @@ from path_tracer_ai_tpu_torch.engine.oracle import (
     finish_image,
     resolve_seed,
 )
+from path_tracer_ai_tpu_torch.io import checkpoint as ckpt_io
 from path_tracer_ai_tpu_torch.scene.camera import Camera
 from path_tracer_ai_tpu_torch.scene.scene import scene_to
 from path_tracer_ai_tpu_torch.utils import sync
@@ -274,7 +275,7 @@ def _wave_accum(radiance, lane_s, spp, *, pix_chunk, sc):
 
 
 def _render_wave(scene, camera, base_key, xs, ys, s0, spp, backends, *,
-                 w, h, sc, lanes_padded, max_bounces, aspect):
+                 w, h, sc, lanes_padded, max_bounces, aspect, rr_start=0):
     """One wave through the host-stepped bounce loop with compaction.
     Returns (acc [P,3], cnt [P], n_closest, n_shadow) as device tensors."""
     o, d, keys, lane_s = _wave_gen(camera, base_key, xs, ys, s0, w=w, h=h,
@@ -316,7 +317,8 @@ def _render_wave(scene, camera, base_key, xs, ys, s0, spp, backends, *,
                 beta, radiance, keys, alive = beta[gi], radiance[gi], keys[gi], live
         closest, occlude = backends[0] if depth == 0 else backends[1]
         o, d, beta, radiance, alive, nc_i, ns_i = tracer.bounce_step(
-            scene, closest, occlude, o, d, beta, radiance, alive, keys, depth)
+            scene, closest, occlude, o, d, beta, radiance, alive, keys, depth,
+            rr_start=rr_start)
         nc = nc + nc_i
         ns = ns + ns_i
     if full_radiance is not None:
@@ -338,13 +340,17 @@ def render(scene: SceneData, camera: Camera, settings: RenderSettings,
            block_size: int = 64, stats: Optional[RenderStats] = None,
            use_pallas: bool = False, backend: Optional[str] = None,
            accel_closest: Optional[ClusterAccel] = None,
-           device=None) -> np.ndarray:
+           checkpoint_path: Optional[str] = None, checkpoint_every: int = 0,
+           show_progress: bool = False, device=None) -> np.ndarray:
     """Full-frame wavefront render -> linear [H, W, 3] float32 (numpy).
 
     block_size: rays per traversal block (the packet cascade's and the
     pallas backend's; waves are padded to it). backend / use_pallas: see
-    packet_backend. device: None means cuda (raises without a GPU); "cpu"
-    runs the plain versions of the kernels."""
+    packet_backend. checkpoint_path: resume from it when its fingerprint
+    matches these settings, and save to it every `checkpoint_every` sample
+    passes (0: never between) and at the end (io.checkpoint). device: None
+    means cuda (raises without a GPU); "cpu" runs the plain versions of the
+    kernels."""
     dev = resolve_device(device)
     scene = scene_to(scene, dev)
     camera = camera.to(dev)
@@ -383,7 +389,8 @@ def render(scene: SceneData, camera: Camera, settings: RenderSettings,
                                closest_sort=False, **bkw),
                 packet_backend(accel, block_size, **bkw))
 
-    base_key = threefry.key(resolve_seed(settings), device=dev)
+    seed = resolve_seed(settings)
+    base_key = threefry.key(seed, device=dev)
     npix = w * h
     pix_chunk = min(npix, wave_size)
     sc = min(max(1, wave_size // pix_chunk), spp)
@@ -393,12 +400,23 @@ def render(scene: SceneData, camera: Camera, settings: RenderSettings,
     pix = torch.where(pix < npix, pix, 0)  # padded pixel slots replay pixel 0
     xs_all, ys_all = pix % w, pix // w
 
+    # The sums stay on the device; they come to the host only to be saved.
     acc = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
     cnt = torch.zeros((npix,), dtype=torch.int32, device=dev)
+    s_start = 0
+    fingerprint = ckpt_io.fingerprint(settings, scene.triangles.count, seed)
+    if checkpoint_path:
+        loaded = ckpt_io.load(checkpoint_path, fingerprint)
+        if loaded is not None:
+            acc_h, cnt_h, s_start = loaded
+            acc = torch.as_tensor(acc_h, device=dev)
+            cnt = torch.as_tensor(cnt_h, device=dev)
+            log.info("Resuming from checkpoint at sample %d/%d", s_start, spp)
     if stats is None:
         stats = RenderStats()
     t_start = time.perf_counter()
-    for s0 in range(0, spp, sc):
+    passes_done = 0
+    for s0 in range(s_start, spp, sc):
         for ci in range(n_pix_chunks):
             lo = ci * pix_chunk
             hi = min(lo + pix_chunk, npix)
@@ -406,11 +424,21 @@ def render(scene: SceneData, camera: Camera, settings: RenderSettings,
                 scene, camera, base_key, xs_all[lo:lo + pix_chunk],
                 ys_all[lo:lo + pix_chunk], s0, spp, backends, w=w, h=h, sc=sc,
                 lanes_padded=lanes_padded, max_bounces=settings.max_bounces,
-                aspect=aspect)
+                aspect=aspect, rr_start=settings.rr_start)
             acc[lo:hi] = acc[lo:hi] + a[:hi - lo]
             cnt[lo:hi] = cnt[lo:hi] + c[:hi - lo]
             stats.closest_rays += sync.host_int(nc)
             stats.shadow_rays += sync.host_int(ns)
+        passes_done += 1
+        done = min(s0 + sc, spp)
+        if show_progress:
+            log.info("Rendering progress: %d%% (%d/%d samples)",
+                     (done * 100) // spp, done, spp)
+        if checkpoint_path and (
+                (checkpoint_every and passes_done % checkpoint_every == 0)
+                or done >= spp):
+            ckpt_io.save(checkpoint_path, acc.cpu().numpy(),
+                         cnt.cpu().numpy(), s0 + sc, fingerprint)
     acc_h = acc.cpu().numpy()
     cnt_h = cnt.cpu().numpy()
     stats.seconds += time.perf_counter() - t_start

@@ -9,6 +9,8 @@ triangle soup a character scan does.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 _PHI = (1.0 + np.sqrt(5.0)) / 2.0
@@ -89,3 +91,34 @@ def blob_mesh(subdivisions: int = 5, seed: int = 7, bumps: int = 24):
         np.add.at(vn, f[:, k], fn)
     vn /= np.maximum(np.linalg.norm(vn, axis=1, keepdims=True), 1e-30)
     return pts.astype(np.float32), f.astype(np.int32), vn.astype(np.float32)
+
+
+BLOB_MTL = """newmtl gold_body
+Kd 0.8 0.6 0.1
+newmtl blob_plain
+Kd 0.3 0.5 0.7
+"""
+
+
+def write_blob_obj(obj_path: str, subdivisions: int = 6, seed: int = 7) -> int:
+    """Write the blob as an OBJ with `vn` normals and an MTL beside it (same
+    stem): faces of the first half on `gold_body` (a name override), the
+    rest on `blob_plain` (a plain Kd). The stand-in for a user's model, read
+    back with scene.build_scene. Returns the face count."""
+    pts, faces, vn = blob_mesh(subdivisions=subdivisions, seed=seed)
+    mtl_name = os.path.splitext(os.path.basename(obj_path))[0] + ".mtl"
+    with open(os.path.join(os.path.dirname(obj_path), mtl_name), "w") as fh:
+        fh.write(BLOB_MTL)
+    fmt = lambda tag, a: "".join(
+        f"{tag} {x:.9g} {y:.9g} {z:.9g}\n" for x, y, z in a.tolist())
+    f1 = faces + 1
+    corner = lambda lo, hi: "".join(
+        f"f {a}//{a} {b}//{b} {c}//{c}\n" for a, b, c in f1[lo:hi].tolist())
+    half = faces.shape[0] // 2
+    with open(obj_path, "w") as fh:
+        fh.write(f"mtllib {mtl_name}\n")
+        fh.write(fmt("v", pts))
+        fh.write(fmt("vn", vn))
+        fh.write("usemtl gold_body\n" + corner(0, half))
+        fh.write("usemtl blob_plain\n" + corner(half, faces.shape[0]))
+    return faces.shape[0]

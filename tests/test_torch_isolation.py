@@ -75,14 +75,28 @@ def test_cuda_entry_points_refuse_without_gpu():
             resolve_device(None)
 
 
+def _build_scene_from_a_file():
+    import tempfile
+
+    from path_tracer_ai_tpu_torch.scene.scene import build_scene
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "t.obj")
+        with open(path, "w") as fh:
+            fh.write("v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n")
+        return build_scene(path).triangles.v0
+
+
 def _constructor_calls():
     """Each constructor that carries host arrays onto a device, called with
-    no device, and a tensor of what it returned."""
+    no device, and a tensor of what it returned. The CLI's device is the
+    one both of its modes render on (PT_PLATFORM unset)."""
     import numpy as np
+    import torch
 
-    from path_tracer_ai_tpu_torch import convert
+    from path_tracer_ai_tpu_torch import cli, convert
     from path_tracer_ai_tpu_torch.core.types import triangles_from_numpy
-    from path_tracer_ai_tpu_torch.scene import camera
+    from path_tracer_ai_tpu_torch.scene import camera, cornell
 
     f = lambda *shape: np.zeros(shape, np.float32)
     tris = [f(2, 3)] * 6 + [f(2, 2)] * 3 + [np.zeros(2, np.int32)]
@@ -102,16 +116,21 @@ def _constructor_calls():
         "key_from_data": lambda: convert.key_from_data(
             np.zeros(2, np.uint32)),
         "triangles_from_numpy": lambda: triangles_from_numpy(*tris).mat_id,
+        "build_scene": _build_scene_from_a_file,
+        "build_cornell_scene": lambda: cornell.build_cornell_scene()[0]
+        .triangles.v0,
+        "cli": lambda: torch.empty(0, device=cli.cli_device()),
     }
 
 
 @pytest.mark.parametrize("name", sorted(_constructor_calls()))
-def test_constructors_default_to_the_card(name):
-    """With no device the camera and the array converters put their tensors
-    on the card, and raise where there is none; they never fall back to the
-    CPU."""
+def test_constructors_default_to_the_card(name, monkeypatch):
+    """With no device the camera, the array converters, the scene constructors
+    and the CLI put their tensors on the card, and raise where there is
+    none; they never fall back to the CPU."""
     import torch
 
+    monkeypatch.delenv("PT_PLATFORM", raising=False)
     call = _constructor_calls()[name]
     if torch.cuda.is_available():
         assert call().device.type == "cuda"
