@@ -63,8 +63,35 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   equals the uninterrupted render bitwise; `-m cpu` and
                   `-m gpu` on a blob subdiv 4 OBJ (96x54, 2 spp, 3 bounces)
                   write equal PNGs.
-Then the kernels line, and last {"ok": true, "device": {...}}.
-Imports nothing of JAX.
+  7. item_waves   the worklist scene (blob subdiv 7 + room: 327,688
+                  triangles, 2,561 clusters of 128 in 161 supers, so the
+                  2-level cull runs) rendered once at the bench settings
+                  with the default routing (the worklist backend), keeping
+                  the inputs of item_sweep's second closest and second
+                  shadow launch (wave 0, bounce 1): on each, item_sweep
+                  against its plain version (bitwise t, exact tri and
+                  occlusion), timed, bounded over the needed tests (live
+                  item x live lane x live slot x S). Also under
+                  --kernels-only.
+  8. path_worklist the same render timed, the counts zeroed just before
+                  it: seconds, Mrays/s, host syncs, item_sweep and
+                  tile_sweep launches (by shape), the overflow fallback's
+                  blocks, rays through accel.pairs and whole-wave
+                  fallbacks, and each worklist stage's device seconds
+                  (build, sweep, fallback) for closest and shadow waves;
+                  then profile_worklist: the closest and the shadow
+                  query of wave 0, bounce 1 (kept from item_waves) under
+                  torch.profiler (device time by kernel and by stage;
+                  busy share of an unprofiled call). consistency and cli
+                  also hold the worklist route (blob subdiv 4 in clusters
+                  of 2, 2,564 clusters: worklist by default, pairs and
+                  packets by name, against the oracle; `--backend
+                  worklist` on the OBJ at 96x54 against `-m cpu`), and
+                  `bench` runs `python -m path_tracer_ai_tpu_torch.bench
+                  --quick`, whose stdout must be one JSON line with a
+                  value > 0.
+Then the kernels line (six kernels: the five and item_sweep), and last
+{"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -148,12 +175,13 @@ def phase_build():
         cuda_anyhit,
         cuda_closest,
         cuda_ctiles,
+        cuda_items,
         cuda_sweep,
     )
 
     t0 = time.perf_counter()
     built = cuda_build.build_all([m.SOURCE for m in (
-        cuda_ctiles, cuda_sweep, cuda_anyhit, cuda_closest)])
+        cuda_ctiles, cuda_sweep, cuda_anyhit, cuda_closest, cuda_items)])
     seconds = time.perf_counter() - t0
     entry = re.compile(
         r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
@@ -170,6 +198,9 @@ def phase_build():
         "block_anyhit T128 S128": cuda_anyhit.kernel_occupancy(128, 128),
         "closest_sweep S128 R64": cuda_sweep.closest_occupancy(128, 64),
         "anyhit_sweep S128": cuda_sweep.anyhit_occupancy(128),
+        "tile_sweep T128 S128": cuda_ctiles.kernel_occupancy(128, 128),
+        "item_sweep S128 closest": cuda_items.kernel_occupancy(128, True),
+        "item_sweep S128 anyhit": cuda_items.kernel_occupancy(128, False),
     }
     emit({"phase": "build", "seconds": seconds, "built": sorted(built),
           "spilling": [e["entry"] for es in ptxas.values() for e in es
@@ -552,6 +583,12 @@ def phase_kernels(accel_base, accel_c):
     # last, so that the checks above draw the same waves as they always have
     out["tile_sweep_t64_g2"] = _check_tile_sweep(accel_base, 64, 2048, rng,
                                                  reps=20, g=2)
+    # the worklist path's shapes: pair tiles (T 128, S 128) and the packet
+    # any-hit cascade of its fallbacks (T 64, groups of 8)
+    out["tile_sweep_t128_s128"] = _check_tile_sweep(accel_base, 128, 2048,
+                                                    rng, reps=20)
+    out["tile_sweep_t64_g8"] = _check_tile_sweep(accel_base, 64, 2048, rng,
+                                                 reps=20, g=8)
     return out
 
 
@@ -645,12 +682,18 @@ def _reset_counts():
         cuda_anyhit,
         cuda_closest,
         cuda_ctiles,
+        cuda_items,
         cuda_sweep,
+        pairs,
+        worklist,
     )
     from path_tracer_ai_tpu_torch.utils import sync
 
-    for mod in (cuda_ctiles, cuda_sweep, cuda_anyhit, cuda_closest):
+    for mod in (cuda_ctiles, cuda_sweep, cuda_anyhit, cuda_closest,
+                cuda_items):
         mod.reset_launches()
+    worklist.reset_fallback_counts()
+    pairs.reset_fallback_counts()
     sync.reset()
 
 
@@ -659,12 +702,22 @@ def _read_counts() -> dict:
         cuda_anyhit,
         cuda_closest,
         cuda_ctiles,
+        cuda_items,
         cuda_sweep,
     )
 
     return {"tile_sweep": cuda_ctiles.launches, **cuda_sweep.launches,
             "block_anyhit": cuda_anyhit.launches,
-            "block_closest": cuda_closest.launches}
+            "block_closest": cuda_closest.launches,
+            "item_sweep": cuda_items.launches}
+
+
+def _tile_shapes() -> list:
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles
+
+    return [{"T": t, "S": s_, "G": g, "launches": n, "tiles": tiles}
+            for (t, s_, g), (n, tiles) in sorted(
+                cuda_ctiles.launch_shapes.items())]
 
 
 def _bench_render(phase, scene, card, kernels, warm_small, engines=None,
@@ -673,7 +726,6 @@ def _bench_render(phase, scene, card, kernels, warm_small, engines=None,
     96x54 one), then the launch counts and host syncs set to 0, the timed
     render, and the counts read. Fails unless every kernel in `kernels` was
     launched and the image is finite, free of magenta and mostly lit."""
-    from path_tracer_ai_tpu_torch.accel import cuda_ctiles
     from path_tracer_ai_tpu_torch.config import RenderSettings
     from path_tracer_ai_tpu_torch.engine import wavefront
     from path_tracer_ai_tpu_torch.scene.camera import default_camera
@@ -695,15 +747,10 @@ def _bench_render(phase, scene, card, kernels, warm_small, engines=None,
         img = wavefront.render(scene, cam, settings, stats=stats, **kw)
         launches = _read_counts()
         syncs = sync.count
-        tile_shapes = [
-            {"T": t, "S": s_, "G": g, "launches": n, "tiles": tiles}
-            for (t, s_, g), (n, tiles) in sorted(
-                cuda_ctiles.launch_shapes.items())]
+        tile_shapes = _tile_shapes()
 
-    finite = bool(np.isfinite(img).all())
-    magenta = float(np.all(img == np.asarray([1.0, 0.0, 1.0], np.float32),
-                           axis=-1).mean())
-    nonblack = float((img.max(axis=-1) > 0).mean())
+    from path_tracer_ai_tpu_torch.accel import worklist
+
     res = {"phase": phase, "card": card,
            "warm": "96x54" if warm_small else "bench render",
            "warm_seconds": warm_s,
@@ -711,11 +758,23 @@ def _bench_render(phase, scene, card, kernels, warm_small, engines=None,
            "shadow_rays": stats.shadow_rays, "mrays_per_s": stats.mrays_per_s,
            "launches": launches, "tile_sweep_shapes": tile_shapes,
            "host_syncs": syncs,
-           "finite": finite, "magenta_share": magenta,
-           "nonblack_share": nonblack, "image_mean": float(img.mean()),
-           "image_sha256": hashlib.sha256(img.tobytes()).hexdigest()}
+           "overflow_fallback": dict(worklist.fallback_counts)}
+    image_ok = _image_verdict(img, res)
     missing = [k for k in kernels if launches[k] <= 0]
-    return res, img, missing, (finite and magenta == 0.0 and nonblack >= 0.5)
+    return res, img, missing, image_ok
+
+
+def _image_verdict(img, res) -> bool:
+    """Adds the image's audit to `res`; True when it is finite, free of
+    magenta and mostly lit."""
+    finite = bool(np.isfinite(img).all())
+    magenta = float(np.all(img == np.asarray([1.0, 0.0, 1.0], np.float32),
+                           axis=-1).mean())
+    nonblack = float((img.max(axis=-1) > 0).mean())
+    res.update({"finite": finite, "magenta_share": magenta,
+                "nonblack_share": nonblack, "image_mean": float(img.mean()),
+                "image_sha256": hashlib.sha256(img.tobytes()).hexdigest()})
+    return finite and magenta == 0.0 and nonblack >= 0.5
 
 
 def _finish_path(res, missing, image_ok):
@@ -800,6 +859,12 @@ def _profiled_render(scene, engines=None, **render_kw):
 WAVE_LABELS = ("closest_wave", "shadow_wave")  # wavefront's record_function
 
 
+def _is_label(key: str) -> bool:
+    """A record_function range (wavefront's wave types, accel.worklist's
+    stages), not a kernel."""
+    return key in WAVE_LABELS or key.startswith("worklist_")
+
+
 def _kernel_time(phase, avgs, wall, timed_seconds, names):
     """The profile line's common part: device kernel time in all and, for
     each of `names` (substrings of kernel symbols), the time and count of
@@ -808,7 +873,7 @@ def _kernel_time(phase, avgs, wall, timed_seconds, names):
     left out. The busy share divides the device time by the UNPROFILED
     timed pass's wall time (profiling slows the host, not the kernels)."""
     kernels = [e for e in avgs if str(e.device_type).endswith("CUDA")
-               and e.key not in WAVE_LABELS]
+               and not _is_label(e.key)]
     busy_us = sum(_device_us(e) for e in kernels)
     top = sorted(kernels, key=_device_us, reverse=True)[:8]
     own = {}
@@ -902,7 +967,7 @@ def phase_consistency():
                 (np.abs(img_p - img_o).max(axis=-1) > 0).sum()),
             "image_mean": float(img_o.mean())}
         if rr == 0:
-            img_off = img_w
+            img_off, img_oracle = img_w, img_o
         if diff["main"] != 0.0 or diff["fused"] != 0.0:
             res["seconds"] = time.perf_counter() - t0
             emit(res)
@@ -919,14 +984,54 @@ def phase_consistency():
         rr_start=5), **kw)
     res["rr5_bitwise_rr0"] = bool(np.array_equal(img_late, img_off))
     res["rr2_differs_from_rr0"] = not np.array_equal(img_w, img_off)
+    res["worklist_route"] = _consistency_worklist(scene, cam, img_oracle, kw)
     res["seconds"] = time.perf_counter() - t0
     emit(res)
+    wl = res["worklist_route"]
+    if wl["default_backend"] != "worklist" or not wl["worklist"]["bitwise"]:
+        fail("consistency", f"the worklist route: {wl}")
+    if any(wl[b]["pixels_over_1e-5"] for b in ("pairs", "packets")):
+        fail("consistency", f"pairs or packets backend differ from the "
+                            f"oracle beyond 1e-5: {wl}")
+    if min(wl["worklist"]["launches"]["item_sweep"],
+           wl["pairs"]["launches"]["tile_sweep"],
+           wl["packets"]["launches"]["tile_sweep"]) <= 0:
+        fail("consistency", f"a backend launched none of its kernels: {wl}")
     # tests/test_torch_render.py and tests/test_torch_rr.py hold the same
     # pairs on the CPU
     if not res["rr5_bitwise_rr0"]:
         fail("consistency", "rr_start=5 changed the 5-bounce image")
     if not res["rr2_differs_from_rr0"]:
         fail("consistency", "rr_start=2 left the image unchanged")
+
+
+def _consistency_worklist(scene, cam, img_oracle, kw):
+    """The blob subdiv 4 of the consistency phase in clusters of two
+    triangles (more than 2048: the default routing picks the worklist
+    backend, with its 2-level cull), and the pairs and packets backends on
+    the same accel, against the oracle's rr-off image."""
+    from path_tracer_ai_tpu_torch.accel.clusters import build_clusters
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import wavefront
+
+    acc = build_clusters(scene.triangles, cluster_size=2)
+    settings = RenderSettings(width=96, height=54, samples_per_pixel=4,
+                              max_bounces=5, seed=0)
+    out = {"clusters": acc.num_clusters, "supers": acc.num_supers,
+           "default_backend": wavefront.resolve_backend(acc, 64, False, None)}
+    for name, backend in (("worklist", None), ("pairs", "pairs"),
+                          ("packets", "packets")):
+        _reset_counts()
+        img = wavefront.render(scene, cam, settings, accel=acc,
+                               backend=backend, **kw)
+        diff = np.abs(img - img_oracle).max(axis=-1)
+        out[name] = {"bitwise": bool(np.array_equal(img, img_oracle)),
+                     "max_abs_diff": float(diff.max()),
+                     "pixels_differing": int((diff > 0).sum()),
+                     "pixels_over_1e-5": int((diff > 1e-5).sum()),
+                     "launches": _read_counts(),
+                     "tile_sweep_shapes": _tile_shapes()}
+    return out
 
 
 class _LogRecords(logging.Handler):
@@ -1121,10 +1226,278 @@ def phase_cli(card):
                                                       pngs[mode])
         res["modes_equal"] = bool(np.array_equal(read_png(pngs["cpu"]),
                                                  read_png(pngs["gpu"])))
+
+        # the worklist backend by flag, on the 81,928-triangle OBJ
+        common6 = ["-w", "96", "-h", "54", "-s", "2", "-b", "3", "-i", obj]
+        png_w = os.path.join(tmp, "worklist.png")
+        png_c = os.path.join(tmp, "worklist_cpu.png")
+        _reset_counts()
+        sec, _ = _cli_run(["-m", "gpu", "--backend", "worklist"] + common6,
+                          png_w)
+        res["worklist"] = {"seconds": sec, "launches": _read_counts()}
+        res["worklist"]["cpu_mode_seconds"], _ = _cli_run(
+            ["-m", "cpu"] + common6, png_c)
+        res["worklist"]["equals_cpu_mode"] = bool(np.array_equal(
+            read_png(png_w), read_png(png_c)))
     emit(res)
     if not res["modes_equal"]:
         fail("cli", "-m cpu and -m gpu wrote different PNGs")
+    if not res["worklist"]["equals_cpu_mode"]:
+        fail("cli", "--backend worklist and -m cpu wrote different PNGs")
+    if res["worklist"]["launches"]["item_sweep"] <= 0:
+        fail("cli", "--backend worklist launched no item_sweep kernel")
     return res
+
+
+def phase_bench(card):
+    """`python -m path_tracer_ai_tpu_torch.bench --quick` in a child
+    process: its stdout must be exactly one JSON line with a value > 0."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "path_tracer_ai_tpu_torch.bench", "--quick"],
+        cwd=repo, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=repo))
+    lines = out.stdout.strip().splitlines()
+    res = {"phase": "bench", "card": card, "rc": out.returncode,
+           "seconds": time.perf_counter() - t0, "stdout_lines": len(lines),
+           "stderr_tail": out.stderr[-600:]}
+    try:
+        res["result"] = json.loads(lines[0]) if len(lines) == 1 else None
+    except json.JSONDecodeError:
+        res["result"] = None
+    emit(res)
+    if (out.returncode != 0 or res["result"] is None
+            or not res["result"].get("value", 0) > 0):
+        fail("bench", "the bench did not print one JSON line with a value > 0")
+    return res
+
+
+# --- the worklist path (scenes past 2048 clusters) ---------------------------
+
+WORKLIST_SUBDIV = 7
+# blob subdiv 7 + room; clusters of 128; supers of 16
+WORKLIST_SCENE = {"triangles": 327688, "clusters": 2561, "supers": 161}
+
+
+def worklist_scene():
+    from path_tracer_ai_tpu_torch.accel.clusters import build_clusters
+    from path_tracer_ai_tpu_torch.scene.scene import blob_scene
+
+    t0 = time.perf_counter()
+    scene = blob_scene(subdivisions=WORKLIST_SUBDIV, device="cuda")
+    accel = build_clusters(scene.triangles, cluster_size=128)
+    torch.cuda.synchronize()
+    got = {"triangles": scene.triangles.count,
+           "clusters": accel.num_clusters, "supers": accel.num_supers}
+    emit({"phase": "worklist_scene", **got,
+          "seconds": time.perf_counter() - t0})
+    if got != WORKLIST_SCENE:
+        fail("worklist_scene", f"{got}, expected {WORKLIST_SCENE}")
+    return scene, accel
+
+
+def _item_bound(args) -> tuple:
+    """(bytes, needed tests) of one item_sweep call: the live slots'
+    cluster packs, the rays of the blocks that own items, the item tables
+    read and the rows written; the tests of live item x live lane (t_max >=
+    t_min) x live slot x S."""
+    pack, rays, item_block, ibase, order_g, n_cand, n_items, want_tri = args
+    s = pack.shape[2]
+    n_groups, g = order_g.shape[1:]
+    b = rays.shape[2]
+    j = torch.arange(n_items, device=rays.device)
+    blk = item_block[:n_items].long()
+    k = torch.clamp(j - ibase[blk].long(), 0, n_groups - 1)
+    live_slot = (k[:, None] * g + torch.arange(g, device=rays.device)
+                 < n_cand[blk][:, None])
+    live_lane = rays[blk, 6] >= rays[blk, 7]
+    tests = int((live_slot.sum(1) * live_lane.sum(1)).sum()) * s
+    used = int(torch.unique(order_g[blk, k][live_slot]).numel())
+    owners = int(torch.unique(blk).numel())
+    nbytes = (used * 10 * s * 4 + owners * 8 * b * 4 + n_items * (4 + g * 4)
+              + _nbytes(ibase, n_cand) + n_items * b * (8 if want_tri else 1))
+    return nbytes, tests
+
+
+def _check_item_sweep(args, wave: str, reps: int = 5) -> dict:
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_items
+
+    want_tri = args[-1]
+    n_items = args[6]
+    k = cuda_items.item_sweep(*args)
+    p = cuda_items.item_sweep_plain(*args)
+    torch.cuda.synchronize()
+    if want_tri:
+        ok = _bits_equal(k[0], p[0]) and bool(torch.equal(k[1], p[1]))
+        err = _max_abs_err(k[0], p[0])
+        hits = int((k[1] != cuda_ctiles.I32_MAX).sum())
+    else:
+        ok = bool(torch.equal(k[0], p[0]))
+        err = float((k[0] != p[0]).sum())  # rows x lanes that differ
+        hits = int(k[0].sum())
+    ms = cuda_ms(lambda: cuda_items.item_sweep(*args), reps)
+    plain_ms = cuda_ms(lambda: cuda_items.item_sweep_plain(*args), 1)
+    nbytes, tests = _item_bound(args)
+    s = args[0].shape[2]
+    swept = n_items * args[1].shape[2] * args[4].shape[2] * s
+    res = {"phase": "item_waves", "name": "item_sweep", "wave": wave,
+           "blocks": args[1].shape[0], "i_cap": args[2].shape[0],
+           "n_items": n_items, "S": s, "matches_plain": ok,
+           "max_abs_err": err, "hit_lanes": hits, "ms": ms,
+           "plain_ms": plain_ms, "swept_tests": swept,
+           "gtests_per_s": swept / ms / 1e6, **_bound(nbytes, tests)}
+    res["ms_over_bound"] = ms / res["bound_ms"]
+    emit(res)
+    if not ok:
+        fail("item_waves", f"item_sweep disagrees with its plain version on "
+                           f"the {wave} wave")
+    if hits == 0:
+        fail("item_waves", f"the {wave} wave hit nothing")
+    return res
+
+
+def _keeping(mod, name, kept, key, limit=2):
+    """Replaces mod.name by a wrapper that keeps (a copy of) the arguments
+    of its first `limit` calls under kept[key(args)]; returns the original."""
+    real = getattr(mod, name)
+
+    def keep(*args, **kw):
+        calls = kept.setdefault(key(args), [])
+        if len(calls) < limit:
+            calls.append((tuple(a.clone() if torch.is_tensor(a) else a
+                                for a in args), dict(kw)))
+        return real(*args, **kw)
+
+    setattr(mod, name, keep)
+    return real
+
+
+def phase_item_waves(scene, accel, card):
+    """The worklist scene's bench render once (the default routing, which
+    must be the worklist backend), keeping the inputs of item_sweep's
+    second closest and second shadow launch (wave 0, bounce 1), then
+    item_sweep against its plain version on each. Also keeps the same two
+    waves' worklist queries for profile_worklist. Returns the two checks,
+    the kept queries and the render's seconds (the warm pass of
+    path_worklist)."""
+    from path_tracer_ai_tpu_torch.accel import cuda_items, worklist
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+
+    backend = wavefront.resolve_backend(accel, 64, False, None)
+    if backend != "worklist":
+        fail("item_waves", f"default routing picked {backend!r}")
+    kept = {}
+    wrapped = [(cuda_items, "item_sweep", lambda a: a[-1]),
+               (worklist, "closest_hit_worklist", lambda a: "closest_wave"),
+               (worklist, "any_hit_worklist", lambda a: "shadow_wave")]
+    reals = [(mod, name, _keeping(mod, name, kept, key))
+             for mod, name, key in wrapped]
+    try:
+        t0 = time.perf_counter()
+        wavefront.render(scene, default_camera("cuda"),
+                         RenderSettings(**BENCH), accel=accel,
+                         wave_size=1 << 20, block_size=64, device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        for mod, name, real in reals:
+            setattr(mod, name, real)
+    if min(len(kept.get(k, ())) for k in (True, False, "closest_wave",
+                                           "shadow_wave")) < 2:
+        fail("item_waves", "the render made fewer than two item_sweep "
+                           "launches or worklist queries of a wave type")
+    checks = [_check_item_sweep(kept[True][1][0], "closest, wave 0, bounce 1"),
+              _check_item_sweep(kept[False][1][0],
+                                "shadow, wave 0, bounce 1")]
+    waves = {k: kept[k][1] for k in ("closest_wave", "shadow_wave")}
+    return checks, waves, seconds
+
+
+def phase_path_worklist(scene, accel, card, warm_seconds):
+    """The worklist scene's bench render, timed, the counts zeroed just
+    before it and read just after; each worklist stage's device seconds."""
+    from path_tracer_ai_tpu_torch.accel import pairs, worklist
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+    from path_tracer_ai_tpu_torch.utils import sync
+
+    cam = default_camera("cuda")
+    _reset_counts()
+    worklist.stage_events = {}
+    stats = wavefront.RenderStats()
+    try:
+        img = wavefront.render(scene, cam, RenderSettings(**BENCH),
+                               accel=accel, stats=stats, wave_size=1 << 20,
+                               block_size=64, device="cuda")
+        launches = _read_counts()
+        syncs = sync.count
+        stages = worklist.stage_seconds()
+    finally:
+        worklist.stage_events = None
+    res = {"phase": "path_worklist", "card": card,
+           "backend": wavefront.resolve_backend(accel, 64, False, None),
+           "triangles": scene.triangles.count,
+           "clusters": accel.num_clusters, "supers": accel.num_supers,
+           "warm": "the item_waves render", "warm_seconds": warm_seconds,
+           "seconds": stats.seconds, "closest_rays": stats.closest_rays,
+           "shadow_rays": stats.shadow_rays,
+           "mrays_per_s": stats.mrays_per_s, "launches": launches,
+           "tile_sweep_shapes": _tile_shapes(), "host_syncs": syncs,
+           "worklist_fallback": dict(worklist.fallback_counts),
+           "pairs_fallback": dict(pairs.fallback_counts),
+           "stage_device_seconds": stages}
+    image_ok = _image_verdict(img, res)
+    _finish_path(res, [] if launches["item_sweep"] > 0 else ["item_sweep"],
+                 image_ok)
+    return res
+
+
+def phase_profile_worklist(waves, card):
+    """The worklist render's two kept queries (wave 0, bounce 1: the closest
+    and the shadow wave) under torch.profiler, each after an unprofiled
+    timed call: device time by kernel and by worklist stage, and the busy
+    share of the unprofiled call. The whole render launches a few million
+    kernels, which the profiler cannot take within the script's time (it
+    cost about 0.7 ms a kernel on the H100 host of PERF.md); its stages'
+    device seconds come from path_worklist's CUDA events instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from path_tracer_ai_tpu_torch.accel import worklist
+
+    out = {}
+    for label, (args, kw) in waves.items():
+        fn = (worklist.closest_hit_worklist if label == "closest_wave"
+              else worklist.any_hit_worklist)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(*args, **kw)
+            torch.cuda.synchronize()
+        avgs = prof.key_averages()
+        res = _kernel_time("profile_worklist", avgs,
+                           time.perf_counter() - t0, seconds,
+                           ["item_sweep_kernel", "tile_sweep_kernel"])
+        host = [e for e in avgs if _is_label(e.key)
+                and not str(e.device_type).endswith("CUDA")]
+        res.update({
+            "card": card, "wave": f"{label}, wave 0, bounce 1",
+            "rays": int(args[1].shape[0]),
+            "range_device_seconds": {e.key: _range_us(e) / 1e6
+                                     for e in host},
+            "range_profiled_host_seconds": {
+                e.key: float(e.cpu_time_total) / 1e6 for e in host}})
+        emit(res)
+        out[label] = res
+    return out
 
 
 # name -> (source under path_tracer_ai_tpu_torch/csrc, TPU kernel it replaces,
@@ -1144,6 +1517,8 @@ KERNELS = {
     "anyhit_sweep": ("packet_sweep.cu",
                      "path_tracer_ai_tpu/accel/pallas_sweep.py:321",
                      "path_pallas"),
+    # no Pallas kernel: the XLA-fused body of worklist._sweep_items
+    "item_sweep": ("item_sweep.cu", None, "path_worklist"),
 }
 
 
@@ -1176,6 +1551,11 @@ def main() -> int:
 
     checks = phase_kernels(accel_base, accel_c)
     sweep_waves = phase_sweep_waves(scene, accel_base, card)
+    scene_w, accel_w = worklist_scene()
+    item_waves, worklist_waves, warm_w = phase_item_waves(scene_w, accel_w,
+                                                          card)
+    checks["item_sweep"] = dict(item_waves[0], matches_plain=all(
+        c["matches_plain"] for c in item_waves))
     if args.kernels_only:
         return 0
     render, img_main = phase_main_path(scene, accel_base, accel_c, card)
@@ -1191,14 +1571,20 @@ def main() -> int:
                        paths["path_fused"]["seconds"],
                        ["block_closest_kernel", "block_anyhit_kernel"],
                        engines=FUSED_ENGINES)
+    paths["path_worklist"] = phase_path_worklist(scene_w, accel_w, card,
+                                                 warm_w)
+    phase_profile_worklist(worklist_waves, card)
     phase_consistency()
     cli = phase_cli(card)
+    phase_bench(card)
 
     emit({"phase": "tile_sweep_shapes", "card": card, "checks": [
         {k: checks[name][k] for k in ("T", "S", "G", "nt", "ms", "bound_ms",
                                       "ms_over_bound", "matches_plain")}
-        for name in ("tile_sweep", "tile_sweep_t64", "tile_sweep_t64_g2")],
-        "main_path_launches": render["tile_sweep_shapes"]})
+        for name in ("tile_sweep", "tile_sweep_t64", "tile_sweep_t64_g2",
+                     "tile_sweep_t128_s128", "tile_sweep_t64_g8")],
+        "main_path_launches": render["tile_sweep_shapes"],
+        "worklist_path_launches": paths["path_worklist"]["tile_sweep_shapes"]})
     emit({"kernels": [{
         "name": name, "route": "cuda",
         "source": "path_tracer_ai_tpu_torch/csrc/" + source,
@@ -1218,6 +1604,10 @@ def main() -> int:
             {k: w[k] for k in ("bounce", "B", "visits", "ms", "bound_ms",
                                "ms_over_bound", "matches_plain")}
             for w in sweep_waves]} if name == "closest_sweep" else {}),
+        **({"render_waves": [
+            {k: w[k] for k in ("wave", "n_items", "ms", "plain_ms",
+                               "bound_ms", "ms_over_bound", "matches_plain")}
+            for w in item_waves]} if name == "item_sweep" else {}),
     } for name, (source, replaces, phase) in KERNELS.items()],
         "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",

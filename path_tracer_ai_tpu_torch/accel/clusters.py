@@ -82,12 +82,14 @@ def build_clusters(tris, cluster_size: int = 128, super_size: int = 16,
     """Split-order the triangles and pack them into fixed-size clusters.
 
     tris: anything with v0/v1/v2 ([T,3] arrays or tensors). The result
-    lives on `device` (default: the device of tris.v0, or the CPU for
-    numpy input)."""
+    lives on `device` (default: the device of tris.v0 for tensors; for
+    numpy input resolve_device(None), cuda, which raises without a GPU)."""
     from path_tracer_ai_tpu_torch.accel.native import native_split_order
+    from path_tracer_ai_tpu_torch.device import resolve_device
 
     if device is None:
-        device = tris.v0.device if torch.is_tensor(tris.v0) else "cpu"
+        device = (tris.v0.device if torch.is_tensor(tris.v0)
+                  else resolve_device(None))
     v0, v1, v2 = _host(tris.v0), _host(tris.v1), _host(tris.v2)
     t = v0.shape[0]
     if t == 0:

@@ -18,8 +18,9 @@ Counterpart of accel/ctiles.py `closest_hit_ctiles` on the flat cull
                lexicographic tie rule).
 
 Blocks whose union exceeds `cap` complete exactly through the overflow
-fallback (worklist._overflow_fallback), in the sorted domain, before the
-unsort. The reference pads each cluster's tile list to runs of 8 tiles
+fallback (worklist._overflow_fallback: per-ray pair tiles on a compacted
+wave of at most `fallback_compact` rays, else the packet cascade on the
+whole wave), in the sorted domain, before the unsort. The reference pads each cluster's tile list to runs of 8 tiles
 for its Pallas grid; the CUDA kernel reads one cluster id per tile, so
 here the padding is per tile. Results do not depend on the padding.
 """
@@ -184,6 +185,7 @@ def _sweep_resolve(accel, pairs, o_blk, d_blk, tm_blk, t_min, cap,
 def closest_hit_ctiles(accel, origins, directions, t_min, t_max,
                        cap: int = 48, tile_chunk: int = 256, sort: bool = True,
                        fallback_compact: int = 1 << 13,
+                       fallback_block: int = 64,
                        tri_pack=None) -> PacketHit:
     """Closest hit via cluster-major tiles; exact for every ray.
 
@@ -211,8 +213,8 @@ def closest_hit_ctiles(accel, origins, directions, t_min, t_max,
     over_s = pairs["overflow"][:, None].expand(-1, block).reshape(-1)
     fb_t, fb_tri = _overflow_fallback(
         accel, o_blk.reshape(npad, 3), d_blk.reshape(npad, 3), t_min,
-        tm_blk.reshape(npad), over_s, compact_cap=fallback_compact,
-        tri_pack=tri_pack)
+        tm_blk.reshape(npad), over_s, True, fallback_compact, fallback_block,
+        tri_pack, over_blocks=pairs["overflow"].sum())
     best_t = torch.where(over_s, fb_t, t_blk.reshape(-1))
     best_tri = torch.where(over_s, fb_tri, tri_blk.reshape(-1))
     best_t, best_tri = _unsort((best_t, best_tri), perm, npad, n)

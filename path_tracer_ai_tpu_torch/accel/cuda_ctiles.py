@@ -6,16 +6,19 @@ rays_pack, tile_cid)` tests each tile of T rays against the S triangles of
 its cluster, or of each of its G clusters, and returns, per lane, the best
 t and the minimum triangle id at that t (INT32_MAX on a miss). The same
 call serves the closest-hit ctiles sweep (T = 128, S = 256, one cluster a
-tile), the overflow fallback (the same shape) and the shadow cascade
-(T = 64, S = 128, an iteration's G candidates a tile; occluded =
+tile), the pair tiles of accel.pairs (T = 128, S = 128 or 256, one cluster
+a tile: the pairs backend and the overflow fallbacks) and the shadow
+cascade (T = 64, S = 128, an iteration's G candidates a tile; occluded =
 tri != INT32_MAX). G clusters in one call equal G calls folded with
 `combine_min_tri`.
 
 On a CUDA tensor the wrapper launches csrc/ctiles_sweep.cu (built with
 nvcc at first use, see cuda_build) or raises; on a CPU tensor it runs
 `tile_sweep_plain`, the same arithmetic as eager torch ops. The kernel is
-compiled for S in {128, 256} and T in {64, 128, 256}; another shape on a CUDA
-tensor raises ValueError. The kernel's design and its bound are described
+compiled for S in {128, 256} and T in {64, 128, 256}, and for S = 2 at T in
+{64, 128} (a scene cut into clusters of two triangles, for tests of the
+worklist backend past 2048 clusters); another shape on a CUDA tensor raises
+ValueError. The kernel's design and its bound are described
 in the CUDA source.
 
 Layouts:
@@ -303,7 +306,8 @@ def tile_sweep(tri_pack, rays_pack, tile_cid):
              t_out.data_ptr(), tri_out.data_ptr(), nt, g, s, t_lanes, c, stream)
     if err == NO_INSTANCE:
         raise ValueError(f"tile_sweep has no compiled instance for S = {s}, "
-                         f"T = {t_lanes} (S in 128, 256; T in 64, 128, 256)")
+                         f"T = {t_lanes} (S in 128, 256; T in 64, 128, "
+                         "256; S = 2 at T in 64, 128)")
     if err != 0:
         raise RuntimeError(f"ctiles_sweep launch failed: cudaError {err}")
     launches += 1

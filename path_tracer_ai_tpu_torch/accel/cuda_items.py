@@ -1,0 +1,175 @@
+"""The work-item sweep of the worklist backend: a hand-written CUDA kernel
+and its plain version.
+
+No Pallas kernel stands behind it: it carries the body of the reference's
+XLA-fused `worklist._sweep_items` (worklist.py:325-422), the
+`intersector="exact"` form. A work item is (block, group index k): the
+block's B rays against the g candidate clusters order_g[block, k] of S
+triangles each. Eager torch would loop over chunks of items on the host
+and materialise [items, B, g * S] temporaries, so on the card the sweep is
+one launch of csrc/item_sweep.cu over all real items.
+
+`item_sweep(tri_pack, rays, item_block, ibase, order_g, n_cand, n_items,
+want_tri)` returns, per item row of [i_cap, B]:
+- closest (want_tri): t = the minimum t of the slots that pass, tri = the
+  minimum triangle id among the slots at that t (inf / INT32_MAX when none
+  passes);
+- any hit: whether some slot passes.
+A slot passes when its cluster slot k * g + j is below the block's n_cand
+and Möller–Trumbore (traverse._mt_sweep's op order) hits within
+[t_min, t_max]. Rows from n_items on hold (inf, INT32_MAX) or False.
+
+On a CUDA tensor the wrapper launches the kernel or raises (ValueError for
+a shape it is not compiled for: S in {2, 128}, B = 8, g = 4); on a CPU tensor
+it runs `item_sweep_plain`, the same arithmetic as eager torch ops, which
+is used by the tests and the CPU and by nothing on the card.
+
+Layouts: tri_pack [C, 10, S] f32 (cuda_ctiles.pack_tris); rays [nb, 8, B]
+f32 (traverse.pack_block_rays: ox oy oz dx dy dz t_max t_min); item_block
+[i_cap] i32; ibase, n_cand [nb] i32; order_g [nb, n_groups, g] i32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
+    I32_MAX,
+    NO_INSTANCE,
+    PACK_ROWS,
+    RAY_ROWS,
+    _check,
+    mt_sweep_rows,
+    read_occupancy,
+)
+
+SOURCE = "item_sweep"
+INF = float("inf")
+BLOCK, GROUP = 8, 4  # B rays a block, g clusters an item: one lane each pair
+PLAIN_ELEMS = 1 << 22  # [items, B, g * S] elements per step of the plain version
+
+# Kernel launches since the last reset (the plain version never counts).
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _outputs(i_cap, b, want_tri, dev):
+    if want_tri:
+        return (torch.full((i_cap, b), INF, dtype=torch.float32, device=dev),
+                torch.full((i_cap, b), I32_MAX, dtype=torch.int32,
+                           device=dev))
+    return (torch.zeros((i_cap, b), dtype=torch.bool, device=dev),)
+
+
+def item_sweep_plain(tri_pack, rays, item_block, ibase, order_g, n_cand,
+                     n_items: int, want_tri: bool):
+    """The kernel's function in eager torch, the reference's `_sweep_items`
+    body, PLAIN_ELEMS [items, B, g * S] elements a step."""
+    nb, _, b = rays.shape
+    n_groups, g = order_g.shape[1:]
+    s = tri_pack.shape[2]
+    dev = rays.device
+    out = _outputs(item_block.shape[0], b, want_tri, dev)
+    step = max(1, PLAIN_ELEMS // (b * g * s))
+    for a in range(0, n_items, step):
+        j = torch.arange(a, min(a + step, n_items), device=dev)
+        blk = item_block[j].long()
+        k = torch.clamp(j - ibase[blk].long(), 0, n_groups - 1)
+        cid = order_g[blk, k].long()                              # [n, g]
+        slot_live = (k[:, None] * g + torch.arange(g, device=dev)[None, :]
+                     < n_cand[blk][:, None])                      # [n, g]
+        tp = tri_pack[cid].transpose(1, 2).reshape(j.shape[0], PACK_ROWS, -1)
+        rp = rays[blk]                                            # [n, 8, B]
+        ray = [rp[:, r, :, None] for r in range(RAY_ROWS)]
+        tri = [tp[:, r, None, :] for r in range(9)]
+        tt, ok = mt_sweep_rows(*ray[:6], *tri, ray[7], ray[6])
+        ok = ok & slot_live.repeat_interleave(s, dim=1)[:, None, :]
+        if not want_tri:
+            out[0][a:a + j.shape[0]] = ok.any(dim=-1)
+            continue
+        tt = torch.where(ok, tt, INF)
+        ct = tt.amin(dim=-1)
+        tid = tp[:, 9, None, :].view(torch.int32)
+        out[0][a:a + j.shape[0]] = ct
+        out[1][a:a + j.shape[0]] = torch.where(
+            ok & (tt <= ct[..., None]), tid, I32_MAX).amin(dim=-1)
+    return out
+
+
+def _kernel():
+    from path_tracer_ai_tpu_torch import cuda_build
+
+    lib = cuda_build.load(SOURCE)
+    fn = lib.item_sweep
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_occupancy(s: int, want_tri: bool) -> dict:
+    """The (S, closest or any-hit) instance's registers and resident warps
+    per SM (needs the card)."""
+    from path_tracer_ai_tpu_torch import cuda_build
+
+    return read_occupancy(cuda_build.load(SOURCE).item_sweep_occupancy, s,
+                          int(want_tri))
+
+
+def item_sweep(tri_pack, rays, item_block, ibase, order_g, n_cand,
+               n_items: int, want_tri: bool):
+    """(t [i_cap, B] f32, tri [i_cap, B] i32) or (occluded [i_cap, B] bool,)
+    over items [0, n_items). CUDA tensors launch the kernel (or raise); CPU
+    tensors take the plain version."""
+    global launches
+    dev = rays.device
+    if dev.type == "cpu":
+        return item_sweep_plain(tri_pack, rays, item_block, ibase, order_g,
+                                n_cand, n_items, want_tri)
+    if dev.type != "cuda":
+        raise ValueError(f"item_sweep runs on cuda or cpu, not {dev}")
+    _check("tri_pack", tri_pack, torch.float32, 3, dev)
+    _check("rays", rays, torch.float32, 3, dev)
+    _check("item_block", item_block, torch.int32, 1, dev)
+    _check("ibase", ibase, torch.int32, 1, dev)
+    _check("order_g", order_g, torch.int32, 3, dev)
+    _check("n_cand", n_cand, torch.int32, 1, dev)
+    c, rows, s = tri_pack.shape
+    nb, ray_rows, b = rays.shape
+    n_groups, g = order_g.shape[1:]
+    if rows != PACK_ROWS or ray_rows != RAY_ROWS:
+        raise ValueError(f"pack shapes {tuple(tri_pack.shape)} / "
+                         f"{tuple(rays.shape)} are not [C,10,S] / [nb,8,B]")
+    if (b, g) != (BLOCK, GROUP):
+        raise ValueError(f"item_sweep is compiled for B = {BLOCK}, "
+                         f"g = {GROUP}, not B = {b}, g = {g}")
+    if order_g.shape[0] != nb or ibase.shape[0] != nb or n_cand.shape[0] != nb:
+        raise ValueError("order_g, ibase and n_cand must have one row a block")
+    i_cap = item_block.shape[0]
+    if not 0 <= n_items <= i_cap:
+        raise ValueError(f"n_items {n_items} outside [0, {i_cap}]")
+    out = _outputs(i_cap, b, want_tri, dev)
+    if n_items == 0:
+        return out
+    t_out = out[0]
+    tri_out = out[1] if want_tri else out[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _kernel()(tri_pack.data_ptr(), rays.data_ptr(),
+                    item_block.data_ptr(), ibase.data_ptr(),
+                    order_g.data_ptr(), n_cand.data_ptr(), t_out.data_ptr(),
+                    tri_out.data_ptr(), n_items, n_groups, b, s, c,
+                    int(want_tri), stream)
+    if err == NO_INSTANCE:
+        raise ValueError(f"item_sweep has no compiled instance for S = {s} "
+                         "(S in 2, 128)")
+    if err != 0:
+        raise RuntimeError(f"item_sweep launch failed: cudaError {err}")
+    launches += 1
+    return out

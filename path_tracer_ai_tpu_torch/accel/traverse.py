@@ -46,24 +46,33 @@ def _sort_keys(accel: ClusterAccel, origins, directions, t_max=None,
     """Coherence key (int64; JAX's uint32 key, bit for bit).
 
     mode="dir":     dead(1) | octant(3) | dir-Morton(9) | origin-Morton(18)
+    mode="origin":  dead(1) | origin-Morton(18) | octant(3) | dir-Morton(9)
     mode="octorig": dead(1) | octant(3) | origin-Morton(21)
+    mode="origoct": dead(1) | origin-Morton(21) | octant(3)
     """
     octant = (
         (directions[:, 0] < 0).to(torch.int64) * 4
         + (directions[:, 1] < 0).to(torch.int64) * 2
         + (directions[:, 2] < 0).to(torch.int64)
     )
-    if mode == "octorig":
-        ocell7 = morton3d(origins, accel.scene_min, accel.scene_max, bits=7)
-        key = (octant << 21) | ocell7.to(torch.int64)
-    elif mode == "dir":
+    if mode in ("octorig", "origoct"):
+        ocell7 = morton3d(origins, accel.scene_min, accel.scene_max,
+                          bits=7).to(torch.int64)
+        if mode == "octorig":
+            key = (octant << 21) | ocell7
+        else:
+            key = (ocell7 << 3) | octant
+    elif mode in ("dir", "origin"):
         ones = torch.ones((3,), dtype=torch.float32, device=origins.device)
         dcell = morton3d(directions, -ones, ones, bits=3).to(torch.int64)
         ocell = morton3d(origins, accel.scene_min, accel.scene_max,
                          bits=6).to(torch.int64)
-        key = (octant << 27) | (dcell << 18) | ocell
+        if mode == "origin":
+            key = (ocell << 12) | (octant << 9) | dcell
+        else:
+            key = (octant << 27) | (dcell << 18) | ocell
     else:
-        raise ValueError(f"sort mode {mode!r} is not ported")
+        raise ValueError(f"unknown sort mode {mode!r}")
     if t_max is not None:
         key = key | ((t_max < 0.0).to(torch.int64) << 31)
     return key
@@ -89,20 +98,24 @@ def _unsort(x, perm):
 
 
 def _interval_slab(bmin, bmax, olo, ohi, dlo, dhi):
-    """Interval-arithmetic slab bounds of ray blocks vs shared [K,3] boxes.
+    """Interval-arithmetic slab bounds of ray blocks vs AABBs.
 
-    olo/ohi/dlo/dhi: [B, 3]. Returns (lb, ub) [B, K]: for every member
-    ray, slab entry >= lb and exit <= ub. torch.minimum/maximum propagate
-    NaN exactly as jnp.minimum/maximum do in the reference."""
+    bmin/bmax: [K, 3] (one box table shared by all blocks) or [B, K, 3]
+    (per-block gathered boxes). olo/ohi/dlo/dhi: [B, 3]. Returns (lb, ub)
+    [B, K]: for every member ray, slab entry >= lb and exit <= ub.
+    torch.minimum/maximum propagate NaN exactly as jnp.minimum/maximum do
+    in the reference. An inverted box (min > max) is NOT failed here: its
+    numerator interval is reversed, so each axis gives (-huge, +huge)."""
+    shared = bmin.dim() == 2
     nb = olo.shape[0]
-    kdim = bmin.shape[0]
+    kdim = bmin.shape[0] if shared else bmin.shape[1]
     dev = olo.device
     lb = torch.full((nb, kdim), -INF, dtype=torch.float32, device=dev)
     ub = torch.full((nb, kdim), INF, dtype=torch.float32, device=dev)
     one = torch.ones((), dtype=torch.float32, device=dev)
     for a in range(3):
-        bl = bmin[None, :, a]
-        bh = bmax[None, :, a]
+        bl = bmin[None, :, a] if shared else bmin[:, :, a]
+        bh = bmax[None, :, a] if shared else bmax[:, :, a]
         nlo = bl - ohi[:, a][:, None]
         nhi = bh - olo[:, a][:, None]
         da_lo = dlo[:, a][:, None]
@@ -286,3 +299,109 @@ def any_hit_packets(accel: ClusterAccel, origins, directions, t_min, t_max,
         active_fn,
     )
     return _unsort(_unpermute_blocks(carry[0], blk_index).reshape(n), perm)
+
+
+# Elements of each [blocks, R, g * S] temporary of closest_hit_packets' sweep
+# (256 MB in f32; 1,024 blocks of 64 rays against 8 clusters of 128): its
+# block rows are swept this many at a time. Fewer, larger steps launch
+# fewer kernels; the results do not depend on the step.
+PACKET_SWEEP_ELEMS = 1 << 26
+
+
+def _packet_sweep_closest(accel, ob, db, t_cap, cid, t_min):
+    """Blocks of rays ob/db [n, R, 3] (window [t_min, t_cap [n, R]]) against
+    the g * S triangles of their clusters cid [n, g], in eager torch
+    (traverse._mt_sweep's arithmetic): returns (ct [n, R] min t, gid [n, R]
+    the triangle id of the FIRST slot achieving it)."""
+    n = cid.shape[0]
+    ray = [ob[:, :, None, k] for k in range(3)]
+    ray += [db[:, :, None, k] for k in range(3)]
+    tri = []
+    for arr in (accel.v0, accel.e1, accel.e2):
+        a = arr[cid].reshape(n, -1, 3)
+        tri += [a[:, None, :, k] for k in range(3)]
+    t, _ok = cuda_ctiles.mt_sweep_rows(*ray, *tri, t_min, t_cap[:, :, None])
+    slot = torch.argmin(t, dim=-1, keepdim=True)  # first minimum, as argmin
+    cti = accel.tri_id[cid].reshape(n, -1)
+    return (torch.gather(t, 2, slot).squeeze(2),
+            torch.gather(cti, 1, slot.squeeze(2)))
+
+
+def closest_hit_packets(accel: ClusterAccel, origins, directions, t_min,
+                        t_max, block_size: int = 256, sort: bool = True,
+                        group_size: int = 8,
+                        sort_mode: str = "dir") -> PacketHit:
+    """Closest hit via the packet cascade (traverse.py:760-874); exact up to
+    its tie rule. N must be a multiple of block_size.
+
+    Blocks walk their candidates in conservative-entry order, `group_size`
+    clusters an iteration, and retire once the next group's entry exceeds
+    every live lane's best t. The tie rule is NOT the oracle's: within a
+    group of g * S slots the FIRST slot at the minimum t wins (argmin), and
+    a later group replaces the best only with a strictly smaller t. Each
+    iteration sweeps, as the reference does, every block of the current
+    slice that still has candidates (not only the active ones), with
+    t_cap = min(t_max, best t). The sweep is eager torch (in the reference
+    it is XLA code, not a Pallas kernel), its block rows
+    PACKET_SWEEP_ELEMS elements at a time; it runs in the overflow
+    fallbacks and the opt-in "packets" backend."""
+    n = origins.shape[0]
+    if n % block_size:
+        raise ValueError(f"wave size {n} not a multiple of {block_size}")
+    nb = n // block_size
+    dev = origins.device
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                               device=dev), (n,))
+    perm = None
+    if sort:
+        origins, directions, t_max, perm = _sort_rays(
+            accel, origins, directions, t_max, sort_mode)
+    o_blk = origins.reshape(nb, block_size, 3)
+    d_blk = directions.reshape(nb, block_size, 3)
+    tmax_blk = t_max.reshape(nb, block_size)
+
+    order, n_cand, entry = _block_candidates(accel, o_blk, d_blk, tmax_blk)
+    g = group_size
+    c = accel.num_clusters
+    c_pad = -(-c // g) * g
+    if c_pad - c:
+        order = torch.nn.functional.pad(order, (0, c_pad - c))
+        entry = torch.nn.functional.pad(entry, (0, c_pad - c), value=INF)
+    order_g = order.reshape(nb, c_pad // g, g)
+    max_k = c_pad // g - 1
+    rows = max(1, PACKET_SWEEP_ELEMS // (block_size * g * accel.cluster_size))
+
+    def active_fn(k, blocks, carry):
+        tb, nc, ent = blocks[2], blocks[3], blocks[4]
+        best_eff = torch.where(tb < 0.0, -INF, carry[0])
+        entry_k = ent[:, min(k, max_k) * g]
+        return (k * g < nc) & (entry_k <= best_eff.amax(dim=1))
+
+    def sweep_update(k, blocks, carry, _active):
+        ob, db, tb, nc, _ent, ordg = blocks
+        best_t, best_id = carry
+        # the reference's blk_on: every block of the slice with candidates
+        idx = torch.nonzero(k * g < nc).squeeze(1)
+        sync.note()
+        best_t, best_id = best_t.clone(), best_id.clone()
+        for lo in range(0, idx.numel(), rows):
+            sel = idx[lo:lo + rows]
+            bt = best_t[sel]
+            ct, gid = _packet_sweep_closest(
+                accel, ob[sel], db[sel], torch.minimum(tb[sel], bt),
+                ordg[sel, min(k, max_k)], t_min)
+            closer = ct < bt
+            best_t[sel] = torch.where(closer, ct, bt)
+            best_id[sel] = torch.where(closer, gid, best_id[sel])
+        return best_t, best_id
+
+    carry, blk_index = _cascade_traverse(
+        (o_blk, d_blk, tmax_blk, n_cand, entry, order_g),
+        (torch.full((nb, block_size), INF, dtype=torch.float32, device=dev),
+         torch.full((nb, block_size), -1, dtype=torch.int32, device=dev)),
+        sweep_update,
+        active_fn,
+    )
+    t_out = _unsort(_unpermute_blocks(carry[0], blk_index).reshape(n), perm)
+    id_out = _unsort(_unpermute_blocks(carry[1], blk_index).reshape(n), perm)
+    return PacketHit(hit=torch.isfinite(t_out), t=t_out, tri=id_out)

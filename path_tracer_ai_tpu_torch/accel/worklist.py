@@ -1,18 +1,92 @@
-"""Block preparation, unsort and overflow completion shared by the cluster
-traversals (counterpart of the parts of accel/worklist.py the main path
-runs: `_prepare_blocks`, `_unsort`, `_extract_k`, `_overflow_fallback`).
+"""Block-major work-list traversal (counterpart of accel/worklist.py).
+
+Pipeline: SORT (coherence keys, traverse._sort_keys) -> CULL (conservative
+interval slab per block of `block` rays: flat against every cluster AABB,
+or 2-level through the supercluster boxes past 2048 clusters) -> ENUMERATE
+(work items (block, group of `group` candidates) from cumsums, a
+scatter-max and a cummax) -> SWEEP (the item-sweep kernel,
+accel.cuda_items.item_sweep, over the real items) -> RESOLVE (each block
+min-reduces its own item rows; the oracle's lexicographic (t, tri) rule).
+
+Blocks whose candidates exceed `cap`, or whose items spill past the static
+item budget, complete through `_overflow_fallback`: per-ray pair tiles
+(accel.pairs) on a compacted wave, or the packet cascades on the whole
+wave. The module also holds the block preparation, unsort and extraction
+helpers that accel.ctiles shares. The static sizes (i_cap rounded to
+item_chunk, the fallback's compact_cap) are the reference's, so the
+overflow sets are too.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import NamedTuple
 
-from path_tracer_ai_tpu_torch.accel import cuda_ctiles
-from path_tracer_ai_tpu_torch.accel.traverse import _sort_rays
+import torch
+from torch.profiler import record_function
+
+from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_items, pairs
+from path_tracer_ai_tpu_torch.accel.clusters import ClusterAccel
+from path_tracer_ai_tpu_torch.accel.traverse import (
+    PacketHit,
+    _interval_slab,
+    _ray_block_bounds,
+    _sort_rays,
+    pack_block_rays,
+)
 from path_tracer_ai_tpu_torch.utils import sync
 
 I32_MAX = cuda_ctiles.I32_MAX
-FALLBACK_TILE_LANES = 128  # rays per tile of the overflow sweep
+INF = float("inf")
+# Elements of each [rows, width] temporary of the cull (width C for the flat
+# cull, Cs + super_cap * super_size for the 2-level one): block rows are
+# culled this many at a time. The tables do not depend on the step.
+CULL_ELEMS = 1 << 23
+
+# Overflow completions of this module since the last reset: calls with
+# overflow rays, the blocks and rays sent, the rays that went through
+# accel.pairs and the calls that took the whole wave.
+fallback_counts = {"calls": 0, "blocks": 0, "rays": 0, "pairs_rays": 0,
+                   "whole_wave": 0}
+# When a caller sets this to a dict, each stage of a worklist query records
+# CUDA events under (wave, stage): wave "closest" or "shadow", stage "build"
+# (sort, cull and item table), "sweep" (the item sweep and resolve) or
+# "fallback"; stage_seconds() sums them. None: nothing is recorded.
+stage_events = None
+
+
+def reset_fallback_counts() -> None:
+    for k in fallback_counts:
+        fallback_counts[k] = 0
+
+
+def stage_seconds() -> dict:
+    """Device seconds of each recorded (wave, stage), after a synchronize."""
+    torch.cuda.synchronize()
+    return {f"{wave}_{stage}": sum(a.elapsed_time(b) for a, b in ev) / 1e3
+            for (wave, stage), ev in (stage_events or {}).items()}
+
+
+class _stage:
+    """A worklist stage: a torch.profiler label and, when stage_events is a
+    dict and the wave is on the card, a pair of CUDA events."""
+
+    def __init__(self, wave: str, stage: str, device):
+        self.key = (wave, stage)
+        self.timed = stage_events is not None and device.type == "cuda"
+        self.label = record_function(f"worklist_{wave}_{stage}")
+
+    def __enter__(self):
+        self.label.__enter__()
+        if self.timed:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+
+    def __exit__(self, *exc):
+        if self.timed:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            stage_events.setdefault(self.key, []).append((self.start, end))
+        self.label.__exit__(*exc)
 
 
 def _extract_k(cand: torch.Tensor, k: int, fill: int) -> torch.Tensor:
@@ -70,48 +144,288 @@ def _unsort(arrs, perm, npad, n):
 
 
 def _overflow_fallback(accel, origins, directions, t_min, t_max, overflow,
-                       compact_cap: int, tri_pack=None):
-    """Complete the closest hits of overflow rays exactly.
-
-    The reference completes them through accel.pairs (and, beyond
-    compact_cap rays, the packet cascade); neither is ported yet. Any exact
-    closest-hit gives the same (t, min tri) answer, so here the overflow
-    rays are compacted (as the reference does) into waves of at most
-    `compact_cap` rays and swept against EVERY cluster through the
-    tile-sweep kernel in 128-ray tiles; the per-cluster results
-    resolve with the lexicographic (t, tri) rule.
-
-    Returns (t [N], tri [N]), meaningful on overflow lanes only (the rest
-    hold inf / -1)."""
+                       want_tri: bool, compact_cap: int, fallback_block: int,
+                       tri_pack=None, over_blocks=None):
+    """Complete overflow rays exactly (worklist.py:48-144): nothing when no
+    ray overflowed; per-ray pair tiles (accel.pairs, cap 64, pair budget 12)
+    on the wave itself when it holds at most compact_cap rays, or on the
+    overflow rays compacted into a wave of compact_cap when at most that
+    many overflowed; the packet cascades on the whole wave otherwise. The
+    host reads the count once (and the overflow blocks `over_blocks` with
+    it). Returns wave-aligned arrays meaningful on overflow lanes only."""
     n = origins.shape[0]
-    dev = origins.device
-    t_full = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
-    tri_full = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    idx_all = torch.nonzero(overflow).squeeze(1)
+    empty = pairs._empty(n, want_tri, origins.device)
+    counts = [overflow.sum()] + ([over_blocks] if over_blocks is not None
+                                 else [])
+    counts = torch.stack(counts).tolist()
     sync.note()
-    count = idx_all.numel()
+    count = counts[0]
     if count == 0:
-        return t_full, tri_full
+        return empty
+    fallback_counts["calls"] += 1
+    fallback_counts["rays"] += count
+    fallback_counts["blocks"] += counts[1] if len(counts) > 1 else 0
+
+    def pair_query(o, d, tm):
+        fallback_counts["pairs_rays"] += count
+        kw = dict(cap=64, pair_budget=12, fallback_block=fallback_block,
+                  tri_pack=tri_pack)
+        if want_tri:
+            fb = pairs.closest_hit_pairs(accel, o, d, t_min, tm, **kw)
+            return fb.t, fb.tri
+        return (pairs.any_hit_pairs(accel, o, d, t_min, tm, **kw),)
+
+    k = min(compact_cap, n)
+    if n <= k:
+        return pair_query(origins, directions,
+                          torch.where(overflow, t_max, -1.0))
+    if count > k:
+        fallback_counts["whole_wave"] += 1
+        return pairs._whole_wave(
+            pairs._packet_query(accel, t_min, want_tri, fallback_block,
+                                tri_pack),
+            origins, directions, t_max, overflow, fallback_block)
+    return pairs._compacted(pair_query, origins, directions, t_max, overflow,
+                            count, k, empty)
+
+
+class WorkList(NamedTuple):
+    item_block: torch.Tensor  # [I] i32 block id per work item
+    ibase: torch.Tensor       # [nb] i32 first item of each block
+    order_g: torch.Tensor     # [nb, n_groups, g] i32 candidate cluster ids
+    n_cand: torch.Tensor      # [nb] i32 candidates per block (0 if overflow)
+    overflow: torch.Tensor    # [nb] bool block completes via fallback
+    n_items: torch.Tensor     # [] i32 real item count
+
+
+def _cull_flat(accel, oc, dc, tc, cap, k_eff):
+    """Blocks vs every cluster AABB: (order [rows, k_eff] ascending ids,
+    n_cand (0 on overflow), over)."""
+    c = accel.num_clusters
+    olo, ohi, dlo, dhi = _ray_block_bounds(oc, dc, live=tc >= 0.0)
+    lb, ub = _interval_slab(accel.bmin, accel.bmax, olo, ohi, dlo, dhi)
+    tmax_ub = tc.amax(dim=1)
+    # Inclusive bound (flat AABBs stay in) and the dead-block kill.
+    cand = ((lb <= ub) & (ub >= 0.0) & (lb <= tmax_ub[:, None])
+            & (tmax_ub >= 0.0)[:, None])
+    n_cand = cand.sum(dim=1).to(torch.int32)
+    over = n_cand > cap
+    order = _extract_k(cand & ~over[:, None], k_eff, c - 1)
+    return order, torch.where(over, 0, n_cand), over
+
+
+def _cull_2level(accel, oc, dc, tc, cap, k_eff, super_cap):
+    """Supercluster prefilter, then the child AABBs of the surviving supers.
+
+    The candidates are child ids sorder * ss + j. `_extract_k` on the super
+    slots gives ascending super ids, so along a row the valid child columns
+    hold ascending ids and the first k set columns are the k smallest ids,
+    the reference's top_k over -child. The padding children of a partly
+    filled last super carry inverted boxes; `_interval_slab` (as the
+    reference's) does not fail them, so they count as candidates (ids >= C,
+    clamped to C - 1, or left past k_eff where the zero padding of
+    order_g stands in): repeats of real candidates, which change no
+    result."""
+    c = accel.num_clusters
+    rows = oc.shape[0]
+    dev = oc.device
+    ss = accel.super_size
+    cs = accel.num_supers
+    scap = min(super_cap, cs)
+    olo, ohi, dlo, dhi = _ray_block_bounds(oc, dc, live=tc >= 0.0)
+    tmax_ub = tc.amax(dim=1)
+    live = (tmax_ub >= 0.0)[:, None]
+
+    lbs, ubs = _interval_slab(accel.sbmin, accel.sbmax, olo, ohi, dlo, dhi)
+    cand_s = (lbs <= ubs) & (ubs >= 0.0) & (lbs <= tmax_ub[:, None]) & live
+    ns = cand_s.sum(dim=1).to(torch.int32)
+    over_s = ns > scap  # supers past the cap are unseen -> fallback
+    sorder = _extract_k(cand_s & ~over_s[:, None], scap, cs - 1).long()
+    slot_ok = torch.arange(scap, device=dev)[None, :] < ns[:, None]
+
+    child = (sorder[:, :, None] * ss
+             + torch.arange(ss, device=dev)[None, None, :]).reshape(
+                 rows, scap * ss)
+    cbmin = accel.cbmin[sorder].reshape(rows, scap * ss, 3)
+    cbmax = accel.cbmax[sorder].reshape(rows, scap * ss, 3)
+    lb, ub = _interval_slab(cbmin, cbmax, olo, ohi, dlo, dhi)
+    cand = ((lb <= ub) & (ub >= 0.0) & (lb <= tmax_ub[:, None])
+            & slot_ok.repeat_interleave(ss, dim=1) & live)
+    n_cand = cand.sum(dim=1).to(torch.int32)
+    over = over_s | (n_cand > cap)
+    cols = _extract_k(cand & ~over[:, None], k_eff, scap * ss).long()
+    child = torch.nn.functional.pad(child, (0, 1), value=c - 1)
+    order = torch.clamp(torch.gather(child, 1, cols), max=c - 1)
+    return order.to(torch.int32), torch.where(over, 0, n_cand), over
+
+
+def _build_worklist(accel: ClusterAccel, o_blk, d_blk, tm_blk, t_min,
+                    cap: int, group: int, item_budget: int, row_chunk: int,
+                    item_align: int, levels: int = 0,
+                    super_cap: int = 32) -> WorkList:
+    """CULL + ENUMERATE (worklist.py:169-281). levels 0 picks the 2-level
+    cull past 2048 clusters, else the flat one. Blocks are culled at most
+    `row_chunk` (and CULL_ELEMS / width) at a time; the tables do not
+    depend on either."""
+    nb = o_blk.shape[0]
+    c = accel.num_clusters
+    dev = o_blk.device
+    if levels == 0:
+        levels = 2 if c > 2048 else 1
+    g = group
+    i_cap = -(-(nb * item_budget) // item_align) * item_align
+    k_eff = min(cap, c)
+    width = c
+    if levels == 2:
+        # The 2-level cull sees at most super_cap * super_size children.
+        scap = min(super_cap, accel.num_supers)
+        k_eff = min(k_eff, scap * accel.super_size)
+        width = accel.num_supers + scap * accel.super_size
+    n_groups = -(-k_eff // g)
+    step = max(1, min(row_chunk, CULL_ELEMS // width))
+
+    orders, ncands, overs = [], [], []
+    for lo in range(0, nb, step):
+        args = (accel, o_blk[lo:lo + step], d_blk[lo:lo + step],
+                tm_blk[lo:lo + step], cap, k_eff)
+        order, n_cand, over = (_cull_2level(*args, super_cap) if levels == 2
+                               else _cull_flat(*args))
+        orders.append(order)
+        ncands.append(n_cand)
+        overs.append(over)
+    order = torch.cat(orders)
+    n_cand = torch.cat(ncands)
+    overflow = torch.cat(overs)
+
+    m = torch.div(n_cand + (g - 1), g, rounding_mode="floor")  # items a block
+    ibase = torch.cumsum(m, 0) - m
+    # Blocks whose items spill past the static budget -> fallback.
+    over_budget = ibase + m > i_cap
+    overflow = overflow | over_budget
+    m = torch.where(over_budget, 0, m)
+    n_cand = torch.where(over_budget, 0, n_cand).to(torch.int32)
+    ibase = torch.cumsum(m, 0) - m
+    n_items = m.sum().to(torch.int32)
+
+    # item -> owning block: mark each non-empty block's first item with its
+    # id (scatter-max; empty blocks go to the sink slot i_cap), forward-fill.
+    mark_pos = torch.where(m > 0, ibase, i_cap).long()
+    item_block = torch.zeros((i_cap + 1,), dtype=torch.int64, device=dev)
+    item_block.scatter_reduce_(0, mark_pos, torch.arange(nb, device=dev),
+                               "amax")
+    item_block = torch.cummax(item_block[:i_cap], 0).values.to(torch.int32)
+
+    pad_k = n_groups * g - k_eff
+    if pad_k:
+        order = torch.nn.functional.pad(order, (0, pad_k))
+    order_g = order.reshape(nb, n_groups, g).contiguous()
+    return WorkList(item_block, ibase.to(torch.int32), order_g, n_cand,
+                    overflow, n_items)
+
+
+def _sweep_items(accel, wl: WorkList, rays, want_tri: bool,
+                 intersector: str = "exact", tri_pack=None):
+    """The item sweep (worklist.py:325-422) over the real items: per item
+    row (t [i_cap, B], tri [i_cap, B]) or (occluded [i_cap, B],); rows past
+    n_items hold (inf, INT32_MAX) or False. rays: [nb, 8, B] block pack.
+    Only the "exact" intersector (Möller–Trumbore) is ported."""
+    if intersector != "exact":
+        raise ValueError(f"intersector {intersector!r} is not ported "
+                         "(accel/mxu.py); use 'exact'")
     if tri_pack is None:
         tri_pack = cuda_ctiles.pack_tris(accel)
-    c = accel.num_clusters
-    tile_lanes = FALLBACK_TILE_LANES
-    for lo in range(0, count, compact_cap):
-        idx = idx_all[lo:lo + compact_cap]
-        m = idx.numel()
-        pad = (-m) % tile_lanes
-        o = torch.nn.functional.pad(origins[idx], (0, 0, 0, pad))
-        d = torch.nn.functional.pad(directions[idx], (0, 0, 0, pad), value=1.0)
-        tm = torch.nn.functional.pad(t_max[idx], (0, pad), value=-1.0)
-        rays = cuda_ctiles.pack_rays_tiles(o, d, tm, tile_lanes, t_min)
-        nrt = rays.shape[0]
-        rays_all = rays.repeat(c, 1, 1)                       # [c*nrt, 8, T]
-        cid = torch.arange(c, dtype=torch.int32, device=dev).repeat_interleave(nrt)
-        t_c, tri_c = cuda_ctiles.tile_sweep(tri_pack, rays_all, cid)
-        t_c = t_c.reshape(c, nrt * tile_lanes)
-        tri_c = tri_c.reshape(c, nrt * tile_lanes)
-        best = t_c.amin(dim=0)
-        tri = torch.where(t_c <= best, tri_c, I32_MAX).amin(dim=0)
-        t_full[idx] = best[:m]
-        tri_full[idx] = tri[:m].to(torch.int32)
-    return t_full, tri_full
+    n_items = sync.host_int(wl.n_items)
+    return cuda_items.item_sweep(tri_pack, rays, wl.item_block, wl.ibase,
+                                 wl.order_g, wl.n_cand, n_items, want_tri)
+
+
+def _item_rows(wl: WorkList, group: int):
+    """Each block's item rows [nb, n_groups] (clamped) and which are live."""
+    n_groups = wl.order_g.shape[1]
+    i_cap = wl.item_block.shape[0]
+    dev = wl.ibase.device
+    ar = torch.arange(n_groups, device=dev)[None, :]
+    rows = wl.ibase.long()[:, None] + ar
+    m = torch.div(wl.n_cand + (group - 1), group, rounding_mode="floor")
+    return torch.clamp(rows, max=i_cap - 1), ar < m[:, None]
+
+
+def _query(accel, origins, directions, t_min, t_max, want_tri, block, group,
+           cap, item_budget, row_chunk, item_chunk, sort, sort_mode,
+           intersector, levels, super_cap, fallback_block, fallback_compact,
+           tri_pack):
+    n = origins.shape[0]
+    dev = origins.device
+    wave = "closest" if want_tri else "shadow"
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                               device=dev), (n,)).contiguous()
+    if tri_pack is None:
+        tri_pack = cuda_ctiles.pack_tris(accel)
+    with _stage(wave, "build", dev):
+        o_blk, d_blk, tm_blk, perm, npad = _prepare_blocks(
+            accel, origins, directions, t_max, block, sort, sort_mode)
+        wl = _build_worklist(accel, o_blk, d_blk, tm_blk, t_min, cap, group,
+                             item_budget, row_chunk, item_align=item_chunk,
+                             levels=levels, super_cap=super_cap)
+    nb = o_blk.shape[0]
+    with _stage(wave, "sweep", dev):
+        res = _sweep_items(accel, wl, pack_block_rays(o_blk, d_blk, tm_blk,
+                                                      t_min),
+                           want_tri, intersector, tri_pack)
+        rowsc, row_live = _item_rows(wl, group)
+        if want_tri:
+            t_items, tri_items = res
+            tk = torch.where(row_live[..., None], t_items[rowsc], INF)
+            best_t = tk.amin(dim=1)                            # [nb, B]
+            trik = torch.where(row_live[..., None]
+                               & (tk <= best_t[:, None, :]),
+                               tri_items[rowsc], I32_MAX)
+            out = (best_t.reshape(-1), trik.amin(dim=1).reshape(-1))
+        else:
+            (occ_items,) = res
+            out = ((row_live[..., None] & occ_items[rowsc]).any(dim=1)
+                   .reshape(-1),)
+        over_blk = wl.overflow[:, None].expand(nb, block).reshape(-1)
+        *out, overflow_ray = _unsort(out + (over_blk,), perm, npad, n)
+    with _stage(wave, "fallback", dev):
+        fb = _overflow_fallback(accel, origins, directions, t_min, t_max,
+                                overflow_ray, want_tri, fallback_compact,
+                                fallback_block, tri_pack,
+                                over_blocks=wl.overflow.sum())
+    return [torch.where(overflow_ray, f, r) for f, r in zip(fb, out)]
+
+
+def closest_hit_worklist(accel: ClusterAccel, origins, directions, t_min,
+                         t_max, block: int = 8, group: int = 4, cap: int = 64,
+                         item_budget: int = 6, row_chunk: int = 1 << 13,
+                         item_chunk: int = 1024, sort: bool = True,
+                         sort_mode: str = "dir", intersector: str = "exact",
+                         levels: int = 0, super_cap: int = 32,
+                         fallback_block: int = 64,
+                         fallback_compact: int = 32768,
+                         tri_pack=None) -> PacketHit:
+    """Closest hit via the block-major work list; exact for every ray (the
+    fallback's packet-cascade rays keep its first-slot tie rule)."""
+    best_t, best_tri = _query(
+        accel, origins, directions, t_min, t_max, True, block, group, cap,
+        item_budget, row_chunk, item_chunk, sort, sort_mode, intersector,
+        levels, super_cap, fallback_block, fallback_compact, tri_pack)
+    hit = torch.isfinite(best_t)
+    return PacketHit(hit=hit, t=best_t,
+                     tri=torch.where(hit, best_tri, -1).to(torch.int32))
+
+
+def any_hit_worklist(accel: ClusterAccel, origins, directions, t_min, t_max,
+                     block: int = 8, group: int = 4, cap: int = 64,
+                     item_budget: int = 6, row_chunk: int = 1 << 13,
+                     item_chunk: int = 1024, sort: bool = True,
+                     sort_mode: str = "dir", intersector: str = "exact",
+                     levels: int = 0, super_cap: int = 32,
+                     fallback_block: int = 64, fallback_compact: int = 32768,
+                     tri_pack=None) -> torch.Tensor:
+    """Occlusion query via the block-major work list; exact for every ray."""
+    (occ,) = _query(
+        accel, origins, directions, t_min, t_max, False, block, group, cap,
+        item_budget, row_chunk, item_chunk, sort, sort_mode, intersector,
+        levels, super_cap, fallback_block, fallback_compact, tri_pack)
+    return occ

@@ -87,8 +87,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="wavefront scheduler: bounded-depth waves or "
                         "persistent pool (not ported yet)")
     p.add_argument("--backend", default=None, choices=BACKENDS,
-                   help="traversal backend (default: hybrid; the port has "
-                        "hybrid and pallas)")
+                   help="traversal backend (default: hybrid, worklist past "
+                        "2048 clusters; the port has hybrid, pallas, "
+                        "worklist, pairs and packets)")
     p.add_argument("--validate", action="store_true",
                    help="audit the final image for NaN/Inf/sentinel pixels")
     p.add_argument("--profile", default=None, metavar="DIR",
@@ -107,7 +108,7 @@ def check_ported(args) -> None:
                          "1, step 9: pool scheduler)")
     if args.backend in wavefront.UNPORTED_BACKENDS:
         raise ValueError(f"--backend {args.backend} is not ported yet "
-                         "(ROADMAP queue 1, steps 7-12)")
+                         "(ROADMAP queue 1, steps 11-12)")
 
 
 def cli_device():

@@ -133,9 +133,11 @@ static int occupancy(int* regs, int* warps_per_sm) {
 constexpr int rays_per_thread(int t_lanes) { return t_lanes == 128 ? 4 : 1; }
 
 #define NO_INSTANCE (-1)  // no cudaError_t is negative
+// S = 2: the worklist backend's fallbacks on a scene cut into clusters of
+// two triangles (more than 2048 clusters on a small scene, a test shape).
 #define FOR_INSTANCES(CALL)                                              \
   CALL(128, 64) CALL(128, 128) CALL(128, 256) CALL(256, 64) CALL(256, 128) \
-  CALL(256, 256)
+  CALL(256, 256) CALL(2, 64) CALL(2, 128)
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok), or
 // NO_INSTANCE for an (S, T) that is not compiled.

@@ -5,7 +5,8 @@ Rays are processed in fixed-size waves:
 
   generate wave -> [bounce loop, stepped from the host] -> accumulate
 
-The traversal backend (`packet_backend`) is "hybrid" by default:
+The traversal backend (`packet_backend`) is "hybrid" by default up to
+2048 clusters, "worklist" past that (default_backend). The hybrid one:
 - closest waves: accel.ctiles over a second accel of S=256 clusters
   (HYBRID_CLOSEST_CLUSTER_SIZE), built from the original triangles so the
   edge vectors stay bit-identical to the oracle's; or, with
@@ -19,6 +20,11 @@ The traversal backend (`packet_backend`) is "hybrid" by default:
   pixel order are already coherent).
 backend="pallas" (or use_pallas=True) sends both wave types through the
 per-block candidate walks of accel.cuda_sweep, one kernel launch per wave.
+backend="worklist" runs both through accel.worklist (the item sweep of
+accel.cuda_items; shadow waves unsorted) on the base accel, with no second
+accel and no bounce-0 overrides; "pairs" through accel.pairs; "packets"
+through the packet cascades (traverse.closest_hit_packets,
+any_hit_packets) at `block_size`.
 On cuda every engine launches its kernels; on cpu their plain versions.
 
 Live-lane compaction: when the live count fits in half the current wave,
@@ -46,7 +52,9 @@ from path_tracer_ai_tpu_torch.accel import (
     cuda_closest,
     cuda_ctiles,
     cuda_sweep,
+    pairs,
     traverse,
+    worklist,
 )
 from path_tracer_ai_tpu_torch.accel.clusters import ClusterAccel, build_clusters
 from path_tracer_ai_tpu_torch.config import RenderSettings
@@ -78,11 +86,19 @@ HYBRID_CLOSEST_KW = dict(engine="ctiles")
 # ctiles closest waves: the reference's committed defaults.
 CTILES_CLOSEST_KW = dict(cap=48, tile_chunk=2048, fallback_compact=1 << 12)
 HYBRID_CLOSEST_CLUSTER_SIZE = 256
+# The worklist backend (the reference's default past 2048 clusters): its
+# closest waves' options, and its shadow waves' (light-major, already
+# coherent: no sort).
+WORKLIST_CLOSEST_KW = dict(cap=96, item_budget=8)
+WORKLIST_OCCLUDE_KW = dict(sort=False)
+# Shadow engine of the worklist backend: "worklist" (any_hit_worklist). The
+# reference's other choice, "packets_exact" (the 2-level exact-cull packet
+# cascade), needs traverse._exact_block_candidates, which is not ported.
+WORKLIST_OCCLUDE_ENGINE = "worklist"
 # Compaction never shrinks a wave below this many lanes.
 COMPACT_MIN_BUCKET = 1 << 16
 # Backends of the reference's packet_backend that the port does not have.
-UNPORTED_BACKENDS = ("packets", "worklist", "kslots", "ctiles", "pairs",
-                     "perray")
+UNPORTED_BACKENDS = ("kslots", "ctiles", "perray")
 
 
 class RenderStats:
@@ -104,9 +120,10 @@ class RenderStats:
 
 
 def default_backend(accel: Optional[ClusterAccel] = None) -> str:
-    """ "hybrid" for every scene. The reference sends scenes past 2048
-    clusters to its worklist backend; until that is ported the hybrid
-    backend, whose culls have no cluster limit, draws them too."""
+    """ "worklist" past 2048 clusters (its 2-level cull keeps the cull
+    linear in rays there), else "hybrid", as in the reference."""
+    if accel is not None and accel.num_clusters > 2048:
+        return "worklist"
     return "hybrid"
 
 
@@ -141,13 +158,15 @@ def packet_backend(accel: ClusterAccel, block_size: int = 256,
     """(closest_fn, occlude_fn) over the cluster structure.
 
     backend: "hybrid" (per-wave-type engines, see HYBRID_CLOSEST_KW and
-    HYBRID_OCCLUDE_KW) or "pallas" (accel.cuda_sweep); None: see
-    resolve_backend. occlude_sort / closest_sort override the hybrid
-    engines' coherence sort (the bounce-0 no-sort); the pallas backend
-    always sorts, as in the reference. packs: a dict that keeps the
-    triangle packs and the slab table between calls over the same accels
-    (render builds its two backends from one). The reference's other
-    backends and engines raise ValueError: they are not ported."""
+    HYBRID_OCCLUDE_KW), "pallas" (accel.cuda_sweep), "worklist"
+    (WORKLIST_CLOSEST_KW, WORKLIST_OCCLUDE_KW), "pairs" or "packets"
+    (block_size rays a block); None: see resolve_backend. occlude_sort /
+    closest_sort override the hybrid engines' coherence sort (the bounce-0
+    no-sort); the other backends ignore them, as in the reference. packs: a
+    dict that keeps the triangle packs and the slab table between calls
+    over the same accels (render builds its two backends from one). The
+    reference's other backends and engines raise ValueError: they are not
+    ported."""
     backend = resolve_backend(accel, block_size, use_pallas, backend)
     packs = {} if packs is None else packs
 
@@ -168,8 +187,12 @@ def packet_backend(accel: ClusterAccel, block_size: int = 256,
             return cuda_sweep.any_hit_pallas(
                 accel, slab, o, d, RAY_TMIN, t_max, block_size=block_size)
 
-        return (_labelled("closest_wave", closest),
-                _labelled("shadow_wave", occlude))
+        return _labelled_pair(closest, occlude)
+
+    if backend in ("worklist", "pairs", "packets"):
+        return _labelled_pair(*_other_backend(accel, backend, block_size,
+                                              packed(cuda_ctiles.pack_tris,
+                                                     accel)))
 
     if backend != "hybrid":
         known = backend in UNPORTED_BACKENDS
@@ -216,6 +239,12 @@ def packet_backend(accel: ClusterAccel, block_size: int = 256,
         def occlude(o, d, t_max):
             return traverse.any_hit_packets(
                 accel, o, d, RAY_TMIN, t_max, tri_pack=pack, **pkw)
+    elif occlude_eng == "worklist":
+        pack = packed(cuda_ctiles.pack_tris, accel)
+
+        def occlude(o, d, t_max):
+            return worklist.any_hit_worklist(
+                accel, o, d, RAY_TMIN, t_max, tri_pack=pack, **okw)
     elif occlude_eng == "packets_fused":
         pack_dummy = packed(cuda_anyhit.pack_tris_dummy, accel)
         fkw = dict(block_size=okw.get("block_size", 128),
@@ -230,8 +259,51 @@ def packet_backend(accel: ClusterAccel, block_size: int = 256,
         raise ValueError(f"hybrid shadow engine {occlude_eng!r} is not "
                          "ported")
 
+    return _labelled_pair(closest, occlude)
+
+
+def _labelled_pair(closest, occlude):
     return (_labelled("closest_wave", closest),
             _labelled("shadow_wave", occlude))
+
+
+def _other_backend(accel, backend, block_size, pack):
+    """(closest, occlude) of the "worklist", "pairs" and "packets" backends
+    (the reference's packet_backend branches), all on the base accel."""
+    if backend == "worklist":
+        if WORKLIST_OCCLUDE_ENGINE != "worklist":
+            raise ValueError(
+                f"worklist shadow engine {WORKLIST_OCCLUDE_ENGINE!r} is not "
+                "ported (its exact_cull needs "
+                "traverse._exact_block_candidates)")
+
+        def closest(o, d, t_min, t_max):
+            return worklist.closest_hit_worklist(
+                accel, o, d, RAY_TMIN, t_max, tri_pack=pack,
+                **WORKLIST_CLOSEST_KW)
+
+        def occlude(o, d, t_max):
+            return worklist.any_hit_worklist(
+                accel, o, d, RAY_TMIN, t_max, tri_pack=pack,
+                **WORKLIST_OCCLUDE_KW)
+    elif backend == "pairs":
+        def closest(o, d, t_min, t_max):
+            return pairs.closest_hit_pairs(accel, o, d, RAY_TMIN, t_max,
+                                           tri_pack=pack)
+
+        def occlude(o, d, t_max):
+            return pairs.any_hit_pairs(accel, o, d, RAY_TMIN, t_max,
+                                       tri_pack=pack)
+    else:
+        def closest(o, d, t_min, t_max):
+            return traverse.closest_hit_packets(accel, o, d, t_min, t_max,
+                                                block_size=block_size)
+
+        def occlude(o, d, t_max):
+            return traverse.any_hit_packets(accel, o, d, RAY_TMIN, t_max,
+                                            block_size=block_size,
+                                            tri_pack=pack)
+    return closest, occlude
 
 
 def _compact_bucket(n_live: int) -> int:

@@ -93,6 +93,26 @@ def blob_mesh(subdivisions: int = 5, seed: int = 7, bumps: int = 24):
     return pts.astype(np.float32), f.astype(np.int32), vn.astype(np.float32)
 
 
+def write_obj(path: str, subdivisions: int = 5, seed: int = 7) -> str:
+    """Write the blob as OBJ+MTL (one material, `gold_blob`, with Ni 1.45)
+    and return the OBJ path: the reference's procgen.write_obj, byte for
+    byte (the benchmark configurations' scene)."""
+    pts, faces, vn = blob_mesh(subdivisions, seed)
+    mtl_path = os.path.splitext(path)[0] + ".mtl"
+    with open(mtl_path, "w") as fh:
+        fh.write("newmtl gold_blob\nKd 0.8 0.65 0.15\nNi 1.45\n")
+    with open(path, "w") as fh:
+        fh.write(f"mtllib {os.path.basename(mtl_path)}\n")
+        for p in pts:
+            fh.write(f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}\n")
+        for n in vn:
+            fh.write(f"vn {n[0]:.6f} {n[1]:.6f} {n[2]:.6f}\n")
+        fh.write("usemtl gold_blob\n")
+        for a, b, c in faces + 1:
+            fh.write(f"f {a}//{a} {b}//{b} {c}//{c}\n")
+    return path
+
+
 BLOB_MTL = """newmtl gold_body
 Kd 0.8 0.6 0.1
 newmtl blob_plain

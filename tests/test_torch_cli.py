@@ -97,6 +97,21 @@ def test_same_seed_modes_agree(obj_path, tmp_path, on_cpu):
     np.testing.assert_array_equal(read_png(a), read_png(b))
 
 
+@pytest.mark.parametrize("backend", ["worklist", "pairs", "packets"])
+def test_ported_backend_flags_render(tmp_path, on_cpu, backend):
+    """--backend worklist|pairs|packets (once raising as unported) render a
+    blob OBJ to the same PNG as -m cpu."""
+    obj = str(tmp_path / "blob.obj")
+    write_blob_obj(obj, subdivisions=1)
+    a = str(tmp_path / "a.png")
+    b = str(tmp_path / "b.png")
+    common = ["-w", "20", "-h", "12", "-s", "2", "-b", "3", "-i", obj,
+              "--seed", "9"]
+    assert main(["-m", "cpu", "-o", a] + common) == 0
+    assert main(["-m", "gpu", "--backend", backend, "-o", b] + common) == 0
+    np.testing.assert_array_equal(read_png(a), read_png(b))
+
+
 def test_missing_input_fails(tmp_path, on_cpu):
     rc = main(["-i", str(tmp_path / "none.obj"), "-o", str(tmp_path / "x.png")])
     assert rc == 1
@@ -173,7 +188,7 @@ def test_negative_components_are_the_references(tmp_path):
 @pytest.mark.parametrize("flags,match", [
     (["--tile-devices", "2"], "step 10"),
     (["--scheduler", "pool"], "step 9"),
-    (["--backend", "worklist"], "worklist"),
+    (["--backend", "perray"], "perray"),
     (["--backend", "kslots"], "kslots"),
 ])
 def test_unported_options_raise_before_any_render(obj_path, tmp_path, on_cpu,

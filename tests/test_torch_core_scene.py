@@ -89,7 +89,7 @@ def test_build_clusters_matches_jax(cluster_size):
     ja = jbuild(SimpleNamespace(v0=arr[0], v1=arr[1], v2=arr[2]),
                 cluster_size=cluster_size)
     pa = build_clusters(SimpleNamespace(v0=arr[0], v1=arr[1], v2=arr[2]),
-                        cluster_size=cluster_size)
+                        cluster_size=cluster_size, device="cpu")
     assert pa.num_clusters == ja.num_clusters > 10
     for name, a, b in zip(pa._fields, pa, ja):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)

@@ -15,6 +15,7 @@ from path_tracer_ai_tpu_torch.accel import (
     cuda_anyhit,
     cuda_closest,
     cuda_ctiles,
+    cuda_items,
     cuda_sweep,
 )
 from path_tracer_ai_tpu_torch.accel.clusters import build_clusters
@@ -37,7 +38,8 @@ def cuda():
 
 @pytest.mark.parametrize("g", [1, 2])
 @pytest.mark.parametrize("t_lanes,s", [(128, 256), (64, 128), (128, 128),
-                                       (64, 256), (256, 128), (256, 256)])
+                                       (64, 256), (256, 128), (256, 256),
+                                       (64, 2), (128, 2)])
 def test_tile_sweep_kernel_matches_plain(cuda, rng, t_lanes, s, g):
     """Every compiled (T, S) with one and two clusters a tile; every seventh
     lane dead, whole 32-lane slots dead in some tiles, some tiles all dead."""
@@ -464,3 +466,94 @@ def test_fused_and_pallas_renders_on_gpu(cuda, monkeypatch):
     assert cuda_anyhit.launches > before[0]
     assert cuda_closest.launches > before[1]
     np.testing.assert_array_equal(img_f, img_o)
+
+
+# --- the worklist backend's item sweep, and the backends past the hybrid ----
+
+
+def _worklist_wave(acc, rng, n, shadow, cap=96, item_budget=8,
+                   super_cap=32):
+    """A bounce-like wave through the worklist's sort, cull and item table:
+    (tri_pack, block rays, WorkList)."""
+    from path_tracer_ai_tpu_torch.accel import worklist
+    from path_tracer_ai_tpu_torch.accel.traverse import pack_block_rays
+
+    o, d, tm = _bounce_wave(acc, n, rng)
+    if not shadow:
+        tm = torch.where(tm >= 0, torch.inf, tm)
+    blocks = worklist._prepare_blocks(acc, o, d, tm, 8, True)[:3]
+    wl = worklist._build_worklist(acc, *blocks, 1e-3, cap, 4, item_budget,
+                                  1 << 13, 1024, super_cap=super_cap)
+    return cuda_ctiles.pack_tris(acc), pack_block_rays(*blocks, 1e-3), wl
+
+
+@pytest.mark.parametrize("s", [128, 2])
+@pytest.mark.parametrize("want_tri", [True, False])
+def test_item_sweep_kernel_matches_plain(cuda, rng, s, want_tri):
+    """item_sweep on a worklist wave (S = 128: the flat cull; S = 2: more
+    than 2048 clusters, the 2-level cull) against item_sweep_plain: t bit
+    for bit, tri and occlusion exact, over every item row."""
+    acc = _accel(cuda, s=s)
+    # these rays leave the surface in random directions: at S = 2 their
+    # blocks see hundreds of clusters, so the caps are opened
+    kw = {} if s == 128 else dict(cap=1024, item_budget=64,
+                                  super_cap=acc.num_supers)
+    pack, rays, wl = _worklist_wave(acc, rng, 1 << 13, shadow=not want_tri,
+                                    **kw)
+    n_items = int(wl.n_items)
+    assert n_items > 0
+    args = (pack, rays, wl.item_block, wl.ibase, wl.order_g, wl.n_cand,
+            n_items, want_tri)
+    before = cuda_items.launches
+    k = cuda_items.item_sweep(*args)
+    assert cuda_items.launches == before + 1
+    p = cuda_items.item_sweep_plain(*args)
+    torch.cuda.synchronize()
+    if want_tri:
+        assert torch.equal(k[0].view(torch.int32), p[0].view(torch.int32))
+        assert torch.equal(k[1], p[1])
+        assert (k[1] != cuda_ctiles.I32_MAX).any()
+    else:
+        assert torch.equal(k[0], p[0]) and k[0].any()
+
+
+def test_item_sweep_uncompiled_shapes_raise(cuda, rng):
+    acc = _accel(cuda, s=64)
+    pack, rays, wl = _worklist_wave(acc, rng, 1 << 10, shadow=False)
+    with pytest.raises(ValueError, match="S = 64"):
+        cuda_items.item_sweep(pack, rays, wl.item_block, wl.ibase, wl.order_g,
+                              wl.n_cand, int(wl.n_items), True)
+    with pytest.raises(ValueError, match="g = 2"):
+        cuda_items.item_sweep(pack, rays, wl.item_block, wl.ibase,
+                              wl.order_g[:, :, :2].contiguous(), wl.n_cand,
+                              int(wl.n_items), True)
+
+
+@pytest.mark.parametrize("backend", ["worklist", "pairs", "packets"])
+def test_worklist_pairs_packets_renders_on_gpu(cuda, backend):
+    """Past 2048 clusters (blob subdiv 4 in clusters of two triangles: 2,564
+    clusters) the default is the worklist backend, through item_sweep;
+    pairs and packets by name. Each image equals the oracle's bitwise."""
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import oracle, wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+    from path_tracer_ai_tpu_torch.scene.scene import blob_scene
+
+    scene = blob_scene(subdivisions=4, device=cuda)
+    acc = build_clusters(scene.triangles, cluster_size=2)
+    assert acc.num_clusters > 2048
+    s = RenderSettings(width=32, height=18, samples_per_pixel=2,
+                       max_bounces=3, seed=3)
+    cam = default_camera(cuda)
+    kw = {} if backend == "worklist" else dict(backend=backend)
+    assert wavefront.resolve_backend(acc, 64, False, kw.get("backend")) \
+        == backend
+    before = (cuda_items.launches, cuda_ctiles.launches)
+    img = wavefront.render(scene, cam, s, accel=acc, wave_size=1 << 11,
+                           device=cuda, **kw)
+    if backend == "worklist":
+        assert cuda_items.launches > before[0]
+    else:
+        assert cuda_ctiles.launches > before[1]
+    np.testing.assert_array_equal(img, oracle.render(scene, cam, s,
+                                                     device=cuda))

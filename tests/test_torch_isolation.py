@@ -94,7 +94,10 @@ def _constructor_calls():
     import numpy as np
     import torch
 
-    from path_tracer_ai_tpu_torch import cli, convert
+    from types import SimpleNamespace
+
+    from path_tracer_ai_tpu_torch import benchmarks, cli, convert
+    from path_tracer_ai_tpu_torch.accel.clusters import build_clusters
     from path_tracer_ai_tpu_torch.core.types import triangles_from_numpy
     from path_tracer_ai_tpu_torch.scene import camera, cornell
 
@@ -120,6 +123,10 @@ def _constructor_calls():
         "build_cornell_scene": lambda: cornell.build_cornell_scene()[0]
         .triangles.v0,
         "cli": lambda: torch.empty(0, device=cli.cli_device()),
+        "build_clusters": lambda: build_clusters(SimpleNamespace(
+            v0=f(2, 3), v1=f(2, 3) + 1, v2=f(2, 3) + 2), cluster_size=2).v0,
+        "build_config_scene": lambda: benchmarks.build_config_scene(
+            benchmarks.get_configs()["cornell"])[0].triangles.v0,
     }
 
 

@@ -224,16 +224,43 @@ def test_fused_render_matches_jax_fused(both, monkeypatch):
     _assert_close(img, ref)
 
 
-@pytest.mark.parametrize("backend", ["packets", "worklist", "kslots", "ctiles",
-                                     "pairs", "perray", "no_such_backend"])
+@pytest.mark.parametrize("backend", ["kslots", "ctiles", "perray",
+                                     "no_such_backend"])
 def test_unported_backends_raise(both, backend):
     with pytest.raises(ValueError, match=backend):
         _port_render(both, backend=backend)
 
 
+@pytest.mark.parametrize("backend", ["packets", "worklist", "pairs"])
+def test_ported_backends_render_equal_oracle(both, port_images, backend):
+    """The worklist, pairs and packets backends (once raising here, as
+    unported) on the base accel: the image equals the oracle's bit for
+    bit."""
+    stats = wavefront.RenderStats()
+    img = _port_render(both, backend=backend, block_size=64, stats=stats)
+    np.testing.assert_array_equal(img, port_images["oracle"])
+    assert stats.closest_rays > 0 and stats.shadow_rays > 0
+
+
+def test_hybrid_worklist_shadow_engine_renders(both, port_images,
+                                               monkeypatch):
+    """The hybrid backend's shadow engine "worklist" (any_hit_worklist with
+    HYBRID_OCCLUDE_KW's options; once raising as unported): occlusion is
+    exact, so the image is the oracle's."""
+    monkeypatch.setattr(wavefront, "HYBRID_OCCLUDE_KW",
+                        dict(engine="worklist", sort=False))
+    img = _port_render(both, accel_closest=both["accel_c"])
+    np.testing.assert_array_equal(img, port_images["oracle"])
+
+
+def test_worklist_packets_exact_shadows_raise(both, monkeypatch):
+    monkeypatch.setattr(wavefront, "WORKLIST_OCCLUDE_ENGINE", "packets_exact")
+    with pytest.raises(ValueError, match="exact_cull"):
+        _port_render(both, backend="worklist")
+
+
 @pytest.mark.parametrize("closest_kw,occlude_kw,match", [
     (dict(engine="ctiles"), dict(engine="ctiles"), "ctiles"),
-    (dict(engine="ctiles"), dict(engine="worklist"), "worklist"),
     (dict(engine="pairs"), dict(engine="packets"), "pairs"),
     (dict(engine="ctiles"), dict(engine="packets", exact_cull=6), "exact_cull"),
     (dict(engine="ctiles"), dict(engine="packets_fused", exact_cull=16),
@@ -256,9 +283,9 @@ def test_block_size_one_means_perray(both):
 
 
 def test_default_render_past_2048_clusters():
-    """The reference sends such scenes to its worklist backend; until that
-    is ported the default stays the hybrid backend, which has no cluster
-    limit (backend="worklist" by name raises, above)."""
+    """Such scenes go to the worklist backend, as in the reference (its
+    2-level cull: 2,564 clusters in 161 supers), and the image equals the
+    oracle's bitwise."""
     from path_tracer_ai_tpu_torch.accel.clusters import build_clusters
     from path_tracer_ai_tpu_torch.scene.camera import default_camera
     from path_tracer_ai_tpu_torch.scene.scene import blob_scene
@@ -266,7 +293,7 @@ def test_default_render_past_2048_clusters():
     scene = blob_scene(4, device="cpu")
     accel = build_clusters(scene.triangles, cluster_size=2, device="cpu")
     assert accel.num_clusters > 2048
-    assert wavefront.resolve_backend(accel, 64, False, None) == "hybrid"
+    assert wavefront.resolve_backend(accel, 64, False, None) == "worklist"
     settings = RenderSettings(width=16, height=9, samples_per_pixel=1,
                               max_bounces=2, seed=1)
     img = wavefront.render(scene, default_camera(device="cpu"), settings, accel=accel,
