@@ -4,6 +4,8 @@
     python3 chip_smoke.py --kernels-only  # phases 1-3b, then stop (no "ok" line)
     python3 chip_smoke.py --kernels-only --sass out/sass
         # also: cuobjdump's SASS of every library into a directory
+    python3 chip_smoke.py --mesh-cards    # needs two cards or more:
+        # phases 1-2, the scene, main_path, then mesh_cards (no "ok" line)
 
 Phases (each prints one JSON line; any failure exits non-zero):
   1. device       CUDA must be available; the card's name and power limit.
@@ -90,7 +92,48 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   `bench` runs `python -m path_tracer_ai_tpu_torch.bench
                   --quick`, whose stdout must be one JSON line with a
                   value > 0.
-Then the kernels line (six kernels: the five and item_sweep), and last
+  9. path_pool    the bench render with scheduler="pool" (one pool of
+                  2^20 lanes a pixel chunk, refilled as paths end; closest
+                  waves on the S=128 accel), warm then timed: seconds, live
+                  Mrays/s, host syncs, pool iterations a chunk, tile_sweep
+                  launches by shape. Its image must equal the main path's
+                  bit for bit, or differ only at pixels whose traced paths
+                  (each sample through both routes and the oracle) meet an
+                  exact t tie between two triangles, the one place where
+                  the exact routes may part (ROADMAP §3); any other
+                  difference fails.
+  10. path_mesh   parallel.mesh: render_sharded_wavefront over a virtual
+                  (2, 2) mesh of the one card, and render(tile_devices=8)
+                  (a 1x1 mesh on one card), both held to the main path's
+                  image as path_pool is; render_sharded (scheduler "fused",
+                  blocks of 256: tile_sweep at T 256) at the bench cell if
+                  960x540 predicts it under 60 s, else at 960x540 (against
+                  the main path at that size). The kernel phase checks
+                  tile_sweep at (T 256, S 128, G 2) too.
+  11. config_4k   benchmarks.run_config("4k", scale=1/1024): 3840x2160, 1
+                  spp, 16 bounces, progressive with a checkpoint under a
+                  temporary directory, through tile_devices=8; finite, no
+                  magenta; the same call again resumes from the finished
+                  checkpoint with no work (no ray, no launch) and the same
+                  image.
+  12. exact_cull  the main path with HYBRID_OCCLUDE_KW's exact_cull=6
+                  (bitwise the main path's image; on the kept wave 0,
+                  bounce 1 shadow wave: candidates per live block, mean /
+                  p99 / max, exact against conservative, and the wave's
+                  device ms under each cull); the fused path with
+                  exact_cull=16 in both engines (bitwise the fused path's
+                  image); the worklist cell's kept shadow wave through
+                  any_hit_worklist and the "packets_exact" cascade (device
+                  ms, the same occlusion). consistency also renders the
+                  worklist route with WORKLIST_OCCLUDE_ENGINE =
+                  "packets_exact" (bitwise the oracle).
+  mesh_cards      (--mesh-cards only) render_sharded_wavefront at the bench
+                  cell over a mesh of distinct cards ((2, 2) on four, (n, 1)
+                  on two or three) and over a virtual (2, 2) mesh of cuda:0,
+                  each warm and then timed, both held to the main path's
+                  image as path_pool is.
+Then the kernels line (six kernels: the five and item_sweep; launches on
+every path, the new ones under new_path_launches), and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -589,6 +632,9 @@ def phase_kernels(accel_base, accel_c):
                                                     rng, reps=20)
     out["tile_sweep_t64_g8"] = _check_tile_sweep(accel_base, 64, 2048, rng,
                                                  reps=20, g=8)
+    # render_sharded's shadow cascade: blocks of 256, groups of 2
+    out["tile_sweep_t256_g2"] = _check_tile_sweep(accel_base, 256, 2048, rng,
+                                                  reps=20, g=2)
     return out
 
 
@@ -759,6 +805,8 @@ def _bench_render(phase, scene, card, kernels, warm_small, engines=None,
            "launches": launches, "tile_sweep_shapes": tile_shapes,
            "host_syncs": syncs,
            "overflow_fallback": dict(worklist.fallback_counts)}
+    if stats.pool_iterations:
+        res["pool_iterations_per_chunk"] = stats.pool_iterations
     image_ok = _image_verdict(img, res)
     missing = [k for k in kernels if launches[k] <= 0]
     return res, img, missing, image_ok
@@ -820,7 +868,7 @@ def phase_path_fused(scene, accel_base, card, img_main):
     _finish_path(res, missing, image_ok)
     if not res["bitwise_equal_to_main"]:
         fail("path_fused", "image differs from the main path's")
-    return res
+    return res, img
 
 
 def _device_us(evt) -> float:
@@ -990,6 +1038,12 @@ def phase_consistency():
     wl = res["worklist_route"]
     if wl["default_backend"] != "worklist" or not wl["worklist"]["bitwise"]:
         fail("consistency", f"the worklist route: {wl}")
+    ex = wl["packets_exact"]
+    if not ex["bitwise"] or min(ex["launches"]["item_sweep"],
+                                ex["launches"]["tile_sweep"]) <= 0:
+        fail("consistency", f"the worklist route with packets_exact shadows "
+                            f"(bitwise the oracle, item_sweep and tile_sweep "
+                            f"launched): {ex}")
     if any(wl[b]["pixels_over_1e-5"] for b in ("pairs", "packets")):
         fail("consistency", f"pairs or packets backend differ from the "
                             f"oracle beyond 1e-5: {wl}")
@@ -1008,8 +1062,9 @@ def phase_consistency():
 def _consistency_worklist(scene, cam, img_oracle, kw):
     """The blob subdiv 4 of the consistency phase in clusters of two
     triangles (more than 2048: the default routing picks the worklist
-    backend, with its 2-level cull), and the pairs and packets backends on
-    the same accel, against the oracle's rr-off image."""
+    backend, with its 2-level cull), the pairs and packets backends on the
+    same accel, and the worklist backend with WORKLIST_OCCLUDE_ENGINE =
+    "packets_exact", against the oracle's rr-off image."""
     from path_tracer_ai_tpu_torch.accel.clusters import build_clusters
     from path_tracer_ai_tpu_torch.config import RenderSettings
     from path_tracer_ai_tpu_torch.engine import wavefront
@@ -1019,11 +1074,15 @@ def _consistency_worklist(scene, cam, img_oracle, kw):
                               max_bounces=5, seed=0)
     out = {"clusters": acc.num_clusters, "supers": acc.num_supers,
            "default_backend": wavefront.resolve_backend(acc, 64, False, None)}
-    for name, backend in (("worklist", None), ("pairs", "pairs"),
-                          ("packets", "packets")):
+    routes = (("worklist", None, None), ("pairs", "pairs", None),
+              ("packets", "packets", None),
+              ("packets_exact", None,
+               {"WORKLIST_OCCLUDE_ENGINE": "packets_exact"}))
+    for name, backend, tables in routes:
         _reset_counts()
-        img = wavefront.render(scene, cam, settings, accel=acc,
-                               backend=backend, **kw)
+        with _engines(tables):
+            img = wavefront.render(scene, cam, settings, accel=acc,
+                                   backend=backend, **kw)
         diff = np.abs(img - img_oracle).max(axis=-1)
         out[name] = {"bitwise": bool(np.array_equal(img, img_oracle)),
                      "max_abs_diff": float(diff.max()),
@@ -1500,6 +1559,456 @@ def phase_profile_worklist(waves, card):
     return out
 
 
+# --- the pool, the mesh, the 4k configuration and the exact cull -------------
+
+# Differing pixels that the tie check traces, at most.
+TIE_CHECK_PIXELS = 32
+
+
+def _route_backends(accel_base, accel_c, route):
+    """(bounce-0 backend, later backend) of a route of the bench render:
+    "main" (the main path: S=256 closest accel, bounce 0 unsorted), or
+    "s128" (the pool's and the mesh's: one hybrid backend on the S=128
+    accel, sorted at every bounce)."""
+    from path_tracer_ai_tpu_torch.engine import wavefront
+
+    if route == "main":
+        kw = dict(backend="hybrid", accel_closest=accel_c, packs={})
+        return (wavefront.packet_backend(accel_base, 64, occlude_sort=False,
+                                         closest_sort=False, **kw),
+                wavefront.packet_backend(accel_base, 64, **kw))
+    backend = wavefront.packet_backend(accel_base, 64)
+    return backend, backend
+
+
+def _trace_sample(scene, backends, x, y, s, record, size):
+    """One sample of pixel (x, y) of a (width, height) frame through a
+    route's backends, alone in a block of 64 lanes (the padding lanes
+    replay pixel 0): each bounce's closest (t, tri) of that lane into
+    `record`."""
+    from path_tracer_ai_tpu_torch.core import threefry
+    from path_tracer_ai_tpu_torch.engine import tracer, wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+
+    w, h = size
+    t = lambda v: torch.tensor([v], dtype=torch.int64, device="cuda")
+    o, d, keys, _ = wavefront._wave_gen(
+        default_camera("cuda"), threefry.key(BENCH["seed"], device="cuda"),
+        t(x), t(y), s, w=w, h=h, sc=1, lanes_padded=64, aspect=16 / 9)
+    beta = torch.ones_like(o)
+    rad = torch.zeros_like(o)
+    alive = torch.ones((64,), dtype=torch.bool, device="cuda")
+    for depth in range(BENCH["max_bounces"]):
+        closest, occlude = backends[0 if depth == 0 else 1]
+
+        def logged(o_, d_, t_min, t_max, closest=closest):
+            hit = closest(o_, d_, t_min, t_max)
+            record.append((float(hit.t[0]), int(hit.tri[0]))
+                          if bool(alive[0]) else None)
+            return hit
+
+        o, d, beta, rad, alive, _, _ = tracer.bounce_step(
+            scene, logged, occlude, o, d, beta, rad, alive, keys, depth)
+
+
+def _tied_on_path(scene, x, y, s, size) -> list:
+    """The oracle's path of one sample: at each bounce its closest t and how
+    many triangles reach that t exactly (brute force over all of them)."""
+    from path_tracer_ai_tpu_torch.core.geometry import moller_trumbore
+    from path_tracer_ai_tpu_torch.engine import tracer
+
+    tris = scene.triangles
+    base_closest, occlude = tracer.brute_force_backend(scene)
+    out = []
+
+    def counted(o_, d_, t_min, t_max):
+        hit = base_closest(o_, d_, t_min, t_max)
+        if bool(t_max[0] >= 0):
+            ts = moller_trumbore(o_[:1], d_[:1], tris.v0, tris.v1, tris.v2,
+                                 t_min, t_max[:1]).t[0]
+            best = float(hit.t[0])
+            out.append({"t": best, "tri": int(hit.tri[0]),
+                        "n_at_t": int((ts == best).sum())
+                        if np.isfinite(best) else 0})
+        return hit
+
+    _trace_sample(scene, ((counted, occlude),) * 2, x, y, s, [], size)
+    return out
+
+
+def _differences(phase, scene, img, img_main, accel_base, accel_c,
+                 route="s128") -> dict:
+    size = (img.shape[1], img.shape[0])
+    """How an image differs from the main path's. Where pixels differ, the
+    first TIE_CHECK_PIXELS of them are traced (each sample on both routes
+    and through the oracle); `explained` holds only if every one of them
+    has, on its oracle path, a bounce whose closest t is reached exactly by
+    two or more triangles: the only place where the exact routes may part
+    (the packet cascade's first-slot rule against min tri, ROADMAP §3)."""
+    diff = np.abs(img - img_main).max(axis=-1)
+    ys, xs = np.nonzero(diff > 0)
+    out = {"bitwise_equal_to_main": len(xs) == 0,
+           "pixels_differing_from_main": int(len(xs)),
+           "max_abs_diff_vs_main": float(diff.max())}
+    if not len(xs):
+        return out
+    routes = {"main": _route_backends(accel_base, accel_c, "main"),
+              route: _route_backends(accel_base, accel_c, route)}
+    traced = []
+    for x, y in list(zip(xs.tolist(), ys.tolist()))[:TIE_CHECK_PIXELS]:
+        pix = {"pixel": [x, y], "samples": []}
+        for s in range(BENCH["samples_per_pixel"]):
+            sample = {"sample": s,
+                      "oracle": _tied_on_path(scene, x, y, s, size)}
+            for name, backends in routes.items():
+                sample[name] = []
+                _trace_sample(scene, backends, x, y, s, sample[name], size)
+            pix["samples"].append(sample)
+        pix["tie_on_path"] = any(b["n_at_t"] >= 2 for smp in pix["samples"]
+                                 for b in smp["oracle"])
+        traced.append(pix)
+    out["traced_pixels"] = traced
+    out["explained"] = (len(xs) <= TIE_CHECK_PIXELS
+                        and all(p["tie_on_path"] for p in traced))
+    print(f"{phase}: {len(xs)} pixels differ from the main path; first: "
+          f"{json.dumps(traced[:4])}", flush=True)
+    return out
+
+
+def _image_against_main(phase, res, scene, img, img_main, accel_base,
+                        accel_c):
+    res.update(_differences(phase, scene, img, img_main, accel_base,
+                            accel_c))
+    if not (res["bitwise_equal_to_main"] or res["explained"]):
+        emit(res)
+        fail(phase, f"{res['pixels_differing_from_main']} pixels differ from "
+                    "the main path's, not all at exact t ties")
+
+
+def phase_path_pool(scene, accel_base, accel_c, card, img_main):
+    """The bench render with scheduler="pool" (a pool of 2^20 lanes a pixel
+    chunk, closest waves on the S=128 accel), warm and timed, against the
+    main path's image."""
+    res, img, missing, image_ok = _bench_render(
+        "path_pool", scene, card, ["tile_sweep"], warm_small=False,
+        accel=accel_base, scheduler="pool")
+    _image_against_main("path_pool", res, scene, img, img_main, accel_base,
+                        accel_c)
+    _finish_path(res, missing, image_ok)
+    return res
+
+
+def _timed_mesh_render(phase, card, render, main_seconds):
+    """render(stats) with the counts set to 0 just before it, read just
+    after; its wall time also over the main path's render seconds."""
+    from path_tracer_ai_tpu_torch.engine import wavefront
+    from path_tracer_ai_tpu_torch.utils import sync
+
+    _reset_counts()
+    stats = wavefront.RenderStats()
+    t0 = time.perf_counter()
+    img = render(stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = {"phase": phase, "card": card, "wall_seconds": wall,
+           "wall_over_main_path_seconds": wall / main_seconds,
+           "seconds": stats.seconds, "closest_rays": stats.closest_rays,
+           "shadow_rays": stats.shadow_rays,
+           "mrays_per_s": stats.mrays_per_s, "launches": _read_counts(),
+           "tile_sweep_shapes": _tile_shapes(), "host_syncs": sync.count}
+    return res, img, _image_verdict(img, res)
+
+
+def phase_path_mesh(scene, accel_base, accel_c, card, img_main,
+                    main_seconds):
+    """The bench render over a virtual (2, 2) mesh on the one card
+    (render_sharded_wavefront), through render(tile_devices=8) (a 1x1 mesh
+    on one card), and through render_sharded (scheduler "fused", blocks of
+    256) at the bench cell if 960x540 predicts under 60 s, else at
+    960x540."""
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import wavefront
+    from path_tracer_ai_tpu_torch.parallel import mesh
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+
+    cam = default_camera("cuda")
+    settings = RenderSettings(**BENCH)
+    card0 = torch.device("cuda", 0)
+    out = {}
+    virtual = mesh.make_mesh(2, 2, devices=[card0] * 4)
+    res, img, image_ok = _timed_mesh_render(
+        "path_mesh", card, lambda st: mesh.render_sharded_wavefront(
+            scene, cam, settings, virtual, accel=accel_base, stats=st),
+        main_seconds)
+    res["route"] = ("render_sharded_wavefront, mesh (2, 2) of cuda:0, "
+                    f"pix_chunk {mesh.PIX_CHUNK}")
+    _image_against_main("path_mesh", res, scene, img, img_main, accel_base,
+                        accel_c)
+    _finish_path(res, [] if res["launches"]["tile_sweep"] else ["tile_sweep"],
+                 image_ok)
+    out["virtual_2x2"] = res
+
+    res, img, image_ok = _timed_mesh_render(
+        "path_mesh", card, lambda st: wavefront.render(
+            scene, cam, settings, accel=accel_base, tile_devices=8,
+            stats=st, device="cuda"), main_seconds)
+    res["route"] = (f"render(tile_devices=8): {torch.cuda.device_count()} "
+                    "card(s), a 1x1 mesh on one")
+    _image_against_main("path_mesh", res, scene, img, img_main, accel_base,
+                        accel_c)
+    _finish_path(res, [] if res["launches"]["tile_sweep"] else ["tile_sweep"],
+                 image_ok)
+    out["tile_devices_8"] = res
+
+    one = mesh.make_mesh(1, 1, devices=[card0])
+    small = settings.replace(width=960, height=540)
+    sharded = lambda s: (lambda st: mesh.render_sharded(
+        scene, cam, s, one, accel=accel_base))
+    res, img, image_ok = _timed_mesh_render("path_mesh", card, sharded(small),
+                                            main_seconds)
+    small_wall = res["wall_seconds"]
+    predicted = 4 * small_wall
+    res["route"] = "render_sharded (fused), blocks of 256, 960x540"
+    size = "960x540"
+    if predicted < 60.0:
+        res, img, image_ok = _timed_mesh_render("path_mesh", card,
+                                                sharded(settings),
+                                                main_seconds)
+        res["route"] = "render_sharded (fused), blocks of 256, bench cell"
+        size = "bench cell"
+        _image_against_main("path_mesh", res, scene, img, img_main,
+                            accel_base, accel_c)
+    else:
+        ref = wavefront.render(scene, cam, small, accel=accel_base,
+                               accel_closest=accel_c, device="cuda")
+        res["bitwise_equal_to_main_path_at_960x540"] = bool(
+            np.array_equal(img, ref))
+        if not res["bitwise_equal_to_main_path_at_960x540"]:
+            _image_against_main("path_mesh", res, scene, img, ref,
+                                accel_base, accel_c)
+    res.update(size=size, wall_seconds_960x540=small_wall,
+               predicted_bench_cell_seconds=predicted)
+    t256 = [sh for sh in res["tile_sweep_shapes"] if sh["T"] == 256]
+    _finish_path(res, [] if t256 else ["tile_sweep at T 256"], image_ok)
+    out["render_sharded"] = res
+    return out
+
+
+def phase_mesh_cards(scene, accel_base, accel_c, card, img_main,
+                     main_seconds):
+    """The bench render over a mesh of distinct cards ((2, 2) on four or
+    more, (n, 1) on two or three) and, in the same run, over a virtual
+    (2, 2) mesh of cuda:0: each warm (a 96x54 render on its mesh), then
+    timed, and each image against the main path's."""
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.parallel import mesh
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        fail("mesh_cards", f"needs two cards or more, has {n}")
+    settings = RenderSettings(**BENCH)
+    warm = settings.replace(width=96, height=54)
+    cards = [torch.device("cuda", i) for i in range(min(n, 4))]
+    cam = default_camera(cards[0])
+    shape = (2, 2) if len(cards) == 4 else (len(cards), 1)
+    out = {}
+    for name, grid in (("cards", mesh.make_mesh(*shape, devices=cards)),
+                       ("virtual_2x2", mesh.make_mesh(
+                           2, 2, devices=[cards[0]] * 4))):
+        mesh.render_sharded_wavefront(scene, cam, warm, grid,
+                                      accel=accel_base)
+        torch.cuda.synchronize()
+        res, img, image_ok = _timed_mesh_render(
+            "mesh_cards", card, lambda st: mesh.render_sharded_wavefront(
+                scene, cam, settings, grid, accel=accel_base, stats=st),
+            main_seconds)
+        res["route"] = ("render_sharded_wavefront, mesh "
+                        f"{tuple(grid.shape.values())} of "
+                        f"{[str(d) for row in grid.devices for d in row]}")
+        _image_against_main("mesh_cards", res, scene, img, img_main,
+                            accel_base, accel_c)
+        _finish_path(res, [] if res["launches"]["tile_sweep"]
+                     else ["tile_sweep"], image_ok)
+        out[name] = res
+    return out
+
+
+def phase_config_4k(card):
+    """benchmarks.run_config("4k", scale=1/1024): 3840x2160, 1 spp, 16
+    bounces, progressive (a checkpoint a pass) through tile_devices=8;
+    then the same call again on its checkpoint, which must do no work and
+    return the same image."""
+    from path_tracer_ai_tpu_torch import benchmarks
+    from path_tracer_ai_tpu_torch.utils import sync
+
+    res = {"phase": "config_4k", "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "4k.npz")
+        _reset_counts()
+        t0 = time.perf_counter()
+        img, stats = benchmarks.run_config("4k", scale=1 / 1024,
+                                           checkpoint_path=ck, device="cuda")
+        res.update(wall_seconds=time.perf_counter() - t0,
+                   seconds=stats.seconds, closest_rays=stats.closest_rays,
+                   shadow_rays=stats.shadow_rays,
+                   mrays_per_s=stats.mrays_per_s, launches=_read_counts(),
+                   tile_sweep_shapes=_tile_shapes(), host_syncs=sync.count,
+                   shape=list(img.shape))
+        _reset_counts()
+        t0 = time.perf_counter()
+        again, stats2 = benchmarks.run_config("4k", scale=1 / 1024,
+                                              checkpoint_path=ck,
+                                              device="cuda")
+        res["resume"] = {"wall_seconds": time.perf_counter() - t0,
+                         "rays": stats2.total_rays,
+                         "launches": _read_counts(),
+                         "bitwise_equal": bool(np.array_equal(again, img))}
+    res["finite"] = bool(np.isfinite(img).all())
+    res["magenta_pixels"] = int(np.all(
+        img == np.asarray([1.0, 0.0, 1.0], np.float32), axis=-1).sum())
+    res["image_mean"] = float(img.mean())
+    emit(res)
+    if img.shape != (2160, 3840, 3) or not res["finite"] \
+            or res["magenta_pixels"]:
+        fail("config_4k", "bad 4k image (shape, non-finite or magenta)")
+    if res["launches"]["tile_sweep"] <= 0:
+        fail("config_4k", "the 4k render launched no tile_sweep kernel")
+    r = res["resume"]
+    if r["rays"] or any(r["launches"].values()) or not r["bitwise_equal"]:
+        fail("config_4k", f"the resume from a finished checkpoint: {r}")
+    return res
+
+
+def _event_ms(fn) -> float:
+    """Device ms of one call (CUDA events around it, host waits included)
+    after a warm call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _candidates(values) -> dict:
+    v = values.double()
+    return {"mean": float(v.mean()), "p99": float(torch.quantile(v, 0.99)),
+            "max": int(values.max())}
+
+
+def _shadow_wave_culls(args, kw, ksup) -> dict:
+    """Candidates per live block of a kept any_hit_packets wave under the
+    conservative and the exact cull (sorted as the cascade sorts it), and
+    the wave's device ms under each."""
+    from path_tracer_ai_tpu_torch.accel import traverse
+
+    accel, o, d, t_min, t_max = args
+    b = kw.get("block_size", 256)
+    os_, ds, ts, _ = traverse._sort_rays(accel, o, d, t_max, "dir")
+    blk = (os_.reshape(-1, b, 3), ds.reshape(-1, b, 3), ts.reshape(-1, b))
+    live = traverse.live_block_count(blk[2])
+    _, n_cons, _ = traverse._block_candidates(accel, *blk)
+    _, n_ex, _ = traverse._exact_block_candidates(accel, *blk, t_min,
+                                                  ksup=ksup, live_blocks=live)
+    base = {k: v for k, v in kw.items() if k != "exact_cull"}
+    occ_c = traverse.any_hit_packets(*args, **base)
+    occ_e = traverse.any_hit_packets(*args, **base, exact_cull=ksup)
+    return {"rays": int(o.shape[0]), "blocks": blk[2].shape[0],
+            "live_blocks": live,
+            "conservative": _candidates(n_cons[:live]),
+            "exact": _candidates(n_ex[:live]),
+            # blocks past the super shortlist keep the conservative list
+            "live_blocks_with_the_conservative_count": int(
+                (n_ex[:live] == n_cons[:live]).sum()),
+            "occlusion_equal": bool(torch.equal(occ_c, occ_e)),
+            "conservative_ms": _event_ms(
+                lambda: traverse.any_hit_packets(*args, **base)),
+            "exact_ms": _event_ms(
+                lambda: traverse.any_hit_packets(*args, **base,
+                                                 exact_cull=ksup))}
+
+
+EXACT_OCCLUDE_KW = dict(engine="packets", group_size=2, exact_cull=6)
+FUSED_EXACT_ENGINES = dict(
+    HYBRID_CLOSEST_KW=dict(engine="cascade_fused", exact_cull=16),
+    HYBRID_OCCLUDE_KW=dict(engine="packets_fused", early_skip=True,
+                           sub_skip=True, exact_cull=16))
+
+
+def phase_exact_cull(scene, accel_base, accel_c, card, img_main, img_fused,
+                     worklist_waves, accel_w):
+    """The exact cull on three routes: the main path with the shadow
+    engine's exact_cull=6 (bitwise the main path's image; the kept
+    bounce-1 shadow wave's candidates per block and device ms under each
+    cull); the fused path with exact_cull=16 in both engines (bitwise the
+    fused path's image); the worklist cell's kept shadow wave through
+    any_hit_worklist and through the "packets_exact" cascade (device ms,
+    the same occlusion). The consistency phase holds "packets_exact"
+    against the oracle."""
+    from path_tracer_ai_tpu_torch.accel import traverse, worklist
+    from path_tracer_ai_tpu_torch.engine import wavefront
+
+    out = {}
+    kept = {}
+    # the first sorted shadow wave of the bench render: wave 0, bounce 1
+    real = _keeping(traverse, "any_hit_packets", kept,
+                    lambda a: a[1].shape[0] >= 1 << 21, limit=4)
+    try:
+        res, img, missing, image_ok = _bench_render(
+            "exact_cull", scene, card, ["tile_sweep"], warm_small=True,
+            engines={"HYBRID_OCCLUDE_KW": EXACT_OCCLUDE_KW},
+            accel=accel_base, accel_closest=accel_c)
+    finally:
+        traverse.any_hit_packets = real
+    res["route"] = f"main path, HYBRID_OCCLUDE_KW = {EXACT_OCCLUDE_KW}"
+    res["bitwise_equal_to_main"] = bool(np.array_equal(img, img_main))
+    waves = [c for c in kept.get(True, []) if c[1].get("sort", True)]
+    if waves:
+        args, kw = waves[0]
+        res["shadow_wave_bounce_1"] = _shadow_wave_culls(args, kw, 6)
+    _finish_path(res, missing, image_ok)
+    if not res["bitwise_equal_to_main"]:
+        fail("exact_cull", "the exact cull changed the main path's image")
+    if not waves or not res["shadow_wave_bounce_1"]["occlusion_equal"]:
+        fail("exact_cull", "no kept bounce-1 shadow wave, or its occlusion "
+                           "differs between the culls")
+    out["main"] = res
+
+    res, img, missing, image_ok = _bench_render(
+        "exact_cull", scene, card, ["block_anyhit", "block_closest"],
+        warm_small=True, engines=FUSED_EXACT_ENGINES, accel=accel_base)
+    res["route"] = "fused path, exact_cull=16 in both engines"
+    res["bitwise_equal_to_fused"] = bool(np.array_equal(img, img_fused))
+    _finish_path(res, missing, image_ok)
+    if not res["bitwise_equal_to_fused"]:
+        fail("exact_cull", "the exact cull changed the fused path's image")
+    out["fused"] = res
+
+    args, kw = worklist_waves["shadow_wave"]
+    pkw = dict(wavefront.WORKLIST_OCCLUDE_PACKETS_KW,
+               tri_pack=kw.get("tri_pack"))
+    occ_w = worklist.any_hit_worklist(*args, **kw)
+    occ_p = traverse.any_hit_packets(*args, **pkw)
+    res = {"phase": "exact_cull", "card": card,
+           "route": "worklist cell, shadow wave 0 bounce 1",
+           "rays": int(args[1].shape[0]), "clusters": accel_w.num_clusters,
+           "occlusion_equal": bool(torch.equal(occ_w, occ_p)),
+           "worklist_ms": _event_ms(
+               lambda: worklist.any_hit_worklist(*args, **kw)),
+           "packets_exact_ms": _event_ms(
+               lambda: traverse.any_hit_packets(*args, **pkw))}
+    emit(res)
+    if not res["occlusion_equal"]:
+        fail("exact_cull", "packets_exact and the worklist disagree on the "
+                           "worklist cell's shadow wave")
+    out["worklist_wave"] = res
+    return out
+
+
 # name -> (source under path_tracer_ai_tpu_torch/csrc, TPU kernel it replaces,
 #          phase whose render gives its launch count)
 KERNELS = {
@@ -1526,6 +2035,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
                         help="build and check the kernels, then stop")
+    parser.add_argument("--mesh-cards", action="store_true",
+                        help="build the kernels, render the main path, then "
+                        "the bench render over a mesh of distinct cards "
+                        "(needs two or more) and a virtual one, and stop")
     parser.add_argument("--sass", metavar="DIR",
                         help="write cuobjdump's SASS of every library there")
     args = parser.parse_args()
@@ -1549,6 +2062,11 @@ def main() -> int:
           "clusters_s256": accel_c.num_clusters,
           "seconds": time.perf_counter() - t0})
 
+    if args.mesh_cards:
+        render, img_main = phase_main_path(scene, accel_base, accel_c, card)
+        phase_mesh_cards(scene, accel_base, accel_c, card, img_main,
+                         render["seconds"])
+        return 0
     checks = phase_kernels(accel_base, accel_c)
     sweep_waves = phase_sweep_waves(scene, accel_base, card)
     scene_w, accel_w = worklist_scene()
@@ -1566,7 +2084,8 @@ def main() -> int:
                        paths["path_pallas"]["seconds"],
                        ["closest_sweep_kernel", "anyhit_sweep_kernel"],
                        backend="pallas", block_size=64)
-    paths["path_fused"] = phase_path_fused(scene, accel_base, card, img_main)
+    paths["path_fused"], img_fused = phase_path_fused(scene, accel_base,
+                                                      card, img_main)
     phase_profile_path("profile_fused", scene, accel_base,
                        paths["path_fused"]["seconds"],
                        ["block_closest_kernel", "block_anyhit_kernel"],
@@ -1577,14 +2096,31 @@ def main() -> int:
     phase_consistency()
     cli = phase_cli(card)
     phase_bench(card)
+    paths["path_pool"] = phase_path_pool(scene, accel_base, accel_c, card,
+                                         img_main)
+    meshes = phase_path_mesh(scene, accel_base, accel_c, card, img_main,
+                             render["seconds"])
+    paths["config_4k"] = phase_config_4k(card)
+    exact = phase_exact_cull(scene, accel_base, accel_c, card, img_main,
+                             img_fused, worklist_waves, accel_w)
+    new_paths = {"path_pool": paths["path_pool"],
+                 "path_mesh_virtual_2x2": meshes["virtual_2x2"],
+                 "path_mesh_tile_devices_8": meshes["tile_devices_8"],
+                 "render_sharded": meshes["render_sharded"],
+                 "config_4k": paths["config_4k"],
+                 "exact_cull_main": exact["main"],
+                 "exact_cull_fused": exact["fused"]}
 
     emit({"phase": "tile_sweep_shapes", "card": card, "checks": [
         {k: checks[name][k] for k in ("T", "S", "G", "nt", "ms", "bound_ms",
                                       "ms_over_bound", "matches_plain")}
         for name in ("tile_sweep", "tile_sweep_t64", "tile_sweep_t64_g2",
-                     "tile_sweep_t128_s128", "tile_sweep_t64_g8")],
+                     "tile_sweep_t128_s128", "tile_sweep_t64_g8",
+                     "tile_sweep_t256_g2")],
         "main_path_launches": render["tile_sweep_shapes"],
-        "worklist_path_launches": paths["path_worklist"]["tile_sweep_shapes"]})
+        "worklist_path_launches": paths["path_worklist"]["tile_sweep_shapes"],
+        **{f"{k}_launches": v["tile_sweep_shapes"]
+           for k, v in new_paths.items()}})
     emit({"kernels": [{
         "name": name, "route": "cuda",
         "source": "path_tracer_ai_tpu_torch/csrc/" + source,
@@ -1592,6 +2128,8 @@ def main() -> int:
         "launches": paths[phase]["launches"][name],
         "cli_launches": cli["launches"][name],
         "cli_pallas_launches": cli["pallas"]["launches"][name],
+        "new_path_launches": {k: v["launches"][name]
+                              for k, v in new_paths.items()},
         "matches_plain": checks[name]["matches_plain"],
         "max_abs_err": checks[name]["max_abs_err"], "ms": checks[name]["ms"],
         "plain_ms": checks[name]["plain_ms"],

@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from path_tracer_ai_tpu_torch import cuda_build
 from path_tracer_ai_tpu_torch.accel import cuda_ctiles, traverse
 from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
     NO_INSTANCE,
@@ -38,6 +39,7 @@ from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
     sub_pred,
     sweep_rows_plain,
 )
+from path_tracer_ai_tpu_torch.core.types import RAY_TMIN
 from path_tracer_ai_tpu_torch.utils import sync
 
 GROUP = 8  # candidate clusters consumed per block per cascade iteration
@@ -150,8 +152,6 @@ def check_fused_inputs(tri_pack, rays_pack, cid8):
 
 
 def _kernel():
-    from path_tracer_ai_tpu_torch import cuda_build
-
     fn = cuda_build.load(SOURCE).block_anyhit
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -162,8 +162,6 @@ def _kernel():
 def kernel_occupancy(s: int, t_lanes: int) -> dict:
     """Registers per thread and resident warps per SM of block_anyhit's
     (S, T) instance (needs the card)."""
-    from path_tracer_ai_tpu_torch import cuda_build
-
     return read_occupancy(cuda_build.load(SOURCE).block_anyhit_occupancy,
                           s, t_lanes)
 
@@ -183,9 +181,10 @@ def block_anyhit(tri_pack, rays_pack, cid8, early_skip=False, sub_skip=False):
     occ = torch.empty((size, t_lanes), dtype=torch.bool, device=dev)
     if size == 0:
         return occ
-    err = _kernel()(tri_pack.data_ptr(), rays_pack.data_ptr(), cid8.data_ptr(),
-                    occ.data_ptr(), size, s, t_lanes, dummy, int(early_skip),
-                    int(sub_skip), torch.cuda.current_stream(dev).cuda_stream)
+    err = cuda_build.launch(
+        _kernel(), dev, tri_pack.data_ptr(), rays_pack.data_ptr(),
+        cid8.data_ptr(), occ.data_ptr(), size, s, t_lanes, dummy,
+        int(early_skip), int(sub_skip))
     if err == NO_INSTANCE:
         raise ValueError(f"block_anyhit has no compiled instance for S = {s}, "
                          f"T = {t_lanes} (S in 64, 128, 256; T in 64, 128)")
@@ -196,10 +195,13 @@ def block_anyhit(tri_pack, rays_pack, cid8, early_skip=False, sub_skip=False):
 
 
 def prepare_fused_wave(accel, origins, directions, t_max, block_size, sort,
-                       sort_mode):
+                       sort_mode, t_min: float = RAY_TMIN,
+                       exact_cull: int = 0):
     """The part both fused cascades share: pad the wave to a power-of-two
     block count >= 32 with dead lanes (o 0, d 1, t_max -1), sort, cull per
-    block, and point the candidate slots past n_cand at the dummy cluster.
+    block (exact_cull=K: traverse._exact_block_candidates with super
+    shortlist cap K, else the conservative interval cull), and point the
+    candidate slots past n_cand at the dummy cluster.
     Returns (origins, directions, t_max, perm, n_cand, entry [nb, c_pad],
     order_g [nb, c_pad / GROUP, GROUP]) over the padded, sorted wave."""
     n0 = origins.shape[0]
@@ -217,9 +219,17 @@ def prepare_fused_wave(accel, origins, directions, t_max, block_size, sort,
     if sort:
         origins, directions, t_max, perm = traverse._sort_rays(
             accel, origins, directions, t_max, sort_mode)
-    order, n_cand, entry = traverse._block_candidates(
-        accel, origins.reshape(nb, block_size, 3),
-        directions.reshape(nb, block_size, 3), t_max.reshape(nb, block_size))
+    o_blk = origins.reshape(nb, block_size, 3)
+    d_blk = directions.reshape(nb, block_size, 3)
+    tm_blk = t_max.reshape(nb, block_size)
+    if exact_cull:
+        # a sorted wave is dead-last: its live blocks are a prefix
+        order, n_cand, entry = traverse._exact_block_candidates(
+            accel, o_blk, d_blk, tm_blk, t_min, ksup=exact_cull,
+            live_blocks=traverse.live_block_count(tm_blk) if sort else None)
+    else:
+        order, n_cand, entry = traverse._block_candidates(accel, o_blk, d_blk,
+                                                          tm_blk)
     c = accel.num_clusters
     c_pad = -(-c // GROUP) * GROUP
     if c_pad - c:
@@ -244,14 +254,12 @@ def any_hit_fused(accel, origins, directions, t_min, t_max,
     coherence sort and the unsort; the cull's live-masked bounds keep
     interleaved dead lanes from widening the blocks. Each iteration sweeps
     the ACTIVE blocks only, `kernel_chunk` blocks per launch. tri_pack:
-    pack_tris_dummy(accel), if the caller holds one."""
-    if exact_cull:
-        raise ValueError("exact_cull is not ported "
-                         "(traverse._exact_block_candidates)")
+    pack_tris_dummy(accel), if the caller holds one. exact_cull=K: the
+    per-ray-exact cull (prepare_fused_wave), the same result."""
     n0 = origins.shape[0]
     origins, directions, t_max, perm, n_cand, _entry, order_g = (
         prepare_fused_wave(accel, origins, directions, t_max, block_size,
-                           sort, sort_mode))
+                           sort, sort_mode, t_min, exact_cull))
     nb = n_cand.shape[0]
     n = nb * block_size
     max_k = order_g.shape[1] - 1

@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from path_tracer_ai_tpu_torch import cuda_build
 from path_tracer_ai_tpu_torch.accel import traverse
 from path_tracer_ai_tpu_torch.accel.cuda_anyhit import (
     GROUP,
@@ -104,8 +105,6 @@ def block_closest_plain(tri_pack, rays_pack, cid8, sub_skip=True,
 
 
 def _kernel():
-    from path_tracer_ai_tpu_torch import cuda_build
-
     fn = cuda_build.load(SOURCE).block_closest
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -116,8 +115,6 @@ def _kernel():
 def kernel_occupancy(s: int, t_lanes: int) -> dict:
     """Registers per thread and resident warps (ray blocks) per SM of
     block_closest's (S, T) instance (needs the card)."""
-    from path_tracer_ai_tpu_torch import cuda_build
-
     return read_occupancy(cuda_build.load(SOURCE).block_closest_occupancy,
                           s, t_lanes)
 
@@ -138,10 +135,10 @@ def block_closest(tri_pack, rays_pack, cid8, sub_skip=True):
     tri_out = torch.empty((size, t_lanes), dtype=torch.int32, device=dev)
     if size == 0:
         return t_out, tri_out
-    err = _kernel()(tri_pack.data_ptr(), rays_pack.data_ptr(), cid8.data_ptr(),
-                    t_out.data_ptr(), tri_out.data_ptr(), size, s, t_lanes,
-                    dummy, int(sub_skip),
-                    torch.cuda.current_stream(dev).cuda_stream)
+    err = cuda_build.launch(
+        _kernel(), dev, tri_pack.data_ptr(), rays_pack.data_ptr(),
+        cid8.data_ptr(), t_out.data_ptr(), tri_out.data_ptr(), size, s,
+        t_lanes, dummy, int(sub_skip))
     if err == NO_INSTANCE:
         raise ValueError(f"block_closest has no compiled instance for S = {s}, "
                          f"T = {t_lanes} (S in 64, 128, 256; T in 64, 128)")
@@ -161,15 +158,15 @@ def closest_hit_fused(accel, origins, directions, t_min, t_max,
     Exact per ray; accepts any wave size (pads to a power-of-two block
     count with dead lanes). Each iteration sweeps the ACTIVE blocks only,
     `kernel_chunk` blocks per launch. tri_pack: pack_tris_dummy(accel), if
-    the caller holds one."""
-    if exact_cull:
-        raise ValueError("exact_cull is not ported "
-                         "(traverse._exact_block_candidates)")
+    the caller holds one. exact_cull=K: the per-ray-exact cull
+    (cuda_anyhit.prepare_fused_wave); its candidates keep the
+    conservative entry order, so the front-to-back stop still holds, and
+    the result is the same."""
     n0 = origins.shape[0]
     dev = origins.device
     origins, directions, t_max, perm, n_cand, entry, order_g = (
         prepare_fused_wave(accel, origins, directions, t_max, block_size,
-                           sort, sort_mode))
+                           sort, sort_mode, t_min, exact_cull))
     nb = n_cand.shape[0]
     n = nb * block_size
     max_k = order_g.shape[1] - 1

@@ -37,6 +37,7 @@ import ctypes
 
 import torch
 
+from path_tracer_ai_tpu_torch import cuda_build
 from path_tracer_ai_tpu_torch.core.types import MT_EPSILON
 
 I32_MAX = 2**31 - 1
@@ -223,8 +224,6 @@ def _check(name, x, dtype, ndim, device):
 
 
 def _kernel():
-    from path_tracer_ai_tpu_torch import cuda_build
-
     lib = cuda_build.load(SOURCE)
     fn = lib.ctiles_sweep
     if fn.argtypes is None:
@@ -250,13 +249,11 @@ def rcp_mismatches() -> int:
     """How many of the float bit patterns in its range the kernels'
     reciprocal (csrc/mt.cuh rcp_fast) inverts to other bits than the IEEE
     division does: 0 on a card where the kernels are exact. Needs the card."""
-    from path_tracer_ai_tpu_torch import cuda_build
-
     fn = cuda_build.load(SOURCE).rcp_check
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     count = torch.zeros((1,), dtype=torch.int64, device="cuda")
-    err = fn(count.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    err = cuda_build.launch(fn, count.device, count.data_ptr())
     if err != 0:
         raise RuntimeError(f"rcp_check launch failed: cudaError {err}")
     return int(count.item())
@@ -264,8 +261,6 @@ def rcp_mismatches() -> int:
 
 def kernel_occupancy(s: int, t_lanes: int) -> dict:
     """tile_sweep's (S, T) instance (needs the card)."""
-    from path_tracer_ai_tpu_torch import cuda_build
-
     return read_occupancy(cuda_build.load(SOURCE).ctiles_sweep_occupancy,
                           s, t_lanes)
 
@@ -300,10 +295,10 @@ def tile_sweep(tri_pack, rays_pack, tile_cid):
     tri_out = torch.empty((nt, t_lanes), dtype=torch.int32, device=dev)
     if nt == 0:
         return t_out, tri_out
-    fn = _kernel()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(tri_pack.data_ptr(), rays_pack.data_ptr(), tile_cid.data_ptr(),
-             t_out.data_ptr(), tri_out.data_ptr(), nt, g, s, t_lanes, c, stream)
+    err = cuda_build.launch(
+        _kernel(), dev, tri_pack.data_ptr(), rays_pack.data_ptr(),
+        tile_cid.data_ptr(), t_out.data_ptr(), tri_out.data_ptr(), nt, g, s,
+        t_lanes, c)
     if err == NO_INSTANCE:
         raise ValueError(f"tile_sweep has no compiled instance for S = {s}, "
                          f"T = {t_lanes} (S in 128, 256; T in 64, 128, "

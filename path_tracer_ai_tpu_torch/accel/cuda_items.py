@@ -35,6 +35,7 @@ import ctypes
 
 import torch
 
+from path_tracer_ai_tpu_torch import cuda_build
 from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
     I32_MAX,
     NO_INSTANCE,
@@ -103,8 +104,6 @@ def item_sweep_plain(tri_pack, rays, item_block, ibase, order_g, n_cand,
 
 
 def _kernel():
-    from path_tracer_ai_tpu_torch import cuda_build
-
     lib = cuda_build.load(SOURCE)
     fn = lib.item_sweep
     if fn.argtypes is None:
@@ -117,8 +116,6 @@ def _kernel():
 def kernel_occupancy(s: int, want_tri: bool) -> dict:
     """The (S, closest or any-hit) instance's registers and resident warps
     per SM (needs the card)."""
-    from path_tracer_ai_tpu_torch import cuda_build
-
     return read_occupancy(cuda_build.load(SOURCE).item_sweep_occupancy, s,
                           int(want_tri))
 
@@ -160,12 +157,11 @@ def item_sweep(tri_pack, rays, item_block, ibase, order_g, n_cand,
         return out
     t_out = out[0]
     tri_out = out[1] if want_tri else out[0]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _kernel()(tri_pack.data_ptr(), rays.data_ptr(),
-                    item_block.data_ptr(), ibase.data_ptr(),
-                    order_g.data_ptr(), n_cand.data_ptr(), t_out.data_ptr(),
-                    tri_out.data_ptr(), n_items, n_groups, b, s, c,
-                    int(want_tri), stream)
+    err = cuda_build.launch(
+        _kernel(), dev, tri_pack.data_ptr(), rays.data_ptr(),
+        item_block.data_ptr(), ibase.data_ptr(), order_g.data_ptr(),
+        n_cand.data_ptr(), t_out.data_ptr(), tri_out.data_ptr(), n_items,
+        n_groups, b, s, c, int(want_tri))
     if err == NO_INSTANCE:
         raise ValueError(f"item_sweep has no compiled instance for S = {s} "
                          "(S in 2, 128)")

@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from path_tracer_ai_tpu_torch import cuda_build
 from path_tracer_ai_tpu_torch.accel import traverse
 from path_tracer_ai_tpu_torch.accel.clusters import ClusterAccel
 from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
@@ -166,8 +167,6 @@ def anyhit_sweep_plain(slab, rays, order, n_cand, t_min=1e-3,
 
 
 def _kernel(name, n_ptr, n_int):
-    from path_tracer_ai_tpu_torch import cuda_build
-
     fn = getattr(cuda_build.load(SOURCE), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
@@ -232,12 +231,12 @@ def closest_sweep(slab: SlabTable, rays, order, entry, n_cand, t_min=1e-3):
     # longest walk's, and a long walk started last would add to it.
     block_order = torch.argsort(n_cand, descending=True, stable=True).to(
         torch.int32)
-    fn = _kernel("closest_sweep", 9, 4)
-    err = fn(slab.tri.data_ptr(), rays.data_ptr(), order.data_ptr(),
-             entry.data_ptr(), n_cand.data_ptr(), block_order.data_ptr(),
-             best_t.data_ptr(), best_cid.data_ptr(), best_slot.data_ptr(), b,
-             s, r, order.shape[1], float(t_min),
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = cuda_build.launch(
+        _kernel("closest_sweep", 9, 4), dev, slab.tri.data_ptr(),
+        rays.data_ptr(), order.data_ptr(), entry.data_ptr(),
+        n_cand.data_ptr(), block_order.data_ptr(), best_t.data_ptr(),
+        best_cid.data_ptr(), best_slot.data_ptr(), b, s, r, order.shape[1],
+        float(t_min))
     if err == NO_INSTANCE:
         raise ValueError(f"closest_sweep has no compiled instance for S = {s} "
                          "(S in 64, 128, 256)")
@@ -250,8 +249,6 @@ def closest_sweep(slab: SlabTable, rays, order, entry, n_cand, t_min=1e-3):
 def closest_occupancy(s: int, r_lanes: int) -> dict:
     """Registers per thread and resident warps per SM of the closest_sweep
     instance that serves (S, R) (needs the card)."""
-    from path_tracer_ai_tpu_torch import cuda_build
-
     return read_occupancy(cuda_build.load(SOURCE).closest_sweep_occupancy, s,
                           r_lanes)
 
@@ -259,8 +256,6 @@ def closest_occupancy(s: int, r_lanes: int) -> dict:
 def anyhit_occupancy(s: int) -> dict:
     """Registers per thread and resident warps per SM of anyhit_sweep's S
     instance (needs the card)."""
-    from path_tracer_ai_tpu_torch import cuda_build
-
     return read_occupancy(cuda_build.load(SOURCE).anyhit_sweep_occupancy, s)
 
 
@@ -277,10 +272,10 @@ def anyhit_sweep(slab: SlabTable, rays, order, n_cand, t_min=1e-3):
     occ = torch.empty((b, r), dtype=torch.bool, device=dev)
     if b == 0:
         return occ
-    fn = _kernel("anyhit_sweep", 5, 4)
-    err = fn(slab.tri.data_ptr(), rays.data_ptr(), order.data_ptr(),
-             n_cand.data_ptr(), occ.data_ptr(), b, s, r, order.shape[1],
-             float(t_min), torch.cuda.current_stream(dev).cuda_stream)
+    err = cuda_build.launch(
+        _kernel("anyhit_sweep", 5, 4), dev, slab.tri.data_ptr(),
+        rays.data_ptr(), order.data_ptr(), n_cand.data_ptr(), occ.data_ptr(),
+        b, s, r, order.shape[1], float(t_min))
     if err == NO_INSTANCE:
         raise ValueError(f"anyhit_sweep has no compiled instance for S = {s} "
                          "(S in 64, 128, 256)")

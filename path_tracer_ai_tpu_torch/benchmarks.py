@@ -10,9 +10,9 @@
 The reference's model is not shipped, so the blob configurations render the
 procedural stand-in (scene.procgen.write_obj) through the OBJ loader.
 Everything runs on the card unless a caller passes device="cpu". The 4k
-configuration shards the frame over 8 devices, which the port does not do
-yet: run_config("4k") raises ValueError before it builds or renders
-anything.
+configuration shards the frame over 8 devices (wavefront.render's
+tile_devices, capped at the visible cards: one H100 renders it as a 1x1
+mesh; with device="cpu", a mesh of 8 virtual CPU entries).
 
 RMSE methodology: the oracle engine holds the CPU reference's semantics;
 `rmse_vs_oracle` renders both engines at equal spp with DIFFERENT seeds,
@@ -87,16 +87,10 @@ def build_config_scene(cfg: BenchConfig, subdivisions: int = 6, device=None):
 
 def run_config(name: str, scale: float = 1.0, subdivisions: int = 6,
                checkpoint_path: Optional[str] = None, device=None):
-    """Render one configuration on the wavefront engine -> (image, stats).
-    Raises ValueError for a configuration that needs an unported option
-    (4k: tile_devices)."""
+    """Render one configuration on the wavefront engine -> (image, stats)."""
     from path_tracer_ai_tpu_torch.engine import wavefront
 
     cfg = get_configs(scale)[name]
-    if cfg.tile_devices:
-        raise ValueError(f"config {name!r} shards over tile_devices="
-                         f"{cfg.tile_devices}, which is not ported yet "
-                         "(ROADMAP queue 1, step 10: multi-device)")
     scene, camera = build_config_scene(cfg, subdivisions, device)
     stats = wavefront.RenderStats()
     t0 = time.perf_counter()
@@ -104,7 +98,7 @@ def run_config(name: str, scale: float = 1.0, subdivisions: int = 6,
         scene, camera, cfg.settings,
         checkpoint_path=checkpoint_path,
         checkpoint_every=1 if cfg.progressive else 0,
-        stats=stats, device=device,
+        tile_devices=cfg.tile_devices or None, stats=stats, device=device,
     )
     log.info("[%s] %.2fs, %.1f Mrays/s", name, time.perf_counter() - t0,
              stats.mrays_per_s)

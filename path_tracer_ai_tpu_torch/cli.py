@@ -11,8 +11,10 @@ The reference's 8 flags with its defaults (main.cpp:15-24):
     -g/--gamma 2.2   -i/--input IronMan/IronMan.obj   -o/--output output.png
 
 and the JAX package's extensions: --seed, --aspect, --dielectric, --rr,
---checkpoint / --checkpoint-every, --backend, --validate, --profile, and
---tile-devices / --scheduler, which raise until they are ported.
+--checkpoint / --checkpoint-every, --tile-devices (the frame sharded over
+N devices: every visible card, or N virtual CPU entries with
+PT_PLATFORM=cpu), --scheduler wave|pool, --backend, --validate and
+--profile. The backends the port does not have raise before any render.
 
 Both modes run on the card; PT_PLATFORM=cpu runs them on the CPU. Unlike
 the reference (main.cpp:98-113) and the JAX CLI, a failed accelerated
@@ -82,10 +84,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint every N sample-passes (0 = only at end)")
     p.add_argument("--tile-devices", type=int, default=0,
                    help="shard the framebuffer across N devices (0 = single "
-                        "device; not ported yet)")
+                        "device)")
     p.add_argument("--scheduler", default="wave", choices=["wave", "pool"],
                    help="wavefront scheduler: bounded-depth waves or "
-                        "persistent pool (not ported yet)")
+                        "persistent pool")
     p.add_argument("--backend", default=None, choices=BACKENDS,
                    help="traversal backend (default: hybrid, worklist past "
                         "2048 clusters; the port has hybrid, pallas, "
@@ -100,12 +102,6 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(args) -> None:
     """Raise ValueError for an option the port does not have yet (before
     any scene is loaded or any render starts)."""
-    if args.tile_devices > 0:
-        raise ValueError("--tile-devices is not ported yet (ROADMAP queue 1, "
-                         "step 10: multi-device)")
-    if args.scheduler == "pool":
-        raise ValueError("--scheduler pool is not ported yet (ROADMAP queue "
-                         "1, step 9: pool scheduler)")
     if args.backend in wavefront.UNPORTED_BACKENDS:
         raise ValueError(f"--backend {args.backend} is not ported yet "
                          "(ROADMAP queue 1, steps 11-12)")
@@ -158,7 +154,9 @@ def main(argv=None) -> int:
                     scene, camera, settings,
                     checkpoint_path=args.checkpoint,
                     checkpoint_every=args.checkpoint_every,
-                    backend=args.backend, device=dev,
+                    tile_devices=args.tile_devices or None,
+                    scheduler=args.scheduler, backend=args.backend,
+                    device=dev,
                 )
             except Exception:  # noqa: BLE001 — report, do not fall back
                 log.exception("Accelerated rendering failed; no oracle "

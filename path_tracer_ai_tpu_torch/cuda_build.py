@@ -21,6 +21,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -92,3 +94,14 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(library_path(name))
         _libs[name] = lib
     return lib
+
+
+def launch(fn, dev, *args) -> int:
+    """fn(*args, stream) with `dev` the current device and `stream` its
+    current stream; returns fn's error code. The runtime launches a kernel
+    on the current device, which torch's own ops leave unchanged, so a
+    launch for tensors on another card must switch to it (a stream of
+    another device is refused, and the default stream's handle would name
+    the current device's)."""
+    with torch.cuda.device(dev):
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)

@@ -29,17 +29,20 @@ _MAGENTA = (1.0, 0.0, 1.0)
 
 
 def bounce_step(scene: SceneData, closest_fn: ClosestFn, occlude_fn: OccludeFn,
-                o, d, beta, radiance, alive, keys, depth: int,
+                o, d, beta, radiance, alive, keys, depth,
                 rr_start: int = 0, rr_floor: float = 0.05):
     """ONE shading vertex of tracePath for a lane batch.
 
     keys: [N, 2] per-lane stream keys; the RNG draws of this vertex depend
     only on (key, depth, purpose), so scheduling never changes a sample.
+    depth: an int (a wave, every lane at one depth) or an int64 [N] tensor
+    (the pool scheduler, each lane at its own depth).
     rr_start >= 1 (RenderSettings.rr_start): a vertex of depth >= rr_start
     roulettes its continuation on the updated throughput, survival
     p = clamp(max(beta), rr_floor, 1) then beta /= p, drawn on the TAG_RR
-    stream of (lane, depth). 0 (and every vertex below rr_start) runs no
-    op of it, which gives the same bits as a roulette no lane enters.
+    stream of (lane, depth); with a depth tensor the gate is per lane. An
+    int depth below rr_start (and rr_start 0) runs no op of it, which gives
+    the same bits as a roulette no lane enters.
     Returns (o, d, beta, radiance, alive, n_closest, n_shadow); the counts
     are 0-dim tensors (no host sync here).
     """
@@ -86,13 +89,15 @@ def bounce_step(scene: SceneData, closest_fn: ClosestFn, occlude_fn: OccludeFn,
     o = torch.where(act, bs.origin, o)
     d = torch.where(act, bs.direction, d)
 
-    if rr_start and depth >= rr_start:
+    per_lane = torch.is_tensor(depth)
+    if rr_start and (per_lane or depth >= rr_start):
         u_rr = threefry.uniform(threefry.fold_in(kb, sampling.TAG_RR))
         p = torch.clamp(beta.amax(dim=-1), rr_floor, 1.0)
-        # every active lane is at depth >= rr_start, so each one roulettes
-        survive = active & (u_rr < p)
+        # an int depth >= rr_start: every active lane roulettes
+        roulette = active & (depth >= rr_start) if per_lane else active
+        survive = roulette & (u_rr < p)
         beta = torch.where(survive[..., None], beta / p[..., None], beta)
-        active = survive
+        active = active & (~roulette | survive) if per_lane else survive
 
     n_closest = alive.sum()
     return o, d, beta, radiance, active, n_closest, n_shadow

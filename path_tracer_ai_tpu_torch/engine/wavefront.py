@@ -1,9 +1,14 @@
 """Wavefront engine: the accelerated render path (counterpart of
-engine/wavefront.py, `render` with scheduler="wave").
+engine/wavefront.py).
 
-Rays are processed in fixed-size waves:
+With scheduler="wave" (the default) rays are processed in fixed-size
+waves:
 
   generate wave -> [bounce loop, stepped from the host] -> accumulate
+
+scheduler="pool" keeps one wave-sized pool of lanes and refills each lane
+with the next camera ray as its path ends (_render_pool); tile_devices
+shards the frame over a mesh of devices (parallel.mesh).
 
 The traversal backend (`packet_backend`) is "hybrid" by default up to
 2048 clusters, "worklist" past that (default_backend). The hybrid one:
@@ -15,14 +20,17 @@ The traversal backend (`packet_backend`) is "hybrid" by default up to
 - shadow waves: accel.traverse.any_hit_packets over the S=128 base accel
   (blocks of `block_size` rays, groups of 2 candidates, "dir" sort); or,
   with HYBRID_OCCLUDE_KW = dict(engine="packets_fused", ...), the fused
-  any-hit cascade (accel.cuda_anyhit);
+  any-hit cascade (accel.cuda_anyhit); exact_cull=K in HYBRID_OCCLUDE_KW
+  (or, for cascade_fused, in HYBRID_CLOSEST_KW) culls per ray exactly
+  (traverse._exact_block_candidates), with the same image;
 - bounce 0 skips the coherence sort of both wave types (primary rays in
   pixel order are already coherent).
 backend="pallas" (or use_pallas=True) sends both wave types through the
 per-block candidate walks of accel.cuda_sweep, one kernel launch per wave.
 backend="worklist" runs both through accel.worklist (the item sweep of
-accel.cuda_items; shadow waves unsorted) on the base accel, with no second
-accel and no bounce-0 overrides; "pairs" through accel.pairs; "packets"
+accel.cuda_items; shadow waves unsorted, or the exact-cull packet cascade
+with WORKLIST_OCCLUDE_ENGINE = "packets_exact") on the base accel, with no
+second accel and no bounce-0 overrides; "pairs" through accel.pairs; "packets"
 through the packet cascades (traverse.closest_hit_packets,
 any_hit_packets) at `block_size`.
 On cuda every engine launches its kernels; on cpu their plain versions.
@@ -91,10 +99,13 @@ HYBRID_CLOSEST_CLUSTER_SIZE = 256
 # coherent: no sort).
 WORKLIST_CLOSEST_KW = dict(cap=96, item_budget=8)
 WORKLIST_OCCLUDE_KW = dict(sort=False)
-# Shadow engine of the worklist backend: "worklist" (any_hit_worklist). The
-# reference's other choice, "packets_exact" (the 2-level exact-cull packet
-# cascade), needs traverse._exact_block_candidates, which is not ported.
+# Shadow engine of the worklist backend: "worklist" (any_hit_worklist) or
+# "packets_exact" (the packet cascade with the per-ray-exact 2-level cull,
+# WORKLIST_OCCLUDE_PACKETS_KW). Occlusion is exact either way: the images
+# are the same.
 WORKLIST_OCCLUDE_ENGINE = "worklist"
+WORKLIST_OCCLUDE_PACKETS_KW = dict(block_size=64, group_size=2,
+                                   exact_cull=6)
 # Compaction never shrinks a wave below this many lanes.
 COMPACT_MIN_BUCKET = 1 << 16
 # Backends of the reference's packet_backend that the port does not have.
@@ -109,6 +120,7 @@ class RenderStats:
         self.closest_rays = 0
         self.shadow_rays = 0
         self.seconds = 0.0
+        self.pool_iterations = []  # scheduler="pool": iterations a pixel chunk
 
     @property
     def total_rays(self) -> int:
@@ -225,16 +237,14 @@ def packet_backend(accel: ClusterAccel, block_size: int = 256,
 
     occlude_eng = HYBRID_OCCLUDE_KW.get("engine")
     okw = {k: v for k, v in HYBRID_OCCLUDE_KW.items() if k != "engine"}
-    if okw.get("exact_cull", 0):
-        raise ValueError("exact_cull is not ported "
-                         "(traverse._exact_block_candidates)")
     sort = okw.get("sort", True) if occlude_sort is None else occlude_sort
     if okw.get("sort_mode", "dir") != "dir" and occlude_eng == "packets":
         raise ValueError("the packet cascade is ported with sort_mode 'dir'")
     if occlude_eng == "packets":
         pack = packed(cuda_ctiles.pack_tris, accel)
         pkw = dict(block_size=okw.get("block_size", block_size),
-                   group_size=okw.get("group_size", 8), sort=sort)
+                   group_size=okw.get("group_size", 8),
+                   exact_cull=okw.get("exact_cull", 0), sort=sort)
 
         def occlude(o, d, t_max):
             return traverse.any_hit_packets(
@@ -250,7 +260,8 @@ def packet_backend(accel: ClusterAccel, block_size: int = 256,
         fkw = dict(block_size=okw.get("block_size", 128),
                    sort_mode=okw.get("sort_mode", "dir"),
                    early_skip=okw.get("early_skip", False),
-                   sub_skip=okw.get("sub_skip", False), sort=sort)
+                   sub_skip=okw.get("sub_skip", False),
+                   exact_cull=okw.get("exact_cull", 0), sort=sort)
 
         def occlude(o, d, t_max):
             return cuda_anyhit.any_hit_fused(
@@ -271,21 +282,24 @@ def _other_backend(accel, backend, block_size, pack):
     """(closest, occlude) of the "worklist", "pairs" and "packets" backends
     (the reference's packet_backend branches), all on the base accel."""
     if backend == "worklist":
-        if WORKLIST_OCCLUDE_ENGINE != "worklist":
-            raise ValueError(
-                f"worklist shadow engine {WORKLIST_OCCLUDE_ENGINE!r} is not "
-                "ported (its exact_cull needs "
-                "traverse._exact_block_candidates)")
-
         def closest(o, d, t_min, t_max):
             return worklist.closest_hit_worklist(
                 accel, o, d, RAY_TMIN, t_max, tri_pack=pack,
                 **WORKLIST_CLOSEST_KW)
 
-        def occlude(o, d, t_max):
-            return worklist.any_hit_worklist(
-                accel, o, d, RAY_TMIN, t_max, tri_pack=pack,
-                **WORKLIST_OCCLUDE_KW)
+        if WORKLIST_OCCLUDE_ENGINE == "packets_exact":
+            def occlude(o, d, t_max):
+                return traverse.any_hit_packets(
+                    accel, o, d, RAY_TMIN, t_max, tri_pack=pack,
+                    **WORKLIST_OCCLUDE_PACKETS_KW)
+        elif WORKLIST_OCCLUDE_ENGINE == "worklist":
+            def occlude(o, d, t_max):
+                return worklist.any_hit_worklist(
+                    accel, o, d, RAY_TMIN, t_max, tri_pack=pack,
+                    **WORKLIST_OCCLUDE_KW)
+        else:
+            raise ValueError("unknown worklist shadow engine "
+                             f"{WORKLIST_OCCLUDE_ENGINE!r}")
     elif backend == "pairs":
         def closest(o, d, t_min, t_max):
             return pairs.closest_hit_pairs(accel, o, d, RAY_TMIN, t_max,
@@ -306,9 +320,10 @@ def _other_backend(accel, backend, block_size, pack):
     return closest, occlude
 
 
-def _compact_bucket(n_live: int) -> int:
-    """Smallest power-of-2 bucket >= max(n_live, COMPACT_MIN_BUCKET)."""
-    n = max(n_live, COMPACT_MIN_BUCKET)
+def _compact_bucket(n_live: int, floor: Optional[int] = None) -> int:
+    """Smallest power-of-2 bucket >= max(n_live, floor); floor None means
+    COMPACT_MIN_BUCKET."""
+    n = max(n_live, COMPACT_MIN_BUCKET if floor is None else floor)
     return 1 << max(n - 1, 1).bit_length()
 
 
@@ -346,6 +361,70 @@ def _wave_accum(radiance, lane_s, spp, *, pix_chunk, sc):
     return acc, valid.sum(dim=1).to(torch.int32)
 
 
+class _Lanes:
+    """One wave's lanes through the host-stepped bounce loop: rays,
+    throughput, radiance, keys and liveness, the live-closest and shadow
+    ray counts (0-dim device tensors), and live-lane compaction. The wave
+    and pool schedulers hold one; the mesh scheduler one per shard."""
+
+    def __init__(self, o, d, keys, alive):
+        dev = o.device
+        n = o.shape[0]
+        self.o, self.d, self.keys, self.alive = o, d, keys, alive
+        self.beta = torch.ones((n, 3), dtype=torch.float32, device=dev)
+        self.radiance = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        self.nc = torch.zeros((), dtype=torch.int64, device=dev)
+        self.ns = torch.zeros((), dtype=torch.int64, device=dev)
+        self.full_radiance = None  # [n] radiance once compacted
+        self.full_idx = None       # compact lane -> original lane (n = none)
+
+    @property
+    def width(self) -> int:
+        return self.o.shape[0]
+
+    def compact(self, n_live: int, bucket: int) -> None:
+        """Gathers the live lanes (n_live of them) into the first n_live of
+        `bucket` lanes; the rest are dead (d = 1)."""
+        dev = self.o.device
+        cur = self.width
+        live_idx = torch.nonzero(self.alive).squeeze(1)
+        sync.note()
+        idx = torch.full((bucket,), cur, dtype=torch.int64, device=dev)
+        idx[:n_live] = live_idx
+        if self.full_radiance is None:
+            self.full_radiance, self.full_idx = self.radiance, idx
+        else:
+            # Flush finished lanes' finals, then compose the maps.
+            self.full_radiance = _scatter_back(self.full_radiance,
+                                               self.radiance, self.full_idx)
+            self.full_idx = torch.where(
+                idx < cur, self.full_idx[torch.clamp(idx, max=cur - 1)],
+                self.full_radiance.shape[0])
+        gi = torch.clamp(idx, max=cur - 1)
+        live = torch.arange(bucket, device=dev) < n_live
+        self.o = self.o[gi]
+        self.d = torch.where(live[:, None], self.d[gi], 1.0)
+        self.beta, self.radiance = self.beta[gi], self.radiance[gi]
+        self.keys, self.alive = self.keys[gi], live
+
+    def step(self, scene, backend, depth, rr_start: int) -> None:
+        """One shading vertex (tracer.bounce_step) of every lane; depth is
+        an int or a per-lane int64 tensor."""
+        closest, occlude = backend
+        (self.o, self.d, self.beta, self.radiance, self.alive, nc,
+         ns) = tracer.bounce_step(
+            scene, closest, occlude, self.o, self.d, self.beta, self.radiance,
+            self.alive, self.keys, depth, rr_start=rr_start)
+        self.nc = self.nc + nc
+        self.ns = self.ns + ns
+
+    def final_radiance(self):
+        """Radiance of every lane of the original wave, in its order."""
+        if self.full_radiance is None:
+            return self.radiance
+        return _scatter_back(self.full_radiance, self.radiance, self.full_idx)
+
+
 def _render_wave(scene, camera, base_key, xs, ys, s0, spp, backends, *,
                  w, h, sc, lanes_padded, max_bounces, aspect, rr_start=0):
     """One wave through the host-stepped bounce loop with compaction.
@@ -353,50 +432,92 @@ def _render_wave(scene, camera, base_key, xs, ys, s0, spp, backends, *,
     o, d, keys, lane_s = _wave_gen(camera, base_key, xs, ys, s0, w=w, h=h,
                                    sc=sc, lanes_padded=lanes_padded,
                                    aspect=aspect)
-    dev = o.device
-    n = o.shape[0]
-    beta = torch.ones((n, 3), dtype=torch.float32, device=dev)
-    radiance = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    alive = torch.ones((n,), dtype=torch.bool, device=dev)
-    nc = torch.zeros((), dtype=torch.int64, device=dev)
-    ns = torch.zeros((), dtype=torch.int64, device=dev)
-
-    full_radiance = None  # [n] radiance once compacted
-    full_idx = None       # compact lane -> original lane (n = none)
+    lanes = _Lanes(o, d, keys, torch.ones((o.shape[0],), dtype=torch.bool,
+                                          device=o.device))
     for depth in range(max_bounces):
         if depth > 0:
-            n_live = sync.host_int(alive.sum())
-            cur = o.shape[0]
+            n_live = sync.host_int(lanes.alive.sum())
             bucket = _compact_bucket(n_live)
-            if n_live > 0 and bucket <= cur // 2:
-                live_idx = torch.nonzero(alive).squeeze(1)
-                sync.note()
-                idx = torch.full((bucket,), cur, dtype=torch.int64, device=dev)
-                idx[:n_live] = live_idx
-                if full_radiance is None:
-                    full_radiance, full_idx = radiance, idx
-                else:
-                    # Flush finished lanes' finals, then compose the maps.
-                    full_radiance = _scatter_back(full_radiance, radiance,
-                                                  full_idx)
-                    full_idx = torch.where(
-                        idx < cur, full_idx[torch.clamp(idx, max=cur - 1)],
-                        full_radiance.shape[0])
-                gi = torch.clamp(idx, max=cur - 1)
-                live = torch.arange(bucket, device=dev) < n_live
-                o = o[gi]
-                d = torch.where(live[:, None], d[gi], 1.0)
-                beta, radiance, keys, alive = beta[gi], radiance[gi], keys[gi], live
-        closest, occlude = backends[0] if depth == 0 else backends[1]
-        o, d, beta, radiance, alive, nc_i, ns_i = tracer.bounce_step(
-            scene, closest, occlude, o, d, beta, radiance, alive, keys, depth,
-            rr_start=rr_start)
-        nc = nc + nc_i
-        ns = ns + ns_i
-    if full_radiance is not None:
-        radiance = _scatter_back(full_radiance, radiance, full_idx)
-    acc, cnt = _wave_accum(radiance, lane_s, spp, pix_chunk=xs.shape[0], sc=sc)
-    return acc, cnt, nc, ns
+            if n_live > 0 and bucket <= lanes.width // 2:
+                lanes.compact(n_live, bucket)
+        lanes.step(scene, backends[0] if depth == 0 else backends[1], depth,
+                   rr_start)
+    acc, cnt = _wave_accum(lanes.final_radiance(), lane_s, spp,
+                           pix_chunk=xs.shape[0], sc=sc)
+    return acc, cnt, lanes.nc, lanes.ns
+
+
+def _render_pool(scene, camera, base_key, xs, ys, s_start, spp, backend, *,
+                 w, h, pool_size, max_bounces, aspect, rr_start=0):
+    """Persistent-pool scheduler over one pixel chunk (the reference's
+    _render_pool_impl): compaction by regeneration.
+
+    A fixed pool of `pool_size` lanes; when a path dies (miss, roulette or
+    depth cut) its radiance is scatter-added into the chunk's sums and its
+    lane is re-armed with the next emission, in sample-major order (all
+    pixels at sample s before s + 1), starting at sample s_start. Lanes
+    carry their own depth, so each step is one bounce_step over the whole
+    pool with a per-lane depth tensor. The radiance of a sample does not
+    depend on the scheduling (keys are folded from (pixel, sample)).
+    The reference runs this as a device while_loop on (e < total) |
+    any(alive); here the host steps it and reads the live count once an
+    iteration: the emission counter e follows from it on the host. Lanes
+    never armed hold a constant key (the reference's split keys); they
+    are never alive, so it reaches no result.
+    Returns (acc [P,3], cnt [P], n_closest, n_shadow, iterations)."""
+    dev = xs.device
+    p = xs.shape[0]
+    n_l = pool_size
+    total = p * (spp - s_start)
+    pix = ys * w + xs
+    d0 = torch.zeros((n_l, 3), dtype=torch.float32, device=dev)
+    d0[:, 0] = 1.0
+    lanes = _Lanes(torch.zeros((n_l, 3), dtype=torch.float32, device=dev), d0,
+                   torch.zeros((n_l, 2), dtype=torch.int64, device=dev),
+                   torch.zeros((n_l,), dtype=torch.bool, device=dev))
+    p_lane = torch.zeros((n_l,), dtype=torch.int64, device=dev)
+    depth = torch.zeros((n_l,), dtype=torch.int64, device=dev)
+    acc = torch.zeros((p, 3), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((p,), dtype=torch.int32, device=dev)
+    lane_ids = torch.arange(n_l, dtype=torch.int64, device=dev)
+    zero = torch.zeros((), device=dev)
+    e = n_alive = iterations = 0
+    while e < total or n_alive > 0:
+        # refill the first n_take dead lanes (in lane order) with emissions
+        # e, e + 1, ...: the reference's rank = cumsum(dead) - 1
+        n_take = min(n_l - n_alive, total - e)
+        if n_take:
+            dead = ~lanes.alive
+            rank = torch.cumsum(dead, dim=0) - 1
+            take = dead & (rank < n_take)
+            slot = torch.where(take, rank, n_take)  # slot n_take: a sink
+            idx = torch.empty((n_take + 1,), dtype=torch.int64, device=dev)
+            idx = idx.scatter_(0, slot, lane_ids)[:n_take]
+            eid = e + torch.arange(n_take, dtype=torch.int64, device=dev)
+            pl = eid % p
+            k = sampling.fold_all(base_key, pix[pl], s_start + eid // p)
+            o_n, d_n = camera_rays(camera, k, xs[pl], ys[pl], w, h, aspect)
+            lanes.o[idx], lanes.d[idx], lanes.keys[idx] = o_n, d_n, k
+            p_lane[idx] = pl
+            lanes.beta[idx] = 1.0
+            lanes.radiance[idx] = 0.0
+            depth[idx] = 0
+            lanes.alive[idx] = True
+            e += n_take
+        alive_pre = lanes.alive
+        lanes.step(scene, backend, depth, rr_start)
+        depth = depth + alive_pre
+        # retire finished paths into the chunk's sums
+        exhausted = lanes.alive & (depth >= max_bounces)
+        finish = (alive_pre & ~lanes.alive) | exhausted
+        lanes.alive = lanes.alive & ~exhausted
+        rad = lanes.radiance
+        valid = finish & torch.isfinite(rad).all(dim=-1)
+        acc.index_add_(0, p_lane, torch.where(valid[:, None], rad, zero))
+        cnt.index_add_(0, p_lane, valid.to(torch.int32))
+        n_alive = sync.host_int(lanes.alive.sum())
+        iterations += 1
+    return acc, cnt, lanes.nc, lanes.ns, iterations
 
 
 def _scatter_back(radiance_full, radiance_c, idx):
@@ -413,16 +534,40 @@ def render(scene: SceneData, camera: Camera, settings: RenderSettings,
            use_pallas: bool = False, backend: Optional[str] = None,
            accel_closest: Optional[ClusterAccel] = None,
            checkpoint_path: Optional[str] = None, checkpoint_every: int = 0,
-           show_progress: bool = False, device=None) -> np.ndarray:
+           show_progress: bool = False, scheduler: str = "wave",
+           tile_devices: Optional[int] = None, device=None) -> np.ndarray:
     """Full-frame wavefront render -> linear [H, W, 3] float32 (numpy).
 
     block_size: rays per traversal block (the packet cascade's and the
     pallas backend's; waves are padded to it). backend / use_pallas: see
     packet_backend. checkpoint_path: resume from it when its fingerprint
     matches these settings, and save to it every `checkpoint_every` sample
-    passes (0: never between) and at the end (io.checkpoint). device: None
-    means cuda (raises without a GPU); "cpu" runs the plain versions of the
-    kernels."""
+    passes (0: never between) and at the end (io.checkpoint).
+    scheduler: "wave" (bounded-depth waves with compaction; per-pass
+    checkpoints) or "pool" (a persistent pool of wave-sized lanes refilled
+    as paths die; saves only at the end, resumes at the checkpoint's
+    sample). tile_devices=N shards the frame over N devices
+    (parallel.mesh.render_tiled; "wave" only). device: None means cuda
+    (raises without a GPU); "cpu" runs the plain versions of the kernels
+    (and, with tile_devices, a mesh of virtual CPU entries)."""
+    if tile_devices:
+        from path_tracer_ai_tpu_torch.parallel.mesh import render_tiled
+
+        if scheduler != "wave":
+            # The pool's regeneration has no sharded form; do not silently
+            # substitute another scheduler.
+            raise ValueError("tile_devices supports only scheduler='wave' "
+                             f"(requested {scheduler!r})")
+        if settings.seed is None:
+            # the sharded path reads seed None as 0: draw it here instead
+            settings = settings.replace(seed=resolve_seed(settings))
+        return render_tiled(
+            scene, camera, settings, n_devices=tile_devices, device=device,
+            accel=accel, block_size=block_size, backend=backend,
+            checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every, stats=stats,
+            accel_closest=accel_closest)
+
     dev = resolve_device(device)
     scene = scene_to(scene, dev)
     camera = camera.to(dev)
@@ -437,12 +582,14 @@ def render(scene: SceneData, camera: Camera, settings: RenderSettings,
                  accel.num_clusters, accel.cluster_size,
                  time.perf_counter() - t0)
     accel = accel.to(dev)
+    pool = scheduler == "pool"
     # Dual-accel hybrid: ctiles closest waves run at another cluster size,
-    # built from the ORIGINAL triangles. The fused closest cascade and the
-    # pallas backend run on the base accel.
+    # built from the ORIGINAL triangles. The fused closest cascade, the
+    # pallas backend and the pool (as in the reference) run on the base
+    # accel.
     accel_c = accel_closest
     backend = resolve_backend(accel, block_size, use_pallas, backend)
-    if (accel_c is None and backend == "hybrid"
+    if (accel_c is None and backend == "hybrid" and not pool
             and HYBRID_CLOSEST_KW.get("engine", "ctiles") == "ctiles"
             and HYBRID_CLOSEST_CLUSTER_SIZE != accel.cluster_size):
         t0 = time.perf_counter()
@@ -452,14 +599,19 @@ def render(scene: SceneData, camera: Camera, settings: RenderSettings,
         log.info("Built closest-path accel: %d clusters x %d slots (%.3fs)",
                  accel_c.num_clusters, accel_c.cluster_size,
                  time.perf_counter() - t0)
-    if accel_c is not None:
+    if accel_c is not None and not pool:
         accel_c = accel_c.to(dev)
-    # Primary rays in pixel order are already coherent: bounce 0 skips the
-    # sort of both wave types (hybrid engines only).
-    bkw = dict(backend=backend, accel_closest=accel_c, packs={})
-    backends = (packet_backend(accel, block_size, occlude_sort=False,
-                               closest_sort=False, **bkw),
-                packet_backend(accel, block_size, **bkw))
+    if pool:
+        # one backend for every lane, whatever its depth: no second accel
+        # and no bounce-0 no-sort
+        pool_backend = packet_backend(accel, block_size, backend=backend)
+    else:
+        # Primary rays in pixel order are already coherent: bounce 0 skips
+        # the sort of both wave types (hybrid engines only).
+        bkw = dict(backend=backend, accel_closest=accel_c, packs={})
+        backends = (packet_backend(accel, block_size, occlude_sort=False,
+                                   closest_sort=False, **bkw),
+                    packet_backend(accel, block_size, **bkw))
 
     seed = resolve_seed(settings)
     base_key = threefry.key(seed, device=dev)
@@ -487,30 +639,55 @@ def render(scene: SceneData, camera: Camera, settings: RenderSettings,
     if stats is None:
         stats = RenderStats()
     t_start = time.perf_counter()
-    passes_done = 0
-    for s0 in range(s_start, spp, sc):
+    if pool and s_start < spp:
         for ci in range(n_pix_chunks):
             lo = ci * pix_chunk
             hi = min(lo + pix_chunk, npix)
-            a, c, nc, ns = _render_wave(
+            # padded pixel slots (pixel 0) are wasted work, cropped here
+            a, c, nc, ns, iterations = _render_pool(
                 scene, camera, base_key, xs_all[lo:lo + pix_chunk],
-                ys_all[lo:lo + pix_chunk], s0, spp, backends, w=w, h=h, sc=sc,
-                lanes_padded=lanes_padded, max_bounces=settings.max_bounces,
-                aspect=aspect, rr_start=settings.rr_start)
+                ys_all[lo:lo + pix_chunk], s_start, spp, pool_backend, w=w,
+                h=h, pool_size=lanes_padded,
+                max_bounces=settings.max_bounces, aspect=aspect,
+                rr_start=settings.rr_start)
             acc[lo:hi] = acc[lo:hi] + a[:hi - lo]
             cnt[lo:hi] = cnt[lo:hi] + c[:hi - lo]
             stats.closest_rays += sync.host_int(nc)
             stats.shadow_rays += sync.host_int(ns)
-        passes_done += 1
-        done = min(s0 + sc, spp)
-        if show_progress:
-            log.info("Rendering progress: %d%% (%d/%d samples)",
-                     (done * 100) // spp, done, spp)
-        if checkpoint_path and (
-                (checkpoint_every and passes_done % checkpoint_every == 0)
-                or done >= spp):
+            stats.pool_iterations.append(iterations)
+            if show_progress:
+                log.info("Rendering progress: %d%% (pool)",
+                         ((ci + 1) * 100) // n_pix_chunks)
+        if checkpoint_path:
             ckpt_io.save(checkpoint_path, acc.cpu().numpy(),
-                         cnt.cpu().numpy(), s0 + sc, fingerprint)
+                         cnt.cpu().numpy(), spp, fingerprint)
+    elif not pool:
+        passes_done = 0
+        for s0 in range(s_start, spp, sc):
+            for ci in range(n_pix_chunks):
+                lo = ci * pix_chunk
+                hi = min(lo + pix_chunk, npix)
+                a, c, nc, ns = _render_wave(
+                    scene, camera, base_key, xs_all[lo:lo + pix_chunk],
+                    ys_all[lo:lo + pix_chunk], s0, spp, backends, w=w, h=h,
+                    sc=sc, lanes_padded=lanes_padded,
+                    max_bounces=settings.max_bounces, aspect=aspect,
+                    rr_start=settings.rr_start)
+                acc[lo:hi] = acc[lo:hi] + a[:hi - lo]
+                cnt[lo:hi] = cnt[lo:hi] + c[:hi - lo]
+                stats.closest_rays += sync.host_int(nc)
+                stats.shadow_rays += sync.host_int(ns)
+            passes_done += 1
+            done = min(s0 + sc, spp)
+            if show_progress:
+                log.info("Rendering progress: %d%% (%d/%d samples)",
+                         (done * 100) // spp, done, spp)
+            if checkpoint_path and (
+                    (checkpoint_every
+                     and passes_done % checkpoint_every == 0)
+                    or done >= spp):
+                ckpt_io.save(checkpoint_path, acc.cpu().numpy(),
+                             cnt.cpu().numpy(), s0 + sc, fingerprint)
     acc_h = acc.cpu().numpy()
     cnt_h = cnt.cpu().numpy()
     stats.seconds += time.perf_counter() - t_start

@@ -123,14 +123,40 @@ def test_rmse_vs_oracle_small():
     assert benchmarks.rmse_vs_oracle(scene, camera, s, device="cpu") == r
 
 
-def test_run_config_4k_raises_before_any_render(monkeypatch):
-    def no_work(*a, **k):
-        raise AssertionError("a scene was built or a render started")
+def test_run_config_4k_renders_through_the_mesh(monkeypatch):
+    """run_config("4k") (once raising: tile_devices) shards over 8 devices,
+    here 8 virtual CPU entries, cut to 32x18 and 1 spp on a blob of subdiv
+    1: the image equals the single-device render of the same scene bit for
+    bit (one sample a pixel)."""
+    from path_tracer_ai_tpu_torch.parallel import mesh
 
-    monkeypatch.setattr(benchmarks, "build_config_scene", no_work)
-    monkeypatch.setattr(wavefront, "render", no_work)
-    with pytest.raises(ValueError, match="tile_devices"):
-        benchmarks.run_config("4k", device="cpu")
+    real = benchmarks.get_configs
+
+    def small(scale=1.0):
+        cfgs = real(scale)
+        cfgs["4k"].settings = cfgs["4k"].settings.replace(width=32,
+                                                          height=18)
+        return cfgs
+
+    tiled = []
+    real_tiled = mesh.render_tiled
+
+    def spy(*a, **k):
+        tiled.append(k["n_devices"])
+        return real_tiled(*a, **k)
+
+    monkeypatch.setattr(benchmarks, "get_configs", small)
+    monkeypatch.setattr(mesh, "render_tiled", spy)
+    img, stats = benchmarks.run_config("4k", scale=1 / 1024, subdivisions=1,
+                                       device="cpu")
+    assert tiled == [8]
+    cfg = small(1 / 1024)["4k"]
+    assert (cfg.settings.samples_per_pixel, cfg.settings.max_bounces) == (
+        1, 16)
+    scene, camera = benchmarks.build_config_scene(cfg, 1, device="cpu")
+    ref = wavefront.render(scene, camera, cfg.settings, device="cpu")
+    np.testing.assert_array_equal(img, ref)
+    assert stats.total_rays > 0
 
 
 def test_run_config_renders_on_the_cpu(monkeypatch):

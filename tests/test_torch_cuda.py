@@ -557,3 +557,167 @@ def test_worklist_pairs_packets_renders_on_gpu(cuda, backend):
         assert cuda_ctiles.launches > before[1]
     np.testing.assert_array_equal(img, oracle.render(scene, cam, s,
                                                      device=cuda))
+
+
+@pytest.mark.parametrize("route", ["pool", "virtual_mesh_2x2", "tile_devices",
+                                   "render_sharded"])
+def test_pool_and_mesh_render_on_gpu(cuda, route):
+    """The pool scheduler and the mesh (a virtual (2, 2) mesh of the one
+    card, tile_devices, the fused sharded render) at 2 spp: each image
+    equals the oracle's bitwise, and tile_sweep was launched."""
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import oracle, wavefront
+    from path_tracer_ai_tpu_torch.parallel import mesh
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+    from path_tracer_ai_tpu_torch.scene.scene import blob_scene
+
+    scene = blob_scene(subdivisions=3, device=cuda)
+    cam = default_camera(cuda)
+    s = RenderSettings(width=32, height=18, samples_per_pixel=2,
+                       max_bounces=3, seed=3)
+    card = torch.device("cuda", 0)
+    before = cuda_ctiles.launches
+    if route == "pool":
+        img = wavefront.render(scene, cam, s, scheduler="pool",
+                               wave_size=1 << 9, device=cuda)
+    elif route == "virtual_mesh_2x2":
+        img = mesh.render_sharded_wavefront(
+            scene, cam, s, mesh.make_mesh(2, 2, devices=[card] * 4),
+            pix_chunk=1 << 8, compact_min_bucket=64)
+    elif route == "tile_devices":
+        img = wavefront.render(scene, cam, s, tile_devices=8, device=cuda)
+    else:
+        img = mesh.render_sharded(scene, cam, s,
+                                  mesh.make_mesh(1, 1, devices=[card]))
+    assert cuda_ctiles.launches > before
+    np.testing.assert_array_equal(img, oracle.render(scene, cam, s,
+                                                     device=cuda))
+
+
+@pytest.mark.parametrize("tables", [
+    dict(HYBRID_OCCLUDE_KW=dict(engine="packets", group_size=2,
+                                exact_cull=6)),
+    dict(HYBRID_CLOSEST_KW=dict(engine="cascade_fused", exact_cull=16),
+         HYBRID_OCCLUDE_KW=dict(engine="packets_fused", early_skip=True,
+                                sub_skip=True, exact_cull=16)),
+])
+def test_exact_cull_renders_on_gpu(cuda, monkeypatch, tables):
+    """The exact cull in the hybrid packet cascade and in both fused
+    cascades: the image equals the oracle's bitwise."""
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import oracle, wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+    from path_tracer_ai_tpu_torch.scene.scene import blob_scene
+
+    for name, value in tables.items():
+        monkeypatch.setattr(wavefront, name, value)
+    scene = blob_scene(subdivisions=3, device=cuda)
+    cam = default_camera(cuda)
+    s = RenderSettings(width=32, height=18, samples_per_pixel=2,
+                       max_bounces=3, seed=3)
+    img = wavefront.render(scene, cam, s, wave_size=1 << 11, device=cuda)
+    np.testing.assert_array_equal(img, oracle.render(scene, cam, s,
+                                                     device=cuda))
+
+
+# --- more than one card: launches on a card that is not the current one ----
+
+
+@pytest.fixture
+def second_card():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: a launch on a card that is not "
+                    "the current device")
+    return torch.device("cuda", 1)
+
+
+def test_kernels_launch_on_a_card_that_is_not_current(second_card, rng):
+    """Inputs on cuda:1 while cuda:0 is the current device: every kernel
+    launches on the inputs' card and equals its plain version."""
+    dev = second_card
+    with torch.cuda.device(dev):
+        acc = _accel(dev)
+        o, d, tm = _bounce_wave(acc, 128 * 128, rng)
+        # tile_sweep: each tile of 64 rays leaves its own cluster
+        nt = o.shape[0] // 64
+        cid = torch.as_tensor(
+            rng.integers(0, acc.num_clusters, nt).astype(np.int32), device=dev)
+        o_t = acc.v0[cid.long()].reshape(nt, -1, 3)[:, :64].reshape(-1, 3)
+        tile = (cuda_ctiles.pack_tris(acc),
+                cuda_ctiles.pack_rays_tiles(o_t + 1e-3, d, tm, 64), cid)
+        slab = cuda_sweep.build_slab_table(acc)
+        rays, order, entry, n_cand, _perm = cuda_sweep._prep_wave(
+            acc, o, d, tm, 64, True)
+        fo, fd, ftm, _perm, _nc, _entry, order_g = \
+            cuda_anyhit.prepare_fused_wave(acc, o, d, tm, 128, True, "dir")
+        fused = (cuda_anyhit.pack_tris_dummy(acc),
+                 cuda_ctiles.pack_rays_tiles(fo, fd, ftm, 128),
+                 order_g[:, 0].reshape(-1).contiguous())
+        pack, wrays, wl = _worklist_wave(acc, rng, 1 << 13, shadow=False)
+        items = (pack, wrays, wl.item_block, wl.ibase, wl.order_g,
+                 wl.n_cand, int(wl.n_items), True)
+    pairs = [
+        (cuda_ctiles.tile_sweep, cuda_ctiles.tile_sweep_plain, tile),
+        (cuda_sweep.closest_sweep, cuda_sweep.closest_sweep_plain,
+         (slab, rays, order, entry, n_cand)),
+        (cuda_sweep.anyhit_sweep, cuda_sweep.anyhit_sweep_plain,
+         (slab, rays, order, n_cand)),
+        (cuda_anyhit.block_anyhit, cuda_anyhit.block_anyhit_plain, fused),
+        (cuda_closest.block_closest, cuda_closest.block_closest_plain, fused),
+        (cuda_items.item_sweep, cuda_items.item_sweep_plain, items),
+    ]
+    with torch.cuda.device(0):
+        for kernel, plain, args in pairs:
+            got = kernel(*args)
+            torch.cuda.synchronize(dev)
+            assert torch.cuda.current_device() == 0
+            want = plain(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for g, w in zip(got, want):
+                assert g.device == dev, kernel.__name__
+                if g.dtype == torch.float32:
+                    g, w = _bits(g), _bits(w)
+                assert torch.equal(g, w), kernel.__name__
+
+
+@pytest.mark.parametrize("route", ["wavefront", "pallas", "fused",
+                                   "tile_devices"])
+def test_mesh_over_distinct_cards_equals_the_oracle(second_card, route):
+    """A mesh over distinct cards ((2, 2) on four, (n, 1) on two or three)
+    at 2 spp: the image equals the oracle's bitwise."""
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import oracle, wavefront
+    from path_tracer_ai_tpu_torch.parallel import mesh
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+    from path_tracer_ai_tpu_torch.scene.scene import blob_scene
+
+    n = min(torch.cuda.device_count(), 4)
+    cards = [torch.device("cuda", i) for i in range(n)]
+    shape = (2, 2) if n == 4 else (n, 1)
+    scene = blob_scene(subdivisions=3, device=cards[0])
+    cam = default_camera(cards[0])
+    s = RenderSettings(width=32, height=18, samples_per_pixel=2,
+                       max_bounces=3, seed=3)
+    grid = mesh.make_mesh(*shape, devices=cards)
+    before = (cuda_ctiles.launches, cuda_sweep.launches["closest_sweep"])
+    if route == "wavefront":
+        img = mesh.render_sharded_wavefront(scene, cam, s, grid,
+                                            pix_chunk=1 << 7,
+                                            compact_min_bucket=64)
+    elif route == "pallas":
+        img = mesh.render_sharded_wavefront(scene, cam, s, grid,
+                                            backend="pallas",
+                                            pix_chunk=1 << 7,
+                                            compact_min_bucket=64)
+    elif route == "fused":
+        img = mesh.render_sharded(scene, cam, s, grid)
+    else:
+        img = wavefront.render(scene, cam, s, tile_devices=n,
+                               device=cards[0])
+    if route == "pallas":
+        assert cuda_sweep.launches["closest_sweep"] > before[1]
+    else:
+        assert cuda_ctiles.launches > before[0]
+    np.testing.assert_array_equal(img, oracle.render(scene, cam, s,
+                                                     device=cards[0]))

@@ -302,15 +302,26 @@ def test_cascades_sweep_active_blocks_only(rng, monkeypatch):
     assert max(sizes) <= 16 and min(sizes) < 16
 
 
+@pytest.mark.parametrize("sort", [True, False])
+def test_fused_exact_cull_equals_conservative(rng, sort):
+    """exact_cull=16 (once raising as unported) in both fused cascades:
+    the same occlusion and the same (hit, t, tri) as the conservative
+    cull, and brute force's."""
+    sc = _scene(rng, 600, 16)
+    o, d, tm = _wave(rng, sc, 64 * 40)
+    args = (sc["pa"], T(o), T(d), 1e-3, T(tm))
+    occ = cuda_anyhit.any_hit_fused(*args, exact_cull=16, sort=sort)
+    assert torch.equal(occ, cuda_anyhit.any_hit_fused(*args, sort=sort))
+    assert torch.equal(occ, intersect.any_hit(sc["ptris"], *args[1:]))
+    got = cuda_closest.closest_hit_fused(*args, exact_cull=16, sort=sort)
+    ref = cuda_closest.closest_hit_fused(*args, sort=sort)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    bf = intersect.closest_hit(sc["ptris"], *args[1:])
+    assert torch.equal(got.t, bf.t) and bool(got.hit.any())
+
+
 def test_unported_options_and_bad_inputs_raise(rng):
-    sc = _scene(rng, 200, 64)
-    o, d, tm = _wave(rng, sc, 128)
-    with pytest.raises(ValueError, match="exact_cull"):
-        cuda_anyhit.any_hit_fused(sc["pa"], T(o), T(d), 1e-3, T(tm),
-                                  exact_cull=16)
-    with pytest.raises(ValueError, match="exact_cull"):
-        cuda_closest.closest_hit_fused(sc["pa"], T(o), T(d), 1e-3, T(tm),
-                                       exact_cull=16)
     meta = dict(device="meta")
     args = (torch.empty((3, 16, 64), **meta), torch.empty((2, 8, 128), **meta),
             torch.empty((16,), dtype=torch.int32, **meta))

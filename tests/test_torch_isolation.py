@@ -29,6 +29,7 @@ def _all_modules():
 def test_port_imports_no_jax():
     mods = _all_modules()
     assert "path_tracer_ai_tpu_torch.engine.wavefront" in mods
+    assert "path_tracer_ai_tpu_torch.parallel.mesh" in mods
     code = (
         "import importlib, json, sys\n"
         f"mods = {mods!r}\n"
@@ -99,6 +100,7 @@ def _constructor_calls():
     from path_tracer_ai_tpu_torch import benchmarks, cli, convert
     from path_tracer_ai_tpu_torch.accel.clusters import build_clusters
     from path_tracer_ai_tpu_torch.core.types import triangles_from_numpy
+    from path_tracer_ai_tpu_torch.parallel import mesh
     from path_tracer_ai_tpu_torch.scene import camera, cornell
 
     f = lambda *shape: np.zeros(shape, np.float32)
@@ -127,14 +129,16 @@ def _constructor_calls():
             v0=f(2, 3), v1=f(2, 3) + 1, v2=f(2, 3) + 2), cluster_size=2).v0,
         "build_config_scene": lambda: benchmarks.build_config_scene(
             benchmarks.get_configs()["cornell"])[0].triangles.v0,
+        "make_mesh": lambda: torch.empty(0, device=mesh.make_mesh(1)
+                                         .devices[0][0]),
     }
 
 
 @pytest.mark.parametrize("name", sorted(_constructor_calls()))
 def test_constructors_default_to_the_card(name, monkeypatch):
-    """With no device the camera, the array converters, the scene constructors
-    and the CLI put their tensors on the card, and raise where there is
-    none; they never fall back to the CPU."""
+    """With no device the camera, the array converters, the scene
+    constructors, the CLI and the mesh put their tensors on the card, and
+    raise where there is none; they never fall back to the CPU."""
     import torch
 
     monkeypatch.delenv("PT_PLATFORM", raising=False)

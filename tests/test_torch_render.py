@@ -253,20 +253,19 @@ def test_hybrid_worklist_shadow_engine_renders(both, port_images,
     np.testing.assert_array_equal(img, port_images["oracle"])
 
 
-def test_worklist_packets_exact_shadows_raise(both, monkeypatch):
+def test_worklist_packets_exact_shadows_equal_oracle(both, port_images,
+                                                     monkeypatch):
+    """WORKLIST_OCCLUDE_ENGINE = "packets_exact" (once raising as unported):
+    the worklist backend's shadow waves through the exact-cull packet
+    cascade; occlusion is exact, so the image is the oracle's."""
     monkeypatch.setattr(wavefront, "WORKLIST_OCCLUDE_ENGINE", "packets_exact")
-    with pytest.raises(ValueError, match="exact_cull"):
-        _port_render(both, backend="worklist")
+    img = _port_render(both, backend="worklist")
+    np.testing.assert_array_equal(img, port_images["oracle"])
 
 
 @pytest.mark.parametrize("closest_kw,occlude_kw,match", [
     (dict(engine="ctiles"), dict(engine="ctiles"), "ctiles"),
     (dict(engine="pairs"), dict(engine="packets"), "pairs"),
-    (dict(engine="ctiles"), dict(engine="packets", exact_cull=6), "exact_cull"),
-    (dict(engine="ctiles"), dict(engine="packets_fused", exact_cull=16),
-     "exact_cull"),
-    (dict(engine="cascade_fused", exact_cull=16), dict(engine="packets"),
-     "exact_cull"),
 ])
 def test_unported_engines_and_exact_cull_raise(both, monkeypatch, closest_kw,
                                                occlude_kw, match):
@@ -274,6 +273,34 @@ def test_unported_engines_and_exact_cull_raise(both, monkeypatch, closest_kw,
     monkeypatch.setattr(wavefront, "HYBRID_OCCLUDE_KW", occlude_kw)
     with pytest.raises(ValueError, match=match):
         _port_render(both)
+
+
+@pytest.mark.parametrize("closest_kw,occlude_kw", [
+    (dict(engine="ctiles"), dict(engine="packets", group_size=2)),
+    (dict(engine="ctiles"), dict(engine="packets_fused")),
+    (dict(engine="cascade_fused"), dict(engine="packets", group_size=2)),
+])
+def test_exact_cull_engines_render_equal_conservative(both, port_images,
+                                                      monkeypatch, closest_kw,
+                                                      occlude_kw):
+    """exact_cull (once raising as unported) in the hybrid packet cascade
+    (6), the fused any-hit cascade (16) and the fused closest cascade (16):
+    the image equals the same engines' with the conservative cull, and the
+    oracle's."""
+    ex_closest = dict(closest_kw)
+    ex_occlude = dict(occlude_kw)
+    if closest_kw["engine"] == "cascade_fused":
+        ex_closest["exact_cull"] = 16
+    else:
+        ex_occlude["exact_cull"] = 6 if occlude_kw["engine"] == "packets" \
+            else 16
+    imgs = []
+    for ckw, okw in ((closest_kw, occlude_kw), (ex_closest, ex_occlude)):
+        monkeypatch.setattr(wavefront, "HYBRID_CLOSEST_KW", ckw)
+        monkeypatch.setattr(wavefront, "HYBRID_OCCLUDE_KW", okw)
+        imgs.append(_port_render(both, accel_closest=both["accel_c"]))
+    np.testing.assert_array_equal(imgs[1], imgs[0])
+    np.testing.assert_array_equal(imgs[1], port_images["oracle"])
 
 
 def test_block_size_one_means_perray(both):
