@@ -20,7 +20,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   tile_sweep at its three shapes: the closest path's
                   (T 128, S 256), the shadow cascade's with one cluster a
                   tile (T 64, S 128) and with two (tile_cid [nt, 2]), the
-                  last also against two single-cluster launches folded.
+                  last also against two single-cluster launches folded;
+                  its sub_skip and pack_t instances on the tiles of the
+                  (T 128, S 256), (T 128, S 128) and (T 64, S 128) checks:
+                  bitwise against their plain versions and the default
+                  instance, timed, bounded (sub_skip over the sub-slabs its
+                  plain version sweeps), registers and warps per SM; the
+                  tile_sweep_options line sets them beside the default
+                  instance and its figures from before the options
+                  existed (0.2015 ms, 93/0/16; PERF.md's kernel table).
   3b. sweep_waves closest_sweep on the pallas bench render's own waves (wave
                   0 at bounce 0 and 1, kept from one render): bitwise
                   against its plain version, timed and bounded on each whole
@@ -127,6 +135,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   ms, the same occlusion). consistency also renders the
                   worklist route with WORKLIST_OCCLUDE_ENGINE =
                   "packets_exact" (bitwise the oracle).
+  13. path_ctiles the bench render with backend="ctiles" (closest waves
+                  T 128 on the S=128 accel, lane-major shadow waves in
+                  blocks of 4, T 64), with sub_skip in CTILES_CLOSEST_KW,
+                  and the main path with the hybrid shadow engine "ctiles":
+                  each warm at 96x54 and timed (seconds, Mrays/s, host
+                  syncs, tile_sweep launches by shape, overflow blocks),
+                  each image bitwise the main path's. consistency also
+                  holds ctiles' options bitwise against the oracle at
+                  96x54: levels=2 (auto) on the 2,564-cluster accel,
+                  pair_split=2, fallback_sorted=False and method="morton"
+                  accels through the main path.
+  14. path_perray the perray backend at 480x270 (bench spp and bounces),
+                  and at the bench cell if 16 x that predicts under 60 s:
+                  seconds, host syncs; the image at atol 1e-5 against the
+                  main path at the size it ran and against the oracle at
+                  96x54, differing pixels counted.
   mesh_cards      (--mesh-cards only) render_sharded_wavefront at the bench
                   cell over a mesh of distinct cards ((2, 2) on four, (n, 1)
                   on two or three) and over a virtual (2, 2) mesh of cuda:0,
@@ -242,6 +266,10 @@ def phase_build():
         "closest_sweep S128 R64": cuda_sweep.closest_occupancy(128, 64),
         "anyhit_sweep S128": cuda_sweep.anyhit_occupancy(128),
         "tile_sweep T128 S128": cuda_ctiles.kernel_occupancy(128, 128),
+        **{f"tile_sweep {opt} T{t} S{s_}": cuda_ctiles.kernel_occupancy(
+            s_, t, **{opt: True})
+           for opt in ("sub_skip", "pack_t")
+           for t, s_ in ((128, 256), (128, 128), (64, 128))},
         "item_sweep S128 closest": cuda_items.kernel_occupancy(128, True),
         "item_sweep S128 anyhit": cuda_items.kernel_occupancy(128, False),
     }
@@ -249,7 +277,7 @@ def phase_build():
           "spilling": [e["entry"] for es in ptxas.values() for e in es
                        if e["spill_bytes"]],
           "ptxas": ptxas, "occupancy": occupancy})
-    return occupancy
+    return occupancy, ptxas
 
 
 def _bound(nbytes: int, tests: int) -> dict:
@@ -302,10 +330,11 @@ def _tile_rays(accel, nt, t_lanes, rng, g=1, dead_every=7):
     return rays, t(cid if g > 1 else cid[:, 0])
 
 
-def _check_tile_sweep(accel, t_lanes, nt, rng, reps, g=1):
+def _check_tile_sweep(accel, t_lanes, nt, rng, reps, g=1, options=False):
     """tile_sweep against its plain version at one shape; with g > 1 the
     [nt, g] form, also against g single-cluster launches folded with
-    combine_min_tri (and timed beside them)."""
+    combine_min_tri (and timed beside them); with `options`, its sub_skip
+    and pack_t instances on the same tiles (_check_tile_options)."""
     from path_tracer_ai_tpu_torch.accel import cuda_ctiles
 
     pack = cuda_ctiles.pack_tris(accel)
@@ -345,13 +374,60 @@ def _check_tile_sweep(accel, t_lanes, nt, rng, reps, g=1):
         res["single_calls_folded_ms"] = cuda_ms(folded, reps)
         res["matches_plain"] = res["matches_plain"] and res["matches_single_calls"]
     res["ms_over_bound"] = ms / res["bound_ms"]
+    if options:
+        res["options"] = _check_tile_options(accel, rays, cid, t_k, tri_k,
+                                             reps)
+        res["matches_plain"] = res["matches_plain"] and all(
+            o["matches_plain"] and o["equals_default"]
+            for o in res["options"].values())
     emit(res)
     if not res["matches_plain"]:
         fail("kernel", f"tile_sweep T={t_lanes} G={g} disagrees with its plain "
-                       "version or with single-cluster launches")
+                       "version, with single-cluster launches or, with an "
+                       "option, with the default instance")
     if hits == 0:
         fail("kernel", f"tile_sweep T={t_lanes} check wave hit nothing")
     return res
+
+
+def _check_tile_options(accel, rays, cid, t_def, tri_def, reps):
+    """tile_sweep's sub_skip and pack_t instances on one check's tiles:
+    each bitwise against its plain version and against the default
+    instance's result, timed, and bounded over the tests it needs (sub_skip:
+    the live lanes' tests of the sub-slabs its plain version sweeps, a
+    tile-uniform gate; pack_t: every live lane's)."""
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles
+
+    out = {}
+    s = accel.cluster_size
+    t_lanes = rays.shape[2]
+    n_used = int(torch.unique(cid).numel())
+    for opt, pack in (("sub_skip", cuda_ctiles.pack_tris16(accel)),
+                      ("pack_t", cuda_ctiles.pack_tris16_t(accel))):
+        kw = {opt: True}
+        t_k, tri_k = cuda_ctiles.tile_sweep(pack, rays, cid, **kw)
+        st = {}
+        t_p, tri_p = cuda_ctiles.tile_sweep_plain(pack, rays, cid, stats=st,
+                                                  **kw)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: cuda_ctiles.tile_sweep(pack, rays, cid, **kw),
+                     reps)
+        plain_ms = cuda_ms(
+            lambda: cuda_ctiles.tile_sweep_plain(pack, rays, cid, **kw), 2)
+        words = 16 if opt == "sub_skip" else 10
+        nbytes = n_used * words * s * 4 + _nbytes(rays, cid, t_k, tri_k)
+        res = {"T": t_lanes, "S": s,
+               "matches_plain": (_bits_equal(t_k, t_p)
+                                 and bool(torch.equal(tri_k, tri_p))),
+               "equals_default": (_bits_equal(t_k, t_def)
+                                  and bool(torch.equal(tri_k, tri_def))),
+               "max_abs_err": _max_abs_err(t_k, t_p), "ms": ms,
+               "plain_ms": plain_ms, "plain_swept_tests": st["tests"],
+               **_bound(nbytes, st["lane_tests"]),
+               "occupancy": cuda_ctiles.kernel_occupancy(s, t_lanes, **kw)}
+        res["ms_over_bound"] = ms / res["bound_ms"]
+        out[opt] = res
+    return out
 
 
 def _bounce_wave(accel, n, rng, shadow):
@@ -618,9 +694,10 @@ def phase_kernels(accel_base, accel_c):
     """{kernel name: its check at the shape its path gives it}; tile_sweep
     also at the shadow cascade's shape, one and two clusters a tile."""
     rng = np.random.default_rng(0)
-    out = {"tile_sweep": _check_tile_sweep(accel_c, 128, 2048, rng, reps=20),
+    out = {"tile_sweep": _check_tile_sweep(accel_c, 128, 2048, rng, reps=20,
+                                           options=True),
            "tile_sweep_t64": _check_tile_sweep(accel_base, 64, 2048, rng,
-                                               reps=20)}
+                                               reps=20, options=True)}
     out.update(_check_sweeps(accel_base, rng))
     out.update(_check_fused(accel_base, rng))
     # last, so that the checks above draw the same waves as they always have
@@ -629,7 +706,8 @@ def phase_kernels(accel_base, accel_c):
     # the worklist path's shapes: pair tiles (T 128, S 128) and the packet
     # any-hit cascade of its fallbacks (T 64, groups of 8)
     out["tile_sweep_t128_s128"] = _check_tile_sweep(accel_base, 128, 2048,
-                                                    rng, reps=20)
+                                                    rng, reps=20,
+                                                    options=True)
     out["tile_sweep_t64_g8"] = _check_tile_sweep(accel_base, 64, 2048, rng,
                                                  reps=20, g=8)
     # render_sharded's shadow cascade: blocks of 256, groups of 2
@@ -761,9 +839,9 @@ def _read_counts() -> dict:
 def _tile_shapes() -> list:
     from path_tracer_ai_tpu_torch.accel import cuda_ctiles
 
-    return [{"T": t, "S": s_, "G": g, "launches": n, "tiles": tiles}
-            for (t, s_, g), (n, tiles) in sorted(
-                cuda_ctiles.launch_shapes.items())]
+    return [{"T": key[0], "S": key[1], "G": key[2], "launches": n,
+             "tiles": tiles, **({"option": key[3]} if len(key) > 3 else {})}
+            for key, (n, tiles) in sorted(cuda_ctiles.launch_shapes.items())]
 
 
 def _bench_render(phase, scene, card, kernels, warm_small, engines=None,
@@ -1033,8 +1111,16 @@ def phase_consistency():
     res["rr5_bitwise_rr0"] = bool(np.array_equal(img_late, img_off))
     res["rr2_differs_from_rr0"] = not np.array_equal(img_w, img_off)
     res["worklist_route"] = _consistency_worklist(scene, cam, img_oracle, kw)
+    res["ctiles_routes"] = _consistency_ctiles(scene, cam, img_oracle, kw)
     res["seconds"] = time.perf_counter() - t0
     emit(res)
+    ct = res["ctiles_routes"]
+    bad = [k for k, v in ct.items() if isinstance(v, dict)
+           and not (v["bitwise"] and v["launches"] > 0)]
+    if bad or ct["ctiles_2level_c2"]["two_level_culls"] <= 0:
+        fail("consistency", f"ctiles routes against the oracle (bitwise, "
+                            f"tile_sweep launched, the 2-level cull on the "
+                            f"2,564-cluster accel): {bad} {ct}")
     wl = res["worklist_route"]
     if wl["default_backend"] != "worklist" or not wl["worklist"]["bitwise"]:
         fail("consistency", f"the worklist route: {wl}")
@@ -2009,6 +2095,177 @@ def phase_exact_cull(scene, accel_base, accel_c, card, img_main, img_fused,
     return out
 
 
+# --- the ctiles and perray backends ------------------------------------------
+
+def phase_path_ctiles(scene, accel_base, accel_c, card, img_main):
+    """The bench render with backend="ctiles" (closest waves on the S=128
+    accel, T 128; lane-major shadow waves in blocks of 4, T 64), warm at
+    96x54 and timed; then the same with sub_skip in CTILES_CLOSEST_KW, and
+    the main path with the hybrid shadow engine "ctiles". Each image must
+    equal the main path's bit for bit (occlusion and ctiles' closest hits
+    are exact, with the oracle's tie rule)."""
+    from path_tracer_ai_tpu_torch.engine import wavefront
+
+    runs = {
+        "path_ctiles": (dict(backend="ctiles"), None, ["tile_sweep"]),
+        "path_ctiles_sub_skip": (
+            dict(backend="ctiles"),
+            {"CTILES_CLOSEST_KW": dict(wavefront.CTILES_CLOSEST_KW,
+                                       sub_skip=True)}, ["tile_sweep"]),
+        "path_hybrid_ctiles_shadows": (
+            dict(accel_closest=accel_c),
+            {"HYBRID_OCCLUDE_KW": dict(engine="ctiles")}, ["tile_sweep"]),
+    }
+    out = {}
+    for name, (kw, engines, kernels) in runs.items():
+        res, img, missing, image_ok = _bench_render(
+            "path_ctiles", scene, card, kernels, warm_small=True,
+            engines=engines, accel=accel_base, **kw)
+        res["route"] = name
+        res["tables"] = {k: str(v) for k, v in (engines or {}).items()}
+        res["bitwise_equal_to_main"] = bool(np.array_equal(img, img_main))
+        _finish_path(res, missing, image_ok)
+        if not res["bitwise_equal_to_main"]:
+            fail("path_ctiles", f"{name}: the image differs from the main "
+                                "path's")
+        out[name] = res
+    if not any(sh.get("option") == "sub_skip" for sh in
+               out["path_ctiles_sub_skip"]["tile_sweep_shapes"]):
+        fail("path_ctiles", "the sub_skip render launched no sub_skip sweep")
+    return out
+
+
+PERRAY_CUT = dict(width=480, height=270)
+PERRAY_BENCH_LIMIT_S = 60.0
+
+
+def phase_path_perray(scene, accel_base, accel_c, card, img_main):
+    """The perray backend (traverse's per-ray queries, eager torch, as the
+    reference's are XLA code): at 480x270 first (the bench's spp and
+    bounces; warm at 96x54, then timed), then at the bench cell if 16
+    times that predicts under PERRAY_BENCH_LIMIT_S. Its image is held at
+    atol 1e-5 against the main path at the size it ran (a main-path render
+    at 480x270 when cut), and at 96x54 against the oracle, with the
+    differing pixels counted (its tie rule is the packet cascade's first
+    slot)."""
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import oracle, wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+    from path_tracer_ai_tpu_torch.utils import sync
+
+    cam = default_camera("cuda")
+    kw = dict(wave_size=1 << 20, device="cuda", accel=accel_base,
+              backend="perray")
+
+    def timed(settings):
+        _reset_counts()
+        stats = wavefront.RenderStats()
+        img = wavefront.render(scene, cam, settings, stats=stats, **kw)
+        return img, {"seconds": stats.seconds,
+                     "mrays_per_s": stats.mrays_per_s,
+                     "closest_rays": stats.closest_rays,
+                     "shadow_rays": stats.shadow_rays,
+                     "host_syncs": sync.count, "launches": _read_counts(),
+                     "tile_sweep_shapes": _tile_shapes()}
+
+    def against(img, ref):
+        diff = np.abs(img - ref).max(axis=-1)
+        return {"max_abs_diff": float(diff.max()),
+                "pixels_differing": int((diff > 0).sum()),
+                "pixels_over_1e-5": int((diff > 1e-5).sum())}
+
+    small = RenderSettings(**{**BENCH, "width": 96, "height": 54})
+    img_small, _ = timed(small)  # also the warm pass
+    res = {"phase": "path_perray", "card": card,
+           "vs_oracle_96x54": against(img_small, oracle.render(
+               scene, cam, small, device="cuda"))}
+    cut = RenderSettings(**{**BENCH, **PERRAY_CUT})
+    img_cut, res["cut_480x270"] = timed(cut)
+    predicted = res["cut_480x270"]["seconds"] * 16
+    res["predicted_bench_seconds"] = predicted
+    if predicted < PERRAY_BENCH_LIMIT_S:
+        img, run = timed(RenderSettings(**BENCH))
+        res.update(run, size="1920x1080", vs_main=against(img, img_main))
+    else:
+        img_m = wavefront.render(scene, cam, cut, wave_size=1 << 20,
+                                 device="cuda", accel=accel_base,
+                                 accel_closest=accel_c)
+        img = img_cut
+        res.update(res["cut_480x270"], size="480x270 (cut: 16 x the "
+                   "480x270 render predicts over "
+                   f"{PERRAY_BENCH_LIMIT_S:.0f} s at 1920x1080)",
+                   vs_main=against(img, img_m))
+    image_ok = _image_verdict(img, res)
+    _finish_path(res, [], image_ok)
+    bad = {k: v for k, v in (("vs_main", res["vs_main"]),
+                             ("vs_oracle_96x54", res["vs_oracle_96x54"]))
+           if v["pixels_over_1e-5"]}
+    if bad:
+        fail("path_perray", f"perray differs beyond atol 1e-5: {bad}")
+    return res
+
+
+def _consistency_ctiles(scene, cam, img_oracle, kw):
+    """ctiles' options against the oracle's rr-off image of the consistency
+    phase (96x54, 4 spp, 5 bounces), each bitwise: the ctiles backend on
+    the 2,564-cluster accel (clusters of two: levels=0 picks the 2-level
+    cull), pair_split=2 in CTILES_CLOSEST_KW (the ctiles backend and the
+    main path), fallback_sorted=False on the main path, and accels built
+    with method="morton" through the main path."""
+    from path_tracer_ai_tpu_torch.accel import ctiles
+    from path_tracer_ai_tpu_torch.accel.clusters import build_clusters
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import wavefront
+
+    settings = RenderSettings(width=96, height=54, samples_per_pixel=4,
+                              max_bounces=5, seed=0)
+    acc2 = build_clusters(scene.triangles, cluster_size=2)
+    ckw = wavefront.CTILES_CLOSEST_KW
+    routes = {
+        "ctiles_2level_c2": (dict(backend="ctiles", accel=acc2), None),
+        "ctiles_pair_split_2": (
+            dict(backend="ctiles"),
+            {"CTILES_CLOSEST_KW": dict(ckw, pair_split=2)}),
+        "main_pair_split_2": (
+            {}, {"CTILES_CLOSEST_KW": dict(ckw, pair_split=2)}),
+        "main_fallback_unsorted": (
+            {}, {"CTILES_CLOSEST_KW": dict(ckw, fallback_sorted=False)}),
+        "main_morton": (
+            dict(accel=build_clusters(scene.triangles, method="morton"),
+                 accel_closest=build_clusters(scene.triangles,
+                                              cluster_size=256,
+                                              method="morton")), None),
+    }
+    out = {"clusters_c2": acc2.num_clusters}
+    levels = []
+    real = ctiles._block_candidates_2level
+    ctiles._block_candidates_2level = (
+        lambda *a, **k: levels.append(1) or real(*a, **k))
+    try:
+        for name, (rkw, tables) in routes.items():
+            _reset_counts()
+            n_levels = len(levels)
+            with _engines(tables):
+                img = wavefront.render(scene, cam, settings,
+                                       **{**kw, **rkw})
+            diff = np.abs(img - img_oracle).max(axis=-1)
+            out[name] = {"bitwise": bool(np.array_equal(img, img_oracle)),
+                         "max_abs_diff": float(diff.max()),
+                         "pixels_differing": int((diff > 0).sum()),
+                         "two_level_culls": len(levels) - n_levels,
+                         "launches": _read_counts()["tile_sweep"]}
+    finally:
+        ctiles._block_candidates_2level = real
+    return out
+
+
+# The default tile_sweep instance at (T 128, S 256) as measured on the H100
+# before its options were compiled beside it (PERF.md's kernel table): the
+# tile_sweep_options line holds this run's figures against these.
+BEFORE_OPTIONS = {"ms": 0.2015, "registers": 93, "spill_bytes": 0,
+                  "warps_per_sm": 16}
+
+
 # name -> (source under path_tracer_ai_tpu_torch/csrc, TPU kernel it replaces,
 #          phase whose render gives its launch count)
 KERNELS = {
@@ -2046,7 +2303,7 @@ def main() -> int:
     import path_tracer_ai_tpu_torch  # noqa: F401  (fails outside the repo)
 
     card = phase_device()
-    occupancy = phase_build()
+    occupancy, ptxas = phase_build()
     if args.sass:
         dump_sass(args.sass)
 
@@ -2103,7 +2360,11 @@ def main() -> int:
     paths["config_4k"] = phase_config_4k(card)
     exact = phase_exact_cull(scene, accel_base, accel_c, card, img_main,
                              img_fused, worklist_waves, accel_w)
-    new_paths = {"path_pool": paths["path_pool"],
+    ctiles_paths = phase_path_ctiles(scene, accel_base, accel_c, card,
+                                     img_main)
+    perray = phase_path_perray(scene, accel_base, accel_c, card, img_main)
+    new_paths = {**ctiles_paths, "path_perray": perray,
+                 "path_pool": paths["path_pool"],
                  "path_mesh_virtual_2x2": meshes["virtual_2x2"],
                  "path_mesh_tile_devices_8": meshes["tile_devices_8"],
                  "render_sharded": meshes["render_sharded"],
@@ -2111,6 +2372,28 @@ def main() -> int:
                  "exact_cull_main": exact["main"],
                  "exact_cull_fused": exact["fused"]}
 
+    emit({"phase": "tile_sweep_options", "card": card,
+          "default_T128_S256": {
+              "ms": checks["tile_sweep"]["ms"],
+              "ms_over_before_options": checks["tile_sweep"]["ms"]
+              / BEFORE_OPTIONS["ms"],
+              "occupancy": occupancy["tile_sweep T128 S256"],
+              "before_options": BEFORE_OPTIONS},
+          "checks": [{"option": opt, "T": o["T"], "S": o["S"],
+                      "matches_plain": o["matches_plain"],
+                      "equals_default": o["equals_default"], "ms": o["ms"],
+                      "default_ms": checks[name]["ms"],
+                      "bound_ms": o["bound_ms"],
+                      "ms_over_bound": o["ms_over_bound"],
+                      "plain_ms": o["plain_ms"],
+                      "occupancy": o["occupancy"]}
+                     for name in ("tile_sweep", "tile_sweep_t128_s128",
+                                  "tile_sweep_t64")
+                     for opt, o in checks[name]["options"].items()],
+          "ptxas": [e for e in ptxas.get("ctiles_sweep", [])
+                    if "options" in e["entry"]],
+          "new_path_launches": {k: v["tile_sweep_shapes"]
+                                for k, v in ctiles_paths.items()}})
     emit({"phase": "tile_sweep_shapes", "card": card, "checks": [
         {k: checks[name][k] for k in ("T", "S", "G", "nt", "ms", "bound_ms",
                                       "ms_over_bound", "matches_plain")}

@@ -1,10 +1,11 @@
 """Triangle-cluster acceleration structure (counterpart of accel/clusters.py).
 
-Triangles are ordered by a recursive median split (cluster-size aligned)
-and packed into C clusters of S slots; padding slots are all-zero
-triangles (determinant 0, never hit) with tri_id -1. Each cluster gets an
+Triangles are ordered by a recursive median split (cluster-size aligned),
+or by the Morton code of their centroids (method="morton"), and packed
+into C clusters of S slots; padding slots are all-zero triangles
+(determinant 0, never hit) with tri_id -1. Each cluster gets an
 AABB, and groups of `super_size` consecutive clusters a supercluster AABB.
-The build runs on the host (numpy, or the native C++ split order); the
+The build runs on the host (numpy, or the native C++ orders); the
 result is a NamedTuple of tensors on the requested device.
 """
 
@@ -77,14 +78,21 @@ def _host(a) -> np.ndarray:
     return np.asarray(a, np.float32)
 
 
-def build_clusters(tris, cluster_size: int = 128, super_size: int = 16,
-                   device=None) -> ClusterAccel:
-    """Split-order the triangles and pack them into fixed-size clusters.
+def build_clusters(tris, cluster_size: int = 128, method: str = "split",
+                   super_size: int = 16, device=None) -> ClusterAccel:
+    """Order the triangles spatially and pack them into fixed-size clusters.
 
+    method: "split" (the median split, the default) or "morton" (the
+    centroids' Morton order: a cheaper build with looser boxes); as in the
+    reference, any method other than "split" takes the Morton order.
     tris: anything with v0/v1/v2 ([T,3] arrays or tensors). The result
     lives on `device` (default: the device of tris.v0 for tensors; for
     numpy input resolve_device(None), cuda, which raises without a GPU)."""
-    from path_tracer_ai_tpu_torch.accel.native import native_split_order
+    from path_tracer_ai_tpu_torch.accel.morton import morton3d_np
+    from path_tracer_ai_tpu_torch.accel.native import (
+        native_morton_order,
+        native_split_order,
+    )
     from path_tracer_ai_tpu_torch.device import resolve_device
 
     if device is None:
@@ -96,9 +104,16 @@ def build_clusters(tris, cluster_size: int = 128, super_size: int = 16,
         raise ValueError("cannot build acceleration structure over 0 triangles")
 
     centers = (v0 + v1 + v2) / 3.0
-    order = native_split_order(centers, cluster_size)
-    if order is None:
-        order = _median_split_order(centers, cluster_size)
+    if method == "split":
+        order = native_split_order(centers, cluster_size)
+        if order is None:
+            order = _median_split_order(centers, cluster_size)
+    else:
+        order = native_morton_order(v0, v1, v2)
+        if order is None:
+            order = np.argsort(morton3d_np(centers, centers.min(axis=0),
+                                           centers.max(axis=0)),
+                               kind="stable")
     order = order.astype(np.int64)
 
     s = cluster_size

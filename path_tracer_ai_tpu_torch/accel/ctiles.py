@@ -1,28 +1,36 @@
-"""Cluster-major tile traversal: the closest-hit path of the wavefront engine.
+"""Cluster-major tile traversal (counterpart of accel/ctiles.py).
 
-Counterpart of accel/ctiles.py `closest_hit_ctiles` on the flat cull
-(levels=1, which the reference picks up to 2048 clusters):
-
-1. SORT      — rays sorted by (octant, fine origin Morton) into blocks of
-               `block` rays, dead rays last.
-2. CULL      — per-ray inclusive slab tests against all cluster AABBs,
-               OR'd per block: the true union of the per-ray candidate sets.
+1. SORT      — rays sorted (`sort_mode`, "octorig" by default: octant and
+               fine origin Morton) into blocks of `block` rays, dead rays
+               last.
+2. CULL      — per-ray inclusive slab tests, OR'd per block: the true
+               union of the per-ray candidate sets. levels=1 tests every
+               cluster AABB (`_ray_masks`); levels=2 tests the supercluster
+               boxes first and then only the children of the block's
+               super shortlist (`_block_candidates_2level`); levels=0
+               picks 2 past 2048 clusters, as the reference does.
 3. PAIRS     — flat (block, candidate) pair domain, p = block*cap + k,
                sorted by cluster id and padded per cluster to whole tiles of
                `tile_blocks` blocks (T = tile_blocks*block rays share one
-               cluster).
+               cluster). pair_split=H sorts only the head columns k < H of
+               every block plus the tail columns of at most nb // 8 blocks.
 4. SWEEP     — the cluster-tile kernel (accel.cuda_ctiles.tile_sweep) over
-               chunks of `tile_chunk` tiles.
+               chunks of `tile_chunk` tiles; `sub_skip` / `pallas_pack_t`
+               select its two options.
 5. RESOLVE   — per-block (t, tri) by row scatter-min: best t first, then
                the minimum tri id among slots achieving it (the oracle's
-               lexicographic tie rule).
+               lexicographic tie rule); for occlusion, tri != INT32_MAX per
+               slot and a scatter-max per block.
 
-Blocks whose union exceeds `cap` complete exactly through the overflow
-fallback (worklist._overflow_fallback: per-ray pair tiles on a compacted
-wave of at most `fallback_compact` rays, else the packet cascade on the
-whole wave), in the sorted domain, before the unsort. The reference pads each cluster's tile list to runs of 8 tiles
-for its Pallas grid; the CUDA kernel reads one cluster id per tile, so
-here the padding is per tile. Results do not depend on the padding.
+Blocks whose union exceeds `cap` (or `super_cap` supers, or the split
+tail budget) complete exactly through the overflow fallback
+(worklist._overflow_fallback: per-ray pair tiles on a compacted wave of at
+most `fallback_compact` rays, else the packet cascade on the whole wave),
+in the sorted domain before the unsort (fallback_sorted=True) or on the
+unsorted wave after it. The reference pads each cluster's tile list to
+runs of 8 tiles for its Pallas grid; the CUDA kernel reads one cluster id
+per tile, so here the padding is per tile. Results do not depend on the
+padding.
 """
 
 from __future__ import annotations
@@ -42,9 +50,15 @@ from path_tracer_ai_tpu_torch.accel.worklist import (
 from path_tracer_ai_tpu_torch.utils import sync
 
 INF = float("inf")
-BLOCK = 8           # rays per block (sorted "octorig" neighbours)
-TILE_BLOCKS = 16    # blocks per tile: T = 128 rays share one cluster
-ROW_CHUNK = 1 << 11  # blocks per step of the cull ([16384, C, 3] temporaries)
+NEG_BIG = -(2**30)  # the reference's empty top_k slot; negated: 2**30
+
+
+def _chunk_end(nb, row_chunk, live_blocks):
+    """Rows the cull computes: all of them, or the whole row chunks that
+    cover the live-block prefix (the reference's fori_loop bound)."""
+    if live_blocks is None:
+        return nb
+    return min(nb, -(-live_blocks // row_chunk) * row_chunk)
 
 
 def _ray_masks(accel, o_blk, d_blk, tm_blk, t_min, row_chunk, live_blocks=None):
@@ -56,8 +70,7 @@ def _ray_masks(accel, o_blk, d_blk, tm_blk, t_min, row_chunk, live_blocks=None):
     nb, b = o_blk.shape[:2]
     c = accel.num_clusters
     cand = torch.zeros((nb, c), dtype=torch.bool, device=o_blk.device)
-    end = nb if live_blocks is None else min(nb, live_blocks)
-    for lo in range(0, end, row_chunk):
+    for lo in range(0, _chunk_end(nb, row_chunk, live_blocks), row_chunk):
         hi = min(lo + row_chunk, nb)
         of = o_blk[lo:hi].reshape(-1, 3)
         df = d_blk[lo:hi].reshape(-1, 3)
@@ -69,7 +82,7 @@ def _ray_masks(accel, o_blk, d_blk, tm_blk, t_min, row_chunk, live_blocks=None):
     return cand, cand.sum(dim=1).to(torch.int32)
 
 
-def _extract_order_flat(accel, cand, n_cand, cap, row_chunk=ROW_CHUNK):
+def _extract_order_flat(accel, cand, n_cand, cap, row_chunk=1 << 11):
     """Per-block candidate ids, ascending -> (order [nb, kx], n_cand, over).
     Overflow blocks (n_cand > cap) get n_cand 0; slots past n_cand hold
     C-1."""
@@ -86,12 +99,96 @@ def _extract_order_flat(accel, cand, n_cand, cap, row_chunk=ROW_CHUNK):
     return order, n_cand, over
 
 
-def _build_pairs(accel, order, n_cand, over, cap, tile_blocks):
+def _block_candidates_2level(accel, o_blk, d_blk, tm_blk, t_min, cap,
+                             row_chunk, super_cap, live_blocks=None):
+    """Hierarchical per-ray cull (ctiles.py:194-344): the supercluster
+    shortlist of each block (the OR of its rays' super slab tests, at most
+    super_cap supers, else the block overflows), then each ray's slab test
+    against the shortlist's child boxes only, OR'd per block.
+
+    Child ids come out ascending (supers ascend, children within a super
+    ascend). The child test is the sign-select near/far in where form, so
+    the inverted boxes of a partly filled last super fail (min/max would
+    pass them). Blocks with more than min(cap, super_cap * super_size, C)
+    candidates overflow. Returns (order [nb, kx] i32, n_cand [nb] i32, 0
+    on overflow, over [nb] bool); as in the reference, slots past n_cand
+    hold C-1, and rows past the computed chunks (live_blocks) hold 0."""
+    nb, b = o_blk.shape[:2]
+    dev = o_blk.device
+    c = accel.num_clusters
+    cs = accel.num_supers
+    ss = accel.super_size
+    scap = min(super_cap, cs)
+    k_child = scap * ss
+    kx = min(cap, k_child, c)
+    order = torch.zeros((nb, kx), dtype=torch.int32, device=dev)
+    n_cand = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    over = torch.zeros((nb,), dtype=torch.bool, device=dev)
+    j = torch.arange(ss, dtype=torch.int64, device=dev)
+    for lo in range(0, _chunk_end(nb, row_chunk, live_blocks), row_chunk):
+        hi = min(lo + row_chunk, nb)
+        rc = hi - lo
+        oc, dc, tc = o_blk[lo:hi], d_blk[lo:hi], tm_blk[lo:hi]
+        tf = tc.reshape(-1)
+        lo0 = torch.full_like(tf, float(t_min))
+        hi0 = torch.where(tf >= 0.0, tf, -INF)
+
+        # Level 1: per-ray super slab -> per-block OR -> shortlist.
+        cand_s = _ray_slab(accel.sbmin, accel.sbmax, oc.reshape(-1, 3),
+                           dc.reshape(-1, 3), lo0, hi0)
+        cand_sb = cand_s.reshape(rc, b, cs).any(dim=1)          # [rc, Cs]
+        ov = cand_sb.sum(dim=1) > scap
+        sup = _extract_k(cand_sb & ~ov[:, None], scap, -NEG_BIG).long()
+        sup_live = sup < cs
+        sup_c = torch.clamp(sup, 0, cs - 1)
+
+        # Level 2: per-ray slab vs the block's gathered child boxes.
+        cbmin = accel.cbmin[sup_c].reshape(rc, k_child, 3)
+        cbmax = accel.cbmax[sup_c].reshape(rc, k_child, 3)
+        inv = 1.0 / dc                                          # [rc, b, 3]
+        lo_t = torch.full((rc, b, k_child), float(t_min), dtype=torch.float32,
+                          device=dev)
+        hi_t = torch.where(tc >= 0.0, tc, -INF)[..., None].expand(
+            rc, b, k_child)
+        for a in range(3):
+            inv_a = inv[:, :, None, a]
+            t0 = (cbmin[:, None, :, a] - oc[:, :, None, a]) * inv_a
+            t1 = (cbmax[:, None, :, a] - oc[:, :, None, a]) * inv_a
+            neg = inv_a < 0.0
+            near = torch.where(neg, t1, t0)
+            far = torch.where(neg, t0, t1)
+            lo_t = torch.where(near > lo_t, near, lo_t)
+            hi_t = torch.where(far < hi_t, far, hi_t)
+        cand_k = (hi_t >= lo_t).any(dim=1)                      # [rc, K]
+        cand_k &= sup_live.repeat_interleave(ss, dim=1)
+        cand_k &= ~ov[:, None]
+
+        child_id = (sup_c[:, :, None] * ss + j).reshape(rc, k_child)
+        nc = cand_k.sum(dim=1).to(torch.int32)
+        ov = ov | (nc > kx)
+        cand_k &= ~ov[:, None]
+        cols = _extract_k(cand_k, kx, k_child).long()
+        child_id = torch.nn.functional.pad(child_id, (0, 1), value=c - 1)
+        order[lo:hi] = torch.clamp(torch.gather(child_id, 1, cols),
+                                   max=c - 1).to(torch.int32)
+        n_cand[lo:hi] = torch.where(ov, 0, nc)
+        over[lo:hi] = ov
+    return order, n_cand, over
+
+
+def _build_pairs(accel, order, n_cand, over, cap, tile_blocks, split_head=0,
+                 split_tail_den=8):
     """Candidate tables -> cluster-major slots padded to whole tiles.
 
     Pair p = block*cap + k (k-th candidate of its block), so its owner is
     p // cap. One sort by cluster id (within-cluster order is free: the
     resolve is a lexicographic min) gives the cluster-major order.
+
+    split_head=H (0 < H < cap): only the head columns k < H of every block
+    are sorted, plus the tail columns of the blocks with more than H
+    candidates, compacted in block order into nb // split_tail_den rows;
+    tail blocks past that budget overflow (ctiles.py:374-419).
+
     Returns dict(overflow [nb], slot_pair [n_slots] i32 flat pair id or -1
     for padding, slot_cid [n_slots] i32, n_slots int)."""
     nb = order.shape[0]
@@ -101,9 +198,38 @@ def _build_pairs(accel, order, n_cand, over, cap, tile_blocks):
     if cap > order.shape[1]:
         order = torch.nn.functional.pad(order, (0, cap - order.shape[1]),
                                         value=c - 1)
-    livek = torch.arange(cap, device=dev)[None, :] < n_cand[:, None]
-    key = torch.where(livek, order, c).reshape(-1)            # [nb*cap]
-    key_sorted, perm = torch.sort(key)
+    if split_head and split_head < cap:
+        h = split_head
+        tb_cap = max(1, nb // split_tail_den)
+        is_tail = n_cand > h
+        tail_rank = torch.cumsum(is_tail.to(torch.int32), 0)     # inclusive
+        over_budget = is_tail & (tail_rank > tb_cap)
+        over = over | over_budget
+        n_cand = torch.where(over_budget, 0, n_cand)
+        kidx = torch.arange(h, device=dev)[None, :]
+        key_h = torch.where(kidx < n_cand[:, None], order[:, :h],
+                            c).reshape(-1)
+        pid_h = (torch.arange(nb, device=dev)[:, None] * cap
+                 + kidx).reshape(-1)
+        # the tail blocks, compacted in block order
+        tpos = torch.where(is_tail & ~over_budget, tail_rank - 1,
+                           tb_cap).long()
+        tail_blk = torch.full((tb_cap + 1,), nb, dtype=torch.int64,
+                              device=dev)
+        tail_blk[tpos] = torch.arange(nb, device=dev)
+        tail_blk = tail_blk[:tb_cap]
+        tbi = torch.clamp(tail_blk, max=nb - 1)
+        kt = h + torch.arange(cap - h, device=dev)[None, :]
+        livek_t = (tail_blk < nb)[:, None] & (kt < n_cand[tbi][:, None])
+        key_t = torch.where(livek_t, order[tbi, h:cap], c).reshape(-1)
+        pid_t = (tbi[:, None] * cap + kt).reshape(-1)
+        key = torch.cat([key_h, key_t.to(key_h.dtype)])
+        key_sorted, idx = torch.sort(key)
+        perm = torch.cat([pid_h, pid_t])[idx]
+    else:
+        livek = torch.arange(cap, device=dev)[None, :] < n_cand[:, None]
+        key = torch.where(livek, order, c).reshape(-1)        # [nb*cap]
+        key_sorted, perm = torch.sort(key)
     base = torch.searchsorted(
         key_sorted, torch.arange(c + 1, dtype=key_sorted.dtype, device=dev))
     counts = base[1:] - base[:-1]                             # [c]
@@ -128,12 +254,26 @@ def _build_pairs(accel, order, n_cand, over, cap, tile_blocks):
                 slot_cid=slot_cid, n_slots=n_slots)
 
 
+def sweep_pack_builder(sub_skip: bool = False, pallas_pack_t: bool = False):
+    """The builder of the pack tile_sweep reads with these options:
+    pack_tris (neither), pack_tris16 (sub_skip) or pack_tris16_t (its
+    [C, S, 16] transpose, pallas_pack_t)."""
+    if sub_skip:
+        return cuda_ctiles.pack_tris16
+    if pallas_pack_t:
+        return cuda_ctiles.pack_tris16_t
+    return cuda_ctiles.pack_tris
+
+
 def _sweep_resolve(accel, pairs, o_blk, d_blk, tm_blk, t_min, cap,
-                   tile_blocks, tile_chunk, tri_pack):
+                   tile_blocks, tile_chunk, want_tri, pack, sub_skip=False,
+                   pack_t=False):
     """Tile sweep over the cluster-major slots, then the per-block resolve.
 
     Returns (t_blk [nb, b], tri_blk [nb, b]) with (inf, INT32_MAX) where a
-    ray found nothing."""
+    ray found nothing, or with want_tri=False (occ_blk [nb, b],): a slot
+    occludes where its tri != INT32_MAX (any passing test sets it), a
+    scatter-max per block."""
     nb, b = o_blk.shape[:2]
     tb = tile_blocks
     dev = o_blk.device
@@ -156,67 +296,154 @@ def _sweep_resolve(accel, pairs, o_blk, d_blk, tm_blk, t_min, cap,
         dead,
     ], dim=0)
 
+    def slot_chunks():
+        for start in range(0, n_tiles, tile_chunk):
+            stop = min(start + tile_chunk, n_tiles)
+            tc = stop - start
+            sp = slot_pair[start * tb:stop * tb]
+            blk = torch.where(sp >= 0, sp // cap, nb).to(torch.int64)
+            rays_pack = (ray_blocks[blk].reshape(tc, tb, 8, b).transpose(1, 2)
+                         .reshape(tc, 8, tb * b).contiguous())
+            cid = slot_cid[start * tb:stop * tb:tb].contiguous()
+            ct, tri_min = cuda_ctiles.tile_sweep(pack, rays_pack, cid,
+                                                 sub_skip=sub_skip,
+                                                 pack_t=pack_t)
+            yield (blk[:, None].expand(-1, b), ct.reshape(tc * tb, b),
+                   tri_min.reshape(tc * tb, b))
+
+    if not want_tri:
+        occ_blk = torch.zeros((nb + 1, b), dtype=torch.int32, device=dev)
+        for blk, _ct, tri_min in slot_chunks():
+            occ_blk.scatter_reduce_(0, blk, (tri_min != I32_MAX).to(
+                torch.int32), "amax")
+        return (occ_blk[:nb] > 0,)
+
     # Pass 1: per-slot (t, tri) from the kernel; per-block t by scatter-min.
     # Row nb of the block tables is a sink for padding slots.
     t_blk = torch.full((nb + 1, b), INF, dtype=torch.float32, device=dev)
     chunks = []
-    for start in range(0, n_tiles, tile_chunk):
-        stop = min(start + tile_chunk, n_tiles)
-        tc = stop - start
-        sp = slot_pair[start * tb:stop * tb]
-        blk = torch.where(sp >= 0, sp // cap, nb).to(torch.int64)
-        rays_pack = (ray_blocks[blk].reshape(tc, tb, 8, b).transpose(1, 2)
-                     .reshape(tc, 8, tb * b).contiguous())
-        cid = slot_cid[start * tb:stop * tb:tb].contiguous()
-        ct, tri_min = cuda_ctiles.tile_sweep(tri_pack, rays_pack, cid)
-        ct = ct.reshape(tc * tb, b)
-        t_blk.scatter_reduce_(0, blk[:, None].expand(-1, b), ct, "amin")
-        chunks.append((blk, ct, tri_min.reshape(tc * tb, b)))
+    for blk, ct, tri_min in slot_chunks():
+        t_blk.scatter_reduce_(0, blk, ct, "amin")
+        chunks.append((blk, ct, tri_min))
 
     # Pass 2: the minimum tri id among slots achieving the block's best t.
     tri_blk = torch.full((nb + 1, b), I32_MAX, dtype=torch.int32, device=dev)
     for blk, ct, ctri in chunks:
-        keep = ct <= t_blk[blk]
-        tri_blk.scatter_reduce_(0, blk[:, None].expand(-1, b),
-                                torch.where(keep, ctri, I32_MAX), "amin")
+        keep = ct <= torch.gather(t_blk, 0, blk)
+        tri_blk.scatter_reduce_(0, blk, torch.where(keep, ctri, I32_MAX),
+                                "amin")
     return t_blk[:nb], tri_blk[:nb]
 
 
-def closest_hit_ctiles(accel, origins, directions, t_min, t_max,
-                       cap: int = 48, tile_chunk: int = 256, sort: bool = True,
-                       fallback_compact: int = 1 << 13,
-                       fallback_block: int = 64,
-                       tri_pack=None) -> PacketHit:
-    """Closest hit via cluster-major tiles; exact for every ray.
-
-    Overflow completes in the sorted domain before the unsort (the
-    reference's `fallback_sorted=True`, the only form ported)."""
-    block, tile_blocks = BLOCK, TILE_BLOCKS
+def _run(accel, origins, directions, t_min, t_max, *, block, cap,
+         tile_blocks, row_chunk, tile_chunk, sort, sort_mode, fallback_block,
+         fallback_compact, want_tri, levels, super_cap, sub_skip,
+         fallback_sorted, pair_split, pallas_pack_t, tri_pack, sweep_pack):
+    if sub_skip and pallas_pack_t:
+        raise ValueError("sub_skip reads the [C, 16, S] pack; pallas_pack_t "
+                         "cannot be combined with it")
     n = origins.shape[0]
     dev = origins.device
     t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
                                                device=dev), (n,)).contiguous()
     if tri_pack is None:
         tri_pack = cuda_ctiles.pack_tris(accel)
+    if sweep_pack is None:
+        build = sweep_pack_builder(sub_skip, pallas_pack_t)
+        sweep_pack = (tri_pack if build is cuda_ctiles.pack_tris
+                      else build(accel))
     o_blk, d_blk, tm_blk, perm, npad = _prepare_blocks(
-        accel, origins, directions, t_max, block, sort, "octorig")
+        accel, origins, directions, t_max, block, sort, sort_mode)
+    nb = o_blk.shape[0]
     live_blocks = None
     if sort:  # sorted waves put dead rays last: cull only the live prefix
         n_live = sync.host_int((t_max >= 0.0).sum())
         live_blocks = -(-n_live // block)
-    cand, n_cand = _ray_masks(accel, o_blk, d_blk, tm_blk, t_min, ROW_CHUNK,
-                              live_blocks=live_blocks)
-    order, n_cand, over = _extract_order_flat(accel, cand, n_cand, cap)
-    pairs = _build_pairs(accel, order, n_cand, over, cap, tile_blocks)
-    t_blk, tri_blk = _sweep_resolve(accel, pairs, o_blk, d_blk, tm_blk, t_min,
-                                    cap, tile_blocks, tile_chunk, tri_pack)
-    over_s = pairs["overflow"][:, None].expand(-1, block).reshape(-1)
-    fb_t, fb_tri = _overflow_fallback(
-        accel, o_blk.reshape(npad, 3), d_blk.reshape(npad, 3), t_min,
-        tm_blk.reshape(npad), over_s, True, fallback_compact, fallback_block,
-        tri_pack, over_blocks=pairs["overflow"].sum())
-    best_t = torch.where(over_s, fb_t, t_blk.reshape(-1))
-    best_tri = torch.where(over_s, fb_tri, tri_blk.reshape(-1))
-    best_t, best_tri = _unsort((best_t, best_tri), perm, npad, n)
+    if levels == 0:
+        levels = 2 if accel.num_clusters > 2048 else 1
+    if levels == 2:
+        order, n_cand, over = _block_candidates_2level(
+            accel, o_blk, d_blk, tm_blk, t_min, cap, row_chunk, super_cap,
+            live_blocks=live_blocks)
+    else:
+        cand, n_cand = _ray_masks(accel, o_blk, d_blk, tm_blk, t_min,
+                                  row_chunk, live_blocks=live_blocks)
+        order, n_cand, over = _extract_order_flat(accel, cand, n_cand, cap,
+                                                  row_chunk=row_chunk)
+    pairs = _build_pairs(accel, order, n_cand, over, cap, tile_blocks,
+                         split_head=pair_split)
+    blk_res = _sweep_resolve(accel, pairs, o_blk, d_blk, tm_blk, t_min, cap,
+                             tile_blocks, tile_chunk, want_tri, sweep_pack,
+                             sub_skip=sub_skip, pack_t=pallas_pack_t)
+    over_blk = pairs["overflow"]
+    over_s = over_blk[:, None].expand(-1, block).reshape(-1)
+    fb_kw = dict(want_tri=want_tri, compact_cap=fallback_compact,
+                 fallback_block=fallback_block, tri_pack=tri_pack,
+                 over_blocks=over_blk.sum())
+    if fallback_sorted:
+        # Overflow completes in the sorted domain, before the unsort.
+        fb = _overflow_fallback(
+            accel, o_blk.reshape(npad, 3), d_blk.reshape(npad, 3), t_min,
+            tm_blk.reshape(npad), over_s, **fb_kw)
+        merged = tuple(torch.where(over_s, f, r.reshape(-1))
+                       for f, r in zip(fb, blk_res))
+        return _unsort(merged, perm, npad, n)
+    # One unsort carries the results and the overflow column; the fallback
+    # then runs on the unsorted wave.
+    unsorted = _unsort(tuple(a.reshape(-1) for a in blk_res) + (over_s,),
+                       perm, npad, n)
+    res_u, overflow_ray = unsorted[:-1], unsorted[-1]
+    fb = _overflow_fallback(accel, origins, directions, t_min, t_max,
+                            overflow_ray, **fb_kw)
+    return tuple(torch.where(overflow_ray, f, r) for f, r in zip(fb, res_u))
+
+
+def closest_hit_ctiles(accel, origins, directions, t_min, t_max,
+                       block: int = 8, cap: int = 48, tile_blocks: int = 16,
+                       row_chunk: int = 1 << 11, tile_chunk: int = 256,
+                       sort: bool = True, sort_mode: str = "octorig",
+                       fallback_block: int = 64,
+                       fallback_compact: int = 1 << 13, levels: int = 0,
+                       super_cap: int = 48, sub_skip: bool = False,
+                       fallback_sorted: bool = False, pair_split: int = 0,
+                       pallas_pack_t: bool = False, tri_pack=None,
+                       sweep_pack=None) -> PacketHit:
+    """Closest hit via cluster-major tiles; exact for every ray.
+
+    tri_pack: cuda_ctiles.pack_tris(accel), which the overflow fallback
+    reads (None builds it); sweep_pack: the pack the sweep reads with these
+    options (sweep_pack_builder's; None builds it, or takes tri_pack)."""
+    best_t, best_tri = _run(
+        accel, origins, directions, t_min, t_max, block=block, cap=cap,
+        tile_blocks=tile_blocks, row_chunk=row_chunk, tile_chunk=tile_chunk,
+        sort=sort, sort_mode=sort_mode, fallback_block=fallback_block,
+        fallback_compact=fallback_compact, want_tri=True, levels=levels,
+        super_cap=super_cap, sub_skip=sub_skip,
+        fallback_sorted=fallback_sorted, pair_split=pair_split,
+        pallas_pack_t=pallas_pack_t, tri_pack=tri_pack,
+        sweep_pack=sweep_pack)
     hit = torch.isfinite(best_t)
     return PacketHit(hit=hit, t=best_t, tri=torch.where(hit, best_tri, -1))
+
+
+def any_hit_ctiles(accel, origins, directions, t_min, t_max,
+                   block: int = 8, cap: int = 48, tile_blocks: int = 16,
+                   row_chunk: int = 1 << 11, tile_chunk: int = 256,
+                   sort: bool = True, sort_mode: str = "octorig",
+                   fallback_block: int = 64, fallback_compact: int = 1 << 13,
+                   levels: int = 0, super_cap: int = 48,
+                   sub_skip: bool = False, fallback_sorted: bool = False,
+                   pair_split: int = 0, pallas_pack_t: bool = False,
+                   tri_pack=None, sweep_pack=None) -> torch.Tensor:
+    """Occlusion query via cluster-major tiles ([N] bool); exact for every
+    ray. tri_pack / sweep_pack as closest_hit_ctiles'."""
+    (occ,) = _run(
+        accel, origins, directions, t_min, t_max, block=block, cap=cap,
+        tile_blocks=tile_blocks, row_chunk=row_chunk, tile_chunk=tile_chunk,
+        sort=sort, sort_mode=sort_mode, fallback_block=fallback_block,
+        fallback_compact=fallback_compact, want_tri=False, levels=levels,
+        super_cap=super_cap, sub_skip=sub_skip,
+        fallback_sorted=fallback_sorted, pair_split=pair_split,
+        pallas_pack_t=pallas_pack_t, tri_pack=tri_pack,
+        sweep_pack=sweep_pack)
+    return occ

@@ -37,6 +37,7 @@ from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
     pack_rays_tiles,
     read_occupancy,
     sub_pred,
+    sub_slab_ranges,
     sweep_rows_plain,
 )
 from path_tracer_ai_tpu_torch.core.types import RAY_TMIN
@@ -70,14 +71,6 @@ def pack_tris_dummy(accel) -> torch.Tensor:
 
 def _next_pow2(x: int) -> int:
     return 1 << max(0, (x - 1).bit_length())
-
-
-def sub_slab_ranges(s: int, sub_skip: bool):
-    """Slot ranges one cluster is swept in: its sub-slabs under sub_skip,
-    else the whole cluster."""
-    if not sub_skip:
-        return [(0, s)]
-    return [(k * SUB, min((k + 1) * SUB, s)) for k in range(n_subs(s))]
 
 
 def block_anyhit_plain(tri_pack, rays_pack, cid8, early_skip=False,

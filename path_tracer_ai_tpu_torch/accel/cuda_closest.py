@@ -33,7 +33,6 @@ from path_tracer_ai_tpu_torch.accel.cuda_anyhit import (
     check_fused_inputs,
     pack_tris_dummy,
     prepare_fused_wave,
-    sub_slab_ranges,
 )
 from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
     I32_MAX,
@@ -42,6 +41,7 @@ from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
     pack_rays_tiles,
     read_occupancy,
     sub_pred,
+    sub_slab_ranges,
     sweep_rows_plain,
 )
 from path_tracer_ai_tpu_torch.accel.traverse import PacketHit

@@ -12,21 +12,29 @@ cascade (T = 64, S = 128, an iteration's G candidates a tile; occluded =
 tri != INT32_MAX). G clusters in one call equal G calls folded with
 `combine_min_tri`.
 
+Two options, each giving the same bits as the option switched off
+(pallas_ctiles.py:168-231): `sub_skip` reads the 16-row pack (pack_tris16)
+and sweeps a 32-triangle sub-slab only where some live lane's segment
+[t_min, min(t_max, running best)] touches the sub-slab's box; `pack_t`
+reads the pre-transposed [C, S, 16] pack (pack_tris16_t). The two cannot
+be combined (ValueError, as the reference asserts).
+
 On a CUDA tensor the wrapper launches csrc/ctiles_sweep.cu (built with
 nvcc at first use, see cuda_build) or raises; on a CPU tensor it runs
 `tile_sweep_plain`, the same arithmetic as eager torch ops. The kernel is
 compiled for S in {128, 256} and T in {64, 128, 256}, and for S = 2 at T in
 {64, 128} (a scene cut into clusters of two triangles, for tests of the
-worklist backend past 2048 clusters); another shape on a CUDA tensor raises
-ValueError. The kernel's design and its bound are described
-in the CUDA source.
+worklist backend past 2048 clusters); its options for (T, S) in (128,
+128), (128, 256) and (64, 128), the shapes of the ctiles paths. Another
+shape on a CUDA tensor raises ValueError. The kernel's design and its
+bound are described in the CUDA source.
 
 Layouts:
   tri_pack [C, 10, S] f32 (pack_tris): v0.xyz, e1.xyz, e2.xyz, tri id
-           bit-cast to f32. pack_tris16 adds the TPU pack's rows 10-15, the
-           sub-slab boxes that the fused cascades' `sub_skip` gate reads
-           (accel.cuda_anyhit, accel.cuda_closest); tile_sweep's own
-           `sub_skip` is not ported and takes the 10-row pack only.
+           bit-cast to f32. pack_tris16 [C, 16, S] adds the TPU pack's rows
+           10-15, the sub-slab boxes that the `sub_skip` gates read (here
+           and in accel.cuda_anyhit, accel.cuda_closest); pack_tris16_t is
+           its [C, S, 16] transpose.
   rays     [nt, 8, T] f32 (pack_rays_tiles): ox oy oz dx dy dz t_max t_min.
   tile_cid [nt] or [nt, G] i32.
 """
@@ -34,6 +42,7 @@ Layouts:
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -46,7 +55,8 @@ RAY_ROWS = 8
 SOURCE = "ctiles_sweep"
 
 # Kernel launches since the last reset (the plain version never counts),
-# and the same split by shape: (T, S, G) -> [launches, tiles].
+# and the same split by shape: (T, S, G) -> [launches, tiles], with the
+# option as a fourth element ("sub_skip" or "pack_t") where one is on.
 launches = 0
 launch_shapes: dict = {}
 
@@ -107,6 +117,12 @@ def pack_tris16(accel) -> torch.Tensor:
     box_rows[:, :3, :ns] = sub_lo.transpose(1, 2)
     box_rows[:, 3:, :ns] = sub_hi.transpose(1, 2)
     return torch.cat([pack_tris(accel), box_rows], dim=1).contiguous()
+
+
+def pack_tris16_t(accel) -> torch.Tensor:
+    """[C, S, 16] f32: pack_tris16 transposed (the reference's pack_t
+    layout: each triangle's words 0-9 contiguous)."""
+    return pack_tris16(accel).transpose(1, 2).contiguous()
 
 
 def sub_pred(box, rays, inv, t_lo, t_hi) -> torch.Tensor:
@@ -204,12 +220,71 @@ def sweep_rows_plain(tri_pack, cid, rays, lo: int, hi: int, t_max=None,
     return hit if any_hit else (t_out, tri_out)
 
 
-def tile_sweep_plain(tri_pack, rays_pack, tile_cid):
+def sub_slab_ranges(s: int, sub_skip: bool):
+    """Slot ranges one cluster is swept in: its sub-slabs under sub_skip,
+    else the whole cluster."""
+    if not sub_skip:
+        return [(0, s)]
+    return [(k * SUB, min((k + 1) * SUB, s)) for k in range(n_subs(s))]
+
+
+def tile_sweep_plain(tri_pack, rays_pack, tile_cid, sub_skip=False,
+                     pack_t=False, stats: Optional[dict] = None):
     """The kernel's function in eager torch: the [tiles, T, G * S] sweep
     plus the min / min-tri-at-min reduction, chunked over tiles. tile_cid
-    [nt] or [nt, G]."""
-    return sweep_rows_plain(tri_pack, tile_cid.long(), rays_pack, 0,
-                            tri_pack.shape[2])
+    [nt] or [nt, G]. pack_t: tri_pack is [C, S, 16] (read through its
+    transpose). sub_skip: each cluster in sub-slabs, with a tile-uniform
+    gate (a sub-slab is swept for the tiles where some lane's [t_min,
+    min(t_max, running best)] segment touches its box; the kernel votes per
+    warp, so it sweeps a subset of these, to the same bits). stats["tests"]
+    counts the ray/triangle tests of the sweeps made here over all T lanes,
+    stats["lane_tests"] those of their live lanes (t_max >= 0)."""
+    if sub_skip and pack_t:
+        raise ValueError("sub_skip reads the [C, 16, S] pack; pack_t cannot "
+                         "be combined with it")
+    if pack_t:
+        tri_pack = tri_pack.transpose(1, 2)
+    nt, _, t_lanes = rays_pack.shape
+    s = tri_pack.shape[2]
+    cid = tile_cid.long()
+    if cid.dim() == 1:
+        cid = cid[:, None]
+    if not sub_skip:
+        if stats is not None:
+            swept = s * cid.shape[1]
+            live = int((rays_pack[:, 6] >= 0.0).sum())
+            stats["tests"] = stats.get("tests", 0) + nt * t_lanes * swept
+            stats["lane_tests"] = stats.get("lane_tests", 0) + live * swept
+        return sweep_rows_plain(tri_pack, cid, rays_pack, 0, s)
+    dev = rays_pack.device
+    best_t = torch.full((nt, t_lanes), float("inf"), dtype=torch.float32,
+                        device=dev)
+    best_tri = torch.full((nt, t_lanes), I32_MAX, dtype=torch.int32,
+                          device=dev)
+    inv = 1.0 / rays_pack[:, 3:6]
+    live_per_tile = (rays_pack[:, 6] >= 0.0).sum(dim=1)
+    tests = 0
+    lane_tests = torch.zeros((), dtype=torch.int64, device=dev)
+    for j in range(cid.shape[1]):
+        cj = cid[:, j]
+        for k, (lo, hi) in enumerate(sub_slab_ranges(s, True)):
+            cap = torch.minimum(rays_pack[:, 6], best_t)
+            go = sub_pred(tri_pack[cj, 10:16, k], rays_pack, inv,
+                          rays_pack[:, 7], cap)
+            idx = torch.nonzero(go).squeeze(1)
+            if idx.numel() == 0:
+                continue
+            tests += idx.numel() * t_lanes * (hi - lo)
+            if stats is not None:
+                lane_tests += live_per_tile[idx].sum() * (hi - lo)
+            kt, ktri = sweep_rows_plain(tri_pack, cj[idx], rays_pack[idx],
+                                        lo, hi, t_max=cap[idx])
+            best_t[idx], best_tri[idx] = combine_min_tri(
+                best_t[idx], best_tri[idx], kt, ktri)
+    if stats is not None:
+        stats["tests"] = stats.get("tests", 0) + tests
+        stats["lane_tests"] = stats.get("lane_tests", 0) + int(lane_tests)
+    return best_t, best_tri
 
 
 def _check(name, x, dtype, ndim, device):
@@ -230,6 +305,20 @@ def _kernel():
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _kernel_options():
+    fn = cuda_build.load(SOURCE).ctiles_sweep_options
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+# ctiles_sweep_options' `mode`: which option the instance compiles in.
+MODE_SUB_SKIP = 1
+MODE_PACK_T = 2
 
 
 NO_INSTANCE = -1  # the entry points' answer to an (S, T) they lack
@@ -259,33 +348,51 @@ def rcp_mismatches() -> int:
     return int(count.item())
 
 
-def kernel_occupancy(s: int, t_lanes: int) -> dict:
-    """tile_sweep's (S, T) instance (needs the card)."""
-    return read_occupancy(cuda_build.load(SOURCE).ctiles_sweep_occupancy,
-                          s, t_lanes)
+def kernel_occupancy(s: int, t_lanes: int, sub_skip: bool = False,
+                     pack_t: bool = False) -> dict:
+    """tile_sweep's (S, T) instance, or its sub_skip / pack_t instance
+    (needs the card)."""
+    lib = cuda_build.load(SOURCE)
+    if not (sub_skip or pack_t):
+        return read_occupancy(lib.ctiles_sweep_occupancy, s, t_lanes)
+    return read_occupancy(lib.ctiles_sweep_options_occupancy, s, t_lanes,
+                          MODE_SUB_SKIP if sub_skip else MODE_PACK_T)
 
 
-def tile_sweep(tri_pack, rays_pack, tile_cid):
+def tile_sweep(tri_pack, rays_pack, tile_cid, sub_skip=False, pack_t=False):
     """(t [nt, T] f32, tri [nt, T] i32); tri = INT32_MAX on a miss.
 
     tile_cid [nt] (one cluster a tile) or [nt, G] (tile i against its G
-    clusters, folded with the lexicographic (t, min tri) rule). CUDA tensors
-    launch the kernel (or raise; ValueError for an (S, T) it is not compiled
-    for); CPU tensors take the plain version. tile_cid values must lie in
-    [0, C)."""
+    clusters, folded with the lexicographic (t, min tri) rule). tri_pack is
+    pack_tris' [C, 10, S]; with sub_skip pack_tris16's [C, 16, S], with
+    pack_t pack_tris16_t's [C, S, 16] (the two options together raise
+    ValueError). CUDA tensors launch the kernel (or raise; ValueError for a
+    shape it is not compiled for); CPU tensors take the plain version.
+    tile_cid values must lie in [0, C)."""
     global launches
+    if sub_skip and pack_t:
+        raise ValueError("sub_skip reads the [C, 16, S] pack; pack_t cannot "
+                         "be combined with it")
     dev = rays_pack.device
     if dev.type == "cpu":
-        return tile_sweep_plain(tri_pack, rays_pack, tile_cid)
+        return tile_sweep_plain(tri_pack, rays_pack, tile_cid, sub_skip,
+                                pack_t)
     if dev.type != "cuda":
         raise ValueError(f"tile_sweep runs on cuda or cpu, not {dev}")
     _check("tri_pack", tri_pack, torch.float32, 3, dev)
     _check("rays_pack", rays_pack, torch.float32, 3, dev)
-    c, rows, s = tri_pack.shape
+    if pack_t:
+        c, s, rows = tri_pack.shape
+    else:
+        c, rows, s = tri_pack.shape
     nt, ray_rows, t_lanes = rays_pack.shape
-    if rows != PACK_ROWS or ray_rows != RAY_ROWS:
+    want_rows = 16 if (sub_skip or pack_t) else PACK_ROWS
+    if rows != want_rows or ray_rows != RAY_ROWS:
+        layout = ("[C,S,16]" if pack_t else "[C,16,S]" if sub_skip
+                  else "[C,10,S]")
         raise ValueError(f"pack shapes {tuple(tri_pack.shape)} / "
-                         f"{tuple(rays_pack.shape)} are not [C,10,S] / [nt,8,T]")
+                         f"{tuple(rays_pack.shape)} are not {layout} / "
+                         "[nt,8,T]")
     g = tile_cid.shape[1] if tile_cid.dim() == 2 else 1
     if tile_cid.dim() not in (1, 2) or tile_cid.shape[0] != nt or g < 1:
         raise ValueError(f"tile_cid has shape {tuple(tile_cid.shape)}, "
@@ -295,18 +402,26 @@ def tile_sweep(tri_pack, rays_pack, tile_cid):
     tri_out = torch.empty((nt, t_lanes), dtype=torch.int32, device=dev)
     if nt == 0:
         return t_out, tri_out
-    err = cuda_build.launch(
-        _kernel(), dev, tri_pack.data_ptr(), rays_pack.data_ptr(),
-        tile_cid.data_ptr(), t_out.data_ptr(), tri_out.data_ptr(), nt, g, s,
-        t_lanes, c)
+    args = (tri_pack.data_ptr(), rays_pack.data_ptr(), tile_cid.data_ptr(),
+            t_out.data_ptr(), tri_out.data_ptr(), nt, g, s, t_lanes, c)
+    if sub_skip or pack_t:
+        mode = MODE_SUB_SKIP if sub_skip else MODE_PACK_T
+        err = cuda_build.launch(_kernel_options(), dev, *args, mode)
+        shapes = "(T, S) in (128, 128), (128, 256), (64, 128)"
+    else:
+        err = cuda_build.launch(_kernel(), dev, *args)
+        shapes = ("S in 128, 256; T in 64, 128, 256; S = 2 at T in 64, "
+                  "128")
     if err == NO_INSTANCE:
-        raise ValueError(f"tile_sweep has no compiled instance for S = {s}, "
-                         f"T = {t_lanes} (S in 128, 256; T in 64, 128, "
-                         "256; S = 2 at T in 64, 128)")
+        opt = " with sub_skip" if sub_skip else " with pack_t" if pack_t else ""
+        raise ValueError(f"tile_sweep{opt} has no compiled instance for "
+                         f"S = {s}, T = {t_lanes} ({shapes})")
     if err != 0:
         raise RuntimeError(f"ctiles_sweep launch failed: cudaError {err}")
     launches += 1
-    shape = launch_shapes.setdefault((t_lanes, s, g), [0, 0])
+    key = (t_lanes, s, g) + (("sub_skip",) if sub_skip else ("pack_t",)
+                             if pack_t else ())
+    shape = launch_shapes.setdefault(key, [0, 0])
     shape[0] += 1
     shape[1] += nt
     return t_out, tri_out

@@ -1,10 +1,11 @@
 """ctypes bindings to the native C++ host code (native/ptnative.cpp): the
-cluster split order and the OBJ parser.
+cluster split and Morton orders and the OBJ parser.
 
 The port's own loader for the shared library at the repository's
 `native/` directory (outside both packages). If the library is absent it
 is built once with `make -C native`; if that fails, callers use the numpy
-median split and the Python OBJ parser, which give the same results.
+median split or Morton sort and the Python OBJ parser, which give the same
+results.
 """
 
 from __future__ import annotations
@@ -47,6 +48,11 @@ def _load() -> Optional[ctypes.CDLL]:
         log.info("native library load failed (%s); using Python fallbacks",
                  e)
         return None
+    lib.pt_morton_order.restype = ctypes.c_int
+    lib.pt_morton_order.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32),
+    ]
     lib.pt_split_order.restype = ctypes.c_int
     lib.pt_split_order.argtypes = [
         ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int64,
@@ -74,6 +80,27 @@ def _load() -> Optional[ctypes.CDLL]:
 def available() -> bool:
     """Whether the native library loads (building it once if absent)."""
     return _load() is not None
+
+
+def native_morton_order(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray):
+    """Morton-sorted triangle order via C++ (the centroids' 30-bit codes of
+    morton.morton3d_np, stably sorted); None if unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    t = v0.shape[0]
+    inter = np.empty((t, 3, 3), np.float32)
+    inter[:, 0] = v0
+    inter[:, 1] = v1
+    inter[:, 2] = v2
+    inter = np.ascontiguousarray(inter)
+    order = np.empty(t, np.int32)
+    rc = lib.pt_morton_order(
+        inter.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        ctypes.c_int64(t),
+        order.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+    )
+    return None if rc != 0 else order
 
 
 def native_split_order(centers: np.ndarray, cluster_size: int):

@@ -469,6 +469,21 @@ def _packet_sweep_closest(accel, ob, db, t_cap, cid, t_min):
             torch.gather(cti, 1, slot.squeeze(2)))
 
 
+def _packet_sweep_any(accel, ob, db, tb, cid, t_min):
+    """Blocks of rays ob/db [n, R, 3] (window [t_min, tb [n, R]]) against
+    the g * S triangles of their clusters cid [n, g], in eager torch: [n, R]
+    bool, some test passes."""
+    n = cid.shape[0]
+    ray = [ob[:, :, None, k] for k in range(3)]
+    ray += [db[:, :, None, k] for k in range(3)]
+    tri = []
+    for arr in (accel.v0, accel.e1, accel.e2):
+        a = arr[cid].reshape(n, -1, 3)
+        tri += [a[:, None, :, k] for k in range(3)]
+    _t, ok = cuda_ctiles.mt_sweep_rows(*ray, *tri, t_min, tb[:, :, None])
+    return ok.any(dim=-1)
+
+
 def closest_hit_packets(accel: ClusterAccel, origins, directions, t_min,
                         t_max, block_size: int = 256, sort: bool = True,
                         group_size: int = 8,
@@ -547,3 +562,190 @@ def closest_hit_packets(accel: ClusterAccel, origins, directions, t_min,
     t_out = _unsort(_unpermute_blocks(carry[0], blk_index).reshape(n), perm)
     id_out = _unsort(_unpermute_blocks(carry[1], blk_index).reshape(n), perm)
     return PacketHit(hit=torch.isfinite(t_out), t=t_out, tri=id_out)
+
+
+# --- per-ray candidate lists: the perray queries (traverse.py:530-760) ------
+
+def _perray_candidates(accel: ClusterAccel, origins, directions, t_min, t_max,
+                       cap: int, row_chunk: int = 1 << 14,
+                       order_mode: str = "id"):
+    """Exact per-ray candidate clusters, capped at `cap` per ray: every ray
+    gets its own inclusive slab test against all C cluster AABBs (the
+    comparison-select form: a 0 * inf NaN keeps the running bound), rows
+    `row_chunk` at a time.
+
+    order_mode "id": ascending cluster ids (cumsum + searchsorted; slots
+    past the count hold C - 1), entry 0; "entry": front to back by slab
+    entry (a stable argsort; past the count, the non-candidates in id
+    order), entry the entry t (inf past the count). Columns past C, where
+    cap > C, hold 0 and entry inf.
+    Returns (order [N, cap] i32, n_cand [N] i32 clipped to cap, entry
+    [N, cap] f32, overflow [N] bool: more than cap candidates)."""
+    n = origins.shape[0]
+    c = accel.num_clusters
+    dev = origins.device
+    kx = min(cap, c)
+    order = torch.zeros((n, cap), dtype=torch.int32, device=dev)
+    entry = torch.full((n, cap), INF, dtype=torch.float32, device=dev)
+    n_cand = torch.zeros((n,), dtype=torch.int32, device=dev)
+    targets = torch.arange(1, kx + 1, dtype=torch.int32, device=dev)
+    for lo in range(0, n, row_chunk):
+        hi = min(lo + row_chunk, n)
+        oc, dc, tc = origins[lo:hi], directions[lo:hi], t_max[lo:hi]
+        inv = 1.0 / dc
+        t0 = (accel.bmin[None] - oc[:, None, :]) * inv[:, None, :]
+        t1 = (accel.bmax[None] - oc[:, None, :]) * inv[:, None, :]
+        neg = inv[:, None, :] < 0.0
+        near = torch.where(neg, t1, t0)
+        far = torch.where(neg, t0, t1)
+        lo_t = torch.full(near.shape[:2], float(t_min), dtype=torch.float32,
+                          device=dev)
+        hi_t = torch.minimum(tc[:, None].expand(near.shape[:2]),
+                             torch.full((), INF, device=dev))
+        for a in range(3):
+            lo_t = torch.where(near[..., a] > lo_t, near[..., a], lo_t)
+            hi_t = torch.where(far[..., a] < hi_t, far[..., a], hi_t)
+        cand = hi_t >= lo_t                                   # [r, C]
+        n_cand[lo:hi] = cand.sum(dim=1).to(torch.int32)
+        if order_mode == "entry":
+            ent = torch.where(cand, lo_t, INF)
+            ok = torch.argsort(ent, dim=1, stable=True)[:, :kx]
+            order[lo:hi, :kx] = ok.to(torch.int32)
+            entry[lo:hi, :kx] = torch.gather(ent, 1, ok)
+        else:
+            cums = torch.cumsum(cand.to(torch.int32), dim=1)
+            ok = torch.searchsorted(cums, targets.expand(hi - lo, kx).contiguous())
+            order[lo:hi, :kx] = torch.clamp(ok, max=c - 1).to(torch.int32)
+            entry[lo:hi, :kx] = 0.0
+    return order, torch.clamp(n_cand, max=cap), entry, n_cand > cap
+
+
+def _perray_setup(accel, origins, directions, t_min, t_max, cap, group_size):
+    """The perray queries' common part: per-ray candidates (overflow rays
+    get none), grouped [N, ceil(cap / g), g], and the one-ray blocks."""
+    n = origins.shape[0]
+    order, n_cand, _entry, overflow = _perray_candidates(
+        accel, origins, directions, t_min, t_max, cap)
+    n_cand = torch.where(overflow, 0, n_cand)
+    g = group_size
+    cap_pad = -(-cap // g) * g
+    if cap_pad - cap:
+        order = torch.nn.functional.pad(order, (0, cap_pad - cap))
+    order_g = order.reshape(n, cap_pad // g, g)
+    return (origins[:, None, :], directions[:, None, :], t_max[:, None],
+            n_cand, order_g), overflow, cap_pad // g - 1
+
+
+def _perray_fallback(origins, directions, t_max, overflow, block, run):
+    """run(o, d, t_max) over the wave padded to `block` rays, rays that did
+    not overflow going in dead; nothing when no ray overflowed."""
+    if sync.host_int(overflow.sum()) == 0:
+        return None
+    n = origins.shape[0]
+    pad = (-n) % block
+    fo = torch.nn.functional.pad(origins, (0, 0, 0, pad))
+    fd = torch.nn.functional.pad(directions, (0, 0, 0, pad), value=1.0)
+    ftm = torch.nn.functional.pad(torch.where(overflow, t_max, -1.0),
+                                  (0, pad), value=-1.0)
+    return run(fo, fd, ftm)
+
+
+def closest_hit_perray(accel: ClusterAccel, origins, directions, t_min,
+                       t_max, cap: int = 64, group_size: int = 4,
+                       fallback_block: int = 64) -> PacketHit:
+    """Closest hit with exact per-ray candidate lists (no ray blocking),
+    eager torch as the reference's is XLA code: the packet cascade's
+    machinery with blocks of one ray, `group_size` candidates an iteration
+    in id order, t_cap = min(t_max, best t). The tie rule is the packet
+    cascade's: within a group of g * S slots the first slot at the minimum
+    t wins, and a later group replaces the best only with a strictly
+    smaller t. Rays with more than `cap` candidates complete through
+    closest_hit_packets (blocks of fallback_block), so every ray is
+    exact."""
+    n = origins.shape[0]
+    dev = origins.device
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                               device=dev), (n,))
+    blocks, overflow, max_k = _perray_setup(accel, origins, directions,
+                                            t_min, t_max, cap, group_size)
+    g = group_size
+    rows = max(1, PACKET_SWEEP_ELEMS // (g * accel.cluster_size))
+
+    def active_fn(k, blocks, carry):
+        # id-ordered candidates: only exhaustion and dead rays stop a ray
+        tb, nc = blocks[2], blocks[3]
+        return (k * g < nc) & (tb[:, 0] >= 0.0)
+
+    def sweep_update(k, blocks, carry, idx):
+        ob, db, tb, _nc, ordg = blocks
+        best_t, best_id = (a.clone() for a in carry)
+        for lo in range(0, idx.numel(), rows):
+            sel = idx[lo:lo + rows]
+            bt = best_t[sel]
+            ct, gid = _packet_sweep_closest(
+                accel, ob[sel], db[sel], torch.minimum(tb[sel], bt),
+                ordg[sel, min(k, max_k)], t_min)
+            closer = ct < bt
+            best_t[sel] = torch.where(closer, ct, bt)
+            best_id[sel] = torch.where(closer, gid, best_id[sel])
+        return best_t, best_id
+
+    carry, blk_index = _cascade_traverse(
+        blocks,
+        (torch.full((n, 1), INF, dtype=torch.float32, device=dev),
+         torch.full((n, 1), -1, dtype=torch.int32, device=dev)),
+        sweep_update, active_fn, min_blocks=1024)
+    best_t = _unpermute_blocks(carry[0], blk_index)[:, 0]
+    best_id = _unpermute_blocks(carry[1], blk_index)[:, 0]
+
+    fb = _perray_fallback(
+        origins, directions, t_max, overflow, fallback_block,
+        lambda o, d, tm: closest_hit_packets(accel, o, d, t_min, tm,
+                                             block_size=fallback_block))
+    if fb is not None:
+        best_t = torch.where(overflow, fb.t[:n], best_t)
+        best_id = torch.where(overflow, fb.tri[:n], best_id)
+    return PacketHit(hit=torch.isfinite(best_t), t=best_t, tri=best_id)
+
+
+def any_hit_perray(accel: ClusterAccel, origins, directions, t_min, t_max,
+                   cap: int = 64, group_size: int = 4,
+                   fallback_block: int = 64, tri_pack=None) -> torch.Tensor:
+    """Occlusion with exact per-ray candidate lists ([N] bool), eager torch;
+    a ray leaves the cascade once occluded. Rays with more than `cap`
+    candidates complete through any_hit_packets (blocks of
+    fallback_block; tri_pack as its)."""
+    n = origins.shape[0]
+    dev = origins.device
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                               device=dev), (n,))
+    blocks, overflow, max_k = _perray_setup(accel, origins, directions,
+                                            t_min, t_max, cap, group_size)
+    g = group_size
+    rows = max(1, PACKET_SWEEP_ELEMS // (g * accel.cluster_size))
+
+    def active_fn(k, blocks, carry):
+        return (k * g < blocks[3]) & ~carry[0][:, 0]
+
+    def sweep_update(k, blocks, carry, idx):
+        ob, db, tb, _nc, ordg = blocks
+        occ = carry[0].clone()
+        for lo in range(0, idx.numel(), rows):
+            sel = idx[lo:lo + rows]
+            occ[sel] |= _packet_sweep_any(accel, ob[sel], db[sel], tb[sel],
+                                          ordg[sel, min(k, max_k)], t_min)
+        return (occ,)
+
+    carry, blk_index = _cascade_traverse(
+        blocks, (torch.zeros((n, 1), dtype=torch.bool, device=dev),),
+        sweep_update, active_fn, min_blocks=1024)
+    occluded = _unpermute_blocks(carry[0], blk_index)[:, 0]
+
+    fb = _perray_fallback(
+        origins, directions, t_max, overflow, fallback_block,
+        lambda o, d, tm: any_hit_packets(accel, o, d, t_min, tm,
+                                         block_size=fallback_block,
+                                         tri_pack=tri_pack))
+    if fb is None:
+        return occluded
+    return torch.where(overflow, fb[:n], occluded)

@@ -90,8 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "persistent pool")
     p.add_argument("--backend", default=None, choices=BACKENDS,
                    help="traversal backend (default: hybrid, worklist past "
-                        "2048 clusters; the port has hybrid, pallas, "
-                        "worklist, pairs and packets)")
+                        "2048 clusters; the port has every one but kslots)")
     p.add_argument("--validate", action="store_true",
                    help="audit the final image for NaN/Inf/sentinel pixels")
     p.add_argument("--profile", default=None, metavar="DIR",
@@ -104,7 +103,7 @@ def check_ported(args) -> None:
     any scene is loaded or any render starts)."""
     if args.backend in wavefront.UNPORTED_BACKENDS:
         raise ValueError(f"--backend {args.backend} is not ported yet "
-                         "(ROADMAP queue 1, steps 11-12)")
+                         "(ROADMAP queue 1, step 12)")
 
 
 def cli_device():

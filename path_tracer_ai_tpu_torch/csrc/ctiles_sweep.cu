@@ -16,6 +16,8 @@
 //   tile_cid [nt, G] i32 cluster ids per tile; an id outside [0, C) is
 //            skipped.
 //   t_out    [nt, T] f32, tri_out [nt, T] i32.
+//   The options (ctiles_sweep_options, below) read the [C, 16, S] pack
+//   (sub_skip) or its [C, S, 16] transpose (pack_t).
 //
 // Design (the inner loop is mt.cuh's, shared with fused_closest.cu). One
 // warp per 32 R lanes of a tile, R rays per thread in registers (4 at
@@ -165,6 +167,219 @@ extern "C" int ctiles_sweep_occupancy(int s, int t_lanes, int* regs,
   if (s == S_ && t_lanes == T_) \
     return occupancy<S_, T_, rays_per_thread(T_)>(regs, warps_per_sm);
   FOR_INSTANCES(OCCUPANCY)
+#undef OCCUPANCY
+  return NO_INSTANCE;
+}
+
+// ---- the options: sub_skip and pack_t (pallas_ctiles.py:168-231) ---------
+//
+// Instances of their own, so the default kernel above keeps its code,
+// registers and occupancy. Both give the bits of the default sweep.
+//
+// sub_skip reads the [C, 16, S] pack: the warp stages a cluster with its
+// sub-slab boxes (rows 10-15, mt.cuh stage_candidate) and sweeps sub-slab k
+// of its slot r only if some lane's segment [t_min, min(t_max, best so far)]
+// touches the box: the vote is per slot of 32 lanes (all R slots of a
+// thread are voted on separately, each with its running best of that
+// moment), so a slot whose lanes already hold nearer hits skips far
+// sub-slabs. A lane whose segment misses a box can pass no test in it, so
+// no bit changes. The segment's bound is also the test's window inside the
+// sub-slab: a test with t above the running best changes nothing.
+//
+// pack_t reads the [C, S, 16] pack, triangle j's ten words contiguous at
+// word 16 j: the warp stages each triangle with three cp.async copies (16,
+// 16 and 8 bytes) into the same TriRec layout, in place of ten transposing
+// copies of 4 bytes; the inner loop is the default's.
+
+#define MODE_SUB_SKIP 1
+#define MODE_PACK_T 2
+#define PACK16_ROWS 16
+
+__device__ __forceinline__ void cp_async_bytes16(void* dst_shared,
+                                                 const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst_shared);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_bytes8(void* dst_shared,
+                                                const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst_shared);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// One warp starts the copy of a [S, 16] cluster's words 0-9 of each
+// triangle into S TriRecs. The caller waits and __syncwarp()s.
+template <int S>
+__device__ __forceinline__ void stage_cluster_rows_warp(TriRec* dst,
+                                                        const float* cluster,
+                                                        int lane) {
+#pragma unroll
+  for (int j = lane; j < S; j += 32) {
+    const float* src = cluster + (size_t)j * PACK16_ROWS;
+    cp_async_bytes16(&dst[j].a, src);
+    cp_async_bytes16(&dst[j].b, src + 4);
+    cp_async_bytes8(&dst[j].c, src + 8);
+  }
+}
+
+template <int S, int MODE>
+constexpr size_t options_smem_bytes() {
+  return MODE == MODE_SUB_SKIP ? SWEEP_WARPS * sizeof(Staged<S>)
+                               : SWEEP_WARPS * S * sizeof(TriRec);
+}
+
+template <int S, int T, int R, int MODE>
+__global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(R))
+    tile_sweep_options_kernel(const float* __restrict__ tri_pack,
+                              const float* __restrict__ rays,
+                              const int* __restrict__ tile_cid,
+                              float* __restrict__ t_out,
+                              int* __restrict__ tri_out, int nt, int g,
+                              int n_clusters) {
+  static_assert(S % SUB == 0, "whole sub-slabs only");
+  constexpr int NS = S / SUB;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int WPT = T / (32 * R);  // warps per tile
+  const int unit = blockIdx.x * SWEEP_WARPS + warp;
+  if (unit >= nt * WPT) return;  // whole warps leave; there is no block barrier
+  const size_t tile = (size_t)(unit / WPT);
+  const int base = (unit % WPT) * 32 * R;
+
+  Ray ray[R];
+  float tmin[R], tmax[R], best_t[R];
+  int best_tri[R];
+  const unsigned live =
+      load_slots<T, R>(rays, tile, base, lane, ray, tmin, tmax);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    best_t[r] = INFINITY;
+    best_tri[r] = I32_MAX;
+  }
+
+  if (live != 0u) {
+    for (int i = 0; i < g; ++i) {
+      const int cid = tile_cid[tile * g + i];
+      if (cid < 0 || cid >= n_clusters) continue;
+      const float* cluster = tri_pack + (size_t)cid * PACK16_ROWS * S;
+      if constexpr (MODE == MODE_PACK_T) {
+        TriRec* buf = reinterpret_cast<TriRec*>(smem) + (size_t)warp * S;
+        stage_cluster_rows_warp<S>(buf, cluster, lane);
+        cp_async_wait_all();
+        __syncwarp();
+        sweep_live<R, S>(buf, live, ray, tmin, tmax, best_t, best_tri);
+      } else {
+        Staged<S>* st = reinterpret_cast<Staged<S>*>(smem) + warp;
+        stage_candidate<S>(st, cluster, lane);
+        cp_async_wait_all();
+        __syncwarp();
+#pragma unroll 1
+        for (int k = 0; k < NS; ++k) {
+          const float4 lo =
+              *reinterpret_cast<const float4*>(st->box + k * BOX_WORDS);
+          const float4 hi =
+              *reinterpret_cast<const float4*>(st->box + k * BOX_WORDS + 4);
+          const float box[6] = {lo.x, lo.y, lo.z, hi.x, hi.y, hi.z};
+          float cap[R];
+          unsigned go = 0u;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            cap[r] = fminf(tmax[r], best_t[r]);
+            if ((live >> r) & 1u) {
+              const bool touch = sub_slab_lane(
+                  box, ray[r], 1.0f / ray[r].dx, 1.0f / ray[r].dy,
+                  1.0f / ray[r].dz, tmin[r], cap[r]);
+              if (__any_sync(FULL_MASK, touch)) go |= 1u << r;
+            }
+          }
+          if (go != 0u) {
+            sweep_live<R, SUB>(st->tri + k * SUB, go, ray, tmin, cap, best_t,
+                               best_tri);
+          }
+        }
+      }
+      __syncwarp();  // every lane is done with the buffer
+    }
+  }
+  store_slots<T, R>(t_out, tri_out, tile, base, lane, best_t, best_tri);
+}
+
+// Allows an instance its dynamic shared memory (sub_skip at S = 256 takes
+// 49 KB, above the default 48 KB) on the current device.
+template <int S, int T, int R, int MODE>
+static cudaError_t configure_options() {
+  return cudaFuncSetAttribute(tile_sweep_options_kernel<S, T, R, MODE>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)options_smem_bytes<S, MODE>());
+}
+
+template <int S, int T, int R, int MODE>
+static int launch_options(const void* tri_pack, const void* rays,
+                          const void* tile_cid, void* t_out, void* tri_out,
+                          int nt, int g, int n_clusters, cudaStream_t stream) {
+  const cudaError_t err = configure_options<S, T, R, MODE>();
+  if (err != cudaSuccess) return (int)err;
+  const int units = nt * (T / (32 * R));
+  const int blocks = (units + SWEEP_WARPS - 1) / SWEEP_WARPS;
+  tile_sweep_options_kernel<S, T, R, MODE>
+      <<<blocks, SWEEP_WARPS * 32, options_smem_bytes<S, MODE>(), stream>>>(
+          (const float*)tri_pack, (const float*)rays, (const int*)tile_cid,
+          (float*)t_out, (int*)tri_out, nt, g, n_clusters);
+  return (int)cudaGetLastError();
+}
+
+template <int S, int T, int R, int MODE>
+static int occupancy_options(int* regs, int* warps_per_sm) {
+  cudaError_t err = configure_options<S, T, R, MODE>();
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, tile_sweep_options_kernel<S, T, R, MODE>);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, tile_sweep_options_kernel<S, T, R, MODE>, SWEEP_WARPS * 32,
+      options_smem_bytes<S, MODE>());
+  *warps_per_sm = blocks * SWEEP_WARPS;
+  return (int)err;
+}
+
+// The ctiles paths' shapes: closest waves (T 128, S 128 and 256) and the
+// lane-major shadow waves (T 64, S 128).
+#define FOR_OPTION_INSTANCES(CALL)                                      \
+  CALL(128, 128, MODE_SUB_SKIP) CALL(256, 128, MODE_SUB_SKIP)           \
+  CALL(128, 64, MODE_SUB_SKIP) CALL(128, 128, MODE_PACK_T)              \
+  CALL(256, 128, MODE_PACK_T) CALL(128, 64, MODE_PACK_T)
+
+// As ctiles_sweep, with `mode` MODE_SUB_SKIP (tri_pack [C, 16, S]) or
+// MODE_PACK_T (tri_pack [C, S, 16]); NO_INSTANCE for another (S, T, mode).
+extern "C" int ctiles_sweep_options(const void* tri_pack, const void* rays,
+                                    const void* tile_cid, void* t_out,
+                                    void* tri_out, int nt, int g, int s,
+                                    int t_lanes, int n_clusters, int mode,
+                                    void* stream) {
+  if (nt <= 0) return 0;
+  if (g < 1) return (int)cudaErrorInvalidValue;
+#define LAUNCH(S_, T_, M_)                                                 \
+  if (s == S_ && t_lanes == T_ && mode == M_)                              \
+    return launch_options<S_, T_, rays_per_thread(T_), M_>(                \
+        tri_pack, rays, tile_cid, t_out, tri_out, nt, g, n_clusters,       \
+        (cudaStream_t)stream);
+  FOR_OPTION_INSTANCES(LAUNCH)
+#undef LAUNCH
+  return NO_INSTANCE;
+}
+
+extern "C" int ctiles_sweep_options_occupancy(int s, int t_lanes, int mode,
+                                              int* regs, int* warps_per_sm) {
+#define OCCUPANCY(S_, T_, M_)                        \
+  if (s == S_ && t_lanes == T_ && mode == M_)        \
+    return occupancy_options<S_, T_, rays_per_thread(T_), M_>(regs, \
+                                                              warps_per_sm);
+  FOR_OPTION_INSTANCES(OCCUPANCY)
 #undef OCCUPANCY
   return NO_INSTANCE;
 }

@@ -60,7 +60,9 @@ def direct_lighting(lights: Lights, occlude_fn: OccludeFn, position, normal,
     """calculateDirectLighting (renderer.hpp:252-301) over a lane batch.
 
     All L lights' shadow rays go to ONE occlusion query of L*N rays in
-    light-major order (light l's rays are rows l*N .. l*N+N-1). Inactive
+    light-major order (light l's rays are rows l*N .. l*N+N-1), or, when
+    occlude_fn.lane_major is set, lane-major (lane n's rays are rows
+    n*L .. n*L+L-1; shading.py:121-135). Inactive
     lanes are pinned to a no-op query (origin 0, +x, t_max = -1), and so are
     pairs that contribute 0 either way (cos <= 0, dielectric lanes).
     Non-finite per-light contributions are dropped (renderer.hpp:295-297).
@@ -98,9 +100,20 @@ def direct_lighting(lights: Lights, occlude_fn: OccludeFn, position, normal,
     t_max = torch.where(contributes, dist - RAY_EPS,
                         torch.full_like(dist, -1.0))      # (renderer.hpp:275)
 
-    occluded = occlude_fn(
-        so.reshape(-1, 3), ldir.reshape(-1, 3), t_max.reshape(-1)
-    ).reshape(n_lights, n_lanes)
+    if getattr(occlude_fn, "lane_major", False):
+        # Lane-major: each lane's L same-origin shadow rays are consecutive
+        # (rows n*L .. n*L+L-1), so a backend with blocks of L rays culls a
+        # lane's shared-origin union once. Occlusion is exact: the same
+        # result as the light-major query.
+        occluded = occlude_fn(
+            so.transpose(0, 1).reshape(-1, 3),
+            ldir.transpose(0, 1).reshape(-1, 3),
+            t_max.transpose(0, 1).reshape(-1),
+        ).reshape(n_lanes, n_lights).T
+    else:
+        occluded = occlude_fn(
+            so.reshape(-1, 3), ldir.reshape(-1, 3), t_max.reshape(-1)
+        ).reshape(n_lights, n_lanes)
 
     # BRDF per material type (renderer.hpp:283-291).
     brdf_diffuse = mats.albedo / PI                              # [N,3]

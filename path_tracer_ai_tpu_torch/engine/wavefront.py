@@ -22,9 +22,14 @@ The traversal backend (`packet_backend`) is "hybrid" by default up to
   with HYBRID_OCCLUDE_KW = dict(engine="packets_fused", ...), the fused
   any-hit cascade (accel.cuda_anyhit); exact_cull=K in HYBRID_OCCLUDE_KW
   (or, for cascade_fused, in HYBRID_CLOSEST_KW) culls per ray exactly
-  (traverse._exact_block_candidates), with the same image;
+  (traverse._exact_block_candidates), with the same image; or, with
+  HYBRID_OCCLUDE_KW = dict(engine="ctiles", ...), ctiles.any_hit_ctiles;
 - bounce 0 skips the coherence sort of both wave types (primary rays in
   pixel order are already coherent).
+backend="ctiles" sends both wave types through accel.ctiles on the base
+accel (CTILES_CLOSEST_KW; shadow waves lane-major, CTILES_OCCLUDE_KW);
+backend="perray" (or block_size=1) through traverse's per-ray candidate
+queries, PERRAY_CHUNK rays at a time.
 backend="pallas" (or use_pallas=True) sends both wave types through the
 per-block candidate walks of accel.cuda_sweep, one kernel launch per wave.
 backend="worklist" runs both through accel.worklist (the item sweep of
@@ -84,15 +89,27 @@ from path_tracer_ai_tpu_torch.utils.logging import get_logger, render_banner
 log = get_logger(__name__)
 
 # Shadow-wave engine of the hybrid backend: "packets" (the packet cascade,
-# groups of 2 candidates per iteration) or "packets_fused" (accel.cuda_anyhit;
-# takes early_skip, sub_skip, sort, sort_mode, block_size).
+# groups of 2 candidates per iteration), "packets_fused" (accel.cuda_anyhit;
+# takes early_skip, sub_skip, sort, sort_mode, block_size), "worklist" or
+# "ctiles" (ctiles.any_hit_ctiles with the other keys as its options;
+# lane_major=True, default False, asks direct_lighting for lane-major
+# shadow waves).
 HYBRID_OCCLUDE_KW = dict(engine="packets", group_size=2)
 # Closest-wave engine of the hybrid backend: "ctiles" or "cascade_fused"
 # (accel.cuda_closest, on the base accel; takes sub_skip, sort, sort_mode,
 # block_size, kernel_chunk).
 HYBRID_CLOSEST_KW = dict(engine="ctiles")
-# ctiles closest waves: the reference's committed defaults.
-CTILES_CLOSEST_KW = dict(cap=48, tile_chunk=2048, fallback_compact=1 << 12)
+# ctiles closest waves: the reference's committed defaults (the overflow
+# completes in the sorted domain, before the unsort).
+CTILES_CLOSEST_KW = dict(cap=48, tile_chunk=2048, fallback_compact=1 << 12,
+                         fallback_sorted=True)
+# The "ctiles" backend's shadow waves: lane-major (each lane's 4 same-origin
+# rays consecutive), one block of 4 a lane, unsorted.
+CTILES_OCCLUDE_KW = dict(lane_major=True, block=4, sort=False)
+# The "perray" backend's waves go through traverse's perray queries this
+# many rays at a time (their temporaries grow with the rays); the images do
+# not depend on it.
+PERRAY_CHUNK = 1 << 16
 HYBRID_CLOSEST_CLUSTER_SIZE = 256
 # The worklist backend (the reference's default past 2048 clusters): its
 # closest waves' options, and its shadow waves' (light-major, already
@@ -109,7 +126,7 @@ WORKLIST_OCCLUDE_PACKETS_KW = dict(block_size=64, group_size=2,
 # Compaction never shrinks a wave below this many lanes.
 COMPACT_MIN_BUCKET = 1 << 16
 # Backends of the reference's packet_backend that the port does not have.
-UNPORTED_BACKENDS = ("kslots", "ctiles", "perray")
+UNPORTED_BACKENDS = ("kslots",)
 
 
 class RenderStats:
@@ -154,10 +171,12 @@ def resolve_backend(accel, block_size: int, use_pallas: bool,
 
 
 def _labelled(label, fn):
-    """fn under a label that names the wave type in a torch.profiler trace."""
+    """fn under a label that names the wave type in a torch.profiler trace
+    (keeping its lane_major flag, which direct_lighting reads)."""
     def run(*args):
         with record_function(label):
             return fn(*args)
+    run.lane_major = getattr(fn, "lane_major", False)
     return run
 
 
@@ -171,8 +190,11 @@ def packet_backend(accel: ClusterAccel, block_size: int = 256,
 
     backend: "hybrid" (per-wave-type engines, see HYBRID_CLOSEST_KW and
     HYBRID_OCCLUDE_KW), "pallas" (accel.cuda_sweep), "worklist"
-    (WORKLIST_CLOSEST_KW, WORKLIST_OCCLUDE_KW), "pairs" or "packets"
-    (block_size rays a block); None: see resolve_backend. occlude_sort /
+    (WORKLIST_CLOSEST_KW, WORKLIST_OCCLUDE_KW), "ctiles" (both wave types
+    through accel.ctiles on the base accel: CTILES_CLOSEST_KW,
+    CTILES_OCCLUDE_KW), "perray" (traverse's perray queries, PERRAY_CHUNK
+    rays at a time), "pairs" or "packets" (block_size rays a block); None:
+    see resolve_backend. occlude_sort /
     closest_sort override the hybrid engines' coherence sort (the bounce-0
     no-sort); the other backends ignore them, as in the reference. packs: a
     dict that keeps the triangle packs and the slab table between calls
@@ -206,6 +228,21 @@ def packet_backend(accel: ClusterAccel, block_size: int = 256,
                                               packed(cuda_ctiles.pack_tris,
                                                      accel)))
 
+    if backend == "perray":
+        return _labelled_pair(*_perray_backend(
+            accel, packed(cuda_ctiles.pack_tris, accel)))
+
+    if backend == "ctiles":
+        ckw = dict(CTILES_CLOSEST_KW, **_ctiles_packs(packed, accel,
+                                                       CTILES_CLOSEST_KW))
+
+        def closest(o, d, t_min, t_max):
+            return ctiles.closest_hit_ctiles(accel, o, d, RAY_TMIN, t_max,
+                                             **ckw)
+
+        return _labelled_pair(closest, _ctiles_occlude(
+            accel, dict(CTILES_OCCLUDE_KW), packed, lane_major=True))
+
     if backend != "hybrid":
         known = backend in UNPORTED_BACKENDS
         raise ValueError(f"backend {backend!r} is "
@@ -223,14 +260,14 @@ def packet_backend(accel: ClusterAccel, block_size: int = 256,
                 accel, o, d, RAY_TMIN, t_max, tri_pack=pack_fused, **cckw)
     elif closest_eng == "ctiles":
         accel_cl = accel_closest if accel_closest is not None else accel
-        pack_cl = packed(cuda_ctiles.pack_tris, accel_cl)
-        ckw = dict(CTILES_CLOSEST_KW)
+        ckw = dict(CTILES_CLOSEST_KW, **_ctiles_packs(packed, accel_cl,
+                                                       CTILES_CLOSEST_KW))
         if closest_sort is not None:
             ckw["sort"] = closest_sort
 
         def closest(o, d, t_min, t_max):
             return ctiles.closest_hit_ctiles(
-                accel_cl, o, d, RAY_TMIN, t_max, tri_pack=pack_cl, **ckw)
+                accel_cl, o, d, RAY_TMIN, t_max, **ckw)
     else:
         raise ValueError(f"hybrid closest engine {closest_eng!r} is not "
                          "ported")
@@ -266,6 +303,8 @@ def packet_backend(accel: ClusterAccel, block_size: int = 256,
         def occlude(o, d, t_max):
             return cuda_anyhit.any_hit_fused(
                 accel, o, d, RAY_TMIN, t_max, tri_pack=pack_dummy, **fkw)
+    elif occlude_eng == "ctiles":
+        occlude = _ctiles_occlude(accel, okw, packed, lane_major=False)
     else:
         raise ValueError(f"hybrid shadow engine {occlude_eng!r} is not "
                          "ported")
@@ -276,6 +315,61 @@ def packet_backend(accel: ClusterAccel, block_size: int = 256,
 def _labelled_pair(closest, occlude):
     return (_labelled("closest_wave", closest),
             _labelled("shadow_wave", occlude))
+
+
+def _ctiles_packs(packed, accel, kw) -> dict:
+    """The packs of a ctiles query with options kw over `accel`, each built
+    once: tri_pack and the sweep's pack (the same one unless kw turns on
+    sub_skip or pallas_pack_t)."""
+    build = ctiles.sweep_pack_builder(kw.get("sub_skip", False),
+                                      kw.get("pallas_pack_t", False))
+    return dict(tri_pack=packed(cuda_ctiles.pack_tris, accel),
+                sweep_pack=packed(build, accel))
+
+
+def _ctiles_occlude(accel, okw, packed, lane_major: bool):
+    """Shadow waves through ctiles.any_hit_ctiles with the options okw;
+    okw's lane_major (default `lane_major`) is popped and set on the
+    function, for direct_lighting."""
+    lane_major = okw.pop("lane_major", lane_major)
+    kw = dict(okw, **_ctiles_packs(packed, accel, okw))
+
+    def occlude(o, d, t_max):
+        return ctiles.any_hit_ctiles(accel, o, d, RAY_TMIN, t_max, **kw)
+
+    occlude.lane_major = lane_major
+    return occlude
+
+
+def _perray_backend(accel, pack):
+    """(closest, occlude) of the "perray" backend (wavefront.py:392-440):
+    traverse.closest_hit_perray / any_hit_perray over PERRAY_CHUNK rays at a
+    time."""
+    def chunked(fn, o, d, t_max):
+        n = o.shape[0]
+        t_max = torch.broadcast_to(torch.as_tensor(
+            t_max, dtype=torch.float32, device=o.device), (n,))
+        c = PERRAY_CHUNK
+        if n <= c:
+            return fn(o, d, t_max)
+        parts = [fn(o[lo:lo + c], d[lo:lo + c], t_max[lo:lo + c])
+                 for lo in range(0, n, c)]
+        return tuple(torch.cat(p) for p in zip(*parts))
+
+    def closest(o, d, t_min, t_max):
+        def core(oo, dd, tt):
+            h = traverse.closest_hit_perray(accel, oo, dd, RAY_TMIN, tt)
+            return h.t, h.tri
+        t, tri = chunked(core, o, d, t_max)
+        return traverse.PacketHit(hit=torch.isfinite(t), t=t, tri=tri)
+
+    def occlude(o, d, t_max):
+        def core(oo, dd, tt):
+            return (traverse.any_hit_perray(accel, oo, dd, RAY_TMIN, tt,
+                                            tri_pack=pack),)
+        return chunked(core, o, d, t_max)[0]
+
+    return closest, occlude
 
 
 def _other_backend(accel, backend, block_size, pack):

@@ -97,10 +97,11 @@ def test_same_seed_modes_agree(obj_path, tmp_path, on_cpu):
     np.testing.assert_array_equal(read_png(a), read_png(b))
 
 
-@pytest.mark.parametrize("backend", ["worklist", "pairs", "packets"])
+@pytest.mark.parametrize("backend", ["worklist", "pairs", "packets",
+                                     "ctiles", "perray"])
 def test_ported_backend_flags_render(tmp_path, on_cpu, backend):
-    """--backend worklist|pairs|packets (once raising as unported) render a
-    blob OBJ to the same PNG as -m cpu."""
+    """--backend worklist|pairs|packets|ctiles|perray (once raising as
+    unported) render a blob OBJ to the same PNG as -m cpu."""
     obj = str(tmp_path / "blob.obj")
     write_blob_obj(obj, subdivisions=1)
     a = str(tmp_path / "a.png")
@@ -203,7 +204,6 @@ def test_negative_components_are_the_references(tmp_path):
 # --- what the port does not have, and the missing fallback -------------------
 
 @pytest.mark.parametrize("flags,match", [
-    (["--backend", "perray"], "perray"),
     (["--backend", "kslots"], "kslots"),
 ])
 def test_unported_options_raise_before_any_render(obj_path, tmp_path, on_cpu,

@@ -95,6 +95,51 @@ def test_build_clusters_matches_jax(cluster_size):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
 
 
+def test_morton3d_np_and_native_order_match_jax(rng):
+    """morton3d_np (10 bits an axis) and native_morton_order bitwise
+    against JAX's; without the native library the stable argsort of the
+    codes gives the same order."""
+    from path_tracer_ai_tpu.accel import morton as jmorton
+    from path_tracer_ai_tpu.accel import native as jnative
+    from path_tracer_ai_tpu_torch.accel import morton, native
+
+    v0, v1, v2 = _tris(rng, 3000)
+    pts = (v0 + v1 + v2) / 3.0
+    lo, hi = pts.min(axis=0), pts.max(axis=0)
+    codes = morton.morton3d_np(pts, lo, hi)
+    assert codes.dtype == np.uint32
+    np.testing.assert_array_equal(codes, jmorton.morton3d_np(pts, lo, hi))
+    np.testing.assert_array_equal(morton.morton3d_np(pts, lo, hi, bits=6),
+                                  jmorton.morton3d_np(pts, lo, hi, bits=6))
+    order = native.native_morton_order(v0, v1, v2)
+    assert order is not None  # native/libptnative.so loads (built if absent)
+    np.testing.assert_array_equal(order, jnative.native_morton_order(v0, v1,
+                                                                     v2))
+    np.testing.assert_array_equal(order, np.argsort(codes, kind="stable"))
+
+
+@pytest.mark.parametrize("native_lib", [True, False])
+def test_build_clusters_morton_matches_jax(native_lib, monkeypatch):
+    """method="morton": every array equals JAX's build_clusters(method=
+    "morton"), through the native order and through the numpy fallback;
+    and it differs from the split build."""
+    from types import SimpleNamespace
+
+    from path_tracer_ai_tpu_torch.accel import native
+
+    arr = blob_room_arrays(3)
+    tris = SimpleNamespace(v0=arr[0], v1=arr[1], v2=arr[2])
+    ja = jbuild(tris, cluster_size=64, method="morton")
+    if not native_lib:
+        monkeypatch.setattr(native, "native_morton_order",
+                            lambda *a: None)
+    pa = build_clusters(tris, cluster_size=64, method="morton", device="cpu")
+    for name, a, b in zip(pa._fields, pa, ja):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
+    split = build_clusters(tris, cluster_size=64, device="cpu")
+    assert not np.array_equal(split.tri_id.numpy(), pa.tri_id.numpy())
+
+
 def test_get_rays_matches_jax(rng):
     u = rng.uniform(0, 1, 500).astype(np.float32)
     v = rng.uniform(0, 1, 500).astype(np.float32)

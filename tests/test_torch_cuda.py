@@ -85,6 +85,103 @@ def test_tile_sweep_kernel_matches_plain(cuda, rng, t_lanes, s, g):
         assert torch.equal(tri_k, tri_f)
 
 
+@pytest.mark.parametrize("option", ["sub_skip", "pack_t"])
+@pytest.mark.parametrize("t_lanes,s", [(128, 256), (128, 128), (64, 128)])
+def test_tile_sweep_options_match_plain_and_default(cuda, rng, t_lanes, s,
+                                                    option):
+    """tile_sweep's sub_skip (16-row pack) and pack_t ([C, S, 16] pack)
+    instances: bitwise their plain versions and the default instance, on
+    tiles with dead lanes, dead slots and finite t_max."""
+    from types import SimpleNamespace
+
+    arr = blob_room_arrays(4)
+    acc = build_clusters(SimpleNamespace(v0=arr[0], v1=arr[1], v2=arr[2]),
+                         cluster_size=s, device=cuda)
+    nt = 256
+    cid = rng.integers(0, acc.num_clusters, nt).astype(np.int32)
+    v0 = acc.v0.cpu().numpy()
+    o = v0[cid[:, None], rng.integers(0, s, (nt, t_lanes))].reshape(-1, 3)
+    o = o + rng.standard_normal(o.shape).astype(np.float32) * 0.05
+    d = rng.standard_normal(o.shape).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tm = rng.uniform(0.05, 4.0, (nt, t_lanes)).astype(np.float32)
+    tm[::3] = np.inf
+    tm.reshape(-1)[::7] = -1.0
+    tm[1::5, 32:64] = -1.0
+    tm[3::11] = -1.0
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=cuda)
+    rays = cuda_ctiles.pack_rays_tiles(t(o), t(d), t(tm.reshape(-1)), t_lanes)
+    cid_t = t(cid)
+    pack = (cuda_ctiles.pack_tris16(acc) if option == "sub_skip"
+            else cuda_ctiles.pack_tris16_t(acc))
+    before = cuda_ctiles.launches
+    t_k, tri_k = cuda_ctiles.tile_sweep(pack, rays, cid_t, **{option: True})
+    assert cuda_ctiles.launches == before + 1
+    assert (t_lanes, s, 1, option) in cuda_ctiles.launch_shapes
+    t_p, tri_p = cuda_ctiles.tile_sweep_plain(pack, rays, cid_t,
+                                              **{option: True})
+    t_d, tri_d = cuda_ctiles.tile_sweep(cuda_ctiles.pack_tris(acc), rays,
+                                        cid_t)
+    torch.cuda.synchronize()
+    assert (tri_k != cuda_ctiles.I32_MAX).any()
+    for t_x, tri_x in ((t_p, tri_p), (t_d, tri_d)):
+        assert torch.equal(t_k.view(torch.int32), t_x.view(torch.int32))
+        assert torch.equal(tri_k, tri_x)
+
+
+def test_tile_sweep_options_uncompiled_shapes_raise(cuda):
+    cid = torch.zeros((4,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="sub_skip .*S = 256, T = 64"):
+        cuda_ctiles.tile_sweep(torch.zeros((2, 16, 256), device=cuda),
+                               torch.zeros((4, 8, 64), device=cuda), cid,
+                               sub_skip=True)
+    with pytest.raises(ValueError, match="pack_t .*S = 128, T = 256"):
+        cuda_ctiles.tile_sweep(torch.zeros((2, 128, 16), device=cuda),
+                               torch.zeros((4, 8, 256), device=cuda), cid,
+                               pack_t=True)
+    with pytest.raises(ValueError, match="16"):  # a 10-row pack
+        cuda_ctiles.tile_sweep(torch.zeros((2, 10, 128), device=cuda),
+                               torch.zeros((4, 8, 128), device=cuda), cid,
+                               sub_skip=True)
+
+
+@pytest.mark.parametrize("route", ["ctiles", "ctiles_sub_skip",
+                                   "hybrid_ctiles_shadows", "perray",
+                                   "ctiles_2level"])
+def test_ctiles_and_perray_render_on_gpu(cuda, monkeypatch, route):
+    """The ctiles backend (with sub_skip too), the hybrid shadow engine
+    "ctiles", the 2-level ctiles cull (2,564 clusters of two) and perray
+    (atol 1e-5: the packet cascade's tie rule) against the oracle."""
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import oracle, wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+    from path_tracer_ai_tpu_torch.scene.scene import blob_scene
+
+    scene = blob_scene(subdivisions=4, device=cuda)
+    s = RenderSettings(width=32, height=18, samples_per_pixel=2,
+                       max_bounces=3, seed=3)
+    cam = default_camera(cuda)
+    kw = dict(backend="perray" if route == "perray" else "ctiles")
+    if route == "ctiles_sub_skip":
+        monkeypatch.setattr(wavefront, "CTILES_CLOSEST_KW", dict(
+            wavefront.CTILES_CLOSEST_KW, sub_skip=True))
+    if route == "hybrid_ctiles_shadows":
+        monkeypatch.setattr(wavefront, "HYBRID_OCCLUDE_KW",
+                            dict(engine="ctiles"))
+        kw = {}
+    if route == "ctiles_2level":
+        kw["accel"] = build_clusters(scene.triangles, cluster_size=2)
+    before = cuda_ctiles.launches
+    img = wavefront.render(scene, cam, s, wave_size=1 << 11, device=cuda,
+                           **kw)
+    ref = oracle.render(scene, cam, s, device=cuda)
+    if route == "perray":
+        np.testing.assert_allclose(img, ref, atol=1e-5)
+        return
+    assert cuda_ctiles.launches > before
+    np.testing.assert_array_equal(img, ref)
+
+
 def test_kernel_reciprocal_is_the_ieee_division(cuda):
     """The closest-hit kernels invert the determinant without the division's
     range check; over every float bit pattern in its range (2^-126 <= |x| <

@@ -127,6 +127,9 @@ def _constructor_calls():
         "cli": lambda: torch.empty(0, device=cli.cli_device()),
         "build_clusters": lambda: build_clusters(SimpleNamespace(
             v0=f(2, 3), v1=f(2, 3) + 1, v2=f(2, 3) + 2), cluster_size=2).v0,
+        "build_clusters_morton": lambda: build_clusters(SimpleNamespace(
+            v0=f(2, 3), v1=f(2, 3) + 1, v2=f(2, 3) + 2), cluster_size=2,
+            method="morton").v0,
         "build_config_scene": lambda: benchmarks.build_config_scene(
             benchmarks.get_configs()["cornell"])[0].triangles.v0,
         "make_mesh": lambda: torch.empty(0, device=mesh.make_mesh(1)
