@@ -151,13 +151,41 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   seconds, host syncs; the image at atol 1e-5 against the
                   main path at the size it ran and against the oracle at
                   96x54, differing pixels counted.
+  15. path_kslots the kslots backend (per-ray K slots: kslots' cull, one
+                  kslot_sweep launch a query, overflow through pair tiles)
+                  warm at 96x54 (bitwise the oracle), at 480x270, and at
+                  the bench cell if 16 x that predicts under 60 s (bitwise
+                  the main path): seconds, Mrays/s, host syncs, launches,
+                  the device seconds of cull, sweep and fallback, and the
+                  overflow shares (over k_supers, over k_clusters, over
+                  k_clusters only because of phantom children). The kernel
+                  phase checks kslot_sweep on a closest (K 12) and a shadow
+                  (K 8) wave of 2^20 rays culled by kslots (bitwise, timed,
+                  bounded, the slot bytes requested); consistency renders
+                  kslots on the 2,564-cluster accel (2-level cull) bitwise
+                  the oracle; cli renders `--backend kslots` at 96x54 to
+                  the `-m cpu` PNG.
+  16. worklist_mxu the worklist scene's kept closest and shadow queries
+                  (wave 0, bounce 1) through intersector "mxu", "mxu:high"
+                  and "mxu:default" at blocks of 64, sorted, against
+                  "exact": hit (occlusion) flips, the largest relative t
+                  error, the share of the same triangle, each over the
+                  rays whose result came from the mxu sweep (live rays of
+                  blocks that did not overflow; at least 1,000 rays and
+                  1,000 hits a wave), the flips over the whole wave beside
+                  them; the device ms of the mxu item sweep and of its
+                  product alone beside item_sweep's; "mxu" must keep
+                  JAX's bounds (flips < 5e-3, t rtol 5e-3, the same
+                  triangle on > 99%) on its swept rays, and flip fewer
+                  than 5e-3 of the swept rays that "exact" hits.
   mesh_cards      (--mesh-cards only) render_sharded_wavefront at the bench
                   cell over a mesh of distinct cards ((2, 2) on four, (n, 1)
                   on two or three) and over a virtual (2, 2) mesh of cuda:0,
                   each warm and then timed, both held to the main path's
                   image as path_pool is.
-Then the kernels line (six kernels: the five and item_sweep; launches on
-every path, the new ones under new_path_launches), and last
+Then the kernels line (seven kernels: the five, item_sweep and
+kslot_sweep, which replace no TPU kernel; launches on every path, the new
+ones under new_path_launches), and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -243,12 +271,14 @@ def phase_build():
         cuda_closest,
         cuda_ctiles,
         cuda_items,
+        cuda_kslots,
         cuda_sweep,
     )
 
     t0 = time.perf_counter()
     built = cuda_build.build_all([m.SOURCE for m in (
-        cuda_ctiles, cuda_sweep, cuda_anyhit, cuda_closest, cuda_items)])
+        cuda_ctiles, cuda_sweep, cuda_anyhit, cuda_closest, cuda_items,
+        cuda_kslots)])
     seconds = time.perf_counter() - t0
     entry = re.compile(
         r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
@@ -272,6 +302,8 @@ def phase_build():
            for t, s_ in ((128, 256), (128, 128), (64, 128))},
         "item_sweep S128 closest": cuda_items.kernel_occupancy(128, True),
         "item_sweep S128 anyhit": cuda_items.kernel_occupancy(128, False),
+        "kslot_sweep S128 closest": cuda_kslots.kernel_occupancy(128, True),
+        "kslot_sweep S128 anyhit": cuda_kslots.kernel_occupancy(128, False),
     }
     emit({"phase": "build", "seconds": seconds, "built": sorted(built),
           "spilling": [e["entry"] for es in ptxas.values() for e in es
@@ -713,7 +745,77 @@ def phase_kernels(accel_base, accel_c):
     # render_sharded's shadow cascade: blocks of 256, groups of 2
     out["tile_sweep_t256_g2"] = _check_tile_sweep(accel_base, 256, 2048, rng,
                                                   reps=20, g=2)
+    # the kslots backend's closest (K 12) and shadow (K 8) waves
+    out["kslot_sweep"] = _check_kslot_sweep(accel_base, rng, shadow=False)
+    out["kslot_sweep_shadow"] = _check_kslot_sweep(accel_base, rng,
+                                                   shadow=True)
     return out
+
+
+KSLOT_WAVE = 1 << 20  # rays of each kslot_sweep check wave (a render wave)
+
+
+def _check_kslot_sweep(accel, rng, shadow: bool, reps: int = 10) -> dict:
+    """kslot_sweep against its plain version on a bounce-1-like wave of
+    KSLOT_WAVE rays over `accel` (closest: t_max inf, K 12; shadow: finite
+    lengths, K 8), every 7th ray dead, with the cid and n_slots tables of
+    kslots' own cull (overflowed rays go in with t_max -1). Bitwise t,
+    exact tri and occlusion; timed, bounded over the needed tests, with the
+    bytes the swept slots request (40 * S a slot: a count from this run's
+    cid table, not a measurement of L1 or L2 traffic; the shadow walk
+    leaves at a hit, so it requests fewer)."""
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_kslots, kslots
+    from path_tracer_ai_tpu_torch.engine import wavefront
+
+    kw = wavefront.KSLOTS_OCCLUDE_KW if shadow else wavefront.KSLOTS_CLOSEST_KW
+    o, d, tm = _bounce_wave(accel, KSLOT_WAVE, rng, shadow)
+    tm[::7] = -1.0
+    levels = kslots.resolve_levels(accel, 0)
+    tab = kslots._tables(accel, o, d, tm, 1e-3, kw["k_supers"],
+                         kw["k_clusters"], levels, 1 << 15)
+    cid, n_slots, over = tab["cid"], tab["n_slots"], tab["over"]
+    tb = torch.where((tm >= 0) & ~over, tm, -1.0)
+    args = (cuda_ctiles.pack_tris(accel), cuda_kslots.pack_rays(o, d, tb,
+                                                                 1e-3),
+            cid, n_slots, not shadow)
+    k = cuda_kslots.kslot_sweep(*args)
+    stats = {}
+    p = cuda_kslots.kslot_sweep_plain(*args, stats=stats)
+    torch.cuda.synchronize()
+    if shadow:
+        ok = bool(torch.equal(k[0], p[0]))
+        err = float((k[0] != p[0]).sum())  # rays that differ
+        hits = int(k[0].sum())
+    else:
+        ok = _bits_equal(k[0], p[0]) and bool(torch.equal(k[1], p[1]))
+        err = _max_abs_err(k[0], p[0])
+        hits = int((k[1] != cuda_ctiles.I32_MAX).sum())
+    ms = cuda_ms(lambda: cuda_kslots.kslot_sweep(*args), reps)
+    plain_ms = cuda_ms(lambda: cuda_kslots.kslot_sweep_plain(*args), 1)
+    s = accel.cluster_size
+    live = tb >= 0
+    slots = int(n_slots[live].sum())
+    used = int(torch.unique(cid[live][torch.arange(
+        cid.shape[1], device=cid.device)[None, :] < n_slots[live, None]])
+        .numel())
+    nbytes = (used * 10 * s * 4 + _nbytes(args[1], cid, n_slots)
+              + KSLOT_WAVE * (1 if shadow else 8))
+    res = {"phase": "kernel", "name": "kslot_sweep",
+           "wave": "shadow" if shadow else "closest", "rays": KSLOT_WAVE,
+           "swept_rays": int(live.sum()), "K": cid.shape[1], "S": s,
+           "levels": levels, "overflow_rays": int(over.sum()),
+           "slots": slots, "matches_plain": ok, "max_abs_err": err,
+           "hit_rays": hits, "ms": ms, "plain_ms": plain_ms,
+           "requested_slot_bytes": slots * s * 40,
+           **_bound(nbytes, stats["tests"])}
+    res["ms_over_bound"] = ms / res["bound_ms"]
+    emit(res)
+    if not ok:
+        fail("kernel", f"kslot_sweep disagrees with its plain version on "
+                       f"the {res['wave']} wave")
+    if hits == 0:
+        fail("kernel", f"kslot_sweep: the {res['wave']} wave hit nothing")
+    return res
 
 
 def phase_sweep_waves(scene, accel_base, card, n_first=2048):
@@ -807,15 +909,18 @@ def _reset_counts():
         cuda_closest,
         cuda_ctiles,
         cuda_items,
+        cuda_kslots,
         cuda_sweep,
+        kslots,
         pairs,
         worklist,
     )
     from path_tracer_ai_tpu_torch.utils import sync
 
     for mod in (cuda_ctiles, cuda_sweep, cuda_anyhit, cuda_closest,
-                cuda_items):
+                cuda_items, cuda_kslots):
         mod.reset_launches()
+    kslots.reset_overflow_counts()
     worklist.reset_fallback_counts()
     pairs.reset_fallback_counts()
     sync.reset()
@@ -827,13 +932,15 @@ def _read_counts() -> dict:
         cuda_closest,
         cuda_ctiles,
         cuda_items,
+        cuda_kslots,
         cuda_sweep,
     )
 
     return {"tile_sweep": cuda_ctiles.launches, **cuda_sweep.launches,
             "block_anyhit": cuda_anyhit.launches,
             "block_closest": cuda_closest.launches,
-            "item_sweep": cuda_items.launches}
+            "item_sweep": cuda_items.launches,
+            "kslot_sweep": cuda_kslots.launches}
 
 
 def _tile_shapes() -> list:
@@ -1135,8 +1242,13 @@ def phase_consistency():
                             f"oracle beyond 1e-5: {wl}")
     if min(wl["worklist"]["launches"]["item_sweep"],
            wl["pairs"]["launches"]["tile_sweep"],
-           wl["packets"]["launches"]["tile_sweep"]) <= 0:
+           wl["packets"]["launches"]["tile_sweep"],
+           wl["kslots"]["launches"]["kslot_sweep"]) <= 0:
         fail("consistency", f"a backend launched none of its kernels: {wl}")
+    if not wl["kslots"]["bitwise"]:
+        fail("consistency", f"the kslots backend (2-level cull on the "
+                            f"2,564-cluster accel) differs from the oracle: "
+                            f"{wl['kslots']}")
     # tests/test_torch_render.py and tests/test_torch_rr.py hold the same
     # pairs on the CPU
     if not res["rr5_bitwise_rr0"]:
@@ -1148,7 +1260,8 @@ def phase_consistency():
 def _consistency_worklist(scene, cam, img_oracle, kw):
     """The blob subdiv 4 of the consistency phase in clusters of two
     triangles (more than 2048: the default routing picks the worklist
-    backend, with its 2-level cull), the pairs and packets backends on the
+    backend, with its 2-level cull), the pairs, packets and kslots (its
+    2-level cull) backends on the
     same accel, and the worklist backend with WORKLIST_OCCLUDE_ENGINE =
     "packets_exact", against the oracle's rr-off image."""
     from path_tracer_ai_tpu_torch.accel.clusters import build_clusters
@@ -1163,7 +1276,8 @@ def _consistency_worklist(scene, cam, img_oracle, kw):
     routes = (("worklist", None, None), ("pairs", "pairs", None),
               ("packets", "packets", None),
               ("packets_exact", None,
-               {"WORKLIST_OCCLUDE_ENGINE": "packets_exact"}))
+               {"WORKLIST_OCCLUDE_ENGINE": "packets_exact"}),
+              ("kslots", "kslots", None))
     for name, backend, tables in routes:
         _reset_counts()
         with _engines(tables):
@@ -1384,6 +1498,14 @@ def phase_cli(card):
             ["-m", "cpu"] + common6, png_c)
         res["worklist"]["equals_cpu_mode"] = bool(np.array_equal(
             read_png(png_w), read_png(png_c)))
+        # the kslots backend by flag, against the same -m cpu PNG
+        png_k = os.path.join(tmp, "kslots.png")
+        _reset_counts()
+        sec, _ = _cli_run(["-m", "gpu", "--backend", "kslots"] + common6,
+                          png_k)
+        res["kslots"] = {"seconds": sec, "launches": _read_counts(),
+                         "equals_cpu_mode": bool(np.array_equal(
+                             read_png(png_k), read_png(png_c)))}
     emit(res)
     if not res["modes_equal"]:
         fail("cli", "-m cpu and -m gpu wrote different PNGs")
@@ -1391,6 +1513,10 @@ def phase_cli(card):
         fail("cli", "--backend worklist and -m cpu wrote different PNGs")
     if res["worklist"]["launches"]["item_sweep"] <= 0:
         fail("cli", "--backend worklist launched no item_sweep kernel")
+    if not res["kslots"]["equals_cpu_mode"]:
+        fail("cli", "--backend kslots and -m cpu wrote different PNGs")
+    if res["kslots"]["launches"]["kslot_sweep"] <= 0:
+        fail("cli", "--backend kslots launched no kslot_sweep kernel")
     return res
 
 
@@ -2205,6 +2331,224 @@ def phase_path_perray(scene, accel_base, accel_c, card, img_main):
     return res
 
 
+KSLOTS_CUT = dict(width=480, height=270)
+KSLOTS_BENCH_LIMIT_S = 60.0
+
+
+def phase_path_kslots(scene, accel_base, accel_c, card, img_main):
+    """The kslots backend (per-ray K slots: kslots' cull in eager torch,
+    one kslot_sweep launch a query, overflow rays through pair tiles):
+    warm at 96x54 (bench spp and bounces), whose image must equal the
+    oracle's bit for bit; then at 480x270, and at the bench cell if 16
+    times that predicts under KSLOTS_BENCH_LIMIT_S, its image bitwise the
+    main path's (at 480x270 against a main-path render of that size when
+    cut). Each timed render: seconds, Mrays/s, host syncs, launches (and
+    tile_sweep's by shape), the device seconds of each kslots stage (cull,
+    sweep, fallback; CUDA events) and the overflow shares (over k_supers,
+    over k_clusters, over k_clusters only for phantom children)."""
+    from path_tracer_ai_tpu_torch.accel import kslots
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import oracle, wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+    from path_tracer_ai_tpu_torch.utils import sync
+
+    cam = default_camera("cuda")
+    kw = dict(wave_size=1 << 20, device="cuda", accel=accel_base,
+              backend="kslots")
+
+    def timed(settings):
+        _reset_counts()
+        kslots.stage_events = {}
+        stats = wavefront.RenderStats()
+        try:
+            img = wavefront.render(scene, cam, settings, stats=stats, **kw)
+            run = {"seconds": stats.seconds,
+                   "mrays_per_s": stats.mrays_per_s,
+                   "closest_rays": stats.closest_rays,
+                   "shadow_rays": stats.shadow_rays,
+                   "host_syncs": sync.count, "launches": _read_counts(),
+                   "tile_sweep_shapes": _tile_shapes(),
+                   "stage_device_seconds": kslots.stage_seconds(),
+                   "overflow": kslots.read_overflow_counts()}
+        finally:
+            kslots.stage_events = None
+        ov = run["overflow"]
+        rays = max(ov["rays"], 1)
+        run["overflow_share"] = {
+            "all": (ov["over_supers"] + ov["over_clusters"]) / rays,
+            "over_supers": ov["over_supers"] / rays,
+            "over_clusters": ov["over_clusters"] / rays,
+            "phantom_only": ov["phantom_only"] / rays,
+            "slots_per_live_ray": ov["slots"] / rays}
+        return img, run
+
+    def against(img, ref):
+        diff = np.abs(img - ref).max(axis=-1)
+        return {"bitwise": bool(np.array_equal(img, ref)),
+                "max_abs_diff": float(diff.max()),
+                "pixels_differing": int((diff > 0).sum())}
+
+    small = RenderSettings(**{**BENCH, "width": 96, "height": 54})
+    img_small, warm = timed(small)  # also the warm pass
+    res = {"phase": "path_kslots", "card": card,
+           "clusters": accel_base.num_clusters,
+           "supers": accel_base.num_supers,
+           "levels": kslots.resolve_levels(accel_base, 0),
+           "closest_kw": wavefront.KSLOTS_CLOSEST_KW,
+           "occlude_kw": wavefront.KSLOTS_OCCLUDE_KW,
+           "warm_96x54": warm,
+           "vs_oracle_96x54": against(img_small, oracle.render(
+               scene, cam, small, device="cuda"))}
+    cut = RenderSettings(**{**BENCH, **KSLOTS_CUT})
+    img_cut, res["cut_480x270"] = timed(cut)
+    predicted = res["cut_480x270"]["seconds"] * 16
+    res["predicted_bench_seconds"] = predicted
+    if predicted < KSLOTS_BENCH_LIMIT_S:
+        img, run = timed(RenderSettings(**BENCH))
+        res.update(run, size="1920x1080", vs_main=against(img, img_main))
+    else:
+        img_m = wavefront.render(scene, cam, cut, wave_size=1 << 20,
+                                 device="cuda", accel=accel_base,
+                                 accel_closest=accel_c)
+        img = img_cut
+        res.update(res["cut_480x270"], size="480x270 (cut: 16 x the "
+                   "480x270 render predicts over "
+                   f"{KSLOTS_BENCH_LIMIT_S:.0f} s at 1920x1080)",
+                   vs_main=against(img, img_m))
+    image_ok = _image_verdict(img, res)
+    _finish_path(res, [] if res["launches"]["kslot_sweep"] > 0
+                 else ["kslot_sweep"], image_ok)
+    bad = [k for k in ("vs_main", "vs_oracle_96x54") if not res[k]["bitwise"]]
+    if bad:
+        fail("path_kslots", f"the kslots image differs: "
+                            f"{ {k: res[k] for k in bad} }")
+    return res
+
+
+def phase_worklist_mxu(waves, item_checks, card, min_swept=1000):
+    """The worklist scene's kept closest and shadow queries (wave 0, bounce
+    1) through intersector "mxu", "mxu:high" and "mxu:default" at blocks
+    of 64, groups of 4 and sort=True (the JAX tests' setting; the render
+    sends its shadow waves unsorted, which at blocks of 64 would send most
+    live shadow rays to the exact fallback), against the same query
+    through "exact" (the render's own options). Blocks past `cap` complete
+    through the exact fallback, so every accuracy figure is taken over the
+    rays whose result came from the mxu sweep: live rays (t_max >= 0) of
+    blocks that did not overflow (the overflow mask the query hands to
+    worklist._overflow_fallback). Over those: the share of hits
+    (occlusions) that flip, and the same share over the swept rays that
+    "exact" finds hitting (occluded), so that easy misses cannot hide lost
+    hits; the largest relative t error where both hit; the share of the
+    same triangle; beside them the flips over the whole wave. Also the
+    device ms of the mxu item sweep and of its matrix product alone (CUDA
+    events) beside item_sweep's ms on the same wave (item_waves). Fails
+    when "mxu" misses JAX's own bounds on its swept rays (flips < 5e-3, t
+    within rtol 5e-3, the same triangle on more than 99%), flips 5e-3 or
+    more of its swept hits (occlusions), or swept fewer than `min_swept`
+    rays, or hits, of a wave."""
+    import inspect
+
+    from path_tracer_ai_tpu_torch.accel import mxu, worklist
+
+    spans = {"sweep": [], "product": []}
+    overflow_masks = []
+
+    def timed(mod, name, key):
+        real = getattr(mod, name)
+
+        def run(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(*a, **k)
+            end.record()
+            spans[key].append((start, end))
+            return out
+
+        setattr(mod, name, run)
+        return real
+
+    real_fallback = worklist._overflow_fallback
+
+    def keep_overflow(*a, **k):
+        overflow_masks.append(inspect.signature(real_fallback).bind(
+            *a, **k).arguments["overflow"])
+        return real_fallback(*a, **k)
+
+    out = {"phase": "worklist_mxu", "card": card, "min_swept": min_swept}
+    reals = [(worklist, "_sweep_items_mxu",
+              timed(worklist, "_sweep_items_mxu", "sweep")),
+             (mxu, "linear_product", timed(mxu, "linear_product", "product")),
+             (worklist, "_overflow_fallback", real_fallback)]
+    worklist._overflow_fallback = keep_overflow
+    try:
+        for (label, (args, kw)), check in zip(waves.items(), item_checks):
+            closest = label == "closest_wave"
+            fn = (worklist.closest_hit_worklist if closest
+                  else worklist.any_hit_worklist)
+            ref = fn(*args, **kw)
+            n = int(args[1].shape[0])
+            t_max = inspect.signature(fn).bind(*args, **kw).arguments["t_max"]
+            live = torch.broadcast_to(torch.as_tensor(
+                t_max, device=args[1].device), (n,)) >= 0
+            wave = {"rays": n, "live_rays": int(live.sum()),
+                    "item_sweep_ms": check["ms"]}
+            for name in ("mxu", "mxu:high", "mxu:default"):
+                for v in spans.values():
+                    v.clear()
+                overflow_masks.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = fn(*args, **dict(kw, block=64, group=4, sort=True,
+                                       intersector=name))
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                if len(overflow_masks) != 1:
+                    fail("worklist_mxu", f"{label} {name}: "
+                         f"{len(overflow_masks)} overflow masks, not one")
+                swept = live & ~overflow_masks[0]
+                n_swept = int(swept.sum())
+                r = {"query_seconds": seconds, "swept_rays": n_swept,
+                     "swept_share_of_live": n_swept / max(wave["live_rays"],
+                                                          1),
+                     **{f"{k}_ms": sum(a.elapsed_time(b) for a, b in v)
+                        for k, v in spans.items()}}
+                if closest:
+                    both = ref.hit & got.hit & swept
+                    rel = ((got.t - ref.t).abs() / ref.t.abs())[both]
+                    flips = ref.hit != got.hit
+                    r.update(hits=int((ref.hit & swept).sum()),
+                             flip_share=float(flips[swept].float().mean()),
+                             hit_flip_share=float(
+                                 flips[swept & ref.hit].float().mean()),
+                             wave_flip_share=float(flips.float().mean()),
+                             max_rel_t_err=float(rel.max()) if rel.numel()
+                             else 0.0,
+                             same_tri_share=float((ref.tri == got.tri)[both]
+                                                  .float().mean()))
+                else:
+                    flips = ref != got
+                    r.update(hits=int((ref & swept).sum()),
+                             flip_share=float(flips[swept].float().mean()),
+                             hit_flip_share=float(
+                                 flips[swept & ref].float().mean()),
+                             wave_flip_share=float(flips.float().mean()))
+                wave[name] = r
+            out[label] = wave
+    finally:
+        for mod, name, real in reals:
+            setattr(mod, name, real)
+    emit(out)
+    c, sh = out["closest_wave"]["mxu"], out["shadow_wave"]["mxu"]
+    if not (c["max_rel_t_err"] <= 5e-3 and c["same_tri_share"] > 0.99
+            and all(w["flip_share"] < 5e-3 and w["hit_flip_share"] < 5e-3
+                    and min(w["swept_rays"], w["hits"]) >= min_swept
+                    for w in (c, sh))):
+        fail("worklist_mxu", f"mxu misses JAX's bounds on its swept rays: "
+                             f"closest {c}, shadow {sh}")
+    return out
+
+
 def _consistency_ctiles(scene, cam, img_oracle, kw):
     """ctiles' options against the oracle's rr-off image of the consistency
     phase (96x54, 4 spp, 5 bounces), each bitwise: the ctiles backend on
@@ -2285,6 +2629,9 @@ KERNELS = {
                      "path_pallas"),
     # no Pallas kernel: the XLA-fused body of worklist._sweep_items
     "item_sweep": ("item_sweep.cu", None, "path_worklist"),
+    # no Pallas kernel: the XLA-fused SWEEP and RESOLVE of
+    # kslots._chunk_pipeline
+    "kslot_sweep": ("kslot_sweep.cu", None, "path_kslots"),
 }
 
 
@@ -2363,7 +2710,11 @@ def main() -> int:
     ctiles_paths = phase_path_ctiles(scene, accel_base, accel_c, card,
                                      img_main)
     perray = phase_path_perray(scene, accel_base, accel_c, card, img_main)
+    paths["path_kslots"] = phase_path_kslots(scene, accel_base, accel_c,
+                                             card, img_main)
+    phase_worklist_mxu(worklist_waves, item_waves, card)
     new_paths = {**ctiles_paths, "path_perray": perray,
+                 "path_kslots": paths["path_kslots"],
                  "path_pool": paths["path_pool"],
                  "path_mesh_virtual_2x2": meshes["virtual_2x2"],
                  "path_mesh_tile_devices_8": meshes["tile_devices_8"],
@@ -2429,6 +2780,14 @@ def main() -> int:
             {k: w[k] for k in ("wave", "n_items", "ms", "plain_ms",
                                "bound_ms", "ms_over_bound", "matches_plain")}
             for w in item_waves]} if name == "item_sweep" else {}),
+        **({"waves": [
+            {k: w[k] for k in ("wave", "K", "slots", "overflow_rays", "ms",
+                               "plain_ms", "bound_ms", "ms_over_bound",
+                               "matches_plain")}
+            for w in (checks["kslot_sweep"], checks["kslot_sweep_shadow"])],
+            "matches_plain": all(checks[k]["matches_plain"] for k in (
+                "kslot_sweep", "kslot_sweep_shadow"))}
+           if name == "kslot_sweep" else {}),
     } for name, (source, replaces, phase) in KERNELS.items()],
         "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,177 @@
+"""The per-ray K-slot sweep of the kslots backend: a hand-written CUDA
+kernel and its plain version.
+
+No Pallas kernel stands behind it: it carries the XLA-fused SWEEP and
+RESOLVE of the reference's `kslots._chunk_pipeline` (kslots.py:165-185).
+Eager torch would gather a [rows, K * S, 3] slab three times and keep
+about fifteen [rows, K * S] temporaries (0.6 GB a chunk of 2^15 rays at
+K * S = 1,536), so on the card the sweep is one launch of
+csrc/kslot_sweep.cu over the query's rays.
+
+`kslot_sweep(tri_pack, rays, cid, n_slots, want_tri)`: ray r tests the S
+triangles of each cluster cid[r, k] for k < n_slots[r] within
+[t_min, t_max]; a ray with t_max < t_min (dead or overflowed: t_max = -1)
+tests nothing. Closest (want_tri) returns (t [N] f32, tri [N] i32): the
+minimum t, then the minimum triangle id among the slots at that t (the
+oracle's lexicographic rule), or (inf, INT32_MAX); any hit returns
+(occluded [N] bool,). Slots whose cid lies outside [0, C) test nothing.
+
+On a CUDA tensor the wrapper launches the kernel or raises (ValueError for
+an S it is not compiled for: S in {2, 128}; K comes from the data); on a
+CPU tensor it runs `kslot_sweep_plain`, the same arithmetic as eager torch
+(cuda_ctiles.mt_sweep_rows), which is used by the tests and the CPU and by
+nothing on the card.
+
+Layouts: tri_pack [C, 10, S] f32 (cuda_ctiles.pack_tris); rays [N, 8] f32
+(ox oy oz dx dy dz t_max t_min, pack_rays); cid [N, K] i32; n_slots [N]
+i32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from path_tracer_ai_tpu_torch import cuda_build
+from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
+    I32_MAX,
+    NO_INSTANCE,
+    PACK_ROWS,
+    RAY_ROWS,
+    _check,
+    mt_sweep_rows,
+    read_occupancy,
+)
+
+SOURCE = "kslot_sweep"
+INF = float("inf")
+PLAIN_ELEMS = 1 << 22  # [rays, K * S] elements per step of the plain version
+
+# Kernel launches since the last reset (the plain version never counts).
+launches = 0
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def pack_rays(o, d, t_max, t_min) -> torch.Tensor:
+    """[N, 8] f32 ray rows: o, d, t_max, t_min."""
+    n = o.shape[0]
+    tmin = torch.full((n, 1), float(t_min), dtype=torch.float32,
+                      device=o.device)
+    return torch.cat([o, d, t_max[:, None], tmin], dim=1).contiguous()
+
+
+def _outputs(n, want_tri, dev):
+    if want_tri:
+        return (torch.full((n,), INF, dtype=torch.float32, device=dev),
+                torch.full((n,), I32_MAX, dtype=torch.int32, device=dev))
+    return (torch.zeros((n,), dtype=torch.bool, device=dev),)
+
+
+def kslot_sweep_plain(tri_pack, rays, cid, n_slots, want_tri: bool,
+                      stats: Optional[dict] = None):
+    """The kernel's function in eager torch, the reference's SWEEP and
+    RESOLVE, PLAIN_ELEMS [rays, K * S] elements a step. stats["tests"]
+    counts the tests the data needs: every live slot's S of a closest
+    query; for any hit, the slots of the clusters up to and including a
+    ray's first occluding one."""
+    n, k = cid.shape
+    c, _, s = tri_pack.shape
+    dev = rays.device
+    out = _outputs(n, want_tri, dev)
+    step = max(1, PLAIN_ELEMS // (k * s))
+    tests = 0
+    for a in range(0, n, step):
+        b = min(a + step, n)
+        cc = cid[a:b].long()
+        live = ((torch.arange(k, device=dev)[None, :] < n_slots[a:b, None])
+                & (cc >= 0) & (cc < c))
+        live = live & (rays[a:b, 6] >= rays[a:b, 7])[:, None]
+        tp = tri_pack[torch.clamp(cc, 0, c - 1)]              # [n, K, 10, S]
+        tp = tp.transpose(1, 2).reshape(b - a, PACK_ROWS, k * s)
+        ray = [rays[a:b, r, None] for r in range(RAY_ROWS)]    # [n, 1]
+        tri = [tp[:, r] for r in range(9)]                     # [n, K*S]
+        tt, ok = mt_sweep_rows(*ray[:6], *tri, ray[7], ray[6])
+        ok = ok & live.repeat_interleave(s, dim=1)
+        if not want_tri:
+            out[0][a:b] = ok.any(dim=1)
+            if stats is not None:
+                hit_k = ok.reshape(b - a, k, s).any(dim=2)     # [n, K]
+                first = torch.where(hit_k.any(dim=1),
+                                    hit_k.to(torch.int8).argmax(dim=1) + 1,
+                                    k)
+                swept = torch.minimum(first[:, None],
+                                      live.sum(dim=1, keepdim=True))
+                tests += int(swept.sum()) * s
+            continue
+        if stats is not None:
+            tests += int(live.sum()) * s
+        tt = torch.where(ok, tt, INF)
+        best = tt.amin(dim=1)
+        tid = tp[:, 9].view(torch.int32)
+        out[0][a:b] = best
+        out[1][a:b] = torch.where(ok & (tt <= best[:, None]), tid,
+                                  I32_MAX).amin(dim=1)
+    if stats is not None:
+        stats["tests"] = stats.get("tests", 0) + tests
+    return out
+
+
+def _kernel():
+    fn = cuda_build.load(SOURCE).kslot_sweep
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_occupancy(s: int, want_tri: bool) -> dict:
+    """The (S, closest or any-hit) instance's registers and resident warps
+    per SM (needs the card)."""
+    return read_occupancy(cuda_build.load(SOURCE).kslot_sweep_occupancy, s,
+                          int(want_tri))
+
+
+def kslot_sweep(tri_pack, rays, cid, n_slots, want_tri: bool):
+    """(t [N] f32, tri [N] i32) or (occluded [N] bool,). CUDA tensors
+    launch the kernel (or raise); CPU tensors take the plain version."""
+    global launches
+    dev = rays.device
+    if dev.type == "cpu":
+        return kslot_sweep_plain(tri_pack, rays, cid, n_slots, want_tri)
+    if dev.type != "cuda":
+        raise ValueError(f"kslot_sweep runs on cuda or cpu, not {dev}")
+    _check("tri_pack", tri_pack, torch.float32, 3, dev)
+    _check("rays", rays, torch.float32, 2, dev)
+    _check("cid", cid, torch.int32, 2, dev)
+    _check("n_slots", n_slots, torch.int32, 1, dev)
+    c, rows, s = tri_pack.shape
+    n, k = cid.shape
+    if rows != PACK_ROWS or rays.shape != (n, RAY_ROWS):
+        raise ValueError(f"pack shapes {tuple(tri_pack.shape)} / "
+                         f"{tuple(rays.shape)} are not [C,10,S] / [{n},8]")
+    if n_slots.shape[0] != n or k < 1:
+        raise ValueError(f"cid {tuple(cid.shape)} and n_slots "
+                         f"{tuple(n_slots.shape)} need one row a ray, K >= 1")
+    out = _outputs(n, want_tri, dev)
+    if n == 0:
+        return out
+    t_out = out[0]
+    tri_out = out[1] if want_tri else out[0]
+    err = cuda_build.launch(
+        _kernel(), dev, tri_pack.data_ptr(), rays.data_ptr(), cid.data_ptr(),
+        n_slots.data_ptr(), t_out.data_ptr(), tri_out.data_ptr(), n, k, s, c,
+        int(want_tri))
+    if err == NO_INSTANCE:
+        raise ValueError(f"kslot_sweep has no compiled instance for S = {s} "
+                         "(S in 2, 128)")
+    if err != 0:
+        raise RuntimeError(f"kslot_sweep launch failed: cudaError {err}")
+    launches += 1
+    return out

@@ -5,8 +5,13 @@ interval slab per block of `block` rays: flat against every cluster AABB,
 or 2-level through the supercluster boxes past 2048 clusters) -> ENUMERATE
 (work items (block, group of `group` candidates) from cumsums, a
 scatter-max and a cummax) -> SWEEP (the item-sweep kernel,
-accel.cuda_items.item_sweep, over the real items) -> RESOLVE (each block
-min-reduces its own item rows; the oracle's lexicographic (t, tri) rule).
+accel.cuda_items.item_sweep, or with intersector="mxu" the matrix-product
+form of accel.mxu, over the real items) -> RESOLVE (each block min-reduces
+its own item rows; the oracle's lexicographic (t, tri) rule). In the
+2-level cull the padding children of a partly filled last super pass the
+slab whatever the ray (their inverted boxes act as [-3e37, 3e37]), as in
+the reference: repeats of cluster C - 1 that change no result but count
+against `cap` (_cull_2level).
 
 Blocks whose candidates exceed `cap`, or whose items spill past the static
 item budget, complete through `_overflow_fallback`: per-ray pair tiles
@@ -24,7 +29,7 @@ from typing import NamedTuple
 import torch
 from torch.profiler import record_function
 
-from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_items, pairs
+from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_items, mxu, pairs
 from path_tracer_ai_tpu_torch.accel.clusters import ClusterAccel
 from path_tracer_ai_tpu_torch.accel.traverse import (
     PacketHit,
@@ -61,19 +66,26 @@ def reset_fallback_counts() -> None:
 
 def stage_seconds() -> dict:
     """Device seconds of each recorded (wave, stage), after a synchronize."""
+    return event_seconds(stage_events)
+
+
+def event_seconds(events) -> dict:
+    """{"<wave>_<stage>": device seconds} of a dict of recorded CUDA event
+    pairs (StageTimer's), after a synchronize."""
     torch.cuda.synchronize()
     return {f"{wave}_{stage}": sum(a.elapsed_time(b) for a, b in ev) / 1e3
-            for (wave, stage), ev in (stage_events or {}).items()}
+            for (wave, stage), ev in (events or {}).items()}
 
 
-class _stage:
-    """A worklist stage: a torch.profiler label and, when stage_events is a
-    dict and the wave is on the card, a pair of CUDA events."""
+class StageTimer:
+    """A stage of a query: a torch.profiler label and, when `events` is a
+    dict and the wave is on the card, a pair of CUDA events appended to
+    events[key]."""
 
-    def __init__(self, wave: str, stage: str, device):
-        self.key = (wave, stage)
-        self.timed = stage_events is not None and device.type == "cuda"
-        self.label = record_function(f"worklist_{wave}_{stage}")
+    def __init__(self, events, key, label: str, device):
+        self.events, self.key = events, key
+        self.timed = events is not None and device.type == "cuda"
+        self.label = record_function(label)
 
     def __enter__(self):
         self.label.__enter__()
@@ -85,8 +97,13 @@ class _stage:
         if self.timed:
             end = torch.cuda.Event(enable_timing=True)
             end.record()
-            stage_events.setdefault(self.key, []).append((self.start, end))
+            self.events.setdefault(self.key, []).append((self.start, end))
         self.label.__exit__(*exc)
+
+
+def _stage(wave: str, stage: str, device) -> StageTimer:
+    return StageTimer(stage_events, (wave, stage), f"worklist_{wave}_{stage}",
+                      device)
 
 
 def _extract_k(cand: torch.Tensor, k: int, fill: int) -> torch.Tensor:
@@ -323,20 +340,76 @@ def _build_worklist(accel: ClusterAccel, o_blk, d_blk, tm_blk, t_min,
                     overflow, n_items)
 
 
+INTERSECTORS = ("exact", "mxu", "mxu:highest", "mxu:high", "mxu:default")
+# [items, B, g * S] elements per step of the mxu item sweep.
+MXU_ELEMS = 1 << 23
+
+
 def _sweep_items(accel, wl: WorkList, rays, want_tri: bool,
                  intersector: str = "exact", tri_pack=None):
     """The item sweep (worklist.py:325-422) over the real items: per item
     row (t [i_cap, B], tri [i_cap, B]) or (occluded [i_cap, B],); rows past
     n_items hold (inf, INT32_MAX) or False. rays: [nb, 8, B] block pack.
-    Only the "exact" intersector (Möller–Trumbore) is ported."""
+
+    intersector "exact": Möller–Trumbore, bitwise the brute-force oracle's
+    (the item-sweep kernel, accel.cuda_items, B = 8, g = 4). "mxu": the
+    matrix-product decomposition (accel.mxu) in eager torch, same math with
+    other rounding, at any B (use blocks of 64 or more, so the product has
+    rows to fill); "mxu:<precision>" picks mxu.PRECISIONS ("mxu" is
+    "mxu:highest"). The reference treats any name that does not start with
+    "mxu" as exact; the port raises ValueError for a name outside
+    INTERSECTORS."""
+    if intersector not in INTERSECTORS:
+        raise ValueError(f"intersector {intersector!r} is not one of "
+                         f"{INTERSECTORS}")
+    n_items = sync.host_int(wl.n_items)
     if intersector != "exact":
-        raise ValueError(f"intersector {intersector!r} is not ported "
-                         "(accel/mxu.py); use 'exact'")
+        precision = intersector.partition(":")[2] or "highest"
+        return _sweep_items_mxu(accel, wl, rays, n_items, want_tri,
+                                precision)
     if tri_pack is None:
         tri_pack = cuda_ctiles.pack_tris(accel)
-    n_items = sync.host_int(wl.n_items)
     return cuda_items.item_sweep(tri_pack, rays, wl.item_block, wl.ibase,
                                  wl.order_g, wl.n_cand, n_items, want_tri)
+
+
+def _sweep_items_mxu(accel, wl: WorkList, rays, n_items: int, want_tri: bool,
+                     precision: str):
+    """The "mxu" item sweep: items [0, n_items) in steps of MXU_ELEMS
+    [items, B, g * S] elements; returns what cuda_items.item_sweep
+    returns."""
+    b = rays.shape[2]
+    n_groups, g = wl.order_g.shape[1:]
+    s = accel.cluster_size
+    dev = rays.device
+    i_cap = wl.item_block.shape[0]
+    w_table = mxu.build_linear_table(accel)                   # [C, 10, S, 4]
+    rt = rays.transpose(1, 2)                                 # [nb, B, 8]
+    g_blocks = mxu.ray_features(rt[..., 0:3], rt[..., 3:6])   # [nb, B, 10]
+    out = cuda_items._outputs(i_cap, b, want_tri, dev)
+    step = max(1, MXU_ELEMS // (b * g * s))
+    for a in range(0, n_items, step):
+        j = torch.arange(a, min(a + step, n_items), device=dev)
+        blk = wl.item_block[j].long()
+        k = torch.clamp(j - wl.ibase[blk].long(), 0, n_groups - 1)
+        cid = wl.order_g[blk, k].long()                       # [ic, g]
+        wg = w_table[cid].transpose(1, 2).reshape(j.shape[0], 10, g * s, 4)
+        tt, ok = mxu.mxu_sweep(g_blocks[blk], wg, rt[blk, :, 7, None],
+                               rt[blk, :, 6], precision)      # [ic, B, g*S]
+        slot_live = (k[:, None] * g + torch.arange(g, device=dev)[None, :]
+                     < wl.n_cand[blk][:, None])               # [ic, g]
+        ok = ok & slot_live.repeat_interleave(s, dim=1)[:, None, :]
+        rows = slice(a, a + j.shape[0])
+        if not want_tri:
+            out[0][rows] = ok.any(dim=-1)
+            continue
+        tt = torch.where(ok, tt, INF)
+        ct = tt.amin(dim=-1)                                  # [ic, B]
+        tid = accel.tri_id[cid].reshape(j.shape[0], 1, -1)
+        out[0][rows] = ct
+        out[1][rows] = torch.where(ok & (tt <= ct[..., None]), tid,
+                                   I32_MAX).amin(dim=-1)
+    return out
 
 
 def _item_rows(wl: WorkList, group: int):

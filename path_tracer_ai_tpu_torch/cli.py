@@ -90,20 +90,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "persistent pool")
     p.add_argument("--backend", default=None, choices=BACKENDS,
                    help="traversal backend (default: hybrid, worklist past "
-                        "2048 clusters; the port has every one but kslots)")
+                        "2048 clusters)")
     p.add_argument("--validate", action="store_true",
                    help="audit the final image for NaN/Inf/sentinel pixels")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the render into DIR")
     return p
-
-
-def check_ported(args) -> None:
-    """Raise ValueError for an option the port does not have yet (before
-    any scene is loaded or any render starts)."""
-    if args.backend in wavefront.UNPORTED_BACKENDS:
-        raise ValueError(f"--backend {args.backend} is not ported yet "
-                         "(ROADMAP queue 1, step 12)")
 
 
 def cli_device():
@@ -116,7 +108,6 @@ def cli_device():
 def main(argv=None) -> int:
     configure_cli_logging()
     args = build_parser().parse_args(argv)
-    check_ported(args)
     try:
         dev = cli_device()
     except RuntimeError as e:

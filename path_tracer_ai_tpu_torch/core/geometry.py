@@ -76,3 +76,15 @@ def aabb_hit(origin, direction, bmin, bmax, t_min, t_max):
         lo = torch.where(near[..., axis] > lo, near[..., axis], lo)
         hi = torch.where(far[..., axis] < hi, far[..., axis], hi)
     return hi > lo, lo
+
+
+def triangle_aabbs(v0, v1, v2):
+    """Per-triangle bounds (triangle.hpp:73-77): (bmin, bmax)."""
+    bmin = torch.minimum(torch.minimum(v0, v1), v2)
+    bmax = torch.maximum(torch.maximum(v0, v1), v2)
+    return bmin, bmax
+
+
+def triangle_centers(v0, v1, v2):
+    """Triangle centroids (triangle.hpp:69-71)."""
+    return (v0 + v1 + v2) / 3.0

@@ -37,7 +37,9 @@ accel.cuda_items; shadow waves unsorted, or the exact-cull packet cascade
 with WORKLIST_OCCLUDE_ENGINE = "packets_exact") on the base accel, with no
 second accel and no bounce-0 overrides; "pairs" through accel.pairs; "packets"
 through the packet cascades (traverse.closest_hit_packets,
-any_hit_packets) at `block_size`.
+any_hit_packets) at `block_size`; "kslots" through accel.kslots (per-ray
+K slots, the sweep kernel of accel.cuda_kslots; KSLOTS_CLOSEST_KW,
+KSLOTS_OCCLUDE_KW).
 On cuda every engine launches its kernels; on cpu their plain versions.
 
 Live-lane compaction: when the live count fits in half the current wave,
@@ -65,6 +67,7 @@ from path_tracer_ai_tpu_torch.accel import (
     cuda_closest,
     cuda_ctiles,
     cuda_sweep,
+    kslots,
     pairs,
     traverse,
     worklist,
@@ -123,10 +126,12 @@ WORKLIST_OCCLUDE_KW = dict(sort=False)
 WORKLIST_OCCLUDE_ENGINE = "worklist"
 WORKLIST_OCCLUDE_PACKETS_KW = dict(block_size=64, group_size=2,
                                    exact_cull=6)
+# The kslots backend's budgets: supers and clusters a ray, closest and
+# shadow waves (on the base accel; shadow waves light-major).
+KSLOTS_CLOSEST_KW = dict(k_supers=6, k_clusters=12)
+KSLOTS_OCCLUDE_KW = dict(k_supers=6, k_clusters=8)
 # Compaction never shrinks a wave below this many lanes.
 COMPACT_MIN_BUCKET = 1 << 16
-# Backends of the reference's packet_backend that the port does not have.
-UNPORTED_BACKENDS = ("kslots",)
 
 
 class RenderStats:
@@ -193,14 +198,15 @@ def packet_backend(accel: ClusterAccel, block_size: int = 256,
     (WORKLIST_CLOSEST_KW, WORKLIST_OCCLUDE_KW), "ctiles" (both wave types
     through accel.ctiles on the base accel: CTILES_CLOSEST_KW,
     CTILES_OCCLUDE_KW), "perray" (traverse's perray queries, PERRAY_CHUNK
-    rays at a time), "pairs" or "packets" (block_size rays a block); None:
-    see resolve_backend. occlude_sort /
+    rays at a time), "pairs" or "packets" (block_size rays a block),
+    "kslots" (KSLOTS_CLOSEST_KW, KSLOTS_OCCLUDE_KW); None: see
+    resolve_backend. occlude_sort /
     closest_sort override the hybrid engines' coherence sort (the bounce-0
     no-sort); the other backends ignore them, as in the reference. packs: a
     dict that keeps the triangle packs and the slab table between calls
-    over the same accels (render builds its two backends from one). The
-    reference's other backends and engines raise ValueError: they are not
-    ported."""
+    over the same accels (render builds its two backends from one). An
+    unknown backend or hybrid engine raises ValueError (the reference sends
+    an unknown shadow engine to the worklist)."""
     backend = resolve_backend(accel, block_size, use_pallas, backend)
     packs = {} if packs is None else packs
 
@@ -223,7 +229,7 @@ def packet_backend(accel: ClusterAccel, block_size: int = 256,
 
         return _labelled_pair(closest, occlude)
 
-    if backend in ("worklist", "pairs", "packets"):
+    if backend in ("worklist", "pairs", "packets", "kslots"):
         return _labelled_pair(*_other_backend(accel, backend, block_size,
                                               packed(cuda_ctiles.pack_tris,
                                                      accel)))
@@ -244,9 +250,7 @@ def packet_backend(accel: ClusterAccel, block_size: int = 256,
             accel, dict(CTILES_OCCLUDE_KW), packed, lane_major=True))
 
     if backend != "hybrid":
-        known = backend in UNPORTED_BACKENDS
-        raise ValueError(f"backend {backend!r} is "
-                         + ("not ported" if known else "unknown"))
+        raise ValueError(f"backend {backend!r} is unknown")
 
     closest_eng = HYBRID_CLOSEST_KW.get("engine", "ctiles")
     cckw = {k: v for k, v in HYBRID_CLOSEST_KW.items() if k != "engine"}
@@ -269,8 +273,7 @@ def packet_backend(accel: ClusterAccel, block_size: int = 256,
             return ctiles.closest_hit_ctiles(
                 accel_cl, o, d, RAY_TMIN, t_max, **ckw)
     else:
-        raise ValueError(f"hybrid closest engine {closest_eng!r} is not "
-                         "ported")
+        raise ValueError(f"hybrid closest engine {closest_eng!r} is unknown")
 
     occlude_eng = HYBRID_OCCLUDE_KW.get("engine")
     okw = {k: v for k, v in HYBRID_OCCLUDE_KW.items() if k != "engine"}
@@ -306,8 +309,7 @@ def packet_backend(accel: ClusterAccel, block_size: int = 256,
     elif occlude_eng == "ctiles":
         occlude = _ctiles_occlude(accel, okw, packed, lane_major=False)
     else:
-        raise ValueError(f"hybrid shadow engine {occlude_eng!r} is not "
-                         "ported")
+        raise ValueError(f"hybrid shadow engine {occlude_eng!r} is unknown")
 
     return _labelled_pair(closest, occlude)
 
@@ -373,9 +375,19 @@ def _perray_backend(accel, pack):
 
 
 def _other_backend(accel, backend, block_size, pack):
-    """(closest, occlude) of the "worklist", "pairs" and "packets" backends
-    (the reference's packet_backend branches), all on the base accel."""
-    if backend == "worklist":
+    """(closest, occlude) of the "worklist", "pairs", "packets" and
+    "kslots" backends (the reference's packet_backend branches), all on the
+    base accel."""
+    if backend == "kslots":
+        def closest(o, d, t_min, t_max):
+            return kslots.closest_hit_kslots(accel, o, d, RAY_TMIN, t_max,
+                                             tri_pack=pack,
+                                             **KSLOTS_CLOSEST_KW)
+
+        def occlude(o, d, t_max):
+            return kslots.any_hit_kslots(accel, o, d, RAY_TMIN, t_max,
+                                         tri_pack=pack, **KSLOTS_OCCLUDE_KW)
+    elif backend == "worklist":
         def closest(o, d, t_min, t_max):
             return worklist.closest_hit_worklist(
                 accel, o, d, RAY_TMIN, t_max, tri_pack=pack,

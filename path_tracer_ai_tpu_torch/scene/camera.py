@@ -73,3 +73,10 @@ def get_rays(camera: Camera, u: torch.Tensor, v: torch.Tensor, aspect: float):
     directions = vec.normalize(d)
     origins = torch.broadcast_to(camera.position, directions.shape)
     return origins, directions
+
+
+def pixel_uv(x, y, width: int, height: int):
+    """The deterministic part of the pixel -> viewport mapping
+    (renderer.hpp:63-64): the reference divides by (dim - 1), not dim. The
+    caller adds the jitter before get_rays."""
+    return x / (width - 1), y / (height - 1)

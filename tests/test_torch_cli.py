@@ -98,10 +98,10 @@ def test_same_seed_modes_agree(obj_path, tmp_path, on_cpu):
 
 
 @pytest.mark.parametrize("backend", ["worklist", "pairs", "packets",
-                                     "ctiles", "perray"])
+                                     "ctiles", "perray", "kslots"])
 def test_ported_backend_flags_render(tmp_path, on_cpu, backend):
-    """--backend worklist|pairs|packets|ctiles|perray (once raising as
-    unported) render a blob OBJ to the same PNG as -m cpu."""
+    """--backend worklist|pairs|packets|ctiles|perray|kslots (once raising
+    as unported) render a blob OBJ to the same PNG as -m cpu."""
     obj = str(tmp_path / "blob.obj")
     write_blob_obj(obj, subdivisions=1)
     a = str(tmp_path / "a.png")
@@ -201,21 +201,7 @@ def test_negative_components_are_the_references(tmp_path):
     np.testing.assert_array_equal(img < 0, ref < 0)
 
 
-# --- what the port does not have, and the missing fallback -------------------
-
-@pytest.mark.parametrize("flags,match", [
-    (["--backend", "kslots"], "kslots"),
-])
-def test_unported_options_raise_before_any_render(obj_path, tmp_path, on_cpu,
-                                                  monkeypatch, flags, match):
-    def no_render(*a, **k):
-        raise AssertionError("a render started")
-
-    monkeypatch.setattr(wavefront, "render", no_render)
-    monkeypatch.setattr(oracle, "render", no_render)
-    with pytest.raises(ValueError, match=match):
-        main(["-i", obj_path, "-o", str(tmp_path / "x.png")] + flags)
-
+# --- the missing fallback ------------------------------------------------------
 
 def test_accelerated_failure_returns_1_without_oracle_rerun(
         obj_path, tmp_path, on_cpu, monkeypatch):

@@ -155,6 +155,33 @@ def test_get_rays_matches_jax(rng):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+def test_triangle_bounds_and_centers_match_jax(rng):
+    v0, v1, v2 = _tris(rng, 200)
+    jmin, jmax = jgeom.triangle_aabbs(*(jnp.asarray(v) for v in (v0, v1, v2)))
+    tmin, tmax = geometry.triangle_aabbs(T(v0), T(v1), T(v2))
+    np.testing.assert_array_equal(tmin.numpy(), np.asarray(jmin))
+    np.testing.assert_array_equal(tmax.numpy(), np.asarray(jmax))
+    np.testing.assert_allclose(
+        geometry.triangle_centers(T(v0), T(v1), T(v2)).numpy(),
+        np.asarray(jgeom.triangle_centers(*(jnp.asarray(v)
+                                            for v in (v0, v1, v2)))),
+        rtol=1e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("width,height", [(1920, 1080), (7, 3)])
+def test_pixel_uv_matches_jax(width, height):
+    """The reference divides by (dim - 1): the last pixel maps to 1."""
+    x = np.arange(width, dtype=np.float32)[::max(1, width // 64)]
+    y = np.arange(height, dtype=np.float32)[::max(1, height // 64)]
+    xs, ys = np.meshgrid(x, y)
+    uj, vj = jcamera.pixel_uv(jnp.asarray(xs), jnp.asarray(ys), width, height)
+    ut, vt = camera.pixel_uv(T(xs), T(ys), width, height)
+    np.testing.assert_array_equal(ut.numpy(), np.asarray(uj))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    last = camera.pixel_uv(T([width - 1.0]), T([height - 1.0]), width, height)
+    assert [float(a) for a in last] == [1.0, 1.0]
+
+
 def test_png_round_trip(tmp_path, rng):
     img = rng.uniform(0, 1.5, (9, 13, 3)).astype(np.float32)
     u8 = tonemap_to_u8(img, 2.2)

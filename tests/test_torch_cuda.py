@@ -16,6 +16,7 @@ from path_tracer_ai_tpu_torch.accel import (
     cuda_closest,
     cuda_ctiles,
     cuda_items,
+    cuda_kslots,
     cuda_sweep,
 )
 from path_tracer_ai_tpu_torch.accel.clusters import build_clusters
@@ -717,6 +718,116 @@ def test_exact_cull_renders_on_gpu(cuda, monkeypatch, tables):
                                                      device=cuda))
 
 
+# --- the kslots backend's K-slot sweep and the worklist's mxu intersector ---
+
+
+def _kslot_wave(acc, rng, n, k_clusters, shadow):
+    """A bounce-like wave through kslots' own cull: (tri_pack, ray rows,
+    cid, n_slots); overflowed and dead rays carry t_max -1."""
+    from path_tracer_ai_tpu_torch.accel import kslots
+
+    o, d, tm = _bounce_wave(acc, n, rng)
+    if not shadow:
+        tm = torch.where(tm >= 0, torch.inf, tm)
+    tab = kslots._chunk_tables(acc, o, d, tm, 1e-3, 6, k_clusters,
+                               kslots.resolve_levels(acc, 0))
+    tb = torch.where(tab["live"] & ~tab["over"], tm, -1.0)
+    return (cuda_ctiles.pack_tris(acc),
+            cuda_kslots.pack_rays(o, d, tb, 1e-3), tab["cid"],
+            tab["n_slots"])
+
+
+@pytest.mark.parametrize("s", [128, 2])
+@pytest.mark.parametrize("want_tri,k", [(True, 12), (False, 8)])
+def test_kslot_sweep_kernel_matches_plain(cuda, rng, s, want_tri, k):
+    """kslot_sweep on a wave culled by kslots (closest K 12, shadow K 8;
+    S = 128, and S = 2 past 2048 clusters) against its plain version: t
+    bit for bit, tri and occlusion exact."""
+    acc = _accel(cuda, s=s)
+    args = _kslot_wave(acc, rng, 1 << 13, k, shadow=not want_tri)
+    assert int(args[3].sum()) > 0
+    before = cuda_kslots.launches
+    got = cuda_kslots.kslot_sweep(*args, want_tri)
+    assert cuda_kslots.launches == before + 1
+    want = cuda_kslots.kslot_sweep_plain(*args, want_tri)
+    torch.cuda.synchronize()
+    if want_tri:
+        assert torch.equal(_bits(got[0]), _bits(want[0]))
+        assert torch.equal(got[1], want[1])
+        assert (got[1] != cuda_ctiles.I32_MAX).any()
+    else:
+        assert torch.equal(got[0], want[0]) and got[0].any()
+
+
+def test_kslot_sweep_uncompiled_shapes_raise(cuda, rng):
+    acc = _accel(cuda, s=64)
+    args = _kslot_wave(acc, rng, 1 << 10, 12, shadow=False)
+    with pytest.raises(ValueError, match="S = 64"):
+        cuda_kslots.kslot_sweep(*args, True)
+    pack, rays, cid, n_slots = args
+    with pytest.raises(ValueError, match="one row a ray"):
+        cuda_kslots.kslot_sweep(pack, rays, cid, n_slots[:-1].contiguous(),
+                                True)
+
+
+def test_kslots_backend_renders_on_gpu(cuda):
+    """backend="kslots" through kslot_sweep: the image equals the oracle's
+    bitwise (the oracle's tie rule)."""
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import oracle, wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+    from path_tracer_ai_tpu_torch.scene.scene import blob_scene
+
+    scene = blob_scene(subdivisions=3, device=cuda)
+    cam = default_camera(cuda)
+    s = RenderSettings(width=32, height=18, samples_per_pixel=2,
+                       max_bounces=3, seed=3)
+    before = cuda_kslots.launches
+    img = wavefront.render(scene, cam, s, wave_size=1 << 11, device=cuda,
+                           backend="kslots")
+    assert cuda_kslots.launches > before
+    np.testing.assert_array_equal(img, oracle.render(scene, cam, s,
+                                                     device=cuda))
+
+
+def test_worklist_mxu_within_jax_bounds_on_gpu(cuda, rng):
+    """The worklist's mxu intersector at blocks of 64 against the exact
+    intersector (item_sweep, blocks of 8) on the card: JAX's bounds (hit
+    flips < 5e-3, t within rtol 5e-3, the same triangle on > 99%;
+    occlusion flips < 5e-3)."""
+    from path_tracer_ai_tpu_torch.accel import worklist
+
+    acc = _accel(cuda)
+    o, d, tm = _bounce_wave(acc, 1 << 13, rng)
+    kw = dict(block=64, group=4, intersector="mxu")
+    ex = worklist.closest_hit_worklist(acc, o, d, 1e-3, tm)
+    mx = worklist.closest_hit_worklist(acc, o, d, 1e-3, tm, **kw)
+    assert ex.hit.float().mean() > 0.1
+    assert (ex.hit != mx.hit).float().mean() < 5e-3
+    both = ex.hit & mx.hit
+    torch.testing.assert_close(mx.t[both], ex.t[both], rtol=5e-3, atol=0)
+    assert (mx.tri[both] == ex.tri[both]).float().mean() > 0.99
+    occ_e = worklist.any_hit_worklist(acc, o, d, 1e-3, tm)
+    occ_m = worklist.any_hit_worklist(acc, o, d, 1e-3, tm, **kw)
+    assert (occ_e != occ_m).float().mean() < 5e-3
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_mxu_product_ignores_the_tf32_flag(cuda, rng, monkeypatch, precision):
+    """The product's bits do not depend on torch's TF32 switch."""
+    from path_tracer_ai_tpu_torch.accel import mxu
+
+    g = torch.as_tensor(rng.standard_normal((16, 64, 10)), dtype=torch.float32,
+                        device=cuda)
+    w = torch.as_tensor(rng.standard_normal((16, 10, 512, 4)),
+                        dtype=torch.float32, device=cuda)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    off = mxu.linear_product(g, w, precision)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    on = mxu.linear_product(g, w, precision)
+    assert torch.equal(_bits(off), _bits(on))
+
+
 # --- more than one card: launches on a card that is not the current one ----
 
 
@@ -753,6 +864,7 @@ def test_kernels_launch_on_a_card_that_is_not_current(second_card, rng):
         pack, wrays, wl = _worklist_wave(acc, rng, 1 << 13, shadow=False)
         items = (pack, wrays, wl.item_block, wl.ibase, wl.order_g,
                  wl.n_cand, int(wl.n_items), True)
+        kslot = _kslot_wave(acc, rng, 1 << 13, 12, shadow=False) + (True,)
     pairs = [
         (cuda_ctiles.tile_sweep, cuda_ctiles.tile_sweep_plain, tile),
         (cuda_sweep.closest_sweep, cuda_sweep.closest_sweep_plain,
@@ -762,6 +874,7 @@ def test_kernels_launch_on_a_card_that_is_not_current(second_card, rng):
         (cuda_anyhit.block_anyhit, cuda_anyhit.block_anyhit_plain, fused),
         (cuda_closest.block_closest, cuda_closest.block_closest_plain, fused),
         (cuda_items.item_sweep, cuda_items.item_sweep_plain, items),
+        (cuda_kslots.kslot_sweep, cuda_kslots.kslot_sweep_plain, kslot),
     ]
     with torch.cuda.device(0):
         for kernel, plain, args in pairs:

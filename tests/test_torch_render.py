@@ -235,19 +235,19 @@ def test_fused_render_matches_jax_fused(both, monkeypatch):
     _assert_close(img, ref)
 
 
-@pytest.mark.parametrize("backend", ["kslots", "no_such_backend"])
+@pytest.mark.parametrize("backend", ["no_such_backend"])
 def test_unported_backends_raise(both, backend):
     with pytest.raises(ValueError, match=backend):
         _port_render(both, backend=backend)
 
 
 @pytest.mark.parametrize("backend", ["packets", "worklist", "pairs",
-                                     "ctiles"])
+                                     "ctiles", "kslots"])
 def test_ported_backends_render_equal_oracle(both, port_images, backend):
-    """The worklist, pairs, packets and ctiles backends (once raising here,
-    as unported) on the base accel: the image equals the oracle's bit for
-    bit. ctiles' shadow waves are lane-major, in blocks of a lane's 4
-    rays."""
+    """The worklist, pairs, packets, ctiles and kslots backends (once
+    raising here, as unported) on the base accel: the image equals the
+    oracle's bit for bit. ctiles' shadow waves are lane-major, in blocks of
+    a lane's 4 rays; kslots resolves by the oracle's (t, min tri) rule."""
     stats = wavefront.RenderStats()
     img = _port_render(both, backend=backend, block_size=64, stats=stats)
     np.testing.assert_array_equal(img, port_images["oracle"])

@@ -128,6 +128,54 @@ def test_uniform_sphere_within_ulps(seed):
     np.testing.assert_allclose(np.linalg.norm(st, axis=1), 1.0, atol=1e-6)
 
 
+@pytest.mark.parametrize("seed", SEEDS[:3])
+def test_sample_and_bounce_keys_bitwise(seed):
+    """sample_key and bounce_key: the reference's fold_in chains, key data
+    bit for bit, with Python ints and per-lane tensors."""
+    rng = np.random.default_rng(seed % 1000)
+    pix = rng.integers(0, 1920 * 1080, 129).astype(np.int32)
+    smp = rng.integers(0, 64, 129).astype(np.int32)
+    depth = rng.integers(0, 16, 129).astype(np.int32)
+    kb = jax.random.key(np.uint32(seed))
+    kj = jax.vmap(lambda p, s, dd: jsampling.bounce_key(
+        jsampling.sample_key(kb, p, s), dd, jsampling.TAG_FRESNEL))(
+            pix, smp, depth)
+    kt = sampling.bounce_key(
+        sampling.sample_key(threefry.key(seed), torch.as_tensor(pix),
+                            torch.as_tensor(smp)),
+        torch.as_tensor(depth), sampling.TAG_FRESNEL)
+    np.testing.assert_array_equal(_kd(kj), kt.numpy())
+    one_j = jsampling.bounce_key(jsampling.sample_key(kb, 5, 3), 2, 1)
+    one_t = sampling.bounce_key(sampling.sample_key(threefry.key(seed), 5, 3),
+                                2, 1)
+    np.testing.assert_array_equal(_kd(one_j), one_t.numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_uniform_hemisphere_matches_jax(seed):
+    """One draw a key: the sphere sample (uniform_sphere's atol 4e-7) with
+    JAX's flip into the normal's hemisphere; dot == 0 keeps the sample."""
+    rng = np.random.default_rng(seed)
+    n = 4096
+    normal = rng.standard_normal((n, 3)).astype(np.float32)
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    kb = jax.random.key(np.uint32(seed))
+    pix = np.arange(n, dtype=np.int32)
+    kj = jax.vmap(lambda p: jax.random.fold_in(kb, p))(pix)
+    hj = np.asarray(jax.vmap(jsampling.uniform_hemisphere)(kj,
+                                                           jnp.asarray(normal)))
+    kt = threefry.fold_in(threefry.key(seed), torch.as_tensor(pix))
+    ht = sampling.uniform_hemisphere(kt, torch.as_tensor(normal)).numpy()
+    np.testing.assert_allclose(ht, hj, rtol=0, atol=4e-7)
+    assert ((ht * normal).sum(axis=1) >= 0).all()
+    # a normal orthogonal to the sample: dot == 0 is not flipped
+    d = sampling.uniform_sphere(kt[:8])
+    ortho = torch.stack([d[:, 1], -d[:, 0], torch.zeros(8)], dim=1)
+    assert (d[:, 0] * ortho[:, 0] + d[:, 1] * ortho[:, 1] == 0).all()
+    np.testing.assert_array_equal(
+        sampling.uniform_hemisphere(kt[:8], ortho).numpy(), d.numpy())
+
+
 def test_erf_inv_edges():
     x = torch.tensor([-1.0, 1.0, 0.0], dtype=torch.float32)
     out = threefry.erf_inv(x).numpy()

@@ -118,9 +118,12 @@ def test_worklist_matches_jax(rng, case, levels="flat"):
     _check(ja, pa, ptris, o, d, tm, **kw, **_levels_kw(levels, ja))
 
 
-def test_mxu_intersector_is_not_ported(rng):
+@pytest.mark.parametrize("name", ["mxu:fast", "exact:mxu", "bvh"])
+def test_unknown_intersector_raises(rng, name):
+    """The port accepts "exact" and the "mxu" forms only; the reference
+    would take any other name as exact (ROADMAP §3)."""
     ja, pa, _ = _scene(rng, 300, 16)
     o, d, tm = _rays(rng, 64)
-    with pytest.raises(ValueError, match="mxu"):
+    with pytest.raises(ValueError, match="intersector"):
         worklist.closest_hit_worklist(pa, T(o), T(d), 1e-3, T(tm),
-                                      intersector="mxu")
+                                      intersector=name)
