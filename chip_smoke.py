@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # everything below
-    python3 chip_smoke.py --kernels-only  # phases 1-3b, then stop (no "ok" line)
+    python3 chip_smoke.py --kernels-only  # phases 1-3c, then stop (no "ok" line)
     python3 chip_smoke.py --kernels-only --sass out/sass
         # also: cuobjdump's SASS of every library into a directory
     python3 chip_smoke.py --mesh-cards    # needs two cards or more:
@@ -33,6 +33,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   0 at bounce 0 and 1, kept from one render): bitwise
                   against its plain version, timed and bounded on each whole
                   wave, and timed on its first 2048 blocks alone.
+  3c. generic_kernels each kernel's generic instance (S at run time, the
+                  one that serves the cluster sizes no tuned instance is
+                  compiled for) forced at S = 128 on the same inputs as
+                  its tuned instance: tile_sweep at (T 64, G 2) and (T 128),
+                  the pallas sweeps, the fused kernels, kslot_sweep's
+                  closest wave, item_sweep on the worklist render's kept
+                  closest wave; bitwise its plain version, timed and
+                  bounded beside the tuned instance's time (after
+                  item_waves, whose waves it reuses; also under
+                  --kernels-only).
   4. main_path    the benchmark render (blob subdiv 6 + room, 1920x1080,
                   2 spp, 5 bounces, seed 0, waves of 2^20, blocks of 64)
                   through path_tracer_ai_tpu_torch.engine.wavefront.render:
@@ -58,6 +68,14 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   the same with Russian roulette from bounce 2, and
                   rr_start=5 (never reached in 5 bounces) bitwise the
                   rr-off image.
+  5b. cluster_sizes the 96x54 blob scene (subdiv 4 + room, 2 spp, 5
+                  bounces) on base accels of S in 2, 16, 64, 96, 512 through
+                  the main path (the default routing), backend "pallas",
+                  "worklist", "kslots" and the fused cascades: each image
+                  bitwise the oracle's (pallas within 1e-5, its tie rule),
+                  every route at S 16, 96, 512 through generic instances
+                  (launch counts by kernel); and each kernel's generic
+                  instance against its plain version at each S.
   6. cli          the CLI (path_tracer_ai_tpu_torch.cli.main, in-process) on
                   an OBJ scene: the blob subdiv 6 written as blob.obj + a
                   two-material blob.mtl, loaded once by scene.build_scene
@@ -111,7 +129,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   the exact routes may part (ROADMAP §3); any other
                   difference fails.
   10. path_mesh   parallel.mesh: render_sharded_wavefront over a virtual
-                  (2, 2) mesh of the one card, and render(tile_devices=8)
+                  (2, 2) mesh of the one card, with its workers as the mesh
+                  runs them (one a card) and with one a shard: the same
+                  launches and host syncs,
+                  the ratio to the main path, the first also profiled (busy
+                  share a card), each also over a main path render made
+                  just before (path_mesh_ratio); render(tile_devices=8)
                   (a 1x1 mesh on one card), both held to the main path's
                   image as path_pool is; render_sharded (scheduler "fused",
                   blocks of 256: tile_sweep at T 256) at the bench cell if
@@ -180,12 +203,20 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   than 5e-3 of the swept rays that "exact" hits.
   mesh_cards      (--mesh-cards only) render_sharded_wavefront at the bench
                   cell over a mesh of distinct cards ((2, 2) on four, (n, 1)
-                  on two or three) and over a virtual (2, 2) mesh of cuda:0,
-                  each warm and then timed, both held to the main path's
-                  image as path_pool is.
+                  on two or three), its cards driven at once by the mesh's
+                  workers (a process a card), by a thread a card, and one
+                  after another (every shard on one worker, the schedule
+                  before the workers: the same launches by shape and host
+                  syncs, exactly), and over a
+                  virtual (2, 2) mesh of cuda:0; each warm and then timed,
+                  held to the main path's image as path_pool is, the
+                  concurrent runs profiled (busy share a card); then
+                  mesh_cards_summary, each run's time over the main path's.
 Then the kernels line (seven kernels: the five, item_sweep and
 kslot_sweep, which replace no TPU kernel; launches on every path, the new
-ones under new_path_launches), and last
+ones under new_path_launches; each kernel's generic instance under
+"generic": its S = 128 time beside the tuned one's, its bound, and its
+launches in cluster_sizes), and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -213,7 +244,13 @@ PEAK_F32_PER_S = 67e12
 MT_OPS = 46
 
 
+# While set (_generic_instances), every kernel line says which instance ran.
+_INSTANCE = None
+
+
 def emit(obj) -> None:
+    if _INSTANCE and "phase" in obj:
+        obj = {**obj, "instance": _INSTANCE}
     print(json.dumps(obj), flush=True)
 
 
@@ -1164,6 +1201,275 @@ def phase_profile_path(phase, scene, accel_base, timed_seconds, names,
     return res
 
 
+# ---- the generic instances: any cluster size ------------------------------
+
+class _generic_instances:
+    """Every kernel wrapper launches its generic instance (S at run time)
+    for the duration of the block, also where a tuned one is compiled: the
+    wrappers launch through cuda_build.launch_instance, whose use_generic
+    this forces."""
+
+    def __enter__(self):
+        global _INSTANCE
+        from path_tracer_ai_tpu_torch import cuda_build
+
+        self.real = real = cuda_build.launch_instance
+        cuda_build.launch_instance = (
+            lambda tuned, generic, dev, args, generic_args=None,
+            use_generic=False: real(tuned, generic, dev, args, generic_args,
+                                    use_generic=True))
+        _INSTANCE = "generic"
+
+    def __exit__(self, *exc):
+        global _INSTANCE
+        from path_tracer_ai_tpu_torch import cuda_build
+
+        cuda_build.launch_instance = self.real
+        _INSTANCE = None
+
+
+def _generic_counts() -> dict:
+    """Launches of each kernel's generic instance since the last reset."""
+    from path_tracer_ai_tpu_torch.accel import (
+        cuda_anyhit,
+        cuda_closest,
+        cuda_ctiles,
+        cuda_items,
+        cuda_kslots,
+        cuda_sweep,
+    )
+
+    return {"tile_sweep": cuda_ctiles.generic_launches,
+            **cuda_sweep.generic_launches,
+            "block_anyhit": cuda_anyhit.generic_launches,
+            "block_closest": cuda_closest.generic_launches,
+            "item_sweep": cuda_items.generic_launches,
+            "kslot_sweep": cuda_kslots.generic_launches}
+
+
+def phase_generic_kernels(accel_base, item_args, checks, card):
+    """Each kernel's generic instance at S = 128 beside its tuned instance
+    on the same inputs (the shapes of the paths' checks: tile_sweep at the
+    main path's shadow cascade (T 64, G 2) and at pair tiles (T 128), the
+    pallas sweeps, the fused kernels, kslot_sweep's two waves, item_sweep
+    on the worklist render's kept waves): bitwise its plain version, its
+    time, bound and plain time beside the tuned instance's time."""
+    def both(run):
+        tuned = run(np.random.default_rng(17))
+        _reset_counts()
+        with _generic_instances():
+            gen = run(np.random.default_rng(17))
+        return tuned, gen, _generic_counts()
+
+    runs = {
+        "tile_sweep": lambda rng: {"tile_sweep": _check_tile_sweep(
+            accel_base, 64, 2048, rng, reps=20, g=2)},
+        "tile_sweep_t128": lambda rng: {"tile_sweep_t128": _check_tile_sweep(
+            accel_base, 128, 2048, rng, reps=20)},
+        "sweeps": lambda rng: _check_sweeps(accel_base, rng),
+        "fused": lambda rng: _check_fused(accel_base, rng),
+        "kslot_sweep": lambda rng: {"kslot_sweep": _check_kslot_sweep(
+            accel_base, rng, shadow=False)},
+    }
+    rows = {}
+    for key, run in runs.items():
+        tuned, gen, counts = both(run)
+        for name, g in gen.items():
+            kernel = name.split("_t128")[0]
+            if counts[kernel] <= 0:
+                fail("generic_kernels", f"{name}: no generic launch")
+            rows[name] = {"tuned_ms": tuned[name]["ms"], "generic": g}
+    # item_sweep: the worklist render's kept waves (the tuned instance's
+    # checks ran in item_waves on the same arguments)
+    _reset_counts()
+    with _generic_instances():
+        gen = _check_item_sweep(item_args[0], "closest, wave 0, bounce 1")
+    if _generic_counts()["item_sweep"] <= 0:
+        fail("generic_kernels", "item_sweep: no generic launch")
+    rows["item_sweep"] = {"tuned_ms": checks["item_sweep"]["ms"],
+                          "generic": gen}
+    out = {name: {"S": r["generic"]["S"], "tuned_ms": r["tuned_ms"],
+                  "generic_ms": r["generic"]["ms"],
+                  "generic_over_tuned": r["generic"]["ms"] / r["tuned_ms"],
+                  "bound_ms": r["generic"]["bound_ms"],
+                  "bound_by": r["generic"]["bound_by"],
+                  "generic_over_bound": r["generic"]["ms_over_bound"],
+                  "plain_ms": r["generic"]["plain_ms"],
+                  "matches_plain": r["generic"]["matches_plain"],
+                  "max_abs_err": r["generic"]["max_abs_err"]}
+           for name, r in rows.items()}
+    emit({"phase": "generic_kernels", "card": card, "kernels": out})
+    return out
+
+
+CLUSTER_SIZES = (2, 16, 64, 96, 512)
+CLUSTER_ROUTES = ("main", "pallas", "worklist", "kslots", "fused")
+
+
+def _generic_checks(acc, rng) -> dict:
+    """Each kernel's generic instance (forced) against its plain version on
+    a small wave over `acc`, at the shapes the routes give it: {name: bitwise
+    / exact}."""
+    from path_tracer_ai_tpu_torch.accel import (
+        cuda_anyhit,
+        cuda_closest,
+        cuda_ctiles,
+        cuda_items,
+        cuda_kslots,
+        cuda_sweep,
+        kslots,
+        worklist,
+    )
+    from path_tracer_ai_tpu_torch.accel.traverse import pack_block_rays
+
+    same = lambda a, b: all(
+        (_bits_equal(x, y) if x.dtype == torch.float32
+         else bool(torch.equal(x, y))) for x, y in zip(a, b))
+    out = {}
+    with _generic_instances():
+        pack = cuda_ctiles.pack_tris(acc)
+        ok = True
+        for t_lanes, g in ((64, 2), (128, 1), (32, 1)):
+            rays, cid = _tile_rays(acc, 256, t_lanes, rng, g)
+            ok = ok and same(cuda_ctiles.tile_sweep(pack, rays, cid),
+                             cuda_ctiles.tile_sweep_plain(pack, rays, cid))
+        for opt, opt_pack in (("sub_skip", cuda_ctiles.pack_tris16(acc)),
+                              ("pack_t", cuda_ctiles.pack_tris16_t(acc))):
+            ok = ok and same(
+                cuda_ctiles.tile_sweep(opt_pack, rays, cid, **{opt: True}),
+                cuda_ctiles.tile_sweep_plain(opt_pack, rays, cid,
+                                             **{opt: True}))
+        out["tile_sweep"] = ok
+
+        slab = cuda_sweep.build_slab_table(acc)
+        o, d, tm = _bounce_wave(acc, 256 * 64, rng, shadow=True)
+        rays, order, entry, n_cand, _p = cuda_sweep._prep_wave(
+            acc, o, d, tm, 64, True)
+        rays = _kill_every_seventh(rays)
+        out["closest_sweep"] = same(
+            cuda_sweep.closest_sweep(slab, rays, order, entry, n_cand),
+            cuda_sweep.closest_sweep_plain(slab, rays, order, entry, n_cand))
+        out["anyhit_sweep"] = same(
+            (cuda_sweep.anyhit_sweep(slab, rays, order, n_cand),),
+            (cuda_sweep.anyhit_sweep_plain(slab, rays, order, n_cand),))
+
+        fpack = cuda_anyhit.pack_tris_dummy(acc)
+        o2, d2, tm2, _p, _nc, _e, order_g = cuda_anyhit.prepare_fused_wave(
+            acc, o, d, tm, 64, True, "dir")
+        frays = _kill_every_seventh(cuda_ctiles.pack_rays_tiles(o2, d2, tm2,
+                                                                64))
+        cid8 = order_g[:, 0].reshape(-1).contiguous()
+        out["block_anyhit"] = all(
+            same((cuda_anyhit.block_anyhit(fpack, frays, cid8, e_, s_),),
+                 (cuda_anyhit.block_anyhit_plain(fpack, frays, cid8, e_,
+                                                 s_),))
+            for e_ in (False, True) for s_ in (False, True))
+        out["block_closest"] = all(
+            same(cuda_closest.block_closest(fpack, frays, cid8, s_),
+                 cuda_closest.block_closest_plain(fpack, frays, cid8, s_))
+            for s_ in (False, True))
+
+        small = acc.cluster_size < 64
+        kw = dict(cap=1024, item_budget=64,
+                  super_cap=max(acc.num_supers, 1)) if small else dict(
+            cap=96, item_budget=8, super_cap=32)
+        ok = True
+        for want_tri in (True, False):
+            tmw = torch.where(tm >= 0, torch.inf, tm) if want_tri else tm
+            blocks = worklist._prepare_blocks(acc, o, d, tmw, 8, True)[:3]
+            wl = worklist._build_worklist(acc, *blocks, 1e-3, kw["cap"], 4,
+                                          kw["item_budget"], 1 << 13, 1024,
+                                          super_cap=kw["super_cap"])
+            args = (pack, pack_block_rays(*blocks, 1e-3), wl.item_block,
+                    wl.ibase, wl.order_g, wl.n_cand, int(wl.n_items),
+                    want_tri)
+            ok = ok and same(cuda_items.item_sweep(*args),
+                             cuda_items.item_sweep_plain(*args))
+        out["item_sweep"] = ok
+
+        ok = True
+        for want_tri, k in ((True, 12), (False, 8)):
+            tmk = torch.where(tm >= 0, torch.inf, tm) if want_tri else tm
+            tab = kslots._chunk_tables(acc, o, d, tmk, 1e-3, 6, k,
+                                       kslots.resolve_levels(acc, 0))
+            tb = torch.where(tab["live"] & ~tab["over"], tmk, -1.0)
+            args = (pack, cuda_kslots.pack_rays(o, d, tb, 1e-3), tab["cid"],
+                    tab["n_slots"], want_tri)
+            ok = ok and same(cuda_kslots.kslot_sweep(*args),
+                             cuda_kslots.kslot_sweep_plain(*args))
+        out["kslot_sweep"] = ok
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_cluster_sizes(card):
+    """The 96x54 blob scene (subdiv 4 + room, 2 spp, 5 bounces) with base
+    accels of S in CLUSTER_SIZES, through the main path (the default
+    routing: worklist past 2048 clusters, at S = 2), backend "pallas",
+    "worklist" and "kslots" (blocks of 64) and the fused cascades (on
+    backend "hybrid", also past 2048 clusters): each
+    image bitwise the oracle's (pallas: within 1e-5, its first-candidate tie
+    rule), every route at S without a tuned instance (16, 96, 512) through
+    some generic instance; and each kernel's generic instance against its
+    plain version on a small wave at each S."""
+    from path_tracer_ai_tpu_torch.accel.clusters import build_clusters
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import oracle, wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+    from path_tracer_ai_tpu_torch.scene.scene import blob_scene
+
+    scene = blob_scene(subdivisions=4, device="cuda")
+    cam = default_camera("cuda")
+    settings = RenderSettings(width=96, height=54, samples_per_pixel=2,
+                              max_bounces=5, seed=0)
+    t0 = time.perf_counter()
+    ref = oracle.render(scene, cam, settings, device="cuda")
+    oracle_s = time.perf_counter() - t0
+    rng = np.random.default_rng(5)
+    rows = []
+    for s in CLUSTER_SIZES:
+        acc = build_clusters(scene.triangles, cluster_size=s)
+        renders = {}
+        for route in CLUSTER_ROUTES:
+            kw = dict(accel=acc, wave_size=1 << 14, device="cuda")
+            if route == "fused":  # the hybrid backend's engines at any C
+                kw.update(backend="hybrid")
+            elif route != "main":
+                kw.update(backend=route, block_size=64)
+            _reset_counts()
+            t0 = time.perf_counter()
+            with _engines(FUSED_ENGINES if route == "fused" else None):
+                img = wavefront.render(scene, cam, settings, **kw)
+            torch.cuda.synchronize()
+            diff = float(np.abs(img - ref).max())
+            renders[route] = {
+                "seconds": time.perf_counter() - t0,
+                "bitwise_equal_to_oracle": bool(np.array_equal(img, ref)),
+                "max_abs_diff_vs_oracle": diff,
+                "launches": {k: v for k, v in _read_counts().items() if v},
+                "generic_launches": {k: v for k, v in
+                                     _generic_counts().items() if v}}
+        row = {"phase": "cluster_sizes", "card": card, "S": s,
+               "clusters": acc.num_clusters,
+               "default_backend": wavefront.default_backend(acc),
+               "oracle_seconds": oracle_s, "renders": renders,
+               "generic_matches_plain": _generic_checks(acc, rng)}
+        emit(row)
+        for route, r in renders.items():
+            if not (r["bitwise_equal_to_oracle"] or (
+                    route == "pallas" and r["max_abs_diff_vs_oracle"] <= 1e-5)):
+                fail("cluster_sizes", f"S = {s}, {route}: the image differs "
+                                      "from the oracle's")
+            if s in (16, 96, 512) and not r["generic_launches"]:
+                fail("cluster_sizes", f"S = {s}, {route}: no generic launch")
+        bad = [k for k, v in row["generic_matches_plain"].items() if not v]
+        if bad:
+            fail("cluster_sizes", f"S = {s}: the generic instances of {bad} "
+                                  "disagree with their plain versions")
+        rows.append(row)
+    return rows
+
+
 def phase_consistency():
     from path_tracer_ai_tpu_torch.config import RenderSettings
     from path_tracer_ai_tpu_torch.engine import oracle, wavefront
@@ -1684,7 +1990,7 @@ def phase_item_waves(scene, accel, card):
               _check_item_sweep(kept[False][1][0],
                                 "shadow, wave 0, bounce 1")]
     waves = {k: kept[k][1] for k in ("closest_wave", "shadow_wave")}
-    return checks, waves, seconds
+    return checks, waves, seconds, [kept[True][1][0], kept[False][1][0]]
 
 
 def phase_path_worklist(scene, accel, card, warm_seconds):
@@ -1931,6 +2237,124 @@ def _timed_mesh_render(phase, card, render, main_seconds):
     return res, img, _image_verdict(img, res)
 
 
+class _mesh_schedule:
+    """The mesh's workers for the duration of a block: "per_card" (as the
+    mesh runs them: one worker a card, a process a card where the mesh
+    spans two cards or more), "threads" (one worker thread a card),
+    "per_shard" (a worker a mesh entry) or "sequential" (every shard on
+    one worker, the schedule of the mesh before its workers: shards issued
+    one after another)."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        from path_tracer_ai_tpu_torch.parallel import mesh, workers
+
+        self.saved = (mesh._groups, workers.use_processes)
+        if self.name == "per_shard":
+            mesh._groups = lambda shards: [[i] for i in range(len(shards))]
+        elif self.name == "threads":
+            workers.use_processes = lambda group_devices: False
+        elif self.name == "sequential":
+            mesh._groups = lambda shards: [list(range(len(shards)))]
+
+    def __exit__(self, *exc):
+        from path_tracer_ai_tpu_torch.parallel import mesh, workers
+
+        mesh._groups, workers.use_processes = self.saved
+
+
+def _same_counts(res, ref) -> bool:
+    """Launches (by kernel and, for tile_sweep, by shape) and host syncs of
+    two renders of one image agree exactly."""
+    return (res["launches"] == ref["launches"]
+            and res["tile_sweep_shapes"] == ref["tile_sweep_shapes"]
+            and res["host_syncs"] == ref["host_syncs"])
+
+
+def _busy_by_card(render) -> dict:
+    """render() under torch.profiler, its mesh's worker processes tracing
+    their own steps (workers.PROFILE): each card's device kernel seconds
+    and its busy share of the profiled wall ("not measured" where no trace
+    holds a device kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from path_tracer_ai_tpu_torch.parallel import workers
+
+    workers.device_seconds.clear()
+    workers.PROFILE = True
+    try:
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            render()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        workers.PROFILE = False
+    busy = workers.kernel_seconds(prof)
+    for dev, sec in workers.device_seconds.items():
+        busy[dev] = busy.get(dev, 0.0) + sec
+    if not busy:
+        return {"profiled_wall_seconds": wall, "busy": "not measured"}
+    return {"profiled_wall_seconds": wall,
+            "device_kernel_seconds": dict(sorted(busy.items())),
+            "busy_share_of_profiled_wall": {d: v / wall for d, v in
+                                            sorted(busy.items())}}
+
+
+def _mesh_runs(phase, card, scene, accel_base, accel_c, img_main,
+               main_seconds, grid, schedules, warm=True):
+    """The bench render over `grid` under each schedule of `schedules`
+    (warm at 96x54 first, then timed), each held to the main path's image;
+    the launches and host syncs of every schedule must equal the first's
+    exactly. The first schedule's render is also profiled (busy share a
+    card)."""
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.parallel import mesh
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+
+    settings = RenderSettings(**BENCH)
+    cam = default_camera(grid.devices[0][0])
+    render = lambda st=None: mesh.render_sharded_wavefront(
+        scene, cam, settings, grid, accel=accel_base, stats=st)
+    out = {}
+    for sched in schedules:
+        with _mesh_schedule(sched):
+            if warm:
+                mesh.render_sharded_wavefront(
+                    scene, cam, settings.replace(width=96, height=54), grid,
+                    accel=accel_base)
+                torch.cuda.synchronize()
+            res, img, image_ok = _timed_mesh_render(phase, card, render,
+                                                    main_seconds)
+        res["schedule"] = sched
+        res["route"] = ("render_sharded_wavefront, mesh "
+                        f"{tuple(grid.shape.values())} of "
+                        f"{[str(d) for row in grid.devices for d in row]}")
+        _image_against_main(phase, res, scene, img, img_main, accel_base,
+                            accel_c)
+        first = out[schedules[0]] if out else res
+        res["counts_equal_to_" + schedules[0]] = _same_counts(res, first)
+        if sched == schedules[0]:
+            with _mesh_schedule(sched):
+                prof = _busy_by_card(render)
+            # as the profile phases: device time over the UNPROFILED wall
+            prof["busy_share_of_timed_pass"] = {
+                dev: sec / res["wall_seconds"] for dev, sec in
+                prof.get("device_kernel_seconds", {}).items()} or \
+                "not measured"
+            res["profile"] = prof
+        _finish_path(res, [] if res["launches"]["tile_sweep"]
+                     else ["tile_sweep"], image_ok)
+        if not res["counts_equal_to_" + schedules[0]]:
+            fail(phase, f"the {sched} schedule's launches or host syncs "
+                        f"differ from the {schedules[0]} schedule's")
+        out[sched] = res
+    return out
+
+
 def phase_path_mesh(scene, accel_base, accel_c, card, img_main,
                     main_seconds):
     """The bench render over a virtual (2, 2) mesh on the one card
@@ -1947,18 +2371,28 @@ def phase_path_mesh(scene, accel_base, accel_c, card, img_main,
     settings = RenderSettings(**BENCH)
     card0 = torch.device("cuda", 0)
     out = {}
+    # The main path's render time moves by up to 1.4x between calls and
+    # over a call; the mesh's ratio is also taken against a main path
+    # render made just before it.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wavefront.render(scene, cam, settings, accel=accel_base,
+                     accel_closest=accel_c, wave_size=1 << 20, device="cuda")
+    torch.cuda.synchronize()
+    adjacent = time.perf_counter() - t0
     virtual = mesh.make_mesh(2, 2, devices=[card0] * 4)
-    res, img, image_ok = _timed_mesh_render(
-        "path_mesh", card, lambda st: mesh.render_sharded_wavefront(
-            scene, cam, settings, virtual, accel=accel_base, stats=st),
-        main_seconds)
-    res["route"] = ("render_sharded_wavefront, mesh (2, 2) of cuda:0, "
-                    f"pix_chunk {mesh.PIX_CHUNK}")
-    _image_against_main("path_mesh", res, scene, img, img_main, accel_base,
-                        accel_c)
-    _finish_path(res, [] if res["launches"]["tile_sweep"] else ["tile_sweep"],
-                 image_ok)
-    out["virtual_2x2"] = res
+    runs = _mesh_runs("path_mesh", card, scene, accel_base, accel_c,
+                      img_main, main_seconds, virtual,
+                      ["per_card", "per_shard"], warm=False)
+    for res in runs.values():
+        res["main_path_seconds_just_before"] = adjacent
+        res["wall_over_main_path_just_before"] = res["wall_seconds"] / adjacent
+    emit({"phase": "path_mesh_ratio", "card": card,
+          "main_path_seconds_just_before": adjacent,
+          **{f"{k}_wall_over_it": v["wall_over_main_path_just_before"]
+             for k, v in runs.items()}})
+    out["virtual_2x2"] = runs["per_card"]
+    out["virtual_2x2_per_shard"] = runs["per_shard"]
 
     res, img, image_ok = _timed_mesh_render(
         "path_mesh", card, lambda st: wavefront.render(
@@ -2009,40 +2443,38 @@ def phase_path_mesh(scene, accel_base, accel_c, card, img_main,
 def phase_mesh_cards(scene, accel_base, accel_c, card, img_main,
                      main_seconds):
     """The bench render over a mesh of distinct cards ((2, 2) on four or
-    more, (n, 1) on two or three) and, in the same run, over a virtual
-    (2, 2) mesh of cuda:0: each warm (a 96x54 render on its mesh), then
-    timed, and each image against the main path's."""
-    from path_tracer_ai_tpu_torch.config import RenderSettings
+    more, (n, 1) on two or three): with the mesh's workers (a process a
+    card), with a thread a card, and with every shard on one worker (the
+    sequential schedule of the mesh before its workers), whose launches
+    and host syncs must all be the same; and, in the same run, over a
+    virtual (2, 2) mesh of cuda:0. Each warm (a 96x54 render on its mesh),
+    then timed, and each image against the main path's; the first of each
+    mesh also under torch.profiler (busy share a card)."""
     from path_tracer_ai_tpu_torch.parallel import mesh
-    from path_tracer_ai_tpu_torch.scene.camera import default_camera
 
     n = torch.cuda.device_count()
     if n < 2:
         fail("mesh_cards", f"needs two cards or more, has {n}")
-    settings = RenderSettings(**BENCH)
-    warm = settings.replace(width=96, height=54)
     cards = [torch.device("cuda", i) for i in range(min(n, 4))]
-    cam = default_camera(cards[0])
     shape = (2, 2) if len(cards) == 4 else (len(cards), 1)
-    out = {}
-    for name, grid in (("cards", mesh.make_mesh(*shape, devices=cards)),
-                       ("virtual_2x2", mesh.make_mesh(
-                           2, 2, devices=[cards[0]] * 4))):
-        mesh.render_sharded_wavefront(scene, cam, warm, grid,
-                                      accel=accel_base)
-        torch.cuda.synchronize()
-        res, img, image_ok = _timed_mesh_render(
-            "mesh_cards", card, lambda st: mesh.render_sharded_wavefront(
-                scene, cam, settings, grid, accel=accel_base, stats=st),
-            main_seconds)
-        res["route"] = ("render_sharded_wavefront, mesh "
-                        f"{tuple(grid.shape.values())} of "
-                        f"{[str(d) for row in grid.devices for d in row]}")
-        _image_against_main("mesh_cards", res, scene, img, img_main,
-                            accel_base, accel_c)
-        _finish_path(res, [] if res["launches"]["tile_sweep"]
-                     else ["tile_sweep"], image_ok)
-        out[name] = res
+    runs = _mesh_runs("mesh_cards", card, scene, accel_base, accel_c,
+                      img_main, main_seconds,
+                      mesh.make_mesh(*shape, devices=cards),
+                      ["per_card", "threads", "sequential"])
+    out = {"cards": runs["per_card"], "cards_threads": runs["threads"],
+           "cards_sequential": runs["sequential"]}
+    out["virtual_2x2"] = _mesh_runs(
+        "mesh_cards", card, scene, accel_base, accel_c, img_main,
+        main_seconds, mesh.make_mesh(2, 2, devices=[cards[0]] * 4),
+        ["per_card"])["per_card"]
+    emit({"phase": "mesh_cards_summary", "card": card, "mesh": shape,
+          "main_path_seconds": main_seconds,
+          **{f"{k}_wall_over_main_path": v["wall_over_main_path_seconds"]
+             for k, v in out.items()},
+          "cards_over_sequential": out["cards"]["wall_seconds"]
+          / out["cards_sequential"]["wall_seconds"],
+          "cards_threads_over_sequential": out["cards_threads"][
+              "wall_seconds"] / out["cards_sequential"]["wall_seconds"]})
     return out
 
 
@@ -2674,10 +3106,11 @@ def main() -> int:
     checks = phase_kernels(accel_base, accel_c)
     sweep_waves = phase_sweep_waves(scene, accel_base, card)
     scene_w, accel_w = worklist_scene()
-    item_waves, worklist_waves, warm_w = phase_item_waves(scene_w, accel_w,
-                                                          card)
+    item_waves, worklist_waves, warm_w, item_args = phase_item_waves(
+        scene_w, accel_w, card)
     checks["item_sweep"] = dict(item_waves[0], matches_plain=all(
         c["matches_plain"] for c in item_waves))
+    generic = phase_generic_kernels(accel_base, item_args, checks, card)
     if args.kernels_only:
         return 0
     render, img_main = phase_main_path(scene, accel_base, accel_c, card)
@@ -2698,6 +3131,7 @@ def main() -> int:
                                                  warm_w)
     phase_profile_worklist(worklist_waves, card)
     phase_consistency()
+    sizes = phase_cluster_sizes(card)
     cli = phase_cli(card)
     phase_bench(card)
     paths["path_pool"] = phase_path_pool(scene, accel_base, accel_c, card,
@@ -2770,6 +3204,15 @@ def main() -> int:
         "bound_ms": checks[name]["bound_ms"],
         "bound_by": checks[name]["bound_by"], "library_ms": None,
         "ms_over_bound": checks[name]["ms_over_bound"],
+        "generic": {**{k: generic[name][k] for k in (
+            "S", "generic_ms", "tuned_ms", "generic_over_tuned", "bound_ms",
+            "generic_over_bound", "plain_ms", "matches_plain")},
+            "cluster_sizes_launches": {
+                row["S"]: sum(r["generic_launches"].get(name, 0)
+                              for r in row["renders"].values())
+                for row in sizes},
+            "cluster_sizes_matches_plain": all(
+                row["generic_matches_plain"][name] for row in sizes)},
         "occupancy": {k: v for k, v in occupancy.items()
                       if k.split()[0] == name},
         **({"render_waves": [

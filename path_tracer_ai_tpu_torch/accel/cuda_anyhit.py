@@ -7,9 +7,9 @@ sweeps GROUP = 8 candidate clusters per block and iteration in ONE kernel
 launch. `block_anyhit` replaces the Pallas kernel of the same name: on a
 CUDA tensor it launches csrc/fused_anyhit.cu (or raises), on a CPU tensor it
 runs `block_anyhit_plain`, the same function as eager torch ops. The kernel
-is compiled for S in {64, 128, 256} and T in {64, 128} (one warp per 32
-lanes of a ray block; design and bound in the CUDA source); another shape
-on a CUDA tensor raises ValueError.
+has tuned instances for S in {64, 128, 256} and T in {64, 128} (one warp
+per 32 lanes of a ray block; design and bound in the CUDA source) and a
+generic instance for every other S, T >= 1 (the same bits).
 
 Layouts:
   tri_pack [C+1, 16, S] f32 (pack_tris_dummy): cuda_ctiles.pack_tris16 plus
@@ -29,7 +29,6 @@ import torch
 from path_tracer_ai_tpu_torch import cuda_build
 from path_tracer_ai_tpu_torch.accel import cuda_ctiles, traverse
 from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
-    NO_INSTANCE,
     RAY_ROWS,
     SUB,
     _check,
@@ -47,13 +46,17 @@ GROUP = 8  # candidate clusters consumed per block per cascade iteration
 PACK_ROWS = 16
 SOURCE = "fused_anyhit"
 
-# Kernel launches since the last reset (the plain version never counts).
+# Kernel launches since the last reset (the plain version never counts),
+# and those of the generic instance among them; updated under sync.lock
+# (the mesh's workers launch from several threads).
 launches = 0
+generic_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, generic_launches
+    with sync.lock:
+        launches = generic_launches = 0
 
 
 def pack_tris_dummy(accel) -> torch.Tensor:
@@ -159,11 +162,19 @@ def kernel_occupancy(s: int, t_lanes: int) -> dict:
                           s, t_lanes)
 
 
+def _kernel_generic():
+    fn = cuda_build.load(SOURCE).block_anyhit_generic
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def block_anyhit(tri_pack, rays_pack, cid8, early_skip=False, sub_skip=False):
-    """occluded [size, T] bool. CUDA tensors launch the kernel (or raise;
-    ValueError for an (S, T) it is not compiled for: S in 64, 128, 256 and
-    T in 64, 128); CPU tensors take the plain version."""
-    global launches
+    """occluded [size, T] bool. CUDA tensors launch the kernel (or raise):
+    its tuned instance where one is compiled for (S, T), else its generic
+    one; CPU tensors take the plain version."""
+    global launches, generic_launches
     dev = rays_pack.device
     if dev.type == "cpu":
         return block_anyhit_plain(tri_pack, rays_pack, cid8, early_skip,
@@ -174,16 +185,16 @@ def block_anyhit(tri_pack, rays_pack, cid8, early_skip=False, sub_skip=False):
     occ = torch.empty((size, t_lanes), dtype=torch.bool, device=dev)
     if size == 0:
         return occ
-    err = cuda_build.launch(
-        _kernel(), dev, tri_pack.data_ptr(), rays_pack.data_ptr(),
-        cid8.data_ptr(), occ.data_ptr(), size, s, t_lanes, dummy,
-        int(early_skip), int(sub_skip))
-    if err == NO_INSTANCE:
-        raise ValueError(f"block_anyhit has no compiled instance for S = {s}, "
-                         f"T = {t_lanes} (S in 64, 128, 256; T in 64, 128)")
+    err, ran_generic = cuda_build.launch_instance(
+        _kernel(), _kernel_generic(), dev,
+        (tri_pack.data_ptr(), rays_pack.data_ptr(), cid8.data_ptr(),
+         occ.data_ptr(), size, s, t_lanes, dummy, int(early_skip),
+         int(sub_skip)))
     if err != 0:
         raise RuntimeError(f"block_anyhit launch failed: cudaError {err}")
-    launches += 1
+    with sync.lock:
+        launches += 1
+        generic_launches += ran_generic
     return occ
 
 

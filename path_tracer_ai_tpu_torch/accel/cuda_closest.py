@@ -9,9 +9,10 @@ shrinks to its best so far, and a block retires once the next group's
 conservative entry exceeds every live lane's best. `block_closest` replaces
 the Pallas kernel of the same name: on a CUDA tensor it launches
 csrc/fused_closest.cu (or raises), on a CPU tensor it runs
-`block_closest_plain`. The kernel is compiled for S in {64, 128, 256} and
-T in {64, 128} (one warp per 32 lanes of a ray block; design and bound in
-the CUDA source); another shape on a CUDA tensor raises ValueError. Results are exact
+`block_closest_plain`. The kernel has tuned instances for S in {64, 128,
+256} and T in {64, 128} (one warp per 32 lanes of a ray block; design and
+bound in the CUDA source) and a generic instance for every other S, T >= 1
+(the same bits). Results are exact
 with the oracle's lexicographic (t, tri) tie rule. Runs on the base accel
 (no second closest-path accel).
 
@@ -36,7 +37,6 @@ from path_tracer_ai_tpu_torch.accel.cuda_anyhit import (
 )
 from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
     I32_MAX,
-    NO_INSTANCE,
     combine_min_tri,
     pack_rays_tiles,
     read_occupancy,
@@ -45,17 +45,22 @@ from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
     sweep_rows_plain,
 )
 from path_tracer_ai_tpu_torch.accel.traverse import PacketHit
+from path_tracer_ai_tpu_torch.utils import sync
 
 INF = float("inf")
 SOURCE = "fused_closest"
 
-# Kernel launches since the last reset (the plain version never counts).
+# Kernel launches since the last reset (the plain version never counts),
+# and those of the generic instance among them; updated under sync.lock
+# (the mesh's workers launch from several threads).
 launches = 0
+generic_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, generic_launches
+    with sync.lock:
+        launches = generic_launches = 0
 
 
 def block_closest_plain(tri_pack, rays_pack, cid8, sub_skip=True,
@@ -119,12 +124,20 @@ def kernel_occupancy(s: int, t_lanes: int) -> dict:
                           s, t_lanes)
 
 
+def _kernel_generic():
+    fn = cuda_build.load(SOURCE).block_closest_generic
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def block_closest(tri_pack, rays_pack, cid8, sub_skip=True):
     """(t [size, T] f32 inf = miss, tri [size, T] i32 INT32_MAX = none).
-    CUDA tensors launch the kernel (or raise; ValueError for an (S, T) it is
-    not compiled for: S in 64, 128, 256 and T in 64, 128); CPU tensors take
-    the plain version."""
-    global launches
+    CUDA tensors launch the kernel (or raise): its tuned instance where one
+    is compiled for (S, T), else its generic one; CPU tensors take the
+    plain version."""
+    global launches, generic_launches
     dev = rays_pack.device
     if dev.type == "cpu":
         return block_closest_plain(tri_pack, rays_pack, cid8, sub_skip)
@@ -135,16 +148,16 @@ def block_closest(tri_pack, rays_pack, cid8, sub_skip=True):
     tri_out = torch.empty((size, t_lanes), dtype=torch.int32, device=dev)
     if size == 0:
         return t_out, tri_out
-    err = cuda_build.launch(
-        _kernel(), dev, tri_pack.data_ptr(), rays_pack.data_ptr(),
-        cid8.data_ptr(), t_out.data_ptr(), tri_out.data_ptr(), size, s,
-        t_lanes, dummy, int(sub_skip))
-    if err == NO_INSTANCE:
-        raise ValueError(f"block_closest has no compiled instance for S = {s}, "
-                         f"T = {t_lanes} (S in 64, 128, 256; T in 64, 128)")
+    err, ran_generic = cuda_build.launch_instance(
+        _kernel(), _kernel_generic(), dev,
+        (tri_pack.data_ptr(), rays_pack.data_ptr(), cid8.data_ptr(),
+         t_out.data_ptr(), tri_out.data_ptr(), size, s, t_lanes, dummy,
+         int(sub_skip)))
     if err != 0:
         raise RuntimeError(f"block_closest launch failed: cudaError {err}")
-    launches += 1
+    with sync.lock:
+        launches += 1
+        generic_launches += ran_generic
     return t_out, tri_out
 
 

@@ -21,12 +21,13 @@ be combined (ValueError, as the reference asserts).
 
 On a CUDA tensor the wrapper launches csrc/ctiles_sweep.cu (built with
 nvcc at first use, see cuda_build) or raises; on a CPU tensor it runs
-`tile_sweep_plain`, the same arithmetic as eager torch ops. The kernel is
-compiled for S in {128, 256} and T in {64, 128, 256}, and for S = 2 at T in
-{64, 128} (a scene cut into clusters of two triangles, for tests of the
-worklist backend past 2048 clusters); its options for (T, S) in (128,
-128), (128, 256) and (64, 128), the shapes of the ctiles paths. Another
-shape on a CUDA tensor raises ValueError. The kernel's design and its
+`tile_sweep_plain`, the same arithmetic as eager torch ops. The kernel has
+tuned instances for S in {128, 256} and T in {64, 128, 256}, and for S = 2
+at T in {64, 128} (a scene cut into clusters of two triangles, for tests of
+the worklist backend past 2048 clusters), its options for (T, S) in (128,
+128), (128, 256) and (64, 128), the shapes of the ctiles paths; every
+other (S, T) with S, T >= 1, options included, goes to its generic
+instance (S and T at run time, the same bits). The kernel's design and its
 bound are described in the CUDA source.
 
 Layouts:
@@ -48,6 +49,7 @@ import torch
 
 from path_tracer_ai_tpu_torch import cuda_build
 from path_tracer_ai_tpu_torch.core.types import MT_EPSILON
+from path_tracer_ai_tpu_torch.utils import sync
 
 I32_MAX = 2**31 - 1
 PACK_ROWS = 10
@@ -55,16 +57,21 @@ RAY_ROWS = 8
 SOURCE = "ctiles_sweep"
 
 # Kernel launches since the last reset (the plain version never counts),
-# and the same split by shape: (T, S, G) -> [launches, tiles], with the
-# option as a fourth element ("sub_skip" or "pack_t") where one is on.
+# those of the generic instance among them, and the same split by shape:
+# (T, S, G) -> [launches, tiles], with the option ("sub_skip" or "pack_t")
+# where one is on and "generic" where the generic instance ran as further
+# elements. Updated under sync.lock (the mesh's workers launch from
+# several threads).
 launches = 0
+generic_launches = 0
 launch_shapes: dict = {}
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
-    launch_shapes.clear()
+    global launches, generic_launches
+    with sync.lock:
+        launches = generic_launches = 0
+        launch_shapes.clear()
 
 
 def combine_min_tri(t_a, tri_a, t_b, tri_b):
@@ -321,7 +328,6 @@ MODE_SUB_SKIP = 1
 MODE_PACK_T = 2
 
 
-NO_INSTANCE = -1  # the entry points' answer to an (S, T) they lack
 
 
 def read_occupancy(fn, *shape) -> dict:
@@ -359,6 +365,15 @@ def kernel_occupancy(s: int, t_lanes: int, sub_skip: bool = False,
                           MODE_SUB_SKIP if sub_skip else MODE_PACK_T)
 
 
+def _kernel_generic():
+    fn = cuda_build.load(SOURCE).ctiles_sweep_generic
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def tile_sweep(tri_pack, rays_pack, tile_cid, sub_skip=False, pack_t=False):
     """(t [nt, T] f32, tri [nt, T] i32); tri = INT32_MAX on a miss.
 
@@ -366,10 +381,11 @@ def tile_sweep(tri_pack, rays_pack, tile_cid, sub_skip=False, pack_t=False):
     clusters, folded with the lexicographic (t, min tri) rule). tri_pack is
     pack_tris' [C, 10, S]; with sub_skip pack_tris16's [C, 16, S], with
     pack_t pack_tris16_t's [C, S, 16] (the two options together raise
-    ValueError). CUDA tensors launch the kernel (or raise; ValueError for a
-    shape it is not compiled for); CPU tensors take the plain version.
-    tile_cid values must lie in [0, C)."""
-    global launches
+    ValueError). CUDA tensors launch the kernel (or raise): its tuned
+    instance where one is compiled for (S, T), else its generic instance,
+    which takes any S and T; CPU tensors take the plain version. tile_cid
+    values must lie in [0, C)."""
+    global launches, generic_launches
     if sub_skip and pack_t:
         raise ValueError("sub_skip reads the [C, 16, S] pack; pack_t cannot "
                          "be combined with it")
@@ -398,30 +414,29 @@ def tile_sweep(tri_pack, rays_pack, tile_cid, sub_skip=False, pack_t=False):
         raise ValueError(f"tile_cid has shape {tuple(tile_cid.shape)}, "
                          f"expected [{nt}] or [{nt}, G >= 1]")
     _check("tile_cid", tile_cid, torch.int32, tile_cid.dim(), dev)
+    if s < 1 or t_lanes < 1:
+        raise ValueError(f"tile_sweep needs S >= 1 and T >= 1, not S = {s}, "
+                         f"T = {t_lanes}")
     t_out = torch.empty((nt, t_lanes), dtype=torch.float32, device=dev)
     tri_out = torch.empty((nt, t_lanes), dtype=torch.int32, device=dev)
     if nt == 0:
         return t_out, tri_out
     args = (tri_pack.data_ptr(), rays_pack.data_ptr(), tile_cid.data_ptr(),
             t_out.data_ptr(), tri_out.data_ptr(), nt, g, s, t_lanes, c)
-    if sub_skip or pack_t:
-        mode = MODE_SUB_SKIP if sub_skip else MODE_PACK_T
-        err = cuda_build.launch(_kernel_options(), dev, *args, mode)
-        shapes = "(T, S) in (128, 128), (128, 256), (64, 128)"
-    else:
-        err = cuda_build.launch(_kernel(), dev, *args)
-        shapes = ("S in 128, 256; T in 64, 128, 256; S = 2 at T in 64, "
-                  "128")
-    if err == NO_INSTANCE:
-        opt = " with sub_skip" if sub_skip else " with pack_t" if pack_t else ""
-        raise ValueError(f"tile_sweep{opt} has no compiled instance for "
-                         f"S = {s}, T = {t_lanes} ({shapes})")
+    mode = MODE_SUB_SKIP if sub_skip else MODE_PACK_T if pack_t else 0
+    tuned = _kernel_options() if mode else _kernel()
+    err, ran_generic = cuda_build.launch_instance(
+        tuned, _kernel_generic(), dev, args + ((mode,) if mode else ()),
+        generic_args=args + (mode,))
     if err != 0:
         raise RuntimeError(f"ctiles_sweep launch failed: cudaError {err}")
-    launches += 1
     key = (t_lanes, s, g) + (("sub_skip",) if sub_skip else ("pack_t",)
-                             if pack_t else ())
-    shape = launch_shapes.setdefault(key, [0, 0])
-    shape[0] += 1
-    shape[1] += nt
+                             if pack_t else ()) + (("generic",)
+                                                   if ran_generic else ())
+    with sync.lock:
+        launches += 1
+        generic_launches += ran_generic
+        shape = launch_shapes.setdefault(key, [0, 0])
+        shape[0] += 1
+        shape[1] += nt
     return t_out, tri_out

@@ -19,9 +19,11 @@ A slot passes when its cluster slot k * g + j is below the block's n_cand
 and Möller–Trumbore (traverse._mt_sweep's op order) hits within
 [t_min, t_max]. Rows from n_items on hold (inf, INT32_MAX) or False.
 
-On a CUDA tensor the wrapper launches the kernel or raises (ValueError for
-a shape it is not compiled for: S in {2, 128}, B = 8, g = 4); on a CPU tensor
-it runs `item_sweep_plain`, the same arithmetic as eager torch ops, which
+On a CUDA tensor the wrapper launches the kernel or raises: its tuned
+instances for S in {2, 128}, its generic instance (S at run time, the same
+bits) for every other S >= 1; the kernel takes B = 8 rays a block and g = 4
+clusters an item only (ValueError for another B or g). On a CPU tensor it
+runs `item_sweep_plain`, the same arithmetic as eager torch ops, which
 is used by the tests and the CPU and by nothing on the card.
 
 Layouts: tri_pack [C, 10, S] f32 (cuda_ctiles.pack_tris); rays [nb, 8, B]
@@ -38,26 +40,30 @@ import torch
 from path_tracer_ai_tpu_torch import cuda_build
 from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
     I32_MAX,
-    NO_INSTANCE,
     PACK_ROWS,
     RAY_ROWS,
     _check,
     mt_sweep_rows,
     read_occupancy,
 )
+from path_tracer_ai_tpu_torch.utils import sync
 
 SOURCE = "item_sweep"
 INF = float("inf")
 BLOCK, GROUP = 8, 4  # B rays a block, g clusters an item: one lane each pair
 PLAIN_ELEMS = 1 << 22  # [items, B, g * S] elements per step of the plain version
 
-# Kernel launches since the last reset (the plain version never counts).
+# Kernel launches since the last reset (the plain version never counts),
+# and those of the generic instance among them; updated under sync.lock
+# (the mesh's workers launch from several threads).
 launches = 0
+generic_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, generic_launches
+    with sync.lock:
+        launches = generic_launches = 0
 
 
 def _outputs(i_cap, b, want_tri, dev):
@@ -113,6 +119,15 @@ def _kernel():
     return fn
 
 
+def _kernel_generic():
+    fn = cuda_build.load(SOURCE).item_sweep_generic
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def kernel_occupancy(s: int, want_tri: bool) -> dict:
     """The (S, closest or any-hit) instance's registers and resident warps
     per SM (needs the card)."""
@@ -123,9 +138,10 @@ def kernel_occupancy(s: int, want_tri: bool) -> dict:
 def item_sweep(tri_pack, rays, item_block, ibase, order_g, n_cand,
                n_items: int, want_tri: bool):
     """(t [i_cap, B] f32, tri [i_cap, B] i32) or (occluded [i_cap, B] bool,)
-    over items [0, n_items). CUDA tensors launch the kernel (or raise); CPU
+    over items [0, n_items). CUDA tensors launch the kernel (or raise): its
+    tuned instance where one is compiled for S, else its generic one; CPU
     tensors take the plain version."""
-    global launches
+    global launches, generic_launches
     dev = rays.device
     if dev.type == "cpu":
         return item_sweep_plain(tri_pack, rays, item_block, ibase, order_g,
@@ -144,9 +160,9 @@ def item_sweep(tri_pack, rays, item_block, ibase, order_g, n_cand,
     if rows != PACK_ROWS or ray_rows != RAY_ROWS:
         raise ValueError(f"pack shapes {tuple(tri_pack.shape)} / "
                          f"{tuple(rays.shape)} are not [C,10,S] / [nb,8,B]")
-    if (b, g) != (BLOCK, GROUP):
-        raise ValueError(f"item_sweep is compiled for B = {BLOCK}, "
-                         f"g = {GROUP}, not B = {b}, g = {g}")
+    if (b, g) != (BLOCK, GROUP) or s < 1:
+        raise ValueError(f"item_sweep takes B = {BLOCK}, g = {GROUP} and "
+                         f"S >= 1, not B = {b}, g = {g}, S = {s}")
     if order_g.shape[0] != nb or ibase.shape[0] != nb or n_cand.shape[0] != nb:
         raise ValueError("order_g, ibase and n_cand must have one row a block")
     i_cap = item_block.shape[0]
@@ -157,15 +173,15 @@ def item_sweep(tri_pack, rays, item_block, ibase, order_g, n_cand,
         return out
     t_out = out[0]
     tri_out = out[1] if want_tri else out[0]
-    err = cuda_build.launch(
-        _kernel(), dev, tri_pack.data_ptr(), rays.data_ptr(),
-        item_block.data_ptr(), ibase.data_ptr(), order_g.data_ptr(),
-        n_cand.data_ptr(), t_out.data_ptr(), tri_out.data_ptr(), n_items,
-        n_groups, b, s, c, int(want_tri))
-    if err == NO_INSTANCE:
-        raise ValueError(f"item_sweep has no compiled instance for S = {s} "
-                         "(S in 2, 128)")
+    err, ran_generic = cuda_build.launch_instance(
+        _kernel(), _kernel_generic(), dev,
+        (tri_pack.data_ptr(), rays.data_ptr(), item_block.data_ptr(),
+         ibase.data_ptr(), order_g.data_ptr(), n_cand.data_ptr(),
+         t_out.data_ptr(), tri_out.data_ptr(), n_items, n_groups, b, s, c,
+         int(want_tri)))
     if err != 0:
         raise RuntimeError(f"item_sweep launch failed: cudaError {err}")
-    launches += 1
+    with sync.lock:
+        launches += 1
+        generic_launches += ran_generic
     return out

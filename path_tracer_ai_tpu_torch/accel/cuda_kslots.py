@@ -16,9 +16,9 @@ minimum t, then the minimum triangle id among the slots at that t (the
 oracle's lexicographic rule), or (inf, INT32_MAX); any hit returns
 (occluded [N] bool,). Slots whose cid lies outside [0, C) test nothing.
 
-On a CUDA tensor the wrapper launches the kernel or raises (ValueError for
-an S it is not compiled for: S in {2, 128}; K comes from the data); on a
-CPU tensor it runs `kslot_sweep_plain`, the same arithmetic as eager torch
+On a CUDA tensor the wrapper launches the kernel or raises: its tuned
+instances for S in {2, 128}, its generic instance (S at run time, the same
+body) for every other S >= 1; K comes from the data. On a CPU tensor it runs `kslot_sweep_plain`, the same arithmetic as eager torch
 (cuda_ctiles.mt_sweep_rows), which is used by the tests and the CPU and by
 nothing on the card.
 
@@ -37,25 +37,29 @@ import torch
 from path_tracer_ai_tpu_torch import cuda_build
 from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
     I32_MAX,
-    NO_INSTANCE,
     PACK_ROWS,
     RAY_ROWS,
     _check,
     mt_sweep_rows,
     read_occupancy,
 )
+from path_tracer_ai_tpu_torch.utils import sync
 
 SOURCE = "kslot_sweep"
 INF = float("inf")
 PLAIN_ELEMS = 1 << 22  # [rays, K * S] elements per step of the plain version
 
-# Kernel launches since the last reset (the plain version never counts).
+# Kernel launches since the last reset (the plain version never counts),
+# and those of the generic instance among them; updated under sync.lock
+# (the mesh's workers launch from several threads).
 launches = 0
+generic_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, generic_launches
+    with sync.lock:
+        launches = generic_launches = 0
 
 
 def pack_rays(o, d, t_max, t_min) -> torch.Tensor:
@@ -131,6 +135,15 @@ def _kernel():
     return fn
 
 
+def _kernel_generic():
+    fn = cuda_build.load(SOURCE).kslot_sweep_generic
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def kernel_occupancy(s: int, want_tri: bool) -> dict:
     """The (S, closest or any-hit) instance's registers and resident warps
     per SM (needs the card)."""
@@ -140,8 +153,9 @@ def kernel_occupancy(s: int, want_tri: bool) -> dict:
 
 def kslot_sweep(tri_pack, rays, cid, n_slots, want_tri: bool):
     """(t [N] f32, tri [N] i32) or (occluded [N] bool,). CUDA tensors
-    launch the kernel (or raise); CPU tensors take the plain version."""
-    global launches
+    launch the kernel (or raise): its tuned instance where one is compiled
+    for S, else its generic one; CPU tensors take the plain version."""
+    global launches, generic_launches
     dev = rays.device
     if dev.type == "cpu":
         return kslot_sweep_plain(tri_pack, rays, cid, n_slots, want_tri)
@@ -156,22 +170,23 @@ def kslot_sweep(tri_pack, rays, cid, n_slots, want_tri: bool):
     if rows != PACK_ROWS or rays.shape != (n, RAY_ROWS):
         raise ValueError(f"pack shapes {tuple(tri_pack.shape)} / "
                          f"{tuple(rays.shape)} are not [C,10,S] / [{n},8]")
-    if n_slots.shape[0] != n or k < 1:
+    if n_slots.shape[0] != n or k < 1 or s < 1:
         raise ValueError(f"cid {tuple(cid.shape)} and n_slots "
-                         f"{tuple(n_slots.shape)} need one row a ray, K >= 1")
+                         f"{tuple(n_slots.shape)} need one row a ray, K >= 1 "
+                         f"(and S >= 1, not {s})")
     out = _outputs(n, want_tri, dev)
     if n == 0:
         return out
     t_out = out[0]
     tri_out = out[1] if want_tri else out[0]
-    err = cuda_build.launch(
-        _kernel(), dev, tri_pack.data_ptr(), rays.data_ptr(), cid.data_ptr(),
-        n_slots.data_ptr(), t_out.data_ptr(), tri_out.data_ptr(), n, k, s, c,
-        int(want_tri))
-    if err == NO_INSTANCE:
-        raise ValueError(f"kslot_sweep has no compiled instance for S = {s} "
-                         "(S in 2, 128)")
+    err, ran_generic = cuda_build.launch_instance(
+        _kernel(), _kernel_generic(), dev,
+        (tri_pack.data_ptr(), rays.data_ptr(), cid.data_ptr(),
+         n_slots.data_ptr(), t_out.data_ptr(), tri_out.data_ptr(), n, k, s,
+         c, int(want_tri)))
     if err != 0:
         raise RuntimeError(f"kslot_sweep launch failed: cudaError {err}")
-    launches += 1
+    with sync.lock:
+        launches += 1
+        generic_launches += ran_generic
     return out

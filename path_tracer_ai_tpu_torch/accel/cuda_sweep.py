@@ -9,8 +9,9 @@ in between. `closest_sweep` / `anyhit_sweep` replace the Pallas kernels
 csrc/packet_sweep.cu (or raise), on a CPU tensor they run
 `closest_sweep_plain` / `anyhit_sweep_plain`, the same function as eager
 torch ops. The kernels' design and bound are described in the CUDA source.
-Both are compiled for S in {64, 128, 256} (R is a runtime argument in
-(0, 1024]); another S on a CUDA tensor raises ValueError.
+Both have tuned instances for S in {64, 128, 256} and a generic instance
+for every other S >= 1 (the same bits); R is a runtime argument in
+(0, 1024] (ValueError outside it).
 
 Tie rule: a candidate replaces the best only with t < best, so on an exact
 tie the first slot of the first candidate wins; the other backends keep
@@ -35,7 +36,6 @@ from path_tracer_ai_tpu_torch import cuda_build
 from path_tracer_ai_tpu_torch.accel import traverse
 from path_tracer_ai_tpu_torch.accel.clusters import ClusterAccel
 from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
-    NO_INSTANCE,
     PLAIN_ELEMS,
     RAY_ROWS,
     _check,
@@ -50,13 +50,23 @@ SOURCE = "packet_sweep"
 SLAB_ROWS = 9
 TABLE_PAD = 128  # candidate tables are padded to a multiple of this width
 
-# Kernel launches since the last reset (the plain versions never count).
+# Kernel launches since the last reset (the plain versions never count),
+# and those of the generic instances among them; updated under sync.lock
+# (the mesh's workers launch from several threads).
 launches = {"closest_sweep": 0, "anyhit_sweep": 0}
+generic_launches = {"closest_sweep": 0, "anyhit_sweep": 0}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with sync.lock:
+        for name in launches:
+            launches[name] = generic_launches[name] = 0
+
+
+def _count(name: str, ran_generic: bool) -> None:
+    with sync.lock:
+        launches[name] += 1
+        generic_launches[name] += ran_generic
 
 
 class SlabTable(NamedTuple):
@@ -213,9 +223,9 @@ def _check_tables(slab, rays, order, n_cand, entry=None):
 
 def closest_sweep(slab: SlabTable, rays, order, entry, n_cand, t_min=1e-3):
     """(best_t [B, R] f32 inf = miss, best_cid [B, R] i32 -1 = none,
-    best_slot [B, R] i32). CUDA tensors launch the kernel (or raise;
-    ValueError for an S it is not compiled for: 64, 128, 256); CPU tensors
-    take the plain version."""
+    best_slot [B, R] i32). CUDA tensors launch the kernel (or raise): its
+    tuned instance where one is compiled for S, else its generic one; CPU
+    tensors take the plain version."""
     dev = rays.device
     if dev.type == "cpu":
         return closest_sweep_plain(slab, rays, order, entry, n_cand, t_min)
@@ -231,18 +241,16 @@ def closest_sweep(slab: SlabTable, rays, order, entry, n_cand, t_min=1e-3):
     # longest walk's, and a long walk started last would add to it.
     block_order = torch.argsort(n_cand, descending=True, stable=True).to(
         torch.int32)
-    err = cuda_build.launch(
-        _kernel("closest_sweep", 9, 4), dev, slab.tri.data_ptr(),
-        rays.data_ptr(), order.data_ptr(), entry.data_ptr(),
-        n_cand.data_ptr(), block_order.data_ptr(), best_t.data_ptr(),
-        best_cid.data_ptr(), best_slot.data_ptr(), b, s, r, order.shape[1],
-        float(t_min))
-    if err == NO_INSTANCE:
-        raise ValueError(f"closest_sweep has no compiled instance for S = {s} "
-                         "(S in 64, 128, 256)")
+    err, ran_generic = cuda_build.launch_instance(
+        _kernel("closest_sweep", 9, 4),
+        _kernel("closest_sweep_generic", 9, 4), dev,
+        (slab.tri.data_ptr(), rays.data_ptr(), order.data_ptr(),
+         entry.data_ptr(), n_cand.data_ptr(), block_order.data_ptr(),
+         best_t.data_ptr(), best_cid.data_ptr(), best_slot.data_ptr(), b, s,
+         r, order.shape[1], float(t_min)))
     if err != 0:
         raise RuntimeError(f"closest_sweep launch failed: cudaError {err}")
-    launches["closest_sweep"] += 1
+    _count("closest_sweep", ran_generic)
     return best_t, best_cid, best_slot
 
 
@@ -260,9 +268,9 @@ def anyhit_occupancy(s: int) -> dict:
 
 
 def anyhit_sweep(slab: SlabTable, rays, order, n_cand, t_min=1e-3):
-    """occluded [B, R] bool. CUDA tensors launch the kernel (or raise;
-    ValueError for an S it is not compiled for: 64, 128, 256); CPU tensors
-    take the plain version."""
+    """occluded [B, R] bool. CUDA tensors launch the kernel (or raise): its
+    tuned instance where one is compiled for S, else its generic one; CPU
+    tensors take the plain version."""
     dev = rays.device
     if dev.type == "cpu":
         return anyhit_sweep_plain(slab, rays, order, n_cand, t_min)
@@ -272,16 +280,14 @@ def anyhit_sweep(slab: SlabTable, rays, order, n_cand, t_min=1e-3):
     occ = torch.empty((b, r), dtype=torch.bool, device=dev)
     if b == 0:
         return occ
-    err = cuda_build.launch(
-        _kernel("anyhit_sweep", 5, 4), dev, slab.tri.data_ptr(),
-        rays.data_ptr(), order.data_ptr(), n_cand.data_ptr(), occ.data_ptr(),
-        b, s, r, order.shape[1], float(t_min))
-    if err == NO_INSTANCE:
-        raise ValueError(f"anyhit_sweep has no compiled instance for S = {s} "
-                         "(S in 64, 128, 256)")
+    err, ran_generic = cuda_build.launch_instance(
+        _kernel("anyhit_sweep", 5, 4), _kernel("anyhit_sweep_generic", 5, 4),
+        dev, (slab.tri.data_ptr(), rays.data_ptr(), order.data_ptr(),
+              n_cand.data_ptr(), occ.data_ptr(), b, s, r, order.shape[1],
+              float(t_min)))
     if err != 0:
         raise RuntimeError(f"anyhit_sweep launch failed: cudaError {err}")
-    launches["anyhit_sweep"] += 1
+    _count("anyhit_sweep", ran_generic)
     return occ
 
 

@@ -43,17 +43,19 @@ import torch
 from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_kslots, worklist
 from path_tracer_ai_tpu_torch.accel.clusters import ClusterAccel
 from path_tracer_ai_tpu_torch.accel.traverse import PacketHit
+from path_tracer_ai_tpu_torch.utils import sync
 
 INF = float("inf")
 I32_MAX = cuda_ctiles.I32_MAX
 
-# Rays of the queries since the last reset (device sums, read by
-# read_overflow_counts): live rays queried, those over k_supers, those
-# over k_clusters (and not k_supers), those over k_clusters only because
-# of phantom children, and the live slots swept.
+# Rays of the queries since the last reset (device sums, one a device,
+# read by read_overflow_counts): live rays queried, those over k_supers,
+# those over k_clusters (and not k_supers), those over k_clusters only
+# because of phantom children, and the live slots swept. Updated under
+# sync.lock (the mesh's workers query from several threads).
 COUNT_KEYS = ("rays", "over_supers", "over_clusters", "phantom_only",
               "slots")
-_counts = None
+_counts: dict = {}
 queries = 0
 # When a caller sets this to a dict, each stage of a kslots query records
 # CUDA events under (wave, stage): wave "closest" or "shadow", stage "cull"
@@ -63,14 +65,18 @@ stage_events = None
 
 
 def reset_overflow_counts() -> None:
-    global _counts, queries
-    _counts, queries = None, 0
+    global queries
+    with sync.lock:
+        _counts.clear()
+        queries = 0
 
 
 def read_overflow_counts() -> dict:
     """{"queries": n, key: count for COUNT_KEYS} since the last reset (one
-    host read)."""
-    vals = [0] * len(COUNT_KEYS) if _counts is None else _counts.tolist()
+    host read a device)."""
+    vals = [0] * len(COUNT_KEYS)
+    for sums in list(_counts.values()):
+        vals = [a + b for a, b in zip(vals, sums.tolist())]
     return {"queries": queries, **dict(zip(COUNT_KEYS, vals))}
 
 
@@ -210,7 +216,7 @@ def _run(accel, origins, directions, t_min, t_max, k_supers, k_clusters,
          levels, row_chunk, want_tri, tri_pack):
     """The cull in row chunks, then one kslot_sweep over the query's rays.
     Returns ((t, tri) or (occluded,), over)."""
-    global _counts, queries
+    global queries
     dev = origins.device
     wave = "closest" if want_tri else "shadow"
     with _stage(wave, "cull", dev):
@@ -222,8 +228,9 @@ def _run(accel, origins, directions, t_min, t_max, k_supers, k_clusters,
                             tab["over_clusters"].sum(),
                             tab["phantom_only"].sum(),
                             tab["n_slots"].sum()])
-        _counts = sums if _counts is None else _counts + sums
-        queries += 1
+        with sync.lock:
+            _counts[dev] = sums + _counts[dev] if dev in _counts else sums
+            queries += 1
     with _stage(wave, "sweep", dev):
         res = cuda_kslots.kslot_sweep(
             tri_pack, cuda_kslots.pack_rays(origins, directions, tb, t_min),

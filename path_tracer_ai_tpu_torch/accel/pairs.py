@@ -46,8 +46,15 @@ fallback_counts = {"calls": 0, "rays": 0, "whole_wave": 0}
 
 
 def reset_fallback_counts() -> None:
-    for k in fallback_counts:
-        fallback_counts[k] = 0
+    with sync.lock:
+        for k in fallback_counts:
+            fallback_counts[k] = 0
+
+
+def _add_counts(**add) -> None:
+    with sync.lock:  # the mesh's workers query from several threads
+        for k, v in add.items():
+            fallback_counts[k] += v
 
 
 class PairTables(NamedTuple):
@@ -259,12 +266,11 @@ def _overflow_fallback(accel, origins, directions, t_min, t_max, overflow,
     count = sync.host_int(overflow.sum())
     if count == 0:
         return empty
-    fallback_counts["calls"] += 1
-    fallback_counts["rays"] += count
+    _add_counts(calls=1, rays=count)
     k = -(-compact_cap // fallback_block) * fallback_block
     run = _packet_query(accel, t_min, want_tri, fallback_block, tri_pack)
     if n <= k or count > k:
-        fallback_counts["whole_wave"] += 1
+        _add_counts(whole_wave=1)
         return _whole_wave(run, origins, directions, t_max, overflow,
                            fallback_block)
     return _compacted(run, origins, directions, t_max, overflow, count, k,

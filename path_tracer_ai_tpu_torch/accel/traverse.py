@@ -371,13 +371,15 @@ def pack_block_rays(o_blk, d_blk, tm_blk, t_min) -> torch.Tensor:
 def any_hit_packets(accel: ClusterAccel, origins, directions, t_min, t_max,
                     block_size: int = 256, sort: bool = True,
                     group_size: int = 8, tri_pack=None,
-                    exact_cull: int = 0) -> torch.Tensor:
+                    exact_cull: int = 0,
+                    sort_mode: str = "dir") -> torch.Tensor:
     """Occlusion query over a wave ([N] bool); N must be a multiple of
     block_size. Exact: a ray is occluded iff some triangle passes its
     Möller–Trumbore test within [t_min, t_max]. exact_cull=K culls with
     _exact_block_candidates (super shortlist cap K) in place of the
     conservative interval cull: fewer candidates a block, the same
-    result."""
+    result. sort_mode: the coherence sort's key (_sort_keys' modes), used
+    when sort is on."""
     n = origins.shape[0]
     if n % block_size:
         raise ValueError(f"wave size {n} not a multiple of {block_size}")
@@ -388,7 +390,7 @@ def any_hit_packets(accel: ClusterAccel, origins, directions, t_min, t_max,
     perm = None
     if sort:
         origins, directions, t_max, perm = _sort_rays(
-            accel, origins, directions, t_max, "dir")
+            accel, origins, directions, t_max, sort_mode)
 
     o_blk = origins.reshape(nb, block_size, 3)
     d_blk = directions.reshape(nb, block_size, 3)

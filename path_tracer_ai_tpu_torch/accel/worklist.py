@@ -60,8 +60,15 @@ stage_events = None
 
 
 def reset_fallback_counts() -> None:
-    for k in fallback_counts:
-        fallback_counts[k] = 0
+    with sync.lock:
+        for k in fallback_counts:
+            fallback_counts[k] = 0
+
+
+def _add_counts(**add) -> None:
+    with sync.lock:  # the mesh's workers query from several threads
+        for k, v in add.items():
+            fallback_counts[k] += v
 
 
 def stage_seconds() -> dict:
@@ -179,12 +186,11 @@ def _overflow_fallback(accel, origins, directions, t_min, t_max, overflow,
     count = counts[0]
     if count == 0:
         return empty
-    fallback_counts["calls"] += 1
-    fallback_counts["rays"] += count
-    fallback_counts["blocks"] += counts[1] if len(counts) > 1 else 0
+    _add_counts(calls=1, rays=count,
+                blocks=counts[1] if len(counts) > 1 else 0)
 
     def pair_query(o, d, tm):
-        fallback_counts["pairs_rays"] += count
+        _add_counts(pairs_rays=count)
         kw = dict(cap=64, pair_budget=12, fallback_block=fallback_block,
                   tri_pack=tri_pack)
         if want_tri:
@@ -197,7 +203,7 @@ def _overflow_fallback(accel, origins, directions, t_min, t_max, overflow,
         return pair_query(origins, directions,
                           torch.where(overflow, t_max, -1.0))
     if count > k:
-        fallback_counts["whole_wave"] += 1
+        _add_counts(whole_wave=1)
         return pairs._whole_wave(
             pairs._packet_query(accel, t_min, want_tri, fallback_block,
                                 tri_pack),

@@ -14,7 +14,7 @@ and the JAX package's extensions: --seed, --aspect, --dielectric, --rr,
 --checkpoint / --checkpoint-every, --tile-devices (the frame sharded over
 N devices: every visible card, or N virtual CPU entries with
 PT_PLATFORM=cpu), --scheduler wave|pool, --backend, --validate and
---profile. The backends the port does not have raise before any render.
+--profile.
 
 Both modes run on the card; PT_PLATFORM=cpu runs them on the CPU. Unlike
 the reference (main.cpp:98-113) and the JAX CLI, a failed accelerated

@@ -384,6 +384,126 @@ extern "C" int ctiles_sweep_options_occupancy(int s, int t_lanes, int mode,
   return NO_INSTANCE;
 }
 
+// ---- the generic instance: any S, any T (mt.cuh CHUNK) ---------------------
+//
+// For the (S, T) that no instance above is compiled for: S >= 1 and T >= 1
+// at run time. One ray a thread (R = 1), ceil(T / 32) warps a tile (lanes
+// past T are dead), four warps a thread block that share nothing. Each
+// cluster is walked in chunks of 32 triangles staged into the warp's buffer
+// (mt.cuh stage_chunk_warp; zeros past S) and tested by sweep_live<1, 32>,
+// the default instance's loop. MODE as ctiles_sweep_options' (0: the
+// default [C, 10, S] pack): under sub_skip a chunk is a sub-slab and is
+// staged and swept only if some lane's [t_min, min(t_max, best so far)]
+// touches its box (read from the pack's rows 10-15); under pack_t a chunk
+// is staged from the [C, S, 16] pack, three copies a triangle.
+
+// As stage_chunk_warp for the [s, 16] cluster of a pack_t pack.
+__device__ __forceinline__ void stage_chunk_rows16_warp(TriRec* dst,
+                                                        const float* cluster,
+                                                        int s, int c0,
+                                                        int lane) {
+  const int j = c0 + lane;
+  if (j < s) {
+    const float* src = cluster + (size_t)j * PACK16_ROWS;
+    cp_async_bytes16(&dst[lane].a, src);
+    cp_async_bytes16(&dst[lane].b, src + 4);
+    cp_async_bytes8(&dst[lane].c, src + 8);
+  } else {
+    dst[lane].a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    dst[lane].b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    dst[lane].c = make_float2(0.0f, 0.0f);
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(1))
+    tile_sweep_generic_kernel(const float* __restrict__ tri_pack,
+                              const float* __restrict__ rays,
+                              const int* __restrict__ tile_cid,
+                              float* __restrict__ t_out,
+                              int* __restrict__ tri_out, int nt, int g,
+                              int n_clusters, int s, int t_lanes) {
+  __shared__ TriRec bufs[SWEEP_WARPS][CHUNK];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wpt = (t_lanes + 31) >> 5;  // warps per tile
+  const int unit = blockIdx.x * SWEEP_WARPS + warp;
+  if (unit >= nt * wpt) return;  // whole warps leave; there is no block barrier
+  const size_t tile = (size_t)(unit / wpt);
+  const int off = (unit % wpt) * 32 + lane;
+  TriRec* buf = bufs[warp];
+  const int rows = MODE == MODE_SUB_SKIP || MODE == MODE_PACK_T ? PACK16_ROWS
+                                                                 : PACK_ROWS;
+
+  float tmin, tmax;
+  const Ray ray =
+      load_lane(rays + tile * RAY_ROWS * t_lanes, t_lanes, off, &tmin, &tmax);
+  float best_t = INFINITY;
+  int best_tri = I32_MAX;
+
+  if (__any_sync(FULL_MASK, tmax >= tmin)) {
+    for (int i = 0; i < g; ++i) {
+      const int cid = tile_cid[tile * g + i];
+      if (cid < 0 || cid >= n_clusters) continue;
+      const float* cluster = tri_pack + (size_t)cid * rows * s;
+#pragma unroll 1
+      for (int c0 = 0; c0 < s; c0 += CHUNK) {
+        float cap = tmax;
+        if constexpr (MODE == MODE_SUB_SKIP) {
+          float box[6];
+          load_box(cluster, s, c0 / CHUNK, box);
+          cap = fminf(tmax, best_t);
+          const bool touch = sub_slab_lane(box, ray, 1.0f / ray.dx,
+                                           1.0f / ray.dy, 1.0f / ray.dz,
+                                           tmin, cap);
+          if (!__any_sync(FULL_MASK, touch)) continue;
+        }
+        if constexpr (MODE == MODE_PACK_T) {
+          stage_chunk_rows16_warp(buf, cluster, s, c0, lane);
+        } else {
+          stage_chunk_warp<PACK_ROWS>(buf, cluster, s, c0, lane);
+        }
+        cp_async_wait_all();
+        __syncwarp();
+        sweep_live<1, CHUNK>(buf, 1u, &ray, &tmin, &cap, &best_t, &best_tri);
+        __syncwarp();  // every lane is done with the buffer
+      }
+    }
+  }
+  if (off < t_lanes) {
+    t_out[tile * t_lanes + off] = best_t;
+    tri_out[tile * t_lanes + off] = best_tri;
+  }
+}
+
+// The generic instance of ctiles_sweep (mode 0) and ctiles_sweep_options
+// (MODE_SUB_SKIP, MODE_PACK_T), with their arguments, for any S, T >= 1.
+extern "C" int ctiles_sweep_generic(const void* tri_pack, const void* rays,
+                                    const void* tile_cid, void* t_out,
+                                    void* tri_out, int nt, int g, int s,
+                                    int t_lanes, int n_clusters, int mode,
+                                    void* stream) {
+  if (nt <= 0) return 0;
+  if (g < 1 || s < 1 || t_lanes < 1) return (int)cudaErrorInvalidValue;
+  const int units = nt * ((t_lanes + 31) / 32);
+  const int blocks = (units + SWEEP_WARPS - 1) / SWEEP_WARPS;
+#define LAUNCH(M_)                                                        \
+  tile_sweep_generic_kernel<M_><<<blocks, SWEEP_WARPS * 32, 0,            \
+                                  (cudaStream_t)stream>>>(                \
+      (const float*)tri_pack, (const float*)rays, (const int*)tile_cid,   \
+      (float*)t_out, (int*)tri_out, nt, g, n_clusters, s, t_lanes);
+  if (mode == MODE_SUB_SKIP) {
+    LAUNCH(MODE_SUB_SKIP)
+  } else if (mode == MODE_PACK_T) {
+    LAUNCH(MODE_PACK_T)
+  } else if (mode == 0) {
+    LAUNCH(0)
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef LAUNCH
+  return (int)cudaGetLastError();
+}
+
 // Counts, over the 2^32 bit patterns, the x in rcp_fast's range whose
 // rcp_fast(x) differs in any bit from 1.0f / x (one atomic add per thread
 // that found some).

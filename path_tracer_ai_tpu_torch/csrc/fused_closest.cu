@@ -187,3 +187,84 @@ extern "C" int block_closest_occupancy(int s, int t_lanes, int* regs,
 #undef OCCUPANCY
   return NO_INSTANCE;
 }
+
+// ---- the generic instance: any S, any T (mt.cuh CHUNK) ---------------------
+//
+// For the (S, T) that no instance above is compiled for: S >= 1 and T >= 1
+// at run time, ceil(T / 32) warps a ray block (lanes past T are dead). Each
+// candidate is walked sub-slab by sub-slab: the gate reads the sub-slab's
+// box from the pack (rows 10-15), and only a sub-slab that passes it is
+// staged (mt.cuh stage_chunk_warp, zeros past S) and swept by
+// sweep_run<1, 32>, the tuned instances' loop. The same bits.
+__global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(1))
+    block_closest_generic_kernel(const float* __restrict__ tri_pack,
+                                 const float* __restrict__ rays,
+                                 const int* __restrict__ cid8,
+                                 float* __restrict__ t_out,
+                                 int* __restrict__ tri_out, int size,
+                                 int dummy, int sub_skip, int s,
+                                 int t_lanes) {
+  __shared__ TriRec bufs[SWEEP_WARPS][CHUNK];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wpb = (t_lanes + 31) >> 5;  // warps per ray block
+  const int unit = blockIdx.x * SWEEP_WARPS + warp;
+  if (unit >= size * wpb) return;  // whole warps leave: no block barrier
+  const size_t blk = (size_t)(unit / wpb);
+  const int off = (unit % wpb) * 32 + lane;
+  TriRec* buf = bufs[warp];
+  const int ns = (s + SUB - 1) / SUB;
+
+  float tmin, tmax;
+  const Ray ray =
+      load_lane(rays + blk * RAY_ROWS * t_lanes, t_lanes, off, &tmin, &tmax);
+  const float invx = 1.0f / ray.dx, invy = 1.0f / ray.dy, invz = 1.0f / ray.dz;
+  float best_t = INFINITY;
+  int best_tri = I32_MAX;
+
+  const int my_cid = lane < GROUP ? cid8[blk * GROUP + lane] : dummy;
+  unsigned todo = __ballot_sync(FULL_MASK, my_cid >= 0 && my_cid < dummy);
+  if (!__any_sync(FULL_MASK, tmax >= tmin)) todo = 0u;
+
+  while (todo != 0u) {
+    const int cid = __shfl_sync(FULL_MASK, my_cid, __ffs(todo) - 1);
+    todo &= todo - 1u;
+    const float* cluster = tri_pack + (size_t)cid * PACK_ROWS * s;
+#pragma unroll 1
+    for (int k = 0; k < ns; ++k) {
+      const float cap = fminf(tmax, best_t);
+      if (sub_skip) {
+        float box[6];
+        load_box(cluster, s, k, box);
+        const bool touch =
+            sub_slab_lane(box, ray, invx, invy, invz, tmin, cap);
+        if (!__any_sync(FULL_MASK, touch)) continue;
+      }
+      stage_chunk_warp<10>(buf, cluster, s, k * SUB, lane);
+      cp_async_wait_all();
+      __syncwarp();
+      sweep_run<1, CHUNK>(buf, &ray, &tmin, &cap, &best_t, &best_tri);
+      __syncwarp();  // every lane is done with the buffer
+    }
+  }
+  if (off < t_lanes) {
+    t_out[blk * t_lanes + off] = best_t;
+    tri_out[blk * t_lanes + off] = best_tri;
+  }
+}
+
+// block_closest's generic instance, with its arguments, for any S, T >= 1.
+extern "C" int block_closest_generic(const void* tri_pack, const void* rays,
+                                     const void* cid8, void* t_out,
+                                     void* tri_out, int size, int s,
+                                     int t_lanes, int dummy, int sub_skip,
+                                     void* stream) {
+  if (size <= 0) return 0;
+  if (s < 1 || t_lanes < 1) return (int)cudaErrorInvalidValue;
+  const int units = size * ((t_lanes + 31) / 32);
+  const int blocks = (units + SWEEP_WARPS - 1) / SWEEP_WARPS;
+  block_closest_generic_kernel<<<blocks, SWEEP_WARPS * 32, 0,
+                                 (cudaStream_t)stream>>>(
+      (const float*)tri_pack, (const float*)rays, (const int*)cid8,
+      (float*)t_out, (int*)tri_out, size, dummy, sub_skip, s, t_lanes);
+  return (int)cudaGetLastError();
+}

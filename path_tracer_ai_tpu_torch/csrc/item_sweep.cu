@@ -176,6 +176,96 @@ static int occupancy(int* regs, int* warps_per_sm) {
   return (int)err;
 }
 
+// The generic instance (mt.cuh CHUNK): S >= 1 at run time. The warp stages
+// the item's live clusters 32 triangles at a time (4 x 32 TriRecs, 6 KB;
+// zeros past S), and each lane sweeps its cluster's chunk with the tuned
+// instances' loops (sweep_run<1, 32>, or anyhit_run<32> for an occlusion
+// query, which leaves once every lane is occluded or dead). The fold and the
+// writes are the tuned kernel's.
+template <bool CLOSEST>
+__global__ void __launch_bounds__(32)
+    item_sweep_generic_kernel(const float* __restrict__ tri_pack,
+                              const float* __restrict__ rays,
+                              const int* __restrict__ item_block,
+                              const int* __restrict__ ibase,
+                              const int* __restrict__ order_g,
+                              const int* __restrict__ n_cand,
+                              void* __restrict__ out_a,
+                              int* __restrict__ out_b, int n_items,
+                              int n_groups, int n_clusters, int s) {
+  __shared__ TriRec buf[ITEM_G * CHUNK];
+  const int lane = threadIdx.x;
+  const int item = blockIdx.x;
+  if (item >= n_items) return;
+  const int r = lane / ITEM_G, slot = lane % ITEM_G;
+
+  const int blk = item_block[item];
+  int k = item - ibase[blk];
+  k = k < 0 ? 0 : (k > n_groups - 1 ? n_groups - 1 : k);
+  const int cid = order_g[((size_t)blk * n_groups + k) * ITEM_G + slot];
+  const bool slot_live = k * ITEM_G + slot < n_cand[blk] && cid >= 0 &&
+                         cid < n_clusters;
+
+  const float* rp = rays + (size_t)blk * RAY_ROWS * ITEM_B + r;
+  const Ray ray = load_ray(rp, ITEM_B);
+  const float tmin = rp[7 * ITEM_B];
+  const float tmax = slot_live ? rp[6 * ITEM_B] : -1.0f;
+  const bool dead = !(tmax >= tmin);
+
+  float best_t = INFINITY;
+  int best_tri = I32_MAX;
+  bool occ = false;
+  const unsigned live_lanes = __ballot_sync(FULL_MASK, !dead);
+#pragma unroll 1
+  for (int c0 = 0; live_lanes != 0u && c0 < s; c0 += CHUNK) {
+    if (!CLOSEST && __all_sync(FULL_MASK, occ || dead)) break;
+#pragma unroll
+    for (int i = 0; i < ITEM_G; ++i) {
+      const int ci = __shfl_sync(FULL_MASK, cid, i);  // lane i: ray 0, slot i
+      unsigned slot_lanes = 0u;
+#pragma unroll
+      for (int rr = 0; rr < ITEM_B; ++rr) slot_lanes |= 1u << (rr * ITEM_G + i);
+      if (live_lanes & slot_lanes) {
+        stage_chunk_warp<PACK_ROWS>(buf + i * CHUNK,
+                                    tri_pack + (size_t)ci * PACK_ROWS * s, s,
+                                    c0, lane);
+      }
+    }
+    cp_async_wait_all();
+    __syncwarp();
+    const TriRec* tri = buf + slot * CHUNK;
+    if constexpr (CLOSEST) {
+      sweep_run<1, CHUNK>(tri, &ray, &tmin, &tmax, &best_t, &best_tri);
+    } else {
+      occ = anyhit_run<CHUNK>(tri, ray, tmin, tmax, dead, occ);
+    }
+    __syncwarp();  // every lane is done with the buffer
+  }
+
+  if constexpr (CLOSEST) {
+#pragma unroll
+    for (int off = ITEM_G / 2; off > 0; off >>= 1) {
+      const float ot = __shfl_xor_sync(FULL_MASK, best_t, off);
+      const int otri = __shfl_xor_sync(FULL_MASK, best_tri, off);
+      if (ot < best_t || (ot == best_t && otri < best_tri)) {
+        best_t = ot;
+        best_tri = otri;
+      }
+    }
+    if (slot == 0) {
+      reinterpret_cast<float*>(out_a)[(size_t)item * ITEM_B + r] = best_t;
+      out_b[(size_t)item * ITEM_B + r] = best_tri;
+    }
+  } else {
+    const unsigned votes = __ballot_sync(FULL_MASK, occ);
+    if (slot == 0) {
+      const unsigned mine = (votes >> (r * ITEM_G)) & ((1u << ITEM_G) - 1u);
+      reinterpret_cast<unsigned char*>(out_a)[(size_t)item * ITEM_B + r] =
+          mine != 0u;
+    }
+  }
+}
+
 #define NO_INSTANCE (-1)  // no cudaError_t is negative
 #define FOR_ITEM_INSTANCES(CALL) CALL(2) CALL(128)
 
@@ -215,4 +305,29 @@ extern "C" int item_sweep_occupancy(int s, int closest, int* regs,
   FOR_ITEM_INSTANCES(OCCUPANCY)
 #undef OCCUPANCY
   return NO_INSTANCE;
+}
+
+// item_sweep's generic instance, with its arguments, for any S >= 1 (B = 8,
+// G = 4; NO_INSTANCE for another B).
+extern "C" int item_sweep_generic(const void* tri_pack, const void* rays,
+                                  const void* item_block, const void* ibase,
+                                  const void* order_g, const void* n_cand,
+                                  void* out_a, void* out_b, int n_items,
+                                  int n_groups, int b, int s, int n_clusters,
+                                  int closest, void* stream) {
+  if (n_items <= 0) return 0;
+  if (b != ITEM_B || n_groups < 1) return NO_INSTANCE;
+  if (s < 1) return (int)cudaErrorInvalidValue;
+#define LAUNCH(C_)                                                        \
+  item_sweep_generic_kernel<C_><<<n_items, 32, 0, (cudaStream_t)stream>>>( \
+      (const float*)tri_pack, (const float*)rays, (const int*)item_block,  \
+      (const int*)ibase, (const int*)order_g, (const int*)n_cand, out_a,   \
+      (int*)out_b, n_items, n_groups, n_clusters, s);
+  if (closest) {
+    LAUNCH(true)
+  } else {
+    LAUNCH(false)
+  }
+#undef LAUNCH
+  return (int)cudaGetLastError();
 }

@@ -45,22 +45,21 @@
 #define PACK_ROWS 10
 #define KSLOT_WARPS 4  // rays (warps) a thread block
 
-// Slot j of cluster c of the pack: its nine floats and its id.
-template <int S>
+// Slot j of cluster c of an S-wide pack: its nine floats and its id.
 __device__ __forceinline__ Tri load_tri(const float* __restrict__ tri_pack,
-                                        int c, int j, int* tid) {
-  const float* p = tri_pack + (size_t)c * PACK_ROWS * S + j;
+                                        int c, int j, int s, int* tid) {
+  const float* p = tri_pack + (size_t)c * PACK_ROWS * s + j;
   Tri tr;
-  tr.v0x = p[0 * S];
-  tr.v0y = p[1 * S];
-  tr.v0z = p[2 * S];
-  tr.e1x = p[3 * S];
-  tr.e1y = p[4 * S];
-  tr.e1z = p[5 * S];
-  tr.e2x = p[6 * S];
-  tr.e2y = p[7 * S];
-  tr.e2z = p[8 * S];
-  *tid = __float_as_int(p[9 * S]);
+  tr.v0x = p[0 * s];
+  tr.v0y = p[1 * s];
+  tr.v0z = p[2 * s];
+  tr.e1x = p[3 * s];
+  tr.e1y = p[4 * s];
+  tr.e1z = p[5 * s];
+  tr.e2x = p[6 * s];
+  tr.e2y = p[7 * s];
+  tr.e2z = p[8 * s];
+  *tid = __float_as_int(p[9 * s]);
   return tr;
 }
 
@@ -78,14 +77,18 @@ __device__ __forceinline__ bool mt_test(const Ray& ray, const Tri& tr,
   return mt_vt(ray, tr, s, f, u, u_ok, tmin, tmax, t);
 }
 
-template <int S, bool CLOSEST>
-__global__ void __launch_bounds__(32 * KSLOT_WARPS)
-    kslot_sweep_kernel(const float* __restrict__ tri_pack,
-                       const float* __restrict__ rays,
-                       const int* __restrict__ cid,
-                       const int* __restrict__ n_slots,
-                       void* __restrict__ out_a, int* __restrict__ out_b,
-                       int n_rays, int k_slots, int n_clusters) {
+// The kernel's body for clusters of s triangles: a compile-time constant in
+// the tuned instances (kslot_sweep_kernel<S>, where the inlined body folds
+// it), a run-time value in the generic one.
+template <bool CLOSEST>
+__device__ __forceinline__ void kslot_ray(const float* __restrict__ tri_pack,
+                                          const float* __restrict__ rays,
+                                          const int* __restrict__ cid,
+                                          const int* __restrict__ n_slots,
+                                          void* __restrict__ out_a,
+                                          int* __restrict__ out_b, int n_rays,
+                                          int k_slots, int n_clusters,
+                                          int s) {
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * KSLOT_WARPS + (threadIdx.x >> 5);
   if (r >= n_rays) return;  // warp-uniform
@@ -95,7 +98,7 @@ __global__ void __launch_bounds__(32 * KSLOT_WARPS)
   const float tmax = rp[6], tmin = rp[7];
   int ns = n_slots[r];
   ns = ns < 0 ? 0 : (ns > k_slots ? k_slots : ns);
-  const int n_tests = (tmax >= tmin) ? ns * S : 0;  // dead: nothing
+  const int n_tests = (tmax >= tmin) ? ns * s : 0;  // dead: nothing
   const int* rc = cid + (size_t)r * k_slots;
 
   float best_t = INFINITY;
@@ -104,10 +107,10 @@ __global__ void __launch_bounds__(32 * KSLOT_WARPS)
   for (int i0 = 0; i0 < n_tests; i0 += 32) {
     const int i = i0 + lane;
     if (i < n_tests) {
-      const int c = rc[i / S];
+      const int c = rc[i / s];
       if (c >= 0 && c < n_clusters) {
         int tid;
-        const Tri tr = load_tri<S>(tri_pack, c, i % S, &tid);
+        const Tri tr = load_tri(tri_pack, c, i % s, s, &tid);
         float t;
         if (mt_test(ray, tr, tmin, tmax, &t)) {
           if constexpr (CLOSEST) {
@@ -143,6 +146,32 @@ __global__ void __launch_bounds__(32 * KSLOT_WARPS)
   } else {
     if (lane == 0) reinterpret_cast<unsigned char*>(out_a)[r] = occ;
   }
+}
+
+template <int S, bool CLOSEST>
+__global__ void __launch_bounds__(32 * KSLOT_WARPS)
+    kslot_sweep_kernel(const float* __restrict__ tri_pack,
+                       const float* __restrict__ rays,
+                       const int* __restrict__ cid,
+                       const int* __restrict__ n_slots,
+                       void* __restrict__ out_a, int* __restrict__ out_b,
+                       int n_rays, int k_slots, int n_clusters) {
+  kslot_ray<CLOSEST>(tri_pack, rays, cid, n_slots, out_a, out_b, n_rays,
+                     k_slots, n_clusters, S);
+}
+
+// The generic instance: S >= 1 at run time, the same body.
+template <bool CLOSEST>
+__global__ void __launch_bounds__(32 * KSLOT_WARPS)
+    kslot_sweep_generic_kernel(const float* __restrict__ tri_pack,
+                               const float* __restrict__ rays,
+                               const int* __restrict__ cid,
+                               const int* __restrict__ n_slots,
+                               void* __restrict__ out_a,
+                               int* __restrict__ out_b, int n_rays,
+                               int k_slots, int n_clusters, int s) {
+  kslot_ray<CLOSEST>(tri_pack, rays, cid, n_slots, out_a, out_b, n_rays,
+                     k_slots, n_clusters, s);
 }
 
 template <int S, bool CLOSEST>
@@ -207,4 +236,29 @@ extern "C" int kslot_sweep_occupancy(int s, int closest, int* regs,
   FOR_KSLOT_INSTANCES(OCCUPANCY)
 #undef OCCUPANCY
   return NO_INSTANCE;
+}
+
+// kslot_sweep's generic instance, with its arguments, for any S >= 1.
+extern "C" int kslot_sweep_generic(const void* tri_pack, const void* rays,
+                                   const void* cid, const void* n_slots,
+                                   void* out_a, void* out_b, int n_rays,
+                                   int k_slots, int s, int n_clusters,
+                                   int closest, void* stream) {
+  if (n_rays <= 0) return 0;
+  if (k_slots < 1) return NO_INSTANCE;
+  if (s < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = (n_rays + KSLOT_WARPS - 1) / KSLOT_WARPS;
+#define LAUNCH(C_)                                                         \
+  kslot_sweep_generic_kernel<C_><<<blocks, 32 * KSLOT_WARPS, 0,            \
+                                   (cudaStream_t)stream>>>(                \
+      (const float*)tri_pack, (const float*)rays, (const int*)cid,         \
+      (const int*)n_slots, out_a, (int*)out_b, n_rays, k_slots, n_clusters, \
+      s);
+  if (closest) {
+    LAUNCH(true)
+  } else {
+    LAUNCH(false)
+  }
+#undef LAUNCH
+  return (int)cudaGetLastError();
 }

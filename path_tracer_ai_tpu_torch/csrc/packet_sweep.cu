@@ -397,3 +397,164 @@ extern "C" int anyhit_sweep_occupancy(int s, int* regs, int* warps_per_sm) {
 #undef OCCUPANCY
   return NO_INSTANCE;
 }
+
+// ---- the generic instances: any S (mt.cuh CHUNK) ---------------------------
+//
+// For an S that no instance above is compiled for (any S >= 1, at run
+// time). closest_sweep_generic: one warp group (P = 1), one ray a thread,
+// ceil(R / 32) warps a block, the same walk and vote as the tuned kernel;
+// each candidate is staged 32 triangles at a time by warp 0 (mt.cuh
+// stage_chunk_warp, zeros past S) and tested by sweep_first<32>, chunks in
+// slot order, so a hit replaces the best only with t < best and the first
+// slot of the first candidate still wins a tie. anyhit_sweep_generic: the
+// tuned kernel's per-warp walk, each candidate in chunks of 32 through
+// anyhit_run<32>, leaving once each lane is occluded or dead.
+__global__ void __launch_bounds__(1024, 1)
+    closest_sweep_generic_kernel(const ClosestArgs p, int s) {
+  __shared__ TriRec buf[CHUNK];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int idx = threadIdx.x;  // this thread's lane of R
+  const size_t blk = p.block_order[blockIdx.x];
+  const int r_lanes = p.r_lanes;
+
+  Ray ray = {0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f};
+  float cap = -1.0f;
+  if (idx < r_lanes) {
+    const float* rp = p.rays + blk * RAY_ROWS * r_lanes + idx;
+    ray = load_ray(rp, r_lanes);
+    cap = rp[6 * r_lanes];
+  }
+  const float tmin = p.t_min;
+  const bool voter = idx < r_lanes && !(cap < 0.0f);  // live
+  const bool testing = __any_sync(FULL_MASK, cap >= tmin);
+  float best_t = INFINITY;
+  int best_k = I32_MAX, best_slot = 0;
+
+  const int n_i = p.n_cand[blk];
+  const int* my_order = p.order + blk * p.c_pad;
+  const float* my_entry = p.entry + blk * p.c_pad;
+  bool walking = true;
+  for (int k0 = 0; walking && k0 < n_i; k0 += 32) {
+    const bool listed = k0 + lane < n_i;
+    const int my_cid = listed ? my_order[k0 + lane] : 0;
+    const float my_e = listed ? my_entry[k0 + lane] : INFINITY;
+    const int n_here = min(32, n_i - k0);
+    for (int j = 0; j < n_here; ++j) {
+      const float e = __shfl_sync(FULL_MASK, my_e, j);
+      if (!__syncthreads_or(voter && e <= best_t)) {
+        walking = false;
+        break;
+      }
+      const float* cluster =
+          p.slab + (size_t)__shfl_sync(FULL_MASK, my_cid, j) * SLAB_ROWS * s;
+#pragma unroll 1
+      for (int c0 = 0; c0 < s; c0 += CHUNK) {
+        if (warp == 0) {
+          stage_chunk_warp<SLAB_ROWS>(buf, cluster, s, c0, lane);
+          cp_async_wait_all();
+        }
+        __syncthreads();
+        if (testing) {
+          int slot = -1;
+          sweep_first<CHUNK>(buf, k0 + j, ray, tmin, cap, best_t, best_k,
+                             slot);
+          if (slot >= 0) best_slot = c0 + slot;
+        }
+        __syncthreads();  // every thread is done with the buffer
+      }
+    }
+  }
+  if (idx < r_lanes) {
+    const size_t o = blk * r_lanes + idx;
+    p.best_t[o] = best_t;
+    p.best_cid[o] = best_k == I32_MAX ? -1 : my_order[best_k];
+    p.best_slot[o] = best_k == I32_MAX ? 0 : best_slot;
+  }
+}
+
+__global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(1))
+    anyhit_sweep_generic_kernel(const float* __restrict__ slab,
+                                const float* __restrict__ rays,
+                                const int* __restrict__ order,
+                                const int* __restrict__ n_cand,
+                                unsigned char* __restrict__ occ_out, int b,
+                                int r_lanes, int c_pad, float t_min, int s) {
+  __shared__ TriRec bufs[SWEEP_WARPS][CHUNK];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wpb = (r_lanes + 31) >> 5;  // warps per ray block
+  const int unit = blockIdx.x * SWEEP_WARPS + warp;
+  if (unit >= b * wpb) return;  // whole warps leave: no block barrier
+  const size_t blk = (size_t)(unit / wpb);
+  const int off = (unit % wpb) * 32 + lane;  // this thread's lane of R
+  TriRec* buf = bufs[warp];
+
+  Ray ray = {0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f};
+  float t_cap = -1.0f;
+  if (off < r_lanes) {
+    const float* r = rays + blk * RAY_ROWS * r_lanes + off;
+    ray = load_ray(r, r_lanes);
+    t_cap = r[6 * r_lanes];
+  }
+  const bool dead = !(t_cap >= t_min);  // can pass no test
+  bool occ = false;
+  const int n_i = n_cand[blk];
+  const int* my_order = order + blk * c_pad;
+  for (int k0 = 0; k0 < n_i && !__all_sync(FULL_MASK, occ || dead);
+       k0 += 32) {
+    const int my_cid = k0 + lane < n_i ? my_order[k0 + lane] : 0;
+    const int n_here = min(32, n_i - k0);
+    for (int j = 0; j < n_here; ++j) {
+      const float* cluster =
+          slab + (size_t)__shfl_sync(FULL_MASK, my_cid, j) * SLAB_ROWS * s;
+#pragma unroll 1
+      for (int c0 = 0; c0 < s; c0 += CHUNK) {
+        if (__all_sync(FULL_MASK, occ || dead)) break;
+        stage_chunk_warp<SLAB_ROWS>(buf, cluster, s, c0, lane);
+        cp_async_wait_all();
+        __syncwarp();
+        occ = anyhit_run<CHUNK>(buf, ray, t_min, t_cap, dead, occ);
+        __syncwarp();  // every lane is done with the buffer
+      }
+    }
+  }
+  if (off < r_lanes) occ_out[blk * r_lanes + off] = occ ? 1 : 0;
+}
+
+// closest_sweep's and anyhit_sweep's generic instances, with their
+// arguments, for any S >= 1.
+extern "C" int closest_sweep_generic(const void* slab, const void* rays,
+                                     const void* order, const void* entry,
+                                     const void* n_cand,
+                                     const void* block_order, void* best_t,
+                                     void* best_cid, void* best_slot, int b,
+                                     int s, int r_lanes, int c_pad,
+                                     float t_min, void* stream) {
+  if (b <= 0) return 0;
+  if (s < 1 || r_lanes < 1 || r_lanes > 1024) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const ClosestArgs p = {(const float*)slab,  (const float*)rays,
+                         (const int*)order,   (const float*)entry,
+                         (const int*)n_cand,  (const int*)block_order,
+                         (float*)best_t,      (int*)best_cid,
+                         (int*)best_slot,     r_lanes,
+                         c_pad,               t_min};
+  closest_sweep_generic_kernel<<<b, 32 * ((r_lanes + 31) / 32), 0,
+                                 (cudaStream_t)stream>>>(p, s);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int anyhit_sweep_generic(const void* slab, const void* rays,
+                                    const void* order, const void* n_cand,
+                                    void* occ, int b, int s, int r_lanes,
+                                    int c_pad, float t_min, void* stream) {
+  if (b <= 0) return 0;
+  if (s < 1 || r_lanes < 1) return (int)cudaErrorInvalidValue;
+  const int units = b * ((r_lanes + 31) / 32);
+  const int blocks = (units + SWEEP_WARPS - 1) / SWEEP_WARPS;
+  anyhit_sweep_generic_kernel<<<blocks, SWEEP_WARPS * 32, 0,
+                                (cudaStream_t)stream>>>(
+      (const float*)slab, (const float*)rays, (const int*)order,
+      (const int*)n_cand, (unsigned char*)occ, b, r_lanes, c_pad, t_min, s);
+  return (int)cudaGetLastError();
+}

@@ -1,7 +1,7 @@
 """Builds the port's CUDA sources with nvcc and loads them with ctypes.
 
 Each source `csrc/<name>.cu` exposes a plain C entry point and becomes
-`_build/<name>-<hash>.so`, where the hash covers the source, the shared
+`_build/<name>-<hash>.so` (or the same under $PT_CUDA_BUILD_DIR), where the hash covers the source, the shared
 headers (`csrc/*.cuh`) and the flags, so an edited source is rebuilt at its
 next use and an unchanged one never is. Nothing here runs at import time:
 the package imports on machines without nvcc or a GPU, and a build happens
@@ -19,21 +19,36 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+# PT_CUDA_BUILD_DIR moves the libraries out of the package (an installed
+# package may lie in a directory its user cannot write).
+BUILD_DIR = (os.environ.get("PT_CUDA_BUILD_DIR")
+             or os.path.join(_PKG_DIR, "_build"))
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
     "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
+# The entry points' answer to a shape that no tuned instance is compiled
+# for (no cudaError_t is negative); the wrappers then launch the generic
+# instance.
+NO_INSTANCE = -1
+
 _libs: dict = {}
+_load_lock = threading.Lock()  # the mesh's workers load from several threads
 build_log: dict = {}  # name -> {"seconds": float, "ptxas": str} of this process
+
+
+def sources() -> list:
+    """The names of every kernel source under csrc/ (<name>.cu)."""
+    return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
 
 
 def nvcc_path() -> str:
@@ -90,9 +105,12 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built first if needed."""
     lib = _libs.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(library_path(name))
-        _libs[name] = lib
+        with _load_lock:
+            lib = _libs.get(name)
+            if lib is None:
+                build_all([name])
+                lib = ctypes.CDLL(library_path(name))
+                _libs[name] = lib
     return lib
 
 
@@ -105,3 +123,16 @@ def launch(fn, dev, *args) -> int:
     the current device's)."""
     with torch.cuda.device(dev):
         return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+
+def launch_instance(tuned, generic, dev, args, generic_args=None,
+                    use_generic: bool = False):
+    """Launches a kernel's tuned instance, tuned(*args), or its generic one,
+    generic(*(generic_args or args)), where the tuned entry point has no
+    instance for these shapes (NO_INSTANCE) or use_generic asks for it.
+    Returns (error code, whether the generic instance ran)."""
+    if not use_generic:
+        err = launch(tuned, dev, *args)
+        if err != NO_INSTANCE:
+            return err, False
+    return launch(generic, dev, *(generic_args or args)), True

@@ -54,6 +54,7 @@ for the same seed (tests/test_torch_render.py holds both).
 from __future__ import annotations
 
 import math
+import os
 import time
 from typing import Optional
 
@@ -92,7 +93,8 @@ from path_tracer_ai_tpu_torch.utils.logging import get_logger, render_banner
 log = get_logger(__name__)
 
 # Shadow-wave engine of the hybrid backend: "packets" (the packet cascade,
-# groups of 2 candidates per iteration), "packets_fused" (accel.cuda_anyhit;
+# groups of 2 candidates per iteration; takes block_size, group_size, sort,
+# sort_mode, exact_cull), "packets_fused" (accel.cuda_anyhit;
 # takes early_skip, sub_skip, sort, sort_mode, block_size), "worklist" or
 # "ctiles" (ctiles.any_hit_ctiles with the other keys as its options;
 # lane_major=True, default False, asks direct_lighting for lane-major
@@ -132,6 +134,11 @@ KSLOTS_CLOSEST_KW = dict(k_supers=6, k_clusters=12)
 KSLOTS_OCCLUDE_KW = dict(k_supers=6, k_clusters=8)
 # Compaction never shrinks a wave below this many lanes.
 COMPACT_MIN_BUCKET = 1 << 16
+# PT_BOUNCE_TIMING=1: each bounce step of the wave scheduler synchronises
+# its device before and after and logs its lanes and wall ms. Diagnosis
+# only: the synchronisation stalls the host's issue, so it is never on
+# for a timed render.
+_BOUNCE_TIMING = os.environ.get("PT_BOUNCE_TIMING") == "1"
 
 
 class RenderStats:
@@ -278,12 +285,11 @@ def packet_backend(accel: ClusterAccel, block_size: int = 256,
     occlude_eng = HYBRID_OCCLUDE_KW.get("engine")
     okw = {k: v for k, v in HYBRID_OCCLUDE_KW.items() if k != "engine"}
     sort = okw.get("sort", True) if occlude_sort is None else occlude_sort
-    if okw.get("sort_mode", "dir") != "dir" and occlude_eng == "packets":
-        raise ValueError("the packet cascade is ported with sort_mode 'dir'")
     if occlude_eng == "packets":
         pack = packed(cuda_ctiles.pack_tris, accel)
         pkw = dict(block_size=okw.get("block_size", block_size),
                    group_size=okw.get("group_size", 8),
+                   sort_mode=okw.get("sort_mode", "dir"),
                    exact_cull=okw.get("exact_cull", 0), sort=sort)
 
         def occlude(o, d, t_max):
@@ -531,6 +537,12 @@ class _Lanes:
         return _scatter_back(self.full_radiance, self.radiance, self.full_idx)
 
 
+def _synchronize(dev) -> None:
+    """Waits for `dev`'s queued work (nothing to wait for on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def _render_wave(scene, camera, base_key, xs, ys, s0, spp, backends, *,
                  w, h, sc, lanes_padded, max_bounces, aspect, rr_start=0):
     """One wave through the host-stepped bounce loop with compaction.
@@ -546,8 +558,15 @@ def _render_wave(scene, camera, base_key, xs, ys, s0, spp, backends, *,
             bucket = _compact_bucket(n_live)
             if n_live > 0 and bucket <= lanes.width // 2:
                 lanes.compact(n_live, bucket)
+        if _BOUNCE_TIMING:
+            _synchronize(lanes.o.device)
+            t_b = time.perf_counter()
         lanes.step(scene, backends[0] if depth == 0 else backends[1], depth,
                    rr_start)
+        if _BOUNCE_TIMING:
+            _synchronize(lanes.o.device)
+            log.info("bounce %d: %d lanes, %.1f ms", depth, lanes.width,
+                     (time.perf_counter() - t_b) * 1e3)
     acc, cnt = _wave_accum(lanes.final_radiance(), lane_s, spp,
                            pix_chunk=xs.shape[0], sc=sc)
     return acc, cnt, lanes.nc, lanes.ns

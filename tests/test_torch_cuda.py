@@ -131,15 +131,23 @@ def test_tile_sweep_options_match_plain_and_default(cuda, rng, t_lanes, s,
 
 
 def test_tile_sweep_options_uncompiled_shapes_raise(cuda):
+    """An (S, T, option) without a tuned instance goes to the generic
+    instance (the launch is counted as generic, the shape keyed with
+    "generic"); a pack of the wrong layout still raises ValueError."""
     cid = torch.zeros((4,), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="sub_skip .*S = 256, T = 64"):
-        cuda_ctiles.tile_sweep(torch.zeros((2, 16, 256), device=cuda),
-                               torch.zeros((4, 8, 64), device=cuda), cid,
-                               sub_skip=True)
-    with pytest.raises(ValueError, match="pack_t .*S = 128, T = 256"):
-        cuda_ctiles.tile_sweep(torch.zeros((2, 128, 16), device=cuda),
-                               torch.zeros((4, 8, 256), device=cuda), cid,
-                               pack_t=True)
+    for option, pack, t_lanes in (
+            ("sub_skip", torch.zeros((2, 16, 256), device=cuda), 64),
+            ("pack_t", torch.zeros((2, 128, 16), device=cuda), 256)):
+        before = cuda_ctiles.generic_launches
+        t_k, tri_k = cuda_ctiles.tile_sweep(
+            pack, torch.zeros((4, 8, t_lanes), device=cuda), cid,
+            **{option: True})
+        torch.cuda.synchronize()
+        assert cuda_ctiles.generic_launches == before + 1
+        s = pack.shape[2] if option == "sub_skip" else pack.shape[1]
+        assert (t_lanes, s, 1, option, "generic") in cuda_ctiles.launch_shapes
+        assert torch.isinf(t_k).all()
+        assert (tri_k == cuda_ctiles.I32_MAX).all()
     with pytest.raises(ValueError, match="16"):  # a 10-row pack
         cuda_ctiles.tile_sweep(torch.zeros((2, 10, 128), device=cuda),
                                torch.zeros((4, 8, 128), device=cuda), cid,
@@ -191,38 +199,48 @@ def test_kernel_reciprocal_is_the_ieee_division(cuda):
 
 
 def test_uncompiled_shapes_raise(cuda):
-    """An (S, T) without a template instance is a ValueError naming it."""
+    """An (S, T) without a tuned instance launches the generic instance
+    (counted in generic_launches; all-zero packs: every lane misses); a
+    shape no instance takes (R > 1024 lanes a block) is a ValueError naming
+    it."""
     cid = torch.zeros((4,), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="S = 96, T = 64"):
-        cuda_ctiles.tile_sweep(torch.zeros((2, 10, 96), device=cuda),
-                               torch.zeros((4, 8, 64), device=cuda), cid)
-    with pytest.raises(ValueError, match="S = 128, T = 96"):
-        cuda_ctiles.tile_sweep(torch.zeros((2, 10, 128), device=cuda),
-                               torch.zeros((4, 8, 96), device=cuda), cid)
-    with pytest.raises(ValueError, match="S = 128, T = 32"):
-        cuda_closest.block_closest(
-            torch.zeros((3, 16, 128), device=cuda),
-            torch.zeros((4, 8, 32), device=cuda),
-            torch.zeros((32,), dtype=torch.int32, device=cuda))
-
-
-    with pytest.raises(ValueError, match="S = 128, T = 32"):
-        cuda_anyhit.block_anyhit(
-            torch.zeros((3, 16, 128), device=cuda),
-            torch.zeros((4, 8, 32), device=cuda),
-            torch.zeros((32,), dtype=torch.int32, device=cuda))
+    for s_, t_ in ((96, 64), (128, 96)):
+        before = cuda_ctiles.generic_launches
+        t_k, tri_k = cuda_ctiles.tile_sweep(
+            torch.zeros((2, 10, s_), device=cuda),
+            torch.zeros((4, 8, t_), device=cuda), cid)
+        torch.cuda.synchronize()
+        assert cuda_ctiles.generic_launches == before + 1
+        assert torch.isinf(t_k).all() and (tri_k == cuda_ctiles.I32_MAX).all()
+    pack = torch.zeros((3, 16, 128), device=cuda)
+    rays = torch.zeros((4, 8, 32), device=cuda)
+    cid8 = torch.zeros((32,), dtype=torch.int32, device=cuda)
+    before = cuda_closest.generic_launches
+    t_k, _tri = cuda_closest.block_closest(pack, rays, cid8)
+    assert cuda_closest.generic_launches == before + 1
+    before = cuda_anyhit.generic_launches
+    occ = cuda_anyhit.block_anyhit(pack, rays, cid8)
+    torch.cuda.synchronize()
+    assert cuda_anyhit.generic_launches == before + 1
+    assert torch.isinf(t_k).all() and not occ.any()
     slab96 = cuda_sweep.SlabTable(
         tri=torch.zeros((2, 9, 96), device=cuda),
         tri_id=torch.zeros((2, 96), dtype=torch.int32, device=cuda))
     order = torch.zeros((4, 128), dtype=torch.int32, device=cuda)
     n_cand = torch.ones((4,), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="S = 96"):
-        cuda_sweep.anyhit_sweep(slab96, torch.zeros((4, 8, 64), device=cuda),
+    before = dict(cuda_sweep.generic_launches)
+    occ = cuda_sweep.anyhit_sweep(slab96, torch.zeros((4, 8, 64), device=cuda),
+                                  order, n_cand)
+    bt, bc, _bs = cuda_sweep.closest_sweep(
+        slab96, torch.zeros((4, 8, 64), device=cuda), order,
+        torch.zeros((4, 128), device=cuda), n_cand)
+    torch.cuda.synchronize()
+    assert cuda_sweep.generic_launches == {
+        k: v + 1 for k, v in before.items()}
+    assert not occ.any() and torch.isinf(bt).all() and (bc == -1).all()
+    with pytest.raises(ValueError, match="R = 2048"):
+        cuda_sweep.anyhit_sweep(slab96, torch.zeros((4, 8, 2048), device=cuda),
                                 order, n_cand)
-    with pytest.raises(ValueError, match="S = 96"):
-        cuda_sweep.closest_sweep(slab96, torch.zeros((4, 8, 64), device=cuda),
-                                 order, torch.zeros((4, 128), device=cuda),
-                                 n_cand)
 
 
 def test_wrapper_rejects_bad_inputs(cuda):
@@ -616,11 +634,18 @@ def test_item_sweep_kernel_matches_plain(cuda, rng, s, want_tri):
 
 
 def test_item_sweep_uncompiled_shapes_raise(cuda, rng):
+    """S = 64 has no tuned instance: the generic one runs, bitwise the plain
+    version; g = 2 clusters an item is a ValueError naming it."""
     acc = _accel(cuda, s=64)
     pack, rays, wl = _worklist_wave(acc, rng, 1 << 10, shadow=False)
-    with pytest.raises(ValueError, match="S = 64"):
-        cuda_items.item_sweep(pack, rays, wl.item_block, wl.ibase, wl.order_g,
-                              wl.n_cand, int(wl.n_items), True)
+    args = (pack, rays, wl.item_block, wl.ibase, wl.order_g, wl.n_cand,
+            int(wl.n_items), True)
+    before = cuda_items.generic_launches
+    k = cuda_items.item_sweep(*args)
+    assert cuda_items.generic_launches == before + 1
+    p = cuda_items.item_sweep_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(k[0]), _bits(p[0])) and torch.equal(k[1], p[1])
     with pytest.raises(ValueError, match="g = 2"):
         cuda_items.item_sweep(pack, rays, wl.item_block, wl.ibase,
                               wl.order_g[:, :, :2].contiguous(), wl.n_cand,
@@ -760,10 +785,17 @@ def test_kslot_sweep_kernel_matches_plain(cuda, rng, s, want_tri, k):
 
 
 def test_kslot_sweep_uncompiled_shapes_raise(cuda, rng):
+    """S = 64 has no tuned instance: the generic one runs, bitwise the plain
+    version; n_slots without a row a ray is a ValueError."""
     acc = _accel(cuda, s=64)
     args = _kslot_wave(acc, rng, 1 << 10, 12, shadow=False)
-    with pytest.raises(ValueError, match="S = 64"):
-        cuda_kslots.kslot_sweep(*args, True)
+    before = cuda_kslots.generic_launches
+    got = cuda_kslots.kslot_sweep(*args, True)
+    assert cuda_kslots.generic_launches == before + 1
+    want = cuda_kslots.kslot_sweep_plain(*args, True)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    assert torch.equal(got[1], want[1])
     pack, rays, cid, n_slots = args
     with pytest.raises(ValueError, match="one row a ray"):
         cuda_kslots.kslot_sweep(pack, rays, cid, n_slots[:-1].contiguous(),
@@ -931,3 +963,232 @@ def test_mesh_over_distinct_cards_equals_the_oracle(second_card, route):
         assert cuda_ctiles.launches > before[0]
     np.testing.assert_array_equal(img, oracle.render(scene, cam, s,
                                                      device=cards[0]))
+
+
+# --- the generic instances: any cluster size -------------------------------
+
+# Cluster sizes outside (and, forced, inside) the tuned instances' sets: a
+# power of two below and above them, and sizes that are not powers of two.
+GENERIC_SIZES = [2, 16, 64, 96, 512]
+
+
+class generic_instances:
+    """Every wrapper launches its kernel's generic instance for the
+    duration of the block, also where a tuned one is compiled."""
+
+    def __enter__(self):
+        from path_tracer_ai_tpu_torch import cuda_build
+
+        self.real = real = cuda_build.launch_instance
+        cuda_build.launch_instance = (
+            lambda tuned, generic, dev, args, generic_args=None,
+            use_generic=False: real(tuned, generic, dev, args, generic_args,
+                                    use_generic=True))
+
+    def __exit__(self, *exc):
+        from path_tracer_ai_tpu_torch import cuda_build
+
+        cuda_build.launch_instance = self.real
+
+
+@pytest.mark.parametrize("t_lanes", [32, 64, 128, 48])
+@pytest.mark.parametrize("s", GENERIC_SIZES + [128])
+def test_tile_sweep_generic_matches_plain(cuda, rng, s, t_lanes):
+    """tile_sweep's generic instance (forced, also where a tuned one
+    exists) at each S and at T = 32, 64, 128 and 48 (a ragged warp), with
+    one and two clusters a tile and with sub_skip and pack_t: bitwise the
+    plain version, and the tuned instance where there is one."""
+    acc = _accel(cuda, s)
+    nt = 128
+    cid = rng.integers(0, acc.num_clusters, (nt, 2)).astype(np.int32)
+    v0 = acc.v0.cpu().numpy()
+    o = v0[cid[:, :1], rng.integers(0, s, (nt, t_lanes))].reshape(-1, 3)
+    o = o + rng.standard_normal(o.shape).astype(np.float32) * 0.05
+    d = rng.standard_normal(o.shape).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tm = rng.uniform(0.05, 4.0, (nt, t_lanes)).astype(np.float32)
+    tm[::3] = np.inf
+    tm.reshape(-1)[::7] = -1.0
+    tm[3::11] = -1.0
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=cuda)
+    rays = cuda_ctiles.pack_rays_tiles(t(o), t(d), t(tm.reshape(-1)), t_lanes)
+    packs = {None: cuda_ctiles.pack_tris(acc),
+             "sub_skip": cuda_ctiles.pack_tris16(acc),
+             "pack_t": cuda_ctiles.pack_tris16_t(acc)}
+    hits = 0
+    for cid_t in (t(cid[:, 0]), t(cid)):
+        ref_t, ref_tri = cuda_ctiles.tile_sweep_plain(packs[None], rays, cid_t)
+        tuned = cuda_ctiles.tile_sweep(packs[None], rays, cid_t)
+        for option, pack in packs.items():
+            kw = {option: True} if option else {}
+            before = cuda_ctiles.generic_launches
+            with generic_instances():
+                t_k, tri_k = cuda_ctiles.tile_sweep(pack, rays, cid_t, **kw)
+            assert cuda_ctiles.generic_launches == before + 1
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(t_k), _bits(ref_t)), option
+            assert torch.equal(tri_k, ref_tri), option
+        assert torch.equal(_bits(tuned[0]), _bits(ref_t))
+        assert torch.equal(tuned[1], ref_tri)
+        hits += int((ref_tri != cuda_ctiles.I32_MAX).sum())
+    assert hits > 0
+
+
+@pytest.mark.parametrize("t_lanes", [32, 64, 128])
+@pytest.mark.parametrize("s", GENERIC_SIZES + [128])
+def test_fused_generic_matches_plain(cuda, rng, s, t_lanes):
+    """block_closest's and block_anyhit's generic instances (forced) at each
+    S and T = 32, 64, 128, with every option setting: bitwise the plain
+    versions on a sorted, culled wave's first, second and last groups."""
+    acc = _accel(cuda, s)
+    pack = cuda_anyhit.pack_tris_dummy(acc)
+    o, d, tm = _bounce_wave(acc, 64 * t_lanes, rng)
+    o, d, tm, _perm, _nc, _entry, order_g = cuda_anyhit.prepare_fused_wave(
+        acc, o, d, tm, t_lanes, True, "dir")
+    rays = cuda_ctiles.pack_rays_tiles(o, d, tm, t_lanes)
+    hits = occluded = 0
+    for k in sorted({0, 1, order_g.shape[1] - 1}):
+        cid8 = order_g[:, k].reshape(-1).contiguous()
+        ref = cuda_anyhit.block_anyhit_plain(pack, rays, cid8)
+        pt, ptri = cuda_closest.block_closest_plain(pack, rays, cid8, True)
+        before = (cuda_anyhit.generic_launches, cuda_closest.generic_launches)
+        with generic_instances():
+            for early_skip in (False, True):
+                for sub_skip in (False, True):
+                    occ = cuda_anyhit.block_anyhit(
+                        pack, rays, cid8, early_skip=early_skip,
+                        sub_skip=sub_skip)
+                    assert torch.equal(occ, ref), (k, early_skip, sub_skip)
+            for sub_skip in (False, True):
+                kt, ktri = cuda_closest.block_closest(pack, rays, cid8,
+                                                      sub_skip)
+                assert torch.equal(_bits(kt), _bits(pt)), (k, sub_skip)
+                assert torch.equal(ktri, ptri), (k, sub_skip)
+        assert (cuda_anyhit.generic_launches,
+                cuda_closest.generic_launches) == (before[0] + 4,
+                                                   before[1] + 2)
+        torch.cuda.synchronize()
+        hits += int((ptri != cuda_ctiles.I32_MAX).sum())
+        occluded += int(ref.sum())
+    assert hits > 0 and occluded > 0
+
+
+@pytest.mark.parametrize("r_lanes", [64, 48])
+@pytest.mark.parametrize("s", GENERIC_SIZES + [128])
+def test_sweep_generic_matches_plain(cuda, rng, s, r_lanes):
+    """closest_sweep's and anyhit_sweep's generic instances (forced) at each
+    S, R = 64 and 48: bitwise their plain versions, with dead lanes, blocks
+    without candidates and one block all dead."""
+    acc = _accel(cuda, s)
+    slab = cuda_sweep.build_slab_table(acc)
+    o, d, tm = _bounce_wave(acc, 128 * r_lanes, rng)
+    rays, order, entry, n_cand, _perm = cuda_sweep._prep_wave(
+        acc, o, d, tm, r_lanes, True)
+    rays[:, 6, ::7] = -1.0
+    rays[3, 6] = -1.0
+    n_cand[6::9] = 0
+    before = dict(cuda_sweep.generic_launches)
+    with generic_instances():
+        bt, bc, bs = cuda_sweep.closest_sweep(slab, rays, order, entry,
+                                              n_cand)
+        occ = cuda_sweep.anyhit_sweep(slab, rays, order, n_cand)
+    torch.cuda.synchronize()
+    assert cuda_sweep.generic_launches == {k: v + 1
+                                           for k, v in before.items()}
+    pt, pc, ps = cuda_sweep.closest_sweep_plain(slab, rays, order, entry,
+                                                n_cand)
+    pocc = cuda_sweep.anyhit_sweep_plain(slab, rays, order, n_cand)
+    assert (bc >= 0).any() and occ.any()
+    assert torch.equal(_bits(bt), _bits(pt))
+    assert torch.equal(bc, pc) and torch.equal(bs, ps)
+    assert torch.equal(occ, pocc)
+
+
+def test_closest_sweep_generic_first_candidate_wins_an_exact_tie(cuda):
+    """The generic closest walk keeps the first candidate's first slot on an
+    exact tie, across its chunks of 32 (S = 96: slots 5 and 9 lie in the
+    first chunk of cluster 0, and cluster 1 ties too)."""
+    with generic_instances():
+        bt, bc, bs = cuda_sweep.closest_sweep(*exact_tie_case(96, cuda))
+    assert (bt == 2.0).all() and (bc == 0).all() and (bs == 5).all()
+
+
+@pytest.mark.parametrize("want_tri", [True, False])
+@pytest.mark.parametrize("s", GENERIC_SIZES + [128])
+def test_item_sweep_generic_matches_plain(cuda, rng, s, want_tri):
+    """item_sweep's generic instance (forced) at each S: bitwise the plain
+    version over every item row."""
+    acc = _accel(cuda, s=s)
+    kw = {} if s >= 64 else dict(cap=1024, item_budget=64,
+                                 super_cap=max(acc.num_supers, 1))
+    pack, rays, wl = _worklist_wave(acc, rng, 1 << 12, shadow=not want_tri,
+                                    **kw)
+    args = (pack, rays, wl.item_block, wl.ibase, wl.order_g, wl.n_cand,
+            int(wl.n_items), want_tri)
+    assert args[6] > 0
+    before = cuda_items.generic_launches
+    with generic_instances():
+        k = cuda_items.item_sweep(*args)
+    assert cuda_items.generic_launches == before + 1
+    p = cuda_items.item_sweep_plain(*args)
+    torch.cuda.synchronize()
+    if want_tri:
+        assert torch.equal(_bits(k[0]), _bits(p[0])) and torch.equal(k[1], p[1])
+        assert (k[1] != cuda_ctiles.I32_MAX).any()
+    else:
+        assert torch.equal(k[0], p[0]) and k[0].any()
+
+
+@pytest.mark.parametrize("want_tri,k", [(True, 12), (False, 8)])
+@pytest.mark.parametrize("s", GENERIC_SIZES + [128])
+def test_kslot_sweep_generic_matches_plain(cuda, rng, s, want_tri, k):
+    """kslot_sweep's generic instance (forced) at each S: bitwise the plain
+    version."""
+    acc = _accel(cuda, s=s)
+    args = _kslot_wave(acc, rng, 1 << 12, k, shadow=not want_tri)
+    before = cuda_kslots.generic_launches
+    with generic_instances():
+        got = cuda_kslots.kslot_sweep(*args, want_tri)
+    assert cuda_kslots.generic_launches == before + 1
+    want = cuda_kslots.kslot_sweep_plain(*args, want_tri)
+    torch.cuda.synchronize()
+    if want_tri:
+        assert torch.equal(_bits(got[0]), _bits(want[0]))
+        assert torch.equal(got[1], want[1])
+    else:
+        assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("route", ["main", "pallas", "worklist", "kslots",
+                                   "fused"])
+@pytest.mark.parametrize("s", GENERIC_SIZES)
+def test_every_cluster_size_renders_on_gpu(cuda, monkeypatch, route, s):
+    """render(accel=build_clusters(tris, cluster_size=S)) on each backend:
+    the oracle's image, bitwise (pallas: atol 1e-5, its first-candidate tie
+    rule), with the generic instances launched where S has no tuned one."""
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import oracle, wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+    from path_tracer_ai_tpu_torch.scene.scene import blob_scene
+
+    scene = blob_scene(subdivisions=3, device=cuda)
+    cam = default_camera(cuda)
+    st = RenderSettings(width=32, height=18, samples_per_pixel=2,
+                        max_bounces=3, seed=3)
+    acc = build_clusters(scene.triangles, cluster_size=s, device=cuda)
+    kw = dict(accel=acc, wave_size=1 << 10, device=cuda)
+    if route == "fused":
+        monkeypatch.setattr(wavefront, "HYBRID_CLOSEST_KW",
+                            dict(engine="cascade_fused"))
+        monkeypatch.setattr(wavefront, "HYBRID_OCCLUDE_KW",
+                            dict(engine="packets_fused", early_skip=True,
+                                 sub_skip=True))
+    elif route != "main":
+        kw["backend"] = route
+        kw["block_size"] = 64
+    img = wavefront.render(scene, cam, st, **kw)
+    ref = oracle.render(scene, cam, st, device=cuda)
+    if route == "pallas":
+        np.testing.assert_allclose(img, ref, rtol=0, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(img, ref)
