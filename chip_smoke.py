@@ -43,6 +43,19 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   bounded beside the tuned instance's time (after
                   item_waves, whose waves it reuses; also under
                   --kernels-only).
+  3d. sweep_cases item_sweep and kslot_sweep on the crafted cases of
+                  tests/test_torch_sweep_cases.py (exact t ties across an
+                  item's clusters or a row's slots, a cluster named twice,
+                  garbage slots, dead and overflowed rays, n_items 0 and =
+                  i_cap, rays all occluded by the first chunk) at S 2, 16,
+                  96, 128, 512, closest and any hit, through the instance
+                  the wrapper picks and the generic one: each bitwise its
+                  plain version (also under --kernels-only).
+                  The item_sweep and kslot_sweep lines of the kernel,
+                  item_waves and generic_kernels phases carry the
+                  instance's registers, spills and warps an SM and, for a
+                  tuned instance, the time the earlier design took on the
+                  same wave (earlier_ms).
   4. main_path    the benchmark render (blob subdiv 6 + room, 1920x1080,
                   2 spp, 5 bounces, seed 0, waves of 2^20, blocks of 64)
                   through path_tracer_ai_tpu_torch.engine.wavefront.render:
@@ -187,7 +200,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   bounded, the slot bytes requested); consistency renders
                   kslots on the 2,564-cluster accel (2-level cull) bitwise
                   the oracle; cli renders `--backend kslots` at 96x54 to
-                  the `-m cpu` PNG.
+                  the `-m cpu` PNG. One more bench render, untimed, keeps
+                  the inputs of its wave 0, bounce 1 kslot_sweep launches
+                  (closest and shadow; lines "kslot_waves") and stops once
+                  it has them: bitwise against the plain version, timed,
+                  bounded, with the distinct clusters a run of 128 rays
+                  names.
   16. worklist_mxu the worklist scene's kept closest and shadow queries
                   (wave 0, bounce 1) through intersector "mxu", "mxu:high"
                   and "mxu:default" at blocks of 64, sorted, against
@@ -246,6 +264,36 @@ MT_OPS = 46
 
 # While set (_generic_instances), every kernel line says which instance ran.
 _INSTANCE = None
+
+# The ms the earlier design of item_sweep and kslot_sweep (tuned
+# instances) took on the H100 (NVIDIA H100 80GB HBM3, 700.00 W; this script
+# at commit c004371) on the check waves that the lines below set beside
+# them.
+EARLIER = {
+    "item_sweep": {"closest": 10.1811, "shadow": 11.9942},
+    "kslot_sweep": {"closest": 0.9499, "shadow": 0.5494},
+}
+
+# Registers, spills and resident warps of item_sweep's and kslot_sweep's
+# instances (phase_build fills it): {(kernel, S or 0 for the generic
+# instance, closest): {...}}.
+_FACTS = {}
+
+
+def _instance_facts(name: str, s: int, closest: bool) -> dict:
+    """The facts of the instance that ran (the generic one while
+    _generic_instances is in force, or where no tuned one is compiled)."""
+    key = (name, 0 if _INSTANCE == "generic" else s, closest)
+    return _FACTS.get(key) or _FACTS.get((name, 0, closest), {})
+
+
+def _earlier(name: str, wave: str, ms: float) -> dict:
+    """The earlier design's time on this wave and this run's over it (none
+    for a generic instance)."""
+    if _INSTANCE == "generic":
+        return {}
+    before = EARLIER[name][wave.split(",")[0]]
+    return {"earlier_ms": before, "ms_over_earlier": ms / before}
 
 
 def emit(obj) -> None:
@@ -337,11 +385,19 @@ def phase_build():
             s_, t, **{opt: True})
            for opt in ("sub_skip", "pack_t")
            for t, s_ in ((128, 256), (128, 128), (64, 128))},
-        "item_sweep S128 closest": cuda_items.kernel_occupancy(128, True),
-        "item_sweep S128 anyhit": cuda_items.kernel_occupancy(128, False),
-        "kslot_sweep S128 closest": cuda_kslots.kernel_occupancy(128, True),
-        "kslot_sweep S128 anyhit": cuda_kslots.kernel_occupancy(128, False),
     }
+    for name, mod in (("item_sweep", cuda_items),
+                      ("kslot_sweep", cuda_kslots)):
+        for s_, closest in ((128, True), (128, False), (0, True),
+                            (0, False)):
+            tag = f"{name}_kernelILi{s_}ELb{int(closest)}E"
+            spills = [e for e in ptxas.get(name, []) if tag in e["entry"]]
+            _FACTS[(name, s_, closest)] = {
+                **mod.kernel_occupancy(s_, closest),
+                "spill_bytes": sum(e["spill_bytes"] for e in spills)}
+            occupancy[f"{name} S{s_ or 'generic'} "
+                      f"{'closest' if closest else 'anyhit'}"] = \
+                _FACTS[(name, s_, closest)]
     emit({"phase": "build", "seconds": seconds, "built": sorted(built),
           "spilling": [e["entry"] for es in ptxas.values() for e in es
                        if e["spill_bytes"]],
@@ -365,6 +421,12 @@ def _bound(nbytes: int, tests: int) -> dict:
 
 def _bits_equal(a, b) -> bool:
     return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def _same_outputs(a, b) -> bool:
+    """Two kernels' output tuples: f32 bit for bit, the rest exactly."""
+    return all((_bits_equal(x, y) if x.dtype == torch.float32
+                else bool(torch.equal(x, y))) for x, y in zip(a, b))
 
 
 def _max_abs_err(a, b) -> float:
@@ -792,15 +854,11 @@ def phase_kernels(accel_base, accel_c):
 KSLOT_WAVE = 1 << 20  # rays of each kslot_sweep check wave (a render wave)
 
 
-def _check_kslot_sweep(accel, rng, shadow: bool, reps: int = 10) -> dict:
-    """kslot_sweep against its plain version on a bounce-1-like wave of
-    KSLOT_WAVE rays over `accel` (closest: t_max inf, K 12; shadow: finite
-    lengths, K 8), every 7th ray dead, with the cid and n_slots tables of
-    kslots' own cull (overflowed rays go in with t_max -1). Bitwise t,
-    exact tri and occlusion; timed, bounded over the needed tests, with the
-    bytes the swept slots request (40 * S a slot: a count from this run's
-    cid table, not a measurement of L1 or L2 traffic; the shadow walk
-    leaves at a hit, so it requests fewer)."""
+def kslot_check_args(accel, rng, shadow: bool) -> tuple:
+    """(kslot_sweep's arguments, facts of the wave) on a bounce-1-like wave
+    of KSLOT_WAVE rays over `accel` (closest: t_max inf, K 12; shadow:
+    finite lengths, K 8), every 7th ray dead, with the cid and n_slots
+    tables of kslots' own cull (overflowed rays go in with t_max -1)."""
     from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_kslots, kslots
     from path_tracer_ai_tpu_torch.engine import wavefront
 
@@ -810,11 +868,50 @@ def _check_kslot_sweep(accel, rng, shadow: bool, reps: int = 10) -> dict:
     levels = kslots.resolve_levels(accel, 0)
     tab = kslots._tables(accel, o, d, tm, 1e-3, kw["k_supers"],
                          kw["k_clusters"], levels, 1 << 15)
-    cid, n_slots, over = tab["cid"], tab["n_slots"], tab["over"]
-    tb = torch.where((tm >= 0) & ~over, tm, -1.0)
-    args = (cuda_ctiles.pack_tris(accel), cuda_kslots.pack_rays(o, d, tb,
-                                                                 1e-3),
-            cid, n_slots, not shadow)
+    tb = torch.where((tm >= 0) & ~tab["over"], tm, -1.0)
+    return ((cuda_ctiles.pack_tris(accel),
+             cuda_kslots.pack_rays(o, d, tb, 1e-3), tab["cid"],
+             tab["n_slots"], not shadow),
+            {"levels": levels, "overflow_rays": int(tab["over"].sum())})
+
+
+def _check_kslot_sweep(accel, rng, shadow: bool, reps: int = 10) -> dict:
+    """kslot_sweep against its plain version on kslot_check_args' wave."""
+    args, info = kslot_check_args(accel, rng, shadow)
+    return _kslot_check(args, "kernel", "shadow" if shadow else "closest",
+                        reps, info)
+
+
+def _distinct_cids(cid, n_slots, live, group: int = 128) -> dict:
+    """Over runs of `group` consecutive rays: the mean count of distinct
+    clusters their live slots name, and of live slots (the reuse a block
+    of `group` rays could get from staging each cluster once)."""
+    k = cid.shape[1]
+    m = ((torch.arange(k, device=cid.device)[None, :] < n_slots[:, None])
+         & live[:, None])
+    n = cid.shape[0] // group * group
+    c = torch.where(m, cid, -1)[:n].reshape(-1, group * k).sort(dim=1).values
+    distinct = ((c[:, 1:] != c[:, :-1]) & (c[:, 1:] >= 0)).sum(1) + (
+        c[:, 0] >= 0)
+    slots = m[:n].reshape(-1, group * k).sum(1)
+    d_mean = float(distinct.float().mean())
+    return {"rays_a_run": group, "distinct_cids_mean": d_mean,
+            "slots_mean": float(slots.float().mean()),
+            "slots_over_distinct": float(slots.sum()) / max(
+                float(distinct.sum()), 1.0)}
+
+
+def _kslot_check(args, phase: str, wave: str, reps: int = 10,
+                 info=None) -> dict:
+    """kslot_sweep against its plain version on `args`: bitwise t, exact
+    tri and occlusion; timed, bounded over the needed tests, with the bytes
+    the swept slots request (40 * S a slot: a count from the cid table, not
+    a measurement of L1 or L2 traffic; the shadow walk leaves at a hit, so
+    it requests fewer) and the distinct clusters a run of 128 rays names."""
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_kslots
+
+    shadow = not args[-1]
+    pack, rays, cid, n_slots = args[:4]
     k = cuda_kslots.kslot_sweep(*args)
     stats = {}
     p = cuda_kslots.kslot_sweep_plain(*args, stats=stats)
@@ -829,29 +926,32 @@ def _check_kslot_sweep(accel, rng, shadow: bool, reps: int = 10) -> dict:
         hits = int((k[1] != cuda_ctiles.I32_MAX).sum())
     ms = cuda_ms(lambda: cuda_kslots.kslot_sweep(*args), reps)
     plain_ms = cuda_ms(lambda: cuda_kslots.kslot_sweep_plain(*args), 1)
-    s = accel.cluster_size
-    live = tb >= 0
+    s = pack.shape[2]
+    n = rays.shape[0]
+    live = rays[:, 6] >= rays[:, 7]
     slots = int(n_slots[live].sum())
     used = int(torch.unique(cid[live][torch.arange(
         cid.shape[1], device=cid.device)[None, :] < n_slots[live, None]])
         .numel())
-    nbytes = (used * 10 * s * 4 + _nbytes(args[1], cid, n_slots)
-              + KSLOT_WAVE * (1 if shadow else 8))
-    res = {"phase": "kernel", "name": "kslot_sweep",
-           "wave": "shadow" if shadow else "closest", "rays": KSLOT_WAVE,
+    nbytes = (used * 10 * s * 4 + _nbytes(rays, cid, n_slots)
+              + n * (1 if shadow else 8))
+    res = {"phase": phase, "name": "kslot_sweep", "wave": wave, "rays": n,
            "swept_rays": int(live.sum()), "K": cid.shape[1], "S": s,
-           "levels": levels, "overflow_rays": int(over.sum()),
-           "slots": slots, "matches_plain": ok, "max_abs_err": err,
-           "hit_rays": hits, "ms": ms, "plain_ms": plain_ms,
-           "requested_slot_bytes": slots * s * 40,
-           **_bound(nbytes, stats["tests"])}
+           **(info or {}), "slots": slots, "matches_plain": ok,
+           "max_abs_err": err, "hit_rays": hits, "ms": ms,
+           "plain_ms": plain_ms, "requested_slot_bytes": slots * s * 40,
+           "reuse": _distinct_cids(cid, n_slots, live),
+           **_bound(nbytes, stats["tests"]),
+           **_instance_facts("kslot_sweep", s, not shadow),
+           **(_earlier("kslot_sweep", wave, ms) if phase == "kernel"
+              else {})}
     res["ms_over_bound"] = ms / res["bound_ms"]
     emit(res)
     if not ok:
-        fail("kernel", f"kslot_sweep disagrees with its plain version on "
-                       f"the {res['wave']} wave")
+        fail(phase, f"kslot_sweep disagrees with its plain version on the "
+                    f"{wave} wave")
     if hits == 0:
-        fail("kernel", f"kslot_sweep: the {res['wave']} wave hit nothing")
+        fail(phase, f"kslot_sweep: the {wave} wave hit nothing")
     return res
 
 
@@ -1302,6 +1402,63 @@ def phase_generic_kernels(accel_base, item_args, checks, card):
     return out
 
 
+def phase_sweep_cases(card):
+    """item_sweep and kslot_sweep on the crafted cases of
+    tests/test_torch_sweep_cases.py (exact t ties across an item's clusters
+    or a row's slots, a cluster named twice, garbage slots past n_cand /
+    n_slots, dead and overflowed rays, n_items 0 and = i_cap, rays all
+    occluded by the first chunk) at each of its sizes, closest and any hit,
+    through the instance the wrapper picks and through the generic one:
+    each bitwise its plain version; a mismatch fails the run."""
+    import contextlib
+    import importlib.util
+
+    from path_tracer_ai_tpu_torch.accel import cuda_items, cuda_kslots
+
+    # by its path: another installed package may answer to "tests"
+    spec = importlib.util.spec_from_file_location("sweep_cases", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests",
+        "test_torch_sweep_cases.py"))
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+
+    t = lambda a: torch.as_tensor(a, device="cuda")
+    inputs = []
+    for s in cases.SIZES:
+        for name in cases.ITEM_CASES:
+            c = cases.item_case(name, s)
+            inputs.append(("item_sweep", name, s, (
+                t(cases.pack(c)), t(cases.item_block_rays(c)),
+                *(t(c[k]) for k in ("item_block", "ibase", "order_g",
+                                    "n_cand")), c["n_items"])))
+        for name in cases.KSLOT_CASES:
+            c = cases.kslot_case(name, s)
+            inputs.append(("kslot_sweep", name, s, (
+                t(cases.pack(c)), t(cases.kslot_rays(c)), t(c["cid"]),
+                t(c["n_slots"]))))
+    bad = []
+    checked = 0
+    for kernel, name, s, args in inputs:
+        mod = cuda_items if kernel == "item_sweep" else cuda_kslots
+        for want_tri in (True, False):
+            plain = getattr(mod, kernel + "_plain")(*args, want_tri)
+            for forced in (False, True):
+                with (_generic_instances() if forced
+                      else contextlib.nullcontext()):
+                    got = getattr(mod, kernel)(*args, want_tri)
+                checked += 1
+                if not _same_outputs(got, plain):
+                    bad.append([kernel, name, s, want_tri, forced])
+    torch.cuda.synchronize()
+    emit({"phase": "sweep_cases", "card": card, "sizes": list(cases.SIZES),
+          "item_cases": list(cases.ITEM_CASES),
+          "kslot_cases": list(cases.KSLOT_CASES), "checked": checked,
+          "mismatches": bad})
+    if bad:
+        fail("sweep_cases", f"{len(bad)} crafted cases differ from the "
+                            f"plain versions: {bad[:8]}")
+
+
 CLUSTER_SIZES = (2, 16, 64, 96, 512)
 CLUSTER_ROUTES = ("main", "pallas", "worklist", "kslots", "fused")
 
@@ -1322,9 +1479,7 @@ def _generic_checks(acc, rng) -> dict:
     )
     from path_tracer_ai_tpu_torch.accel.traverse import pack_block_rays
 
-    same = lambda a, b: all(
-        (_bits_equal(x, y) if x.dtype == torch.float32
-         else bool(torch.equal(x, y))) for x, y in zip(a, b))
+    same = _same_outputs
     out = {}
     with _generic_instances():
         pack = cuda_ctiles.pack_tris(acc)
@@ -1923,7 +2078,9 @@ def _check_item_sweep(args, wave: str, reps: int = 5) -> dict:
            "n_items": n_items, "S": s, "matches_plain": ok,
            "max_abs_err": err, "hit_lanes": hits, "ms": ms,
            "plain_ms": plain_ms, "swept_tests": swept,
-           "gtests_per_s": swept / ms / 1e6, **_bound(nbytes, tests)}
+           "gtests_per_s": swept / ms / 1e6, **_bound(nbytes, tests),
+           **_instance_facts("item_sweep", s, want_tri),
+           **_earlier("item_sweep", wave, ms)}
     res["ms_over_bound"] = ms / res["bound_ms"]
     emit(res)
     if not ok:
@@ -1948,6 +2105,10 @@ def _keeping(mod, name, kept, key, limit=2):
 
     setattr(mod, name, keep)
     return real
+
+
+class _Kept(Exception):
+    """A render's kept launches are all in: it need not go on."""
 
 
 def phase_item_waves(scene, accel, card):
@@ -2020,7 +2181,8 @@ def phase_path_worklist(scene, accel, card, warm_seconds):
            "triangles": scene.triangles.count,
            "clusters": accel.num_clusters, "supers": accel.num_supers,
            "warm": "the item_waves render", "warm_seconds": warm_seconds,
-           "seconds": stats.seconds, "closest_rays": stats.closest_rays,
+           "seconds": stats.seconds,
+           "closest_rays": stats.closest_rays,
            "shadow_rays": stats.shadow_rays,
            "mrays_per_s": stats.mrays_per_s, "launches": launches,
            "tile_sweep_shapes": _tile_shapes(), "host_syncs": syncs,
@@ -2778,7 +2940,7 @@ def phase_path_kslots(scene, accel_base, accel_c, card, img_main):
     tile_sweep's by shape), the device seconds of each kslots stage (cull,
     sweep, fallback; CUDA events) and the overflow shares (over k_supers,
     over k_clusters, over k_clusters only for phantom children)."""
-    from path_tracer_ai_tpu_torch.accel import kslots
+    from path_tracer_ai_tpu_torch.accel import cuda_kslots, kslots
     from path_tracer_ai_tpu_torch.config import RenderSettings
     from path_tracer_ai_tpu_torch.engine import oracle, wavefront
     from path_tracer_ai_tpu_torch.scene.camera import default_camera
@@ -2835,9 +2997,29 @@ def phase_path_kslots(scene, accel_base, accel_c, card, img_main):
     img_cut, res["cut_480x270"] = timed(cut)
     predicted = res["cut_480x270"]["seconds"] * 16
     res["predicted_bench_seconds"] = predicted
+    kept = {}
     if predicted < KSLOTS_BENCH_LIMIT_S:
         img, run = timed(RenderSettings(**BENCH))
         res.update(run, size="1920x1080", vs_main=against(img, img_main))
+        # one more bench render, untimed, keeps (copies of) the arguments
+        # of its first two kslot_sweep launches of each kind and stops
+        # once it has them
+        real = _keeping(cuda_kslots, "kslot_sweep", kept, lambda a: a[-1])
+        keeping = cuda_kslots.kslot_sweep
+
+        def until_kept(*a, **kw):
+            out = keeping(*a, **kw)
+            if min(len(kept.get(k, ())) for k in (True, False)) >= 2:
+                raise _Kept
+            return out
+
+        cuda_kslots.kslot_sweep = until_kept
+        try:
+            wavefront.render(scene, cam, RenderSettings(**BENCH), **kw)
+        except _Kept:
+            pass
+        finally:
+            cuda_kslots.kslot_sweep = real
     else:
         img_m = wavefront.render(scene, cam, cut, wave_size=1 << 20,
                                  device="cuda", accel=accel_base,
@@ -2854,6 +3036,15 @@ def phase_path_kslots(scene, accel_base, accel_c, card, img_main):
     if bad:
         fail("path_kslots", f"the kslots image differs: "
                             f"{ {k: res[k] for k in bad} }")
+    # kslot_sweep on the bench render's own wave 0, bounce 1 queries
+    if min(len(kept.get(k, ())) for k in (True, False)) >= 2:
+        res["kept_waves"] = [
+            _kslot_check(kept[k][1][0], "kslot_waves",
+                         f"{w}, wave 0, bounce 1")
+            for k, w in ((True, "closest"), (False, "shadow"))]
+    elif predicted < KSLOTS_BENCH_LIMIT_S:
+        fail("path_kslots", "the bench render made fewer than two "
+                            "kslot_sweep launches of a kind")
     return res
 
 
@@ -3111,6 +3302,7 @@ def main() -> int:
     checks["item_sweep"] = dict(item_waves[0], matches_plain=all(
         c["matches_plain"] for c in item_waves))
     generic = phase_generic_kernels(accel_base, item_args, checks, card)
+    phase_sweep_cases(card)
     if args.kernels_only:
         return 0
     render, img_main = phase_main_path(scene, accel_base, accel_c, card)

@@ -146,7 +146,7 @@ def _kernel_generic():
 
 def kernel_occupancy(s: int, want_tri: bool) -> dict:
     """The (S, closest or any-hit) instance's registers and resident warps
-    per SM (needs the card)."""
+    per SM; S = 0 is the generic instance (needs the card)."""
     return read_occupancy(cuda_build.load(SOURCE).kslot_sweep_occupancy, s,
                           int(want_tri))
 

@@ -1,15 +1,16 @@
 // Per-ray K-slot Möller–Trumbore sweep of the kslots backend for Hopper
 // (sm_90a).
 //
-// No Pallas kernel stands behind it: it carries the XLA-fused SWEEP and
-// RESOLVE of path_tracer_ai_tpu/accel/kslots.py `_chunk_pipeline`
-// (kslots.py:165-185). Ray r tests the S triangles of each cluster
-// cid[r, k] for k < n_slots[r] within [t_min[r], t_max[r]]; a ray whose
-// t_max < t_min (dead, or overflowed to the fallback: t_max = -1) tests
-// nothing. Closest hit: the minimum t over the passing tests, then the
-// minimum triangle id among the tests at that t (the brute-force oracle's
-// lexicographic rule, kslots.py:178-184), or (+inf, INT32_MAX). Any hit:
-// whether some test passes.
+// What it replaces: no Pallas kernel stands behind it; it carries the
+// XLA-fused SWEEP and RESOLVE of path_tracer_ai_tpu/accel/kslots.py
+// `_chunk_pipeline` (kslots.py:165-185). Ray r tests the S triangles of
+// each cluster cid[r, k] for k < n_slots[r] within [t_min[r], t_max[r]]; a
+// ray whose t_max < t_min (dead, or overflowed to the fallback: t_max = -1)
+// tests nothing, and so does a slot whose cid lies outside [0, C). Closest
+// hit: the minimum t over the passing tests, then the minimum triangle id
+// among the tests at that t (the brute-force oracle's lexicographic rule,
+// kslots.py:178-184), or (+inf, INT32_MAX). Any hit: whether some test
+// passes.
 //
 // Layouts (see accel/cuda_kslots.py):
 //   tri_pack [C, 10, S] f32 (cuda_ctiles.pack_tris): rows v0.xyz e1.xyz
@@ -19,21 +20,38 @@
 //   out_a    [N] f32 t (closest) or u8 occluded (any hit);
 //   out_b    [N] i32 tri (closest only).
 //
-// Design (simple first). One warp a ray: the ray's n_slots * S slots are
-// walked flat, lane l taking slots l, l + 32, ... (at S = 128 a cluster is
-// four trips, every lane on a neighbouring triangle, so the nine rows of a
-// trip are nine coalesced 128-byte reads). Triangles come straight from the
-// pack through L1/L2, with no shared staging: a ray's candidate set is its
-// own, so neighbouring rays (warps) share little. Each lane keeps its own
-// (t, tri) and folds it lexicographically; the warp then folds the 32
-// lanes' by shuffles. The any-hit walk votes after every 32 slots and
-// leaves once a lane has hit (a quarter cluster at S = 128).
+// What bounds it on the H100: instruction issue. On the kslots closest
+// check wave (2^20 bounce-like rays, K 12, S 128; PERF.md §6, timed by
+// scripts/torch_sweep_variants.py) the earlier flat walk took 0.93 ms; its
+// loads, cid reads and walk alone (a sum in place of each test) about
+// 0.52 ms, and its tests alone, on a triangle held in registers, about
+// 0.67 ms, 4.9x the operations bound before any load. A test is ~110
+// instructions here (--fmad=false: each multiply and add its own), so
+// more loads in flight do not pay: two or four trips' loads at once a lane
+// took 3-23% longer than one (more registers, fewer warps), and a block
+// that shares a cluster's loads among its rays gains little where 128
+// consecutive rays name a cluster 2.4 times (the check waves).
 //
-// What may bound it: at K = 12 and S = 128 a ray requests 61 KB of
-// triangle data (40 bytes a slot) against 46 f32 operations a test, and the
-// 3.3 MB pack of the bench scene stays resident in the 50 MB L2, so the
-// loads are served from L1 and L2 rather than device memory. How they split
-// between the two has not been measured (no L2 byte counter was read).
+// Design: one warp a ray. Its clusters are walked slot by slot (one
+// warp-uniform cid read a slot), each cluster's S triangles in trips of
+// 32, lane l on triangle j0 + l, its ten rows read straight from the pack
+// (coalesced 128-byte rows); where S is a multiple of 128 four trips make
+// one iteration, their loads at fixed offsets from one set of row
+// addresses. Below 32 triangles a cluster, a trip takes 32 / S slots (lane
+// l on triangle l % S of slot l / S), so no lane idles at S = 2 or 16.
+// One test a lane a trip, with one warp-uniform branch for the reciprocal
+// and a vote after u that skips v and t where no lane can pass (10% of
+// the closest wave). Each lane keeps its own (t, tri) and folds it
+// lexicographically; the warp then takes the least key of t and the least
+// id at it (two redux). The any-hit walk votes after every trip and leaves
+// once a lane has hit. A dead ray, or one with no slot, only writes its
+// miss. Blocks of four warps, twelve an SM (40 registers a thread: 5%
+// faster on the closest wave than 48 registers at 40 warps). One body
+// serves every S: a template constant in the tuned instances (S in {2,
+// 128}), a run-time value in the generic one, whose ten row addresses an
+// iteration take a chain of ten multiply-adds and twenty registers, so it
+// cannot issue the next trip's loads early as the tuned one does (1.35x
+// the tuned time at S = 128).
 //
 // Exactness: mt.cuh's Möller–Trumbore (traverse._mt_sweep's op order, the
 // reciprocal with the IEEE division's bits; build with --fmad=false); the
@@ -43,52 +61,82 @@
 #include "mt.cuh"
 
 #define PACK_ROWS 10
-#define KSLOT_WARPS 4  // rays (warps) a thread block
+#define KSLOT_WARPS 4        // rays (warps) a thread block
+#define KSLOT_MIN_BLOCKS 12  // blocks an SM: 48 warps, 40 registers a thread
+#define KSLOT_UNROLL 4       // trips of 32 triangles an iteration of the walk
 
-// Slot j of cluster c of an S-wide pack: its nine floats and its id.
-__device__ __forceinline__ Tri load_tri(const float* __restrict__ tri_pack,
-                                        int c, int j, int s, int* tid) {
-  const float* p = tri_pack + (size_t)c * PACK_ROWS * s + j;
-  Tri tr;
-  tr.v0x = p[0 * s];
-  tr.v0y = p[1 * s];
-  tr.v0z = p[2 * s];
-  tr.e1x = p[3 * s];
-  tr.e1y = p[4 * s];
-  tr.e1z = p[5 * s];
-  tr.e2x = p[6 * s];
-  tr.e2y = p[7 * s];
-  tr.e2z = p[8 * s];
-  *tid = __float_as_int(p[9 * s]);
-  return tr;
-}
-
-// One test: does the ray pass triangle tr within [tmin, tmax], and at which
-// t. rcp_fast where it gives the division's bits, else the division.
-__device__ __forceinline__ bool mt_test(const Ray& ray, const Tri& tr,
-                                        float tmin, float tmax, float* t) {
-  Vec3 h, s;
-  const float det = mt_det(ray, tr, &h);
-  const bool det_ok = fabsf(det) > MT_EPSILON;
-  const float x = det_ok ? det : 1.0f;
-  const float f = fabsf(x) < RCP_FAST_BELOW ? rcp_fast(x) : 1.0f / x;
-  const float u = mt_u(ray, tr, h, f, &s);
-  const bool u_ok = det_ok && (u >= 0.0f) && (u <= 1.0f);
-  return mt_vt(ray, tr, s, f, u, u_ok, tmin, tmax, t);
-}
-
-// The kernel's body for clusters of s triangles: a compile-time constant in
-// the tuned instances (kslot_sweep_kernel<S>, where the inlined body folds
-// it), a run-time value in the generic one.
+// One test a lane: the ray against triangle tr (id tid; the zero triangle
+// where the lane has none). rcp_fast serves the whole warp unless some lane
+// has a determinant of 2^126 or more, and then the IEEE division does (one
+// warp-uniform branch; both give the division's bits where both apply); v
+// and t are skipped where no lane has 0 <= u <= 1. Returns whether the test
+// passes; with CLOSEST, folds a pass into (best_t, best_tri) by the
+// lexicographic rule.
 template <bool CLOSEST>
-__device__ __forceinline__ void kslot_ray(const float* __restrict__ tri_pack,
-                                          const float* __restrict__ rays,
-                                          const int* __restrict__ cid,
-                                          const int* __restrict__ n_slots,
-                                          void* __restrict__ out_a,
-                                          int* __restrict__ out_b, int n_rays,
-                                          int k_slots, int n_clusters,
-                                          int s) {
+__device__ __forceinline__ bool test_tri(const Ray& ray, const Tri& tr,
+                                         int tid, float tmin, float tmax,
+                                         float* best_t, int* best_tri) {
+  Vec3 h, sv;
+  const float det = mt_det(ray, tr, &h);
+  bool ok = fabsf(det) > MT_EPSILON;
+  const float x = ok ? det : 1.0f;
+  float f;
+  if (__all_sync(FULL_MASK, fabsf(x) < RCP_FAST_BELOW)) {
+    f = rcp_fast(x);
+  } else {
+    f = 1.0f / x;
+  }
+  const float u = mt_u(ray, tr, h, f, &sv);
+  ok = ok && (u >= 0.0f) && (u <= 1.0f);
+  if (!__any_sync(FULL_MASK, ok)) return false;
+  float t;
+  const bool pass = mt_vt(ray, tr, sv, f, u, ok, tmin, tmax, &t);
+  if constexpr (CLOSEST) {
+    if (pass) fold_min_tri(t, tid, best_t, best_tri);
+  }
+  return pass;
+}
+
+// The ray against the s triangles of the cluster whose row 0 starts at
+// base - lane, in trips of 32 triangles (lane l on triangle j0 + l), U
+// trips an iteration: their loads at fixed offsets from one set of row
+// addresses. TAIL: s may not be a multiple of 32, and lanes past it test
+// the zero triangle. Returns, for an any-hit walk, whether some lane has hit
+// (the walk leaves at the trip that found it).
+template <int U, bool TAIL, bool CLOSEST>
+__device__ __forceinline__ bool walk_cluster(const float* __restrict__ base,
+                                             int s, int lane, const Ray& ray,
+                                             float tmin, float tmax,
+                                             float* best_t, int* best_tri) {
+  for (int j0 = 0; j0 < s; j0 += 32 * U) {
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      const int j = j0 + 32 * q;
+      int tid;
+      const Tri tr = !TAIL || j + lane < s
+                         ? load_column(base + j, s, &tid)
+                         : load_column_or_zero(nullptr, s, &tid);
+      const bool hit =
+          test_tri<CLOSEST>(ray, tr, tid, tmin, tmax, best_t, best_tri);
+      if constexpr (!CLOSEST) {
+        if (__any_sync(FULL_MASK, hit)) return true;
+      }
+    }
+  }
+  return false;
+}
+
+// One warp a ray (see the header); S_T is S as a template constant, or 0
+// for S = s at run time.
+template <int S_T, bool CLOSEST>
+__global__ void __launch_bounds__(32 * KSLOT_WARPS, KSLOT_MIN_BLOCKS)
+    kslot_sweep_kernel(const float* __restrict__ tri_pack,
+                       const float* __restrict__ rays,
+                       const int* __restrict__ cid,
+                       const int* __restrict__ n_slots,
+                       void* __restrict__ out_a, int* __restrict__ out_b,
+                       int n_rays, int k_slots, int n_clusters, int s_run) {
+  const int s = S_T > 0 ? S_T : s_run;
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * KSLOT_WARPS + (threadIdx.x >> 5);
   if (r >= n_rays) return;  // warp-uniform
@@ -98,103 +146,93 @@ __device__ __forceinline__ void kslot_ray(const float* __restrict__ tri_pack,
   const float tmax = rp[6], tmin = rp[7];
   int ns = n_slots[r];
   ns = ns < 0 ? 0 : (ns > k_slots ? k_slots : ns);
-  const int n_tests = (tmax >= tmin) ? ns * s : 0;  // dead: nothing
+  if (!(tmax >= tmin) || ns == 0) {  // dead, or no slot: a miss
+    if (lane == 0) {
+      if constexpr (CLOSEST) {
+        reinterpret_cast<float*>(out_a)[r] = INFINITY;
+        out_b[r] = I32_MAX;
+      } else {
+        reinterpret_cast<unsigned char*>(out_a)[r] = 0;
+      }
+    }
+    return;
+  }
   const int* rc = cid + (size_t)r * k_slots;
 
   float best_t = INFINITY;
   int best_tri = I32_MAX;
-  bool occ = false;
-  for (int i0 = 0; i0 < n_tests; i0 += 32) {
-    const int i = i0 + lane;
-    if (i < n_tests) {
-      const int c = rc[i / s];
-      if (c >= 0 && c < n_clusters) {
-        int tid;
-        const Tri tr = load_tri(tri_pack, c, i % s, s, &tid);
-        float t;
-        if (mt_test(ray, tr, tmin, tmax, &t)) {
-          if constexpr (CLOSEST) {
-            fold_min_tri(t, tid, &best_t, &best_tri);
-          } else {
-            occ = true;
-          }
-        }
+  bool occ = false;  // any hit: set once, and the walk ends
+  if (s >= 32) {
+    // slot by slot, each cluster by walk_cluster: KSLOT_UNROLL trips an
+    // iteration where S is a multiple of their 32 * KSLOT_UNROLL triangles
+    constexpr int W = 32 * KSLOT_UNROLL;
+    for (int k = 0; k < ns && !occ; ++k) {
+      const int c = rc[k];
+      if (c < 0 || c >= n_clusters) continue;  // warp-uniform
+      const float* base = tri_pack + (size_t)c * PACK_ROWS * s + lane;
+      if (S_T > 0 ? S_T % W == 0 : s % W == 0) {
+        occ = walk_cluster<KSLOT_UNROLL, false, CLOSEST>(
+            base, s, lane, ray, tmin, tmax, &best_t, &best_tri);
+      } else {
+        occ = walk_cluster<1, true, CLOSEST>(base, s, lane, ray, tmin, tmax,
+                                             &best_t, &best_tri);
       }
     }
-    if constexpr (!CLOSEST) {
-      if (__any_sync(FULL_MASK, occ)) {
-        occ = true;
-        break;
-      }
+  } else {
+    // 32 / s slots a trip, lane l on triangle l % s of slot l / s
+    const int per = 32 / s;
+    const int ks = lane / s;
+    const int jl = lane - ks * s;
+    for (int k0 = 0; k0 < ns && !occ; k0 += per) {
+      const int k = k0 + ks;
+      const int c = (ks < per && k < ns) ? rc[k] : -1;
+      int tid;
+      const Tri tr = load_column_or_zero(
+          c >= 0 && c < n_clusters ? tri_pack + (size_t)c * PACK_ROWS * s + jl
+                                   : nullptr,
+          s, &tid);
+      const bool hit = test_tri<CLOSEST>(ray, tr, tid, tmin, tmax, &best_t,
+                                         &best_tri);
+      if constexpr (!CLOSEST) occ = __any_sync(FULL_MASK, hit);
     }
   }
 
   if constexpr (CLOSEST) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ot = __shfl_xor_sync(FULL_MASK, best_t, off);
-      const int otri = __shfl_xor_sync(FULL_MASK, best_tri, off);
-      if (ot < best_t || (ot == best_t && otri < best_tri)) {
-        best_t = ot;
-        best_tri = otri;
-      }
-    }
+    const float t =
+        key_float(__reduce_min_sync(FULL_MASK, order_key(best_t)));
+    const int tri = __reduce_min_sync(FULL_MASK,
+                                      best_t == t ? best_tri : I32_MAX);
     if (lane == 0) {
-      reinterpret_cast<float*>(out_a)[r] = best_t;
-      out_b[r] = best_tri;
+      reinterpret_cast<float*>(out_a)[r] = t;
+      out_b[r] = tri;
     }
   } else {
     if (lane == 0) reinterpret_cast<unsigned char*>(out_a)[r] = occ;
   }
 }
 
-template <int S, bool CLOSEST>
-__global__ void __launch_bounds__(32 * KSLOT_WARPS)
-    kslot_sweep_kernel(const float* __restrict__ tri_pack,
-                       const float* __restrict__ rays,
-                       const int* __restrict__ cid,
-                       const int* __restrict__ n_slots,
-                       void* __restrict__ out_a, int* __restrict__ out_b,
-                       int n_rays, int k_slots, int n_clusters) {
-  kslot_ray<CLOSEST>(tri_pack, rays, cid, n_slots, out_a, out_b, n_rays,
-                     k_slots, n_clusters, S);
-}
-
-// The generic instance: S >= 1 at run time, the same body.
-template <bool CLOSEST>
-__global__ void __launch_bounds__(32 * KSLOT_WARPS)
-    kslot_sweep_generic_kernel(const float* __restrict__ tri_pack,
-                               const float* __restrict__ rays,
-                               const int* __restrict__ cid,
-                               const int* __restrict__ n_slots,
-                               void* __restrict__ out_a,
-                               int* __restrict__ out_b, int n_rays,
-                               int k_slots, int n_clusters, int s) {
-  kslot_ray<CLOSEST>(tri_pack, rays, cid, n_slots, out_a, out_b, n_rays,
-                     k_slots, n_clusters, s);
-}
-
-template <int S, bool CLOSEST>
+template <int S_T, bool CLOSEST>
 static int launch(const void* tri_pack, const void* rays, const void* cid,
                   const void* n_slots, void* out_a, void* out_b, int n_rays,
-                  int k_slots, int n_clusters, cudaStream_t stream) {
+                  int k_slots, int n_clusters, int s, cudaStream_t stream) {
   const int blocks = (n_rays + KSLOT_WARPS - 1) / KSLOT_WARPS;
-  kslot_sweep_kernel<S, CLOSEST><<<blocks, 32 * KSLOT_WARPS, 0, stream>>>(
+  kslot_sweep_kernel<S_T, CLOSEST><<<blocks, 32 * KSLOT_WARPS, 0, stream>>>(
       (const float*)tri_pack, (const float*)rays, (const int*)cid,
-      (const int*)n_slots, out_a, (int*)out_b, n_rays, k_slots, n_clusters);
+      (const int*)n_slots, out_a, (int*)out_b, n_rays, k_slots, n_clusters,
+      s);
   return (int)cudaGetLastError();
 }
 
-template <int S, bool CLOSEST>
+template <int S_T, bool CLOSEST>
 static int occupancy(int* regs, int* warps_per_sm) {
   cudaFuncAttributes attr;
   cudaError_t err =
-      cudaFuncGetAttributes(&attr, kslot_sweep_kernel<S, CLOSEST>);
+      cudaFuncGetAttributes(&attr, kslot_sweep_kernel<S_T, CLOSEST>);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, kslot_sweep_kernel<S, CLOSEST>, 32 * KSLOT_WARPS, 0);
+      &blocks, kslot_sweep_kernel<S_T, CLOSEST>, 32 * KSLOT_WARPS, 0);
   *warps_per_sm = blocks * KSLOT_WARPS;
   return (int)err;
 }
@@ -215,10 +253,10 @@ extern "C" int kslot_sweep(const void* tri_pack, const void* rays,
   if (s == S_)                                                             \
     return closest                                                         \
                ? launch<S_, true>(tri_pack, rays, cid, n_slots, out_a,     \
-                                  out_b, n_rays, k_slots, n_clusters,      \
+                                  out_b, n_rays, k_slots, n_clusters, s,   \
                                   (cudaStream_t)stream)                    \
                : launch<S_, false>(tri_pack, rays, cid, n_slots, out_a,    \
-                                   out_b, n_rays, k_slots, n_clusters,     \
+                                   out_b, n_rays, k_slots, n_clusters, s,  \
                                    (cudaStream_t)stream);
   FOR_KSLOT_INSTANCES(LAUNCH)
 #undef LAUNCH
@@ -226,7 +264,7 @@ extern "C" int kslot_sweep(const void* tri_pack, const void* rays,
 }
 
 // Registers per thread of the (S, closest) instance and the warps an SM
-// holds of it.
+// holds of it (S = 0: the generic instance).
 extern "C" int kslot_sweep_occupancy(int s, int closest, int* regs,
                                      int* warps_per_sm) {
 #define OCCUPANCY(S_)                                            \
@@ -234,11 +272,13 @@ extern "C" int kslot_sweep_occupancy(int s, int closest, int* regs,
     return closest ? occupancy<S_, true>(regs, warps_per_sm)     \
                    : occupancy<S_, false>(regs, warps_per_sm);
   FOR_KSLOT_INSTANCES(OCCUPANCY)
+  OCCUPANCY(0)
 #undef OCCUPANCY
   return NO_INSTANCE;
 }
 
-// kslot_sweep's generic instance, with its arguments, for any S >= 1.
+// kslot_sweep's generic instance, with its arguments, for any S >= 1: the
+// same body with S at run time.
 extern "C" int kslot_sweep_generic(const void* tri_pack, const void* rays,
                                    const void* cid, const void* n_slots,
                                    void* out_a, void* out_b, int n_rays,
@@ -247,18 +287,10 @@ extern "C" int kslot_sweep_generic(const void* tri_pack, const void* rays,
   if (n_rays <= 0) return 0;
   if (k_slots < 1) return NO_INSTANCE;
   if (s < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = (n_rays + KSLOT_WARPS - 1) / KSLOT_WARPS;
-#define LAUNCH(C_)                                                         \
-  kslot_sweep_generic_kernel<C_><<<blocks, 32 * KSLOT_WARPS, 0,            \
-                                   (cudaStream_t)stream>>>(                \
-      (const float*)tri_pack, (const float*)rays, (const int*)cid,         \
-      (const int*)n_slots, out_a, (int*)out_b, n_rays, k_slots, n_clusters, \
-      s);
-  if (closest) {
-    LAUNCH(true)
-  } else {
-    LAUNCH(false)
-  }
-#undef LAUNCH
-  return (int)cudaGetLastError();
+  return closest ? launch<0, true>(tri_pack, rays, cid, n_slots, out_a, out_b,
+                                   n_rays, k_slots, n_clusters, s,
+                                   (cudaStream_t)stream)
+                 : launch<0, false>(tri_pack, rays, cid, n_slots, out_a,
+                                    out_b, n_rays, k_slots, n_clusters, s,
+                                    (cudaStream_t)stream);
 }

@@ -21,6 +21,7 @@ from path_tracer_ai_tpu_torch.accel import (
 )
 from path_tracer_ai_tpu_torch.accel.clusters import build_clusters
 from path_tracer_ai_tpu_torch.scene.scene import blob_room_arrays
+import test_torch_sweep_cases as cases  # tests/, numpy only
 
 pytestmark = pytest.mark.gpu
 
@@ -603,34 +604,64 @@ def _worklist_wave(acc, rng, n, shadow, cap=96, item_budget=8,
     return cuda_ctiles.pack_tris(acc), pack_block_rays(*blocks, 1e-3), wl
 
 
-@pytest.mark.parametrize("s", [128, 2])
-@pytest.mark.parametrize("want_tri", [True, False])
-def test_item_sweep_kernel_matches_plain(cuda, rng, s, want_tri):
-    """item_sweep on a worklist wave (S = 128: the flat cull; S = 2: more
-    than 2048 clusters, the 2-level cull) against item_sweep_plain: t bit
-    for bit, tri and occlusion exact, over every item row."""
+def _item_args(cuda, rng, case, s, want_tri, n=1 << 13):
+    """item_sweep's arguments: a worklist wave ("wave": S = 128, the flat
+    cull; S = 2, more than 2048 clusters, the 2-level cull) or a crafted
+    case of tests/test_torch_sweep_cases.py."""
+    if case != "wave":
+        c = cases.item_case(case, s)
+        t = lambda a: torch.as_tensor(a, device=cuda)
+        return (t(cases.pack(c)), t(cases.item_block_rays(c)),
+                *(t(c[k]) for k in ("item_block", "ibase", "order_g",
+                                    "n_cand")), c["n_items"], want_tri)
     acc = _accel(cuda, s=s)
-    # these rays leave the surface in random directions: at S = 2 their
+    # these rays leave the surface in random directions: at S < 64 their
     # blocks see hundreds of clusters, so the caps are opened
-    kw = {} if s == 128 else dict(cap=1024, item_budget=64,
-                                  super_cap=acc.num_supers)
-    pack, rays, wl = _worklist_wave(acc, rng, 1 << 13, shadow=not want_tri,
-                                    **kw)
-    n_items = int(wl.n_items)
-    assert n_items > 0
-    args = (pack, rays, wl.item_block, wl.ibase, wl.order_g, wl.n_cand,
-            n_items, want_tri)
-    before = cuda_items.launches
-    k = cuda_items.item_sweep(*args)
-    assert cuda_items.launches == before + 1
+    kw = {} if s >= 64 else dict(cap=1024, item_budget=64,
+                                 super_cap=max(acc.num_supers, 1))
+    pack, rays, wl = _worklist_wave(acc, rng, n, shadow=not want_tri, **kw)
+    assert int(wl.n_items) > 0
+    return (pack, rays, wl.item_block, wl.ibase, wl.order_g, wl.n_cand,
+            int(wl.n_items), want_tri)
+
+
+def _assert_item_sweep_matches_plain(args, generic):
+    """The kernel (tuned or forced generic) against item_sweep_plain: t bit
+    for bit, tri and occlusion exact over every item row, one launch (none
+    at n_items 0)."""
+    counter = "generic_launches" if generic else "launches"
+    before = getattr(cuda_items, counter)
+    if generic:
+        with generic_instances():
+            k = cuda_items.item_sweep(*args)
+    else:
+        k = cuda_items.item_sweep(*args)
+    assert getattr(cuda_items, counter) == before + (args[6] > 0)
     p = cuda_items.item_sweep_plain(*args)
     torch.cuda.synchronize()
-    if want_tri:
-        assert torch.equal(k[0].view(torch.int32), p[0].view(torch.int32))
-        assert torch.equal(k[1], p[1])
-        assert (k[1] != cuda_ctiles.I32_MAX).any()
-    else:
-        assert torch.equal(k[0], p[0]) and k[0].any()
+    if args[-1]:
+        assert torch.equal(_bits(k[0]), _bits(p[0])) and torch.equal(k[1], p[1])
+        return (k[1] != cuda_ctiles.I32_MAX).any()
+    assert torch.equal(k[0], p[0])
+    return k[0].any()
+
+
+# the worklist waves, and every crafted case at every size of the cases
+ITEM_KERNEL_CASES = [("wave", 128), ("wave", 2)] + [
+    (c, s) for c in cases.ITEM_CASES for s in cases.SIZES]
+
+
+@pytest.mark.parametrize("case,s", ITEM_KERNEL_CASES)
+@pytest.mark.parametrize("want_tri", [True, False])
+def test_item_sweep_kernel_matches_plain(cuda, rng, case, s, want_tri):
+    """item_sweep (the instance its wrapper picks: tuned at S = 2 and 128,
+    generic elsewhere) on a worklist wave and on the crafted cases (exact t
+    ties across an item's clusters, a cluster named twice, garbage slots
+    past n_cand, dead rays in live items, rays all occluded by the first
+    chunk, n_items 0 and = i_cap) against item_sweep_plain."""
+    args = _item_args(cuda, rng, case, s, want_tri)
+    hit = _assert_item_sweep_matches_plain(args, generic=False)
+    assert hit or case == "no_items"
 
 
 def test_item_sweep_uncompiled_shapes_raise(cuda, rng):
@@ -762,26 +793,56 @@ def _kslot_wave(acc, rng, n, k_clusters, shadow):
             tab["n_slots"])
 
 
-@pytest.mark.parametrize("s", [128, 2])
-@pytest.mark.parametrize("want_tri,k", [(True, 12), (False, 8)])
-def test_kslot_sweep_kernel_matches_plain(cuda, rng, s, want_tri, k):
-    """kslot_sweep on a wave culled by kslots (closest K 12, shadow K 8;
-    S = 128, and S = 2 past 2048 clusters) against its plain version: t
-    bit for bit, tri and occlusion exact."""
-    acc = _accel(cuda, s=s)
-    args = _kslot_wave(acc, rng, 1 << 13, k, shadow=not want_tri)
+def _kslot_args(cuda, rng, case, s, k, want_tri, n=1 << 13):
+    """kslot_sweep's arguments: a wave culled by kslots ("wave") or a
+    crafted case of tests/test_torch_sweep_cases.py."""
+    if case != "wave":
+        c = cases.kslot_case(case, s)
+        t = lambda a: torch.as_tensor(a, device=cuda)
+        return (t(cases.pack(c)), t(cases.kslot_rays(c)), t(c["cid"]),
+                t(c["n_slots"]), want_tri)
+    args = _kslot_wave(_accel(cuda, s=s), rng, n, k, shadow=not want_tri)
     assert int(args[3].sum()) > 0
-    before = cuda_kslots.launches
-    got = cuda_kslots.kslot_sweep(*args, want_tri)
-    assert cuda_kslots.launches == before + 1
-    want = cuda_kslots.kslot_sweep_plain(*args, want_tri)
+    return (*args, want_tri)
+
+
+def _assert_kslot_sweep_matches_plain(args, generic):
+    """The kernel (tuned or forced generic) against kslot_sweep_plain: t
+    bit for bit, tri and occlusion exact, one launch."""
+    counter = "generic_launches" if generic else "launches"
+    before = getattr(cuda_kslots, counter)
+    if generic:
+        with generic_instances():
+            got = cuda_kslots.kslot_sweep(*args)
+    else:
+        got = cuda_kslots.kslot_sweep(*args)
+    assert getattr(cuda_kslots, counter) == before + 1
+    want = cuda_kslots.kslot_sweep_plain(*args)
     torch.cuda.synchronize()
-    if want_tri:
+    if args[-1]:
         assert torch.equal(_bits(got[0]), _bits(want[0]))
         assert torch.equal(got[1], want[1])
-        assert (got[1] != cuda_ctiles.I32_MAX).any()
-    else:
-        assert torch.equal(got[0], want[0]) and got[0].any()
+        return (got[1] != cuda_ctiles.I32_MAX).any()
+    assert torch.equal(got[0], want[0])
+    return got[0].any()
+
+
+# the kslots waves (closest K 12, shadow K 8), and every crafted case (K 6)
+# at every size of the cases
+KSLOT_KERNEL_CASES = [("wave", 128), ("wave", 2)] + [
+    (c, s) for c in cases.KSLOT_CASES for s in cases.SIZES]
+
+
+@pytest.mark.parametrize("case,s", KSLOT_KERNEL_CASES)
+@pytest.mark.parametrize("want_tri,k", [(True, 12), (False, 8)])
+def test_kslot_sweep_kernel_matches_plain(cuda, rng, case, s, want_tri, k):
+    """kslot_sweep (the instance its wrapper picks) on a wave culled by
+    kslots (S = 128, and S = 2 past 2048 clusters) and on the crafted cases
+    (exact t ties across a row's slots, a cluster named twice, garbage
+    slots past n_slots, dead and overflowed rays, rays all occluded by the
+    first slot) against its plain version."""
+    assert _assert_kslot_sweep_matches_plain(
+        _kslot_args(cuda, rng, case, s, k, want_tri), generic=False)
 
 
 def test_kslot_sweep_uncompiled_shapes_raise(cuda, rng):
@@ -1113,50 +1174,27 @@ def test_closest_sweep_generic_first_candidate_wins_an_exact_tie(cuda):
     assert (bt == 2.0).all() and (bc == 0).all() and (bs == 5).all()
 
 
+@pytest.mark.parametrize("case", ["wave", *cases.ITEM_CASES])
 @pytest.mark.parametrize("want_tri", [True, False])
 @pytest.mark.parametrize("s", GENERIC_SIZES + [128])
-def test_item_sweep_generic_matches_plain(cuda, rng, s, want_tri):
-    """item_sweep's generic instance (forced) at each S: bitwise the plain
-    version over every item row."""
-    acc = _accel(cuda, s=s)
-    kw = {} if s >= 64 else dict(cap=1024, item_budget=64,
-                                 super_cap=max(acc.num_supers, 1))
-    pack, rays, wl = _worklist_wave(acc, rng, 1 << 12, shadow=not want_tri,
-                                    **kw)
-    args = (pack, rays, wl.item_block, wl.ibase, wl.order_g, wl.n_cand,
-            int(wl.n_items), want_tri)
-    assert args[6] > 0
-    before = cuda_items.generic_launches
-    with generic_instances():
-        k = cuda_items.item_sweep(*args)
-    assert cuda_items.generic_launches == before + 1
-    p = cuda_items.item_sweep_plain(*args)
-    torch.cuda.synchronize()
-    if want_tri:
-        assert torch.equal(_bits(k[0]), _bits(p[0])) and torch.equal(k[1], p[1])
-        assert (k[1] != cuda_ctiles.I32_MAX).any()
-    else:
-        assert torch.equal(k[0], p[0]) and k[0].any()
+def test_item_sweep_generic_matches_plain(cuda, rng, s, want_tri, case):
+    """item_sweep's generic instance (forced) at each S, on a worklist wave
+    and on the crafted cases: bitwise the plain version over every item
+    row."""
+    args = _item_args(cuda, rng, case, s, want_tri, n=1 << 12)
+    hit = _assert_item_sweep_matches_plain(args, generic=True)
+    assert hit or case == "no_items"
 
 
+@pytest.mark.parametrize("case", ["wave", *cases.KSLOT_CASES])
 @pytest.mark.parametrize("want_tri,k", [(True, 12), (False, 8)])
 @pytest.mark.parametrize("s", GENERIC_SIZES + [128])
-def test_kslot_sweep_generic_matches_plain(cuda, rng, s, want_tri, k):
-    """kslot_sweep's generic instance (forced) at each S: bitwise the plain
-    version."""
-    acc = _accel(cuda, s=s)
-    args = _kslot_wave(acc, rng, 1 << 12, k, shadow=not want_tri)
-    before = cuda_kslots.generic_launches
-    with generic_instances():
-        got = cuda_kslots.kslot_sweep(*args, want_tri)
-    assert cuda_kslots.generic_launches == before + 1
-    want = cuda_kslots.kslot_sweep_plain(*args, want_tri)
-    torch.cuda.synchronize()
-    if want_tri:
-        assert torch.equal(_bits(got[0]), _bits(want[0]))
-        assert torch.equal(got[1], want[1])
-    else:
-        assert torch.equal(got[0], want[0])
+def test_kslot_sweep_generic_matches_plain(cuda, rng, s, want_tri, k, case):
+    """kslot_sweep's generic instance (forced) at each S, on a kslots wave
+    and on the crafted cases: bitwise the plain version."""
+    _assert_kslot_sweep_matches_plain(
+        _kslot_args(cuda, rng, case, s, k, want_tri, n=1 << 12),
+        generic=True)
 
 
 @pytest.mark.parametrize("route", ["main", "pallas", "worklist", "kslots",

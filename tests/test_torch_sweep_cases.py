@@ -1,0 +1,180 @@
+"""Crafted inputs for the port's two sweeps of its own, `item_sweep` (the
+worklist's item sweep) and `kslot_sweep` (the kslots backend's), as numpy
+arrays. numpy only, so that tests/test_torch_cuda.py (on the GPU machine,
+which has no JAX) and tests/test_torch_sweep_edges.py (on the CPU, against
+the JAX package) see the same inputs. This file holds no test.
+
+The geometry: C = 6 clusters of S triangles, cluster c a grid of small
+right triangles over the unit square near the plane z = Z[c], rays from
+z = -2 nearly along +z. Cluster 1 is cluster 0 copied (the same floats,
+so the same t bit for bit) with smaller triangle ids: where both are
+swept, the closest hit is an exact t tie that the smaller id must win,
+also when its cluster comes in a later slot. Cluster C - 1 lies nearest to
+the rays, and slots past n_cand / n_slots point at it (as the culls'
+garbage entries do): a sweep that failed to mask them would return its
+triangles.
+"""
+
+import numpy as np
+
+SIZES = (2, 16, 96, 128, 512)
+N_CLUSTERS = 6
+Z = (2.0, 2.0, 6.0, 3.0, 5.0, 1.0)  # cluster planes; C - 1 nearest
+T_MIN = 1e-3
+B, G = 8, 4  # rays a block, clusters an item
+K = 6  # slots a kslots row
+
+ITEM_CASES = ("ties", "repeats", "garbage_slots", "dead_rays",
+              "occluded_first_chunk", "no_items", "full_table")
+KSLOT_CASES = ("ties", "repeats", "garbage_slots", "dead_rays",
+               "overflowed", "occluded_first_chunk")
+
+
+def clusters(s: int, rng) -> dict:
+    """v0, e1, e2 [C, S, 3] f32 and tri_id [C, S] i32 (see the module)."""
+    w = int(np.ceil(np.sqrt(s)))
+    j = np.arange(s)
+    cell = 1.0 / w
+    v0 = np.zeros((N_CLUSTERS, s, 3), np.float32)
+    e1 = np.zeros_like(v0)
+    e2 = np.zeros_like(v0)
+    for c in range(N_CLUSTERS):
+        src = 0 if c == 1 else c  # cluster 1 is cluster 0's copy
+        r = np.random.default_rng([src, s, int(rng.integers(1 << 30))]
+                                  if src != 0 else [0, s])
+        v0[c, :, 0] = (j % w) * cell
+        v0[c, :, 1] = (j // w) * cell
+        v0[c, :, 2] = Z[c] + r.uniform(-0.05, 0.05, s)
+        e1[c, :, 0] = 0.9 * cell
+        e1[c, :, 2] = r.uniform(-0.05, 0.05, s)
+        e2[c, :, 1] = 0.9 * cell
+        e2[c, :, 2] = r.uniform(-0.05, 0.05, s)
+    base = np.array([5, 0, 2, 3, 4, 6]) * s + 100  # cluster 1's ids smallest
+    tri_id = (base[:, None] + j[None, :]).astype(np.int32)
+    return {"v0": v0, "e1": e1, "e2": e2, "tri_id": tri_id}
+
+
+def pack(geo: dict) -> np.ndarray:
+    """[C, 10, S] f32 (cuda_ctiles.pack_tris' layout)."""
+    rows = [geo[k][:, :, a] for k in ("v0", "e1", "e2") for a in range(3)]
+    rows.append(geo["tri_id"].view(np.float32))
+    return np.ascontiguousarray(np.stack(rows, axis=1))
+
+
+def _rays(rng, n: int, s: int, first_chunk: bool = False):
+    """n rays from z = -2 through random points of the unit square (or,
+    with first_chunk, through the middle of the first min(S, 32) triangles'
+    right angles), tilted a little; t_max in [3.5, 12] (a few stop before
+    the far planes)."""
+    w = int(np.ceil(np.sqrt(s)))
+    if first_chunk:
+        j = rng.integers(0, min(s, 32), n)
+        xy = np.stack([(j % w) + 0.2, (j // w) + 0.2], 1) / w
+        tilt = rng.uniform(-1e-4, 1e-4, (n, 2))
+    else:
+        xy = rng.uniform(0.0, 1.0, (n, 2))
+        tilt = rng.uniform(-0.02, 0.02, (n, 2))
+    o = np.concatenate([xy, np.full((n, 1), -2.0)], 1).astype(np.float32)
+    d = np.concatenate([tilt, np.ones((n, 1))], 1)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    tm = rng.uniform(3.5, 12.0, n).astype(np.float32)
+    return o, d, tm
+
+
+def item_case(name: str, s: int, seed: int = 0) -> dict:
+    """One crafted worklist input: the clusters, block rays o_blk / d_blk
+    [nb, B, 3] and tm_blk [nb, B] (t_max; dead rays -1), t_min, and the
+    WorkList tables item_block [i_cap], ibase, n_cand [nb], order_g [nb,
+    n_groups, G] and n_items. Slots past a block's n_cand hold C - 1."""
+    rng = np.random.default_rng([seed, s, ITEM_CASES.index(name)])
+    geo = clusters(s, rng)
+    last = N_CLUSTERS - 1
+    orders = {  # a block's candidate clusters (n_cand of them)
+        "ties": [[0, 1, 2, 3], [1, 0, 3, 2, 0, 1], [2, 1, 0]],
+        "repeats": [[3, 3, 0, 3], [2, 2, 2, 2, 1, 1], [0, 0]],
+        "garbage_slots": [[0], [3, 1], [2, 4, 0], [1, 2, 3, 4, 0]],
+        "dead_rays": [[0, 1, 2, 3], [3, 4], [0, 2, 4, 1, 3]],
+        "occluded_first_chunk": [[0, last, 2, 3], [1, 3, 4, 2]],
+        "no_items": [[0, 1, 2, 3], [4, 3]],
+        "full_table": [[0, 1, 2, 3, 4, 5, 1, 0]] * 4,
+    }[name]
+    nb = len(orders)
+    o, d, tm = _rays(rng, nb * B, s,
+                     first_chunk=name == "occluded_first_chunk")
+    if name == "ties":
+        tm[:] = np.inf
+    if name == "occluded_first_chunk":
+        tm[:] = 10.0  # past every plane
+    if name == "dead_rays":
+        tm[::3] = -1.0
+        tm[B:2 * B] = -1.0  # block 1: every ray dead
+    n_cand = np.array([len(x) for x in orders], np.int32)
+    m = -(-n_cand // G)
+    n_groups = int(m.max())
+    order_g = np.full((nb, n_groups * G), last, np.int32)
+    for b, x in enumerate(orders):
+        order_g[b, :len(x)] = x
+    ibase = (np.cumsum(m) - m).astype(np.int32)
+    n_items = int(m.sum())
+    i_cap = n_items if name == "full_table" else -(-(n_items + 3) // 8) * 8
+    item_block = np.full(i_cap, nb - 1, np.int32)
+    for b in range(nb):
+        item_block[ibase[b]:ibase[b] + m[b]] = b
+    return {**geo, "o_blk": o.reshape(nb, B, 3), "d_blk": d.reshape(nb, B, 3),
+            "tm_blk": tm.reshape(nb, B), "t_min": T_MIN,
+            "item_block": item_block, "ibase": ibase, "n_cand": n_cand,
+            "order_g": order_g.reshape(nb, n_groups, G),
+            "n_items": 0 if name == "no_items" else n_items}
+
+
+def item_block_rays(case: dict) -> np.ndarray:
+    """[nb, 8, B] f32 (traverse.pack_block_rays' layout: ox oy oz dx dy dz
+    t_max t_min)."""
+    tmin = np.full_like(case["tm_blk"], case["t_min"])
+    return np.ascontiguousarray(np.concatenate(
+        [case["o_blk"].transpose(0, 2, 1), case["d_blk"].transpose(0, 2, 1),
+         case["tm_blk"][:, None], tmin[:, None]], axis=1), np.float32)
+
+
+def kslot_case(name: str, s: int, seed: int = 0) -> dict:
+    """One crafted kslots input: the clusters, rays o, d [N, 3], t_max [N]
+    (dead and overflowed rays -1, as the kslots query passes them), t_min,
+    cid [N, K] and n_slots [N]. Slots past n_slots hold C - 1."""
+    rng = np.random.default_rng([seed, s, 100 + KSLOT_CASES.index(name)])
+    geo = clusters(s, rng)
+    last = N_CLUSTERS - 1
+    n = 64
+    o, d, tm = _rays(rng, n, s, first_chunk=name == "occluded_first_chunk")
+    rows = {
+        "ties": [[0, 1, 2, 3], [1, 0], [2, 3, 1, 0, 4], [0, 1]],
+        "repeats": [[3, 3, 0, 3, 3, 3], [2, 2], [0, 0, 0, 0]],
+        "garbage_slots": [[], [0], [3, 1], [2, 4, 0], [1, 2, 3, 4, 0]],
+        "dead_rays": [[0, 1, 2, 3], [3, 4], [0, 2, 4, 1, 3]],
+        "overflowed": [[0, 1, 2], [], [3, 4, 0, 1]],
+        "occluded_first_chunk": [[0, last, 2, 3], [0, 3, 4, 2, 1]],
+    }[name]
+    cid = np.full((n, K), last, np.int32)
+    n_slots = np.zeros(n, np.int32)
+    for r in range(n):
+        x = rows[r % len(rows)]
+        cid[r, :len(x)] = x
+        n_slots[r] = len(x)
+    if name == "ties":
+        tm[:] = np.inf
+    if name == "occluded_first_chunk":
+        tm[:] = 10.0  # past every plane
+    if name == "dead_rays":
+        tm[::3] = -1.0
+    if name == "overflowed":  # the cull's overflow rows: no slot, t_max -1
+        over = np.arange(n) % 3 == 1
+        tm[over] = -1.0
+    return {**geo, "o": o, "d": d, "tm": tm, "t_min": T_MIN, "cid": cid,
+            "n_slots": n_slots}
+
+
+def kslot_rays(case: dict) -> np.ndarray:
+    """[N, 8] f32 (cuda_kslots.pack_rays' layout: o, d, t_max, t_min)."""
+    n = case["o"].shape[0]
+    return np.ascontiguousarray(np.concatenate(
+        [case["o"], case["d"], case["tm"][:, None],
+         np.full((n, 1), case["t_min"])], axis=1), np.float32)
