@@ -8,7 +8,11 @@
         # phases 1-2, the scene, main_path, then mesh_cards (no "ok" line)
 
 Phases (each prints one JSON line; any failure exits non-zero):
-  1. device       CUDA must be available; the card's name and power limit.
+  1. device       CUDA must be available; the card's name and power limit;
+                  torch's f32 sqrt on the card against its f64 sqrt rounded
+                  once, on 2^24 inputs (none may differ: vec.sqrt_rn keeps
+                  torch.sqrt on the card), and the f32 tan at 676 fovs
+                  (the camera takes the f64 one on every device).
   2. build        nvcc builds every kernel source under csrc/, in parallel;
                   registers and spills of every kernel as ptxas reports them,
                   and the registers and resident warps per SM of the five
@@ -81,6 +85,25 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   the same with Russian roulette from bounce 2, and
                   rr_start=5 (never reached in 5 bounces) bitwise the
                   rr-off image.
+  5a. reference   tests/data/jax_reference.npz (the JAX package's oracle
+                  and wavefront images of the blob subdiv 3 + room at
+                  48x27, 2 spp, 5 bounces, seed 0, rr_start 0 and 2, the
+                  scene and camera arrays it rendered, and the port's CPU
+                  images; scripts/torch_make_reference.py writes it), read
+                  without JAX: the same frames on the card through the
+                  oracle, the main path, pallas, the fused cascades, the
+                  pool, the virtual (2, 2) mesh, tile_devices=8, worklist,
+                  ctiles, perray, kslots and `cli.main -m gpu` (its scene
+                  loader and camera patched to the file's); for each, bitwise
+                  against the port's CPU image of the same engine, pixels
+                  differing, and the RMSE against JAX's oracle image over
+                  its mean. Fails if a route exceeds 1e-3 there, or if the
+                  oracle or the main path is not bitwise its CPU image (the
+                  line then names the first stage of a CPU / card lockstep
+                  of the oracle whose tensors differ), or if the main path's
+                  bench render gained kernels or host syncs over the
+                  215,680 and 6,744 it took at commit 524103f (profile,
+                  main_path).
   5b. cluster_sizes the 96x54 blob scene (subdiv 4 + room, 2 spp, 5
                   bounces) on base accels of S in 2, 16, 64, 96, 512 through
                   the main path (the default routing), backend "pallas",
@@ -331,10 +354,41 @@ def phase_device():
     ).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi unavailable"
     print(card, flush=True)
+    rounding = _card_rounding()
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": card,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          **rounding})
+    if rounding["sqrt_f32_differing"]:
+        fail("device", f"torch.sqrt on the card is not correctly rounded "
+                       f"({rounding}); vec.sqrt_rn keeps it on the card")
     return card
+
+
+def _card_rounding() -> dict:
+    """torch's f32 sqrt on the card against its f64 sqrt rounded once to
+    f32 (the correctly rounded result, which vec.sqrt_rn takes it to be) on
+    2^24 inputs: 2^23 uniform in [0, 50), 2^23 random bit patterns of
+    positive finite f32; and the f32 tan against the f64 one rounded once
+    at the half angles of fov 1-169.75 degrees in quarter degrees (the
+    camera takes the f64 one on every device)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.cat([
+        torch.rand(1 << 23, generator=g, device="cuda") * 50.0,
+        torch.randint(0, 0x7F800000, (1 << 23,), generator=g, device="cuda",
+                      dtype=torch.int32).view(torch.float32)])
+    bits = lambda t: t.view(torch.int32)
+    sqrt_differ = int((bits(torch.sqrt(x))
+                       != bits(torch.sqrt(x.double()).float())).sum())
+    fov = torch.arange(4, 680, device="cuda", dtype=torch.float32) / 4.0
+    half = fov * (np.pi / 180.0) / 2.0
+    tan_differ = (bits(torch.tan(half))
+                  != bits(torch.tan(half.double()).float()))
+    return {"sqrt_f32_inputs": int(x.numel()),
+            "sqrt_f32_differing": sqrt_differ,
+            "tan_f32_fovs": int(fov.numel()),
+            "tan_f32_differing": int(tan_differ.sum()),
+            "tan_f32_differs_at_45_degrees": bool(tan_differ[fov == 45.0])}
 
 
 def dump_sass(out_dir: str) -> None:
@@ -1012,6 +1066,11 @@ def phase_sweep_waves(scene, accel_base, card, n_first=2048):
     return out
 
 
+# The main path's bench render on the H100 at commit 524103f (profile
+# phase: device kernels and copies; main_path: host syncs): none may be
+# gained.
+BENCH_KERNELS_MAX = 215680
+BENCH_SYNCS_MAX = 6744
 BENCH = dict(width=1920, height=1080, samples_per_pixel=2, max_bounces=5,
              seed=0)
 FUSED_ENGINES = dict(
@@ -1020,24 +1079,29 @@ FUSED_ENGINES = dict(
                            sub_skip=True))
 
 
-class _engines:
+class _patched:
+    """Sets attributes of a module for the duration of a block."""
+
+    def __init__(self, module, **attrs):
+        self.module, self.attrs = module, attrs
+
+    def __enter__(self):
+        self.saved = {k: getattr(self.module, k) for k in self.attrs}
+        for k, v in self.attrs.items():
+            setattr(self.module, k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.module, k, v)
+
+
+class _engines(_patched):
     """Sets the hybrid backend's engine tables for the duration of a block."""
 
     def __init__(self, tables):
-        self.tables = tables or {}
-
-    def __enter__(self):
         from path_tracer_ai_tpu_torch.engine import wavefront
 
-        self.saved = {k: getattr(wavefront, k) for k in self.tables}
-        for k, v in self.tables.items():
-            setattr(wavefront, k, v)
-
-    def __exit__(self, *exc):
-        from path_tracer_ai_tpu_torch.engine import wavefront
-
-        for k, v in self.saved.items():
-            setattr(wavefront, k, v)
+        super().__init__(wavefront, **(tables or {}))
 
 
 def _reset_counts():
@@ -1752,6 +1816,199 @@ def _consistency_worklist(scene, cam, img_oracle, kw):
                      "launches": _read_counts(),
                      "tile_sweep_shapes": _tile_shapes()}
     return out
+
+
+REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                         "data", "jax_reference.npz")
+REFERENCE_RMSE = 1e-3  # over the JAX image's mean: tests/test_torch_render.py
+
+
+def _reference_cli(ref, settings) -> np.ndarray:
+    """cli.main -m gpu on the reference frame: the CLI's scene loader and
+    camera hand it the reference's scene and camera, and its image writer
+    keeps the linear image it writes."""
+    from path_tracer_ai_tpu_torch import cli
+    from path_tracer_ai_tpu_torch.io.image import save_image
+
+    kept = {}
+
+    def keep(path, image, gamma):
+        kept["image"] = image
+        return save_image(path, image, gamma)
+
+    png = os.path.join(tempfile.gettempdir(), "chip_smoke_reference.png")
+    argv = ["-m", "gpu", "-w", str(settings.width), "-h",
+            str(settings.height), "-s", str(settings.samples_per_pixel),
+            "-b", str(settings.max_bounces), "--seed", str(settings.seed),
+            "--rr", str(settings.rr_start), "-i", "reference.obj", "-o", png]
+    with _patched(cli, build_scene=lambda *a, **k: ref.scene,
+                  default_camera=lambda dev: ref.camera, save_image=keep):
+        rc = cli.main(argv)
+    if rc != 0 or "image" not in kept:
+        fail("reference", f"cli.main({argv}) returned {rc}")
+    return kept["image"]
+
+
+def _reference_routes(ref, settings) -> dict:
+    """Every route chip_smoke.py renders, as a call that renders the
+    reference frame on the card."""
+    from path_tracer_ai_tpu_torch.engine import oracle, wavefront
+    from path_tracer_ai_tpu_torch.parallel import mesh
+
+    scene, cam = ref.scene, ref.camera
+    card0 = torch.device("cuda", 0)
+
+    def wave(engines=None, **kw):
+        def run():
+            with _engines(engines):
+                return wavefront.render(scene, cam, settings, device="cuda",
+                                        **kw)
+        return run
+
+    return {
+        "oracle": lambda: oracle.render(scene, cam, settings, device="cuda"),
+        "main": wave(),
+        "pallas": wave(backend="pallas", block_size=64),
+        "fused": wave(FUSED_ENGINES),
+        "pool": wave(scheduler="pool"),
+        "mesh_virtual_2x2": lambda: mesh.render_sharded_wavefront(
+            scene, cam, settings, mesh.make_mesh(2, 2, devices=[card0] * 4)),
+        "tile_devices_8": wave(tile_devices=8),
+        "worklist": wave(backend="worklist"),
+        "ctiles": wave(backend="ctiles"),
+        "perray": wave(backend="perray"),
+        "kslots": wave(backend="kslots"),
+        "cli": lambda: _reference_cli(ref, settings),
+    }
+
+
+def _bits_differ(a, b) -> int:
+    """Elements whose bits differ (NaN payloads count, -0 != 0)."""
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    word = np.dtype(f"u{a.dtype.itemsize}")
+    return int((a.view(word) != b.view(word)).sum())
+
+
+def _lockstep(cpu_ref, card_ref, settings) -> dict:
+    """The oracle's frame stepped on the CPU and on the card side by side,
+    one wave of every pixel and sample: the first stage whose tensors
+    differ (the camera rays and keys, then at each bounce the closest hit
+    and the lanes' state after it), with the elements that differ there."""
+    from path_tracer_ai_tpu_torch.core import threefry
+    from path_tracer_ai_tpu_torch.engine import tracer, wavefront
+
+    w, h, sc = settings.width, settings.height, settings.samples_per_pixel
+    steps = []
+    for ref in (cpu_ref, card_ref):
+        dev = ref.camera.position.device
+        ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w),
+                                indexing="ij")
+        xs, ys = xs.reshape(-1).to(dev), ys.reshape(-1).to(dev)
+        o, d, keys, _ = wavefront._wave_gen(
+            ref.camera, threefry.key(settings.seed, device=dev), xs, ys, 0,
+            w=w, h=h, sc=sc, lanes_padded=w * h * sc,
+            aspect=settings.aspect_ratio())
+        out = [("camera", {"o": o, "d": d, "keys": keys})]
+        closest, occlude = tracer.brute_force_backend(ref.scene)
+        beta, rad = torch.ones_like(o), torch.zeros_like(o)
+        alive = torch.ones(o.shape[0], dtype=torch.bool, device=dev)
+        for depth in range(settings.max_bounces):
+            hits = {}
+
+            def logged(o_, d_, t_min, t_max, hits=hits):
+                hit = closest(o_, d_, t_min, t_max)
+                hits.update(t=hit.t, tri=hit.tri)
+                return hit
+
+            o, d, beta, rad, alive, _, _ = tracer.bounce_step(
+                ref.scene, logged, occlude, o, d, beta, rad, alive, keys,
+                depth, rr_start=settings.rr_start)
+            out += [(f"bounce {depth} closest hit", hits),
+                    (f"bounce {depth} lanes", {"o": o, "d": d, "beta": beta,
+                                               "radiance": rad,
+                                               "alive": alive})]
+        steps.append(out)
+    for (stage, a), (_, b) in zip(*steps):
+        bad = {k: _bits_differ(a[k].cpu().numpy(), b[k].cpu().numpy())
+               for k in a}
+        bad = {k: n for k, n in bad.items() if n}
+        if bad:
+            return {"stage": stage, "elements_differing": bad}
+    return {"stage": None}
+
+
+def phase_reference(card, render, profile):
+    """The JAX package's renders (tests/data/jax_reference.npz, made by
+    scripts/torch_make_reference.py; read without JAX) against every
+    route on the card, at each of the file's settings: bitwise against the
+    port's CPU image of the same engine (the oracle's for the oracle, the
+    main path's for the rest), the pixels that differ from it, and the
+    RMSE against JAX's oracle image over that image's mean, which must
+    stay within 1e-3. Also the main path's bench render against the
+    215,680 kernels and 6,744 host syncs it took at commit 524103f (none
+    gained)."""
+    from path_tracer_ai_tpu_torch.convert import load_reference
+
+    t0 = time.perf_counter()
+    ref = load_reference(REFERENCE, device="cuda")
+    res = {"phase": "reference", "card": card, "file": REFERENCE,
+           "jax_version": ref.jax_version,
+           "settings": {"width": ref.settings[0].width,
+                        "height": ref.settings[0].height,
+                        "spp": ref.settings[0].samples_per_pixel,
+                        "bounces": ref.settings[0].max_bounces,
+                        "seed": ref.settings[0].seed,
+                        "subdivisions": ref.subdivisions,
+                        "triangles": ref.scene.triangles.count},
+           "rmse_bound": REFERENCE_RMSE}
+    over, not_bitwise = [], []
+    for rr, settings in ref.settings.items():
+        jax_img = ref.images[f"jax_oracle_rr{rr}"]
+        routes = {}
+        for name, run in _reference_routes(ref, settings).items():
+            _reset_counts()
+            img = run()
+            launches = {k: v for k, v in _read_counts().items() if v}
+            cpu_img = ref.images[
+                f"port_{'oracle' if name == 'oracle' else 'main'}_rr{rr}"]
+            diff = np.abs(img - cpu_img).max(axis=-1)
+            ratio = float(np.sqrt(np.mean((img - jax_img) ** 2))
+                          / jax_img.mean())
+            routes[name] = {
+                "bitwise_cpu": _bits_differ(img, cpu_img) == 0,
+                "pixels_differing_cpu": int((diff > 0).sum()),
+                "max_abs_diff_cpu": float(diff.max()),
+                "rmse_over_mean_vs_jax_oracle": ratio,
+                "launches": launches}
+            if not ratio <= REFERENCE_RMSE:
+                over.append(f"rr{rr} {name}: {ratio}")
+            if name in ("oracle", "main") and not routes[name]["bitwise_cpu"]:
+                not_bitwise.append(f"rr{rr} {name}")
+        routes["jax_wavefront"] = {"rmse_over_mean_vs_jax_oracle": float(
+            np.sqrt(np.mean((ref.images[f"jax_wavefront_rr{rr}"] - jax_img)
+                            ** 2)) / jax_img.mean())}
+        res[f"rr{rr}"] = routes
+    if not_bitwise:
+        rr = int(not_bitwise[0].split()[0][2:])
+        res["first_difference"] = _lockstep(
+            load_reference(REFERENCE, device="cpu"), ref, ref.settings[rr])
+    res["bench_render"] = {
+        "device_kernels": profile["device_kernels"],
+        "host_syncs": render["host_syncs"],
+        "at_524103f": {"device_kernels": BENCH_KERNELS_MAX,
+                       "host_syncs": BENCH_SYNCS_MAX}}
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    if over:
+        fail("reference", f"over RMSE {REFERENCE_RMSE} x the mean of JAX's "
+                          f"oracle image: {over}")
+    if not_bitwise:
+        fail("reference", f"not bitwise the port's CPU image: {not_bitwise}; "
+                          f"first difference {res['first_difference']}")
+    if (profile["device_kernels"] > BENCH_KERNELS_MAX
+            or render["host_syncs"] > BENCH_SYNCS_MAX):
+        fail("reference", f"the main path's bench render gained kernels or "
+                          f"host syncs: {res['bench_render']}")
 
 
 class _LogRecords(logging.Handler):
@@ -3306,7 +3563,7 @@ def main() -> int:
     if args.kernels_only:
         return 0
     render, img_main = phase_main_path(scene, accel_base, accel_c, card)
-    phase_profile(scene, accel_base, accel_c, render["seconds"])
+    profile = phase_profile(scene, accel_base, accel_c, render["seconds"])
     paths = {"main_path": render,
              "path_pallas": phase_path_pallas(scene, accel_base, card, img_main)}
     phase_profile_path("profile_pallas", scene, accel_base,
@@ -3323,6 +3580,7 @@ def main() -> int:
                                                  warm_w)
     phase_profile_worklist(worklist_waves, card)
     phase_consistency()
+    phase_reference(card, render, profile)
     sizes = phase_cluster_sizes(card)
     cli = phase_cli(card)
     phase_bench(card)

@@ -9,18 +9,27 @@ names another device (`device="cpu"`, as the CPU tests do).
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
 from path_tracer_ai_tpu_torch.accel.clusters import ClusterAccel
+from path_tracer_ai_tpu_torch.config import RenderSettings
 from path_tracer_ai_tpu_torch.core.types import (
     Lights,
     MaterialTable,
     SceneData,
+    TrianglesSoA,
     triangles_from_numpy,
 )
 from path_tracer_ai_tpu_torch.device import resolve_device
 from path_tracer_ai_tpu_torch.scene.camera import Camera
+
+# The arrays of a scene and a camera in a reference file, by key prefix:
+# the fields of the port's NamedTuples, which are the JAX package's.
+REFERENCE_PARTS = {"tri": TrianglesSoA._fields, "mat": MaterialTable._fields,
+                   "light": Lights._fields, "cam": Camera._fields}
 
 
 def _t(a, device, dtype=None):
@@ -108,3 +117,37 @@ def key_from_data(data, device=None) -> torch.Tensor:
     """uint32[2] key data (jax.random.key_data) -> the port's int64 key."""
     return torch.as_tensor(np.asarray(data, np.uint32).astype(np.int64),
                            device=resolve_device(device))
+
+
+def reference_arrays(triangles, materials, lights, camera) -> dict:
+    """The npz entries of a scene and camera (each given as its arrays in
+    field order): "tri_v0", ..., "cam_fov_deg"."""
+    parts = dict(tri=triangles, mat=materials, light=lights, cam=camera)
+    return {f"{p}_{name}": np.asarray(a)
+            for p, arrays in parts.items()
+            for name, a in zip(REFERENCE_PARTS[p], arrays, strict=True)}
+
+
+def load_reference(path, device=None) -> SimpleNamespace:
+    """A reference file (`scripts/torch_make_reference.py` writes it): the
+    scene and camera the JAX package rendered, as the port's, on `device`
+    (None: the card); `settings`, one RenderSettings a roulette start
+    (`rr_starts`); `images`, every stored image by name ("jax_oracle_rr0",
+    "port_main_rr2", ...); and `jax_version`."""
+    with np.load(path) as z:
+        data = {k: z[k] for k in z.files}
+    arrays = {p: [data[f"{p}_{n}"] for n in names]
+              for p, names in REFERENCE_PARTS.items()}
+    settings = {int(rr): RenderSettings(
+        width=int(data["width"]), height=int(data["height"]),
+        samples_per_pixel=int(data["spp"]),
+        max_bounces=int(data["bounces"]), seed=int(data["seed"]),
+        rr_start=int(rr)) for rr in data["rr_starts"]}
+    return SimpleNamespace(
+        scene=scene_from_numpy(arrays["tri"], arrays["mat"], arrays["light"],
+                               device=device),
+        camera=camera_from_numpy(*arrays["cam"], device=device),
+        settings=settings, subdivisions=int(data["subdivisions"]),
+        images={k.removeprefix("image_"): v for k, v in data.items()
+                if k.startswith("image_")},
+        jax_version=str(data["jax_version"]))

@@ -32,6 +32,8 @@ import math
 import numpy as np
 import torch
 
+from path_tracer_ai_tpu_torch.core import vec
+
 MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -180,9 +182,7 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     (not torch.erfinv, whose algorithm differs)."""
     w = -log1p_xla(x * -x)
     lt = w < 5.0
-    # sqrt through f64: correctly rounded, as XLA's is (torch's f32 sqrt on
-    # the CPU is not, on about 0.6% of inputs)
-    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    w = torch.where(lt, w - 2.5, vec.sqrt_rn(w) - 3.0)
     dev = x.device
 
     def coef(i):

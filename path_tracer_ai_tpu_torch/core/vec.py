@@ -2,7 +2,10 @@
 
 `dot` is written out component by component, so the sum order is fixed:
 ((x0*y0 + x1*y1) + x2*y2), the order of the component-wise sweeps in
-accel.traverse. `normalize` has no epsilon guard, like the reference.
+accel.traverse. `normalize` has no epsilon guard, like the reference. Every square root
+goes through `sqrt_rn`, and every division by a Python number that is not
+a power of two through `div_rn`: each correctly rounded on every device,
+so the CPU and the card compute the same bits.
 """
 
 from __future__ import annotations
@@ -22,8 +25,32 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root, as XLA's and numpy's are.
+
+    torch's f32 `sqrt` on the CPU is not correctly rounded (it misses by an
+    ulp on 0.6-17% of inputs, depending on the host), so a CPU tensor goes
+    through f64. That is exact: the square root of an f32 lies at least 4
+    f64 ulps from every f32 rounding boundary, and torch's f64 `sqrt` errs
+    by at most one. On the card `torch.sqrt` is the IEEE `sqrtf` already
+    (one kernel, as before)."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
+def div_rn(x: torch.Tensor, c) -> torch.Tensor:
+    """x / c for a Python number c, correctly rounded on every device, as
+    the CPU divides. torch's CUDA kernels multiply by the f32 reciprocal of
+    a scalar divisor instead (an ulp off on a share of inputs), so on the
+    card c goes as a 0-dim tensor of the card."""
+    if x.device.type == "cpu":
+        return x / c
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
 def length(a: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(dot(a, a))
+    return sqrt_rn(dot(a, a))
 
 
 def normalize(a: torch.Tensor) -> torch.Tensor:
@@ -45,5 +72,5 @@ def refract(incident: torch.Tensor, normal: torch.Tensor, eta) -> torch.Tensor:
     eta = eta[..., None] if torch.is_tensor(eta) and eta.dim() else eta
     ndi = dot(normal, incident)[..., None]
     k = 1.0 - eta * eta * (1.0 - ndi * ndi)
-    refr = eta * incident - (eta * ndi + torch.sqrt(torch.clamp(k, min=0.0))) * normal
+    refr = eta * incident - (eta * ndi + sqrt_rn(torch.clamp(k, min=0.0))) * normal
     return torch.where(k < 0.0, torch.zeros_like(refr), refr)

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from path_tracer_ai_tpu_torch.config import RenderSettings
-from path_tracer_ai_tpu_torch.core import sampling, threefry
+from path_tracer_ai_tpu_torch.core import sampling, threefry, vec
 from path_tracer_ai_tpu_torch.core.types import SceneData
 from path_tracer_ai_tpu_torch.device import resolve_device
 from path_tracer_ai_tpu_torch.engine import tracer
@@ -42,8 +42,8 @@ def camera_rays(camera: Camera, keys, xs, ys, w: int, h: int, aspect: float):
     """Jittered primary rays for per-lane keys (TAG_PIXEL_JITTER stream)."""
     kj = threefry.fold_in(keys, sampling.TAG_PIXEL_JITTER)
     jitter = threefry.uniform(kj, (2,))
-    u = (xs.to(torch.float32) + jitter[:, 0]) / (w - 1)
-    v = (ys.to(torch.float32) + jitter[:, 1]) / (h - 1)
+    u = vec.div_rn(xs.to(torch.float32) + jitter[:, 0], w - 1)
+    v = vec.div_rn(ys.to(torch.float32) + jitter[:, 1], h - 1)
     return get_rays(camera, u, v, aspect)
 
 

@@ -116,7 +116,7 @@ def direct_lighting(lights: Lights, occlude_fn: OccludeFn, position, normal,
         ).reshape(n_lights, n_lanes)
 
     # BRDF per material type (renderer.hpp:283-291).
-    brdf_diffuse = mats.albedo / PI                              # [N,3]
+    brdf_diffuse = vec.div_rn(mats.albedo, PI)                   # [N,3]
     half = vec.normalize(ldir + view_dir[None])                  # [L,N,3]
     n_dot_h = torch.clamp(vec.dot(normal[None], half), min=0.0)  # [L,N]
     d_term = mat_utils.ggx_distribution(n_dot_h, mats.roughness[None])
@@ -176,7 +176,7 @@ def sample_bsdf(ray_dir, position, normal, mats: MaterialLanes,
     etai = torch.where(entering, one, mats.ior)
     etat = torch.where(entering, mats.ior, one)
     ratio = etai / etat
-    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_abs * cos_abs, min=0.0))
+    sin_theta = vec.sqrt_rn(torch.clamp(1.0 - cos_abs * cos_abs, min=0.0))
     tir = ratio * sin_theta > 1.0
     f0 = (etai - etat) / (etai + etat)  # unsquared, like renderer.hpp:230
     fresnel = mat_utils.schlick_fresnel(cos_abs, f0)

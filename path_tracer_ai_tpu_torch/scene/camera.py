@@ -61,7 +61,13 @@ def get_rays(camera: Camera, u: torch.Tensor, v: torch.Tensor, aspect: float):
     """Normalized camera rays (camera.hpp:18-29) for viewport coords u, v
     [...] -> (origins [..., 3], directions [..., 3])."""
     theta = camera.fov_deg * (math.pi / 180.0)
-    h = torch.tan(theta / 2.0)
+    # tan through f64, rounded once to f32 (as XLA's is at the default 45
+    # degrees; torch's f32 tan on the CPU is an ulp off there): the f32 half
+    # angle is written as f64 and the f64 tangent as f32 by the kernels
+    # themselves (out=), so the card runs the two kernels it ran before.
+    half = torch.div(theta, 2.0,
+                     out=theta.new_empty(theta.shape, dtype=torch.float64))
+    h = torch.tan(half, out=torch.empty_like(theta))
     viewport_height = 2.0 * h
     viewport_width = viewport_height * aspect
 

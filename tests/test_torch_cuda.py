@@ -1230,3 +1230,45 @@ def test_every_cluster_size_renders_on_gpu(cuda, monkeypatch, route, s):
         np.testing.assert_allclose(img, ref, rtol=0, atol=1e-5)
     else:
         np.testing.assert_array_equal(img, ref)
+
+
+def test_numerics_on_the_card_equal_the_cpu(cuda, rng):
+    """vec.sqrt_rn, vec.div_rn and the camera's rays give the CPU's bits on
+    the card (torch.sqrt there is IEEE; a division by a Python number and
+    the tangent take the paths that keep it so), and the rendered frame of
+    tests/data/jax_reference.npz is the CPU's stored image bit for bit."""
+    import os
+
+    from path_tracer_ai_tpu_torch.convert import load_reference
+    from path_tracer_ai_tpu_torch.core import vec
+    from path_tracer_ai_tpu_torch.engine import oracle, wavefront
+    from path_tracer_ai_tpu_torch.scene import camera
+
+    x = rng.uniform(0.0, 50.0, 1 << 20).astype(np.float32)
+    for fn in (vec.sqrt_rn, lambda t: vec.div_rn(t, 47),
+               lambda t: vec.div_rn(t, np.pi)):
+        got = fn(torch.from_numpy(x).to(cuda)).cpu().numpy()
+        want = fn(torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    u, v = (torch.from_numpy(rng.random(4096).astype(np.float32))
+            for _ in range(2))
+    for fov in (20.0, 45.0, 90.0):
+        cams = [camera.default_camera(dev)._replace(
+            fov_deg=torch.tensor(np.float32(fov), device=dev))
+            for dev in ("cpu", cuda)]
+        d_cpu = camera.get_rays(cams[0], u, v, 16 / 9)[1].numpy()
+        d_gpu = camera.get_rays(cams[1], u.to(cuda), v.to(cuda),
+                                16 / 9)[1].cpu().numpy()
+        np.testing.assert_array_equal(d_gpu.view(np.int32),
+                                      d_cpu.view(np.int32))
+    ref = load_reference(os.path.join(os.path.dirname(__file__), "data",
+                                      "jax_reference.npz"), device=cuda)
+    for rr, s in ref.settings.items():
+        for name, img in (
+                ("oracle", oracle.render(ref.scene, ref.camera, s,
+                                         device=cuda)),
+                ("main", wavefront.render(ref.scene, ref.camera, s,
+                                          device=cuda))):
+            np.testing.assert_array_equal(
+                img.view(np.int32),
+                ref.images[f"port_{name}_rr{rr}"].view(np.int32))

@@ -123,8 +123,10 @@ def test_uniform_sphere_within_ulps(seed):
                                            torch.as_tensor(pix)),
                           sampling.TAG_BSDF)
     st = sampling.uniform_sphere(kt).numpy()
-    # normalization adds a rounding or two on top of the (equal) normals
-    np.testing.assert_allclose(st, sj, rtol=0, atol=4e-7)
+    # bit-equal: the normals are, and eager JAX runs each op of the
+    # normalization alone (no FMA), with a correctly rounded sqrt as the
+    # port's (vec.sqrt_rn); atol 4e-7 absorbed torch's CPU sqrt before
+    np.testing.assert_array_equal(st.view(np.int32), sj.view(np.int32))
     np.testing.assert_allclose(np.linalg.norm(st, axis=1), 1.0, atol=1e-6)
 
 
@@ -153,8 +155,9 @@ def test_sample_and_bounce_keys_bitwise(seed):
 
 @pytest.mark.parametrize("seed", [0, 7])
 def test_uniform_hemisphere_matches_jax(seed):
-    """One draw a key: the sphere sample (uniform_sphere's atol 4e-7) with
-    JAX's flip into the normal's hemisphere; dot == 0 keeps the sample."""
+    """One draw a key: the sphere sample (bit-equal, as uniform_sphere's)
+    with JAX's flip into the normal's hemisphere; dot == 0 keeps the
+    sample."""
     rng = np.random.default_rng(seed)
     n = 4096
     normal = rng.standard_normal((n, 3)).astype(np.float32)
@@ -166,7 +169,7 @@ def test_uniform_hemisphere_matches_jax(seed):
                                                            jnp.asarray(normal)))
     kt = threefry.fold_in(threefry.key(seed), torch.as_tensor(pix))
     ht = sampling.uniform_hemisphere(kt, torch.as_tensor(normal)).numpy()
-    np.testing.assert_allclose(ht, hj, rtol=0, atol=4e-7)
+    np.testing.assert_array_equal(ht.view(np.int32), hj.view(np.int32))
     assert ((ht * normal).sum(axis=1) >= 0).all()
     # a normal orthogonal to the sample: dot == 0 is not flipped
     d = sampling.uniform_sphere(kt[:8])
