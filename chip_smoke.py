@@ -54,7 +54,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   i_cap, rays all occluded by the first chunk) at S 2, 16,
                   96, 128, 512, closest and any hit, through the instance
                   the wrapper picks and the generic one: each bitwise its
-                  plain version (also under --kernels-only).
+                  plain version (also under --kernels-only). Also the
+                  first-slot instances of tile_sweep (tiles of T 1, 64,
+                  256 lanes, G 1, 4, 8 clusters) and kslot_sweep (K 1, 4,
+                  8) on the first-slot cases (exact t ties across a tile's
+                  clusters and within one cluster, where the first slot's
+                  id is the larger; dead lanes; misses; a cluster named
+                  twice), tuned and generic.
                   The item_sweep and kslot_sweep lines of the kernel,
                   item_waves and generic_kernels phases carry the
                   instance's registers, spills and warps an SM and, for a
@@ -209,7 +215,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   and at the bench cell if 16 x that predicts under 60 s:
                   seconds, host syncs; the image at atol 1e-5 against the
                   main path at the size it ran and against the oracle at
-                  96x54, differing pixels counted.
+                  96x54, differing pixels counted; kslot_sweep's first-slot
+                  instance (closest) and its any-hit sweep must both
+                  launch.
   15. path_kslots the kslots backend (per-ray K slots: kslots' cull, one
                   kslot_sweep launch a query, overflow through pair tiles)
                   warm at 96x54 (bitwise the oracle), at 480x270, and at
@@ -229,7 +237,29 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   it has them: bitwise against the plain version, timed,
                   bounded, with the distinct clusters a run of 128 rays
                   names.
-  16. worklist_mxu the worklist scene's kept closest and shadow queries
+  16. packet_cascade the first-slot instances (tie="slot") that carry the
+                  sweeps of traverse.closest_hit_packets and of the perray
+                  queries (XLA-fused in the JAX package): tile_sweep's on
+                  the first launch of the worklist render's kept whole-wave
+                  closest fallback (T 64, G 8) and of a cascade at blocks
+                  of 256 on 2^18 bounce rays (T 256, G 8), kslot_sweep's
+                  on the first launch of closest_hit_perray on 2^16 bounce
+                  rays (K 4): bitwise the plain version and the forced
+                  generic instance, timed beside the bound and the plain
+                  version; the worklist's and the kslots render's kept
+                  closest fallbacks (their first two whole-wave cascades)
+                  in turns before (the plain eager sweep on the card:
+                  traverse._kernel_sweeps patched off), after, after,
+                  before: device seconds, sweep seconds (CUDA events round
+                  each sweep) and the host loop's rest, the same bits; the
+                  "packets" route (blocks of 256) as path_perray renders
+                  perray (line path_packets); the worklist, kslots, perray
+                  and packets routes' seconds, host syncs and launches.
+                  Fails if the eager sweep helpers
+                  (traverse._packet_sweep_closest / _packet_sweep_any) ran
+                  in any route phase (they are counted from the build on;
+                  the "before" runs put their own calls back).
+  17. worklist_mxu the worklist scene's kept closest and shadow queries
                   (wave 0, bounce 1) through intersector "mxu", "mxu:high"
                   and "mxu:default" at blocks of 64, sorted, against
                   "exact": hit (occlusion) flips, the largest relative t
@@ -253,11 +283,12 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   held to the main path's image as path_pool is, the
                   concurrent runs profiled (busy share a card); then
                   mesh_cards_summary, each run's time over the main path's.
-Then the kernels line (seven kernels: the five, item_sweep and
-kslot_sweep, which replace no TPU kernel; launches on every path, the new
-ones under new_path_launches; each kernel's generic instance under
-"generic": its S = 128 time beside the tuned one's, its bound, and its
-launches in cluster_sizes), and last
+Then the kernels line (nine kernels: the five, item_sweep and
+kslot_sweep, which replace no TPU kernel, and the first-slot instances
+tile_sweep_first and kslot_sweep_first, which carry XLA-fused sweeps;
+launches on every path, the new ones under new_path_launches; each
+kernel's generic instance under "generic": its S = 128 time beside the
+tuned one's, its bound, and its launches in cluster_sizes), and last
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -440,11 +471,31 @@ def phase_build():
            for opt in ("sub_skip", "pack_t")
            for t, s_ in ((128, 256), (128, 128), (64, 128))},
     }
+    # the first-slot instances (the packet cascade's, perray's), with the
+    # spills ptxas reports for them
+    for key, occ, tag in (
+            ("tile_sweep_first T64 S128",
+             cuda_ctiles.kernel_occupancy(128, 64, tie="slot"),
+             "tile_sweep_kernelILi128ELi64ELi1ELb1E"),
+            ("tile_sweep_first T256 S128",
+             cuda_ctiles.kernel_occupancy(128, 256, tie="slot"),
+             "tile_sweep_kernelILi128ELi256ELi1ELb1E"),
+            ("kslot_sweep_first S128",
+             cuda_kslots.kernel_occupancy(128, True, tie="slot"),
+             "kslot_sweep_kernelILi128ELb1ELb1E"),
+            ("kslot_sweep_first Sgeneric",
+             cuda_kslots.kernel_occupancy(0, True, tie="slot"),
+             "kslot_sweep_kernelILi0ELb1ELb1E")):
+        occupancy[key] = {**occ, "spill_bytes": sum(
+            e["spill_bytes"] for es in ptxas.values() for e in es
+            if tag in e["entry"])}
     for name, mod in (("item_sweep", cuda_items),
                       ("kslot_sweep", cuda_kslots)):
         for s_, closest in ((128, True), (128, False), (0, True),
                             (0, False)):
-            tag = f"{name}_kernelILi{s_}ELb{int(closest)}E"
+            # kslot_sweep's instances of the oracle's rule (not first-slot)
+            tag = (f"{name}_kernelILi{s_}ELb{int(closest)}E"
+                   + ("Lb0E" if name == "kslot_sweep" else ""))
             spills = [e for e in ptxas.get(name, []) if tag in e["entry"]]
             _FACTS[(name, s_, closest)] = {
                 **mod.kernel_occupancy(s_, closest),
@@ -1141,7 +1192,10 @@ def _read_counts() -> dict:
             "block_anyhit": cuda_anyhit.launches,
             "block_closest": cuda_closest.launches,
             "item_sweep": cuda_items.launches,
-            "kslot_sweep": cuda_kslots.launches}
+            "kslot_sweep": cuda_kslots.launches,
+            # the first-slot instances (counted in the two above as well)
+            "tile_sweep_first": cuda_ctiles.slot_launches,
+            "kslot_sweep_first": cuda_kslots.slot_launches}
 
 
 def _tile_shapes() -> list:
@@ -1477,7 +1531,7 @@ def phase_sweep_cases(card):
     import contextlib
     import importlib.util
 
-    from path_tracer_ai_tpu_torch.accel import cuda_items, cuda_kslots
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_items, cuda_kslots
 
     # by its path: another installed package may answer to "tests"
     spec = importlib.util.spec_from_file_location("sweep_cases", os.path.join(
@@ -1513,10 +1567,41 @@ def phase_sweep_cases(card):
                 checked += 1
                 if not _same_outputs(got, plain):
                     bad.append([kernel, name, s, want_tri, forced])
+    # the first-slot instances (tie="slot") on the first-slot cases: tiles of
+    # T 1, 64, 256 lanes against G 1, 4, 8 clusters; kslots rows of K 1, 4, 8
+    first = []
+    for s in cases.SIZES:
+        for name in cases.FIRST_CASES:
+            for t_lanes in cases.FIRST_T:
+                for g in cases.FIRST_G:
+                    c = cases.first_case(name, s, t_lanes, g)
+                    first.append((cuda_ctiles.tile_sweep,
+                                  cuda_ctiles.tile_sweep_plain,
+                                  [name, s, t_lanes, g],
+                                  (t(cases.pack(c)), t(c["rays"]),
+                                   t(c["tile_cid"]))))
+            for k in cases.FIRST_G:
+                c = cases.first_kslot_case(name, s, k)
+                first.append((cuda_kslots.kslot_sweep,
+                              cuda_kslots.kslot_sweep_plain, [name, s, k],
+                              (t(cases.pack(c)), t(c["rays"]), t(c["cid"]),
+                               t(c["n_slots"]), True)))
+    for run, run_plain, tag, args in first:
+        plain = run_plain(*args, tie="slot")
+        for forced in (False, True):
+            with (_generic_instances() if forced
+                  else contextlib.nullcontext()):
+                got = run(*args, tie="slot")
+            checked += 1
+            if not _same_outputs(got, plain):
+                bad.append([run.__name__ + "_first", *tag, forced])
     torch.cuda.synchronize()
     emit({"phase": "sweep_cases", "card": card, "sizes": list(cases.SIZES),
           "item_cases": list(cases.ITEM_CASES),
-          "kslot_cases": list(cases.KSLOT_CASES), "checked": checked,
+          "kslot_cases": list(cases.KSLOT_CASES),
+          "first_slot_cases": list(cases.FIRST_CASES),
+          "first_slot_T": list(cases.FIRST_T),
+          "first_slot_G": list(cases.FIRST_G), "checked": checked,
           "mismatches": bad})
     if bad:
         fail("sweep_cases", f"{len(bad)} crafted cases differ from the "
@@ -2376,7 +2461,7 @@ def phase_item_waves(scene, accel, card):
     waves' worklist queries for profile_worklist. Returns the two checks,
     the kept queries and the render's seconds (the warm pass of
     path_worklist)."""
-    from path_tracer_ai_tpu_torch.accel import cuda_items, worklist
+    from path_tracer_ai_tpu_torch.accel import cuda_items, traverse, worklist
     from path_tracer_ai_tpu_torch.config import RenderSettings
     from path_tracer_ai_tpu_torch.engine import wavefront
     from path_tracer_ai_tpu_torch.scene.camera import default_camera
@@ -2387,7 +2472,9 @@ def phase_item_waves(scene, accel, card):
     kept = {}
     wrapped = [(cuda_items, "item_sweep", lambda a: a[-1]),
                (worklist, "closest_hit_worklist", lambda a: "closest_wave"),
-               (worklist, "any_hit_worklist", lambda a: "shadow_wave")]
+               (worklist, "any_hit_worklist", lambda a: "shadow_wave"),
+               # the closest fallback's whole-wave cascades (packet_cascade)
+               (traverse, "closest_hit_packets", lambda a: "fallback")]
     reals = [(mod, name, _keeping(mod, name, kept, key))
              for mod, name, key in wrapped]
     try:
@@ -2404,6 +2491,7 @@ def phase_item_waves(scene, accel, card):
                                            "shadow_wave")) < 2:
         fail("item_waves", "the render made fewer than two item_sweep "
                            "launches or worklist queries of a wave type")
+    KEPT_FALLBACKS["worklist"] = kept.get("fallback", [])
     checks = [_check_item_sweep(kept[True][1][0], "closest, wave 0, bounce 1"),
               _check_item_sweep(kept[False][1][0],
                                 "shadow, wave 0, bounce 1")]
@@ -3112,19 +3200,20 @@ def phase_path_ctiles(scene, accel_base, accel_c, card, img_main):
     return out
 
 
-PERRAY_CUT = dict(width=480, height=270)
-PERRAY_BENCH_LIMIT_S = 60.0
+ROUTE_CUT = dict(width=480, height=270)
+ROUTE_BENCH_LIMIT_S = 60.0
 
 
-def phase_path_perray(scene, accel_base, accel_c, card, img_main):
-    """The perray backend (traverse's per-ray queries, eager torch, as the
-    reference's are XLA code): at 480x270 first (the bench's spp and
-    bounces; warm at 96x54, then timed), then at the bench cell if 16
-    times that predicts under PERRAY_BENCH_LIMIT_S. Its image is held at
-    atol 1e-5 against the main path at the size it ran (a main-path render
-    at 480x270 when cut), and at 96x54 against the oracle, with the
-    differing pixels counted (its tie rule is the packet cascade's first
-    slot)."""
+def _route_at_cut(phase, scene, accel_base, accel_c, card, img_main, kernels,
+                  **render_kw):
+    """A route whose tie rule is the packet cascade's first slot (perray,
+    packets): at 480x270 first (the bench's spp and bounces; warm at
+    96x54, then timed), then at the bench cell if 16 times that predicts
+    under ROUTE_BENCH_LIMIT_S. Its image is held at atol 1e-5 against the
+    main path at the size it ran (a main-path render at 480x270 when cut),
+    and at 96x54 against the oracle, with the differing pixels counted.
+    Fails unless every kernel in `kernels` was launched in the timed
+    render."""
     from path_tracer_ai_tpu_torch.config import RenderSettings
     from path_tracer_ai_tpu_torch.engine import oracle, wavefront
     from path_tracer_ai_tpu_torch.scene.camera import default_camera
@@ -3132,7 +3221,7 @@ def phase_path_perray(scene, accel_base, accel_c, card, img_main):
 
     cam = default_camera("cuda")
     kw = dict(wave_size=1 << 20, device="cuda", accel=accel_base,
-              backend="perray")
+              **render_kw)
 
     def timed(settings):
         _reset_counts()
@@ -3153,14 +3242,14 @@ def phase_path_perray(scene, accel_base, accel_c, card, img_main):
 
     small = RenderSettings(**{**BENCH, "width": 96, "height": 54})
     img_small, _ = timed(small)  # also the warm pass
-    res = {"phase": "path_perray", "card": card,
+    res = {"phase": phase, "card": card, "render_kw": render_kw,
            "vs_oracle_96x54": against(img_small, oracle.render(
                scene, cam, small, device="cuda"))}
-    cut = RenderSettings(**{**BENCH, **PERRAY_CUT})
+    cut = RenderSettings(**{**BENCH, **ROUTE_CUT})
     img_cut, res["cut_480x270"] = timed(cut)
     predicted = res["cut_480x270"]["seconds"] * 16
     res["predicted_bench_seconds"] = predicted
-    if predicted < PERRAY_BENCH_LIMIT_S:
+    if predicted < ROUTE_BENCH_LIMIT_S:
         img, run = timed(RenderSettings(**BENCH))
         res.update(run, size="1920x1080", vs_main=against(img, img_main))
     else:
@@ -3170,15 +3259,29 @@ def phase_path_perray(scene, accel_base, accel_c, card, img_main):
         img = img_cut
         res.update(res["cut_480x270"], size="480x270 (cut: 16 x the "
                    "480x270 render predicts over "
-                   f"{PERRAY_BENCH_LIMIT_S:.0f} s at 1920x1080)",
+                   f"{ROUTE_BENCH_LIMIT_S:.0f} s at 1920x1080)",
                    vs_main=against(img, img_m))
     image_ok = _image_verdict(img, res)
-    _finish_path(res, [], image_ok)
+    _finish_path(res, [k for k in kernels if res["launches"][k] <= 0],
+                 image_ok)
     bad = {k: v for k, v in (("vs_main", res["vs_main"]),
                              ("vs_oracle_96x54", res["vs_oracle_96x54"]))
            if v["pixels_over_1e-5"]}
     if bad:
-        fail("path_perray", f"perray differs beyond atol 1e-5: {bad}")
+        fail(phase, f"{render_kw} differs beyond atol 1e-5: {bad}")
+    return res
+
+
+def phase_path_perray(scene, accel_base, accel_c, card, img_main):
+    """The perray backend (traverse's per-ray queries: kslot_sweep's
+    first-slot instance for closest hits, its any-hit sweep for shadows,
+    one launch a cascade iteration) through _route_at_cut; both kinds of
+    launch must occur."""
+    res = _route_at_cut("path_perray", scene, accel_base, accel_c, card,
+                        img_main, ["kslot_sweep_first"], backend="perray")
+    n = res["launches"]
+    if n["kslot_sweep"] <= n["kslot_sweep_first"]:
+        fail("path_perray", f"no any-hit kslot_sweep launch: {n}")
     return res
 
 
@@ -3197,7 +3300,7 @@ def phase_path_kslots(scene, accel_base, accel_c, card, img_main):
     tile_sweep's by shape), the device seconds of each kslots stage (cull,
     sweep, fallback; CUDA events) and the overflow shares (over k_supers,
     over k_clusters, over k_clusters only for phantom children)."""
-    from path_tracer_ai_tpu_torch.accel import cuda_kslots, kslots
+    from path_tracer_ai_tpu_torch.accel import cuda_kslots, kslots, traverse
     from path_tracer_ai_tpu_torch.config import RenderSettings
     from path_tracer_ai_tpu_torch.engine import oracle, wavefront
     from path_tracer_ai_tpu_torch.scene.camera import default_camera
@@ -3263,6 +3366,9 @@ def phase_path_kslots(scene, accel_base, accel_c, card, img_main):
         # once it has them
         real = _keeping(cuda_kslots, "kslot_sweep", kept, lambda a: a[-1])
         keeping = cuda_kslots.kslot_sweep
+        # and of its first two closest fallback cascades (packet_cascade)
+        real_fb = _keeping(traverse, "closest_hit_packets", kept,
+                           lambda a: "fallback")
 
         def until_kept(*a, **kw):
             out = keeping(*a, **kw)
@@ -3277,6 +3383,8 @@ def phase_path_kslots(scene, accel_base, accel_c, card, img_main):
             pass
         finally:
             cuda_kslots.kslot_sweep = real
+            traverse.closest_hit_packets = real_fb
+        KEPT_FALLBACKS["kslots"] = kept.get("fallback", [])
     else:
         img_m = wavefront.render(scene, cam, cut, wave_size=1 << 20,
                                  device="cuda", accel=accel_base,
@@ -3303,6 +3411,306 @@ def phase_path_kslots(scene, accel_base, accel_c, card, img_main):
         fail("path_kslots", "the bench render made fewer than two "
                             "kslot_sweep launches of a kind")
     return res
+
+
+# --- the packet cascade's and perray's first-slot sweeps --------------------
+
+# Calls of the eager sweep helpers (traverse._packet_sweep_closest and
+# _packet_sweep_any) since _spy_eager_sweeps: on the card every cascade
+# sweeps through a kernel, so the route phases must leave both at 0
+# (packet_cascade's "before" runs put their own calls back).
+EAGER_CALLS = {}
+
+# The closest fallbacks' whole-wave packet cascades kept from the worklist
+# render (item_waves) and the kslots render (path_kslots): (args, kw) of
+# their first two traverse.closest_hit_packets calls.
+KEPT_FALLBACKS = {"worklist": [], "kslots": []}
+
+
+def _spy_eager_sweeps() -> None:
+    from path_tracer_ai_tpu_torch.accel import traverse
+
+    for name in ("_packet_sweep_closest", "_packet_sweep_any"):
+        EAGER_CALLS[name] = 0
+
+        def spy(*a, _real=getattr(traverse, name), _name=name, **kw):
+            EAGER_CALLS[_name] += 1
+            return _real(*a, **kw)
+
+        setattr(traverse, name, spy)
+
+
+class _KeepFirst:
+    """While entered, mod.name keeps copies of the arguments of its first
+    call for which want(args, kw) holds (self.args, self.kw)."""
+
+    def __init__(self, mod, name, want):
+        self.mod, self.name, self.want = mod, name, want
+        self.args = self.kw = None
+
+    def __enter__(self):
+        self.real = real = getattr(self.mod, self.name)
+
+        def keep(*a, **kw):
+            if self.args is None and self.want(a, kw):
+                self.args = tuple(x.clone() if torch.is_tensor(x) else x
+                                  for x in a)
+                self.kw = dict(kw)
+            return real(*a, **kw)
+
+        setattr(self.mod, self.name, keep)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.real)
+
+
+def _check_first(name, run, plain, args, stats, nbytes, wave, reps=20):
+    """A first-slot instance (run(*args)) against its plain version
+    (plain(*args, stats=...)): bitwise t, exact tri; timed beside its bound
+    over the needed tests (stats["tests"]) and its plain version; its
+    generic instance (forced) on the same arguments, bitwise and timed."""
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles
+
+    k = run(*args)
+    p = plain(*args, stats=stats)
+    torch.cuda.synchronize()
+    ok = _same_outputs(k, p)
+    ms = cuda_ms(lambda: run(*args), reps)
+    with _generic_instances():
+        gen_ok = _same_outputs(run(*args), p)
+        gen_ms = cuda_ms(lambda: run(*args), reps)
+    plain_ms = cuda_ms(lambda: plain(*args), 1)
+    hits = int((k[1] != cuda_ctiles.I32_MAX).sum())
+    res = {"phase": "packet_cascade", "name": name, "wave": wave,
+           "hits": hits, "matches_plain": ok,
+           "max_abs_err": _max_abs_err(k[0], p[0]), "ms": ms,
+           "plain_ms": plain_ms, **_bound(nbytes, stats["tests"]),
+           "generic_ms": gen_ms, "generic_matches_plain": gen_ok}
+    res["ms_over_bound"] = ms / res["bound_ms"]
+    res["generic_over_bound"] = gen_ms / res["bound_ms"]
+    return res
+
+
+def _check_first_tile(args, wave) -> dict:
+    """tile_sweep's first-slot instance on one cascade iteration's launch
+    (pack, rays [nt, 8, T] with t_max = min(t_max, best t), tile_cid
+    [nt, G]); bound over the live lanes' G x S tests."""
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles
+
+    pack, rays, cid = args
+    nt, _, t_lanes = rays.shape
+    s = pack.shape[2]
+    stats = {}
+
+    def plain(*a, stats=None):
+        got = cuda_ctiles.tile_sweep_plain(*a, stats=stats, tie="slot")
+        if stats is not None:
+            stats["tests"] = stats["lane_tests"]
+        return got
+
+    nbytes = (int(torch.unique(cid).numel()) * 10 * s * 4
+              + _nbytes(rays, cid) + nt * t_lanes * 8)
+    res = _check_first(
+        "tile_sweep_first",
+        lambda *a: cuda_ctiles.tile_sweep(*a, tie="slot"), plain, args,
+        stats, nbytes, wave)
+    res.update(T=t_lanes, S=s, G=cid.shape[1], nt=nt,
+               live_lanes=int((rays[:, 6] >= 0).sum()))
+    return res
+
+
+def _check_first_kslot(args, wave) -> dict:
+    """kslot_sweep's first-slot instance on one perray iteration's launch
+    (pack, rays [n, 8] with t_max = min(t_max, best t), cid [n, g],
+    n_slots = g); bound over the live rays' slots x S tests."""
+    from path_tracer_ai_tpu_torch.accel import cuda_kslots
+
+    pack, rays, cid, n_slots = args[:4]
+    s = pack.shape[2]
+    nbytes = (int(torch.unique(cid).numel()) * 10 * s * 4
+              + _nbytes(rays, cid, n_slots) + rays.shape[0] * 8)
+    res = _check_first(
+        "kslot_sweep_first",
+        lambda *a: cuda_kslots.kslot_sweep(*a, True, tie="slot"),
+        lambda *a, stats=None: cuda_kslots.kslot_sweep_plain(
+            *a, True, stats=stats, tie="slot"),
+        (pack, rays, cid, n_slots), {}, nbytes, wave)
+    res.update(rays=rays.shape[0], K=cid.shape[1], S=s,
+               live_rays=int((rays[:, 6] >= rays[:, 7]).sum()))
+    return res
+
+
+def _timed_query(fn, args, kw, spy_mod, spy_name):
+    """fn(*args, **kw) once, each call of spy_mod.spy_name (the sweep)
+    bracketed by CUDA events: (result, device seconds of the call, of its
+    sweeps, the rest (the cascade's host loop: its other kernels and the
+    waits on host reads), sweeps, wall seconds)."""
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    spans = []
+    real = getattr(spy_mod, spy_name)
+
+    def timed(*a, **k):
+        s_, e_ = ev(), ev()
+        s_.record()
+        out = real(*a, **k)
+        e_.record()
+        spans.append((s_, e_))
+        return out
+
+    torch.cuda.synchronize()
+    start, end = ev(), ev()
+    setattr(spy_mod, spy_name, timed)
+    try:
+        t0 = time.perf_counter()
+        start.record()
+        out = fn(*args, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        setattr(spy_mod, spy_name, real)
+    total = start.elapsed_time(end) / 1e3
+    sweep = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    return out, {"device_seconds": total, "sweep_seconds": sweep,
+                 "host_loop_seconds": total - sweep, "sweeps": len(spans),
+                 "wall_seconds": wall}
+
+
+def _fallback_before_after(route, call) -> dict:
+    """One kept whole-wave closest fallback (traverse.closest_hit_packets)
+    in turns: before (the plain eager sweep on the card, the parent's
+    route: traverse._kernel_sweeps patched to False), after (tile_sweep's
+    first-slot instance), after, before; each split into sweep and host
+    loop by CUDA events. The two must give the same bits."""
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles, traverse
+
+    args, kw = call
+    real_switch = traverse._kernel_sweeps
+    saved = dict(EAGER_CALLS)
+    runs = {"before": [], "after": []}
+    outs = {}
+    try:
+        for which in ("before", "after", "after", "before"):
+            if which == "before":
+                traverse._kernel_sweeps = lambda dev: False
+                out, r = _timed_query(traverse.closest_hit_packets, args, kw,
+                                      traverse, "_packet_sweep_closest")
+            else:
+                traverse._kernel_sweeps = real_switch
+                out, r = _timed_query(traverse.closest_hit_packets, args, kw,
+                                      cuda_ctiles, "tile_sweep")
+            runs[which].append(r)
+            outs.setdefault(which, out)
+    finally:
+        traverse._kernel_sweeps = real_switch
+        EAGER_CALLS.update(saved)
+    same = (_bits_equal(outs["before"].t, outs["after"].t)
+            and bool(torch.equal(outs["before"].tri, outs["after"].tri)))
+    best = {w: {k: min(r[k] for r in runs[w]) for k in runs[w][0]}
+            for w in runs}
+    return {"route": route, "rays": int(args[1].shape[0]),
+            "live_rays": int((args[4] >= 0).sum()),
+            "hits": int(outs["after"].hit.sum()),
+            "block_size": kw.get("block_size"), "same_bits": same,
+            "runs": runs, "best": best,
+            "device_over_before": best["after"]["device_seconds"]
+            / best["before"]["device_seconds"],
+            "sweep_over_before": best["after"]["sweep_seconds"]
+            / max(best["before"]["sweep_seconds"], 1e-9),
+            "host_loop_share_after": best["after"]["host_loop_seconds"]
+            / best["after"]["device_seconds"]}
+
+
+def _route_summary(res) -> dict:
+    keys = ("size", "seconds", "mrays_per_s", "host_syncs",
+            "stage_device_seconds")
+    out = {k: res[k] for k in keys if k in res}
+    out["launches"] = {k: v for k, v in res["launches"].items() if v}
+    return out
+
+
+def phase_packet_cascade(scene, accel_base, accel_c, card, img_main,
+                         routes) -> dict:
+    """The first-slot instances and the routes they serve. (1) tile_sweep's
+    first-slot instance on the first launch of the worklist render's kept
+    closest fallback (T 64, G 8, the worklist scene) and of a packet
+    cascade at blocks of 256 on a 2^18-ray bounce wave of the bench accel
+    (T 256, G 8); kslot_sweep's first-slot instance on the first launch of
+    closest_hit_perray on a 2^16-ray bounce wave (K 4): each bitwise its
+    plain version and its forced generic instance, timed beside its bound
+    and its plain version. (2) The worklist's and the kslots render's kept
+    whole-wave closest fallbacks before (the plain sweep on the card) and
+    after, in turns, sweep against host loop. (3) The "packets" route
+    (blocks of 256) rendered as path_perray renders perray. (4) The eager
+    sweep helpers ran 0 times in the route phases so far. Returns the
+    kernel checks for the kernels line and the packets route."""
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_kslots, traverse
+
+    eager_before = dict(EAGER_CALLS)
+    rng = np.random.default_rng(14)
+    checks = {}
+    fb = KEPT_FALLBACKS["worklist"]
+    if not fb:
+        fail("packet_cascade", "the worklist render kept no whole-wave "
+                               "closest fallback")
+    with _KeepFirst(cuda_ctiles, "tile_sweep",
+                    lambda a, kw: kw.get("tie") == "slot") as kept:
+        traverse.closest_hit_packets(*fb[0][0], **fb[0][1])
+    checks["tile_sweep_first"] = _check_first_tile(
+        kept.args, "worklist render's closest fallback, first iteration")
+    o, d, tm = _bounce_wave(accel_base, 1 << 18, rng, shadow=False)
+    tm[::7] = -1.0
+    with _KeepFirst(cuda_ctiles, "tile_sweep",
+                    lambda a, kw: kw.get("tie") == "slot") as kept:
+        traverse.closest_hit_packets(accel_base, o, d, 1e-3, tm,
+                                     block_size=256)
+    checks["tile_sweep_first_t256"] = _check_first_tile(
+        kept.args, "2^18 bounce rays, blocks of 256, first iteration")
+    o, d, tm = _bounce_wave(accel_base, 1 << 16, rng, shadow=False)
+    tm[::7] = -1.0
+    with _KeepFirst(cuda_kslots, "kslot_sweep",
+                    lambda a, kw: kw.get("tie") == "slot") as kept:
+        traverse.closest_hit_perray(accel_base, o, d, 1e-3, tm)
+    checks["kslot_sweep_first"] = _check_first_kslot(
+        kept.args, "2^16 bounce rays, perray, first iteration")
+    for c in checks.values():
+        emit(c)
+        if not (c["matches_plain"] and c["generic_matches_plain"]):
+            fail("packet_cascade", f"{c['name']} disagrees with its plain "
+                                   f"version on the {c['wave']} wave")
+        if c["hits"] == 0:
+            fail("packet_cascade", f"{c['name']}: the {c['wave']} wave hit "
+                                   "nothing")
+
+    fallbacks = [_fallback_before_after(r, call)
+                 for r in ("worklist", "kslots")
+                 for call in KEPT_FALLBACKS[r]]
+    for f in fallbacks:
+        emit({"phase": "packet_cascade_fallback", "card": card, **f})
+    if not all(f["same_bits"] for f in fallbacks):
+        fail("packet_cascade", "a fallback's kernel route differs from its "
+                               "plain sweep")
+
+    packets = _route_at_cut("path_packets", scene, accel_base, accel_c,
+                            card, img_main, ["tile_sweep_first"],
+                            backend="packets", block_size=256)
+    routes = {**routes, "packets": packets}
+    res = {"phase": "packet_cascade", "card": card,
+           "eager_calls_in_route_phases": eager_before,
+           "checks": {k: {x: c[x] for x in (
+               "ms", "bound_ms", "ms_over_bound", "plain_ms", "generic_ms")}
+               for k, c in checks.items()},
+           "fallbacks": [{k: f[k] for k in (
+               "route", "rays", "live_rays", "best", "device_over_before",
+               "sweep_over_before", "host_loop_share_after")}
+               for f in fallbacks],
+           "routes": {k: _route_summary(v) for k, v in routes.items()}}
+    emit(res)
+    if any(eager_before.values()):
+        fail("packet_cascade", f"the eager sweeps ran in a route phase on "
+                               f"the card: {eager_before}")
+    return checks, packets
 
 
 def phase_worklist_mxu(waves, item_checks, card, min_swept=1000):
@@ -3512,6 +3920,12 @@ KERNELS = {
     # no Pallas kernel: the XLA-fused SWEEP and RESOLVE of
     # kslots._chunk_pipeline
     "kslot_sweep": ("kslot_sweep.cu", None, "path_kslots"),
+    # the first-slot instances (no Pallas kernel): the XLA-fused sweep of
+    # traverse.closest_hit_packets (traverse.py:823-845), whose busiest
+    # route is the worklist's closest fallback, and of closest_hit_perray
+    # (traverse.py:648-665)
+    "tile_sweep_first": ("ctiles_sweep.cu", None, "path_worklist"),
+    "kslot_sweep_first": ("kslot_sweep.cu", None, "path_perray"),
 }
 
 
@@ -3531,6 +3945,7 @@ def main() -> int:
 
     card = phase_device()
     occupancy, ptxas = phase_build()
+    _spy_eager_sweeps()
     if args.sass:
         dump_sass(args.sass)
 
@@ -3594,10 +4009,29 @@ def main() -> int:
     ctiles_paths = phase_path_ctiles(scene, accel_base, accel_c, card,
                                      img_main)
     perray = phase_path_perray(scene, accel_base, accel_c, card, img_main)
+    paths["path_perray"] = perray
     paths["path_kslots"] = phase_path_kslots(scene, accel_base, accel_c,
                                              card, img_main)
+    first_checks, packets = phase_packet_cascade(
+        scene, accel_base, accel_c, card, img_main,
+        {"worklist": paths["path_worklist"], "kslots": paths["path_kslots"],
+         "perray": perray})
+    checks.update(first_checks)
+    for name in ("tile_sweep_first", "kslot_sweep_first"):
+        c = checks[name]
+        generic[name] = {"S": c["S"], "generic_ms": c["generic_ms"],
+                         "tuned_ms": c["ms"],
+                         "generic_over_tuned": c["generic_ms"] / c["ms"],
+                         "bound_ms": c["bound_ms"],
+                         "generic_over_bound": c["generic_over_bound"],
+                         "plain_ms": c["plain_ms"],
+                         "matches_plain": c["generic_matches_plain"]}
     phase_worklist_mxu(worklist_waves, item_waves, card)
+    if any(EAGER_CALLS.values()):
+        fail("packet_cascade", f"the eager sweeps ran on the card: "
+                               f"{EAGER_CALLS}")
     new_paths = {**ctiles_paths, "path_perray": perray,
+                 "path_packets": packets,
                  "path_kslots": paths["path_kslots"],
                  "path_pool": paths["path_pool"],
                  "path_mesh_virtual_2x2": meshes["virtual_2x2"],
@@ -3661,8 +4095,11 @@ def main() -> int:
                 row["S"]: sum(r["generic_launches"].get(name, 0)
                               for r in row["renders"].values())
                 for row in sizes},
+            # the first-slot instances are not held there (sweep_cases
+            # and packet_cascade hold their generic instance)
             "cluster_sizes_matches_plain": all(
-                row["generic_matches_plain"][name] for row in sizes)},
+                row["generic_matches_plain"][name] for row in sizes)
+            if name in sizes[0]["generic_matches_plain"] else None},
         "occupancy": {k: v for k, v in occupancy.items()
                       if k.split()[0] == name},
         **({"render_waves": [
@@ -3681,6 +4118,14 @@ def main() -> int:
             "matches_plain": all(checks[k]["matches_plain"] for k in (
                 "kslot_sweep", "kslot_sweep_shadow"))}
            if name == "kslot_sweep" else {}),
+        **({"waves": [
+            {k: w[k] for k in ("wave", "T", "S", "G", "nt", "ms", "plain_ms",
+                               "bound_ms", "ms_over_bound", "matches_plain")}
+            for w in (checks["tile_sweep_first"],
+                      checks["tile_sweep_first_t256"])],
+            "matches_plain": checks["tile_sweep_first"]["matches_plain"]
+            and checks["tile_sweep_first_t256"]["matches_plain"]}
+           if name == "tile_sweep_first" else {}),
     } for name, (source, replaces, phase) in KERNELS.items()],
         "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,6 +12,17 @@ cascade (T = 64, S = 128, an iteration's G candidates a tile; occluded =
 tri != INT32_MAX). G clusters in one call equal G calls folded with
 `combine_min_tri`.
 
+`tile_sweep(..., tie="slot")` is its first-slot instance: per lane the
+minimum t and the triangle id of the FIRST slot that reaches it, slots
+counted cluster i of the tile's G, then triangle j of the cluster
+(jnp.argmin's rule), and (inf, INT32_MAX) on a miss. It carries the sweep
+of the packet cascade, path_tracer_ai_tpu/accel/traverse.py
+`closest_hit_packets` (traverse.py:823-845: XLA-fused there, no Pallas
+kernel), which runs in every closest overflow fallback that goes through
+the whole wave and in the "packets" backend. Its kernel has tuned
+instances for (T, S) in (64, 128) and (256, 128); every other shape goes to
+the generic instance. It takes neither option.
+
 Two options, each giving the same bits as the option switched off
 (pallas_ctiles.py:168-231): `sub_skip` reads the 16-row pack (pack_tris16)
 and sweeps a 32-triangle sub-slab only where some live lane's segment
@@ -52,25 +63,30 @@ from path_tracer_ai_tpu_torch.core.types import MT_EPSILON
 from path_tracer_ai_tpu_torch.utils import sync
 
 I32_MAX = 2**31 - 1
+INF = float("inf")
 PACK_ROWS = 10
 RAY_ROWS = 8
 SOURCE = "ctiles_sweep"
 
 # Kernel launches since the last reset (the plain version never counts),
-# those of the generic instance among them, and the same split by shape:
-# (T, S, G) -> [launches, tiles], with the option ("sub_skip" or "pack_t")
-# where one is on and "generic" where the generic instance ran as further
-# elements. Updated under sync.lock (the mesh's workers launch from
-# several threads).
+# those of the generic instance and those of the first-slot instance
+# (tie="slot", tuned or generic) among them, and the same split by shape:
+# (T, S, G) -> [launches, tiles], with the option ("sub_skip", "pack_t" or
+# "slot") where one is on and "generic" where the generic instance ran as
+# further elements. Updated under sync.lock (the mesh's workers launch
+# from several threads).
 launches = 0
 generic_launches = 0
+slot_launches = 0
 launch_shapes: dict = {}
+
+TIES = ("tri", "slot")
 
 
 def reset_launches() -> None:
-    global launches, generic_launches
+    global launches, generic_launches, slot_launches
     with sync.lock:
-        launches = generic_launches = 0
+        launches = generic_launches = slot_launches = 0
         launch_shapes.clear()
 
 
@@ -190,13 +206,15 @@ PLAIN_ELEMS = 1 << 22  # [blocks, T, rows] elements per step of sweep_rows_plain
 
 
 def sweep_rows_plain(tri_pack, cid, rays, lo: int, hi: int, t_max=None,
-                     any_hit: bool = False):
+                     any_hit: bool = False, tie: str = "tri"):
     """Blocks of T rays against slots lo..hi-1 of ONE cluster each (cid [n]
     i64) or of G clusters each (cid [n, G], one reduction over their G *
     (hi - lo) slots), in eager torch: tri_pack [C, >=10, S], rays [n, 8, T];
     t_max [n, T] replaces ray row 6. Returns (best t [n, T], min tri id at
     best t [n, T] i32, INT32_MAX on a miss), or with any_hit the [n, T] bool
-    "some slot passes". Chunked so the [blocks, T, rows] temporaries stay
+    "some slot passes"; tie="slot": the id of the first slot at the best t
+    (argmin over the slots in (cluster, triangle) order; INT32_MAX where
+    the best t is inf). Chunked so the [blocks, T, rows] temporaries stay
     small."""
     n, _, t_lanes = rays.shape
     dev = rays.device
@@ -219,8 +237,15 @@ def sweep_rows_plain(tri_pack, cid, rays, lo: int, hi: int, t_max=None,
         if any_hit:
             hit[a:b] = ok.any(dim=-1)
             continue
-        best = tt.amin(dim=-1)
         tid = tp[:, 9, None, :].view(torch.int32)
+        if tie == "slot":
+            slot = torch.argmin(tt, dim=-1, keepdim=True)  # the first minimum
+            best = torch.gather(tt, 2, slot).squeeze(2)
+            first = torch.gather(tid.expand(tt.shape), 2, slot).squeeze(2)
+            t_out[a:b] = best
+            tri_out[a:b] = torch.where(best < INF, first, I32_MAX)
+            continue
+        best = tt.amin(dim=-1)
         t_out[a:b] = best
         tri_out[a:b] = torch.where(ok & (tt <= best[..., None]), tid,
                                    I32_MAX).amin(dim=-1).to(torch.int32)
@@ -236,19 +261,19 @@ def sub_slab_ranges(s: int, sub_skip: bool):
 
 
 def tile_sweep_plain(tri_pack, rays_pack, tile_cid, sub_skip=False,
-                     pack_t=False, stats: Optional[dict] = None):
+                     pack_t=False, stats: Optional[dict] = None,
+                     tie: str = "tri"):
     """The kernel's function in eager torch: the [tiles, T, G * S] sweep
-    plus the min / min-tri-at-min reduction, chunked over tiles. tile_cid
-    [nt] or [nt, G]. pack_t: tri_pack is [C, S, 16] (read through its
+    plus the min / min-tri-at-min reduction (tie="slot": the first slot at
+    the min, sweep_rows_plain's), chunked over tiles. tile_cid [nt] or
+    [nt, G]. pack_t: tri_pack is [C, S, 16] (read through its
     transpose). sub_skip: each cluster in sub-slabs, with a tile-uniform
     gate (a sub-slab is swept for the tiles where some lane's [t_min,
     min(t_max, running best)] segment touches its box; the kernel votes per
     warp, so it sweeps a subset of these, to the same bits). stats["tests"]
     counts the ray/triangle tests of the sweeps made here over all T lanes,
     stats["lane_tests"] those of their live lanes (t_max >= 0)."""
-    if sub_skip and pack_t:
-        raise ValueError("sub_skip reads the [C, 16, S] pack; pack_t cannot "
-                         "be combined with it")
+    _check_options(sub_skip, pack_t, tie)
     if pack_t:
         tri_pack = tri_pack.transpose(1, 2)
     nt, _, t_lanes = rays_pack.shape
@@ -262,7 +287,7 @@ def tile_sweep_plain(tri_pack, rays_pack, tile_cid, sub_skip=False,
             live = int((rays_pack[:, 6] >= 0.0).sum())
             stats["tests"] = stats.get("tests", 0) + nt * t_lanes * swept
             stats["lane_tests"] = stats.get("lane_tests", 0) + live * swept
-        return sweep_rows_plain(tri_pack, cid, rays_pack, 0, s)
+        return sweep_rows_plain(tri_pack, cid, rays_pack, 0, s, tie=tie)
     dev = rays_pack.device
     best_t = torch.full((nt, t_lanes), float("inf"), dtype=torch.float32,
                         device=dev)
@@ -294,6 +319,17 @@ def tile_sweep_plain(tri_pack, rays_pack, tile_cid, sub_skip=False,
     return best_t, best_tri
 
 
+def _check_options(sub_skip, pack_t, tie):
+    if tie not in TIES:
+        raise ValueError(f"tie must be one of {TIES}, not {tie!r}")
+    if sub_skip and pack_t:
+        raise ValueError("sub_skip reads the [C, 16, S] pack; pack_t cannot "
+                         "be combined with it")
+    if tie == "slot" and (sub_skip or pack_t):
+        raise ValueError("the first-slot instance takes neither sub_skip "
+                         "nor pack_t")
+
+
 def _check(name, x, dtype, ndim, device):
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
@@ -314,6 +350,14 @@ def _kernel():
     return fn
 
 
+def _kernel_first():
+    fn = cuda_build.load(SOURCE).ctiles_sweep_first
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _kernel_options():
     fn = cuda_build.load(SOURCE).ctiles_sweep_options
     if fn.argtypes is None:
@@ -323,11 +367,11 @@ def _kernel_options():
     return fn
 
 
-# ctiles_sweep_options' `mode`: which option the instance compiles in.
+# ctiles_sweep_options' `mode`: which option the instance compiles in
+# (MODE_FIRST: ctiles_sweep_first's, through the generic instance only).
 MODE_SUB_SKIP = 1
 MODE_PACK_T = 2
-
-
+MODE_FIRST = 3
 
 
 def read_occupancy(fn, *shape) -> dict:
@@ -355,10 +399,12 @@ def rcp_mismatches() -> int:
 
 
 def kernel_occupancy(s: int, t_lanes: int, sub_skip: bool = False,
-                     pack_t: bool = False) -> dict:
-    """tile_sweep's (S, T) instance, or its sub_skip / pack_t instance
-    (needs the card)."""
+                     pack_t: bool = False, tie: str = "tri") -> dict:
+    """tile_sweep's (S, T) instance, or its sub_skip / pack_t / first-slot
+    instance (needs the card)."""
     lib = cuda_build.load(SOURCE)
+    if tie == "slot":
+        return read_occupancy(lib.ctiles_sweep_first_occupancy, s, t_lanes)
     if not (sub_skip or pack_t):
         return read_occupancy(lib.ctiles_sweep_occupancy, s, t_lanes)
     return read_occupancy(lib.ctiles_sweep_options_occupancy, s, t_lanes,
@@ -374,25 +420,25 @@ def _kernel_generic():
     return fn
 
 
-def tile_sweep(tri_pack, rays_pack, tile_cid, sub_skip=False, pack_t=False):
+def tile_sweep(tri_pack, rays_pack, tile_cid, sub_skip=False, pack_t=False,
+               tie: str = "tri"):
     """(t [nt, T] f32, tri [nt, T] i32); tri = INT32_MAX on a miss.
 
     tile_cid [nt] (one cluster a tile) or [nt, G] (tile i against its G
-    clusters, folded with the lexicographic (t, min tri) rule). tri_pack is
+    clusters, folded with the lexicographic (t, min tri) rule, or with
+    tie="slot" by the first slot at the minimum t). tri_pack is
     pack_tris' [C, 10, S]; with sub_skip pack_tris16's [C, 16, S], with
     pack_t pack_tris16_t's [C, S, 16] (the two options together raise
     ValueError). CUDA tensors launch the kernel (or raise): its tuned
     instance where one is compiled for (S, T), else its generic instance,
     which takes any S and T; CPU tensors take the plain version. tile_cid
     values must lie in [0, C)."""
-    global launches, generic_launches
-    if sub_skip and pack_t:
-        raise ValueError("sub_skip reads the [C, 16, S] pack; pack_t cannot "
-                         "be combined with it")
+    global launches, generic_launches, slot_launches
+    _check_options(sub_skip, pack_t, tie)
     dev = rays_pack.device
     if dev.type == "cpu":
         return tile_sweep_plain(tri_pack, rays_pack, tile_cid, sub_skip,
-                                pack_t)
+                                pack_t, tie=tie)
     if dev.type != "cuda":
         raise ValueError(f"tile_sweep runs on cuda or cpu, not {dev}")
     _check("tri_pack", tri_pack, torch.float32, 3, dev)
@@ -423,19 +469,25 @@ def tile_sweep(tri_pack, rays_pack, tile_cid, sub_skip=False, pack_t=False):
         return t_out, tri_out
     args = (tri_pack.data_ptr(), rays_pack.data_ptr(), tile_cid.data_ptr(),
             t_out.data_ptr(), tri_out.data_ptr(), nt, g, s, t_lanes, c)
-    mode = MODE_SUB_SKIP if sub_skip else MODE_PACK_T if pack_t else 0
-    tuned = _kernel_options() if mode else _kernel()
+    first = tie == "slot"
+    mode = (MODE_SUB_SKIP if sub_skip else MODE_PACK_T if pack_t
+            else MODE_FIRST if first else 0)
+    tuned = (_kernel_first() if first else _kernel_options() if mode
+             else _kernel())
     err, ran_generic = cuda_build.launch_instance(
-        tuned, _kernel_generic(), dev, args + ((mode,) if mode else ()),
+        tuned, _kernel_generic(), dev,
+        args + ((mode,) if sub_skip or pack_t else ()),
         generic_args=args + (mode,))
     if err != 0:
         raise RuntimeError(f"ctiles_sweep launch failed: cudaError {err}")
-    key = (t_lanes, s, g) + (("sub_skip",) if sub_skip else ("pack_t",)
-                             if pack_t else ()) + (("generic",)
-                                                   if ran_generic else ())
+    option = ("sub_skip" if sub_skip else "pack_t" if pack_t
+              else "slot" if first else None)
+    key = ((t_lanes, s, g) + ((option,) if option else ())
+           + (("generic",) if ran_generic else ()))
     with sync.lock:
         launches += 1
         generic_launches += ran_generic
+        slot_launches += first
         shape = launch_shapes.setdefault(key, [0, 0])
         shape[0] += 1
         shape[1] += nt

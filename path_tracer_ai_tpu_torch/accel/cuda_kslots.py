@@ -15,6 +15,12 @@ tests nothing. Closest (want_tri) returns (t [N] f32, tri [N] i32): the
 minimum t, then the minimum triangle id among the slots at that t (the
 oracle's lexicographic rule), or (inf, INT32_MAX); any hit returns
 (occluded [N] bool,). Slots whose cid lies outside [0, C) test nothing.
+With tie="slot" (closest only) the tri is that of the FIRST slot at the
+minimum t, slot k * S + j for triangle j of cluster cid[r, k]
+(jnp.argmin's rule), and a miss is (inf, INT32_MAX): the closest sweep of
+the perray query, path_tracer_ai_tpu/accel/traverse.py
+`closest_hit_perray` (traverse.py:648-665, XLA-fused there). The perray
+any-hit query (traverse.py:727-738) is the any-hit sweep as it is.
 
 On a CUDA tensor the wrapper launches the kernel or raises: its tuned
 instances for S in {2, 128}, its generic instance (S at run time, the same
@@ -50,16 +56,21 @@ INF = float("inf")
 PLAIN_ELEMS = 1 << 22  # [rays, K * S] elements per step of the plain version
 
 # Kernel launches since the last reset (the plain version never counts),
-# and those of the generic instance among them; updated under sync.lock
-# (the mesh's workers launch from several threads).
+# and those of the generic instance and of the first-slot instance
+# (tie="slot") among them; updated under sync.lock (the mesh's workers
+# launch from several threads).
 launches = 0
 generic_launches = 0
+slot_launches = 0
+
+TIES = ("tri", "slot")
+MODE_FIRST = 2  # the kernel's `closest` argument for tie="slot"
 
 
 def reset_launches() -> None:
-    global launches, generic_launches
+    global launches, generic_launches, slot_launches
     with sync.lock:
-        launches = generic_launches = 0
+        launches = generic_launches = slot_launches = 0
 
 
 def pack_rays(o, d, t_max, t_min) -> torch.Tensor:
@@ -78,9 +89,11 @@ def _outputs(n, want_tri, dev):
 
 
 def kslot_sweep_plain(tri_pack, rays, cid, n_slots, want_tri: bool,
-                      stats: Optional[dict] = None):
+                      stats: Optional[dict] = None, tie: str = "tri"):
     """The kernel's function in eager torch, the reference's SWEEP and
-    RESOLVE, PLAIN_ELEMS [rays, K * S] elements a step. stats["tests"]
+    RESOLVE, PLAIN_ELEMS [rays, K * S] elements a step; tie="slot": the
+    first slot at the minimum t (argmin), the perray sweep's rule, and
+    INT32_MAX where that t is inf. stats["tests"]
     counts the tests the data needs: every live slot's S of a closest
     query; for any hit, the slots of the clusters up to and including a
     ray's first occluding one."""
@@ -116,8 +129,15 @@ def kslot_sweep_plain(tri_pack, rays, cid, n_slots, want_tri: bool,
         if stats is not None:
             tests += int(live.sum()) * s
         tt = torch.where(ok, tt, INF)
-        best = tt.amin(dim=1)
         tid = tp[:, 9].view(torch.int32)
+        if tie == "slot":
+            slot = torch.argmin(tt, dim=1, keepdim=True)  # the first minimum
+            best = torch.gather(tt, 1, slot).squeeze(1)
+            out[0][a:b] = best
+            out[1][a:b] = torch.where(best < INF, torch.gather(
+                tid, 1, slot).squeeze(1), I32_MAX)
+            continue
+        best = tt.amin(dim=1)
         out[0][a:b] = best
         out[1][a:b] = torch.where(ok & (tt <= best[:, None]), tid,
                                   I32_MAX).amin(dim=1)
@@ -144,21 +164,33 @@ def _kernel_generic():
     return fn
 
 
-def kernel_occupancy(s: int, want_tri: bool) -> dict:
-    """The (S, closest or any-hit) instance's registers and resident warps
-    per SM; S = 0 is the generic instance (needs the card)."""
+def _mode(want_tri: bool, tie: str) -> int:
+    if tie not in TIES:
+        raise ValueError(f"tie must be one of {TIES}, not {tie!r}")
+    if tie == "slot" and not want_tri:
+        raise ValueError("tie='slot' is a closest-hit rule (want_tri)")
+    return MODE_FIRST if tie == "slot" else int(want_tri)
+
+
+def kernel_occupancy(s: int, want_tri: bool, tie: str = "tri") -> dict:
+    """The (S, closest, any-hit or first-slot closest) instance's registers
+    and resident warps per SM; S = 0 is the generic instance (needs the
+    card)."""
     return read_occupancy(cuda_build.load(SOURCE).kslot_sweep_occupancy, s,
-                          int(want_tri))
+                          _mode(want_tri, tie))
 
 
-def kslot_sweep(tri_pack, rays, cid, n_slots, want_tri: bool):
+def kslot_sweep(tri_pack, rays, cid, n_slots, want_tri: bool,
+                tie: str = "tri"):
     """(t [N] f32, tri [N] i32) or (occluded [N] bool,). CUDA tensors
     launch the kernel (or raise): its tuned instance where one is compiled
     for S, else its generic one; CPU tensors take the plain version."""
-    global launches, generic_launches
+    global launches, generic_launches, slot_launches
+    mode = _mode(want_tri, tie)
     dev = rays.device
     if dev.type == "cpu":
-        return kslot_sweep_plain(tri_pack, rays, cid, n_slots, want_tri)
+        return kslot_sweep_plain(tri_pack, rays, cid, n_slots, want_tri,
+                                 tie=tie)
     if dev.type != "cuda":
         raise ValueError(f"kslot_sweep runs on cuda or cpu, not {dev}")
     _check("tri_pack", tri_pack, torch.float32, 3, dev)
@@ -183,10 +215,11 @@ def kslot_sweep(tri_pack, rays, cid, n_slots, want_tri: bool):
         _kernel(), _kernel_generic(), dev,
         (tri_pack.data_ptr(), rays.data_ptr(), cid.data_ptr(),
          n_slots.data_ptr(), t_out.data_ptr(), tri_out.data_ptr(), n, k, s,
-         c, int(want_tri)))
+         c, mode))
     if err != 0:
         raise RuntimeError(f"kslot_sweep launch failed: cudaError {err}")
     with sync.lock:
         launches += 1
         generic_launches += ran_generic
+        slot_launches += mode == MODE_FIRST
     return out

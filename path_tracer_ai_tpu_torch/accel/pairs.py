@@ -211,7 +211,8 @@ def _packet_query(accel, t_min, want_tri, block, tri_pack):
     def run(o, d, tm):
         if want_tri:
             fb = traverse.closest_hit_packets(accel, o, d, t_min, tm,
-                                              block_size=block)
+                                              block_size=block,
+                                              tri_pack=tri_pack)
             return fb.t, fb.tri
         return (traverse.any_hit_packets(accel, o, d, t_min, tm,
                                          block_size=block,

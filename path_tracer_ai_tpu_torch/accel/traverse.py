@@ -19,6 +19,14 @@ lanes, occluded = tri != INT32_MAX): the same Möller–Trumbore arithmetic as
 _mt_sweep, with no [blocks, rays, triangles] intermediate in device memory.
 The cascade's loop conditions are host reads (`.item()`/nonzero), one per
 iteration.
+
+The closest packet cascade (`closest_hit_packets`) and the perray queries
+sweep the same way on the card, one launch an iteration: the first-slot
+instance of the cluster-tile kernel (tile_sweep(..., tie="slot")) and of
+the per-ray K-slot kernel (accel.cuda_kslots.kslot_sweep, tie="slot" for
+closest hits, its any-hit sweep for occlusion). In the reference these
+sweeps are XLA-fused bodies, not Pallas kernels. On the CPU they run the
+plain eager sweeps `_packet_sweep_closest` / `_packet_sweep_any`.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ from typing import NamedTuple
 
 import torch
 
-from path_tracer_ai_tpu_torch.accel import cuda_ctiles
+from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_kslots
 from path_tracer_ai_tpu_torch.accel.clusters import ClusterAccel
 from path_tracer_ai_tpu_torch.accel.morton import morton3d
 from path_tracer_ai_tpu_torch.utils import sync
@@ -445,18 +453,27 @@ def any_hit_packets(accel: ClusterAccel, origins, directions, t_min, t_max,
     return _unsort(_unpermute_blocks(carry[0], blk_index).reshape(n), perm)
 
 
-# Elements of each [blocks, R, g * S] temporary of closest_hit_packets' sweep
-# (256 MB in f32; 1,024 blocks of 64 rays against 8 clusters of 128): its
-# block rows are swept this many at a time. Fewer, larger steps launch
-# fewer kernels; the results do not depend on the step.
+# Elements of each [blocks, R, g * S] temporary of the plain eager sweeps
+# (256 MB in f32; 1,024 blocks of 64 rays against 8 clusters of 128): the
+# plain version's step only, its block rows are swept this many at a time.
+# On the card an iteration is one kernel launch. The results do not depend
+# on the step.
 PACKET_SWEEP_ELEMS = 1 << 26
+
+
+def _kernel_sweeps(dev) -> bool:
+    """Whether the cascades' sweeps on `dev` launch the kernels (a CUDA
+    device) or run the plain eager sweeps below (the CPU)."""
+    return dev.type == "cuda"
 
 
 def _packet_sweep_closest(accel, ob, db, t_cap, cid, t_min):
     """Blocks of rays ob/db [n, R, 3] (window [t_min, t_cap [n, R]]) against
     the g * S triangles of their clusters cid [n, g], in eager torch
     (traverse._mt_sweep's arithmetic): returns (ct [n, R] min t, gid [n, R]
-    the triangle id of the FIRST slot achieving it)."""
+    the triangle id of the FIRST slot achieving it; on a miss, inf and the
+    id of slot 0). The plain version of the first-slot kernels, run on the
+    CPU."""
     n = cid.shape[0]
     ray = [ob[:, :, None, k] for k in range(3)]
     ray += [db[:, :, None, k] for k in range(3)]
@@ -474,7 +491,8 @@ def _packet_sweep_closest(accel, ob, db, t_cap, cid, t_min):
 def _packet_sweep_any(accel, ob, db, tb, cid, t_min):
     """Blocks of rays ob/db [n, R, 3] (window [t_min, tb [n, R]]) against
     the g * S triangles of their clusters cid [n, g], in eager torch: [n, R]
-    bool, some test passes."""
+    bool, some test passes. The plain version of the perray any-hit sweep,
+    run on the CPU."""
     n = cid.shape[0]
     ray = [ob[:, :, None, k] for k in range(3)]
     ray += [db[:, :, None, k] for k in range(3)]
@@ -488,8 +506,8 @@ def _packet_sweep_any(accel, ob, db, tb, cid, t_min):
 
 def closest_hit_packets(accel: ClusterAccel, origins, directions, t_min,
                         t_max, block_size: int = 256, sort: bool = True,
-                        group_size: int = 8,
-                        sort_mode: str = "dir") -> PacketHit:
+                        group_size: int = 8, sort_mode: str = "dir",
+                        tri_pack=None) -> PacketHit:
     """Closest hit via the packet cascade (traverse.py:760-874); exact up to
     its tie rule. N must be a multiple of block_size.
 
@@ -500,9 +518,11 @@ def closest_hit_packets(accel: ClusterAccel, origins, directions, t_min,
     a later group replaces the best only with a strictly smaller t. Each
     iteration sweeps, as the reference does, every block of the current
     slice that still has candidates (not only the active ones), with
-    t_cap = min(t_max, best t). The sweep is eager torch (in the reference
-    it is XLA code, not a Pallas kernel), its block rows
-    PACKET_SWEEP_ELEMS elements at a time; it runs in the overflow
+    t_cap = min(t_max, best t). On the card the sweep of an iteration is
+    one launch of tile_sweep's first-slot instance (T = block_size lanes,
+    its g clusters a tile; tri_pack as any_hit_packets'); on the CPU it is
+    the plain eager sweep, PACKET_SWEEP_ELEMS elements a step (in the
+    reference it is XLA code, not a Pallas kernel). It runs in the overflow
     fallbacks and the opt-in "packets" backend."""
     n = origins.shape[0]
     if n % block_size:
@@ -528,7 +548,16 @@ def closest_hit_packets(accel: ClusterAccel, origins, directions, t_min,
         entry = torch.nn.functional.pad(entry, (0, c_pad - c), value=INF)
     order_g = order.reshape(nb, c_pad // g, g)
     max_k = c_pad // g - 1
-    rows = max(1, PACKET_SWEEP_ELEMS // (block_size * g * accel.cluster_size))
+    block_arrays = (o_blk, d_blk, tmax_blk, n_cand, entry, order_g)
+    on_card = _kernel_sweeps(dev)
+    if on_card:
+        rows = nb  # one launch an iteration
+        if tri_pack is None:
+            tri_pack = cuda_ctiles.pack_tris(accel)
+        block_arrays += (pack_block_rays(o_blk, d_blk, tmax_blk, t_min),)
+    else:
+        rows = max(1, PACKET_SWEEP_ELEMS
+                   // (block_size * g * accel.cluster_size))
 
     def active_fn(k, blocks, carry):
         tb, nc, ent = blocks[2], blocks[3], blocks[4]
@@ -537,7 +566,7 @@ def closest_hit_packets(accel: ClusterAccel, origins, directions, t_min,
         return (k * g < nc) & (entry_k <= best_eff.amax(dim=1))
 
     def sweep_update(k, blocks, carry, _active):
-        ob, db, tb, nc, _ent, ordg = blocks
+        ob, db, tb, nc, _ent, ordg = blocks[:6]
         best_t, best_id = carry
         # the reference's blk_on: every block of the slice with candidates
         idx = torch.nonzero(k * g < nc).squeeze(1)
@@ -546,16 +575,24 @@ def closest_hit_packets(accel: ClusterAccel, origins, directions, t_min,
         for lo in range(0, idx.numel(), rows):
             sel = idx[lo:lo + rows]
             bt = best_t[sel]
-            ct, gid = _packet_sweep_closest(
-                accel, ob[sel], db[sel], torch.minimum(tb[sel], bt),
-                ordg[sel, min(k, max_k)], t_min)
+            cid = ordg[sel, min(k, max_k)]
+            if on_card:
+                # lanes go in with t_max = min(t_max, best t)
+                r_act = blocks[6][sel]
+                r_act[:, 6] = torch.minimum(r_act[:, 6], bt)
+                ct, gid = cuda_ctiles.tile_sweep(tri_pack, r_act, cid,
+                                                 tie="slot")
+            else:
+                ct, gid = _packet_sweep_closest(
+                    accel, ob[sel], db[sel], torch.minimum(tb[sel], bt), cid,
+                    t_min)
             closer = ct < bt
             best_t[sel] = torch.where(closer, ct, bt)
             best_id[sel] = torch.where(closer, gid, best_id[sel])
         return best_t, best_id
 
     carry, blk_index = _cascade_traverse(
-        (o_blk, d_blk, tmax_blk, n_cand, entry, order_g),
+        block_arrays,
         (torch.full((nb, block_size), INF, dtype=torch.float32, device=dev),
          torch.full((nb, block_size), -1, dtype=torch.int32, device=dev)),
         sweep_update,
@@ -652,18 +689,41 @@ def _perray_fallback(origins, directions, t_max, overflow, block, run):
     return run(fo, fd, ftm)
 
 
+def _perray_sweeps(accel, n, group_size, tri_pack, dev):
+    """(rows a step, tri_pack, n_slots) of a perray query: on the card one
+    kslot_sweep launch an iteration over the active rays, each against its
+    g clusters (n_slots = g for every ray: the reference sweeps the whole
+    group, the filler ids past the count too); on the CPU the plain eager
+    sweeps, PACKET_SWEEP_ELEMS elements a step (tri_pack None)."""
+    if not _kernel_sweeps(dev):
+        return (max(1, PACKET_SWEEP_ELEMS
+                    // (group_size * accel.cluster_size)), None, None)
+    if tri_pack is None:
+        tri_pack = cuda_ctiles.pack_tris(accel)
+    n_slots = torch.full((n,), group_size, dtype=torch.int32, device=dev)
+    return n, tri_pack, n_slots
+
+
+def _perray_rays(ob, db, tb, t_min):
+    """[n, 8] kslot_sweep ray rows of one-ray blocks ob/db [n, 1, 3] with
+    window [t_min, tb [n, 1]]."""
+    return cuda_kslots.pack_rays(ob[:, 0], db[:, 0], tb[:, 0], t_min)
+
+
 def closest_hit_perray(accel: ClusterAccel, origins, directions, t_min,
                        t_max, cap: int = 64, group_size: int = 4,
-                       fallback_block: int = 64) -> PacketHit:
-    """Closest hit with exact per-ray candidate lists (no ray blocking),
-    eager torch as the reference's is XLA code: the packet cascade's
-    machinery with blocks of one ray, `group_size` candidates an iteration
-    in id order, t_cap = min(t_max, best t). The tie rule is the packet
-    cascade's: within a group of g * S slots the first slot at the minimum
-    t wins, and a later group replaces the best only with a strictly
-    smaller t. Rays with more than `cap` candidates complete through
-    closest_hit_packets (blocks of fallback_block), so every ray is
-    exact."""
+                       fallback_block: int = 64,
+                       tri_pack=None) -> PacketHit:
+    """Closest hit with exact per-ray candidate lists (no ray blocking):
+    the packet cascade's machinery with blocks of one ray, `group_size`
+    candidates an iteration in id order, t_cap = min(t_max, best t). The
+    tie rule is the packet cascade's: within a group of g * S slots the
+    first slot at the minimum t wins, and a later group replaces the best
+    only with a strictly smaller t. On the card an iteration's sweep is one
+    launch of kslot_sweep's first-slot instance (tri_pack: pack_tris'), on
+    the CPU the plain eager sweep (the reference's is XLA code). Rays with
+    more than `cap` candidates complete through closest_hit_packets
+    (blocks of fallback_block), so every ray is exact."""
     n = origins.shape[0]
     dev = origins.device
     t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
@@ -671,7 +731,7 @@ def closest_hit_perray(accel: ClusterAccel, origins, directions, t_min,
     blocks, overflow, max_k = _perray_setup(accel, origins, directions,
                                             t_min, t_max, cap, group_size)
     g = group_size
-    rows = max(1, PACKET_SWEEP_ELEMS // (g * accel.cluster_size))
+    rows, tri_pack, n_slots = _perray_sweeps(accel, n, g, tri_pack, dev)
 
     def active_fn(k, blocks, carry):
         # id-ordered candidates: only exhaustion and dead rays stop a ray
@@ -684,9 +744,16 @@ def closest_hit_perray(accel: ClusterAccel, origins, directions, t_min,
         for lo in range(0, idx.numel(), rows):
             sel = idx[lo:lo + rows]
             bt = best_t[sel]
-            ct, gid = _packet_sweep_closest(
-                accel, ob[sel], db[sel], torch.minimum(tb[sel], bt),
-                ordg[sel, min(k, max_k)], t_min)
+            cap_t = torch.minimum(tb[sel], bt)
+            cid = ordg[sel, min(k, max_k)]
+            if tri_pack is not None:
+                ct, gid = cuda_kslots.kslot_sweep(
+                    tri_pack, _perray_rays(ob[sel], db[sel], cap_t, t_min),
+                    cid, n_slots[:sel.numel()], True, tie="slot")
+                ct, gid = ct[:, None], gid[:, None]
+            else:
+                ct, gid = _packet_sweep_closest(accel, ob[sel], db[sel],
+                                                cap_t, cid, t_min)
             closer = ct < bt
             best_t[sel] = torch.where(closer, ct, bt)
             best_id[sel] = torch.where(closer, gid, best_id[sel])
@@ -703,7 +770,8 @@ def closest_hit_perray(accel: ClusterAccel, origins, directions, t_min,
     fb = _perray_fallback(
         origins, directions, t_max, overflow, fallback_block,
         lambda o, d, tm: closest_hit_packets(accel, o, d, t_min, tm,
-                                             block_size=fallback_block))
+                                             block_size=fallback_block,
+                                             tri_pack=tri_pack))
     if fb is not None:
         best_t = torch.where(overflow, fb.t[:n], best_t)
         best_id = torch.where(overflow, fb.tri[:n], best_id)
@@ -713,9 +781,11 @@ def closest_hit_perray(accel: ClusterAccel, origins, directions, t_min,
 def any_hit_perray(accel: ClusterAccel, origins, directions, t_min, t_max,
                    cap: int = 64, group_size: int = 4,
                    fallback_block: int = 64, tri_pack=None) -> torch.Tensor:
-    """Occlusion with exact per-ray candidate lists ([N] bool), eager torch;
-    a ray leaves the cascade once occluded. Rays with more than `cap`
-    candidates complete through any_hit_packets (blocks of
+    """Occlusion with exact per-ray candidate lists ([N] bool); a ray
+    leaves the cascade once occluded. On the card an iteration's sweep is
+    one launch of kslot_sweep's any-hit sweep (each active ray against its
+    g clusters), on the CPU the plain eager sweep. Rays with more than
+    `cap` candidates complete through any_hit_packets (blocks of
     fallback_block; tri_pack as its)."""
     n = origins.shape[0]
     dev = origins.device
@@ -724,7 +794,7 @@ def any_hit_perray(accel: ClusterAccel, origins, directions, t_min, t_max,
     blocks, overflow, max_k = _perray_setup(accel, origins, directions,
                                             t_min, t_max, cap, group_size)
     g = group_size
-    rows = max(1, PACKET_SWEEP_ELEMS // (g * accel.cluster_size))
+    rows, pack, n_slots = _perray_sweeps(accel, n, g, tri_pack, dev)
 
     def active_fn(k, blocks, carry):
         return (k * g < blocks[3]) & ~carry[0][:, 0]
@@ -734,8 +804,15 @@ def any_hit_perray(accel: ClusterAccel, origins, directions, t_min, t_max,
         occ = carry[0].clone()
         for lo in range(0, idx.numel(), rows):
             sel = idx[lo:lo + rows]
-            occ[sel] |= _packet_sweep_any(accel, ob[sel], db[sel], tb[sel],
-                                          ordg[sel, min(k, max_k)], t_min)
+            cid = ordg[sel, min(k, max_k)]
+            if pack is not None:
+                (hit,) = cuda_kslots.kslot_sweep(
+                    pack, _perray_rays(ob[sel], db[sel], tb[sel], t_min), cid,
+                    n_slots[:sel.numel()], False)
+                occ[sel] |= hit[:, None]
+            else:
+                occ[sel] |= _packet_sweep_any(accel, ob[sel], db[sel],
+                                              tb[sel], cid, t_min)
         return (occ,)
 
     carry, blk_index = _cascade_traverse(

@@ -48,12 +48,27 @@
 // |a| > MT_EPSILON. The fold is the oracle's lexicographic rule
 // (mt.cuh fold_min_tri); the any-hit reading `tri != INT32_MAX` relies on a
 // passing test with t = +inf still setting tri.
+//
+// The first-slot instance (ctiles_sweep_first; FIRST = true) is the same
+// kernel with the packet cascade's tie rule in place of the oracle's: it
+// carries the sweep of path_tracer_ai_tpu/accel/traverse.py
+// `closest_hit_packets` (traverse.py:823-845, XLA-fused there, no Pallas
+// kernel), which keeps the FIRST slot at the minimum t, slots counted
+// cluster i of the tile's G, then triangle j of the cluster (jnp.argmin).
+// Each lane meets its slots in that order (the G clusters in turn, each
+// cluster's triangles in order, whatever the unroll), so a strict
+// t < best_t update keeps the first; the lanes never share a reduction.
+// On a miss it writes (+inf, INT32_MAX), and a pass with t = +inf changes
+// nothing (the cascade replaces its best only on ct < best). Tuned for the
+// cascade's shapes: (T 64, S 128), every overflow fallback at blocks of 64,
+// and (T 256, S 128), the "packets" backend's default blocks; G = 8 comes
+// at run time.
 
 #include "mt.cuh"
 
 #define PACK_ROWS 10
 
-template <int S, int T, int R>
+template <int S, int T, int R, bool FIRST = false>
 __global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(R))
     tile_sweep_kernel(const float* __restrict__ tri_pack,
                       const float* __restrict__ rays,
@@ -87,7 +102,7 @@ __global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(R))
       stage_cluster_warp<S>(buf, tri_pack + (size_t)cid * PACK_ROWS * S, lane);
       cp_async_wait_all();
       __syncwarp();
-      sweep_live<R, S>(buf, live, ray, tmin, tmax, best_t, best_tri);
+      sweep_live<R, S, FIRST>(buf, live, ray, tmin, tmax, best_t, best_tri);
       __syncwarp();  // every lane is done with the buffer
     }
   }
@@ -103,28 +118,30 @@ constexpr size_t smem_bytes() {
   return SWEEP_WARPS * S * sizeof(TriRec);
 }
 
-template <int S, int T, int R>
+template <int S, int T, int R, bool FIRST = false>
 static int launch(const void* tri_pack, const void* rays, const void* tile_cid,
                   void* t_out, void* tri_out, int nt, int g, int n_clusters,
                   cudaStream_t stream) {
   const int units = nt * (T / (32 * R));
   const int blocks = (units + SWEEP_WARPS - 1) / SWEEP_WARPS;
-  tile_sweep_kernel<S, T, R>
+  tile_sweep_kernel<S, T, R, FIRST>
       <<<blocks, SWEEP_WARPS * 32, smem_bytes<S>(), stream>>>(
           (const float*)tri_pack, (const float*)rays, (const int*)tile_cid,
           (float*)t_out, (int*)tri_out, nt, g, n_clusters);
   return (int)cudaGetLastError();
 }
 
-template <int S, int T, int R>
+template <int S, int T, int R, bool FIRST = false>
 static int occupancy(int* regs, int* warps_per_sm) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, tile_sweep_kernel<S, T, R>);
+  cudaError_t err =
+      cudaFuncGetAttributes(&attr, tile_sweep_kernel<S, T, R, FIRST>);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, tile_sweep_kernel<S, T, R>, SWEEP_WARPS * 32, smem_bytes<S>());
+      &blocks, tile_sweep_kernel<S, T, R, FIRST>, SWEEP_WARPS * 32,
+      smem_bytes<S>());
   *warps_per_sm = blocks * SWEEP_WARPS;
   return (int)err;
 }
@@ -171,6 +188,40 @@ extern "C" int ctiles_sweep_occupancy(int s, int t_lanes, int* regs,
   return NO_INSTANCE;
 }
 
+// ---- the first-slot instance (see the header) -------------------------------
+
+// The packet cascade's shapes: blocks of 64 (the overflow fallbacks) and of
+// 256 (the "packets" backend), clusters of 128.
+#define FOR_FIRST_INSTANCES(CALL) CALL(128, 64) CALL(128, 256)
+
+// As ctiles_sweep, with the first-slot tie rule; NO_INSTANCE for an (S, T)
+// that is not compiled.
+extern "C" int ctiles_sweep_first(const void* tri_pack, const void* rays,
+                                  const void* tile_cid, void* t_out,
+                                  void* tri_out, int nt, int g, int s,
+                                  int t_lanes, int n_clusters, void* stream) {
+  if (nt <= 0) return 0;
+  if (g < 1) return (int)cudaErrorInvalidValue;
+#define LAUNCH(S_, T_)                                                       \
+  if (s == S_ && t_lanes == T_)                                              \
+    return launch<S_, T_, rays_per_thread(T_), true>(                        \
+        tri_pack, rays, tile_cid, t_out, tri_out, nt, g, n_clusters,         \
+        (cudaStream_t)stream);
+  FOR_FIRST_INSTANCES(LAUNCH)
+#undef LAUNCH
+  return NO_INSTANCE;
+}
+
+extern "C" int ctiles_sweep_first_occupancy(int s, int t_lanes, int* regs,
+                                            int* warps_per_sm) {
+#define OCCUPANCY(S_, T_) \
+  if (s == S_ && t_lanes == T_) \
+    return occupancy<S_, T_, rays_per_thread(T_), true>(regs, warps_per_sm);
+  FOR_FIRST_INSTANCES(OCCUPANCY)
+#undef OCCUPANCY
+  return NO_INSTANCE;
+}
+
 // ---- the options: sub_skip and pack_t (pallas_ctiles.py:168-231) ---------
 //
 // Instances of their own, so the default kernel above keeps its code,
@@ -193,6 +244,7 @@ extern "C" int ctiles_sweep_occupancy(int s, int t_lanes, int* regs,
 
 #define MODE_SUB_SKIP 1
 #define MODE_PACK_T 2
+#define MODE_FIRST 3  // the generic instance only: the [C, 10, S] pack, first slot
 #define PACK16_ROWS 16
 
 __device__ __forceinline__ void cp_async_bytes16(void* dst_shared,
@@ -395,7 +447,9 @@ extern "C" int ctiles_sweep_options_occupancy(int s, int t_lanes, int mode,
 // default [C, 10, S] pack): under sub_skip a chunk is a sub-slab and is
 // staged and swept only if some lane's [t_min, min(t_max, best so far)]
 // touches its box (read from the pack's rows 10-15); under pack_t a chunk
-// is staged from the [C, S, 16] pack, three copies a triangle.
+// is staged from the [C, S, 16] pack, three copies a triangle; under
+// MODE_FIRST a chunk is staged as under 0 and folded by the first-slot rule
+// (the chunks in order, so slots in order).
 
 // As stage_chunk_warp for the [s, 16] cluster of a pack_t pack.
 __device__ __forceinline__ void stage_chunk_rows16_warp(TriRec* dst,
@@ -464,7 +518,8 @@ __global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(1))
         }
         cp_async_wait_all();
         __syncwarp();
-        sweep_live<1, CHUNK>(buf, 1u, &ray, &tmin, &cap, &best_t, &best_tri);
+        sweep_live<1, CHUNK, MODE == MODE_FIRST>(buf, 1u, &ray, &tmin, &cap,
+                                                 &best_t, &best_tri);
         __syncwarp();  // every lane is done with the buffer
       }
     }
@@ -475,8 +530,9 @@ __global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(1))
   }
 }
 
-// The generic instance of ctiles_sweep (mode 0) and ctiles_sweep_options
-// (MODE_SUB_SKIP, MODE_PACK_T), with their arguments, for any S, T >= 1.
+// The generic instance of ctiles_sweep (mode 0), ctiles_sweep_options
+// (MODE_SUB_SKIP, MODE_PACK_T) and ctiles_sweep_first (MODE_FIRST), with
+// their arguments, for any S, T >= 1.
 extern "C" int ctiles_sweep_generic(const void* tri_pack, const void* rays,
                                     const void* tile_cid, void* t_out,
                                     void* tri_out, int nt, int g, int s,
@@ -495,6 +551,8 @@ extern "C" int ctiles_sweep_generic(const void* tri_pack, const void* rays,
     LAUNCH(MODE_SUB_SKIP)
   } else if (mode == MODE_PACK_T) {
     LAUNCH(MODE_PACK_T)
+  } else if (mode == MODE_FIRST) {
+    LAUNCH(MODE_FIRST)
   } else if (mode == 0) {
     LAUNCH(0)
   } else {

@@ -12,6 +12,17 @@
 // kslots.py:178-184), or (+inf, INT32_MAX). Any hit: whether some test
 // passes.
 //
+// The first-slot closest instance (mode 2, FIRST) carries the closest
+// sweep of path_tracer_ai_tpu/accel/traverse.py `closest_hit_perray`
+// (traverse.py:648-665, XLA-fused there, no Pallas kernel): the minimum t
+// and the triangle id of the FIRST slot that reaches it, slot k * S + j for
+// triangle j of the row's cluster k (jnp.argmin's rule), or (+inf,
+// INT32_MAX). Each lane meets its own slots in ascending order and keeps
+// the first at its minimum (strict t < best_t) with its slot; the warp then
+// takes the least key of t, the least slot among the lanes at it, and that
+// lane's t and id. The perray any-hit query (traverse.py:727-738) is the
+// any-hit mode as it is: each ray against its iteration's g clusters.
+//
 // Layouts (see accel/cuda_kslots.py):
 //   tri_pack [C, 10, S] f32 (cuda_ctiles.pack_tris): rows v0.xyz e1.xyz
 //            e2.xyz, row 9 = the triangle id bit-cast to f32.
@@ -71,11 +82,14 @@
 // warp-uniform branch; both give the division's bits where both apply); v
 // and t are skipped where no lane has 0 <= u <= 1. Returns whether the test
 // passes; with CLOSEST, folds a pass into (best_t, best_tri) by the
-// lexicographic rule.
-template <bool CLOSEST>
+// lexicographic rule, or with FIRST into (best_t, best_tri, best_slot) only
+// where t < best_t (`slot` is the test's slot in the row).
+template <bool CLOSEST, bool FIRST = false>
 __device__ __forceinline__ bool test_tri(const Ray& ray, const Tri& tr,
                                          int tid, float tmin, float tmax,
-                                         float* best_t, int* best_tri) {
+                                         float* best_t, int* best_tri,
+                                         int slot = 0,
+                                         int* best_slot = nullptr) {
   Vec3 h, sv;
   const float det = mt_det(ray, tr, &h);
   bool ok = fabsf(det) > MT_EPSILON;
@@ -91,7 +105,13 @@ __device__ __forceinline__ bool test_tri(const Ray& ray, const Tri& tr,
   if (!__any_sync(FULL_MASK, ok)) return false;
   float t;
   const bool pass = mt_vt(ray, tr, sv, f, u, ok, tmin, tmax, &t);
-  if constexpr (CLOSEST) {
+  if constexpr (CLOSEST && FIRST) {
+    if (pass && t < *best_t) {
+      *best_t = t;
+      *best_tri = tid;
+      *best_slot = slot;
+    }
+  } else if constexpr (CLOSEST) {
     if (pass) fold_min_tri(t, tid, best_t, best_tri);
   }
   return pass;
@@ -102,12 +122,15 @@ __device__ __forceinline__ bool test_tri(const Ray& ray, const Tri& tr,
 // trips an iteration: their loads at fixed offsets from one set of row
 // addresses. TAIL: s may not be a multiple of 32, and lanes past it test
 // the zero triangle. Returns, for an any-hit walk, whether some lane has hit
-// (the walk leaves at the trip that found it).
-template <int U, bool TAIL, bool CLOSEST>
+// (the walk leaves at the trip that found it). FIRST: test_tri's, the
+// cluster's slots starting at slot0.
+template <int U, bool TAIL, bool CLOSEST, bool FIRST = false>
 __device__ __forceinline__ bool walk_cluster(const float* __restrict__ base,
                                              int s, int lane, const Ray& ray,
                                              float tmin, float tmax,
-                                             float* best_t, int* best_tri) {
+                                             float* best_t, int* best_tri,
+                                             int slot0 = 0,
+                                             int* best_slot = nullptr) {
   for (int j0 = 0; j0 < s; j0 += 32 * U) {
 #pragma unroll
     for (int q = 0; q < U; ++q) {
@@ -116,8 +139,9 @@ __device__ __forceinline__ bool walk_cluster(const float* __restrict__ base,
       const Tri tr = !TAIL || j + lane < s
                          ? load_column(base + j, s, &tid)
                          : load_column_or_zero(nullptr, s, &tid);
-      const bool hit =
-          test_tri<CLOSEST>(ray, tr, tid, tmin, tmax, best_t, best_tri);
+      const bool hit = test_tri<CLOSEST, FIRST>(
+          ray, tr, tid, tmin, tmax, best_t, best_tri, slot0 + j + lane,
+          best_slot);
       if constexpr (!CLOSEST) {
         if (__any_sync(FULL_MASK, hit)) return true;
       }
@@ -127,8 +151,8 @@ __device__ __forceinline__ bool walk_cluster(const float* __restrict__ base,
 }
 
 // One warp a ray (see the header); S_T is S as a template constant, or 0
-// for S = s at run time.
-template <int S_T, bool CLOSEST>
+// for S = s at run time. FIRST (with CLOSEST): the first-slot rule.
+template <int S_T, bool CLOSEST, bool FIRST = false>
 __global__ void __launch_bounds__(32 * KSLOT_WARPS, KSLOT_MIN_BLOCKS)
     kslot_sweep_kernel(const float* __restrict__ tri_pack,
                        const float* __restrict__ rays,
@@ -161,6 +185,7 @@ __global__ void __launch_bounds__(32 * KSLOT_WARPS, KSLOT_MIN_BLOCKS)
 
   float best_t = INFINITY;
   int best_tri = I32_MAX;
+  int best_slot = I32_MAX;  // FIRST only
   bool occ = false;  // any hit: set once, and the walk ends
   if (s >= 32) {
     // slot by slot, each cluster by walk_cluster: KSLOT_UNROLL trips an
@@ -171,11 +196,13 @@ __global__ void __launch_bounds__(32 * KSLOT_WARPS, KSLOT_MIN_BLOCKS)
       if (c < 0 || c >= n_clusters) continue;  // warp-uniform
       const float* base = tri_pack + (size_t)c * PACK_ROWS * s + lane;
       if (S_T > 0 ? S_T % W == 0 : s % W == 0) {
-        occ = walk_cluster<KSLOT_UNROLL, false, CLOSEST>(
-            base, s, lane, ray, tmin, tmax, &best_t, &best_tri);
+        occ = walk_cluster<KSLOT_UNROLL, false, CLOSEST, FIRST>(
+            base, s, lane, ray, tmin, tmax, &best_t, &best_tri, k * s,
+            &best_slot);
       } else {
-        occ = walk_cluster<1, true, CLOSEST>(base, s, lane, ray, tmin, tmax,
-                                             &best_t, &best_tri);
+        occ = walk_cluster<1, true, CLOSEST, FIRST>(
+            base, s, lane, ray, tmin, tmax, &best_t, &best_tri, k * s,
+            &best_slot);
       }
     }
   } else {
@@ -191,13 +218,28 @@ __global__ void __launch_bounds__(32 * KSLOT_WARPS, KSLOT_MIN_BLOCKS)
           c >= 0 && c < n_clusters ? tri_pack + (size_t)c * PACK_ROWS * s + jl
                                    : nullptr,
           s, &tid);
-      const bool hit = test_tri<CLOSEST>(ray, tr, tid, tmin, tmax, &best_t,
-                                         &best_tri);
+      const bool hit = test_tri<CLOSEST, FIRST>(
+          ray, tr, tid, tmin, tmax, &best_t, &best_tri, k * s + jl,
+          &best_slot);
       if constexpr (!CLOSEST) occ = __any_sync(FULL_MASK, hit);
     }
   }
 
-  if constexpr (CLOSEST) {
+  if constexpr (CLOSEST && FIRST) {
+    // the least t, then the least slot among the lanes at it: that lane's
+    // (t, tri); with no hit every lane holds (inf, INT32_MAX, INT32_MAX)
+    const float t =
+        key_float(__reduce_min_sync(FULL_MASK, order_key(best_t)));
+    const unsigned at = best_t == t ? (unsigned)best_slot : 0xffffffffu;
+    const unsigned slot = __reduce_min_sync(FULL_MASK, at);
+    const int src = __ffs(__ballot_sync(FULL_MASK, at == slot)) - 1;
+    const float t_first = __shfl_sync(FULL_MASK, best_t, src);
+    const int tri = __shfl_sync(FULL_MASK, best_tri, src);
+    if (lane == 0) {
+      reinterpret_cast<float*>(out_a)[r] = t_first;
+      out_b[r] = tri;
+    }
+  } else if constexpr (CLOSEST) {
     const float t =
         key_float(__reduce_min_sync(FULL_MASK, order_key(best_t)));
     const int tri = __reduce_min_sync(FULL_MASK,
@@ -211,34 +253,59 @@ __global__ void __launch_bounds__(32 * KSLOT_WARPS, KSLOT_MIN_BLOCKS)
   }
 }
 
-template <int S_T, bool CLOSEST>
+template <int S_T, bool CLOSEST, bool FIRST = false>
 static int launch(const void* tri_pack, const void* rays, const void* cid,
                   const void* n_slots, void* out_a, void* out_b, int n_rays,
                   int k_slots, int n_clusters, int s, cudaStream_t stream) {
   const int blocks = (n_rays + KSLOT_WARPS - 1) / KSLOT_WARPS;
-  kslot_sweep_kernel<S_T, CLOSEST><<<blocks, 32 * KSLOT_WARPS, 0, stream>>>(
+  kslot_sweep_kernel<S_T, CLOSEST, FIRST>
+      <<<blocks, 32 * KSLOT_WARPS, 0, stream>>>(
       (const float*)tri_pack, (const float*)rays, (const int*)cid,
       (const int*)n_slots, out_a, (int*)out_b, n_rays, k_slots, n_clusters,
       s);
   return (int)cudaGetLastError();
 }
 
-template <int S_T, bool CLOSEST>
+template <int S_T, bool CLOSEST, bool FIRST = false>
 static int occupancy(int* regs, int* warps_per_sm) {
   cudaFuncAttributes attr;
   cudaError_t err =
-      cudaFuncGetAttributes(&attr, kslot_sweep_kernel<S_T, CLOSEST>);
+      cudaFuncGetAttributes(&attr, kslot_sweep_kernel<S_T, CLOSEST, FIRST>);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, kslot_sweep_kernel<S_T, CLOSEST>, 32 * KSLOT_WARPS, 0);
+      &blocks, kslot_sweep_kernel<S_T, CLOSEST, FIRST>, 32 * KSLOT_WARPS, 0);
   *warps_per_sm = blocks * KSLOT_WARPS;
   return (int)err;
 }
 
 #define NO_INSTANCE (-1)  // no cudaError_t is negative
 #define FOR_KSLOT_INSTANCES(CALL) CALL(2) CALL(128)
+// `closest`: 0 any hit, 1 closest (the oracle's rule), 2 closest (the first
+// slot's rule)
+#define MODE_FIRST 2
+
+// The instance of mode `closest` at S_T (0: S = s at run time).
+template <int S_T>
+static int launch_mode(const void* tri_pack, const void* rays, const void* cid,
+                       const void* n_slots, void* out_a, void* out_b,
+                       int n_rays, int k_slots, int n_clusters, int s,
+                       int closest, cudaStream_t stream) {
+  if (closest == MODE_FIRST) {
+    return launch<S_T, true, true>(tri_pack, rays, cid, n_slots, out_a, out_b,
+                                   n_rays, k_slots, n_clusters, s, stream);
+  }
+  if (closest == 1) {
+    return launch<S_T, true>(tri_pack, rays, cid, n_slots, out_a, out_b,
+                             n_rays, k_slots, n_clusters, s, stream);
+  }
+  if (closest == 0) {
+    return launch<S_T, false>(tri_pack, rays, cid, n_slots, out_a, out_b,
+                              n_rays, k_slots, n_clusters, s, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 // Launches on `stream` over rays [0, n_rays): one warp a ray, KSLOT_WARPS
 // rays a thread block. Returns the cudaError_t of the launch (0 = ok), or
@@ -249,28 +316,26 @@ extern "C" int kslot_sweep(const void* tri_pack, const void* rays,
                            int n_clusters, int closest, void* stream) {
   if (n_rays <= 0) return 0;
   if (k_slots < 1) return NO_INSTANCE;
-#define LAUNCH(S_)                                                         \
-  if (s == S_)                                                             \
-    return closest                                                         \
-               ? launch<S_, true>(tri_pack, rays, cid, n_slots, out_a,     \
-                                  out_b, n_rays, k_slots, n_clusters, s,   \
-                                  (cudaStream_t)stream)                    \
-               : launch<S_, false>(tri_pack, rays, cid, n_slots, out_a,    \
-                                   out_b, n_rays, k_slots, n_clusters, s,  \
-                                   (cudaStream_t)stream);
+#define LAUNCH(S_)                                                        \
+  if (s == S_)                                                            \
+    return launch_mode<S_>(tri_pack, rays, cid, n_slots, out_a, out_b,    \
+                           n_rays, k_slots, n_clusters, s, closest,       \
+                           (cudaStream_t)stream);
   FOR_KSLOT_INSTANCES(LAUNCH)
 #undef LAUNCH
   return NO_INSTANCE;
 }
 
-// Registers per thread of the (S, closest) instance and the warps an SM
-// holds of it (S = 0: the generic instance).
+// Registers per thread of the (S, mode `closest`) instance and the warps an
+// SM holds of it (S = 0: the generic instance).
 extern "C" int kslot_sweep_occupancy(int s, int closest, int* regs,
                                      int* warps_per_sm) {
-#define OCCUPANCY(S_)                                            \
-  if (s == S_)                                                   \
-    return closest ? occupancy<S_, true>(regs, warps_per_sm)     \
-                   : occupancy<S_, false>(regs, warps_per_sm);
+#define OCCUPANCY(S_)                                                   \
+  if (s == S_)                                                          \
+    return closest == MODE_FIRST                                        \
+               ? occupancy<S_, true, true>(regs, warps_per_sm)          \
+               : closest ? occupancy<S_, true>(regs, warps_per_sm)      \
+                         : occupancy<S_, false>(regs, warps_per_sm);
   FOR_KSLOT_INSTANCES(OCCUPANCY)
   OCCUPANCY(0)
 #undef OCCUPANCY
@@ -287,10 +352,6 @@ extern "C" int kslot_sweep_generic(const void* tri_pack, const void* rays,
   if (n_rays <= 0) return 0;
   if (k_slots < 1) return NO_INSTANCE;
   if (s < 1) return (int)cudaErrorInvalidValue;
-  return closest ? launch<0, true>(tri_pack, rays, cid, n_slots, out_a, out_b,
-                                   n_rays, k_slots, n_clusters, s,
-                                   (cudaStream_t)stream)
-                 : launch<0, false>(tri_pack, rays, cid, n_slots, out_a,
-                                    out_b, n_rays, k_slots, n_clusters, s,
-                                    (cudaStream_t)stream);
+  return launch_mode<0>(tri_pack, rays, cid, n_slots, out_a, out_b, n_rays,
+                        k_slots, n_clusters, s, closest, (cudaStream_t)stream);
 }

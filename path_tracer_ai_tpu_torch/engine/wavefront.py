@@ -366,7 +366,8 @@ def _perray_backend(accel, pack):
 
     def closest(o, d, t_min, t_max):
         def core(oo, dd, tt):
-            h = traverse.closest_hit_perray(accel, oo, dd, RAY_TMIN, tt)
+            h = traverse.closest_hit_perray(accel, oo, dd, RAY_TMIN, tt,
+                                            tri_pack=pack)
             return h.t, h.tri
         t, tri = chunked(core, o, d, t_max)
         return traverse.PacketHit(hit=torch.isfinite(t), t=t, tri=tri)
@@ -423,7 +424,8 @@ def _other_backend(accel, backend, block_size, pack):
     else:
         def closest(o, d, t_min, t_max):
             return traverse.closest_hit_packets(accel, o, d, t_min, t_max,
-                                                block_size=block_size)
+                                                block_size=block_size,
+                                                tri_pack=pack)
 
         def occlude(o, d, t_max):
             return traverse.any_hit_packets(accel, o, d, RAY_TMIN, t_max,

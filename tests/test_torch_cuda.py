@@ -1272,3 +1272,161 @@ def test_numerics_on_the_card_equal_the_cpu(cuda, rng):
             np.testing.assert_array_equal(
                 img.view(np.int32),
                 ref.images[f"port_{name}_rr{rr}"].view(np.int32))
+
+
+# --- the first-slot instances: the packet cascade's and perray's sweeps ----
+
+def _first_tile_args(cuda, case, s, t_lanes, g):
+    c = cases.first_case(case, s, t_lanes, g)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    return t(cases.pack(c)), t(c["rays"]), t(c["tile_cid"])
+
+
+def _assert_first_tile_matches_plain(args, generic):
+    """tile_sweep(tie="slot") (tuned or forced generic) against its plain
+    version: t bit for bit, tri exact, one first-slot launch."""
+    counter = "generic_launches" if generic else "slot_launches"
+    before = (getattr(cuda_ctiles, counter), cuda_ctiles.slot_launches)
+    if generic:
+        with generic_instances():
+            got = cuda_ctiles.tile_sweep(*args, tie="slot")
+    else:
+        got = cuda_ctiles.tile_sweep(*args, tie="slot")
+    assert getattr(cuda_ctiles, counter) == before[0] + 1
+    assert cuda_ctiles.slot_launches == before[1] + 1
+    want = cuda_ctiles.tile_sweep_plain(*args, tie="slot")
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got[0]), _bits(want[0]))
+    assert torch.equal(got[1], want[1])
+    return got
+
+
+@pytest.mark.parametrize("case", cases.FIRST_CASES)
+@pytest.mark.parametrize("g", cases.FIRST_G)
+@pytest.mark.parametrize("t_lanes", cases.FIRST_T)
+@pytest.mark.parametrize("s", cases.SIZES)
+def test_tile_sweep_first_slot_matches_plain(cuda, s, t_lanes, g, case):
+    """tile_sweep's first-slot instance (tuned at (T 64, S 128) and (T 256,
+    S 128), else generic) and its generic instance (forced) on the crafted
+    first-slot tiles of tests/test_torch_sweep_cases.py (exact t ties
+    across a tile's clusters and within one cluster, dead lanes and slots,
+    misses, a cluster named twice) at S 2-512, T 1, 64, 256, G 1, 4, 8:
+    bitwise the plain version; on the tie cases the oracle's instance
+    gives other ids."""
+    args = _first_tile_args(cuda, case, s, t_lanes, g)
+    gen = cuda_ctiles.generic_launches
+    got = _assert_first_tile_matches_plain(args, generic=False)
+    tuned = (t_lanes, s) in ((64, 128), (256, 128))
+    assert cuda_ctiles.generic_launches == gen + (not tuned)
+    _assert_first_tile_matches_plain(args, generic=True)
+    hit = got[1] != cuda_ctiles.I32_MAX
+    assert hit.any()
+    if case == "ties_within_cluster" or case.startswith("ties") and g > 1:
+        oracle = cuda_ctiles.tile_sweep(*args)
+        assert (oracle[1][hit] != got[1][hit]).any()
+
+
+@pytest.mark.parametrize("t_lanes", [64, 256])
+def test_tile_sweep_first_slot_on_a_wave(cuda, rng, t_lanes):
+    """The cascade's shapes (T 64 and 256, S 128, G 8) on bounce-like blocks
+    of the blob accel, their clusters the nearest by centre: bitwise the
+    plain version, the tuned instance and the forced generic one."""
+    acc = _accel(cuda)
+    nt = 512
+    o, d, tm = _bounce_wave(acc, nt * t_lanes, rng)
+    rays = cuda_ctiles.pack_rays_tiles(o, d, tm, t_lanes)
+    centre = ((acc.bmin + acc.bmax) / 2)
+    tile_o = o.reshape(nt, t_lanes, 3).mean(1)
+    cid = torch.cdist(tile_o, centre).argsort(dim=1)[:, :8].to(torch.int32)
+    args = (cuda_ctiles.pack_tris(acc), rays, cid.contiguous())
+    got = _assert_first_tile_matches_plain(args, generic=False)
+    _assert_first_tile_matches_plain(args, generic=True)
+    assert (got[1] != cuda_ctiles.I32_MAX).float().mean() > 0.05
+
+
+def _first_kslot_args(cuda, case, s, k):
+    c = cases.first_kslot_case(case, s, k)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    return (t(cases.pack(c)), t(c["rays"]), t(c["cid"]), t(c["n_slots"]),
+            True)
+
+
+@pytest.mark.parametrize("case", cases.FIRST_CASES)
+@pytest.mark.parametrize("k", cases.FIRST_G)
+@pytest.mark.parametrize("s", cases.SIZES)
+def test_kslot_sweep_first_slot_matches_plain(cuda, s, k, case):
+    """kslot_sweep's first-slot closest instance (the perray sweep: every
+    slot of a row live), through the instance its wrapper picks and the
+    generic one (forced), on the crafted first-slot rows at S 2-512, K 1,
+    4, 8: bitwise the plain version; on the tie cases the oracle's rule
+    gives other ids."""
+    args = _first_kslot_args(cuda, case, s, k)
+    outs = []
+    for generic in (False, True):
+        before = (cuda_kslots.slot_launches, cuda_kslots.generic_launches)
+        if generic:
+            with generic_instances():
+                got = cuda_kslots.kslot_sweep(*args, tie="slot")
+        else:
+            got = cuda_kslots.kslot_sweep(*args, tie="slot")
+        assert cuda_kslots.slot_launches == before[0] + 1
+        assert (cuda_kslots.generic_launches
+                == before[1] + (generic or s not in (2, 128)))
+        want = cuda_kslots.kslot_sweep_plain(*args, tie="slot")
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got[0]), _bits(want[0]))
+        assert torch.equal(got[1], want[1])
+        outs.append(got)
+    hit = outs[0][1] != cuda_ctiles.I32_MAX
+    assert hit.any()
+    if case == "ties_within_cluster" or case.startswith("ties") and k > 1:
+        oracle = cuda_kslots.kslot_sweep(*args)
+        assert (oracle[1][hit] != outs[0][1][hit]).any()
+
+
+@pytest.mark.parametrize("route", ["packets_b256", "packets_b64",
+                                   "worklist_whole_wave", "perray"])
+def test_packet_cascade_routes_render_on_gpu(cuda, monkeypatch, route):
+    """The routes whose closest sweep is now a first-slot instance: the
+    "packets" backend at blocks of 256 (tuned T 256) and 64, the worklist
+    with its closest fallback forced onto the whole wave (cap 4,
+    fallback_compact 1: the packet cascade at T 64) and perray (kslot_sweep
+    first-slot and any-hit). Each launches its instance and never the
+    eager sweeps; packets and worklist equal the oracle's image bitwise,
+    perray at atol 1e-5 (as test_ctiles_and_perray_render_on_gpu holds
+    it)."""
+    from path_tracer_ai_tpu_torch.accel import traverse
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import oracle, wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+    from path_tracer_ai_tpu_torch.scene.scene import blob_scene
+
+    eager = []
+    for name in ("_packet_sweep_closest", "_packet_sweep_any"):
+        monkeypatch.setattr(traverse, name, lambda *a, **k: eager.append(1))
+    scene = blob_scene(subdivisions=4, device=cuda)
+    s = RenderSettings(width=32, height=18, samples_per_pixel=2,
+                       max_bounces=3, seed=3)
+    cam = default_camera(cuda)
+    kw = dict(wave_size=1 << 11, device=cuda)
+    if route.startswith("packets"):
+        kw.update(backend="packets", block_size=int(route[len("packets_b"):]))
+    elif route == "perray":
+        kw.update(backend="perray")
+    else:
+        kw.update(backend="worklist")
+        monkeypatch.setattr(wavefront, "WORKLIST_CLOSEST_KW", dict(
+            cap=4, item_budget=2, fallback_compact=1))
+    before = (cuda_ctiles.slot_launches, cuda_kslots.slot_launches,
+              cuda_kslots.launches)
+    img = wavefront.render(scene, cam, s, **kw)
+    ref = oracle.render(scene, cam, s, device=cuda)
+    assert not eager
+    if route == "perray":
+        assert cuda_kslots.slot_launches > before[1]
+        assert (cuda_kslots.launches - before[2]
+                > cuda_kslots.slot_launches - before[1])  # any hit too
+        np.testing.assert_allclose(img, ref, atol=1e-5)
+        return
+    assert cuda_ctiles.slot_launches > before[0]
+    np.testing.assert_array_equal(img, ref)

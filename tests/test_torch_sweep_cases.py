@@ -1,6 +1,7 @@
 """Crafted inputs for the port's two sweeps of its own, `item_sweep` (the
-worklist's item sweep) and `kslot_sweep` (the kslots backend's), as numpy
-arrays. numpy only, so that tests/test_torch_cuda.py (on the GPU machine,
+worklist's item sweep) and `kslot_sweep` (the kslots backend's), and for
+the first-slot instances of `tile_sweep` and `kslot_sweep` (the packet
+cascade's and the perray query's sweep, tie="slot"), as numpy arrays. numpy only, so that tests/test_torch_cuda.py (on the GPU machine,
 which has no JAX) and tests/test_torch_sweep_edges.py (on the CPU, against
 the JAX package) see the same inputs. This file holds no test.
 
@@ -13,6 +14,13 @@ also when its cluster comes in a later slot. Cluster C - 1 lies nearest to
 the rays, and slots past n_cand / n_slots point at it (as the culls'
 garbage entries do): a sweep that failed to mask them would return its
 triangles.
+
+The first-slot cases (FIRST_CASES) turn that tie round: the packet
+cascade keeps the FIRST slot at the minimum t, so where cluster 0 comes
+before its copy, cluster 1, cluster 0's larger ids must win. Their
+cluster 2 holds each of its even slots' triangles again in the next slot
+with the smaller id of the two (first_clusters), so the two rules part
+within one cluster too.
 """
 
 import numpy as np
@@ -28,6 +36,10 @@ ITEM_CASES = ("ties", "repeats", "garbage_slots", "dead_rays",
               "occluded_first_chunk", "no_items", "full_table")
 KSLOT_CASES = ("ties", "repeats", "garbage_slots", "dead_rays",
                "overflowed", "occluded_first_chunk")
+FIRST_CASES = ("ties_across_clusters", "ties_within_cluster", "dead_lanes",
+               "misses", "repeats")
+FIRST_T = (1, 64, 256)  # lanes a tile of the first-slot tile_sweep cases
+FIRST_G = (1, 4, 8)     # clusters a tile (slots a kslots row)
 
 
 def clusters(s: int, rng) -> dict:
@@ -178,3 +190,88 @@ def kslot_rays(case: dict) -> np.ndarray:
     return np.ascontiguousarray(np.concatenate(
         [case["o"], case["d"], case["tm"][:, None],
          np.full((n, 1), case["t_min"])], axis=1), np.float32)
+
+
+def first_clusters(s: int, rng) -> dict:
+    """clusters(), with cluster 2's odd slot 2k + 1 a copy of slot 2k's
+    triangle (the same floats) and the two ids swapped, so that the later
+    slot holds the smaller id (S = 1: unchanged)."""
+    geo = clusters(s, rng)
+    for k in ("v0", "e1", "e2"):
+        geo[k][2, 1::2] = geo[k][2, 0:s - 1:2]
+    ids = geo["tri_id"][2].copy()
+    geo["tri_id"][2, 0:s - 1:2] = ids[1::2]
+    geo["tri_id"][2, 1::2] = ids[0:s - 1:2]
+    return geo
+
+
+def _first_rows(name: str, g: int) -> list:
+    """The clusters of a first-slot case's tiles (rows), g a row, cycled."""
+    rows = {
+        # cluster 0 before its copy 1 (and after it): the first wins
+        "ties_across_clusters": [[0, 1, 3, 2], [3, 0, 1, 4], [1, 0, 2, 3]],
+        # cluster 2 alone (each hit ties in two slots of it)
+        "ties_within_cluster": [[2, 2, 2, 2]],
+        "dead_lanes": [[0, 1, 2, 3], [4, 3, 1, 0]],
+        "misses": [[0, 1, 2, 3], [3, 4, 2, 0]],
+        # a cluster named twice in a row: the same triangle in two slots
+        "repeats": [[3, 3, 0, 3], [1, 2, 1, 0]],
+    }[name]
+    return [[row[i % len(row)] for i in range(g)] for row in rows]
+
+
+def first_case(name: str, s: int, t_lanes: int, g: int, seed: int = 0,
+               nt: int = 0) -> dict:
+    """One crafted first-slot tile_sweep input: the clusters
+    (first_clusters), rays [nt, 8, T] (traverse.pack_block_rays' layout;
+    nt 0: 12 tiles, 96 below 32 lanes)
+    and tile_cid [nt, G] i32. dead_lanes: every third lane and, at T >= 64,
+    lanes 32-63 of every other tile dead (t_max -1), every fifth tile all
+    dead; misses: t_max 0.5 (short of every plane) in every other tile;
+    ties: t_max inf."""
+    nt = nt or (12 if t_lanes >= 32 else 96)
+    rng = np.random.default_rng([seed, s, t_lanes, g,
+                                 200 + FIRST_CASES.index(name)])
+    geo = first_clusters(s, rng)
+    o, d, tm = _rays(rng, nt * t_lanes, s)
+    tm = tm.reshape(nt, t_lanes)
+    if name.startswith("ties"):
+        tm[:] = np.inf
+    if name == "dead_lanes":
+        tm.reshape(-1)[::3] = -1.0
+        if t_lanes >= 64:
+            tm[::2, 32:64] = -1.0
+        tm[::5] = -1.0
+    if name == "misses":
+        tm[::2] = 0.5
+    rows = _first_rows(name, g)
+    cid = np.asarray([rows[i % len(rows)] for i in range(nt)], np.int32)
+    tmin = np.full_like(tm, T_MIN)
+    rays = np.concatenate(
+        [o.reshape(nt, t_lanes, 3).transpose(0, 2, 1),
+         d.reshape(nt, t_lanes, 3).transpose(0, 2, 1), tm[:, None],
+         tmin[:, None]], axis=1)
+    return {**geo, "rays": np.ascontiguousarray(rays, np.float32),
+            "tile_cid": cid, "t_min": T_MIN}
+
+
+def first_kslot_case(name: str, s: int, k: int, seed: int = 0,
+                     n: int = 96) -> dict:
+    """One crafted first-slot kslot_sweep input (the perray sweep: every
+    ray's k slots live): the clusters (first_clusters), ray rows [N, 8]
+    (cuda_kslots.pack_rays' layout), cid [N, K] i32 and n_slots [N] = K.
+    Rays as first_case's, by ray in place of by tile."""
+    rng = np.random.default_rng([seed, s, k, 300 + FIRST_CASES.index(name)])
+    geo = first_clusters(s, rng)
+    o, d, tm = _rays(rng, n, s)
+    if name.startswith("ties"):
+        tm[:] = np.inf
+    if name == "dead_lanes":
+        tm[::3] = -1.0
+    if name == "misses":
+        tm[::2] = 0.5
+    rows = _first_rows(name, k)
+    cid = np.asarray([rows[i % len(rows)] for i in range(n)], np.int32)
+    rays = np.concatenate([o, d, tm[:, None], np.full((n, 1), T_MIN)], 1)
+    return {**geo, "rays": np.ascontiguousarray(rays, np.float32),
+            "cid": cid, "n_slots": np.full(n, k, np.int32), "t_min": T_MIN}
