@@ -60,7 +60,15 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   8) on the first-slot cases (exact t ties across a tile's
                   clusters and within one cluster, where the first slot's
                   id is the larger; dead lanes; misses; a cluster named
-                  twice), tuned and generic.
+                  twice), tuned and generic. Also the cascade stage
+                  kernel on the crafted cascades (cascade_case:
+                  a stage ending with exactly size // 2 blocks active,
+                  fewer than 64 blocks, blocks with no candidate, all
+                  lanes dead, k carried over four stages, a closest block
+                  retired by the entry rule and swept on to a nearer hit
+                  on a box face, -0.0 / +0.0 ties) at S 16 and 128, T 1,
+                  64, 256, G 2, 5, 8, both folds, tuned and generic: the
+                  carry, block order and final k of its plain version.
                   The item_sweep and kslot_sweep lines of the kernel,
                   item_waves and generic_kernels phases carry the
                   instance's registers, spills and warps an SM and, for a
@@ -71,7 +79,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   through path_tracer_ai_tpu_torch.engine.wavefront.render:
                   a warm pass, then a timed pass with the launch counts
                   zeroed just before it and read just after; tile_sweep's
-                  launches and tiles also split by shape (T, S, G).
+                  launches and tiles also split by shape (T, S, G), the
+                  cascade stage kernel's by fold and shape, the host reads
+                  by call site. Fails past 400 host reads, or on one made
+                  in the packet cascades (accel.traverse, cuda_cascade).
+                  Then main_path_summary: kernels (profile), host reads,
+                  launches, timed pass and busy share beside commit 9fef914's
+                  215,501 / 6,741 / 6,653 / 3.819 s / 0.446.
   4b. profile     one more such render under torch.profiler: device kernel
                   time by kernel and by wave type, and the device's busy
                   share of the timed pass; the same for the next two paths
@@ -179,10 +193,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   just before (path_mesh_ratio); render(tile_devices=8)
                   (a 1x1 mesh on one card), both held to the main path's
                   image as path_pool is; render_sharded (scheduler "fused",
-                  blocks of 256: tile_sweep at T 256) at the bench cell if
-                  960x540 predicts it under 60 s, else at 960x540 (against
-                  the main path at that size). The kernel phase checks
-                  tile_sweep at (T 256, S 128, G 2) too.
+                  blocks of 256: the cascade stage kernel at T 256) at the
+                  bench cell if 960x540 predicts it under 60 s, else at
+                  960x540 (against the main path at that size). The
+                  kernel phase checks tile_sweep at (T 256, S 128, G 2)
+                  too.
   11. config_4k   benchmarks.run_config("4k", scale=1/1024): 3840x2160, 1
                   spp, 16 bounces, progressive with a checkpoint under a
                   temporary directory, through tile_devices=8; finite, no
@@ -237,28 +252,33 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   it has them: bitwise against the plain version, timed,
                   bounded, with the distinct clusters a run of 128 rays
                   names.
-  16. packet_cascade the first-slot instances (tie="slot") that carry the
-                  sweeps of traverse.closest_hit_packets and of the perray
-                  queries (XLA-fused in the JAX package): tile_sweep's on
-                  the first launch of the worklist render's kept whole-wave
-                  closest fallback (T 64, G 8) and of a cascade at blocks
-                  of 256 on 2^18 bounce rays (T 256, G 8), kslot_sweep's
-                  on the first launch of closest_hit_perray on 2^16 bounce
-                  rays (K 4): bitwise the plain version and the forced
-                  generic instance, timed beside the bound and the plain
-                  version; the worklist's and the kslots render's kept
-                  closest fallbacks (their first two whole-wave cascades)
-                  in turns before (the plain eager sweep on the card:
-                  traverse._kernel_sweeps patched off), after, after,
-                  before: device seconds, sweep seconds (CUDA events round
-                  each sweep) and the host loop's rest, the same bits; the
-                  "packets" route (blocks of 256) as path_perray renders
-                  perray (line path_packets); the worklist, kslots, perray
-                  and packets routes' seconds, host syncs and launches.
-                  Fails if the eager sweep helpers
-                  (traverse._packet_sweep_closest / _packet_sweep_any) ran
-                  in any route phase (they are counted from the build on;
-                  the "before" runs put their own calls back).
+  16. packet_cascade the packet cascades' loop on the card and
+                  the first-slot kernels: the cascade stage kernel on the
+                  first stage of the main path's first shadow call (any
+                  hit, T 64, G 2), of the worklist render's kept whole-
+                  wave closest fallback (first slot, T 64, G 8) and of a
+                  closest cascade at blocks of 256 on 2^18 bounce rays
+                  (T 256, G 8): bitwise its plain version, tuned and
+                  generic, timed beside its bound, its plain version and
+                  the host-stepped loop (each on the first stage that
+                  sweeps); tile_sweep's first-slot instance
+                  on the first iteration of those two closest cascades run
+                  host-stepped, and kslot_sweep's on closest_hit_perray's
+                  first launch (2^16 bounce rays, K 4): bitwise, timed,
+                  bounded; the main path's two kept shadow calls (wave 0,
+                  bounces 0 and 1, kept by a render that stops once it
+                  has them) and the worklist's and kslots render's kept
+                  closest fallbacks through the host-stepped loop and the
+                  stage kernel in turns (before, after, after, before):
+                  the same bits and final k, device seconds, host reads
+                  and device kernels of each (lines packet_cascade_loop);
+                  the "packets" route (blocks of 256) as path_perray
+                  renders perray (line path_packets); the worklist,
+                  kslots, perray and packets routes' seconds, host syncs
+                  and launches. Fails if the eager sweep helpers
+                  (traverse._packet_sweep_closest / _packet_sweep_any)
+                  ran in any route phase (they are counted from the build
+                  on).
   17. worklist_mxu the worklist scene's kept closest and shadow queries
                   (wave 0, bounce 1) through intersector "mxu", "mxu:high"
                   and "mxu:default" at blocks of 64, sorted, against
@@ -283,13 +303,17 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   held to the main path's image as path_pool is, the
                   concurrent runs profiled (busy share a card); then
                   mesh_cards_summary, each run's time over the main path's.
-Then the kernels line (nine kernels: the five, item_sweep and
-kslot_sweep, which replace no TPU kernel, and the first-slot instances
-tile_sweep_first and kslot_sweep_first, which carry XLA-fused sweeps;
-launches on every path, the new ones under new_path_launches; each
-kernel's generic instance under "generic": its S = 128 time beside the
-tuned one's, its bound, and its launches in cluster_sizes), and last
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+Then the kernels line (eleven kernels: the five, item_sweep and
+kslot_sweep, which replace no TPU kernel, the first-slot instances
+tile_sweep_first and kslot_sweep_first, which carry XLA-fused sweeps, and
+the cascade stage kernel's two folds, cascade_stage_any and
+cascade_stage_first, which carry the cascade's while_loop ("carries": the
+JAX package's code each stands for); launches on every path, the new ones
+under new_path_launches, tile_sweep_first's in the host-stepped loop, the
+only route left that launches it; each kernel's generic instance under
+"generic": its S = 128 time beside the tuned one's, its bound, and its
+launches in cluster_sizes), and last {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -438,6 +462,7 @@ def phase_build():
     from path_tracer_ai_tpu_torch import cuda_build
     from path_tracer_ai_tpu_torch.accel import (
         cuda_anyhit,
+        cuda_cascade,
         cuda_closest,
         cuda_ctiles,
         cuda_items,
@@ -489,6 +514,17 @@ def phase_build():
         occupancy[key] = {**occ, "spill_bytes": sum(
             e["spill_bytes"] for es in ptxas.values() for e in es
             if tag in e["entry"])}
+    # the cascade stage kernel (its loop on the card): tuned at T 64 and
+    # 256 (S 128), generic (S 0)
+    for any_hit in (True, False):
+        name = cuda_cascade.NAMES[any_hit]
+        for s_, t in ((128, 64), (128, 256), (0, 0)):
+            tag = (f"cascade_stage_kernelILb{int(any_hit)}ELi{s_}ELi{t}E")
+            occupancy[f"{name} " + (f"T{t} S{s_}" if s_ else "generic")] = {
+                **cuda_cascade.kernel_occupancy(s_, t, any_hit),
+                "spill_bytes": sum(e["spill_bytes"]
+                                   for e in ptxas.get("ctiles_sweep", [])
+                                   if tag in e["entry"])}
     for name, mod in (("item_sweep", cuda_items),
                       ("kslot_sweep", cuda_kslots)):
         for s_, closest in ((128, True), (128, False), (0, True),
@@ -940,13 +976,15 @@ def phase_kernels(accel_base, accel_c):
     out["tile_sweep_t64_g2"] = _check_tile_sweep(accel_base, 64, 2048, rng,
                                                  reps=20, g=2)
     # the worklist path's shapes: pair tiles (T 128, S 128) and the packet
-    # any-hit cascade of its fallbacks (T 64, groups of 8)
+    # any-hit cascade of its fallbacks (T 64, groups of 8; that cascade
+    # now sweeps in the stage kernel, this shape only in the host-stepped
+    # loop)
     out["tile_sweep_t128_s128"] = _check_tile_sweep(accel_base, 128, 2048,
                                                     rng, reps=20,
                                                     options=True)
     out["tile_sweep_t64_g8"] = _check_tile_sweep(accel_base, 64, 2048, rng,
                                                  reps=20, g=8)
-    # render_sharded's shadow cascade: blocks of 256, groups of 2
+    # render_sharded's shadow cascade's shape: blocks of 256, groups of 2
     out["tile_sweep_t256_g2"] = _check_tile_sweep(accel_base, 256, 2048, rng,
                                                   reps=20, g=2)
     # the kslots backend's closest (K 12) and shadow (K 8) waves
@@ -1158,6 +1196,7 @@ class _engines(_patched):
 def _reset_counts():
     from path_tracer_ai_tpu_torch.accel import (
         cuda_anyhit,
+        cuda_cascade,
         cuda_closest,
         cuda_ctiles,
         cuda_items,
@@ -1170,7 +1209,7 @@ def _reset_counts():
     from path_tracer_ai_tpu_torch.utils import sync
 
     for mod in (cuda_ctiles, cuda_sweep, cuda_anyhit, cuda_closest,
-                cuda_items, cuda_kslots):
+                cuda_items, cuda_kslots, cuda_cascade):
         mod.reset_launches()
     kslots.reset_overflow_counts()
     worklist.reset_fallback_counts()
@@ -1181,6 +1220,7 @@ def _reset_counts():
 def _read_counts() -> dict:
     from path_tracer_ai_tpu_torch.accel import (
         cuda_anyhit,
+        cuda_cascade,
         cuda_closest,
         cuda_ctiles,
         cuda_items,
@@ -1189,6 +1229,7 @@ def _read_counts() -> dict:
     )
 
     return {"tile_sweep": cuda_ctiles.launches, **cuda_sweep.launches,
+            **cuda_cascade.launches,
             "block_anyhit": cuda_anyhit.launches,
             "block_closest": cuda_closest.launches,
             "item_sweep": cuda_items.launches,
@@ -1204,6 +1245,24 @@ def _tile_shapes() -> list:
     return [{"T": key[0], "S": key[1], "G": key[2], "launches": n,
              "tiles": tiles, **({"option": key[3]} if len(key) > 3 else {})}
             for key, (n, tiles) in sorted(cuda_ctiles.launch_shapes.items())]
+
+
+def _stage_shapes() -> list:
+    """The cascade stage kernel's launches by fold and shape."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade
+
+    return [{"kernel": key[0], "T": key[1], "S": key[2], "G": key[3],
+             "launches": n, "blocks": blocks,
+             **({"instance": key[4]} if len(key) > 4 else {})}
+            for key, (n, blocks) in sorted(
+                cuda_cascade.launch_shapes.items())]
+
+
+def _sync_sites() -> dict:
+    """Host reads by call site ("module:line"), most first."""
+    from path_tracer_ai_tpu_torch.utils import sync
+
+    return dict(sorted(sync.sites.items(), key=lambda kv: -kv[1]))
 
 
 def _bench_render(phase, scene, card, kernels, warm_small, engines=None,
@@ -1233,7 +1292,9 @@ def _bench_render(phase, scene, card, kernels, warm_small, engines=None,
         img = wavefront.render(scene, cam, settings, stats=stats, **kw)
         launches = _read_counts()
         syncs = sync.count
+        sites = _sync_sites()
         tile_shapes = _tile_shapes()
+        stage_shapes = _stage_shapes()
 
     from path_tracer_ai_tpu_torch.accel import worklist
 
@@ -1243,7 +1304,8 @@ def _bench_render(phase, scene, card, kernels, warm_small, engines=None,
            "seconds": stats.seconds, "closest_rays": stats.closest_rays,
            "shadow_rays": stats.shadow_rays, "mrays_per_s": stats.mrays_per_s,
            "launches": launches, "tile_sweep_shapes": tile_shapes,
-           "host_syncs": syncs,
+           "cascade_stage_shapes": stage_shapes, "host_syncs": syncs,
+           "host_sync_sites": sites,
            "overflow_fallback": dict(worklist.fallback_counts)}
     if stats.pool_iterations:
         res["pool_iterations_per_chunk"] = stats.pool_iterations
@@ -1273,17 +1335,54 @@ def _finish_path(res, missing, image_ok):
         fail(res["phase"], "bad image (non-finite, magenta or mostly black)")
 
 
+# The main path's bench render on the H100 at commit 9fef914 (its profile
+# and main_path phases), before the packet cascades' loop ran on the card.
+MAIN_AT_9FEF914 = {"device_kernels": 215501, "host_syncs": 6741,
+             "tile_sweep_launches": 6653, "timed_pass_seconds": 3.819,
+             "busy_share": 0.446}
+# Since then: host reads a bench render at most, and the modules in which
+# none may be made (the packet cascades and their stage).
+MAIN_SYNCS_MAX = 400
+NO_SYNC_MODULES = ("path_tracer_ai_tpu_torch.accel.traverse:",
+                   "path_tracer_ai_tpu_torch.accel.cuda_cascade:")
+
+
 def phase_main_path(scene, accel_base, accel_c, card):
     from path_tracer_ai_tpu_torch.io.image import save_image
 
     res, img, missing, image_ok = _bench_render(
-        "main_path", scene, card, ["tile_sweep"], warm_small=False,
-        accel=accel_base, accel_closest=accel_c)
+        "main_path", scene, card, ["tile_sweep", "cascade_stage_any"],
+        warm_small=False, accel=accel_base, accel_closest=accel_c)
     png = os.path.join(tempfile.gettempdir(), "chip_smoke_bench.png")
     save_image(png, img, 2.2)
     res["png"] = png
     _finish_path(res, missing, image_ok)
+    cascade = [k for k in res["host_sync_sites"]
+               if k.startswith(NO_SYNC_MODULES)]
+    if res["host_syncs"] > MAIN_SYNCS_MAX or cascade:
+        fail("main_path", f"{res['host_syncs']} host reads (at most "
+                          f"{MAIN_SYNCS_MAX}), {cascade} in the cascades")
     return res, img
+
+
+def phase_main_summary(card, render, profile):
+    """The main path's bench render beside commit 9fef914's: kernels
+    (profile), host reads by call site, tile_sweep and stage launches by
+    shape, the timed pass and the busy share."""
+    res = {"phase": "main_path_summary", "card": card,
+           "device_kernels": profile["device_kernels"],
+           "host_syncs": render["host_syncs"],
+           "host_sync_sites": render["host_sync_sites"],
+           "tile_sweep_launches": render["launches"]["tile_sweep"],
+           "tile_sweep_shapes": render["tile_sweep_shapes"],
+           "cascade_stage_launches": render["launches"]["cascade_stage_any"],
+           "cascade_stage_shapes": render["cascade_stage_shapes"],
+           "timed_pass_seconds": render["seconds"],
+           "busy_share": profile["busy_share_of_timed_pass"],
+           "image_sha256": render["image_sha256"],
+           "at_commit_9fef914": MAIN_AT_9FEF914}
+    emit(res)
+    return res
 
 
 def phase_path_pallas(scene, accel_base, card, img_main):
@@ -1392,7 +1491,7 @@ def phase_profile(scene, accel_base, accel_c, timed_seconds):
     avgs, wall = _profiled_render(scene, accel=accel_base,
                                   accel_closest=accel_c)
     res = _kernel_time("profile", avgs, wall, timed_seconds,
-                       ["tile_sweep_kernel"])
+                       ["tile_sweep_kernel", "cascade_stage_kernel"])
     sweeps = res["path_kernels"]["tile_sweep_kernel"]
     host = [e for e in avgs
             if e.key in WAVE_LABELS
@@ -1450,6 +1549,7 @@ def _generic_counts() -> dict:
     """Launches of each kernel's generic instance since the last reset."""
     from path_tracer_ai_tpu_torch.accel import (
         cuda_anyhit,
+        cuda_cascade,
         cuda_closest,
         cuda_ctiles,
         cuda_items,
@@ -1459,6 +1559,7 @@ def _generic_counts() -> dict:
 
     return {"tile_sweep": cuda_ctiles.generic_launches,
             **cuda_sweep.generic_launches,
+            **cuda_cascade.generic_launches,
             "block_anyhit": cuda_anyhit.generic_launches,
             "block_closest": cuda_closest.generic_launches,
             "item_sweep": cuda_items.generic_launches,
@@ -1520,6 +1621,25 @@ def phase_generic_kernels(accel_base, item_args, checks, card):
     return out
 
 
+_CASES = []
+
+
+def _cases():
+    """tests/test_torch_sweep_cases.py (numpy only), loaded by its path:
+    another installed package may answer to "tests"."""
+    import importlib.util
+
+    if not _CASES:
+        spec = importlib.util.spec_from_file_location(
+            "sweep_cases", os.path.join(
+                os.path.dirname(os.path.abspath(__file__)), "tests",
+                "test_torch_sweep_cases.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _CASES.append(mod)
+    return _CASES[0]
+
+
 def phase_sweep_cases(card):
     """item_sweep and kslot_sweep on the crafted cases of
     tests/test_torch_sweep_cases.py (exact t ties across an item's clusters
@@ -1529,17 +1649,10 @@ def phase_sweep_cases(card):
     through the instance the wrapper picks and through the generic one:
     each bitwise its plain version; a mismatch fails the run."""
     import contextlib
-    import importlib.util
 
     from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_items, cuda_kslots
 
-    # by its path: another installed package may answer to "tests"
-    spec = importlib.util.spec_from_file_location("sweep_cases", os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "tests",
-        "test_torch_sweep_cases.py"))
-    cases = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cases)
-
+    cases = _cases()
     t = lambda a: torch.as_tensor(a, device="cuda")
     inputs = []
     for s in cases.SIZES:
@@ -1595,8 +1708,35 @@ def phase_sweep_cases(card):
             checked += 1
             if not _same_outputs(got, plain):
                 bad.append([run.__name__ + "_first", *tag, forced])
+    # the cascade stage kernel on the crafted cascades, through
+    # traverse._cascade_stages: the carry, the block order and the final k
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade
+
+    for name in cases.CASCADE_CASES:
+        for s_ in CASCADE_CASE_SIZES:
+            for t_lanes in cases.CASCADE_T:
+                for g in CASCADE_CASE_G:
+                    case = cases.cascade_case(name, s_, t_lanes, g)
+                    for closest in (False, True):
+                        want = _cascade_case_run(
+                            cuda_cascade.cascade_stage_plain, case, closest)
+                        for forced in (False, True):
+                            with (_generic_instances() if forced
+                                  else contextlib.nullcontext()):
+                                got = _cascade_case_run(
+                                    cuda_cascade.cascade_stage, case,
+                                    closest)
+                            checked += 1
+                            if not (_same_outputs(got[0], want[0])
+                                    and got[1:] == want[1:]):
+                                bad.append(["cascade_stage", name, s_,
+                                            t_lanes, g, closest, forced])
     torch.cuda.synchronize()
     emit({"phase": "sweep_cases", "card": card, "sizes": list(cases.SIZES),
+          "cascade_cases": list(cases.CASCADE_CASES),
+          "cascade_S": list(CASCADE_CASE_SIZES),
+          "cascade_T": list(cases.CASCADE_T),
+          "cascade_G": list(CASCADE_CASE_G),
           "item_cases": list(cases.ITEM_CASES),
           "kslot_cases": list(cases.KSLOT_CASES),
           "first_slot_cases": list(cases.FIRST_CASES),
@@ -1606,6 +1746,41 @@ def phase_sweep_cases(card):
     if bad:
         fail("sweep_cases", f"{len(bad)} crafted cases differ from the "
                             f"plain versions: {bad[:8]}")
+
+
+# The crafted cascades' cluster sizes and groups on the card (the tuned
+# stage instances are S 128; G 5 and 8 leave C = 12 ragged).
+CASCADE_CASE_SIZES = (16, 128)
+CASCADE_CASE_G = (2, 5, 8)
+
+
+def _cascade_case_run(stage, case, closest) -> tuple:
+    """A crafted cascade through traverse._cascade_stages with `stage` (the
+    wrapper or its plain version): (carry + (blk_index,), final k)."""
+    from path_tracer_ai_tpu_torch.accel import traverse
+
+    t = lambda a: torch.as_tensor(a, device="cuda")
+    pack = t(_cases().pack(case))
+    nb, t_lanes = case["tm"].shape
+    blocks = (t(case["rays"]), t(case["order_g"]), t(case["n_cand"]))
+    if closest:
+        blocks += (t(case["entry"]),)
+        carry = (torch.full((nb, t_lanes), np.inf, device="cuda"),
+                 torch.full((nb, t_lanes), -1, dtype=torch.int32,
+                            device="cuda"))
+    else:
+        carry = (torch.zeros((nb, t_lanes), dtype=torch.bool,
+                             device="cuda"),)
+    ks = []
+
+    def run(b, c, k, thr):
+        out = stage(pack, b[0], b[1], b[2], c, k, thr,
+                    **({"entry": b[3]} if closest else {}))
+        ks.append(out[1])
+        return out
+
+    carry, blk = traverse._cascade_stages(blocks, carry, run)
+    return (*carry, blk), int(ks[-1])
 
 
 CLUSTER_SIZES = (2, 16, 64, 96, 512)
@@ -1702,6 +1877,26 @@ def _generic_checks(acc, rng) -> dict:
             ok = ok and same(cuda_kslots.kslot_sweep(*args),
                              cuda_kslots.kslot_sweep_plain(*args))
         out["kslot_sweep"] = ok
+
+        # the cascade stage kernel: whole cascades at blocks of 64, against
+        # its plain version in every stage
+        from path_tracer_ai_tpu_torch.accel import cuda_cascade, traverse
+
+        ok_any = ok_first = True
+        for g in (2, 8):
+            args = (acc, o, d, 1e-3, tm)
+            kw = dict(block_size=64, group_size=g)
+            occ = traverse.any_hit_packets(*args, **kw)
+            hit = traverse.closest_hit_packets(*args, **kw)
+            with _patched(cuda_cascade,
+                          cascade_stage=cuda_cascade.cascade_stage_plain):
+                ok_any = ok_any and bool(torch.equal(
+                    occ, traverse.any_hit_packets(*args, **kw)))
+                want = traverse.closest_hit_packets(*args, **kw)
+            ok_first = ok_first and same((hit.t, hit.tri),
+                                         (want.t, want.tri))
+        out["cascade_stage_any"] = ok_any
+        out["cascade_stage_first"] = ok_first
     torch.cuda.synchronize()
     return out
 
@@ -1843,16 +2038,17 @@ def phase_consistency():
         fail("consistency", f"the worklist route: {wl}")
     ex = wl["packets_exact"]
     if not ex["bitwise"] or min(ex["launches"]["item_sweep"],
-                                ex["launches"]["tile_sweep"]) <= 0:
+                                ex["launches"]["cascade_stage_any"]) <= 0:
         fail("consistency", f"the worklist route with packets_exact shadows "
-                            f"(bitwise the oracle, item_sweep and tile_sweep "
-                            f"launched): {ex}")
+                            f"(bitwise the oracle, item_sweep and the "
+                            f"cascade stage kernel launched): {ex}")
     if any(wl[b]["pixels_over_1e-5"] for b in ("pairs", "packets")):
         fail("consistency", f"pairs or packets backend differ from the "
                             f"oracle beyond 1e-5: {wl}")
     if min(wl["worklist"]["launches"]["item_sweep"],
            wl["pairs"]["launches"]["tile_sweep"],
-           wl["packets"]["launches"]["tile_sweep"],
+           wl["packets"]["launches"]["cascade_stage_any"],
+           wl["packets"]["launches"]["cascade_stage_first"],
            wl["kslots"]["launches"]["kslot_sweep"]) <= 0:
         fail("consistency", f"a backend launched none of its kernels: {wl}")
     if not wl["kslots"]["bitwise"]:
@@ -2740,7 +2936,9 @@ def _timed_mesh_render(phase, card, render, main_seconds):
            "seconds": stats.seconds, "closest_rays": stats.closest_rays,
            "shadow_rays": stats.shadow_rays,
            "mrays_per_s": stats.mrays_per_s, "launches": _read_counts(),
-           "tile_sweep_shapes": _tile_shapes(), "host_syncs": sync.count}
+           "tile_sweep_shapes": _tile_shapes(),
+           "cascade_stage_shapes": _stage_shapes(), "host_syncs": sync.count,
+           "host_sync_sites": _sync_sites()}
     return res, img, _image_verdict(img, res)
 
 
@@ -2941,8 +3139,10 @@ def phase_path_mesh(scene, accel_base, accel_c, card, img_main,
                                 accel_base, accel_c)
     res.update(size=size, wall_seconds_960x540=small_wall,
                predicted_bench_cell_seconds=predicted)
-    t256 = [sh for sh in res["tile_sweep_shapes"] if sh["T"] == 256]
-    _finish_path(res, [] if t256 else ["tile_sweep at T 256"], image_ok)
+    # its shadow cascade: the stage kernel at blocks of 256
+    t256 = [sh for sh in res["cascade_stage_shapes"] if sh["T"] == 256]
+    _finish_path(res, [] if t256 else ["cascade_stage_any at T 256"],
+                 image_ok)
     out["render_sharded"] = res
     return out
 
@@ -3541,85 +3741,219 @@ def _check_first_kslot(args, wave) -> dict:
     return res
 
 
-def _timed_query(fn, args, kw, spy_mod, spy_name):
-    """fn(*args, **kw) once, each call of spy_mod.spy_name (the sweep)
-    bracketed by CUDA events: (result, device seconds of the call, of its
-    sweeps, the rest (the cascade's host loop: its other kernels and the
-    waits on host reads), sweeps, wall seconds)."""
-    ev = lambda: torch.cuda.Event(enable_timing=True)
-    spans = []
-    real = getattr(spy_mod, spy_name)
+def _host_stepped():
+    """While entered, the packet cascades' stages run the host-stepped loop
+    that the card ran before the stage kernel: cascade_stage_plain with
+    tile_sweep (one launch an iteration, one host read a vote)."""
+    from functools import partial
 
-    def timed(*a, **k):
-        s_, e_ = ev(), ev()
-        s_.record()
-        out = real(*a, **k)
-        e_.record()
-        spans.append((s_, e_))
-        return out
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade, cuda_ctiles
+
+    return _patched(cuda_cascade, cascade_stage=partial(
+        cuda_cascade.cascade_stage_plain,
+        sweep=lambda *a, **k: cuda_ctiles.tile_sweep(*a, **k)))
+
+
+def _device_kernels(fn) -> int:
+    """Device kernels and copies of one fn() under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    start, end = ev(), ev()
-    setattr(spy_mod, spy_name, timed)
-    try:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return int(sum(e.count for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and not _is_label(e.key)))
+
+
+def _loop_run(fn, args, kw) -> tuple:
+    """fn(*args, **kw) once (a packet cascade): (result, {device seconds
+    (CUDA events), wall seconds, host reads, the final k of its last
+    cascade, tile_sweep_first launches}); the device kernels of a second
+    run under torch.profiler."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade, cuda_ctiles
+    from path_tracer_ai_tpu_torch.utils import sync
+
+    ks = []
+    real = cuda_cascade.cascade_stage
+
+    def stage(*a, **k):
+        out = real(*a, **k)
+        ks.append(out[1])
+        return out
+
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    with _patched(cuda_cascade, cascade_stage=stage):
+        torch.cuda.synchronize()
+        reads, slot = sync.count, cuda_ctiles.slot_launches
+        start, end = ev(), ev()
         t0 = time.perf_counter()
         start.record()
         out = fn(*args, **kw)
         end.record()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        setattr(spy_mod, spy_name, real)
-    total = start.elapsed_time(end) / 1e3
-    sweep = sum(a.elapsed_time(b) for a, b in spans) / 1e3
-    return out, {"device_seconds": total, "sweep_seconds": sweep,
-                 "host_loop_seconds": total - sweep, "sweeps": len(spans),
-                 "wall_seconds": wall}
+        run = {"device_seconds": start.elapsed_time(end) / 1e3,
+               "wall_seconds": time.perf_counter() - t0,
+               "host_reads": sync.count - reads,
+               "tile_sweep_first_launches": cuda_ctiles.slot_launches - slot,
+               "final_k": int(ks[-1])}
+        run["device_kernels"] = _device_kernels(lambda: fn(*args, **kw))
+    return out, run
 
 
-def _fallback_before_after(route, call) -> dict:
-    """One kept whole-wave closest fallback (traverse.closest_hit_packets)
-    in turns: before (the plain eager sweep on the card, the parent's
-    route: traverse._kernel_sweeps patched to False), after (tile_sweep's
-    first-slot instance), after, before; each split into sweep and host
-    loop by CUDA events. The two must give the same bits."""
-    from path_tracer_ai_tpu_torch.accel import cuda_ctiles, traverse
+def _stage_split(fn, args, kw) -> list:
+    """One more fn(*args, **kw), each cascade stage bracketed by CUDA
+    events (k read after each: this run waits on the host, so its sum is
+    not the call's time): [(slice size, threshold, k in, k out, device
+    ms)] a stage."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade
 
+    spans = []
+    real = cuda_cascade.cascade_stage
+
+    def stage(*a, **k):
+        k_in = int(a[5])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*a, **k)
+        end.record()
+        end.synchronize()
+        spans.append({"size": a[1].shape[0], "threshold": a[6],
+                      "k_in": k_in, "k_out": int(out[1]),
+                      "ms": start.elapsed_time(end)})
+        return out
+
+    with _patched(cuda_cascade, cascade_stage=stage):
+        fn(*args, **kw)
+    return spans
+
+
+def _loop_before_after(label, fn, call) -> dict:
+    """One kept packet cascade (fn = traverse.any_hit_packets or
+    closest_hit_packets) in turns: before (the host-stepped loop, the
+    parent's route), after (the stage kernel), after, before. The two must
+    give the same bits and the same final k. after_stages: the stage
+    kernel's launches one by one (_stage_split)."""
     args, kw = call
-    real_switch = traverse._kernel_sweeps
-    saved = dict(EAGER_CALLS)
     runs = {"before": [], "after": []}
     outs = {}
-    try:
-        for which in ("before", "after", "after", "before"):
-            if which == "before":
-                traverse._kernel_sweeps = lambda dev: False
-                out, r = _timed_query(traverse.closest_hit_packets, args, kw,
-                                      traverse, "_packet_sweep_closest")
-            else:
-                traverse._kernel_sweeps = real_switch
-                out, r = _timed_query(traverse.closest_hit_packets, args, kw,
-                                      cuda_ctiles, "tile_sweep")
-            runs[which].append(r)
-            outs.setdefault(which, out)
-    finally:
-        traverse._kernel_sweeps = real_switch
-        EAGER_CALLS.update(saved)
-    same = (_bits_equal(outs["before"].t, outs["after"].t)
-            and bool(torch.equal(outs["before"].tri, outs["after"].tri)))
+    for which in ("before", "after", "after", "before"):
+        if which == "before":
+            with _host_stepped():
+                out, r = _loop_run(fn, args, kw)
+        else:
+            out, r = _loop_run(fn, args, kw)
+        runs[which].append(r)
+        outs.setdefault(which, out)
+    split = _stage_split(fn, args, kw)
+    a, b = outs["before"], outs["after"]
+    same = (_same_outputs((a.t, a.tri), (b.t, b.tri))
+            if isinstance(a, tuple) else bool(torch.equal(a, b)))
     best = {w: {k: min(r[k] for r in runs[w]) for k in runs[w][0]}
             for w in runs}
-    return {"route": route, "rays": int(args[1].shape[0]),
-            "live_rays": int((args[4] >= 0).sum()),
-            "hits": int(outs["after"].hit.sum()),
-            "block_size": kw.get("block_size"), "same_bits": same,
-            "runs": runs, "best": best,
+    return {"call": label, "rays": int(args[1].shape[0]),
+            "live_rays": int((torch.as_tensor(args[4]) >= 0).sum()),
+            "block_size": kw.get("block_size"),
+            "group_size": kw.get("group_size"),
+            "same_bits": same,
+            "same_final_k": all(r["final_k"] == runs["before"][0]["final_k"]
+                                for w in runs for r in runs[w]),
+            "runs": runs, "best": best, "after_stages": split,
             "device_over_before": best["after"]["device_seconds"]
-            / best["before"]["device_seconds"],
-            "sweep_over_before": best["after"]["sweep_seconds"]
-            / max(best["before"]["sweep_seconds"], 1e-9),
-            "host_loop_share_after": best["after"]["host_loop_seconds"]
-            / best["after"]["device_seconds"]}
+            / best["before"]["device_seconds"]}
+
+
+def _keep_sweeping_stage(fn, args, kw) -> tuple:
+    """The arguments of the first cascade_stage call of fn(*args, **kw)
+    that sweeps (k moves; a stage can end at once, under its threshold):
+    copies, since the stage updates its carry and k in place."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade
+
+    kept = []
+    real = cuda_cascade.cascade_stage
+
+    def stage(*a, **k):
+        if kept:
+            return real(*a, **k)
+        copy = (tuple(tuple(c.clone() for c in x) if isinstance(x, tuple)
+                      else x.clone() if torch.is_tensor(x) else x
+                      for x in a),
+                {n: v.clone() for n, v in k.items()})
+        out = real(*a, **k)
+        if int(out[1]) > int(copy[0][5]):
+            kept.append(copy)
+        return out
+
+    with _patched(cuda_cascade, cascade_stage=stage):
+        fn(*args, **kw)
+    return kept[0]
+
+
+def _check_stage(name, fn, call, wave, reps=10) -> dict:
+    """The cascade stage kernel on the first stage of a kept cascade that
+    sweeps: bitwise
+    (carry, k, act) its plain version (tile_sweep's plain sweeps: eager
+    torch only), tuned and generic (forced); timed beside its plain
+    version and the host-stepped loop (the plain version sweeping through
+    tile_sweep), and bounded over the needed tests: the live (any hit: not
+    yet occluded) lanes of the sweeps x g x S, and the bytes of the rays,
+    the candidate table, the carry (read and written), act and the swept
+    clusters, each once. Each timed call first copies the carry and k
+    (the stage updates them in place); that copy is timed alone and taken
+    off."""
+    from functools import partial
+
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade, cuda_ctiles
+
+    (pack, rays, order_g, n_cand, carry, k, thr), kw = _keep_sweeping_stage(
+        fn, *call)
+    fresh = lambda: (tuple(c.clone() for c in carry), k.clone())
+
+    def run(stage=None, **extra):
+        c, k_ = fresh()
+        return (stage or cuda_cascade.cascade_stage)(
+            pack, rays, order_g, n_cand, c, k_, thr, **kw, **extra)
+
+    def outputs(r):
+        return (*r[0], r[1], r[2])
+
+    stats = {}
+    plain = outputs(run(cuda_cascade.cascade_stage_plain, stats=stats))
+    got = outputs(run())
+    torch.cuda.synchronize()
+    ok = _same_outputs(got, plain)
+    copy_ms = cuda_ms(fresh, reps)
+    ms = cuda_ms(run, reps) - copy_ms
+    with _generic_instances():
+        gen_ok = _same_outputs(outputs(run()), plain)
+        gen_ms = cuda_ms(run, reps) - copy_ms
+    plain_ms = cuda_ms(lambda: run(cuda_cascade.cascade_stage_plain), 1)
+    stepped_ms = cuda_ms(lambda: run(partial(
+        cuda_cascade.cascade_stage_plain, sweep=cuda_ctiles.tile_sweep)), 1)
+    size, kgroups, g = order_g.shape
+    s = pack.shape[2]
+    k_end = int(plain[-2])
+    swept = stats.get("blocks", 0)  # a group of g ids (and an entry) each
+    clusters = int(stats["clusters"].sum()) if "clusters" in stats else 0
+    nbytes = (_nbytes(rays, n_cand, plain[-1]) + 2 * _nbytes(*carry)
+              + swept * (g + (1 if kw else 0)) * 4 + clusters * 10 * s * 4)
+    res = {"phase": "packet_cascade", "name": name, "wave": wave,
+           "T": rays.shape[2], "S": s, "G": g, "blocks": size,
+           "threshold": thr, "k_in": int(k), "k_out": k_end,
+           "sweeps": stats.get("sweeps", 0),
+           "matches_plain": ok, "generic_matches_plain": gen_ok,
+           "max_abs_err": (_max_abs_err(got[0], plain[0])
+                           if got[0].dtype == torch.float32 else 0.0),
+           "ms": ms, "copy_ms": copy_ms, "plain_ms": plain_ms,
+           "host_stepped_ms": stepped_ms,
+           **_bound(nbytes, stats.get("tests", 0)),
+           "generic_ms": gen_ms}
+    res["ms_over_bound"] = ms / res["bound_ms"]
+    res["generic_over_bound"] = gen_ms / res["bound_ms"]
+    return res
 
 
 def _route_summary(res) -> dict:
@@ -3631,42 +3965,61 @@ def _route_summary(res) -> dict:
 
 
 def phase_packet_cascade(scene, accel_base, accel_c, card, img_main,
-                         routes) -> dict:
-    """The first-slot instances and the routes they serve. (1) tile_sweep's
-    first-slot instance on the first launch of the worklist render's kept
-    closest fallback (T 64, G 8, the worklist scene) and of a packet
-    cascade at blocks of 256 on a 2^18-ray bounce wave of the bench accel
-    (T 256, G 8); kslot_sweep's first-slot instance on the first launch of
-    closest_hit_perray on a 2^16-ray bounce wave (K 4): each bitwise its
+                         routes, kept_shadows) -> tuple:
+    """The packet cascades' loop on the card and the first-slot kernels.
+    (1) The cascade stage kernel on the first stage that sweeps of the main
+    path's first kept shadow call (any hit, T 64, G 2), of the worklist
+    render's first kept closest fallback (first slot, T 64, G 8) and of a
+    closest cascade at blocks of 256 on a 2^18-ray bounce wave (T 256, G
+    8): bitwise
+    its plain version, tuned and generic, timed beside its bound, its plain
+    version and the host-stepped loop. (2) tile_sweep's first-slot instance
+    (the host-stepped loop's sweep) on the first iteration of the same two
+    closest cascades, run host-stepped; kslot_sweep's on the first launch
+    of closest_hit_perray on a 2^16-ray bounce wave (K 4): each bitwise its
     plain version and its forced generic instance, timed beside its bound
-    and its plain version. (2) The worklist's and the kslots render's kept
-    whole-wave closest fallbacks before (the plain sweep on the card) and
-    after, in turns, sweep against host loop. (3) The "packets" route
-    (blocks of 256) rendered as path_perray renders perray. (4) The eager
-    sweep helpers ran 0 times in the route phases so far. Returns the
-    kernel checks for the kernels line and the packets route."""
+    and its plain version. (3) The main path's two kept shadow calls (wave
+    0, bounces 0 and 1) and the worklist's and the kslots render's kept
+    whole-wave closest fallbacks, before (the host-stepped loop) and
+    after (the stage kernel) in turns: the same bits and final k; device
+    seconds, host reads and device kernels of each. (4) The "packets"
+    route (blocks of 256) rendered as path_perray renders perray. (5) The
+    eager sweep helpers ran 0 times in the route phases so far. Returns
+    the kernel checks for the kernels line, the packets route and the
+    host-stepped loop's tile_sweep_first launches."""
     from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_kslots, traverse
 
     eager_before = dict(EAGER_CALLS)
     rng = np.random.default_rng(14)
     checks = {}
     fb = KEPT_FALLBACKS["worklist"]
-    if not fb:
-        fail("packet_cascade", "the worklist render kept no whole-wave "
-                               "closest fallback")
-    with _KeepFirst(cuda_ctiles, "tile_sweep",
-                    lambda a, kw: kw.get("tie") == "slot") as kept:
-        traverse.closest_hit_packets(*fb[0][0], **fb[0][1])
-    checks["tile_sweep_first"] = _check_first_tile(
-        kept.args, "worklist render's closest fallback, first iteration")
+    if not fb or not kept_shadows:
+        fail("packet_cascade", "no kept whole-wave closest fallback of the "
+                               "worklist render or shadow call of the main "
+                               "path")
     o, d, tm = _bounce_wave(accel_base, 1 << 18, rng, shadow=False)
     tm[::7] = -1.0
-    with _KeepFirst(cuda_ctiles, "tile_sweep",
-                    lambda a, kw: kw.get("tie") == "slot") as kept:
-        traverse.closest_hit_packets(accel_base, o, d, 1e-3, tm,
-                                     block_size=256)
-    checks["tile_sweep_first_t256"] = _check_first_tile(
-        kept.args, "2^18 bounce rays, blocks of 256, first iteration")
+    t256 = ((accel_base, o, d, 1e-3, tm), {"block_size": 256})
+    stages = {
+        "cascade_stage_any": (traverse.any_hit_packets, kept_shadows[0],
+                              "main path's shadow call, wave 0, bounce 0"),
+        "cascade_stage_first": (traverse.closest_hit_packets, fb[0],
+                                "worklist render's closest fallback"),
+        "cascade_stage_first_t256": (traverse.closest_hit_packets, t256,
+                                     "2^18 bounce rays, blocks of 256")}
+    for key, (fn, call, wave) in stages.items():
+        checks[key] = _check_stage(key.split("_t256")[0], fn, call,
+                                   wave + ", first stage that sweeps")
+    for key, (wave, call) in {
+            "tile_sweep_first": ("worklist render's closest fallback", fb[0]),
+            "tile_sweep_first_t256": ("2^18 bounce rays, blocks of 256",
+                                      t256)}.items():
+        with _host_stepped(), _KeepFirst(
+                cuda_ctiles, "tile_sweep",
+                lambda a, kw: kw.get("tie") == "slot") as kept:
+            traverse.closest_hit_packets(*call[0], **call[1])
+        checks[key] = _check_first_tile(
+            kept.args, f"{wave}, host-stepped, first iteration")
     o, d, tm = _bounce_wave(accel_base, 1 << 16, rng, shadow=False)
     tm[::7] = -1.0
     with _KeepFirst(cuda_kslots, "kslot_sweep",
@@ -3679,21 +4032,29 @@ def phase_packet_cascade(scene, accel_base, accel_c, card, img_main,
         if not (c["matches_plain"] and c["generic_matches_plain"]):
             fail("packet_cascade", f"{c['name']} disagrees with its plain "
                                    f"version on the {c['wave']} wave")
-        if c["hits"] == 0:
+        if c.get("hits") == 0:
             fail("packet_cascade", f"{c['name']}: the {c['wave']} wave hit "
                                    "nothing")
 
-    fallbacks = [_fallback_before_after(r, call)
-                 for r in ("worklist", "kslots")
-                 for call in KEPT_FALLBACKS[r]]
-    for f in fallbacks:
-        emit({"phase": "packet_cascade_fallback", "card": card, **f})
-    if not all(f["same_bits"] for f in fallbacks):
-        fail("packet_cascade", "a fallback's kernel route differs from its "
-                               "plain sweep")
+    calls = ([(f"main path shadow, wave 0, call {i}", traverse.any_hit_packets,
+               c) for i, c in enumerate(kept_shadows)]
+             + [(f"{r} closest fallback {i}", traverse.closest_hit_packets, c)
+                for r in ("worklist", "kslots")
+                for i, c in enumerate(KEPT_FALLBACKS[r])])
+    loops = [_loop_before_after(label, fn, call)
+             for label, fn, call in calls]
+    for f in loops:
+        emit({"phase": "packet_cascade_loop", "card": card, **f})
+    if not all(f["same_bits"] and f["same_final_k"] for f in loops):
+        fail("packet_cascade", "a cascade's stage kernel differs from the "
+                               "host-stepped loop (bits or final k)")
+    stepped = {"tile_sweep_first": sum(
+        r["tile_sweep_first_launches"] for f in loops
+        for r in f["runs"]["before"])}
 
     packets = _route_at_cut("path_packets", scene, accel_base, accel_c,
-                            card, img_main, ["tile_sweep_first"],
+                            card, img_main,
+                            ["cascade_stage_first", "cascade_stage_any"],
                             backend="packets", block_size=256)
     routes = {**routes, "packets": packets}
     res = {"phase": "packet_cascade", "card": card,
@@ -3701,16 +4062,51 @@ def phase_packet_cascade(scene, accel_base, accel_c, card, img_main,
            "checks": {k: {x: c[x] for x in (
                "ms", "bound_ms", "ms_over_bound", "plain_ms", "generic_ms")}
                for k, c in checks.items()},
-           "fallbacks": [{k: f[k] for k in (
-               "route", "rays", "live_rays", "best", "device_over_before",
-               "sweep_over_before", "host_loop_share_after")}
-               for f in fallbacks],
+           "loops": [{"call": f["call"], "live_rays": f["live_rays"],
+                      **{w: {x: f["best"][w][x] for x in (
+                          "device_seconds", "host_reads", "device_kernels",
+                          "final_k")} for w in ("before", "after")},
+                      "device_over_before": f["device_over_before"]}
+                     for f in loops],
+           "host_stepped_launches": stepped,
            "routes": {k: _route_summary(v) for k, v in routes.items()}}
     emit(res)
     if any(eager_before.values()):
         fail("packet_cascade", f"the eager sweeps ran in a route phase on "
                                f"the card: {eager_before}")
-    return checks, packets
+    return checks, packets, stepped
+
+
+def _keep_shadow_calls(scene, accel_base, accel_c) -> list:
+    """(args, kw) copies of the main path's first two shadow calls
+    (any_hit_packets: wave 0, bounces 0 and 1), from a bench render that
+    stops once it has them."""
+    from path_tracer_ai_tpu_torch.accel import traverse
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+
+    kept = {}
+    real = _keeping(traverse, "any_hit_packets", kept, lambda a: "shadow")
+    keeping = traverse.any_hit_packets
+
+    def until_kept(*a, **kw):
+        out = keeping(*a, **kw)
+        if len(kept["shadow"]) >= 2:
+            raise _Kept
+        return out
+
+    traverse.any_hit_packets = until_kept
+    try:
+        wavefront.render(scene, default_camera("cuda"),
+                         RenderSettings(**BENCH), wave_size=1 << 20,
+                         device="cuda", accel=accel_base,
+                         accel_closest=accel_c)
+    except _Kept:
+        pass
+    finally:
+        traverse.any_hit_packets = real
+    return kept.get("shadow", [])
 
 
 def phase_worklist_mxu(waves, item_checks, card, min_swept=1000):
@@ -3924,8 +4320,29 @@ KERNELS = {
     # traverse.closest_hit_packets (traverse.py:823-845), whose busiest
     # route is the worklist's closest fallback, and of closest_hit_perray
     # (traverse.py:648-665)
-    "tile_sweep_first": ("ctiles_sweep.cu", None, "path_worklist"),
+    # no path launches it any more: the cascade stage kernel sweeps those
+    # cascades; the host-stepped loop (packet_cascade phase) does
+    "tile_sweep_first": ("ctiles_sweep.cu", None, "host_stepped_loop"),
     "kslot_sweep_first": ("kslot_sweep.cu", None, "path_perray"),
+    # the cascade stage kernel (no Pallas kernel): the jax.lax.while_loop of
+    # traverse._cascade_traverse (traverse.py:439-520) for any_hit_packets
+    # (the main path's shadows) and closest_hit_packets (the worklist's
+    # whole-wave closest fallbacks)
+    "cascade_stage_any": ("ctiles_sweep.cu", None, "main_path"),
+    "cascade_stage_first": ("ctiles_sweep.cu", None, "path_worklist"),
+}
+# what a kernel without a Pallas counterpart carries in the JAX package
+CARRIES = {
+    "item_sweep": "path_tracer_ai_tpu/accel/worklist.py:325 _sweep_items",
+    "kslot_sweep": "path_tracer_ai_tpu/accel/kslots.py:165 _chunk_pipeline",
+    "tile_sweep_first":
+        "path_tracer_ai_tpu/accel/traverse.py:823-845 (closest sweep)",
+    "kslot_sweep_first":
+        "path_tracer_ai_tpu/accel/traverse.py:648-665 (perray sweep)",
+    "cascade_stage_any":
+        "path_tracer_ai_tpu/accel/traverse.py:491 (while_loop), 940-955",
+    "cascade_stage_first":
+        "path_tracer_ai_tpu/accel/traverse.py:491 (while_loop), 812-845",
 }
 
 
@@ -3979,6 +4396,8 @@ def main() -> int:
         return 0
     render, img_main = phase_main_path(scene, accel_base, accel_c, card)
     profile = phase_profile(scene, accel_base, accel_c, render["seconds"])
+    phase_main_summary(card, render, profile)
+    kept_shadows = _keep_shadow_calls(scene, accel_base, accel_c)
     paths = {"main_path": render,
              "path_pallas": phase_path_pallas(scene, accel_base, card, img_main)}
     phase_profile_path("profile_pallas", scene, accel_base,
@@ -4012,12 +4431,14 @@ def main() -> int:
     paths["path_perray"] = perray
     paths["path_kslots"] = phase_path_kslots(scene, accel_base, accel_c,
                                              card, img_main)
-    first_checks, packets = phase_packet_cascade(
+    first_checks, packets, stepped = phase_packet_cascade(
         scene, accel_base, accel_c, card, img_main,
         {"worklist": paths["path_worklist"], "kslots": paths["path_kslots"],
-         "perray": perray})
+         "perray": perray}, kept_shadows)
     checks.update(first_checks)
-    for name in ("tile_sweep_first", "kslot_sweep_first"):
+    paths["host_stepped_loop"] = {"launches": stepped}
+    for name in ("tile_sweep_first", "kslot_sweep_first",
+                 "cascade_stage_any", "cascade_stage_first"):
         c = checks[name]
         generic[name] = {"S": c["S"], "generic_ms": c["generic_ms"],
                          "tuned_ms": c["ms"],
@@ -4077,6 +4498,7 @@ def main() -> int:
         "name": name, "route": "cuda",
         "source": "path_tracer_ai_tpu_torch/csrc/" + source,
         "replaces": replaces, "path": phase,
+        **({"carries": CARRIES[name]} if name in CARRIES else {}),
         "launches": paths[phase]["launches"][name],
         "cli_launches": cli["launches"][name],
         "cli_pallas_launches": cli["pallas"]["launches"][name],
@@ -4126,6 +4548,17 @@ def main() -> int:
             "matches_plain": checks["tile_sweep_first"]["matches_plain"]
             and checks["tile_sweep_first_t256"]["matches_plain"]}
            if name == "tile_sweep_first" else {}),
+        **({"waves": [
+            {k: w[k] for k in ("wave", "T", "S", "G", "blocks", "sweeps",
+                               "ms", "plain_ms", "host_stepped_ms",
+                               "bound_ms", "ms_over_bound", "matches_plain")}
+            for w in (checks["cascade_stage_first"],
+                      checks["cascade_stage_first_t256"])],
+            "matches_plain": checks["cascade_stage_first"]["matches_plain"]
+            and checks["cascade_stage_first_t256"]["matches_plain"]}
+           if name == "cascade_stage_first" else {}),
+        **({"host_stepped_ms": checks[name]["host_stepped_ms"]}
+           if name == "cascade_stage_any" else {}),
     } for name, (source, replaces, phase) in KERNELS.items()],
         "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,21 +12,23 @@ Counterpart of accel/traverse.py, the parts the main path runs:
            its blocks are active, then compacts them to the front (one
            whole-array gather) and continues on half the slice.
 
-The sweep of an iteration's active blocks against their `group_size`
-candidates is ONE launch of the cluster-tile kernel
-(accel.cuda_ctiles.tile_sweep with [n_act, g] cluster ids, T = block_size
-lanes, occluded = tri != INT32_MAX): the same Möller–Trumbore arithmetic as
-_mt_sweep, with no [blocks, rays, triangles] intermediate in device memory.
-The cascade's loop conditions are host reads (`.item()`/nonzero), one per
-iteration.
+`any_hit_packets` and `closest_hit_packets` run the cascade as the
+reference does (`_cascade_stages`): static stages, each ONE launch of the
+cascade stage kernel (accel.cuda_cascade.cascade_stage), which keeps the
+stage's loop, its active count and k on the card, as the reference's
+while_loop does; between stages the compaction is a stable argsort and a
+whole-array gather, on the device. Neither reads the host (but the exact
+cull's live block count, `live_block_count`). On the CPU the stage runs
+its plain version, a host loop over tile_sweep's plain version.
 
-The closest packet cascade (`closest_hit_packets`) and the perray queries
-sweep the same way on the card, one launch an iteration: the first-slot
-instance of the cluster-tile kernel (tile_sweep(..., tie="slot")) and of
-the per-ray K-slot kernel (accel.cuda_kslots.kslot_sweep, tie="slot" for
-closest hits, its any-hit sweep for occlusion). In the reference these
-sweeps are XLA-fused bodies, not Pallas kernels. On the CPU they run the
-plain eager sweeps `_packet_sweep_closest` / `_packet_sweep_any`.
+The perray queries (and the fused cascades of accel.cuda_anyhit and
+accel.cuda_closest) still step their loop on the host (`_cascade_traverse`:
+a host read an iteration), sweeping one launch an iteration: the per-ray
+K-slot kernel's first-slot instance (accel.cuda_kslots.kslot_sweep,
+tie="slot") for closest hits, its any-hit sweep for occlusion. In the
+reference these sweeps are XLA-fused bodies, not Pallas kernels. On the
+CPU they run the plain eager sweeps `_packet_sweep_closest` /
+`_packet_sweep_any`.
 """
 
 from __future__ import annotations
@@ -35,7 +37,11 @@ from typing import NamedTuple
 
 import torch
 
-from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_kslots
+from path_tracer_ai_tpu_torch.accel import (
+    cuda_cascade,
+    cuda_ctiles,
+    cuda_kslots,
+)
 from path_tracer_ai_tpu_torch.accel.clusters import ClusterAccel
 from path_tracer_ai_tpu_torch.accel.morton import morton3d
 from path_tracer_ai_tpu_torch.utils import sync
@@ -317,41 +323,32 @@ def live_block_count(t_max_blk) -> int:
     return sync.host_int((t_max_blk >= 0.0).any(dim=1).sum())
 
 
-def _cascade_traverse(block_arrays, carry, sweep_update, active_fn,
-                      min_blocks: int = 32):
-    """Cascaded block traversal: retire finished blocks, halve the slice.
+def _cascade_stages(block_arrays, carry, stage, min_blocks: int = 32):
+    """Cascaded block traversal with the reference's structure
+    (traverse.py:439-520): static stages of halving size, each run to its
+    end by ONE call of `stage`, as one while_loop of the reference.
 
-    sweep_update(k, blocks, carry, idx) -> carry, where idx [n] i64 are the
-    active blocks of the slice; active_fn(k, blocks, carry) -> [size] bool.
-    Each stage runs until at most half its blocks are active (the last
-    stage until none is), then gathers the active blocks to the front with
-    ONE whole-array gather and continues on half the slice.
-    Returns (carry, blk_index): blk_index[i] = original block at row i."""
+    stage(blocks, carry, k, threshold) -> (carry, k, act) runs a stage on
+    the slice until at most `threshold` of its blocks are active (0 in the
+    last stage, when fewer than 2 * min_blocks remain), updating the carry
+    slices and k ([1] i32 on the device) in place; act [size] bool is the
+    active rule at the final k. Between stages the active blocks go to the
+    front by a stable argsort and ONE whole-array gather; nothing is read
+    back to the host here. Returns (carry, blk_index): blk_index[i] =
+    original block at row i."""
     nb = block_arrays[0].shape[0]
     dev = block_arrays[0].device
-    blk_index = torch.arange(nb, dtype=torch.int64, device=dev)
-    full = list(block_arrays) + list(carry) + [blk_index]
+    full = (list(block_arrays) + list(carry)
+            + [torch.arange(nb, dtype=torch.int64, device=dev)])
     n_in = len(block_arrays)
     n_carry = len(carry)
-
+    k = torch.zeros((1,), dtype=torch.int32, device=dev)
     size = nb
-    k = 0
     while True:
-        blocks_sl = [a[:size] for a in full[:n_in]]
-        carry_sl = [a[:size] for a in full[n_in:n_in + n_carry]]
         last_stage = size // 2 < min_blocks
-        threshold = 0 if last_stage else size // 2
-        while True:
-            act = active_fn(k, blocks_sl, carry_sl)
-            idx = torch.nonzero(act).squeeze(1)
-            sync.note()
-            if idx.numel() <= threshold:
-                break
-            carry_sl = sweep_update(k, blocks_sl, carry_sl, idx)
-            k += 1
-        for i in range(n_carry):
-            j = n_in + i
-            full[j] = torch.cat([carry_sl[i], full[j][size:]])
+        sl = [a[:size] for a in full]
+        _carry, k, act = stage(sl[:n_in], sl[n_in:n_in + n_carry], k,
+                               0 if last_stage else size // 2)
         if last_stage:
             break
         perm = torch.argsort((~act).to(torch.uint8), stable=True)
@@ -360,6 +357,35 @@ def _cascade_traverse(block_arrays, carry, sweep_update, active_fn,
         full = [a[row_idx] for a in full]
         size //= 2
     return full[n_in:n_in + n_carry], full[-1]
+
+
+def _cascade_traverse(block_arrays, carry, sweep_update, active_fn,
+                      min_blocks: int = 32):
+    """_cascade_stages with each stage's loop stepped on the host: the
+    perray queries and the fused cascades.
+
+    sweep_update(k, blocks, carry, idx) -> carry, where idx [n] i64 are the
+    active blocks of the slice; active_fn(k, blocks, carry) -> [size] bool.
+    One host read a vote (the active blocks' count); k stays on the host.
+    Returns (carry, blk_index) as _cascade_stages does."""
+    k_host = [0]
+
+    def stage(blocks, carry_sl, k_dev, threshold):
+        k, cur = k_host[0], list(carry_sl)
+        while True:
+            act = active_fn(k, blocks, cur)
+            idx = torch.nonzero(act).squeeze(1)
+            sync.note()
+            if idx.numel() <= threshold:
+                break
+            cur = list(sweep_update(k, blocks, cur, idx))
+            k += 1
+        for dst, src in zip(carry_sl, cur):
+            dst.copy_(src)
+        k_host[0] = k
+        return carry_sl, k_dev, act
+
+    return _cascade_stages(block_arrays, carry, stage, min_blocks)
 
 
 def _unpermute_blocks(arr, blk_index):
@@ -418,52 +444,31 @@ def any_hit_packets(accel: ClusterAccel, origins, directions, t_min, t_max,
     if c_pad - c:
         order = torch.nn.functional.pad(order, (0, c_pad - c))
     order_g = order.reshape(nb, c_pad // g, g)
-    max_k = c_pad // g - 1
     if tri_pack is None:
         tri_pack = cuda_ctiles.pack_tris(accel)
     rays = pack_block_rays(o_blk, d_blk, tmax_blk, t_min)
 
-    def active_fn(k, blocks, carry):
-        # Dead lanes (t_max < 0) count as resolved.
-        tb, nc = blocks[0], blocks[1]
-        resolved = carry[0] | (tb < 0.0)
-        return (k * g < nc) & ~resolved.all(dim=1)
-
-    def sweep_update(k, blocks, carry, idx):
-        ordg, rp = blocks[2], blocks[3]
-        (occ,) = carry
-        cid = ordg[idx, min(k, max_k)]                  # [n_act, g]
-        # One launch folds the g candidates. Lanes occluded in an earlier
-        # iteration go in dead (t_max = -1): they need no test, and a warp
-        # of dead lanes is not walked.
-        r_act = rp[idx]                                 # [n_act, 8, R]
-        r_act[:, 6].masked_fill_(occ[idx], -1.0)
-        _t, tri = cuda_ctiles.tile_sweep(tri_pack, r_act, cid)
-        hit = tri != cuda_ctiles.I32_MAX
-        occ = occ.clone()
-        occ[idx] |= hit
-        return (occ,)
-
-    carry, blk_index = _cascade_traverse(
-        (tmax_blk, n_cand, order_g, rays),
+    # a stage: the any-hit fold of cuda_cascade.cascade_stage (dead lanes,
+    # t_max < 0, count as resolved; lanes occluded in an earlier iteration
+    # go in dead)
+    carry, blk_index = _cascade_stages(
+        (rays, order_g, n_cand),
         (torch.zeros((nb, block_size), dtype=torch.bool, device=dev),),
-        sweep_update,
-        active_fn,
-    )
+        lambda b, c, k, thr: cuda_cascade.cascade_stage(
+            tri_pack, b[0], b[1], b[2], c, k, thr))
     return _unsort(_unpermute_blocks(carry[0], blk_index).reshape(n), perm)
 
 
-# Elements of each [blocks, R, g * S] temporary of the plain eager sweeps
-# (256 MB in f32; 1,024 blocks of 64 rays against 8 clusters of 128): the
-# plain version's step only, its block rows are swept this many at a time.
-# On the card an iteration is one kernel launch. The results do not depend
-# on the step.
+# Elements of each [rays, g * S] temporary of the perray queries' plain
+# eager sweeps (256 MB in f32): the plain version's step only, its rows are
+# swept this many at a time. On the card an iteration is one kernel launch.
+# The results do not depend on the step.
 PACKET_SWEEP_ELEMS = 1 << 26
 
 
 def _kernel_sweeps(dev) -> bool:
-    """Whether the cascades' sweeps on `dev` launch the kernels (a CUDA
-    device) or run the plain eager sweeps below (the CPU)."""
+    """Whether the perray queries' sweeps on `dev` launch the kernels (a
+    CUDA device) or run the plain eager sweeps below (the CPU)."""
     return dev.type == "cuda"
 
 
@@ -472,8 +477,8 @@ def _packet_sweep_closest(accel, ob, db, t_cap, cid, t_min):
     the g * S triangles of their clusters cid [n, g], in eager torch
     (traverse._mt_sweep's arithmetic): returns (ct [n, R] min t, gid [n, R]
     the triangle id of the FIRST slot achieving it; on a miss, inf and the
-    id of slot 0). The plain version of the first-slot kernels, run on the
-    CPU."""
+    id of slot 0). The plain version of kslot_sweep's first-slot instance
+    in the perray query, run on the CPU."""
     n = cid.shape[0]
     ray = [ob[:, :, None, k] for k in range(3)]
     ray += [db[:, :, None, k] for k in range(3)]
@@ -518,12 +523,10 @@ def closest_hit_packets(accel: ClusterAccel, origins, directions, t_min,
     a later group replaces the best only with a strictly smaller t. Each
     iteration sweeps, as the reference does, every block of the current
     slice that still has candidates (not only the active ones), with
-    t_cap = min(t_max, best t). On the card the sweep of an iteration is
-    one launch of tile_sweep's first-slot instance (T = block_size lanes,
-    its g clusters a tile; tri_pack as any_hit_packets'); on the CPU it is
-    the plain eager sweep, PACKET_SWEEP_ELEMS elements a step (in the
-    reference it is XLA code, not a Pallas kernel). It runs in the overflow
-    fallbacks and the opt-in "packets" backend."""
+    t_cap = min(t_max, best t). A stage is one call of
+    cuda_cascade.cascade_stage's first-slot fold (on the card one launch of
+    the stage kernel, T = block_size lanes; tri_pack as any_hit_packets').
+    It runs in the overflow fallbacks and the opt-in "packets" backend."""
     n = origins.shape[0]
     if n % block_size:
         raise ValueError(f"wave size {n} not a multiple of {block_size}")
@@ -547,57 +550,16 @@ def closest_hit_packets(accel: ClusterAccel, origins, directions, t_min,
         order = torch.nn.functional.pad(order, (0, c_pad - c))
         entry = torch.nn.functional.pad(entry, (0, c_pad - c), value=INF)
     order_g = order.reshape(nb, c_pad // g, g)
-    max_k = c_pad // g - 1
-    block_arrays = (o_blk, d_blk, tmax_blk, n_cand, entry, order_g)
-    on_card = _kernel_sweeps(dev)
-    if on_card:
-        rows = nb  # one launch an iteration
-        if tri_pack is None:
-            tri_pack = cuda_ctiles.pack_tris(accel)
-        block_arrays += (pack_block_rays(o_blk, d_blk, tmax_blk, t_min),)
-    else:
-        rows = max(1, PACKET_SWEEP_ELEMS
-                   // (block_size * g * accel.cluster_size))
+    if tri_pack is None:
+        tri_pack = cuda_ctiles.pack_tris(accel)
+    rays = pack_block_rays(o_blk, d_blk, tmax_blk, t_min)
 
-    def active_fn(k, blocks, carry):
-        tb, nc, ent = blocks[2], blocks[3], blocks[4]
-        best_eff = torch.where(tb < 0.0, -INF, carry[0])
-        entry_k = ent[:, min(k, max_k) * g]
-        return (k * g < nc) & (entry_k <= best_eff.amax(dim=1))
-
-    def sweep_update(k, blocks, carry, _active):
-        ob, db, tb, nc, _ent, ordg = blocks[:6]
-        best_t, best_id = carry
-        # the reference's blk_on: every block of the slice with candidates
-        idx = torch.nonzero(k * g < nc).squeeze(1)
-        sync.note()
-        best_t, best_id = best_t.clone(), best_id.clone()
-        for lo in range(0, idx.numel(), rows):
-            sel = idx[lo:lo + rows]
-            bt = best_t[sel]
-            cid = ordg[sel, min(k, max_k)]
-            if on_card:
-                # lanes go in with t_max = min(t_max, best t)
-                r_act = blocks[6][sel]
-                r_act[:, 6] = torch.minimum(r_act[:, 6], bt)
-                ct, gid = cuda_ctiles.tile_sweep(tri_pack, r_act, cid,
-                                                 tie="slot")
-            else:
-                ct, gid = _packet_sweep_closest(
-                    accel, ob[sel], db[sel], torch.minimum(tb[sel], bt), cid,
-                    t_min)
-            closer = ct < bt
-            best_t[sel] = torch.where(closer, ct, bt)
-            best_id[sel] = torch.where(closer, gid, best_id[sel])
-        return best_t, best_id
-
-    carry, blk_index = _cascade_traverse(
-        block_arrays,
+    carry, blk_index = _cascade_stages(
+        (rays, order_g, n_cand, entry),
         (torch.full((nb, block_size), INF, dtype=torch.float32, device=dev),
          torch.full((nb, block_size), -1, dtype=torch.int32, device=dev)),
-        sweep_update,
-        active_fn,
-    )
+        lambda b, c_, k, thr: cuda_cascade.cascade_stage(
+            tri_pack, b[0], b[1], b[2], c_, k, thr, entry=b[3]))
     t_out = _unsort(_unpermute_blocks(carry[0], blk_index).reshape(n), perm)
     id_out = _unsort(_unpermute_blocks(carry[1], blk_index).reshape(n), perm)
     return PacketHit(hit=torch.isfinite(t_out), t=t_out, tri=id_out)

@@ -562,6 +562,423 @@ extern "C" int ctiles_sweep_generic(const void* tri_pack, const void* rays,
   return (int)cudaGetLastError();
 }
 
+// ---- the cascade stage: one stage of the packet cascade's loop -------------
+//
+// Replaces no Pallas kernel: it carries the jax.lax.while_loop of
+// path_tracer_ai_tpu/accel/traverse.py `_cascade_traverse` (traverse.py:
+// 439-520, the loop of `any_hit_packets` and `closest_hit_packets`), whose
+// condition XLA evaluates on the device. One launch runs one stage of the
+// cascade to its end: on a slice of `size` ray blocks of T lanes, with the
+// iteration counter k read from and written back to the device,
+//
+//   loop: act(b) = the block's active rule at k, for every block;
+//         stop when sum(act) <= threshold (0 in the last stage);
+//         sweep group k (its g clusters) for the sweep set and fold; k += 1.
+//
+// Any hit (ANY): act = k g < n_cand & some lane is neither occluded nor
+// dead (t_max < 0); the sweep set is act (the reference's blk_on,
+// traverse.py:950-955); occ |= some test passes. Lanes occluded earlier or
+// dead are not tested (anyhit_run's early exit), which changes no bit:
+// occlusion is an OR. First-slot closest: act = k g < n_cand & entry[b, k g]
+// <= the largest best t of a live lane; the sweep set is EVERY block with
+// k g < n_cand (the reference's blk_on, traverse.py:829-842), also those the
+// entry rule has retired while the stage runs on, so the bits do not hang
+// on the cull's f32 entry being truly conservative. A lane is tested with
+// t_max = min(t_max, best t) and folded by sweep_run's first-slot rule
+// from its running best (a pass replaces it only with t < best), which is
+// the reference's (min t, first slot at it) followed by `ct < best_t`.
+//
+// Design. A cooperative launch (every thread block resident at once, grid
+// = the blocks an SM holds x the SMs, at most one per tile group). Each
+// thread block owns a fixed set of tiles, tile group q = blockIdx.x + j
+// gridDim.x, for the whole stage, so a tile's carry (occ, or best t and
+// id, in device memory) and its act flag are only ever touched by one
+// thread block. Tuned instances: one warp a slot of 32 lanes, a tile's
+// T / 32 warps in one thread block (two tiles of 64 lanes, or one of 256),
+// each warp staging a cluster into its own buffer as tile_sweep does;
+// the generic instance (S and T at run time): four warps a tile, each
+// walking its slots in turn, clusters in chunks of 32 (mt.cuh CHUNK). A
+// tile's vote (any unresolved lane; the largest live best t as an
+// order_key) meets in shared memory, and one thread writes act. The
+// active count goes through one atomicAdd a thread block into one of two
+// 64-bit totals (by the vote's parity) that only grow, followed by an
+// arrival count that only grows (vote n completes at n x gridDim.x
+// arrivals): one grid-wide barrier an iteration, and no counter is ever
+// reset. A thread block reads vote n's total after its barrier; the next
+// add to that total is vote n + 2's, which no thread block makes before
+// every one has arrived at vote n + 1, so all read the same count and
+// leave the loop at the same k.
+//
+// What bounds it: the sweeps', as tile_sweep's (instruction issue); an
+// iteration adds one barrier and a read of every owned tile's n_cand and
+// carry for the vote.
+
+struct StageArgs {
+  const float* tri_pack;    // [C, 10, S]
+  const float* rays;        // [size, 8, T]: row 6 t_max (< 0: dead), 7 t_min
+  const int* order_g;       // [size, kgroups, g]
+  const int* n_cand;        // [size]
+  const float* entry;       // [size, entry_stride] (closest)
+  unsigned char* occ;       // [size, T] (any hit)
+  float* best_t;            // [size, T] (closest)
+  int* best_id;             // [size, T] (closest)
+  int* k_io;                // [1]
+  unsigned char* act;       // [size]: the active rule at the final k
+  unsigned long long* sync; // [3] zeros: active totals by parity, arrivals
+  int size, kgroups, g, s, t_lanes, n_clusters, entry_stride, threshold;
+};
+
+template <int S, int T>
+struct StageShape {
+  static constexpr bool generic = S == 0;
+  static constexpr int wpt = generic ? SWEEP_WARPS : T / 32;  // warps a tile
+  static constexpr int tiles = generic || wpt >= SWEEP_WARPS
+                                   ? 1 : SWEEP_WARPS / wpt;  // tiles a block
+  static constexpr int warps = wpt * tiles;
+  static constexpr int threads = warps * 32;
+  static constexpr size_t smem =
+      (size_t)warps * (generic ? CHUNK : S) * sizeof(TriRec);
+};
+
+// One warp's slot of block b, lanes `off` (lanes at or past T are dead):
+// the sweep of group k when `swept`, then the slot's share of the vote
+// (any hit: 1 if some lane is unresolved; closest: the largest order_key
+// of a live lane's best t, order_key(-inf) if none). S = T = 0: the
+// generic instance (S, T at run time, clusters in chunks of CHUNK).
+template <bool ANY, int S, int T>
+__device__ __forceinline__ unsigned stage_slot(const StageArgs& a, int b,
+                                               int k, bool swept, int off,
+                                               int lane, TriRec* buf) {
+  const int t_lanes = T ? T : a.t_lanes;
+  const int s = S ? S : a.s;
+  float tmin, tmax;
+  const Ray ray = load_lane(a.rays + (size_t)b * RAY_ROWS * t_lanes, t_lanes,
+                            off, &tmin, &tmax);
+  const bool in = off < t_lanes;
+  const size_t ci = (size_t)b * t_lanes + off;
+  const int kk = k < a.kgroups - 1 ? k : a.kgroups - 1;
+  const int* cids = a.order_g + ((size_t)b * a.kgroups + kk) * a.g;
+  if constexpr (ANY) {
+    bool occ = in && a.occ[ci] != 0;
+    const bool dead = !(tmax >= tmin);  // can pass no test
+    if (swept && !__all_sync(FULL_MASK, occ || dead)) {
+      for (int i = 0; i < a.g; ++i) {
+        const int cid = cids[i];
+        if (cid < 0 || cid >= a.n_clusters) continue;
+        const float* cluster = a.tri_pack + (size_t)cid * PACK_ROWS * s;
+        if constexpr (S == 0) {
+#pragma unroll 1
+          for (int c0 = 0; c0 < s; c0 += CHUNK) {
+            stage_chunk_warp<PACK_ROWS>(buf, cluster, s, c0, lane);
+            cp_async_wait_all();
+            __syncwarp();
+            occ = anyhit_run<CHUNK>(buf, ray, tmin, tmax, dead, occ);
+            __syncwarp();  // every lane is done with the buffer
+            if (__all_sync(FULL_MASK, occ || dead)) break;
+          }
+        } else {
+          stage_cluster_warp<S>(buf, cluster, lane);
+          cp_async_wait_all();
+          __syncwarp();
+          occ = anyhit_run<S>(buf, ray, tmin, tmax, dead, occ);
+          __syncwarp();
+        }
+        if (__all_sync(FULL_MASK, occ || dead)) break;
+      }
+      if (in) a.occ[ci] = occ ? 1 : 0;
+    }
+    return __any_sync(FULL_MASK, !occ && !(tmax < 0.0f)) ? 1u : 0u;
+  } else {
+    float bt = in ? a.best_t[ci] : INFINITY;
+    if (swept) {
+      // torch.minimum's NaN: a NaN t_max passes no test
+      const float cap = tmax != tmax ? tmax : fminf(tmax, bt);
+      if (__any_sync(FULL_MASK, cap >= tmin)) {
+        float best = bt;
+        int id = in ? a.best_id[ci] : -1;
+        for (int i = 0; i < a.g; ++i) {
+          const int cid = cids[i];
+          if (cid < 0 || cid >= a.n_clusters) continue;
+          const float* cluster = a.tri_pack + (size_t)cid * PACK_ROWS * s;
+          if constexpr (S == 0) {
+#pragma unroll 1
+            for (int c0 = 0; c0 < s; c0 += CHUNK) {
+              stage_chunk_warp<PACK_ROWS>(buf, cluster, s, c0, lane);
+              cp_async_wait_all();
+              __syncwarp();
+              sweep_run<1, CHUNK, true>(buf, &ray, &tmin, &cap, &best, &id);
+              __syncwarp();  // every lane is done with the buffer
+            }
+          } else {
+            stage_cluster_warp<S>(buf, cluster, lane);
+            cp_async_wait_all();
+            __syncwarp();
+            sweep_run<1, S, true>(buf, &ray, &tmin, &cap, &best, &id);
+            __syncwarp();
+          }
+        }
+        if (in && best < bt) {
+          a.best_t[ci] = best;
+          a.best_id[ci] = id;
+        }
+        bt = best;
+      }
+    }
+    return __reduce_max_sync(FULL_MASK,
+                             order_key(tmax < 0.0f ? -INFINITY : bt));
+  }
+}
+
+// The warp's part of block b: its one slot (tuned), or slots part, part +
+// 4, ... (generic); the votes combined.
+template <bool ANY, int S, int T>
+__device__ __forceinline__ unsigned stage_tile(const StageArgs& a, int b,
+                                               int k, bool swept, int part,
+                                               int lane, TriRec* buf) {
+  if constexpr (S != 0) {
+    return stage_slot<ANY, S, T>(a, b, k, swept, part * 32 + lane, lane, buf);
+  } else {
+    unsigned v = ANY ? 0u : order_key(-INFINITY);
+#pragma unroll 1
+    for (int r = part; r * 32 < a.t_lanes; r += SWEEP_WARPS) {
+      const unsigned w =
+          stage_slot<ANY, 0, 0>(a, b, k, swept, r * 32 + lane, lane, buf);
+      v = ANY ? (v | w) : (w > v ? w : v);
+    }
+    return v;
+  }
+}
+
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The grid's active blocks in vote number `*votes` (1, 2, ...): every
+// thread block adds its count to the vote's parity total, then arrives;
+// the vote is complete at votes x gridDim.x arrivals. Returns the active
+// blocks of this vote (the same in every thread block); last[] holds the
+// parity totals seen at the previous votes.
+__device__ __forceinline__ unsigned long long stage_count(
+    unsigned long long* sync, unsigned* cta_active, unsigned* votes,
+    unsigned long long* last, unsigned long long* seen) {
+  __syncthreads();  // every leader has counted its tiles
+  if (threadIdx.x == 0) {
+    *votes += 1u;
+    const unsigned par = *votes & 1u;
+    atomicAdd(&sync[par], (unsigned long long)*cta_active);
+    *cta_active = 0u;
+    __threadfence();
+    atomicAdd(&sync[2], 1ull);
+    const unsigned long long target = (unsigned long long)*votes * gridDim.x;
+    while (load_acquire(&sync[2]) < target) __nanosleep(32);
+    const unsigned long long total = load_acquire(&sync[par]);
+    *seen = total - last[par];
+    last[par] = total;
+  }
+  __syncthreads();
+  return *seen;
+}
+
+template <bool ANY, int S, int T>
+__global__ void __launch_bounds__(StageShape<S, T>::threads,
+                                  24 / StageShape<S, T>::warps)
+    cascade_stage_kernel(StageArgs a) {
+  using Sh = StageShape<S, T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned votes[2][Sh::tiles];  // by tile-group parity
+  __shared__ unsigned cta_active, n_votes;
+  __shared__ unsigned long long seen, last[2];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int p = warp / Sh::wpt, part = warp % Sh::wpt;
+  const bool leader = part == 0 && lane == 0;
+  TriRec* buf = reinterpret_cast<TriRec*>(smem) +
+                (size_t)warp * (Sh::generic ? CHUNK : S);
+  const unsigned vote0 = ANY ? 0u : order_key(-INFINITY);
+  if (threadIdx.x < 2 * Sh::tiles) {
+    votes[threadIdx.x / Sh::tiles][threadIdx.x % Sh::tiles] = vote0;
+  }
+  if (threadIdx.x == 0) {
+    cta_active = n_votes = 0u;
+    last[0] = last[1] = 0ull;
+  }
+  __syncthreads();
+
+  int k = *a.k_io;
+  unsigned parity = 0u;
+  bool sweep = false;  // the first pass only votes on k as it came in
+  for (;;) {
+    const int kn = sweep ? k + 1 : k;  // the group this pass votes on
+#pragma unroll 1
+    for (int q = blockIdx.x; q * Sh::tiles < a.size; q += gridDim.x) {
+      const int b = q * Sh::tiles + p;
+      const bool valid = b < a.size;
+      const int nc = valid ? a.n_cand[b] : 0;
+      const bool swept =
+          valid && sweep && (ANY ? a.act[b] != 0 : k * a.g < nc);
+      const bool voting = valid && kn * a.g < nc;
+      if (swept || voting) {
+        const unsigned v = stage_tile<ANY, S, T>(a, b, k, swept, part, lane,
+                                                 buf);
+        if (voting && lane == 0) {
+          if (ANY) {
+            atomicOr(&votes[parity][p], v);
+          } else {
+            atomicMax(&votes[parity][p], v);
+          }
+        }
+      }
+      // the other parity's slot was last read by this thread, a group ago
+      if (leader) votes[parity ^ 1u][p] = vote0;
+      __syncthreads();
+      if (leader && valid) {
+        bool on = false;
+        if (voting) {
+          const unsigned v = votes[parity][p];
+          const int kk = kn < a.kgroups - 1 ? kn : a.kgroups - 1;
+          on = ANY ? v != 0u
+                   : a.entry[(size_t)b * a.entry_stride + kk * a.g] <=
+                         key_float(v);
+        }
+        a.act[b] = on ? 1 : 0;
+        if (on) atomicAdd(&cta_active, 1u);
+      }
+      parity ^= 1u;
+    }
+    if (sweep) ++k;
+    const unsigned long long n_active =
+        stage_count(a.sync, &cta_active, &n_votes, last, &seen);
+    if (n_active <= (unsigned long long)a.threshold) break;
+    sweep = true;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) *a.k_io = k;
+}
+
+template <bool ANY, int S, int T>
+static cudaError_t stage_blocks_per_sm(int* per_sm) {
+  using Sh = StageShape<S, T>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      cascade_stage_kernel<ANY, S, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, cascade_stage_kernel<ANY, S, T>, Sh::threads, Sh::smem);
+}
+
+template <bool ANY, int S, int T>
+static int launch_stage(StageArgs a, cudaStream_t stream) {
+  using Sh = StageShape<S, T>;
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t err = stage_blocks_per_sm<ANY, S, T>(&per_sm);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int groups = (a.size + Sh::tiles - 1) / Sh::tiles;
+  const int grid = groups < per_sm * sms ? groups : per_sm * sms;
+  void* params[] = {&a};
+  return (int)cudaLaunchCooperativeKernel(
+      (const void*)cascade_stage_kernel<ANY, S, T>, dim3(grid),
+      dim3(Sh::threads), params, Sh::smem, stream);
+}
+
+template <bool ANY, int S, int T>
+static int stage_occupancy(int* regs, int* warps_per_sm) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr,
+                                          cascade_stage_kernel<ANY, S, T>);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  int per_sm = 0;
+  err = stage_blocks_per_sm<ANY, S, T>(&per_sm);
+  *warps_per_sm = per_sm * StageShape<S, T>::warps;
+  return (int)err;
+}
+
+// The cascades' shapes: blocks of 64 (the main path's shadows at G 2, the
+// overflow fallbacks at G 8) and of 256 (render_sharded, "packets"),
+// clusters of 128; G at run time.
+#define FOR_STAGE_INSTANCES(CALL) CALL(128, 64) CALL(128, 256)
+
+static StageArgs stage_args(const void* tri_pack, const void* rays,
+                            const void* order_g, const void* n_cand,
+                            const void* entry, void* occ, void* best_t,
+                            void* best_id, void* k_io, void* act, void* sync,
+                            int size, int kgroups, int g, int s, int t_lanes,
+                            int n_clusters, int entry_stride, int threshold) {
+  return StageArgs{(const float*)tri_pack, (const float*)rays,
+                   (const int*)order_g, (const int*)n_cand,
+                   (const float*)entry, (unsigned char*)occ, (float*)best_t,
+                   (int*)best_id, (int*)k_io, (unsigned char*)act,
+                   (unsigned long long*)sync, size, kgroups, g, s, t_lanes,
+                   n_clusters, entry_stride, threshold};
+}
+
+#define STAGE_PARAMS                                                        \
+  const void *tri_pack, const void *rays, const void *order_g,             \
+      const void *n_cand, const void *entry, void *occ, void *best_t,      \
+      void *best_id, void *k_io, void *act, void *sync, int size,          \
+      int kgroups, int g, int s, int t_lanes, int n_clusters,              \
+      int entry_stride, int threshold, int any_hit, void *stream
+#define STAGE_ARGS                                                          \
+  stage_args(tri_pack, rays, order_g, n_cand, entry, occ, best_t, best_id, \
+             k_io, act, sync, size, kgroups, g, s, t_lanes, n_clusters,    \
+             entry_stride, threshold)
+
+// One stage of the cascade (see above) on `stream`: any_hit 1 with occ,
+// 0 (first-slot closest) with entry, best_t and best_id. Returns the
+// cudaError_t of the launch (0 = ok), or NO_INSTANCE for an (S, T) that
+// is not compiled.
+extern "C" int cascade_stage(STAGE_PARAMS) {
+  if (size <= 0) return 0;
+  if (g < 1 || kgroups < 1) return (int)cudaErrorInvalidValue;
+#define LAUNCH(S_, T_)                                                     \
+  if (s == S_ && t_lanes == T_)                                            \
+    return any_hit ? launch_stage<true, S_, T_>(STAGE_ARGS,                \
+                                                (cudaStream_t)stream)      \
+                   : launch_stage<false, S_, T_>(STAGE_ARGS,               \
+                                                 (cudaStream_t)stream);
+  FOR_STAGE_INSTANCES(LAUNCH)
+#undef LAUNCH
+  return NO_INSTANCE;
+}
+
+// The generic instance of cascade_stage, with its arguments, for any
+// S, T >= 1.
+extern "C" int cascade_stage_generic(STAGE_PARAMS) {
+  if (size <= 0) return 0;
+  if (g < 1 || kgroups < 1 || s < 1 || t_lanes < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return any_hit ? launch_stage<true, 0, 0>(STAGE_ARGS, (cudaStream_t)stream)
+                 : launch_stage<false, 0, 0>(STAGE_ARGS,
+                                             (cudaStream_t)stream);
+}
+
+// Registers per thread and resident warps per SM of the (S, T) instance
+// (S = 0: the generic one).
+extern "C" int cascade_stage_occupancy(int s, int t_lanes, int any_hit,
+                                       int* regs, int* warps_per_sm) {
+  if (s == 0) {
+    return any_hit ? stage_occupancy<true, 0, 0>(regs, warps_per_sm)
+                   : stage_occupancy<false, 0, 0>(regs, warps_per_sm);
+  }
+#define OCCUPANCY(S_, T_)                                                  \
+  if (s == S_ && t_lanes == T_)                                            \
+    return any_hit ? stage_occupancy<true, S_, T_>(regs, warps_per_sm)     \
+                   : stage_occupancy<false, S_, T_>(regs, warps_per_sm);
+  FOR_STAGE_INSTANCES(OCCUPANCY)
+#undef OCCUPANCY
+  return NO_INSTANCE;
+}
+
 // Counts, over the 2^32 bit patterns, the x in rcp_fast's range whose
 // rcp_fast(x) differs in any bit from 1.0f / x (one atomic add per thread
 // that found some).

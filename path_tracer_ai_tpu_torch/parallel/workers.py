@@ -60,6 +60,7 @@ def use_processes(group_devices) -> bool:
 def _count_modules():
     from path_tracer_ai_tpu_torch.accel import (
         cuda_anyhit,
+        cuda_cascade,
         cuda_closest,
         cuda_ctiles,
         cuda_items,
@@ -73,13 +74,13 @@ def _count_modules():
     return (dict(ctiles=cuda_ctiles, anyhit=cuda_anyhit,
                  closest=cuda_closest, items=cuda_items,
                  kslots=cuda_kslots),
-            cuda_ctiles, cuda_sweep, kslots, pairs, worklist)
+            cuda_ctiles, (cuda_sweep, cuda_cascade), kslots, pairs, worklist)
 
 
 def counts_reset() -> None:
     """Sets every count of this process to 0."""
-    wrappers, _ctiles, sweep, kslots, pairs, worklist = _count_modules()
-    for mod in (*wrappers.values(), sweep):
+    wrappers, _ctiles, by_name, kslots, pairs, worklist = _count_modules()
+    for mod in (*wrappers.values(), *by_name):
         mod.reset_launches()
     kslots.reset_overflow_counts()
     worklist.reset_fallback_counts()
@@ -89,13 +90,19 @@ def counts_reset() -> None:
 
 def counts_snapshot() -> dict:
     """This process's counts, as plain values."""
-    wrappers, ctiles, sweep, kslots, pairs, worklist = _count_modules()
+    wrappers, ctiles, by_name, kslots, pairs, worklist = _count_modules()
+    cascade = by_name[1]
     return {
         "syncs": sync.count,
+        "sync_sites": dict(sync.sites),
         "launches": {k: (m.launches, m.generic_launches)
                      for k, m in wrappers.items()},
-        "sweep": (dict(sweep.launches), dict(sweep.generic_launches)),
+        # the wrappers that count by kernel name: cuda_sweep, cuda_cascade
+        "by_name": [(dict(m.launches), dict(m.generic_launches))
+                    for m in by_name],
         "shapes": {k: list(v) for k, v in ctiles.launch_shapes.items()},
+        "cascade_shapes": {k: list(v)
+                           for k, v in cascade.launch_shapes.items()},
         "worklist": dict(worklist.fallback_counts),
         "pairs": dict(pairs.fallback_counts),
         "kslots": (kslots.queries, {str(d): t.tolist()
@@ -105,19 +112,25 @@ def counts_snapshot() -> dict:
 
 def counts_add(snap: dict) -> None:
     """Adds a worker's counts (counts_snapshot) to this process's."""
-    wrappers, ctiles, sweep, kslots, pairs, worklist = _count_modules()
+    wrappers, ctiles, by_name, kslots, pairs, worklist = _count_modules()
     with sync.lock:
         sync.count += snap["syncs"]
+        for site, n in snap["sync_sites"].items():
+            sync.sites[site] = sync.sites.get(site, 0) + n
         for k, (n, g) in snap["launches"].items():
             wrappers[k].launches += n
             wrappers[k].generic_launches += g
-        for name in sweep.launches:
-            sweep.launches[name] += snap["sweep"][0][name]
-            sweep.generic_launches[name] += snap["sweep"][1][name]
-        for key, (n, tiles) in snap["shapes"].items():
-            shape = ctiles.launch_shapes.setdefault(key, [0, 0])
-            shape[0] += n
-            shape[1] += tiles
+        for mod, (n, g) in zip(by_name, snap["by_name"]):
+            for name in mod.launches:
+                mod.launches[name] += n[name]
+                mod.generic_launches[name] += g[name]
+        for shapes, add in ((ctiles.launch_shapes, snap["shapes"]),
+                            (by_name[1].launch_shapes,
+                             snap["cascade_shapes"])):
+            for key, (n, tiles) in add.items():
+                shape = shapes.setdefault(key, [0, 0])
+                shape[0] += n
+                shape[1] += tiles
         for counts, add in ((worklist.fallback_counts, snap["worklist"]),
                             (pairs.fallback_counts, snap["pairs"])):
             for k, v in add.items():

@@ -13,6 +13,7 @@ import torch
 
 from path_tracer_ai_tpu_torch.accel import (
     cuda_anyhit,
+    cuda_cascade,
     cuda_closest,
     cuda_ctiles,
     cuda_items,
@@ -275,9 +276,9 @@ def test_wavefront_equals_oracle_on_gpu(cuda):
 
 @pytest.mark.parametrize("block_size", [None, 64, 128])
 def test_any_hit_packets_on_gpu(cuda, rng, block_size):
-    """The shadow cascade on the card, with its default arguments (blocks of
-    256, groups of 8) and with the renders' block sizes, against brute
-    force."""
+    """The shadow cascade on the card (the cascade stage kernel's any-hit
+    fold), with its default arguments (blocks of 256, groups of 8) and with
+    the renders' block sizes, against brute force."""
     from path_tracer_ai_tpu_torch.accel import traverse
     from path_tracer_ai_tpu_torch.engine import intersect
     from path_tracer_ai_tpu_torch.scene.scene import blob_scene
@@ -286,11 +287,12 @@ def test_any_hit_packets_on_gpu(cuda, rng, block_size):
     acc = build_clusters(tris, cluster_size=128)
     o, d, tm = _bounce_wave(acc, 256 * 32, rng)
     kw = {} if block_size is None else dict(block_size=block_size, group_size=2)
-    before = cuda_ctiles.launches
+    before = cuda_cascade.launches["cascade_stage_any"]
     occ = traverse.any_hit_packets(acc, o, d, 1e-3, tm, **kw)
-    assert cuda_ctiles.launches > before
+    assert cuda_cascade.launches["cascade_stage_any"] > before
     t_lanes, g = (256, 8) if block_size is None else (block_size, 2)
-    assert (t_lanes, 128, g) in cuda_ctiles.launch_shapes
+    assert any(key[:4] == ("cascade_stage_any", t_lanes, 128, g)
+               for key in cuda_cascade.launch_shapes)
     brute = intersect.any_hit(tris, o, d, 1e-3, tm)
     assert occ.any() and not occ.all()
     assert torch.equal(occ, brute)
@@ -687,7 +689,9 @@ def test_item_sweep_uncompiled_shapes_raise(cuda, rng):
 def test_worklist_pairs_packets_renders_on_gpu(cuda, backend):
     """Past 2048 clusters (blob subdiv 4 in clusters of two triangles: 2,564
     clusters) the default is the worklist backend, through item_sweep;
-    pairs and packets by name. Each image equals the oracle's bitwise."""
+    pairs (pair tiles, tile_sweep) and packets (both packet cascades, the
+    cascade stage kernel) by name. Each image equals the oracle's
+    bitwise."""
     from path_tracer_ai_tpu_torch.config import RenderSettings
     from path_tracer_ai_tpu_torch.engine import oracle, wavefront
     from path_tracer_ai_tpu_torch.scene.camera import default_camera
@@ -702,13 +706,17 @@ def test_worklist_pairs_packets_renders_on_gpu(cuda, backend):
     kw = {} if backend == "worklist" else dict(backend=backend)
     assert wavefront.resolve_backend(acc, 64, False, kw.get("backend")) \
         == backend
-    before = (cuda_items.launches, cuda_ctiles.launches)
+    before = (cuda_items.launches, cuda_ctiles.launches,
+              dict(cuda_cascade.launches))
     img = wavefront.render(scene, cam, s, accel=acc, wave_size=1 << 11,
                            device=cuda, **kw)
     if backend == "worklist":
         assert cuda_items.launches > before[0]
-    else:
+    elif backend == "pairs":
         assert cuda_ctiles.launches > before[1]
+    else:
+        assert all(cuda_cascade.launches[k] > before[2][k]
+                   for k in cuda_cascade.launches)
     np.testing.assert_array_equal(img, oracle.render(scene, cam, s,
                                                      device=cuda))
 
@@ -1387,14 +1395,14 @@ def test_kslot_sweep_first_slot_matches_plain(cuda, s, k, case):
 @pytest.mark.parametrize("route", ["packets_b256", "packets_b64",
                                    "worklist_whole_wave", "perray"])
 def test_packet_cascade_routes_render_on_gpu(cuda, monkeypatch, route):
-    """The routes whose closest sweep is now a first-slot instance: the
+    """The routes whose closest sweep is a first-slot kernel: the
     "packets" backend at blocks of 256 (tuned T 256) and 64, the worklist
     with its closest fallback forced onto the whole wave (cap 4,
-    fallback_compact 1: the packet cascade at T 64) and perray (kslot_sweep
-    first-slot and any-hit). Each launches its instance and never the
-    eager sweeps; packets and worklist equal the oracle's image bitwise,
-    perray at atol 1e-5 (as test_ctiles_and_perray_render_on_gpu holds
-    it)."""
+    fallback_compact 1: the packet cascade at T 64), both through the
+    cascade stage kernel's first-slot fold, and perray (kslot_sweep
+    first-slot and any-hit). Each launches its kernel and never the eager
+    sweeps; packets and worklist equal the oracle's image bitwise, perray
+    at atol 1e-5 (as test_ctiles_and_perray_render_on_gpu holds it)."""
     from path_tracer_ai_tpu_torch.accel import traverse
     from path_tracer_ai_tpu_torch.config import RenderSettings
     from path_tracer_ai_tpu_torch.engine import oracle, wavefront
@@ -1418,7 +1426,8 @@ def test_packet_cascade_routes_render_on_gpu(cuda, monkeypatch, route):
         monkeypatch.setattr(wavefront, "WORKLIST_CLOSEST_KW", dict(
             cap=4, item_budget=2, fallback_compact=1))
     before = (cuda_ctiles.slot_launches, cuda_kslots.slot_launches,
-              cuda_kslots.launches)
+              cuda_kslots.launches,
+              cuda_cascade.launches["cascade_stage_first"])
     img = wavefront.render(scene, cam, s, **kw)
     ref = oracle.render(scene, cam, s, device=cuda)
     assert not eager
@@ -1428,5 +1437,111 @@ def test_packet_cascade_routes_render_on_gpu(cuda, monkeypatch, route):
                 > cuda_kslots.slot_launches - before[1])  # any hit too
         np.testing.assert_allclose(img, ref, atol=1e-5)
         return
-    assert cuda_ctiles.slot_launches > before[0]
+    assert cuda_cascade.launches["cascade_stage_first"] > before[3]
     np.testing.assert_array_equal(img, ref)
+
+
+# --- the cascade stage: the packet cascades' loop on the card --------------
+
+def _cascade_run(stage, case, closest, dev):
+    """The case's whole cascade through traverse._cascade_stages with
+    `stage` (the wrapper, or the plain version): (carry, blk_index, final
+    k)."""
+    from path_tracer_ai_tpu_torch.accel import traverse
+
+    t = lambda a: torch.as_tensor(a, device=dev)
+    pack = t(cases.pack(case))
+    nb, t_lanes = case["tm"].shape
+    blocks = (t(case["rays"]), t(case["order_g"]), t(case["n_cand"]))
+    if closest:
+        blocks += (t(case["entry"]),)
+        carry = (torch.full((nb, t_lanes), np.inf, device=dev),
+                 torch.full((nb, t_lanes), -1, dtype=torch.int32, device=dev))
+    else:
+        carry = (torch.zeros((nb, t_lanes), dtype=torch.bool, device=dev),)
+    ks = []
+
+    def run(b, c, k, thr):
+        out = stage(pack, b[0], b[1], b[2], c, k, thr,
+                    **({"entry": b[3]} if closest else {}))
+        ks.append(int(out[1]))
+        return out
+
+    carry, blk = traverse._cascade_stages(blocks, carry, run)
+    return carry, blk, ks[-1]
+
+
+def _assert_same_cascade(got, want):
+    for x, y in zip(got[0], want[0]):
+        assert torch.equal(x.view(torch.int32) if x.dtype == torch.float32
+                           else x, y.view(torch.int32)
+                           if y.dtype == torch.float32 else y)
+    assert torch.equal(got[1], want[1])
+    assert got[2] == want[2]
+
+
+@pytest.mark.parametrize("closest", [False, True])
+@pytest.mark.parametrize("g", [2, 5, 8])
+@pytest.mark.parametrize("t_lanes", cases.CASCADE_T)
+@pytest.mark.parametrize("s", [16, 128])
+@pytest.mark.parametrize("name", cases.CASCADE_CASES)
+def test_cascade_stage_matches_plain(cuda, name, s, t_lanes, g, closest):
+    """The stage kernel (tuned at (T 64, S 128) and (T 256, S 128), else
+    generic) and its generic instance (forced) on the crafted cascades of
+    tests/test_torch_sweep_cases.py, through traverse._cascade_stages: the
+    carry bit for bit, the block order and the final k of the plain
+    version; one launch a stage."""
+    case = cases.cascade_case(name, s, t_lanes, g)
+    want = _cascade_run(cuda_cascade.cascade_stage_plain, case, closest,
+                        cuda)
+    name_k = cuda_cascade.NAMES[not closest]
+    for forced in (False, True):
+        before = dict(cuda_cascade.launches)
+        if forced:
+            with generic_instances():
+                got = _cascade_run(cuda_cascade.cascade_stage, case, closest,
+                                   cuda)
+        else:
+            got = _cascade_run(cuda_cascade.cascade_stage, case, closest,
+                               cuda)
+        torch.cuda.synchronize()
+        assert cuda_cascade.launches[name_k] > before[name_k]
+        _assert_same_cascade(got, want)
+
+
+@pytest.mark.parametrize("query", ["any", "any_exact", "closest"])
+@pytest.mark.parametrize("block_size,g", [(64, 2), (64, 8), (256, 8)])
+def test_packet_cascades_read_no_host_value(cuda, rng, monkeypatch, query,
+                                            block_size, g):
+    """any_hit_packets and closest_hit_packets on a bounce wave of the blob
+    accel: the stage kernel's results are the host-stepped loop's bits
+    (cascade_stage_plain sweeping through tile_sweep, one launch an
+    iteration), and the query reads no value back to the host (but the
+    exact cull's live block count)."""
+    from functools import partial
+
+    from path_tracer_ai_tpu_torch.accel import traverse
+    from path_tracer_ai_tpu_torch.utils import sync
+
+    acc = _accel(cuda)
+    o, d, tm = _bounce_wave(acc, 1 << 15, rng)
+    kw = dict(block_size=block_size, group_size=g)
+    if query == "any_exact":
+        kw["exact_cull"] = 6
+    fn = (traverse.closest_hit_packets if query == "closest"
+          else traverse.any_hit_packets)
+    torch.cuda.synchronize()
+    reads = sync.count
+    got = fn(acc, o, d, 1e-3, tm, **kw)
+    torch.cuda.synchronize()
+    assert sync.count - reads == (query == "any_exact")
+    monkeypatch.setattr(cuda_cascade, "cascade_stage", partial(
+        cuda_cascade.cascade_stage_plain, sweep=cuda_ctiles.tile_sweep))
+    want = fn(acc, o, d, 1e-3, tm, **kw)
+    if query == "closest":
+        assert torch.equal(_bits(got.t), _bits(want.t))
+        assert torch.equal(got.tri, want.tri)
+        assert got.hit.any()
+    else:
+        assert torch.equal(got, want)
+        assert 0 < got.float().mean() < 1

@@ -9,6 +9,7 @@ must give the same image, the same host reads and the same kernel calls.
 """
 
 import collections
+import sys
 import threading
 
 import numpy as np
@@ -198,7 +199,6 @@ def test_counts_are_exact_from_many_threads():
     """sync's count and a wrapper's launch count, bumped from sixteen
     threads at once with the interpreter switching threads as often as it
     can, lose no update."""
-    import sys
 
     sync.reset()
     cuda_ctiles.reset_launches()
@@ -287,25 +287,37 @@ def test_a_failing_process_fails_the_render(scene, camera, single,
 
 def test_counts_cross_processes_exactly():
     """A worker's counts (counts_snapshot) added to this process's."""
-    from path_tracer_ai_tpu_torch.accel import cuda_sweep, kslots, worklist
+    from path_tracer_ai_tpu_torch.accel import (
+        cuda_cascade,
+        cuda_sweep,
+        kslots,
+        worklist,
+    )
     from path_tracer_ai_tpu_torch.parallel import workers
 
     workers.counts_reset()
+    stage = ("cascade_stage_any", 64, 128, 2)
     with sync.lock:
         cuda_ctiles.launches += 3
         cuda_ctiles.generic_launches += 1
         cuda_ctiles.launch_shapes[(64, 128, 2)] = [3, 30]
         cuda_sweep.launches["anyhit_sweep"] += 2
+        cuda_cascade.launches["cascade_stage_any"] += 2
+        cuda_cascade.launch_shapes[stage] = [2, 20]
         worklist.fallback_counts["rays"] += 5
         kslots.queries += 1
         kslots._counts[torch.device("cpu")] = torch.arange(5)
+    note_line = sys._getframe().f_lineno + 1
     sync.note()
     snap = workers.counts_snapshot()
     workers.counts_add(snap)
     assert (cuda_ctiles.launches, cuda_ctiles.generic_launches) == (6, 2)
     assert cuda_ctiles.launch_shapes[(64, 128, 2)] == [6, 60]
     assert cuda_sweep.launches["anyhit_sweep"] == 4
+    assert cuda_cascade.launches["cascade_stage_any"] == 4
+    assert cuda_cascade.launch_shapes[stage] == [4, 40]
     assert worklist.fallback_counts["rays"] == 10 and sync.count == 2
+    assert sync.sites == {f"{__name__}:{note_line}": 2}
     assert kslots.read_overflow_counts() == {
         "queries": 2, "rays": 0, "over_supers": 2, "over_clusters": 4,
         "phantom_only": 6, "slots": 8}

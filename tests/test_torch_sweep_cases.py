@@ -21,6 +21,11 @@ before its copy, cluster 1, cluster 0's larger ids must win. Their
 cluster 2 holds each of its even slots' triangles again in the next slot
 with the smaller id of the two (first_clusters), so the two rules part
 within one cluster too.
+
+The cascade cases (CASCADE_CASES, cascade_case) are whole packet
+cascades: ray blocks with their candidate tables, for the cascade stage
+(accel.cuda_cascade) run through traverse._cascade_stages, any hit and
+first-slot closest (see cascade_case for each case).
 """
 
 import numpy as np
@@ -275,3 +280,167 @@ def first_kslot_case(name: str, s: int, k: int, seed: int = 0,
     rays = np.concatenate([o, d, tm[:, None], np.full((n, 1), T_MIN)], 1)
     return {**geo, "rays": np.ascontiguousarray(rays, np.float32),
             "cid": cid, "n_slots": np.full(n, k, np.int32), "t_min": T_MIN}
+
+
+# --- the cascade cases: whole packet cascades -------------------------------
+
+CASCADE_CASES = ("half_active", "small_nb", "no_candidates", "all_dead",
+                 "carried_k", "retired_face", "signed_zero")
+CASCADE_T = (1, 64, 256)  # lanes a block
+CASCADE_G = (1, 2, 5, 8)  # clusters a group (5 and 8: C not a multiple)
+CASCADE_C = 12
+CASCADE_BLOCKS = {"half_active": 128, "small_nb": 40, "carried_k": 256}
+
+
+def cascade_clusters(s: int) -> dict:
+    """CASCADE_C clusters of S triangles over the unit square (clusters()'
+    grid). Clusters 1-9: near the plane z = 1 + 0.5 c, tilted and jittered
+    a little. Cluster 0: flat at z = 1 (a plane on its box face); cluster
+    10: cluster 0's triangles wound the other way (e1 and e2 swapped), so
+    a ray from that plane meets them at t = +0.0 where cluster 0 gives
+    -0.0; cluster 11: cluster 0 moved to z = 0.999, 1e-3 nearer the rays
+    from z = -2. Ids: cluster c's triangle j is 100 + c S + j."""
+    w = int(np.ceil(np.sqrt(s)))
+    j = np.arange(s)
+    cell = 1.0 / w
+    c_n = CASCADE_C
+    v0 = np.zeros((c_n, s, 3), np.float32)
+    e1 = np.zeros_like(v0)
+    e2 = np.zeros_like(v0)
+    v0[:, :, 0] = (j % w) * cell
+    v0[:, :, 1] = (j // w) * cell
+    e1[:, :, 0] = 0.9 * cell
+    e2[:, :, 1] = 0.9 * cell
+    for c in range(1, 10):
+        r = np.random.default_rng([c, s, 77])
+        v0[c, :, 2] = 1.0 + 0.5 * c + r.uniform(-0.05, 0.05, s)
+        e1[c, :, 2] = r.uniform(-0.05, 0.05, s)
+        e2[c, :, 2] = r.uniform(-0.05, 0.05, s)
+    v0[0, :, 2] = v0[10, :, 2] = 1.0
+    v0[11, :, 2] = 0.999
+    e1[10], e2[10] = e2[0].copy(), e1[0].copy()
+    tri_id = (100 + np.arange(c_n)[:, None] * s + j[None, :]).astype(np.int32)
+    return {"v0": v0, "e1": e1, "e2": e2, "tri_id": tri_id}
+
+
+def _cascade_z(c: int) -> float:
+    return 0.999 if c == 11 else 1.0 if c in (0, 10) else 1.0 + 0.5 * c
+
+
+def _aimed_rays(rng, n: int, s: int, z0: float):
+    """n rays from z = z0 through the interiors of random triangles of the
+    grid (0.2 cell past their right angles), nearly along +z."""
+    w = int(np.ceil(np.sqrt(s)))
+    j = rng.integers(0, s, n)
+    xy = np.stack([(j % w) + 0.2, (j // w) + 0.2], 1) / w
+    o = np.concatenate([xy, np.full((n, 1), z0)], 1).astype(np.float32)
+    d = np.concatenate([rng.uniform(-1e-4, 1e-4, (n, 2)), np.ones((n, 1))],
+                       1)
+    return o, (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(
+        np.float32)
+
+
+def cascade_case(name: str, s: int, t_lanes: int, g: int,
+                 seed: int = 0) -> dict:
+    """One crafted packet cascade: the clusters (cascade_clusters), block
+    rays o, d [nb, T, 3], tm [nb, T] (t_max; dead -1), t_min, rays [nb, 8,
+    T] (traverse.pack_block_rays' layout) and the candidate table as the
+    cascades build it: order_g [nb, K, g] i32 (K = ceil(C / g), padded
+    with cluster 0), n_cand [nb] i32, entry [nb, K g] f32 (padded with inf).
+    A block's candidates come front to back with a conservative entry
+    (z + 1.94), then the other clusters in id order (entry inf). Cases:
+
+    half_active: 128 blocks, every lane live and short of every plane
+      (t_max 0.5), half the blocks with one group of candidates, half with
+      all C: the first stage ends with exactly size // 2 blocks active.
+    small_nb: 40 blocks (fewer than 64: one stage, the last).
+    no_candidates: every third block has n_cand 0.
+    all_dead: every lane dead.
+    carried_k: 256 blocks (four stages, k carried from each to the next),
+      every third lane and every fifth block dead.
+    retired_face: a third of the blocks aim every lane at cluster 0 (flat,
+      a plane on its box face) and hold cluster 11 (cluster 0 1e-3 nearer)
+      in their second group with an entry past every hit: the entry rule
+      retires them after their first group, but the closest fold's sweep
+      set keeps them while the stage runs on, and cluster 11 then holds a
+      nearer hit; the others hold all C with rays that mostly miss.
+    signed_zero: t_min 0, rays from the plane z = 1 through cluster 0's
+      triangles, cluster 0 and cluster 10 (t -0.0 and +0.0) first in either
+      order, entries -0.0 then +0.0: exact ties of signed zeros."""
+    rng = np.random.default_rng([seed, s, t_lanes, g,
+                                 400 + CASCADE_CASES.index(name)])
+    c_n = CASCADE_C
+    nb = CASCADE_BLOCKS.get(name, 96)
+    n = nb * t_lanes
+    geo = cascade_clusters(s)
+    o, d, tm = _rays(rng, n, s)
+    t_min = 0.0 if name == "signed_zero" else T_MIN
+    z = np.asarray([_cascade_z(c) for c in range(c_n)], np.float32)
+    far = list(range(1, 10))
+    orders, ncs, entries = [], [], []
+    kind = np.zeros(nb, np.int32)  # 1: retired_face's aimed blocks
+    if name == "retired_face":
+        kind[::3] = 1
+        for b in np.flatnonzero(kind):
+            sl = slice(b * t_lanes, (b + 1) * t_lanes)
+            o[sl], d[sl] = _aimed_rays(rng, t_lanes, s, -2.0)
+            tm[sl] = np.inf
+    if name == "signed_zero":
+        o, d = _aimed_rays(rng, n, s, 1.0)
+    for b in range(nb):
+        if name == "half_active":
+            cand = sorted(rng.permutation(c_n)[:g if b % 2 else c_n],
+                          key=lambda c: z[c])
+        elif name == "retired_face" and kind[b]:
+            first = [0] + sorted(rng.choice(far, g - 1, replace=False),
+                                 key=lambda c: z[c])
+            rest = [c for c in range(c_n) if c not in first and c != 11]
+            cand = first + [11] + sorted(rest, key=lambda c: z[c])
+        elif name == "signed_zero":
+            pair = [0, 10] if b % 2 else [10, 0]
+            cand = pair + sorted(rng.choice(far, int(rng.integers(0, 4)),
+                                            replace=False),
+                                 key=lambda c: z[c])
+        elif name == "retired_face":
+            cand = sorted(range(c_n), key=lambda c: z[c])
+        else:
+            k_n = int(rng.integers(0, c_n + 1))
+            cand = sorted(rng.choice(c_n, k_n, replace=False),
+                          key=lambda c: z[c])
+            if name == "no_candidates" and b % 3 == 0:
+                cand = []
+        cand = [int(c) for c in cand]
+        ent = [float(z[c]) + 1.94 for c in cand]
+        if name == "retired_face" and kind[b]:
+            ent[g:] = [max(ent[:g] + [3.3]) + 0.05 * (i + 1)
+                       for i in range(len(ent) - g)]
+        if name == "signed_zero":
+            ent[:2] = [-0.0, 0.0]
+        rest = [c for c in range(c_n) if c not in cand]
+        orders.append(cand + rest)
+        ncs.append(len(cand))
+        entries.append(ent + [np.inf] * len(rest))
+    tm = tm.reshape(nb, t_lanes)
+    if name == "half_active":
+        tm[:] = 0.5
+    if name == "all_dead":
+        tm[:] = -1.0
+    if name == "carried_k":
+        tm.reshape(-1)[::3] = -1.0
+        tm[::5] = -1.0
+    if name == "signed_zero":
+        tm[:] = np.inf
+    k_groups = -(-c_n // g)
+    pad = k_groups * g - c_n
+    order = np.pad(np.asarray(orders, np.int32), ((0, 0), (0, pad)))
+    entry = np.pad(np.asarray(entries, np.float32), ((0, 0), (0, pad)),
+                   constant_values=np.inf)
+    o = o.reshape(nb, t_lanes, 3)
+    d = d.reshape(nb, t_lanes, 3)
+    rays = np.concatenate([o.transpose(0, 2, 1), d.transpose(0, 2, 1),
+                           tm[:, None], np.full_like(tm, t_min)[:, None]], 1)
+    return {**geo, "o": o, "d": d, "tm": tm, "t_min": t_min,
+            "rays": np.ascontiguousarray(rays, np.float32),
+            "order_g": np.ascontiguousarray(order.reshape(nb, k_groups, g)),
+            "n_cand": np.asarray(ncs, np.int32),
+            "entry": np.ascontiguousarray(entry), "kind": kind}

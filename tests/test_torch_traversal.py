@@ -68,21 +68,22 @@ def test_any_hit_packets_matches_jax(rng, sort):
 
 @pytest.mark.parametrize("group_size", [1, 3, 8])
 def test_any_hit_packets_one_sweep_per_iteration(rng, monkeypatch, group_size):
-    """The cascade hands each iteration's [n_act, g] candidates to ONE
-    tile_sweep call, with the lanes occluded so far marked dead, and still
-    equals the JAX any_hit_packets exactly and brute force."""
+    """The cascade stage's plain version (what the stage kernel computes on
+    the card) hands each iteration's [n_act, g] candidates to ONE call of
+    tile_sweep's plain version, with the lanes occluded so far marked dead,
+    and still equals the JAX any_hit_packets exactly and brute force."""
     from path_tracer_ai_tpu_torch.accel import cuda_ctiles
 
     ja, pa, ptris, o, d, tm = _setup(rng, 1500, 128, 64 * 64)
     calls = []
-    real = cuda_ctiles.tile_sweep
+    real = cuda_ctiles.tile_sweep_plain
 
     def spy(tri_pack, rays_pack, tile_cid):
         calls.append((tuple(tile_cid.shape), rays_pack.shape[0],
                       int((rays_pack[:, 6] < 0).sum())))
         return real(tri_pack, rays_pack, tile_cid)
 
-    monkeypatch.setattr(cuda_ctiles, "tile_sweep", spy)
+    monkeypatch.setattr(cuda_ctiles, "tile_sweep_plain", spy)
     syncs = traverse.sync.count
     occ_t = traverse.any_hit_packets(pa, T(o), T(d), 1e-3, T(tm),
                                      block_size=64, group_size=group_size)
