@@ -6,6 +6,8 @@
         # also: cuobjdump's SASS of every library into a directory
     python3 chip_smoke.py --mesh-cards    # needs two cards or more:
         # phases 1-2, the scene, main_path, then mesh_cards (no "ok" line)
+    python3 chip_smoke.py --stages        # phases 1-2, main_path, profile,
+        # item_waves, then stage_split and stage_split_render (no "ok" line)
 
 Phases (each prints one JSON line; any failure exits non-zero):
   1. device       CUDA must be available; the card's name and power limit;
@@ -117,8 +119,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   loader and camera patched to the file's); for each, bitwise
                   against the port's CPU image of the same engine, pixels
                   differing, and the RMSE against JAX's oracle image over
-                  its mean. Fails if a route exceeds 1e-3 there, or if the
-                  oracle or the main path is not bitwise its CPU image (the
+                  its mean. Then the same for the dielectric frame,
+                  tests/data/jax_reference_dielectric.npz (the JAX
+                  package's `dielectric` configuration's scene with its
+                  blob glass, subdiv 3, 48x27, 2 spp, 8 bounces, seed 0: the
+                  shadow cascade on rays that leave glass); a line a file.
+                  Fails if a route exceeds 1e-3 there, or if a route is not
+                  bitwise its CPU image (the
                   line then names the first stage of a CPU / card lockstep
                   of the oracle whose tensors differ), or if the main path's
                   bench render gained kernels or host syncs over the
@@ -272,6 +279,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   stage kernel in turns (before, after, after, before):
                   the same bits and final k, device seconds, host reads
                   and device kernels of each (lines packet_cascade_loop);
+                  then stage_split: every stage of the main path's two
+                  kept shadow calls and of the worklist's first kept
+                  closest fallback on copies of its inputs, at each W
+                  (the warps the stage kernel gives a slot: 1, 2, 4, 8,
+                  forced), each bit for bit the host-stepped loop (and
+                  the eager plain version on the first tail stage, 1,024
+                  blocks or fewer, that sweeps): size, threshold, k in and
+                  out, active blocks at the first and last vote, needed
+                  tests, bound, ms by W, the W the rule picks and the
+                  fastest, beside the parent design's ms (PARENT_STAGES);
+                  and stage_split_render: the profile's stage kernel
+                  seconds against the sum of the bounds of the bench
+                  render's stages (one more render, every stage run
+                  host-stepped with stats), beside the parent's; the
+                  first-stage checks above also force each W, tuned and
+                  generic;
                   the "packets" route (blocks of 256) as path_perray
                   renders perray (line path_packets); the worklist,
                   kslots, perray and packets routes' seconds, host syncs
@@ -310,7 +333,8 @@ the cascade stage kernel's two folds, cascade_stage_any and
 cascade_stage_first, which carry the cascade's while_loop ("carries": the
 JAX package's code each stands for); launches on every path, the new ones
 under new_path_launches, tile_sweep_first's in the host-stepped loop, the
-only route left that launches it; each kernel's generic instance under
+only route left that launches it, the stage kernel's also by W
+(launches_by_w); each kernel's generic instance under
 "generic": its S = 128 time beside the tuned one's, its bound, and its
 launches in cluster_sizes), and last {"ok": true, "device": {...}}.
 Imports nothing of JAX.
@@ -1252,10 +1276,20 @@ def _stage_shapes() -> list:
     from path_tracer_ai_tpu_torch.accel import cuda_cascade
 
     return [{"kernel": key[0], "T": key[1], "S": key[2], "G": key[3],
-             "launches": n, "blocks": blocks,
-             **({"instance": key[4]} if len(key) > 4 else {})}
+             "W": key[4], "launches": n, "blocks": blocks,
+             **({"instance": key[5]} if len(key) > 5 else {})}
             for key, (n, blocks) in sorted(
                 cuda_cascade.launch_shapes.items())]
+
+
+def _launches_by_w(shapes, kernel) -> dict:
+    """A stage kernel fold's launches by W (the warps a slot), from
+    _stage_shapes."""
+    out = {}
+    for sh in shapes:
+        if sh["kernel"] == kernel:
+            out[sh["W"]] = out.get(sh["W"], 0) + sh["launches"]
+    return dict(sorted(out.items()))
 
 
 def _sync_sites() -> dict:
@@ -2101,6 +2135,9 @@ def _consistency_worklist(scene, cam, img_oracle, kw):
 
 REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                          "data", "jax_reference.npz")
+# the dielectric frame: the blob glass, 8 bounces (rr_start 0 only)
+REFERENCE_DIELECTRIC = os.path.join(os.path.dirname(REFERENCE),
+                                    "jax_reference_dielectric.npz")
 REFERENCE_RMSE = 1e-3  # over the JAX image's mean: tests/test_torch_render.py
 
 
@@ -2218,27 +2255,21 @@ def _lockstep(cpu_ref, card_ref, settings) -> dict:
     return {"stage": None}
 
 
-def phase_reference(card, render, profile):
-    """The JAX package's renders (tests/data/jax_reference.npz, made by
-    scripts/torch_make_reference.py; read without JAX) against every
-    route on the card, at each of the file's settings: bitwise against the
-    port's CPU image of the same engine (the oracle's for the oracle, the
-    main path's for the rest), the pixels that differ from it, and the
-    RMSE against JAX's oracle image over that image's mean, which must
-    stay within 1e-3. Also the main path's bench render against the
-    215,680 kernels and 6,744 host syncs it took at commit 524103f (none
-    gained)."""
+def _reference_frame(path, card) -> tuple:
+    """One reference file's frames through every route on the card:
+    (the phase's line, the routes over the RMSE bound, the routes not
+    bitwise their CPU image)."""
     from path_tracer_ai_tpu_torch.convert import load_reference
 
     t0 = time.perf_counter()
-    ref = load_reference(REFERENCE, device="cuda")
-    res = {"phase": "reference", "card": card, "file": REFERENCE,
+    ref = load_reference(path, device="cuda")
+    first = next(iter(ref.settings.values()))
+    res = {"phase": "reference", "card": card, "file": path,
            "jax_version": ref.jax_version,
-           "settings": {"width": ref.settings[0].width,
-                        "height": ref.settings[0].height,
-                        "spp": ref.settings[0].samples_per_pixel,
-                        "bounces": ref.settings[0].max_bounces,
-                        "seed": ref.settings[0].seed,
+           "settings": {"width": first.width, "height": first.height,
+                        "spp": first.samples_per_pixel,
+                        "bounces": first.max_bounces, "seed": first.seed,
+                        "rr_starts": sorted(ref.settings),
                         "subdivisions": ref.subdivisions,
                         "triangles": ref.scene.triangles.count},
            "rmse_bound": REFERENCE_RMSE}
@@ -2262,30 +2293,57 @@ def phase_reference(card, render, profile):
                 "rmse_over_mean_vs_jax_oracle": ratio,
                 "launches": launches}
             if not ratio <= REFERENCE_RMSE:
-                over.append(f"rr{rr} {name}: {ratio}")
-            if name in ("oracle", "main") and not routes[name]["bitwise_cpu"]:
-                not_bitwise.append(f"rr{rr} {name}")
+                over.append(f"{os.path.basename(path)} rr{rr} {name}: "
+                            f"{ratio}")
+            if not routes[name]["bitwise_cpu"]:
+                not_bitwise.append((rr, name))
         routes["jax_wavefront"] = {"rmse_over_mean_vs_jax_oracle": float(
             np.sqrt(np.mean((ref.images[f"jax_wavefront_rr{rr}"] - jax_img)
                             ** 2)) / jax_img.mean())}
         res[f"rr{rr}"] = routes
     if not_bitwise:
-        rr = int(not_bitwise[0].split()[0][2:])
+        rr = not_bitwise[0][0]
         res["first_difference"] = _lockstep(
-            load_reference(REFERENCE, device="cpu"), ref, ref.settings[rr])
+            load_reference(path, device="cpu"), ref, ref.settings[rr])
+    res["seconds"] = time.perf_counter() - t0
+    return res, over, [f"{os.path.basename(path)} rr{rr} {name}"
+                       for rr, name in not_bitwise]
+
+
+def phase_reference(card, render, profile):
+    """The JAX package's renders (tests/data/jax_reference.npz and the
+    dielectric frame's jax_reference_dielectric.npz, made by
+    scripts/torch_make_reference.py; read without JAX) against every
+    route on the card, at each of a file's settings (one line each):
+    bitwise against the port's CPU image of the same engine (the oracle's
+    for the oracle, the main path's for the rest), the pixels that differ
+    from it, and the RMSE against JAX's oracle image over that image's
+    mean, which must stay within 1e-3; a route not bitwise fails (the line
+    then names the first stage of a CPU / card lockstep of the oracle
+    whose tensors differ). Also the main path's bench render against the
+    215,680 kernels and 6,744 host syncs it took at commit 524103f (none
+    gained)."""
+    over, not_bitwise, lines = [], [], []
+    for path in (REFERENCE, REFERENCE_DIELECTRIC):
+        res, o, nb = _reference_frame(path, card)
+        over += o
+        not_bitwise += nb
+        lines.append(res)
     res["bench_render"] = {
         "device_kernels": profile["device_kernels"],
         "host_syncs": render["host_syncs"],
         "at_524103f": {"device_kernels": BENCH_KERNELS_MAX,
                        "host_syncs": BENCH_SYNCS_MAX}}
-    res["seconds"] = time.perf_counter() - t0
-    emit(res)
+    for line in lines:
+        emit(line)
     if over:
         fail("reference", f"over RMSE {REFERENCE_RMSE} x the mean of JAX's "
                           f"oracle image: {over}")
     if not_bitwise:
         fail("reference", f"not bitwise the port's CPU image: {not_bitwise}; "
-                          f"first difference {res['first_difference']}")
+                          "first difference " + str(
+                              {ln["file"]: ln["first_difference"]
+                               for ln in lines if "first_difference" in ln}))
     if (profile["device_kernels"] > BENCH_KERNELS_MAX
             or render["host_syncs"] > BENCH_SYNCS_MAX):
         fail("reference", f"the main path's bench render gained kernels or "
@@ -2726,7 +2784,8 @@ def phase_path_worklist(scene, accel, card, warm_seconds):
            "closest_rays": stats.closest_rays,
            "shadow_rays": stats.shadow_rays,
            "mrays_per_s": stats.mrays_per_s, "launches": launches,
-           "tile_sweep_shapes": _tile_shapes(), "host_syncs": syncs,
+           "tile_sweep_shapes": _tile_shapes(),
+           "cascade_stage_shapes": _stage_shapes(), "host_syncs": syncs,
            "worklist_fallback": dict(worklist.fallback_counts),
            "pairs_fallback": dict(pairs.fallback_counts),
            "stage_device_seconds": stages}
@@ -3803,40 +3862,276 @@ def _loop_run(fn, args, kw) -> tuple:
     return out, run
 
 
-def _stage_split(fn, args, kw) -> list:
-    """One more fn(*args, **kw), each cascade stage bracketed by CUDA
-    events (k read after each: this run waits on the host, so its sum is
-    not the call's time): [(slice size, threshold, k in, k out, device
-    ms)] a stage."""
+def _keep_stages(fn, args, kw) -> list:
+    """Copies of the inputs of every cascade_stage call of fn(*args, **kw),
+    in order, [(args, kw)]: the stage updates its carry and k in place, so
+    each is copied before it runs."""
     from path_tracer_ai_tpu_torch.accel import cuda_cascade
 
-    spans = []
+    kept = []
     real = cuda_cascade.cascade_stage
 
     def stage(*a, **k):
-        k_in = int(a[5])
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = real(*a, **k)
-        end.record()
-        end.synchronize()
-        spans.append({"size": a[1].shape[0], "threshold": a[6],
-                      "k_in": k_in, "k_out": int(out[1]),
-                      "ms": start.elapsed_time(end)})
-        return out
+        kept.append((tuple(tuple(c.clone() for c in x) if isinstance(x, tuple)
+                           else x.clone() if torch.is_tensor(x) else x
+                           for x in a),
+                     {n: v.clone() for n, v in k.items()}))
+        return real(*a, **k)
 
     with _patched(cuda_cascade, cascade_stage=stage):
         fn(*args, **kw)
-    return spans
+    return kept
+
+
+def _stage_bytes(rays, n_cand, carry, g, s, closest, stats) -> int:
+    """The bytes a stage must move, each once: the rays, n_cand, act, the
+    carry read and written, the swept blocks' candidate groups (and
+    entries) and the swept clusters."""
+    clusters = int(stats["clusters"].sum()) if "clusters" in stats else 0
+    return (_nbytes(rays, n_cand) + rays.shape[0] + 2 * _nbytes(*carry)
+            + stats.get("blocks", 0) * (g + int(closest)) * 4
+            + clusters * 10 * s * 4)
+
+
+def _stage_run(kept, stage, **extra):
+    """One kept stage through `stage` on fresh copies of its carry and k:
+    (carry..., k, act)."""
+    (pack, rays, order_g, n_cand, carry, k, thr), kw = kept
+    out = stage(pack, rays, order_g, n_cand, tuple(c.clone() for c in carry),
+                k.clone(), thr, **kw, **extra)
+    return (*out[0], out[1], out[2])
+
+
+class _forced_split(_patched):
+    """While entered, the stage kernel gives every slot W warps: its
+    wrapper's rule (cuda_cascade.split_warps) answers w whatever the
+    stage."""
+
+    def __init__(self, w):
+        from path_tracer_ai_tpu_torch.accel import cuda_cascade
+
+        super().__init__(cuda_cascade, split_warps=lambda *a: w)
+
+
+def _rule_w(rays, pack, any_hit) -> int:
+    """The W the stage kernel's rule picks for a stage on these inputs."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade
+
+    size, _, t_lanes = rays.shape
+    return cuda_cascade.split_warps(size, t_lanes, *cuda_cascade._resident_warps(
+        rays.device, pack.shape[2], t_lanes, any_hit))
+
+
+def _stage_split(fn, args, kw, variants, reps=5, tail_plain=False):
+    """Every stage of one packet cascade fn(*args, **kw), a row each: its
+    slice size and threshold, k in and out, the active blocks at its first
+    and at its last vote, its needed tests (live, unresolved lanes of the
+    swept blocks x g x S, from the host-stepped loop with stats), its
+    bound (_bound, as _check_stage's), the W the kernel's rule picks and,
+    for each variant (name -> context manager factory: the stage kernel
+    with some W forced), its device ms (CUDA events over `reps` runs on
+    copies of the stage's inputs, the copy timed alone and taken off), its
+    ms over the bound and whether its (carry, k, act) are the host-stepped
+    loop's bits. tail_plain: on the first stage of 1,024 blocks or fewer
+    that sweeps, each variant is also held against the plain version
+    (eager sweeps, cascade_stage_plain as it is)."""
+    from functools import partial
+
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade, cuda_ctiles
+
+    rows = []
+    for kept in _keep_stages(fn, args, kw):
+        (pack, rays, order_g, n_cand, carry, k, thr), skw = kept
+        stats = {}
+        want = _stage_run(kept, partial(cuda_cascade.cascade_stage_plain,
+                                        sweep=cuda_ctiles.tile_sweep,
+                                        stats=stats))
+        size, _kg, g = order_g.shape
+        s = pack.shape[2]
+        row = {"size": size, "threshold": thr, "k_in": int(k),
+               "k_out": int(want[-2]), "active_first": stats["active"][0],
+               "active_last": stats["active"][-1],
+               "sweeps": stats.get("sweeps", 0),
+               "rule_w": _rule_w(rays, pack, not skw),
+               **_bound(_stage_bytes(rays, n_cand, carry, g, s, bool(skw),
+                                     stats), stats.get("tests", 0))}
+        eager = None
+        if (tail_plain and size <= 1024 and row["sweeps"]
+                and not any("eager_plain" in r for r in rows)):
+            eager = _stage_run(kept, cuda_cascade.cascade_stage_plain)
+            row["eager_plain"] = _same_outputs(want, eager)
+        copy_ms = cuda_ms(lambda: tuple(c.clone() for c in carry)
+                          + (k.clone(),), reps)
+        for name, ctx in variants.items():
+            with ctx():
+                got = _stage_run(kept, cuda_cascade.cascade_stage)
+                same = _same_outputs(got, want) and (
+                    eager is None or _same_outputs(got, eager))
+                ms = cuda_ms(lambda: _stage_run(
+                    kept, cuda_cascade.cascade_stage), reps) - copy_ms
+            row[name] = {"ms": ms, "ms_over_bound": ms / row["bound_ms"],
+                         "matches_plain": same}
+        rows.append(row)
+    return rows
+
+
+def _render_stage_bounds(scene, accel_base, accel_c) -> dict:
+    """One main-path bench render with every cascade stage run by the
+    host-stepped loop with stats: the stages, their needed tests and bytes
+    and the sum of their bounds (each stage's _bound)."""
+    from functools import partial
+
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade, cuda_ctiles
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+
+    tot = {"stages": 0, "tests": 0, "bytes": 0, "bound_ms": 0.0,
+           "bound_by_operations": 0}
+
+    def stage(pack, rays, order_g, n_cand, carry, k, thr, entry=None):
+        stats = {}
+        out = cuda_cascade.cascade_stage_plain(
+            pack, rays, order_g, n_cand, carry, k, thr, entry=entry,
+            sweep=cuda_ctiles.tile_sweep, stats=stats)
+        b = _bound(_stage_bytes(rays, n_cand, carry, order_g.shape[2],
+                                pack.shape[2], entry is not None, stats),
+                   stats.get("tests", 0))
+        tot["stages"] += 1
+        tot["tests"] += b["tests"]
+        tot["bytes"] += b["bytes"]
+        tot["bound_ms"] += b["bound_ms"]
+        tot["bound_by_operations"] += b["bound_by"] == "operations"
+        return out
+
+    t0 = time.perf_counter()
+    with _patched(cuda_cascade, cascade_stage=stage):
+        wavefront.render(scene, default_camera("cuda"),
+                         RenderSettings(**BENCH), wave_size=1 << 20,
+                         device="cuda", accel=accel_base,
+                         accel_closest=accel_c)
+    torch.cuda.synchronize()
+    return {**tot, "seconds": time.perf_counter() - t0}
+
+
+def _stage_calls(kept_shadows) -> list:
+    """The cascades split by stage: the main path's two kept shadow calls
+    (wave 0, bounces 0 and 1) and the worklist render's first kept
+    first-slot closest fallback."""
+    from path_tracer_ai_tpu_torch.accel import traverse
+
+    return ([(f"main path shadow, wave 0, bounce {i}",
+              traverse.any_hit_packets, c)
+             for i, c in enumerate(kept_shadows[:2])]
+            + [("worklist closest fallback 0", traverse.closest_hit_packets,
+                c) for c in KEPT_FALLBACKS["worklist"][:1]])
+
+
+# The parent design's stage kernel (a thread block owns its ray blocks for
+# the stage, one warp a slot) split by stage on the H100 (NVIDIA H100 80GB
+# HBM3, 700.00 W; this script's --stages at commit 37eb47e): for each kept
+# cascade, (size, k in, k out, ms) a stage; and the render level, the
+# profile's stage kernel seconds and the sum of the main render's stage
+# bounds (ms).
+PARENT_STAGES = {
+    "main path shadow, wave 0, bounce 0": [
+        (65536, 0, 2, 3.9885), (32768, 2, 2, 0.0852), (16384, 4, 5, 0.3837),
+        (8192, 5, 8, 0.7151), (4096, 8, 11, 0.4692), (2048, 11, 38, 2.033),
+        (1024, 38, 221, 7.0179), (512, 221, 321, 2.8173),
+        (256, 321, 321, 0.0721), (128, 321, 321, 0.0673),
+        (64, 321, 321, 0.0639), (32, 321, 321, 0.0669)],
+    "main path shadow, wave 0, bounce 1": [
+        (65536, 0, 2, 2.615), (32768, 2, 4, 1.3173), (16384, 5, 17, 5.2087),
+        (8192, 17, 60, 10.3891), (4096, 60, 101, 6.3063),
+        (2048, 101, 138, 3.64), (1024, 138, 179, 1.6786),
+        (512, 179, 238, 1.6865), (256, 238, 307, 1.5985),
+        (128, 307, 321, 0.3165), (64, 321, 321, 0.0666),
+        (32, 321, 321, 0.0667)],
+    "worklist closest fallback 0": [
+        (16384, 0, 0, 0.0828), (8192, 0, 0, 0.0577), (4096, 0, 0, 0.0894),
+        (2048, 0, 68, 18.5745), (1024, 68, 134, 11.2145),
+        (512, 134, 216, 10.705), (256, 216, 299, 9.7613),
+        (128, 299, 321, 2.571), (64, 321, 321, 0.0458),
+        (32, 321, 321, 0.0415)],
+}
+PARENT_RENDER = {"stage_kernel_seconds": 0.4981, "stage_bound_ms": 84.458}
+
+
+def _stage_table(label, rows) -> dict:
+    """A kept cascade's stages beside the parent design's
+    (PARENT_STAGES): the rule's W and its ms, the fastest forced W, and
+    the parent's ms where the stage is the same (size, k in, k out)."""
+    parent = {r[:3]: r[3] for r in PARENT_STAGES.get(label, [])}
+    out = []
+    for r in rows:
+        forced = {w: r[f"w{w}"]["ms"] for w in (1, 2, 4, 8)}
+        fastest = min(forced, key=forced.get)
+        before = parent.get((r["size"], r["k_in"], r["k_out"]))
+        out.append({
+            **{k: r[k] for k in ("size", "threshold", "k_in", "k_out",
+                                 "active_first", "active_last", "tests",
+                                 "bound_ms", "bound_by", "rule_w")},
+            "ms": forced[r["rule_w"]],
+            "ms_over_bound": forced[r["rule_w"]] / r["bound_ms"],
+            "ms_by_w": forced, "fastest_w": fastest,
+            "rule_is_fastest": fastest == r["rule_w"] or not r["sweeps"],
+            "rule_over_fastest": forced[r["rule_w"]] / forced[fastest],
+            "matches_plain": all(r[f"w{w}"]["matches_plain"]
+                                 for w in forced),
+            **({"eager_plain": r["eager_plain"]} if "eager_plain" in r
+               else {}),
+            "parent_ms": before,
+            "ms_over_parent": forced[r["rule_w"]] / before if before
+            else None})
+    return {"call": label, "stages": out,
+            "ms": sum(x["ms"] for x in out),
+            "parent_ms": sum(x["parent_ms"] or 0.0 for x in out),
+            "bound_ms": sum(x["bound_ms"] for x in out)}
+
+
+def phase_stage_split(scene, accel_base, accel_c, card, kept_shadows,
+                      profile) -> dict:
+    """Each stage of the kept cascades (_stage_calls) split
+    (_stage_split), each W forced (each bit for bit the host-stepped loop,
+    and the eager plain version on the first tail stage that sweeps),
+    beside the parent design's (PARENT_STAGES; lines stage_split), and the
+    render level: the stage kernel's seconds in the main path's profile
+    beside the sum of the bounds of the main render's stages
+    (_render_stage_bounds) and the parent's (line stage_split_render)."""
+    t0 = time.perf_counter()
+    variants = {f"w{w}": (lambda w=w: _forced_split(w)) for w in (1, 2, 4, 8)}
+    tables = {}
+    for label, fn, call in _stage_calls(kept_shadows):
+        rows = _stage_split(fn, *call, variants=variants, tail_plain=True)
+        tables[label] = _stage_table(label, rows)
+        emit({"phase": "stage_split", "card": card, **tables[label]})
+        bad = [r["size"] for r in tables[label]["stages"]
+               if not (r["matches_plain"] and r.get("eager_plain", True))]
+        if bad:
+            fail("stage_split", f"{label}: the stages of {bad} blocks differ "
+                                "from the plain version at some W")
+    render = _render_stage_bounds(scene, accel_base, accel_c)
+    prof = profile["path_kernels"]["cascade_stage_kernel"]
+    res = {"phase": "stage_split_render", "card": card, **render,
+           "profile_stage_kernel_seconds": prof["seconds"],
+           "profile_stage_launches": prof["count"],
+           "seconds_over_bound": prof["seconds"] / (render["bound_ms"] / 1e3),
+           "parent": {**PARENT_RENDER, "seconds_over_bound":
+                      PARENT_RENDER["stage_kernel_seconds"]
+                      / (PARENT_RENDER["stage_bound_ms"] / 1e3)},
+           "rule_is_fastest": all(r["rule_is_fastest"]
+                                  for t in tables.values()
+                                  for r in t["stages"]),
+           "phase_seconds": time.perf_counter() - t0}
+    emit(res)
+    return {"tables": tables, "render": res}
 
 
 def _loop_before_after(label, fn, call) -> dict:
     """One kept packet cascade (fn = traverse.any_hit_packets or
     closest_hit_packets) in turns: before (the host-stepped loop, the
     parent's route), after (the stage kernel), after, before. The two must
-    give the same bits and the same final k. after_stages: the stage
-    kernel's launches one by one (_stage_split)."""
+    give the same bits and the same final k."""
     args, kw = call
     runs = {"before": [], "after": []}
     outs = {}
@@ -3848,7 +4143,6 @@ def _loop_before_after(label, fn, call) -> dict:
             out, r = _loop_run(fn, args, kw)
         runs[which].append(r)
         outs.setdefault(which, out)
-    split = _stage_split(fn, args, kw)
     a, b = outs["before"], outs["after"]
     same = (_same_outputs((a.t, a.tri), (b.t, b.tri))
             if isinstance(a, tuple) else bool(torch.equal(a, b)))
@@ -3861,7 +4155,7 @@ def _loop_before_after(label, fn, call) -> dict:
             "same_bits": same,
             "same_final_k": all(r["final_k"] == runs["before"][0]["final_k"]
                                 for w in runs for r in runs[w]),
-            "runs": runs, "best": best, "after_stages": split,
+            "runs": runs, "best": best,
             "device_over_before": best["after"]["device_seconds"]
             / best["before"]["device_seconds"]}
 
@@ -3896,7 +4190,8 @@ def _check_stage(name, fn, call, wave, reps=10) -> dict:
     """The cascade stage kernel on the first stage of a kept cascade that
     sweeps: bitwise
     (carry, k, act) its plain version (tile_sweep's plain sweeps: eager
-    torch only), tuned and generic (forced); timed beside its plain
+    torch only), tuned and generic (forced), at the W its rule picks and
+    at each W forced (splits); timed beside its plain
     version and the host-stepped loop (the plain version sweeping through
     tile_sweep), and bounded over the needed tests: the live (any hit: not
     yet occluded) lanes of the sweeps x g x S, and the bytes of the rays,
@@ -3930,21 +4225,32 @@ def _check_stage(name, fn, call, wave, reps=10) -> dict:
     with _generic_instances():
         gen_ok = _same_outputs(outputs(run()), plain)
         gen_ms = cuda_ms(run, reps) - copy_ms
+    splits = {}
+    for w in (1, 2, 4, 8):  # each W forced, tuned and generic
+        with _forced_split(w):
+            sp = {"matches_plain": _same_outputs(outputs(run()), plain),
+                  "ms": cuda_ms(run, reps) - copy_ms}
+            with _generic_instances():
+                sp["generic_matches_plain"] = _same_outputs(outputs(run()),
+                                                            plain)
+                sp["generic_ms"] = cuda_ms(run, reps) - copy_ms
+        splits[w] = sp
     plain_ms = cuda_ms(lambda: run(cuda_cascade.cascade_stage_plain), 1)
     stepped_ms = cuda_ms(lambda: run(partial(
         cuda_cascade.cascade_stage_plain, sweep=cuda_ctiles.tile_sweep)), 1)
     size, kgroups, g = order_g.shape
     s = pack.shape[2]
     k_end = int(plain[-2])
-    swept = stats.get("blocks", 0)  # a group of g ids (and an entry) each
-    clusters = int(stats["clusters"].sum()) if "clusters" in stats else 0
-    nbytes = (_nbytes(rays, n_cand, plain[-1]) + 2 * _nbytes(*carry)
-              + swept * (g + (1 if kw else 0)) * 4 + clusters * 10 * s * 4)
+    nbytes = _stage_bytes(rays, n_cand, carry, g, s, bool(kw), stats)
     res = {"phase": "packet_cascade", "name": name, "wave": wave,
            "T": rays.shape[2], "S": s, "G": g, "blocks": size,
            "threshold": thr, "k_in": int(k), "k_out": k_end,
            "sweeps": stats.get("sweeps", 0),
-           "matches_plain": ok, "generic_matches_plain": gen_ok,
+           "W": _rule_w(rays, pack, not kw), "splits": splits,
+           "matches_plain": ok and all(
+               sp["matches_plain"] for sp in splits.values()),
+           "generic_matches_plain": gen_ok and all(
+               sp["generic_matches_plain"] for sp in splits.values()),
            "max_abs_err": (_max_abs_err(got[0], plain[0])
                            if got[0].dtype == torch.float32 else 0.0),
            "ms": ms, "copy_ms": copy_ms, "plain_ms": plain_ms,
@@ -3965,7 +4271,7 @@ def _route_summary(res) -> dict:
 
 
 def phase_packet_cascade(scene, accel_base, accel_c, card, img_main,
-                         routes, kept_shadows) -> tuple:
+                         routes, kept_shadows, profile) -> tuple:
     """The packet cascades' loop on the card and the first-slot kernels.
     (1) The cascade stage kernel on the first stage that sweeps of the main
     path's first kept shadow call (any hit, T 64, G 2), of the worklist
@@ -4043,6 +4349,8 @@ def phase_packet_cascade(scene, accel_base, accel_c, card, img_main,
                 for i, c in enumerate(KEPT_FALLBACKS[r])])
     loops = [_loop_before_after(label, fn, call)
              for label, fn, call in calls]
+    split = phase_stage_split(scene, accel_base, accel_c, card, kept_shadows,
+                              profile)
     for f in loops:
         emit({"phase": "packet_cascade_loop", "card": card, **f})
     if not all(f["same_bits"] and f["same_final_k"] for f in loops):
@@ -4069,6 +4377,12 @@ def phase_packet_cascade(scene, accel_base, accel_c, card, img_main,
                       "device_over_before": f["device_over_before"]}
                      for f in loops],
            "host_stepped_launches": stepped,
+           "stage_split": {k: {x: t[x] for x in ("ms", "parent_ms",
+                                                 "bound_ms")}
+                           for k, t in split["tables"].items()},
+           "stage_split_render": {x: split["render"][x] for x in (
+               "profile_stage_kernel_seconds", "bound_ms",
+               "seconds_over_bound", "parent", "rule_is_fastest")},
            "routes": {k: _route_summary(v) for k, v in routes.items()}}
     emit(res)
     if any(eager_before.values()):
@@ -4354,6 +4668,11 @@ def main() -> int:
                         help="build the kernels, render the main path, then "
                         "the bench render over a mesh of distinct cards "
                         "(needs two or more) and a virtual one, and stop")
+    parser.add_argument("--stages", action="store_true",
+                        help="build the kernels, render the main path and "
+                        "its profile, keep its shadow calls and the worklist "
+                        "render's closest fallbacks, split those cascades by "
+                        "stage (stage_split), and stop")
     parser.add_argument("--sass", metavar="DIR",
                         help="write cuobjdump's SASS of every library there")
     args = parser.parse_args()
@@ -4382,6 +4701,14 @@ def main() -> int:
         render, img_main = phase_main_path(scene, accel_base, accel_c, card)
         phase_mesh_cards(scene, accel_base, accel_c, card, img_main,
                          render["seconds"])
+        return 0
+    if args.stages:
+        render, _img = phase_main_path(scene, accel_base, accel_c, card)
+        profile = phase_profile(scene, accel_base, accel_c, render["seconds"])
+        kept_shadows = _keep_shadow_calls(scene, accel_base, accel_c)
+        phase_item_waves(*worklist_scene(), card)
+        phase_stage_split(scene, accel_base, accel_c, card, kept_shadows,
+                          profile)
         return 0
     checks = phase_kernels(accel_base, accel_c)
     sweep_waves = phase_sweep_waves(scene, accel_base, card)
@@ -4434,7 +4761,7 @@ def main() -> int:
     first_checks, packets, stepped = phase_packet_cascade(
         scene, accel_base, accel_c, card, img_main,
         {"worklist": paths["path_worklist"], "kslots": paths["path_kslots"],
-         "perray": perray}, kept_shadows)
+         "perray": perray}, kept_shadows, profile)
     checks.update(first_checks)
     paths["host_stepped_loop"] = {"launches": stepped}
     for name in ("tile_sweep_first", "kslot_sweep_first",
@@ -4559,6 +4886,15 @@ def main() -> int:
            if name == "cascade_stage_first" else {}),
         **({"host_stepped_ms": checks[name]["host_stepped_ms"]}
            if name == "cascade_stage_any" else {}),
+        **({"W": checks[name]["W"],
+            "splits": checks[name]["splits"],
+            "launches_by_w": _launches_by_w(
+                paths[phase]["cascade_stage_shapes"], name),
+            "new_path_launches_by_w": {
+                k: _launches_by_w(v["cascade_stage_shapes"], name)
+                for k, v in new_paths.items()
+                if "cascade_stage_shapes" in v}}
+           if name.startswith("cascade_stage") else {}),
     } for name, (source, replaces, phase) in KERNELS.items()],
         "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -28,7 +28,11 @@ the final k (the compaction between stages reads it). Two folds:
 On a CUDA tensor `cascade_stage` launches csrc/ctiles_sweep.cu's stage
 kernel (cooperative: the loop, its count and k stay on the card; tuned at
 (T 64, S 128) and (T 256, S 128), every other S, T >= 1 through its generic
-instance; a failed launch raises, there is no fallback). On a CPU tensor it
+instance; a failed launch raises, there is no fallback). The kernel sweeps
+only the blocks still on its list, and splits each 32-lane slot's group
+over W warps, W = split_warps(...) from the stage's size and the
+instance's resident warps (W = 1 where the stage fills the card; the same
+bits at every W). On a CPU tensor it
 runs `cascade_stage_plain`: the same loop in eager torch, one host read a
 vote, each iteration's sweep one call of `sweep` (tile_sweep's plain
 version). `cascade_stage_plain(..., sweep=cuda_ctiles.tile_sweep)` on CUDA
@@ -56,9 +60,14 @@ INF = float("inf")
 SOURCE = "ctiles_sweep"
 NAMES = {True: "cascade_stage_any", False: "cascade_stage_first"}
 
+# W, the warps the stage kernel gives a slot of 32 lanes (split_warps),
+# and the rule's constant.
+SPLITS = (1, 2, 4, 8)
+SPLIT_K2 = 16
+
 # Kernel launches since the last reset (the plain version never counts),
 # those of the generic instance among them, by fold, and by shape:
-# (fold, T, S, G) -> [launches, blocks], with "generic" as a further
+# (fold, T, S, G, W) -> [launches, blocks], with "generic" as a further
 # element where the generic instance ran. Updated under sync.lock.
 launches = {name: 0 for name in NAMES.values()}
 generic_launches = {name: 0 for name in NAMES.values()}
@@ -80,7 +89,8 @@ def cascade_stage_plain(tri_pack, rays, order_g, n_cand, carry, k, threshold,
     sweep set (default cuda_ctiles.tile_sweep_plain; tile_sweep launches
     the kernel). stats, if given, gains "sweeps" (iterations), "blocks"
     (blocks swept, over the iterations), "tests" (live lane x g x S tests
-    of the sweeps) and "clusters" ([C] bool, the clusters swept)."""
+    of the sweeps), "clusters" ([C] bool, the clusters swept) and "active"
+    (the active blocks at each vote, in order)."""
     sweep = sweep or cuda_ctiles.tile_sweep_plain
     _size, kgroups, g = order_g.shape
     last = kgroups - 1
@@ -112,6 +122,8 @@ def cascade_stage_plain(tri_pack, rays, order_g, n_cand, carry, k, threshold,
                    & (entry[:, min(kv, last) * g] <= best_eff.amax(dim=1)))
         idx = torch.nonzero(act).squeeze(1)
         sync.note()
+        if stats is not None:
+            stats.setdefault("active", []).append(idx.numel())
         if idx.numel() <= threshold:
             break
         if any_hit:
@@ -136,14 +148,69 @@ def cascade_stage_plain(tri_pack, rays, order_g, n_cand, carry, k, threshold,
     return carry, k, act
 
 
+def split_warps(size: int, t_lanes: int, resident_warps: int,
+                sms: int) -> int:
+    """W, the warps the stage kernel gives each 32-lane slot of a stage of
+    `size` blocks of t_lanes lanes on a card of `sms` SMs that holds
+    resident_warps of the instance an SM: the largest W of SPLITS with
+    W^2 x slots <= SPLIT_K2 x the card's warps, that is W about 4 x the
+    square root of the card's warps over the stage's slots. A pass ends in
+    a tail, its last slots run on a card that is mostly idle, whose length
+    is a slot's latency, which W divides; each further warp a slot costs a
+    little on every slot (more staging and combining, and any-hit tests
+    past a lane's first hit), so the best W grows as the square root of
+    warps over slots. SPLIT_K2 is fitted to the stages measured on the
+    H100 (PERF.md §6). A stage whose slots number more than SPLIT_K2 / 4
+    times the card's warps, so that every warp takes more than two a pass
+    even at the stage's end, keeps W = 1."""
+    slots = size * -(-t_lanes // 32)
+    warps = resident_warps * sms
+    w = 1
+    for cand in SPLITS[1:]:
+        if cand * cand * slots <= SPLIT_K2 * warps:
+            w = cand
+    return w
+
+
+_resident: dict = {}  # (device, S, T, any hit) -> (resident warps an SM, SMs)
+
+
+def _resident_warps(dev, s: int, t_lanes: int, any_hit: bool) -> tuple:
+    """The resident warps an SM of the instance that launches for (S, T)
+    (the generic one where no tuned one is compiled) and the card's SMs."""
+    key = (dev, s, t_lanes, any_hit)
+    if key not in _resident:
+        fn = cuda_build.load(SOURCE).cascade_stage_occupancy
+        regs, warps = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = fn(s, t_lanes, int(any_hit), ctypes.byref(regs),
+                     ctypes.byref(warps))
+            if err == cuda_build.NO_INSTANCE:
+                err = fn(0, 0, int(any_hit), ctypes.byref(regs),
+                         ctypes.byref(warps))
+        if err != 0:
+            raise RuntimeError(f"cascade_stage_occupancy: cudaError {err}")
+        _resident[key] = (warps.value,
+                          torch.cuda.get_device_properties(
+                              dev).multi_processor_count)
+    return _resident[key]
+
+
 def _kernel(generic: bool = False):
     lib = cuda_build.load(SOURCE)
     fn = lib.cascade_stage_generic if generic else lib.cascade_stage
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _work(size: int, dev) -> torch.Tensor:
+    """The kernel's work buffer (csrc/ctiles_sweep.cu StageArgs): 14 words
+    of grid counts, a vote and an arrival count a block, two lists of
+    `size` blocks; zeros (one fill)."""
+    return torch.zeros((14 + 4 * size,), dtype=torch.int32, device=dev)
 
 
 def kernel_occupancy(s: int, t_lanes: int, any_hit: bool) -> dict:
@@ -204,17 +271,19 @@ def cascade_stage(tri_pack, rays, order_g, n_cand, carry, k, threshold,
     act = torch.empty((size,), dtype=torch.bool, device=dev)
     if size == 0:
         return carry, k, act
-    counters = torch.zeros((3,), dtype=torch.int64, device=dev)
+    w = split_warps(size, t_lanes, *_resident_warps(dev, s, t_lanes,
+                                                     any_hit))
+    work = _work(size, dev)
     args = (tri_pack.data_ptr(), rays.data_ptr(), order_g.data_ptr(),
             n_cand.data_ptr(), *ptrs, k.data_ptr(), act.data_ptr(),
-            counters.data_ptr(), size, kgroups, g, s, t_lanes, c, stride,
-            int(threshold), int(any_hit))
+            work.data_ptr(), size, kgroups, g, s, t_lanes, c, stride,
+            int(threshold), int(any_hit), w)
     err, ran_generic = cuda_build.launch_instance(
         _kernel(), _kernel(generic=True), dev, args)
     if err != 0:
         raise RuntimeError(f"cascade_stage launch failed: cudaError {err}")
     name = NAMES[any_hit]
-    key = ((name, t_lanes, s, g) + (("generic",) if ran_generic else ()))
+    key = ((name, t_lanes, s, g, w) + (("generic",) if ran_generic else ()))
     with sync.lock:
         launches[name] += 1
         generic_launches[name] += ran_generic

@@ -588,30 +588,66 @@ extern "C" int ctiles_sweep_generic(const void* tri_pack, const void* rays,
 // from its running best (a pass replaces it only with t < best), which is
 // the reference's (min t, first slot at it) followed by `ct < best_t`.
 //
-// Design. A cooperative launch (every thread block resident at once, grid
-// = the blocks an SM holds x the SMs, at most one per tile group). Each
-// thread block owns a fixed set of tiles, tile group q = blockIdx.x + j
-// gridDim.x, for the whole stage, so a tile's carry (occ, or best t and
-// id, in device memory) and its act flag are only ever touched by one
-// thread block. Tuned instances: one warp a slot of 32 lanes, a tile's
-// T / 32 warps in one thread block (two tiles of 64 lanes, or one of 256),
-// each warp staging a cluster into its own buffer as tile_sweep does;
-// the generic instance (S and T at run time): four warps a tile, each
-// walking its slots in turn, clusters in chunks of 32 (mt.cuh CHUNK). A
-// tile's vote (any unresolved lane; the largest live best t as an
-// order_key) meets in shared memory, and one thread writes act. The
-// active count goes through one atomicAdd a thread block into one of two
-// 64-bit totals (by the vote's parity) that only grow, followed by an
-// arrival count that only grows (vote n completes at n x gridDim.x
-// arrivals): one grid-wide barrier an iteration, and no counter is ever
-// reset. A thread block reads vote n's total after its barrier; the next
-// add to that total is vote n + 2's, which no thread block makes before
-// every one has arrived at vote n + 1, so all read the same count and
-// leave the loop at the same k.
+// Design. A cooperative launch of thread blocks of STAGE_WARPS warps (grid
+// = the blocks the SMs hold at once, at most what the stage can use). The
+// first pass votes on k as it came in, a warp a ray block (its T / 32
+// slots in turn); each later pass sweeps group k and votes on k + 1. The
+// stage's small tail stages leave most of the card idle when a slot is one
+// warp's serial work (G clusters x S triangles a lane), so:
 //
-// What bounds it: the sweeps', as tile_sweep's (instruction issue); an
-// iteration adds one barrier and a read of every owned tile's n_cand and
-// carry for the vote.
+// (a) A list of the blocks that can still change. Each vote decides act
+//     and whether the block is swept in the next pass: any hit, when it is
+//     active (retirement is monotone, occ only grows, so a block that has
+//     left never comes back and its vote is known without a read); first
+//     slot, when k g < n_cand (the sweep set, retired blocks included). A
+//     thread block gathers its entries in shared memory and appends them
+//     with one atomicAdd at the end of the pass (past LIST_CAP entries one
+//     atomicAdd each). The lists alternate between two buffers of `size`
+//     by the vote's parity, each starting where that parity's total, which
+//     only grows, stood: nothing is reset. A block off the list is not
+//     read again. A pass's teams take the list's slots one at a time from a
+//     counter as they free up, so no thread block owns a block and none
+//     sets the pace by holding the slow ones. The order of a list, and
+//     which team takes a slot, vary from run to run; the bits do not.
+// (b) W warps a slot (W in 1, 2, 4, 8 at run time: the wrapper's
+//     split_warps, from the stage's size and the resident warps). A team
+//     of W warps of one thread block takes a slot; its g x S triangles, in
+//     chunks of 32 (g clusters of S / 32), are cut into W contiguous
+//     ranges in slot order, one a warp, each folded from the slot's carry
+//     as the W = 1 sweep folds. The team combines them in shared memory:
+//     any hit by OR (each warp also ORs its lanes' occlusion into the
+//     team's word after each chunk, and leaves once every lane is occluded
+//     or dead); first slot by taking range p's (t, id) only where t < the
+//     best of ranges 0 .. p - 1, which keeps the first slot at the minimum
+//     (argmin's bits, -0.0 against +0.0 too), and only then writing where
+//     that t < the running best. Within a pass each slot is written by one
+//     team: the carry needs no atomics. The team's warps meet at a named
+//     barrier. A range that holds a whole cluster is staged and swept at
+//     once, as tile_sweep does (all of them at W = 1); the generic
+//     instance (S and T at run time) stages chunk by chunk (mt.cuh CHUNK,
+//     zeros past S). A warp starts the copy of its range's first piece
+//     before it reads
+//     the slot's rays and carry, so the two latencies overlap: at W = 8 a
+//     warp's whole range may be one chunk.
+// (c) A block's slots may be taken by teams of several thread blocks: each
+//     adds its slot's vote to the block's word (atomicOr, or atomicMax of
+//     order_key) and then counts itself in; the last to arrive decides act
+//     and the list entry, and clears both words for the next pass.
+//
+// Each pass ends in one grid-wide count (stage_count): the active total by
+// the vote's parity and the list's total. A block's carry and the lists are
+// written by one thread block and read by another in a later pass, so they
+// are read past L1 (__ldcg), which is not coherent between SMs.
+//
+// What bounds it: the sweeps', as tile_sweep's (instruction issue), where a
+// stage fills the card; a tail stage's pass is bound by one slot's sweep
+// latency, which W divides. A pass adds one barrier and a read of every
+// listed block's rays, n_cand and carry.
+
+#define STAGE_WARPS 8       // warps a thread block
+#define STAGE_MIN_BLOCKS 3  // thread blocks an SM should hold: 80 registers
+#define STAGE_MAX_SPLIT 8   // warps a slot at most
+#define LIST_CAP 1024       // list entries a thread block gathers in a pass
 
 struct StageArgs {
   const float* tri_pack;    // [C, 10, S]
@@ -624,129 +660,399 @@ struct StageArgs {
   int* best_id;             // [size, T] (closest)
   int* k_io;                // [1]
   unsigned char* act;       // [size]: the active rule at the final k
-  unsigned long long* sync; // [3] zeros: active totals by parity, arrivals
-  int size, kgroups, g, s, t_lanes, n_clusters, entry_stride, threshold;
+  unsigned long long* sync; // [7] zeros: active totals by parity, arrivals,
+                            // list totals by parity, unit counters by parity
+  unsigned* vote;           // [size] zeros: a block's vote as slots add to it
+  unsigned* arrive;         // [size] zeros: the slots that have added
+  int* list;                // [2, size]: the blocks a pass sweeps, by parity
+  int size, kgroups, g, s, t_lanes, n_clusters, entry_stride, threshold, w;
 };
 
-template <int S, int T>
-struct StageShape {
-  static constexpr bool generic = S == 0;
-  static constexpr int wpt = generic ? SWEEP_WARPS : T / 32;  // warps a tile
-  static constexpr int tiles = generic || wpt >= SWEEP_WARPS
-                                   ? 1 : SWEEP_WARPS / wpt;  // tiles a block
-  static constexpr int warps = wpt * tiles;
-  static constexpr int threads = warps * 32;
-  static constexpr size_t smem =
-      (size_t)warps * (generic ? CHUNK : S) * sizeof(TriRec);
+// The work buffer the wrapper hands over (cuda_cascade._work), in 32-bit
+// words: sync (14), vote and arrive (size each), all zeros, then the two
+// lists (2 size).
+#define STAGE_SYNC_WORDS 14
+
+struct StageShared {
+  float part_t[2][STAGE_WARPS][32];  // a range's fold, by the team's round
+  int part_id[2][STAGE_WARPS][32];
+  unsigned team_occ[2][STAGE_WARPS]; // a team's occluded lanes, by round
+  int list[LIST_CAP];                // this pass's entries, gathered
+  int unit[STAGE_WARPS];             // a team's unit, as its first warp took it
+  unsigned count, active, flushed;
+  int list_base, list_len;           // the list this pass sweeps
+  unsigned long long base_at, seen, last[4];
 };
 
-// One warp's slot of block b, lanes `off` (lanes at or past T are dead):
-// the sweep of group k when `swept`, then the slot's share of the vote
-// (any hit: 1 if some lane is unresolved; closest: the largest order_key
-// of a live lane's best t, order_key(-inf) if none). S = T = 0: the
-// generic instance (S, T at run time, clusters in chunks of CHUNK).
+template <int S>
+constexpr size_t stage_smem() {
+  return (size_t)STAGE_WARPS * (S ? S : CHUNK) * sizeof(TriRec);
+}
+
+// One warp starts the copy of triangles j0 .. j0 + n - 1 (rows 0-9; n a
+// multiple of 32, j0 + n <= S) of a [10, S] cluster into n TriRecs. The
+// caller waits and __syncwarp()s.
+template <int S>
+__device__ __forceinline__ void stage_range_warp(TriRec* dst,
+                                                 const float* cluster,
+                                                 int j0, int n, int lane) {
+  float* d = reinterpret_cast<float*>(dst);
+#pragma unroll 1
+  for (int k = 0; k < PACK_ROWS; ++k) {
+#pragma unroll
+    for (int j = lane; j < S; j += 32) {
+      if (j < n) cp_async_f32(d + j * TRI_WORDS + k, cluster + k * S + j0 + j);
+    }
+  }
+}
+
+// The lane's occlusion ORed with what the team's other warps have found
+// (team: the team's word, null at W = 1); adds the warp's own.
+__device__ __forceinline__ bool team_or(unsigned* team, bool occ, int lane) {
+  if (team == nullptr) return occ;
+  const unsigned mine = __ballot_sync(FULL_MASK, occ);
+  if (lane == 0 && mine) atomicOr(team, mine);
+  __syncwarp();
+  return occ || ((*(volatile unsigned*)team >> lane) & 1u);
+}
+
+// Chunk c of a slot's group lies in cluster c / cpc, triangles 32 (c % cpc)
+// on. A warp's range [lo, hi) of chunks, cluster by cluster: fn(cid's
+// cluster pack, first chunk, end chunk, whether it is the range's first
+// piece) for each valid cluster id, until it returns false.
+template <typename Fn>
+__device__ __forceinline__ void for_range(const StageArgs& a, const int* cids,
+                                          int lo, int hi, int cpc, int s,
+                                          Fn fn) {
+  if (lo >= hi) return;
+#pragma unroll 1
+  for (int i = lo / cpc; i * cpc < hi; ++i) {
+    const int cid = cids[i];
+    if (cid < 0 || cid >= a.n_clusters) continue;
+    const int c_a = max(lo, i * cpc) - i * cpc;
+    const int c_b = min(hi, (i + 1) * cpc) - i * cpc;
+    if (!fn(a.tri_pack + (size_t)cid * PACK_ROWS * s, c_a, c_b,
+            i == lo / cpc)) {
+      return;
+    }
+  }
+}
+
+// Starts the copy of the first piece of a warp's range (its first chunk,
+// for the generic instance) into buf, before the unit reads its rays and
+// carry, so that the two reads' latencies overlap; false where there is no
+// piece to copy. The caller waits (cp_async_wait_all) before the buffer's
+// next use, also where it sweeps nothing.
+template <int S>
+__device__ __forceinline__ bool stage_first(const StageArgs& a,
+                                            const int* cids, int lo, int hi,
+                                            int cpc, TriRec* buf, int lane) {
+  if (lo >= hi) return false;
+  const int s = S ? S : a.s;
+  const int i = lo / cpc;
+  const int cid = cids[i];
+  if (cid < 0 || cid >= a.n_clusters) return false;
+  const float* cl = a.tri_pack + (size_t)cid * PACK_ROWS * s;
+  const int c_a = lo - i * cpc, c_b = min(hi, (i + 1) * cpc) - i * cpc;
+  if constexpr (S == 0) {
+    stage_chunk_warp<PACK_ROWS>(buf, cl, s, c_a * CHUNK, lane);
+  } else if (c_a == 0 && c_b == cpc) {
+    stage_cluster_warp<S>(buf, cl, lane);
+  } else {
+    stage_range_warp<S>(buf, cl, c_a * CHUNK, (c_b - c_a) * CHUNK, lane);
+  }
+  return true;
+}
+
+// Any hit: the warp's range of a slot's group (S = 0: the generic
+// instance, chunk by chunk); returns the lane's occlusion. pre: the
+// range's first piece is staged (stage_first).
+template <int S>
+__device__ __forceinline__ bool any_range(const StageArgs& a, const int* cids,
+                                          int lo, int hi, int cpc,
+                                          const Ray& ray, float tmin,
+                                          float tmax, bool dead, bool occ,
+                                          TriRec* buf, int lane,
+                                          unsigned* team, bool pre) {
+  const int s = S ? S : a.s;
+  for_range(a, cids, lo, hi, cpc, s, [&](const float* cl, int c_a, int c_b,
+                                         bool first) {
+    const bool staged = pre && first;
+    if constexpr (S == 0) {
+#pragma unroll 1
+      for (int c = c_a; c < c_b; ++c) {
+        if (!(staged && c == c_a)) {
+          stage_chunk_warp<PACK_ROWS>(buf, cl, s, c * CHUNK, lane);
+        }
+        cp_async_wait_all();
+        __syncwarp();
+        occ = anyhit_run<CHUNK>(buf, ray, tmin, tmax, dead, occ);
+        __syncwarp();  // every lane is done with the buffer
+        occ = team_or(team, occ, lane);
+        if (__all_sync(FULL_MASK, occ || dead)) break;
+      }
+    } else if (c_a == 0 && c_b == cpc) {  // a whole cluster
+      if (!staged) stage_cluster_warp<S>(buf, cl, lane);
+      cp_async_wait_all();
+      __syncwarp();
+      occ = anyhit_run<S>(buf, ray, tmin, tmax, dead, occ);
+      __syncwarp();
+      occ = team_or(team, occ, lane);
+    } else {
+      if (!staged) {
+        stage_range_warp<S>(buf, cl, c_a * CHUNK, (c_b - c_a) * CHUNK, lane);
+      }
+      cp_async_wait_all();
+      __syncwarp();
+#pragma unroll 1
+      for (int c = 0; c < c_b - c_a; ++c) {
+        occ = anyhit_run<CHUNK>(buf + c * CHUNK, ray, tmin, tmax, dead, occ);
+        occ = team_or(team, occ, lane);
+        if (__all_sync(FULL_MASK, occ || dead)) break;
+      }
+      __syncwarp();
+    }
+    return !__all_sync(FULL_MASK, occ || dead);
+  });
+  return occ;
+}
+
+// First slot: the warp's range of a slot's group folded into (best, id)
+// from the running best (a pass replaces it only with t < best). pre: as
+// any_range's.
+template <int S>
+__device__ __forceinline__ void first_range(const StageArgs& a,
+                                            const int* cids, int lo, int hi,
+                                            int cpc, const Ray& ray,
+                                            float tmin, float cap,
+                                            float* best, int* id,
+                                            TriRec* buf, int lane, bool pre) {
+  const int s = S ? S : a.s;
+  for_range(a, cids, lo, hi, cpc, s, [&](const float* cl, int c_a, int c_b,
+                                         bool first) {
+    const bool staged = pre && first;
+    if constexpr (S == 0) {
+#pragma unroll 1
+      for (int c = c_a; c < c_b; ++c) {
+        if (!(staged && c == c_a)) {
+          stage_chunk_warp<PACK_ROWS>(buf, cl, s, c * CHUNK, lane);
+        }
+        cp_async_wait_all();
+        __syncwarp();
+        sweep_run<1, CHUNK, true>(buf, &ray, &tmin, &cap, best, id);
+        __syncwarp();  // every lane is done with the buffer
+      }
+    } else if (c_a == 0 && c_b == cpc) {  // a whole cluster
+      if (!staged) stage_cluster_warp<S>(buf, cl, lane);
+      cp_async_wait_all();
+      __syncwarp();
+      sweep_run<1, S, true>(buf, &ray, &tmin, &cap, best, id);
+      __syncwarp();
+    } else {
+      if (!staged) {
+        stage_range_warp<S>(buf, cl, c_a * CHUNK, (c_b - c_a) * CHUNK, lane);
+      }
+      cp_async_wait_all();
+      __syncwarp();
+#pragma unroll 1
+      for (int c = 0; c < c_b - c_a; ++c) {
+        sweep_run<1, CHUNK, true>(buf + c * CHUNK, &ray, &tmin, &cap, best,
+                                  id);
+      }
+      __syncwarp();
+    }
+    return true;
+  });
+}
+
+// The W warps of team `team` meet (barrier 1 + team; 0 is __syncthreads).
+__device__ __forceinline__ void team_sync(int team, int w) {
+  asm volatile("bar.sync %0, %1;" ::"r"(team + 1), "r"(w * 32) : "memory");
+}
+
+// Block b goes on the list of vote parity `par`: gathered in shared
+// memory, or appended at once past LIST_CAP.
+__device__ __forceinline__ void push_list(const StageArgs& a, StageShared& sh,
+                                          unsigned par, int b) {
+  const unsigned i = atomicAdd(&sh.count, 1u);
+  if (i < LIST_CAP) {
+    sh.list[i] = b;
+    return;
+  }
+  const unsigned long long pos = atomicAdd(&a.sync[3 + par], 1ull);
+  a.list[(size_t)par * a.size + pos % (unsigned long long)a.size] = b;
+}
+
+// Block b's vote v on group kn (voting: kn g < n_cand): act, the active
+// count and the list of the next pass.
+template <bool ANY>
+__device__ __forceinline__ void decide(const StageArgs& a, StageShared& sh,
+                                       unsigned par, int b, int kn,
+                                       unsigned v, bool voting) {
+  bool on = false;
+  if (voting) {
+    const int kk = kn < a.kgroups - 1 ? kn : a.kgroups - 1;
+    on = ANY ? v != 0u
+             : a.entry[(size_t)b * a.entry_stride + kk * a.g] <= key_float(v);
+  }
+  a.act[b] = on ? 1 : 0;
+  if (on) atomicAdd(&sh.active, 1u);
+  if (ANY ? on : voting) push_list(a, sh, par, b);
+}
+
+// Slot `slot` of block b has voted v (lane 0 of its team's first warp):
+// the last of the block's slots to arrive decides.
+template <bool ANY>
+__device__ __forceinline__ void slot_voted(const StageArgs& a, StageShared& sh,
+                                           unsigned par, int b, int slot,
+                                           int slots, int kn, unsigned v,
+                                           bool voting) {
+  if (!voting) {  // known from n_cand: no slot adds a vote
+    if (slot == 0) decide<ANY>(a, sh, par, b, kn, 0u, false);
+    return;
+  }
+  if (slots == 1) {
+    decide<ANY>(a, sh, par, b, kn, v, true);
+    return;
+  }
+  if (ANY) {
+    atomicOr(&a.vote[b], v);
+  } else {
+    atomicMax(&a.vote[b], v);
+  }
+  __threadfence();
+  if (atomicAdd(&a.arrive[b], 1u) == (unsigned)slots - 1u) {
+    __threadfence();
+    const unsigned all = atomicExch(&a.vote[b], 0u);
+    a.arrive[b] = 0u;
+    decide<ANY>(a, sh, par, b, kn, all, true);
+  }
+}
+
+// The first pass: block b's vote on k (no sweep), a warp a block, its
+// slots in turn: any hit, some lane neither occluded nor dead; first slot,
+// the largest order_key of a live lane's best t (order_key(-inf) if none).
+template <bool ANY, int T>
+__device__ __forceinline__ unsigned first_vote(const StageArgs& a, int b,
+                                               int lane) {
+  const int t_lanes = T ? T : a.t_lanes;
+  const float* r = a.rays + (size_t)b * RAY_ROWS * t_lanes;
+  unsigned v = ANY ? 0u : order_key(-INFINITY);
+#pragma unroll 1
+  for (int off = lane; off - lane < t_lanes; off += 32) {
+    const bool in = off < t_lanes;
+    const float tmax = in ? r[6 * t_lanes + off] : -1.0f;
+    const size_t ci = (size_t)b * t_lanes + off;
+    if constexpr (ANY) {
+      const bool occ = in && __ldcg(a.occ + ci) != 0;
+      v |= __any_sync(FULL_MASK, !occ && !(tmax < 0.0f)) ? 1u : 0u;
+    } else {
+      const float bt = in ? __ldcg(a.best_t + ci) : INFINITY;
+      const unsigned w =
+          __reduce_max_sync(FULL_MASK, order_key(tmax < 0.0f ? -INFINITY : bt));
+      v = w > v ? w : v;
+    }
+  }
+  return v;
+}
+
+// A sweep pass's unit: slot `slot` of listed block b, group k, this warp's
+// range (part of w); the team combines; returns the slot's vote on k + 1
+// (meaningful in part 0). S = T = 0: the generic instance.
 template <bool ANY, int S, int T>
-__device__ __forceinline__ unsigned stage_slot(const StageArgs& a, int b,
-                                               int k, bool swept, int off,
+__device__ __forceinline__ unsigned sweep_slot(const StageArgs& a,
+                                               StageShared& sh, int b,
+                                               int slot, int k, int team,
+                                               int part, int w, int round,
                                                int lane, TriRec* buf) {
   const int t_lanes = T ? T : a.t_lanes;
-  const int s = S ? S : a.s;
+  const int off = slot * 32 + lane;
+  const int kk = k < a.kgroups - 1 ? k : a.kgroups - 1;
+  const int* cids = a.order_g + ((size_t)b * a.kgroups + kk) * a.g;
+  const int cpc = S ? S / CHUNK : (a.s + CHUNK - 1) / CHUNK;
+  const int n_ch = a.g * cpc;
+  const int lo = part * n_ch / w, hi = (part + 1) * n_ch / w;
+  const bool pre = stage_first<S>(a, cids, lo, hi, cpc, buf, lane);
   float tmin, tmax;
   const Ray ray = load_lane(a.rays + (size_t)b * RAY_ROWS * t_lanes, t_lanes,
                             off, &tmin, &tmax);
   const bool in = off < t_lanes;
   const size_t ci = (size_t)b * t_lanes + off;
-  const int kk = k < a.kgroups - 1 ? k : a.kgroups - 1;
-  const int* cids = a.order_g + ((size_t)b * a.kgroups + kk) * a.g;
+  const int rb = round & 1;
+  const int warp = team * w + part;
   if constexpr (ANY) {
-    bool occ = in && a.occ[ci] != 0;
+    bool occ = in && __ldcg(a.occ + ci) != 0;
     const bool dead = !(tmax >= tmin);  // can pass no test
-    if (swept && !__all_sync(FULL_MASK, occ || dead)) {
-      for (int i = 0; i < a.g; ++i) {
-        const int cid = cids[i];
-        if (cid < 0 || cid >= a.n_clusters) continue;
-        const float* cluster = a.tri_pack + (size_t)cid * PACK_ROWS * s;
-        if constexpr (S == 0) {
-#pragma unroll 1
-          for (int c0 = 0; c0 < s; c0 += CHUNK) {
-            stage_chunk_warp<PACK_ROWS>(buf, cluster, s, c0, lane);
-            cp_async_wait_all();
-            __syncwarp();
-            occ = anyhit_run<CHUNK>(buf, ray, tmin, tmax, dead, occ);
-            __syncwarp();  // every lane is done with the buffer
-            if (__all_sync(FULL_MASK, occ || dead)) break;
-          }
-        } else {
-          stage_cluster_warp<S>(buf, cluster, lane);
-          cp_async_wait_all();
-          __syncwarp();
-          occ = anyhit_run<S>(buf, ray, tmin, tmax, dead, occ);
-          __syncwarp();
-        }
-        if (__all_sync(FULL_MASK, occ || dead)) break;
-      }
-      if (in) a.occ[ci] = occ ? 1 : 0;
+    unsigned* tw = w > 1 ? &sh.team_occ[rb][team] : nullptr;
+    if (!__all_sync(FULL_MASK, occ || dead)) {
+      occ = any_range<S>(a, cids, lo, hi, cpc, ray, tmin, tmax, dead, occ,
+                         buf, lane, tw, pre);
     }
+    cp_async_wait_all();  // a piece staged and not swept
+    __syncwarp();
+    if (w > 1) {
+      occ = team_or(tw, occ, lane);
+      team_sync(team, w);
+      if (part != 0) return 0u;
+      occ = occ || ((*tw >> lane) & 1u);
+      __syncwarp();
+      if (lane == 0) *tw = 0u;  // next written two rounds on
+    }
+    if (in) a.occ[ci] = occ ? 1 : 0;
     return __any_sync(FULL_MASK, !occ && !(tmax < 0.0f)) ? 1u : 0u;
   } else {
-    float bt = in ? a.best_t[ci] : INFINITY;
-    if (swept) {
-      // torch.minimum's NaN: a NaN t_max passes no test
-      const float cap = tmax != tmax ? tmax : fminf(tmax, bt);
-      if (__any_sync(FULL_MASK, cap >= tmin)) {
-        float best = bt;
-        int id = in ? a.best_id[ci] : -1;
-        for (int i = 0; i < a.g; ++i) {
-          const int cid = cids[i];
-          if (cid < 0 || cid >= a.n_clusters) continue;
-          const float* cluster = a.tri_pack + (size_t)cid * PACK_ROWS * s;
-          if constexpr (S == 0) {
+    const float bt = in ? __ldcg(a.best_t + ci) : INFINITY;
+    // torch.minimum's NaN: a NaN t_max passes no test
+    const float cap = tmax != tmax ? tmax : fminf(tmax, bt);
+    float best = bt;
+    int id = in ? __ldcg(a.best_id + ci) : -1;
+    if (__any_sync(FULL_MASK, cap >= tmin)) {
+      first_range<S>(a, cids, lo, hi, cpc, ray, tmin, cap, &best, &id, buf,
+                     lane, pre);
+    }
+    cp_async_wait_all();  // a piece staged and not swept
+    __syncwarp();
+    if (w > 1) {
+      if (part != 0) {
+        sh.part_t[rb][warp][lane] = best;
+        sh.part_id[rb][warp][lane] = id;
+      }
+      team_sync(team, w);
+      if (part != 0) return 0u;
 #pragma unroll 1
-            for (int c0 = 0; c0 < s; c0 += CHUNK) {
-              stage_chunk_warp<PACK_ROWS>(buf, cluster, s, c0, lane);
-              cp_async_wait_all();
-              __syncwarp();
-              sweep_run<1, CHUNK, true>(buf, &ray, &tmin, &cap, &best, &id);
-              __syncwarp();  // every lane is done with the buffer
-            }
-          } else {
-            stage_cluster_warp<S>(buf, cluster, lane);
-            cp_async_wait_all();
-            __syncwarp();
-            sweep_run<1, S, true>(buf, &ray, &tmin, &cap, &best, &id);
-            __syncwarp();
-          }
+      for (int p = 1; p < w; ++p) {  // ranges in slot order: the first wins
+        const float t = sh.part_t[rb][warp + p][lane];
+        if (t < best) {
+          best = t;
+          id = sh.part_id[rb][warp + p][lane];
         }
-        if (in && best < bt) {
-          a.best_t[ci] = best;
-          a.best_id[ci] = id;
-        }
-        bt = best;
       }
     }
+    if (in && best < bt) {
+      a.best_t[ci] = best;
+      a.best_id[ci] = id;
+    }
     return __reduce_max_sync(FULL_MASK,
-                             order_key(tmax < 0.0f ? -INFINITY : bt));
+                             order_key(tmax < 0.0f ? -INFINITY : best));
   }
 }
 
-// The warp's part of block b: its one slot (tuned), or slots part, part +
-// 4, ... (generic); the votes combined.
-template <bool ANY, int S, int T>
-__device__ __forceinline__ unsigned stage_tile(const StageArgs& a, int b,
-                                               int k, bool swept, int part,
-                                               int lane, TriRec* buf) {
-  if constexpr (S != 0) {
-    return stage_slot<ANY, S, T>(a, b, k, swept, part * 32 + lane, lane, buf);
-  } else {
-    unsigned v = ANY ? 0u : order_key(-INFINITY);
-#pragma unroll 1
-    for (int r = part; r * 32 < a.t_lanes; r += SWEEP_WARPS) {
-      const unsigned w =
-          stage_slot<ANY, 0, 0>(a, b, k, swept, r * 32 + lane, lane, buf);
-      v = ANY ? (v | w) : (w > v ? w : v);
-    }
-    return v;
+// The next unit of a sweep pass for team `team`: its first warp takes it
+// from the pass's counter and hands it to the others (a team takes units
+// as it frees up, so no team holds a share of the pass's slots that
+// another could have swept).
+__device__ __forceinline__ int take_unit(unsigned long long* taken,
+                                         StageShared& sh, int team, int part,
+                                         int w, int lane) {
+  int u = 0;
+  if (part == 0 && lane == 0) {
+    const unsigned long long t = atomicAdd(taken, 1ull);
+    u = t < 0x7fffffffull ? (int)t : 0x7fffffff;
   }
+  if (w == 1) return __shfl_sync(FULL_MASK, u, 0);
+  if (part == 0 && lane == 0) sh.unit[team] = u;
+  team_sync(team, w);  // the last reader of unit[team] is past the combine
+  return sh.unit[team];
 }
 
 __device__ __forceinline__ unsigned long long load_acquire(
@@ -759,100 +1065,118 @@ __device__ __forceinline__ unsigned long long load_acquire(
   return v;
 }
 
-// The grid's active blocks in vote number `*votes` (1, 2, ...): every
-// thread block adds its count to the vote's parity total, then arrives;
-// the vote is complete at votes x gridDim.x arrivals. Returns the active
-// blocks of this vote (the same in every thread block); last[] holds the
-// parity totals seen at the previous votes.
-__device__ __forceinline__ unsigned long long stage_count(
-    unsigned long long* sync, unsigned* cta_active, unsigned* votes,
-    unsigned long long* last, unsigned long long* seen) {
-  __syncthreads();  // every leader has counted its tiles
+// The end of a pass: the thread block's gathered list entries of vote
+// parity `par` appended with one atomicAdd.
+__device__ __forceinline__ void flush_list(const StageArgs& a, StageShared& sh,
+                                           unsigned par) {
+  __syncthreads();  // every entry is gathered
   if (threadIdx.x == 0) {
-    *votes += 1u;
-    const unsigned par = *votes & 1u;
-    atomicAdd(&sync[par], (unsigned long long)*cta_active);
-    *cta_active = 0u;
-    __threadfence();
-    atomicAdd(&sync[2], 1ull);
-    const unsigned long long target = (unsigned long long)*votes * gridDim.x;
-    while (load_acquire(&sync[2]) < target) __nanosleep(32);
-    const unsigned long long total = load_acquire(&sync[par]);
-    *seen = total - last[par];
-    last[par] = total;
+    const unsigned n = sh.count < LIST_CAP ? sh.count : LIST_CAP;
+    sh.base_at = n ? atomicAdd(&a.sync[3 + par], (unsigned long long)n) : 0;
+    sh.flushed = n;
+    sh.count = 0u;
   }
   __syncthreads();
-  return *seen;
+  int* dst = a.list + (size_t)par * a.size;
+  const int base = (int)(sh.base_at % (unsigned long long)a.size);
+  for (int i = threadIdx.x; i < (int)sh.flushed; i += blockDim.x) {
+    const int j = base + i;
+    dst[j < a.size ? j : j - a.size] = sh.list[i];
+  }
+}
+
+// The grid's active blocks in vote number `n` (1, 2, ...): every thread
+// block adds its count to the vote's parity total, then arrives; the vote
+// is complete at n x gridDim.x arrivals. Returns the active blocks of this
+// vote (the same in every thread block) and sets the list of the next
+// pass (its start and length, from the parity's list total). A thread
+// block reads vote n's totals after its barrier; the next add to either is
+// vote n + 2's, which no thread block makes before every one has arrived
+// at vote n + 1, so all read the same totals and leave at the same k.
+__device__ __forceinline__ unsigned long long stage_count(const StageArgs& a,
+                                                          StageShared& sh,
+                                                          unsigned n) {
+  __syncthreads();  // every decider has counted its blocks
+  if (threadIdx.x == 0) {
+    const unsigned par = n & 1u;
+    atomicAdd(&a.sync[par], (unsigned long long)sh.active);
+    sh.active = 0u;
+    __threadfence();
+    atomicAdd(&a.sync[2], 1ull);
+    const unsigned long long target = (unsigned long long)n * gridDim.x;
+    while (load_acquire(&a.sync[2]) < target) __nanosleep(32);
+    __threadfence();
+    const unsigned long long total = load_acquire(&a.sync[par]);
+    sh.seen = total - sh.last[par];
+    sh.last[par] = total;
+    const unsigned long long listed = load_acquire(&a.sync[3 + par]);
+    sh.list_base = (int)(sh.last[2 + par] % (unsigned long long)a.size);
+    sh.list_len = (int)(listed - sh.last[2 + par]);
+    sh.last[2 + par] = listed;
+  }
+  __syncthreads();
+  return sh.seen;
 }
 
 template <bool ANY, int S, int T>
-__global__ void __launch_bounds__(StageShape<S, T>::threads,
-                                  24 / StageShape<S, T>::warps)
+__global__ void __launch_bounds__(STAGE_WARPS * 32, STAGE_MIN_BLOCKS)
     cascade_stage_kernel(StageArgs a) {
-  using Sh = StageShape<S, T>;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ unsigned votes[2][Sh::tiles];  // by tile-group parity
-  __shared__ unsigned cta_active, n_votes;
-  __shared__ unsigned long long seen, last[2];
+  __shared__ StageShared sh;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int p = warp / Sh::wpt, part = warp % Sh::wpt;
-  const bool leader = part == 0 && lane == 0;
-  TriRec* buf = reinterpret_cast<TriRec*>(smem) +
-                (size_t)warp * (Sh::generic ? CHUNK : S);
-  const unsigned vote0 = ANY ? 0u : order_key(-INFINITY);
-  if (threadIdx.x < 2 * Sh::tiles) {
-    votes[threadIdx.x / Sh::tiles][threadIdx.x % Sh::tiles] = vote0;
+  TriRec* buf = reinterpret_cast<TriRec*>(smem) + (size_t)warp * (S ? S : CHUNK);
+  const int t_lanes = T ? T : a.t_lanes;
+  const int slots = (t_lanes + 31) / 32;
+  if (threadIdx.x < 2 * STAGE_WARPS) {
+    sh.team_occ[threadIdx.x / STAGE_WARPS][threadIdx.x % STAGE_WARPS] = 0u;
   }
   if (threadIdx.x == 0) {
-    cta_active = n_votes = 0u;
-    last[0] = last[1] = 0ull;
+    sh.count = sh.active = 0u;
+    for (int i = 0; i < 4; ++i) sh.last[i] = 0ull;
   }
   __syncthreads();
 
   int k = *a.k_io;
-  unsigned parity = 0u;
+  unsigned n = 0u;     // votes made
   bool sweep = false;  // the first pass only votes on k as it came in
   for (;;) {
-    const int kn = sweep ? k + 1 : k;  // the group this pass votes on
+    const unsigned par = (n + 1u) & 1u;  // this vote's parity
+    if (!sweep) {
+      const int stride = gridDim.x * STAGE_WARPS;
 #pragma unroll 1
-    for (int q = blockIdx.x; q * Sh::tiles < a.size; q += gridDim.x) {
-      const int b = q * Sh::tiles + p;
-      const bool valid = b < a.size;
-      const int nc = valid ? a.n_cand[b] : 0;
-      const bool swept =
-          valid && sweep && (ANY ? a.act[b] != 0 : k * a.g < nc);
-      const bool voting = valid && kn * a.g < nc;
-      if (swept || voting) {
-        const unsigned v = stage_tile<ANY, S, T>(a, b, k, swept, part, lane,
-                                                 buf);
-        if (voting && lane == 0) {
-          if (ANY) {
-            atomicOr(&votes[parity][p], v);
-          } else {
-            atomicMax(&votes[parity][p], v);
-          }
+      for (int b = blockIdx.x * STAGE_WARPS + warp; b < a.size; b += stride) {
+        const bool voting = k * a.g < a.n_cand[b];
+        const unsigned v = voting ? first_vote<ANY, T>(a, b, lane) : 0u;
+        if (lane == 0) decide<ANY>(a, sh, par, b, k, v, voting);
+      }
+    } else {
+      const int w = a.w;
+      const int team = warp / w, part = warp % w;
+      const int* list = a.list + (size_t)(par ^ 1u) * a.size;
+      const int units = sh.list_len * slots;
+      // this pass takes its units from counter par; the last pass's is
+      // free again (every thread block is past it), and is cleared for
+      // the pass after this one
+      unsigned long long* taken = &a.sync[5 + par];
+      if (blockIdx.x == 0 && threadIdx.x == 0) a.sync[5 + (par ^ 1u)] = 0ull;
+#pragma unroll 1
+      for (int round = 0;; ++round) {
+        const int u = take_unit(taken, sh, team, part, w, lane);
+        if (u >= units) break;
+        const int li = sh.list_base + u / slots;
+        const int b = __ldcg(list + (li < a.size ? li : li - a.size));
+        const int slot = u % slots;
+        const bool voting = (k + 1) * a.g < a.n_cand[b];
+        const unsigned v = sweep_slot<ANY, S, T>(a, sh, b, slot, k, team,
+                                                 part, w, round, lane, buf);
+        if (part == 0 && lane == 0) {
+          slot_voted<ANY>(a, sh, par, b, slot, slots, k + 1, v, voting);
         }
       }
-      // the other parity's slot was last read by this thread, a group ago
-      if (leader) votes[parity ^ 1u][p] = vote0;
-      __syncthreads();
-      if (leader && valid) {
-        bool on = false;
-        if (voting) {
-          const unsigned v = votes[parity][p];
-          const int kk = kn < a.kgroups - 1 ? kn : a.kgroups - 1;
-          on = ANY ? v != 0u
-                   : a.entry[(size_t)b * a.entry_stride + kk * a.g] <=
-                         key_float(v);
-        }
-        a.act[b] = on ? 1 : 0;
-        if (on) atomicAdd(&cta_active, 1u);
-      }
-      parity ^= 1u;
+      ++k;
     }
-    if (sweep) ++k;
-    const unsigned long long n_active =
-        stage_count(a.sync, &cta_active, &n_votes, last, &seen);
+    flush_list(a, sh, par);
+    const unsigned long long n_active = stage_count(a, sh, ++n);
     if (n_active <= (unsigned long long)a.threshold) break;
     sweep = true;
   }
@@ -861,18 +1185,17 @@ __global__ void __launch_bounds__(StageShape<S, T>::threads,
 
 template <bool ANY, int S, int T>
 static cudaError_t stage_blocks_per_sm(int* per_sm) {
-  using Sh = StageShape<S, T>;
   const cudaError_t err = cudaFuncSetAttribute(
       cascade_stage_kernel<ANY, S, T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::smem);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)stage_smem<S>());
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, cascade_stage_kernel<ANY, S, T>, Sh::threads, Sh::smem);
+      per_sm, cascade_stage_kernel<ANY, S, T>, STAGE_WARPS * 32,
+      stage_smem<S>());
 }
 
 template <bool ANY, int S, int T>
 static int launch_stage(StageArgs a, cudaStream_t stream) {
-  using Sh = StageShape<S, T>;
   int per_sm = 0, dev = 0, sms = 0;
   cudaError_t err = stage_blocks_per_sm<ANY, S, T>(&per_sm);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
@@ -881,12 +1204,15 @@ static int launch_stage(StageArgs a, cudaStream_t stream) {
   }
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int groups = (a.size + Sh::tiles - 1) / Sh::tiles;
-  const int grid = groups < per_sm * sms ? groups : per_sm * sms;
+  // the warps a pass can use: a block each (first pass), W a slot (sweeps)
+  const long long warps =
+      (long long)a.size * ((a.t_lanes + 31) / 32) * a.w;
+  const long long want = (warps + STAGE_WARPS - 1) / STAGE_WARPS;
+  const int grid = want < (long long)per_sm * sms ? (int)want : per_sm * sms;
   void* params[] = {&a};
   return (int)cudaLaunchCooperativeKernel(
       (const void*)cascade_stage_kernel<ANY, S, T>, dim3(grid),
-      dim3(Sh::threads), params, Sh::smem, stream);
+      dim3(STAGE_WARPS * 32), params, stage_smem<S>(), stream);
 }
 
 template <bool ANY, int S, int T>
@@ -898,47 +1224,60 @@ static int stage_occupancy(int* regs, int* warps_per_sm) {
   *regs = attr.numRegs;
   int per_sm = 0;
   err = stage_blocks_per_sm<ANY, S, T>(&per_sm);
-  *warps_per_sm = per_sm * StageShape<S, T>::warps;
+  *warps_per_sm = per_sm * STAGE_WARPS;
   return (int)err;
 }
 
 // The cascades' shapes: blocks of 64 (the main path's shadows at G 2, the
 // overflow fallbacks at G 8) and of 256 (render_sharded, "packets"),
-// clusters of 128; G at run time.
+// clusters of 128; G and W at run time.
 #define FOR_STAGE_INSTANCES(CALL) CALL(128, 64) CALL(128, 256)
 
 static StageArgs stage_args(const void* tri_pack, const void* rays,
                             const void* order_g, const void* n_cand,
                             const void* entry, void* occ, void* best_t,
-                            void* best_id, void* k_io, void* act, void* sync,
+                            void* best_id, void* k_io, void* act, void* work,
                             int size, int kgroups, int g, int s, int t_lanes,
-                            int n_clusters, int entry_stride, int threshold) {
+                            int n_clusters, int entry_stride, int threshold,
+                            int w) {
+  unsigned* words = (unsigned*)work;
   return StageArgs{(const float*)tri_pack, (const float*)rays,
                    (const int*)order_g, (const int*)n_cand,
                    (const float*)entry, (unsigned char*)occ, (float*)best_t,
                    (int*)best_id, (int*)k_io, (unsigned char*)act,
-                   (unsigned long long*)sync, size, kgroups, g, s, t_lanes,
-                   n_clusters, entry_stride, threshold};
+                   (unsigned long long*)words,
+                   words + STAGE_SYNC_WORDS,
+                   words + STAGE_SYNC_WORDS + size,
+                   (int*)(words + STAGE_SYNC_WORDS + 2 * (size_t)size),
+                   size, kgroups, g, s, t_lanes, n_clusters, entry_stride,
+                   threshold, w};
 }
 
 #define STAGE_PARAMS                                                        \
   const void *tri_pack, const void *rays, const void *order_g,             \
       const void *n_cand, const void *entry, void *occ, void *best_t,      \
-      void *best_id, void *k_io, void *act, void *sync, int size,          \
+      void *best_id, void *k_io, void *act, void *work, int size,          \
       int kgroups, int g, int s, int t_lanes, int n_clusters,              \
-      int entry_stride, int threshold, int any_hit, void *stream
+      int entry_stride, int threshold, int any_hit, int w, void *stream
 #define STAGE_ARGS                                                          \
   stage_args(tri_pack, rays, order_g, n_cand, entry, occ, best_t, best_id, \
-             k_io, act, sync, size, kgroups, g, s, t_lanes, n_clusters,    \
-             entry_stride, threshold)
+             k_io, act, work, size, kgroups, g, s, t_lanes, n_clusters,    \
+             entry_stride, threshold, w)
+
+static bool stage_split_ok(int w) {
+  return w == 1 || w == 2 || w == 4 || w == STAGE_MAX_SPLIT;
+}
 
 // One stage of the cascade (see above) on `stream`: any_hit 1 with occ,
-// 0 (first-slot closest) with entry, best_t and best_id. Returns the
-// cudaError_t of the launch (0 = ok), or NO_INSTANCE for an (S, T) that
-// is not compiled.
+// 0 (first-slot closest) with entry, best_t and best_id; w warps a slot;
+// work: 14 + 4 size 32-bit words, the first 14 + 2 size zero.
+// Returns the cudaError_t of the launch (0 = ok), or NO_INSTANCE for an
+// (S, T) that is not compiled.
 extern "C" int cascade_stage(STAGE_PARAMS) {
   if (size <= 0) return 0;
-  if (g < 1 || kgroups < 1) return (int)cudaErrorInvalidValue;
+  if (g < 1 || kgroups < 1 || !stage_split_ok(w)) {
+    return (int)cudaErrorInvalidValue;
+  }
 #define LAUNCH(S_, T_)                                                     \
   if (s == S_ && t_lanes == T_)                                            \
     return any_hit ? launch_stage<true, S_, T_>(STAGE_ARGS,                \
@@ -954,7 +1293,7 @@ extern "C" int cascade_stage(STAGE_PARAMS) {
 // S, T >= 1.
 extern "C" int cascade_stage_generic(STAGE_PARAMS) {
   if (size <= 0) return 0;
-  if (g < 1 || kgroups < 1 || s < 1 || t_lanes < 1) {
+  if (g < 1 || kgroups < 1 || s < 1 || t_lanes < 1 || !stage_split_ok(w)) {
     return (int)cudaErrorInvalidValue;
   }
   return any_hit ? launch_stage<true, 0, 0>(STAGE_ARGS, (cudaStream_t)stream)

@@ -1,14 +1,26 @@
-"""Writes tests/data/jax_reference.npz: the JAX package's renders of one
-small scene, which the port is held against on the CPU
-(tests/test_torch_reference.py) and on the card (chip_smoke.py's
-`reference` phase, which reads the file without JAX).
+"""Writes tests/data/jax_reference.npz and
+tests/data/jax_reference_dielectric.npz: the JAX package's renders of two
+small frames, which the port is held against on the CPU
+(tests/test_torch_reference.py, tests/test_torch_reference_dielectric.py)
+and on the card (chip_smoke.py's `reference` phase, which reads the files
+without JAX).
 
-    JAX_PLATFORMS=cpu python scripts/torch_make_reference.py [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_make_reference.py \
+        [--frame room|dielectric] [--out PATH]
 
-The scene is the procedural blob (subdivision 3, seed 7) in the room with
-the default lights and materials, seen by the default camera; 48x27, 2 spp,
-5 bounces, seed 0, once with Russian roulette off (rr_start 0) and once
-from bounce 2. The file holds, for each rr_start: JAX's `oracle.render` and
+Without --frame it writes both. "room": the procedural blob (subdivision
+3, seed 7) in the room with the default lights and materials, seen by the
+default camera; 48x27, 2 spp, 5 bounces, seed 0, once with Russian
+roulette off (rr_start 0) and once from bounce 2. "dielectric": the JAX
+package's `dielectric` benchmark configuration's scene
+(path_tracer_ai_tpu/benchmarks.py: the blob written as an OBJ, subdivision
+3 here, loaded with dielectrics on) and the default camera; 48x27, 2 spp,
+8 bounces, seed 0, rr_start 0. The configuration's own MTL (Kd, Ni 1.45)
+names no transparency, and the loader makes a material glass only by name,
+`illum 7` or `d` < 1 (scene/scene.py _convert_mtl_material), so as written
+its blob stays specular; the frame adds `illum 7` to that MTL, which makes
+the blob glass of IOR 1.45. A file holds, for each rr_start: JAX's
+`oracle.render` and
 `wavefront.render` (its default backend) images, and the port's on the CPU
 through the oracle and the main path (`image_jax_oracle_rr0`,
 `image_jax_wavefront_rr0`, `image_port_oracle_rr0`, `image_port_main_rr0`,
@@ -34,20 +46,50 @@ sys.path.insert(0, ROOT)
 OUT = os.path.join(ROOT, "tests", "data", "jax_reference.npz")
 SETTINGS = dict(width=48, height=27, spp=2, bounces=5, seed=0,
                 subdivisions=3, rr_starts=(0, 2))
+# frame -> (file, settings)
+FRAMES = {
+    "room": (OUT, SETTINGS),
+    "dielectric": (
+        os.path.join(ROOT, "tests", "data", "jax_reference_dielectric.npz"),
+        dict(width=48, height=27, spp=2, bounces=8, seed=0, subdivisions=3,
+             rr_starts=(0,))),
+}
 
 
-def jax_renders(settings: dict) -> tuple[dict, dict]:
+def jax_scene(frame: str, subdivisions: int):
+    """JAX's scene and camera of a frame."""
+    from path_tracer_ai_tpu.scene.camera import default_camera
+
+    if frame == "dielectric":
+        import tempfile
+
+        from path_tracer_ai_tpu.benchmarks import get_configs
+        from path_tracer_ai_tpu.scene.procgen import write_obj
+        from path_tracer_ai_tpu.scene.scene import build_scene
+
+        with tempfile.TemporaryDirectory() as d:
+            obj = write_obj(os.path.join(d, "blob.obj"),
+                            subdivisions=subdivisions)
+            with open(os.path.join(d, "blob.mtl"), "a") as fh:
+                fh.write("illum 7\n")  # glass (see the module)
+            scene = build_scene(obj, enable_dielectrics=get_configs()[
+                "dielectric"].dielectric)
+        return scene, default_camera()
+    from __graft_entry__ import _demo_scene
+
+    scene, _ = _demo_scene(subdivisions=subdivisions)
+    return scene, default_camera()
+
+
+def jax_renders(settings: dict, frame: str = "room") -> tuple[dict, dict]:
     """JAX's scene and camera arrays and its images by name."""
     import jax
-    from __graft_entry__ import _demo_scene
 
     from path_tracer_ai_tpu.config import RenderSettings
     from path_tracer_ai_tpu.engine import oracle, wavefront
-    from path_tracer_ai_tpu.scene.camera import default_camera
     from path_tracer_ai_tpu_torch.convert import reference_arrays
 
-    scene, _ = _demo_scene(subdivisions=settings["subdivisions"])
-    camera = default_camera()
+    scene, camera = jax_scene(frame, settings["subdivisions"])
     arrays = reference_arrays(*([np.asarray(a) for a in part]
                                 for part in (*scene, camera)))
     images = {}
@@ -78,19 +120,16 @@ def port_renders(ref) -> dict:
     return images
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--out", default=OUT)
-    args = parser.parse_args()
-
+def write_frame(frame: str, out: str) -> None:
     import torch
 
     from path_tracer_ai_tpu_torch.convert import load_reference
 
     torch.set_num_threads(1)
     t0 = time.perf_counter()
-    arrays, images = jax_renders(SETTINGS)
-    data = {**arrays, **{k: np.asarray(v) for k, v in SETTINGS.items()},
+    settings = FRAMES[frame][1]
+    arrays, images = jax_renders(settings, frame)
+    data = {**arrays, **{k: np.asarray(v) for k, v in settings.items()},
             **{f"image_{k}": v for k, v in images.items()}}
     # the port renders the arrays as they are stored, as the tests and the
     # card load them
@@ -98,15 +137,27 @@ def main() -> int:
     np.savez(buf, **data)
     buf.seek(0)
     port = port_renders(load_reference(buf, device="cpu"))
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    np.savez_compressed(args.out, **data,
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    np.savez_compressed(out, **data,
                         **{f"image_{k}": v for k, v in port.items()})
     for k, v in port.items():
         jax_img = images["jax_oracle_" + k.rsplit("_", 1)[1]]
         ratio = np.sqrt(np.mean((v - jax_img) ** 2)) / jax_img.mean()
-        print(f"{k}: RMSE / mean against JAX's oracle image {ratio:.3e}")
-    print(f"wrote {args.out} ({os.path.getsize(args.out)} bytes, "
+        print(f"{frame} {k}: RMSE / mean against JAX's oracle image "
+              f"{ratio:.3e}")
+    print(f"wrote {out} ({os.path.getsize(out)} bytes, "
           f"{time.perf_counter() - t0:.1f} s)")
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--frame", choices=sorted(FRAMES))
+    parser.add_argument("--out", help="the file (with --frame only)")
+    args = parser.parse_args()
+    if args.out and not args.frame:
+        parser.error("--out needs --frame")
+    for frame in [args.frame] if args.frame else FRAMES:
+        write_frame(frame, args.out or FRAMES[frame][0])
     return 0
 
 

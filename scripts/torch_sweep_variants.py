@@ -1,16 +1,29 @@
-"""A/B timing of item_sweep and kslot_sweep across checkouts on one NVIDIA
-GPU.
+"""A/B timing of item_sweep, kslot_sweep and the cascade stage kernel
+across checkouts on one NVIDIA GPU.
 
     python3 scripts/torch_sweep_variants.py [--other NAME=DIR ...]
         [--sizes 128,2,16] [--sources item_sweep,kslot_sweep] [--reps N]
         [--out FILE]
+    python3 scripts/torch_sweep_variants.py --sources cascade_stage \
+        --other parent=DIR [--reps N] [--out FILE]
 
-Builds, with the port's nvcc flags (cuda_build.NVCC_FLAGS), the two
-kernels' sources of this checkout ("tree") and of each checkout DIR given
+Builds, with the port's nvcc flags (cuda_build.NVCC_FLAGS), the sources
+of the kernels of --sources of this checkout ("tree") and of each DIR given
 with --other (its path_tracer_ai_tpu_torch/csrc, as it is: for example the
 parent commit unpacked with `git archive`, or a copy of the tree with one
 constant changed), one nvcc a library, all at once, and reads ptxas'
 registers and spills and each instance's resident warps an SM.
+
+cascade_stage (csrc/ctiles_sweep.cu's cascade_stage_kernel; not with the
+other two): every stage of chip_smoke.py's kept cascades (the bench
+render's two kept shadow calls and the worklist render's first kept
+closest fallback; chip_smoke._stage_calls), each checkout's tuned entry
+point on copies of the stage's inputs, the tree's at each W (1, 2, 4, 8;
+its rule's named) and a checkout of the design before the split (an entry
+point without W, "owned") as it is; each held against the host-stepped
+loop (bit for bit carry, k and act) and timed in turns, every one and then
+every one again in reverse order, the copy of the carry timed alone and
+taken off.
 
 Waves, for each cluster size S of --sizes and each kernel of --sources:
 - kslot_sweep: chip_smoke.py's kernel-phase check waves (2^20 bounce-like
@@ -48,6 +61,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 SOURCES = ("item_sweep", "kslot_sweep")
+FILES = {"cascade_stage": "ctiles_sweep"}  # a kernel's csrc file, if not it
 NO_INSTANCE = -1  # the entry points' answer for an S not compiled
 ENTRY = re.compile(
     r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
@@ -69,7 +83,7 @@ def build(checkouts: dict, sources, out_dir: str) -> dict:
             so = os.path.join(d, source + ".so")
             procs[name, source] = (subprocess.Popen(
                 [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", so,
-                 os.path.join(d, source + ".cu")],
+                 os.path.join(d, FILES.get(source, source) + ".cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                 so)
     out = {}
@@ -169,6 +183,110 @@ def compare(source, s, wave, args, libs, reps, card, info) -> dict:
     return res
 
 
+def stage_abi(csrc: str) -> str:
+    """The cascade stage entry point's arguments in a checkout: "split" (W
+    warps a slot, a work buffer) or "owned" (the design before it: no W,
+    three 64-bit counters)."""
+    with open(os.path.join(csrc, "ctiles_sweep.cu")) as fh:
+        return "split" if "int any_hit, int w, void *stream" in fh.read() \
+            else "owned"
+
+
+def stage_runner(lib, abi: str, kept, w: int = 1):
+    """A call of a library's tuned cascade_stage on copies of a kept
+    stage's inputs (chip_smoke._keep_stages), as its wrapper makes them:
+    (carry..., k, act)."""
+    import torch
+
+    from path_tracer_ai_tpu_torch import cuda_build
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade
+
+    (pack, rays, order_g, n_cand, carry, k, thr), kw = kept
+    entry = kw.get("entry")
+    fn = lib.cascade_stage
+    split = abi == "split"
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * (10 if split
+                                                              else 9)
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    size, _, t_lanes = rays.shape
+    _n, kgroups, g = order_g.shape
+    c, _, s = pack.shape
+    dev = rays.device
+    ints = [size, kgroups, g, s, t_lanes, c,
+            0 if entry is None else entry.shape[1], int(thr),
+            int(entry is None)] + ([w] if split else [])
+
+    def call():
+        cs = tuple(x.clone() for x in carry)
+        kk = k.clone()
+        act = torch.empty((size,), dtype=torch.bool, device=dev)
+        work = (cuda_cascade._work(size, dev)
+                if split else torch.zeros((3,), dtype=torch.int64,
+                                          device=dev))
+        ptrs = ((0, cs[0].data_ptr(), 0, 0) if entry is None
+                else (entry.data_ptr(), 0, cs[0].data_ptr(),
+                      cs[1].data_ptr()))
+        err = cuda_build.launch(fn, dev, pack.data_ptr(), rays.data_ptr(),
+                                order_g.data_ptr(), n_cand.data_ptr(), *ptrs,
+                                kk.data_ptr(), act.data_ptr(),
+                                work.data_ptr(), *ints)
+        if err != 0:
+            raise RuntimeError(f"cascade_stage ({abi}): cudaError {err}")
+        return (*cs, kk, act)
+
+    return call
+
+
+def compare_stages(libs: dict, reps: int, card) -> list:
+    """cascade_stage (see the module) on every stage of chip_smoke's kept
+    cascades: a line a cascade."""
+    from functools import partial
+
+    import chip_smoke
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade, cuda_ctiles
+    from path_tracer_ai_tpu_torch.accel.clusters import build_clusters
+    from path_tracer_ai_tpu_torch.scene.scene import blob_scene
+
+    scene = blob_scene(subdivisions=6, device="cuda")
+    accel_base = build_clusters(scene.triangles, cluster_size=128)
+    accel_c = build_clusters(scene.triangles, cluster_size=256)
+    kept_shadows = chip_smoke._keep_shadow_calls(scene, accel_base, accel_c)
+    chip_smoke.phase_item_waves(*chip_smoke.worklist_scene(), card)
+    out = []
+    for label, fn, call in chip_smoke._stage_calls(kept_shadows):
+        rows = []
+        for kept in chip_smoke._keep_stages(fn, *call):
+            (pack, rays, _og, _nc, carry, k, _thr), kw = kept
+            want = chip_smoke._stage_run(kept, partial(
+                cuda_cascade.cascade_stage_plain,
+                sweep=cuda_ctiles.tile_sweep))
+            calls = {}
+            for name, (lib, abi) in libs.items():
+                for w in (1, 2, 4, 8) if abi == "split" else (None,):
+                    calls[name + (f" w{w}" if w else "")] = stage_runner(
+                        lib, abi, kept, w or 1)
+            copy_ms = chip_smoke.cuda_ms(
+                lambda: tuple(c.clone() for c in carry) + (k.clone(),), reps)
+            times = {n: [] for n in calls}
+            same = {n: chip_smoke._same_outputs(f(), want)
+                    for n, f in calls.items()}
+            for order in (list(calls), list(reversed(calls))):
+                for n in order:
+                    times[n].append(chip_smoke.cuda_ms(calls[n], reps)
+                                    - copy_ms)
+            rows.append({
+                "size": rays.shape[0], "k_in": int(k), "k_out": int(want[-2]),
+                "rule_w": chip_smoke._rule_w(rays, pack, not kw),
+                "ms": {n: sum(v) / len(v) for n, v in times.items()},
+                "ms_runs": times, "matches_host_stepped": same})
+        res = {"source": "cascade_stage", "call": label, "card": card,
+               "stages": rows}
+        print(json.dumps(res), flush=True)
+        out.append(res)
+    return out
+
+
 class _Kept(Exception):
     """Both waves are kept: the render need not go on."""
 
@@ -245,6 +363,19 @@ def main() -> int:
     sources = args.sources.split(",")
     built = build(checkouts, sources,
                   os.path.join(ROOT, "build", "sweep_variants"))
+    if sources == ["cascade_stage"]:
+        libs = {name: (lib, stage_abi(checkouts[name]))
+                for (name, _src), (lib, _) in built.items()}
+        report = {"card": card, "ptxas": {
+            f"{n} {s}": v[1] for (n, s), v in built.items()},
+            "abi": {n: abi for n, (_lib, abi) in libs.items()},
+            "calls": compare_stages(libs, args.reps, card)}
+        os.makedirs(os.path.dirname(args.out), exist_ok=True)
+        with open(args.out, "w") as fh:
+            json.dump(report, fh, indent=1)
+        return 0
+    if "cascade_stage" in sources:
+        parser.error("cascade_stage runs alone (--sources cascade_stage)")
 
     def occupancy_of(lib, source, s, closest):
         try:  # an S with no instance is refused (S = 0 too, in

@@ -1487,26 +1487,128 @@ def _assert_same_cascade(got, want):
 @pytest.mark.parametrize("name", cases.CASCADE_CASES)
 def test_cascade_stage_matches_plain(cuda, name, s, t_lanes, g, closest):
     """The stage kernel (tuned at (T 64, S 128) and (T 256, S 128), else
-    generic) and its generic instance (forced) on the crafted cascades of
+    generic) and its generic instance (forced), at the W its rule picks and
+    at each W forced, on the crafted cascades of
     tests/test_torch_sweep_cases.py, through traverse._cascade_stages: the
     carry bit for bit, the block order and the final k of the plain
     version; one launch a stage."""
     case = cases.cascade_case(name, s, t_lanes, g)
+    _assert_stage_kernel(case, closest, cuda)
+
+
+class forced_split:
+    """The stage kernel gives every slot w warps for the duration of the
+    block (its rule, cuda_cascade.split_warps, patched)."""
+
+    def __init__(self, w):
+        self.w = w
+
+    def __enter__(self):
+        self.real = cuda_cascade.split_warps
+        cuda_cascade.split_warps = lambda *a: self.w
+
+    def __exit__(self, *exc):
+        cuda_cascade.split_warps = self.real
+
+
+def _assert_stage_kernel(case, closest, cuda):
+    """The case's cascade through the stage kernel, tuned and generic, at
+    the rule's W and at each W of cuda_cascade.SPLITS, against the plain
+    version; each launch's shape key names its W."""
+    from contextlib import nullcontext
+
     want = _cascade_run(cuda_cascade.cascade_stage_plain, case, closest,
                         cuda)
     name_k = cuda_cascade.NAMES[not closest]
-    for forced in (False, True):
-        before = dict(cuda_cascade.launches)
-        if forced:
-            with generic_instances():
+    for w in (None, *cuda_cascade.SPLITS):
+        for forced in (False, True):
+            cuda_cascade.reset_launches()
+            with (forced_split(w) if w else nullcontext()), \
+                    (generic_instances() if forced else nullcontext()):
                 got = _cascade_run(cuda_cascade.cascade_stage, case, closest,
                                    cuda)
-        else:
-            got = _cascade_run(cuda_cascade.cascade_stage, case, closest,
-                               cuda)
-        torch.cuda.synchronize()
-        assert cuda_cascade.launches[name_k] > before[name_k]
-        _assert_same_cascade(got, want)
+            torch.cuda.synchronize()
+            assert cuda_cascade.launches[name_k] > 0
+            keys = list(cuda_cascade.launch_shapes)
+            assert all(key[4] in cuda_cascade.SPLITS for key in keys)
+            if w:
+                assert {key[4] for key in keys} == {w}
+            if forced:
+                assert all(key[5:] == ("generic",) for key in keys)
+            _assert_same_cascade(got, want)
+
+
+@pytest.mark.parametrize("closest", [False, True])
+@pytest.mark.parametrize("g", cases.CASCADE_G)
+@pytest.mark.parametrize("name", cases.CASCADE_CASES)
+def test_cascade_stage_splits_loop_cases(cuda, name, g, closest):
+    """The stage cases of tests/test_torch_cascade_loop.py (S 16, blocks
+    of 16 lanes: the generic instance; groups of 1, 2, 5, 8), each W."""
+    _assert_stage_kernel(cases.cascade_case(name, 16, 16, g), closest, cuda)
+
+
+@pytest.mark.parametrize("closest", [False, True])
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("t_lanes", [64, 256])
+@pytest.mark.parametrize("s", [16, 128])
+@pytest.mark.parametrize("name", cases.SPLIT_CASES)
+def test_cascade_stage_split_cases(cuda, name, s, t_lanes, g, closest):
+    """The split cases (exact ties in two of a slot's W ranges, -0.0
+    against +0.0, NaN t_max, dead lanes), each W, tuned and generic."""
+    _assert_stage_kernel(cases.split_case(name, s, t_lanes, g), closest,
+                         cuda)
+
+
+@pytest.mark.parametrize("w", [None, 8])
+@pytest.mark.parametrize("closest", [False, True])
+def test_cascade_stage_list_overflow(cuda, rng, closest, w):
+    """One stage of 2^20 blocks of one lane (the generic instance), each
+    with a candidate: a thread block (at most 396 of them on an H100)
+    lists more than its shared buffer holds (1,024 blocks) in a pass, so
+    entries past it are appended one by one; (carry, k, act) bit for bit
+    the plain version's, at the rule's W and at W 8."""
+    from contextlib import nullcontext
+
+    geo = cases.cascade_clusters(16)
+    n = 1 << 20
+    o, d, tm = cases._rays(rng, n, 16)
+    tm[::7] = -1.0
+    rays = np.concatenate([o, d, tm[:, None], np.full((n, 1), cases.T_MIN)],
+                          1).astype(np.float32)[:, :, None]
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=cuda)
+    pack = t(cases.pack(geo))
+    blocks = (t(rays), t(rng.integers(0, cases.CASCADE_C, (n, 2, 1))
+                         .astype(np.int32)),
+              t(rng.integers(1, 3, n).astype(np.int32)))
+    kw = {"entry": t(np.full((n, 2), 2.94, np.float32))} if closest else {}
+
+    def run(stage):
+        carry = ((torch.full((n, 1), np.inf, device=cuda),
+                  torch.full((n, 1), -1, dtype=torch.int32, device=cuda))
+                 if closest else
+                 (torch.zeros((n, 1), dtype=torch.bool, device=cuda),))
+        k = torch.zeros((1,), dtype=torch.int32, device=cuda)
+        out = stage(pack, *blocks, carry, k, n // 2, **kw)
+        return (*out[0], out[1], out[2])
+
+    want = run(cuda_cascade.cascade_stage_plain)
+    assert int(want[-1].sum()) > 0 and int(want[-2]) > 0
+    with forced_split(w) if w else nullcontext():
+        got = run(cuda_cascade.cascade_stage)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(_bits(x) if x.dtype == torch.float32 else x,
+                           _bits(y) if y.dtype == torch.float32 else y)
+
+
+def test_split_rule_on_the_card(cuda):
+    """The W rule on this card: the instances' resident warps, W = 1 for
+    the main path's first shadow stage (65,536 blocks of 64), more for its
+    tail stages."""
+    warps, sms = cuda_cascade._resident_warps(cuda, 128, 64, True)
+    assert warps >= 8 and sms >= 1
+    assert cuda_cascade.split_warps(65536, 64, warps, sms) == 1
+    assert cuda_cascade.split_warps(64, 64, warps, sms) > 1
 
 
 @pytest.mark.parametrize("query", ["any", "any_exact", "closest"])

@@ -25,7 +25,10 @@ within one cluster too.
 The cascade cases (CASCADE_CASES, cascade_case) are whole packet
 cascades: ray blocks with their candidate tables, for the cascade stage
 (accel.cuda_cascade) run through traverse._cascade_stages, any hit and
-first-slot closest (see cascade_case for each case).
+first-slot closest (see cascade_case for each case). The split cases
+(SPLIT_CASES, split_case) are cascades of the same layout whose exact ties
+straddle the boundaries where the stage kernel cuts a slot's group into W
+ranges, one a warp.
 """
 
 import numpy as np
@@ -444,3 +447,85 @@ def cascade_case(name: str, s: int, t_lanes: int, g: int,
             "order_g": np.ascontiguousarray(order.reshape(nb, k_groups, g)),
             "n_cand": np.asarray(ncs, np.int32),
             "entry": np.ascontiguousarray(entry), "kind": kind}
+
+
+# --- the split cases: ties across the stage kernel's W ranges --------------
+
+SPLIT_CASES = ("straddle_ties", "signed_zero", "nan_and_dead")
+SPLIT_C = 4
+# the blocks' candidate orders, by block: -0.0 before +0.0 and after it
+SPLIT_ORDERS = ([0, 1, 2, 3], [1, 0, 3, 2], [2, 3, 1, 0], [3, 2, 0, 1],
+                [1, 3, 0, 2], [0, 2, 1, 3])
+
+
+def split_clusters(s: int) -> dict:
+    """SPLIT_C clusters of S triangles over the unit square (cascade_clusters'
+    grid). Cluster 0: flat at z = 1; cluster 1: cluster 0 wound the other
+    way (a ray from that plane meets it at t = +0.0 where cluster 0 gives
+    -0.0); cluster 2: cluster 0 again, each slot j of its second half the
+    same floats as slot j - S // 2 (so an exact tie in two slots a
+    half-cluster apart, across a chunk boundary from S = 64 on) with the
+    smaller id of the two; cluster 3: cluster 0 again (a tie across
+    clusters) with smaller ids. Ids: 1000 + c S + j, the copies' below."""
+    base = cascade_clusters(s)
+    geo = {k: np.stack([base[k][0]] * SPLIT_C) for k in ("v0", "e1", "e2")}
+    geo["e1"][1], geo["e2"][1] = base["e2"][0].copy(), base["e1"][0].copy()
+    h = s // 2
+    if h:
+        for k in ("v0", "e1", "e2"):
+            geo[k][2, h:2 * h] = geo[k][2, :h]
+    j = np.arange(s)
+    tri_id = (1000 + np.arange(SPLIT_C)[:, None] * s + j[None, :])
+    tri_id[2, h:2 * h] = 1000 - 1 - j[:h]
+    tri_id[3] = 100 + j
+    return {**geo, "tri_id": tri_id.astype(np.int32)}
+
+
+def split_case(name: str, s: int, t_lanes: int, g: int,
+               seed: int = 0) -> dict:
+    """One crafted cascade on split_clusters, cascade_case's layout (96
+    blocks; candidates: every cluster, in one of SPLIT_ORDERS by block,
+    each with entry 2.94; K = ceil(C / g) groups padded with cluster
+    0, entry inf). straddle_ties: rays from z = -2 through the first half
+    of the triangles (t_max inf): every hit is an exact tie in two slots of
+    cluster 2 and across clusters 0, 2 and 3. signed_zero: t_min 0, rays
+    from the plane z = 1 through the same triangles: t = -0.0 in clusters
+    0, 2, 3, +0.0 in cluster 1. nan_and_dead: straddle_ties with t_max NaN
+    in every third lane, -1 in every fifth, lanes 32-63 dead in every
+    other block and every seventh block dead."""
+    rng = np.random.default_rng([seed, s, t_lanes, g,
+                                 500 + SPLIT_CASES.index(name)])
+    nb = 96
+    n = nb * t_lanes
+    geo = split_clusters(s)
+    w = int(np.ceil(np.sqrt(s)))
+    jj = rng.integers(0, max(s // 2, 1), n)
+    xy = np.stack([(jj % w) + 0.2, (jj // w) + 0.2], 1) / w
+    z0 = 1.0 if name == "signed_zero" else -2.0
+    o = np.concatenate([xy, np.full((n, 1), z0)], 1).astype(np.float32)
+    d = np.concatenate([rng.uniform(-1e-4, 1e-4, (n, 2)), np.ones((n, 1))],
+                       1)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    tm = np.full((nb, t_lanes), np.inf, np.float32)
+    if name == "nan_and_dead":
+        tm.reshape(-1)[::3] = np.nan
+        tm.reshape(-1)[::5] = -1.0
+        if t_lanes >= 64:
+            tm[::2, 32:64] = -1.0
+        tm[::7] = -1.0
+    t_min = 0.0 if name == "signed_zero" else T_MIN
+    orders = [SPLIT_ORDERS[b % len(SPLIT_ORDERS)] for b in range(nb)]
+    k_groups = -(-SPLIT_C // g)
+    pad = k_groups * g - SPLIT_C
+    order = np.pad(np.asarray(orders, np.int32), ((0, 0), (0, pad)))
+    entry = np.pad(np.full((nb, SPLIT_C), 2.94, np.float32),
+                   ((0, 0), (0, pad)), constant_values=np.inf)
+    o = o.reshape(nb, t_lanes, 3)
+    d = d.reshape(nb, t_lanes, 3)
+    rays = np.concatenate([o.transpose(0, 2, 1), d.transpose(0, 2, 1),
+                           tm[:, None], np.full_like(tm, t_min)[:, None]], 1)
+    return {**geo, "o": o, "d": d, "tm": tm, "t_min": t_min,
+            "rays": np.ascontiguousarray(rays, np.float32),
+            "order_g": np.ascontiguousarray(order.reshape(nb, k_groups, g)),
+            "n_cand": np.full(nb, SPLIT_C, np.int32),
+            "entry": np.ascontiguousarray(entry)}
