@@ -8,6 +8,9 @@
         # phases 1-2, the scene, main_path, then mesh_cards (no "ok" line)
     python3 chip_smoke.py --stages        # phases 1-2, main_path, profile,
         # item_waves, then stage_split and stage_split_render (no "ok" line)
+    python3 chip_smoke.py --fused-stages  # phases 1-2, main_path,
+        # path_fused, profile_fused, fused_cascade, then fused_stage_render
+        # (the fused render's stages' bounds, eager sweeps: ~190 s; no "ok")
 
 Phases (each prints one JSON line; any failure exits non-zero):
   1. device       CUDA must be available; the card's name and power limit;
@@ -99,8 +102,21 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   image agrees with the main path's at atol 1e-5.
   4d. path_fused  the same on the hybrid backend with the fused cascades
                   (cascade_fused closest; packets_fused shadows with
-                  early_skip and sub_skip); the image equals the main
-                  path's bitwise.
+                  early_skip and sub_skip), each stage one launch of the
+                  fused stage kernel; the image equals the main path's
+                  bitwise; host reads by call site: one a cascade call (the
+                  ids' range check), at most 32 others, none in the loop.
+  4e. fused_cascade the fused route's two kept calls (wave 0, bounce 1:
+                  the shadow call and the closest call) split by stage
+                  (size, threshold, k in / out, active blocks at the first
+                  and last vote, needed tests, bound, the host-stepped
+                  loop's and the stage kernel's ms (its one instance), each
+                  stage bitwise the host-stepped loop and the plain
+                  version), then each call whole before (the host-stepped
+                  loop: block_anyhit / block_closest launched an iteration)
+                  and after in turns: bits, final k, device seconds, host
+                  reads, kernels (lines fused_cascade_stages,
+                  fused_cascade_loop, fused_cascade).
   5. consistency  the three paths vs the oracle on the card (96x54, 4 spp,
                   5 bounces, blob subdiv 4): main and fused bitwise, pallas
                   at atol 1e-5 (its tie rule keeps the first candidate);
@@ -123,7 +139,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   tests/data/jax_reference_dielectric.npz (the JAX
                   package's `dielectric` configuration's scene with its
                   blob glass, subdiv 3, 48x27, 2 spp, 8 bounces, seed 0: the
-                  shadow cascade on rays that leave glass); a line a file.
+                  shadow cascade on rays that leave glass), and the
+                  cornell frame, tests/data/jax_reference_cornell.npz (the
+                  JAX `cornell` configuration's box of axis-aligned quads,
+                  2 spp, 5 bounces); a line a file.
                   Fails if a route exceeds 1e-3 there, or if a route is not
                   bitwise its CPU image (the
                   line then names the first stage of a CPU / card lockstep
@@ -326,17 +345,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   held to the main path's image as path_pool is, the
                   concurrent runs profiled (busy share a card); then
                   mesh_cards_summary, each run's time over the main path's.
-Then the kernels line (eleven kernels: the five, item_sweep and
+Then the kernels line (thirteen kernels: the five, item_sweep and
 kslot_sweep, which replace no TPU kernel, the first-slot instances
 tile_sweep_first and kslot_sweep_first, which carry XLA-fused sweeps, and
-the cascade stage kernel's two folds, cascade_stage_any and
-cascade_stage_first, which carry the cascade's while_loop ("carries": the
-JAX package's code each stands for); launches on every path, the new ones
-under new_path_launches, tile_sweep_first's in the host-stepped loop, the
-only route left that launches it, the stage kernel's also by W
-(launches_by_w); each kernel's generic instance under
+the cascade stage kernel's four folds, cascade_stage_any,
+cascade_stage_first, fused_stage_any and fused_stage_closest, which carry
+the cascades' while_loop ("carries": the JAX package's code each stands
+for); launches on every path, the new ones under new_path_launches,
+tile_sweep_first's in the host-stepped loop, the only route left that
+launches it, and block_anyhit's and block_closest's in the fused
+cascades' host-stepped loop (on the fused route their bodies run inside
+the fused folds: "runs_as"), the stage kernel's also by W
+(launches_by_w), the fused folds' by shape (launches_by_shape); each
+kernel's generic instance under
 "generic": its S = 128 time beside the tuned one's, its bound, and its
-launches in cluster_sizes), and last {"ok": true, "device": {...}}.
+launches in cluster_sizes; the fused folds have only their generic
+instance, "only_instance"), and last {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 
@@ -538,17 +562,28 @@ def phase_build():
         occupancy[key] = {**occ, "spill_bytes": sum(
             e["spill_bytes"] for es in ptxas.values() for e in es
             if tag in e["entry"])}
-    # the cascade stage kernel (its loop on the card): tuned at T 64 and
-    # 256 (S 128), generic (S 0)
+    # the cascade stage kernel (its loop on the card): the packet folds
+    # tuned at T 64 and 256 (S 128), generic (S 0); the fused folds' only
+    # instance, generic
     for any_hit in (True, False):
         name = cuda_cascade.NAMES[any_hit]
         for s_, t in ((128, 64), (128, 256), (0, 0)):
-            tag = (f"cascade_stage_kernelILb{int(any_hit)}ELi{s_}ELi{t}E")
+            tag = (f"cascade_stage_kernelI8TileFoldILb{int(any_hit)}EELi{s_}"
+                   f"ELi{t}EE")
             occupancy[f"{name} " + (f"T{t} S{s_}" if s_ else "generic")] = {
-                **cuda_cascade.kernel_occupancy(s_, t, any_hit),
+                **cuda_cascade.kernel_occupancy(name, s_, t),
                 "spill_bytes": sum(e["spill_bytes"]
                                    for e in ptxas.get("ctiles_sweep", [])
                                    if tag in e["entry"])}
+        name = cuda_cascade.FUSED_NAMES[any_hit]
+        fold = "8FusedAny" if any_hit else "12FusedClosest"
+        tag = f"cascade_stage_kernelI{fold}Li0ELi0EE"
+        occupancy[f"{name} generic"] = {
+            **cuda_cascade.kernel_occupancy(name),
+            "spill_bytes": sum(
+                e["spill_bytes"]
+                for e in ptxas.get(cuda_cascade.FUSED_SOURCES[any_hit], [])
+                if tag in e["entry"])}
     for name, mod in (("item_sweep", cuda_items),
                       ("kslot_sweep", cuda_kslots)):
         for s_, closest in ((128, True), (128, False), (0, True),
@@ -1239,6 +1274,8 @@ def _reset_counts():
     worklist.reset_fallback_counts()
     pairs.reset_fallback_counts()
     sync.reset()
+    for name in FUSED_CALLS:
+        FUSED_CALLS[name] = 0
 
 
 def _read_counts() -> dict:
@@ -1272,7 +1309,8 @@ def _tile_shapes() -> list:
 
 
 def _stage_shapes() -> list:
-    """The cascade stage kernel's launches by fold and shape."""
+    """The cascade stage kernel's launches by fold and shape (the packet
+    folds' and the fused folds')."""
     from path_tracer_ai_tpu_torch.accel import cuda_cascade
 
     return [{"kernel": key[0], "T": key[1], "S": key[2], "G": key[3],
@@ -1338,7 +1376,8 @@ def _bench_render(phase, scene, card, kernels, warm_small, engines=None,
            "seconds": stats.seconds, "closest_rays": stats.closest_rays,
            "shadow_rays": stats.shadow_rays, "mrays_per_s": stats.mrays_per_s,
            "launches": launches, "tile_sweep_shapes": tile_shapes,
-           "cascade_stage_shapes": stage_shapes, "host_syncs": syncs,
+           "cascade_stage_shapes": stage_shapes,
+           "fused_calls": dict(FUSED_CALLS), "host_syncs": syncs,
            "host_sync_sites": sites,
            "overflow_fallback": dict(worklist.fallback_counts)}
     if stats.pool_iterations:
@@ -1433,14 +1472,39 @@ def phase_path_pallas(scene, accel_base, card, img_main):
     return res
 
 
+def _fused_reads(res) -> dict:
+    """A fused render's host reads: its cascade calls, the reads of their
+    range checks (one a call), the others, and the sites in the loop's
+    modules (none allowed)."""
+    checks = sum(n for k, n in res["host_sync_sites"].items()
+                 if k.startswith(FUSED_READ_SITE))
+    return {"cascade_calls": sum(res["fused_calls"].values()),
+            "range_checks": checks, "others": res["host_syncs"] - checks,
+            "in_the_loop": [k for k in res["host_sync_sites"]
+                            if k.startswith(FUSED_NO_SYNC_MODULES)]}
+
+
 def phase_path_fused(scene, accel_base, card, img_main):
+    """The fused cascades' bench render (every stage one launch of the
+    stage kernel): bitwise the main path's image, host reads by call site
+    (one a cascade call, the range check, and at most the 32 others the
+    route made at commit d2f509c; none in the loop), and the stage launches
+    by fold and shape."""
     res, img, missing, image_ok = _bench_render(
-        "path_fused", scene, card, ["block_anyhit", "block_closest"],
+        "path_fused", scene, card, ["fused_stage_any", "fused_stage_closest"],
         warm_small=True, engines=FUSED_ENGINES, accel=accel_base)
     res["bitwise_equal_to_main"] = bool(np.array_equal(img, img_main))
+    res["host_reads"] = {**_fused_reads(res), "at_d2f509c": FUSED_AT_D2F509C}
     _finish_path(res, missing, image_ok)
     if not res["bitwise_equal_to_main"]:
         fail("path_fused", "image differs from the main path's")
+    reads = res["host_reads"]
+    if (reads["range_checks"] > reads["cascade_calls"]
+            or reads["others"] > FUSED_OTHER_READS_MAX
+            or reads["in_the_loop"]):
+        fail("path_fused", f"host reads {reads}: at most one a cascade call "
+                           f"and {FUSED_OTHER_READS_MAX} others, none in the "
+                           "loop")
     return res, img
 
 
@@ -2138,6 +2202,10 @@ REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
 # the dielectric frame: the blob glass, 8 bounces (rr_start 0 only)
 REFERENCE_DIELECTRIC = os.path.join(os.path.dirname(REFERENCE),
                                     "jax_reference_dielectric.npz")
+# the cornell frame: the JAX cornell configuration's box of axis-aligned
+# quads (rr_start 0 only)
+REFERENCE_CORNELL = os.path.join(os.path.dirname(REFERENCE),
+                                 "jax_reference_cornell.npz")
 REFERENCE_RMSE = 1e-3  # over the JAX image's mean: tests/test_torch_render.py
 
 
@@ -2311,9 +2379,10 @@ def _reference_frame(path, card) -> tuple:
 
 
 def phase_reference(card, render, profile):
-    """The JAX package's renders (tests/data/jax_reference.npz and the
-    dielectric frame's jax_reference_dielectric.npz, made by
-    scripts/torch_make_reference.py; read without JAX) against every
+    """The JAX package's renders (tests/data/jax_reference.npz, the
+    dielectric frame's jax_reference_dielectric.npz and the cornell frame's
+    jax_reference_cornell.npz, made by scripts/torch_make_reference.py;
+    read without JAX) against every
     route on the card, at each of a file's settings (one line each):
     bitwise against the port's CPU image of the same engine (the oracle's
     for the oracle, the main path's for the rest), the pixels that differ
@@ -2324,7 +2393,7 @@ def phase_reference(card, render, profile):
     215,680 kernels and 6,744 host syncs it took at commit 524103f (none
     gained)."""
     over, not_bitwise, lines = [], [], []
-    for path in (REFERENCE, REFERENCE_DIELECTRIC):
+    for path in (REFERENCE, REFERENCE_DIELECTRIC, REFERENCE_CORNELL):
         res, o, nb = _reference_frame(path, card)
         over += o
         not_bitwise += nb
@@ -3389,7 +3458,7 @@ def phase_exact_cull(scene, accel_base, accel_c, card, img_main, img_fused,
     out["main"] = res
 
     res, img, missing, image_ok = _bench_render(
-        "exact_cull", scene, card, ["block_anyhit", "block_closest"],
+        "exact_cull", scene, card, ["fused_stage_any", "fused_stage_closest"],
         warm_small=True, engines=FUSED_EXACT_ENGINES, accel=accel_base)
     res["route"] = "fused path, exact_cull=16 in both engines"
     res["bitwise_equal_to_fused"] = bool(np.array_equal(img, img_fused))
@@ -4423,6 +4492,429 @@ def _keep_shadow_calls(scene, accel_base, accel_c) -> list:
     return kept.get("shadow", [])
 
 
+# ---- the fused cascades' loop on the card ----------------------------------
+
+# The calls of the fused cascades in the path phases since the last reset
+# (_reset_counts), counted by _spy_fused_calls.
+FUSED_CALLS = {"any_hit_fused": 0, "closest_hit_fused": 0}
+# The fused route's bench render at commit d2f509c (this script's parent
+# design, the loop stepped on the host; scripts/torch_route_timing.py
+# --profile fused, H100 80GB HBM3, 700.00 W): host reads by kind, kernels.
+FUSED_AT_D2F509C = {"host_reads": 6302, "votes": 3302, "range_checks": 2968,
+                    "others": 32, "device_kernels": 130378}
+FUSED_OTHER_READS_MAX = 32
+# The fused route's kernels in its profile (substrings of their symbols):
+# the stage kernel's two folds, and the standalone sweeps, which must not
+# run there.
+FUSED_KERNEL_TAGS = ["cascade_stage_kernel<FusedAny",
+                     "cascade_stage_kernel<FusedClosest",
+                     "block_closest_kernel", "block_anyhit_kernel"]
+# The stage wrappers' module, whose only read on the fused route is the
+# range check (raise_bad_ids).
+FUSED_READ_SITE = "path_tracer_ai_tpu_torch.accel.cuda_cascade:"
+# Modules in which the fused route may make no host read: the stage loop
+# (votes) and the standalone kernels' range checks.
+FUSED_NO_SYNC_MODULES = ("path_tracer_ai_tpu_torch.accel.traverse:",
+                         "path_tracer_ai_tpu_torch.accel.cuda_anyhit:",
+                         "path_tracer_ai_tpu_torch.accel.cuda_closest:")
+
+
+def _spy_fused_calls() -> None:
+    from path_tracer_ai_tpu_torch.accel import cuda_anyhit, cuda_closest
+
+    for mod, name in ((cuda_anyhit, "any_hit_fused"),
+                      (cuda_closest, "closest_hit_fused")):
+        def spy(*a, _real=getattr(mod, name), _name=name, **kw):
+            FUSED_CALLS[_name] += 1
+            return _real(*a, **kw)
+
+        setattr(mod, name, spy)
+
+
+class _fused_host_stepped(_patched):
+    """While entered, the fused cascades' stages run the host-stepped loop
+    that the card ran before the stage kernel: fused_stage_plain sweeping
+    through block_anyhit / block_closest (one launch an iteration, one host
+    read a vote)."""
+
+    def __init__(self):
+        from path_tracer_ai_tpu_torch.accel import cuda_cascade
+
+        super().__init__(cuda_cascade,
+                         fused_stage=cuda_cascade.fused_stage_plain)
+
+
+def _keep_fused_calls(scene, accel_base) -> list:
+    """(label, fn, (args, kw)) copies of the fused route's wave 0, bounce 1
+    calls, the shadow call (any_hit_fused) and the closest call
+    (closest_hit_fused), from a fused bench render that stops once it has
+    them."""
+    from path_tracer_ai_tpu_torch.accel import cuda_anyhit, cuda_closest
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+
+    kept = {"shadow": [], "closest": []}
+    real = {"shadow": (cuda_anyhit, "any_hit_fused"),
+            "closest": (cuda_closest, "closest_hit_fused")}
+    saved = {k: getattr(*v) for k, v in real.items()}
+
+    def keeping(kind):
+        def fn(*a, **kw):
+            copy = lambda x: x.clone() if torch.is_tensor(x) else x
+            kept[kind].append((tuple(copy(x) for x in a),
+                               {n: copy(v) for n, v in kw.items()}))
+            out = saved[kind](*a, **kw)
+            if len(kept["shadow"]) >= 2 and len(kept["closest"]) >= 2:
+                raise _Kept
+            return out
+        return fn
+
+    for kind, (mod, name) in real.items():
+        setattr(mod, name, keeping(kind))
+    try:
+        with _engines(FUSED_ENGINES):
+            wavefront.render(scene, default_camera("cuda"),
+                             RenderSettings(**BENCH), wave_size=1 << 20,
+                             device="cuda", accel=accel_base)
+    except _Kept:
+        pass
+    finally:
+        for kind, (mod, name) in real.items():
+            setattr(mod, name, saved[kind])
+    if len(kept["shadow"]) < 2 or len(kept["closest"]) < 2:
+        fail("fused_cascade", "the fused bench render made fewer than two "
+                              "calls of a fused cascade")
+    return [("fused shadow, wave 0, bounce 1", saved["shadow"],
+             kept["shadow"][1]),
+            ("fused closest, wave 0, bounce 1", saved["closest"],
+             kept["closest"][1])]
+
+
+def _keep_fused_stages(fn, args, kw) -> list:
+    """Copies of the inputs of every fused_stage call of fn(*args, **kw), in
+    order, [(args, kw)] (the stage updates its carry and k in place), each
+    with error words of its own."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade
+
+    kept = []
+    real = cuda_cascade.fused_stage
+    copy = lambda x: x.clone() if torch.is_tensor(x) else x
+
+    def stage(*a, **k):
+        # error words of the stage's own, never read, as the cascade's are
+        # read once after its last stage
+        kept.append((tuple(tuple(copy(c) for c in x) if isinstance(x, tuple)
+                           else copy(x) for x in a),
+                     {**{n: copy(v) for n, v in k.items() if n != "err"},
+                      "err": cuda_cascade.new_error(a[1].device)}))
+        return real(*a, **k)
+
+    with _patched(cuda_cascade, fused_stage=stage):
+        fn(*args, **kw)
+    return kept
+
+
+def _fused_stage_run(kept, stage, **extra):
+    """One kept fused stage through `stage` on fresh copies of its carry
+    and k: (carry..., k, act)."""
+    (pack, rays, order_g, n_cand, carry, k, thr), kw = kept
+    out = stage(pack, rays, order_g, n_cand, tuple(c.clone() for c in carry),
+                k.clone(), thr, **kw, **extra)
+    return (*out[0], out[1], out[2])
+
+
+def _fused_stage_bytes(rays, n_cand, carry, s, closest, stats) -> int:
+    """The bytes a fused stage must move, each once: the rays, n_cand, act,
+    the carry read and written, the swept blocks' candidate groups (and
+    entries) and the swept clusters' [16, S] packs."""
+    clusters = int(stats["clusters"].sum()) if "clusters" in stats else 0
+    return (_nbytes(rays, n_cand) + rays.shape[0] + 2 * _nbytes(*carry)
+            + stats.get("blocks", 0) * (8 + int(closest)) * 4
+            + clusters * 16 * s * 4)
+
+
+def _fused_stage_table(fn, args, kw, reps=5) -> list:
+    """Every stage of one fused cascade fn(*args, **kw), a row each: its
+    slice size and threshold, k in and out, the active blocks at its first
+    and at its last vote, its needed tests (the plain sweeps' lane_tests:
+    open lanes x the swept sub-slab rows), its bound, the host-stepped
+    loop's ms (fused_stage_plain with the standalone kernels; one run, host
+    reads included), the stage kernel's ms (CUDA events over `reps` runs on
+    copies, the copy timed alone and taken off), and whether the kernel's
+    (carry, k, act) are the host-stepped loop's bits and the plain
+    version's (eager sweeps)."""
+    from functools import partial
+
+    from path_tracer_ai_tpu_torch.accel import (
+        cuda_anyhit,
+        cuda_closest,
+        cuda_cascade,
+    )
+
+    rows = []
+    for kept in _keep_fused_stages(fn, args, kw):
+        (pack, rays, order_g, n_cand, carry, k, thr), skw = kept
+        closest = "entry" in skw
+        stats = {}
+        eager = _fused_stage_run(kept, partial(
+            cuda_cascade.fused_stage_plain, stats=stats))
+        stepped = _fused_stage_run(kept, cuda_cascade.fused_stage_plain)
+        stepped_ms = cuda_ms(lambda: _fused_stage_run(
+            kept, cuda_cascade.fused_stage_plain), 1)
+        got = _fused_stage_run(kept, cuda_cascade.fused_stage)
+        copy_ms = cuda_ms(lambda: tuple(c.clone() for c in carry)
+                          + (k.clone(),), reps)
+        ms = cuda_ms(lambda: _fused_stage_run(
+            kept, cuda_cascade.fused_stage), reps) - copy_ms
+        s = pack.shape[2]
+        row = {"size": rays.shape[0], "T": rays.shape[2], "S": s,
+               "threshold": thr, "k_in": int(k),
+               "k_out": int(stepped[-2]), "active_first": stats["active"][0],
+               "active_last": stats["active"][-1],
+               "sweeps": stats.get("sweeps", 0),
+               "blocks_swept": stats.get("blocks", 0),
+               **_bound(_fused_stage_bytes(rays, n_cand, carry, s, closest,
+                                           stats),
+                        stats.get("lane_tests", 0)),
+               "host_stepped_ms": stepped_ms, "ms": ms,
+               "matches_host_stepped": _same_outputs(got, stepped),
+               "matches_plain": _same_outputs(got, eager)
+               and _same_outputs(stepped, eager),
+               "max_abs_err": (_max_abs_err(got[0], eager[0])
+                               if closest else 0.0)}
+        row["ms_over_bound"] = ms / row["bound_ms"]
+        row["host_stepped_over_bound"] = stepped_ms / row["bound_ms"]
+        if not rows or not any(r.get("check") for r in rows):
+            if row["sweeps"]:
+                # the kernels line's check: the first stage that sweeps,
+                # its plain version timed once
+                row["check"] = True
+                row["plain_ms"] = cuda_ms(lambda: _fused_stage_run(
+                    kept, partial(cuda_cascade.fused_stage_plain,
+                                  sweep=(cuda_closest.block_closest_plain
+                                         if closest else
+                                         cuda_anyhit.block_anyhit_plain))),
+                    1)
+        rows.append(row)
+    return rows
+
+
+def _render_fused_stage_bounds(scene, accel_base) -> dict:
+    """One fused bench render with every stage run by the plain version
+    with stats (eager sweeps on the card): by fold, the stages, their
+    needed tests and bytes and the sum of their bounds (each stage's
+    _bound, as _fused_stage_table's)."""
+    from functools import partial
+
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+
+    tot = {name: {"stages": 0, "sweeps": 0, "tests": 0, "bytes": 0,
+                  "bound_ms": 0.0, "bound_by_operations": 0}
+           for name in cuda_cascade.FUSED_NAMES.values()}
+    real = cuda_cascade.fused_stage_plain
+
+    def stage(pack, rays, order_g, n_cand, carry, k, thr, entry=None, **kw):
+        stats = {}
+        out = partial(real, stats=stats)(pack, rays, order_g, n_cand, carry,
+                                         k, thr, entry=entry, **kw)
+        b = _bound(_fused_stage_bytes(rays, n_cand, carry, pack.shape[2],
+                                      entry is not None, stats),
+                   stats.get("lane_tests", 0))
+        t = tot[cuda_cascade.FUSED_NAMES[entry is None]]
+        t["stages"] += 1
+        t["sweeps"] += stats.get("sweeps", 0)
+        t["tests"] += b["tests"]
+        t["bytes"] += b["bytes"]
+        t["bound_ms"] += b["bound_ms"]
+        t["bound_by_operations"] += b["bound_by"] == "operations"
+        return out
+
+    t0 = time.perf_counter()
+    with _patched(cuda_cascade, fused_stage=stage), \
+            _engines(FUSED_ENGINES):
+        wavefront.render(scene, default_camera("cuda"),
+                         RenderSettings(**BENCH), wave_size=1 << 20,
+                         device="cuda", accel=accel_base)
+    torch.cuda.synchronize()
+    return {"folds": tot, "seconds": time.perf_counter() - t0}
+
+
+def phase_fused_stage_render(scene, accel_base, card, profile) -> dict:
+    """The fused route's render level (--fused-stages): each fold's
+    seconds in the fused profile beside the sum of the bounds of the fused
+    bench render's stages (_render_fused_stage_bounds)."""
+    render = _render_fused_stage_bounds(scene, accel_base)
+    res = {"phase": "fused_stage_render", "card": card, **render}
+    for name, fold in render["folds"].items():
+        tag = ("cascade_stage_kernel<FusedAny" if name == "fused_stage_any"
+               else "cascade_stage_kernel<FusedClosest")
+        prof = profile["path_kernels"][tag]
+        fold.update({"profile_seconds": prof["seconds"],
+                     "profile_launches": prof["count"],
+                     "seconds_over_bound": prof["seconds"]
+                     / (fold["bound_ms"] / 1e3)})
+    emit(res)
+    return res
+
+
+def _fused_call_run(fn, args, kw) -> tuple:
+    """fn(*args, **kw) once (a fused cascade): (result, {device seconds
+    (CUDA events), wall seconds, host reads, the final k of its last stage,
+    stage kernel, block_anyhit and block_closest launches}); the device
+    kernels of a second run under torch.profiler."""
+    from path_tracer_ai_tpu_torch.accel import (
+        cuda_anyhit,
+        cuda_closest,
+        cuda_cascade,
+    )
+    from path_tracer_ai_tpu_torch.utils import sync
+
+    ks = []
+    real = cuda_cascade.fused_stage
+    stage_launches = lambda: sum(cuda_cascade.launches[n] for n in
+                                 cuda_cascade.FUSED_NAMES.values())
+
+    def stage(*a, **k):
+        out = real(*a, **k)
+        ks.append(out[1])
+        return out
+
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    with _patched(cuda_cascade, fused_stage=stage):
+        torch.cuda.synchronize()
+        reads = sync.count
+        counts = (stage_launches(),
+                  cuda_anyhit.launches, cuda_closest.launches)
+        start, end = ev(), ev()
+        t0 = time.perf_counter()
+        start.record()
+        out = fn(*args, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        run = {"device_seconds": start.elapsed_time(end) / 1e3,
+               "wall_seconds": time.perf_counter() - t0,
+               "host_reads": sync.count - reads,
+               "stage_launches": stage_launches() - counts[0],
+               "block_anyhit_launches": cuda_anyhit.launches - counts[1],
+               "block_closest_launches": cuda_closest.launches - counts[2],
+               "final_k": int(ks[-1]), "stages": len(ks)}
+        run["device_kernels"] = _device_kernels(lambda: fn(*args, **kw))
+    return out, run
+
+
+def _fused_before_after(label, fn, call) -> dict:
+    """One kept fused cascade in turns: before (the host-stepped loop, the
+    parent's route), after (the stage kernel), after, before. All must
+    give the same bits and the same final k."""
+    args, kw = call
+    runs = {"before": [], "after": []}
+    outs = {}
+    for which in ("before", "after", "after", "before"):
+        if which == "before":
+            with _fused_host_stepped():
+                out, r = _fused_call_run(fn, args, kw)
+        else:
+            out, r = _fused_call_run(fn, args, kw)
+        runs[which].append(r)
+        outs.setdefault(which, out)
+    flat = lambda o: ((o.hit, o.t, o.tri) if isinstance(o, tuple) else (o,))
+    same = _same_outputs(flat(outs["after"]), flat(outs["before"]))
+    best = {w: {k: min(r[k] for r in runs[w]) for k in runs[w][0]}
+            for w in runs}
+    return {"call": label, "rays": int(args[1].shape[0]),
+            "live_rays": int((torch.as_tensor(args[4]) >= 0).sum()),
+            "same_bits": same,
+            "same_final_k": all(r["final_k"] == runs["before"][0]["final_k"]
+                                for w in runs for r in runs[w]),
+            "runs": runs, "best": best,
+            "device_over_before": best["after"]["device_seconds"]
+            / best["before"]["device_seconds"]}
+
+
+def phase_fused_cascade(scene, accel_base, card, img_main) -> tuple:
+    """The fused cascades' loop on the card. (1) The fused route's two kept
+    calls (wave 0, bounce 1: the shadow call and the closest call), each
+    split by stage (_fused_stage_table; lines fused_cascade_stages): the
+    stage kernel bit for bit the host-stepped loop and the plain version
+    at every stage. (2) Each kept call whole, before (the host-stepped
+    loop) and after (the stage kernel) in turns: the same bits and final
+    k; device seconds, host
+    reads and device kernels (lines fused_cascade_loop). Returns the
+    kernel checks for the kernels line (each fold's first stage that
+    sweeps) and the host-stepped loop's block_anyhit / block_closest
+    launches."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade
+
+    t0 = time.perf_counter()
+    calls = _keep_fused_calls(scene, accel_base)
+    checks, tables, loops = {}, {}, []
+    for label, fn, (args, kw) in calls:
+        rows = _fused_stage_table(fn, args, kw)
+        closest = "closest" in label
+        tables[label] = rows
+        emit({"phase": "fused_cascade_stages", "card": card, "call": label,
+              "stages": rows, "bound_ms": sum(r["bound_ms"] for r in rows),
+              "ms": sum(r["ms"] for r in rows),
+              "host_stepped_ms": sum(r["host_stepped_ms"] for r in rows)})
+        bad = [r["size"] for r in rows
+               if not (r["matches_host_stepped"] and r["matches_plain"])]
+        if bad:
+            fail("fused_cascade", f"{label}: the stages of {bad} blocks "
+                                  "differ from the host-stepped loop or the "
+                                  "plain version")
+        check = next((r for r in rows if r.get("check")), None)
+        if check is None:
+            fail("fused_cascade", f"{label}: no stage swept")
+        name = cuda_cascade.FUSED_NAMES[not closest]
+        checks[name] = {
+            "name": name, "wave": f"{label}, first stage that sweeps",
+            "T": check["T"], "S": check["S"], "G": 8,
+            "blocks": check["size"], "k_in": check["k_in"],
+            "k_out": check["k_out"], "sweeps": check["sweeps"],
+            "ms": check["ms"], "plain_ms": check["plain_ms"],
+            "host_stepped_ms": check["host_stepped_ms"],
+            "bound_ms": check["bound_ms"], "bound_by": check["bound_by"],
+            "tests": check["tests"], "bytes": check["bytes"],
+            "ms_over_bound": check["ms_over_bound"],
+            "matches_plain": check["matches_plain"]
+            and check["matches_host_stepped"],
+            "max_abs_err": check["max_abs_err"],
+            "call_ms": sum(r["ms"] for r in rows),
+            "call_bound_ms": sum(r["bound_ms"] for r in rows),
+            "call_host_stepped_ms": sum(r["host_stepped_ms"] for r in rows)}
+        loops.append(_fused_before_after(label, fn, (args, kw)))
+    for f in loops:
+        emit({"phase": "fused_cascade_loop", "card": card, **f})
+    if not all(f["same_bits"] and f["same_final_k"] for f in loops):
+        fail("fused_cascade", "a fused cascade's stage kernel differs from "
+                              "the host-stepped loop (bits or final k)")
+    stepped = {k: sum(r[f"{k}_launches"] for f in loops
+                      for r in f["runs"]["before"])
+               for k in ("block_anyhit", "block_closest")}
+    if not all(stepped.values()):
+        fail("fused_cascade", f"the host-stepped loop launched no "
+                              f"standalone kernel: {stepped}")
+    emit({"phase": "fused_cascade", "card": card,
+          "checks": {k: {x: c[x] for x in (
+              "ms", "bound_ms", "ms_over_bound", "plain_ms",
+              "host_stepped_ms", "call_ms", "call_bound_ms",
+              "call_host_stepped_ms")} for k, c in checks.items()},
+          "loops": [{"call": f["call"], "live_rays": f["live_rays"],
+                     **{w: {x: f["best"][w][x] for x in (
+                         "device_seconds", "host_reads", "device_kernels",
+                         "stage_launches", "final_k")}
+                        for w in ("before", "after")},
+                     "device_over_before": f["device_over_before"]}
+                    for f in loops],
+          "host_stepped_launches": stepped,
+          "seconds": time.perf_counter() - t0})
+    return checks, stepped
+
+
 def phase_worklist_mxu(waves, item_checks, card, min_swept=1000):
     """The worklist scene's kept closest and shadow queries (wave 0, bounce
     1) through intersector "mxu", "mxu:high" and "mxu:default" at blocks
@@ -4613,12 +5105,16 @@ BEFORE_OPTIONS = {"ms": 0.2015, "registers": 93, "spill_bytes": 0,
 KERNELS = {
     "tile_sweep": ("ctiles_sweep.cu",
                    "path_tracer_ai_tpu/accel/pallas_ctiles.py:239", "main_path"),
+    # on the fused route these two run as the sweep bodies of the fused
+    # stage kernel's folds (fused_stage_any, fused_stage_closest); launched
+    # standalone by the kernel phase and the host-stepped comparison loop
+    # (fused_cascade phase), whose launches the line counts
     "block_anyhit": ("fused_anyhit.cu",
                      "path_tracer_ai_tpu/accel/pallas_anyhit.py:181",
-                     "path_fused"),
+                     "fused_host_stepped"),
     "block_closest": ("fused_closest.cu",
                       "path_tracer_ai_tpu/accel/pallas_closest.py:140",
-                      "path_fused"),
+                      "fused_host_stepped"),
     "closest_sweep": ("packet_sweep.cu",
                       "path_tracer_ai_tpu/accel/pallas_sweep.py:179",
                       "path_pallas"),
@@ -4644,6 +5140,11 @@ KERNELS = {
     # whole-wave closest fallbacks)
     "cascade_stage_any": ("ctiles_sweep.cu", None, "main_path"),
     "cascade_stage_first": ("ctiles_sweep.cu", None, "path_worklist"),
+    # the same stage loop (csrc/stage.cuh) with the fused cascades' folds,
+    # whose sweeps are block_anyhit's and block_closest's bodies: the
+    # jax.lax.while_loop of any_hit_fused and closest_hit_fused
+    "fused_stage_any": ("fused_anyhit.cu", None, "path_fused"),
+    "fused_stage_closest": ("fused_closest.cu", None, "path_fused"),
 }
 # what a kernel without a Pallas counterpart carries in the JAX package
 CARRIES = {
@@ -4657,6 +5158,21 @@ CARRIES = {
         "path_tracer_ai_tpu/accel/traverse.py:491 (while_loop), 940-955",
     "cascade_stage_first":
         "path_tracer_ai_tpu/accel/traverse.py:491 (while_loop), 812-845",
+    "fused_stage_any":
+        "path_tracer_ai_tpu/accel/traverse.py:491 (while_loop), "
+        "pallas_anyhit.py:327-367",
+    "fused_stage_closest":
+        "path_tracer_ai_tpu/accel/traverse.py:491 (while_loop), "
+        "pallas_closest.py:271-318",
+}
+# what a kernel runs as on its route besides its own launches
+RUNS_AS = {
+    "block_anyhit": "the sweep body of fused_stage_any on the fused route "
+                    "(anyhit_group); standalone in the kernel phase and "
+                    "the host-stepped comparison loop",
+    "block_closest": "the sweep body of fused_stage_closest on the fused "
+                     "route (closest_group); standalone in the kernel phase "
+                     "and the host-stepped comparison loop",
 }
 
 
@@ -4673,6 +5189,12 @@ def main() -> int:
                         "its profile, keep its shadow calls and the worklist "
                         "render's closest fallbacks, split those cascades by "
                         "stage (stage_split), and stop")
+    parser.add_argument("--fused-stages", action="store_true",
+                        help="build the kernels, render the main path and "
+                        "the fused route and its profile, split the fused "
+                        "route's kept calls by stage (fused_cascade), sum "
+                        "the bounds of the fused render's stages "
+                        "(fused_stage_render), and stop")
     parser.add_argument("--sass", metavar="DIR",
                         help="write cuobjdump's SASS of every library there")
     args = parser.parse_args()
@@ -4682,6 +5204,7 @@ def main() -> int:
     card = phase_device()
     occupancy, ptxas = phase_build()
     _spy_eager_sweeps()
+    _spy_fused_calls()
     if args.sass:
         dump_sass(args.sass)
 
@@ -4710,6 +5233,15 @@ def main() -> int:
         phase_stage_split(scene, accel_base, accel_c, card, kept_shadows,
                           profile)
         return 0
+    if args.fused_stages:
+        render, img_main = phase_main_path(scene, accel_base, accel_c, card)
+        fused, _img = phase_path_fused(scene, accel_base, card, img_main)
+        profile = phase_profile_path(
+            "profile_fused", scene, accel_base, fused["seconds"],
+            FUSED_KERNEL_TAGS, engines=FUSED_ENGINES)
+        phase_fused_cascade(scene, accel_base, card, img_main)
+        phase_fused_stage_render(scene, accel_base, card, profile)
+        return 0
     checks = phase_kernels(accel_base, accel_c)
     sweep_waves = phase_sweep_waves(scene, accel_base, card)
     scene_w, accel_w = worklist_scene()
@@ -4733,10 +5265,13 @@ def main() -> int:
                        backend="pallas", block_size=64)
     paths["path_fused"], img_fused = phase_path_fused(scene, accel_base,
                                                       card, img_main)
-    phase_profile_path("profile_fused", scene, accel_base,
-                       paths["path_fused"]["seconds"],
-                       ["block_closest_kernel", "block_anyhit_kernel"],
-                       engines=FUSED_ENGINES)
+    phase_profile_path(
+        "profile_fused", scene, accel_base, paths["path_fused"]["seconds"],
+        FUSED_KERNEL_TAGS, engines=FUSED_ENGINES)
+    fused_checks, fused_stepped = phase_fused_cascade(scene, accel_base,
+                                                      card, img_main)
+    checks.update(fused_checks)
+    paths["fused_host_stepped"] = {"launches": fused_stepped}
     paths["path_worklist"] = phase_path_worklist(scene_w, accel_w, card,
                                                  warm_w)
     phase_profile_worklist(worklist_waves, card)
@@ -4764,6 +5299,8 @@ def main() -> int:
          "perray": perray}, kept_shadows, profile)
     checks.update(first_checks)
     paths["host_stepped_loop"] = {"launches": stepped}
+    for name in ("fused_stage_any", "fused_stage_closest"):
+        generic[name] = None  # its only instance: the line's own numbers
     for name in ("tile_sweep_first", "kslot_sweep_first",
                  "cascade_stage_any", "cascade_stage_first"):
         c = checks[name]
@@ -4837,9 +5374,10 @@ def main() -> int:
         "bound_ms": checks[name]["bound_ms"],
         "bound_by": checks[name]["bound_by"], "library_ms": None,
         "ms_over_bound": checks[name]["ms_over_bound"],
-        "generic": {**{k: generic[name][k] for k in (
+        "generic": {**({k: generic[name][k] for k in (
             "S", "generic_ms", "tuned_ms", "generic_over_tuned", "bound_ms",
-            "generic_over_bound", "plain_ms", "matches_plain")},
+            "generic_over_bound", "plain_ms", "matches_plain")}
+            if generic[name] else {"only_instance": True}),
             "cluster_sizes_launches": {
                 row["S"]: sum(r["generic_launches"].get(name, 0)
                               for r in row["renders"].values())
@@ -4886,6 +5424,22 @@ def main() -> int:
            if name == "cascade_stage_first" else {}),
         **({"host_stepped_ms": checks[name]["host_stepped_ms"]}
            if name == "cascade_stage_any" else {}),
+        **({"runs_as": RUNS_AS[name]} if name in RUNS_AS else {}),
+        **({"wave": checks[name]["wave"],
+            "host_stepped_ms": checks[name]["host_stepped_ms"],
+            "call_ms": checks[name]["call_ms"],
+            "call_bound_ms": checks[name]["call_bound_ms"],
+            "call_host_stepped_ms": checks[name]["call_host_stepped_ms"],
+            "launches_by_shape": [
+                sh for sh in paths[phase]["cascade_stage_shapes"]
+                if sh["kernel"] == name],
+            "new_path_launches_by_shape": {
+                k: [sh for sh in v["cascade_stage_shapes"]
+                    if sh["kernel"] == name]
+                for k, v in new_paths.items()
+                if any(sh["kernel"] == name
+                       for sh in v.get("cascade_stage_shapes", []))}}
+           if name.startswith("fused_stage") else {}),
         **({"W": checks[name]["W"],
             "splits": checks[name]["splits"],
             "launches_by_w": _launches_by_w(

@@ -2,9 +2,12 @@
 
 Counterpart of path_tracer_ai_tpu/accel/pallas_anyhit.py. `any_hit_fused`
 keeps the packet cascade's structure (coherence sort, conservative interval
-cull, block retirement and compaction: traverse._cascade_traverse) and
-sweeps GROUP = 8 candidate clusters per block and iteration in ONE kernel
-launch. `block_anyhit` replaces the Pallas kernel of the same name: on a
+cull, block retirement and compaction: traverse._cascade_stages) and
+sweeps GROUP = 8 candidate clusters per block and iteration; on the card
+each stage of its loop is one launch of the fused stage kernel
+(accel.cuda_cascade.fused_stage), whose sweep is the body of
+block_anyhit's generic instance.
+`block_anyhit` replaces the Pallas kernel of the same name: on a
 CUDA tensor it launches csrc/fused_anyhit.cu (or raises), on a CPU tensor it
 runs `block_anyhit_plain`, the same function as eager torch ops. The kernel
 has tuned instances for S in {64, 128, 256} and T in {64, 128} (one warp
@@ -27,7 +30,7 @@ from typing import Optional
 import torch
 
 from path_tracer_ai_tpu_torch import cuda_build
-from path_tracer_ai_tpu_torch.accel import cuda_ctiles, traverse
+from path_tracer_ai_tpu_torch.accel import cuda_cascade, cuda_ctiles, traverse
 from path_tracer_ai_tpu_torch.accel.cuda_ctiles import (
     RAY_ROWS,
     SUB,
@@ -256,48 +259,39 @@ def any_hit_fused(accel, origins, directions, t_min, t_max,
     Exact per ray; accepts any wave size (pads with dead lanes that sort to
     the end and retire in the first compaction). sort=False skips the
     coherence sort and the unsort; the cull's live-masked bounds keep
-    interleaved dead lanes from widening the blocks. Each iteration sweeps
-    the ACTIVE blocks only, `kernel_chunk` blocks per launch. tri_pack:
-    pack_tris_dummy(accel), if the caller holds one. exact_cull=K: the
-    per-ray-exact cull (prepare_fused_wave), the same result."""
+    interleaved dead lanes from widening the blocks. Each stage of the
+    cascade (traverse._cascade_stages) is one call of
+    cuda_cascade.fused_stage: on the card one launch of the stage
+    kernel, whose sweep is block_anyhit's body, on the ACTIVE blocks of
+    each iteration; on the CPU its plain version, `kernel_chunk` blocks a
+    sweep. One host read at the end on the card: the candidate ids' range
+    check. tri_pack: pack_tris_dummy(accel), if the caller holds one.
+    exact_cull=K: the per-ray-exact cull (prepare_fused_wave), the same
+    result."""
     n0 = origins.shape[0]
     origins, directions, t_max, perm, n_cand, _entry, order_g = (
         prepare_fused_wave(accel, origins, directions, t_max, block_size,
                            sort, sort_mode, t_min, exact_cull))
     nb = n_cand.shape[0]
     n = nb * block_size
-    max_k = order_g.shape[1] - 1
     if tri_pack is None:
         tri_pack = pack_tris_dummy(accel)
     rays_pack = pack_rays_tiles(origins, directions, t_max, block_size,
                                 t_min=float(t_min))
+    err = cuda_cascade.new_error(origins.device)
 
-    def active_fn(k, blocks, carry):
-        # Dead lanes (t_max < 0, ray row 6) can never be occluded and count
-        # as resolved, or a mixed block would only retire by exhaustion.
-        rays_pk, nc = blocks[:2]
-        resolved = carry[0] | (rays_pk[:, 6, :] < 0.0)
-        return (k * GROUP < nc) & ~resolved.all(dim=1)
+    def stage(blocks, carry, k, threshold):
+        rays_pk, nc, ordg = blocks
+        return cuda_cascade.fused_stage(
+            tri_pack, rays_pk, ordg, nc, carry, k, threshold,
+            early_skip=early_skip, sub_skip=sub_skip,
+            kernel_chunk=kernel_chunk, err=err)
 
-    def sweep_update(k, blocks, carry, idx):
-        rays_pk, _nc, ordg = blocks
-        (occ,) = carry
-        cid8 = ordg[idx, min(k, max_k)]                    # [n_act, GROUP]
-        r_act = rays_pk[idx]
-        for lo in range(0, idx.numel(), kernel_chunk):
-            hi = lo + kernel_chunk
-            hit = block_anyhit(tri_pack, r_act[lo:hi],
-                               cid8[lo:hi].reshape(-1), early_skip=early_skip,
-                               sub_skip=sub_skip)
-            occ[idx[lo:hi]] |= hit  # in place: the carry is this call's own
-        return (occ,)
-
-    carry, blk_index = traverse._cascade_traverse(
+    carry, blk_index = traverse._cascade_stages(
         (rays_pack, n_cand, order_g),
         (torch.zeros((nb, block_size), dtype=torch.bool,
                      device=origins.device),),
-        sweep_update,
-        active_fn,
-    )
+        stage)
+    cuda_cascade.raise_bad_ids(err, tri_pack.shape[0] - 1)
     occluded = traverse._unpermute_blocks(carry[0], blk_index).reshape(n)
     return traverse._unsort(occluded, perm)[:n0]

@@ -21,8 +21,14 @@ whole-array gather, on the device. Neither reads the host (but the exact
 cull's live block count, `live_block_count`). On the CPU the stage runs
 its plain version, a host loop over tile_sweep's plain version.
 
-The perray queries (and the fused cascades of accel.cuda_anyhit and
-accel.cuda_closest) still step their loop on the host (`_cascade_traverse`:
+The fused cascades of accel.cuda_anyhit and accel.cuda_closest run the
+same static stages, each ONE call of accel.cuda_cascade.fused_stage
+(on the card one launch of the stage kernel with the fused folds, whose
+sweeps are block_anyhit's and block_closest's bodies); they read the host
+once a cascade, the candidate ids' range check. On the CPU their stage
+runs its plain version, `_stepped_stage` with the kernels' plain versions.
+
+The perray queries still step their loop on the host (`_cascade_traverse`:
 a host read an iteration), sweeping one launch an iteration: the per-ray
 K-slot kernel's first-slot instance (accel.cuda_kslots.kslot_sweep,
 tie="slot") for closest hits, its any-hit sweep for occlusion. In the
@@ -359,10 +365,30 @@ def _cascade_stages(block_arrays, carry, stage, min_blocks: int = 32):
     return full[n_in:n_in + n_carry], full[-1]
 
 
+def _stepped_stage(blocks, carry, k: int, threshold, sweep_update, active_fn,
+                   votes=None):
+    """One stage of a cascade stepped on the host, as one while_loop of the
+    reference: vote (active_fn), stop once at most `threshold` blocks are
+    active, else sweep (sweep_update) and k += 1. One host read a vote (the
+    active blocks' count). votes, if given, gains each vote's active count.
+    Returns (carry, k, act) at the final k."""
+    cur = list(carry)
+    while True:
+        act = active_fn(k, blocks, cur)
+        idx = torch.nonzero(act).squeeze(1)
+        sync.note()
+        if votes is not None:
+            votes.append(idx.numel())
+        if idx.numel() <= threshold:
+            return cur, k, act
+        cur = list(sweep_update(k, blocks, cur, idx))
+        k += 1
+
+
 def _cascade_traverse(block_arrays, carry, sweep_update, active_fn,
                       min_blocks: int = 32):
-    """_cascade_stages with each stage's loop stepped on the host: the
-    perray queries and the fused cascades.
+    """_cascade_stages with each stage's loop stepped on the host
+    (_stepped_stage): the perray queries.
 
     sweep_update(k, blocks, carry, idx) -> carry, where idx [n] i64 are the
     active blocks of the slice; active_fn(k, blocks, carry) -> [size] bool.
@@ -371,18 +397,11 @@ def _cascade_traverse(block_arrays, carry, sweep_update, active_fn,
     k_host = [0]
 
     def stage(blocks, carry_sl, k_dev, threshold):
-        k, cur = k_host[0], list(carry_sl)
-        while True:
-            act = active_fn(k, blocks, cur)
-            idx = torch.nonzero(act).squeeze(1)
-            sync.note()
-            if idx.numel() <= threshold:
-                break
-            cur = list(sweep_update(k, blocks, cur, idx))
-            k += 1
+        cur, k_host[0], act = _stepped_stage(blocks, carry_sl, k_host[0],
+                                             threshold, sweep_update,
+                                             active_fn)
         for dst, src in zip(carry_sl, cur):
             dst.copy_(src)
-        k_host[0] = k
         return carry_sl, k_dev, act
 
     return _cascade_stages(block_arrays, carry, stage, min_blocks)

@@ -41,6 +41,7 @@
 // with --fmad=false (see mt.cuh).
 
 #include "mt.cuh"
+#include "stage.cuh"
 
 #define GROUP 8
 #define PACK_ROWS 16
@@ -193,31 +194,20 @@ extern "C" int block_anyhit_occupancy(int s, int t_lanes, int* regs,
 // and gates (the box read from the pack's rows 10-15); a sub-slab that
 // passes them is staged (mt.cuh stage_chunk_warp, zeros past S) and swept by
 // anyhit_run<32>, the tuned instances' loop. The same bits.
-__global__ void __launch_bounds__(SWEEP_WARPS * 32, ANYHIT_MIN_BLOCKS)
-    block_anyhit_generic_kernel(const float* __restrict__ tri_pack,
-                                const float* __restrict__ rays,
-                                const int* __restrict__ cid8,
-                                unsigned char* __restrict__ occ_out, int size,
-                                int dummy, int early_skip, int sub_skip,
-                                int s, int t_lanes) {
-  __shared__ TriRec bufs[SWEEP_WARPS][CHUNK];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wpb = (t_lanes + 31) >> 5;  // warps per ray block
-  const int unit = blockIdx.x * SWEEP_WARPS + warp;
-  if (unit >= size * wpb) return;  // whole warps leave: no block barrier
-  const size_t blk = (size_t)(unit / wpb);
-  const int off = (unit % wpb) * 32 + lane;
-  TriRec* buf = bufs[warp];
+// The generic sweep body of one warp (32 lanes of a ray block) against a
+// block's GROUP candidates, lane j < GROUP holding candidate j in my_cid
+// (the others the dummy): each candidate walked sub-slab by sub-slab, a
+// sub-slab that passes the gates staged into buf (CHUNK TriRecs) and swept
+// by anyhit_run<CHUNK>; the lane's occlusion ORed with that of every
+// candidate. `occ` may come in true (the stage fold FusedAny starts from
+// its carry; an OR changes no bit). Shared by block_anyhit_generic_kernel
+// and FusedAny, so both run this code.
+__device__ __forceinline__ bool anyhit_group_generic(
+    TriRec* buf, const float* __restrict__ tri_pack, int s, int my_cid,
+    int dummy, const Ray& ray, float tmin, float tmax, bool dead, bool occ,
+    int early_skip, int sub_skip, int lane) {
   const int ns = (s + SUB - 1) / SUB;
-
-  float tmin, tmax;
-  const Ray ray =
-      load_lane(rays + blk * RAY_ROWS * t_lanes, t_lanes, off, &tmin, &tmax);
-  const bool dead = !(tmax >= tmin);  // can pass no test
   const float invx = 1.0f / ray.dx, invy = 1.0f / ray.dy, invz = 1.0f / ray.dz;
-  bool occ = false;
-
-  const int my_cid = lane < GROUP ? cid8[blk * GROUP + lane] : dummy;
   unsigned todo = __ballot_sync(
       FULL_MASK, lane < GROUP && !(early_skip && my_cid >= dummy));
   if (__all_sync(FULL_MASK, dead)) todo = 0u;
@@ -245,6 +235,32 @@ __global__ void __launch_bounds__(SWEEP_WARPS * 32, ANYHIT_MIN_BLOCKS)
       __syncwarp();  // every lane is done with the buffer
     }
   }
+  return occ;
+}
+
+__global__ void __launch_bounds__(SWEEP_WARPS * 32, ANYHIT_MIN_BLOCKS)
+    block_anyhit_generic_kernel(const float* __restrict__ tri_pack,
+                                const float* __restrict__ rays,
+                                const int* __restrict__ cid8,
+                                unsigned char* __restrict__ occ_out, int size,
+                                int dummy, int early_skip, int sub_skip,
+                                int s, int t_lanes) {
+  __shared__ TriRec bufs[SWEEP_WARPS][CHUNK];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wpb = (t_lanes + 31) >> 5;  // warps per ray block
+  const int unit = blockIdx.x * SWEEP_WARPS + warp;
+  if (unit >= size * wpb) return;  // whole warps leave: no block barrier
+  const size_t blk = (size_t)(unit / wpb);
+  const int off = (unit % wpb) * 32 + lane;
+
+  float tmin, tmax;
+  const Ray ray =
+      load_lane(rays + blk * RAY_ROWS * t_lanes, t_lanes, off, &tmin, &tmax);
+  const bool dead = !(tmax >= tmin);  // can pass no test
+  const int my_cid = lane < GROUP ? cid8[blk * GROUP + lane] : dummy;
+  const bool occ = anyhit_group_generic(bufs[warp], tri_pack, s, my_cid,
+                                        dummy, ray, tmin, tmax, dead, false,
+                                        early_skip, sub_skip, lane);
   if (off < t_lanes) occ_out[blk * t_lanes + off] = occ ? 1 : 0;
 }
 
@@ -263,4 +279,81 @@ extern "C" int block_anyhit_generic(const void* tri_pack, const void* rays,
       (const float*)tri_pack, (const float*)rays, (const int*)cid8,
       (unsigned char*)occ, size, dummy, early_skip, sub_skip, s, t_lanes);
   return (int)cudaGetLastError();
+}
+
+// ---- the fused any-hit cascade's stage: one stage as one launch ------------
+//
+// The fused shadow cascade's loop (any_hit_fused, traverse._cascade_stages)
+// runs each stage as one cooperative launch of stage.cuh's kernel with this
+// fold: the rule and sweep set of any hit (act = k g < n_cand & some lane
+// neither occluded nor dead), and as the sweep of a listed block's slot the
+// body of block_anyhit's generic instance, anyhit_group_generic, over its
+// group min(k, kgroups - 1) with the early_skip and sub_skip gates, from
+// the slot's carried occlusion. One warp a slot (W = 1); one instance, S
+// and T at run time: each warp stages only the sub-slabs its gates pass
+// into its own CHUNK TriRecs (an instance at (S 128, T 128) that staged
+// each candidate whole was 8-30% slower on every sweeping stage, PERF.md
+// §6). Candidate ids are read through stage_cid, which counts an id
+// outside [0, C] and sweeps the dummy in its place. The bits are those of
+// block_anyhit launched on the stage's active blocks once an iteration,
+// ORed into the carry.
+struct FusedAny {
+  static constexpr bool ANY = true;
+  template <int S>
+  __host__ __device__ static constexpr size_t warp_bytes() {
+    return (size_t)CHUNK * sizeof(TriRec);
+  }
+  template <int S, int T>
+  static __device__ __forceinline__ unsigned sweep(
+      const StageArgs& a, StageShared&, int b, int slot, int k, int, int,
+      int, int, int lane, unsigned char* buf) {
+    const int off = slot * 32 + lane;
+    const int my_cid = stage_cid(a, b, k, lane);
+    float tmin, tmax;
+    const Ray ray = load_lane(a.rays + (size_t)b * RAY_ROWS * a.t_lanes,
+                              a.t_lanes, off, &tmin, &tmax);
+    const bool in = off < a.t_lanes;
+    const size_t ci = (size_t)b * a.t_lanes + off;
+    const bool dead = !(tmax >= tmin);  // can pass no test
+    bool occ = in && __ldcg(a.occ + ci) != 0;
+    occ = anyhit_group_generic(reinterpret_cast<TriRec*>(buf), a.tri_pack,
+                               a.s, my_cid, a.n_clusters, ray, tmin, tmax,
+                               dead, occ, a.opts & STAGE_EARLY_SKIP,
+                               a.opts & STAGE_SUB_SKIP, lane);
+    if (in) a.occ[ci] = occ ? 1 : 0;
+    return __any_sync(FULL_MASK, !occ && !(tmax < 0.0f)) ? 1u : 0u;
+  }
+};
+
+// One stage of the fused any-hit cascade on `stream`, for any S, T >= 1:
+// tri_pack [C+1, 16, S] (dummy = C), rays [size, 8, T], order_g [size,
+// kgroups, 8], n_cand [size], occ [size, T] u8 (the carry), k_io [1], act
+// [size] u8; work: 14 + 4 size 32-bit words, the first 14 + 2 size zero;
+// err [3] i32 (0, INT32_MAX, INT32_MIN before the cascade's first stage).
+// Returns the cudaError_t of the launch (0 = ok).
+extern "C" int fused_stage_any(const void* tri_pack, const void* rays,
+                               const void* order_g, const void* n_cand,
+                               void* occ, void* k_io, void* act, void* work,
+                               void* err, int size, int kgroups, int s,
+                               int t_lanes, int dummy, int threshold,
+                               int early_skip, int sub_skip, void* stream) {
+  if (size <= 0) return 0;
+  if (kgroups < 1 || s < 1 || t_lanes < 1) return (int)cudaErrorInvalidValue;
+  unsigned* words = (unsigned*)work;
+  const StageArgs a{(const float*)tri_pack, (const float*)rays,
+                    (const int*)order_g, (const int*)n_cand, nullptr,
+                    (unsigned char*)occ, nullptr, nullptr, (int*)k_io,
+                    (unsigned char*)act, (unsigned long long*)words,
+                    words + STAGE_SYNC_WORDS, words + STAGE_SYNC_WORDS + size,
+                    (int*)(words + STAGE_SYNC_WORDS + 2 * (size_t)size),
+                    size, kgroups, GROUP, s, t_lanes, dummy, 0, threshold, 1,
+                    (early_skip ? STAGE_EARLY_SKIP : 0) |
+                        (sub_skip ? STAGE_SUB_SKIP : 0),
+                    (int*)err};
+  return launch_stage<FusedAny, 0, 0>(a, (cudaStream_t)stream);
+}
+
+// Registers per thread and resident warps per SM of the stage fold.
+extern "C" int fused_stage_any_occupancy(int* regs, int* warps_per_sm) {
+  return stage_occupancy<FusedAny, 0, 0>(regs, warps_per_sm);
 }

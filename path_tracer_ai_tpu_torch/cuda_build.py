@@ -51,6 +51,18 @@ def sources() -> list:
     return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
 
 
+def header_float(name: str, header: str = "mt.cuh") -> float:
+    """The value of `#define <name> <hex float>f` in csrc/<header>: a
+    constant that the kernels and their plain versions share, defined once,
+    in the kernels' header."""
+    with open(os.path.join(CSRC_DIR, header)) as fh:
+        for line in fh:
+            parts = line.split()
+            if parts[:2] == ["#define", name]:
+                return float.fromhex(parts[2].rstrip("f"))
+    raise KeyError(f"{name} is not defined in csrc/{header}")
+
+
 def nvcc_path() -> str:
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):

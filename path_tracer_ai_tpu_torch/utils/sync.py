@@ -8,11 +8,13 @@ by call site (`sites`: "module:line" of the caller -> reads).
 
 The packet cascades' while_loop (any_hit_packets, closest_hit_packets)
 runs on the card, in the cascade stage kernel (accel.cuda_cascade): they
-read nothing back (but the exact cull's live block count). Still read on
-the host: the bounce loop's live counts and the counters, ctiles' n_live /
-n_slots, the worklist's and kslots' table sizes, and the host-stepped
-loops of traverse._cascade_traverse (the perray queries, the fused
-cascades), one read a vote.
+read nothing back (but the exact cull's live block count). So does the
+fused cascades' (any_hit_fused, closest_hit_fused; the same module),
+which reads one value a cascade: the candidate ids' range check. Still read
+on the host: the bounce loop's live counts and the counters, ctiles'
+n_live / n_slots, the worklist's and kslots' table sizes, and the
+host-stepped loop of traverse._cascade_traverse (the perray queries), one
+read a vote.
 
 `lock` guards these counts and the port's other module-level counts (the
 kernel wrappers' launches, the overflow counts): the mesh's workers

@@ -1,14 +1,15 @@
-"""Writes tests/data/jax_reference.npz and
-tests/data/jax_reference_dielectric.npz: the JAX package's renders of two
+"""Writes tests/data/jax_reference.npz,
+tests/data/jax_reference_dielectric.npz and
+tests/data/jax_reference_cornell.npz: the JAX package's renders of three
 small frames, which the port is held against on the CPU
-(tests/test_torch_reference.py, tests/test_torch_reference_dielectric.py)
-and on the card (chip_smoke.py's `reference` phase, which reads the files
-without JAX).
+(tests/test_torch_reference.py, tests/test_torch_reference_dielectric.py,
+tests/test_torch_reference_cornell.py) and on the card (chip_smoke.py's
+`reference` phase, which reads the files without JAX).
 
     JAX_PLATFORMS=cpu python scripts/torch_make_reference.py \
-        [--frame room|dielectric] [--out PATH]
+        [--frame room|dielectric|cornell] [--out PATH]
 
-Without --frame it writes both. "room": the procedural blob (subdivision
+Without --frame it writes all three. "room": the procedural blob (subdivision
 3, seed 7) in the room with the default lights and materials, seen by the
 default camera; 48x27, 2 spp, 5 bounces, seed 0, once with Russian
 roulette off (rr_start 0) and once from bounce 2. "dielectric": the JAX
@@ -19,7 +20,12 @@ package's `dielectric` benchmark configuration's scene
 names no transparency, and the loader makes a material glass only by name,
 `illum 7` or `d` < 1 (scene/scene.py _convert_mtl_material), so as written
 its blob stays specular; the frame adds `illum 7` to that MTL, which makes
-the blob glass of IOR 1.45. A file holds, for each rr_start: JAX's
+the blob glass of IOR 1.45. "cornell": the JAX package's `cornell`
+benchmark configuration's scene and camera (path_tracer_ai_tpu/
+benchmarks.py, scene/cornell.py `build_cornell_scene`: a 2-unit box of
+axis-aligned quads with two white boxes inside, one point light); 48x27, 2
+spp, 5 bounces, seed 0, rr_start 0 (its file stores subdivisions 0: no
+blob). A file holds, for each rr_start: JAX's
 `oracle.render` and
 `wavefront.render` (its default backend) images, and the port's on the CPU
 through the oracle and the main path (`image_jax_oracle_rr0`,
@@ -53,6 +59,10 @@ FRAMES = {
         os.path.join(ROOT, "tests", "data", "jax_reference_dielectric.npz"),
         dict(width=48, height=27, spp=2, bounces=8, seed=0, subdivisions=3,
              rr_starts=(0,))),
+    "cornell": (
+        os.path.join(ROOT, "tests", "data", "jax_reference_cornell.npz"),
+        dict(width=48, height=27, spp=2, bounces=5, seed=0, subdivisions=0,
+             rr_starts=(0,))),
 }
 
 
@@ -60,6 +70,10 @@ def jax_scene(frame: str, subdivisions: int):
     """JAX's scene and camera of a frame."""
     from path_tracer_ai_tpu.scene.camera import default_camera
 
+    if frame == "cornell":
+        from path_tracer_ai_tpu.scene.cornell import build_cornell_scene
+
+        return build_cornell_scene()
     if frame == "dielectric":
         import tempfile
 

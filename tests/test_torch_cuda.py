@@ -580,10 +580,17 @@ def test_fused_and_pallas_renders_on_gpu(cuda, monkeypatch):
         engine="packets_fused", early_skip=True, sub_skip=True))
     monkeypatch.setattr(wavefront, "HYBRID_CLOSEST_KW",
                         dict(engine="cascade_fused"))
-    before = (cuda_anyhit.launches, cuda_closest.launches)
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade
+
+    # the fused cascades' stages launch the stage kernel's fused folds,
+    # whose sweeps are block_anyhit's and block_closest's bodies; the
+    # standalone kernels are not launched
+    folds = cuda_cascade.FUSED_NAMES.values()
+    before = ({k: cuda_cascade.launches[k] for k in folds},
+              cuda_anyhit.launches, cuda_closest.launches)
     img_f = wavefront.render(scene, cam, s, wave_size=1 << 11, device=cuda)
-    assert cuda_anyhit.launches > before[0]
-    assert cuda_closest.launches > before[1]
+    assert all(cuda_cascade.launches[k] > before[0][k] for k in folds)
+    assert (cuda_anyhit.launches, cuda_closest.launches) == before[1:]
     np.testing.assert_array_equal(img_f, img_o)
 
 
@@ -716,7 +723,7 @@ def test_worklist_pairs_packets_renders_on_gpu(cuda, backend):
         assert cuda_ctiles.launches > before[1]
     else:
         assert all(cuda_cascade.launches[k] > before[2][k]
-                   for k in cuda_cascade.launches)
+                   for k in cuda_cascade.NAMES.values())
     np.testing.assert_array_equal(img, oracle.render(scene, cam, s,
                                                      device=cuda))
 
@@ -1647,3 +1654,205 @@ def test_packet_cascades_read_no_host_value(cuda, rng, monkeypatch, query,
     else:
         assert torch.equal(got, want)
         assert 0 < got.float().mean() < 1
+
+
+# --- the fused cascades' stage: their loop on the card ---------------------
+
+def _fused_case_run(stage, case, closest, dev, **kw):
+    """The crafted fused cascade through traverse._cascade_stages with
+    `stage` (cuda_cascade.fused_stage or a plain version): (carry,
+    blk_index, [(k out, act)] a stage)."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade, traverse
+    from path_tracer_ai_tpu_torch.convert import accel_from_numpy
+
+    t = lambda a: torch.as_tensor(a, device=dev)
+    bb = np.zeros((1, 3), np.float32)
+    acc = accel_from_numpy(case["bmin"], case["bmax"], case["v0"],
+                           case["e1"], case["e2"], case["tri_id"], bb[0],
+                           bb[0], bb, bb, bb[None], bb[None], device=dev)
+    pack = cuda_anyhit.pack_tris_dummy(acc)
+    nb, t_lanes = case["tm"].shape
+    blocks = (t(case["rays"]), t(case["n_cand"]))
+    if closest:
+        blocks += (t(case["entry"]), t(case["order_g"]))
+        carry = (torch.full((nb, t_lanes), np.inf, device=dev),
+                 torch.full((nb, t_lanes), cuda_ctiles.I32_MAX,
+                            dtype=torch.int32, device=dev))
+    else:
+        blocks += (t(case["order_g"]),)
+        carry = (torch.zeros((nb, t_lanes), dtype=torch.bool, device=dev),)
+    err = cuda_cascade.new_error(dev)
+    stages = []
+
+    def run(b, c, k, thr):
+        extra = {"entry": b[2]} if closest else {}
+        out = stage(pack, b[0], b[-1], b[1], c, k, thr, err=err, **extra,
+                    **kw)
+        stages.append((int(out[1]), out[2].clone(),
+                       tuple(x.clone() for x in out[0])))
+        return out
+
+    carry, blk = traverse._cascade_stages(blocks, carry, run)
+    cuda_cascade.raise_bad_ids(err, pack.shape[0] - 1)
+    return carry, blk, stages
+
+
+def _same_fused(got, want):
+    for x, y in zip(got[0], want[0]):
+        assert torch.equal(_bits(x) if x.dtype == torch.float32 else x,
+                           _bits(y) if y.dtype == torch.float32 else y)
+    assert torch.equal(got[1], want[1])
+    assert len(got[2]) == len(want[2])
+    for a, b in zip(got[2], want[2]):
+        assert a[0] == b[0] and torch.equal(a[1], b[1])
+        for x, y in zip(a[2], b[2]):
+            assert torch.equal(_bits(x) if x.dtype == torch.float32 else x,
+                               _bits(y) if y.dtype == torch.float32 else y)
+
+
+FUSED_STAGE_OPTIONS = {False: [dict(), dict(early_skip=True, sub_skip=True),
+                               dict(early_skip=True), dict(sub_skip=True)],
+                       True: [dict(), dict(sub_skip=False)]}
+
+
+@pytest.mark.parametrize("closest", [False, True])
+@pytest.mark.parametrize("t_lanes", cases.FUSED_T)
+@pytest.mark.parametrize("s", [16, 128])
+@pytest.mark.parametrize("name", cases.FUSED_CASES)
+def test_fused_stage_matches_plain(cuda, name, s, t_lanes, closest):
+    """The fused stage kernel (one instance, S and T at run time) on the
+    crafted fused cascades, through traverse._cascade_stages: at every
+    stage carry, k and act bit for bit those of the plain version (eager
+    sweeps) and of the host-stepped loop (block_anyhit / block_closest
+    launched on the card once an iteration); one launch a stage."""
+    from functools import partial
+
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade
+
+    case = cases.fused_cascade_case(name, s, t_lanes)
+    plain = (cuda_closest.block_closest_plain if closest
+             else cuda_anyhit.block_anyhit_plain)
+    name_k = cuda_cascade.FUSED_NAMES[not closest]
+    for kw in FUSED_STAGE_OPTIONS[closest]:
+        eager = _fused_case_run(partial(
+            cuda_cascade.fused_stage_plain,
+            sweep=lambda *a, **k: plain(*a, **k)), case, closest, cuda, **kw)
+        stepped = _fused_case_run(cuda_cascade.fused_stage_plain, case,
+                                  closest, cuda, **kw)
+        _same_fused(stepped, eager)
+        cuda_cascade.reset_launches()
+        got = _fused_case_run(cuda_cascade.fused_stage, case, closest, cuda,
+                              **kw)
+        torch.cuda.synchronize()
+        assert cuda_cascade.launches[name_k] == len(got[2])
+        assert set(cuda_cascade.launch_shapes) == {
+            (name_k, t_lanes, s, 8, 1, "generic")}
+        _same_fused(got, eager)
+
+
+@pytest.mark.parametrize("closest", [False, True])
+def test_fused_stage_bad_id_raises(cuda, closest):
+    """An id outside [0, C] in a swept group: the cascade raises
+    ValueError once it is done, and a stage called on the card without
+    the cascade's error words raises at once."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade
+
+    for s, t_lanes in ((128, 128), (16, 64)):
+        case = cases.fused_cascade_case("small_nb", s, t_lanes, bad_id=True)
+        with pytest.raises(ValueError, match=r"outside \[0, 13\]"):
+            _fused_case_run(cuda_cascade.fused_stage, case, closest, cuda)
+
+    def no_err(*a, err=None, **kw):
+        return cuda_cascade.fused_stage(*a, **kw)
+
+    with pytest.raises(ValueError, match="needs err"):
+        _fused_case_run(no_err, case, closest, cuda)
+
+
+@pytest.mark.parametrize("s", [32, 64, 128])
+def test_closest_gate_keeps_a_corner_hit_on_the_card(cuda, s):
+    """block_closest on the crafted corner ray (gate_corner_case: its hit
+    lies past its box's f32 slab entry by more than 2^-16 of t), tuned (S
+    64, 128) and generic: with sub_skip the bits of the plain version,
+    which votes over the block, and of the ungated sweep; lane 0 gets the
+    triangle."""
+    from contextlib import nullcontext
+
+    from path_tracer_ai_tpu_torch.convert import accel_from_numpy
+
+    case = cases.gate_corner_case(64, s)
+    bb = np.zeros((1, 3), np.float32)
+    acc = accel_from_numpy(case["bmin"], case["bmax"], case["v0"],
+                           case["e1"], case["e2"], case["tri_id"], bb[0],
+                           bb[0], bb, bb, bb[None], bb[None], device=cuda)
+    pack = cuda_anyhit.pack_tris_dummy(acc)
+    rays = torch.as_tensor(case["rays"], device=cuda)
+    cid8 = torch.as_tensor(case["cid8"], device=cuda)
+    want = cuda_closest.block_closest_plain(pack, rays, cid8, True)
+    ungated = cuda_closest.block_closest_plain(pack, rays, cid8, False)
+    assert int(want[1][0, 0]) == 7
+    for forced in (False, True):
+        with generic_instances() if forced else nullcontext():
+            got = cuda_closest.block_closest(pack, rays, cid8, sub_skip=True)
+        for w in (want, ungated):
+            assert torch.equal(got[1], w[1])
+            assert torch.equal(_bits(got[0]), _bits(w[0]))
+
+
+@pytest.mark.parametrize("query", ["any", "any_skips", "any_exact",
+                                   "closest", "closest_unsorted",
+                                   "closest_exact"])
+def test_fused_cascades_read_one_host_value(cuda, rng, monkeypatch, query):
+    """any_hit_fused and closest_hit_fused on a bounce wave of the blob
+    accel (S 128, blocks of 128): the stage kernel's
+    results are the host-stepped loop's bits (fused_stage_plain sweeping
+    through block_anyhit / block_closest, one launch an iteration), and
+    the cascade reads one value back to the host, the candidate ids'
+    range check (and the exact cull's live block count)."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade
+    from path_tracer_ai_tpu_torch.utils import sync
+
+    acc = _accel(cuda)
+    o, d, tm = _bounce_wave(acc, 1 << 15, rng)
+    kw = {"any": {}, "any_skips": dict(early_skip=True, sub_skip=True),
+          "any_exact": dict(exact_cull=16), "closest": {},
+          "closest_unsorted": dict(sort=False),
+          "closest_exact": dict(exact_cull=16)}[query]
+    fn = (cuda_closest.closest_hit_fused if query.startswith("closest")
+          else cuda_anyhit.any_hit_fused)
+    torch.cuda.synchronize()
+    reads = sync.count
+    fused = lambda: sum(cuda_cascade.launches[k]
+                        for k in cuda_cascade.FUSED_NAMES.values())
+    before = fused()
+    got = fn(acc, o, d, 1e-3, tm, **kw)
+    torch.cuda.synchronize()
+    assert sync.count - reads == 1 + ("exact_cull" in kw)
+    assert fused() > before
+    monkeypatch.setattr(cuda_cascade, "fused_stage",
+                        cuda_cascade.fused_stage_plain)
+    launched = cuda_anyhit.launches + cuda_closest.launches
+    want = fn(acc, o, d, 1e-3, tm, **kw)
+    assert cuda_anyhit.launches + cuda_closest.launches > launched
+    if query.startswith("closest"):
+        assert torch.equal(_bits(got.t), _bits(want.t))
+        assert torch.equal(got.tri, want.tri)
+        assert got.hit.any()
+    else:
+        assert torch.equal(got, want)
+        assert 0 < got.float().mean() < 1
+
+
+def test_fused_closest_sweep_set_on_the_card(cuda):
+    """The crafted scene on which the sweep set decides an exact tie: the
+    card takes the copy's smaller id, as the CPU and brute force do."""
+    from path_tracer_ai_tpu_torch.convert import accel_from_numpy
+
+    sc = cases.fused_tie_scene()
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    acc = accel_from_numpy(*sc["accel"], device=cuda)
+    got = cuda_closest.closest_hit_fused(acc, t(sc["o"]), t(sc["d"]),
+                                         sc["t_min"], t(sc["tm"]),
+                                         sort=False)
+    assert int(got.tri[0]) == 10 and float(got.t[0]) == float(sc["t"])
+    assert not bool(got.hit[128])

@@ -529,3 +529,237 @@ def split_case(name: str, s: int, t_lanes: int, g: int,
             "order_g": np.ascontiguousarray(order.reshape(nb, k_groups, g)),
             "n_cand": np.full(nb, SPLIT_C, np.int32),
             "entry": np.ascontiguousarray(entry)}
+
+
+# --- the fused cascade cases: the fused cascades' stage ---------------------
+
+FUSED_CASES = ("half_active", "small_nb", "no_candidates", "all_dead",
+               "carried_k", "retired_face", "later_tie", "retired_tie",
+               "signed_zero_tie")
+FUSED_T = (64, 128)  # lanes a block
+FUSED_G = 8          # clusters a group: the fused kernels' GROUP
+FUSED_C = CASCADE_C + 1
+
+
+def fused_clusters(s: int) -> dict:
+    """cascade_clusters' CASCADE_C clusters and cluster 12, cluster 0 again
+    with smaller ids (j where cluster 0 has 100 + j): an exact t tie that
+    the smaller id wins, in a later group. Also the clusters' boxes bmin,
+    bmax [C, 3] (of the vertices v0, v0 + e1, v0 + e2)."""
+    geo = cascade_clusters(s)
+    for k in ("v0", "e1", "e2"):
+        geo[k] = np.concatenate([geo[k], geo[k][:1]])
+    geo["tri_id"] = np.concatenate(
+        [geo["tri_id"], np.arange(s, dtype=np.int32)[None]])
+    verts = np.concatenate([geo["v0"], geo["v0"] + geo["e1"],
+                            geo["v0"] + geo["e2"]], axis=1)
+    geo["bmin"] = verts.min(axis=1).astype(np.float32)
+    geo["bmax"] = verts.max(axis=1).astype(np.float32)
+    return geo
+
+
+def _tie_case(name: str, s: int, t_lanes: int, rng) -> dict:
+    """40 blocks (one stage, the last) aimed through cluster 0's triangles
+    (t_max inf). later_tie: every block sweeps [0, seven far clusters] and
+    then [12] (cluster 0 with smaller ids, entry 2.94, under every hit):
+    the lexicographic fold must take the smaller id at an equal t from a
+    later group. retired_tie: the even blocks give cluster 12 the entry 3.9,
+    past their hits, so the entry rule retires them after group 0 while the
+    odd ones go on: the fused closest fold's sweep set (every block with k 8
+    < n_cand) still sweeps them and takes the smaller id, the active blocks
+    alone would not. signed_zero_tie: t_min 0, rays from the plane z = 1,
+    cluster 10 (t +0.0) in group 0 and cluster 0 (t -0.0, smaller ids) in
+    group 1, or the other way round by block."""
+    nb = 40
+    n = nb * t_lanes
+    z0 = 1.0 if name == "signed_zero_tie" else -2.0
+    o, d = _aimed_rays(rng, n, s, z0)
+    tm = np.full((nb, t_lanes), np.inf, np.float32)
+    t_min = 0.0 if name == "signed_zero_tie" else T_MIN
+    far = [int(c) for c in range(1, 8)]
+    orders, entries = [], []
+    for b in range(nb):
+        if name == "signed_zero_tie":
+            first, second = (10, 0) if b % 2 else (0, 10)
+            ent = [0.0] * 8 + [0.0]
+        else:
+            first, second = 0, 12
+            late = 3.9 if name == "retired_tie" and b % 2 == 0 else 2.94
+            ent = [2.94] + [_cascade_z(c) + 1.94 for c in far] + [late]
+        orders.append([first] + far + [second] + [FUSED_C] * 7)
+        entries.append(ent + [np.inf] * 7)
+    return {"o": o.reshape(nb, t_lanes, 3), "d": d.reshape(nb, t_lanes, 3),
+            "tm": tm, "t_min": t_min, "order": np.asarray(orders, np.int32),
+            "n_cand": np.full(nb, 9, np.int32),
+            "entry": np.asarray(entries, np.float32)}
+
+
+def fused_cascade_case(name: str, s: int, t_lanes: int, seed: int = 0,
+                       bad_id: bool = False) -> dict:
+    """One crafted fused cascade in the layout of the fused cascades
+    (cuda_cascade.fused_stage): fused_clusters' geometry (C = 13, the dummy
+    is cluster 13), block rays o, d [nb, T, 3], tm [nb, T], t_min, rays [nb,
+    8, T], order_g [nb, K, 8] i32 with every slot past a block's n_cand
+    pointing at the dummy (prepare_fused_wave's padding), n_cand [nb] and
+    entry [nb, K 8] f32. The first six cases are cascade_case's at g = 8;
+    later_tie, retired_tie and signed_zero_tie are _tie_case's. bad_id: one
+    slot of a swept group holds the id C + 2, outside [0, C]."""
+    geo = fused_clusters(s)
+    if name in CASCADE_CASES:
+        case = cascade_case(name, s, t_lanes, FUSED_G, seed)
+        nb = case["n_cand"].shape[0]
+        order = case["order_g"].reshape(nb, -1)
+        cols = np.arange(order.shape[1])
+        order = np.where(cols[None] < case["n_cand"][:, None], order,
+                         FUSED_C).astype(np.int32)
+        case = {k: case[k] for k in ("o", "d", "tm", "t_min", "n_cand",
+                                     "entry")}
+        case["order"] = order
+    else:
+        rng = np.random.default_rng([seed, s, t_lanes,
+                                     600 + FUSED_CASES.index(name)])
+        case = _tie_case(name, s, t_lanes, rng)
+    order = case.pop("order")
+    nb = order.shape[0]
+    if bad_id:
+        live = np.flatnonzero(case["n_cand"] > 0)
+        order[live[len(live) // 2], 0] = FUSED_C + 2
+    tm = case["tm"]
+    rays = np.concatenate([case["o"].transpose(0, 2, 1),
+                           case["d"].transpose(0, 2, 1), tm[:, None],
+                           np.full_like(tm, case["t_min"])[:, None]], 1)
+    return {**geo, **case, "rays": np.ascontiguousarray(rays, np.float32),
+            "order_g": np.ascontiguousarray(order.reshape(nb, -1, FUSED_G)),
+            "entry": np.ascontiguousarray(case["entry"], np.float32)}
+
+
+# --- a scene whose cull entry is not conservative in f32 --------------------
+
+TIE_SCENE_S = 16
+TIE_SCENE_Z = 8.5  # the plane of the tied triangles
+
+
+def fused_tie_scene(seed: int = 0) -> dict:
+    """A scene on which the fused closest cascade's sweep set decides an
+    exact tie, with the port's own cull. Nine clusters of TIE_SCENE_S
+    slots (padding: zero triangles, id -1), each box the bounds of its
+    triangles: cluster 0 one triangle X over half the unit square in the
+    plane z = TIE_SCENE_Z (id 50), clusters 1-7 two tiny triangles at
+    opposite corners of the unit square in the plane z = c (their boxes
+    the unit square), cluster 8 X again with id 10. A wave of 256 rays,
+    all dead but lane 0 (block 0), which meets X and its copy at the same
+    t, and lane 128 (block 1), which crosses every box and meets nothing.
+    Lane 0's direction is drawn until the Möller–Trumbore t of X (f =
+    1 / det, t = f (o - v0)_z) falls below the slab entry of X's box
+    ((z - o_z) / d_z, the interval cull's): then cluster 8, in block 0's
+    second group, has an entry past block 0's best hit, the entry rule
+    retires block 0 after its first group while block 1 goes on, and only
+    a sweep set that keeps every block with k 8 < n_cand (the JAX
+    package's) finds the copy's smaller id. Returns the accel's arrays
+    (bmin, bmax, v0, e1, e2, tri_id, scene_min, scene_max, sbmin, sbmax,
+    cbmin, cbmax), origins, directions, t_max, t_min, and the tie's t."""
+    rng = np.random.default_rng([seed, 17])
+    f32 = np.float32
+    s, c_n, zx = TIE_SCENE_S, 9, f32(TIE_SCENE_Z)
+    v0 = np.zeros((c_n, s, 3), f32)
+    e1 = np.zeros_like(v0)
+    e2 = np.zeros_like(v0)
+    tri_id = np.full((c_n, s), -1, np.int32)
+    for c in (0, 8):
+        v0[c, 0] = (0.0, 0.0, zx)
+        e1[c, 0] = (1.0, 0.0, 0.0)
+        e2[c, 0] = (0.0, 1.0, 0.0)
+    tri_id[0, 0], tri_id[8, 0] = 50, 10
+    for c in range(1, 8):
+        v0[c, 0] = (0.0, 0.0, c)
+        e1[c, 0] = (0.05, 0.0, 0.0)
+        e2[c, 0] = (0.0, 0.05, 0.0)
+        v0[c, 1] = (1.0, 1.0, c)
+        e1[c, 1] = (-0.05, 0.0, 0.0)
+        e2[c, 1] = (0.0, -0.05, 0.0)
+        tri_id[c, :2] = (100 + 2 * c, 101 + 2 * c)
+    real = tri_id >= 0
+    verts = np.concatenate([v0, v0 + e1, v0 + e2], axis=1)
+    mask = np.concatenate([real] * 3, axis=1)[..., None]
+    bmin = np.where(mask, verts, np.inf).min(axis=1).astype(f32)
+    bmax = np.where(mask, verts, -np.inf).max(axis=1).astype(f32)
+    while True:
+        d = rng.normal(size=3) * np.asarray([0.02, 0.02, 1.0])
+        d[2] = abs(d[2])
+        d = (d / np.linalg.norm(d)).astype(f32)
+        oz = f32(rng.uniform(0.2, 0.8))
+        t = f32(f32(f32(1.0) / f32(-d[2])) * f32(oz - zx))
+        entry = f32(f32(zx - oz) / d[2])
+        if t < entry:
+            break
+    n = 256
+    o = np.zeros((n, 3), f32)
+    dirs = np.tile(np.asarray([0.0, 0.0, 1.0], f32), (n, 1))
+    o[0] = (f32(0.3) - t * d[0], f32(0.3) - t * d[1], oz)
+    dirs[0] = d
+    o[128] = (0.7, 0.7, oz)
+    dirs[128] = d
+    tm = np.full(n, -1.0, f32)
+    tm[[0, 128]] = np.inf
+    lo, hi = bmin.min(axis=0), bmax.max(axis=0)
+    arrays = (bmin, bmax, v0, e1, e2, tri_id, lo, hi, lo[None], hi[None],
+              bmin[None], bmax[None])
+    return {"accel": arrays, "o": o, "d": dirs, "tm": tm, "t_min": T_MIN,
+            "t": t}
+
+
+# One triangle and a ray that meets it exactly at its vertex v0, a corner
+# of its box, after t = GATE_T: found by a search of random triangles in
+# [-1, 1]^3 and rays of t in [0.001, 0.1] that end on a vertex. The ray
+# passes the corner within rounding of it, and with the window's end at the
+# test's own t its f32 slab entry lies past t by more than 2^-16 of t, so a
+# gate on the box itself, or on its end widened by 2^-16 of itself, skips
+# the hit; the box grown by a few hundred ulps of its coordinates
+# (cuda_closest.gate_lanes) does not.
+_hex = float.fromhex
+GATE_V = tuple(tuple(map(_hex, v)) for v in (
+    ("-0x1.6e0eecp-7", "-0x1.6cf0f6p-9", "-0x1.e7f9p-1"),
+    ("-0x1.e1030ap-2", "-0x1.d7974ap-1", "-0x1.e9832ep-2"),
+    ("-0x1.524058p-1", "0x1.c28252p-1", "-0x1.1fed48p-1")))
+GATE_O = tuple(map(_hex, ("-0x1.1736c4p-5", "-0x1.755258p-5",
+                          "-0x1.02b92ep+0")))
+GATE_D = tuple(map(_hex, ("0x1.379936p-2", "0x1.22f128p-1",
+                          "0x1.877002p-1")))
+GATE_T = _hex("0x1.346a98p-4")
+GATE_S = 32  # one sub-slab
+
+
+def gate_corner_case(t_lanes: int = 64, s: int = GATE_S) -> dict:
+    """One cluster of s slots (the triangle, id 7, then zero triangles, id
+    -1) and one block of t_lanes lanes for block_closest:
+    lane 0 the corner ray, its window ending at GATE_T, as a running best
+    of that t would end it (an exact tie there must be found); lane 32 a ray
+    through the box's centre (its own gate passes, so a vote over the whole
+    block sweeps the sub-slab); the others dead. Returns the accel's
+    arrays (bmin, bmax, v0, e1, e2, tri_id), rays [1, 8, t_lanes] and cid8
+    [8] (cluster 0, then the dummy, id 1)."""
+    f32 = np.float32
+    p = np.asarray(GATE_V, f32)
+    v0 = np.zeros((1, s, 3), f32)
+    e1 = np.zeros_like(v0)
+    e2 = np.zeros_like(v0)
+    v0[0, 0], e1[0, 0], e2[0, 0] = p[0], p[1] - p[0], p[2] - p[0]
+    tri_id = np.full((1, s), -1, np.int32)
+    tri_id[0, 0] = 7
+    verts = np.stack([v0[0, 0], v0[0, 0] + e1[0, 0], v0[0, 0] + e2[0, 0]])
+    bmin = verts.min(axis=0)[None].astype(f32)
+    bmax = verts.max(axis=0)[None].astype(f32)
+    rays = np.zeros((1, 8, t_lanes), f32)
+    rays[0, 5] = 1.0
+    rays[0, 6] = -1.0
+    rays[0, 7] = T_MIN
+    rays[0, 0:3, 0] = GATE_O
+    rays[0, 3:6, 0] = GATE_D
+    rays[0, 6, 0] = GATE_T
+    centre = (bmin[0] + bmax[0]) / 2
+    rays[0, 0:3, 32] = centre - np.asarray([0.0, 0.0, 4.0], f32)
+    rays[0, 6, 32] = np.inf
+    cid8 = np.ones(8, np.int32)
+    cid8[0] = 0
+    return {"bmin": bmin, "bmax": bmax, "v0": v0, "e1": e1, "e2": e2,
+            "tri_id": tri_id, "rays": rays, "cid8": cid8}
