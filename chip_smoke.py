@@ -172,7 +172,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   render stopped at a checkpoint and resumed to 2 spp
                   equals the uninterrupted render bitwise; `-m cpu` and
                   `-m gpu` on a blob subdiv 4 OBJ (96x54, 2 spp, 3 bounces)
-                  write equal PNGs.
+                  write equal PNGs; `--backend worklist`, `kslots` (each
+                  the `-m cpu` PNG) and `perray` (its perray folds must
+                  launch; its PNG beside the `-m cpu` one, recorded) at
+                  96x54 on the blob subdiv 6 OBJ.
   7. item_waves   the worklist scene (blob subdiv 7 + room: 327,688
                   triangles, 2,561 clusters of 128 in 161 supers, so the
                   2-level cull runs) rendered once at the bench settings
@@ -256,9 +259,27 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   and at the bench cell if 16 x that predicts under 60 s:
                   seconds, host syncs; the image at atol 1e-5 against the
                   main path at the size it ran and against the oracle at
-                  96x54, differing pixels counted; kslot_sweep's first-slot
-                  instance (closest) and its any-hit sweep must both
-                  launch.
+                  96x54, differing pixels counted; the stage kernel's
+                  perray folds (perray_stage_first, perray_stage_any) must
+                  both launch; host reads by site (line path_perray_reads:
+                  the overflow counts, one a perray call, the stage loop's,
+                  which must be 0, and the bounce loop's).
+  14b. perray_cascade_loop the perray queries' loop on the card: two
+                  calls kept from the perray bench render (wave 0, bounce
+                  1: the first 2^16 rays of the closest call and the shadow
+                  call after it; the render stops once it has them), each
+                  split by stage (lines perray_cascade_stages): size,
+                  threshold, k in and out, active rays at the first and
+                  last vote, needed tests (kslot_sweep_plain's), bound, the
+                  host-stepped loop's ms (perray_stage_plain sweeping
+                  through kslot_sweep, the loop before the stage kernel),
+                  the stage kernel's ms (its only instance, generic), bit
+                  for bit the host-stepped loop and the plain version
+                  (eager sweeps);
+                  each call whole through the host-stepped loop and the
+                  stage kernel in turns (before, after, after, before):
+                  the same bits and final k, device seconds, host reads,
+                  device kernels (lines perray_cascade_loop).
   15. path_kslots the kslots backend (per-ray K slots: kslots' cull, one
                   kslot_sweep launch a query, overflow through pair tiles)
                   warm at 96x54 (bitwise the oracle), at 480x270, and at
@@ -290,8 +311,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   sweeps); tile_sweep's first-slot instance
                   on the first iteration of those two closest cascades run
                   host-stepped, and kslot_sweep's on closest_hit_perray's
-                  first launch (2^16 bounce rays, K 4): bitwise, timed,
-                  bounded; the main path's two kept shadow calls (wave 0,
+                  first launch run host-stepped (2^16 bounce rays, K 4):
+                  bitwise, timed, bounded; the main path's two kept shadow calls (wave 0,
                   bounces 0 and 1, kept by a render that stops once it
                   has them) and the worklist's and kslots render's kept
                   closest fallbacks through the host-stepped loop and the
@@ -345,18 +366,21 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   held to the main path's image as path_pool is, the
                   concurrent runs profiled (busy share a card); then
                   mesh_cards_summary, each run's time over the main path's.
-Then the kernels line (thirteen kernels: the five, item_sweep and
+Then the kernels line (fifteen kernels: the five, item_sweep and
 kslot_sweep, which replace no TPU kernel, the first-slot instances
 tile_sweep_first and kslot_sweep_first, which carry XLA-fused sweeps, and
-the cascade stage kernel's four folds, cascade_stage_any,
-cascade_stage_first, fused_stage_any and fused_stage_closest, which carry
-the cascades' while_loop ("carries": the JAX package's code each stands
-for); launches on every path, the new ones under new_path_launches,
-tile_sweep_first's in the host-stepped loop, the only route left that
-launches it, and block_anyhit's and block_closest's in the fused
+the cascade stage kernel's six folds, cascade_stage_any,
+cascade_stage_first, fused_stage_any, fused_stage_closest,
+perray_stage_any and perray_stage_first, which carry the cascades'
+while_loop ("carries": the JAX package's code each stands for); launches
+on every path, the new ones under new_path_launches, the CLI's with
+`--backend perray` under cli_perray_launches, tile_sweep_first's and
+kslot_sweep_first's in the host-stepped loops, the only routes left that
+launch them, and block_anyhit's and block_closest's in the fused
 cascades' host-stepped loop (on the fused route their bodies run inside
 the fused folds: "runs_as"), the stage kernel's also by W
-(launches_by_w), the fused folds' by shape (launches_by_shape); each
+(launches_by_w), the fused and perray folds' by shape
+(launches_by_shape); each
 kernel's generic instance under
 "generic": its S = 128 time beside the tuned one's, its bound, and its
 launches in cluster_sizes; the fused folds have only their generic
@@ -584,6 +608,16 @@ def phase_build():
                 e["spill_bytes"]
                 for e in ptxas.get(cuda_cascade.FUSED_SOURCES[any_hit], [])
                 if tag in e["entry"])}
+    # the perray folds' only instance (kslot_sweep.cu), generic
+    for any_hit in (True, False):
+        name = cuda_cascade.PERRAY_NAMES[any_hit]
+        tag = (f"cascade_stage_kernelI10PerrayFoldILb{int(not any_hit)}"
+               "EELi0ELi1EE")
+        occupancy[f"{name} generic"] = {
+            **cuda_cascade.kernel_occupancy(name),
+            "spill_bytes": sum(e["spill_bytes"]
+                               for e in ptxas.get("kslot_sweep", [])
+                               if tag in e["entry"])}
     for name, mod in (("item_sweep", cuda_items),
                       ("kslot_sweep", cuda_kslots)):
         for s_, closest in ((128, True), (128, False), (0, True),
@@ -2632,6 +2666,16 @@ def phase_cli(card):
         res["kslots"] = {"seconds": sec, "launches": _read_counts(),
                          "equals_cpu_mode": bool(np.array_equal(
                              read_png(png_k), read_png(png_c)))}
+        # the perray backend by flag (the packet cascade's tie rule: the
+        # PNG may differ from the -m cpu one where a path meets an exact
+        # tie; recorded, not required)
+        png_p = os.path.join(tmp, "perray.png")
+        _reset_counts()
+        sec, _ = _cli_run(["-m", "gpu", "--backend", "perray"] + common6,
+                          png_p)
+        res["perray"] = {"seconds": sec, "launches": _read_counts(),
+                         "equals_cpu_mode": bool(np.array_equal(
+                             read_png(png_p), read_png(png_c)))}
     emit(res)
     if not res["modes_equal"]:
         fail("cli", "-m cpu and -m gpu wrote different PNGs")
@@ -2643,6 +2687,9 @@ def phase_cli(card):
         fail("cli", "--backend kslots and -m cpu wrote different PNGs")
     if res["kslots"]["launches"]["kslot_sweep"] <= 0:
         fail("cli", "--backend kslots launched no kslot_sweep kernel")
+    if min(res["perray"]["launches"][k]
+           for k in ("perray_stage_any", "perray_stage_first")) <= 0:
+        fail("cli", "--backend perray launched no perray stage kernel")
     return res
 
 
@@ -3559,8 +3606,10 @@ def _route_at_cut(phase, scene, accel_base, accel_c, card, img_main, kernels,
                      "mrays_per_s": stats.mrays_per_s,
                      "closest_rays": stats.closest_rays,
                      "shadow_rays": stats.shadow_rays,
-                     "host_syncs": sync.count, "launches": _read_counts(),
-                     "tile_sweep_shapes": _tile_shapes()}
+                     "host_syncs": sync.count, "host_sync_sites": _sync_sites(),
+                     "launches": _read_counts(),
+                     "tile_sweep_shapes": _tile_shapes(),
+                     "cascade_stage_shapes": _stage_shapes()}
 
     def against(img, ref):
         diff = np.abs(img - ref).max(axis=-1)
@@ -3600,16 +3649,54 @@ def _route_at_cut(phase, scene, accel_base, accel_c, card, img_main, kernels,
     return res
 
 
+# Modules in which the perray route may make no host read: the stage loop
+# (traverse's stages and the stage wrapper; the overflow count is
+# traverse._perray_fallback's, a read a call, counted apart).
+PERRAY_NO_SYNC_SITES = ("path_tracer_ai_tpu_torch.accel.cuda_cascade:",)
+
+
+def _perray_reads(res) -> dict:
+    """The perray route's host reads by kind: the overflow count (one a
+    perray call), the stage loop's (none since the stage kernel) and the
+    others (the bounce loop's)."""
+    from path_tracer_ai_tpu_torch.accel import traverse
+
+    fallback = f"{traverse.__name__}:{_perray_fallback_line()}"
+    sites = res["host_sync_sites"]
+    loop = sum(n for k, n in sites.items()
+               if k.startswith(PERRAY_NO_SYNC_SITES)
+               or (k.startswith(traverse.__name__ + ":") and k != fallback))
+    return {"host_reads": res["host_syncs"],
+            "overflow_counts": sites.get(fallback, 0), "stage_loop": loop,
+            "others": res["host_syncs"] - sites.get(fallback, 0) - loop}
+
+
+def _perray_fallback_line() -> int:
+    """The line of traverse._perray_fallback's host read (its site)."""
+    import inspect
+
+    from path_tracer_ai_tpu_torch.accel import traverse
+
+    lines, first = inspect.getsourcelines(traverse._perray_fallback)
+    return first + next(i for i, line in enumerate(lines)
+                        if "host_int" in line)
+
+
 def phase_path_perray(scene, accel_base, accel_c, card, img_main):
-    """The perray backend (traverse's per-ray queries: kslot_sweep's
-    first-slot instance for closest hits, its any-hit sweep for shadows,
-    one launch a cascade iteration) through _route_at_cut; both kinds of
-    launch must occur."""
+    """The perray backend (traverse's per-ray queries: their cascades'
+    stages one launch each of the stage kernel's perray folds) through
+    _route_at_cut; both folds must launch, and no stage may read the
+    host (host_sync_sites: the overflow count, one a call, and the bounce
+    loop's reads only)."""
     res = _route_at_cut("path_perray", scene, accel_base, accel_c, card,
-                        img_main, ["kslot_sweep_first"], backend="perray")
-    n = res["launches"]
-    if n["kslot_sweep"] <= n["kslot_sweep_first"]:
-        fail("path_perray", f"no any-hit kslot_sweep launch: {n}")
+                        img_main, ["perray_stage_any", "perray_stage_first"],
+                        backend="perray")
+    res["host_reads"] = _perray_reads(res)
+    emit({"phase": "path_perray_reads", "card": card, **res["host_reads"],
+          "sites": res["host_sync_sites"]})
+    if res["host_reads"]["stage_loop"]:
+        fail("path_perray", f"the perray stages read the host: "
+                            f"{res['host_sync_sites']}")
     return res
 
 
@@ -4397,8 +4484,9 @@ def phase_packet_cascade(scene, accel_base, accel_c, card, img_main,
             kept.args, f"{wave}, host-stepped, first iteration")
     o, d, tm = _bounce_wave(accel_base, 1 << 16, rng, shadow=False)
     tm[::7] = -1.0
-    with _KeepFirst(cuda_kslots, "kslot_sweep",
-                    lambda a, kw: kw.get("tie") == "slot") as kept:
+    with _perray_host_stepped(), _KeepFirst(
+            cuda_kslots, "kslot_sweep",
+            lambda a, kw: kw.get("tie") == "slot") as kept:
         traverse.closest_hit_perray(accel_base, o, d, 1e-3, tm)
     checks["kslot_sweep_first"] = _check_first_kslot(
         kept.args, "2^16 bounce rays, perray, first iteration")
@@ -4915,6 +5003,320 @@ def phase_fused_cascade(scene, accel_base, card, img_main) -> tuple:
     return checks, stepped
 
 
+# ---- the perray queries' loop on the card ----------------------------------
+
+class _perray_host_stepped(_patched):
+    """While entered, the perray queries' stages run the host-stepped loop
+    that the card ran before the stage kernel: perray_stage_plain sweeping
+    through kslot_sweep (one launch an iteration, one host read a vote)."""
+
+    def __init__(self):
+        from path_tracer_ai_tpu_torch.accel import cuda_cascade
+
+        super().__init__(cuda_cascade,
+                         perray_stage=cuda_cascade.perray_stage_plain)
+
+
+def _keep_perray_calls(scene, accel_base) -> list:
+    """(label, fn, (args, kw)) copies of two calls of the perray bench
+    render, which stops once it has them: the closest call on the first
+    2^16 rays of wave 0, bounce 1 (closest_hit_perray's call 16: bounce 0
+    takes 16 chunks of 2^16 camera rays) and the shadow call that follows
+    it (any_hit_perray)."""
+    from path_tracer_ai_tpu_torch.accel import traverse
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+
+    saved = {n: getattr(traverse, n)
+             for n in ("closest_hit_perray", "any_hit_perray")}
+    seen = {"closest_hit_perray": 0}
+    kept = {}
+    copy = lambda x: x.clone() if torch.is_tensor(x) else x
+
+    def keeping(name):
+        def fn(*a, **kw):
+            if name == "closest_hit_perray":
+                seen[name] += 1
+            if ((name == "closest_hit_perray" and seen[name] == 17)
+                    or (name == "any_hit_perray" and seen[
+                        "closest_hit_perray"] >= 17 and name not in kept)):
+                kept.setdefault(name, (tuple(copy(x) for x in a),
+                                       {k: copy(v) for k, v in kw.items()}))
+            out = saved[name](*a, **kw)
+            if len(kept) == 2:
+                raise _Kept
+            return out
+        return fn
+
+    try:
+        with _patched(traverse, **{n: keeping(n) for n in saved}):
+            wavefront.render(scene, default_camera("cuda"),
+                             RenderSettings(**BENCH), wave_size=1 << 20,
+                             device="cuda", accel=accel_base,
+                             backend="perray")
+    except _Kept:
+        pass
+    if len(kept) < 2:
+        fail("perray_cascade_loop", f"the perray bench render made no "
+                                    f"wave 0, bounce 1 calls: {seen}")
+    return [("perray closest, wave 0, bounce 1", saved["closest_hit_perray"],
+             kept["closest_hit_perray"]),
+            ("perray shadow, wave 0, bounce 1", saved["any_hit_perray"],
+             kept["any_hit_perray"])]
+
+
+def _keep_perray_stages(fn, args, kw) -> list:
+    """Copies of the inputs of every perray_stage call of fn(*args, **kw),
+    in order, [(args, {})] (the stage updates its carry and k in place)."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade
+
+    kept = []
+    real = cuda_cascade.perray_stage
+    copy = lambda x: x.clone() if torch.is_tensor(x) else x
+
+    def stage(*a):
+        kept.append((tuple(tuple(copy(c) for c in x) if isinstance(x, tuple)
+                           else copy(x) for x in a), {}))
+        return real(*a)
+
+    with _patched(cuda_cascade, perray_stage=stage):
+        fn(*args, **kw)
+    return kept
+
+
+def _perray_eager(any_hit, stats=None):
+    """The perray folds' plain version on the card: perray_stage_plain
+    sweeping through kslot_sweep's plain version (eager torch); stats
+    gains the sweeps' needed "tests" (kslot_sweep_plain's count)."""
+    from functools import partial
+
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade, cuda_kslots
+
+    def sweep(pack, rays, cid):
+        n_slots = torch.full((rays.shape[0],), cid.shape[1],
+                             dtype=torch.int32, device=rays.device)
+        return cuda_kslots.kslot_sweep_plain(
+            pack, rays, cid, n_slots, not any_hit, stats=stats,
+            **({} if any_hit else {"tie": "slot"}))
+
+    return partial(cuda_cascade.perray_stage_plain, sweep=sweep, stats=stats)
+
+
+def _perray_stage_bytes(rays, n_cand, carry, g, s, stats) -> int:
+    """The bytes a perray stage must move, each once: the rays, n_cand,
+    act, the carry read and written, the swept rays' candidate groups and
+    the swept clusters' [10, S] packs."""
+    clusters = int(stats["clusters"].sum()) if "clusters" in stats else 0
+    return (_nbytes(rays, n_cand) + rays.shape[0] + 2 * _nbytes(*carry)
+            + stats.get("rays", 0) * g * 4 + clusters * 10 * s * 4)
+
+
+def _perray_stage_table(fn, args, kw, reps=5) -> list:
+    """Every stage of one perray call fn(*args, **kw), a row each: its
+    size and threshold, k in and out, the active rays at its first and
+    last vote, its needed tests (kslot_sweep_plain's: a live ray's g x S
+    tests, for any hit up to its first occluding cluster), its bound, the
+    host-stepped loop's ms (perray_stage_plain through kslot_sweep; one
+    run, host reads included), the stage kernel's ms (CUDA events over
+    `reps` runs on copies, the copy timed alone and taken off), and whether
+    the kernel's (carry, k, act) are the host-stepped loop's bits and the
+    plain version's (eager sweeps)."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade
+
+    rows = []
+    for kept in _keep_perray_stages(fn, args, kw):
+        (pack, rays, order_g, n_cand, carry, k, thr), _kw = kept
+        any_hit = len(carry) == 1
+        stats = {}
+        eager = _fused_stage_run(kept, _perray_eager(any_hit, stats))
+        stepped = _fused_stage_run(kept, cuda_cascade.perray_stage_plain)
+        stepped_ms = cuda_ms(lambda: _fused_stage_run(
+            kept, cuda_cascade.perray_stage_plain), 1)
+        got = _fused_stage_run(kept, cuda_cascade.perray_stage)
+        copy_ms = cuda_ms(lambda: tuple(c.clone() for c in carry)
+                          + (k.clone(),), reps)
+        ms = cuda_ms(lambda: _fused_stage_run(
+            kept, cuda_cascade.perray_stage), reps) - copy_ms
+        s, g = pack.shape[2], order_g.shape[2]
+        row = {"size": rays.shape[0], "S": s, "G": g, "threshold": thr,
+               "k_in": int(k), "k_out": int(stepped[-2]),
+               "active_first": stats["active"][0],
+               "active_last": stats["active"][-1],
+               "sweeps": stats.get("sweeps", 0),
+               "rays_swept": stats.get("rays", 0),
+               **_bound(_perray_stage_bytes(rays, n_cand, carry, g, s,
+                                            stats), stats.get("tests", 0)),
+               "host_stepped_ms": stepped_ms, "ms": ms,
+               "matches_host_stepped": _same_outputs(got, stepped),
+               "matches_plain": _same_outputs(got, eager)
+               and _same_outputs(stepped, eager),
+               "max_abs_err": 0.0 if any_hit else _max_abs_err(got[0],
+                                                               eager[0])}
+        row["ms_over_bound"] = ms / row["bound_ms"]
+        row["host_stepped_over_bound"] = stepped_ms / row["bound_ms"]
+        if row["sweeps"] and not any(r.get("check") for r in rows):
+            # the kernels line's check: the first stage that sweeps, its
+            # plain version timed once
+            row["check"] = True
+            row["plain_ms"] = cuda_ms(lambda: _fused_stage_run(
+                kept, _perray_eager(any_hit)), 1)
+        rows.append(row)
+    return rows
+
+
+def _perray_call_run(fn, args, kw) -> tuple:
+    """fn(*args, **kw) once (a perray query): (result, {device seconds
+    (CUDA events), wall seconds, host reads, the final k of its last
+    stage, stages, stage kernel and kslot_sweep launches}); the device
+    kernels of a second run under torch.profiler."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade, cuda_kslots
+    from path_tracer_ai_tpu_torch.utils import sync
+
+    ks = []
+    real = cuda_cascade.perray_stage
+    stage_launches = lambda: sum(cuda_cascade.launches[n] for n in
+                                 cuda_cascade.PERRAY_NAMES.values())
+
+    def stage(*a):
+        out = real(*a)
+        ks.append(out[1])
+        return out
+
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    with _patched(cuda_cascade, perray_stage=stage):
+        torch.cuda.synchronize()
+        reads = sync.count
+        counts = (stage_launches(), cuda_kslots.launches,
+                  cuda_kslots.slot_launches)
+        start, end = ev(), ev()
+        t0 = time.perf_counter()
+        start.record()
+        out = fn(*args, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        run = {"device_seconds": start.elapsed_time(end) / 1e3,
+               "wall_seconds": time.perf_counter() - t0,
+               "host_reads": sync.count - reads,
+               "stage_launches": stage_launches() - counts[0],
+               "kslot_sweep_launches": cuda_kslots.launches - counts[1],
+               "kslot_sweep_first_launches":
+                   cuda_kslots.slot_launches - counts[2],
+               "final_k": int(ks[-1]), "stages": len(ks)}
+        run["device_kernels"] = _device_kernels(lambda: fn(*args, **kw))
+    return out, run
+
+
+def _perray_before_after(label, fn, call) -> dict:
+    """One kept perray call in turns: before (the host-stepped loop, the
+    route before the stage kernel), after (the stage kernel), after,
+    before. All must give the same bits and the same final k."""
+    args, kw = call
+    runs = {"before": [], "after": []}
+    outs = {}
+    for which in ("before", "after", "after", "before"):
+        if which == "before":
+            with _perray_host_stepped():
+                out, r = _perray_call_run(fn, args, kw)
+        else:
+            out, r = _perray_call_run(fn, args, kw)
+        runs[which].append(r)
+        outs.setdefault(which, out)
+    flat = lambda o: ((o.hit, o.t, o.tri) if isinstance(o, tuple) else (o,))
+    best = {w: {k: min(r[k] for r in runs[w]) for k in runs[w][0]}
+            for w in runs}
+    return {"call": label, "rays": int(args[1].shape[0]),
+            "live_rays": int((torch.as_tensor(args[4]) >= 0).sum()),
+            "same_bits": _same_outputs(flat(outs["after"]),
+                                       flat(outs["before"])),
+            "same_final_k": all(r["final_k"] == runs["before"][0]["final_k"]
+                                for w in runs for r in runs[w]),
+            "runs": runs, "best": best,
+            "device_over_before": best["after"]["device_seconds"]
+            / best["before"]["device_seconds"]}
+
+
+def phase_perray_cascade_loop(scene, accel_base, card) -> tuple:
+    """The perray queries' loop on the card. (1) Two kept calls of the
+    perray bench render (wave 0, bounce 1: 2^16 rays of the closest call
+    and the shadow call after it), each split by stage
+    (_perray_stage_table; lines perray_cascade_stages): the stage kernel
+    bit for bit the host-stepped loop and the plain version at every
+    stage. (2) Each kept call whole, before (the
+    host-stepped loop) and after (the stage kernel) in turns: the same bits
+    and final k; device seconds, host reads and device kernels (lines
+    perray_cascade_loop). Returns the kernel checks for the kernels line
+    (each fold's first stage that sweeps) and the host-stepped loop's
+    kslot_sweep_first launches."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cascade
+
+    t0 = time.perf_counter()
+    calls = _keep_perray_calls(scene, accel_base)
+    checks, loops = {}, []
+    for label, fn, (args, kw) in calls:
+        rows = _perray_stage_table(fn, args, kw)
+        closest = "closest" in label
+        emit({"phase": "perray_cascade_stages", "card": card, "call": label,
+              "stages": rows, "bound_ms": sum(r["bound_ms"] for r in rows),
+              "ms": sum(r["ms"] for r in rows),
+              "host_stepped_ms": sum(r["host_stepped_ms"] for r in rows)})
+        bad = [r["size"] for r in rows
+               if not (r["matches_host_stepped"] and r["matches_plain"])]
+        if bad:
+            fail("perray_cascade_loop", f"{label}: the stages of {bad} rays "
+                                        "differ from the host-stepped loop "
+                                        "or the plain version")
+        check = next((r for r in rows if r.get("check")), None)
+        if check is None:
+            fail("perray_cascade_loop", f"{label}: no stage swept")
+        name = cuda_cascade.PERRAY_NAMES[not closest]
+        checks[name] = {
+            "name": name, "wave": f"{label}, first stage that sweeps",
+            "T": 1, "S": check["S"], "G": check["G"],
+            "blocks": check["size"], "k_in": check["k_in"],
+            "k_out": check["k_out"], "sweeps": check["sweeps"],
+            "ms": check["ms"], "plain_ms": check["plain_ms"],
+            "host_stepped_ms": check["host_stepped_ms"],
+            "bound_ms": check["bound_ms"], "bound_by": check["bound_by"],
+            "tests": check["tests"], "bytes": check["bytes"],
+            "ms_over_bound": check["ms_over_bound"],
+            "matches_plain": check["matches_plain"]
+            and check["matches_host_stepped"],
+            "max_abs_err": check["max_abs_err"],
+            "call_ms": sum(r["ms"] for r in rows),
+            "call_bound_ms": sum(r["bound_ms"] for r in rows),
+            "call_host_stepped_ms": sum(r["host_stepped_ms"] for r in rows)}
+        loops.append(_perray_before_after(label, fn, (args, kw)))
+    for f in loops:
+        emit({"phase": "perray_cascade_loop", "card": card, **f})
+    if not all(f["same_bits"] and f["same_final_k"] for f in loops):
+        fail("perray_cascade_loop", "a perray call's stage kernel differs "
+                                    "from the host-stepped loop (bits or "
+                                    "final k)")
+    stepped = sum(r["kslot_sweep_first_launches"] for f in loops
+                  for r in f["runs"]["before"])
+    if not stepped:
+        fail("perray_cascade_loop", "the host-stepped loop launched no "
+                                    "kslot_sweep")
+    emit({"phase": "perray_cascade_loop", "card": card,
+          "checks": {k: {x: c[x] for x in (
+              "ms", "bound_ms", "ms_over_bound", "plain_ms",
+              "host_stepped_ms", "call_ms", "call_bound_ms",
+              "call_host_stepped_ms")}
+              for k, c in checks.items()},
+          "loops": [{"call": f["call"], "live_rays": f["live_rays"],
+                     **{w: {x: f["best"][w][x] for x in (
+                         "device_seconds", "wall_seconds", "host_reads",
+                         "device_kernels", "stage_launches",
+                         "kslot_sweep_launches", "final_k")}
+                        for w in ("before", "after")},
+                     "device_over_before": f["device_over_before"]}
+                    for f in loops],
+          "host_stepped_kslot_launches": stepped,
+          "seconds": time.perf_counter() - t0})
+    return checks, stepped
+
+
 def phase_worklist_mxu(waves, item_checks, card, min_swept=1000):
     """The worklist scene's kept closest and shadow queries (wave 0, bounce
     1) through intersector "mxu", "mxu:high" and "mxu:default" at blocks
@@ -5130,10 +5532,11 @@ KERNELS = {
     # traverse.closest_hit_packets (traverse.py:823-845), whose busiest
     # route is the worklist's closest fallback, and of closest_hit_perray
     # (traverse.py:648-665)
-    # no path launches it any more: the cascade stage kernel sweeps those
-    # cascades; the host-stepped loop (packet_cascade phase) does
+    # no path launches them any more: the cascade stage kernel sweeps those
+    # cascades; the host-stepped loops (packet_cascade and
+    # perray_cascade_loop phases) do
     "tile_sweep_first": ("ctiles_sweep.cu", None, "host_stepped_loop"),
-    "kslot_sweep_first": ("kslot_sweep.cu", None, "path_perray"),
+    "kslot_sweep_first": ("kslot_sweep.cu", None, "host_stepped_loop"),
     # the cascade stage kernel (no Pallas kernel): the jax.lax.while_loop of
     # traverse._cascade_traverse (traverse.py:439-520) for any_hit_packets
     # (the main path's shadows) and closest_hit_packets (the worklist's
@@ -5145,6 +5548,11 @@ KERNELS = {
     # jax.lax.while_loop of any_hit_fused and closest_hit_fused
     "fused_stage_any": ("fused_anyhit.cu", None, "path_fused"),
     "fused_stage_closest": ("fused_closest.cu", None, "path_fused"),
+    # the same stage loop with the perray queries' folds, whose sweeps are
+    # kslot_sweep's walk of one ray: the jax.lax.while_loop of
+    # closest_hit_perray and any_hit_perray
+    "perray_stage_any": ("kslot_sweep.cu", None, "path_perray"),
+    "perray_stage_first": ("kslot_sweep.cu", None, "path_perray"),
 }
 # what a kernel without a Pallas counterpart carries in the JAX package
 CARRIES = {
@@ -5164,6 +5572,10 @@ CARRIES = {
     "fused_stage_closest":
         "path_tracer_ai_tpu/accel/traverse.py:491 (while_loop), "
         "pallas_closest.py:271-318",
+    "perray_stage_any":
+        "path_tracer_ai_tpu/accel/traverse.py:491 (while_loop), 727-738",
+    "perray_stage_first":
+        "path_tracer_ai_tpu/accel/traverse.py:491 (while_loop), 648-665",
 }
 # what a kernel runs as on its route besides its own launches
 RUNS_AS = {
@@ -5291,6 +5703,9 @@ def main() -> int:
                                      img_main)
     perray = phase_path_perray(scene, accel_base, accel_c, card, img_main)
     paths["path_perray"] = perray
+    perray_checks, perray_stepped = phase_perray_cascade_loop(
+        scene, accel_base, card)
+    checks.update(perray_checks)
     paths["path_kslots"] = phase_path_kslots(scene, accel_base, accel_c,
                                              card, img_main)
     first_checks, packets, stepped = phase_packet_cascade(
@@ -5298,8 +5713,10 @@ def main() -> int:
         {"worklist": paths["path_worklist"], "kslots": paths["path_kslots"],
          "perray": perray}, kept_shadows, profile)
     checks.update(first_checks)
-    paths["host_stepped_loop"] = {"launches": stepped}
-    for name in ("fused_stage_any", "fused_stage_closest"):
+    paths["host_stepped_loop"] = {"launches": {
+        **stepped, "kslot_sweep_first": perray_stepped}}
+    for name in ("fused_stage_any", "fused_stage_closest",
+                 "perray_stage_any", "perray_stage_first"):
         generic[name] = None  # its only instance: the line's own numbers
     for name in ("tile_sweep_first", "kslot_sweep_first",
                  "cascade_stage_any", "cascade_stage_first"):
@@ -5366,6 +5783,7 @@ def main() -> int:
         "launches": paths[phase]["launches"][name],
         "cli_launches": cli["launches"][name],
         "cli_pallas_launches": cli["pallas"]["launches"][name],
+        "cli_perray_launches": cli["perray"]["launches"][name],
         "new_path_launches": {k: v["launches"][name]
                               for k, v in new_paths.items()},
         "matches_plain": checks[name]["matches_plain"],
@@ -5439,7 +5857,7 @@ def main() -> int:
                 for k, v in new_paths.items()
                 if any(sh["kernel"] == name
                        for sh in v.get("cascade_stage_shapes", []))}}
-           if name.startswith("fused_stage") else {}),
+           if name.startswith(("fused_stage", "perray_stage")) else {}),
         **({"W": checks[name]["W"],
             "splits": checks[name]["splits"],
             "launches_by_w": _launches_by_w(

@@ -5,15 +5,16 @@ Replaces no Pallas kernel: it carries the loop of the JAX package's
 `_cascade_traverse` (path_tracer_ai_tpu/accel/traverse.py:439-520), a
 `jax.lax.while_loop` a stage whose condition XLA evaluates on the device,
 for the packet cascades (`any_hit_packets`, `closest_hit_packets`:
-accel.traverse) and the fused cascades (`any_hit_fused`: accel.cuda_anyhit;
-`closest_hit_fused`: accel.cuda_closest). One call runs one stage to its
-end on a slice of ray blocks, as one while_loop does:
+accel.traverse), the fused cascades (`any_hit_fused`: accel.cuda_anyhit;
+`closest_hit_fused`: accel.cuda_closest) and the perray queries
+(`any_hit_perray`, `closest_hit_perray`: accel.traverse). One call runs
+one stage to its end on a slice of ray blocks, as one while_loop does:
 
     loop: act = the active rule at k for every block of the slice;
           stop when sum(act) <= threshold; sweep group k; k += 1
 
 and returns (carry, k, act), carry and k updated in place, act the rule at
-the final k (the compaction between stages reads it). Four folds, one
+the final k (the compaction between stages reads it). Six folds, one
 counter table keyed by their names (`FOLDS`):
 
 - cascade_stage_any, the packet any hit (entry None): carry (occ [size, T]
@@ -36,7 +37,17 @@ counter table keyed by their names (`FOLDS`):
   271-318); the sweep is block_closest with sub_skip on lanes capped at
   torch.minimum(t_max, best_t), combined into the carry by
   cuda_ctiles.combine_min_tri (the lexicographic (t, least tri) rule, the
-  oracle's).
+  oracle's);
+- perray_stage_any and perray_stage_first, the perray queries' folds
+  (blocks of ONE ray, rays [size, 8, 1], carry [size, 1]; the JAX
+  package's active_fn, traverse.py:648-665, 727-738): any hit, act = k g
+  < n_cand and not occluded; closest, act = k g < n_cand and t_max >= 0
+  (no entry rule: the candidates come in id order). The sweep set is act;
+  the sweep is the per-ray K-slot sweep's walk of one ray against ALL g
+  slots of its group min(k, K - 1) (the filler ids past n_cand too, as
+  the reference sweeps the whole group): any hit ORs into occ; closest
+  sweeps [t_min, torch.minimum(t_max, best_t)] by the first-slot rule and
+  replaces the carry where that t < best_t.
 
 On a CUDA tensor `cascade_stage` (the packet folds) and `fused_stage` (the
 fused folds) launch the stage kernel: the loop of csrc/stage.cuh, one
@@ -51,7 +62,9 @@ every W). The fused folds are csrc/fused_anyhit.cu's and
 csrc/fused_closest.cu's, only a generic instance (any S, T >= 1), one warp
 a slot; they check every candidate id they read against [0, C] and count
 the ones outside it in `err`, which the cascade reads once at its end
-(`raise_bad_ids`).
+(`raise_bad_ids`). `perray_stage` (the perray folds) launches the folds of
+csrc/kslot_sweep.cu, only a generic instance (any S), one warp a ray; ids
+outside [0, C) test nothing.
 
 On a CPU tensor `cascade_stage` runs `cascade_stage_plain`: the same loop
 in eager torch, one host read a vote, each iteration's sweep one call of
@@ -59,16 +72,20 @@ in eager torch, one host read a vote, each iteration's sweep one call of
 `fused_stage_plain`: the same loop stepped by traverse._stepped_stage,
 each iteration's sweep calls of block_anyhit / block_closest on
 `kernel_chunk` blocks at a time (their plain versions on the CPU), and an
-id out of range raises at once. On CUDA tensors
-`cascade_stage_plain(..., sweep=cuda_ctiles.tile_sweep)` and
-`fused_stage_plain` are the host-stepped loops the card ran before the
-kernel: one sweep launch an iteration (and a chunk), one host read a vote
-(and one a sweep set of the closest folds).
+id out of range raises at once. `perray_stage`
+runs `perray_stage_plain`: the same loop, one host read a vote, each
+iteration's sweep one call of `sweep` over the active rays (kslot_sweep's
+plain version by default; traverse passes its eager sweeps). On CUDA
+tensors `cascade_stage_plain(..., sweep=cuda_ctiles.tile_sweep)`,
+`fused_stage_plain` and `perray_stage_plain` are the host-stepped loops
+the card ran before the kernel: one sweep launch an iteration (and a
+chunk), one host read a vote (and one a sweep set of the closest packet
+and fused folds).
 
 Layouts: rays [size, 8, T] (traverse.pack_block_rays or
 cuda_ctiles.pack_rays_tiles: row 6 t_max, < 0 dead; row 7 t_min); order_g
 [size, K, g] i32; n_cand [size] i32; k [1] i32; tri_pack [C, 10, S]
-(cuda_ctiles.pack_tris) for the packet folds, [C+1, 16, S]
+(cuda_ctiles.pack_tris) for the packet and perray folds, [C+1, 16, S]
 (cuda_anyhit.pack_tris_dummy) for the fused folds; err [3] i32
 (new_error).
 """
@@ -97,7 +114,11 @@ SOURCE = "ctiles_sweep"
 NAMES = {True: "cascade_stage_any", False: "cascade_stage_first"}
 FUSED_NAMES = {True: "fused_stage_any", False: "fused_stage_closest"}
 FUSED_SOURCES = {True: "fused_anyhit", False: "fused_closest"}
-FOLDS = (*NAMES.values(), *FUSED_NAMES.values())
+# The perray folds (by any hit), built from the per-ray K-slot sweep's
+# source.
+PERRAY_NAMES = {True: "perray_stage_any", False: "perray_stage_first"}
+PERRAY_SOURCE = "kslot_sweep"
+FOLDS = (*NAMES.values(), *FUSED_NAMES.values(), *PERRAY_NAMES.values())
 FUSED_GROUP = 8
 
 # W, the warps the stage kernel gives a slot of 32 lanes (split_warps),
@@ -267,8 +288,12 @@ def _work(size: int, dev) -> torch.Tensor:
 
 def kernel_occupancy(fold: str, s: int = 0, t_lanes: int = 0) -> dict:
     """Registers per thread and resident warps per SM of a fold's instance:
-    a packet fold's (S, T) one (S = 0: the generic one), a fused fold's
-    only one (needs the card)."""
+    a packet fold's (S, T) one (S = 0: the generic one), a fused or perray
+    fold's only one (needs the card)."""
+    if fold in PERRAY_NAMES.values():
+        return read_occupancy(cuda_build.load(PERRAY_SOURCE)
+                              .perray_stage_occupancy,
+                              int(fold == PERRAY_NAMES[True]))
     if fold in FUSED_NAMES.values():
         lib = cuda_build.load(FUSED_SOURCES[fold == FUSED_NAMES[True]])
         return read_occupancy(getattr(lib, fold + "_occupancy"))
@@ -290,24 +315,27 @@ def _check_stage(fold: str, tri_pack, rays, order_g, n_cand, carry, k,
     size, ray_rows, t_lanes = rays.shape
     _n, kgroups, g = order_g.shape
     fused = fold in FUSED_NAMES.values()
+    perray = fold in PERRAY_NAMES.values()
     if (rows != pack_rows or ray_rows != cuda_ctiles.RAY_ROWS or _n != size
             or n_cand.shape[0] != size or k.numel() != 1 or kgroups < 1
             or g < 1 or s < 1 or t_lanes < 1
-            or (fused and (g != FUSED_GROUP or c < 2))):
+            or (fused and (g != FUSED_GROUP or c < 2))
+            or (perray and t_lanes != 1)):
         raise ValueError(
             f"{fold}: shapes tri_pack {tuple(tri_pack.shape)}, rays "
             f"{tuple(rays.shape)}, order_g {tuple(order_g.shape)}, n_cand "
             f"{tuple(n_cand.shape)}, k {tuple(k.shape)} are not {layout}, "
-            f"[size,8,T], [size,K,{FUSED_GROUP if fused else 'g'}], [size], "
-            "[1]")
-    if entry is None:
+            f"[size,8,{1 if perray else 'T'}], "
+            f"[size,K,{FUSED_GROUP if fused else 'g'}], [size], [1]")
+    if len(carry) == 1:
         (occ,) = carry
         _check("occ", occ, torch.bool, 2, dev)
     else:
         best_t, best_id = carry
-        _check("entry", entry, torch.float32, 2, dev)
         _check("best_t", best_t, torch.float32, 2, dev)
         _check("best_id", best_id, torch.int32, 2, dev)
+    if entry is not None:
+        _check("entry", entry, torch.float32, 2, dev)
         if entry.shape[0] != size or entry.shape[1] < (kgroups - 1) * g + 1:
             raise ValueError(f"entry has shape {tuple(entry.shape)}, "
                              f"expected [{size}, >= {(kgroups - 1) * g + 1}]")
@@ -587,4 +615,113 @@ def fused_stage(tri_pack, rays, order_g, n_cand, carry, k, threshold,
         raise RuntimeError(f"fused_stage launch failed: cudaError {code}")
     _counted(name, (name, t_lanes, s, FUSED_GROUP, 1, "generic"), size,
              True)
+    return carry, k, act
+
+
+# ---- the perray folds -------------------------------------------------------
+
+def perray_stage_plain(tri_pack, rays, order_g, n_cand, carry, k, threshold,
+                       sweep=None, stats=None):
+    """The perray folds' stage stepped on the host (see the module): one
+    host read of k, one of the active count a vote; each iteration's sweep
+    is one call sweep(tri_pack, rays [n, 8], cid [n, g]) over the active
+    rays, every slot of their group min(k, K - 1) (row 6 of a closest
+    sweep's rays is min(t_max, best t)), returning (t [n], tri [n]) of the
+    first slot at the least t, or (occluded [n],) for any hit. sweep
+    defaults to cuda_kslots.kslot_sweep (tie="slot" for closest), whose
+    plain version runs on CPU tensors and whose kernel on CUDA tensors, one
+    launch an iteration: the loop the card ran before the stage kernel.
+    stats, if given, gains "active" (the active rays at each vote),
+    "sweeps" (iterations), "rays" (rays swept) and "clusters" ([C] bool,
+    the clusters swept)."""
+    from path_tracer_ai_tpu_torch.accel import cuda_kslots
+
+    any_hit = len(carry) == 1
+    _size, kgroups, g = order_g.shape
+    rows = rays[:, :, 0]  # [size, 8]: o, d, t_max, t_min
+    if sweep is None:
+        def sweep(pack, r, cid):
+            # every slot: the reference sweeps the whole group, the filler
+            # ids past n_cand too
+            n_slots = torch.full((r.shape[0],), g, dtype=torch.int32,
+                                 device=r.device)
+            return cuda_kslots.kslot_sweep(
+                pack, r, cid, n_slots, not any_hit,
+                **({} if any_hit else {"tie": "slot"}))
+    kv = sync.host_int(k)
+    while True:
+        if any_hit:
+            act = (kv * g < n_cand) & ~carry[0][:, 0]
+        else:
+            act = (kv * g < n_cand) & (rows[:, 6] >= 0.0)
+        idx = torch.nonzero(act).squeeze(1)
+        sync.note()
+        if stats is not None:
+            stats.setdefault("active", []).append(idx.numel())
+        if idx.numel() <= threshold:
+            break
+        cid = order_g[idx, min(kv, kgroups - 1)]
+        r = rows[idx]
+        if stats is not None:
+            stats["sweeps"] = stats.get("sweeps", 0) + 1
+            stats["rays"] = stats.get("rays", 0) + idx.numel()
+            mask = stats.setdefault("clusters", torch.zeros(
+                tri_pack.shape[0], dtype=torch.bool, device=cid.device))
+            ids = cid.reshape(-1).long()
+            mask[ids[(ids >= 0) & (ids < tri_pack.shape[0])]] = True
+        if any_hit:
+            (hit,) = sweep(tri_pack, r, cid)
+            carry[0][idx, 0] |= hit
+        else:
+            best_t, best_id = carry
+            bt = best_t[idx, 0]
+            r[:, 6] = torch.minimum(r[:, 6], bt)
+            ct, gid = sweep(tri_pack, r, cid)
+            closer = ct < bt
+            best_t[idx, 0] = torch.where(closer, ct, bt)
+            best_id[idx, 0] = torch.where(closer, gid, best_id[idx, 0])
+        kv += 1
+    k.fill_(kv)
+    return carry, k, act
+
+
+def _perray_kernel():
+    fn = cuda_build.load(PERRAY_SOURCE).perray_stage
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def perray_stage(tri_pack, rays, order_g, n_cand, carry, k, threshold):
+    """One stage of a perray query to its end (see the module): (carry, k,
+    act), carry and k updated in place; carry (occ,) is the any-hit fold,
+    (best_t, best_id) the first-slot closest one. CUDA tensors launch the
+    stage kernel (or raise); CPU tensors run perray_stage_plain."""
+    dev = rays.device
+    if dev.type == "cpu":
+        return perray_stage_plain(tri_pack, rays, order_g, n_cand, carry, k,
+                                  threshold)
+    if dev.type != "cuda":
+        raise ValueError(f"perray_stage runs on cuda or cpu, not {dev}")
+    any_hit = len(carry) == 1
+    name = PERRAY_NAMES[any_hit]
+    size, kgroups, g, s, _t, c = _check_stage(
+        name, tri_pack, rays, order_g, n_cand, carry, k, None,
+        cuda_ctiles.PACK_ROWS, "[C,10,S]")
+    act = torch.empty((size,), dtype=torch.bool, device=dev)
+    if size == 0:
+        return carry, k, act
+    ptrs = ((carry[0].data_ptr(), 0, 0) if any_hit
+            else (0, carry[0].data_ptr(), carry[1].data_ptr()))
+    work = _work(size, dev)
+    args = (tri_pack.data_ptr(), rays.data_ptr(), order_g.data_ptr(),
+            n_cand.data_ptr(), *ptrs, k.data_ptr(), act.data_ptr(),
+            work.data_ptr(), size, kgroups, g, s, c, int(threshold),
+            int(any_hit))
+    err = cuda_build.launch(_perray_kernel(), dev, *args)
+    if err != 0:
+        raise RuntimeError(f"perray_stage launch failed: cudaError {err}")
+    _counted(name, (name, 1, s, g, 1, "generic"), size, True)
     return carry, k, act

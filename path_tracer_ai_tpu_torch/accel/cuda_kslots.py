@@ -20,7 +20,11 @@ minimum t, slot k * S + j for triangle j of cluster cid[r, k]
 (jnp.argmin's rule), and a miss is (inf, INT32_MAX): the closest sweep of
 the perray query, path_tracer_ai_tpu/accel/traverse.py
 `closest_hit_perray` (traverse.py:648-665, XLA-fused there). The perray
-any-hit query (traverse.py:727-738) is the any-hit sweep as it is.
+any-hit query (traverse.py:727-738) is the any-hit sweep as it is. Since
+the perray queries' stages run as one launch each of the stage kernel
+(accel.cuda_cascade.perray_stage, whose folds sweep with this kernel's
+walk of one ray), only their host-stepped comparison loop launches these
+two for perray.
 
 On a CUDA tensor the wrapper launches the kernel or raises: its tuned
 instances for S in {2, 128}, its generic instance (S at run time, the same

@@ -28,13 +28,14 @@ sweeps are block_anyhit's and block_closest's bodies); they read the host
 once a cascade, the candidate ids' range check. On the CPU their stage
 runs its plain version, `_stepped_stage` with the kernels' plain versions.
 
-The perray queries still step their loop on the host (`_cascade_traverse`:
-a host read an iteration), sweeping one launch an iteration: the per-ray
-K-slot kernel's first-slot instance (accel.cuda_kslots.kslot_sweep,
-tie="slot") for closest hits, its any-hit sweep for occlusion. In the
-reference these sweeps are XLA-fused bodies, not Pallas kernels. On the
-CPU they run the plain eager sweeps `_packet_sweep_closest` /
-`_packet_sweep_any`.
+The perray queries (`closest_hit_perray`, `any_hit_perray`: blocks of one
+ray) run the same static stages, each ONE call of
+accel.cuda_cascade.perray_stage (on the card one launch of the stage
+kernel with the perray folds, whose sweeps are the per-ray K-slot sweep's
+walk of one ray, csrc/kslot_sweep.cu); they read the host once a call, the
+overflow count. In the reference these sweeps are XLA-fused bodies, not
+Pallas kernels. On the CPU their stage runs its plain version over the
+plain eager sweeps `_packet_sweep_closest` / `_packet_sweep_any`.
 """
 
 from __future__ import annotations
@@ -43,11 +44,7 @@ from typing import NamedTuple
 
 import torch
 
-from path_tracer_ai_tpu_torch.accel import (
-    cuda_cascade,
-    cuda_ctiles,
-    cuda_kslots,
-)
+from path_tracer_ai_tpu_torch.accel import cuda_cascade, cuda_ctiles
 from path_tracer_ai_tpu_torch.accel.clusters import ClusterAccel
 from path_tracer_ai_tpu_torch.accel.morton import morton3d
 from path_tracer_ai_tpu_torch.utils import sync
@@ -388,7 +385,8 @@ def _stepped_stage(blocks, carry, k: int, threshold, sweep_update, active_fn,
 def _cascade_traverse(block_arrays, carry, sweep_update, active_fn,
                       min_blocks: int = 32):
     """_cascade_stages with each stage's loop stepped on the host
-    (_stepped_stage): the perray queries.
+    (_stepped_stage): the loop the perray queries ran before their stage
+    kernel, kept for comparison.
 
     sweep_update(k, blocks, carry, idx) -> carry, where idx [n] i64 are the
     active blocks of the slice; active_fn(k, blocks, carry) -> [size] bool.
@@ -480,14 +478,15 @@ def any_hit_packets(accel: ClusterAccel, origins, directions, t_min, t_max,
 
 # Elements of each [rays, g * S] temporary of the perray queries' plain
 # eager sweeps (256 MB in f32): the plain version's step only, its rows are
-# swept this many at a time. On the card an iteration is one kernel launch.
-# The results do not depend on the step.
+# swept this many at a time. On the card a stage is one kernel launch. The
+# results do not depend on the step.
 PACKET_SWEEP_ELEMS = 1 << 26
 
 
 def _kernel_sweeps(dev) -> bool:
-    """Whether the perray queries' sweeps on `dev` launch the kernels (a
-    CUDA device) or run the plain eager sweeps below (the CPU)."""
+    """Whether the perray queries' stages on `dev` go through
+    cuda_cascade.perray_stage (a CUDA device: the stage kernel) or run its
+    plain version over the plain eager sweeps below (the CPU)."""
     return dev.type == "cuda"
 
 
@@ -496,8 +495,8 @@ def _packet_sweep_closest(accel, ob, db, t_cap, cid, t_min):
     the g * S triangles of their clusters cid [n, g], in eager torch
     (traverse._mt_sweep's arithmetic): returns (ct [n, R] min t, gid [n, R]
     the triangle id of the FIRST slot achieving it; on a miss, inf and the
-    id of slot 0). The plain version of kslot_sweep's first-slot instance
-    in the perray query, run on the CPU."""
+    id of slot 0). The perray query's plain closest sweep, run on the
+    CPU."""
     n = cid.shape[0]
     ray = [ob[:, :, None, k] for k in range(3)]
     ray += [db[:, :, None, k] for k in range(3)]
@@ -642,7 +641,8 @@ def _perray_candidates(accel: ClusterAccel, origins, directions, t_min, t_max,
 
 def _perray_setup(accel, origins, directions, t_min, t_max, cap, group_size):
     """The perray queries' common part: per-ray candidates (overflow rays
-    get none), grouped [N, ceil(cap / g), g], and the one-ray blocks."""
+    get none), grouped [N, ceil(cap / g), g], as the one-ray blocks (rays
+    [N, 8, 1] in pack_block_rays' layout, order_g, n_cand); and overflow."""
     n = origins.shape[0]
     order, n_cand, _entry, overflow = _perray_candidates(
         accel, origins, directions, t_min, t_max, cap)
@@ -652,8 +652,9 @@ def _perray_setup(accel, origins, directions, t_min, t_max, cap, group_size):
     if cap_pad - cap:
         order = torch.nn.functional.pad(order, (0, cap_pad - cap))
     order_g = order.reshape(n, cap_pad // g, g)
-    return (origins[:, None, :], directions[:, None, :], t_max[:, None],
-            n_cand, order_g), overflow, cap_pad // g - 1
+    rays = pack_block_rays(origins[:, None, :], directions[:, None, :],
+                           t_max[:, None], t_min)
+    return (rays, order_g, n_cand), overflow
 
 
 def _perray_fallback(origins, directions, t_max, overflow, block, run):
@@ -670,25 +671,35 @@ def _perray_fallback(origins, directions, t_max, overflow, block, run):
     return run(fo, fd, ftm)
 
 
-def _perray_sweeps(accel, n, group_size, tri_pack, dev):
-    """(rows a step, tri_pack, n_slots) of a perray query: on the card one
-    kslot_sweep launch an iteration over the active rays, each against its
-    g clusters (n_slots = g for every ray: the reference sweeps the whole
-    group, the filler ids past the count too); on the CPU the plain eager
-    sweeps, PACKET_SWEEP_ELEMS elements a step (tri_pack None)."""
-    if not _kernel_sweeps(dev):
-        return (max(1, PACKET_SWEEP_ELEMS
-                    // (group_size * accel.cluster_size)), None, None)
-    if tri_pack is None:
-        tri_pack = cuda_ctiles.pack_tris(accel)
-    n_slots = torch.full((n,), group_size, dtype=torch.int32, device=dev)
-    return n, tri_pack, n_slots
+def _perray_stage(accel, group_size, tri_pack, t_min, any_hit, dev):
+    """(stage for _cascade_stages, tri_pack) of a perray query: on the card
+    a stage is one call of cuda_cascade.perray_stage, one launch of the
+    stage kernel with the perray folds (tri_pack: pack_tris'); on the CPU
+    its plain version, cuda_cascade.perray_stage_plain, over the plain
+    eager sweeps above, PACKET_SWEEP_ELEMS elements a step (the results do
+    not depend on the step)."""
+    if _kernel_sweeps(dev):
+        if tri_pack is None:
+            tri_pack = cuda_ctiles.pack_tris(accel)
+        return (lambda b, c, k, thr: cuda_cascade.perray_stage(
+            tri_pack, b[0], b[1], b[2], c, k, thr)), tri_pack
+    step = max(1, PACKET_SWEEP_ELEMS // (group_size * accel.cluster_size))
 
+    def sweep(_pack, r, cid):
+        # r [n, 8]: o, d, the window's end (closest: min(t_max, best t))
+        parts = []
+        for lo in range(0, r.shape[0], step):
+            rs = r[lo:lo + step]
+            args = (accel, rs[:, None, 0:3], rs[:, None, 3:6], rs[:, 6:7],
+                    cid[lo:lo + step], t_min)
+            parts.append(_packet_sweep_any(*args) if any_hit
+                         else _packet_sweep_closest(*args))
+        if any_hit:
+            return (torch.cat(parts)[:, 0],)
+        return tuple(torch.cat([p[i] for p in parts])[:, 0] for i in (0, 1))
 
-def _perray_rays(ob, db, tb, t_min):
-    """[n, 8] kslot_sweep ray rows of one-ray blocks ob/db [n, 1, 3] with
-    window [t_min, tb [n, 1]]."""
-    return cuda_kslots.pack_rays(ob[:, 0], db[:, 0], tb[:, 0], t_min)
+    return (lambda b, c, k, thr: cuda_cascade.perray_stage_plain(
+        tri_pack, b[0], b[1], b[2], c, k, thr, sweep=sweep)), tri_pack
 
 
 def closest_hit_perray(accel: ClusterAccel, origins, directions, t_min,
@@ -700,51 +711,26 @@ def closest_hit_perray(accel: ClusterAccel, origins, directions, t_min,
     candidates an iteration in id order, t_cap = min(t_max, best t). The
     tie rule is the packet cascade's: within a group of g * S slots the
     first slot at the minimum t wins, and a later group replaces the best
-    only with a strictly smaller t. On the card an iteration's sweep is one
-    launch of kslot_sweep's first-slot instance (tri_pack: pack_tris'), on
-    the CPU the plain eager sweep (the reference's is XLA code). Rays with
-    more than `cap` candidates complete through closest_hit_packets
-    (blocks of fallback_block), so every ray is exact."""
+    only with a strictly smaller t. The cascade runs as _cascade_stages
+    (min_blocks 1024), each stage one call of cuda_cascade.perray_stage's
+    first-slot fold (on the card one launch of the stage kernel, tri_pack:
+    pack_tris'; on the CPU the plain eager sweep, the reference's being XLA
+    code). Rays with more than `cap` candidates complete through
+    closest_hit_packets (blocks of fallback_block), so every ray is exact;
+    the overflow count is one host read a call."""
     n = origins.shape[0]
     dev = origins.device
     t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
                                                device=dev), (n,))
-    blocks, overflow, max_k = _perray_setup(accel, origins, directions,
-                                            t_min, t_max, cap, group_size)
-    g = group_size
-    rows, tri_pack, n_slots = _perray_sweeps(accel, n, g, tri_pack, dev)
-
-    def active_fn(k, blocks, carry):
-        # id-ordered candidates: only exhaustion and dead rays stop a ray
-        tb, nc = blocks[2], blocks[3]
-        return (k * g < nc) & (tb[:, 0] >= 0.0)
-
-    def sweep_update(k, blocks, carry, idx):
-        ob, db, tb, _nc, ordg = blocks
-        best_t, best_id = (a.clone() for a in carry)
-        for lo in range(0, idx.numel(), rows):
-            sel = idx[lo:lo + rows]
-            bt = best_t[sel]
-            cap_t = torch.minimum(tb[sel], bt)
-            cid = ordg[sel, min(k, max_k)]
-            if tri_pack is not None:
-                ct, gid = cuda_kslots.kslot_sweep(
-                    tri_pack, _perray_rays(ob[sel], db[sel], cap_t, t_min),
-                    cid, n_slots[:sel.numel()], True, tie="slot")
-                ct, gid = ct[:, None], gid[:, None]
-            else:
-                ct, gid = _packet_sweep_closest(accel, ob[sel], db[sel],
-                                                cap_t, cid, t_min)
-            closer = ct < bt
-            best_t[sel] = torch.where(closer, ct, bt)
-            best_id[sel] = torch.where(closer, gid, best_id[sel])
-        return best_t, best_id
-
-    carry, blk_index = _cascade_traverse(
+    blocks, overflow = _perray_setup(accel, origins, directions, t_min, t_max,
+                                     cap, group_size)
+    stage, tri_pack = _perray_stage(accel, group_size, tri_pack, t_min, False,
+                                    dev)
+    carry, blk_index = _cascade_stages(
         blocks,
         (torch.full((n, 1), INF, dtype=torch.float32, device=dev),
          torch.full((n, 1), -1, dtype=torch.int32, device=dev)),
-        sweep_update, active_fn, min_blocks=1024)
+        stage, min_blocks=1024)
     best_t = _unpermute_blocks(carry[0], blk_index)[:, 0]
     best_id = _unpermute_blocks(carry[1], blk_index)[:, 0]
 
@@ -763,42 +749,22 @@ def any_hit_perray(accel: ClusterAccel, origins, directions, t_min, t_max,
                    cap: int = 64, group_size: int = 4,
                    fallback_block: int = 64, tri_pack=None) -> torch.Tensor:
     """Occlusion with exact per-ray candidate lists ([N] bool); a ray
-    leaves the cascade once occluded. On the card an iteration's sweep is
-    one launch of kslot_sweep's any-hit sweep (each active ray against its
-    g clusters), on the CPU the plain eager sweep. Rays with more than
-    `cap` candidates complete through any_hit_packets (blocks of
-    fallback_block; tri_pack as its)."""
+    leaves the cascade once occluded. The cascade runs as
+    closest_hit_perray's, each stage one call of
+    cuda_cascade.perray_stage's any-hit fold. Rays with more than `cap`
+    candidates complete through any_hit_packets (blocks of fallback_block;
+    tri_pack as its)."""
     n = origins.shape[0]
     dev = origins.device
     t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
                                                device=dev), (n,))
-    blocks, overflow, max_k = _perray_setup(accel, origins, directions,
-                                            t_min, t_max, cap, group_size)
-    g = group_size
-    rows, pack, n_slots = _perray_sweeps(accel, n, g, tri_pack, dev)
-
-    def active_fn(k, blocks, carry):
-        return (k * g < blocks[3]) & ~carry[0][:, 0]
-
-    def sweep_update(k, blocks, carry, idx):
-        ob, db, tb, _nc, ordg = blocks
-        occ = carry[0].clone()
-        for lo in range(0, idx.numel(), rows):
-            sel = idx[lo:lo + rows]
-            cid = ordg[sel, min(k, max_k)]
-            if pack is not None:
-                (hit,) = cuda_kslots.kslot_sweep(
-                    pack, _perray_rays(ob[sel], db[sel], tb[sel], t_min), cid,
-                    n_slots[:sel.numel()], False)
-                occ[sel] |= hit[:, None]
-            else:
-                occ[sel] |= _packet_sweep_any(accel, ob[sel], db[sel],
-                                              tb[sel], cid, t_min)
-        return (occ,)
-
-    carry, blk_index = _cascade_traverse(
+    blocks, overflow = _perray_setup(accel, origins, directions, t_min, t_max,
+                                     cap, group_size)
+    stage, tri_pack = _perray_stage(accel, group_size, tri_pack, t_min, True,
+                                    dev)
+    carry, blk_index = _cascade_stages(
         blocks, (torch.zeros((n, 1), dtype=torch.bool, device=dev),),
-        sweep_update, active_fn, min_blocks=1024)
+        stage, min_blocks=1024)
     occluded = _unpermute_blocks(carry[0], blk_index)[:, 0]
 
     fb = _perray_fallback(

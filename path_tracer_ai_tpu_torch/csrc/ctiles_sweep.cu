@@ -860,8 +860,7 @@ __device__ __forceinline__ unsigned sweep_slot(const StageArgs& a,
 }
 
 template <bool ANY_>
-struct TileFold {
-  static constexpr bool ANY = ANY_;
+struct TileFold : PacketRule<ANY_> {
   template <int S>
   __host__ __device__ static constexpr size_t warp_bytes() {
     return (size_t)(S ? S : CHUNK) * sizeof(TriRec);
@@ -870,8 +869,8 @@ struct TileFold {
   static __device__ __forceinline__ unsigned sweep(
       const StageArgs& a, StageShared& sh, int b, int slot, int k, int team,
       int part, int w, int round, int lane, unsigned char* buf) {
-    return sweep_slot<ANY, S, T>(a, sh, b, slot, k, team, part, w, round,
-                                 lane, reinterpret_cast<TriRec*>(buf));
+    return sweep_slot<ANY_, S, T>(a, sh, b, slot, k, team, part, w, round,
+                                  lane, reinterpret_cast<TriRec*>(buf));
   }
 };
 using TileAny = TileFold<true>;

@@ -297,8 +297,7 @@ extern "C" int block_anyhit_generic(const void* tri_pack, const void* rays,
 // outside [0, C] and sweeps the dummy in its place. The bits are those of
 // block_anyhit launched on the stage's active blocks once an iteration,
 // ORed into the carry.
-struct FusedAny {
-  static constexpr bool ANY = true;
+struct FusedAny : PacketRule<true> {
   template <int S>
   __host__ __device__ static constexpr size_t warp_bytes() {
     return (size_t)CHUNK * sizeof(TriRec);

@@ -311,8 +311,7 @@ __device__ __forceinline__ float torch_minimum(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
 }
 
-struct FusedClosest {
-  static constexpr bool ANY = false;
+struct FusedClosest : PacketRule<false> {
   template <int S>
   __host__ __device__ static constexpr size_t warp_bytes() {
     return (size_t)CHUNK * sizeof(TriRec);

@@ -21,7 +21,10 @@
 // the first at its minimum (strict t < best_t) with its slot; the warp then
 // takes the least key of t, the least slot among the lanes at it, and that
 // lane's t and id. The perray any-hit query (traverse.py:727-738) is the
-// any-hit mode as it is: each ray against its iteration's g clusters.
+// any-hit mode as it is: each ray against its iteration's g clusters. The
+// perray queries run these walks inside the stage kernel's perray folds
+// (kslot_walk; the end of this file); the standalone launches serve the
+// kslots backend and the perray queries' host-stepped comparison loop.
 //
 // Layouts (see accel/cuda_kslots.py):
 //   tri_pack [C, 10, S] f32 (cuda_ctiles.pack_tris): rows v0.xyz e1.xyz
@@ -70,6 +73,7 @@
 // and the any-hit OR is exact whichever test finds the hit first.
 
 #include "mt.cuh"
+#include "stage.cuh"
 
 #define PACK_ROWS 10
 #define KSLOT_WARPS 4        // rays (warps) a thread block
@@ -150,8 +154,78 @@ __device__ __forceinline__ bool walk_cluster(const float* __restrict__ base,
   return false;
 }
 
-// One warp a ray (see the header); S_T is S as a template constant, or 0
-// for S = s at run time. FIRST (with CLOSEST): the first-slot rule.
+// One warp's walk of a ray over the ns clusters rc[0 .. ns) (see the
+// header): ids outside [0, n_clusters) test nothing. S_T is S as a
+// template constant, or 0 for S = s at run time. Folds the passing tests
+// into each lane's (best_t, best_tri) (CLOSEST) and best_slot (FIRST, the
+// first-slot rule); returns, for an any-hit walk, whether some lane has
+// hit (the walk then ends). Shared by kslot_sweep_kernel and the perray
+// stage folds, so both run this code.
+template <int S_T, bool CLOSEST, bool FIRST = false>
+__device__ __forceinline__ bool kslot_walk(const float* __restrict__ tri_pack,
+                                           const int* __restrict__ rc,
+                                           int ns,
+                                           int n_clusters, int s, int lane,
+                                           const Ray& ray, float tmin,
+                                           float tmax, float* best_t,
+                                           int* best_tri, int* best_slot) {
+  bool occ = false;  // any hit: set once, and the walk ends
+  if (s >= 32) {
+    // slot by slot, each cluster by walk_cluster: KSLOT_UNROLL trips an
+    // iteration where S is a multiple of their 32 * KSLOT_UNROLL triangles
+    constexpr int W = 32 * KSLOT_UNROLL;
+    for (int k = 0; k < ns && !occ; ++k) {
+      const int c = rc[k];
+      if (c < 0 || c >= n_clusters) continue;  // warp-uniform
+      const float* base = tri_pack + (size_t)c * PACK_ROWS * s + lane;
+      if (S_T > 0 ? S_T % W == 0 : s % W == 0) {
+        occ = walk_cluster<KSLOT_UNROLL, false, CLOSEST, FIRST>(
+            base, s, lane, ray, tmin, tmax, best_t, best_tri, k * s,
+            best_slot);
+      } else {
+        occ = walk_cluster<1, true, CLOSEST, FIRST>(
+            base, s, lane, ray, tmin, tmax, best_t, best_tri, k * s,
+            best_slot);
+      }
+    }
+  } else {
+    // 32 / s slots a trip, lane l on triangle l % s of slot l / s
+    const int per = 32 / s;
+    const int ks = lane / s;
+    const int jl = lane - ks * s;
+    for (int k0 = 0; k0 < ns && !occ; k0 += per) {
+      const int k = k0 + ks;
+      const int c = (ks < per && k < ns) ? rc[k] : -1;
+      int tid;
+      const Tri tr = load_column_or_zero(
+          c >= 0 && c < n_clusters ? tri_pack + (size_t)c * PACK_ROWS * s + jl
+                                   : nullptr,
+          s, &tid);
+      const bool hit = test_tri<CLOSEST, FIRST>(
+          ray, tr, tid, tmin, tmax, best_t, best_tri, k * s + jl, best_slot);
+      if constexpr (!CLOSEST) occ = __any_sync(FULL_MASK, hit);
+    }
+  }
+  return occ;
+}
+
+// The warp's first-slot result from each lane's (best_t, best_tri,
+// best_slot): the least t, then the least slot among the lanes at it, and
+// that lane's (t, tri), in every lane; with no hit every lane holds (inf,
+// INT32_MAX, INT32_MAX).
+__device__ __forceinline__ void first_slot_reduce(float best_t, int best_tri,
+                                                  int best_slot, float* t_out,
+                                                  int* tri_out) {
+  const float t = key_float(__reduce_min_sync(FULL_MASK, order_key(best_t)));
+  const unsigned at = best_t == t ? (unsigned)best_slot : 0xffffffffu;
+  const unsigned slot = __reduce_min_sync(FULL_MASK, at);
+  const int src = __ffs(__ballot_sync(FULL_MASK, at == slot)) - 1;
+  *t_out = __shfl_sync(FULL_MASK, best_t, src);
+  *tri_out = __shfl_sync(FULL_MASK, best_tri, src);
+}
+
+// One warp a ray (see the header); S_T as kslot_walk's. FIRST (with
+// CLOSEST): the first-slot rule.
 template <int S_T, bool CLOSEST, bool FIRST = false>
 __global__ void __launch_bounds__(32 * KSLOT_WARPS, KSLOT_MIN_BLOCKS)
     kslot_sweep_kernel(const float* __restrict__ tri_pack,
@@ -181,62 +255,20 @@ __global__ void __launch_bounds__(32 * KSLOT_WARPS, KSLOT_MIN_BLOCKS)
     }
     return;
   }
-  const int* rc = cid + (size_t)r * k_slots;
 
   float best_t = INFINITY;
   int best_tri = I32_MAX;
   int best_slot = I32_MAX;  // FIRST only
-  bool occ = false;  // any hit: set once, and the walk ends
-  if (s >= 32) {
-    // slot by slot, each cluster by walk_cluster: KSLOT_UNROLL trips an
-    // iteration where S is a multiple of their 32 * KSLOT_UNROLL triangles
-    constexpr int W = 32 * KSLOT_UNROLL;
-    for (int k = 0; k < ns && !occ; ++k) {
-      const int c = rc[k];
-      if (c < 0 || c >= n_clusters) continue;  // warp-uniform
-      const float* base = tri_pack + (size_t)c * PACK_ROWS * s + lane;
-      if (S_T > 0 ? S_T % W == 0 : s % W == 0) {
-        occ = walk_cluster<KSLOT_UNROLL, false, CLOSEST, FIRST>(
-            base, s, lane, ray, tmin, tmax, &best_t, &best_tri, k * s,
-            &best_slot);
-      } else {
-        occ = walk_cluster<1, true, CLOSEST, FIRST>(
-            base, s, lane, ray, tmin, tmax, &best_t, &best_tri, k * s,
-            &best_slot);
-      }
-    }
-  } else {
-    // 32 / s slots a trip, lane l on triangle l % s of slot l / s
-    const int per = 32 / s;
-    const int ks = lane / s;
-    const int jl = lane - ks * s;
-    for (int k0 = 0; k0 < ns && !occ; k0 += per) {
-      const int k = k0 + ks;
-      const int c = (ks < per && k < ns) ? rc[k] : -1;
-      int tid;
-      const Tri tr = load_column_or_zero(
-          c >= 0 && c < n_clusters ? tri_pack + (size_t)c * PACK_ROWS * s + jl
-                                   : nullptr,
-          s, &tid);
-      const bool hit = test_tri<CLOSEST, FIRST>(
-          ray, tr, tid, tmin, tmax, &best_t, &best_tri, k * s + jl,
-          &best_slot);
-      if constexpr (!CLOSEST) occ = __any_sync(FULL_MASK, hit);
-    }
-  }
+  const bool occ = kslot_walk<S_T, CLOSEST, FIRST>(
+      tri_pack, cid + (size_t)r * k_slots, ns, n_clusters, s, lane, ray, tmin,
+      tmax, &best_t, &best_tri, &best_slot);
 
   if constexpr (CLOSEST && FIRST) {
-    // the least t, then the least slot among the lanes at it: that lane's
-    // (t, tri); with no hit every lane holds (inf, INT32_MAX, INT32_MAX)
-    const float t =
-        key_float(__reduce_min_sync(FULL_MASK, order_key(best_t)));
-    const unsigned at = best_t == t ? (unsigned)best_slot : 0xffffffffu;
-    const unsigned slot = __reduce_min_sync(FULL_MASK, at);
-    const int src = __ffs(__ballot_sync(FULL_MASK, at == slot)) - 1;
-    const float t_first = __shfl_sync(FULL_MASK, best_t, src);
-    const int tri = __shfl_sync(FULL_MASK, best_tri, src);
+    float t;
+    int tri;
+    first_slot_reduce(best_t, best_tri, best_slot, &t, &tri);
     if (lane == 0) {
-      reinterpret_cast<float*>(out_a)[r] = t_first;
+      reinterpret_cast<float*>(out_a)[r] = t;
       out_b[r] = tri;
     }
   } else if constexpr (CLOSEST) {
@@ -354,4 +386,144 @@ extern "C" int kslot_sweep_generic(const void* tri_pack, const void* rays,
   if (s < 1) return (int)cudaErrorInvalidValue;
   return launch_mode<0>(tri_pack, rays, cid, n_slots, out_a, out_b, n_rays,
                         k_slots, n_clusters, s, closest, (cudaStream_t)stream);
+}
+
+// ---- the perray queries' stage: one stage as one launch -------------------
+//
+// The perray queries' loop (closest_hit_perray, any_hit_perray:
+// traverse._cascade_stages, min_blocks 1024) runs each stage as one
+// cooperative launch of stage.cuh's kernel with these folds: ray blocks of
+// ONE ray (rays [size, 8, 1], T = 1: the stage loop's first pass gives a
+// ray a warp, of which lane 0 votes), order_g [size, kgroups, g] the ray's
+// candidate clusters in id order. Both folds take the open rule (ANY): a
+// ray's vote only closes, so the sweep set is act, as the loop stepped on
+// the host swept its active rays; there the JAX package's active_fn
+// (traverse.py:648-665, 727-738): any hit, act = k g < n_cand & not
+// occluded (a dead ray is active until it runs out of candidates, and
+// tests nothing); closest, act = k g < n_cand & t_max >= 0 (no entry rule:
+// the candidates come in id order; a NaN t_max is not active).
+//
+// The sweep of a listed ray is kslot_sweep_kernel's walk of one ray
+// (kslot_walk): its warp takes the g clusters of group min(k, kgroups - 1),
+// ALL g slots, the filler ids past n_cand too (the reference sweeps the
+// whole group; ids outside [0, C) test nothing), the S triangles of each
+// 32 lanes a trip. Any hit: the walk leaves once a lane has hit, and the
+// carry becomes occluded. Closest: the first-slot walk on the window
+// [t_min, torch.minimum(t_max, best_t)], reduced by first_slot_reduce, and
+// the carry replaced only where that t < best_t (the first group at the
+// minimum keeps it). The bits are those of kslot_sweep launched on the
+// active rays once an iteration. One warp a ray (W = 1): a stage's tail
+// is a few thousand rays, each 16 trips long at g 4, S 128. One instance,
+// S at run time (perray_stage).
+//
+// What bounds it: kslot_sweep's walk, instruction issue (about 110
+// instructions a test under --fmad=false), and at the tail stages the
+// latency of one ray's walk; the stage loop keeps 8-warp thread blocks, at
+// most 80 registers a thread.
+template <bool CLOSEST>
+struct PerrayFold {
+  static constexpr bool ANY = true;  // the open rule (see above)
+  template <int S>
+  __host__ __device__ static constexpr size_t warp_bytes() {
+    return 0;
+  }
+  template <int T>
+  static __device__ __forceinline__ unsigned first_vote(const StageArgs& a,
+                                                        int b, int) {
+    if constexpr (CLOSEST) {
+      return a.rays[(size_t)b * RAY_ROWS + 6] >= 0.0f ? 1u : 0u;
+    } else {
+      return __ldcg(a.occ + b) != 0 ? 0u : 1u;
+    }
+  }
+  template <int S, int T>
+  static __device__ __forceinline__ unsigned sweep(
+      const StageArgs& a, StageShared&, int b, int, int k, int, int, int,
+      int, int lane, unsigned char*) {
+    const float* rp = a.rays + (size_t)b * RAY_ROWS;
+    const Ray ray = {rp[0], rp[1], rp[2], rp[3], rp[4], rp[5]};
+    const float tmax = rp[6], tmin = rp[7];
+    const int kk = k < a.kgroups - 1 ? k : a.kgroups - 1;
+    const int* rc = a.order_g + ((size_t)b * a.kgroups + kk) * a.g;
+    float best_t = INFINITY;
+    int best_tri = I32_MAX;
+    int best_slot = I32_MAX;
+    if constexpr (CLOSEST) {
+      const float bt = __ldcg(a.best_t + b);
+      // torch.minimum: a NaN t_max stays NaN and passes no test
+      const float cap = tmax != tmax ? tmax : fminf(tmax, bt);
+      if (cap >= tmin) {  // warp-uniform
+        kslot_walk<S, true, true>(a.tri_pack, rc, a.g, a.n_clusters, a.s,
+                                  lane, ray, tmin, cap, &best_t, &best_tri,
+                                  &best_slot);
+      }
+      float t;
+      int tri;
+      first_slot_reduce(best_t, best_tri, best_slot, &t, &tri);
+      if (lane == 0 && t < bt) {
+        a.best_t[b] = t;
+        a.best_id[b] = tri;
+      }
+      return tmax >= 0.0f ? 1u : 0u;
+    } else {
+      // a listed ray is not occluded
+      const bool occ =
+          tmax >= tmin &&
+          kslot_walk<S, false>(a.tri_pack, rc, a.g, a.n_clusters, a.s, lane,
+                               ray, tmin, tmax, &best_t, &best_tri,
+                               &best_slot);
+      if (lane == 0 && occ) a.occ[b] = 1;
+      return occ ? 0u : 1u;
+    }
+  }
+};
+using PerrayAny = PerrayFold<false>;
+using PerrayFirst = PerrayFold<true>;
+
+static StageArgs perray_args(const void* tri_pack, const void* rays,
+                             const void* order_g, const void* n_cand,
+                             void* occ, void* best_t, void* best_id,
+                             void* k_io, void* act, void* work, int size,
+                             int kgroups, int g, int s, int n_clusters,
+                             int threshold) {
+  unsigned* words = (unsigned*)work;
+  return StageArgs{(const float*)tri_pack, (const float*)rays,
+                   (const int*)order_g, (const int*)n_cand, nullptr,
+                   (unsigned char*)occ, (float*)best_t, (int*)best_id,
+                   (int*)k_io, (unsigned char*)act,
+                   (unsigned long long*)words, words + STAGE_SYNC_WORDS,
+                   words + STAGE_SYNC_WORDS + size,
+                   (int*)(words + STAGE_SYNC_WORDS + 2 * (size_t)size),
+                   size, kgroups, g, s, 1, n_clusters, 0, threshold, 1, 0,
+                   nullptr};
+}
+
+// One stage of a perray query on `stream`, for any S >= 1: tri_pack [C,
+// 10, S], rays [size, 8, 1], order_g [size, kgroups, g], n_cand [size];
+// any_hit 1 with occ [size] u8, 0 (first-slot closest) with best_t [size]
+// f32 and best_id [size] i32 (the carry); k_io [1], act [size] u8; work:
+// 14 + 4 size 32-bit words, the first 14 + 2 size zero. Returns the
+// cudaError_t of the launch (0 = ok). One instance, S at run time: an
+// instance at S 128 took the same time or longer on every stage of the
+// perray bench render's kept calls (PERF.md §6).
+extern "C" int perray_stage(const void* tri_pack, const void* rays,
+                            const void* order_g, const void* n_cand,
+                            void* occ, void* best_t, void* best_id,
+                            void* k_io, void* act, void* work, int size,
+                            int kgroups, int g, int s, int n_clusters,
+                            int threshold, int any_hit, void* stream) {
+  if (size <= 0) return 0;
+  if (g < 1 || kgroups < 1 || s < 1) return (int)cudaErrorInvalidValue;
+  const StageArgs a =
+      perray_args(tri_pack, rays, order_g, n_cand, occ, best_t, best_id,
+                  k_io, act, work, size, kgroups, g, s, n_clusters, threshold);
+  return any_hit ? launch_stage<PerrayAny, 0, 1>(a, (cudaStream_t)stream)
+                 : launch_stage<PerrayFirst, 0, 1>(a, (cudaStream_t)stream);
+}
+
+// Registers per thread and resident warps per SM of a perray fold.
+extern "C" int perray_stage_occupancy(int any_hit, int* regs,
+                                      int* warps_per_sm) {
+  return any_hit ? stage_occupancy<PerrayAny, 0, 1>(regs, warps_per_sm)
+                 : stage_occupancy<PerrayFirst, 0, 1>(regs, warps_per_sm);
 }

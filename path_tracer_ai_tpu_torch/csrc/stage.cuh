@@ -4,9 +4,10 @@
 // Replaces no Pallas kernel: it carries the jax.lax.while_loop of
 // path_tracer_ai_tpu/accel/traverse.py `_cascade_traverse` (traverse.py:
 // 439-520), whose condition XLA evaluates on the device, for the packet
-// cascades (ctiles_sweep.cu: any_hit_packets and closest_hit_packets) and
-// the fused cascades (fused_anyhit.cu, fused_closest.cu: any_hit_fused and
-// closest_hit_fused). One launch runs one stage of a cascade to its end: on
+// cascades (ctiles_sweep.cu: any_hit_packets and closest_hit_packets), the
+// fused cascades (fused_anyhit.cu, fused_closest.cu: any_hit_fused and
+// closest_hit_fused) and the perray queries (kslot_sweep.cu:
+// any_hit_perray and closest_hit_perray, blocks of one ray). One launch runs one stage of a cascade to its end: on
 // a slice of `size` ray blocks of T lanes, with the iteration counter k
 // read from and written back to the device,
 //
@@ -14,9 +15,13 @@
 //         stop when sum(act) <= threshold (0 in the last stage);
 //         sweep group k (its g clusters) for the sweep set and fold; k += 1.
 //
-// Two rules, two sweep sets (Fold::ANY). Any hit: act = k g < n_cand & some
-// lane is neither occluded nor dead (t_max < 0); the sweep set is act (the
-// reference's blk_on, traverse.py:950-955); the carry is occ [size, T].
+// Two rules, two sweep sets (Fold::ANY). ANY, the open rule: act = k g <
+// n_cand & the block's vote, an OR over its lanes of a state that only
+// closes; the sweep set is act. The packet and fused any hit: some lane is
+// neither occluded nor dead (t_max < 0) (the reference's blk_on,
+// traverse.py:950-955), the carry occ [size, T]; perray's any hit: the ray
+// is not occluded; perray's closest: its t_max >= 0 (traverse.py:648-665,
+// 727-738; carry occ or (best_t, best_id) [size, 1]).
 // Closest: act = k g < n_cand & entry[b, min(k, kgroups - 1) g] <= the
 // largest best t of a live lane; the sweep set is EVERY block with k g <
 // n_cand, also those the entry rule has retired while the stage runs on
@@ -62,6 +67,9 @@
 //
 // A fold is a type with
 //   static constexpr bool ANY;                      // the rule, as above
+//   template <int T> static __device__ unsigned first_vote(
+//       const StageArgs&, int b, int lane);          // the first pass's
+//                                                    // vote (PacketRule's)
 //   template <int S> __host__ __device__ static constexpr size_t
 //       warp_bytes();                                 // a warp's buffer
 //   template <int S, int T> static __device__ unsigned sweep(
@@ -181,12 +189,13 @@ __device__ __forceinline__ void slot_voted(const StageArgs& a, StageShared& sh,
   }
 }
 
-// The first pass: block b's vote on k (no sweep), a warp a block, its
-// slots in turn: any hit, some lane neither occluded nor dead; first slot,
-// the largest order_key of a live lane's best t (order_key(-inf) if none).
+// The packet and fused folds' first pass: block b's vote on k (no sweep),
+// a warp a block, its slots in turn: any hit, some lane neither occluded
+// nor dead; first slot, the largest order_key of a live lane's best t
+// (order_key(-inf) if none).
 template <bool ANY, int T>
-__device__ __forceinline__ unsigned first_vote(const StageArgs& a, int b,
-                                               int lane) {
+__device__ __forceinline__ unsigned packet_first_vote(const StageArgs& a,
+                                                      int b, int lane) {
   const int t_lanes = T ? T : a.t_lanes;
   const float* r = a.rays + (size_t)b * RAY_ROWS * t_lanes;
   unsigned v = ANY ? 0u : order_key(-INFINITY);
@@ -207,6 +216,18 @@ __device__ __forceinline__ unsigned first_vote(const StageArgs& a, int b,
   }
   return v;
 }
+
+// The packet rules (ANY: any hit, else the entry rule) and their first
+// vote: the base of the packet and fused folds.
+template <bool ANY_>
+struct PacketRule {
+  static constexpr bool ANY = ANY_;
+  template <int T>
+  static __device__ __forceinline__ unsigned first_vote(const StageArgs& a,
+                                                        int b, int lane) {
+    return packet_first_vote<ANY_, T>(a, b, lane);
+  }
+};
 
 // A fused fold's candidate for lane `lane`: lane j < g reads id j of block
 // b's group min(k, kgroups - 1), lanes past g take the dummy, n_clusters.
@@ -335,7 +356,8 @@ __global__ void __launch_bounds__(STAGE_WARPS * 32, STAGE_MIN_BLOCKS)
 #pragma unroll 1
       for (int b = blockIdx.x * STAGE_WARPS + warp; b < a.size; b += stride) {
         const bool voting = k * a.g < a.n_cand[b];
-        const unsigned v = voting ? first_vote<ANY, T>(a, b, lane) : 0u;
+        const unsigned v =
+            voting ? Fold::template first_vote<T>(a, b, lane) : 0u;
         if (lane == 0) decide<ANY>(a, sh, par, b, k, v, voting);
       }
     } else {

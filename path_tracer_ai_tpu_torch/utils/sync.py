@@ -8,13 +8,14 @@ by call site (`sites`: "module:line" of the caller -> reads).
 
 The packet cascades' while_loop (any_hit_packets, closest_hit_packets)
 runs on the card, in the cascade stage kernel (accel.cuda_cascade): they
-read nothing back (but the exact cull's live block count). So does the
+read nothing back (but the exact cull's live block count). So do the
 fused cascades' (any_hit_fused, closest_hit_fused; the same module),
-which reads one value a cascade: the candidate ids' range check. Still read
-on the host: the bounce loop's live counts and the counters, ctiles'
-n_live / n_slots, the worklist's and kslots' table sizes, and the
-host-stepped loop of traverse._cascade_traverse (the perray queries), one
-read a vote.
+which read one value a cascade, the candidate ids' range check, and the
+perray queries' (closest_hit_perray, any_hit_perray), which read one a
+call, the overflow count. Still read on the host: the bounce loop's live
+counts and the counters, ctiles' n_live / n_slots, the worklist's and
+kslots' table sizes, and the host-stepped comparison loops (the stages'
+plain versions, traverse._cascade_traverse), one read a vote.
 
 `lock` guards these counts and the port's other module-level counts (the
 kernel wrappers' launches, the overflow counts): the mesh's workers

@@ -2,7 +2,7 @@
 given (default: this checkout).
 
     python3 scripts/torch_route_timing.py [--tree DIR] [--reps N]
-        [--routes main_path,virtual_mesh_2x2,fused,pallas,pool]
+        [--routes main_path,virtual_mesh_2x2,fused,pallas,pool,perray]
         [--profile fused,...]
 
 DIR holds a checkout of the repository (for example a parent commit,
@@ -12,7 +12,8 @@ and its kernels are built in its own `_build`. The bench cell: blob subdiv
 (`wavefront.render`, waves of 2^20), `render_sharded_wavefront` over a
 virtual (2, 2) mesh of cuda:0, the fused cascades (and, as "fused_exact",
 the same with exact_cull=16 in both engines), `backend="pallas"`
-(blocks of 64) and the pool scheduler. After one warm render of each, each
+(blocks of 64), the pool scheduler and `backend="perray"` (the per-ray
+queries). After one warm render of each, each
 of `reps` rounds renders every route in turn, synchronised, and the script
 prints one JSON line: the card's name and power limit, the tree, each
 round's seconds and each route's time over the main path's. Run two trees
@@ -23,8 +24,9 @@ on one card. Needs a GPU.
 more: once with the tree's host-read counts (utils.sync, by call site
 where the tree has them) and kernel launch counts set to 0, and once under
 torch.profiler (device kernels and their seconds, the busy share over the
-route's fastest round, and the kernels whose symbols name a cascade's
-sweep or stage). The JSON line then also holds "profiles".
+route's fastest round, the kernels whose symbols name a cascade's
+sweep or stage, and the twelve kernels that took the most device time).
+The JSON line then also holds "profiles".
 """
 
 import argparse
@@ -103,6 +105,9 @@ def main() -> int:
         "pool": lambda: wavefront.render(
             scene, cam, settings, accel=accel, scheduler="pool",
             wave_size=1 << 20, device="cuda"),
+        "perray": lambda: wavefront.render(
+            scene, cam, settings, accel=accel, backend="perray",
+            wave_size=1 << 20, device="cuda"),
     }
     names = args.routes.split(",")
     if "main_path" not in names or not set(names) <= set(every):
@@ -138,9 +143,11 @@ def main() -> int:
 
 # Substrings of the kernel symbols that a cascade's sweep or stage runs.
 CASCADE_KERNELS = ("block_anyhit_kernel", "block_closest_kernel",
-                   "cascade_stage_kernel", "tile_sweep_kernel")
+                   "cascade_stage_kernel", "tile_sweep_kernel",
+                   "kslot_sweep_kernel")
 # The kernel wrappers' modules and their launch counts (module attribute).
-LAUNCH_COUNTS = ("cuda_anyhit", "cuda_closest", "cuda_cascade", "cuda_ctiles")
+LAUNCH_COUNTS = ("cuda_anyhit", "cuda_closest", "cuda_cascade", "cuda_ctiles",
+                 "cuda_kslots")
 
 
 def _launch_counts() -> dict:
@@ -206,7 +213,11 @@ def _profile(fn, timed, best_seconds) -> dict:
         "cascade_kernels": [
             {"name": e.key[:100], "count": int(e.count),
              "seconds": dev_us(e) / 1e6} for e in kernels
-            if any(k in e.key for k in CASCADE_KERNELS)]})
+            if any(k in e.key for k in CASCADE_KERNELS)],
+        "top_kernels": [
+            {"name": e.key[:100], "count": int(e.count),
+             "seconds": dev_us(e) / 1e6}
+            for e in sorted(kernels, key=dev_us, reverse=True)[:12]]})
     return res
 
 

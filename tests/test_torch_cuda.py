@@ -1406,9 +1406,9 @@ def test_packet_cascade_routes_render_on_gpu(cuda, monkeypatch, route):
     "packets" backend at blocks of 256 (tuned T 256) and 64, the worklist
     with its closest fallback forced onto the whole wave (cap 4,
     fallback_compact 1: the packet cascade at T 64), both through the
-    cascade stage kernel's first-slot fold, and perray (kslot_sweep
-    first-slot and any-hit). Each launches its kernel and never the eager
-    sweeps; packets and worklist equal the oracle's image bitwise, perray
+    cascade stage kernel's first-slot fold, and perray (the stage kernel's
+    perray folds, first-slot and any-hit). Each launches its kernel and
+    never the eager sweeps; packets and worklist equal the oracle's image bitwise, perray
     at atol 1e-5 (as test_ctiles_and_perray_render_on_gpu holds it)."""
     from path_tracer_ai_tpu_torch.accel import traverse
     from path_tracer_ai_tpu_torch.config import RenderSettings
@@ -1432,19 +1432,17 @@ def test_packet_cascade_routes_render_on_gpu(cuda, monkeypatch, route):
         kw.update(backend="worklist")
         monkeypatch.setattr(wavefront, "WORKLIST_CLOSEST_KW", dict(
             cap=4, item_budget=2, fallback_compact=1))
-    before = (cuda_ctiles.slot_launches, cuda_kslots.slot_launches,
-              cuda_kslots.launches,
-              cuda_cascade.launches["cascade_stage_first"])
+    before = dict(cuda_cascade.launches)
     img = wavefront.render(scene, cam, s, **kw)
     ref = oracle.render(scene, cam, s, device=cuda)
     assert not eager
     if route == "perray":
-        assert cuda_kslots.slot_launches > before[1]
-        assert (cuda_kslots.launches - before[2]
-                > cuda_kslots.slot_launches - before[1])  # any hit too
+        for name in cuda_cascade.PERRAY_NAMES.values():
+            assert cuda_cascade.launches[name] > before[name]
         np.testing.assert_allclose(img, ref, atol=1e-5)
         return
-    assert cuda_cascade.launches["cascade_stage_first"] > before[3]
+    assert (cuda_cascade.launches["cascade_stage_first"]
+            > before["cascade_stage_first"])
     np.testing.assert_array_equal(img, ref)
 
 
@@ -1856,3 +1854,157 @@ def test_fused_closest_sweep_set_on_the_card(cuda):
                                          sort=False)
     assert int(got.tri[0]) == 10 and float(got.t[0]) == float(sc["t"])
     assert not bool(got.hit[128])
+
+
+# --- the perray stage: the perray queries' loop on the card ----------------
+
+def _perray_run(stage, case, closest, dev):
+    """The crafted perray cascade through traverse._cascade_stages
+    (min_blocks as the crafted cases') with `stage`: (carry, blk_index,
+    [(k out, act, carry)] a stage)."""
+    from path_tracer_ai_tpu_torch.accel import traverse
+
+    t = lambda a: torch.as_tensor(a, device=dev)
+    pack = t(cases.pack(case))
+    n = case["n_cand"].shape[0]
+    blocks = (t(case["rays"]), t(case["order_g"]), t(case["n_cand"]))
+    carry = ((torch.full((n, 1), np.inf, device=dev),
+              torch.full((n, 1), -1, dtype=torch.int32, device=dev))
+             if closest else
+             (torch.zeros((n, 1), dtype=torch.bool, device=dev),))
+    stages = []
+
+    def run(b, c, k, thr):
+        out = stage(pack, b[0], b[1], b[2], c, k, thr)
+        stages.append((int(out[1]), out[2].clone(),
+                       tuple(x.clone() for x in out[0])))
+        return out
+
+    carry, blk = traverse._cascade_stages(blocks, carry, run,
+                                          min_blocks=cases.PERRAY_MIN_BLOCKS)
+    return carry, blk, stages
+
+
+def _eager_perray(any_hit):
+    """perray_stage_plain sweeping through kslot_sweep's plain version
+    (eager torch on the card)."""
+    from functools import partial
+
+    def sweep(pack, rays, cid):
+        n_slots = torch.full((rays.shape[0],), cid.shape[1],
+                             dtype=torch.int32, device=rays.device)
+        return cuda_kslots.kslot_sweep_plain(
+            pack, rays, cid, n_slots, not any_hit,
+            **({} if any_hit else {"tie": "slot"}))
+
+    return partial(cuda_cascade.perray_stage_plain, sweep=sweep)
+
+
+@pytest.mark.parametrize("closest", [False, True])
+@pytest.mark.parametrize("g", cases.PERRAY_G)
+@pytest.mark.parametrize("s", cases.PERRAY_S)
+@pytest.mark.parametrize("name", cases.PERRAY_CASES)
+def test_perray_stage_matches_plain(cuda, name, s, g, closest):
+    """The perray stage kernel (one instance, S at run time) on the
+    crafted perray cascades, through traverse._cascade_stages: at every
+    stage carry, k and act bit for bit those of the plain version (eager
+    sweeps) and of the host-stepped loop (kslot_sweep launched once an
+    iteration); one launch a stage."""
+    case = cases.perray_case(name, s, g)
+    name_k = cuda_cascade.PERRAY_NAMES[not closest]
+    eager = _perray_run(_eager_perray(not closest), case, closest, cuda)
+    stepped = _perray_run(cuda_cascade.perray_stage_plain, case, closest,
+                          cuda)
+    _same_fused(stepped, eager)
+    cuda_cascade.reset_launches()
+    got = _perray_run(cuda_cascade.perray_stage, case, closest, cuda)
+    torch.cuda.synchronize()
+    assert cuda_cascade.launches[name_k] == len(got[2]) == 4
+    assert set(cuda_cascade.launch_shapes) == {
+        (name_k, 1, s, g, 1, "generic")}
+    _same_fused(got, eager)
+
+
+@pytest.mark.parametrize("query", ["any", "closest"])
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_perray_queries_read_one_host_value(cuda, rng, monkeypatch, query, g):
+    """closest_hit_perray and any_hit_perray on a 2^14-ray bounce wave of
+    the blob accel (cap 64: no ray overflows; cap 8: some do, and go to the
+    packet fallback): every stage of the stage kernel and the whole query
+    bit for bit the host-stepped loop's (perray_stage_plain sweeping
+    through kslot_sweep) and the plain version's (eager sweeps); the query
+    reads one value back to the host, the overflow count."""
+    from path_tracer_ai_tpu_torch.accel import traverse
+    from path_tracer_ai_tpu_torch.utils import sync
+
+    acc = _accel(cuda)
+    o, d, tm = _bounce_wave(acc, 1 << 14, rng)
+    fn = (traverse.closest_hit_perray if query == "closest"
+          else traverse.any_hit_perray)
+    for cap in (64, 8):
+        kw = dict(cap=cap, group_size=g)
+        runs = {}
+        for label, stage in (
+                ("kernel", cuda_cascade.perray_stage),
+                ("stepped", cuda_cascade.perray_stage_plain),
+                ("eager", _eager_perray(query == "any"))):
+            stages = []
+
+            def spy(*a, _stage=stage):
+                k_in = int(a[5])
+                out = _stage(*a)
+                stages.append((k_in, int(out[1]), out[2].clone(),
+                               tuple(x.clone() for x in out[0])))
+                return out
+
+            monkeypatch.setattr(cuda_cascade, "perray_stage", spy)
+            torch.cuda.synchronize()
+            reads = sync.count
+            out = fn(acc, o, d, 1e-3, tm, **kw)
+            torch.cuda.synchronize()
+            if label == "kernel":
+                # the overflow count only (and the fallback's none)
+                assert sync.count - reads == 1
+            runs[label] = (out, stages)
+        monkeypatch.undo()
+        got = runs["kernel"]
+        assert len(got[1]) == 5  # 2^14 rays: stages down to 1,024
+        for other in ("stepped", "eager"):
+            want = runs[other]
+            if query == "closest":
+                assert torch.equal(_bits(got[0].t), _bits(want[0].t))
+                assert torch.equal(got[0].tri, want[0].tri)
+            else:
+                assert torch.equal(got[0], want[0])
+            assert len(got[1]) == len(want[1])
+            for a, b in zip(got[1], want[1]):
+                assert a[:2] == b[:2] and torch.equal(a[2], b[2])
+                for x, y in zip(a[3], b[3]):
+                    assert torch.equal(
+                        _bits(x) if x.dtype == torch.float32 else x,
+                        _bits(y) if y.dtype == torch.float32 else y)
+        hits = got[0].hit if query == "closest" else got[0]
+        assert 0 < hits.float().mean() < 1
+
+
+def test_perray_stage_checks_and_failed_launch_raise(cuda, monkeypatch):
+    """perray_stage refuses blocks of more than one ray (ValueError) and
+    raises RuntimeError when its launch reports an error: there is no
+    fallback."""
+    from path_tracer_ai_tpu_torch import cuda_build
+
+    case = cases.perray_case("exhausted", 128, 4)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    pack, rays = t(cases.pack(case)), t(case["rays"])
+    order_g, n_cand = t(case["order_g"]), t(case["n_cand"])
+    n = n_cand.shape[0]
+    k = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    occ = (torch.zeros((n, 1), dtype=torch.bool, device=cuda),)
+    with pytest.raises(ValueError, match="perray_stage_any"):
+        cuda_cascade.perray_stage(pack, rays.expand(n, 8, 2).contiguous(),
+                                  order_g, n_cand,
+                                  (torch.zeros((n, 2), dtype=torch.bool,
+                                               device=cuda),), k, 0)
+    monkeypatch.setattr(cuda_build, "launch", lambda *a: 9)
+    with pytest.raises(RuntimeError, match="perray_stage launch failed"):
+        cuda_cascade.perray_stage(pack, rays, order_g, n_cand, occ, k, 0)

@@ -28,7 +28,9 @@ cascades: ray blocks with their candidate tables, for the cascade stage
 first-slot closest (see cascade_case for each case). The split cases
 (SPLIT_CASES, split_case) are cascades of the same layout whose exact ties
 straddle the boundaries where the stage kernel cuts a slot's group into W
-ranges, one a warp.
+ranges, one a warp. The perray cases (PERRAY_CASES, perray_case) are whole
+perray cascades: one-ray blocks with their candidate rows, for the perray
+stage (see perray_case).
 """
 
 import numpy as np
@@ -631,6 +633,100 @@ def fused_cascade_case(name: str, s: int, t_lanes: int, seed: int = 0,
     return {**geo, **case, "rays": np.ascontiguousarray(rays, np.float32),
             "order_g": np.ascontiguousarray(order.reshape(nb, -1, FUSED_G)),
             "entry": np.ascontiguousarray(case["entry"], np.float32)}
+
+
+# --- the perray cases: whole perray cascades, blocks of one ray -------------
+
+PERRAY_CASES = ("dead_and_zero", "no_candidates", "exhausted", "group_ties",
+                "filler_hit", "cap_over_c", "signed_zero")
+PERRAY_G = (1, 4, 8)    # clusters a group
+PERRAY_S = (2, 128)     # triangles a cluster
+PERRAY_RAYS = 256
+PERRAY_MIN_BLOCKS = 32  # stages of 256, 128, 64 and 32 rays
+
+
+def _perray_row(cand, c_n: int, cap: int) -> list:
+    """A ray's candidate row as traverse._perray_candidates builds it in id
+    mode: the candidates, then C - 1 up to C, then 0 up to cap."""
+    cand = [int(c) for c in cand][:cap]
+    return (cand + [c_n - 1] * max(0, min(cap, c_n) - len(cand))
+            + [0] * max(0, cap - max(c_n, len(cand))))
+
+
+def perray_case(name: str, s: int, g: int, seed: int = 0,
+                n: int = PERRAY_RAYS) -> dict:
+    """One crafted perray cascade in the layout of the perray stage
+    (cuda_cascade.perray_stage, blocks of one ray): fused_clusters'
+    geometry (C = 13; cluster 12, the filler id C - 1, is cluster 0 again
+    with smaller ids), rays o, d [n, 3], tm [n], t_min, rays [n, 8, 1]
+    (traverse.pack_block_rays' layout), order_g [n, K, g] i32 (K =
+    ceil(cap / g), _perray_row's rows padded with 0), n_cand [n] i32 and
+    cap. Rays from z = -2 through the unit square (cluster 0's plane z = 1
+    the nearest but cluster 11's) unless said otherwise. Cases:
+
+    dead_and_zero: t_max -1, -0.0, +0.0, NaN, inf and [3.5, 12] in turn:
+      the closest fold's rule retires the dead and NaN rays at once, the
+      any-hit fold's keeps them until they run out of candidates.
+    no_candidates: every third ray has n_cand 0 (an overflowed ray's row).
+    exhausted: n_cand = ray % (C + 1), every other ray short of every plane
+      (t_max 0.5): rays run out of candidates at every k.
+    group_ties: rays aimed through cluster 0's triangles, cluster 0 first
+      in group 0 and its copy 12 (smaller ids) first in group 1, or the
+      other way round, far clusters (1-9) elsewhere: an exact t tie across
+      groups, which the first group keeps.
+    filler_hit: t_max inf, n_cand = 1 + ray % g far clusters: the nearer
+      filler C - 1 past n_cand in the last swept group gives the hit.
+    cap_over_c: cap C + 3, columns past C hold cluster 0 (a real one) and
+      are swept with the group that holds them.
+    signed_zero: t_min 0, rays from the plane z = 1 through cluster 0's
+      triangles, cluster 0 (t -0.0) and cluster 10 (t +0.0) first in
+      groups 0 and 1 in either order: exact ties of signed zeros."""
+    rng = np.random.default_rng([seed, s, g, 700 + PERRAY_CASES.index(name)])
+    geo = fused_clusters(s)
+    c_n = FUSED_C
+    cap = c_n + 3 if name == "cap_over_c" else c_n
+    o, d, tm = _rays(rng, n, s)
+    t_min = T_MIN
+    if name in ("group_ties", "signed_zero"):
+        o, d = _aimed_rays(rng, n, s, 1.0 if name == "signed_zero" else -2.0)
+        tm[:] = np.inf
+    if name == "signed_zero":
+        t_min = 0.0
+    far = list(range(1, 10))
+    rows, ncs = [], []
+    for r in range(n):
+        if name in ("group_ties", "signed_zero"):
+            pair = (0, 12) if name == "group_ties" else (0, 10)
+            first, second = pair[::-1] if r % 2 else pair
+            fill = [int(c) for c in rng.choice(far, 2 * g - 2, replace=False)
+                    ] if 2 * g - 2 <= len(far) else list(far)
+            cand = [first] + fill[:g - 1] + [second]
+        elif name == "filler_hit":
+            cand = sorted(rng.choice(far, 1 + r % g, replace=False))
+        else:
+            cand = sorted(rng.choice(c_n, int(rng.integers(0, c_n + 1)),
+                                     replace=False))
+            if name == "no_candidates" and r % 3 == 0:
+                cand = []
+            if name == "exhausted":
+                cand = sorted(rng.choice(c_n, r % (c_n + 1), replace=False))
+        rows.append(_perray_row(cand, c_n, cap))
+        ncs.append(min(len(cand), cap))
+    if name == "dead_and_zero":
+        for i, v in enumerate((-1.0, -0.0, 0.0, np.nan, np.inf)):
+            tm[i::6] = v
+    if name == "exhausted":
+        tm[::2] = 0.5
+    if name == "filler_hit":
+        tm[:] = np.inf
+    k_groups = -(-cap // g)
+    order = np.pad(np.asarray(rows, np.int32),
+                   ((0, 0), (0, k_groups * g - cap)))
+    rays = np.concatenate([o, d, tm[:, None], np.full((n, 1), t_min)], 1)
+    return {**geo, "o": o, "d": d, "tm": tm, "t_min": t_min, "cap": cap,
+            "rays": np.ascontiguousarray(rays[:, :, None], np.float32),
+            "order_g": np.ascontiguousarray(order.reshape(n, k_groups, g)),
+            "n_cand": np.asarray(ncs, np.int32)}
 
 
 # --- a scene whose cull entry is not conservative in f32 --------------------
