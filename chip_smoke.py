@@ -90,7 +90,31 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   in the packet cascades (accel.traverse, cuda_cascade).
                   Then main_path_summary: kernels (profile), host reads,
                   launches, timed pass and busy share beside commit 9fef914's
-                  215,501 / 6,741 / 6,653 / 3.819 s / 0.446.
+                  215,501 / 6,741 / 6,653 / 3.819 s / 0.446. Since ctiles'
+                  bounds went on the card: at most 67 host reads, none in
+                  accel.ctiles and in accel.pairs only the overflow count;
+                  block_cull and slot_sweep must launch.
+  4a. ctiles_bounds block_cull and slot_sweep on the main path's first two
+                  closest ctiles waves (wave 0, bounces 0 and 1, kept from
+                  one more bench render that stops once it has them):
+                  block_cull exact against its plain version (the eager
+                  cull and extraction), timed, bounded over the ray/box
+                  tests its data needs; the same wave with a quarter of
+                  its rays on box corners along +x, at live-block counts
+                  0, 1 and all, at 1 with the rays past it live, and at
+                  cap 1; slot_sweep in each output
+                  mode (closest and any-hit folds per block row, per slot)
+                  and option (sub_skip, pack_t) on each wave, and on the
+                  pair tiles of 8,192 of its rays (T 128, S 128, one lane
+                  a slot): bitwise its plain version (eager tile_sweep_plain)
+                  and the chunked form it replaced (tile_sweep launched a
+                  chunk, the tile count read on the host), tuned (the
+                  routes' two shapes, no option) and generic, timed beside
+                  both and its bound; every crafted
+                  slot case of tests/test_torch_sweep_cases.py (ties, a hit
+                  at t_min, -0.0 / +0.0, spread, padding, no tiles) at S
+                  128, each shape, output, option and instance; the main
+                  render's host reads by site. About 20 s.
   4b. profile     one more such render under torch.profiler: device kernel
                   time by kernel and by wave type, and the device's busy
                   share of the timed pass; the same for the next two paths
@@ -366,13 +390,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   held to the main path's image as path_pool is, the
                   concurrent runs profiled (busy share a card); then
                   mesh_cards_summary, each run's time over the main path's.
-Then the kernels line (fifteen kernels: the five, item_sweep and
+Then the kernels line (seventeen kernels: the five, item_sweep and
 kslot_sweep, which replace no TPU kernel, the first-slot instances
-tile_sweep_first and kslot_sweep_first, which carry XLA-fused sweeps, and
-the cascade stage kernel's six folds, cascade_stage_any,
+tile_sweep_first and kslot_sweep_first, which carry XLA-fused sweeps, the
+cascade stage kernel's six folds, cascade_stage_any,
 cascade_stage_first, fused_stage_any, fused_stage_closest,
 perray_stage_any and perray_stage_first, which carry the cascades'
-while_loop ("carries": the JAX package's code each stands for); launches
+while_loop, and block_cull and slot_sweep, which carry ctiles' cull and
+its sweep's fori_loops ("carries": the JAX package's code each stands
+for); tile_sweep's launches are the chunked form's in ctiles_bounds, its
+body running in slot_sweep on the routes ("runs_as"); launches
 on every path, the new ones under new_path_launches, the CLI's with
 `--backend perray` under cli_perray_launches, tile_sweep_first's and
 kslot_sweep_first's in the host-stepped loops, the only routes left that
@@ -545,7 +572,7 @@ def phase_build():
     t0 = time.perf_counter()
     built = cuda_build.build_all([m.SOURCE for m in (
         cuda_ctiles, cuda_sweep, cuda_anyhit, cuda_closest, cuda_items,
-        cuda_kslots)])
+        cuda_kslots)] + [cuda_ctiles.CULL_SOURCE])
     seconds = time.perf_counter() - t0
     entry = re.compile(
         r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
@@ -568,6 +595,28 @@ def phase_build():
            for opt in ("sub_skip", "pack_t")
            for t, s_ in ((128, 256), (128, 128), (64, 128))},
     }
+    # ctiles' bounds on the card: block_cull (blocks of 8 and 4 rays) and
+    # slot_sweep's instances (the routes' two shapes; generic, with and
+    # without each option)
+    for b in (8, 4):
+        occupancy[f"block_cull b{b}"] = {
+            **cuda_ctiles.cull_occupancy(b), "spill_bytes": sum(
+                e["spill_bytes"] for e in ptxas.get("ctiles_cull", []))}
+    for opt, mode in ((None, 0), ("sub_skip", 1), ("pack_t", 2)):
+        for t, s_ in ((128, 256), (128, 128), (0, 0)) if opt is None else (
+                (0, 0),):
+            tag = (f"slot_sweep_kernelILi{s_}ELi{t}ELi{4 if t == 128 else 1}"
+                   f"ELi{mode}EE" if s_ else
+                   f"slot_sweep_generic_kernelILi{mode}EE")
+            label = (f"slot_sweep{' ' + opt if opt else ''} "
+                     + (f"T{t} S{s_}" if s_ else "generic"))
+            occupancy[label] = {
+                **cuda_ctiles.slot_occupancy(
+                    s_, t, sub_skip=opt == "sub_skip",
+                    pack_t=opt == "pack_t"),
+                "spill_bytes": sum(e["spill_bytes"]
+                                   for e in ptxas.get("ctiles_sweep", [])
+                                   if tag in e["entry"])}
     # the first-slot instances (the packet cascade's, perray's), with the
     # spills ptxas reports for them
     for key, occ, tag in (
@@ -1331,7 +1380,10 @@ def _read_counts() -> dict:
             "kslot_sweep": cuda_kslots.launches,
             # the first-slot instances (counted in the two above as well)
             "tile_sweep_first": cuda_ctiles.slot_launches,
-            "kslot_sweep_first": cuda_kslots.slot_launches}
+            "kslot_sweep_first": cuda_kslots.slot_launches,
+            # ctiles' bounds on the card
+            "block_cull": cuda_ctiles.cull_launches,
+            "slot_sweep": cuda_ctiles.sweep_launches}
 
 
 def _tile_shapes() -> list:
@@ -1339,7 +1391,15 @@ def _tile_shapes() -> list:
 
     return [{"T": key[0], "S": key[1], "G": key[2], "launches": n,
              "tiles": tiles, **({"option": key[3]} if len(key) > 3 else {})}
-            for key, (n, tiles) in sorted(cuda_ctiles.launch_shapes.items())]
+            for key, (n, tiles) in sorted(cuda_ctiles.launch_shapes.items())
+            ] + [{"kernel": "slot_sweep", "T": key[0], "S": key[1],
+                  "out": key[2], "launches": n, "slot_cap_tiles": tiles,
+                  **({"option": key[3]} if len(key) > 3
+                     and key[3] != "generic" else {}),
+                  **({"instance": "generic"} if key[-1] == "generic"
+                     else {})}
+                 for key, (n, tiles) in sorted(
+                     cuda_ctiles.sweep_shapes.items())]
 
 
 def _stage_shapes() -> list:
@@ -1447,9 +1507,11 @@ def _finish_path(res, missing, image_ok):
 MAIN_AT_9FEF914 = {"device_kernels": 215501, "host_syncs": 6741,
              "tile_sweep_launches": 6653, "timed_pass_seconds": 3.819,
              "busy_share": 0.446}
-# Since then: host reads a bench render at most, and the modules in which
-# none may be made (the packet cascades and their stage).
-MAIN_SYNCS_MAX = 400
+# Since then: host reads a bench render at most (103 before ctiles' bounds
+# went on the card, 36 of them in accel.ctiles and 10 in accel.pairs' sweep
+# and compaction), and the modules in which none may be made (the packet
+# cascades and their stage).
+MAIN_SYNCS_MAX = 67
 NO_SYNC_MODULES = ("path_tracer_ai_tpu_torch.accel.traverse:",
                    "path_tracer_ai_tpu_torch.accel.cuda_cascade:")
 
@@ -1458,7 +1520,8 @@ def phase_main_path(scene, accel_base, accel_c, card):
     from path_tracer_ai_tpu_torch.io.image import save_image
 
     res, img, missing, image_ok = _bench_render(
-        "main_path", scene, card, ["tile_sweep", "cascade_stage_any"],
+        "main_path", scene, card,
+        ["slot_sweep", "block_cull", "cascade_stage_any"],
         warm_small=False, accel=accel_base, accel_closest=accel_c)
     png = os.path.join(tempfile.gettempdir(), "chip_smoke_bench.png")
     save_image(png, img, 2.2)
@@ -1466,10 +1529,35 @@ def phase_main_path(scene, accel_base, accel_c, card):
     _finish_path(res, missing, image_ok)
     cascade = [k for k in res["host_sync_sites"]
                if k.startswith(NO_SYNC_MODULES)]
-    if res["host_syncs"] > MAIN_SYNCS_MAX or cascade:
+    bounds = _ctiles_bound_reads(res["host_sync_sites"])
+    if res["host_syncs"] > MAIN_SYNCS_MAX or cascade or bounds:
         fail("main_path", f"{res['host_syncs']} host reads (at most "
-                          f"{MAIN_SYNCS_MAX}), {cascade} in the cascades")
+                          f"{MAIN_SYNCS_MAX}), {cascade} in the cascades, "
+                          f"{bounds} in ctiles' bounds")
     return res, img
+
+
+def _pairs_count_site() -> str:
+    """accel.pairs' one host read left: the overflow count of
+    _overflow_fallback (the reference's lax.cond)."""
+    import inspect
+
+    from path_tracer_ai_tpu_torch.accel import pairs
+
+    lines, first = inspect.getsourcelines(pairs._overflow_fallback)
+    at = next(i for i, ln in enumerate(lines)
+              if "sync.host_int(overflow.sum())" in ln)
+    return f"{pairs.__name__}:{first + at}"
+
+
+def _ctiles_bound_reads(sites) -> list:
+    """The host read sites a render may no longer have: any in
+    accel.ctiles, and any in accel.pairs but its overflow count."""
+    keep = _pairs_count_site()
+    return [k for k in sites if k.startswith(
+        "path_tracer_ai_tpu_torch.accel.ctiles:")
+        or (k.startswith("path_tracer_ai_tpu_torch.accel.pairs:")
+            and k != keep)]
 
 
 def phase_main_summary(card, render, profile):
@@ -1481,6 +1569,8 @@ def phase_main_summary(card, render, profile):
            "host_syncs": render["host_syncs"],
            "host_sync_sites": render["host_sync_sites"],
            "tile_sweep_launches": render["launches"]["tile_sweep"],
+           "slot_sweep_launches": render["launches"]["slot_sweep"],
+           "block_cull_launches": render["launches"]["block_cull"],
            "tile_sweep_shapes": render["tile_sweep_shapes"],
            "cascade_stage_launches": render["launches"]["cascade_stage_any"],
            "cascade_stage_shapes": render["cascade_stage_shapes"],
@@ -1650,6 +1740,368 @@ def phase_profile_path(phase, scene, accel_base, timed_seconds, names,
     return res
 
 
+# ---- ctiles' dynamic bounds on the card: block_cull and slot_sweep -------
+
+# f32 operations of one ray/box test (csrc/ctiles_cull.cu slab_hit): an
+# axis 2 subtractions, 2 products, 2 NaN compares, a min and a max; then 3
+# max and 3 min over the axes and the window, and the final compare (the
+# selects of a NaN axis are not counted)
+CULL_OPS = 3 * 8 + 7
+PAIRS_RAYS = 1 << 13  # a compacted overflow wave (the worklist fallback's)
+SLOT_REPS = 20
+
+
+def _slot_case_args(case, option):
+    """(pack, rays, slot_ref, slot_cid, n_tiles) of a crafted slot case on
+    the card, the pack in the option's layout."""
+    from types import SimpleNamespace
+
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles
+
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device="cuda")
+    acc = SimpleNamespace(v0=t(case["v0"]), e1=t(case["e1"]),
+                          e2=t(case["e2"]), tri_id=t(case["tri_id"]))
+    pack = {None: cuda_ctiles.pack_tris, "sub_skip": cuda_ctiles.pack_tris16,
+            "pack_t": cuda_ctiles.pack_tris16_t}[option](acc)
+    return (pack, t(case["rays"]), t(case["slot_ref"]), t(case["slot_cid"]),
+            torch.tensor([case["n_tiles"]], dtype=torch.int32,
+                         device="cuda"))
+
+
+def _keep_ctiles_calls(scene, accel_base, accel_c) -> dict:
+    """The bench render's first two closest ctiles waves (wave 0, bounces 0
+    and 1): the inputs of their block_cull and slot_sweep launches. The
+    render stops once it has them."""
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+
+    kept = {"block_cull": [], "slot_sweep": []}
+    real = {k: getattr(cuda_ctiles, k) for k in kept}
+
+    def keeper(name):
+        def fn(*args, **kw):
+            out = real[name](*args, **kw)
+            if name == "block_cull" or kw.get("out") == "closest":
+                if len(kept[name]) < 2:
+                    kept[name].append((tuple(
+                        a.clone() if torch.is_tensor(a) else a
+                        for a in args), dict(kw)))
+            if min(len(v) for v in kept.values()) >= 2:
+                raise _Kept
+            return out
+        return fn
+
+    try:
+        for k in kept:
+            setattr(cuda_ctiles, k, keeper(k))
+        wavefront.render(scene, default_camera("cuda"),
+                         RenderSettings(**BENCH), wave_size=1 << 20,
+                         device="cuda", accel=accel_base,
+                         accel_closest=accel_c)
+    except _Kept:
+        pass
+    finally:
+        for k, fn in real.items():
+            setattr(cuda_ctiles, k, fn)
+    if min(len(v) for v in kept.values()) < 2:
+        fail("ctiles_bounds", f"the bench render made fewer than two closest "
+                              f"ctiles calls: {[len(v) for v in kept.values()]}")
+    return kept
+
+
+def _cull_tests(accel, o_blk, d_blk, tm_blk, t_min, lb) -> int:
+    """The ray/box tests block_cull's data needs: per live block and box,
+    its rays up to the first that passes (all b where none does)."""
+    from path_tracer_ai_tpu_torch.accel.kslots import _ray_slab
+
+    nb, b = o_blk.shape[:2]
+    step = max(1, (1 << 24) // (b * accel.num_clusters))
+    tests = 0
+    for lo in range(0, lb, step):
+        hi = min(lo + step, lb)
+        tf = tm_blk[lo:hi].reshape(-1)
+        rc = _ray_slab(accel.bmin, accel.bmax, o_blk[lo:hi].reshape(-1, 3),
+                       d_blk[lo:hi].reshape(-1, 3),
+                       torch.full_like(tf, float(t_min)),
+                       torch.where(tf >= 0.0, tf, -float("inf")))
+        rc = rc.reshape(hi - lo, b, -1)
+        first = torch.argmax(rc.to(torch.int8), dim=1) + 1
+        tests += int(torch.where(rc.any(dim=1), first, b).sum())
+    return tests
+
+
+def _check_cull(call, wave, reps=SLOT_REPS) -> dict:
+    """block_cull on a kept call: exact against its plain version, timed,
+    bounded over the tests its data needs."""
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles
+
+    args, kw = call
+    accel, o_blk, d_blk, tm_blk, t_min, cap, live = args
+    got = cuda_ctiles.block_cull(*args, **kw)
+    want = cuda_ctiles.block_cull_plain(*args, **kw)
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+    nb, b = o_blk.shape[:2]
+    lb = nb if live is None else int(live)
+    ms = cuda_ms(lambda: cuda_ctiles.block_cull(*args, **kw), reps)
+    plain_ms = cuda_ms(lambda: cuda_ctiles.block_cull_plain(*args, **kw), 2)
+    tests = _cull_tests(accel, o_blk, d_blk, tm_blk, t_min, lb)
+    nbytes = lb * b * 7 * 4 + _nbytes(accel.bmin, accel.bmax, *got)
+    by_bytes = nbytes / PEAK_BYTES_PER_S
+    by_ops = tests * CULL_OPS / PEAK_F32_PER_S
+    bound_ms = max(by_bytes, by_ops) * 1e3
+    return {"wave": wave, "blocks": nb, "b": b, "live_blocks": lb,
+            "clusters": accel.num_clusters, "cap": cap,
+            "candidates_mean": float(got[1][:lb].float().mean())
+            if lb else 0.0, "overflow_blocks": int(got[2].sum()),
+            "matches_plain": same, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "box_tests": tests, "bytes": nbytes,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if by_bytes > by_ops else "operations",
+            "ms_over_bound": ms / bound_ms}
+
+
+def _cull_crafted(call) -> dict:
+    """block_cull on a kept wave whose first quarter of rays start on a box
+    corner along +x (0 * inf in the slab's y and z axes), at live-block
+    counts 0, 1 and all (the rays past the count dead, as a sorted wave's
+    are), at 1 with the rays past it live (their blocks must still get the
+    empty set), and at cap 1 (every block with two candidates or more
+    overflows): each exact against the plain version."""
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles
+
+    (accel, o_blk, d_blk, tm_blk, t_min, cap, live), kw = call
+    o, d = o_blk.clone(), d_blk.clone()
+    nb, b = o.shape[:2]
+    q = nb // 4
+    g = torch.Generator(device="cuda").manual_seed(5)
+    cid = torch.randint(0, accel.num_clusters, (q, b), device="cuda",
+                        generator=g)
+    o[:q] = accel.bmin[cid]
+    d[:q] = torch.tensor([1.0, 0.0, 0.0], device="cuda")
+    lb = nb if live is None else int(live)
+    out = {}
+    for label, cap_, n, dead_tail in (
+            ("live_0", cap, 0, True), ("live_1", cap, 1, True),
+            ("live_1_live_tail", cap, 1, False),
+            ("live_all", cap, lb, True), ("cap_1", 1, lb, True)):
+        bound = torch.tensor([n], dtype=torch.int32, device="cuda")
+        tm = tm_blk.clone()
+        if dead_tail:  # a sorted wave: the rays past the bound are dead
+            tm[n:] = -1.0
+        args = (accel, o, d, tm, t_min, cap_, bound)
+        got = cuda_ctiles.block_cull(*args, **kw)
+        want = cuda_ctiles.block_cull_plain(*args, **kw)
+        out[label] = all(bool(torch.equal(x, y)) for x, y in zip(got, want))
+    return out
+
+
+def _slot_tests(call) -> tuple:
+    """(needed tests, bytes) of a slot_sweep call: the live lanes of the
+    live tiles' slots against their cluster's S triangles; the live slots'
+    refs and cluster ids, their lanes' rays, the distinct clusters' packs
+    and the outputs."""
+    (pack, rays, ref, cid, n_tiles), kw = call
+    tb, b = kw["tile_slots"], rays.shape[2]
+    nt = int(n_tiles)
+    live_ref = ref[:nt * tb]
+    rows = torch.where(live_ref >= 0, live_ref // kw["cap"],
+                       rays.shape[0] - 1).long()
+    lanes = int((rays[rows, 6] >= 0.0).sum())
+    s = pack.shape[1] if kw.get("pack_t") else pack.shape[2]
+    stride = kw.get("cid_stride", 1)
+    used = int(torch.unique(cid[:nt * stride:stride]).numel()) if nt else 0
+    out_bytes = {"closest": (rays.shape[0] - 1) * b * 8,
+                 "any": (rays.shape[0] - 1) * b,
+                 "slot": ref.shape[0] * b * 8}[kw["out"]]
+    nbytes = (nt * tb * 4 + nt * 4 + int((live_ref >= 0).sum()) * b * 32
+              + used * pack.shape[1 if not kw.get("pack_t") else 2]
+              * s * 4 + out_bytes)
+    return lanes * s, nbytes
+
+
+def _check_slot(call, wave, variant, reps=SLOT_REPS) -> dict:
+    """slot_sweep on a kept call: bitwise against its plain version (eager
+    tile_sweep_plain) and against the chunked form it replaced (the plain
+    version sweeping through the tile_sweep kernel, its tile count read on
+    the host); kernel, generic, plain and stepped ms, bound."""
+    from functools import partial
+
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles
+
+    args, kw = call
+    run = lambda: cuda_ctiles.slot_sweep(*args, **kw)
+
+    def run_generic():
+        with _generic_instances():
+            return run()
+
+    got = run()
+    generic = run_generic()
+    plain = partial(cuda_ctiles.slot_sweep_plain, *args, **kw,
+                    sweep=cuda_ctiles.tile_sweep_plain)
+    stepped = partial(cuda_ctiles.slot_sweep_plain, *args, **kw)
+    swept = {}  # the plain version's tests: sub_skip's, of its sub-slabs
+    want = cuda_ctiles.slot_sweep_plain(
+        *args, **kw, sweep=partial(cuda_ctiles.tile_sweep_plain,
+                                   stats=swept))
+    old = stepped()
+    torch.cuda.synchronize()
+    tests, nbytes = _slot_tests(call)
+    if kw.get("sub_skip"):
+        tests = swept["lane_tests"]
+    ms = cuda_ms(run, reps)
+    generic_ms = cuda_ms(run_generic, reps)
+    res = {"wave": wave, "variant": variant, "out": kw["out"],
+           "T": kw["tile_slots"] * args[1].shape[2],
+           "S": args[0].shape[1] if kw.get("pack_t") else args[0].shape[2],
+           "slot_cap_tiles": args[2].shape[0] // kw["tile_slots"],
+           "live_tiles": int(args[4]),
+           "matches_plain": _same_outputs(got, want),
+           "generic_matches_plain": _same_outputs(generic, want),
+           "matches_stepped": _same_outputs(old, want),
+           "max_abs_err": (_max_abs_err(got[0], want[0])
+                           if len(got) == 2 else 0.0),
+           "ms": ms, "generic_ms": generic_ms,
+           "plain_ms": cuda_ms(plain, 1),
+           "host_stepped_ms": cuda_ms(stepped, 3),
+           **_bound(nbytes, tests)}
+    res["ms_over_bound"] = ms / res["bound_ms"]
+    res["generic_over_bound"] = generic_ms / res["bound_ms"]
+    return res
+
+
+def _pairs_call(call, accel_base) -> tuple:
+    """A pairs sweep of the worklist fallback's shape (T 128, S 128, one
+    lane a slot): the first PAIRS_RAYS live rays of a kept closest wave
+    through pairs.build_pair_tables (cap 64, pair budget 12) and
+    pairs._sweep_tiles, whose slot_sweep inputs are kept."""
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles, pairs
+
+    (_pack, rays, _ref, _cid, _n), kw = call
+    table = rays[:-1]
+    o = table[:, 0:3].transpose(1, 2).reshape(-1, 3)
+    d = table[:, 3:6].transpose(1, 2).reshape(-1, 3)
+    tm = table[:, 6].reshape(-1)
+    t_min = float(table[0, 7, 0])
+    live = torch.nonzero(tm >= 0.0).squeeze(1)[:PAIRS_RAYS]
+    o, d, tm = o[live].contiguous(), d[live].contiguous(), tm[live].contiguous()
+    tables = pairs.build_pair_tables(accel_base, o, d, t_min, tm, cap=64,
+                                     pair_budget=12, pair_align=256)
+    kept = []
+    real = cuda_ctiles.slot_sweep
+
+    def keep(*a, **k):
+        kept.append((a, dict(k)))
+        return real(*a, **k)
+
+    cuda_ctiles.slot_sweep = keep
+    try:
+        pairs._sweep_tiles(accel_base, tables, o, d, t_min, tm, 128, True,
+                           cuda_ctiles.pack_tris(accel_base))
+    finally:
+        cuda_ctiles.slot_sweep = real
+    return kept[0]
+
+
+def _slot_crafted() -> dict:
+    """slot_sweep on every crafted slot case (tests/test_torch_sweep_cases
+    slot_case) at S 128, each shape, output, option, tuned and generic:
+    bitwise its plain version."""
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles
+
+    c = _cases()
+    bad, n = [], 0
+    for name in c.SLOT_CASES:
+        for tb, b in c.SLOT_SHAPES:
+            case = c.slot_case(name, 128, tb, b)
+            for opt in (None, "sub_skip", "pack_t"):
+                args = _slot_case_args(case, opt)
+                for out in ("closest", "any", "slot"):
+                    kw = dict(tile_slots=tb, cap=case["cap"], out=out,
+                              cid_stride=tb, sub_skip=opt == "sub_skip",
+                              pack_t=opt == "pack_t")
+                    want = cuda_ctiles.slot_sweep_plain(
+                        *args, **kw, sweep=cuda_ctiles.tile_sweep_plain)
+                    got = cuda_ctiles.slot_sweep(*args, **kw)
+                    with _generic_instances():
+                        generic = cuda_ctiles.slot_sweep(*args, **kw)
+                    n += 2
+                    for label, res in (("tuned", got), ("generic", generic)):
+                        if not _same_outputs(res, want):
+                            bad.append([name, tb, b, opt, out, label])
+    return {"runs": n, "disagree": bad}
+
+
+def phase_ctiles_bounds(scene, accel_base, accel_c, card, render) -> tuple:
+    """ctiles' dynamic bounds on the card: block_cull and slot_sweep on the
+    main path's kept closest waves (wave 0, bounces 0 and 1) and on crafted
+    inputs, each bitwise its plain version, timed beside its bound; the
+    main render's host reads by site. Returns (checks for the kernels line,
+    generic entries, the stepped comparison's tile_sweep launches)."""
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles
+
+    t0 = time.perf_counter()
+    kept = _keep_ctiles_calls(scene, accel_base, accel_c)
+    culls = [_check_cull(call, f"wave 0, bounce {i}")
+             for i, call in enumerate(kept["block_cull"])]
+    crafted_cull = _cull_crafted(kept["block_cull"][1])
+    _reset_counts()
+    slots = []
+    for i, call in enumerate(kept["slot_sweep"]):
+        wave = f"wave 0, bounce {i}"
+        args, kw = call
+        slots.append(_check_slot(call, wave, "default"))
+        for out in ("any", "slot"):
+            slots.append(_check_slot((args, {**kw, "out": out}), wave,
+                                     "default"))
+        for opt, pack in (("sub_skip", cuda_ctiles.pack_tris16(accel_c)),
+                          ("pack_t", cuda_ctiles.pack_tris16_t(accel_c))):
+            slots.append(_check_slot(((pack,) + args[1:],
+                                      {**kw, opt: True}), wave, opt))
+    slots.append(_check_slot(_pairs_call(kept["slot_sweep"][1], accel_base),
+                             "pairs on 8,192 rays of wave 0, bounce 1",
+                             "default"))
+    stepped = _read_counts()["tile_sweep"]
+    crafted_slot = _slot_crafted()
+    sites = render["host_sync_sites"]
+    res = {"phase": "ctiles_bounds", "card": card, "block_cull": culls,
+           "block_cull_crafted": crafted_cull, "slot_sweep": slots,
+           "slot_sweep_crafted": crafted_slot,
+           "main_path_host_reads": render["host_syncs"],
+           "main_path_host_read_sites": sites,
+           "ctiles_or_pairs_sweep_reads": _ctiles_bound_reads(sites),
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    ok = (all(c["matches_plain"] for c in culls) and all(crafted_cull.values())
+          and all(c["matches_plain"] and c["generic_matches_plain"]
+                  and c["matches_stepped"] for c in slots)
+          and not crafted_slot["disagree"])
+    if not ok:
+        fail("ctiles_bounds", "block_cull or slot_sweep disagrees with its "
+                              "plain version")
+    main = slots[5]  # wave 0, bounce 1, closest, default (T 128, S 256)
+    cull = culls[1]
+    checks = {"block_cull": {**cull, "waves": culls},
+              "slot_sweep": {**main, "waves": [
+                  {k: c[k] for k in ("wave", "variant", "out", "T", "S",
+                                     "live_tiles", "ms", "generic_ms",
+                                     "plain_ms", "host_stepped_ms",
+                                     "bound_ms", "ms_over_bound",
+                                     "matches_plain")} for c in slots]}}
+    generic = {"block_cull": None, "slot_sweep": {
+        "S": main["S"], "generic_ms": main["generic_ms"],
+        "tuned_ms": main["ms"],
+        "generic_over_tuned": main["generic_ms"] / main["ms"],
+        "bound_ms": main["bound_ms"],
+        "generic_over_bound": main["generic_over_bound"],
+        "plain_ms": main["plain_ms"],
+        "matches_plain": main["generic_matches_plain"]}}
+    return checks, generic, {"tile_sweep": stepped}
+
+
 # ---- the generic instances: any cluster size ------------------------------
 
 class _generic_instances:
@@ -1690,6 +2142,7 @@ def _generic_counts() -> dict:
     )
 
     return {"tile_sweep": cuda_ctiles.generic_launches,
+            "slot_sweep": cuda_ctiles.sweep_generic_launches,
             **cuda_sweep.generic_launches,
             **cuda_cascade.generic_launches,
             "block_anyhit": cuda_anyhit.generic_launches,
@@ -1951,6 +2404,18 @@ def _generic_checks(acc, rng) -> dict:
                 cuda_ctiles.tile_sweep_plain(opt_pack, rays, cid,
                                              **{opt: True}))
         out["tile_sweep"] = ok
+        ok = True
+        for name in ("ties", "spread"):
+            case = _cases().slot_case(name, acc.cluster_size, 16, 8)
+            args = _slot_case_args(case, None)
+            for out_ in ("closest", "any", "slot"):
+                kw = dict(tile_slots=16, cap=case["cap"], out=out_,
+                          cid_stride=16)
+                ok = ok and same(
+                    cuda_ctiles.slot_sweep(*args, **kw),
+                    cuda_ctiles.slot_sweep_plain(
+                        *args, **kw, sweep=cuda_ctiles.tile_sweep_plain))
+        out["slot_sweep"] = ok
 
         slab = cuda_sweep.build_slab_table(acc)
         o, d, tm = _bounce_wave(acc, 256 * 64, rng, shadow=True)
@@ -2163,7 +2628,7 @@ def phase_consistency():
            and not (v["bitwise"] and v["launches"] > 0)]
     if bad or ct["ctiles_2level_c2"]["two_level_culls"] <= 0:
         fail("consistency", f"ctiles routes against the oracle (bitwise, "
-                            f"tile_sweep launched, the 2-level cull on the "
+                            f"slot_sweep launched, the 2-level cull on the "
                             f"2,564-cluster accel): {bad} {ct}")
     wl = res["worklist_route"]
     if wl["default_backend"] != "worklist" or not wl["worklist"]["bitwise"]:
@@ -2178,7 +2643,7 @@ def phase_consistency():
         fail("consistency", f"pairs or packets backend differ from the "
                             f"oracle beyond 1e-5: {wl}")
     if min(wl["worklist"]["launches"]["item_sweep"],
-           wl["pairs"]["launches"]["tile_sweep"],
+           wl["pairs"]["launches"]["slot_sweep"],
            wl["packets"]["launches"]["cascade_stage_any"],
            wl["packets"]["launches"]["cascade_stage_first"],
            wl["kslots"]["launches"]["kslot_sweep"]) <= 0:
@@ -2559,9 +3024,10 @@ def phase_cli(card):
                                BENCH["width"], BENCH["height"])
         print(f"cli: 1080p timed run {res['seconds']:.3f} s, launches "
               f"{res['launches']}", flush=True)
-        if res["launches"]["tile_sweep"] <= 0:
+        if min(res["launches"][k] for k in ("slot_sweep", "block_cull")) <= 0:
             emit(res)
-            fail("cli", "the CLI render launched no tile_sweep kernel")
+            fail("cli", "the CLI render launched no slot_sweep or block_cull "
+                        "kernel")
         if not (audit.finite and audit.n_nan == 0 and audit.n_inf == 0
                 and audit.n_magenta == 0):
             emit(res)
@@ -3086,7 +3552,8 @@ def phase_path_pool(scene, accel_base, accel_c, card, img_main):
     chunk, closest waves on the S=128 accel), warm and timed, against the
     main path's image."""
     res, img, missing, image_ok = _bench_render(
-        "path_pool", scene, card, ["tile_sweep"], warm_small=False,
+        "path_pool", scene, card, ["slot_sweep", "block_cull"],
+        warm_small=False,
         accel=accel_base, scheduler="pool")
     _image_against_main("path_pool", res, scene, img, img_main, accel_base,
                         accel_c)
@@ -3226,8 +3693,8 @@ def _mesh_runs(phase, card, scene, accel_base, accel_c, img_main,
                 prof.get("device_kernel_seconds", {}).items()} or \
                 "not measured"
             res["profile"] = prof
-        _finish_path(res, [] if res["launches"]["tile_sweep"]
-                     else ["tile_sweep"], image_ok)
+        _finish_path(res, [] if res["launches"]["slot_sweep"]
+                     else ["slot_sweep"], image_ok)
         if not res["counts_equal_to_" + schedules[0]]:
             fail(phase, f"the {sched} schedule's launches or host syncs "
                         f"differ from the {schedules[0]} schedule's")
@@ -3282,7 +3749,7 @@ def phase_path_mesh(scene, accel_base, accel_c, card, img_main,
                     "card(s), a 1x1 mesh on one")
     _image_against_main("path_mesh", res, scene, img, img_main, accel_base,
                         accel_c)
-    _finish_path(res, [] if res["launches"]["tile_sweep"] else ["tile_sweep"],
+    _finish_path(res, [] if res["launches"]["slot_sweep"] else ["slot_sweep"],
                  image_ok)
     out["tile_devices_8"] = res
 
@@ -3398,8 +3865,8 @@ def phase_config_4k(card):
     if img.shape != (2160, 3840, 3) or not res["finite"] \
             or res["magenta_pixels"]:
         fail("config_4k", "bad 4k image (shape, non-finite or magenta)")
-    if res["launches"]["tile_sweep"] <= 0:
-        fail("config_4k", "the 4k render launched no tile_sweep kernel")
+    if res["launches"]["slot_sweep"] <= 0:
+        fail("config_4k", "the 4k render launched no slot_sweep kernel")
     r = res["resume"]
     if r["rays"] or any(r["launches"].values()) or not r["bitwise_equal"]:
         fail("config_4k", f"the resume from a finished checkpoint: {r}")
@@ -3485,7 +3952,7 @@ def phase_exact_cull(scene, accel_base, accel_c, card, img_main, img_fused,
                     lambda a: a[1].shape[0] >= 1 << 21, limit=4)
     try:
         res, img, missing, image_ok = _bench_render(
-            "exact_cull", scene, card, ["tile_sweep"], warm_small=True,
+            "exact_cull", scene, card, ["slot_sweep"], warm_small=True,
             engines={"HYBRID_OCCLUDE_KW": EXACT_OCCLUDE_KW},
             accel=accel_base, accel_closest=accel_c)
     finally:
@@ -3547,14 +4014,14 @@ def phase_path_ctiles(scene, accel_base, accel_c, card, img_main):
     from path_tracer_ai_tpu_torch.engine import wavefront
 
     runs = {
-        "path_ctiles": (dict(backend="ctiles"), None, ["tile_sweep"]),
+        "path_ctiles": (dict(backend="ctiles"), None, ["slot_sweep"]),
         "path_ctiles_sub_skip": (
             dict(backend="ctiles"),
             {"CTILES_CLOSEST_KW": dict(wavefront.CTILES_CLOSEST_KW,
-                                       sub_skip=True)}, ["tile_sweep"]),
+                                       sub_skip=True)}, ["slot_sweep"]),
         "path_hybrid_ctiles_shadows": (
             dict(accel_closest=accel_c),
-            {"HYBRID_OCCLUDE_KW": dict(engine="ctiles")}, ["tile_sweep"]),
+            {"HYBRID_OCCLUDE_KW": dict(engine="ctiles")}, ["slot_sweep"]),
     }
     out = {}
     for name, (kw, engines, kernels) in runs.items():
@@ -5489,7 +5956,7 @@ def _consistency_ctiles(scene, cam, img_oracle, kw):
                          "max_abs_diff": float(diff.max()),
                          "pixels_differing": int((diff > 0).sum()),
                          "two_level_culls": len(levels) - n_levels,
-                         "launches": _read_counts()["tile_sweep"]}
+                         "launches": _read_counts()["slot_sweep"]}
     finally:
         ctiles._block_candidates_2level = real
     return out
@@ -5505,8 +5972,12 @@ BEFORE_OPTIONS = {"ms": 0.2015, "registers": 93, "spill_bytes": 0,
 # name -> (source under path_tracer_ai_tpu_torch/csrc, TPU kernel it replaces,
 #          phase whose render gives its launch count)
 KERNELS = {
+    # since ctiles' bounds went on the card its body runs in slot_sweep;
+    # launched standalone by the kernel phase and by the chunked form that
+    # slot_sweep replaced (ctiles_bounds' comparison, "ctiles_stepped")
     "tile_sweep": ("ctiles_sweep.cu",
-                   "path_tracer_ai_tpu/accel/pallas_ctiles.py:239", "main_path"),
+                   "path_tracer_ai_tpu/accel/pallas_ctiles.py:239",
+                   "ctiles_stepped"),
     # on the fused route these two run as the sweep bodies of the fused
     # stage kernel's folds (fused_stage_any, fused_stage_closest); launched
     # standalone by the kernel phase and the host-stepped comparison loop
@@ -5553,6 +6024,12 @@ KERNELS = {
     # closest_hit_perray and any_hit_perray
     "perray_stage_any": ("kslot_sweep.cu", None, "path_perray"),
     "perray_stage_first": ("kslot_sweep.cu", None, "path_perray"),
+    # ctiles' bounds on the card (no Pallas kernel): the flat cull of
+    # ctiles._ray_masks + _extract_order_flat, and tile_sweep's body over
+    # static slot tables with the tile count on the device (ctiles'
+    # _sweep_resolve, pairs' _sweep_tiles)
+    "block_cull": ("ctiles_cull.cu", None, "main_path"),
+    "slot_sweep": ("ctiles_sweep.cu", None, "main_path"),
 }
 # what a kernel without a Pallas counterpart carries in the JAX package
 CARRIES = {
@@ -5576,9 +6053,18 @@ CARRIES = {
         "path_tracer_ai_tpu/accel/traverse.py:491 (while_loop), 727-738",
     "perray_stage_first":
         "path_tracer_ai_tpu/accel/traverse.py:491 (while_loop), 648-665",
+    "block_cull": "path_tracer_ai_tpu/accel/ctiles.py:81-191 (_ray_masks, "
+                  "_extract_order_flat; fori_loop to live_blocks)",
+    "slot_sweep": "path_tracer_ai_tpu/accel/ctiles.py:485-667 "
+                  "(_sweep_resolve's fori_loops to n_chunks), pairs.py:193-259 "
+                  "(_sweep_tiles)",
 }
 # what a kernel runs as on its route besides its own launches
 RUNS_AS = {
+    "tile_sweep": "the sweep body of slot_sweep (sweep_clusters) on the "
+                  "ctiles closest waves and the pair tiles; standalone in the "
+                  "kernel phase, the host-stepped comparison loops and the "
+                  "chunked form slot_sweep replaced",
     "block_anyhit": "the sweep body of fused_stage_any on the fused route "
                     "(anyhit_group); standalone in the kernel phase and "
                     "the host-stepped comparison loop",
@@ -5668,8 +6154,13 @@ def main() -> int:
     render, img_main = phase_main_path(scene, accel_base, accel_c, card)
     profile = phase_profile(scene, accel_base, accel_c, render["seconds"])
     phase_main_summary(card, render, profile)
+    bounds_checks, bounds_generic, bounds_stepped = phase_ctiles_bounds(
+        scene, accel_base, accel_c, card, render)
+    checks.update(bounds_checks)
+    generic.update(bounds_generic)
     kept_shadows = _keep_shadow_calls(scene, accel_base, accel_c)
     paths = {"main_path": render,
+             "ctiles_stepped": {"launches": bounds_stepped},
              "path_pallas": phase_path_pallas(scene, accel_base, card, img_main)}
     phase_profile_path("profile_pallas", scene, accel_base,
                        paths["path_pallas"]["seconds"],
@@ -5843,6 +6334,8 @@ def main() -> int:
         **({"host_stepped_ms": checks[name]["host_stepped_ms"]}
            if name == "cascade_stage_any" else {}),
         **({"runs_as": RUNS_AS[name]} if name in RUNS_AS else {}),
+        **({"waves": checks[name]["waves"]}
+           if name in ("block_cull", "slot_sweep") else {}),
         **({"wave": checks[name]["wave"],
             "host_stepped_ms": checks[name]["host_stepped_ms"],
             "call_ms": checks[name]["call_ms"],

@@ -5,22 +5,30 @@
                last.
 2. CULL      — per-ray inclusive slab tests, OR'd per block: the true
                union of the per-ray candidate sets. levels=1 tests every
-               cluster AABB (`_ray_masks`); levels=2 tests the supercluster
-               boxes first and then only the children of the block's
-               super shortlist (`_block_candidates_2level`); levels=0
-               picks 2 past 2048 clusters, as the reference does.
+               cluster AABB (accel.cuda_ctiles.block_cull: `_ray_masks` and
+               `_extract_order_flat` in one kernel on the card); levels=2
+               tests the supercluster boxes first and then only the
+               children of the block's super shortlist
+               (`_block_candidates_2level`); levels=0 picks 2 past 2048
+               clusters, as the reference does.
 3. PAIRS     — flat (block, candidate) pair domain, p = block*cap + k,
                sorted by cluster id and padded per cluster to whole tiles of
                `tile_blocks` blocks (T = tile_blocks*block rays share one
-               cluster). pair_split=H sorts only the head columns k < H of
-               every block plus the tail columns of at most nb // 8 blocks.
-4. SWEEP     — the cluster-tile kernel (accel.cuda_ctiles.tile_sweep) over
-               chunks of `tile_chunk` tiles; `sub_skip` / `pallas_pack_t`
-               select its two options.
-5. RESOLVE   — per-block (t, tri) by row scatter-min: best t first, then
-               the minimum tri id among slots achieving it (the oracle's
-               lexicographic tie rule); for occlusion, tri != INT32_MAX per
-               slot and a scatter-max per block.
+               cluster), into slot tables of a static size. pair_split=H
+               sorts only the head columns k < H of every block plus the
+               tail columns of at most nb // 8 blocks.
+4. SWEEP     — accel.cuda_ctiles.slot_sweep: tile_sweep's body over the
+               static slot tables up to the live tile count; `sub_skip` /
+               `pallas_pack_t` select its two options.
+5. RESOLVE   — folded into the sweep: per-block (t, tri), best t first,
+               then the minimum tri id among slots achieving it (the
+               oracle's lexicographic tie rule); for occlusion, tri !=
+               INT32_MAX per slot, OR'd per block.
+
+On the card a call at levels=1 reads nothing from the device: the
+live-block count (the reference's traced `live_blocks`) and the live tile
+count (its dynamic `n_chunks`) stay on the card, read by the two kernels;
+levels=2 reads the live-block count, the overflow fallback its counts.
 
 Blocks whose union exceeds `cap` (or `super_cap` supers, or the split
 tail budget) complete exactly through the overflow fallback
@@ -35,13 +43,14 @@ padding.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from path_tracer_ai_tpu_torch.accel import cuda_ctiles
 from path_tracer_ai_tpu_torch.accel.kslots import _ray_slab
 from path_tracer_ai_tpu_torch.accel.traverse import PacketHit
 from path_tracer_ai_tpu_torch.accel.worklist import (
-    I32_MAX,
     _extract_k,
     _overflow_fallback,
     _prepare_blocks,
@@ -181,16 +190,25 @@ def _build_pairs(accel, order, n_cand, over, cap, tile_blocks, split_head=0,
     """Candidate tables -> cluster-major slots padded to whole tiles.
 
     Pair p = block*cap + k (k-th candidate of its block), so its owner is
-    p // cap. One sort by cluster id (within-cluster order is free: the
-    resolve is a lexicographic min) gives the cluster-major order.
+    p // cap. One sort by cluster id gives the cluster-major order; it is
+    stable, as the reference's lax.sort, so the tables are the reference's
+    (the results would not change with another order inside a cluster: the
+    resolve is a lexicographic min).
 
     split_head=H (0 < H < cap): only the head columns k < H of every block
     are sorted, plus the tail columns of the blocks with more than H
     candidates, compacted in block order into nb // split_tail_den rows;
     tail blocks past that budget overflow (ctiles.py:374-419).
 
-    Returns dict(overflow [nb], slot_pair [n_slots] i32 flat pair id or -1
-    for padding, slot_cid [n_slots] i32, n_slots int)."""
+    The slot tables have the reference's static size at tile_group=1,
+    ni_pad = n_pairs + tile_blocks * C rounded up to whole tiles (each
+    cluster pads at most tile_blocks - 1 slots); the live count stays on
+    the device, and the scatters drop what lies past the live prefix.
+
+    Returns dict(overflow [nb], slot_pair [ni_pad] i32 flat pair id or -1
+    for padding, slot_cid [ni_pad] i32 (C - 1 past the live slots; the
+    reference's carries its last run's id), n_slots and n_tiles: 0-dim device
+    tensors, the live slots and n_slots // tile_blocks as i32)."""
     nb = order.shape[0]
     c = accel.num_clusters
     tb = tile_blocks
@@ -224,34 +242,40 @@ def _build_pairs(accel, order, n_cand, over, cap, tile_blocks, split_head=0,
         key_t = torch.where(livek_t, order[tbi, h:cap], c).reshape(-1)
         pid_t = (tbi[:, None] * cap + kt).reshape(-1)
         key = torch.cat([key_h, key_t.to(key_h.dtype)])
-        key_sorted, idx = torch.sort(key)
+        key_sorted, idx = torch.sort(key, stable=True)
         perm = torch.cat([pid_h, pid_t])[idx]
     else:
         livek = torch.arange(cap, device=dev)[None, :] < n_cand[:, None]
         key = torch.where(livek, order, c).reshape(-1)        # [nb*cap]
-        key_sorted, perm = torch.sort(key)
+        key_sorted, perm = torch.sort(key, stable=True)
+    n_pairs = key_sorted.shape[0]
+    ni_pad = -(-(n_pairs + tb * c) // tb) * tb
     base = torch.searchsorted(
         key_sorted, torch.arange(c + 1, dtype=key_sorted.dtype, device=dev))
     counts = base[1:] - base[:-1]                             # [c]
     pcounts = (-(-counts // tb)) * tb
-    pbase = torch.cumsum(pcounts, 0) - pcounts                # [c]
-    n_slots = sync.host_int(pcounts.sum())
+    pend = torch.cumsum(pcounts, 0)                           # [c]
+    pbase = pend - pcounts
+    n_slots = pcounts.sum()                                   # on the device
 
-    # slot_cid: cluster of each slot (mark each non-empty run's start, cummax).
-    mark = torch.where(pcounts > 0, pbase, n_slots)
-    slot_cid = torch.zeros((n_slots + 1,), dtype=torch.int64, device=dev)
-    slot_cid.scatter_reduce_(0, mark, torch.arange(c, device=dev), "amax")
-    slot_cid = torch.cummax(slot_cid[:n_slots], 0).values.to(torch.int32)
+    # slot_cid: cluster of each slot, the runs whose ends lie at or before
+    # it (the reference's cummax of each run's start; a scan with indices
+    # over the static size would cost ten times the rest of the build).
+    # Slots past the live ones name cluster C - 1.
+    slot_cid = torch.clamp(torch.searchsorted(
+        pend, torch.arange(ni_pad, dtype=pend.dtype, device=dev),
+        right=True), max=c - 1).to(torch.int32)
 
     # slot_pair: flat pair id per slot, -1 on padding (dead keys sort last).
     n_live = base[c]
-    q = torch.arange(key_sorted.shape[0], device=dev)
+    q = torch.arange(n_pairs, device=dev)
     kc = torch.clamp(key_sorted, max=c - 1)
-    pos = torch.where(q < n_live, pbase[kc] + (q - base[kc]), n_slots)
-    slot_pair = torch.full((n_slots + 1,), -1, dtype=torch.int32, device=dev)
+    pos = torch.where(q < n_live, pbase[kc] + (q - base[kc]), ni_pad)
+    slot_pair = torch.full((ni_pad + 1,), -1, dtype=torch.int32, device=dev)
     slot_pair[pos] = perm.to(torch.int32)
-    return dict(overflow=over, slot_pair=slot_pair[:n_slots],
-                slot_cid=slot_cid, n_slots=n_slots)
+    return dict(overflow=over, slot_pair=slot_pair[:ni_pad],
+                slot_cid=slot_cid, n_slots=n_slots,
+                n_tiles=(n_slots // tb).to(torch.int32))
 
 
 def sweep_pack_builder(sub_skip: bool = False, pallas_pack_t: bool = False):
@@ -268,20 +292,18 @@ def sweep_pack_builder(sub_skip: bool = False, pallas_pack_t: bool = False):
 def _sweep_resolve(accel, pairs, o_blk, d_blk, tm_blk, t_min, cap,
                    tile_blocks, tile_chunk, want_tri, pack, sub_skip=False,
                    pack_t=False):
-    """Tile sweep over the cluster-major slots, then the per-block resolve.
+    """Tile sweep over the cluster-major slots with the per-block resolve
+    folded in (cuda_ctiles.slot_sweep, every live tile in one launch; on
+    the CPU its plain version, in chunks of tile_chunk tiles).
 
     Returns (t_blk [nb, b], tri_blk [nb, b]) with (inf, INT32_MAX) where a
     ray found nothing, or with want_tri=False (occ_blk [nb, b],): a slot
-    occludes where its tri != INT32_MAX (any passing test sets it), a
-    scatter-max per block."""
+    occludes where its tri != INT32_MAX (any passing test sets it), OR'd
+    per block."""
     nb, b = o_blk.shape[:2]
-    tb = tile_blocks
     dev = o_blk.device
-    n_tiles = pairs["n_slots"] // tb
-    slot_cid, slot_pair = pairs["slot_cid"], pairs["slot_pair"]
-
-    # Block-row ray pack [nb+1, 8, b]; row nb is the dead block that
-    # padding slots gather (o 0, d 1, t_max -1: every test fails).
+    # Block-row ray table [nb+1, 8, b]; row nb is the dead block that
+    # padding slots read (o 0, d 1, t_max -1: every test fails).
     tmin_row = torch.full((nb, 1, b), float(t_min), dtype=torch.float32,
                           device=dev)
     dead = torch.cat([
@@ -295,44 +317,14 @@ def _sweep_resolve(accel, pairs, o_blk, d_blk, tm_blk, t_min, cap,
                    tm_blk[:, None, :], tmin_row], dim=1),
         dead,
     ], dim=0)
-
-    def slot_chunks():
-        for start in range(0, n_tiles, tile_chunk):
-            stop = min(start + tile_chunk, n_tiles)
-            tc = stop - start
-            sp = slot_pair[start * tb:stop * tb]
-            blk = torch.where(sp >= 0, sp // cap, nb).to(torch.int64)
-            rays_pack = (ray_blocks[blk].reshape(tc, tb, 8, b).transpose(1, 2)
-                         .reshape(tc, 8, tb * b).contiguous())
-            cid = slot_cid[start * tb:stop * tb:tb].contiguous()
-            ct, tri_min = cuda_ctiles.tile_sweep(pack, rays_pack, cid,
-                                                 sub_skip=sub_skip,
-                                                 pack_t=pack_t)
-            yield (blk[:, None].expand(-1, b), ct.reshape(tc * tb, b),
-                   tri_min.reshape(tc * tb, b))
-
-    if not want_tri:
-        occ_blk = torch.zeros((nb + 1, b), dtype=torch.int32, device=dev)
-        for blk, _ct, tri_min in slot_chunks():
-            occ_blk.scatter_reduce_(0, blk, (tri_min != I32_MAX).to(
-                torch.int32), "amax")
-        return (occ_blk[:nb] > 0,)
-
-    # Pass 1: per-slot (t, tri) from the kernel; per-block t by scatter-min.
-    # Row nb of the block tables is a sink for padding slots.
-    t_blk = torch.full((nb + 1, b), INF, dtype=torch.float32, device=dev)
-    chunks = []
-    for blk, ct, tri_min in slot_chunks():
-        t_blk.scatter_reduce_(0, blk, ct, "amin")
-        chunks.append((blk, ct, tri_min))
-
-    # Pass 2: the minimum tri id among slots achieving the block's best t.
-    tri_blk = torch.full((nb + 1, b), I32_MAX, dtype=torch.int32, device=dev)
-    for blk, ct, ctri in chunks:
-        keep = ct <= torch.gather(t_blk, 0, blk)
-        tri_blk.scatter_reduce_(0, blk, torch.where(keep, ctri, I32_MAX),
-                                "amin")
-    return t_blk[:nb], tri_blk[:nb]
+    sweep = cuda_ctiles.slot_sweep
+    if dev.type == "cpu":
+        sweep = partial(cuda_ctiles.slot_sweep_plain, tile_chunk=tile_chunk)
+    return sweep(
+        pack, ray_blocks, pairs["slot_pair"], pairs["slot_cid"],
+        pairs["n_tiles"], tile_slots=tile_blocks, cap=cap,
+        out="closest" if want_tri else "any", cid_stride=tile_blocks,
+        sub_skip=sub_skip, pack_t=pack_t)
 
 
 def _run(accel, origins, directions, t_min, t_max, *, block, cap,
@@ -357,19 +349,22 @@ def _run(accel, origins, directions, t_min, t_max, *, block, cap,
     nb = o_blk.shape[0]
     live_blocks = None
     if sort:  # sorted waves put dead rays last: cull only the live prefix
-        n_live = sync.host_int((t_max >= 0.0).sum())
-        live_blocks = -(-n_live // block)
+        n_live = (t_max >= 0.0).sum()
+        live_blocks = ((n_live + block - 1) // block).to(torch.int32)
     if levels == 0:
         levels = 2 if accel.num_clusters > 2048 else 1
     if levels == 2:
         order, n_cand, over = _block_candidates_2level(
             accel, o_blk, d_blk, tm_blk, t_min, cap, row_chunk, super_cap,
-            live_blocks=live_blocks)
+            live_blocks=None if live_blocks is None
+            else sync.host_int(live_blocks))
+    elif dev.type == "cpu":  # the plain version, in the caller's chunks
+        order, n_cand, over = cuda_ctiles.block_cull_plain(
+            accel, o_blk, d_blk, tm_blk, t_min, cap, live_blocks,
+            row_chunk=row_chunk)
     else:
-        cand, n_cand = _ray_masks(accel, o_blk, d_blk, tm_blk, t_min,
-                                  row_chunk, live_blocks=live_blocks)
-        order, n_cand, over = _extract_order_flat(accel, cand, n_cand, cap,
-                                                  row_chunk=row_chunk)
+        order, n_cand, over = cuda_ctiles.block_cull(
+            accel, o_blk, d_blk, tm_blk, t_min, cap, live_blocks)
     pairs = _build_pairs(accel, order, n_cand, over, cap, tile_blocks,
                          split_head=pair_split)
     blk_res = _sweep_resolve(accel, pairs, o_blk, d_blk, tm_blk, t_min, cap,
@@ -412,7 +407,11 @@ def closest_hit_ctiles(accel, origins, directions, t_min, t_max,
 
     tri_pack: cuda_ctiles.pack_tris(accel), which the overflow fallback
     reads (None builds it); sweep_pack: the pack the sweep reads with these
-    options (sweep_pack_builder's; None builds it, or takes tri_pack)."""
+    options (sweep_pack_builder's; None builds it, or takes tri_pack).
+    row_chunk and tile_chunk are the reference's chunk sizes: the CPU's
+    plain versions run in them, and the 2-level cull in row_chunk on every
+    device; on the card the flat cull and the sweep take none (each runs
+    its live prefix in one launch)."""
     best_t, best_tri = _run(
         accel, origins, directions, t_min, t_max, block=block, cap=cap,
         tile_blocks=tile_blocks, row_chunk=row_chunk, tile_chunk=tile_chunk,

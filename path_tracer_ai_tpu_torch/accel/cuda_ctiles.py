@@ -41,6 +41,21 @@ other (S, T) with S, T >= 1, options included, goes to its generic
 instance (S and T at run time, the same bits). The kernel's design and its
 bound are described in the CUDA source.
 
+`slot_sweep` carries the same body over static slot tables, in one
+launch that reads the live tile count from device memory: the sweep and
+resolve of path_tracer_ai_tpu/accel/ctiles.py `_sweep_resolve` (its
+`fori_loop`s over a dynamic chunk count, ctiles.py:629-666; folded per ray
+row, closest or any hit) and of accel/pairs.py `_sweep_tiles` (pairs.py:259;
+per slot lane). Its tuned instances are the routes' shapes, (T, S) in
+(128, 256) and (128, 128) without an option; every other shape and both
+options go to its generic instance (the same bits). `block_cull`
+(csrc/ctiles_cull.cu) is the flat cull of
+ctiles.py `_ray_masks` + `_extract_order_flat` (:81-191), bounded by a
+live-block count in device memory. Both carry XLA-fused code, no Pallas
+kernel; each has its plain version here (slot_sweep_plain: the chunked
+tile_sweep and scatter resolve of before; block_cull_plain: the eager
+cull), which CPU tensors take and which may read the count on the host.
+
 Layouts:
   tri_pack [C, 10, S] f32 (pack_tris): v0.xyz, e1.xyz, e2.xyz, tri id
            bit-cast to f32. pack_tris16 [C, 16, S] adds the TPU pack's rows
@@ -67,6 +82,7 @@ INF = float("inf")
 PACK_ROWS = 10
 RAY_ROWS = 8
 SOURCE = "ctiles_sweep"
+CULL_SOURCE = "ctiles_cull"
 
 # Kernel launches since the last reset (the plain version never counts),
 # those of the generic instance and those of the first-slot instance
@@ -79,15 +95,25 @@ launches = 0
 generic_launches = 0
 slot_launches = 0
 launch_shapes: dict = {}
+# block_cull's and slot_sweep's launches (their plain versions count
+# nothing), slot_sweep's generic ones, and slot_sweep's by shape: (T, S,
+# out[, option][, "generic"]) -> [launches, slot cap in tiles].
+cull_launches = 0
+sweep_launches = 0
+sweep_generic_launches = 0
+sweep_shapes: dict = {}
 
 TIES = ("tri", "slot")
 
 
 def reset_launches() -> None:
-    global launches, generic_launches, slot_launches
+    global launches, generic_launches, slot_launches, cull_launches
+    global sweep_launches, sweep_generic_launches
     with sync.lock:
         launches = generic_launches = slot_launches = 0
+        cull_launches = sweep_launches = sweep_generic_launches = 0
         launch_shapes.clear()
+        sweep_shapes.clear()
 
 
 def combine_min_tri(t_a, tri_a, t_b, tri_b):
@@ -491,4 +517,297 @@ def tile_sweep(tri_pack, rays_pack, tile_cid, sub_skip=False, pack_t=False,
         shape = launch_shapes.setdefault(key, [0, 0])
         shape[0] += 1
         shape[1] += nt
+    return t_out, tri_out
+
+
+# ---- block_cull: ctiles' flat cull (csrc/ctiles_cull.cu) -------------------
+
+
+def block_cull_plain(accel, o_blk, d_blk, tm_blk, t_min, cap,
+                     live_blocks=None, row_chunk=1 << 11):
+    """block_cull in eager torch: accel.ctiles' _ray_masks and
+    _extract_order_flat, in row chunks up to the live-block count (read on
+    the host: the CPU has no queue to drain). Blocks at or past the count
+    get the empty set whatever their rays, as in the kernel."""
+    from path_tracer_ai_tpu_torch.accel import ctiles
+
+    lb = None if live_blocks is None else int(live_blocks)
+    if lb is not None:
+        past = torch.arange(o_blk.shape[0], device=o_blk.device) >= lb
+        tm_blk = torch.where(past[:, None], -1.0, tm_blk)
+    cand, n_cand = ctiles._ray_masks(accel, o_blk, d_blk, tm_blk, t_min,
+                                     row_chunk, live_blocks=lb)
+    return ctiles._extract_order_flat(accel, cand, n_cand, cap,
+                                      row_chunk=row_chunk)
+
+
+def _cull_kernel():
+    fn = cuda_build.load(CULL_SOURCE).block_cull
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p]
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def cull_occupancy(b: int) -> dict:
+    """block_cull's registers and resident warps per SM at b rays a block
+    (needs the card)."""
+    return read_occupancy(cuda_build.load(CULL_SOURCE).block_cull_occupancy,
+                          b)
+
+
+def block_cull(accel, o_blk, d_blk, tm_blk, t_min, cap, live_blocks=None):
+    """Per-ray inclusive slab cull of every cluster box, OR'd per block of
+    b rays, and each block's first candidates ascending -> (order [nb, kx]
+    i32, kx = min(cap, C), C - 1 past n_cand; n_cand [nb] i32, 0 where the
+    block has more than cap candidates; over [nb] bool).
+
+    o_blk / d_blk [nb, b, 3], tm_blk [nb, b] (negative: dead). live_blocks:
+    None (every block), or a one-element i32 tensor on the blocks' device,
+    the blocks that can hold live rays (waves sorted dead-last); blocks
+    past it get the empty set, which their dead rays give anyway. CUDA
+    tensors launch csrc/ctiles_cull.cu, which reads live_blocks on the
+    device (or raise); CPU tensors take block_cull_plain."""
+    global cull_launches
+    dev = o_blk.device
+    if dev.type == "cpu":
+        return block_cull_plain(accel, o_blk, d_blk, tm_blk, t_min, cap,
+                                live_blocks)
+    if dev.type != "cuda":
+        raise ValueError(f"block_cull runs on cuda or cpu, not {dev}")
+    nb, b = o_blk.shape[:2]
+    c = accel.num_clusters
+    o_blk, d_blk = o_blk.contiguous(), d_blk.contiguous()
+    tm_blk = tm_blk.contiguous()
+    _check("o_blk", o_blk, torch.float32, 3, dev)
+    _check("d_blk", d_blk, torch.float32, 3, dev)
+    _check("tm_blk", tm_blk, torch.float32, 2, dev)
+    bmin, bmax = accel.bmin.contiguous(), accel.bmax.contiguous()
+    _check("bmin", bmin, torch.float32, 2, dev)
+    _check("bmax", bmax, torch.float32, 2, dev)
+    if (o_blk.shape[2] != 3 or d_blk.shape != o_blk.shape
+            or tuple(tm_blk.shape) != (nb, b) or tuple(bmin.shape) != (c, 3)
+            or bmax.shape != bmin.shape):
+        raise ValueError("block_cull takes o_blk / d_blk [nb, b, 3], tm_blk "
+                         "[nb, b] and boxes [C, 3]")
+    if b < 1 or b > 192 or cap < 1:
+        raise ValueError(f"block_cull takes 1 <= b <= 192 rays a block and "
+                         f"cap >= 1, not b = {b}, cap = {cap}")
+    if live_blocks is not None:
+        if (live_blocks.device != dev or live_blocks.dtype != torch.int32
+                or live_blocks.numel() != 1):
+            raise ValueError("live_blocks must be one i32 on the blocks' "
+                             "device")
+    kx = min(cap, c)
+    order = torch.empty((nb, kx), dtype=torch.int32, device=dev)
+    n_cand = torch.empty((nb,), dtype=torch.int32, device=dev)
+    over = torch.empty((nb,), dtype=torch.bool, device=dev)
+    if nb == 0:
+        return order, n_cand, over
+    err = cuda_build.launch(
+        _cull_kernel(), dev, o_blk.data_ptr(), d_blk.data_ptr(),
+        tm_blk.data_ptr(), bmin.data_ptr(), bmax.data_ptr(), float(t_min),
+        None if live_blocks is None else live_blocks.data_ptr(), nb, b, c,
+        cap, kx, order.data_ptr(), n_cand.data_ptr(), over.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"block_cull launch failed: cudaError {err}")
+    with sync.lock:
+        cull_launches += 1
+    return order, n_cand, over
+
+
+# ---- slot_sweep: the sweep over static slot tables (csrc/ctiles_sweep.cu) --
+
+SLOT_OUTS = {"closest": 0, "any": 1, "slot": 2}
+# the closest fold's start: (inf, INT32_MAX) as the kernel's 64-bit key
+# (order_key(inf) << 32 | INT32_MAX ^ 2^31), as a signed i64
+FOLD_MISS_KEY = ((0xFF800000 << 32) | 0xFFFFFFFF) - (1 << 64)
+
+
+def slot_sweep_plain(tri_pack, ray_table, slot_ref, tile_cid, n_tiles, *,
+                     tile_slots, cap, out, cid_stride=1, sub_skip=False,
+                     pack_t=False, tile_chunk=256, sweep=None):
+    """slot_sweep in chunks of `tile_chunk` live tiles (None: all in one),
+    each gathered into a [tc, 8, T] ray pack and swept by `sweep` (None:
+    this module's tile_sweep, looked up at the call: on CPU tensors its
+    plain version, on CUDA tensors its kernel, the chunked form slot_sweep
+    replaced), then resolved by row scatters: closest, the row's least t
+    (-0.0 taken as +0.0), then the least tri among the slots at it; any
+    hit, the max of tri != INT32_MAX. The live tile count is read on the
+    host."""
+    sweep = tile_sweep if sweep is None else sweep
+    rows, _, b = ray_table.shape
+    rows -= 1
+    tb = tile_slots
+    t_lanes = tb * b
+    dev = ray_table.device
+    nt_cap = slot_ref.shape[0] // tb
+    nt = max(0, min(int(n_tiles), nt_cap))
+    step = nt if tile_chunk is None else tile_chunk
+    kw = {k: True for k, on in (("sub_skip", sub_skip), ("pack_t", pack_t))
+          if on}
+
+    def chunks():
+        for start in range(0, nt, max(step, 1)):
+            stop = min(start + step, nt)
+            tc = stop - start
+            sp = slot_ref[start * tb:stop * tb]
+            row = torch.where(sp >= 0, sp // cap, rows).to(torch.int64)
+            rays_pack = (ray_table[row].reshape(tc, tb, RAY_ROWS, b)
+                         .transpose(1, 2).reshape(tc, RAY_ROWS, t_lanes)
+                         .contiguous())
+            cid = tile_cid[start * cid_stride:stop * cid_stride:cid_stride]
+            ct, ctri = sweep(tri_pack, rays_pack, cid.contiguous(), **kw)
+            yield start, stop, row[:, None].expand(-1, b), ct, ctri
+
+    if out == "slot":
+        t_out = torch.full((nt_cap * t_lanes,), INF, dtype=torch.float32,
+                           device=dev)
+        tri_out = torch.full((nt_cap * t_lanes,), I32_MAX, dtype=torch.int32,
+                             device=dev)
+        for start, stop, _row, ct, ctri in chunks():
+            t_out[start * t_lanes:stop * t_lanes] = ct.reshape(-1)
+            tri_out[start * t_lanes:stop * t_lanes] = ctri.reshape(-1)
+        return t_out, tri_out
+    if out == "any":
+        occ = torch.zeros((rows + 1, b), dtype=torch.int32, device=dev)
+        for _start, _stop, row, _ct, ctri in chunks():
+            occ.scatter_reduce_(0, row, (ctri.reshape(-1, b) != I32_MAX).to(
+                torch.int32), "amax")
+        return (occ[:rows] > 0,)
+    # Pass 1: the row's least t; row `rows` is the padding slots' sink.
+    t_row = torch.full((rows + 1, b), INF, dtype=torch.float32, device=dev)
+    kept = []
+    for _start, _stop, row, ct, ctri in chunks():
+        ct, ctri = ct.reshape(-1, b), ctri.reshape(-1, b)
+        t_row.scatter_reduce_(0, row, ct, "amin")
+        kept.append((row, ct, ctri))
+    # Pass 2: the least tri id among the slots at the row's t.
+    tri_row = torch.full((rows + 1, b), I32_MAX, dtype=torch.int32,
+                         device=dev)
+    for row, ct, ctri in kept:
+        keep = ct <= torch.gather(t_row, 0, row)
+        tri_row.scatter_reduce_(0, row, torch.where(keep, ctri, I32_MAX),
+                                "amin")
+    t_row = t_row[:rows]
+    return torch.where(t_row == 0.0, 0.0, t_row), tri_row[:rows]
+
+
+def _slot_kernel(name: str):
+    fn = getattr(cuda_build.load(SOURCE), name)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def slot_occupancy(s: int, t_lanes: int, sub_skip: bool = False,
+                   pack_t: bool = False) -> dict:
+    """slot_sweep's (S, T) instance with its option, or (s = 0) its generic
+    instance of that option (needs the card)."""
+    mode = MODE_SUB_SKIP if sub_skip else MODE_PACK_T if pack_t else 0
+    return read_occupancy(cuda_build.load(SOURCE).slot_sweep_occupancy, s,
+                          t_lanes, mode)
+
+
+def slot_sweep(tri_pack, ray_table, slot_ref, tile_cid, n_tiles, *,
+               tile_slots, cap, out, cid_stride=1, sub_skip=False,
+               pack_t=False):
+    """Tiles of static slot tables swept against one cluster each, with
+    the tile count on the device.
+
+    ray_table [rows + 1, 8, b] f32 (rows ox oy oz dx dy dz t_max t_min of
+    b lanes; row `rows` is dead: o 0, d 1, t_max -1); slot_ref [nt_cap *
+    tile_slots] i32, slot p's ray row p // cap, -1 for padding (the dead
+    row); tile i's cluster tile_cid[i * cid_stride] (i32); n_tiles: a
+    one-element i32 tensor, the live tiles (tiles past it are not swept).
+    Tile i's T = tile_slots * b lanes are the b lanes of the rows of its
+    slots, in slot order. tri_pack and sub_skip / pack_t as tile_sweep's.
+
+    out "closest": per row lane, (t [rows, b], tri [rows, b]), the
+    lexicographic (t, tri) minimum over every slot of the row, (inf,
+    INT32_MAX) where none passes; "any": (occluded [rows, b] bool,); "slot":
+    per slot lane (t [nt_cap * T], tri), tile_sweep's, (inf, INT32_MAX)
+    past the live tiles. CUDA tensors launch the kernel (its tuned
+    instance for (S, T) where one is compiled, else the generic one) with
+    no host read, or raise; CPU tensors take slot_sweep_plain."""
+    global sweep_launches, sweep_generic_launches
+    _check_options(sub_skip, pack_t, "tri")
+    if out not in SLOT_OUTS:
+        raise ValueError(f"out must be one of {tuple(SLOT_OUTS)}, not "
+                         f"{out!r}")
+    dev = ray_table.device
+    if dev.type == "cpu":
+        return slot_sweep_plain(tri_pack, ray_table, slot_ref, tile_cid,
+                                n_tiles, tile_slots=tile_slots, cap=cap,
+                                out=out, cid_stride=cid_stride,
+                                sub_skip=sub_skip, pack_t=pack_t)
+    if dev.type != "cuda":
+        raise ValueError(f"slot_sweep runs on cuda or cpu, not {dev}")
+    _check("tri_pack", tri_pack, torch.float32, 3, dev)
+    _check("ray_table", ray_table, torch.float32, 3, dev)
+    _check("slot_ref", slot_ref, torch.int32, 1, dev)
+    _check("tile_cid", tile_cid, torch.int32, 1, dev)
+    if (n_tiles.device != dev or n_tiles.dtype != torch.int32
+            or n_tiles.numel() != 1):
+        raise ValueError("n_tiles must be one i32 on the tables' device")
+    if pack_t:
+        c, s, rows16 = tri_pack.shape
+    else:
+        c, rows16, s = tri_pack.shape
+    want_rows = 16 if (sub_skip or pack_t) else PACK_ROWS
+    n_rows, ray_rows, b = ray_table.shape
+    rows = n_rows - 1
+    tb = tile_slots
+    if rows16 != want_rows or ray_rows != RAY_ROWS or rows < 0:
+        raise ValueError(f"pack / ray table shapes {tuple(tri_pack.shape)} "
+                         f"/ {tuple(ray_table.shape)} do not fit")
+    if tb < 1 or cap < 1 or cid_stride < 1 or slot_ref.shape[0] % tb:
+        raise ValueError(f"{slot_ref.shape[0]} slots are not whole tiles of "
+                         f"{tb} (cap {cap}, cid_stride {cid_stride})")
+    nt_cap = slot_ref.shape[0] // tb
+    if nt_cap and tile_cid.shape[0] <= (nt_cap - 1) * cid_stride:
+        raise ValueError(f"tile_cid holds {tile_cid.shape[0]} entries, "
+                         f"fewer than {nt_cap} tiles at stride {cid_stride}")
+    t_lanes = tb * b
+    key = occ = t_out = tri_out = None
+    if out == "closest":
+        key = torch.full((max(rows * b, 1),), FOLD_MISS_KEY,
+                         dtype=torch.int64, device=dev)
+        t_out = torch.empty((rows, b), dtype=torch.float32, device=dev)
+        tri_out = torch.empty((rows, b), dtype=torch.int32, device=dev)
+    elif out == "any":
+        occ = torch.zeros((rows, b), dtype=torch.bool, device=dev)
+    else:
+        t_out = torch.empty((nt_cap * t_lanes,), dtype=torch.float32,
+                            device=dev)
+        tri_out = torch.empty((nt_cap * t_lanes,), dtype=torch.int32,
+                              device=dev)
+    mode = MODE_SUB_SKIP if sub_skip else MODE_PACK_T if pack_t else 0
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    args = (tri_pack.data_ptr(), ray_table.data_ptr(), slot_ref.data_ptr(),
+            tile_cid.data_ptr(), n_tiles.data_ptr(), ptr(key), ptr(occ),
+            ptr(t_out), ptr(tri_out), nt_cap, tb, b, rows, cap, cid_stride,
+            c, s, t_lanes, SLOT_OUTS[out], mode)
+    err, ran_generic = cuda_build.launch_instance(
+        _slot_kernel("slot_sweep"), _slot_kernel("slot_sweep_generic"), dev,
+        args)
+    if err != 0:
+        raise RuntimeError(f"slot_sweep launch failed: cudaError {err}")
+    option = "sub_skip" if sub_skip else "pack_t" if pack_t else None
+    key_shape = ((t_lanes, s, out) + ((option,) if option else ())
+                 + (("generic",) if ran_generic else ()))
+    with sync.lock:
+        sweep_launches += 1
+        sweep_generic_launches += ran_generic
+        shape = sweep_shapes.setdefault(key_shape, [0, 0])
+        shape[0] += 1
+        shape[1] += nt_cap
+    if out == "any":
+        return (occ,)
     return t_out, tri_out

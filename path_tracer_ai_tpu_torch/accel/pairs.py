@@ -9,10 +9,10 @@ Counterpart of accel/pairs.py (the whole module):
              each cluster owns a contiguous segment of pair slots padded to
              `tile_rays`; one permutation scatter builds the table.
 3. SWEEP   — tiles of `tile_rays` pair lanes that share one cluster. A pair
-             tile is exactly the cluster-tile kernel's unit, so all real
-             tiles go to ONE accel.cuda_ctiles.tile_sweep launch (T =
-             tile_rays, G = 1); the host reads the tile count once, where
-             the reference loops to a dynamic bound.
+             tile is exactly the cluster-tile kernel's unit: the pair table
+             goes to ONE accel.cuda_ctiles.slot_sweep launch (per slot
+             lane, T = tile_rays), which reads the tile count on the
+             device, where the reference loops to a dynamic bound.
 4. RESOLVE — each ray gathers its own pair slots, with the lexicographic
              (t, triangle id) rule of the brute-force oracle.
 
@@ -168,29 +168,25 @@ def build_pair_tables(accel: ClusterAccel, origins, directions, t_min, t_max,
 
 def _sweep_tiles(accel, tables: PairTables, origins, directions, t_min,
                  t_max, tile_rays: int, want_tri: bool, tri_pack=None):
-    """SWEEP: the real tiles through ONE tile_sweep launch. Returns per-pair
-    (t [P], tri [P]) or (occluded [P],). Pad lanes (pair_ray -1) go in dead:
-    o 0, d 1, t_max -1."""
-    t = tile_rays
-    p_cap = tables.pair_ray.shape[0]
+    """SWEEP: the pair table through ONE slot_sweep launch, per slot lane,
+    over the real tiles (tables.n_tiles, read on the device; on the CPU the
+    plain version sweeps them in chunks). Each slot is one lane,
+    the row of its ray in a [N + 1, 8, 1] ray table; pad lanes (pair_ray
+    -1) read the dead row: o 0, d 1, t_max -1. Returns per-pair (t [P],
+    tri [P]) or (occluded [P],)."""
+    n = origins.shape[0]
     dev = origins.device
-    n_tiles = sync.host_int(tables.n_tiles)
-    t_pair = torch.full((p_cap,), INF, dtype=torch.float32, device=dev)
-    tri_pair = torch.full((p_cap,), I32_MAX, dtype=torch.int32, device=dev)
-    if n_tiles:
-        if tri_pack is None:
-            tri_pack = cuda_ctiles.pack_tris(accel)
-        pr = tables.pair_ray[:n_tiles * t].long()
-        live = pr >= 0
-        ps = torch.clamp(pr, min=0)
-        o = torch.where(live[:, None], origins[ps], 0.0)
-        d = torch.where(live[:, None], directions[ps], 1.0)
-        tm = torch.where(live, t_max[ps], -1.0)
-        rays = cuda_ctiles.pack_rays_tiles(o, d, tm, t, t_min)
-        ct, ctri = cuda_ctiles.tile_sweep(
-            tri_pack, rays, tables.tile_cluster[:n_tiles].contiguous())
-        t_pair[:n_tiles * t] = ct.reshape(-1)
-        tri_pair[:n_tiles * t] = ctri.reshape(-1)
+    if tri_pack is None:
+        tri_pack = cuda_ctiles.pack_tris(accel)
+    rays = torch.cat([origins, directions, t_max[:, None],
+                      torch.full((n, 1), t_min, dtype=torch.float32,
+                                 device=dev)], dim=1)
+    dead = torch.tensor([[0.0, 0.0, 0.0, 1.0, 1.0, 1.0, -1.0, t_min]],
+                        dtype=torch.float32, device=dev)
+    ray_table = torch.cat([rays, dead])[:, :, None].contiguous()
+    t_pair, tri_pair = cuda_ctiles.slot_sweep(
+        tri_pack, ray_table, tables.pair_ray, tables.tile_cluster,
+        tables.n_tiles, tile_slots=tile_rays, cap=1, out="slot")
     if want_tri:
         return t_pair, tri_pair
     return (tri_pair != I32_MAX,)
@@ -233,24 +229,33 @@ def _whole_wave(run, origins, directions, t_max, overflow, block):
     return tuple(a[:n] for a in run(fo, fd, ftm))
 
 
+def overflow_index(overflow, k: int) -> torch.Tensor:
+    """The indices of the first k set entries of overflow [N] bool,
+    ascending, then N: jnp.nonzero(overflow, size=k, fill_value=N), as a
+    cumsum rank and one scatter (a static size: no host read)."""
+    n = overflow.shape[0]
+    rank = torch.cumsum(overflow.to(torch.int64), 0) - 1
+    dest = torch.where(overflow & (rank < k), rank, k)
+    idx = torch.full((k + 1,), n, dtype=torch.int64, device=overflow.device)
+    idx[dest] = torch.arange(n, device=overflow.device)
+    return idx[:k]
+
+
 def _compacted(run, origins, directions, t_max, overflow, count, k, empty):
-    """run over the `count` overflow rays gathered into a wave of k (slots
-    past the count gather ray n - 1 dead: d 1, t_max -1); results scattered
-    back into copies of `empty`."""
+    """run over the `count` (<= k) overflow rays gathered into a wave of k
+    (slots past the count gather ray n - 1 dead: d 1, t_max -1); results
+    scattered back into copies of `empty`."""
     n = origins.shape[0]
-    dev = origins.device
-    idx = torch.nonzero(overflow).squeeze(1)
-    sync.note()
-    gi = torch.full((k,), n - 1, dtype=torch.int64, device=dev)
-    gi[:count] = idx
-    live = torch.arange(k, device=dev) < count
+    idx = overflow_index(overflow, k)
+    live = idx < n
+    gi = torch.clamp(idx, max=n - 1)
     res = run(origins[gi], torch.where(live[:, None], directions[gi], 1.0),
               torch.where(live, t_max[gi], -1.0))
     out = []
     for e, r in zip(empty, res):
-        e = e.clone()
-        e[idx] = r[:count]
-        out.append(e)
+        e = torch.cat([e, e[:1]])  # slot n: the sink of the fill entries
+        e[idx] = r
+        out.append(e[:n])
     return tuple(out)
 
 

@@ -67,6 +67,166 @@
 #include "mt.cuh"
 
 #define PACK_ROWS 10
+#define MODE_SUB_SKIP 1
+#define MODE_PACK_T 2
+#define MODE_FIRST 3  // the [C, 10, S] pack, first slot (see the header)
+#define PACK16_ROWS 16
+
+__device__ __forceinline__ void cp_async_bytes16(void* dst_shared,
+                                                 const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst_shared);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_bytes8(void* dst_shared,
+                                                const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst_shared);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// One warp starts the copy of a [S, 16] cluster's words 0-9 of each
+// triangle into S TriRecs. The caller waits and __syncwarp()s.
+template <int S>
+__device__ __forceinline__ void stage_cluster_rows_warp(TriRec* dst,
+                                                        const float* cluster,
+                                                        int lane) {
+#pragma unroll
+  for (int j = lane; j < S; j += 32) {
+    const float* src = cluster + (size_t)j * PACK16_ROWS;
+    cp_async_bytes16(&dst[j].a, src);
+    cp_async_bytes16(&dst[j].b, src + 4);
+    cp_async_bytes8(&dst[j].c, src + 8);
+  }
+}
+
+// As stage_chunk_warp for the [s, 16] cluster of a pack_t pack.
+__device__ __forceinline__ void stage_chunk_rows16_warp(TriRec* dst,
+                                                        const float* cluster,
+                                                        int s, int c0,
+                                                        int lane) {
+  const int j = c0 + lane;
+  if (j < s) {
+    const float* src = cluster + (size_t)j * PACK16_ROWS;
+    cp_async_bytes16(&dst[lane].a, src);
+    cp_async_bytes16(&dst[lane].b, src + 4);
+    cp_async_bytes8(&dst[lane].c, src + 8);
+  } else {
+    dst[lane].a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    dst[lane].b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    dst[lane].c = make_float2(0.0f, 0.0f);
+  }
+}
+
+// The body of a tile: the warp's R slots (ray[r], window [tmin[r],
+// tmax[r]], running best (best_t[r], best_tri[r]); `live`: load_slots'
+// mask) against the g clusters cids[0..g-1] (ids outside [0, C) skipped),
+// each staged into the warp's part of `smem` and swept. MODE 0 is the
+// default sweep, MODE_FIRST its first-slot fold, MODE_SUB_SKIP and
+// MODE_PACK_T the options (below). tile_sweep's tuned instances and
+// slot_sweep's run it.
+template <int S, int R, int MODE>
+__device__ __forceinline__ void sweep_clusters(
+    const float* __restrict__ tri_pack, const int* __restrict__ cids, int g,
+    int n_clusters, unsigned live, const Ray* ray, const float* tmin,
+    const float* tmax, float* best_t, int* best_tri, unsigned char* smem,
+    int warp, int lane) {
+  if (live == 0u) return;
+  constexpr int ROWS =
+      MODE == MODE_SUB_SKIP || MODE == MODE_PACK_T ? PACK16_ROWS : PACK_ROWS;
+  for (int i = 0; i < g; ++i) {
+    const int cid = cids[i];
+    if (cid < 0 || cid >= n_clusters) continue;
+    const float* cluster = tri_pack + (size_t)cid * ROWS * S;
+    if constexpr (MODE == MODE_SUB_SKIP) {
+      static_assert(S % SUB == 0, "whole sub-slabs only");
+      constexpr int NS = S / SUB;
+      Staged<S>* st = reinterpret_cast<Staged<S>*>(smem) + warp;
+      stage_candidate<S>(st, cluster, lane);
+      cp_async_wait_all();
+      __syncwarp();
+#pragma unroll 1
+      for (int k = 0; k < NS; ++k) {
+        const float4 lo =
+            *reinterpret_cast<const float4*>(st->box + k * BOX_WORDS);
+        const float4 hi =
+            *reinterpret_cast<const float4*>(st->box + k * BOX_WORDS + 4);
+        const float box[6] = {lo.x, lo.y, lo.z, hi.x, hi.y, hi.z};
+        float cap[R];
+        unsigned go = 0u;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          cap[r] = fminf(tmax[r], best_t[r]);
+          if ((live >> r) & 1u) {
+            const bool touch = sub_slab_lane(
+                box, ray[r], 1.0f / ray[r].dx, 1.0f / ray[r].dy,
+                1.0f / ray[r].dz, tmin[r], cap[r]);
+            if (__any_sync(FULL_MASK, touch)) go |= 1u << r;
+          }
+        }
+        if (go != 0u) {
+          sweep_live<R, SUB>(st->tri + k * SUB, go, ray, tmin, cap, best_t,
+                             best_tri);
+        }
+      }
+    } else {
+      TriRec* buf = reinterpret_cast<TriRec*>(smem) + (size_t)warp * S;
+      if constexpr (MODE == MODE_PACK_T) {
+        stage_cluster_rows_warp<S>(buf, cluster, lane);
+      } else {
+        stage_cluster_warp<S>(buf, cluster, lane);
+      }
+      cp_async_wait_all();
+      __syncwarp();
+      sweep_live<R, S, MODE == MODE_FIRST>(buf, live, ray, tmin, tmax, best_t,
+                                           best_tri);
+    }
+    __syncwarp();  // every lane is done with the buffer
+  }
+}
+
+// The generic instances' body (S at run time, one ray a thread, see
+// "the generic instance" below): the lane's ray against the g clusters
+// cids[0..g-1], each walked in chunks of 32 staged into the warp's buffer.
+template <int MODE>
+__device__ __forceinline__ void sweep_clusters_generic(
+    const float* __restrict__ tri_pack, const int* __restrict__ cids, int g,
+    int n_clusters, int s, const Ray& ray, float tmin, float tmax,
+    float* best_t, int* best_tri, TriRec* buf, int lane) {
+  if (!__any_sync(FULL_MASK, tmax >= tmin)) return;
+  const int rows = MODE == MODE_SUB_SKIP || MODE == MODE_PACK_T ? PACK16_ROWS
+                                                                 : PACK_ROWS;
+  for (int i = 0; i < g; ++i) {
+    const int cid = cids[i];
+    if (cid < 0 || cid >= n_clusters) continue;
+    const float* cluster = tri_pack + (size_t)cid * rows * s;
+#pragma unroll 1
+    for (int c0 = 0; c0 < s; c0 += CHUNK) {
+      float cap = tmax;
+      if constexpr (MODE == MODE_SUB_SKIP) {
+        float box[6];
+        load_box(cluster, s, c0 / CHUNK, box);
+        cap = fminf(tmax, *best_t);
+        const bool touch = sub_slab_lane(box, ray, 1.0f / ray.dx,
+                                         1.0f / ray.dy, 1.0f / ray.dz,
+                                         tmin, cap);
+        if (!__any_sync(FULL_MASK, touch)) continue;
+      }
+      if constexpr (MODE == MODE_PACK_T) {
+        stage_chunk_rows16_warp(buf, cluster, s, c0, lane);
+      } else {
+        stage_chunk_warp<PACK_ROWS>(buf, cluster, s, c0, lane);
+      }
+      cp_async_wait_all();
+      __syncwarp();
+      sweep_live<1, CHUNK, MODE == MODE_FIRST>(buf, 1u, &ray, &tmin, &cap,
+                                               best_t, best_tri);
+      __syncwarp();  // every lane is done with the buffer
+    }
+  }
+}
 
 template <int S, int T, int R, bool FIRST = false>
 __global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(R))
@@ -82,7 +242,6 @@ __global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(R))
   if (unit >= nt * WPT) return;  // whole warps leave; there is no block barrier
   const size_t tile = (size_t)(unit / WPT);
   const int base = (unit % WPT) * 32 * R;
-  TriRec* buf = reinterpret_cast<TriRec*>(smem) + (size_t)warp * S;
 
   Ray ray[R];
   float tmin[R], tmax[R], best_t[R];
@@ -94,18 +253,9 @@ __global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(R))
     best_t[r] = INFINITY;
     best_tri[r] = I32_MAX;
   }
-
-  if (live != 0u) {
-    for (int i = 0; i < g; ++i) {
-      const int cid = tile_cid[tile * g + i];
-      if (cid < 0 || cid >= n_clusters) continue;
-      stage_cluster_warp<S>(buf, tri_pack + (size_t)cid * PACK_ROWS * S, lane);
-      cp_async_wait_all();
-      __syncwarp();
-      sweep_live<R, S, FIRST>(buf, live, ray, tmin, tmax, best_t, best_tri);
-      __syncwarp();  // every lane is done with the buffer
-    }
-  }
+  sweep_clusters<S, R, FIRST ? MODE_FIRST : 0>(
+      tri_pack, tile_cid + tile * g, g, n_clusters, live, ray, tmin, tmax,
+      best_t, best_tri, smem, warp, lane);
   store_slots<T, R>(t_out, tri_out, tile, base, lane, best_t, best_tri);
 }
 
@@ -242,41 +392,6 @@ extern "C" int ctiles_sweep_first_occupancy(int s, int t_lanes, int* regs,
 // 16 and 8 bytes) into the same TriRec layout, in place of ten transposing
 // copies of 4 bytes; the inner loop is the default's.
 
-#define MODE_SUB_SKIP 1
-#define MODE_PACK_T 2
-#define MODE_FIRST 3  // the generic instance only: the [C, 10, S] pack, first slot
-#define PACK16_ROWS 16
-
-__device__ __forceinline__ void cp_async_bytes16(void* dst_shared,
-                                                 const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst_shared);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_bytes8(void* dst_shared,
-                                                const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst_shared);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src)
-               : "memory");
-}
-
-// One warp starts the copy of a [S, 16] cluster's words 0-9 of each
-// triangle into S TriRecs. The caller waits and __syncwarp()s.
-template <int S>
-__device__ __forceinline__ void stage_cluster_rows_warp(TriRec* dst,
-                                                        const float* cluster,
-                                                        int lane) {
-#pragma unroll
-  for (int j = lane; j < S; j += 32) {
-    const float* src = cluster + (size_t)j * PACK16_ROWS;
-    cp_async_bytes16(&dst[j].a, src);
-    cp_async_bytes16(&dst[j].b, src + 4);
-    cp_async_bytes8(&dst[j].c, src + 8);
-  }
-}
-
 template <int S, int MODE>
 constexpr size_t options_smem_bytes() {
   return MODE == MODE_SUB_SKIP ? SWEEP_WARPS * sizeof(Staged<S>)
@@ -291,8 +406,6 @@ __global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(R))
                               float* __restrict__ t_out,
                               int* __restrict__ tri_out, int nt, int g,
                               int n_clusters) {
-  static_assert(S % SUB == 0, "whole sub-slabs only");
-  constexpr int NS = S / SUB;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   constexpr int WPT = T / (32 * R);  // warps per tile
@@ -311,51 +424,9 @@ __global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(R))
     best_t[r] = INFINITY;
     best_tri[r] = I32_MAX;
   }
-
-  if (live != 0u) {
-    for (int i = 0; i < g; ++i) {
-      const int cid = tile_cid[tile * g + i];
-      if (cid < 0 || cid >= n_clusters) continue;
-      const float* cluster = tri_pack + (size_t)cid * PACK16_ROWS * S;
-      if constexpr (MODE == MODE_PACK_T) {
-        TriRec* buf = reinterpret_cast<TriRec*>(smem) + (size_t)warp * S;
-        stage_cluster_rows_warp<S>(buf, cluster, lane);
-        cp_async_wait_all();
-        __syncwarp();
-        sweep_live<R, S>(buf, live, ray, tmin, tmax, best_t, best_tri);
-      } else {
-        Staged<S>* st = reinterpret_cast<Staged<S>*>(smem) + warp;
-        stage_candidate<S>(st, cluster, lane);
-        cp_async_wait_all();
-        __syncwarp();
-#pragma unroll 1
-        for (int k = 0; k < NS; ++k) {
-          const float4 lo =
-              *reinterpret_cast<const float4*>(st->box + k * BOX_WORDS);
-          const float4 hi =
-              *reinterpret_cast<const float4*>(st->box + k * BOX_WORDS + 4);
-          const float box[6] = {lo.x, lo.y, lo.z, hi.x, hi.y, hi.z};
-          float cap[R];
-          unsigned go = 0u;
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            cap[r] = fminf(tmax[r], best_t[r]);
-            if ((live >> r) & 1u) {
-              const bool touch = sub_slab_lane(
-                  box, ray[r], 1.0f / ray[r].dx, 1.0f / ray[r].dy,
-                  1.0f / ray[r].dz, tmin[r], cap[r]);
-              if (__any_sync(FULL_MASK, touch)) go |= 1u << r;
-            }
-          }
-          if (go != 0u) {
-            sweep_live<R, SUB>(st->tri + k * SUB, go, ray, tmin, cap, best_t,
-                               best_tri);
-          }
-        }
-      }
-      __syncwarp();  // every lane is done with the buffer
-    }
-  }
+  sweep_clusters<S, R, MODE>(tri_pack, tile_cid + tile * g, g, n_clusters,
+                             live, ray, tmin, tmax, best_t, best_tri, smem,
+                             warp, lane);
   store_slots<T, R>(t_out, tri_out, tile, base, lane, best_t, best_tri);
 }
 
@@ -451,24 +522,6 @@ extern "C" int ctiles_sweep_options_occupancy(int s, int t_lanes, int mode,
 // MODE_FIRST a chunk is staged as under 0 and folded by the first-slot rule
 // (the chunks in order, so slots in order).
 
-// As stage_chunk_warp for the [s, 16] cluster of a pack_t pack.
-__device__ __forceinline__ void stage_chunk_rows16_warp(TriRec* dst,
-                                                        const float* cluster,
-                                                        int s, int c0,
-                                                        int lane) {
-  const int j = c0 + lane;
-  if (j < s) {
-    const float* src = cluster + (size_t)j * PACK16_ROWS;
-    cp_async_bytes16(&dst[lane].a, src);
-    cp_async_bytes16(&dst[lane].b, src + 4);
-    cp_async_bytes8(&dst[lane].c, src + 8);
-  } else {
-    dst[lane].a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    dst[lane].b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    dst[lane].c = make_float2(0.0f, 0.0f);
-  }
-}
-
 template <int MODE>
 __global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(1))
     tile_sweep_generic_kernel(const float* __restrict__ tri_pack,
@@ -484,46 +537,14 @@ __global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(1))
   if (unit >= nt * wpt) return;  // whole warps leave; there is no block barrier
   const size_t tile = (size_t)(unit / wpt);
   const int off = (unit % wpt) * 32 + lane;
-  TriRec* buf = bufs[warp];
-  const int rows = MODE == MODE_SUB_SKIP || MODE == MODE_PACK_T ? PACK16_ROWS
-                                                                 : PACK_ROWS;
-
   float tmin, tmax;
   const Ray ray =
       load_lane(rays + tile * RAY_ROWS * t_lanes, t_lanes, off, &tmin, &tmax);
   float best_t = INFINITY;
   int best_tri = I32_MAX;
-
-  if (__any_sync(FULL_MASK, tmax >= tmin)) {
-    for (int i = 0; i < g; ++i) {
-      const int cid = tile_cid[tile * g + i];
-      if (cid < 0 || cid >= n_clusters) continue;
-      const float* cluster = tri_pack + (size_t)cid * rows * s;
-#pragma unroll 1
-      for (int c0 = 0; c0 < s; c0 += CHUNK) {
-        float cap = tmax;
-        if constexpr (MODE == MODE_SUB_SKIP) {
-          float box[6];
-          load_box(cluster, s, c0 / CHUNK, box);
-          cap = fminf(tmax, best_t);
-          const bool touch = sub_slab_lane(box, ray, 1.0f / ray.dx,
-                                           1.0f / ray.dy, 1.0f / ray.dz,
-                                           tmin, cap);
-          if (!__any_sync(FULL_MASK, touch)) continue;
-        }
-        if constexpr (MODE == MODE_PACK_T) {
-          stage_chunk_rows16_warp(buf, cluster, s, c0, lane);
-        } else {
-          stage_chunk_warp<PACK_ROWS>(buf, cluster, s, c0, lane);
-        }
-        cp_async_wait_all();
-        __syncwarp();
-        sweep_live<1, CHUNK, MODE == MODE_FIRST>(buf, 1u, &ray, &tmin, &cap,
-                                                 &best_t, &best_tri);
-        __syncwarp();  // every lane is done with the buffer
-      }
-    }
-  }
+  sweep_clusters_generic<MODE>(tri_pack, tile_cid + tile * g, g, n_clusters,
+                               s, ray, tmin, tmax, &best_t, &best_tri,
+                               bufs[warp], lane);
   if (off < t_lanes) {
     t_out[tile * t_lanes + off] = best_t;
     tri_out[tile * t_lanes + off] = best_tri;
@@ -560,6 +581,380 @@ extern "C" int ctiles_sweep_generic(const void* tri_pack, const void* rays,
   }
 #undef LAUNCH
   return (int)cudaGetLastError();
+}
+
+// ---- slot_sweep: the ctiles / pairs sweep over static slot tables --------
+//
+// The sweep of path_tracer_ai_tpu/accel/ctiles.py `_sweep_resolve` (the
+// `fori_loop`s at :629, :646 and :666 over a dynamic chunk count, each chunk
+// a `tile_sweep`, then the row scatter-min / scatter-max resolve) and of
+// path_tracer_ai_tpu/accel/pairs.py `_sweep_tiles` (the `fori_loop` at :259),
+// in one launch that reads its tile count from device memory: the host
+// reads nothing. Its body is tile_sweep's (sweep_clusters, or
+// sweep_clusters_generic for the generic instance: the same arithmetic, the
+// same options).
+//
+// Inputs: a ray table [rows + 1, 8, b] (row `rows` is the dead row: o 0,
+// d 1, t_max -1), static slot tables of nt_cap * tb slots (slot_ref: a
+// flat pair id, -1 = padding; its ray row is ref / cap, the dead row for
+// -1), tile i's cluster id at tile_cid[i * cid_stride], and n_tiles, the
+// live tile count, in device memory. Lane l of tile i is lane l % b of the
+// row of slot i * tb + l / b (T = tb * b lanes a tile), as ctiles' chunked
+// gather `ray_blocks[blk]` lays it out.
+//
+// Outputs, by out_mode:
+//   SLOT_OUT_CLOSEST  per row lane, the lexicographic (t, tri) minimum over
+//                     every slot of the row, through one 64-bit atomicMin of
+//                     (order_key(t) << 32 | tri ^ 2^31) a lane that passed
+//                     some test; t is the f32 of its key, -0.0 taken as
+//                     +0.0 (the two compare equal, and the two-pass resolve
+//                     keeps the minimum id among them), then decoded by
+//                     slot_fold_decode in the same call. A row no slot
+//                     reaches stays (inf, INT32_MAX).
+//   SLOT_OUT_ANY      per row lane, 1 where some slot lane has tri !=
+//                     INT32_MAX (a test passed), else the zeros it got.
+//   SLOT_OUT_SLOT     per slot lane (tile i * T + l), tile_sweep's (t, tri);
+//                     tiles past n_tiles get (inf, INT32_MAX).
+//
+// Design: a persistent grid (the card's resident thread blocks, at most
+// what nt_cap needs) whose warps stride the units (tile, warp part) up to
+// n_tiles * warps a tile: a render's static cap is ~393 k tiles of which a
+// fraction are live, and CTAs that exit at once would cost more than the
+// stride. What bounds it: the sweep's (instruction throughput, as tile_sweep);
+// the gather of a lane's ray (8 words from the row its slot names) and the
+// fold's one atomic per hit lane add little.
+
+#define SLOT_OUT_CLOSEST 0
+#define SLOT_OUT_ANY 1
+#define SLOT_OUT_SLOT 2
+
+struct SlotArgs {
+  const float* tri_pack;
+  const float* rays;
+  const int* slot_ref;
+  const int* tile_cid;
+  const int* n_tiles;
+  unsigned long long* key;
+  unsigned char* occ;
+  float* t_out;
+  int* tri_out;
+  int nt_cap, tb, b, rows, cap, cid_stride, n_clusters, s, t_lanes, out_mode;
+};
+
+// Lane l of tile `tile`: its ray, window and the fold's destination (row *
+// b + lane in row; -1 for a padding slot or a lane past T).
+__device__ __forceinline__ Ray load_slot_lane(const SlotArgs& a, size_t tile,
+                                              int l, float* tmin, float* tmax,
+                                              int* dst) {
+  Ray ray = {0.0f, 0.0f, 0.0f, 1.0f, 1.0f, 1.0f};
+  *tmin = 0.0f;
+  *tmax = -1.0f;
+  *dst = -1;
+  if (l >= a.t_lanes) return ray;
+  const int k = l / a.b, w = l - k * a.b;
+  const int ref = __ldg(a.slot_ref + tile * a.tb + k);
+  const int row = ref >= 0 ? ref / a.cap : a.rows;
+  if (ref >= 0) *dst = row * a.b + w;
+  const float* rp = a.rays + (size_t)row * RAY_ROWS * a.b + w;
+  ray = load_ray(rp, a.b);
+  *tmax = rp[6 * a.b];
+  *tmin = rp[7 * a.b];
+  return ray;
+}
+
+__device__ __forceinline__ unsigned long long fold_key(float t, int tri) {
+  const float tz = t == 0.0f ? 0.0f : t;  // -0.0 and +0.0: one t
+  return ((unsigned long long)order_key(tz) << 32) |
+         ((unsigned)tri ^ 0x80000000u);
+}
+
+__device__ __forceinline__ void slot_emit(const SlotArgs& a, size_t tile,
+                                          int l, int dst, float t, int tri) {
+  if (a.out_mode == SLOT_OUT_SLOT) {
+    if (l < a.t_lanes) {
+      a.t_out[tile * a.t_lanes + l] = t;
+      a.tri_out[tile * a.t_lanes + l] = tri;
+    }
+  } else if (dst >= 0 && tri != I32_MAX) {  // tri == INT32_MAX: no test passed
+    if (a.out_mode == SLOT_OUT_ANY) {
+      a.occ[dst] = 1;
+    } else {
+      atomicMin(a.key + dst, fold_key(t, tri));
+    }
+  }
+}
+
+// Per-slot output: the lanes of the tiles past the live count.
+__device__ __forceinline__ void slot_fill(const SlotArgs& a, long long live) {
+  if (a.out_mode != SLOT_OUT_SLOT) return;
+  const size_t total = (size_t)a.nt_cap * a.t_lanes;
+  const size_t step = (size_t)gridDim.x * blockDim.x;
+  for (size_t i = (size_t)live * a.t_lanes + (size_t)blockIdx.x * blockDim.x +
+                  threadIdx.x;
+       i < total; i += step) {
+    a.t_out[i] = INFINITY;
+    a.tri_out[i] = I32_MAX;
+  }
+}
+
+__device__ __forceinline__ long long live_tiles(const SlotArgs& a) {
+  const int n = *a.n_tiles;
+  return n < 0 ? 0 : (n < a.nt_cap ? n : a.nt_cap);
+}
+
+template <int S, int T, int R, int MODE>
+__global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(R))
+    slot_sweep_kernel(const SlotArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int WPT = T / (32 * R);  // warps per tile
+  const long long tiles = live_tiles(a);
+  const long long stride = (long long)gridDim.x * SWEEP_WARPS;
+  for (long long unit = (long long)blockIdx.x * SWEEP_WARPS + warp;
+       unit < tiles * WPT; unit += stride) {  // warp-uniform
+    const size_t tile = (size_t)(unit / WPT);
+    const int base = (int)(unit % WPT) * 32 * R;
+    Ray ray[R];
+    float tmin[R], tmax[R], best_t[R];
+    int best_tri[R], dst[R];
+    unsigned live = 0u;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      ray[r] = load_slot_lane(a, tile, base + lane + 32 * r, &tmin[r],
+                              &tmax[r], &dst[r]);
+      if (__any_sync(FULL_MASK, tmax[r] >= tmin[r])) live |= 1u << r;
+      best_t[r] = INFINITY;
+      best_tri[r] = I32_MAX;
+    }
+    sweep_clusters<S, R, MODE>(a.tri_pack, a.tile_cid + tile * a.cid_stride,
+                               1, a.n_clusters, live, ray, tmin, tmax, best_t,
+                               best_tri, smem, warp, lane);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      slot_emit(a, tile, base + lane + 32 * r, dst[r], best_t[r],
+                best_tri[r]);
+    }
+  }
+  slot_fill(a, tiles);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(SWEEP_WARPS * 32, SWEEP_MIN_BLOCKS(1))
+    slot_sweep_generic_kernel(const SlotArgs a) {
+  __shared__ TriRec bufs[SWEEP_WARPS][CHUNK];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wpt = (a.t_lanes + 31) >> 5;  // warps per tile
+  const long long tiles = live_tiles(a);
+  const long long stride = (long long)gridDim.x * SWEEP_WARPS;
+  for (long long unit = (long long)blockIdx.x * SWEEP_WARPS + warp;
+       unit < tiles * wpt; unit += stride) {  // warp-uniform
+    const size_t tile = (size_t)(unit / wpt);
+    const int l = (int)(unit % wpt) * 32 + lane;
+    float tmin, tmax;
+    int dst;
+    const Ray ray = load_slot_lane(a, tile, l, &tmin, &tmax, &dst);
+    float best_t = INFINITY;
+    int best_tri = I32_MAX;
+    sweep_clusters_generic<MODE>(a.tri_pack, a.tile_cid + tile * a.cid_stride,
+                                 1, a.n_clusters, a.s, ray, tmin, tmax,
+                                 &best_t, &best_tri, bufs[warp], lane);
+    slot_emit(a, tile, l, dst, best_t, best_tri);
+  }
+  slot_fill(a, tiles);
+}
+
+// The closest fold's keys -> (t, tri) per row lane.
+__global__ void slot_fold_decode(const unsigned long long* __restrict__ key,
+                                 float* __restrict__ t_out,
+                                 int* __restrict__ tri_out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const unsigned long long k = key[i];
+  t_out[i] = key_float((unsigned)(k >> 32));
+  tri_out[i] = (int)((unsigned)k ^ 0x80000000u);
+}
+
+template <int S, int MODE>
+constexpr size_t slot_smem_bytes() {
+  return MODE == MODE_SUB_SKIP ? SWEEP_WARPS * sizeof(Staged<S>)
+                               : SWEEP_WARPS * S * sizeof(TriRec);
+}
+
+// The card's resident thread blocks of `kernel` (at least one), capped at
+// what `want` blocks need.
+template <typename K>
+static int persistent_blocks(K kernel, size_t smem, long long want) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                SWEEP_WARPS * 32, smem);
+  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  const long long n = want < resident ? want : resident;
+  return (int)(n > 0 ? n : 1);
+}
+
+static int slot_decode(const SlotArgs& a, cudaStream_t stream) {
+  const int n = a.rows * a.b;
+  if (a.out_mode != SLOT_OUT_CLOSEST || n <= 0) return 0;
+  slot_fold_decode<<<(n + 255) / 256, 256, 0, stream>>>(a.key, a.t_out,
+                                                        a.tri_out, n);
+  return (int)cudaGetLastError();
+}
+
+template <int S, int T, int R, int MODE>
+static int launch_slot(const SlotArgs& a, cudaStream_t stream) {
+  constexpr size_t smem = slot_smem_bytes<S, MODE>();
+  if (a.nt_cap > 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        slot_sweep_kernel<S, T, R, MODE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long units = (long long)a.nt_cap * (T / (32 * R));
+    const int blocks = persistent_blocks(
+        slot_sweep_kernel<S, T, R, MODE>, smem,
+        (units + SWEEP_WARPS - 1) / SWEEP_WARPS);
+    slot_sweep_kernel<S, T, R, MODE>
+        <<<blocks, SWEEP_WARPS * 32, smem, stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return slot_decode(a, stream);
+}
+
+template <int MODE>
+static int launch_slot_generic(const SlotArgs& a, cudaStream_t stream) {
+  if (a.nt_cap > 0) {
+    const long long units = (long long)a.nt_cap * ((a.t_lanes + 31) / 32);
+    const int blocks =
+        persistent_blocks(slot_sweep_generic_kernel<MODE>, 0,
+                          (units + SWEEP_WARPS - 1) / SWEEP_WARPS);
+    slot_sweep_generic_kernel<MODE>
+        <<<blocks, SWEEP_WARPS * 32, 0, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return slot_decode(a, stream);
+}
+
+// The routes' shapes: the main path's closest waves (T 128, S 256), the
+// pair tiles and the ctiles backend's closest waves (T 128, S 128). Every
+// other shape and both options go to slot_sweep_generic: its tuned option
+// instances were slower than the generic ones on the main path's waves.
+#define FOR_SLOT_INSTANCES(CALL) CALL(256, 128, 0) CALL(128, 128, 0)
+
+#define SLOT_PARAMS                                                         \
+  const void *tri_pack, const void *rays, const void *slot_ref,            \
+      const void *tile_cid, const void *n_tiles, void *key, void *occ,     \
+      void *t_out, void *tri_out, int nt_cap, int tb, int b, int rows,     \
+      int cap, int cid_stride, int n_clusters, int s, int t_lanes,         \
+      int out_mode, int mode, void *stream
+
+static SlotArgs slot_args(const void* tri_pack, const void* rays,
+                          const void* slot_ref, const void* tile_cid,
+                          const void* n_tiles, void* key, void* occ,
+                          void* t_out, void* tri_out, int nt_cap, int tb,
+                          int b, int rows, int cap, int cid_stride,
+                          int n_clusters, int s, int t_lanes, int out_mode) {
+  return SlotArgs{(const float*)tri_pack, (const float*)rays,
+                  (const int*)slot_ref,   (const int*)tile_cid,
+                  (const int*)n_tiles,    (unsigned long long*)key,
+                  (unsigned char*)occ,    (float*)t_out,
+                  (int*)tri_out,          nt_cap,
+                  tb,                     b,
+                  rows,                   cap,
+                  cid_stride,             n_clusters,
+                  s,                      t_lanes,
+                  out_mode};
+}
+
+static bool slot_args_ok(int nt_cap, int tb, int b, int rows, int cap,
+                         int s, int t_lanes, int out_mode, int mode) {
+  return nt_cap >= 0 && tb >= 1 && b >= 1 && rows >= 0 && cap >= 1 &&
+         s >= 1 && t_lanes == tb * b && out_mode >= SLOT_OUT_CLOSEST &&
+         out_mode <= SLOT_OUT_SLOT &&
+         (mode == 0 || mode == MODE_SUB_SKIP || mode == MODE_PACK_T);
+}
+
+#define SLOT_ARGS                                                          \
+  slot_args(tri_pack, rays, slot_ref, tile_cid, n_tiles, key, occ, t_out, \
+            tri_out, nt_cap, tb, b, rows, cap, cid_stride, n_clusters, s, \
+            t_lanes, out_mode)
+
+// One slot sweep (see above) on `stream`, and for SLOT_OUT_CLOSEST the
+// decode of its keys (key: rows * b words of the miss key (inf, INT32_MAX));
+// mode 0, MODE_SUB_SKIP ([C, 16, S] pack) or MODE_PACK_T ([C, S, 16]).
+// Returns the cudaError_t (0 = ok), or NO_INSTANCE for an (S, T, mode) that
+// is not compiled.
+extern "C" int slot_sweep(SLOT_PARAMS) {
+  if (!slot_args_ok(nt_cap, tb, b, rows, cap, s, t_lanes, out_mode, mode)) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define LAUNCH(S_, T_, M_)                                                 \
+  if (s == S_ && t_lanes == T_ && mode == M_)                              \
+    return launch_slot<S_, T_, rays_per_thread(T_), M_>(                   \
+        SLOT_ARGS, (cudaStream_t)stream);
+  FOR_SLOT_INSTANCES(LAUNCH)
+#undef LAUNCH
+  return NO_INSTANCE;
+}
+
+// The generic instance of slot_sweep, with its arguments, for any S, T.
+extern "C" int slot_sweep_generic(SLOT_PARAMS) {
+  if (!slot_args_ok(nt_cap, tb, b, rows, cap, s, t_lanes, out_mode, mode)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (mode == MODE_SUB_SKIP) {
+    return launch_slot_generic<MODE_SUB_SKIP>(SLOT_ARGS,
+                                              (cudaStream_t)stream);
+  }
+  if (mode == MODE_PACK_T) {
+    return launch_slot_generic<MODE_PACK_T>(SLOT_ARGS, (cudaStream_t)stream);
+  }
+  return launch_slot_generic<0>(SLOT_ARGS, (cudaStream_t)stream);
+}
+
+template <typename K>
+static int slot_occupancy_of(K kernel, size_t smem, int* regs,
+                             int* warps_per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      SWEEP_WARPS * 32, smem);
+  *warps_per_sm = blocks * SWEEP_WARPS;
+  return (int)err;
+}
+
+// Registers per thread and resident warps per SM of the (S, T, mode)
+// instance (S = 0: the generic one of that mode).
+extern "C" int slot_sweep_occupancy(int s, int t_lanes, int mode, int* regs,
+                                    int* warps_per_sm) {
+  if (s == 0) {
+    if (mode == MODE_SUB_SKIP) {
+      return slot_occupancy_of(slot_sweep_generic_kernel<MODE_SUB_SKIP>, 0,
+                               regs, warps_per_sm);
+    }
+    if (mode == MODE_PACK_T) {
+      return slot_occupancy_of(slot_sweep_generic_kernel<MODE_PACK_T>, 0,
+                               regs, warps_per_sm);
+    }
+    return slot_occupancy_of(slot_sweep_generic_kernel<0>, 0, regs,
+                             warps_per_sm);
+  }
+#define OCCUPANCY(S_, T_, M_)                                              \
+  if (s == S_ && t_lanes == T_ && mode == M_)                              \
+    return slot_occupancy_of(                                              \
+        slot_sweep_kernel<S_, T_, rays_per_thread(T_), M_>,                \
+        slot_smem_bytes<S_, M_>(), regs, warps_per_sm);
+  FOR_SLOT_INSTANCES(OCCUPANCY)
+#undef OCCUPANCY
+  return NO_INSTANCE;
 }
 
 // ---- the cascade stage: one stage of the packet cascade's loop -------------

@@ -105,8 +105,9 @@ HYBRID_OCCLUDE_KW = dict(engine="packets", group_size=2)
 # block_size, kernel_chunk).
 HYBRID_CLOSEST_KW = dict(engine="ctiles")
 # ctiles closest waves: the reference's committed defaults (the overflow
-# completes in the sorted domain, before the unsort).
-CTILES_CLOSEST_KW = dict(cap=48, tile_chunk=2048, fallback_compact=1 << 12,
+# completes in the sorted domain, before the unsort), less its tile_chunk:
+# the card sweeps every live tile in one launch.
+CTILES_CLOSEST_KW = dict(cap=48, fallback_compact=1 << 12,
                          fallback_sorted=True)
 # The "ctiles" backend's shadow waves: lane-major (each lane's 4 same-origin
 # rays consecutive), one block of 4 a lane, unsorted.

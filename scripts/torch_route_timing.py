@@ -12,8 +12,11 @@ and its kernels are built in its own `_build`. The bench cell: blob subdiv
 (`wavefront.render`, waves of 2^20), `render_sharded_wavefront` over a
 virtual (2, 2) mesh of cuda:0, the fused cascades (and, as "fused_exact",
 the same with exact_cull=16 in both engines), `backend="pallas"`
-(blocks of 64), the pool scheduler and `backend="perray"` (the per-ray
-queries). After one warm render of each, each
+(blocks of 64), the pool scheduler, `backend="perray"` (the per-ray
+queries), `backend="kslots"`, and "worklist": the worklist cell (blob
+subdiv 7 + room in clusters of 128, past 2048 clusters, so the default
+routing takes the worklist backend; blocks of 64, the bench settings),
+built only when asked for. After one warm render of each, each
 of `reps` rounds renders every route in turn, synchronised, and the script
 prints one JSON line: the card's name and power limit, the tree, each
 round's seconds and each route's time over the main path's. Run two trees
@@ -91,6 +94,18 @@ def main() -> int:
         finally:
             wavefront.HYBRID_CLOSEST_KW, wavefront.HYBRID_OCCLUDE_KW = saved
 
+    worklist_cell = []
+
+    def worklist():
+        if not worklist_cell:
+            scene_w = blob_scene(subdivisions=7, device="cuda")
+            worklist_cell.append((scene_w, build_clusters(
+                scene_w.triangles, cluster_size=128)))
+        scene_w, accel_w = worklist_cell[0]
+        return wavefront.render(scene_w, cam, settings, accel=accel_w,
+                                wave_size=1 << 20, block_size=64,
+                                device="cuda")
+
     every = {
         "main_path": lambda: wavefront.render(
             scene, cam, settings, accel=accel, accel_closest=accel_c,
@@ -108,6 +123,10 @@ def main() -> int:
         "perray": lambda: wavefront.render(
             scene, cam, settings, accel=accel, backend="perray",
             wave_size=1 << 20, device="cuda"),
+        "kslots": lambda: wavefront.render(
+            scene, cam, settings, accel=accel, backend="kslots",
+            wave_size=1 << 20, device="cuda"),
+        "worklist": worklist,
     }
     names = args.routes.split(",")
     if "main_path" not in names or not set(names) <= set(every):

@@ -182,14 +182,14 @@ def test_ctiles_and_perray_render_on_gpu(cuda, monkeypatch, route):
         kw = {}
     if route == "ctiles_2level":
         kw["accel"] = build_clusters(scene.triangles, cluster_size=2)
-    before = cuda_ctiles.launches
+    before = cuda_ctiles.sweep_launches
     img = wavefront.render(scene, cam, s, wave_size=1 << 11, device=cuda,
                            **kw)
     ref = oracle.render(scene, cam, s, device=cuda)
     if route == "perray":
         np.testing.assert_allclose(img, ref, atol=1e-5)
         return
-    assert cuda_ctiles.launches > before
+    assert cuda_ctiles.sweep_launches > before
     np.testing.assert_array_equal(img, ref)
 
 
@@ -266,10 +266,10 @@ def test_wavefront_equals_oracle_on_gpu(cuda):
     scene = blob_scene(subdivisions=3, device=cuda)
     s = RenderSettings(width=48, height=27, samples_per_pixel=2,
                        max_bounces=4, seed=3)
-    before = cuda_ctiles.launches
+    before = cuda_ctiles.sweep_launches
     img_w = wavefront.render(scene, default_camera(cuda), s, wave_size=1 << 11,
                              device=cuda)
-    assert cuda_ctiles.launches > before
+    assert cuda_ctiles.sweep_launches > before
     img_o = oracle.render(scene, default_camera(cuda), s, device=cuda)
     np.testing.assert_array_equal(img_w, img_o)
 
@@ -696,7 +696,7 @@ def test_item_sweep_uncompiled_shapes_raise(cuda, rng):
 def test_worklist_pairs_packets_renders_on_gpu(cuda, backend):
     """Past 2048 clusters (blob subdiv 4 in clusters of two triangles: 2,564
     clusters) the default is the worklist backend, through item_sweep;
-    pairs (pair tiles, tile_sweep) and packets (both packet cascades, the
+    pairs (pair tiles, slot_sweep) and packets (both packet cascades, the
     cascade stage kernel) by name. Each image equals the oracle's
     bitwise."""
     from path_tracer_ai_tpu_torch.config import RenderSettings
@@ -713,14 +713,14 @@ def test_worklist_pairs_packets_renders_on_gpu(cuda, backend):
     kw = {} if backend == "worklist" else dict(backend=backend)
     assert wavefront.resolve_backend(acc, 64, False, kw.get("backend")) \
         == backend
-    before = (cuda_items.launches, cuda_ctiles.launches,
+    before = (cuda_items.launches, cuda_ctiles.sweep_launches,
               dict(cuda_cascade.launches))
     img = wavefront.render(scene, cam, s, accel=acc, wave_size=1 << 11,
                            device=cuda, **kw)
     if backend == "worklist":
         assert cuda_items.launches > before[0]
     elif backend == "pairs":
-        assert cuda_ctiles.launches > before[1]
+        assert cuda_ctiles.sweep_launches > before[1]
     else:
         assert all(cuda_cascade.launches[k] > before[2][k]
                    for k in cuda_cascade.NAMES.values())
@@ -733,7 +733,7 @@ def test_worklist_pairs_packets_renders_on_gpu(cuda, backend):
 def test_pool_and_mesh_render_on_gpu(cuda, route):
     """The pool scheduler and the mesh (a virtual (2, 2) mesh of the one
     card, tile_devices, the fused sharded render) at 2 spp: each image
-    equals the oracle's bitwise, and tile_sweep was launched."""
+    equals the oracle's bitwise, and slot_sweep was launched."""
     from path_tracer_ai_tpu_torch.config import RenderSettings
     from path_tracer_ai_tpu_torch.engine import oracle, wavefront
     from path_tracer_ai_tpu_torch.parallel import mesh
@@ -745,7 +745,7 @@ def test_pool_and_mesh_render_on_gpu(cuda, route):
     s = RenderSettings(width=32, height=18, samples_per_pixel=2,
                        max_bounces=3, seed=3)
     card = torch.device("cuda", 0)
-    before = cuda_ctiles.launches
+    before = cuda_ctiles.sweep_launches
     if route == "pool":
         img = wavefront.render(scene, cam, s, scheduler="pool",
                                wave_size=1 << 9, device=cuda)
@@ -758,7 +758,7 @@ def test_pool_and_mesh_render_on_gpu(cuda, route):
     else:
         img = mesh.render_sharded(scene, cam, s,
                                   mesh.make_mesh(1, 1, devices=[card]))
-    assert cuda_ctiles.launches > before
+    assert cuda_ctiles.sweep_launches > before
     np.testing.assert_array_equal(img, oracle.render(scene, cam, s,
                                                      device=cuda))
 
@@ -2008,3 +2008,201 @@ def test_perray_stage_checks_and_failed_launch_raise(cuda, monkeypatch):
     monkeypatch.setattr(cuda_build, "launch", lambda *a: 9)
     with pytest.raises(RuntimeError, match="perray_stage launch failed"):
         cuda_cascade.perray_stage(pack, rays, order_g, n_cand, occ, k, 0)
+
+
+# --- ctiles' dynamic bounds: block_cull and slot_sweep ---------------------
+
+SLOT_OUT = ("closest", "any", "slot")
+
+
+def _slot_args(case, dev, option):
+    """(pack, rays, slot_ref, slot_cid, n_tiles) of a crafted slot case on
+    the card, the pack in the option's layout."""
+    from types import SimpleNamespace
+
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    acc = SimpleNamespace(v0=t(case["v0"]), e1=t(case["e1"]),
+                          e2=t(case["e2"]), tri_id=t(case["tri_id"]))
+    pack = {None: cuda_ctiles.pack_tris, "sub_skip": cuda_ctiles.pack_tris16,
+            "pack_t": cuda_ctiles.pack_tris16_t}[option](acc)
+    return (pack, t(case["rays"]), t(case["slot_ref"]), t(case["slot_cid"]),
+            torch.tensor([case["n_tiles"]], dtype=torch.int32, device=dev))
+
+
+def _same_out(got, want):
+    if len(got) == 1:
+        return torch.equal(got[0], want[0])
+    return (torch.equal(_bits(got[0]), _bits(want[0]))
+            and torch.equal(got[1], want[1]))
+
+
+@pytest.mark.parametrize("generic", [False, True])
+@pytest.mark.parametrize("option", [None, "sub_skip", "pack_t"])
+@pytest.mark.parametrize("out", SLOT_OUT)
+@pytest.mark.parametrize("s", [16, 128])
+@pytest.mark.parametrize("shape", cases.SLOT_SHAPES)
+@pytest.mark.parametrize("name", cases.SLOT_CASES)
+def test_slot_sweep_matches_plain(cuda, name, shape, s, out, option,
+                                  generic):
+    """slot_sweep on the crafted slot tables (exact ties across a row's
+    clusters, a hit at exactly t_min, -0.0 against +0.0, a row's pairs over
+    several tiles, padding slots and dead rows, n_tiles 0), each output
+    mode, option and instance (the options and S = 16 have only the
+    generic one): bitwise its plain version (eager tile_sweep_plain), and
+    the plain version through the tile_sweep kernel (the chunked form of
+    before)."""
+    tb, b = shape
+    case = cases.slot_case(name, s, tb, b)
+    args = _slot_args(case, cuda, option)
+    kw = dict(tile_slots=tb, cap=case["cap"], out=out, cid_stride=tb,
+              sub_skip=option == "sub_skip", pack_t=option == "pack_t")
+    before = cuda_ctiles.sweep_launches
+    if generic:
+        with generic_instances():
+            got = cuda_ctiles.slot_sweep(*args, **kw)
+    else:
+        got = cuda_ctiles.slot_sweep(*args, **kw)
+    assert cuda_ctiles.sweep_launches == before + 1
+    want = cuda_ctiles.slot_sweep_plain(
+        *args, **kw, tile_chunk=2, sweep=cuda_ctiles.tile_sweep_plain)
+    stepped = cuda_ctiles.slot_sweep_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _same_out(got, want) and _same_out(stepped, want)
+    if out == "closest" and name == "signed_zero":
+        assert (got[0] == 0).all() and not torch.signbit(got[0]).any()
+
+
+def test_slot_sweep_checks_raise(cuda):
+    case = cases.slot_case("ties", 128, 16, 8)
+    pack, rays, ref, cid, n = _slot_args(case, cuda, None)
+    kw = dict(tile_slots=16, cap=case["cap"], out="closest", cid_stride=16)
+    with pytest.raises(ValueError):
+        cuda_ctiles.slot_sweep(pack, rays, ref[:-1].contiguous(), cid, n,
+                               **kw)
+    with pytest.raises(ValueError):
+        cuda_ctiles.slot_sweep(pack, rays, ref, cid, n.to(torch.int64), **kw)
+    with pytest.raises(ValueError):
+        cuda_ctiles.slot_sweep(pack, rays, ref, cid, n,
+                               **{**kw, "out": "first"})
+
+
+def _cull_blocks(acc, rng, n, b, n_live, on_faces=False):
+    """Sorted ray blocks of a bounce wave (dead rays last); with on_faces,
+    a quarter of the rays axis-parallel from a box face's plane (0 * inf
+    in the slab test)."""
+    from path_tracer_ai_tpu_torch.accel import worklist
+
+    o, d, tm = _bounce_wave(acc, n, rng, dead_every=n + 1)
+    if on_faces:
+        q = n // 4
+        idx = torch.randint(0, acc.num_clusters, (q,), device=o.device,
+                            generator=torch.Generator(o.device).manual_seed(3))
+        o[:q] = acc.bmin[idx]
+        d[:q] = 0.0
+        d[:q, 0] = 1.0
+    tm[n_live:] = -1.0
+    return worklist._prepare_blocks(acc, o, d, tm, b, True, "octorig")[:3]
+
+
+@pytest.mark.parametrize("on_faces", [False, True])
+@pytest.mark.parametrize("cap", [1, 4, 48])
+@pytest.mark.parametrize("b", [8, 4])
+@pytest.mark.parametrize("live", [None, 0, 1, 37, "all"])
+def test_block_cull_matches_plain(cuda, rng, live, b, cap, on_faces):
+    """block_cull against its plain version (the eager _ray_masks and
+    _extract_order_flat): order, n_cand and over exact, at every live-block
+    count (None: every block), caps that overflow all or few blocks, rays
+    on box faces."""
+    acc = _accel(cuda)
+    n = 1 << 13
+    nb = n // b
+    n_blocks = nb if live in (None, "all") else live
+    # the wave's live rays fill n_blocks blocks, the last one half
+    n_live = n if n_blocks == nb else max(0, n_blocks * b - b // 2)
+    blocks = _cull_blocks(acc, rng, n, b, n_live, on_faces)
+    lb = None if live is None else torch.tensor(
+        [n_blocks], dtype=torch.int32, device=cuda)
+    before = cuda_ctiles.cull_launches
+    got = cuda_ctiles.block_cull(acc, *blocks, 1e-3, cap, lb)
+    assert cuda_ctiles.cull_launches == before + 1
+    want = cuda_ctiles.block_cull_plain(acc, *blocks, 1e-3, cap, lb)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if live is None and cap == 48:
+        assert got[1].float().mean() > 1
+
+
+def test_block_cull_reads_the_bound_on_the_card(cuda, rng):
+    """The live-block count is read in device memory: blocks past it get
+    the empty set whatever their rays."""
+    acc = _accel(cuda)
+    blocks = _cull_blocks(acc, rng, 1 << 12, 8, 1 << 12)
+    lb = torch.tensor([5], dtype=torch.int32, device=cuda)
+    order, n_cand, over = cuda_ctiles.block_cull(acc, *blocks, 1e-3, 48, lb)
+    full = cuda_ctiles.block_cull(acc, *blocks, 1e-3, 48, None)
+    torch.cuda.synchronize()
+    assert torch.equal(n_cand[:5], full[1][:5]) and n_cand[5:].eq(0).all()
+    assert (order[5:] == acc.num_clusters - 1).all() and not over[5:].any()
+    assert full[1][5:].sum() > 0
+
+
+@pytest.mark.parametrize("query", ["closest", "any"])
+@pytest.mark.parametrize("kw", [dict(), dict(sub_skip=True),
+                                dict(pallas_pack_t=True), dict(cap=4),
+                                dict(block=4, tile_blocks=16)])
+def test_ctiles_reads_no_host_value(cuda, rng, query, kw):
+    """closest_hit_ctiles / any_hit_ctiles at levels=1 on a bounce wave:
+    no host read from accel.ctiles (the overflow fallback's count stays),
+    and the bits of the parent's form, the same calls through the host
+    (the eager cull and the chunked tile_sweep)."""
+    from unittest import mock
+
+    from path_tracer_ai_tpu_torch.accel import ctiles
+    from path_tracer_ai_tpu_torch.utils import sync
+
+    acc = _accel(cuda)
+    o, d, tm = _bounce_wave(acc, 1 << 14, rng)
+    fn = (ctiles.closest_hit_ctiles if query == "closest"
+          else ctiles.any_hit_ctiles)
+    torch.cuda.synchronize()
+    sync.reset()
+    got = fn(acc, o, d, 1e-3, tm, levels=1, **kw)
+    torch.cuda.synchronize()
+    assert not [k for k in sync.sites if ".accel.ctiles:" in k]
+    with mock.patch.object(cuda_ctiles, "block_cull",
+                           cuda_ctiles.block_cull_plain), \
+            mock.patch.object(cuda_ctiles, "slot_sweep",
+                              cuda_ctiles.slot_sweep_plain):
+        want = fn(acc, o, d, 1e-3, tm, levels=1, **kw)
+    if query == "closest":
+        assert torch.equal(_bits(got.t), _bits(want.t))
+        assert torch.equal(got.tri, want.tri) and got.hit.any()
+    else:
+        assert torch.equal(got, want) and 0 < got.float().mean() < 1
+
+
+@pytest.mark.parametrize("query", ["closest", "any"])
+def test_pairs_read_only_the_fallback_count(cuda, rng, query):
+    """closest_hit_pairs / any_hit_pairs: the sweep reads its tile count on
+    the card; the one host read left is the overflow count."""
+    from path_tracer_ai_tpu_torch.accel import pairs
+    from path_tracer_ai_tpu_torch.utils import sync
+
+    acc = _accel(cuda)
+    o, d, tm = _bounce_wave(acc, 1 << 13, rng)
+    fn = pairs.closest_hit_pairs if query == "closest" else pairs.any_hit_pairs
+    torch.cuda.synchronize()
+    sync.reset()
+    before = cuda_ctiles.sweep_launches
+    got = fn(acc, o, d, 1e-3, tm, cap=8)
+    torch.cuda.synchronize()
+    assert cuda_ctiles.sweep_launches == before + 1
+    sites = [k for k in sync.sites if ".accel.pairs:" in k]
+    assert len(sites) == 1 and sync.sites[sites[0]] == 1
+    cpu = fn(acc.to("cpu"), o.cpu(), d.cpu(), 1e-3, tm.cpu(), cap=8)
+    if query == "closest":  # the card's bits are the CPU's
+        assert torch.equal(_bits(got.t.cpu()), _bits(cpu.t))
+        assert torch.equal(got.tri.cpu(), cpu.tri)
+    else:
+        assert torch.equal(got.cpu(), cpu)

@@ -30,7 +30,12 @@ first-slot closest (see cascade_case for each case). The split cases
 straddle the boundaries where the stage kernel cuts a slot's group into W
 ranges, one a warp. The perray cases (PERRAY_CASES, perray_case) are whole
 perray cascades: one-ray blocks with their candidate rows, for the perray
-stage (see perray_case).
+stage (see perray_case). The slot cases (SLOT_CASES, slot_case) are
+ctiles' static slot tables over exact geometry (exact_clusters), for
+cuda_ctiles.slot_sweep and its plain version: exact t ties across the
+clusters of one row, a hit at exactly t_min, -0.0 against +0.0, a row's
+pairs spread over several tiles, padding slots and dead rows, and a live
+tile count of 0.
 """
 
 import numpy as np
@@ -859,3 +864,117 @@ def gate_corner_case(t_lanes: int = 64, s: int = GATE_S) -> dict:
     cid8[0] = 0
     return {"bmin": bmin, "bmax": bmax, "v0": v0, "e1": e1, "e2": e2,
             "tri_id": tri_id, "rays": rays, "cid8": cid8}
+
+
+# ---- ctiles' static slot tables (slot_sweep) ----------------------------
+
+SLOT_CASES = ("ties", "t_min_hit", "signed_zero", "spread", "padding",
+              "no_tiles")
+SLOT_C = 4
+SLOT_CAP = 4  # pair p = row * SLOT_CAP + k
+# (slots a tile, lanes a row): ctiles' closest tiles (T 128) and lane-major
+# shadow tiles (T 64), the pair tiles (one lane a row, T 128), and a shape
+# that only the generic instance takes (T 16)
+SLOT_SHAPES = ((16, 8), (16, 4), (128, 1), (2, 8))
+
+
+def exact_clusters(s: int) -> dict:
+    """v0, e1, e2 [4, S, 3] f32 and tri_id [4, S] i32: S right triangles a
+    cluster over a grid of cells 2^-k wide, legs c = half a cell, every
+    coordinate exact. Clusters 0 and 1 hold the same triangles in the plane
+    z = 2, wound one way and the other (cluster 1 with the smaller ids): a
+    ray along +z from z = 0 meets both at t = 2 exactly, and one that starts
+    in the plane meets cluster 0 at t = -0.0 and cluster 1 at +0.0.
+    Cluster 2 lies at z = 3, cluster 3 at z = 1.5."""
+    w = 1
+    while w * w < s:
+        w *= 2
+    cell = 1.0 / w
+    j = np.arange(s)
+    v0 = np.zeros((SLOT_C, s, 3), np.float32)
+    e1 = np.zeros_like(v0)
+    e2 = np.zeros_like(v0)
+    for c, z in enumerate((2.0, 2.0, 3.0, 1.5)):
+        v0[c, :, 0] = (j % w) * cell
+        v0[c, :, 1] = (j // w) * cell
+        v0[c, :, 2] = z
+        a, b = (1, 0) if c == 1 else (0, 1)
+        e1[c, :, a] = 0.5 * cell
+        e2[c, :, b] = 0.5 * cell
+    tri_id = (np.array([3, 0, 1, 2])[:, None] * s + j[None, :] + 7)
+    return {"v0": v0, "e1": e1, "e2": e2, "tri_id": tri_id.astype(np.int32)}
+
+
+def _slot_rows(name: str, tb: int) -> list:
+    """Each row's candidate clusters, in pair order."""
+    if name == "spread":
+        return [[0, 1, 2, 3]] * (3 * tb + 1)
+    if name == "padding":
+        return [[0], [1, 2], [3]]
+    if name == "signed_zero":
+        return [[0, 1], [1, 0], [0, 1, 2], [2, 1, 0]]
+    return [[0, 1], [1, 0, 2], [2, 0, 1, 3], [1]]
+
+
+def slot_tables(rows: list, c: int, cap: int, tb: int):
+    """(slot_ref [ni_pad], slot_cid [ni_pad], n_slots): accel.ctiles'
+    _build_pairs in numpy. Pair p = row * cap + k, sorted by cluster (within
+    a cluster by p), each cluster's run padded with -1 to whole tiles of tb
+    slots; ni_pad = rows * cap + tb * C rounded up to whole tiles; slots
+    past the live ones hold -1 and the last cluster id."""
+    pairs = sorted((cid, r * cap + k) for r, ks in enumerate(rows)
+                   for k, cid in enumerate(ks))
+    ref, cids = [], []
+    for cl in range(c):
+        run = [p for cid, p in pairs if cid == cl]
+        run += [-1] * ((-len(run)) % tb)
+        ref += run
+        cids += [cl] * len(run)
+    n_slots = len(ref)
+    ni_pad = -(-(len(rows) * cap + tb * c) // tb) * tb
+    last = cids[-1] if cids else 0
+    ref += [-1] * (ni_pad - n_slots)
+    cids += [last] * (ni_pad - n_slots)
+    return (np.asarray(ref, np.int32), np.asarray(cids, np.int32), n_slots)
+
+
+def slot_case(name: str, s: int, tb: int, b: int, seed: int = 0) -> dict:
+    """One slot_sweep input over exact_clusters(s): rays [rows + 1, 8, b]
+    (row `rows` dead: o 0, d 1, t_max -1), slot_ref / slot_cid (tile i's
+    cluster at slot_cid[i * tb]), n_tiles, tb, cap. Every lane of a row aims
+    at its own triangle, along +z from z = 0 (t = 2 at clusters 0 and 1),
+    from the plane z = 2 with t_min 0 (signed_zero) or with t_min = 2
+    (t_min_hit); padding kills every third lane and row 1."""
+    rng = np.random.default_rng([seed, s, tb, b, SLOT_CASES.index(name)])
+    geo = exact_clusters(s)
+    rows = _slot_rows(name, tb)
+    nr = len(rows)
+    w = 1
+    while w * w < s:
+        w *= 2
+    c = 0.5 / w
+    tri = rng.integers(0, s, (nr, b))
+    o = np.zeros((nr, b, 3), np.float32)
+    o[..., 0] = geo["v0"][0, tri, 0] + c / 4
+    o[..., 1] = geo["v0"][0, tri, 1] + c / 8 * (1 + np.arange(b) % 3)
+    o[..., 2] = 2.0 if name == "signed_zero" else 0.0
+    d = np.zeros_like(o)
+    d[..., 2] = 1.0
+    tm = np.full((nr, b), 10.0, np.float32)
+    t_min = {"t_min_hit": 2.0, "signed_zero": 0.0}.get(name, T_MIN)
+    if name == "padding":
+        tm.reshape(-1)[::3] = -1.0
+        tm[1] = -1.0
+    tmin = np.full((nr, b), t_min, np.float32)
+    table = np.concatenate([o.transpose(0, 2, 1), d.transpose(0, 2, 1),
+                            tm[:, None], tmin[:, None]], axis=1)
+    dead = np.zeros((1, 8, b), np.float32)
+    dead[0, 3:6] = 1.0
+    dead[0, 6] = -1.0
+    dead[0, 7] = t_min
+    ref, cid, n_slots = slot_tables(rows, SLOT_C, SLOT_CAP, tb)
+    return {**geo, "rays": np.ascontiguousarray(
+                np.concatenate([table, dead]), np.float32),
+            "slot_ref": ref, "slot_cid": cid,
+            "n_tiles": 0 if name == "no_tiles" else n_slots // tb,
+            "tb": tb, "cap": SLOT_CAP, "t_min": t_min}
