@@ -115,9 +115,29 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   at t_min, -0.0 / +0.0, spread, padding, no tiles) at S
                   128, each shape, output, option and instance; the main
                   render's host reads by site. About 20 s.
+  4c. packet_cull the packet cascades' interval cull (after ctiles_bounds
+                  and the main path's kept shadow calls): packet_cull
+                  against its plain version on the main path's shadow calls
+                  at wave 0, bounce 0 (unsorted) and 1 (65,536 blocks of 64,
+                  C 641, no entries), a packets-route closest call (2^20
+                  bounce rays, blocks of 256, t_max +inf, entries), the
+                  worklist cell's accel (C 2,561) at blocks of 64, and the
+                  crafted cull cases of tests/test_torch_sweep_cases.py at
+                  four sizes (C up to 16,385: past the shared-memory sort),
+                  with and without entries, the crafted ones against the
+                  plain version on CPU copies: order and n_cand identical,
+                  entry_sorted equal as values; each timed beside its bound
+                  and the plain version. The main path must launch it 20
+                  times; the line also holds the render's device time by
+                  step (the profile phase's split: the shadow waves' eager
+                  steps) and its timed pass.
   4b. profile     one more such render under torch.profiler: device kernel
                   time by kernel and by wave type, and the device's busy
-                  share of the timed pass; the same for the next two paths
+                  share of the timed pass; and ("split") by step of both
+                  wave types, the ranges of scripts/torch_ctiles_split.py
+                  (ctiles' steps, the packet cascades' sort, cull, ray
+                  pack, compaction, unpermute, unsort); the same for the
+                  next two paths
                   (profile_pallas, profile_fused, each after its own timed
                   render), with the time of the path's own kernels.
   4c. path_pallas the same bench render with backend="pallas",
@@ -390,14 +410,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   held to the main path's image as path_pool is, the
                   concurrent runs profiled (busy share a card); then
                   mesh_cards_summary, each run's time over the main path's.
-Then the kernels line (seventeen kernels: the five, item_sweep and
+Then the kernels line (eighteen kernels: the five, item_sweep and
 kslot_sweep, which replace no TPU kernel, the first-slot instances
 tile_sweep_first and kslot_sweep_first, which carry XLA-fused sweeps, the
 cascade stage kernel's six folds, cascade_stage_any,
 cascade_stage_first, fused_stage_any, fused_stage_closest,
 perray_stage_any and perray_stage_first, which carry the cascades'
 while_loop, and block_cull and slot_sweep, which carry ctiles' cull and
-its sweep's fori_loops ("carries": the JAX package's code each stands
+its sweep's fori_loops, and packet_cull, which carries the packet
+cascades' interval cull (its launches on every route under
+launches_by_route) ("carries": the JAX package's code each stands
 for); tile_sweep's launches are the chunked form's in ctiles_bounds, its
 body running in slot_sweep on the routes ("runs_as"); launches
 on every path, the new ones under new_path_launches, the CLI's with
@@ -564,6 +586,7 @@ def phase_build():
         cuda_cascade,
         cuda_closest,
         cuda_ctiles,
+        cuda_cull,
         cuda_items,
         cuda_kslots,
         cuda_sweep,
@@ -572,7 +595,7 @@ def phase_build():
     t0 = time.perf_counter()
     built = cuda_build.build_all([m.SOURCE for m in (
         cuda_ctiles, cuda_sweep, cuda_anyhit, cuda_closest, cuda_items,
-        cuda_kslots)] + [cuda_ctiles.CULL_SOURCE])
+        cuda_kslots, cuda_cull)] + [cuda_ctiles.CULL_SOURCE])
     seconds = time.perf_counter() - t0
     entry = re.compile(
         r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
@@ -598,6 +621,12 @@ def phase_build():
     # ctiles' bounds on the card: block_cull (blocks of 8 and 4 rays) and
     # slot_sweep's instances (the routes' two shapes; generic, with and
     # without each option)
+    # the packet cascades' interval cull at the main path's C (its sort in
+    # shared memory), the worklist's, and past the shared-memory sort
+    for c in (641, 2561, cuda_cull.SMEM_SORT_MAX_C + 1):
+        occupancy[f"packet_cull C{c}"] = {
+            **cuda_cull.occupancy(c), "spill_bytes": sum(
+                e["spill_bytes"] for e in ptxas.get("packet_cull", []))}
     for b in (8, 4):
         occupancy[f"block_cull b{b}"] = {
             **cuda_ctiles.cull_occupancy(b), "spill_bytes": sum(
@@ -1341,6 +1370,7 @@ def _reset_counts():
         cuda_cascade,
         cuda_closest,
         cuda_ctiles,
+        cuda_cull,
         cuda_items,
         cuda_kslots,
         cuda_sweep,
@@ -1351,7 +1381,7 @@ def _reset_counts():
     from path_tracer_ai_tpu_torch.utils import sync
 
     for mod in (cuda_ctiles, cuda_sweep, cuda_anyhit, cuda_closest,
-                cuda_items, cuda_kslots, cuda_cascade):
+                cuda_items, cuda_kslots, cuda_cascade, cuda_cull):
         mod.reset_launches()
     kslots.reset_overflow_counts()
     worklist.reset_fallback_counts()
@@ -1367,6 +1397,7 @@ def _read_counts() -> dict:
         cuda_cascade,
         cuda_closest,
         cuda_ctiles,
+        cuda_cull,
         cuda_items,
         cuda_kslots,
         cuda_sweep,
@@ -1383,7 +1414,9 @@ def _read_counts() -> dict:
             "kslot_sweep_first": cuda_kslots.slot_launches,
             # ctiles' bounds on the card
             "block_cull": cuda_ctiles.cull_launches,
-            "slot_sweep": cuda_ctiles.sweep_launches}
+            "slot_sweep": cuda_ctiles.sweep_launches,
+            # the packet cascades' interval cull
+            "packet_cull": cuda_cull.launches}
 
 
 def _tile_shapes() -> list:
@@ -1521,7 +1554,7 @@ def phase_main_path(scene, accel_base, accel_c, card):
 
     res, img, missing, image_ok = _bench_render(
         "main_path", scene, card,
-        ["slot_sweep", "block_cull", "cascade_stage_any"],
+        ["slot_sweep", "block_cull", "cascade_stage_any", "packet_cull"],
         warm_small=False, accel=accel_base, accel_closest=accel_c)
     png = os.path.join(tempfile.gettempdir(), "chip_smoke_bench.png")
     save_image(png, img, 2.2)
@@ -1646,9 +1679,10 @@ def _range_us(evt) -> float:
     return 0.0
 
 
-def _profiled_render(scene, engines=None, **render_kw):
+def _profiled_render(scene, engines=None, keep=None, **render_kw):
     """One bench render under torch.profiler -> (its key_averages(), the
-    profiled wall seconds)."""
+    profiled wall seconds); keep["prof"] gets the profile where keep is a
+    dict."""
     from torch.profiler import ProfilerActivity, profile
 
     from path_tracer_ai_tpu_torch.config import RenderSettings
@@ -1662,16 +1696,22 @@ def _profiled_render(scene, engines=None, **render_kw):
                          RenderSettings(**BENCH), wave_size=1 << 20,
                          device="cuda", **render_kw)
         torch.cuda.synchronize()
+    if keep is not None:
+        keep["prof"] = prof
     return prof.key_averages(), time.perf_counter() - t0
 
 
 WAVE_LABELS = ("closest_wave", "shadow_wave")  # wavefront's record_function
+# the main path's steps' ranges (scripts/torch_ctiles_split.py), which the
+# profile phase wraps
+SPLIT_LABELS = set()
 
 
 def _is_label(key: str) -> bool:
     """A record_function range (wavefront's wave types, accel.worklist's
-    stages), not a kernel."""
-    return key in WAVE_LABELS or key.startswith("worklist_")
+    stages, the profile phase's steps), not a kernel."""
+    return (key in WAVE_LABELS or key.startswith("worklist_")
+            or key in SPLIT_LABELS)
 
 
 def _kernel_time(phase, avgs, wall, timed_seconds, names):
@@ -1709,11 +1749,21 @@ def _kernel_time(phase, avgs, wall, timed_seconds, names):
 
 def phase_profile(scene, accel_base, accel_c, timed_seconds):
     """The main path's bench render under torch.profiler: device kernel
-    time by name and by wave type."""
-    avgs, wall = _profiled_render(scene, accel=accel_base,
-                                  accel_closest=accel_c)
+    time by name and by wave type, and by step of both wave types
+    ("split": scripts/torch_ctiles_split.py's ranges and charge)."""
+    split = _split_module()
+    SPLIT_LABELS.update(split.labels())
+    wrapped, restore = split.wrap_steps()
+    keep = {}
+    try:
+        avgs, wall = _profiled_render(scene, keep=keep, accel=accel_base,
+                                      accel_closest=accel_c)
+    finally:
+        restore()
     res = _kernel_time("profile", avgs, wall, timed_seconds,
-                       ["tile_sweep_kernel", "cascade_stage_kernel"])
+                       ["tile_sweep_kernel", "cascade_stage_kernel",
+                        "packet_cull_kernel"])
+    res["split"] = {"wrapped": wrapped, **split.split_profile(keep["prof"])}
     sweeps = res["path_kernels"]["tile_sweep_kernel"]
     host = [e for e in avgs
             if e.key in WAVE_LABELS
@@ -2100,6 +2150,217 @@ def phase_ctiles_bounds(scene, accel_base, accel_c, card, render) -> tuple:
         "plain_ms": main["plain_ms"],
         "matches_plain": main["generic_matches_plain"]}}
     return checks, generic, {"tile_sweep": stepped}
+
+
+# ---- the packet cascades' interval cull on the card: packet_cull ---------
+
+# f32 operations of the interval cull (csrc/packet_cull.cu), counted per
+# (block, cluster) pair: per axis whose direction interval does not span 0,
+# 2 subtractions, 4 divisions, 6 min / max for the quotients' bounds and 2
+# for lb / ub (PCULL_AXIS_OPS); then 3 compares for the candidate test, a
+# max and a select for the entry (PCULL_PAIR_OPS). The sort: n log2 n
+# compares a block at n finite entries, a comparison sort's least.
+PCULL_AXIS_OPS = 14
+PCULL_PAIR_OPS = 5
+PCULL_REPS = 20
+# crafted inputs on the card: (blocks, rays a block, clusters); C 48
+# sorts in one warp's two registers a lane (all_candidates: 48 finite
+# entries), C 16,385 is past the shared-memory sort
+# (cuda_cull.SMEM_SORT_MAX_C)
+PCULL_CRAFTED_SIZES = ((64, 64, 641), (16, 256, 2561), (4, 1024, 70),
+                       (8, 8, 48), (6, 32, 16385))
+PCULL_WAVE = 1 << 20  # rays of the packets-route and worklist-shape inputs
+
+
+def _split_module():
+    """scripts/torch_ctiles_split.py, loaded by path: its profiler ranges
+    and the device-time split of a profiled render."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "torch_ctiles_split.py")
+    spec = importlib.util.spec_from_file_location("torch_ctiles_split", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _cull_inputs(accel, o, d, t_max, block, sort):
+    """(accel, o_blk, d_blk, tm_blk) that a packet cascade gives the cull:
+    the rays sorted as the query sorts them ("dir" keys), in blocks."""
+    from path_tracer_ai_tpu_torch.accel import traverse
+
+    n = o.shape[0]
+    tm = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                            device=o.device), (n,))
+    if sort:
+        o, d, tm, _perm = traverse._sort_rays(accel, o, d, tm, "dir")
+    nb = n // block
+    return (accel, o.reshape(nb, block, 3).contiguous(),
+            d.reshape(nb, block, 3).contiguous(),
+            tm.reshape(nb, block).contiguous())
+
+
+def _shadow_cull_inputs(call):
+    """The cull's inputs of a kept any_hit_packets call (args, kw)."""
+    args, kw = call
+    accel, o, d, _t_min, t_max = args[:5]
+    return _cull_inputs(accel, o, d, t_max, kw.get("block_size", 256),
+                        kw.get("sort", True))
+
+
+def _same_cull(got, want) -> bool:
+    """order and n_cand identical; entry_sorted equal as values (-0.0 ==
+    +0.0), without NaN; both without entries where want has none."""
+    ok = (torch.equal(got[0].cpu(), want[0].cpu())
+          and torch.equal(got[1].cpu(), want[1].cpu()))
+    if want[2] is None:
+        return ok and got[2] is None
+    g, w = got[2].cpu(), want[2].cpu()
+    return ok and bool((g == w).all()) and not bool(torch.isnan(g).any())
+
+
+def _pcull_bound(inputs, with_entry) -> dict:
+    """Bytes (the rays once, the boxes, order, n_cand and the entries where
+    written) and operations (the interval test of the axes that do not span
+    0, the candidate test, the sort of the finite entries) of one call."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cull, traverse
+
+    accel, o_blk, d_blk, tm_blk = inputs
+    nb, r = o_blk.shape[:2]
+    c = accel.num_clusters
+    _olo, _ohi, dlo, dhi = traverse._ray_block_bounds(o_blk, d_blk,
+                                                      tm_blk >= 0.0)
+    axes = int((~((dlo <= 0.0) & (dhi >= 0.0))).sum())
+    entry = cuda_cull.block_candidates_plain(*inputs)[2]
+    n_fin = torch.isfinite(entry).sum(dim=1).double()
+    sort_ops = float((n_fin * torch.ceil(torch.log2(
+        torch.clamp(n_fin, min=1.0)))).sum())
+    ops = nb * c * PCULL_PAIR_OPS + axes * c * PCULL_AXIS_OPS + sort_ops
+    nbytes = (nb * r * 28 + c * 24 + nb * c * 4 + nb * 4
+              + (nb * c * 4 if with_entry else 0))
+    by_bytes = nbytes / PEAK_BYTES_PER_S
+    by_ops = ops / PEAK_F32_PER_S
+    return {"bytes": nbytes, "operations": ops, "axis_tests": axes * c,
+            "finite_entries_mean": float(n_fin.mean()),
+            "bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _check_pcull(label, inputs, with_entry, plain_on_cpu=False,
+                 reps=PCULL_REPS) -> dict:
+    """packet_cull on one input: against its plain version (on the card, or
+    on CPU copies of the inputs), timed beside its bound and the plain
+    version on the card."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cull
+
+    run = lambda: cuda_cull.block_candidates(*inputs, with_entry)
+    plain = lambda: cuda_cull.block_candidates_plain(*inputs, with_entry)
+    got = run()
+    if plain_on_cpu:
+        from types import SimpleNamespace
+
+        acc = inputs[0]
+        cpu = (SimpleNamespace(bmin=acc.bmin.cpu(), bmax=acc.bmax.cpu(),
+                               num_clusters=acc.num_clusters),
+               *(x.cpu() for x in inputs[1:]))
+        want = cuda_cull.block_candidates_plain(*cpu, with_entry)
+    else:
+        want = plain()
+    torch.cuda.synchronize()
+    accel, o_blk = inputs[:2]
+    res = {"input": label, "blocks": o_blk.shape[0], "R": o_blk.shape[1],
+           "C": accel.num_clusters, "with_entry": with_entry,
+           "plain_on": "cpu" if plain_on_cpu else "card",
+           "candidates_mean": float(got[1].float().mean()),
+           "matches_plain": _same_cull(got, want), "max_abs_err": 0.0,
+           "ms": cuda_ms(run, reps), "plain_ms": cuda_ms(plain, 2),
+           **_pcull_bound(inputs, with_entry)}
+    res["ms_over_bound"] = res["ms"] / res["bound_ms"]
+    return res
+
+
+def phase_packet_cull(card, render, profile, kept_shadows, accel_base,
+                      accel_w) -> dict:
+    """The packet cascades' interval cull on the card: packet_cull against
+    its plain version on the main path's kept shadow calls (wave 0, bounce
+    0 unsorted and bounce 1 sorted: 65,536 blocks of 64, C 641, no
+    entries), a packets-route closest call (blocks of 256, t_max +inf, with
+    entries), the worklist cell's accel (C 2,561) at the fallbacks' blocks
+    of 64, and every crafted cull case (tests/test_torch_sweep_cases.py
+    cull_case) at PCULL_CRAFTED_SIZES, with and without entries; each
+    timed beside its bound and the plain version. The main render's cull
+    launches, its device time split by step (the profile phase's ranges),
+    its timed pass. Returns the kernels line's check."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(20)
+    t0 = time.perf_counter()
+    if len(kept_shadows) < 2:
+        fail("packet_cull", f"{len(kept_shadows)} kept shadow calls, not 2")
+    waves = [_check_pcull(
+        f"main path shadow call, wave 0, bounce {i}"
+        + ("" if kw.get("sort", True) else " (unsorted)"),
+        _shadow_cull_inputs((args, kw)), False)
+        for i, (args, kw) in enumerate(kept_shadows[:2])]
+    o, d, tm = _bounce_wave(accel_base, PCULL_WAVE, rng, shadow=False)
+    waves.append(_check_pcull(
+        f"packets-route closest call: {PCULL_WAVE:,} bounce rays, t_max +inf",
+        _cull_inputs(accel_base, o, d, tm, 256, True), True))
+    o, d, tm = _bounce_wave(accel_w, PCULL_WAVE, rng, shadow=True)
+    waves.append(_check_pcull(
+        f"worklist cell's accel (C {accel_w.num_clusters:,}): {PCULL_WAVE:,} "
+        f"shadow rays, blocks of 64", _cull_inputs(accel_w, o, d, tm, 64,
+                                                   True), False))
+    c = _cases()
+    t = lambda a: torch.as_tensor(a, device="cuda")
+    crafted = []
+    for name in c.CULL_CASES:
+        for nb, r, cc in PCULL_CRAFTED_SIZES:
+            case = c.cull_case(name, nb, r, cc)
+            acc = SimpleNamespace(bmin=t(case["bmin"]), bmax=t(case["bmax"]),
+                                  num_clusters=cc)
+            for with_entry in (True, False):
+                crafted.append(_check_pcull(
+                    name, (acc, t(case["o"]), t(case["d"]), t(case["tm"])),
+                    with_entry, plain_on_cpu=True, reps=3))
+    split = profile.get("split", {}).get("ranges", {})
+    shadow = {k: v["seconds"] for k, v in split.items()
+              if k.startswith("packet_") or k == "cascade_stage"}
+    res = {"phase": "packet_cull", "card": card,
+           "waves": waves,
+           "crafted": [{k: x[k] for k in ("input", "blocks", "R", "C",
+                                          "with_entry", "matches_plain",
+                                          "ms", "plain_ms", "bound_ms",
+                                          "ms_over_bound")}
+                       for x in crafted],
+           "crafted_disagree": [[x["input"], x["blocks"], x["R"], x["C"],
+                                 x["with_entry"]]
+                                for x in crafted if not x["matches_plain"]],
+           "main_path_launches": render["launches"]["packet_cull"],
+           "main_path_timed_pass_seconds": render["seconds"],
+           "main_path_host_reads": render["host_syncs"],
+           "main_path_device_kernel_seconds":
+               profile.get("device_kernel_seconds"),
+           "main_path_split_seconds": {k: v["seconds"]
+                                       for k, v in split.items()},
+           "shadow_eager_steps_seconds": shadow,
+           "shadow_eager_seconds": sum(shadow.values()),
+           "packet_cull_kernel_seconds": profile["path_kernels"].get(
+               "packet_cull_kernel", {}).get("seconds"),
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    if not all(w["matches_plain"] for w in waves) or res["crafted_disagree"]:
+        fail("packet_cull", "packet_cull disagrees with its plain version")
+    if render["launches"]["packet_cull"] != 20:
+        fail("packet_cull", f"the main path launched packet_cull "
+                            f"{render['launches']['packet_cull']} times, "
+                            f"not 20")
+    return {**waves[1], "waves": [
+        {k: w[k] for k in ("input", "blocks", "R", "C", "with_entry", "ms",
+                           "plain_ms", "bound_ms", "bound_by",
+                           "ms_over_bound", "matches_plain")}
+        for w in waves]}
 
 
 # ---- the generic instances: any cluster size ------------------------------
@@ -6030,6 +6291,9 @@ KERNELS = {
     # _sweep_resolve, pairs' _sweep_tiles)
     "block_cull": ("ctiles_cull.cu", None, "main_path"),
     "slot_sweep": ("ctiles_sweep.cu", None, "main_path"),
+    # the packet cascades' interval cull (no Pallas kernel): the XLA-fused
+    # body of traverse._block_candidates, on every packets route
+    "packet_cull": ("packet_cull.cu", None, "main_path"),
 }
 # what a kernel without a Pallas counterpart carries in the JAX package
 CARRIES = {
@@ -6058,6 +6322,9 @@ CARRIES = {
     "slot_sweep": "path_tracer_ai_tpu/accel/ctiles.py:485-667 "
                   "(_sweep_resolve's fori_loops to n_chunks), pairs.py:193-259 "
                   "(_sweep_tiles)",
+    "packet_cull": "path_tracer_ai_tpu/accel/traverse.py:171-202 "
+                   "(_block_candidates: _ray_block_bounds, _interval_slab, "
+                   "the stable argsort)",
 }
 # what a kernel runs as on its route besides its own launches
 RUNS_AS = {
@@ -6159,6 +6426,10 @@ def main() -> int:
     checks.update(bounds_checks)
     generic.update(bounds_generic)
     kept_shadows = _keep_shadow_calls(scene, accel_base, accel_c)
+    checks["packet_cull"] = phase_packet_cull(card, render, profile,
+                                              kept_shadows, accel_base,
+                                              accel_w)
+    generic["packet_cull"] = None  # its only instance
     paths = {"main_path": render,
              "ctiles_stepped": {"launches": bounds_stepped},
              "path_pallas": phase_path_pallas(scene, accel_base, card, img_main)}
@@ -6335,7 +6606,16 @@ def main() -> int:
            if name == "cascade_stage_any" else {}),
         **({"runs_as": RUNS_AS[name]} if name in RUNS_AS else {}),
         **({"waves": checks[name]["waves"]}
-           if name in ("block_cull", "slot_sweep") else {}),
+           if name in ("block_cull", "slot_sweep", "packet_cull") else {}),
+        **({"launches_by_route": {
+            **{k: v["launches"][name] for k, v in paths.items()
+               if "launches" in v and isinstance(v["launches"], dict)
+               and name in v["launches"]},
+            **{k: v["launches"][name] for k, v in new_paths.items()},
+            "cli": cli["launches"][name],
+            "cli_pallas": cli["pallas"]["launches"][name],
+            "cli_perray": cli["perray"]["launches"][name]}}
+           if name == "packet_cull" else {}),
         **({"wave": checks[name]["wave"],
             "host_stepped_ms": checks[name]["host_stepped_ms"],
             "call_ms": checks[name]["call_ms"],

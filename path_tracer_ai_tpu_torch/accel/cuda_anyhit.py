@@ -203,14 +203,15 @@ def block_anyhit(tri_pack, rays_pack, cid8, early_skip=False, sub_skip=False):
 
 def prepare_fused_wave(accel, origins, directions, t_max, block_size, sort,
                        sort_mode, t_min: float = RAY_TMIN,
-                       exact_cull: int = 0):
+                       exact_cull: int = 0, with_entry: bool = True):
     """The part both fused cascades share: pad the wave to a power-of-two
     block count >= 32 with dead lanes (o 0, d 1, t_max -1), sort, cull per
     block (exact_cull=K: traverse._exact_block_candidates with super
     shortlist cap K, else the conservative interval cull), and point the
     candidate slots past n_cand at the dummy cluster.
-    Returns (origins, directions, t_max, perm, n_cand, entry [nb, c_pad],
-    order_g [nb, c_pad / GROUP, GROUP]) over the padded, sorted wave."""
+    Returns (origins, directions, t_max, perm, n_cand, entry [nb, c_pad]
+    (None where with_entry is False), order_g [nb, c_pad / GROUP, GROUP])
+    over the padded, sorted wave."""
     n0 = origins.shape[0]
     dev = origins.device
     t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
@@ -235,14 +236,17 @@ def prepare_fused_wave(accel, origins, directions, t_max, block_size, sort,
             accel, o_blk, d_blk, tm_blk, t_min, ksup=exact_cull,
             live_blocks=traverse.live_block_count(tm_blk) if sort else None)
     else:
-        order, n_cand, entry = traverse._block_candidates(accel, o_blk, d_blk,
-                                                          tm_blk)
+        order, n_cand, entry = traverse._block_candidates(
+            accel, o_blk, d_blk, tm_blk, with_entry=with_entry)
+    if not with_entry:
+        entry = None
     c = accel.num_clusters
     c_pad = -(-c // GROUP) * GROUP
     if c_pad - c:
         order = torch.nn.functional.pad(order, (0, c_pad - c))
-        entry = torch.nn.functional.pad(entry, (0, c_pad - c),
-                                        value=float("inf"))
+        if entry is not None:
+            entry = torch.nn.functional.pad(entry, (0, c_pad - c),
+                                            value=float("inf"))
     cols = torch.arange(c_pad, dtype=torch.int32, device=dev)
     order = torch.where(cols[None, :] < n_cand[:, None], order, c)
     return (origins, directions, t_max, perm, n_cand, entry,
@@ -271,7 +275,8 @@ def any_hit_fused(accel, origins, directions, t_min, t_max,
     n0 = origins.shape[0]
     origins, directions, t_max, perm, n_cand, _entry, order_g = (
         prepare_fused_wave(accel, origins, directions, t_max, block_size,
-                           sort, sort_mode, t_min, exact_cull))
+                           sort, sort_mode, t_min, exact_cull,
+                           with_entry=False))
     nb = n_cand.shape[0]
     n = nb * block_size
     if tri_pack is None:

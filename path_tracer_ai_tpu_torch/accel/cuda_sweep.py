@@ -291,10 +291,12 @@ def anyhit_sweep(slab: SlabTable, rays, order, n_cand, t_min=1e-3):
     return occ
 
 
-def _prep_wave(accel, origins, directions, t_max, block_size, sort):
+def _prep_wave(accel, origins, directions, t_max, block_size, sort,
+               with_entry: bool = True):
     """Sort ("dir" keys), block and cull one wave -> (rays [B, 8, R], order,
     entry, n_cand, perm); the tables are padded to a multiple of 128 columns
-    (order with 0, entry with inf)."""
+    (order with 0, entry with inf). entry is None where with_entry is
+    False."""
     n = origins.shape[0]
     if n % block_size:
         raise ValueError(f"wave size {n} not a multiple of {block_size}")
@@ -309,13 +311,16 @@ def _prep_wave(accel, origins, directions, t_max, block_size, sort):
     o_blk = origins.reshape(nb, block_size, 3)
     d_blk = directions.reshape(nb, block_size, 3)
     tb = t_max.reshape(nb, block_size)
-    order, n_cand, entry = traverse._block_candidates(accel, o_blk, d_blk, tb)
+    order, n_cand, entry = traverse._block_candidates(
+        accel, o_blk, d_blk, tb, with_entry=with_entry)
     pad = (-order.shape[1]) % TABLE_PAD
     if pad:
         order = torch.nn.functional.pad(order, (0, pad))
-        entry = torch.nn.functional.pad(entry, (0, pad), value=INF)
+        if with_entry:
+            entry = torch.nn.functional.pad(entry, (0, pad), value=INF)
     rays = traverse.pack_block_rays(o_blk, d_blk, tb, 0.0)
-    return rays, order.contiguous(), entry.contiguous(), n_cand, perm
+    return (rays, order.contiguous(),
+            entry.contiguous() if with_entry else None, n_cand, perm)
 
 
 def closest_hit_pallas(accel: ClusterAccel, slab: SlabTable, origins,
@@ -341,6 +346,7 @@ def any_hit_pallas(accel: ClusterAccel, slab: SlabTable, origins, directions,
     """Occlusion over a wave on the `pallas` backend ([N] bool)."""
     n = origins.shape[0]
     rays, order, _entry, n_cand, perm = _prep_wave(
-        accel, origins, directions, t_max, block_size, sort)
+        accel, origins, directions, t_max, block_size, sort,
+        with_entry=False)
     occ = anyhit_sweep(slab, rays, order, n_cand, t_min=float(t_min))
     return traverse._unsort(occ.reshape(n), perm)

@@ -6,7 +6,9 @@ Counterpart of accel/traverse.py, the parts the main path runs:
 1. SORT  — coherence keys (octant | direction Morton | origin Morton, dead
            rays last) and one stable argsort.
 2. CULL  — per block of rays, a conservative interval slab test against
-           every cluster AABB; candidates ordered by conservative entry.
+           every cluster AABB; candidates ordered by conservative entry
+           (on the card one launch of the packet_cull kernel,
+           accel.cuda_cull; on the CPU its plain version).
 3. SWEEP — the cascade: each iteration sweeps the next `group_size`
            candidates of every active block; a stage runs until at most half
            its blocks are active, then compacts them to the front (one
@@ -44,7 +46,11 @@ from typing import NamedTuple
 
 import torch
 
-from path_tracer_ai_tpu_torch.accel import cuda_cascade, cuda_ctiles
+from path_tracer_ai_tpu_torch.accel import (
+    cuda_cascade,
+    cuda_ctiles,
+    cuda_cull,
+)
 from path_tracer_ai_tpu_torch.accel.clusters import ClusterAccel
 from path_tracer_ai_tpu_torch.accel.morton import morton3d
 from path_tracer_ai_tpu_torch.utils import sync
@@ -173,26 +179,21 @@ def _block_interval_bounds(accel, o_blk, d_blk, live=None):
     return _interval_slab(accel.bmin, accel.bmax, olo, ohi, dlo, dhi)
 
 
-def _block_candidates(accel, o_blk, d_blk, t_max_blk, row_chunk: int = 8192):
+def _block_candidates(accel, o_blk, d_blk, t_max_blk,
+                      with_entry: bool = True):
     """Conservative candidate clusters per ray block, front to back.
 
     Returns (order [B, C] i32 cluster ids by ascending conservative entry,
-    candidates first; n_cand [B] i32; entry_sorted [B, C]). Blocks are
-    processed `row_chunk` at a time so the [B, C] temporaries stay small."""
-    orders, ncands, entries = [], [], []
-    for lo in range(0, o_blk.shape[0], row_chunk):
-        ob = o_blk[lo:lo + row_chunk]
-        db = d_blk[lo:lo + row_chunk]
-        tb = t_max_blk[lo:lo + row_chunk]
-        lb, ub = _block_interval_bounds(accel, ob, db, live=tb >= 0.0)
-        tmax_ub = tb.amax(dim=1)
-        cand = (lb <= ub) & (ub >= 0.0) & (lb <= tmax_ub[:, None])
-        entry = torch.where(cand, torch.clamp(lb, min=0.0), INF)
-        order = torch.argsort(entry, dim=1, stable=True)
-        orders.append(order.to(torch.int32))
-        entries.append(torch.gather(entry, 1, order))
-        ncands.append(cand.sum(dim=1).to(torch.int32))
-    return torch.cat(orders), torch.cat(ncands), torch.cat(entries)
+    candidates first; n_cand [B] i32; entry_sorted [B, C], or None where
+    with_entry is False). On the card one launch of the packet_cull kernel
+    (accel.cuda_cull.block_candidates), which raises if it cannot run; on
+    the CPU its plain version, eager torch in row chunks."""
+    if o_blk.device.type == "cpu":
+        return cuda_cull.block_candidates_plain(accel, o_blk, d_blk,
+                                                t_max_blk, with_entry)
+    return cuda_cull.block_candidates(accel, o_blk.contiguous(),
+                                      d_blk.contiguous(),
+                                      t_max_blk.contiguous(), with_entry)
 
 
 # Elements of each [rows, R, K] temporary of the exact cull's per-lane slab
@@ -454,7 +455,7 @@ def any_hit_packets(accel: ClusterAccel, origins, directions, t_min, t_max,
             live_blocks=live_block_count(tmax_blk) if sort else None)
     else:
         order, n_cand, _entry = _block_candidates(accel, o_blk, d_blk,
-                                                  tmax_blk)
+                                                  tmax_blk, with_entry=False)
     g = group_size
     c = accel.num_clusters
     c_pad = -(-c // g) * g

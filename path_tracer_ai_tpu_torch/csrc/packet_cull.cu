@@ -1,0 +1,389 @@
+// The packet cascades' interval cull for Hopper (sm_90a): packet_cull.
+//
+// Replaces no Pallas kernel: it is the XLA-fused body of
+// path_tracer_ai_tpu/accel/traverse.py `_block_candidates` (traverse.py:
+// 171-202, with `_ray_block_bounds` and `_interval_slab`, :100-165), the
+// conservative cull of every block of R rays against every cluster box
+// that the packet cascades (any_hit_packets, closest_hit_packets), the
+// pallas route, the fused cascades and the exact cull's conservative list
+// start from. JAX runs it as one fusion feeding one sort; the port's plain
+// version (accel/cuda_cull.py block_candidates_plain) as some 55 eager ops
+// over [rows, C] temporaries and a segmented sort.
+//
+// Layouts (accel/cuda_cull.py block_candidates):
+//   o_blk, d_blk [nb, R, 3] f32; tm_blk [nb, R] f32 (t_max; negative: a
+//   dead lane); bmin, bmax [C, 3] f32.
+//   order [nb, C] i32: the cluster ids by ascending conservative entry
+//   (stable: equal entries keep ascending ids), candidates first;
+//   n_cand [nb] i32; entry_sorted [nb, C] f32, the entries in that order
+//   (null: not written).
+//
+// Per ray block, exactly what JAX computes:
+//   1. the bounds of its live lanes (t_max >= 0): olo, ohi, dlo, dhi per
+//      axis; an all-dead block gives (+inf, -inf), as a reduction over
+//      nothing; tmax_ub = max t_max over all its lanes.
+//   2. per cluster, _interval_slab op for op: per axis nlo = bmin - ohi,
+//      nhi = bmax - olo, the four quotients by the guarded bounds
+//      (|d| > 0 ? d : 1) in IEEE division (__fdiv_rn; the port builds with
+//      --fmad=false and no fast math), their min and max, (-inf, +inf)
+//      where the direction interval spans 0; lb = max over the axes,
+//      ub = min. cand = lb <= ub & ub >= 0 & lb <= tmax_ub,
+//      entry = cand ? max(lb, 0) : +inf.
+//   3. the stable ascending sort of the entries.
+// NaN: torch.minimum / maximum (and jnp's) carry a NaN, fminf / fmaxf drop
+// it. An all-dead block gives inf / inf = NaN in the quotients, and a NaN
+// lb or ub must leave cand false. So the bounds' reductions carry a NaN
+// flag beside each value (put back as a NaN where set), and the interval
+// test flags a NaN quotient, which makes cand false as the plain version's
+// NaN lb or ub does; the min and max of values that are not NaN are
+// fminf / fmaxf. An axis whose direction interval spans 0 is skipped: its
+// (-inf, +inf) leaves lb and ub as they are, which is what the select and
+// the max / min give. Signed zeros reach only lb and ub's zeros, which
+// compare equal, and the entry, which is written as +0.0 (max(lb, 0) may
+// be either zero; both are one key).
+//
+// Design: one thread block (128 threads) a ray block. The lanes are
+// reduced per warp with shuffles, then across warps in shared memory.
+// Threads stride the clusters and keep each entry's bits (the f32 bits of
+// a non-negative float order as unsigned ints) in shared memory. A chunked
+// block scan over the ids then places, in ascending id order, every +inf
+// entry at the tail of the row (written straight out: they keep ascending
+// ids, candidates with lb = +inf among them) and every finite one as a
+// 64-bit key (entry bits << 32 | id) at the head of a buffer, which a
+// bitonic sort over the next power of two of their count puts in order:
+// one warp's shuffles up to 32 keys (the main path's shadow blocks hold
+// 15-25 on average), the whole block over the buffer past that. A pair
+// leaves the interval test at the first axis after which it cannot be a
+// candidate (lb only grows, ub only shrinks, a NaN stays flagged).
+// The buffer and the bits take 8 * pow2(C) + 4 * C bytes of shared memory:
+// up to C = 16,384 (196,608 bytes); past that each thread block sorts in a
+// device-memory scratch slot that the wrapper allocates, and the grid is
+// SCRATCH_BLOCKS thread blocks striding the ray blocks.
+//
+// What bounds it: the bytes on the main path (the rays in, 28 B a lane;
+// order out, 4 B a pair; entry_sorted 4 B a pair where written) rather
+// than the operations (chip_smoke.py PCULL_AXIS_OPS, PCULL_PAIR_OPS): 14
+// f32 operations a (block, cluster) pair and axis whose direction interval
+// does not span 0 (2 subtractions, 4 divisions, 6 min / max for the
+// quotients' bounds, 2 for lb and ub), 5 a pair (the 3 compares of the
+// candidate test, the entry's max and select), and the sort's n log2 n
+// compares at n finite entries. The design moves each input and output
+// byte once; what it spends beyond the bound is the divisions' and the
+// barriers' latency.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#define CULL_THREADS 128
+#define CULL_WARPS (CULL_THREADS / 32)
+#define FULL_MASK 0xffffffffu
+#define INF_BITS 0x7f800000u
+// thread blocks of the grid when the sort runs in device memory
+#define SCRATCH_BLOCKS 1024
+// dynamic shared memory a thread block may take (227 KB less the static
+// arrays' room)
+#define SMEM_LIMIT (227 * 1024 - 1024)
+
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+static __host__ __device__ int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// Bytes of one thread block's sort buffer (8 * pow2(C), the keys) and
+// entry bits (4 * C), rounded up to 16.
+static __host__ __device__ size_t sort_bytes(int c) {
+  const size_t b = 8 * (size_t)pow2_at_least(c) + 4 * (size_t)c;
+  return (b + 15) & ~(size_t)15;
+}
+
+__global__ void __launch_bounds__(CULL_THREADS)
+    packet_cull_kernel(const float* __restrict__ o_blk,
+                       const float* __restrict__ d_blk,
+                       const float* __restrict__ tm_blk,
+                       const float* __restrict__ bmin,
+                       const float* __restrict__ bmax, int nb, int r, int c,
+                       int* __restrict__ order, int* __restrict__ n_cand,
+                       float* __restrict__ entry_sorted,
+                       unsigned char* __restrict__ scratch) {
+  extern __shared__ __align__(16) unsigned char cull_smem[];
+  __shared__ float red[CULL_WARPS][13];
+  __shared__ float bnd[13];
+  __shared__ int counts[2];  // candidates, finite entries
+  __shared__ int warp_fin[CULL_WARPS], warp_inf[CULL_WARPS];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  unsigned char* buf =
+      scratch ? scratch + (size_t)blockIdx.x * sort_bytes(c) : cull_smem;
+  const int cap2 = pow2_at_least(c);
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(buf);
+  unsigned* ebits = reinterpret_cast<unsigned*>(buf + 8 * (size_t)cap2);
+
+  for (int blk = blockIdx.x; blk < nb; blk += gridDim.x) {
+    // 1. bounds: v[0..2] olo, v[3..5] dlo (min); v[6..8] ohi, v[9..11]
+    // dhi (max) over the live lanes; v[12] the max t_max over all lanes
+    // (a NaN is carried as bit i of `nan_bits`, the values reduced without
+    // it, and put back before the values leave the warp)
+    float v[13];
+    unsigned nan_bits = 0;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) v[i] = INFINITY;
+#pragma unroll
+    for (int i = 6; i < 13; ++i) v[i] = -INFINITY;
+    for (int l = tid; l < r; l += CULL_THREADS) {
+      const size_t i = (size_t)blk * r + l;
+      const float tm = tm_blk[i];
+      const bool live = tm >= 0.0f;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float o = live ? o_blk[3 * i + a] : INFINITY;
+        const float d = live ? d_blk[3 * i + a] : INFINITY;
+        nan_bits |= (o != o ? 0x41u : 0u) << a | (d != d ? 0x41u : 0u)
+                                                     << (3 + a);
+        v[a] = fminf(v[a], o);
+        v[3 + a] = fminf(v[3 + a], d);
+        v[6 + a] = fmaxf(v[6 + a], live ? o : -INFINITY);
+        v[9 + a] = fmaxf(v[9 + a], live ? d : -INFINITY);
+      }
+      nan_bits |= (tm != tm ? 1u : 0u) << 12;
+      v[12] = fmaxf(v[12], tm);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+      for (int i = 0; i < 6; ++i)
+        v[i] = fminf(v[i], __shfl_xor_sync(FULL_MASK, v[i], off));
+#pragma unroll
+      for (int i = 6; i < 13; ++i)
+        v[i] = fmaxf(v[i], __shfl_xor_sync(FULL_MASK, v[i], off));
+    }
+    nan_bits = __reduce_or_sync(FULL_MASK, nan_bits);
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < 13; ++i)
+        red[warp][i] = nan_bits >> i & 1u ? __int_as_float(0x7fc00000) : v[i];
+    }
+    if (tid < 2) counts[tid] = 0;
+    __syncthreads();
+    if (tid < 13) {
+      float x = red[0][tid];
+      for (int w = 1; w < CULL_WARPS; ++w)
+        x = tid < 6 ? nan_min(x, red[w][tid]) : nan_max(x, red[w][tid]);
+      bnd[tid] = x;
+    }
+    __syncthreads();
+
+    float olo[3], ohi[3], slo[3], shi[3];
+    bool spans[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      olo[a] = bnd[a];
+      ohi[a] = bnd[6 + a];
+      const float dlo = bnd[3 + a], dhi = bnd[9 + a];
+      spans[a] = dlo <= 0.0f && dhi >= 0.0f;
+      slo[a] = fabsf(dlo) > 0.0f ? dlo : 1.0f;
+      shi[a] = fabsf(dhi) > 0.0f ? dhi : 1.0f;
+    }
+    const float tmax_ub = bnd[12];
+
+    // 2. every cluster's entry, its bits kept; candidates and finite
+    // entries counted. A NaN quotient makes the plain version's lb or ub
+    // NaN and its cand false: here it is flagged, and the min / max over
+    // the other (non-NaN) values are fminf / fmaxf.
+    int n_c = 0, n_f = 0;
+    for (int k = tid; k < c; k += CULL_THREADS) {
+      float lb = -INFINITY, ub = INFINITY;
+      bool nan = false;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        if (spans[a]) continue;
+        const float nlo = __ldg(bmin + 3 * k + a) - ohi[a];
+        const float nhi = __ldg(bmax + 3 * k + a) - olo[a];
+        const float q1 = __fdiv_rn(nlo, slo[a]);
+        const float q2 = __fdiv_rn(nlo, shi[a]);
+        const float q3 = __fdiv_rn(nhi, slo[a]);
+        const float q4 = __fdiv_rn(nhi, shi[a]);
+        nan |= q1 != q1 || q2 != q2 || q3 != q3 || q4 != q4;
+        lb = fmaxf(lb, fminf(fminf(q1, q2), fminf(q3, q4)));
+        ub = fminf(ub, fmaxf(fmaxf(q1, q2), fmaxf(q3, q4)));
+        // lb only grows and ub only shrinks over the axes: a pair that
+        // fails here fails at the end
+        if (nan || !(lb <= ub && ub >= 0.0f && lb <= tmax_ub)) break;
+      }
+      const bool cand =
+          !nan && lb <= ub && ub >= 0.0f && lb <= tmax_ub;
+      const float entry = cand ? (lb > 0.0f ? lb : 0.0f) : INFINITY;
+      const unsigned bits = __float_as_uint(entry);
+      ebits[k] = bits;
+      n_c += cand;
+      n_f += bits < INF_BITS;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      n_c += __shfl_xor_sync(FULL_MASK, n_c, off);
+      n_f += __shfl_xor_sync(FULL_MASK, n_f, off);
+    }
+    if (lane == 0) {
+      atomicAdd(&counts[0], n_c);
+      atomicAdd(&counts[1], n_f);
+    }
+    __syncthreads();
+    const int n_fin = counts[1];
+    int* ord = order + (size_t)blk * c;
+    float* ent = entry_sorted ? entry_sorted + (size_t)blk * c : nullptr;
+    if (tid == 0) n_cand[blk] = counts[0];
+
+    // 3. a scan over the ids in ascending order: the +inf entries to the
+    // tail, the finite ones as keys to the buffer's head
+    int fin_base = 0, inf_base = 0;
+    const unsigned below = (1u << lane) - 1u;
+    for (int base = 0; base < c; base += CULL_THREADS) {
+      const int k = base + tid;
+      const unsigned bits = k < c ? ebits[k] : INF_BITS;
+      const bool fin = k < c && bits < INF_BITS;
+      const bool inf = k < c && bits >= INF_BITS;
+      const unsigned mf = __ballot_sync(FULL_MASK, fin);
+      const unsigned mi = __ballot_sync(FULL_MASK, inf);
+      if (lane == 0) {
+        warp_fin[warp] = __popc(mf);
+        warp_inf[warp] = __popc(mi);
+      }
+      __syncthreads();
+      int pf = fin_base, pi = inf_base, tf = 0, ti = 0;
+      for (int w = 0; w < CULL_WARPS; ++w) {
+        if (w == warp) {
+          pf += tf;
+          pi += ti;
+        }
+        tf += warp_fin[w];
+        ti += warp_inf[w];
+      }
+      if (fin) {
+        keys[pf + __popc(mf & below)] =
+            ((unsigned long long)bits << 32) | (unsigned)k;
+      } else if (inf) {
+        const int pos = n_fin + pi + __popc(mi & below);
+        ord[pos] = k;
+        if (ent) ent[pos] = INFINITY;
+      }
+      fin_base += tf;
+      inf_base += ti;
+      __syncthreads();  // warp_fin / warp_inf are rewritten next chunk
+    }
+
+    // 4. the finite keys sorted (bitonic over the next power of two,
+    // padded with keys above every real one), then written out: up to 32
+    // by one warp in registers, exchanging by shuffles (no block barrier),
+    // past that by the block in the buffer
+    if (n_fin > 0 && n_fin <= 32) {
+      if (warp == 0) {
+        unsigned long long key = lane < n_fin ? keys[lane] : ~0ull;
+        for (int size = 2; size <= 32; size <<= 1) {
+          for (int stride = size >> 1; stride > 0; stride >>= 1) {
+            const unsigned long long other =
+                __shfl_xor_sync(FULL_MASK, key, stride);
+            // the lower lane of a pair keeps the smaller key where its
+            // run ascends, the larger where it descends
+            const bool keep_min =
+                ((lane & stride) == 0) == ((lane & size) == 0);
+            key = keep_min ? (other < key ? other : key)
+                           : (other > key ? other : key);
+          }
+        }
+        if (lane < n_fin) {
+          ord[lane] = (int)(unsigned)(key & 0xffffffffull);
+          if (ent) ent[lane] = __uint_as_float((unsigned)(key >> 32));
+        }
+      }
+    } else if (n_fin > 32) {
+      const int p = pow2_at_least(n_fin);
+      for (int i = n_fin + tid; i < p; i += CULL_THREADS) keys[i] = ~0ull;
+      __syncthreads();
+      for (int size = 2; size <= p; size <<= 1) {
+        for (int stride = size >> 1; stride > 0; stride >>= 1) {
+          for (int i = tid; i < p; i += CULL_THREADS) {
+            const int j = i ^ stride;
+            if (j > i) {
+              const unsigned long long x = keys[i], y = keys[j];
+              if ((x > y) == ((i & size) == 0)) {
+                keys[i] = y;
+                keys[j] = x;
+              }
+            }
+          }
+          __syncthreads();
+        }
+      }
+      for (int i = tid; i < n_fin; i += CULL_THREADS) {
+        const unsigned long long key = keys[i];
+        ord[i] = (int)(unsigned)(key & 0xffffffffull);
+        if (ent) ent[i] = __uint_as_float((unsigned)(key >> 32));
+      }
+    }
+    __syncthreads();  // counts, ebits and keys are reused by the next block
+  }
+}
+
+// Bytes of device-memory scratch the wrapper must pass for (nb, c): 0 when
+// a thread block's sort fits its shared memory.
+extern "C" long long packet_cull_scratch_bytes(int nb, int c) {
+  if (c < 1 || sort_bytes(c) <= SMEM_LIMIT) return 0;
+  const int grid = nb < SCRATCH_BLOCKS ? nb : SCRATCH_BLOCKS;
+  return (long long)grid * (long long)sort_bytes(c);
+}
+
+// Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
+// entry_sorted may be null (not written); scratch must be
+// packet_cull_scratch_bytes(nb, c) bytes (null when that is 0).
+extern "C" int packet_cull(const void* o_blk, const void* d_blk,
+                           const void* tm_blk, const void* bmin,
+                           const void* bmax, int nb, int r, int c,
+                           void* order, void* n_cand, void* entry_sorted,
+                           void* scratch, void* stream) {
+  if (nb <= 0) return 0;
+  if (r < 1 || c < 1) return (int)cudaErrorInvalidValue;
+  const bool shared = sort_bytes(c) <= SMEM_LIMIT;
+  if (!shared && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = shared ? sort_bytes(c) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        packet_cull_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int grid = shared ? nb : (nb < SCRATCH_BLOCKS ? nb : SCRATCH_BLOCKS);
+  packet_cull_kernel<<<grid, CULL_THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)o_blk, (const float*)d_blk, (const float*)tm_blk,
+      (const float*)bmin, (const float*)bmax, nb, r, c, (int*)order,
+      (int*)n_cand, (float*)entry_sorted,
+      shared ? nullptr : (unsigned char*)scratch);
+  return (int)cudaGetLastError();
+}
+
+// Registers per thread and resident warps per SM at c clusters.
+extern "C" int packet_cull_occupancy(int c, int* regs, int* warps_per_sm) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, packet_cull_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  const size_t smem = sort_bytes(c) <= SMEM_LIMIT ? sort_bytes(c) : 0;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(packet_cull_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, packet_cull_kernel, CULL_THREADS, smem);
+  *warps_per_sm = blocks * CULL_WARPS;
+  return (int)err;
+}

@@ -1,4 +1,4 @@
-"""Splits the main path's device time by the steps of its closest waves.
+"""Splits the main path's device time by the steps of its two wave types.
 
     python3 scripts/torch_ctiles_split.py [--tree DIR] [--reps N]
         [--out FILE]
@@ -17,8 +17,16 @@ torch.profiler ranges (`record_function`): the block sort
 the extraction (`_extract_order_flat`), the pair build (`_build_pairs`),
 the sweep and resolve (`_sweep_resolve`), the overflow fallback and the
 unsort; inside them the sweep kernels' wrappers (`cuda_ctiles.tile_sweep`,
-`cuda_ctiles.slot_sweep`) too. After one warm render, `reps` timed renders
-(synchronised; host reads by call site counted on the first), then one
+`cuda_ctiles.slot_sweep`) too. The packet cascades of the shadow waves
+(`accel.traverse.any_hit_packets`, and `closest_hit_packets` where a
+closest fallback takes it) are split the same way: the coherence sort
+(`_sort_rays`), the interval cull (`_block_candidates`, or the
+`packet_cull` kernel's wrapper `cuda_cull.block_candidates`), the ray pack
+(`pack_block_rays`), the compaction between stages (`_cascade_stages`
+less its `cuda_cascade.cascade_stage` calls), `_unpermute_blocks` and
+`_unsort`; the rest of a query goes to `packet_query`. After one warm
+render, `reps` timed renders (synchronised; host reads by call site
+counted on the first), then one
 render under torch.profiler. Each device kernel is charged to the
 innermost of these ranges that launched it, else to the wave type
 (wavefront's `closest_wave` / `shadow_wave` ranges), else to "other".
@@ -54,26 +62,68 @@ WRAPPED = (
     ("cuda_ctiles", "slot_sweep", "slot_sweep"),
     ("ctiles", "_overflow_fallback", "ctiles_fallback"),
     ("ctiles", "_unsort", "ctiles_unsort"),
+    # the packet cascades (the shadow waves' any_hit_packets): what the
+    # steps below leave of a query is charged to its own range
+    ("traverse", "any_hit_packets", "packet_query"),
+    ("traverse", "closest_hit_packets", "packet_query"),
+    ("traverse", "_sort_rays", "packet_sort"),
+    ("traverse", "_block_candidates", "packet_cull"),
+    ("cuda_cull", "block_candidates", "packet_cull"),
+    ("traverse", "pack_block_rays", "packet_pack"),
+    # the stages' loop less the stage itself: the compaction between stages
+    ("traverse", "_cascade_stages", "packet_compaction"),
+    ("cuda_cascade", "cascade_stage", "cascade_stage"),
+    ("traverse", "_unpermute_blocks", "packet_unpermute"),
+    ("traverse", "_unsort", "packet_unsort"),
 )
 WAVES = ("closest_wave", "shadow_wave")
 
 
-def _wrap(mod, attr, label):
+def _ranged(fn, label):
     from torch.profiler import record_function
-
-    fn = getattr(mod, attr)
 
     def wrapped(*args, **kw):
         with record_function(label):
             return fn(*args, **kw)
 
-    setattr(mod, attr, wrapped)
+    return wrapped
+
+
+def wrap_steps() -> tuple:
+    """Wraps every step of WRAPPED that the imported tree has in its
+    profiler range. Returns (the wrapped "module.attr" names, a function
+    that puts the originals back)."""
+    import importlib
+
+    undo, wrapped = [], []
+    for modname, attr, label in WRAPPED:
+        try:
+            mod = importlib.import_module(f"path_tracer_ai_tpu_torch.accel."
+                                          f"{modname}")
+        except ModuleNotFoundError:
+            continue
+        if hasattr(mod, attr):
+            fn = getattr(mod, attr)
+            undo.append((mod, attr, fn))
+            setattr(mod, attr, _ranged(fn, label))
+            wrapped.append(f"{modname}.{attr}")
+
+    def restore():
+        for mod, attr, fn in reversed(undo):
+            setattr(mod, attr, fn)
+
+    return wrapped, restore
+
+
+def labels() -> set:
+    """The profiler ranges' names: the steps' and the wave types'."""
+    return {lab for _m, _a, lab in WRAPPED} | set(WAVES)
 
 
 def _charge(events) -> dict:
     """label -> {kernel name -> [count, us]}: each kernel to the innermost
     labelled range above the op that launched it."""
-    labels = {lab for _m, _a, lab in WRAPPED} | set(WAVES)
+    names = labels()
     out = collections.defaultdict(lambda: collections.defaultdict(
         lambda: [0, 0.0]))
     for ev in events:
@@ -82,7 +132,7 @@ def _charge(events) -> dict:
             continue
         owner, p = "other", ev
         while p is not None:
-            if p.name in labels:
+            if p.name in names:
                 owner = p.name
                 break
             p = p.cpu_parent
@@ -91,6 +141,52 @@ def _charge(events) -> dict:
             slot[0] += 1
             slot[1] += float(k.duration)
     return out
+
+
+def split_profile(prof) -> dict:
+    """A profiled render's device time: kernels charged to the ranges
+    (_charge), the port's own kernels by name (the profile's device time of
+    each, less what was charged), and the sums."""
+    charged = _charge(prof.events())
+    names = labels()
+    calls = collections.Counter(
+        ev.name for ev in prof.events()
+        if ev.name in names and not str(ev.device_type).endswith("CUDA"))
+    total_us = sum(us for k in charged.values() for _n, us in k.values())
+    ranges = {}
+    for label, kernels in sorted(charged.items(),
+                                 key=lambda kv: -sum(v[1] for v in
+                                                     kv[1].values())):
+        us = sum(v[1] for v in kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
+        ranges[label] = {
+            "calls": calls.get(label, 0),
+            "kernels": sum(v[0] for v in kernels.values()),
+            "seconds": us / 1e6,
+            "share_of_charged_time": us / total_us if total_us else 0.0,
+            "top": [{"name": n[:90], "count": c, "seconds": u / 1e6}
+                    for n, (c, u) in top]}
+    by_name = collections.defaultdict(float)
+    counts = collections.Counter()
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and e.key not in names:
+            by_name[e.key] += float(getattr(e, "self_device_time_total", 0.0))
+            counts[e.key] += int(e.count)
+    charged_by_name = collections.defaultdict(float)
+    for kernels in charged.values():
+        for name, (_c, us) in kernels.items():
+            charged_by_name[name] += us
+    own = {name: (us - charged_by_name.get(name, 0.0), counts[name])
+           for name, us in by_name.items()
+           if us - charged_by_name.get(name, 0.0) > 1.0}
+    own_us = sum(us for us, _n in own.values())
+    return {"device_kernel_seconds": (total_us + own_us) / 1e6,
+            "charged_seconds": total_us / 1e6,
+            "own_kernel_seconds": own_us / 1e6,
+            "own_kernels": [{"name": n[:90], "count": c, "seconds": us / 1e6}
+                            for n, (us, c) in sorted(
+                                own.items(), key=lambda kv: -kv[1][0])],
+            "ranges": ranges}
 
 
 def main() -> int:
@@ -102,8 +198,6 @@ def main() -> int:
     args = parser.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
-    import importlib
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -122,13 +216,7 @@ def main() -> int:
     from path_tracer_ai_tpu_torch.scene.scene import blob_scene
     from path_tracer_ai_tpu_torch.utils import sync
 
-    wrapped = []
-    for modname, attr, label in WRAPPED:
-        mod = importlib.import_module(f"path_tracer_ai_tpu_torch.accel."
-                                      f"{modname}")
-        if hasattr(mod, attr):
-            _wrap(mod, attr, label)
-            wrapped.append(f"{modname}.{attr}")
+    wrapped, _restore = wrap_steps()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
@@ -165,51 +253,13 @@ def main() -> int:
                              ProfilerActivity.CUDA]) as prof:
         render()
         torch.cuda.synchronize()
-    charged = _charge(prof.events())
-    calls = collections.Counter(ev.name for ev in prof.events()
-                                if ev.name in {lab for _m, _a, lab in WRAPPED})
-    total_us = sum(us for k in charged.values() for _n, us in k.values())
-    ranges = {}
-    for label, kernels in sorted(charged.items(),
-                                 key=lambda kv: -sum(v[1] for v in
-                                                     kv[1].values())):
-        us = sum(v[1] for v in kernels.values())
-        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
-        ranges[label] = {
-            "calls": calls.get(label, 0),
-            "kernels": sum(v[0] for v in kernels.values()),
-            "seconds": us / 1e6,
-            "share_of_charged_time": us / total_us if total_us else 0.0,
-            "top": [{"name": n[:90], "count": c, "seconds": u / 1e6}
-                    for n, (c, u) in top]}
-    labels = {lab for _m, _a, lab in WRAPPED} | set(WAVES)
-    by_name = collections.defaultdict(float)
-    counts = collections.Counter()
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA") and e.key not in labels:
-            by_name[e.key] += float(getattr(e, "self_device_time_total", 0.0))
-            counts[e.key] += int(e.count)
-    charged_by_name = collections.defaultdict(float)
-    for kernels in charged.values():
-        for name, (_c, us) in kernels.items():
-            charged_by_name[name] += us
-    own = {name: (us - charged_by_name.get(name, 0.0), counts[name])
-           for name, us in by_name.items()
-           if us - charged_by_name.get(name, 0.0) > 1.0}
-    own_us = sum(us for us, _n in own.values())
-    all_us = total_us + own_us
+    split = split_profile(prof)
     out = {"card": card, "tree": tree, "wrapped": wrapped,
            "timed_seconds": seconds, "image_sha256": sorted(set(images)),
            "host_reads": reads,
            "host_read_sites": sites,
-           "device_kernel_seconds": all_us / 1e6,
-           "charged_seconds": total_us / 1e6,
-           "own_kernel_seconds": own_us / 1e6,
-           "busy_share": all_us / 1e6 / min(seconds),
-           "own_kernels": [{"name": n[:90], "count": c, "seconds": us / 1e6}
-                           for n, (us, c) in sorted(
-                               own.items(), key=lambda kv: -kv[1][0])],
-           "ranges": ranges}
+           "busy_share": split["device_kernel_seconds"] / min(seconds),
+           **split}
     line = json.dumps(out)
     print(line)
     if args.out:

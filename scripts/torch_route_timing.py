@@ -13,7 +13,8 @@ and its kernels are built in its own `_build`. The bench cell: blob subdiv
 virtual (2, 2) mesh of cuda:0, the fused cascades (and, as "fused_exact",
 the same with exact_cull=16 in both engines), `backend="pallas"`
 (blocks of 64), the pool scheduler, `backend="perray"` (the per-ray
-queries), `backend="kslots"`, and "worklist": the worklist cell (blob
+queries), `backend="kslots"`, `backend="packets"` (the packet cascades
+for both wave types), and "worklist": the worklist cell (blob
 subdiv 7 + room in clusters of 128, past 2048 clusters, so the default
 routing takes the worklist backend; blocks of 64, the bench settings),
 built only when asked for. After one warm render of each, each
@@ -126,6 +127,9 @@ def main() -> int:
         "kslots": lambda: wavefront.render(
             scene, cam, settings, accel=accel, backend="kslots",
             wave_size=1 << 20, device="cuda"),
+        "packets": lambda: wavefront.render(
+            scene, cam, settings, accel=accel, backend="packets",
+            wave_size=1 << 20, device="cuda"),
         "worklist": worklist,
     }
     names = args.routes.split(",")
@@ -166,7 +170,7 @@ CASCADE_KERNELS = ("block_anyhit_kernel", "block_closest_kernel",
                    "kslot_sweep_kernel")
 # The kernel wrappers' modules and their launch counts (module attribute).
 LAUNCH_COUNTS = ("cuda_anyhit", "cuda_closest", "cuda_cascade", "cuda_ctiles",
-                 "cuda_kslots")
+                 "cuda_kslots", "cuda_cull")
 
 
 def _launch_counts() -> dict:

@@ -16,6 +16,7 @@ from path_tracer_ai_tpu_torch.accel import (
     cuda_cascade,
     cuda_closest,
     cuda_ctiles,
+    cuda_cull,
     cuda_items,
     cuda_kslots,
     cuda_sweep,
@@ -2206,3 +2207,154 @@ def test_pairs_read_only_the_fallback_count(cuda, rng, query):
         assert torch.equal(got.tri.cpu(), cpu.tri)
     else:
         assert torch.equal(got.cpu(), cpu)
+
+
+# --- the packet cascades' interval cull: packet_cull -----------------------
+
+# (blocks, rays a block, clusters) beyond the CPU tests' sizes: the main
+# path's R and C, the worklist's C, R past a thread block, one ray and one
+# cluster, the largest C sorted in shared memory and the first past it,
+# and C at the edges of the one-warp sorts (32 and 64 finite entries)
+CULL_CARD_SIZES = cases.CULL_SIZES + ((256, 64, 641), (16, 256, 2561),
+                                      (4, 1024, 700), (3, 1, 1),
+                                      (8, 32, 16384), (6, 32, 16385),
+                                      (4, 8, 32), (4, 8, 33), (4, 8, 64),
+                                      (4, 8, 65))
+
+
+def _cull_args(case, dev):
+    from types import SimpleNamespace
+
+    t = lambda a: torch.as_tensor(a, device=dev)
+    acc = SimpleNamespace(bmin=t(case["bmin"]), bmax=t(case["bmax"]),
+                          num_clusters=case["bmin"].shape[0])
+    return acc, t(case["o"]), t(case["d"]), t(case["tm"])
+
+
+def _same_cull(got, want) -> bool:
+    """order and n_cand identical, entry_sorted equal as values (-0.0 ==
+    +0.0, no NaN)."""
+    ok = (torch.equal(got[0].cpu(), want[0].cpu())
+          and torch.equal(got[1].cpu(), want[1].cpu()))
+    if want[2] is None:
+        return ok and got[2] is None
+    return ok and bool((got[2].cpu() == want[2].cpu()).all())
+
+
+@pytest.mark.parametrize("with_entry", [True, False])
+@pytest.mark.parametrize("nb,r,c", CULL_CARD_SIZES)
+@pytest.mark.parametrize("name", cases.CULL_CASES)
+def test_packet_cull_matches_plain(cuda, name, nb, r, c, with_entry):
+    """packet_cull on the crafted cull cases against its plain version on
+    the same inputs (run on the CPU, where the tests hold it against the
+    JAX package)."""
+    case = cases.cull_case(name, nb, r, c)
+    before = cuda_cull.launches
+    got = cuda_cull.block_candidates(*_cull_args(case, cuda), with_entry)
+    assert cuda_cull.launches == before + 1
+    want = cuda_cull.block_candidates_plain(*_cull_args(case, "cpu"),
+                                            with_entry)
+    torch.cuda.synchronize()
+    assert _same_cull(got, want)
+
+
+def test_packet_cull_matches_plain_on_the_card(cuda, rng):
+    """A bounce wave of the blob accel in sorted blocks of 64: the kernel
+    against the plain version run on the card."""
+    from path_tracer_ai_tpu_torch.accel import traverse
+
+    acc = _accel(cuda)
+    o, d, tm = _bounce_wave(acc, 1 << 14, rng)
+    o, d, tm, _perm = traverse._sort_rays(acc, o, d, tm, "dir")
+    blk = (o.reshape(-1, 64, 3).contiguous(),
+           d.reshape(-1, 64, 3).contiguous(), tm.reshape(-1, 64).contiguous())
+    got = cuda_cull.block_candidates(acc, *blk)
+    want = cuda_cull.block_candidates_plain(acc, *blk)
+    torch.cuda.synchronize()
+    assert _same_cull(got, want) and got[1].float().mean() > 1
+
+
+@pytest.mark.parametrize("route", ["any_hit_packets", "closest_hit_packets",
+                                   "pallas_any", "pallas_closest",
+                                   "fused_any", "fused_closest", "exact"])
+def test_packet_cull_on_every_caller(cuda, rng, route):
+    """Each caller of traverse._block_candidates on the card launches the
+    kernel (once; the exact cull's conservative list too) and never its
+    plain version, and asks for the entries only where it reads them; the
+    result is the CPU's."""
+    from unittest import mock
+
+    from path_tracer_ai_tpu_torch.accel import traverse
+
+    acc = _accel(cuda)
+    o, d, tm = _bounce_wave(acc, 1 << 12, rng)
+    cpu = acc.to("cpu")
+    wants_entry = {"any_hit_packets": False, "closest_hit_packets": True,
+                   "pallas_any": False, "pallas_closest": True,
+                   "fused_any": False, "fused_closest": True,
+                   "exact": True}[route]
+
+    def run(a, o_, d_, tm_):
+        if route == "any_hit_packets":
+            return traverse.any_hit_packets(a, o_, d_, 1e-3, tm_,
+                                            block_size=64, group_size=2)
+        if route == "closest_hit_packets":
+            return traverse.closest_hit_packets(a, o_, d_, 1e-3, tm_,
+                                                block_size=64).t
+        if route == "exact":
+            return traverse.any_hit_packets(a, o_, d_, 1e-3, tm_,
+                                            block_size=64, exact_cull=6)
+        if route.startswith("pallas"):
+            return cuda_sweep._prep_wave(a, o_, d_, tm_, 64, True,
+                                         with_entry=wants_entry)[1]
+        return cuda_anyhit.prepare_fused_wave(
+            a, o_, d_, tm_, 128, True, "dir", with_entry=wants_entry)[-1]
+
+    seen = []
+    real = cuda_cull.block_candidates
+
+    def spy(*a, **k):
+        seen.append(a[4] if len(a) > 4 else k.get("with_entry", True))
+        return real(*a, **k)
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain cull ran on the card")
+
+    before = cuda_cull.launches
+    with mock.patch.object(cuda_cull, "block_candidates", spy), \
+            mock.patch.object(cuda_cull, "block_candidates_plain", no_plain):
+        got = run(acc, o, d, tm)
+    torch.cuda.synchronize()
+    assert cuda_cull.launches == before + 1 and seen == [wants_entry]
+    want = run(cpu, o.cpu(), d.cpu(), tm.cpu())
+    if got.dtype == torch.float32:
+        assert torch.equal(_bits(got.cpu()), _bits(want))
+    else:
+        assert torch.equal(got.cpu(), want)
+
+
+def test_packet_cull_launch_failure_raises(cuda):
+    """A refused launch raises; nothing falls back to the plain version."""
+    from unittest import mock
+
+    case = cases.cull_case("coherent", 4, 16, 70)
+    args = _cull_args(case, cuda)
+
+    class Refused:
+        def __call__(self, *a):
+            return 1  # cudaErrorInvalidValue
+
+    lib = cuda_cull._lib()
+    with mock.patch.object(cuda_cull, "_lib", lambda: mock.Mock(
+            packet_cull=Refused(),
+            packet_cull_scratch_bytes=lib.packet_cull_scratch_bytes)), \
+            mock.patch.object(cuda_cull, "block_candidates_plain",
+                              mock.Mock(side_effect=AssertionError)):
+        with pytest.raises(RuntimeError, match="packet_cull"):
+            cuda_cull.block_candidates(*args)
+
+
+def test_packet_cull_occupancy(cuda):
+    occ = cuda_cull.occupancy(641)
+    assert occ["registers"] > 0 and occ["warps_per_sm"] >= 8
+    assert cuda_cull.occupancy(16385)["warps_per_sm"] >= 8

@@ -35,7 +35,12 @@ ctiles' static slot tables over exact geometry (exact_clusters), for
 cuda_ctiles.slot_sweep and its plain version: exact t ties across the
 clusters of one row, a hit at exactly t_min, -0.0 against +0.0, a row's
 pairs spread over several tiles, padding slots and dead rows, and a live
-tile count of 0.
+tile count of 0. The cull cases (CULL_CASES, cull_case) are ray blocks
+and cluster boxes for the packet cascades' interval cull
+(traverse._block_candidates: accel.cuda_cull's kernel and plain version):
+all-dead and mixed blocks, +0.0 / -0.0 direction components, entries
+tied at 0 and tied above it, flat boxes, blocks where every cluster is a
+candidate, t_max = +inf lanes and candidates whose entry is +inf.
 """
 
 import numpy as np
@@ -978,3 +983,117 @@ def slot_case(name: str, s: int, tb: int, b: int, seed: int = 0) -> dict:
             "slot_ref": ref, "slot_cid": cid,
             "n_tiles": 0 if name == "no_tiles" else n_slots // tb,
             "tb": tb, "cap": SLOT_CAP, "t_min": t_min}
+
+
+# ---- the packet cascades' interval cull (cull_case) -----------------------
+
+CULL_CASES = ("coherent", "dead_blocks", "axis_parallel", "inside",
+              "signed_zero", "flat", "all_candidates", "inf_tmax", "ties",
+              "inf_entry")
+# (blocks, rays a block, clusters): C 150 and 70 are not multiples of the
+# cascades' group sizes (2, 8)
+CULL_SIZES = ((16, 16, 150), (8, 64, 300), (64, 4, 70))
+
+
+def _unit(v):
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def cull_case(name: str, nb: int, r: int, c: int, seed: int = 0) -> dict:
+    """One interval-cull input: o, d [nb, r, 3], tm [nb, r] (t_max;
+    negative: dead), bmin, bmax [c, 3], all f32. Blocks are coherent (a
+    base origin and direction, lanes jittered; every seventh lane dead)
+    unless the case says otherwise:
+    dead_blocks: block 0 all dead, block 1 half dead at the placeholder ray
+      (o 0, d +x), block 2 one live lane, block 3 t_max exactly 0;
+    axis_parallel: d = +-e_a with +0.0 / -0.0 in the other components
+      (some blocks all +0.0), origins on box planes;
+    inside: origins at the centre of nested boxes (entries tie at 0);
+    signed_zero: origins on the plane x = 0.5 of flat boxes, going -x, so
+      that lb is -0.0 and ties with +0.0 entries;
+    flat: every box flat on one axis;
+    all_candidates: every block's directions span 0 on each axis and t_max
+      is +inf: every cluster is a candidate at entry 0;
+    inf_tmax: live lanes at t_max = +inf (a closest query);
+    ties: each box repeated at scattered ids (equal entries above 0);
+    inf_entry: directions of x ~ 1e-30 (y, z spanning 0) and t_max +inf:
+      boxes far along x give lb = ub = +inf, candidates at entry +inf."""
+    rng = np.random.default_rng([seed, nb, r, c, CULL_CASES.index(name)])
+    centre = rng.uniform(-1.0, 1.0, (c, 3))
+    half = rng.uniform(0.02, 0.2, (c, 3))
+    if name == "ties":
+        pick = rng.integers(0, max(1, c // 3), c)
+        centre, half = centre[pick], half[pick]
+    if name == "inside":
+        k = min(c, 12)
+        centre[:k] = centre[0]
+        half[:k] = 0.05 * np.arange(1, k + 1)[:, None]
+    bmin = (centre - half).astype(np.float32)
+    bmax = (centre + half).astype(np.float32)
+    if name == "flat":
+        axis = rng.integers(0, 3, c)
+        bmax[np.arange(c), axis] = bmin[np.arange(c), axis]
+
+    base_o = rng.uniform(-2.0, 2.0, (nb, 1, 3))
+    base_d = _unit(rng.standard_normal((nb, 1, 3)))
+    o = base_o + rng.normal(0.0, 0.05, (nb, r, 3))
+    d = _unit(base_d + rng.normal(0.0, 0.05, (nb, r, 3)))
+    tm = rng.uniform(0.5, 4.0, (nb, r))
+    tm.reshape(-1)[::7] = -1.0
+    if name == "dead_blocks":
+        tm[0] = -1.0
+        if nb > 1:
+            tm[1, ::2] = -1.0
+            o[1, ::2] = 0.0
+            d[1, ::2] = (1.0, 0.0, 0.0)
+        if nb > 2:
+            tm[2, 1:] = -1.0
+            tm[2, 0] = 2.0
+        if nb > 3:
+            tm[3] = 0.0
+    elif name == "axis_parallel":
+        axis = rng.integers(0, 3, nb)
+        sign = rng.choice([-1.0, 1.0], nb)
+        zeros = np.where(rng.uniform(size=(nb, r, 3)) < 0.5, -0.0, 0.0)
+        zeros[::3] = 0.0  # every third block: only +0.0
+        d = zeros
+        d[np.arange(nb), :, axis] = sign[:, None]
+        box = rng.integers(0, c, (nb, r))
+        o[np.arange(nb)[:, None], np.arange(r)[None], axis[:, None]] = \
+            bmin[box, axis[:, None]]
+    elif name == "inside":
+        o = centre[0] + rng.normal(0.0, 1e-3, (nb, r, 3))
+    elif name == "signed_zero":
+        k = min(c, 10)
+        bmin[:k, 0] = bmax[:k, 0] = 0.5
+        bmin[:k, 1:] = -3.0
+        bmax[:k, 1:] = 3.0
+        o[..., 0] = 0.5
+        d = np.stack([-rng.uniform(0.5, 1.0, (nb, r)),
+                      rng.uniform(-0.5, 0.5, (nb, r)),
+                      rng.uniform(-0.5, 0.5, (nb, r))], axis=-1)
+        d[:, 0, 1:] = (0.2, 0.2)
+        d[:, 1 % r, 1:] = (-0.2, -0.2)
+    elif name == "all_candidates":
+        d[:, 0] = _unit(np.ones(3))
+        d[:, 1 % r] = -_unit(np.ones(3))
+        tm = np.full((nb, r), np.inf)
+        tm[:, 2:] = -1.0 if r > 2 else np.inf
+    elif name == "inf_tmax":
+        tm = np.where(tm >= 0.0, np.inf, tm)
+    elif name == "inf_entry":
+        far = rng.uniform(size=c) < 0.3
+        bmin[far, 0] = np.float32(1e10)
+        bmax[far, 0] = np.float32(2e10)
+        o = base_o + rng.normal(0.0, 0.05, (nb, r, 3))
+        o[..., 0] = -1.0 - np.abs(o[..., 0])
+        d = np.zeros((nb, r, 3))
+        d[..., 0] = rng.uniform(1e-30, 2e-30, (nb, r))
+        d[..., 1] = np.where(np.arange(r) % 2, 1e-3, -1e-3)
+        d[..., 2] = np.where(np.arange(r) % 3 == 1, 1e-3, -1e-3)
+        if r == 1:
+            d[..., 1:] = 0.0
+        tm = np.where(tm >= 0.0, np.inf, tm)
+    f = lambda a: np.ascontiguousarray(a, dtype=np.float32)
+    return {"o": f(o), "d": f(d), "tm": f(tm), "bmin": f(bmin),
+            "bmax": f(bmax)}
