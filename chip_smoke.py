@@ -595,7 +595,8 @@ def phase_build():
     t0 = time.perf_counter()
     built = cuda_build.build_all([m.SOURCE for m in (
         cuda_ctiles, cuda_sweep, cuda_anyhit, cuda_closest, cuda_items,
-        cuda_kslots, cuda_cull)] + [cuda_ctiles.CULL_SOURCE])
+        cuda_kslots, cuda_cull)] + [cuda_ctiles.CULL_SOURCE,
+                                    cuda_cull.WORKLIST_SOURCE])
     seconds = time.perf_counter() - t0
     entry = re.compile(
         r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
@@ -627,6 +628,9 @@ def phase_build():
         occupancy[f"packet_cull C{c}"] = {
             **cuda_cull.occupancy(c), "spill_bytes": sum(
                 e["spill_bytes"] for e in ptxas.get("packet_cull", []))}
+    occupancy["worklist_cull"] = {
+        **cuda_cull.worklist_occupancy(), "spill_bytes": sum(
+            e["spill_bytes"] for e in ptxas.get("worklist_cull", []))}
     for b in (8, 4):
         occupancy[f"block_cull b{b}"] = {
             **cuda_ctiles.cull_occupancy(b), "spill_bytes": sum(
@@ -1416,7 +1420,9 @@ def _read_counts() -> dict:
             "block_cull": cuda_ctiles.cull_launches,
             "slot_sweep": cuda_ctiles.sweep_launches,
             # the packet cascades' interval cull
-            "packet_cull": cuda_cull.launches}
+            "packet_cull": cuda_cull.launches,
+            # the worklist's cull
+            "worklist_cull": cuda_cull.worklist_launches}
 
 
 def _tile_shapes() -> list:
@@ -3474,6 +3480,7 @@ def _item_bound(args) -> tuple:
     read and the rows written; the tests of live item x live lane (t_max >=
     t_min) x live slot x S."""
     pack, rays, item_block, ibase, order_g, n_cand, n_items, want_tri = args
+    n_items = int(n_items)  # an int or the worklist's device count
     s = pack.shape[2]
     n_groups, g = order_g.shape[1:]
     b = rays.shape[2]
@@ -3495,7 +3502,7 @@ def _check_item_sweep(args, wave: str, reps: int = 5) -> dict:
     from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_items
 
     want_tri = args[-1]
-    n_items = args[6]
+    n_items = int(args[6])  # the worklist passes its device count
     k = cuda_items.item_sweep(*args)
     p = cuda_items.item_sweep_plain(*args)
     torch.cuda.synchronize()
@@ -3555,10 +3562,18 @@ def phase_item_waves(scene, accel, card):
     must be the worklist backend), keeping the inputs of item_sweep's
     second closest and second shadow launch (wave 0, bounce 1), then
     item_sweep against its plain version on each. Also keeps the same two
-    waves' worklist queries for profile_worklist. Returns the two checks,
+    waves' worklist queries for profile_worklist, and the first two
+    worklist_cull calls of each wave type (KEPT_CULLS). Returns the two checks,
     the kept queries and the render's seconds (the warm pass of
     path_worklist)."""
-    from path_tracer_ai_tpu_torch.accel import cuda_items, traverse, worklist
+    import inspect
+
+    from path_tracer_ai_tpu_torch.accel import (
+        cuda_cull,
+        cuda_items,
+        traverse,
+        worklist,
+    )
     from path_tracer_ai_tpu_torch.config import RenderSettings
     from path_tracer_ai_tpu_torch.engine import wavefront
     from path_tracer_ai_tpu_torch.scene.camera import default_camera
@@ -3567,7 +3582,15 @@ def phase_item_waves(scene, accel, card):
     if backend != "worklist":
         fail("item_waves", f"default routing picked {backend!r}")
     kept = {}
+    # the worklist_cull calls, told apart by their cap (the closest waves'
+    # WORKLIST_CLOSEST_KW cap, the shadow waves' default)
+    caps = {wavefront.WORKLIST_CLOSEST_KW["cap"]: "cull_closest",
+            inspect.signature(worklist.any_hit_worklist).parameters[
+                "cap"].default: "cull_shadow"}
+    if len(caps) != 2:
+        fail("item_waves", "the closest and shadow waves cull at one cap")
     wrapped = [(cuda_items, "item_sweep", lambda a: a[-1]),
+               (cuda_cull, "worklist_cull", lambda a: caps[a[4]]),
                (worklist, "closest_hit_worklist", lambda a: "closest_wave"),
                (worklist, "any_hit_worklist", lambda a: "shadow_wave"),
                # the closest fallback's whole-wave cascades (packet_cascade)
@@ -3589,6 +3612,8 @@ def phase_item_waves(scene, accel, card):
         fail("item_waves", "the render made fewer than two item_sweep "
                            "launches or worklist queries of a wave type")
     KEPT_FALLBACKS["worklist"] = kept.get("fallback", [])
+    for wave in ("closest", "shadow"):
+        KEPT_CULLS[wave] = kept.get(f"cull_{wave}", [])
     checks = [_check_item_sweep(kept[True][1][0], "closest, wave 0, bounce 1"),
               _check_item_sweep(kept[False][1][0],
                                 "shadow, wave 0, bounce 1")]
@@ -3596,9 +3621,211 @@ def phase_item_waves(scene, accel, card):
     return checks, waves, seconds, [kept[True][1][0], kept[False][1][0]]
 
 
+# the worklist_cull calls of the item_waves render: wave type -> [(args,
+# kw)] of its first two calls (bounce 0, bounce 1)
+KEPT_CULLS = {}
+# f32 operations of the worklist cull (csrc/worklist_cull.cu): 14 a (block,
+# box) pair and axis whose direction interval does not span 0 (2
+# subtractions, 4 divisions, 6 min / max for the quotients' bounds, 2 for
+# lb and ub), 3 a pair (the candidate test's compares); the boxes counted
+# are those a block must test: every box (super) up to the one past its cap
+# where it overflows, and at levels 2 the children of its candidate supers
+# up to the one past cap
+WCULL_AXIS_OPS = 14
+WCULL_PAIR_OPS = 3
+WCULL_REPS = 20
+WCULL_ROW_ELEMS = 1 << 22  # [rows, boxes] elements a step of _wcull_work
+
+
+def _first_past(cand, k):
+    """Per row, the boxes tested up to the (k + 1)-th candidate (all where
+    there are k or fewer)."""
+    past = torch.cumsum(cand.to(torch.int32), dim=1) > k
+    return torch.where(past.any(dim=1), past.to(torch.int32).argmax(dim=1)
+                       + 1, cand.shape[1])
+
+
+def _wcull_work(call) -> dict:
+    """Bytes (the rays once, the boxes, order, n_cand and over) and
+    operations (WCULL_*_OPS over the boxes each live block must test) of
+    one worklist_cull call (accel, o_blk, d_blk, tm_blk, cap, k_eff, width,
+    levels, super_cap)."""
+    from path_tracer_ai_tpu_torch.accel import traverse, worklist
+
+    accel, o_blk, d_blk, tm_blk, cap, _k_eff, width, levels, super_cap = call
+    nb, b = o_blk.shape[:2]
+    c = accel.num_clusters
+    cs, ss = accel.num_supers, accel.super_size
+    scap = min(super_cap, cs)
+    step = max(1, WCULL_ROW_ELEMS // (c if levels == 1 else cs + scap * ss))
+    tests = axis_tests = 0
+    for lo in range(0, nb, step):
+        o, d, tm = (x[lo:lo + step] for x in (o_blk, d_blk, tm_blk))
+        rows = o.shape[0]
+        olo, ohi, dlo, dhi = traverse._ray_block_bounds(o, d, live=tm >= 0.0)
+        bnd = (olo, ohi, dlo, dhi)
+        tmax = tm.amax(dim=1)
+        live = tmax >= 0.0
+        axes = (~((dlo <= 0.0) & (dhi >= 0.0))).sum(dim=1)
+
+        def cand_of(lo_, hi_):
+            lb, ub = traverse._interval_slab(lo_, hi_, *bnd)
+            return ((lb <= ub) & (ub >= 0.0) & (lb <= tmax[:, None])
+                    & live[:, None])
+
+        if levels == 1:
+            n_t = _first_past(cand_of(accel.bmin, accel.bmax), cap)
+        else:
+            cand_s = cand_of(accel.sbmin, accel.sbmax)
+            ns = cand_s.sum(dim=1)
+            over_s = ns > scap
+            sorder = worklist._extract_k(cand_s & ~over_s[:, None], scap,
+                                         cs - 1).long()
+            slot_ok = (torch.arange(scap, device=o.device)[None, :]
+                       < ns[:, None]).repeat_interleave(ss, dim=1)
+            cand = cand_of(accel.cbmin[sorder].reshape(rows, scap * ss, 3),
+                           accel.cbmax[sorder].reshape(rows, scap * ss, 3))
+            child = torch.minimum(_first_past(cand & slot_ok, cap), ns * ss)
+            n_t = _first_past(cand_s, scap) + torch.where(over_s, 0, child)
+        n_t = torch.where(live, n_t, 0).long()
+        tests += int(n_t.sum())
+        axis_tests += int((n_t * axes).sum())
+    ops = tests * WCULL_PAIR_OPS + axis_tests * WCULL_AXIS_OPS
+    boxes = c * 24 if levels == 1 else cs * 24 + cs * ss * 24
+    nbytes = nb * b * 28 + boxes + nb * width * 4 + nb * 4 + nb
+    by_bytes = nbytes / PEAK_BYTES_PER_S
+    by_ops = ops / PEAK_F32_PER_S
+    return {"bytes": nbytes, "operations": ops, "box_tests": tests,
+            "box_tests_per_live_block": tests / max(1, int(
+                (tm_blk.amax(dim=1) >= 0.0).sum())),
+            "bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _wcull_call(call, levels=None):
+    """A kept worklist_cull call's positional arguments, at its own levels
+    or forced to `levels` (k_eff and the row width then as _build_worklist
+    gives them)."""
+    from path_tracer_ai_tpu_torch.accel import cuda_items
+
+    accel, o, d, tm, cap, k_eff, width, lv, super_cap = call
+    if levels is not None and levels != lv:
+        k_eff = min(cap, accel.num_clusters)
+        if levels == 2:
+            k_eff = min(k_eff, min(super_cap, accel.num_supers)
+                        * accel.super_size)
+        g = cuda_items.GROUP
+        width, lv = -(-k_eff // g) * g, levels
+    return (accel, o, d, tm, cap, k_eff, width, lv, super_cap)
+
+
+def _check_wcull(label, call, plain_on_cpu=False, reps=WCULL_REPS,
+                 bound=True) -> dict:
+    """worklist_cull on one call: against its plain version (on the card,
+    or on CPU copies of the inputs), timed beside its bound and the plain
+    version on the card."""
+    from types import SimpleNamespace
+
+    from path_tracer_ai_tpu_torch.accel import cuda_cull
+
+    run = lambda: cuda_cull.worklist_cull(*call)
+    plain = lambda: cuda_cull.worklist_cull_plain(*call)
+    got = run()
+    if plain_on_cpu:
+        acc = call[0]
+        cpu = SimpleNamespace(**{k: getattr(acc, k).cpu() for k in (
+            "bmin", "bmax", "sbmin", "sbmax", "cbmin", "cbmax")},
+            num_clusters=acc.num_clusters, num_supers=acc.num_supers,
+            super_size=acc.super_size)
+        want = cuda_cull.worklist_cull_plain(
+            cpu, *(x.cpu() for x in call[1:4]), *call[4:])
+    else:
+        want = plain()
+    torch.cuda.synchronize()
+    accel, o_blk = call[:2]
+    res = {"input": label, "levels": call[7], "blocks": o_blk.shape[0],
+           "B": o_blk.shape[1], "C": accel.num_clusters,
+           "supers": accel.num_supers, "cap": call[4], "k_eff": call[5],
+           "super_cap": call[8],
+           "plain_on": "cpu" if plain_on_cpu else "card",
+           "candidates_mean": float(got[1].float().mean()),
+           "overflow_share": float(got[2].float().mean()),
+           "matches_plain": all(bool(torch.equal(a.cpu(), b.cpu()))
+                                for a, b in zip(got, want)),
+           "max_abs_err": 0.0, "ms": cuda_ms(run, reps),
+           "plain_ms": cuda_ms(plain, 1)}
+    if bound:
+        res.update(_wcull_work(call))
+        res["ms_over_bound"] = res["ms"] / res["bound_ms"]
+    return res
+
+
+def phase_worklist_cull(card) -> dict:
+    """The worklist's cull on the card: worklist_cull against its plain
+    version, bit for bit, on the item_waves render's kept calls (the
+    closest and the shadow wave of wave 0, bounce 1: the worklist cell's
+    accel, C 2,561 in 161 supers, the 2-level cull), on the same calls
+    forced to levels 1 (the flat cull past 2048 clusters), and on every
+    crafted worklist-cull case (tests/test_torch_sweep_cases.py
+    wl_cull_case) at its caps and one past each; each render call timed
+    beside its bound (_wcull_work) and the plain version on the card.
+    Returns the kernels line's check (the shadow call, 2-level)."""
+    from types import SimpleNamespace
+
+    t0 = time.perf_counter()
+    if min(len(KEPT_CULLS.get(w, ())) for w in ("closest", "shadow")) < 2:
+        fail("worklist_cull", "fewer than two kept worklist_cull calls of a "
+                              "wave type")
+    waves = []
+    for levels in (2, 1):
+        for wave in ("closest", "shadow"):
+            args, _kw = KEPT_CULLS[wave][1]
+            waves.append(_check_wcull(
+                f"worklist render {wave} call, wave 0, bounce 1"
+                + ("" if levels == args[7] else
+                   f", forced to levels {levels}"),
+                _wcull_call(args, levels)))
+    c = _cases()
+    t = lambda a: torch.as_tensor(a, device="cuda")
+    crafted = []
+    for name in c.WL_CULL_CASES:
+        case = c.wl_cull_case(name)
+        acc = SimpleNamespace(**{k: t(case[k]) for k in (
+            "bmin", "bmax", "sbmin", "sbmax", "cbmin", "cbmax")},
+            num_clusters=case["bmin"].shape[0],
+            num_supers=case["sbmin"].shape[0], super_size=case["ss"])
+        for levels in case["levels"]:
+            for cap_add, scap_add in ((0, 0), (1, 0), (0, 1)):
+                call = _wcull_call(
+                    (acc, t(case["o"]), t(case["d"]), t(case["tm"]),
+                     case["cap"] + cap_add, 0, 0, 0,
+                     case["super_cap"] + scap_add), levels)
+                crafted.append(_check_wcull(name, call, plain_on_cpu=True,
+                                            reps=3, bound=False))
+    res = {"phase": "worklist_cull", "card": card, "waves": waves,
+           "crafted": len(crafted),
+           "crafted_disagree": [[x["input"], x["levels"], x["cap"],
+                                 x["super_cap"]]
+                                for x in crafted if not x["matches_plain"]],
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    if not all(w["matches_plain"] for w in waves) or res["crafted_disagree"]:
+        fail("worklist_cull", "worklist_cull disagrees with its plain "
+                              "version")
+    keys = ("input", "levels", "blocks", "B", "C", "cap", "k_eff", "ms",
+            "plain_ms", "bound_ms", "bound_by", "ms_over_bound",
+            "candidates_mean", "overflow_share", "matches_plain")
+    return {**waves[1], "waves": [{k: w[k] for k in keys} for w in waves]}
+
+
 def phase_path_worklist(scene, accel, card, warm_seconds):
     """The worklist scene's bench render, timed, the counts zeroed just
-    before it and read just after; each worklist stage's device seconds."""
+    before it and read just after; each worklist stage's device seconds,
+    the build split into sort, cull and table; host reads by site. Then
+    one more render under torch.profiler (device activity only: about 30 s
+    on the H100) for its device kernels and copies."""
+    from torch.profiler import ProfilerActivity, profile
+
     from path_tracer_ai_tpu_torch.accel import pairs, worklist
     from path_tracer_ai_tpu_torch.config import RenderSettings
     from path_tracer_ai_tpu_torch.engine import wavefront
@@ -3615,6 +3842,7 @@ def phase_path_worklist(scene, accel, card, warm_seconds):
                                block_size=64, device="cuda")
         launches = _read_counts()
         syncs = sync.count
+        sites = _sync_sites()
         stages = worklist.stage_seconds()
     finally:
         worklist.stage_events = None
@@ -3631,10 +3859,34 @@ def phase_path_worklist(scene, accel, card, warm_seconds):
            "cascade_stage_shapes": _stage_shapes(), "host_syncs": syncs,
            "worklist_fallback": dict(worklist.fallback_counts),
            "pairs_fallback": dict(pairs.fallback_counts),
-           "stage_device_seconds": stages}
+           "stage_device_seconds": stages,
+           "build_split_seconds": {
+               wave: {step: stages.get(f"{wave}_{step}", 0.0)
+                      for step in ("build", "sort", "cull", "table")}
+               for wave in ("closest", "shadow")},
+           "host_sync_sites": sites,
+           # the worklist's own reads: the fallback's count, one a query
+           "worklist_host_reads": sum(
+               n for k, n in sites.items()
+               if k.startswith("path_tracer_ai_tpu_torch.accel.worklist:"))}
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wavefront.render(scene, cam, RenderSettings(**BENCH), accel=accel,
+                         wave_size=1 << 20, block_size=64, device="cuda")
+        torch.cuda.synchronize()
+    res["device_kernels"] = int(sum(
+        e.count for e in prof.key_averages()
+        if str(e.device_type).endswith("CUDA") and not _is_label(e.key)))
+    res["profiled_render_wall_seconds"] = time.perf_counter() - t0
     image_ok = _image_verdict(img, res)
-    _finish_path(res, [] if launches["item_sweep"] > 0 else ["item_sweep"],
-                 image_ok)
+    _finish_path(res, [k for k in ("item_sweep", "worklist_cull")
+                       if launches[k] <= 0], image_ok)
+    queries = launches["worklist_cull"]
+    if res["worklist_host_reads"] != queries or launches["item_sweep"] != \
+            queries:
+        fail("path_worklist", f"{res['worklist_host_reads']} worklist host "
+                              f"reads and {launches['item_sweep']} item "
+                              f"sweeps for {queries} worklist queries")
     return res
 
 
@@ -3667,7 +3919,8 @@ def phase_profile_worklist(waves, card):
         avgs = prof.key_averages()
         res = _kernel_time("profile_worklist", avgs,
                            time.perf_counter() - t0, seconds,
-                           ["item_sweep_kernel", "tile_sweep_kernel"])
+                           ["item_sweep_kernel", "tile_sweep_kernel",
+                            "worklist_cull_kernel"])
         host = [e for e in avgs if _is_label(e.key)
                 and not str(e.device_type).endswith("CUDA")]
         res.update({
@@ -6294,6 +6547,9 @@ KERNELS = {
     # the packet cascades' interval cull (no Pallas kernel): the XLA-fused
     # body of traverse._block_candidates, on every packets route
     "packet_cull": ("packet_cull.cu", None, "main_path"),
+    # the worklist's cull (no Pallas kernel): the XLA-fused CULL + EXTRACT
+    # of worklist._build_worklist, on the worklist route past 2048 clusters
+    "worklist_cull": ("worklist_cull.cu", None, "path_worklist"),
 }
 # what a kernel without a Pallas counterpart carries in the JAX package
 CARRIES = {
@@ -6325,6 +6581,9 @@ CARRIES = {
     "packet_cull": "path_tracer_ai_tpu/accel/traverse.py:171-202 "
                    "(_block_candidates: _ray_block_bounds, _interval_slab, "
                    "the stable argsort)",
+    "worklist_cull": "path_tracer_ai_tpu/accel/worklist.py:169-266 "
+                     "(_build_worklist's one_chunk_flat / one_chunk_2level: "
+                     "_ray_block_bounds, _interval_slab, _extract_k)",
 }
 # what a kernel runs as on its route besides its own launches
 RUNS_AS = {
@@ -6414,7 +6673,9 @@ def main() -> int:
         scene_w, accel_w, card)
     checks["item_sweep"] = dict(item_waves[0], matches_plain=all(
         c["matches_plain"] for c in item_waves))
+    checks["worklist_cull"] = phase_worklist_cull(card)
     generic = phase_generic_kernels(accel_base, item_args, checks, card)
+    generic["worklist_cull"] = None  # its only instance
     phase_sweep_cases(card)
     if args.kernels_only:
         return 0
@@ -6606,7 +6867,8 @@ def main() -> int:
            if name == "cascade_stage_any" else {}),
         **({"runs_as": RUNS_AS[name]} if name in RUNS_AS else {}),
         **({"waves": checks[name]["waves"]}
-           if name in ("block_cull", "slot_sweep", "packet_cull") else {}),
+           if name in ("block_cull", "slot_sweep", "packet_cull",
+                       "worklist_cull") else {}),
         **({"launches_by_route": {
             **{k: v["launches"][name] for k, v in paths.items()
                if "launches" in v and isinstance(v["launches"], dict)

@@ -1,5 +1,6 @@
-"""The packet cascades' interval cull: a hand-written CUDA kernel and its
-plain version.
+"""The interval culls of the packet cascades and of the worklist: two
+hand-written CUDA kernels and their plain versions. Both take the slab test
+of csrc/interval.cuh.
 
 Replaces no Pallas kernel: it carries the XLA-fused body of the JAX
 package's `_block_candidates` (path_tracer_ai_tpu/accel/traverse.py:
@@ -24,6 +25,20 @@ Layouts: o_blk, d_blk [nb, R, 3] f32, tm_blk [nb, R] f32 (t_max; negative:
 a dead lane), all contiguous; accel.bmin, accel.bmax [C, 3] f32. Any R >= 1
 and C >= 1: past C = 16,384 (SMEM_SORT_MAX_C) a thread block sorts in a
 device-memory scratch buffer that the wrapper allocates.
+
+The worklist's cull, `worklist_cull(accel, o_blk, d_blk, tm_blk, cap,
+k_eff, width, levels, super_cap)`, carries the XLA-fused CULL + EXTRACT
+of the JAX package's `_build_worklist` (path_tracer_ai_tpu/accel/
+worklist.py:169-266): per block of B rays the same bounds and slab test,
+against every cluster box (levels 1) or through the supercluster boxes
+and their children (levels 2), and the first k_eff candidate ids in
+ascending order. It launches csrc/worklist_cull.cu on CUDA tensors or
+raises; `worklist_cull_plain` is its plain version (eager torch in row
+chunks, `_cull_flat` / `_cull_2level`), which the CPU takes
+(accel.worklist._build_worklist dispatches on the device). Both return
+(order [nb, width] i32: the ids, C - 1 past the count or on overflow,
+zeros in the pad columns [k_eff, width); n_cand [nb] i32, 0 on overflow;
+over [nb] bool), equal bit for bit.
 """
 
 from __future__ import annotations
@@ -37,19 +52,28 @@ from path_tracer_ai_tpu_torch.utils import sync
 
 INF = float("inf")
 SOURCE = "packet_cull"
+WORKLIST_SOURCE = "worklist_cull"
 # the largest C whose sort fits one thread block's shared memory
 # (8 * pow2(C) + 4 * C bytes; csrc/packet_cull.cu SMEM_LIMIT)
 SMEM_SORT_MAX_C = 16384
 
-# Kernel launches since the last reset (the plain version counts nothing);
-# updated under sync.lock (the mesh's workers launch from several threads).
+# Elements of each [rows, width] temporary of the plain worklist cull
+# (width C for the flat cull, Cs + super_cap * super_size for the 2-level
+# one): block rows are culled this many at a time. The tables do not
+# depend on the step.
+CULL_ELEMS = 1 << 23
+
+# Kernel launches since the last reset, packet_cull's and worklist_cull's
+# (the plain versions count nothing); updated under sync.lock (the mesh's
+# workers launch from several threads).
 launches = 0
+worklist_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, worklist_launches
     with sync.lock:
-        launches = 0
+        launches = worklist_launches = 0
 
 
 def block_candidates_plain(accel, o_blk, d_blk, t_max_blk,
@@ -79,9 +103,10 @@ def block_candidates_plain(accel, o_blk, d_blk, t_max_blk,
             torch.cat(entries) if with_entry else None)
 
 
-def _check(tensors):
-    """Type, rank and layout of every (name, tensor, ndim) first, then the
-    device, so that each check can be shown to fire on the CPU."""
+def _check(tensors, who="block_candidates", device=True):
+    """Type, rank and layout of every (name, tensor, ndim) first, then
+    (unless device is False) the device, so that each check can be shown to
+    fire on the CPU."""
     for name, x, ndim in tensors:
         if x.dtype != torch.float32:
             raise TypeError(f"{name} has dtype {x.dtype}, expected float32")
@@ -90,11 +115,10 @@ def _check(tensors):
                              f"{ndim} dims")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, x, _ndim in tensors:
+    for name, x, _ndim in tensors if device else ():
         if x.device.type != "cuda":
-            raise ValueError(f"{name} is on {x.device}: block_candidates "
-                             f"launches the CUDA kernel (the CPU takes "
-                             f"block_candidates_plain)")
+            raise ValueError(f"{name} is on {x.device}: {who} launches "
+                             f"the CUDA kernel (the CPU takes {who}_plain)")
 
 
 def _lib():
@@ -161,3 +185,186 @@ def block_candidates(accel, o_blk, d_blk, tm_blk, with_entry: bool = True):
     with sync.lock:
         launches += 1
     return order, n_cand, entry
+
+
+# ---- the worklist's cull: worklist_cull ------------------------------------
+
+def _cull_flat(accel, oc, dc, tc, cap, k_eff):
+    """Blocks vs every cluster AABB: (order [rows, k_eff] ascending ids,
+    n_cand (0 on overflow), over)."""
+    from path_tracer_ai_tpu_torch.accel.traverse import (
+        _interval_slab,
+        _ray_block_bounds,
+    )
+    from path_tracer_ai_tpu_torch.accel.worklist import _extract_k
+
+    c = accel.num_clusters
+    olo, ohi, dlo, dhi = _ray_block_bounds(oc, dc, live=tc >= 0.0)
+    lb, ub = _interval_slab(accel.bmin, accel.bmax, olo, ohi, dlo, dhi)
+    tmax_ub = tc.amax(dim=1)
+    # Inclusive bound (flat AABBs stay in) and the dead-block kill.
+    cand = ((lb <= ub) & (ub >= 0.0) & (lb <= tmax_ub[:, None])
+            & (tmax_ub >= 0.0)[:, None])
+    n_cand = cand.sum(dim=1).to(torch.int32)
+    over = n_cand > cap
+    order = _extract_k(cand & ~over[:, None], k_eff, c - 1)
+    return order, torch.where(over, 0, n_cand), over
+
+
+def _cull_2level(accel, oc, dc, tc, cap, k_eff, super_cap):
+    """Supercluster prefilter, then the child AABBs of the surviving supers.
+
+    The candidates are child ids sorder * ss + j. `_extract_k` on the super
+    slots gives ascending super ids, so along a row the valid child columns
+    hold ascending ids and the first k set columns are the k smallest ids,
+    the reference's top_k over -child. The padding children of a partly
+    filled last super carry inverted boxes; `_interval_slab` (as the
+    reference's) does not fail them, so they count as candidates (ids >= C,
+    clamped to C - 1, or left past k_eff where the zero padding of
+    order_g stands in): repeats of real candidates, which change no
+    result."""
+    from path_tracer_ai_tpu_torch.accel.traverse import (
+        _interval_slab,
+        _ray_block_bounds,
+    )
+    from path_tracer_ai_tpu_torch.accel.worklist import _extract_k
+
+    c = accel.num_clusters
+    rows = oc.shape[0]
+    dev = oc.device
+    ss = accel.super_size
+    cs = accel.num_supers
+    scap = min(super_cap, cs)
+    olo, ohi, dlo, dhi = _ray_block_bounds(oc, dc, live=tc >= 0.0)
+    tmax_ub = tc.amax(dim=1)
+    live = (tmax_ub >= 0.0)[:, None]
+
+    lbs, ubs = _interval_slab(accel.sbmin, accel.sbmax, olo, ohi, dlo, dhi)
+    cand_s = (lbs <= ubs) & (ubs >= 0.0) & (lbs <= tmax_ub[:, None]) & live
+    ns = cand_s.sum(dim=1).to(torch.int32)
+    over_s = ns > scap  # supers past the cap are unseen -> fallback
+    sorder = _extract_k(cand_s & ~over_s[:, None], scap, cs - 1).long()
+    slot_ok = torch.arange(scap, device=dev)[None, :] < ns[:, None]
+
+    child = (sorder[:, :, None] * ss
+             + torch.arange(ss, device=dev)[None, None, :]).reshape(
+                 rows, scap * ss)
+    cbmin = accel.cbmin[sorder].reshape(rows, scap * ss, 3)
+    cbmax = accel.cbmax[sorder].reshape(rows, scap * ss, 3)
+    lb, ub = _interval_slab(cbmin, cbmax, olo, ohi, dlo, dhi)
+    cand = ((lb <= ub) & (ub >= 0.0) & (lb <= tmax_ub[:, None])
+            & slot_ok.repeat_interleave(ss, dim=1) & live)
+    n_cand = cand.sum(dim=1).to(torch.int32)
+    over = over_s | (n_cand > cap)
+    cols = _extract_k(cand & ~over[:, None], k_eff, scap * ss).long()
+    child = torch.nn.functional.pad(child, (0, 1), value=c - 1)
+    order = torch.clamp(torch.gather(child, 1, cols), max=c - 1)
+    return order.to(torch.int32), torch.where(over, 0, n_cand), over
+
+
+def worklist_cull_plain(accel, o_blk, d_blk, tm_blk, cap: int, k_eff: int,
+                        width: int, levels: int, super_cap: int = 32,
+                        row_chunk: int = 1 << 13):
+    """The worklist's cull in eager torch, at most `row_chunk` (and
+    CULL_ELEMS / width of its temporaries) blocks at a time: (order [nb,
+    width] i32, n_cand [nb] i32, over [nb] bool), as worklist_cull. The
+    tables do not depend on the step."""
+    nb = o_blk.shape[0]
+    elems = accel.num_clusters
+    if levels == 2:
+        elems = (accel.num_supers
+                 + min(super_cap, accel.num_supers) * accel.super_size)
+    step = max(1, min(row_chunk, CULL_ELEMS // elems))
+    orders, ncands, overs = [], [], []
+    for lo in range(0, nb, step):
+        args = (accel, o_blk[lo:lo + step], d_blk[lo:lo + step],
+                tm_blk[lo:lo + step], cap, k_eff)
+        order, n_cand, over = (_cull_2level(*args, super_cap) if levels == 2
+                               else _cull_flat(*args))
+        orders.append(order)
+        ncands.append(n_cand)
+        overs.append(over)
+    order = torch.cat(orders)
+    if width > k_eff:
+        order = torch.nn.functional.pad(order, (0, width - k_eff))
+    return order, torch.cat(ncands), torch.cat(overs)
+
+
+def _worklist_lib():
+    lib = cuda_build.load(WORKLIST_SOURCE)
+    fn = lib.worklist_cull
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+                       + [ctypes.c_void_p] * 4)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def worklist_occupancy() -> dict:
+    """worklist_cull's registers and resident warps per SM (needs the
+    card)."""
+    from path_tracer_ai_tpu_torch.accel.cuda_ctiles import read_occupancy
+
+    return read_occupancy(
+        cuda_build.load(WORKLIST_SOURCE).worklist_cull_occupancy)
+
+
+def worklist_cull(accel, o_blk, d_blk, tm_blk, cap: int, k_eff: int,
+                  width: int, levels: int, super_cap: int = 32):
+    """The worklist's cull on the card, one launch: (order [nb, width] i32,
+    n_cand [nb] i32, over [nb] bool), as worklist_cull_plain. levels 1
+    culls against accel.bmin / bmax, levels 2 through accel.sbmin / sbmax
+    and cbmin / cbmax (the first min(super_cap, Cs) candidate supers).
+    Raises on a tensor that is not a contiguous f32 CUDA tensor of the
+    layout above, on bad sizes, and where the launch fails."""
+    global worklist_launches
+    if levels not in (1, 2):
+        raise ValueError(f"worklist_cull takes levels 1 or 2, not {levels}")
+    boxes = ((("bmin", accel.bmin, 2), ("bmax", accel.bmax, 2))
+             if levels == 1 else
+             (("sbmin", accel.sbmin, 2), ("sbmax", accel.sbmax, 2),
+              ("cbmin", accel.cbmin, 3), ("cbmax", accel.cbmax, 3)))
+    tensors = (("o_blk", o_blk, 3), ("d_blk", d_blk, 3),
+               ("tm_blk", tm_blk, 2), *boxes)
+    _check(tensors, device=False)
+    nb, b = o_blk.shape[:2]
+    c = accel.num_clusters
+    n_boxes = boxes[0][1].shape[0]
+    ss = accel.cbmin.shape[1] if levels == 2 else 1
+    dev = o_blk.device
+    if (o_blk.shape[2] != 3 or d_blk.shape != o_blk.shape
+            or tuple(tm_blk.shape) != (nb, b)
+            or any(x.shape[-1] != 3 for _n, x, _d in boxes)
+            or boxes[1][1].shape != boxes[0][1].shape
+            or (levels == 1 and n_boxes != c)
+            or (levels == 2 and (tuple(accel.cbmin.shape[:1]) != (n_boxes,)
+                                 or accel.cbmax.shape != accel.cbmin.shape
+                                 or n_boxes * ss < c))):
+        raise ValueError("worklist_cull takes o_blk / d_blk [nb, B, 3], "
+                         "tm_blk [nb, B], boxes [C, 3] (levels 1) or "
+                         "[Cs, 3] and children [Cs, ss, 3] (levels 2)")
+    if b < 1 or c < 1 or not 0 <= k_eff <= width or cap < 0 or super_cap < 0:
+        raise ValueError(f"worklist_cull takes B >= 1, C >= 1, cap >= 0 and "
+                         f"0 <= k_eff <= width, not B = {b}, C = {c}, cap = "
+                         f"{cap}, k_eff = {k_eff}, width = {width}")
+    _check(tensors, who="worklist_cull")
+    if any(x.device != dev for _n, x, _d in tensors):
+        raise ValueError("worklist_cull takes every tensor on one card")
+    order = torch.empty((nb, width), dtype=torch.int32, device=dev)
+    n_cand = torch.empty((nb,), dtype=torch.int32, device=dev)
+    over = torch.empty((nb,), dtype=torch.bool, device=dev)
+    if nb == 0:
+        return order, n_cand, over
+    child = ((accel.cbmin.data_ptr(), accel.cbmax.data_ptr())
+             if levels == 2 else (None, None))
+    err = cuda_build.launch(
+        _worklist_lib().worklist_cull, dev, o_blk.data_ptr(),
+        d_blk.data_ptr(), tm_blk.data_ptr(), boxes[0][1].data_ptr(),
+        boxes[1][1].data_ptr(), *child, nb, b, c, n_boxes, ss, levels, cap,
+        min(super_cap, n_boxes), k_eff, width, order.data_ptr(),
+        n_cand.data_ptr(), over.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"worklist_cull launch failed: cudaError {err}")
+    with sync.lock:
+        worklist_launches += 1
+    return order, n_cand, over

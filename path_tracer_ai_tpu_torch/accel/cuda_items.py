@@ -18,6 +18,10 @@ want_tri)` returns, per item row of [i_cap, B]:
 A slot passes when its cluster slot k * g + j is below the block's n_cand
 and Möller–Trumbore (traverse._mt_sweep's op order) hits within
 [t_min, t_max]. Rows from n_items on hold (inf, INT32_MAX) or False.
+n_items is the real item count, as a 0-dim i32 tensor on the rays' device
+(the kernel reads it there: the worklist's route reads no host value for
+it, as the reference's fori_loop to the traced count) or a Python int;
+it is clamped to [0, i_cap].
 
 On a CUDA tensor the wrapper launches the kernel or raises: its tuned
 instances for S in {2, 128}, its generic instance (S at run time, the same
@@ -75,14 +79,18 @@ def _outputs(i_cap, b, want_tri, dev):
 
 
 def item_sweep_plain(tri_pack, rays, item_block, ibase, order_g, n_cand,
-                     n_items: int, want_tri: bool):
+                     n_items, want_tri: bool):
     """The kernel's function in eager torch, the reference's `_sweep_items`
-    body, PLAIN_ELEMS [items, B, g * S] elements a step."""
+    body, PLAIN_ELEMS [items, B, g * S] elements a step. n_items: an int
+    or a 0-dim tensor (read here: the CPU's, or a comparison's on the
+    card)."""
     nb, _, b = rays.shape
     n_groups, g = order_g.shape[1:]
     s = tri_pack.shape[2]
     dev = rays.device
-    out = _outputs(item_block.shape[0], b, want_tri, dev)
+    i_cap = item_block.shape[0]
+    n_items = min(max(int(n_items), 0), i_cap)
+    out = _outputs(i_cap, b, want_tri, dev)
     step = max(1, PLAIN_ELEMS // (b * g * s))
     for a in range(0, n_items, step):
         j = torch.arange(a, min(a + step, n_items), device=dev)
@@ -109,21 +117,11 @@ def item_sweep_plain(tri_pack, rays, item_block, ibase, order_g, n_cand,
     return out
 
 
-def _kernel():
-    lib = cuda_build.load(SOURCE)
-    fn = lib.item_sweep
+def _entry(name):
+    fn = getattr(cuda_build.load(SOURCE), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _kernel_generic():
-    fn = cuda_build.load(SOURCE).item_sweep_generic
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return fn
 
@@ -136,11 +134,13 @@ def kernel_occupancy(s: int, want_tri: bool) -> dict:
 
 
 def item_sweep(tri_pack, rays, item_block, ibase, order_g, n_cand,
-               n_items: int, want_tri: bool):
+               n_items, want_tri: bool):
     """(t [i_cap, B] f32, tri [i_cap, B] i32) or (occluded [i_cap, B] bool,)
     over items [0, n_items). CUDA tensors launch the kernel (or raise): its
-    tuned instance where one is compiled for S, else its generic one; CPU
-    tensors take the plain version."""
+    tuned instance where one is compiled for S, else its generic one; it
+    reads a tensor n_items on the card (an int one is checked here, and
+    copied there; 0 launches nothing). CPU tensors take the plain
+    version."""
     global launches, generic_launches
     dev = rays.device
     if dev.type == "cpu":
@@ -166,19 +166,26 @@ def item_sweep(tri_pack, rays, item_block, ibase, order_g, n_cand,
     if order_g.shape[0] != nb or ibase.shape[0] != nb or n_cand.shape[0] != nb:
         raise ValueError("order_g, ibase and n_cand must have one row a block")
     i_cap = item_block.shape[0]
-    if not 0 <= n_items <= i_cap:
-        raise ValueError(f"n_items {n_items} outside [0, {i_cap}]")
     out = _outputs(i_cap, b, want_tri, dev)
-    if n_items == 0:
+    if torch.is_tensor(n_items):
+        _check("n_items", n_items, torch.int32, 0, dev)
+    else:
+        if not 0 <= n_items <= i_cap:
+            raise ValueError(f"n_items {n_items} outside [0, {i_cap}]")
+        if n_items == 0:
+            return out
+        n_items = torch.tensor(n_items, dtype=torch.int32, device=dev)
+    if i_cap == 0:
         return out
     t_out = out[0]
     tri_out = out[1] if want_tri else out[0]
+    next_item = torch.empty((1,), dtype=torch.int32, device=dev)  # scratch
     err, ran_generic = cuda_build.launch_instance(
-        _kernel(), _kernel_generic(), dev,
+        _entry("item_sweep"), _entry("item_sweep_generic"), dev,
         (tri_pack.data_ptr(), rays.data_ptr(), item_block.data_ptr(),
          ibase.data_ptr(), order_g.data_ptr(), n_cand.data_ptr(),
-         t_out.data_ptr(), tri_out.data_ptr(), n_items, n_groups, b, s, c,
-         int(want_tri)))
+         t_out.data_ptr(), tri_out.data_ptr(), n_items.data_ptr(), i_cap,
+         n_groups, b, s, c, int(want_tri), next_item.data_ptr()))
     if err != 0:
         raise RuntimeError(f"item_sweep launch failed: cudaError {err}")
     with sync.lock:

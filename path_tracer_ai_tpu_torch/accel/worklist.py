@@ -2,16 +2,17 @@
 
 Pipeline: SORT (coherence keys, traverse._sort_keys) -> CULL (conservative
 interval slab per block of `block` rays: flat against every cluster AABB,
-or 2-level through the supercluster boxes past 2048 clusters) -> ENUMERATE
-(work items (block, group of `group` candidates) from cumsums, a
+or 2-level through the supercluster boxes past 2048 clusters; the
+worklist_cull kernel, accel.cuda_cull.worklist_cull, on the card) ->
+ENUMERATE (work items (block, group of `group` candidates) from cumsums, a
 scatter-max and a cummax) -> SWEEP (the item-sweep kernel,
-accel.cuda_items.item_sweep, or with intersector="mxu" the matrix-product
-form of accel.mxu, over the real items) -> RESOLVE (each block min-reduces
-its own item rows; the oracle's lexicographic (t, tri) rule). In the
-2-level cull the padding children of a partly filled last super pass the
-slab whatever the ray (their inverted boxes act as [-3e37, 3e37]), as in
-the reference: repeats of cluster C - 1 that change no result but count
-against `cap` (_cull_2level).
+accel.cuda_items.item_sweep, which reads the item count on the device, or
+with intersector="mxu" the matrix-product form of accel.mxu, over the real
+items) -> RESOLVE (each block min-reduces its own item rows; the oracle's
+lexicographic (t, tri) rule). In the 2-level cull the padding children of
+a partly filled last super pass the slab whatever the ray (their inverted
+boxes act as [-3e37, 3e37]), as in the reference: repeats of cluster C - 1
+that change no result but count against `cap` (cuda_cull._cull_2level).
 
 Blocks whose candidates exceed `cap`, or whose items spill past the static
 item budget, complete through `_overflow_fallback`: per-ray pair tiles
@@ -24,17 +25,22 @@ overflow sets are too.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import NamedTuple
 
 import torch
 from torch.profiler import record_function
 
-from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_items, mxu, pairs
+from path_tracer_ai_tpu_torch.accel import (
+    cuda_ctiles,
+    cuda_cull,
+    cuda_items,
+    mxu,
+    pairs,
+)
 from path_tracer_ai_tpu_torch.accel.clusters import ClusterAccel
 from path_tracer_ai_tpu_torch.accel.traverse import (
     PacketHit,
-    _interval_slab,
-    _ray_block_bounds,
     _sort_rays,
     pack_block_rays,
 )
@@ -42,10 +48,6 @@ from path_tracer_ai_tpu_torch.utils import sync
 
 I32_MAX = cuda_ctiles.I32_MAX
 INF = float("inf")
-# Elements of each [rows, width] temporary of the cull (width C for the flat
-# cull, Cs + super_cap * super_size for the 2-level one): block rows are
-# culled this many at a time. The tables do not depend on the step.
-CULL_ELEMS = 1 << 23
 
 # Overflow completions of this module since the last reset: calls with
 # overflow rays, the blocks and rays sent, the rays that went through
@@ -54,8 +56,9 @@ fallback_counts = {"calls": 0, "blocks": 0, "rays": 0, "pairs_rays": 0,
                    "whole_wave": 0}
 # When a caller sets this to a dict, each stage of a worklist query records
 # CUDA events under (wave, stage): wave "closest" or "shadow", stage "build"
-# (sort, cull and item table), "sweep" (the item sweep and resolve) or
-# "fallback"; stage_seconds() sums them. None: nothing is recorded.
+# (sort, cull and item table; each also on its own as "sort", "cull" and
+# "table"), "sweep" (the item sweep and resolve) or "fallback";
+# stage_seconds() sums them. None: nothing is recorded.
 stage_events = None
 
 
@@ -221,75 +224,17 @@ class WorkList(NamedTuple):
     n_items: torch.Tensor     # [] i32 real item count
 
 
-def _cull_flat(accel, oc, dc, tc, cap, k_eff):
-    """Blocks vs every cluster AABB: (order [rows, k_eff] ascending ids,
-    n_cand (0 on overflow), over)."""
-    c = accel.num_clusters
-    olo, ohi, dlo, dhi = _ray_block_bounds(oc, dc, live=tc >= 0.0)
-    lb, ub = _interval_slab(accel.bmin, accel.bmax, olo, ohi, dlo, dhi)
-    tmax_ub = tc.amax(dim=1)
-    # Inclusive bound (flat AABBs stay in) and the dead-block kill.
-    cand = ((lb <= ub) & (ub >= 0.0) & (lb <= tmax_ub[:, None])
-            & (tmax_ub >= 0.0)[:, None])
-    n_cand = cand.sum(dim=1).to(torch.int32)
-    over = n_cand > cap
-    order = _extract_k(cand & ~over[:, None], k_eff, c - 1)
-    return order, torch.where(over, 0, n_cand), over
-
-
-def _cull_2level(accel, oc, dc, tc, cap, k_eff, super_cap):
-    """Supercluster prefilter, then the child AABBs of the surviving supers.
-
-    The candidates are child ids sorder * ss + j. `_extract_k` on the super
-    slots gives ascending super ids, so along a row the valid child columns
-    hold ascending ids and the first k set columns are the k smallest ids,
-    the reference's top_k over -child. The padding children of a partly
-    filled last super carry inverted boxes; `_interval_slab` (as the
-    reference's) does not fail them, so they count as candidates (ids >= C,
-    clamped to C - 1, or left past k_eff where the zero padding of
-    order_g stands in): repeats of real candidates, which change no
-    result."""
-    c = accel.num_clusters
-    rows = oc.shape[0]
-    dev = oc.device
-    ss = accel.super_size
-    cs = accel.num_supers
-    scap = min(super_cap, cs)
-    olo, ohi, dlo, dhi = _ray_block_bounds(oc, dc, live=tc >= 0.0)
-    tmax_ub = tc.amax(dim=1)
-    live = (tmax_ub >= 0.0)[:, None]
-
-    lbs, ubs = _interval_slab(accel.sbmin, accel.sbmax, olo, ohi, dlo, dhi)
-    cand_s = (lbs <= ubs) & (ubs >= 0.0) & (lbs <= tmax_ub[:, None]) & live
-    ns = cand_s.sum(dim=1).to(torch.int32)
-    over_s = ns > scap  # supers past the cap are unseen -> fallback
-    sorder = _extract_k(cand_s & ~over_s[:, None], scap, cs - 1).long()
-    slot_ok = torch.arange(scap, device=dev)[None, :] < ns[:, None]
-
-    child = (sorder[:, :, None] * ss
-             + torch.arange(ss, device=dev)[None, None, :]).reshape(
-                 rows, scap * ss)
-    cbmin = accel.cbmin[sorder].reshape(rows, scap * ss, 3)
-    cbmax = accel.cbmax[sorder].reshape(rows, scap * ss, 3)
-    lb, ub = _interval_slab(cbmin, cbmax, olo, ohi, dlo, dhi)
-    cand = ((lb <= ub) & (ub >= 0.0) & (lb <= tmax_ub[:, None])
-            & slot_ok.repeat_interleave(ss, dim=1) & live)
-    n_cand = cand.sum(dim=1).to(torch.int32)
-    over = over_s | (n_cand > cap)
-    cols = _extract_k(cand & ~over[:, None], k_eff, scap * ss).long()
-    child = torch.nn.functional.pad(child, (0, 1), value=c - 1)
-    order = torch.clamp(torch.gather(child, 1, cols), max=c - 1)
-    return order.to(torch.int32), torch.where(over, 0, n_cand), over
-
-
 def _build_worklist(accel: ClusterAccel, o_blk, d_blk, tm_blk, t_min,
                     cap: int, group: int, item_budget: int, row_chunk: int,
                     item_align: int, levels: int = 0,
-                    super_cap: int = 32) -> WorkList:
+                    super_cap: int = 32, wave=None) -> WorkList:
     """CULL + ENUMERATE (worklist.py:169-281). levels 0 picks the 2-level
-    cull past 2048 clusters, else the flat one. Blocks are culled at most
-    `row_chunk` (and CULL_ELEMS / width) at a time; the tables do not
-    depend on either."""
+    cull past 2048 clusters, else the flat one. The cull is one launch of
+    the worklist_cull kernel on the card (accel.cuda_cull.worklist_cull,
+    which raises if it cannot run), its plain version on the CPU (blocks
+    culled at most `row_chunk` at a time; the tables do not depend on
+    it). `wave` ("closest" or "shadow"; None: untimed) names the stage
+    timers of the cull and the table (see stage_events)."""
     nb = o_blk.shape[0]
     c = accel.num_clusters
     dev = o_blk.device
@@ -298,52 +243,46 @@ def _build_worklist(accel: ClusterAccel, o_blk, d_blk, tm_blk, t_min,
     g = group
     i_cap = -(-(nb * item_budget) // item_align) * item_align
     k_eff = min(cap, c)
-    width = c
     if levels == 2:
         # The 2-level cull sees at most super_cap * super_size children.
-        scap = min(super_cap, accel.num_supers)
-        k_eff = min(k_eff, scap * accel.super_size)
-        width = accel.num_supers + scap * accel.super_size
+        k_eff = min(k_eff, min(super_cap, accel.num_supers)
+                    * accel.super_size)
     n_groups = -(-k_eff // g)
-    step = max(1, min(row_chunk, CULL_ELEMS // width))
 
-    orders, ncands, overs = [], [], []
-    for lo in range(0, nb, step):
-        args = (accel, o_blk[lo:lo + step], d_blk[lo:lo + step],
-                tm_blk[lo:lo + step], cap, k_eff)
-        order, n_cand, over = (_cull_2level(*args, super_cap) if levels == 2
-                               else _cull_flat(*args))
-        orders.append(order)
-        ncands.append(n_cand)
-        overs.append(over)
-    order = torch.cat(orders)
-    n_cand = torch.cat(ncands)
-    overflow = torch.cat(overs)
+    with _stage(wave, "cull", dev) if wave else nullcontext():
+        if dev.type == "cpu":
+            order, n_cand, overflow = cuda_cull.worklist_cull_plain(
+                accel, o_blk, d_blk, tm_blk, cap, k_eff, n_groups * g,
+                levels, super_cap, row_chunk)
+        else:
+            order, n_cand, overflow = cuda_cull.worklist_cull(
+                accel, o_blk.contiguous(), d_blk.contiguous(),
+                tm_blk.contiguous(), cap, k_eff, n_groups * g, levels,
+                super_cap)
 
-    m = torch.div(n_cand + (g - 1), g, rounding_mode="floor")  # items a block
-    ibase = torch.cumsum(m, 0) - m
-    # Blocks whose items spill past the static budget -> fallback.
-    over_budget = ibase + m > i_cap
-    overflow = overflow | over_budget
-    m = torch.where(over_budget, 0, m)
-    n_cand = torch.where(over_budget, 0, n_cand).to(torch.int32)
-    ibase = torch.cumsum(m, 0) - m
-    n_items = m.sum().to(torch.int32)
+    with _stage(wave, "table", dev) if wave else nullcontext():
+        m = torch.div(n_cand + (g - 1), g, rounding_mode="floor")  # items
+        ibase = torch.cumsum(m, 0) - m
+        # Blocks whose items spill past the static budget -> fallback.
+        over_budget = ibase + m > i_cap
+        overflow = overflow | over_budget
+        m = torch.where(over_budget, 0, m)
+        n_cand = torch.where(over_budget, 0, n_cand).to(torch.int32)
+        ibase = torch.cumsum(m, 0) - m
+        n_items = m.sum().to(torch.int32)
 
-    # item -> owning block: mark each non-empty block's first item with its
-    # id (scatter-max; empty blocks go to the sink slot i_cap), forward-fill.
-    mark_pos = torch.where(m > 0, ibase, i_cap).long()
-    item_block = torch.zeros((i_cap + 1,), dtype=torch.int64, device=dev)
-    item_block.scatter_reduce_(0, mark_pos, torch.arange(nb, device=dev),
-                               "amax")
-    item_block = torch.cummax(item_block[:i_cap], 0).values.to(torch.int32)
-
-    pad_k = n_groups * g - k_eff
-    if pad_k:
-        order = torch.nn.functional.pad(order, (0, pad_k))
-    order_g = order.reshape(nb, n_groups, g).contiguous()
-    return WorkList(item_block, ibase.to(torch.int32), order_g, n_cand,
-                    overflow, n_items)
+        # item -> owning block: mark each non-empty block's first item with
+        # its id (scatter-max; empty blocks go to the sink slot i_cap),
+        # forward-fill.
+        mark_pos = torch.where(m > 0, ibase, i_cap).long()
+        item_block = torch.zeros((i_cap + 1,), dtype=torch.int64, device=dev)
+        item_block.scatter_reduce_(0, mark_pos, torch.arange(nb, device=dev),
+                                   "amax")
+        item_block = torch.cummax(item_block[:i_cap],
+                                  0).values.to(torch.int32)
+    return WorkList(item_block, ibase.to(torch.int32),
+                    order.reshape(nb, n_groups, g), n_cand, overflow,
+                    n_items)
 
 
 INTERSECTORS = ("exact", "mxu", "mxu:highest", "mxu:high", "mxu:default")
@@ -368,15 +307,16 @@ def _sweep_items(accel, wl: WorkList, rays, want_tri: bool,
     if intersector not in INTERSECTORS:
         raise ValueError(f"intersector {intersector!r} is not one of "
                          f"{INTERSECTORS}")
-    n_items = sync.host_int(wl.n_items)
     if intersector != "exact":
         precision = intersector.partition(":")[2] or "highest"
-        return _sweep_items_mxu(accel, wl, rays, n_items, want_tri,
-                                precision)
+        return _sweep_items_mxu(accel, wl, rays, sync.host_int(wl.n_items),
+                                want_tri, precision)
     if tri_pack is None:
         tri_pack = cuda_ctiles.pack_tris(accel)
+    # the kernel reads the item count on the device (the reference's
+    # fori_loop to the traced count): no host read
     return cuda_items.item_sweep(tri_pack, rays, wl.item_block, wl.ibase,
-                                 wl.order_g, wl.n_cand, n_items, want_tri)
+                                 wl.order_g, wl.n_cand, wl.n_items, want_tri)
 
 
 def _sweep_items_mxu(accel, wl: WorkList, rays, n_items: int, want_tri: bool,
@@ -441,11 +381,12 @@ def _query(accel, origins, directions, t_min, t_max, want_tri, block, group,
     if tri_pack is None:
         tri_pack = cuda_ctiles.pack_tris(accel)
     with _stage(wave, "build", dev):
-        o_blk, d_blk, tm_blk, perm, npad = _prepare_blocks(
-            accel, origins, directions, t_max, block, sort, sort_mode)
+        with _stage(wave, "sort", dev):
+            o_blk, d_blk, tm_blk, perm, npad = _prepare_blocks(
+                accel, origins, directions, t_max, block, sort, sort_mode)
         wl = _build_worklist(accel, o_blk, d_blk, tm_blk, t_min, cap, group,
                              item_budget, row_chunk, item_align=item_chunk,
-                             levels=levels, super_cap=super_cap)
+                             levels=levels, super_cap=super_cap, wave=wave)
     nb = o_blk.shape[0]
     with _stage(wave, "sweep", dev):
         res = _sweep_items(accel, wl, pack_block_rays(o_blk, d_blk, tm_blk,

@@ -18,7 +18,9 @@
 //   rays     [nb, 8, B] f32 (traverse.pack_block_rays): ox oy oz dx dy dz
 //            t_max t_min.
 //   item_block [i_cap] i32; ibase, n_cand [nb] i32; order_g [nb, n_groups,
-//            G] i32.
+//            G] i32; n_items: one i32 in device memory, the real item
+//            count (the reference's traced fori_loop bound), clamped to
+//            [0, i_cap] here; next_item: one i32 of scratch.
 //   out_a    [i_cap, B] f32 t (closest) or u8 occluded (any hit);
 //   out_b    [i_cap, B] i32 tri (closest only). Only items < n_items are
 //            written; the wrapper fills the rest.
@@ -34,7 +36,15 @@
 // 4.34 ms), its staging copy cost 15%, its dead rays and slots were swept,
 // and a thread had one test in flight.
 //
-// Design: triangle-stationary. One warp an item. The item's live rays
+// Design: triangle-stationary. One warp an item: a persistent grid of
+// one-warp thread blocks (the card's resident ones) takes the items, one
+// at a time from a counter in device memory (next_item, zeroed by the
+// entry point), up to the count it reads there, so that the host reads
+// nothing. Items differ in cost: a fixed stride over the items (slot_sweep's
+// pattern, csrc/ctiles_sweep.cu) left the last warps of a wave behind and
+// took 3.97 / 3.97 ms where a thread block an item (sized on the host)
+// took 3.64 / 3.54 and the counter 3.73 / 3.52 (the worklist render's two
+// waves, NVIDIA H100 80GB HBM3, 700.00 W; scripts/torch_sweep_variants.py). The item's live rays
 // (t_max >= t_min) are compacted, in shared memory, into R = 2, 4, 6 or 8
 // places (the count rounded up to even; the padding rays pass nothing),
 // and its G * S (slot, triangle) pairs are walked flat in chunks of 32:
@@ -286,6 +296,12 @@ __device__ __forceinline__ int anyhit_walk(const float* __restrict__ pack,
   return n_chunks;
 }
 
+// The warp's next item, from the counter (lane 0 takes it).
+__device__ __forceinline__ int grab_item(int* next_item, int lane) {
+  const int v = lane == 0 ? atomicAdd(next_item, 1) : 0;
+  return __shfl_sync(FULL_MASK, v, 0);
+}
+
 // S_T: S as a template constant, or 0 for S = s at run time.
 template <int S_T, bool CLOSEST>
 __global__ void __launch_bounds__(32)
@@ -295,108 +311,131 @@ __global__ void __launch_bounds__(32)
                       const int* __restrict__ ibase,
                       const int* __restrict__ order_g,
                       const int* __restrict__ n_cand, void* __restrict__ out_a,
-                      int* __restrict__ out_b, int n_items, int n_groups,
-                      int n_clusters, int s_run) {
+                      int* __restrict__ out_b,
+                      const int* __restrict__ n_items_dev, int i_cap,
+                      int n_groups, int n_clusters, int s_run,
+                      int* __restrict__ next_item) {
   __shared__ ItemRay rs[ITEM_B];
   const int s = S_T > 0 ? S_T : s_run;
   const int lane = threadIdx.x;
-  const int item = blockIdx.x;
-  if (item >= n_items) return;
-
-  const int blk = item_block[item];
-  int k = item - ibase[blk];
-  k = k < 0 ? 0 : (k > n_groups - 1 ? n_groups - 1 : k);
-  int cid = 0;
-  bool slot_live = false;
-  if (lane < ITEM_G) {
-    cid = order_g[((size_t)blk * n_groups + k) * ITEM_G + lane];
-    slot_live = k * ITEM_G + lane < n_cand[blk] && cid >= 0 &&
-                cid < n_clusters;
-  }
-  const unsigned slots = __ballot_sync(FULL_MASK, slot_live);
-
-  float4 ra, rb;
-  dead_ray(&ra, &rb);
-  if (lane < ITEM_B) {
-    const float* rp = rays + (size_t)blk * RAY_ROWS * ITEM_B + lane;
-    ra = make_float4(rp[0 * ITEM_B], rp[1 * ITEM_B], rp[2 * ITEM_B],
-                     rp[3 * ITEM_B]);
-    rb = make_float4(rp[4 * ITEM_B], rp[5 * ITEM_B], rp[7 * ITEM_B],
-                     rp[6 * ITEM_B]);
-  }
-  unsigned open = __ballot_sync(FULL_MASK, lane < ITEM_B && rb.w >= rb.z);
-  if (slots == 0u) open = 0u;
-
-  const size_t row = (size_t)item * ITEM_B;
-  if constexpr (CLOSEST) {
-    float* out_t = reinterpret_cast<float*>(out_a) + row;
-    int* out_tri = out_b + row;
-    const int pos = compact_rays(rs, ra, rb, open, lane);
-    switch ((__popc(open) + 1) >> 1) {
-      case 1:
-        closest_walk<2, S_T>(tri_pack, s, slots, cid, rs, lane, pos, out_t,
-                             out_tri);
-        break;
-      case 2:
-        closest_walk<4, S_T>(tri_pack, s, slots, cid, rs, lane, pos, out_t,
-                             out_tri);
-        break;
-      case 3:
-        closest_walk<6, S_T>(tri_pack, s, slots, cid, rs, lane, pos, out_t,
-                             out_tri);
-        break;
-      case 4:
-        closest_walk<8, S_T>(tri_pack, s, slots, cid, rs, lane, pos, out_t,
-                             out_tri);
-        break;
-      default:  // no open ray: every row a miss
-        if (lane < ITEM_B) {
-          out_t[lane] = INFINITY;
-          out_tri[lane] = I32_MAX;
-        }
+  const int n_live = *n_items_dev;
+  const int n_items = n_live < 0 ? 0 : (n_live < i_cap ? n_live : i_cap);
+  // compact_rays' first __syncwarp keeps an item's writes of rs after the
+  // last item's reads
+  for (int item = grab_item(next_item, lane); item < n_items;
+       item = grab_item(next_item, lane)) {
+    const int blk = item_block[item];
+    int k = item - ibase[blk];
+    k = k < 0 ? 0 : (k > n_groups - 1 ? n_groups - 1 : k);
+    int cid = 0;
+    bool slot_live = false;
+    if (lane < ITEM_G) {
+      cid = order_g[((size_t)blk * n_groups + k) * ITEM_G + lane];
+      slot_live = k * ITEM_G + lane < n_cand[blk] && cid >= 0 &&
+                  cid < n_clusters;
     }
-  } else {
-    const int n_chunks = (ITEM_G * s + 31) / 32;
-    unsigned occ = 0u;
-    int c = 0;
-    while (open != 0u && c < n_chunks) {
+    const unsigned slots = __ballot_sync(FULL_MASK, slot_live);
+
+    float4 ra, rb;
+    dead_ray(&ra, &rb);
+    if (lane < ITEM_B) {
+      const float* rp = rays + (size_t)blk * RAY_ROWS * ITEM_B + lane;
+      ra = make_float4(rp[0 * ITEM_B], rp[1 * ITEM_B], rp[2 * ITEM_B],
+                       rp[3 * ITEM_B]);
+      rb = make_float4(rp[4 * ITEM_B], rp[5 * ITEM_B], rp[7 * ITEM_B],
+                       rp[6 * ITEM_B]);
+    }
+    unsigned open = __ballot_sync(FULL_MASK, lane < ITEM_B && rb.w >= rb.z);
+    if (slots == 0u) open = 0u;
+
+    const size_t row = (size_t)item * ITEM_B;
+    if constexpr (CLOSEST) {
+      float* out_t = reinterpret_cast<float*>(out_a) + row;
+      int* out_tri = out_b + row;
       const int pos = compact_rays(rs, ra, rb, open, lane);
-      unsigned hit = 0u;
       switch ((__popc(open) + 1) >> 1) {
         case 1:
-          c = anyhit_walk<2, S_T>(tri_pack, s, slots, cid, rs, lane, c, &hit);
+          closest_walk<2, S_T>(tri_pack, s, slots, cid, rs, lane, pos, out_t,
+                               out_tri);
           break;
         case 2:
-          c = anyhit_walk<4, S_T>(tri_pack, s, slots, cid, rs, lane, c, &hit);
+          closest_walk<4, S_T>(tri_pack, s, slots, cid, rs, lane, pos, out_t,
+                               out_tri);
           break;
         case 3:
-          c = anyhit_walk<6, S_T>(tri_pack, s, slots, cid, rs, lane, c, &hit);
+          closest_walk<6, S_T>(tri_pack, s, slots, cid, rs, lane, pos, out_t,
+                               out_tri);
           break;
-        default:
-          c = anyhit_walk<8, S_T>(tri_pack, s, slots, cid, rs, lane, c, &hit);
+        case 4:
+          closest_walk<8, S_T>(tri_pack, s, slots, cid, rs, lane, pos, out_t,
+                               out_tri);
+          break;
+        default:  // no open ray: every row a miss
+          if (lane < ITEM_B) {
+            out_t[lane] = INFINITY;
+            out_tri[lane] = I32_MAX;
+          }
       }
-      const unsigned newly =
-          __ballot_sync(FULL_MASK, pos >= 0 && ((hit >> pos) & 1u));
-      occ |= newly;
-      open &= ~newly;
-      if (hit == 0u) break;  // walked to the end
-    }
-    if (lane < ITEM_B) {
-      reinterpret_cast<unsigned char*>(out_a)[row + lane] = (occ >> lane) & 1u;
+    } else {
+      const int n_chunks = (ITEM_G * s + 31) / 32;
+      unsigned occ = 0u;
+      int c = 0;
+      while (open != 0u && c < n_chunks) {
+        const int pos = compact_rays(rs, ra, rb, open, lane);
+        unsigned hit = 0u;
+        switch ((__popc(open) + 1) >> 1) {
+          case 1:
+            c = anyhit_walk<2, S_T>(tri_pack, s, slots, cid, rs, lane, c, &hit);
+            break;
+          case 2:
+            c = anyhit_walk<4, S_T>(tri_pack, s, slots, cid, rs, lane, c, &hit);
+            break;
+          case 3:
+            c = anyhit_walk<6, S_T>(tri_pack, s, slots, cid, rs, lane, c, &hit);
+            break;
+          default:
+            c = anyhit_walk<8, S_T>(tri_pack, s, slots, cid, rs, lane, c, &hit);
+        }
+        const unsigned newly =
+            __ballot_sync(FULL_MASK, pos >= 0 && ((hit >> pos) & 1u));
+        occ |= newly;
+        open &= ~newly;
+        if (hit == 0u) break;  // walked to the end
+      }
+      if (lane < ITEM_B) {
+        reinterpret_cast<unsigned char*>(out_a)[row + lane] = (occ >> lane) & 1u;
+      }
     }
   }
+}
+
+// The card's resident one-warp blocks of the instance (at least one),
+// capped at i_cap: a persistent grid that takes the items from a counter.
+template <int S_T, bool CLOSEST>
+static int item_blocks(int i_cap) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, item_sweep_kernel<S_T, CLOSEST>, 32, 0);
+  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  return (int)(i_cap < resident ? i_cap : resident);
 }
 
 template <int S_T, bool CLOSEST>
 static int launch(const void* tri_pack, const void* rays,
                   const void* item_block, const void* ibase,
                   const void* order_g, const void* n_cand, void* out_a,
-                  void* out_b, int n_items, int n_groups, int n_clusters,
-                  int s, cudaStream_t stream) {
-  item_sweep_kernel<S_T, CLOSEST><<<n_items, 32, 0, stream>>>(
-      (const float*)tri_pack, (const float*)rays, (const int*)item_block,
-      (const int*)ibase, (const int*)order_g, (const int*)n_cand, out_a,
-      (int*)out_b, n_items, n_groups, n_clusters, s);
+                  void* out_b, const void* n_items, int i_cap, int n_groups,
+                  int n_clusters, int s, cudaStream_t stream, void* next) {
+  const cudaError_t err = cudaMemsetAsync(next, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  item_sweep_kernel<S_T, CLOSEST>
+      <<<item_blocks<S_T, CLOSEST>(i_cap), 32, 0, stream>>>(
+          (const float*)tri_pack, (const float*)rays, (const int*)item_block,
+          (const int*)ibase, (const int*)order_g, (const int*)n_cand, out_a,
+          (int*)out_b, (const int*)n_items, i_cap, n_groups, n_clusters, s,
+          (int*)next);
   return (int)cudaGetLastError();
 }
 
@@ -417,26 +456,30 @@ static int occupancy(int* regs, int* warps_per_sm) {
 #define NO_INSTANCE (-1)  // no cudaError_t is negative
 #define FOR_ITEM_INSTANCES(CALL) CALL(2) CALL(128)
 
-// Launches on `stream` over items [0, n_items): one thread block (one warp)
-// an item. Returns the cudaError_t of the launch (0 = ok), or NO_INSTANCE
-// for a shape that is not compiled (S in {2, 128}, B = 8, G = 4).
+// Launches on `stream` over items [0, min(*n_items, i_cap)), the count
+// read on the device: a persistent grid of one-warp thread blocks that
+// take the items from next_item (one i32 of scratch, zeroed here first).
+// Returns the cudaError_t of the launch (0 = ok), or NO_INSTANCE for a
+// shape that is not compiled (S in {2, 128}, B = 8, G = 4).
 extern "C" int item_sweep(const void* tri_pack, const void* rays,
                           const void* item_block, const void* ibase,
                           const void* order_g, const void* n_cand, void* out_a,
-                          void* out_b, int n_items, int n_groups, int b, int s,
-                          int n_clusters, int closest, void* stream) {
-  if (n_items <= 0) return 0;
+                          void* out_b, const void* n_items, int i_cap,
+                          int n_groups, int b, int s, int n_clusters,
+                          int closest, void* next_item, void* stream) {
+  if (i_cap <= 0) return 0;
   if (b != ITEM_B || n_groups < 1) return NO_INSTANCE;
 #define LAUNCH(S_)                                                          \
   if (s == S_)                                                              \
     return closest ? launch<S_, true>(tri_pack, rays, item_block, ibase,    \
                                       order_g, n_cand, out_a, out_b,        \
-                                      n_items, n_groups, n_clusters, s,     \
-                                      (cudaStream_t)stream)                 \
+                                      n_items, i_cap, n_groups, n_clusters, \
+                                      s, (cudaStream_t)stream, next_item)   \
                    : launch<S_, false>(tri_pack, rays, item_block, ibase,   \
                                        order_g, n_cand, out_a, out_b,       \
-                                       n_items, n_groups, n_clusters, s,    \
-                                       (cudaStream_t)stream);
+                                       n_items, i_cap, n_groups,            \
+                                       n_clusters, s, (cudaStream_t)stream, \
+                                       next_item);
   FOR_ITEM_INSTANCES(LAUNCH)
 #undef LAUNCH
   return NO_INSTANCE;
@@ -461,17 +504,19 @@ extern "C" int item_sweep_occupancy(int s, int closest, int* regs,
 extern "C" int item_sweep_generic(const void* tri_pack, const void* rays,
                                   const void* item_block, const void* ibase,
                                   const void* order_g, const void* n_cand,
-                                  void* out_a, void* out_b, int n_items,
+                                  void* out_a, void* out_b,
+                                  const void* n_items, int i_cap,
                                   int n_groups, int b, int s, int n_clusters,
-                                  int closest, void* stream) {
-  if (n_items <= 0) return 0;
+                                  int closest, void* next_item, void* stream) {
+  if (i_cap <= 0) return 0;
   if (b != ITEM_B || n_groups < 1) return NO_INSTANCE;
   if (s < 1) return (int)cudaErrorInvalidValue;
   return closest ? launch<0, true>(tri_pack, rays, item_block, ibase, order_g,
-                                   n_cand, out_a, out_b, n_items, n_groups,
-                                   n_clusters, s, (cudaStream_t)stream)
+                                   n_cand, out_a, out_b, n_items, i_cap,
+                                   n_groups, n_clusters, s,
+                                   (cudaStream_t)stream, next_item)
                  : launch<0, false>(tri_pack, rays, item_block, ibase,
                                     order_g, n_cand, out_a, out_b, n_items,
-                                    n_groups, n_clusters, s,
-                                    (cudaStream_t)stream);
+                                    i_cap, n_groups, n_clusters, s,
+                                    (cudaStream_t)stream, next_item);
 }

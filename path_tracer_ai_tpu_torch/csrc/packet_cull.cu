@@ -19,27 +19,14 @@
 //   (null: not written).
 //
 // Per ray block, exactly what JAX computes:
-//   1. the bounds of its live lanes (t_max >= 0): olo, ohi, dlo, dhi per
-//      axis; an all-dead block gives (+inf, -inf), as a reduction over
-//      nothing; tmax_ub = max t_max over all its lanes.
-//   2. per cluster, _interval_slab op for op: per axis nlo = bmin - ohi,
-//      nhi = bmax - olo, the four quotients by the guarded bounds
-//      (|d| > 0 ? d : 1) in IEEE division (__fdiv_rn; the port builds with
-//      --fmad=false and no fast math), their min and max, (-inf, +inf)
-//      where the direction interval spans 0; lb = max over the axes,
-//      ub = min. cand = lb <= ub & ub >= 0 & lb <= tmax_ub,
-//      entry = cand ? max(lb, 0) : +inf.
+//   1. the bounds of its live lanes and tmax_ub (csrc/interval.cuh,
+//      shared with the worklist's cull, worklist_cull.cu);
+//   2. per cluster, _interval_slab op for op (interval.cuh's
+//      slab_candidate: the IEEE quotients, the NaN flags, the axes that
+//      span 0 skipped), cand = lb <= ub & ub >= 0 & lb <= tmax_ub,
+//      entry = cand ? max(lb, 0) : +inf;
 //   3. the stable ascending sort of the entries.
-// NaN: torch.minimum / maximum (and jnp's) carry a NaN, fminf / fmaxf drop
-// it. An all-dead block gives inf / inf = NaN in the quotients, and a NaN
-// lb or ub must leave cand false. So the bounds' reductions carry a NaN
-// flag beside each value (put back as a NaN where set), and the interval
-// test flags a NaN quotient, which makes cand false as the plain version's
-// NaN lb or ub does; the min and max of values that are not NaN are
-// fminf / fmaxf. An axis whose direction interval spans 0 is skipped: its
-// (-inf, +inf) leaves lb and ub as they are, which is what the select and
-// the max / min give. Signed zeros reach only lb and ub's zeros, which
-// compare equal, and the entry, which is written as +0.0 (max(lb, 0) may
+// Signed zeros reach the entry, which is written as +0.0 (max(lb, 0) may
 // be either zero; both are one key).
 //
 // Design: one thread block (128 threads) a ray block. The lanes are
@@ -71,27 +58,16 @@
 // byte once; what it spends beyond the bound is the divisions' and the
 // barriers' latency.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "interval.cuh"
 
 #define CULL_THREADS 128
 #define CULL_WARPS (CULL_THREADS / 32)
-#define FULL_MASK 0xffffffffu
 #define INF_BITS 0x7f800000u
 // thread blocks of the grid when the sort runs in device memory
 #define SCRATCH_BLOCKS 1024
 // dynamic shared memory a thread block may take (227 KB less the static
 // arrays' room)
 #define SMEM_LIMIT (227 * 1024 - 1024)
-
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
-}
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
-}
 
 static __host__ __device__ int pow2_at_least(int n) {
   int p = 1;
@@ -116,8 +92,8 @@ __global__ void __launch_bounds__(CULL_THREADS)
                        float* __restrict__ entry_sorted,
                        unsigned char* __restrict__ scratch) {
   extern __shared__ __align__(16) unsigned char cull_smem[];
-  __shared__ float red[CULL_WARPS][13];
-  __shared__ float bnd[13];
+  __shared__ float red[CULL_WARPS][BOUNDS_N];
+  __shared__ float bnd[BOUNDS_N];
   __shared__ int counts[2];  // candidates, finite entries
   __shared__ int warp_fin[CULL_WARPS], warp_inf[CULL_WARPS];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -128,98 +104,38 @@ __global__ void __launch_bounds__(CULL_THREADS)
   unsigned* ebits = reinterpret_cast<unsigned*>(buf + 8 * (size_t)cap2);
 
   for (int blk = blockIdx.x; blk < nb; blk += gridDim.x) {
-    // 1. bounds: v[0..2] olo, v[3..5] dlo (min); v[6..8] ohi, v[9..11]
-    // dhi (max) over the live lanes; v[12] the max t_max over all lanes
-    // (a NaN is carried as bit i of `nan_bits`, the values reduced without
-    // it, and put back before the values leave the warp)
-    float v[13];
-    unsigned nan_bits = 0;
-#pragma unroll
-    for (int i = 0; i < 6; ++i) v[i] = INFINITY;
-#pragma unroll
-    for (int i = 6; i < 13; ++i) v[i] = -INFINITY;
+    // 1. bounds (interval.cuh): each warp's lanes, then across the warps
+    float v[BOUNDS_N];
+    unsigned nan_bits;
+    bounds_init(v, &nan_bits);
     for (int l = tid; l < r; l += CULL_THREADS) {
       const size_t i = (size_t)blk * r + l;
-      const float tm = tm_blk[i];
-      const bool live = tm >= 0.0f;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const float o = live ? o_blk[3 * i + a] : INFINITY;
-        const float d = live ? d_blk[3 * i + a] : INFINITY;
-        nan_bits |= (o != o ? 0x41u : 0u) << a | (d != d ? 0x41u : 0u)
-                                                     << (3 + a);
-        v[a] = fminf(v[a], o);
-        v[3 + a] = fminf(v[3 + a], d);
-        v[6 + a] = fmaxf(v[6 + a], live ? o : -INFINITY);
-        v[9 + a] = fmaxf(v[9 + a], live ? d : -INFINITY);
-      }
-      nan_bits |= (tm != tm ? 1u : 0u) << 12;
-      v[12] = fmaxf(v[12], tm);
+      bounds_add_lane(v, &nan_bits, o_blk + 3 * i, d_blk + 3 * i, tm_blk[i]);
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-      for (int i = 0; i < 6; ++i)
-        v[i] = fminf(v[i], __shfl_xor_sync(FULL_MASK, v[i], off));
-#pragma unroll
-      for (int i = 6; i < 13; ++i)
-        v[i] = fmaxf(v[i], __shfl_xor_sync(FULL_MASK, v[i], off));
-    }
-    nan_bits = __reduce_or_sync(FULL_MASK, nan_bits);
+    bounds_warp_reduce(v, &nan_bits);
+    bounds_put_nan(v, nan_bits);
     if (lane == 0) {
 #pragma unroll
-      for (int i = 0; i < 13; ++i)
-        red[warp][i] = nan_bits >> i & 1u ? __int_as_float(0x7fc00000) : v[i];
+      for (int i = 0; i < BOUNDS_N; ++i) red[warp][i] = v[i];
     }
     if (tid < 2) counts[tid] = 0;
     __syncthreads();
-    if (tid < 13) {
+    if (tid < BOUNDS_N) {
       float x = red[0][tid];
       for (int w = 1; w < CULL_WARPS; ++w)
-        x = tid < 6 ? nan_min(x, red[w][tid]) : nan_max(x, red[w][tid]);
+        x = tid < BOUNDS_MINS ? nan_min(x, red[w][tid])
+                              : nan_max(x, red[w][tid]);
       bnd[tid] = x;
     }
     __syncthreads();
+    const SlabBlock sb = slab_block(bnd);
 
-    float olo[3], ohi[3], slo[3], shi[3];
-    bool spans[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      olo[a] = bnd[a];
-      ohi[a] = bnd[6 + a];
-      const float dlo = bnd[3 + a], dhi = bnd[9 + a];
-      spans[a] = dlo <= 0.0f && dhi >= 0.0f;
-      slo[a] = fabsf(dlo) > 0.0f ? dlo : 1.0f;
-      shi[a] = fabsf(dhi) > 0.0f ? dhi : 1.0f;
-    }
-    const float tmax_ub = bnd[12];
-
-    // 2. every cluster's entry, its bits kept; candidates and finite
-    // entries counted. A NaN quotient makes the plain version's lb or ub
-    // NaN and its cand false: here it is flagged, and the min / max over
-    // the other (non-NaN) values are fminf / fmaxf.
+    // 2. every cluster's entry (interval.cuh's test), its bits kept;
+    // candidates and finite entries counted
     int n_c = 0, n_f = 0;
     for (int k = tid; k < c; k += CULL_THREADS) {
-      float lb = -INFINITY, ub = INFINITY;
-      bool nan = false;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        if (spans[a]) continue;
-        const float nlo = __ldg(bmin + 3 * k + a) - ohi[a];
-        const float nhi = __ldg(bmax + 3 * k + a) - olo[a];
-        const float q1 = __fdiv_rn(nlo, slo[a]);
-        const float q2 = __fdiv_rn(nlo, shi[a]);
-        const float q3 = __fdiv_rn(nhi, slo[a]);
-        const float q4 = __fdiv_rn(nhi, shi[a]);
-        nan |= q1 != q1 || q2 != q2 || q3 != q3 || q4 != q4;
-        lb = fmaxf(lb, fminf(fminf(q1, q2), fminf(q3, q4)));
-        ub = fminf(ub, fmaxf(fmaxf(q1, q2), fmaxf(q3, q4)));
-        // lb only grows and ub only shrinks over the axes: a pair that
-        // fails here fails at the end
-        if (nan || !(lb <= ub && ub >= 0.0f && lb <= tmax_ub)) break;
-      }
-      const bool cand =
-          !nan && lb <= ub && ub >= 0.0f && lb <= tmax_ub;
+      float lb;
+      const bool cand = slab_candidate(sb, bmin + 3 * k, bmax + 3 * k, &lb);
       const float entry = cand ? (lb > 0.0f ? lb : 0.0f) : INFINITY;
       const unsigned bits = __float_as_uint(entry);
       ebits[k] = bits;

@@ -25,7 +25,10 @@ loop (bit for bit carry, k and act) and timed in turns, every one and then
 every one again in reverse order, the copy of the carry timed alone and
 taken off.
 
-Waves, for each cluster size S of --sizes and each kernel of --sources:
+A checkout's item_sweep takes the item count as an int or, since the
+count is read on the card, as a pointer to it (item_abi); each is called
+its own way. Waves, for each cluster size S of --sizes and each kernel of
+--sources:
 - kslot_sweep: chip_smoke.py's kernel-phase check waves (2^20 bounce-like
   rays on the blob scene of subdivision 6 in clusters of S, culled by
   kslots; closest K 12, shadow K 8);
@@ -100,43 +103,62 @@ def build(checkouts: dict, sources, out_dir: str) -> dict:
     return out
 
 
-def entry(lib, source: str, generic: bool):
+def item_abi(csrc: str) -> str:
+    """item_sweep's entry point's arguments in a checkout: "device_count"
+    (the item count read on the card: a pointer to it and i_cap, and a
+    work counter after the ints) or "host_count" (the count as an int,
+    before it)."""
+    with open(os.path.join(csrc, "item_sweep.cu")) as fh:
+        return ("device_count" if "const void* n_items, int i_cap"
+                in fh.read() else "host_count")
+
+
+def entry(lib, source: str, generic: bool, abi: str = "host_count"):
     fn = getattr(lib, source + ("_generic" if generic else ""))
     n_ptr, n_int = (8, 6) if source == "item_sweep" else (6, 5)
+    n_ptr += abi == "device_count"
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] * (1 + (abi == "device_count")))
     fn.restype = ctypes.c_int
     return fn
 
 
-def runner(lib, source: str, generic: bool, args):
+def runner(lib, source: str, generic: bool, args, abi="host_count"):
     """A call of the library's entry point on a kernel wrapper's arguments,
     into fresh outputs, as the wrapper makes them; None where the entry
-    point has no instance for the shape."""
+    point has no instance for the shape. abi: item_abi's."""
     import torch
 
     from path_tracer_ai_tpu_torch import cuda_build
     from path_tracer_ai_tpu_torch.accel import cuda_items, cuda_kslots
 
-    fn = entry(lib, source, generic)
+    fn = entry(lib, source, generic, abi)
     want_tri = args[-1]
     dev = args[0].device
+    extra, held = [], []
     if source == "item_sweep":
         pack, rays, item_block, ibase, order_g, n_cand, n_items, _ = args
+        n_items = int(n_items)
         out = cuda_items._outputs(item_block.shape[0], 8, want_tri, dev)
         ptrs = [a.data_ptr() for a in (pack, rays, item_block, ibase,
                                        order_g, n_cand)]
         ints = [n_items, order_g.shape[1], 8, pack.shape[2], pack.shape[0],
                 int(want_tri)]
+        if abi == "device_count":
+            count = torch.tensor(n_items, dtype=torch.int32, device=dev)
+            queue = torch.empty(1, dtype=torch.int32, device=dev)
+            extra, held = [count.data_ptr()], [count, queue]
+            ints[0] = item_block.shape[0]  # i_cap
+            ints.append(queue.data_ptr())  # the work counter, after the ints
     else:
         pack, rays, cid, n_slots, _ = args
         out = cuda_kslots._outputs(rays.shape[0], want_tri, dev)
         ptrs = [a.data_ptr() for a in (pack, rays, cid, n_slots)]
         ints = [rays.shape[0], cid.shape[1], pack.shape[2], pack.shape[0],
                 int(want_tri)]
-    ptrs += [out[0].data_ptr(), out[-1].data_ptr()]
+    ptrs += [out[0].data_ptr(), out[-1].data_ptr(), *extra]
 
-    def call():
+    def call(_held=held):  # keeps the count's memory while the call lives
         err = cuda_build.launch(fn, dev, *ptrs, *ints)
         if err != 0:
             raise RuntimeError(f"{source} launch: cudaError {err}")
@@ -156,9 +178,11 @@ def same(a, b) -> bool:
                for x, y in zip(a, b))
 
 
-def compare(source, s, wave, args, libs, reps, card, info) -> dict:
+def compare(source, s, wave, args, libs, reps, card, info,
+            abis=None) -> dict:
     """Every library of `source`, tuned and generic entry, on one wave: its
-    agreement with the plain version and its ms, timed in turns."""
+    agreement with the plain version and its ms, timed in turns. abis:
+    name -> item_abi of its checkout (item_sweep)."""
     import chip_smoke
     from path_tracer_ai_tpu_torch.accel import cuda_items, cuda_kslots
 
@@ -167,7 +191,8 @@ def compare(source, s, wave, args, libs, reps, card, info) -> dict:
     calls = {}
     for name, lib in libs.items():
         for generic in (False, True):
-            call = runner(lib, source, generic, args)
+            call = runner(lib, source, generic, args,
+                          (abis or {}).get(name, "host_count"))
             if call is not None:
                 calls[f"{name}{' generic' if generic else ''}"] = (
                     call, same(call(), plain))
@@ -404,8 +429,10 @@ def main() -> int:
         for wave, wargs, info in named_args:
             reps = args.reps if source == "kslot_sweep" else max(
                 args.reps // 2, 3)
-            report["waves"].append(compare(source, s, wave, wargs, libs,
-                                           reps, card, info))
+            report["waves"].append(compare(
+                source, s, wave, wargs, libs, reps, card, info,
+                {n: item_abi(checkouts[n]) for n in libs}
+                if source == "item_sweep" else None))
             with open(args.out, "w") as fh:
                 json.dump(report, fh, indent=1)
 
@@ -431,7 +458,7 @@ def main() -> int:
         item_args = item_waves(scene_w, accel_w, settings)
         waves("item_sweep", s, [
             (f"{w}, wave 0, bounce 1", a,
-             {"items": a[6], "clusters": accel_w.num_clusters})
+             {"items": int(a[6]), "clusters": accel_w.num_clusters})
             for w, a in zip(("closest", "shadow"), item_args)])
     return 0
 

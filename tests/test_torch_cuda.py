@@ -2358,3 +2358,209 @@ def test_packet_cull_occupancy(cuda):
     occ = cuda_cull.occupancy(641)
     assert occ["registers"] > 0 and occ["warps_per_sm"] >= 8
     assert cuda_cull.occupancy(16385)["warps_per_sm"] >= 8
+
+
+# --- the worklist's cull: worklist_cull; item_sweep's device count ----------
+
+WL_BOX_KEYS = ("bmin", "bmax", "sbmin", "sbmax", "cbmin", "cbmax")
+
+
+def _wl_case_args(case, dev):
+    """(accel, o_blk, d_blk, tm_blk) of a crafted worklist-cull case."""
+    from types import SimpleNamespace
+
+    t = lambda a: torch.as_tensor(a, device=dev)
+    acc = SimpleNamespace(**{k: t(case[k]) for k in WL_BOX_KEYS},
+                          num_clusters=case["bmin"].shape[0],
+                          num_supers=case["sbmin"].shape[0],
+                          super_size=case["ss"])
+    return acc, t(case["o"]), t(case["d"]), t(case["tm"])
+
+
+def _wl_sizes(acc, cap, levels, super_cap, g=4):
+    """(k_eff, width) of the worklist's table for these caps."""
+    k = min(cap, acc.num_clusters)
+    if levels == 2:
+        k = min(k, min(super_cap, acc.num_supers) * acc.super_size)
+    return k, -(-k // g) * g
+
+
+def _same_wl_cull(got, want) -> bool:
+    return all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, want))
+
+
+WL_CULL_CARD = [(name, levels, cap_add, scap_add)
+                for name in cases.WL_CULL_CASES
+                for levels in cases.wl_cull_case(name)["levels"]
+                for cap_add, scap_add in ((0, 0), (1, 0), (0, 1), (-3, 0))]
+
+
+@pytest.mark.parametrize("name,levels,cap_add,scap_add", WL_CULL_CARD)
+def test_worklist_cull_matches_plain(cuda, name, levels, cap_add, scap_add):
+    """worklist_cull on the crafted worklist-cull cases, at the case's caps
+    and one past each (and a cap that most blocks overflow), against its
+    plain version on the same inputs run on the CPU (where the tests hold
+    it against the JAX package): bit for bit, pad columns included."""
+    case = cases.wl_cull_case(name)
+    cap = max(case["cap"] + cap_add, 1)
+    super_cap = case["super_cap"] + scap_add
+    acc, *blk = _wl_case_args(case, cuda)
+    k_eff, width = _wl_sizes(acc, cap, levels, super_cap)
+    before = cuda_cull.worklist_launches
+    got = cuda_cull.worklist_cull(acc, *blk, cap, k_eff, width, levels,
+                                  super_cap)
+    assert cuda_cull.worklist_launches == before + 1
+    acc_c, *blk_c = _wl_case_args(case, "cpu")
+    want = cuda_cull.worklist_cull_plain(acc_c, *blk_c, cap, k_eff, width,
+                                         levels, super_cap)
+    torch.cuda.synchronize()
+    assert _same_wl_cull(got, want)
+
+
+@pytest.mark.parametrize("levels", [1, 2])
+@pytest.mark.parametrize("s,b", [(2, 8), (2, 64), (128, 8), (16, 1)])
+def test_worklist_cull_on_a_worklist_wave(cuda, rng, s, b, levels):
+    """A bounce wave sorted into blocks as the worklist sorts them, on the
+    blob accel in clusters of s (S = 2: 2,564 clusters, past 2048, so
+    levels 1 is the flat cull past 2048 too), at a cap most blocks
+    overflow, the route's and one none does: the kernel against the plain
+    version run on the card, bit for bit, with candidates and overflow."""
+    from path_tracer_ai_tpu_torch.accel import worklist
+
+    acc = _accel(cuda, s=s)
+    o, d, tm = _bounce_wave(acc, 1 << 13, rng)
+    blk = [x.contiguous() for x in
+           worklist._prepare_blocks(acc, o, d, tm, b, True)[:3]]
+    seen_cand = seen_over = False
+    for cap, super_cap in ((4, 4), (64, 32), (4096, acc.num_supers)):
+        k_eff, width = _wl_sizes(acc, cap, levels, super_cap)
+        got = cuda_cull.worklist_cull(acc, *blk, cap, k_eff, width, levels,
+                                      super_cap)
+        want = cuda_cull.worklist_cull_plain(acc, *blk, cap, k_eff, width,
+                                             levels, super_cap)
+        torch.cuda.synchronize()
+        assert _same_wl_cull(got, want)
+        seen_cand |= bool((got[1] > 0).any())
+        seen_over |= bool(got[2].any())
+    assert seen_cand and seen_over
+
+
+@pytest.mark.parametrize("levels", [0, 1, 2])
+def test_build_worklist_launches_the_cull_kernel(cuda, rng, levels):
+    """On the card _build_worklist launches worklist_cull once (levels 0
+    picks 2 past 2048 clusters) and never the plain version; its tables
+    are the CPU's."""
+    from unittest import mock
+
+    from path_tracer_ai_tpu_torch.accel import worklist
+
+    acc = _accel(cuda, s=2)
+    assert acc.num_clusters > 2048
+    o, d, tm = _bounce_wave(acc, 1 << 12, rng)
+    blocks = worklist._prepare_blocks(acc, o, d, tm, 8, True)[:3]
+    seen = []
+    real = cuda_cull.worklist_cull
+
+    def spy(*a, **k):
+        seen.append(a[7])
+        return real(*a, **k)
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain cull ran on the card")
+
+    with mock.patch.object(cuda_cull, "worklist_cull", spy), \
+            mock.patch.object(cuda_cull, "worklist_cull_plain", no_plain):
+        wl = worklist._build_worklist(acc, *blocks, 1e-3, 64, 4, 6, 1 << 13,
+                                      1024, levels=levels)
+    assert seen == [levels or 2]
+    cpu = acc.to("cpu")
+    want = worklist._build_worklist(cpu, *(x.cpu() for x in blocks), 1e-3,
+                                    64, 4, 6, 1 << 13, 1024, levels=levels)
+    for got_t, want_t in zip(wl, want):
+        assert torch.equal(got_t.cpu(), want_t)
+
+
+def test_worklist_cull_launch_failure_raises(cuda):
+    """A refused launch raises; nothing falls back to the plain version."""
+    from unittest import mock
+
+    case = cases.wl_cull_case("cap_edge")
+    args = _wl_case_args(case, cuda)
+
+    class Refused:
+        def __call__(self, *a):
+            return 1  # cudaErrorInvalidValue
+
+    with mock.patch.object(cuda_cull, "_worklist_lib", lambda: mock.Mock(
+            worklist_cull=Refused())), \
+            mock.patch.object(cuda_cull, "worklist_cull_plain",
+                              mock.Mock(side_effect=AssertionError)):
+        with pytest.raises(RuntimeError, match="worklist_cull"):
+            cuda_cull.worklist_cull(*args, 6, 6, 8, 2)
+
+
+def test_worklist_cull_occupancy(cuda):
+    occ = cuda_cull.worklist_occupancy()
+    assert occ["registers"] > 0 and occ["warps_per_sm"] >= 8
+
+
+@pytest.mark.parametrize("generic", [False, True])
+@pytest.mark.parametrize("want_tri", [True, False])
+@pytest.mark.parametrize("case,s", [("wave", 128), ("wave", 2)] + [
+    (c, 16) for c in cases.ITEM_CASES])
+def test_item_sweep_device_count_matches_host_count(cuda, rng, case, s,
+                                                    want_tri, generic):
+    """item_sweep reading n_items on the card (a 0-dim i32 tensor) equals
+    the same call given the count as an int, bit for bit; a count past
+    i_cap is read as i_cap."""
+    args = list(_item_args(cuda, rng, case, s, want_tri))
+    n = args[6]
+    run = lambda a: cuda_items.item_sweep(*a)
+    from contextlib import nullcontext
+
+    ctx = generic_instances() if generic else nullcontext()
+    with ctx:
+        host = run(args)
+        args[6] = torch.tensor(n, dtype=torch.int32, device=cuda)
+        dev = run(args)
+        args[6] = torch.tensor(args[2].shape[0] + 5, dtype=torch.int32,
+                               device=cuda)
+        past = run(args)
+        full = run(args[:6] + [args[2].shape[0]] + args[7:])
+    torch.cuda.synchronize()
+    for a, b in ((host, dev), (past, full)):
+        assert all(torch.equal(_bits(x) if x.dtype == torch.float32 else x,
+                               _bits(y) if y.dtype == torch.float32 else y)
+                   for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("query", ["closest", "any"])
+def test_worklist_query_reads_one_host_value(cuda, rng, query):
+    """A worklist query on the card (past 2048 clusters: the 2-level cull)
+    reads one host value of its own, the overflow fallback's count: neither
+    the cull nor the item sweep reads any (the pair tiles that complete the
+    overflow rays read theirs, in accel.pairs); its result is the CPU's."""
+    from path_tracer_ai_tpu_torch.accel import worklist
+    from path_tracer_ai_tpu_torch.utils import sync
+
+    acc = _accel(cuda, s=2)
+    o, d, tm = _bounce_wave(acc, 1 << 13, rng)
+    fn = (worklist.closest_hit_worklist if query == "closest"
+          else worklist.any_hit_worklist)
+    before = cuda_cull.worklist_launches
+    sync.reset()
+    got = fn(acc, o, d, 1e-3, tm)
+    reads = dict(sync.sites)
+    torch.cuda.synchronize()
+    own = {k: v for k, v in reads.items()
+           if not k.startswith("path_tracer_ai_tpu_torch.accel.pairs:")}
+    assert list(own.values()) == [1], reads
+    assert next(iter(own)).startswith(
+        "path_tracer_ai_tpu_torch.accel.worklist:"), reads
+    assert cuda_cull.worklist_launches == before + 1
+    want = fn(acc.to("cpu"), o.cpu(), d.cpu(), 1e-3, tm.cpu())
+    if query == "closest":
+        assert torch.equal(_bits(got.t.cpu()), _bits(want.t))
+        assert torch.equal(got.tri.cpu(), want.tri)
+    else:
+        assert torch.equal(got.cpu(), want)

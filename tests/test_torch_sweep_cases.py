@@ -1097,3 +1097,157 @@ def cull_case(name: str, nb: int, r: int, c: int, seed: int = 0) -> dict:
     f = lambda a: np.ascontiguousarray(a, dtype=np.float32)
     return {"o": f(o), "d": f(d), "tm": f(tm), "bmin": f(bmin),
             "bmax": f(bmax)}
+
+
+# ---- the worklist's cull (wl_cull_case) -----------------------------------
+
+WL_CULL_CASES = ("cap_edge", "super_edge", "dead_and_nan", "axis_signed_zero",
+                 "phantoms", "small_c", "flat_past_2048", "block_1",
+                 "block_64")
+WL_LINE_D = (1.0, 0.01, 0.02)  # the direction of every line case's rays
+
+
+def wl_supers(bmin, bmax, ss: int) -> dict:
+    """The 2-level boxes of accel.clusters.build_clusters: supers of ss
+    consecutive clusters, the padding children of a partly filled last
+    super inverted (+-3e37), each super the union of its children."""
+    c = bmin.shape[0]
+    cs = -(-c // ss)
+    big = np.float32(3.0e37)
+    cbmin = np.full((cs * ss, 3), big, np.float32)
+    cbmax = np.full((cs * ss, 3), -big, np.float32)
+    cbmin[:c] = bmin
+    cbmax[:c] = bmax
+    cbmin = cbmin.reshape(cs, ss, 3)
+    cbmax = cbmax.reshape(cs, ss, 3)
+    return {"sbmin": cbmin.min(axis=1), "sbmax": cbmax.max(axis=1),
+            "cbmin": cbmin, "cbmax": cbmax}
+
+
+def _line_boxes(n_on: int, n_ids: int, k: int):
+    """n_ids boxes of half 0.05 along line k (origin (0, 6k, 3k), direction
+    WL_LINE_D): n_on at t = 1 .. n_on, the rest past t = n_on + 10, beyond
+    the line's rays' t_max (n_on + 2)."""
+    d = _unit(np.asarray(WL_LINE_D))
+    t = np.concatenate([np.arange(1, n_on + 1),
+                        n_on + 10 + np.arange(n_ids - n_on)])
+    centre = np.array([0.0, 6.0 * k, 3.0 * k]) + t[:, None] * d
+    return centre - 0.05, centre + 0.05
+
+
+def _line_rays(rng, k: int, n_on: int, b: int):
+    """One block of b rays along line k, jittered, t_max n_on + 2."""
+    d = _unit(np.asarray(WL_LINE_D))
+    o = np.array([0.0, 6.0 * k, 3.0 * k]) + rng.normal(0.0, 1e-3, (b, 3))
+    dd = _unit(d + rng.normal(0.0, 1e-4, (b, 3)))
+    return o, dd, np.full(b, n_on + 2.0)
+
+
+def _coherent_rays(rng, nb: int, b: int):
+    base_o = rng.uniform(-1.2, 1.2, (nb, 1, 3))
+    base_d = _unit(rng.standard_normal((nb, 1, 3)))
+    o = base_o + rng.normal(0.0, 0.05, (nb, b, 3))
+    d = _unit(base_d + rng.normal(0.0, 0.05, (nb, b, 3)))
+    tm = rng.uniform(0.5, 4.0, (nb, b))
+    tm.reshape(-1)[::7] = -1.0
+    return o, d, tm
+
+
+def _random_boxes(rng, c: int, half=(0.02, 0.2), offset=0.0):
+    centre = rng.uniform(-1.0, 1.0, (c, 3)) + offset
+    h = rng.uniform(*half, (c, 3))
+    return centre - h, centre + h
+
+
+def wl_cull_case(name: str, seed: int = 0) -> dict:
+    """One worklist-cull input: o, d [nb, B, 3], tm [nb, B] (t_max; negative
+    or NaN: dead), bmin, bmax [C, 3] and their supers of `ss` (wl_supers),
+    all f32, with the case's cap, super_cap and levels (the levels it is
+    held at). The line cases lay clusters along lines far apart (each
+    line's on-path boxes, then boxes past its rays' t_max filling its last
+    super), so that a line's blocks have exactly its on-path boxes as
+    candidates, and fill the rest with random boxes far from the lines:
+    cap_edge: C 70 (not a multiple of 32), cap 6: blocks with exactly 6
+      candidates and blocks with 7 (overflow);
+    super_edge: supers of 4, super_cap 3, cap 64: blocks whose candidates
+      fill exactly 3 supers and blocks that reach 4 (overflow at levels 2),
+      k_eff clamped to super_cap * super_size = 12 below cap and C;
+    dead_and_nan: an all-dead block, a block with a NaN t_max lane, one
+      with a dead lane whose origin is NaN, one with a live lane whose
+      direction has a NaN, one at t_max exactly 0;
+    axis_signed_zero: random boxes, directions +-e_a with +0.0 / -0.0 in
+      the other components (some blocks all -0.0), origins on box planes;
+    phantoms: C 49 = 3 * 16 + 1 in supers of 16: the last super holds one
+      real cluster and 15 padding children, which count at levels 2;
+    small_c: C 20 < 32, random boxes and coherent blocks;
+    flat_past_2048: C 2,100 small random boxes, held at levels 1 too;
+    block_1, block_64: coherent blocks of 1 and 64 rays."""
+    rng = np.random.default_rng([seed, WL_CULL_CASES.index(name)])
+    nb, b, ss, cap, super_cap, levels = 16, 8, 4, 64, 32, (1, 2)
+    lines = []  # (n_on, n_ids) of line k, clusters in line order first
+    if name == "cap_edge":
+        cap, lines, c = 6, [(6, 8), (7, 8)], 70
+    elif name == "super_edge":
+        super_cap, lines, c = 3, [(12, 12), (16, 16)], 70
+    elif name == "dead_and_nan":
+        lines, c = [(5, 8)], 40
+    elif name == "phantoms":
+        ss, lines, c = 16, [(10, 16)], 49
+    elif name == "small_c":
+        c = 20
+    elif name == "flat_past_2048":
+        c, levels = 2100, (1, 2)
+    else:
+        c = 70
+    if name == "block_1":
+        b = 1
+    elif name == "block_64":
+        b = 64
+
+    n_line = sum(n for _on, n in lines)
+    if name == "flat_past_2048":
+        bmin, bmax = _random_boxes(rng, c, half=(0.002, 0.02))
+    else:
+        bmin, bmax = _random_boxes(rng, c)
+    if lines:
+        # the random boxes move far from the lines (y, z about -30)
+        bmin[n_line:] += (0.0, -30.0, -30.0)
+        bmax[n_line:] += (0.0, -30.0, -30.0)
+        at = 0
+        for k, (n_on, n_ids) in enumerate(lines):
+            bmin[at:at + n_ids], bmax[at:at + n_ids] = _line_boxes(
+                n_on, n_ids, k)
+            at += n_ids
+    if name == "phantoms":
+        # the last cluster, alone in its super, on a line of its own
+        bmin[c - 1:], bmax[c - 1:] = _line_boxes(1, 1, len(lines))
+
+    o, d, tm = _coherent_rays(rng, nb, b)
+    if lines or name == "phantoms":
+        n_lines = len(lines) + (name == "phantoms")
+        for i in range(nb):
+            k = i % n_lines
+            n_on = lines[k][0] if k < len(lines) else 1
+            o[i], d[i], tm[i] = _line_rays(rng, k, n_on, b)
+    if name == "dead_and_nan":
+        tm[0] = -1.0
+        tm[1, 3] = np.nan
+        o[2, 2] = np.nan
+        tm[2, 2] = -1.0
+        d[3, 5, 1] = np.nan
+        tm[4] = 0.0
+    elif name == "axis_signed_zero":
+        axis = rng.integers(0, 3, nb)
+        sign = rng.choice([-1.0, 1.0], nb)
+        zeros = np.where(rng.uniform(size=(nb, b, 3)) < 0.5, -0.0, 0.0)
+        zeros[::4] = -0.0  # every fourth block: only -0.0
+        d = zeros
+        d[np.arange(nb), :, axis] = sign[:, None]
+        box = rng.integers(0, c, (nb, b))
+        o[np.arange(nb)[:, None], np.arange(b)[None], axis[:, None]] = \
+            bmin[box, axis[:, None]]
+        tm = np.where(tm >= 0.0, 8.0, tm)
+    f = lambda a: np.ascontiguousarray(a, dtype=np.float32)
+    return {"o": f(o), "d": f(d), "tm": f(tm), "bmin": f(bmin),
+            "bmax": f(bmax), **wl_supers(f(bmin), f(bmax), ss), "ss": ss,
+            "cap": cap, "super_cap": super_cap, "levels": levels}
