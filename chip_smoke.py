@@ -303,9 +303,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   and at the bench cell if 16 x that predicts under 60 s:
                   seconds, host syncs; the image at atol 1e-5 against the
                   main path at the size it ran and against the oracle at
-                  96x54, differing pixels counted; the stage kernel's
-                  perray folds (perray_stage_first, perray_stage_any) must
-                  both launch; host reads by site (line path_perray_reads:
+                  96x54, differing pixels counted; perray_cull and the
+                  stage kernel's perray folds (perray_stage_first,
+                  perray_stage_any) must launch, the eager perray cull
+                  must not run; host reads by site (line path_perray_reads:
                   the overflow counts, one a perray call, the stage loop's,
                   which must be 0, and the bounce loop's).
   14b. perray_cascade_loop the perray queries' loop on the card: two
@@ -324,8 +325,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   stage kernel in turns (before, after, after, before):
                   the same bits and final k, device seconds, host reads,
                   device kernels (lines perray_cascade_loop).
-  15. path_kslots the kslots backend (per-ray K slots: kslots' cull, one
-                  kslot_sweep launch a query, overflow through pair tiles)
+  15. path_kslots the kslots backend (per-ray K slots: one kslots_cull and
+                  one kslot_sweep launch a query, overflow through pair
+                  tiles; both must launch, the eager cull must not run)
                   warm at 96x54 (bitwise the oracle), at 480x270, and at
                   the bench cell if 16 x that predicts under 60 s (bitwise
                   the main path): seconds, Mrays/s, host syncs, launches,
@@ -342,7 +344,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   (closest and shadow; lines "kslot_waves") and stops once
                   it has them: bitwise against the plain version, timed,
                   bounded, with the distinct clusters a run of 128 rays
-                  names.
+                  names; it keeps its first two kslots_cull calls of each
+                  wave type too.
+  15b. ray_cull   the per-ray culls on the card: kslots_cull bit for bit
+                  its plain version on the kslots render's kept wave 0,
+                  bounce 1 calls (closest and shadow, levels 2) and on the
+                  same calls forced to levels 1, perray_cull on the perray
+                  render's two kept calls, both on every crafted per-ray
+                  cull case (tests/test_torch_sweep_cases.py
+                  ray_cull_case) at its caps and one past each (against
+                  the plain version on the CPU); each render call timed
+                  beside its bound (the box tests its rays need x the ops
+                  of a test, or its bytes) and the plain version on the
+                  card; then one more bench render of each route with the
+                  plain version patched in (the eager cull of before):
+                  the kslots stages' device seconds and the perray
+                  render's seconds, before and after (line ray_cull).
   16. packet_cascade the packet cascades' loop on the card and
                   the first-slot kernels: the cascade stage kernel on the
                   first stage of the main path's first shadow call (any
@@ -383,9 +400,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   renders perray (line path_packets); the worklist,
                   kslots, perray and packets routes' seconds, host syncs
                   and launches. Fails if the eager sweep helpers
-                  (traverse._packet_sweep_closest / _packet_sweep_any)
-                  ran in any route phase (they are counted from the build
-                  on).
+                  (traverse._packet_sweep_closest / _packet_sweep_any) or
+                  the per-ray culls' plain versions ran in any route phase
+                  (they are counted from the build on).
   17. worklist_mxu the worklist scene's kept closest and shadow queries
                   (wave 0, bounce 1) through intersector "mxu", "mxu:high"
                   and "mxu:default" at blocks of 64, sorted, against
@@ -410,7 +427,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   held to the main path's image as path_pool is, the
                   concurrent runs profiled (busy share a card); then
                   mesh_cards_summary, each run's time over the main path's.
-Then the kernels line (eighteen kernels: the five, item_sweep and
+Then the kernels line (twenty-one kernels: the five, item_sweep and
 kslot_sweep, which replace no TPU kernel, the first-slot instances
 tile_sweep_first and kslot_sweep_first, which carry XLA-fused sweeps, the
 cascade stage kernel's six folds, cascade_stage_any,
@@ -419,7 +436,9 @@ perray_stage_any and perray_stage_first, which carry the cascades'
 while_loop, and block_cull and slot_sweep, which carry ctiles' cull and
 its sweep's fori_loops, and packet_cull, which carries the packet
 cascades' interval cull (its launches on every route under
-launches_by_route) ("carries": the JAX package's code each stands
+launches_by_route), worklist_cull, which carries the worklist's cull, and
+kslots_cull and perray_cull, which carry the kslots and perray routes'
+per-ray culls ("carries": the JAX package's code each stands
 for); tile_sweep's launches are the chunked form's in ctiles_bounds, its
 body running in slot_sweep on the routes ("runs_as"); launches
 on every path, the new ones under new_path_launches, the CLI's with
@@ -596,7 +615,8 @@ def phase_build():
     built = cuda_build.build_all([m.SOURCE for m in (
         cuda_ctiles, cuda_sweep, cuda_anyhit, cuda_closest, cuda_items,
         cuda_kslots, cuda_cull)] + [cuda_ctiles.CULL_SOURCE,
-                                    cuda_cull.WORKLIST_SOURCE])
+                                    cuda_cull.WORKLIST_SOURCE,
+                                    cuda_cull.RAY_SOURCE])
     seconds = time.perf_counter() - t0
     entry = re.compile(
         r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
@@ -631,6 +651,11 @@ def phase_build():
     occupancy["worklist_cull"] = {
         **cuda_cull.worklist_occupancy(), "spill_bytes": sum(
             e["spill_bytes"] for e in ptxas.get("worklist_cull", []))}
+    # the per-ray culls (kslots_cull with the routes' list of 6 supers)
+    for name, occ in cuda_cull.ray_occupancy(6).items():
+        occupancy[name] = {**occ, "spill_bytes": sum(
+            e["spill_bytes"] for e in ptxas.get("ray_cull", [])
+            if name + "_kernel" in e["entry"])}
     for b in (8, 4):
         occupancy[f"block_cull b{b}"] = {
             **cuda_ctiles.cull_occupancy(b), "spill_bytes": sum(
@@ -1422,7 +1447,10 @@ def _read_counts() -> dict:
             # the packet cascades' interval cull
             "packet_cull": cuda_cull.launches,
             # the worklist's cull
-            "worklist_cull": cuda_cull.worklist_launches}
+            "worklist_cull": cuda_cull.worklist_launches,
+            # the per-ray culls of kslots and perray
+            "kslots_cull": cuda_cull.kslots_launches,
+            "perray_cull": cuda_cull.perray_launches}
 
 
 def _tile_shapes() -> list:
@@ -2733,8 +2761,7 @@ def _generic_checks(acc, rng) -> dict:
         ok = True
         for want_tri, k in ((True, 12), (False, 8)):
             tmk = torch.where(tm >= 0, torch.inf, tm) if want_tri else tm
-            tab = kslots._chunk_tables(acc, o, d, tmk, 1e-3, 6, k,
-                                       kslots.resolve_levels(acc, 0))
+            tab = kslots._tables(acc, o, d, tmk, 1e-3, 6, k, 0, 1 << 15)
             tb = torch.where(tab["live"] & ~tab["over"], tmk, -1.0)
             args = (pack, cuda_kslots.pack_rays(o, d, tb, 1e-3), tab["cid"],
                     tab["n_slots"], want_tri)
@@ -4664,13 +4691,15 @@ def _perray_fallback_line() -> int:
 
 
 def phase_path_perray(scene, accel_base, accel_c, card, img_main):
-    """The perray backend (traverse's per-ray queries: their cascades'
-    stages one launch each of the stage kernel's perray folds) through
-    _route_at_cut; both folds must launch, and no stage may read the
-    host (host_sync_sites: the overflow count, one a call, and the bounce
-    loop's reads only)."""
+    """The perray backend (traverse's per-ray queries: their candidate
+    lists one launch each of perray_cull, their cascades' stages one
+    launch each of the stage kernel's perray folds) through _route_at_cut;
+    the cull and both folds must launch, no stage may read the host
+    (host_sync_sites: the overflow count, one a call, and the bounce loop's
+    reads only) and no eager cull may run."""
     res = _route_at_cut("path_perray", scene, accel_base, accel_c, card,
-                        img_main, ["perray_stage_any", "perray_stage_first"],
+                        img_main, ["perray_stage_any", "perray_stage_first",
+                                   "perray_cull"],
                         backend="perray")
     res["host_reads"] = _perray_reads(res)
     emit({"phase": "path_perray_reads", "card": card, **res["host_reads"],
@@ -4678,6 +4707,8 @@ def phase_path_perray(scene, accel_base, accel_c, card, img_main):
     if res["host_reads"]["stage_loop"]:
         fail("path_perray", f"the perray stages read the host: "
                             f"{res['host_sync_sites']}")
+    if EAGER_CALLS["perray_cull_plain"]:
+        fail("path_perray", "the eager perray cull ran on the card")
     return res
 
 
@@ -4686,8 +4717,8 @@ KSLOTS_BENCH_LIMIT_S = 60.0
 
 
 def phase_path_kslots(scene, accel_base, accel_c, card, img_main):
-    """The kslots backend (per-ray K slots: kslots' cull in eager torch,
-    one kslot_sweep launch a query, overflow rays through pair tiles):
+    """The kslots backend (per-ray K slots: one kslots_cull and one
+    kslot_sweep launch a query, overflow rays through pair tiles):
     warm at 96x54 (bench spp and bounces), whose image must equal the
     oracle's bit for bit; then at 480x270, and at the bench cell if 16
     times that predicts under KSLOTS_BENCH_LIMIT_S, its image bitwise the
@@ -4696,7 +4727,12 @@ def phase_path_kslots(scene, accel_base, accel_c, card, img_main):
     tile_sweep's by shape), the device seconds of each kslots stage (cull,
     sweep, fallback; CUDA events) and the overflow shares (over k_supers,
     over k_clusters, over k_clusters only for phantom children)."""
-    from path_tracer_ai_tpu_torch.accel import cuda_kslots, kslots, traverse
+    from path_tracer_ai_tpu_torch.accel import (
+        cuda_cull,
+        cuda_kslots,
+        kslots,
+        traverse,
+    )
     from path_tracer_ai_tpu_torch.config import RenderSettings
     from path_tracer_ai_tpu_torch.engine import oracle, wavefront
     from path_tracer_ai_tpu_torch.scene.camera import default_camera
@@ -4765,6 +4801,12 @@ def phase_path_kslots(scene, accel_base, accel_c, card, img_main):
         # and of its first two closest fallback cascades (packet_cascade)
         real_fb = _keeping(traverse, "closest_hit_packets", kept,
                            lambda a: "fallback")
+        # and of its first two kslots_cull calls of each wave type (the
+        # closest waves' k_clusters, the shadow waves'), for ray_cull
+        waves = {wavefront.KSLOTS_CLOSEST_KW["k_clusters"]: "cull_closest",
+                 wavefront.KSLOTS_OCCLUDE_KW["k_clusters"]: "cull_shadow"}
+        real_cull = _keeping(cuda_cull, "kslots_cull", kept,
+                             lambda a: waves[a[6]])
 
         def until_kept(*a, **kw):
             out = keeping(*a, **kw)
@@ -4780,7 +4822,10 @@ def phase_path_kslots(scene, accel_base, accel_c, card, img_main):
         finally:
             cuda_kslots.kslot_sweep = real
             traverse.closest_hit_packets = real_fb
+            cuda_cull.kslots_cull = real_cull
         KEPT_FALLBACKS["kslots"] = kept.get("fallback", [])
+        for wave in ("closest", "shadow"):
+            KEPT_RAY_CULLS["kslots_" + wave] = kept.get(f"cull_{wave}", [])
     else:
         img_m = wavefront.render(scene, cam, cut, wave_size=1 << 20,
                                  device="cuda", accel=accel_base,
@@ -4791,8 +4836,11 @@ def phase_path_kslots(scene, accel_base, accel_c, card, img_main):
                    f"{KSLOTS_BENCH_LIMIT_S:.0f} s at 1920x1080)",
                    vs_main=against(img, img_m))
     image_ok = _image_verdict(img, res)
-    _finish_path(res, [] if res["launches"]["kslot_sweep"] > 0
-                 else ["kslot_sweep"], image_ok)
+    res["eager_cull_calls"] = EAGER_CALLS["kslots_cull_plain"]
+    _finish_path(res, [k for k in ("kslots_cull", "kslot_sweep")
+                       if res["launches"][k] <= 0], image_ok)
+    if res["eager_cull_calls"]:
+        fail("path_kslots", "the eager kslots cull ran on the card")
     bad = [k for k in ("vs_main", "vs_oracle_96x54") if not res[k]["bitwise"]]
     if bad:
         fail("path_kslots", f"the kslots image differs: "
@@ -4809,12 +4857,275 @@ def phase_path_kslots(scene, accel_base, accel_c, card, img_main):
     return res
 
 
+# --- the per-ray culls: kslots_cull, perray_cull ---------------------------
+
+# The kslots render's kslots_cull calls (path_kslots: "kslots_closest",
+# "kslots_shadow" -> [(args, kw)] of its first two calls of that wave type,
+# bounce 0 and 1 of wave 0) and the perray render's two kept calls
+# (perray_cascade_loop: "perray" -> [(label, fn, (args, kw))]).
+KEPT_RAY_CULLS = {}
+# f32 operations of one ray/box test as csrc/ray_cull.cu writes it.
+# kslots_slab: an axis 2 subtractions, 2 multiplications, 2 NaN compares,
+# a min, a max, 2 selects and the running max / min (12); a box 3 (the
+# window's min and max, the compare). perray_slab: an axis 2
+# subtractions, 2 multiplications, the sign compare, 2 selects, 2 compares
+# and 2 selects of the running bounds (11); a box 1 (the compare).
+KSLOTS_TEST_OPS = 3 * 12 + 3
+PERRAY_TEST_OPS = 3 * 11 + 1
+RCULL_REPS = 20
+RCULL_ROW_ELEMS = 1 << 22  # [rows, boxes] elements a step of the counts
+
+
+def _rcull_work(which, call) -> dict:
+    """Bytes (the rays once, the boxes, the tables out) and operations
+    (*_TEST_OPS over the boxes each ray must test: none for a ray whose
+    window is empty; kslots at levels 1 every cluster box, at levels 2 the
+    supers up to the one past k_supers and the children of the listed
+    ones; perray the boxes up to the one past cap) of one call."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cull, kslots
+
+    if which == "kslots":
+        accel, o, d, tm, t_min, ks, kc, levels = call
+    else:
+        accel, o, d, t_min, tm, cap = call
+    n = o.shape[0]
+    c, cs, ss = accel.num_clusters, accel.num_supers, accel.super_size
+    width = c if which == "perray" or levels == 1 else cs
+    step = max(1, RCULL_ROW_ELEMS // width)
+    tests = 0
+    for lo in range(0, n, step):
+        oc, dc, tc = o[lo:lo + step], d[lo:lo + step], tm[lo:lo + step]
+        rows = oc.shape[0]
+        if which == "perray":
+            some = tc >= t_min
+            n_t = _first_past(cuda_cull.perray_slab_plain(
+                accel, oc, dc, tc, t_min)[0], cap)
+        else:
+            hi0 = torch.where(tc >= 0.0, tc, -float("inf"))
+            some = hi0 >= t_min
+            lo0 = torch.full((rows,), float(t_min), device=o.device)
+            if levels == 1:
+                n_t = torch.full((rows,), c, device=o.device)
+            else:
+                cand_s = kslots._ray_slab(accel.sbmin, accel.sbmax, oc, dc,
+                                          lo0, hi0)
+                listed = torch.clamp(cand_s.sum(dim=1), max=ks)
+                n_t = _first_past(cand_s, ks) + listed * ss
+        tests += int(torch.where(some, n_t, 0).sum())
+    ops = tests * (KSLOTS_TEST_OPS if which == "kslots" else PERRAY_TEST_OPS)
+    if which == "kslots":
+        boxes = c * 24 if levels == 1 else cs * 24 + cs * ss * 24
+        out = n * (kc * 4 + 8 + 5)
+    else:
+        boxes = c * 24
+        out = n * (cap * 4 + 5)
+    nbytes = n * 28 + boxes + out
+    by_bytes = nbytes / PEAK_BYTES_PER_S
+    by_ops = ops / PEAK_F32_PER_S
+    return {"bytes": nbytes, "operations": ops, "box_tests": tests,
+            "box_tests_per_ray": tests / max(1, n),
+            "bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _rcull_fns(which):
+    from path_tracer_ai_tpu_torch.accel import cuda_cull
+
+    if which == "kslots":
+        return cuda_cull.kslots_cull, cuda_cull.kslots_cull_plain
+    return cuda_cull.perray_cull, cuda_cull.perray_cull_plain
+
+
+def _rcull_same(got, want) -> bool:
+    if isinstance(got, dict):
+        return set(got) == set(want) and all(
+            bool(torch.equal(got[k].cpu(), want[k].cpu())) for k in got)
+    return all(bool(torch.equal(a.cpu(), b.cpu())) for a, b in zip(got, want))
+
+
+def _check_rcull(which, label, call, plain_cpu=None, reps=RCULL_REPS,
+                 bound=True) -> dict:
+    """One kslots_cull / perray_cull call against its plain version (on the
+    card, or on the CPU copy `plain_cpu` of the call), timed beside its
+    bound and the plain version on the card."""
+    run_k, run_p = _rcull_fns(which)
+    got = run_k(*call)
+    want = run_p(*plain_cpu) if plain_cpu is not None else run_p(*call)
+    torch.cuda.synchronize()
+    accel, o = call[:2]
+    over = got["over"] if which == "kslots" else got[2]
+    n_cand = got["n_cand"] if which == "kslots" else got[1]
+    res = {"input": label, "rays": o.shape[0], "C": accel.num_clusters,
+           "supers": accel.num_supers,
+           **({"levels": call[7], "k_supers": call[5], "k_clusters": call[6]}
+              if which == "kslots" else {"cap": call[5]}),
+           "plain_on": "card" if plain_cpu is None else "cpu",
+           "candidates_mean": float(n_cand.float().mean()),
+           "overflow_share": float(over.float().mean()),
+           "matches_plain": _rcull_same(got, want), "max_abs_err": 0.0}
+    if reps:
+        res["ms"] = cuda_ms(lambda: run_k(*call), reps)
+        res["plain_ms"] = cuda_ms(lambda: run_p(*call), 1)
+    if bound:
+        res.update(_rcull_work(which, call))
+        res["ms_over_bound"] = res["ms"] / res["bound_ms"]
+    return res
+
+
+def _perray_call(args, kw):
+    """perray_cull's arguments of a kept perray query."""
+    import inspect
+
+    from path_tracer_ai_tpu_torch.accel import traverse
+
+    b = inspect.signature(traverse.closest_hit_perray).bind(*args, **kw)
+    b.apply_defaults()
+    a = b.arguments
+    n = a["origins"].shape[0]
+    tm = torch.broadcast_to(torch.as_tensor(
+        a["t_max"], dtype=torch.float32, device="cuda"), (n,)).contiguous()
+    return (a["accel"], a["origins"].contiguous(),
+            a["directions"].contiguous(), a["t_min"], tm, a["cap"])
+
+
+def _crafted_rcull() -> list:
+    """Both kernels on every crafted per-ray cull case (tests/
+    test_torch_sweep_cases.py ray_cull_case) at its caps and one past
+    each, against their plain versions on the CPU."""
+    from types import SimpleNamespace
+
+    c = _cases()
+    out = []
+    for name in c.RAY_CULL_CASES:
+        case = c.ray_cull_case(name)
+        accs = [SimpleNamespace(
+            **{k: torch.as_tensor(case[k], device=dev) for k in (
+                "bmin", "bmax", "sbmin", "sbmax", "cbmin", "cbmax")},
+            num_clusters=case["bmin"].shape[0],
+            num_supers=case["sbmin"].shape[0], super_size=case["ss"])
+            for dev in ("cuda", "cpu")]
+        rays = [[torch.as_tensor(case[k], device=dev)
+                 for k in ("o", "d", "tm")] for dev in ("cuda", "cpu")]
+        calls = [("kslots", (case["ks"] + a, case["kc"] + b, levels))
+                 for levels in (1, 2)
+                 for a, b in ((0, 0), (1, 0), (0, 1))]
+        calls += [("perray", (case["cap"] + a,)) for a in (0, 1)]
+        for which, caps in calls:
+            pair = []
+            for acc, (o, d, tm) in zip(accs, rays):
+                pair.append((acc, o, d, tm, case["t_min"], *caps)
+                            if which == "kslots" else
+                            (acc, o, d, case["t_min"], tm, *caps))
+            r = _check_rcull(which, name, pair[0], plain_cpu=pair[1],
+                             reps=0, bound=False)
+            out.append({"which": which, "case": name, "caps": caps,
+                        "matches_plain": r["matches_plain"]})
+    return out
+
+
+def _route_before_after(scene, accel_base, render_kw, patch, after) -> dict:
+    """One bench render of a route with its per-ray cull's plain version
+    patched in (on the card: the eager cull of before), beside the route
+    phase's own timed render (after): render seconds and, for kslots, the
+    device seconds of its stages."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cull, kslots
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+
+    name, plain = patch
+    stats = wavefront.RenderStats()
+    kslots.stage_events = {} if render_kw["backend"] == "kslots" else None
+    try:
+        with _patched(cuda_cull, **{name: lambda *a: plain(*a)}):
+            wavefront.render(scene, default_camera("cuda"),
+                             RenderSettings(**BENCH), stats=stats,
+                             wave_size=1 << 20, device="cuda",
+                             accel=accel_base, **render_kw)
+        stages = kslots.stage_seconds() if kslots.stage_events else None
+    finally:
+        kslots.stage_events = None
+    before = {"seconds": stats.seconds}
+    if stages is not None:
+        before["stage_device_seconds"] = stages
+    keep = ("seconds", "size", "stage_device_seconds", "launches")
+    return {"before": before,
+            "after": {k: after[k] for k in keep if k in after}}
+
+
+def phase_ray_cull(scene, accel_base, card, paths) -> tuple:
+    """The per-ray culls on the card. kslots_cull against its plain
+    version, bit for bit, on the kslots render's kept calls (wave 0,
+    bounce 1, closest and shadow: the bench accel, C 641 in 41 supers of
+    16, levels 2) and on the same calls forced to levels 1; perray_cull on
+    the perray render's two kept calls (wave 0, bounce 1: 2^16 rays each);
+    both on every crafted case at its caps and one past each. Each render
+    call timed beside its bound (_rcull_work) and the plain version on the
+    card. Then each route's bench render once more with the plain version
+    patched in (the eager cull of before), beside the route phase's own:
+    the kslots cull's stage seconds, the perray render's seconds. Returns
+    the kernels line's checks (the shadow calls)."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cull
+
+    t0 = time.perf_counter()
+    eager_before = dict(EAGER_CALLS)
+    kept_k = [KEPT_RAY_CULLS.get("kslots_" + w, []) for w in
+              ("closest", "shadow")]
+    kept_p = KEPT_RAY_CULLS.get("perray", [])
+    if min(len(k) for k in kept_k) < 2 or len(kept_p) < 2:
+        fail("ray_cull", "fewer than two kept kslots_cull calls of a wave "
+                         "type, or no kept perray calls")
+    waves = {"kslots_cull": [], "perray_cull": []}
+    for levels in (2, 1):
+        for wave, kept in zip(("closest", "shadow"), kept_k):
+            args = kept[1][0]
+            call = args[:7] + (levels,)
+            waves["kslots_cull"].append(_check_rcull(
+                "kslots", f"kslots render {wave} call, wave 0, bounce 1"
+                + ("" if levels == args[7] else
+                   f", forced to levels {levels}"), call))
+    for label, _fn, (args, kw) in kept_p:
+        waves["perray_cull"].append(_check_rcull(
+            "perray", label, _perray_call(args, kw)))
+    crafted = _crafted_rcull()
+    routes = {
+        "kslots": _route_before_after(
+            scene, accel_base, {"backend": "kslots"},
+            ("kslots_cull", cuda_cull.kslots_cull_plain),
+            paths["path_kslots"]),
+        "perray": _route_before_after(
+            scene, accel_base, {"backend": "perray"},
+            ("perray_cull", cuda_cull.perray_cull_plain),
+            paths["path_perray"])}
+    EAGER_CALLS.update(eager_before)  # the comparisons' own calls
+    res = {"phase": "ray_cull", "card": card, "waves": waves,
+           "routes": routes, "crafted": len(crafted),
+           "crafted_disagree": [[x["which"], x["case"], x["caps"]]
+                                for x in crafted if not x["matches_plain"]],
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    if (not all(w["matches_plain"] for ws in waves.values() for w in ws)
+            or res["crafted_disagree"]):
+        fail("ray_cull", "a per-ray cull disagrees with its plain version")
+    keys = ("input", "rays", "C", "ms", "plain_ms", "bound_ms", "bound_by",
+            "ms_over_bound", "box_tests_per_ray", "candidates_mean",
+            "overflow_share", "matches_plain")
+    return tuple(
+        {**ws[1], "matches_plain": all(w["matches_plain"] for w in ws),
+         "waves": [{k: w[k] for k in keys + (("levels",) if name ==
+                                             "kslots_cull" else ("cap",))}
+                   for w in ws]}
+        for name, ws in waves.items())
+
+
 # --- the packet cascade's and perray's first-slot sweeps --------------------
 
 # Calls of the eager sweep helpers (traverse._packet_sweep_closest and
-# _packet_sweep_any) since _spy_eager_sweeps: on the card every cascade
-# sweeps through a kernel, so the route phases must leave both at 0
-# (packet_cascade's "before" runs put their own calls back).
+# _packet_sweep_any) and of the per-ray culls' plain versions
+# (cuda_cull.kslots_cull_plain, perray_cull_plain) since _spy_eager_sweeps:
+# on the card every cascade sweeps and every per-ray list is culled through
+# a kernel, so the route phases must leave all four at 0 (packet_cascade's
+# and ray_cull's "before" runs put their own calls back).
 EAGER_CALLS = {}
 
 # The closest fallbacks' whole-wave packet cascades kept from the worklist
@@ -4824,16 +5135,19 @@ KEPT_FALLBACKS = {"worklist": [], "kslots": []}
 
 
 def _spy_eager_sweeps() -> None:
-    from path_tracer_ai_tpu_torch.accel import traverse
+    from path_tracer_ai_tpu_torch.accel import cuda_cull, traverse
 
-    for name in ("_packet_sweep_closest", "_packet_sweep_any"):
+    for mod, name in ((traverse, "_packet_sweep_closest"),
+                      (traverse, "_packet_sweep_any"),
+                      (cuda_cull, "kslots_cull_plain"),
+                      (cuda_cull, "perray_cull_plain")):
         EAGER_CALLS[name] = 0
 
-        def spy(*a, _real=getattr(traverse, name), _name=name, **kw):
+        def spy(*a, _real=getattr(mod, name), _name=name, **kw):
             EAGER_CALLS[_name] += 1
             return _real(*a, **kw)
 
-        setattr(traverse, name, spy)
+        setattr(mod, name, spy)
 
 
 class _KeepFirst:
@@ -6233,6 +6547,7 @@ def phase_perray_cascade_loop(scene, accel_base, card) -> tuple:
 
     t0 = time.perf_counter()
     calls = _keep_perray_calls(scene, accel_base)
+    KEPT_RAY_CULLS["perray"] = calls
     checks, loops = {}, []
     for label, fn, (args, kw) in calls:
         rows = _perray_stage_table(fn, args, kw)
@@ -6550,6 +6865,11 @@ KERNELS = {
     # the worklist's cull (no Pallas kernel): the XLA-fused CULL + EXTRACT
     # of worklist._build_worklist, on the worklist route past 2048 clusters
     "worklist_cull": ("worklist_cull.cu", None, "path_worklist"),
+    # the per-ray culls (no Pallas kernel): the XLA-fused CULL + EXTRACT of
+    # kslots._chunk_pipeline on the kslots route, and perray's candidate
+    # lists (_perray_candidates, "id") on the perray route
+    "kslots_cull": ("ray_cull.cu", None, "path_kslots"),
+    "perray_cull": ("ray_cull.cu", None, "path_perray"),
 }
 # what a kernel without a Pallas counterpart carries in the JAX package
 CARRIES = {
@@ -6584,6 +6904,11 @@ CARRIES = {
     "worklist_cull": "path_tracer_ai_tpu/accel/worklist.py:169-266 "
                      "(_build_worklist's one_chunk_flat / one_chunk_2level: "
                      "_ray_block_bounds, _interval_slab, _extract_k)",
+    "kslots_cull": "path_tracer_ai_tpu/accel/kslots.py:110-163 "
+                   "(_chunk_pipeline's CULL + EXTRACT: _ray_slab, "
+                   "_pack_bits, _peel_k)",
+    "perray_cull": "path_tracer_ai_tpu/accel/traverse.py:530-603 "
+                   "(_perray_candidates, order_mode \"id\")",
 }
 # what a kernel runs as on its route besides its own launches
 RUNS_AS = {
@@ -6731,6 +7056,9 @@ def main() -> int:
     checks.update(perray_checks)
     paths["path_kslots"] = phase_path_kslots(scene, accel_base, accel_c,
                                              card, img_main)
+    checks["kslots_cull"], checks["perray_cull"] = phase_ray_cull(
+        scene, accel_base, card, paths)
+    generic["kslots_cull"] = generic["perray_cull"] = None  # one instance
     first_checks, packets, stepped = phase_packet_cascade(
         scene, accel_base, accel_c, card, img_main,
         {"worklist": paths["path_worklist"], "kslots": paths["path_kslots"],
@@ -6753,7 +7081,7 @@ def main() -> int:
                          "matches_plain": c["generic_matches_plain"]}
     phase_worklist_mxu(worklist_waves, item_waves, card)
     if any(EAGER_CALLS.values()):
-        fail("packet_cascade", f"the eager sweeps ran on the card: "
+        fail("packet_cascade", f"the eager sweeps or culls ran on the card: "
                                f"{EAGER_CALLS}")
     new_paths = {**ctiles_paths, "path_perray": perray,
                  "path_packets": packets,
@@ -6868,7 +7196,8 @@ def main() -> int:
         **({"runs_as": RUNS_AS[name]} if name in RUNS_AS else {}),
         **({"waves": checks[name]["waves"]}
            if name in ("block_cull", "slot_sweep", "packet_cull",
-                       "worklist_cull") else {}),
+                       "worklist_cull", "kslots_cull", "perray_cull")
+           else {}),
         **({"launches_by_route": {
             **{k: v["launches"][name] for k, v in paths.items()
                if "launches" in v and isinstance(v["launches"], dict)

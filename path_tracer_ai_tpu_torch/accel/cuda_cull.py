@@ -39,6 +39,25 @@ chunks, `_cull_flat` / `_cull_2level`), which the CPU takes
 (order [nb, width] i32: the ids, C - 1 past the count or on overflow,
 zeros in the pad columns [k_eff, width); n_cand [nb] i32, 0 on overflow;
 over [nb] bool), equal bit for bit.
+
+The per-ray culls of csrc/ray_cull.cu carry XLA-fused bodies of the JAX
+package too: `kslots_cull(accel, origins, directions, t_max, t_min,
+k_supers, k_clusters, levels)` the CULL + EXTRACT of kslots'
+`_chunk_pipeline` (path_tracer_ai_tpu/accel/kslots.py:110-163: one ray's
+slab test, kslots' own rule, against the supers and the children of its
+first k_supers supers, or every cluster box; its first k_clusters ids
+ascending; the overflow split), and `perray_cull(accel, origins,
+directions, t_min, t_max, cap)` the "id" mode of `_perray_candidates`
+(path_tracer_ai_tpu/accel/traverse.py:530-603: the comparison-select slab
+test against every cluster box, the first cap ids ascending). Each
+launches its kernel on CUDA tensors or raises; `kslots_cull_plain` and
+`perray_cull_plain`, the eager bodies in row chunks, are what the CPU
+takes (accel.kslots._tables and accel.traverse._perray_candidates
+dispatch on the device). kslots_cull returns kslots' table dict (cid [N,
+k_clusters] i32, n_slots, n_cand [N] i32; over, over_supers,
+over_clusters, phantom_only, live [N] bool), perray_cull (order [N, cap]
+i32, n_cand [N] i32 clipped to cap, overflow [N] bool); each equal to its
+plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -53,6 +72,7 @@ from path_tracer_ai_tpu_torch.utils import sync
 INF = float("inf")
 SOURCE = "packet_cull"
 WORKLIST_SOURCE = "worklist_cull"
+RAY_SOURCE = "ray_cull"
 # the largest C whose sort fits one thread block's shared memory
 # (8 * pow2(C) + 4 * C bytes; csrc/packet_cull.cu SMEM_LIMIT)
 SMEM_SORT_MAX_C = 16384
@@ -63,17 +83,19 @@ SMEM_SORT_MAX_C = 16384
 # depend on the step.
 CULL_ELEMS = 1 << 23
 
-# Kernel launches since the last reset, packet_cull's and worklist_cull's
-# (the plain versions count nothing); updated under sync.lock (the mesh's
-# workers launch from several threads).
+# Kernel launches since the last reset, packet_cull's, worklist_cull's,
+# kslots_cull's and perray_cull's (the plain versions count nothing);
+# updated under sync.lock (the mesh's workers launch from several threads).
 launches = 0
 worklist_launches = 0
+kslots_launches = 0
+perray_launches = 0
 
 
 def reset_launches() -> None:
-    global launches, worklist_launches
+    global launches, worklist_launches, kslots_launches, perray_launches
     with sync.lock:
-        launches = worklist_launches = 0
+        launches = worklist_launches = kslots_launches = perray_launches = 0
 
 
 def block_candidates_plain(accel, o_blk, d_blk, t_max_blk,
@@ -368,3 +390,255 @@ def worklist_cull(accel, o_blk, d_blk, tm_blk, cap: int, k_eff: int,
     with sync.lock:
         worklist_launches += 1
     return order, n_cand, over
+
+
+# ---- the per-ray culls: kslots_cull, perray_cull ---------------------------
+
+# the largest super list a warp of kslots_cull keeps (csrc/ray_cull.cu)
+MAX_SUPERS = 1536
+
+
+def _kslots_chunk(accel, oc, dc, tc, t_min, k_supers: int, k_clusters: int,
+                  levels: int) -> dict:
+    """CULL + EXTRACT for one row chunk (kslots.py:106-163): the [R, K] cid
+    table (clamped to C - 1, phantom children included), n_slots (0 on
+    overflow), over, n_cand, and the overflow split (over_supers,
+    over_clusters, phantom_only)."""
+    from path_tracer_ai_tpu_torch.accel import worklist
+    from path_tracer_ai_tpu_torch.accel.kslots import _ray_slab
+
+    r = oc.shape[0]
+    c = accel.num_clusters
+    dev = oc.device
+    live = tc >= 0.0
+    lo0 = torch.full((r,), float(t_min), dtype=torch.float32, device=dev)
+    hi0 = torch.where(live, tc, -INF)
+
+    if levels == 2:
+        ss = accel.super_size
+        cs = accel.num_supers
+        cand_s = _ray_slab(accel.sbmin, accel.sbmax, oc, dc, lo0, hi0)
+        over_s = cand_s.sum(dim=1) > k_supers
+        sup = worklist._extract_k(cand_s, k_supers, cs).long()
+        sup_c = torch.clamp(sup, max=cs - 1)
+        cbmin = accel.cbmin[sup_c].reshape(r, k_supers * ss, 3)
+        cbmax = accel.cbmax[sup_c].reshape(r, k_supers * ss, 3)
+        sup_live = (sup < cs).repeat_interleave(ss, dim=1)
+        cand = _ray_slab(cbmin, cbmax, oc, dc, lo0, hi0) & sup_live
+        cid_table = (sup_c[:, :, None] * ss
+                     + torch.arange(ss, device=dev)[None, None, :]).reshape(
+                         r, k_supers * ss)
+        n_real = (cand & (cid_table < c)).sum(dim=1)
+    else:
+        cand = _ray_slab(accel.bmin, accel.bmax, oc, dc, lo0, hi0)
+        over_s = torch.zeros((r,), dtype=torch.bool, device=dev)
+        cid_table = None
+        n_real = None
+
+    n_cand = cand.sum(dim=1).to(torch.int32)
+    over = over_s | (n_cand > k_clusters)
+    cand = cand & ~over[:, None]
+
+    cols = cand.shape[1]
+    slot = worklist._extract_k(cand, k_clusters, cols).long()   # [R, K]
+    if cid_table is None:
+        cid = torch.clamp(slot, max=cols - 1)
+    else:
+        cid = torch.gather(cid_table, 1, torch.clamp(slot, max=cols - 1))
+    cid = torch.clamp(cid, max=c - 1).to(torch.int32)
+    over_c = over & ~over_s
+    phantom = (over_c & (n_real <= k_clusters) if n_real is not None
+               else torch.zeros_like(over))
+    return {"cid": cid, "n_slots": torch.where(over, 0, n_cand),
+            "over": over, "n_cand": n_cand, "over_supers": over_s,
+            "over_clusters": over_c, "phantom_only": phantom, "live": live}
+
+
+def kslots_cull_plain(accel, origins, directions, t_max, t_min,
+                      k_supers: int, k_clusters: int, levels: int,
+                      row_chunk: int = 1 << 15) -> dict:
+    """kslots' cull in eager torch, `row_chunk` rays at a time (the tables
+    do not depend on the step): the dict of kslots_cull."""
+    parts = [_kslots_chunk(accel, origins[a:a + row_chunk],
+                           directions[a:a + row_chunk],
+                           t_max[a:a + row_chunk], t_min, k_supers,
+                           k_clusters, levels)
+             for a in range(0, max(origins.shape[0], 1), row_chunk)]
+    return {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
+
+
+def _ray_lib():
+    lib = cuda_build.load(RAY_SOURCE)
+    if lib.kslots_cull.argtypes is None:
+        lib.kslots_cull.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 4
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 8)
+        lib.kslots_cull.restype = ctypes.c_int
+        lib.perray_cull.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 2
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
+        lib.perray_cull.restype = ctypes.c_int
+    return lib
+
+
+def ray_occupancy(k_supers: int = 6) -> dict:
+    """Registers and resident warps per SM of kslots_cull (a list of
+    k_supers supers a warp) and perray_cull (needs the card)."""
+    from path_tracer_ai_tpu_torch.accel.cuda_ctiles import read_occupancy
+
+    lib = cuda_build.load(RAY_SOURCE)
+    return {"kslots_cull": read_occupancy(lib.kslots_cull_occupancy,
+                                          k_supers),
+            "perray_cull": read_occupancy(lib.perray_cull_occupancy)}
+
+
+def _ray_inputs(who, origins, directions, t_max, boxes):
+    """Checks the rays [N, 3], t_max [N] and the boxes ((name, tensor,
+    ndim)...) of a per-ray cull: type, rank, layout, shapes, then the
+    device."""
+    tensors = (("origins", origins, 2), ("directions", directions, 2),
+               ("t_max", t_max, 1), *boxes)
+    _check(tensors, device=False)
+    n = origins.shape[0]
+    if (origins.shape[1] != 3 or directions.shape != origins.shape
+            or tuple(t_max.shape) != (n,)
+            or any(x.shape[-1] != 3 for _n, x, _d in boxes)
+            or boxes[1][1].shape != boxes[0][1].shape):
+        raise ValueError(f"{who} takes origins / directions [N, 3], t_max "
+                         f"[N] and boxes [..., 3]")
+    _check(tensors, who=who)
+    if any(x.device != origins.device for _n, x, _d in tensors):
+        raise ValueError(f"{who} takes every tensor on one card")
+    return n
+
+
+def kslots_cull(accel, origins, directions, t_max, t_min, k_supers: int,
+                k_clusters: int, levels: int) -> dict:
+    """kslots' cull on the card, one launch: the dict of kslots_cull_plain
+    (cid [N, k_clusters] i32, n_slots, n_cand [N] i32; over, over_supers,
+    over_clusters, phantom_only, live [N] bool). levels 1 culls against
+    accel.bmin / bmax, levels 2 through accel.sbmin / sbmax and cbmin /
+    cbmax. Raises on a tensor that is not a contiguous f32 CUDA tensor of
+    the layout above, on bad sizes, and where the launch fails."""
+    global kslots_launches
+    if levels not in (1, 2):
+        raise ValueError(f"kslots_cull takes levels 1 or 2, not {levels}")
+    boxes = ((("bmin", accel.bmin, 2), ("bmax", accel.bmax, 2))
+             if levels == 1 else
+             (("sbmin", accel.sbmin, 2), ("sbmax", accel.sbmax, 2),
+              ("cbmin", accel.cbmin, 3), ("cbmax", accel.cbmax, 3)))
+    c = accel.num_clusters
+    n_boxes = boxes[0][1].shape[0]
+    ss = accel.cbmin.shape[1] if levels == 2 else 1
+    if (c < 1 or k_clusters < 0
+            or (levels == 1 and n_boxes != c)
+            or (levels == 2 and not 1 <= min(k_supers, n_boxes) <= MAX_SUPERS)
+            or (levels == 2 and (tuple(accel.cbmin.shape[:1]) != (n_boxes,)
+                                 or accel.cbmax.shape != accel.cbmin.shape
+                                 or n_boxes * ss < c))):
+        raise ValueError(f"kslots_cull takes C >= 1 boxes [C, 3] (levels 1) "
+                         f"or supers [Cs, 3] and children [Cs, ss, 3] with "
+                         f"1 <= min(k_supers, Cs) <= {MAX_SUPERS} (levels 2), "
+                         f"k_clusters >= 0; not C = {c}, k_supers = "
+                         f"{k_supers}, k_clusters = {k_clusters}")
+    n = _ray_inputs("kslots_cull", origins, directions, t_max, boxes)
+    dev = origins.device
+    out = {"cid": torch.empty((n, k_clusters), dtype=torch.int32, device=dev),
+           **{k: torch.empty((n,), dtype=torch.int32, device=dev)
+              for k in ("n_slots", "n_cand")},
+           **{k: torch.empty((n,), dtype=torch.bool, device=dev)
+              for k in ("over", "over_supers", "over_clusters",
+                        "phantom_only")}}
+    out["live"] = t_max >= 0.0
+    if n == 0:
+        return out
+    child = ((accel.cbmin.data_ptr(), accel.cbmax.data_ptr())
+             if levels == 2 else (None, None))
+    err = cuda_build.launch(
+        _ray_lib().kslots_cull, dev, origins.data_ptr(),
+        directions.data_ptr(), t_max.data_ptr(), float(t_min),
+        boxes[0][1].data_ptr(), boxes[1][1].data_ptr(), *child, n, c,
+        n_boxes, ss, levels, k_supers, k_clusters, out["cid"].data_ptr(),
+        out["n_cand"].data_ptr(), out["n_slots"].data_ptr(),
+        *(out[k].data_ptr() for k in ("over", "over_supers",
+                                      "over_clusters", "phantom_only")))
+    if err != 0:
+        raise RuntimeError(f"kslots_cull launch failed: cudaError {err}")
+    with sync.lock:
+        kslots_launches += 1
+    return out
+
+
+def perray_slab_plain(accel, oc, dc, tc, t_min):
+    """perray's inclusive slab test of [rows] rays against every cluster
+    box, comparison-select form (a 0 * inf NaN keeps the running bound):
+    (cand [rows, C] bool, the entry lo [rows, C] f32)."""
+    inv = 1.0 / dc
+    t0 = (accel.bmin[None] - oc[:, None, :]) * inv[:, None, :]
+    t1 = (accel.bmax[None] - oc[:, None, :]) * inv[:, None, :]
+    neg = inv[:, None, :] < 0.0
+    near = torch.where(neg, t1, t0)
+    far = torch.where(neg, t0, t1)
+    lo_t = torch.full(near.shape[:2], float(t_min), dtype=torch.float32,
+                      device=oc.device)
+    hi_t = torch.minimum(tc[:, None].expand(near.shape[:2]),
+                         torch.full((), INF, device=oc.device))
+    for a in range(3):
+        lo_t = torch.where(near[..., a] > lo_t, near[..., a], lo_t)
+        hi_t = torch.where(far[..., a] < hi_t, far[..., a], hi_t)
+    return hi_t >= lo_t, lo_t
+
+
+def perray_cull_plain(accel, origins, directions, t_min, t_max, cap: int,
+                      row_chunk: int = 1 << 14):
+    """perray's candidate lists in order_mode "id", in eager torch,
+    `row_chunk` rays at a time: (order [N, cap] i32, n_cand [N] i32
+    clipped to cap, overflow [N] bool), as perray_cull."""
+    n = origins.shape[0]
+    c = accel.num_clusters
+    dev = origins.device
+    kx = min(cap, c)
+    order = torch.zeros((n, cap), dtype=torch.int32, device=dev)
+    n_cand = torch.zeros((n,), dtype=torch.int32, device=dev)
+    targets = torch.arange(1, kx + 1, dtype=torch.int32, device=dev)
+    for lo in range(0, n, row_chunk):
+        hi = min(lo + row_chunk, n)
+        cand, _lo_t = perray_slab_plain(accel, origins[lo:hi],
+                                        directions[lo:hi], t_max[lo:hi],
+                                        t_min)                # [r, C]
+        n_cand[lo:hi] = cand.sum(dim=1).to(torch.int32)
+        cums = torch.cumsum(cand.to(torch.int32), dim=1)
+        ok = torch.searchsorted(cums,
+                                targets.expand(hi - lo, kx).contiguous())
+        order[lo:hi, :kx] = torch.clamp(ok, max=c - 1).to(torch.int32)
+    return order, torch.clamp(n_cand, max=cap), n_cand > cap
+
+
+def perray_cull(accel, origins, directions, t_min, t_max, cap: int):
+    """perray's candidate lists on the card, one launch: (order [N, cap]
+    i32, n_cand [N] i32, overflow [N] bool), as perray_cull_plain. Raises
+    on a tensor that is not a contiguous f32 CUDA tensor of the layout
+    above, on bad sizes, and where the launch fails."""
+    global perray_launches
+    c = accel.num_clusters
+    boxes = (("bmin", accel.bmin, 2), ("bmax", accel.bmax, 2))
+    if c < 1 or cap < 0 or tuple(accel.bmin.shape[:1]) != (c,):
+        raise ValueError(f"perray_cull takes C >= 1 boxes [C, 3] and cap >= "
+                         f"0, not C = {c}, cap = {cap}")
+    n = _ray_inputs("perray_cull", origins, directions, t_max, boxes)
+    dev = origins.device
+    order = torch.empty((n, cap), dtype=torch.int32, device=dev)
+    n_cand = torch.empty((n,), dtype=torch.int32, device=dev)
+    overflow = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n == 0:
+        return order, n_cand, overflow
+    err = cuda_build.launch(
+        _ray_lib().perray_cull, dev, origins.data_ptr(),
+        directions.data_ptr(), t_max.data_ptr(), float(t_min),
+        accel.bmin.data_ptr(), accel.bmax.data_ptr(), n, c, cap,
+        order.data_ptr(), n_cand.data_ptr(), overflow.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"perray_cull launch failed: cudaError {err}")
+    with sync.lock:
+        perray_launches += 1
+    return order, n_cand, overflow

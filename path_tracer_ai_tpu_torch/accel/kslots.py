@@ -12,7 +12,10 @@ no cascade:
              (worklist._extract_k, straight from the bool matrix). The
              reference packs the set into 32-bit words and peels them;
              `_pack_bits` and `_peel_k` keep that contract, bitwise, and
-             give the same ids.
+             give the same ids. On the card CULL + EXTRACT are one launch
+             of the kslots_cull kernel (csrc/ray_cull.cu via
+             accel.cuda_cull); the CPU runs its plain version, the eager
+             body in row chunks of `row_chunk` rays.
 3. SWEEP   — csrc/kslot_sweep.cu (accel.cuda_kslots): each ray tests the S
              triangles of its n_slots clusters, and
 4. RESOLVE — in the same kernel, with the brute-force oracle's
@@ -21,8 +24,8 @@ no cascade:
 Rays with more than `k_supers` supers or more than `k_clusters` clusters
 overflow and complete exactly through worklist._overflow_fallback (pair
 tiles on a compacted wave), which reads the overflow count on the host
-once a query. The cull runs in row chunks of `row_chunk` rays, so its
-memory is O(row_chunk * K * S); the last chunk is ragged where the
+once a query. On the CPU the cull runs in row chunks of `row_chunk` rays,
+so its memory is O(row_chunk * K * S); the last chunk is ragged where the
 reference pads it with dead rows (d 1, t_max -1), which changes nothing,
 rows being independent. The sweep is one launch over the query's rays.
 
@@ -40,7 +43,12 @@ from __future__ import annotations
 
 import torch
 
-from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_kslots, worklist
+from path_tracer_ai_tpu_torch.accel import (
+    cuda_ctiles,
+    cuda_cull,
+    cuda_kslots,
+    worklist,
+)
 from path_tracer_ai_tpu_torch.accel.clusters import ClusterAccel
 from path_tracer_ai_tpu_torch.accel.traverse import PacketHit
 from path_tracer_ai_tpu_torch.utils import sync
@@ -147,74 +155,29 @@ def resolve_levels(accel: ClusterAccel, levels: int) -> int:
     return levels
 
 
-def _chunk_tables(accel: ClusterAccel, oc, dc, tc, t_min, k_supers: int,
-                  k_clusters: int, levels: int) -> dict:
-    """CULL + EXTRACT for one row chunk (kslots.py:106-163): the [R, K] cid
-    table (clamped to C - 1, phantom children included), n_slots (0 on
-    overflow), over, n_cand, and the overflow split (over_supers,
-    over_clusters, phantom_only)."""
-    r = oc.shape[0]
-    c = accel.num_clusters
-    dev = oc.device
-    live = tc >= 0.0
-    lo0 = torch.full((r,), float(t_min), dtype=torch.float32, device=dev)
-    hi0 = torch.where(live, tc, -INF)
-
-    if levels == 2:
-        ss = accel.super_size
-        cs = accel.num_supers
-        cand_s = _ray_slab(accel.sbmin, accel.sbmax, oc, dc, lo0, hi0)
-        over_s = cand_s.sum(dim=1) > k_supers
-        sup = worklist._extract_k(cand_s, k_supers, cs).long()
-        sup_c = torch.clamp(sup, max=cs - 1)
-        cbmin = accel.cbmin[sup_c].reshape(r, k_supers * ss, 3)
-        cbmax = accel.cbmax[sup_c].reshape(r, k_supers * ss, 3)
-        sup_live = (sup < cs).repeat_interleave(ss, dim=1)
-        cand = _ray_slab(cbmin, cbmax, oc, dc, lo0, hi0) & sup_live
-        cid_table = (sup_c[:, :, None] * ss
-                     + torch.arange(ss, device=dev)[None, None, :]).reshape(
-                         r, k_supers * ss)
-        n_real = (cand & (cid_table < c)).sum(dim=1)
-    else:
-        cand = _ray_slab(accel.bmin, accel.bmax, oc, dc, lo0, hi0)
-        over_s = torch.zeros((r,), dtype=torch.bool, device=dev)
-        cid_table = None
-        n_real = None
-
-    n_cand = cand.sum(dim=1).to(torch.int32)
-    over = over_s | (n_cand > k_clusters)
-    cand = cand & ~over[:, None]
-
-    cols = cand.shape[1]
-    slot = worklist._extract_k(cand, k_clusters, cols).long()   # [R, K]
-    if cid_table is None:
-        cid = torch.clamp(slot, max=cols - 1)
-    else:
-        cid = torch.gather(cid_table, 1, torch.clamp(slot, max=cols - 1))
-    cid = torch.clamp(cid, max=c - 1).to(torch.int32)
-    over_c = over & ~over_s
-    phantom = (over_c & (n_real <= k_clusters) if n_real is not None
-               else torch.zeros_like(over))
-    return {"cid": cid, "n_slots": torch.where(over, 0, n_cand),
-            "over": over, "n_cand": n_cand, "over_supers": over_s,
-            "over_clusters": over_c, "phantom_only": phantom, "live": live}
-
-
 def _tables(accel, origins, directions, t_max, t_min, k_supers: int,
             k_clusters: int, levels: int, row_chunk: int) -> dict:
-    """_chunk_tables over the rays in row chunks of `row_chunk`, joined."""
+    """CULL + EXTRACT of the query's rays (kslots.py:106-163): the [N, K]
+    cid table (clamped to C - 1, phantom children included), n_slots (0 on
+    overflow), over, n_cand, the overflow split (over_supers,
+    over_clusters, phantom_only) and live. On the card one launch of the
+    kslots_cull kernel (accel.cuda_cull), which raises if it cannot run;
+    on the CPU its plain version, eager torch in row chunks of
+    `row_chunk`."""
     levels = resolve_levels(accel, levels)
-    parts = [_chunk_tables(accel, origins[a:a + row_chunk],
-                           directions[a:a + row_chunk],
-                           t_max[a:a + row_chunk], t_min, k_supers,
-                           k_clusters, levels)
-             for a in range(0, max(origins.shape[0], 1), row_chunk)]
-    return {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
+    if origins.device.type == "cpu":
+        return cuda_cull.kslots_cull_plain(accel, origins, directions, t_max,
+                                           t_min, k_supers, k_clusters,
+                                           levels, row_chunk)
+    return cuda_cull.kslots_cull(accel, origins.contiguous(),
+                                 directions.contiguous(), t_max.contiguous(),
+                                 t_min, k_supers, k_clusters, levels)
 
 
 def _run(accel, origins, directions, t_min, t_max, k_supers, k_clusters,
          levels, row_chunk, want_tri, tri_pack):
-    """The cull in row chunks, then one kslot_sweep over the query's rays.
+    """The cull (one kslots_cull launch on the card), then one kslot_sweep
+    over the query's rays.
     Returns ((t, tri) or (occluded,), over)."""
     global queries
     dev = origins.device

@@ -35,9 +35,11 @@ ray) run the same static stages, each ONE call of
 accel.cuda_cascade.perray_stage (on the card one launch of the stage
 kernel with the perray folds, whose sweeps are the per-ray K-slot sweep's
 walk of one ray, csrc/kslot_sweep.cu); they read the host once a call, the
-overflow count. In the reference these sweeps are XLA-fused bodies, not
-Pallas kernels. On the CPU their stage runs its plain version over the
-plain eager sweeps `_packet_sweep_closest` / `_packet_sweep_any`.
+overflow count. Their candidate lists are one launch of the perray_cull
+kernel on the card (accel.cuda_cull, csrc/ray_cull.cu). In the reference
+these sweeps and lists are XLA-fused bodies, not Pallas kernels. On the
+CPU their stage runs its plain version over the plain eager sweeps
+`_packet_sweep_closest` / `_packet_sweep_any`.
 """
 
 from __future__ import annotations
@@ -591,52 +593,44 @@ def _perray_candidates(accel: ClusterAccel, origins, directions, t_min, t_max,
                        order_mode: str = "id"):
     """Exact per-ray candidate clusters, capped at `cap` per ray: every ray
     gets its own inclusive slab test against all C cluster AABBs (the
-    comparison-select form: a 0 * inf NaN keeps the running bound), rows
-    `row_chunk` at a time.
+    comparison-select form: a 0 * inf NaN keeps the running bound).
 
-    order_mode "id": ascending cluster ids (cumsum + searchsorted; slots
-    past the count hold C - 1), entry 0; "entry": front to back by slab
-    entry (a stable argsort; past the count, the non-candidates in id
-    order), entry the entry t (inf past the count). Columns past C, where
-    cap > C, hold 0 and entry inf.
+    order_mode "id": ascending cluster ids (slots past the count hold
+    C - 1), entry 0; on the card one launch of the perray_cull kernel
+    (accel.cuda_cull), which raises if it cannot run; on the CPU its plain
+    version (cumsum + searchsorted, rows `row_chunk` at a time). "entry"
+    (no query takes it): front to back by slab entry (a stable argsort;
+    past the count, the non-candidates in id order), entry the entry t
+    (inf past the count), eager torch on every device. Columns past C,
+    where cap > C, hold 0 and entry inf.
     Returns (order [N, cap] i32, n_cand [N] i32 clipped to cap, entry
     [N, cap] f32, overflow [N] bool: more than cap candidates)."""
     n = origins.shape[0]
     c = accel.num_clusters
     dev = origins.device
     kx = min(cap, c)
-    order = torch.zeros((n, cap), dtype=torch.int32, device=dev)
     entry = torch.full((n, cap), INF, dtype=torch.float32, device=dev)
+    if order_mode != "entry":
+        if dev.type == "cpu":
+            order, n_cand, overflow = cuda_cull.perray_cull_plain(
+                accel, origins, directions, t_min, t_max, cap, row_chunk)
+        else:
+            order, n_cand, overflow = cuda_cull.perray_cull(
+                accel, origins.contiguous(), directions.contiguous(), t_min,
+                t_max.contiguous(), cap)
+        entry[:, :kx] = 0.0
+        return order, n_cand, entry, overflow
+    order = torch.zeros((n, cap), dtype=torch.int32, device=dev)
     n_cand = torch.zeros((n,), dtype=torch.int32, device=dev)
-    targets = torch.arange(1, kx + 1, dtype=torch.int32, device=dev)
     for lo in range(0, n, row_chunk):
         hi = min(lo + row_chunk, n)
-        oc, dc, tc = origins[lo:hi], directions[lo:hi], t_max[lo:hi]
-        inv = 1.0 / dc
-        t0 = (accel.bmin[None] - oc[:, None, :]) * inv[:, None, :]
-        t1 = (accel.bmax[None] - oc[:, None, :]) * inv[:, None, :]
-        neg = inv[:, None, :] < 0.0
-        near = torch.where(neg, t1, t0)
-        far = torch.where(neg, t0, t1)
-        lo_t = torch.full(near.shape[:2], float(t_min), dtype=torch.float32,
-                          device=dev)
-        hi_t = torch.minimum(tc[:, None].expand(near.shape[:2]),
-                             torch.full((), INF, device=dev))
-        for a in range(3):
-            lo_t = torch.where(near[..., a] > lo_t, near[..., a], lo_t)
-            hi_t = torch.where(far[..., a] < hi_t, far[..., a], hi_t)
-        cand = hi_t >= lo_t                                   # [r, C]
+        cand, lo_t = cuda_cull.perray_slab_plain(
+            accel, origins[lo:hi], directions[lo:hi], t_max[lo:hi], t_min)
         n_cand[lo:hi] = cand.sum(dim=1).to(torch.int32)
-        if order_mode == "entry":
-            ent = torch.where(cand, lo_t, INF)
-            ok = torch.argsort(ent, dim=1, stable=True)[:, :kx]
-            order[lo:hi, :kx] = ok.to(torch.int32)
-            entry[lo:hi, :kx] = torch.gather(ent, 1, ok)
-        else:
-            cums = torch.cumsum(cand.to(torch.int32), dim=1)
-            ok = torch.searchsorted(cums, targets.expand(hi - lo, kx).contiguous())
-            order[lo:hi, :kx] = torch.clamp(ok, max=c - 1).to(torch.int32)
-            entry[lo:hi, :kx] = 0.0
+        ent = torch.where(cand, lo_t, INF)
+        ok = torch.argsort(ent, dim=1, stable=True)[:, :kx]
+        order[lo:hi, :kx] = ok.to(torch.int32)
+        entry[lo:hi, :kx] = torch.gather(ent, 1, ok)
     return order, torch.clamp(n_cand, max=cap), entry, n_cand > cap
 
 

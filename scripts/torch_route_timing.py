@@ -26,7 +26,9 @@ on one card. Needs a GPU.
 
 --profile ROUTES: after the rounds, each of these routes renders twice
 more: once with the tree's host-read counts (utils.sync, by call site
-where the tree has them) and kernel launch counts set to 0, and once under
+where the tree has them) and kernel launch counts set to 0 (and, for
+kslots, the device seconds of its stages: cull, sweep, fallback, by wave
+type; CUDA events, accel.kslots.stage_events), and once under
 torch.profiler (device kernels and their seconds, the busy share over the
 route's fastest round, the kernels whose symbols name a cascade's
 sweep or stage, and the twelve kernels that took the most device time).
@@ -185,6 +187,11 @@ def _launch_counts() -> dict:
             continue
         n = getattr(mod, "launches", None)
         out[name] = dict(n) if isinstance(n, dict) else n
+        # the module's other counters (cuda_cull: worklist_launches, ...)
+        for attr in dir(mod):
+            if attr.endswith("_launches") and isinstance(
+                    getattr(mod, attr), int):
+                out[f"{name}.{attr}"] = getattr(mod, attr)
     return out
 
 
@@ -205,12 +212,19 @@ def _profile(fn, timed, best_seconds) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from path_tracer_ai_tpu_torch.accel import kslots
     from path_tracer_ai_tpu_torch.utils import sync
 
     sync.reset()
     _reset_launches()
-    seconds = timed(fn)
+    kslots.stage_events = {}
+    try:
+        seconds = timed(fn)
+        stages = kslots.stage_seconds()
+    finally:
+        kslots.stage_events = None
     res = {"seconds": seconds, "host_reads": sync.count,
+           **({"kslots_stage_seconds": stages} if stages else {}),
            "host_read_sites": dict(sorted(
                getattr(sync, "sites", {}).items(), key=lambda kv: -kv[1])),
            "launches": _launch_counts()}
@@ -228,7 +242,7 @@ def _profile(fn, timed, best_seconds) -> dict:
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")
                and e.key not in ("closest_wave", "shadow_wave")
-               and not e.key.startswith("worklist_")]
+               and not e.key.startswith(("worklist_", "kslots_"))]
     busy = sum(dev_us(e) for e in kernels) / 1e6
     res.update({
         "device_kernels": int(sum(e.count for e in kernels)),

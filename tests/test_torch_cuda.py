@@ -801,8 +801,8 @@ def _kslot_wave(acc, rng, n, k_clusters, shadow):
     o, d, tm = _bounce_wave(acc, n, rng)
     if not shadow:
         tm = torch.where(tm >= 0, torch.inf, tm)
-    tab = kslots._chunk_tables(acc, o, d, tm, 1e-3, 6, k_clusters,
-                               kslots.resolve_levels(acc, 0))
+    tab = cuda_cull._kslots_chunk(acc, o, d, tm, 1e-3, 6, k_clusters,
+                                  kslots.resolve_levels(acc, 0))
     tb = torch.where(tab["live"] & ~tab["over"], tm, -1.0)
     return (cuda_ctiles.pack_tris(acc),
             cuda_kslots.pack_rays(o, d, tb, 1e-3), tab["cid"],
@@ -1798,6 +1798,34 @@ def test_closest_gate_keeps_a_corner_hit_on_the_card(cuda, s):
             assert torch.equal(_bits(got[0]), _bits(w[0]))
 
 
+@pytest.mark.parametrize("rescue", [False, True])
+@pytest.mark.parametrize("s", [32, 128])
+def test_closest_gate_at_a_grazing_angle_on_the_card(cuda, s, rescue):
+    """block_closest on the port's crafted grazing ray (grazing_case: the
+    gate skips its hit at the window's end, a standing deviation), tuned
+    (S 128) and generic, alone in its block and beside a lane whose gate
+    passes: the plain version's bits; lane 0 keeps no hit."""
+    from contextlib import nullcontext
+
+    from path_tracer_ai_tpu_torch.convert import accel_from_numpy
+
+    case = cases.grazing_case("port", rescue, 128, s)
+    bb = np.zeros((1, 3), np.float32)
+    acc = accel_from_numpy(case["bmin"], case["bmax"], case["v0"],
+                           case["e1"], case["e2"], case["tri_id"], bb[0],
+                           bb[0], bb, bb, bb[None], bb[None], device=cuda)
+    pack = cuda_anyhit.pack_tris_dummy(acc)
+    rays = torch.as_tensor(case["rays"], device=cuda)
+    cid8 = torch.as_tensor(case["cid8"], device=cuda)
+    want = cuda_closest.block_closest_plain(pack, rays, cid8, True)
+    assert not torch.isfinite(want[0][0, 0])
+    for forced in (False, True):
+        with generic_instances() if forced else nullcontext():
+            got = cuda_closest.block_closest(pack, rays, cid8, sub_skip=True)
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(_bits(got[0]), _bits(want[0]))
+
+
 @pytest.mark.parametrize("query", ["any", "any_skips", "any_exact",
                                    "closest", "closest_unsorted",
                                    "closest_exact"])
@@ -2564,3 +2592,138 @@ def test_worklist_query_reads_one_host_value(cuda, rng, query):
         assert torch.equal(got.tri.cpu(), want.tri)
     else:
         assert torch.equal(got.cpu(), want)
+
+
+# --- the per-ray culls: kslots_cull, perray_cull -----------------------------
+
+def _same_tables(got, want) -> bool:
+    return (set(got) == set(want)
+            and all(torch.equal(got[k].cpu(), want[k].cpu()) for k in got))
+
+
+KSLOTS_CULL_CARD = [(name, levels, ks_add, kc_add)
+                    for name in cases.RAY_CULL_CASES for levels in (1, 2)
+                    for ks_add, kc_add in ((0, 0), (1, 0), (0, 1), (0, -3))]
+
+
+@pytest.mark.parametrize("name,levels,ks_add,kc_add", KSLOTS_CULL_CARD)
+def test_kslots_cull_matches_plain(cuda, name, levels, ks_add, kc_add):
+    """kslots_cull on the crafted per-ray cull cases, at the case's caps,
+    one past each and a k_clusters most rays overflow, against its plain
+    version on the same inputs run on the CPU (where the tests hold it
+    against the JAX package): bit for bit, every table."""
+    case = cases.ray_cull_case(name)
+    ks, kc = case["ks"] + ks_add, max(case["kc"] + kc_add, 0)
+    acc, o, d, tm = _wl_case_args(case, cuda)
+    before = cuda_cull.kslots_launches
+    got = cuda_cull.kslots_cull(acc, o, d, tm, case["t_min"], ks, kc, levels)
+    assert cuda_cull.kslots_launches == before + 1
+    acc_c, *rays_c = _wl_case_args(case, "cpu")
+    want = cuda_cull.kslots_cull_plain(acc_c, *rays_c, case["t_min"], ks, kc,
+                                       levels)
+    torch.cuda.synchronize()
+    assert _same_tables(got, want)
+
+
+@pytest.mark.parametrize("cap_add", [0, 1, -4, 40])
+@pytest.mark.parametrize("name", cases.RAY_CULL_CASES)
+def test_perray_cull_matches_plain(cuda, name, cap_add):
+    """perray_cull on the crafted cases at the case's cap, one past it, a
+    cap most rays overflow and one past C, against its plain version run
+    on the CPU: bit for bit."""
+    case = cases.ray_cull_case(name)
+    cap = max(case["cap"] + cap_add, 0)
+    acc, o, d, tm = _wl_case_args(case, cuda)
+    before = cuda_cull.perray_launches
+    got = cuda_cull.perray_cull(acc, o, d, case["t_min"], tm, cap)
+    assert cuda_cull.perray_launches == before + 1
+    acc_c, o_c, d_c, tm_c = _wl_case_args(case, "cpu")
+    want = cuda_cull.perray_cull_plain(acc_c, o_c, d_c, case["t_min"], tm_c,
+                                       cap)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("levels", [1, 2])
+@pytest.mark.parametrize("s", [128, 16])
+def test_ray_culls_on_a_bounce_wave(cuda, rng, s, levels):
+    """A bounce wave on the blob accel in clusters of s (41 clusters in 3
+    supers at S 128, 321 in 21 at S 16), at caps most rays overflow and
+    the routes' own: both kernels against their plain versions run on the
+    card, bit for bit, with candidates and overflow."""
+    acc = _accel(cuda, s=s)
+    o, d, tm = _bounce_wave(acc, 1 << 14, rng)
+    seen_cand = seen_over = False
+    for ks, kc in ((2, 4), (6, 12), (6, 8)):
+        got = cuda_cull.kslots_cull(acc, o, d, tm, 1e-3, ks, kc, levels)
+        want = cuda_cull.kslots_cull_plain(acc, o, d, tm, 1e-3, ks, kc,
+                                           levels)
+        torch.cuda.synchronize()
+        assert _same_tables(got, want)
+        seen_cand |= bool((got["n_slots"] > 0).any())
+        seen_over |= bool(got["over"].any())
+    assert seen_cand and seen_over
+    if levels == 1:
+        for cap in (4, 64):
+            got = cuda_cull.perray_cull(acc, o, d, 1e-3, tm, cap)
+            want = cuda_cull.perray_cull_plain(acc, o, d, 1e-3, tm, cap)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            assert bool(got[2].any()) or cap > 4
+
+
+def test_queries_launch_the_ray_culls(cuda, rng):
+    """On the card a kslots query launches kslots_cull once and a perray
+    query (order_mode "id") perray_cull once, never the plain versions;
+    their results are the CPU's."""
+    from unittest import mock
+
+    from path_tracer_ai_tpu_torch.accel import kslots, traverse
+
+    acc = _accel(cuda)
+    o, d, tm = _bounce_wave(acc, 1 << 12, rng)
+
+    def no_plain(*a, **k):
+        raise AssertionError("a plain cull ran on the card")
+
+    cpu = acc.to("cpu")
+    with mock.patch.object(cuda_cull, "kslots_cull_plain", no_plain), \
+            mock.patch.object(cuda_cull, "perray_cull_plain", no_plain):
+        k0, p0 = cuda_cull.kslots_launches, cuda_cull.perray_launches
+        hit = kslots.closest_hit_kslots(acc, o, d, 1e-3, tm)
+        assert cuda_cull.kslots_launches == k0 + 1
+        occ = traverse.any_hit_perray(acc, o, d, 1e-3, tm)
+        assert cuda_cull.perray_launches == p0 + 1
+    want_hit = kslots.closest_hit_kslots(cpu, o.cpu(), d.cpu(), 1e-3, tm.cpu())
+    want_occ = traverse.any_hit_perray(cpu, o.cpu(), d.cpu(), 1e-3, tm.cpu())
+    assert torch.equal(_bits(hit.t.cpu()), _bits(want_hit.t))
+    assert torch.equal(hit.tri.cpu(), want_hit.tri)
+    assert torch.equal(occ.cpu(), want_occ)
+
+
+@pytest.mark.parametrize("which", ["kslots_cull", "perray_cull"])
+def test_ray_cull_launch_failure_raises(cuda, which):
+    """A refused launch raises; nothing falls back to the plain version."""
+    from unittest import mock
+
+    case = cases.ray_cull_case("count_edges")
+    acc, o, d, tm = _wl_case_args(case, cuda)
+
+    def refused(*a):
+        return 1  # cudaErrorInvalidValue
+
+    lib = mock.Mock(kslots_cull=refused, perray_cull=refused)
+    with mock.patch.object(cuda_cull, "_ray_lib", lambda: lib), \
+            mock.patch.object(cuda_cull, which + "_plain",
+                              mock.Mock(side_effect=AssertionError)):
+        with pytest.raises(RuntimeError, match=which):
+            if which == "kslots_cull":
+                cuda_cull.kslots_cull(acc, o, d, tm, 1e-3, 2, 6, 2)
+            else:
+                cuda_cull.perray_cull(acc, o, d, 1e-3, tm, 6)
+
+
+def test_ray_cull_occupancy(cuda):
+    occ = cuda_cull.ray_occupancy()
+    for name in ("kslots_cull", "perray_cull"):
+        assert occ[name]["registers"] > 0 and occ[name]["warps_per_sm"] >= 8

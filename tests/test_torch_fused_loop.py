@@ -600,3 +600,73 @@ def test_closest_gate_keeps_a_corner_hit():
                 _warp_voted(pack, rays, cid8, True)):
         assert torch.equal(got[1], ungated[1])
         assert torch.equal(_bits(got[0]), _bits(ungated[0]))
+
+
+@pytest.mark.parametrize("rescue", [False, True])
+@pytest.mark.parametrize("which", ["port", "jax"])
+def test_closest_gate_at_a_grazing_angle(which, rescue):
+    """The crafted grazing rays (test_torch_sweep_cases.grazing_case:
+    cos(ray, normal) x sin(smallest angle) under 1e-3, the window ending
+    at the package's own Möller–Trumbore t). The port's ray: the oracle
+    finds the triangle there, and so does the ungated sweep; the closest
+    gate on the grown box (block_closest_plain, the fused closest fold's
+    sweep) skips it. The JAX package's ray: its block_closest (interpret
+    mode) finds the triangle ungated, and its gate, on the box itself,
+    skips it where the lane votes alone. A standing deviation that both
+    packages share (ROADMAP.md §3): at such angles a gate on a box can skip
+    a hit. Beside a lane whose gate passes (rescue), the JAX package's vote
+    over the block sweeps the sub-slab and its lane 0 takes the hit; the
+    port's lane takes a sub-slab's hits only where its own gate passes, so
+    that its bits do not depend on the other rays of its block, and skips
+    it still."""
+    case = cases.grazing_case(which, rescue)
+    geo = {k: case[k] for k in ("v0", "e1", "e2", "tri_id")}
+    bb = np.zeros((1, 3), np.float32)
+    acc = accel_from_numpy(case["bmin"], case["bmax"], *geo.values(),
+                           bb[0], bb[0], bb, bb, bb[None], bb[None],
+                           device="cpu")
+    pack = cuda_anyhit.pack_tris_dummy(acc)
+    rays, cid8 = T(case["rays"]), T(case["cid8"])
+    # how grazing: cos(ray, normal) x sin(the smallest angle)
+    p = np.asarray(case["v"], np.float64)
+    nrm = np.cross(p[1] - p[0], p[2] - p[0])
+    d = case["rays"][0, 3:6, 0].astype(np.float64)
+    cos_a = abs(nrm @ d) / np.linalg.norm(nrm) / np.linalg.norm(d)
+    sines = [np.linalg.norm(np.cross(p[(i + 1) % 3] - p[i],
+                                     p[(i + 2) % 3] - p[i]))
+             / np.linalg.norm(p[(i + 1) % 3] - p[i])
+             / np.linalg.norm(p[(i + 2) % 3] - p[i]) for i in range(3)]
+    assert cos_a * min(sines) < 1e-3
+    jax_run = lambda sub_skip: np.asarray(jclosest.block_closest(
+        jnp.asarray(pack.numpy()), jnp.asarray(case["rays"]),
+        jnp.asarray(case["cid8"]), interpret=True, sub_skip=sub_skip))[0]
+    if which == "port":
+        # the oracle: the one triangle, the lane's window [T_MIN, t]
+        f = np.asarray(p, np.float32)[:, None, :]
+        z3, z2 = np.zeros((1, 3), np.float32), np.zeros((1, 2), np.float32)
+        tris = triangles_from_numpy(f[0], f[1], f[2], z3, z3, z3, z2, z2,
+                                    z2, np.zeros(1, np.int32), device="cpu")
+        bf = intersect.closest_hit(tris, rays[:, 0:3, 0], rays[:, 3:6, 0],
+                                   cases.T_MIN, rays[:, 6, 0])
+        assert bool(bf.hit[0]) and bf.t[0].item() == case["t"]
+        ungated = cuda_closest.block_closest_plain(pack, rays, cid8, False)
+        assert ungated[1][0, 0] == 7 and ungated[0][0, 0].item() == case["t"]
+        box = pack[:1, 10:16, 0]
+        inv = 1.0 / rays[:, 3:6]
+        touch = cuda_closest.gate_lanes(box, rays, inv, rays[:, 7],
+                                        rays[:, 6])
+        assert not touch[0, 0] and bool(touch[0, 32]) == rescue
+        got = cuda_closest.block_closest_plain(pack, rays, cid8, True)
+        assert got[0][0, 0].item() == float("inf")
+        assert got[1][0, 0] == I32_MAX
+        if rescue:  # the lane whose gate passes: the ungated sweep's bits
+            assert got[0][0, 32].item() == ungated[0][0, 32].item()
+    else:
+        ungated = jax_run(False)
+        assert ungated[1].view(np.int32)[0] == 7
+        assert ungated[0][0] == case["t"]
+        got = jax_run(True)
+        if rescue:
+            assert got[1].view(np.int32)[0] == 7 and got[0][0] == case["t"]
+        else:
+            assert np.isinf(got[0][0]) and got[1].view(np.int32)[0] == I32_MAX

@@ -20,7 +20,12 @@ from path_tracer_ai_tpu.accel import kslots as jkslots
 from path_tracer_ai_tpu.accel.clusters import build_clusters as jbuild
 from path_tracer_ai_tpu.accel.traverse import _mt_sweep
 from path_tracer_ai_tpu.core.types import triangles_from_numpy as jtris_np
-from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_kslots, kslots
+from path_tracer_ai_tpu_torch.accel import (
+    cuda_ctiles,
+    cuda_cull,
+    cuda_kslots,
+    kslots,
+)
 from path_tracer_ai_tpu_torch.convert import accel_from_numpy
 from path_tracer_ai_tpu_torch.core.types import triangles_from_numpy
 from path_tracer_ai_tpu_torch.engine import intersect
@@ -248,7 +253,7 @@ def test_phantom_children_tables_match_jax(rng):
     tm[::7] = -1.0
     ks, kc = 3, 3
     ref = _jax_tables(ja, o, d, tm, 1e-3, ks, kc)
-    got = kslots._chunk_tables(pa, T(o), T(d), T(tm), 1e-3, ks, kc, 2)
+    got = cuda_cull._kslots_chunk(pa, T(o), T(d), T(tm), 1e-3, ks, kc, 2)
     np.testing.assert_array_equal(got["n_cand"].numpy(), ref["n_cand"])
     np.testing.assert_array_equal(got["over"].numpy(), ref["over"])
     np.testing.assert_array_equal(got["cid"].numpy(), ref["cid"])
@@ -277,7 +282,7 @@ def test_kslot_sweep_plain_matches_the_eager_resolve(rng):
     o, d = _unit_rays(rng, 300, 6.0)
     tm = rng.uniform(0.3, 12.0, 300).astype(np.float32)
     tm[::7] = -1.0
-    tab = kslots._chunk_tables(pa, T(o), T(d), T(tm), 1e-3, 6, 5, 2)
+    tab = cuda_cull._kslots_chunk(pa, T(o), T(d), T(tm), 1e-3, 6, 5, 2)
     over = tab["over"].numpy()
     assert over.any() and (~over & (tm >= 0)).any()
     tb = np.where((tm >= 0) & ~over, tm, -1.0).astype(np.float32)

@@ -40,7 +40,7 @@ def test_wheel_holds_every_cuda_source(tmp_path):
     sources = sorted(f for f in os.listdir(csrc)
                      if f.endswith((".cu", ".cuh")))
     assert any(f.endswith(".cuh") for f in sources)
-    assert len([f for f in sources if f.endswith(".cu")]) == 9
+    assert len([f for f in sources if f.endswith(".cu")]) == 10
     for f in sources:
         assert f"{PORT}/csrc/{f}" in names, f
     assert f"{PORT}/cuda_build.py" in names

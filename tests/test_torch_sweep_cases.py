@@ -835,17 +835,13 @@ GATE_T = _hex("0x1.346a98p-4")
 GATE_S = 32  # one sub-slab
 
 
-def gate_corner_case(t_lanes: int = 64, s: int = GATE_S) -> dict:
-    """One cluster of s slots (the triangle, id 7, then zero triangles, id
-    -1) and one block of t_lanes lanes for block_closest:
-    lane 0 the corner ray, its window ending at GATE_T, as a running best
-    of that t would end it (an exact tie there must be found); lane 32 a ray
-    through the box's centre (its own gate passes, so a vote over the whole
-    block sweeps the sub-slab); the others dead. Returns the accel's
-    arrays (bmin, bmax, v0, e1, e2, tri_id), rays [1, 8, t_lanes] and cid8
-    [8] (cluster 0, then the dummy, id 1)."""
+def _one_triangle_block(v, o, d, t_end, t_lanes, s, centre_lane):
+    """One cluster of s slots (the triangle v, id 7, then zero triangles,
+    id -1) and one block of t_lanes lanes for block_closest: lane 0 the ray
+    (o, d), its window ending at t_end; lane centre_lane (unless None) a
+    ray through the box's centre with t_max +inf; the others dead."""
     f32 = np.float32
-    p = np.asarray(GATE_V, f32)
+    p = np.asarray(v, f32)
     v0 = np.zeros((1, s, 3), f32)
     e1 = np.zeros_like(v0)
     e2 = np.zeros_like(v0)
@@ -859,16 +855,80 @@ def gate_corner_case(t_lanes: int = 64, s: int = GATE_S) -> dict:
     rays[0, 5] = 1.0
     rays[0, 6] = -1.0
     rays[0, 7] = T_MIN
-    rays[0, 0:3, 0] = GATE_O
-    rays[0, 3:6, 0] = GATE_D
-    rays[0, 6, 0] = GATE_T
-    centre = (bmin[0] + bmax[0]) / 2
-    rays[0, 0:3, 32] = centre - np.asarray([0.0, 0.0, 4.0], f32)
-    rays[0, 6, 32] = np.inf
+    rays[0, 0:3, 0] = o
+    rays[0, 3:6, 0] = d
+    rays[0, 6, 0] = t_end
+    if centre_lane is not None:
+        centre = (bmin[0] + bmax[0]) / 2
+        rays[0, 0:3, centre_lane] = centre - np.asarray([0.0, 0.0, 4.0], f32)
+        rays[0, 6, centre_lane] = np.inf
     cid8 = np.ones(8, np.int32)
     cid8[0] = 0
     return {"bmin": bmin, "bmax": bmax, "v0": v0, "e1": e1, "e2": e2,
             "tri_id": tri_id, "rays": rays, "cid8": cid8}
+
+
+def gate_corner_case(t_lanes: int = 64, s: int = GATE_S) -> dict:
+    """One cluster of s slots (the triangle, id 7, then zero triangles, id
+    -1) and one block of t_lanes lanes for block_closest:
+    lane 0 the corner ray, its window ending at GATE_T, as a running best
+    of that t would end it (an exact tie there must be found); lane 32 a ray
+    through the box's centre (its own gate passes, so a vote over the whole
+    block sweeps the sub-slab); the others dead. Returns the accel's
+    arrays (bmin, bmax, v0, e1, e2, tri_id), rays [1, 8, t_lanes] and cid8
+    [8] (cluster 0, then the dummy, id 1)."""
+    return _one_triangle_block(GATE_V, GATE_O, GATE_D, GATE_T, t_lanes, s,
+                               32)
+
+
+# Two grazing rays, each found by a search of random triangles in
+# [-1, 1]^3 and rays at cos(ray, normal) = 1.0e-3 that end near a vertex,
+# far under the cos x sin(smallest angle) of ~0.1 that the port's closest
+# gate covers (csrc/mt.cuh gate_lane). At such angles the rounding of the
+# Möller–Trumbore t moves the test's point o + t d along the ray by
+# ~1e-4 of t, out of the triangle's box: with the window ending at that
+# t, as a running best of that t would end it, the sub-slab's gate skips
+# the hit that an ungated sweep finds. Each package rounds t its own way
+# (XLA's CPU code contracts FMAs, the port does not), so each has its own
+# ray: GRAZE_* the port's (its t, GRAZE_T, lies 3.3e-5 outside the box in
+# y, past the grown box's pad of 2^-16 x 2.04 = 3.1e-5; cos x sin =
+# 1.7e-4), JGRAZE_* the JAX package's (JGRAZE_T: block_closest's own t in
+# interpret mode in a block of 128 lanes, which the search used: XLA's
+# rounding of it depends on the block's width; its gate is the box
+# itself).
+GRAZE_V = tuple(tuple(map(_hex, v)) for v in (
+    ("-0x1.4f52e8p-3", "0x1.302a70p-1", "-0x1.7f9b5ep-2"),
+    ("0x1.0bbbdap-2", "0x1.2d5f84p-1", "-0x1.e49c24p-1"),
+    ("-0x1.a7b5c0p-1", "0x1.3aa060p-5", "0x1.0c4318p-1")))
+GRAZE_O = tuple(map(_hex, ("-0x1.e8c4acp-2", "0x1.1bd5f0p+0",
+                           "0x1.4de3b4p-5")))
+GRAZE_D = tuple(map(_hex, ("0x1.b6b400p-2", "-0x1.6801f8p-1",
+                           "-0x1.228e96p-1")))
+GRAZE_T = _hex("0x1.76bb56p-1")
+JGRAZE_V = tuple(tuple(map(_hex, v)) for v in (
+    ("-0x1.3e81e6p-2", "0x1.21959ap-1", "-0x1.15a022p-1"),
+    ("0x1.333e80p-6", "-0x1.b0d4acp-2", "-0x1.5a5364p-3"),
+    ("-0x1.fd19a4p-1", "-0x1.b71d60p-3", "-0x1.610182p-1")))
+JGRAZE_O = tuple(map(_hex, ("-0x1.30525cp-3", "0x1.560baap+0",
+                            "-0x1.46775ep-1")))
+JGRAZE_D = tuple(map(_hex, ("-0x1.a36c52p-3", "-0x1.f159dcp-1",
+                            "0x1.ec95b0p-4")))
+JGRAZE_T = _hex("0x1.962032p-1")
+
+
+def grazing_case(which: str, rescue: bool, t_lanes: int = 128,
+                 s: int = GATE_S) -> dict:
+    """gate_corner_case's layout for a grazing ray (lane 0): the port's
+    (which "port": GRAZE_*, its window ending at GRAZE_T) or the JAX
+    package's ("jax": JGRAZE_*, at JGRAZE_T), alone in its block (the
+    others dead), or, with `rescue`, beside a lane 32 whose ray passes
+    through the box's centre, so that a gate voted over the whole block
+    (the JAX package's) sweeps the sub-slab for lane 0 too. Also "v" (the
+    triangle), "t" (the window's end)."""
+    v, o, d, t = ((GRAZE_V, GRAZE_O, GRAZE_D, GRAZE_T) if which == "port"
+                  else (JGRAZE_V, JGRAZE_O, JGRAZE_D, JGRAZE_T))
+    return {**_one_triangle_block(v, o, d, t, t_lanes, s,
+                                  32 if rescue else None), "v": v, "t": t}
 
 
 # ---- ctiles' static slot tables (slot_sweep) ----------------------------
@@ -1251,3 +1311,122 @@ def wl_cull_case(name: str, seed: int = 0) -> dict:
     return {"o": f(o), "d": f(d), "tm": f(tm), "bmin": f(bmin),
             "bmax": f(bmax), **wl_supers(f(bmin), f(bmax), ss), "ss": ss,
             "cap": cap, "super_cap": super_cap, "levels": levels}
+
+
+# ---- the per-ray culls (ray_cull_case) ------------------------------------
+
+RAY_CULL_CASES = ("t_max_values", "axis_on_plane", "signed_zero", "flat_boxes",
+                  "count_edges", "phantoms", "small_c", "pad_rule")
+
+
+def _place_line(bmin, bmax, ids, k, n_on):
+    """Clusters `ids` on line k (_line_boxes): the first n_on on the path
+    at t = 1 .. n_on, the rest past its rays' t_max."""
+    lo, hi = _line_boxes(n_on, len(ids), k)
+    bmin[ids], bmax[ids] = lo, hi
+
+
+def ray_cull_case(name: str, seed: int = 0) -> dict:
+    """One per-ray cull input for kslots' cull (accel.cuda_cull
+    kslots_cull) and perray's (perray_cull): rays o, d [N, 3], tm [N]
+    (t_max), t_min, boxes bmin, bmax [C, 3] and their supers of `ss`
+    (wl_supers), all f32, with the case's k_supers (ks), k_clusters (kc)
+    and cap (perray). Held at those and one past each. The line cases lay
+    clusters along lines far apart (_line_boxes), so that a line's rays
+    have exactly its on-path clusters as candidates, and move the other,
+    random boxes far from the lines:
+    t_max_values: t_min 0, C 70 random boxes, t_max cycling through -1,
+      -0.0, +0.0, NaN, +inf and [0.5, 4]; every fourth ray starts at a
+      box's centre (a candidate at entry 0, also at t_max -0.0);
+    axis_on_plane: d = +-e_a with +0.0 in the other components and the
+      origin on a box's plane of one of those axes (0 x inf = NaN in the
+      slab);
+    signed_zero: one or two direction components +0.0 or -0.0 (1 / -0.0
+      = -inf, negative), origins on box planes;
+    flat_boxes: every box flat on one axis (kept by the inclusive test);
+    count_edges: C 70 in supers of 4, ks 2, kc 6, cap 6: a line with 6
+      candidates in 2 supers (exactly kc, cap and ks), one with 7 in 2
+      supers (kc + 1, cap + 1), one with 9 in 3 supers (ks + 1);
+    phantoms: C 49 in supers of 16 (the last super holds cluster 48 and 15
+      padding children), kc 16: rays from a point between clusters 47 and
+      48 meet only 48 (16 candidates at levels 2, its phantoms alone, at
+      exactly kc), rays from the line's start meet 44-48 (20: past kc for
+      the phantoms only);
+    small_c: C 20 < 32 in supers of 4, cap 24 > C, kc 24 > C, ks 6 > Cs;
+      rays from inside the boxes' region (many candidates);
+    pad_rule: C 40 in supers of 4, ks 2: a line through clusters 4, 13
+      and 22 (supers 1, 3 and 5 of 10): over k_supers, its k_supers-th
+      super (3) not the last one (9), so the pad is 3 * 4 + 3 = 15."""
+    rng = np.random.default_rng([seed, 900 + RAY_CULL_CASES.index(name)])
+    n, ss, ks, kc, cap, t_min = 128, 4, 6, 12, 8, T_MIN
+    c = {"phantoms": 49, "small_c": 20, "pad_rule": 40}.get(name, 70)
+    if name == "phantoms":
+        ss, kc = 16, 16
+    elif name in ("count_edges", "pad_rule"):
+        ks, kc, cap = 2, 6, 6
+    elif name == "small_c":
+        ks, kc, cap = 6, 24, 24
+    bmin, bmax = _random_boxes(rng, c)
+    o = rng.uniform(-1.2, 1.2, (n, 3))
+    d = _unit(rng.standard_normal((n, 3)))
+    tm = rng.uniform(0.5, 4.0, n)
+    lines = {"count_edges": [(list(range(0, 8)), 6), (list(range(8, 16)), 7),
+                             (list(range(16, 28)), 9)],
+             "phantoms": [([44, 45, 46, 47, 48], 5)],
+             "pad_rule": [([4, 13, 22], 3)]}.get(name, [])
+    if lines:
+        # the random boxes move far from the lines (y, z about -30)
+        bmin += (0.0, -30.0, -30.0)
+        bmax += (0.0, -30.0, -30.0)
+        per = n // len(lines)
+        for k, (ids, n_on) in enumerate(lines):
+            _place_line(bmin, bmax, ids, k, n_on)
+            part = slice(k * per, (k + 1) * per)
+            o[part], d[part], tm[part] = _line_rays(rng, k, n_on, per)
+        if name == "phantoms":
+            # the second half starts between clusters 47 (t 4) and 48 (t 5)
+            o[n // 2:] += 4.5 * _unit(np.asarray(WL_LINE_D))
+    elif name == "t_max_values":
+        t_min = 0.0
+        for i, v in enumerate((-1.0, -0.0, 0.0, np.nan, np.inf)):
+            tm[i::6] = v
+        box = rng.integers(0, c, n // 4)
+        o[::4] = (bmin[box] + bmax[box]) / 2
+    elif name in ("axis_on_plane", "signed_zero"):
+        axis = rng.integers(0, 3, n)
+        other = (axis + rng.integers(1, 3, n)) % 3
+        if name == "axis_on_plane":
+            d = np.zeros((n, 3))
+            d[np.arange(n), axis] = rng.choice([-1.0, 1.0], n)
+        else:
+            zero = rng.choice([-0.0, 0.0], n)
+            d[np.arange(n), other] = zero
+            # half the rays: a second zero, of the other sign
+            two = np.nonzero(rng.uniform(size=n) < 0.5)[0]
+            d[two, 3 - axis[two] - other[two]] = np.where(
+                np.signbit(zero[two]), 0.0, -0.0)
+        box = rng.integers(0, c, n)
+        # the origin on a plane of the box on an axis the ray does not move
+        plane = np.where(rng.uniform(size=n) < 0.5, bmin[box, other],
+                         bmax[box, other])
+        o[np.arange(n), other] = plane
+        # and aimed near the box on the moving axis
+        o[np.arange(n), axis] = ((bmin[box, axis] + bmax[box, axis]) / 2
+                                 - 1.0 * np.sign(d[np.arange(n), axis]))
+        tm = np.full(n, 8.0)
+    elif name == "flat_boxes":
+        fa = rng.integers(0, 3, c)
+        bmax[np.arange(c), fa] = bmin[np.arange(c), fa]
+        box = rng.integers(0, c, n)
+        aim = (bmin[box] + bmax[box]) / 2
+        d = _unit(aim - o)
+        tm = np.full(n, 8.0)
+    elif name == "small_c":
+        bmin, bmax = _random_boxes(rng, c, half=(0.2, 0.6))
+        o = rng.uniform(-0.5, 0.5, (n, 3))
+        tm = np.where(np.arange(n) % 2, np.inf, 3.0)
+    f = lambda a: np.ascontiguousarray(a, dtype=np.float32)
+    return {"o": f(o), "d": f(d), "tm": f(tm), "t_min": t_min,
+            "bmin": f(bmin), "bmax": f(bmax),
+            **wl_supers(f(bmin), f(bmax), ss), "ss": ss, "ks": ks,
+            "kc": kc, "cap": cap}
