@@ -294,7 +294,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   and the main path with the hybrid shadow engine "ctiles":
                   each warm at 96x54 and timed (seconds, Mrays/s, host
                   syncs, tile_sweep launches by shape, overflow blocks),
-                  each image bitwise the main path's. consistency also
+                  each image bitwise the main path's; then the ctiles
+                  backend on the worklist scene (2,561 clusters: levels 2,
+                  the 2-level cull kernel), bitwise the worklist route's
+                  image, no host read in accel.ctiles.
+                  consistency also
                   holds ctiles' options bitwise against the oracle at
                   96x54: levels=2 (auto) on the 2,564-cluster accel,
                   pair_split=2, fallback_sorted=False and method="morton"
@@ -360,6 +364,22 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   plain version patched in (the eager cull of before):
                   the kslots stages' device seconds and the perray
                   render's seconds, before and after (line ray_cull).
+  15c. pair_cull  the pair tables' kernels (cuda_cull.pair_tables: cull,
+                  scan, rank) and ctiles' 2-level cull (block_cull at
+                  levels 2) on the card, each bit for bit its plain
+                  version (the eager body of before, on the card) on the
+                  kept calls: the main path's first ctiles-fallback pair
+                  call, the worklist render's first closest and shadow
+                  pair calls, a kslots fallback pair call (a crafted
+                  2^17-ray call at C 641 where the kslots render makes
+                  none), the ctiles backend's first levels-2 closest and
+                  shadow calls on the worklist scene (2,561 clusters); and
+                  on the crafted
+                  cases (tests/test_torch_sweep_cases.py pair_case,
+                  ctiles2_case) against the plain version on the CPU.
+                  Each kept call timed beside its bound and the plain
+                  version; registers, spills and warps of each kernel;
+                  the launches of each route (line pair_cull).
   16. packet_cascade the packet cascades' loop on the card and
                   the first-slot kernels: the cascade stage kernel on the
                   first stage of the main path's first shadow call (any
@@ -427,7 +447,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
                   held to the main path's image as path_pool is, the
                   concurrent runs profiled (busy share a card); then
                   mesh_cards_summary, each run's time over the main path's.
-Then the kernels line (twenty-one kernels: the five, item_sweep and
+Then the kernels line (twenty-three kernels: the five, item_sweep and
 kslot_sweep, which replace no TPU kernel, the first-slot instances
 tile_sweep_first and kslot_sweep_first, which carry XLA-fused sweeps, the
 cascade stage kernel's six folds, cascade_stage_any,
@@ -438,7 +458,10 @@ its sweep's fori_loops, and packet_cull, which carries the packet
 cascades' interval cull (its launches on every route under
 launches_by_route), worklist_cull, which carries the worklist's cull, and
 kslots_cull and perray_cull, which carry the kslots and perray routes'
-per-ray culls ("carries": the JAX package's code each stands
+per-ray culls, pair_cull, which carries the pair tiles' CULL + PACK (the
+overflow fallback of ctiles, the worklist and kslots), and
+block_cull_2level, which carries ctiles' 2-level cull ("carries": the JAX
+package's code each stands
 for); tile_sweep's launches are the chunked form's in ctiles_bounds, its
 body running in slot_sweep on the routes ("runs_as"); launches
 on every path, the new ones under new_path_launches, the CLI's with
@@ -659,7 +682,19 @@ def phase_build():
     for b in (8, 4):
         occupancy[f"block_cull b{b}"] = {
             **cuda_ctiles.cull_occupancy(b), "spill_bytes": sum(
-                e["spill_bytes"] for e in ptxas.get("ctiles_cull", []))}
+                e["spill_bytes"] for e in ptxas.get("ctiles_cull", [])
+                if "block_cull_kernel" in e["entry"])}
+    # ctiles' 2-level cull (blocks of 8, ctiles' super_cap 48) and the pair
+    # tables' three kernels (the rank at the worklist scene's C)
+    occupancy["block_cull_2level b8"] = {
+        **cuda_ctiles.cull_occupancy(8, levels=2, super_cap=48),
+        "spill_bytes": sum(e["spill_bytes"]
+                           for e in ptxas.get("ctiles_cull", [])
+                           if "block_cull2_kernel" in e["entry"])}
+    for name, occ in cuda_cull.pair_occupancy(2561).items():
+        occupancy[name] = {**occ, "spill_bytes": sum(
+            e["spill_bytes"] for e in ptxas.get("ray_cull", [])
+            if name + "_kernel" in e["entry"])}
     for opt, mode in ((None, 0), ("sub_skip", 1), ("pack_t", 2)):
         for t, s_ in ((128, 256), (128, 128), (0, 0)) if opt is None else (
                 (0, 0),):
@@ -1450,7 +1485,11 @@ def _read_counts() -> dict:
             "worklist_cull": cuda_cull.worklist_launches,
             # the per-ray culls of kslots and perray
             "kslots_cull": cuda_cull.kslots_launches,
-            "perray_cull": cuda_cull.perray_launches}
+            "perray_cull": cuda_cull.perray_launches,
+            # the pair tables (a call: three launches) and ctiles' 2-level
+            # cull
+            "pair_cull": cuda_cull.pair_launches,
+            "block_cull_2level": cuda_ctiles.cull2_launches}
 
 
 def _tile_shapes() -> list:
@@ -1588,7 +1627,8 @@ def phase_main_path(scene, accel_base, accel_c, card):
 
     res, img, missing, image_ok = _bench_render(
         "main_path", scene, card,
-        ["slot_sweep", "block_cull", "cascade_stage_any", "packet_cull"],
+        ["slot_sweep", "block_cull", "cascade_stage_any", "packet_cull",
+         "pair_cull"],
         warm_small=False, accel=accel_base, accel_closest=accel_c)
     png = os.path.join(tempfile.gettempdir(), "chip_smoke_bench.png")
     save_image(png, img, 2.2)
@@ -3860,6 +3900,7 @@ def phase_path_worklist(scene, accel, card, warm_seconds):
     from path_tracer_ai_tpu_torch.utils import sync
 
     cam = default_camera("cuda")
+    eager_pairs = EAGER_CALLS["pair_tables_plain"]
     _reset_counts()
     worklist.stage_events = {}
     stats = wavefront.RenderStats()
@@ -3906,8 +3947,12 @@ def phase_path_worklist(scene, accel, card, warm_seconds):
         if str(e.device_type).endswith("CUDA") and not _is_label(e.key)))
     res["profiled_render_wall_seconds"] = time.perf_counter() - t0
     image_ok = _image_verdict(img, res)
-    _finish_path(res, [k for k in ("item_sweep", "worklist_cull")
-                       if launches[k] <= 0], image_ok)
+    res["eager_pair_calls"] = EAGER_CALLS["pair_tables_plain"] - eager_pairs
+    _finish_path(res, [k for k in ("item_sweep", "worklist_cull",
+                                   "pair_cull") if launches[k] <= 0],
+                 image_ok)
+    if res["eager_pair_calls"]:
+        fail("path_worklist", "the eager pair tables ran on the card")
     queries = launches["worklist_cull"]
     if res["worklist_host_reads"] != queries or launches["item_sweep"] != \
             queries:
@@ -4545,7 +4590,8 @@ def phase_exact_cull(scene, accel_base, accel_c, card, img_main, img_fused,
 
 # --- the ctiles and perray backends ------------------------------------------
 
-def phase_path_ctiles(scene, accel_base, accel_c, card, img_main):
+def phase_path_ctiles(scene, accel_base, accel_c, card, img_main, scene_w,
+                      accel_w, worklist_sha):
     """The bench render with backend="ctiles" (closest waves on the S=128
     accel, T 128; lane-major shadow waves in blocks of 4, T 64), warm at
     96x54 and timed; then the same with sub_skip in CTILES_CLOSEST_KW, and
@@ -4580,7 +4626,38 @@ def phase_path_ctiles(scene, accel_base, accel_c, card, img_main):
     if not any(sh.get("option") == "sub_skip" for sh in
                out["path_ctiles_sub_skip"]["tile_sweep_shapes"]):
         fail("path_ctiles", "the sub_skip render launched no sub_skip sweep")
+    out["path_ctiles_2level"] = _ctiles_2level_render(scene_w, accel_w, card,
+                                                      worklist_sha)
     return out
+
+
+def _ctiles_2level_render(scene_w, accel_w, card, worklist_sha) -> dict:
+    """The ctiles backend on the worklist scene (2,561 clusters: levels 2,
+    the 2-level cull on the card), warm at 96x54 and timed; its image must
+    be the worklist route's bit for bit (path_worklist's sha256: both
+    exact, on the oracle's tie rule where no ray falls back). Fails where
+    the 2-level kernel did not run, the eager 2-level cull did, or
+    accel.ctiles read the host."""
+    eager = EAGER_CALLS["_block_candidates_2level"]
+    res, img, missing, image_ok = _bench_render(
+        "path_ctiles", scene_w, card, ["block_cull_2level", "slot_sweep"],
+        warm_small=True, accel=accel_w, backend="ctiles")
+    res["route"] = "path_ctiles_2level"
+    res["clusters"] = accel_w.num_clusters
+    res["levels"] = 2 if accel_w.num_clusters > 2048 else 1  # levels=0
+    res["eager_2level_calls"] = EAGER_CALLS["_block_candidates_2level"] - eager
+    res["ctiles_host_reads"] = sum(
+        n for k, n in res["host_sync_sites"].items()
+        if k.startswith("path_tracer_ai_tpu_torch.accel.ctiles:"))
+    res["bitwise_equal_to_worklist"] = res["image_sha256"] == worklist_sha
+    _finish_path(res, missing, image_ok)
+    if res["eager_2level_calls"] or res["ctiles_host_reads"]:
+        fail("path_ctiles", "the ctiles levels-2 render ran the eager 2-level "
+                            "cull or read the host in accel.ctiles")
+    if not res["bitwise_equal_to_worklist"]:
+        fail("path_ctiles", "the levels-2 image differs from the worklist "
+                            "route's")
+    return res
 
 
 ROUTE_CUT = dict(width=480, height=270)
@@ -4732,6 +4809,7 @@ def phase_path_kslots(scene, accel_base, accel_c, card, img_main):
         cuda_kslots,
         kslots,
         traverse,
+        worklist,
     )
     from path_tracer_ai_tpu_torch.config import RenderSettings
     from path_tracer_ai_tpu_torch.engine import oracle, wavefront
@@ -4755,7 +4833,8 @@ def phase_path_kslots(scene, accel_base, accel_c, card, img_main):
                    "host_syncs": sync.count, "launches": _read_counts(),
                    "tile_sweep_shapes": _tile_shapes(),
                    "stage_device_seconds": kslots.stage_seconds(),
-                   "overflow": kslots.read_overflow_counts()}
+                   "overflow": kslots.read_overflow_counts(),
+                   "overflow_fallback": dict(worklist.fallback_counts)}
         finally:
             kslots.stage_events = None
         ov = run["overflow"]
@@ -4837,10 +4916,21 @@ def phase_path_kslots(scene, accel_base, accel_c, card, img_main):
                    vs_main=against(img, img_m))
     image_ok = _image_verdict(img, res)
     res["eager_cull_calls"] = EAGER_CALLS["kslots_cull_plain"]
+    res["eager_pair_calls"] = EAGER_CALLS["pair_tables_plain"]
+    # the fallback's pair queries (a compacted wave of overflow rays) build
+    # their tables through the pair kernels, one call each
+    fb = res["overflow_fallback"]
+    pair_queries = res["overflow_fallback_pair_queries"] = (
+        fb["calls"] - fb["whole_wave"])
     _finish_path(res, [k for k in ("kslots_cull", "kslot_sweep")
                        if res["launches"][k] <= 0], image_ok)
-    if res["eager_cull_calls"]:
-        fail("path_kslots", "the eager kslots cull ran on the card")
+    if res["eager_cull_calls"] or res["eager_pair_calls"]:
+        fail("path_kslots", "the eager kslots cull or pair tables ran on the "
+                            "card")
+    if res["launches"]["pair_cull"] != pair_queries:
+        fail("path_kslots", f"{pair_queries} pair queries and "
+                            f"{res['launches']['pair_cull']} pair_cull "
+                            f"launches")
     bad = [k for k in ("vs_main", "vs_oracle_96x54") if not res[k]["bitwise"]]
     if bad:
         fail("path_kslots", f"the kslots image differs: "
@@ -5118,14 +5208,440 @@ def phase_ray_cull(scene, accel_base, card, paths) -> tuple:
         for name, ws in waves.items())
 
 
+# --- the pair tables and ctiles' 2-level cull: pair_cull -------------------
+
+PAIR_REPS = 20
+KSLOTS_PAIR_RAYS = 1 << 17  # kslots' compacted fallback wave (kslots.py)
+
+
+class _KeepCalls:
+    """While entered, mod.name keeps copies of the arguments of its calls
+    (self.calls: [(label, args, kw)]) for which label_of(args, kw) gives a
+    label not yet kept `per_label` times, and raises _Kept once every label
+    in `want` has them."""
+
+    def __init__(self, mod, name, label_of, want, per_label=1):
+        self.mod, self.name, self.label_of = mod, name, label_of
+        self.want, self.per_label = want, per_label
+        self.calls = []
+
+    def __enter__(self):
+        self.real = real = getattr(self.mod, self.name)
+
+        def keep(*a, **kw):
+            label = self.label_of(a, kw)
+            if label is not None and sum(
+                    c[0] == label for c in self.calls) < self.per_label:
+                self.calls.append((label, tuple(
+                    x.clone() if torch.is_tensor(x) else x for x in a),
+                    dict(kw)))
+            out = real(*a, **kw)
+            if all(sum(c[0] == w for c in self.calls) >= self.per_label
+                   for w in self.want):
+                raise _Kept
+            return out
+
+        setattr(self.mod, self.name, keep)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.real)
+        return exc[0] is _Kept
+
+
+def _keep_pair_calls(scene, accel, render_kw, want, wave_of=None) -> list:
+    """The bench render of a route until its first build_pair_tables call
+    of each label in `want` ("closest" / "shadow": the fallback query that
+    made it); [(label, args, kw)]."""
+    from path_tracer_ai_tpu_torch.accel import pairs
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+
+    state = {"wave": None}
+    reals = {k: getattr(pairs, k) for k in ("closest_hit_pairs",
+                                            "any_hit_pairs")}
+
+    def tagged(name):
+        def fn(*a, **kw):
+            state["wave"] = "closest" if name == "closest_hit_pairs" \
+                else "shadow"
+            return reals[name](*a, **kw)
+        return fn
+
+    keeper = _KeepCalls(pairs, "build_pair_tables",
+                        lambda a, kw: state["wave"], want)
+    try:
+        for k in reals:
+            setattr(pairs, k, tagged(k))
+        with keeper:
+            wavefront.render(scene, default_camera("cuda"),
+                             RenderSettings(**BENCH), wave_size=1 << 20,
+                             device="cuda", accel=accel, **render_kw)
+    finally:
+        for k, fn in reals.items():
+            setattr(pairs, k, fn)
+    return keeper.calls
+
+
+def _pair_args(args, kw) -> tuple:
+    """pair_tables' arguments (accel, o, d, t_min, t_max, cap, pair_budget,
+    tile_rays, pair_align) of a kept build_pair_tables call."""
+    import inspect
+
+    from path_tracer_ai_tpu_torch.accel import pairs
+
+    b = inspect.signature(pairs.build_pair_tables).bind(*args, **kw)
+    b.apply_defaults()
+    a = b.arguments
+    return (a["accel"], a["origins"].contiguous(),
+            a["directions"].contiguous(), a["t_min"],
+            a["t_max"].contiguous(), a["cap"], a["pair_budget"],
+            a["tile_rays"], a["pair_align"])
+
+
+def _pair_work(call, got) -> dict:
+    """Bytes (the rays and boxes in once, the tables out once) and
+    operations (PERRAY_TEST_OPS over the boxes each ray must test: none
+    for a dead ray or an empty window, else every box up to the one past
+    cap) of one pair_tables call."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cull
+
+    accel, o, d, t_min, tm, cap = call[:6]
+    n, c = o.shape[0], accel.num_clusters
+    step = max(1, RCULL_ROW_ELEMS // c)
+    tests = 0
+    for lo in range(0, n, step):
+        oc, dc, tc = o[lo:lo + step], d[lo:lo + step], tm[lo:lo + step]
+        cand = cuda_cull.perray_slab_plain(accel, oc, dc, tc, t_min)[0]
+        some = (tc >= 0.0) & (tc >= t_min)
+        tests += int(torch.where(some, _first_past(cand, cap), 0).sum())
+    ops = tests * PERRAY_TEST_OPS
+    nbytes = n * 28 + c * 24 + _nbytes(*got)
+    by_bytes = nbytes / PEAK_BYTES_PER_S
+    by_ops = ops / PEAK_F32_PER_S
+    return {"bytes": nbytes, "operations": ops, "box_tests": tests,
+            "box_tests_per_ray": tests / max(1, n),
+            "bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _check_pairs(label, call, reps=PAIR_REPS) -> dict:
+    """pair_tables on a kept call against its plain version on the card
+    (the eager body of before): every field bit for bit; timed beside its
+    bound and the plain version."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cull
+
+    got = cuda_cull.pair_tables(*call)
+    want = cuda_cull.pair_tables_plain(*call)
+    torch.cuda.synchronize()
+    same = all(a.dtype == b.dtype and bool(torch.equal(a, b))
+               for a, b in zip(got, want))
+    n = call[1].shape[0]
+    res = {"input": label, "rays": n, "C": call[0].num_clusters,
+           "cap": call[5], "pair_budget": call[6], "tile_rays": call[7],
+           "P": got[0].shape[0], "live_tiles": int(got[5]),
+           "rays_per_tile": cuda_cull.pair_tile_rays(n),
+           "candidates_mean": float(got[3].float().mean()),
+           "overflow_share": float(got[4].float().mean()),
+           "matches_plain": same, "max_abs_err": 0.0,
+           "ms": cuda_ms(lambda: cuda_cull.pair_tables(*call), reps),
+           "plain_ms": cuda_ms(lambda: cuda_cull.pair_tables_plain(*call),
+                               2)}
+    res.update(_pair_work(call, got))
+    res["ms_over_bound"] = res["ms"] / res["bound_ms"]
+    return res
+
+
+def _cull2_work(call, got) -> dict:
+    """Bytes (the live blocks' rays, the super and child boxes once, the
+    tables out) and operations of one levels-2 block_cull call: per live
+    block, each super up to the one past scap tested against the block's
+    rays with a window up to the first that passes (CULL_OPS a test,
+    kslots' rule), and where the block keeps its supers each listed
+    super's children up to the one past kx, the same way (PERRAY_TEST_OPS
+    a test)."""
+    from path_tracer_ai_tpu_torch.accel import worklist
+    from path_tracer_ai_tpu_torch.accel.kslots import _ray_slab
+
+    (accel, o_blk, d_blk, tm_blk, t_min, cap, live), kw = call
+    nb, b = o_blk.shape[:2]
+    lb = nb if live is None else int(live)
+    cs, ss, c = accel.num_supers, accel.super_size, accel.num_clusters
+    scap = min(kw.get("super_cap", 48), cs)
+    kx = min(cap, scap * ss, c)
+    step = max(1, (1 << 22) // (b * max(cs, scap * ss)))
+    super_tests = child_tests = 0
+
+    def needed(mask, lc):
+        """[rows, b, k] passes, lc [rows, b] live rays so far -> the live
+        rays a (row, box) needs: those up to its first passing ray, or
+        all of them."""
+        first = torch.argmax(mask.to(torch.int8), dim=1)
+        return torch.where(mask.any(dim=1), torch.gather(lc, 1, first),
+                           lc[:, -1:])
+
+    k_child = scap * ss
+    for lo in range(0, lb, step):
+        hi = min(lo + step, lb)
+        rows = hi - lo
+        oc, dc = o_blk[lo:hi], d_blk[lo:hi]
+        tf = tm_blk[lo:hi].reshape(-1)
+        hi0 = torch.where(tf >= 0.0, tf, -float("inf"))
+        lo0 = torch.full_like(tf, float(t_min))
+        rs = _ray_slab(accel.sbmin, accel.sbmax, oc.reshape(-1, 3),
+                       dc.reshape(-1, 3), lo0, hi0).reshape(rows, b, cs)
+        lc = torch.cumsum((hi0 >= t_min).reshape(rows, b).to(torch.int64),
+                          dim=1)  # rays with a window, a dead ray none
+        blk_s = rs.any(dim=1)
+        n_s = _first_past(blk_s, scap)
+        col = torch.arange(cs, device=o_blk.device)[None, :]
+        super_tests += int(torch.where(col < n_s[:, None], needed(rs, lc),
+                                       0).sum())
+        # the children of the listed supers of the blocks that keep them,
+        # in perray's rule against each ray's window
+        keep = blk_s.sum(dim=1) <= scap
+        sup = worklist._extract_k(blk_s & keep[:, None], scap, cs).long()
+        sup_c = torch.clamp(sup, max=cs - 1)
+        valid = (sup < cs).repeat_interleave(ss, dim=1)     # [rows, K]
+        cb_lo = accel.cbmin[sup_c].reshape(rows, k_child, 3)
+        cb_hi = accel.cbmax[sup_c].reshape(rows, k_child, 3)
+        inv = 1.0 / dc
+        lo_t = torch.full((rows, b, k_child), float(t_min),
+                          device=o_blk.device)
+        hi_t = hi0.reshape(rows, b)[:, :, None].expand(rows, b, k_child)
+        for ax in range(3):
+            inv_a = inv[:, :, None, ax]
+            t0 = (cb_lo[:, None, :, ax] - oc[:, :, None, ax]) * inv_a
+            t1 = (cb_hi[:, None, :, ax] - oc[:, :, None, ax]) * inv_a
+            neg = inv_a < 0.0
+            near = torch.where(neg, t1, t0)
+            far = torch.where(neg, t0, t1)
+            lo_t = torch.where(near > lo_t, near, lo_t)
+            hi_t = torch.where(far < hi_t, far, hi_t)
+        rc = (hi_t >= lo_t) & valid[:, None, :]
+        k_t = torch.minimum(_first_past(rc.any(dim=1), kx), valid.sum(dim=1))
+        colk = torch.arange(k_child, device=o_blk.device)[None, :]
+        child_tests += int(torch.where(colk < k_t[:, None], needed(rc, lc),
+                                       0).sum())
+    ops = super_tests * CULL_OPS + child_tests * PERRAY_TEST_OPS
+    nbytes = (lb * b * 7 * 4 + _nbytes(accel.sbmin, accel.sbmax,
+                                       accel.cbmin, accel.cbmax, *got))
+    by_bytes = nbytes / PEAK_BYTES_PER_S
+    by_ops = ops / PEAK_F32_PER_S
+    return {"live_blocks": lb, "super_tests": super_tests,
+            "child_tests": child_tests, "bytes": nbytes, "operations": ops,
+            "bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _check_cull2(label, call, reps=SLOT_REPS) -> dict:
+    """block_cull at levels 2 on a kept call against its plain version on
+    the card (the eager 2-level cull of before): exact; timed beside its
+    bound and the plain version."""
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles
+
+    args, kw = call
+    got = cuda_ctiles.block_cull(*args, **kw)
+    want = cuda_ctiles.block_cull_plain(*args, **kw)
+    torch.cuda.synchronize()
+    nb, b = args[1].shape[:2]
+    res = {"input": label, "blocks": nb, "b": b,
+           "C": args[0].num_clusters, "supers": args[0].num_supers,
+           "cap": args[5], "super_cap": kw.get("super_cap"),
+           "matches_plain": all(bool(torch.equal(g, w))
+                                for g, w in zip(got, want)),
+           "max_abs_err": 0.0,
+           "candidates_mean": float(got[1].float().mean()),
+           "overflow_blocks": int(got[2].sum()),
+           "ms": cuda_ms(lambda: cuda_ctiles.block_cull(*args, **kw), reps),
+           "plain_ms": cuda_ms(
+               lambda: cuda_ctiles.block_cull_plain(*args, **kw), 2)}
+    res.update(_cull2_work(call, got))
+    res["ms_over_bound"] = res["ms"] / res["bound_ms"]
+    return res
+
+
+def _crafted_pairs() -> list:
+    """Both kernels on every crafted case (tests/test_torch_sweep_cases.py
+    pair_case at its cap and one past it, at three ray tilings: the
+    default, one ray a tile, one tile a call;
+    ctiles2_case in blocks of 8 and 4, at its caps and one past each, with
+    no live-block count and one inside the wave) against their plain
+    versions on the CPU."""
+    from types import SimpleNamespace
+
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_cull
+
+    c = _cases()
+    out = []
+    box_keys = ("bmin", "bmax", "sbmin", "sbmax", "cbmin", "cbmax")
+    for name in c.PAIR_CASES:
+        case = c.pair_case(name)
+        for cap in (case["cap"], case["cap"] + 1):
+            calls = []
+            for dev in ("cuda", "cpu"):
+                t = lambda a: torch.as_tensor(a, device=dev)
+                acc = SimpleNamespace(bmin=t(case["bmin"]),
+                                      bmax=t(case["bmax"]),
+                                      num_clusters=case["bmin"].shape[0])
+                calls.append((acc, t(case["o"]), t(case["d"]), case["t_min"],
+                              t(case["tm"]), cap, case["pair_budget"],
+                              case["tile_rays"], case["pair_align"]))
+            want = cuda_cull.pair_tables_plain(*calls[1])
+            for tiling, tiles, least in (
+                    ("default", cuda_cull.PAIR_TILES,
+                     cuda_cull.PAIR_MIN_TILE_RAYS),
+                    ("one_ray", 1 << 30, 1), ("one_tile", 1, 1)):
+                with _patched(cuda_cull, PAIR_TILES=tiles,
+                              PAIR_MIN_TILE_RAYS=least):
+                    got = cuda_cull.pair_tables(*calls[0])
+                out.append({"kernel": "pair_cull", "case": name, "cap": cap,
+                            "tiling": tiling, "matches_plain": all(
+                                bool(torch.equal(a.cpu(), b))
+                                for a, b in zip(got, want))})
+    for name in c.CTILES2_CASES:
+        for b in c.CTILES2_BLOCKS:
+            case = c.ctiles2_case(name, b)
+            nb = case["o_blk"].shape[0]
+            for cap, scap, lb in ((case["cap"], case["super_cap"], None),
+                                  (case["cap"] + 1, case["super_cap"], None),
+                                  (case["cap"], case["super_cap"] + 1, None),
+                                  (case["kc"], case["ks"], None),
+                                  (case["cap"], case["super_cap"],
+                                   nb // 2 + 1)):
+                res = []
+                for dev in ("cuda", "cpu"):
+                    t = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                                  device=dev)
+                    acc = SimpleNamespace(
+                        **{k: t(case[k]) for k in box_keys},
+                        num_clusters=case["bmin"].shape[0],
+                        num_supers=case["sbmin"].shape[0],
+                        super_size=case["ss"])
+                    bound = lb
+                    if dev == "cuda" and lb is not None:
+                        bound = torch.tensor([lb], dtype=torch.int32,
+                                             device="cuda")
+                    fn = (cuda_ctiles.block_cull if dev == "cuda"
+                          else cuda_ctiles.block_cull_plain)
+                    res.append(fn(acc, t(case["o_blk"]), t(case["d_blk"]),
+                                  t(case["tm_blk"]), case["t_min"], cap,
+                                  bound, levels=2, super_cap=scap))
+                out.append({"kernel": "block_cull_2level", "case": name,
+                            "b": b, "cap": cap, "super_cap": scap,
+                            "live_blocks": lb, "matches_plain": all(
+                                bool(torch.equal(g.cpu(), w))
+                                for g, w in zip(*res))})
+    return out
+
+
+def phase_pair_cull(scene, accel_base, accel_c, scene_w, accel_w, card,
+                    paths, occupancy) -> tuple:
+    """The pair tables' kernels and ctiles' 2-level cull on the card (the
+    docstring's 15c): kept calls and crafted cases, each bit for bit the
+    plain version; ms, bound, plain ms, occupancy, launches by route.
+    Returns the kernels line's checks (pair_cull: the worklist render's
+    closest call; block_cull_2level: its first kept call)."""
+    from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_cull
+    from path_tracer_ai_tpu_torch.config import RenderSettings
+    from path_tracer_ai_tpu_torch.engine import wavefront
+    from path_tracer_ai_tpu_torch.scene.camera import default_camera
+
+    t0 = time.perf_counter()
+    eager_before = dict(EAGER_CALLS)
+    kept = {
+        "main": _keep_pair_calls(scene, accel_base,
+                                 {"accel_closest": accel_c}, ["closest"]),
+        "worklist": _keep_pair_calls(scene_w, accel_w, {"block_size": 64},
+                                     ["closest", "shadow"]),
+        "kslots": _keep_pair_calls(scene, accel_base, {"backend": "kslots"},
+                                   ["closest"])}
+    pair_calls = []
+    labels = {"main": "main path's ctiles fallback",
+              "worklist": "worklist render's fallback",
+              "kslots": "kslots render's fallback"}
+    for route, calls in kept.items():
+        for wave, args, kw in calls:
+            pair_calls.append((f"{labels[route]}, first {wave} call",
+                               _pair_args(args, kw)))
+    if not kept["kslots"]:
+        rng = np.random.default_rng(23)
+        o, d, tm = _bounce_wave(accel_base, KSLOTS_PAIR_RAYS, rng, False)
+        pair_calls.append(("crafted 2^17-ray bounce wave at the kslots "
+                           "fallback's shape (the kslots render made no "
+                           "pair call)",
+                           (accel_base, o, d, 1e-3, tm, 64, 12, 128, 256)))
+    if len(kept["main"]) < 1 or len(kept["worklist"]) < 2:
+        fail("pair_cull", f"kept pair calls: main {len(kept['main'])}, "
+                          f"worklist {len(kept['worklist'])}")
+    pairs_res = [_check_pairs(label, call) for label, call in pair_calls]
+    # ctiles at levels 2 on the worklist scene: its first two block_cull
+    # calls
+    keeper = _KeepCalls(cuda_ctiles, "block_cull",
+                        lambda a, kw: "l2" if kw.get("levels") == 2 else None,
+                        ["l2"], per_label=2)
+    with keeper:
+        wavefront.render(scene_w, default_camera("cuda"),
+                         RenderSettings(**BENCH), wave_size=1 << 20,
+                         device="cuda", accel=accel_w, backend="ctiles")
+    if len(keeper.calls) < 2:
+        fail("pair_cull", "the ctiles render on the worklist scene made "
+                          "fewer than two levels-2 culls")
+    # the render's first closest wave (blocks of 8) and first shadow wave
+    # (lane-major blocks of a lane's 4 rays), wave 0, bounce 0
+    cull2_res = [_check_cull2(
+        f"ctiles backend, worklist scene, wave 0, bounce 0, "
+        f"{'closest' if args[1].shape[1] == 8 else 'shadow'}", (args, kw))
+        for _l, args, kw in keeper.calls]
+    crafted = _crafted_pairs()
+    EAGER_CALLS.update(eager_before)  # the comparisons' own calls
+    launches = {name: {route: v["launches"][name] for route, v in
+                       paths.items() if isinstance(v.get("launches"), dict)
+                       and name in v["launches"]}
+                for name in ("pair_cull", "block_cull_2level")}
+    occ = {k: occupancy[k] for k in ("pair_cull", "pair_scan", "pair_rank",
+                                     "block_cull_2level b8")}
+    res = {"phase": "pair_cull", "card": card, "pair_tables": pairs_res,
+           "block_cull_2level": cull2_res, "occupancy": occ,
+           "launches_by_route": launches, "crafted": len(crafted),
+           "crafted_disagree": [x for x in crafted
+                                if not x["matches_plain"]],
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    if (not all(r["matches_plain"] for r in pairs_res + cull2_res)
+            or res["crafted_disagree"]):
+        fail("pair_cull", "a pair table or 2-level cull disagrees with its "
+                          "plain version")
+    keys = ("input", "ms", "plain_ms", "bound_ms", "bound_by",
+            "ms_over_bound", "matches_plain")
+    worklist_closest = next(r for r in pairs_res
+                            if r["input"].startswith("worklist") and
+                            "closest" in r["input"])
+    return ({**worklist_closest,
+             "matches_plain": all(r["matches_plain"] for r in pairs_res),
+             "waves": [{k: r[k] for k in keys + ("rays", "C", "cap",
+                                                 "candidates_mean",
+                                                 "overflow_share")}
+                       for r in pairs_res]},
+            {**cull2_res[0],
+             "matches_plain": all(r["matches_plain"] for r in cull2_res),
+             "waves": [{k: r[k] for k in keys + ("blocks", "C",
+                                                 "candidates_mean",
+                                                 "overflow_blocks")}
+                       for r in cull2_res]})
+
+
 # --- the packet cascade's and perray's first-slot sweeps --------------------
 
 # Calls of the eager sweep helpers (traverse._packet_sweep_closest and
-# _packet_sweep_any) and of the per-ray culls' plain versions
-# (cuda_cull.kslots_cull_plain, perray_cull_plain) since _spy_eager_sweeps:
-# on the card every cascade sweeps and every per-ray list is culled through
-# a kernel, so the route phases must leave all four at 0 (packet_cascade's
-# and ray_cull's "before" runs put their own calls back).
+# _packet_sweep_any), of the per-ray culls' plain versions
+# (cuda_cull.kslots_cull_plain, perray_cull_plain, pair_tables_plain) and
+# of the eager 2-level cull (ctiles._block_candidates_2level) since
+# _spy_eager_sweeps: on the card every cascade sweeps and every per-ray
+# list is culled through a kernel, so the route phases must leave all six
+# at 0 (packet_cascade's, ray_cull's, pair_cull's and path_ctiles' "before"
+# runs put their own calls back).
 EAGER_CALLS = {}
 
 # The closest fallbacks' whole-wave packet cascades kept from the worklist
@@ -5135,12 +5651,14 @@ KEPT_FALLBACKS = {"worklist": [], "kslots": []}
 
 
 def _spy_eager_sweeps() -> None:
-    from path_tracer_ai_tpu_torch.accel import cuda_cull, traverse
+    from path_tracer_ai_tpu_torch.accel import ctiles, cuda_cull, traverse
 
     for mod, name in ((traverse, "_packet_sweep_closest"),
                       (traverse, "_packet_sweep_any"),
                       (cuda_cull, "kslots_cull_plain"),
-                      (cuda_cull, "perray_cull_plain")):
+                      (cuda_cull, "perray_cull_plain"),
+                      (cuda_cull, "pair_tables_plain"),
+                      (ctiles, "_block_candidates_2level")):
         EAGER_CALLS[name] = 0
 
         def spy(*a, _real=getattr(mod, name), _name=name, **kw):
@@ -6744,7 +7262,6 @@ def _consistency_ctiles(scene, cam, img_oracle, kw):
     cull), pair_split=2 in CTILES_CLOSEST_KW (the ctiles backend and the
     main path), fallback_sorted=False on the main path, and accels built
     with method="morton" through the main path."""
-    from path_tracer_ai_tpu_torch.accel import ctiles
     from path_tracer_ai_tpu_torch.accel.clusters import build_clusters
     from path_tracer_ai_tpu_torch.config import RenderSettings
     from path_tracer_ai_tpu_torch.engine import wavefront
@@ -6769,25 +7286,18 @@ def _consistency_ctiles(scene, cam, img_oracle, kw):
                                               method="morton")), None),
     }
     out = {"clusters_c2": acc2.num_clusters}
-    levels = []
-    real = ctiles._block_candidates_2level
-    ctiles._block_candidates_2level = (
-        lambda *a, **k: levels.append(1) or real(*a, **k))
-    try:
-        for name, (rkw, tables) in routes.items():
-            _reset_counts()
-            n_levels = len(levels)
-            with _engines(tables):
-                img = wavefront.render(scene, cam, settings,
-                                       **{**kw, **rkw})
-            diff = np.abs(img - img_oracle).max(axis=-1)
-            out[name] = {"bitwise": bool(np.array_equal(img, img_oracle)),
-                         "max_abs_diff": float(diff.max()),
-                         "pixels_differing": int((diff > 0).sum()),
-                         "two_level_culls": len(levels) - n_levels,
-                         "launches": _read_counts()["slot_sweep"]}
-    finally:
-        ctiles._block_candidates_2level = real
+    for name, (rkw, tables) in routes.items():
+        _reset_counts()
+        with _engines(tables):
+            img = wavefront.render(scene, cam, settings, **{**kw, **rkw})
+        diff = np.abs(img - img_oracle).max(axis=-1)
+        counts = _read_counts()
+        out[name] = {"bitwise": bool(np.array_equal(img, img_oracle)),
+                     "max_abs_diff": float(diff.max()),
+                     "pixels_differing": int((diff > 0).sum()),
+                     # the 2-level cull's kernel launches
+                     "two_level_culls": counts["block_cull_2level"],
+                     "launches": counts["slot_sweep"]}
     return out
 
 
@@ -6870,6 +7380,12 @@ KERNELS = {
     # lists (_perray_candidates, "id") on the perray route
     "kslots_cull": ("ray_cull.cu", None, "path_kslots"),
     "perray_cull": ("ray_cull.cu", None, "path_perray"),
+    # the pair tiles' CULL + PACK (no Pallas kernel): the overflow fallback
+    # of ctiles (the main path's closest waves), the worklist and kslots;
+    # a launch is one call of its three kernels. ctiles' 2-level cull (no
+    # Pallas kernel): the ctiles backend past 2048 clusters
+    "pair_cull": ("ray_cull.cu", None, "main_path"),
+    "block_cull_2level": ("ctiles_cull.cu", None, "path_ctiles_2level"),
 }
 # what a kernel without a Pallas counterpart carries in the JAX package
 CARRIES = {
@@ -6909,6 +7425,12 @@ CARRIES = {
                    "_pack_bits, _peel_k)",
     "perray_cull": "path_tracer_ai_tpu/accel/traverse.py:530-603 "
                    "(_perray_candidates, order_mode \"id\")",
+    "pair_cull": "path_tracer_ai_tpu/accel/pairs.py:61-190 "
+                 "(build_pair_tables: _ray_slab_chunk, the lax.scan's "
+                 "per-cluster counts, the segments and the scatter)",
+    "block_cull_2level": "path_tracer_ai_tpu/accel/ctiles.py:194-343 "
+                         "(_block_candidates_2level; fori_loop to "
+                         "live_blocks)",
 }
 # what a kernel runs as on its route besides its own launches
 RUNS_AS = {
@@ -7047,8 +7569,10 @@ def main() -> int:
     paths["config_4k"] = phase_config_4k(card)
     exact = phase_exact_cull(scene, accel_base, accel_c, card, img_main,
                              img_fused, worklist_waves, accel_w)
-    ctiles_paths = phase_path_ctiles(scene, accel_base, accel_c, card,
-                                     img_main)
+    ctiles_paths = phase_path_ctiles(
+        scene, accel_base, accel_c, card, img_main, scene_w, accel_w,
+        paths["path_worklist"]["image_sha256"])
+    paths["path_ctiles_2level"] = ctiles_paths["path_ctiles_2level"]
     perray = phase_path_perray(scene, accel_base, accel_c, card, img_main)
     paths["path_perray"] = perray
     perray_checks, perray_stepped = phase_perray_cascade_loop(
@@ -7059,6 +7583,9 @@ def main() -> int:
     checks["kslots_cull"], checks["perray_cull"] = phase_ray_cull(
         scene, accel_base, card, paths)
     generic["kslots_cull"] = generic["perray_cull"] = None  # one instance
+    checks["pair_cull"], checks["block_cull_2level"] = phase_pair_cull(
+        scene, accel_base, accel_c, scene_w, accel_w, card, paths, occupancy)
+    generic["pair_cull"] = generic["block_cull_2level"] = None
     first_checks, packets, stepped = phase_packet_cascade(
         scene, accel_base, accel_c, card, img_main,
         {"worklist": paths["path_worklist"], "kslots": paths["path_kslots"],
@@ -7196,7 +7723,8 @@ def main() -> int:
         **({"runs_as": RUNS_AS[name]} if name in RUNS_AS else {}),
         **({"waves": checks[name]["waves"]}
            if name in ("block_cull", "slot_sweep", "packet_cull",
-                       "worklist_cull", "kslots_cull", "perray_cull")
+                       "worklist_cull", "kslots_cull", "perray_cull",
+                       "pair_cull", "block_cull_2level")
            else {}),
         **({"launches_by_route": {
             **{k: v["launches"][name] for k, v in paths.items()
@@ -7206,7 +7734,8 @@ def main() -> int:
             "cli": cli["launches"][name],
             "cli_pallas": cli["pallas"]["launches"][name],
             "cli_perray": cli["perray"]["launches"][name]}}
-           if name == "packet_cull" else {}),
+           if name in ("packet_cull", "pair_cull", "block_cull_2level")
+           else {}),
         **({"wave": checks[name]["wave"],
             "host_stepped_ms": checks[name]["host_stepped_ms"],
             "call_ms": checks[name]["call_ms"],

@@ -5,12 +5,12 @@
                last.
 2. CULL      — per-ray inclusive slab tests, OR'd per block: the true
                union of the per-ray candidate sets. levels=1 tests every
-               cluster AABB (accel.cuda_ctiles.block_cull: `_ray_masks` and
-               `_extract_order_flat` in one kernel on the card); levels=2
-               tests the supercluster boxes first and then only the
-               children of the block's super shortlist
+               cluster AABB (`_ray_masks` and `_extract_order_flat`);
+               levels=2 tests the supercluster boxes first and then only
+               the children of the block's super shortlist
                (`_block_candidates_2level`); levels=0 picks 2 past 2048
-               clusters, as the reference does.
+               clusters, as the reference does. On the card either is one
+               launch of accel.cuda_ctiles.block_cull.
 3. PAIRS     — flat (block, candidate) pair domain, p = block*cap + k,
                sorted by cluster id and padded per cluster to whole tiles of
                `tile_blocks` blocks (T = tile_blocks*block rays share one
@@ -25,10 +25,10 @@
                oracle's lexicographic tie rule); for occlusion, tri !=
                INT32_MAX per slot, OR'd per block.
 
-On the card a call at levels=1 reads nothing from the device: the
-live-block count (the reference's traced `live_blocks`) and the live tile
-count (its dynamic `n_chunks`) stay on the card, read by the two kernels;
-levels=2 reads the live-block count, the overflow fallback its counts.
+On the card a call reads nothing from the device but the overflow
+fallback's counts: the live-block count (the reference's traced
+`live_blocks`) and the live tile count (its dynamic `n_chunks`) stay on
+the card, read by the two kernels.
 
 Blocks whose union exceeds `cap` (or `super_cap` supers, or the split
 tail budget) complete exactly through the overflow fallback
@@ -56,7 +56,6 @@ from path_tracer_ai_tpu_torch.accel.worklist import (
     _prepare_blocks,
     _unsort,
 )
-from path_tracer_ai_tpu_torch.utils import sync
 
 INF = float("inf")
 NEG_BIG = -(2**30)  # the reference's empty top_k slot; negated: 2**30
@@ -353,18 +352,14 @@ def _run(accel, origins, directions, t_min, t_max, *, block, cap,
         live_blocks = ((n_live + block - 1) // block).to(torch.int32)
     if levels == 0:
         levels = 2 if accel.num_clusters > 2048 else 1
-    if levels == 2:
-        order, n_cand, over = _block_candidates_2level(
-            accel, o_blk, d_blk, tm_blk, t_min, cap, row_chunk, super_cap,
-            live_blocks=None if live_blocks is None
-            else sync.host_int(live_blocks))
-    elif dev.type == "cpu":  # the plain version, in the caller's chunks
+    if dev.type == "cpu":  # the plain version, in the caller's chunks
         order, n_cand, over = cuda_ctiles.block_cull_plain(
             accel, o_blk, d_blk, tm_blk, t_min, cap, live_blocks,
-            row_chunk=row_chunk)
+            row_chunk=row_chunk, levels=levels, super_cap=super_cap)
     else:
         order, n_cand, over = cuda_ctiles.block_cull(
-            accel, o_blk, d_blk, tm_blk, t_min, cap, live_blocks)
+            accel, o_blk, d_blk, tm_blk, t_min, cap, live_blocks,
+            levels=levels, super_cap=super_cap)
     pairs = _build_pairs(accel, order, n_cand, over, cap, tile_blocks,
                          split_head=pair_split)
     blk_res = _sweep_resolve(accel, pairs, o_blk, d_blk, tm_blk, t_min, cap,
@@ -409,9 +404,8 @@ def closest_hit_ctiles(accel, origins, directions, t_min, t_max,
     reads (None builds it); sweep_pack: the pack the sweep reads with these
     options (sweep_pack_builder's; None builds it, or takes tri_pack).
     row_chunk and tile_chunk are the reference's chunk sizes: the CPU's
-    plain versions run in them, and the 2-level cull in row_chunk on every
-    device; on the card the flat cull and the sweep take none (each runs
-    its live prefix in one launch)."""
+    plain versions run in them; on the card the cull and the sweep take
+    none (each runs its live prefix in one launch)."""
     best_t, best_tri = _run(
         accel, origins, directions, t_min, t_max, block=block, cap=cap,
         tile_blocks=tile_blocks, row_chunk=row_chunk, tile_chunk=tile_chunk,

@@ -95,10 +95,12 @@ launches = 0
 generic_launches = 0
 slot_launches = 0
 launch_shapes: dict = {}
-# block_cull's and slot_sweep's launches (their plain versions count
-# nothing), slot_sweep's generic ones, and slot_sweep's by shape: (T, S,
-# out[, option][, "generic"]) -> [launches, slot cap in tiles].
+# block_cull's launches at levels 1 and 2 and slot_sweep's (their plain
+# versions count nothing), slot_sweep's generic ones, and slot_sweep's by
+# shape: (T, S, out[, option][, "generic"]) -> [launches, slot cap in
+# tiles].
 cull_launches = 0
+cull2_launches = 0
 sweep_launches = 0
 sweep_generic_launches = 0
 sweep_shapes: dict = {}
@@ -108,10 +110,11 @@ TIES = ("tri", "slot")
 
 def reset_launches() -> None:
     global launches, generic_launches, slot_launches, cull_launches
-    global sweep_launches, sweep_generic_launches
+    global cull2_launches, sweep_launches, sweep_generic_launches
     with sync.lock:
         launches = generic_launches = slot_launches = 0
-        cull_launches = sweep_launches = sweep_generic_launches = 0
+        cull_launches = cull2_launches = 0
+        sweep_launches = sweep_generic_launches = 0
         launch_shapes.clear()
         sweep_shapes.clear()
 
@@ -524,25 +527,45 @@ def tile_sweep(tri_pack, rays_pack, tile_cid, sub_skip=False, pack_t=False,
 
 
 def block_cull_plain(accel, o_blk, d_blk, tm_blk, t_min, cap,
-                     live_blocks=None, row_chunk=1 << 11):
-    """block_cull in eager torch: accel.ctiles' _ray_masks and
-    _extract_order_flat, in row chunks up to the live-block count (read on
-    the host: the CPU has no queue to drain). Blocks at or past the count
-    get the empty set whatever their rays, as in the kernel."""
+                     live_blocks=None, row_chunk=1 << 11, levels=1,
+                     super_cap=48):
+    """block_cull in eager torch: at levels 1 accel.ctiles' _ray_masks and
+    _extract_order_flat, at levels 2 its _block_candidates_2level, in row
+    chunks up to the live-block count (read on the host: the CPU has no
+    queue to drain). Blocks at or past the count get the empty set whatever
+    their rays, as in the kernel (order C - 1, n_cand 0, over False; JAX's
+    2-level cull leaves zeros in the rows past its last chunk, which no
+    caller reads)."""
     from path_tracer_ai_tpu_torch.accel import ctiles
 
     lb = None if live_blocks is None else int(live_blocks)
     if lb is not None:
         past = torch.arange(o_blk.shape[0], device=o_blk.device) >= lb
         tm_blk = torch.where(past[:, None], -1.0, tm_blk)
+    if levels == 2:
+        order, n_cand, over = ctiles._block_candidates_2level(
+            accel, o_blk, d_blk, tm_blk, t_min, cap, row_chunk, super_cap,
+            live_blocks=lb)
+        if lb is not None:
+            order = torch.where(past[:, None], accel.num_clusters - 1, order)
+        return order, n_cand, over
     cand, n_cand = ctiles._ray_masks(accel, o_blk, d_blk, tm_blk, t_min,
                                      row_chunk, live_blocks=lb)
     return ctiles._extract_order_flat(accel, cand, n_cand, cap,
                                       row_chunk=row_chunk)
 
 
-def _cull_kernel():
-    fn = cuda_build.load(CULL_SOURCE).block_cull
+def _cull_kernel(levels=1):
+    lib = cuda_build.load(CULL_SOURCE)
+    if levels == 2:
+        fn = lib.block_cull_2level
+        if fn.argtypes is None:
+            fn.argtypes = ([ctypes.c_void_p] * 7
+                           + [ctypes.c_float, ctypes.c_void_p]
+                           + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4)
+            fn.restype = ctypes.c_int
+        return fn
+    fn = lib.block_cull
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_void_p]
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
@@ -550,18 +573,28 @@ def _cull_kernel():
     return fn
 
 
-def cull_occupancy(b: int) -> dict:
+def cull_occupancy(b: int, levels: int = 1, super_cap: int = 48) -> dict:
     """block_cull's registers and resident warps per SM at b rays a block
-    (needs the card)."""
-    return read_occupancy(cuda_build.load(CULL_SOURCE).block_cull_occupancy,
-                          b)
+    (at levels 2 with a list of super_cap supers a warp; needs the card)."""
+    lib = cuda_build.load(CULL_SOURCE)
+    if levels == 2:
+        return read_occupancy(lib.block_cull2_occupancy, b, super_cap)
+    return read_occupancy(lib.block_cull_occupancy, b)
 
 
-def block_cull(accel, o_blk, d_blk, tm_blk, t_min, cap, live_blocks=None):
-    """Per-ray inclusive slab cull of every cluster box, OR'd per block of
-    b rays, and each block's first candidates ascending -> (order [nb, kx]
-    i32, kx = min(cap, C), C - 1 past n_cand; n_cand [nb] i32, 0 where the
-    block has more than cap candidates; over [nb] bool).
+def block_cull(accel, o_blk, d_blk, tm_blk, t_min, cap, live_blocks=None,
+               levels=1, super_cap=48):
+    """Per-ray inclusive slab cull, OR'd per block of b rays, and each
+    block's first candidates ascending -> (order [nb, kx] i32, C - 1 past
+    n_cand; n_cand [nb] i32, 0 where the block overflows; over [nb] bool).
+
+    levels 1: every cluster box (accel.bmin / bmax), kx = min(cap, C), a
+    block overflows past cap candidates. levels 2: the block's supers
+    (accel.sbmin / sbmax) in kslots' rule, then the children (accel.cbmin /
+    cbmax) of its first scap = min(super_cap, Cs) in the comparison-select
+    rule; kx = min(cap, scap * super_size, C), a block overflows past scap
+    supers or kx children (the kernel keeps b rays and scap supers a warp
+    in 6 KiB of shared memory, and refuses the launch past that).
 
     o_blk / d_blk [nb, b, 3], tm_blk [nb, b] (negative: dead). live_blocks:
     None (every block), or a one-element i32 tensor on the blocks' device,
@@ -569,11 +602,14 @@ def block_cull(accel, o_blk, d_blk, tm_blk, t_min, cap, live_blocks=None):
     past it get the empty set, which their dead rays give anyway. CUDA
     tensors launch csrc/ctiles_cull.cu, which reads live_blocks on the
     device (or raise); CPU tensors take block_cull_plain."""
-    global cull_launches
+    global cull_launches, cull2_launches
+    if levels not in (1, 2):
+        raise ValueError(f"block_cull takes levels 1 or 2, not {levels}")
     dev = o_blk.device
     if dev.type == "cpu":
         return block_cull_plain(accel, o_blk, d_blk, tm_blk, t_min, cap,
-                                live_blocks)
+                                live_blocks, levels=levels,
+                                super_cap=super_cap)
     if dev.type != "cuda":
         raise ValueError(f"block_cull runs on cuda or cpu, not {dev}")
     nb, b = o_blk.shape[:2]
@@ -583,37 +619,65 @@ def block_cull(accel, o_blk, d_blk, tm_blk, t_min, cap, live_blocks=None):
     _check("o_blk", o_blk, torch.float32, 3, dev)
     _check("d_blk", d_blk, torch.float32, 3, dev)
     _check("tm_blk", tm_blk, torch.float32, 2, dev)
-    bmin, bmax = accel.bmin.contiguous(), accel.bmax.contiguous()
-    _check("bmin", bmin, torch.float32, 2, dev)
-    _check("bmax", bmax, torch.float32, 2, dev)
+    if levels == 1:
+        boxes = (accel.bmin.contiguous(), accel.bmax.contiguous())
+        names, dims = ("bmin", "bmax"), (2, 2)
+    else:
+        boxes = tuple(x.contiguous() for x in (accel.sbmin, accel.sbmax,
+                                                accel.cbmin, accel.cbmax))
+        names, dims = ("sbmin", "sbmax", "cbmin", "cbmax"), (2, 2, 3, 3)
+    for name, x, nd in zip(names, boxes, dims):
+        _check(name, x, torch.float32, nd, dev)
     if (o_blk.shape[2] != 3 or d_blk.shape != o_blk.shape
-            or tuple(tm_blk.shape) != (nb, b) or tuple(bmin.shape) != (c, 3)
-            or bmax.shape != bmin.shape):
+            or tuple(tm_blk.shape) != (nb, b)
+            or any(x.shape[-1] != 3 for x in boxes)
+            or boxes[1].shape != boxes[0].shape
+            or (levels == 1 and tuple(boxes[0].shape) != (c, 3))
+            or (levels == 2 and (boxes[2].shape[0] != boxes[0].shape[0]
+                                 or boxes[3].shape != boxes[2].shape
+                                 or boxes[2].shape[0] * boxes[2].shape[1]
+                                 < c))):
         raise ValueError("block_cull takes o_blk / d_blk [nb, b, 3], tm_blk "
-                         "[nb, b] and boxes [C, 3]")
-    if b < 1 or b > 192 or cap < 1:
-        raise ValueError(f"block_cull takes 1 <= b <= 192 rays a block and "
-                         f"cap >= 1, not b = {b}, cap = {cap}")
+                         "[nb, b] and boxes [C, 3] (levels 1) or supers "
+                         "[Cs, 3] and children [Cs, ss, 3] (levels 2)")
+    if b < 1 or b > 192 or cap < 1 or (levels == 2 and super_cap < 1):
+        raise ValueError(f"block_cull takes 1 <= b <= 192 rays a block, cap "
+                         f">= 1 and super_cap >= 1, not b = {b}, cap = "
+                         f"{cap}, super_cap = {super_cap}")
+    if levels == 2:
+        cs, ss = boxes[2].shape[:2]
+        scap = min(super_cap, cs)
+        kx = min(cap, scap * ss, c)
+    else:
+        kx = min(cap, c)
     if live_blocks is not None:
         if (live_blocks.device != dev or live_blocks.dtype != torch.int32
                 or live_blocks.numel() != 1):
             raise ValueError("live_blocks must be one i32 on the blocks' "
                              "device")
-    kx = min(cap, c)
     order = torch.empty((nb, kx), dtype=torch.int32, device=dev)
     n_cand = torch.empty((nb,), dtype=torch.int32, device=dev)
     over = torch.empty((nb,), dtype=torch.bool, device=dev)
     if nb == 0:
         return order, n_cand, over
-    err = cuda_build.launch(
-        _cull_kernel(), dev, o_blk.data_ptr(), d_blk.data_ptr(),
-        tm_blk.data_ptr(), bmin.data_ptr(), bmax.data_ptr(), float(t_min),
-        None if live_blocks is None else live_blocks.data_ptr(), nb, b, c,
-        cap, kx, order.data_ptr(), n_cand.data_ptr(), over.data_ptr())
+    live = None if live_blocks is None else live_blocks.data_ptr()
+    rays = (o_blk.data_ptr(), d_blk.data_ptr(), tm_blk.data_ptr())
+    outs = (order.data_ptr(), n_cand.data_ptr(), over.data_ptr())
+    if levels == 2:
+        err = cuda_build.launch(
+            _cull_kernel(2), dev, *rays, *(x.data_ptr() for x in boxes),
+            float(t_min), live, nb, b, c, cs, ss, scap, kx, *outs)
+    else:
+        err = cuda_build.launch(
+            _cull_kernel(), dev, *rays, *(x.data_ptr() for x in boxes),
+            float(t_min), live, nb, b, c, cap, kx, *outs)
     if err != 0:
         raise RuntimeError(f"block_cull launch failed: cudaError {err}")
     with sync.lock:
-        cull_launches += 1
+        if levels == 2:
+            cull2_launches += 1
+        else:
+            cull_launches += 1
     return order, n_cand, over
 
 

@@ -58,6 +58,19 @@ k_clusters] i32, n_slots, n_cand [N] i32; over, over_supers,
 over_clusters, phantom_only, live [N] bool), perray_cull (order [N, cap]
 i32, n_cand [N] i32 clipped to cap, overflow [N] bool); each equal to its
 plain version bit for bit.
+
+The pair tables' CULL + PACK, `pair_tables(accel, origins, directions,
+t_min, t_max, cap, pair_budget, tile_rays, pair_align)`, carries the
+XLA-fused body of the JAX package's `build_pair_tables`
+(path_tracer_ai_tpu/accel/pairs.py:61-190: the comparison-select slab
+test of every ray against every cluster box, the ranks of its candidates
+in their clusters' segments in ray order, the segments padded to whole
+tiles and the cluster-major table). It launches csrc/ray_cull.cu's three
+pair kernels on CUDA tensors or raises; `pair_tables_plain`, the eager
+body in row steps (moved from accel/pairs.py), is what the CPU takes
+(accel.pairs.build_pair_tables dispatches on the device). Both return
+(pair_ray [P] i32, tile_cluster [P / T] i32, dst [N, cap] i32, n_cand [N]
+i32, overflow [N] bool, n_tiles [] i32 on the device), equal bit for bit.
 """
 
 from __future__ import annotations
@@ -84,18 +97,23 @@ SMEM_SORT_MAX_C = 16384
 CULL_ELEMS = 1 << 23
 
 # Kernel launches since the last reset, packet_cull's, worklist_cull's,
-# kslots_cull's and perray_cull's (the plain versions count nothing);
-# updated under sync.lock (the mesh's workers launch from several threads).
+# kslots_cull's, perray_cull's and the pair tables' (one a call of
+# pair_tables, which launches its three kernels; the plain versions count
+# nothing); updated under sync.lock (the mesh's workers launch from
+# several threads).
 launches = 0
 worklist_launches = 0
 kslots_launches = 0
 perray_launches = 0
+pair_launches = 0
 
 
 def reset_launches() -> None:
     global launches, worklist_launches, kslots_launches, perray_launches
+    global pair_launches
     with sync.lock:
         launches = worklist_launches = kslots_launches = perray_launches = 0
+        pair_launches = 0
 
 
 def block_candidates_plain(accel, o_blk, d_blk, t_max_blk,
@@ -478,6 +496,10 @@ def _ray_lib():
             [ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 2
             + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
         lib.perray_cull.restype = ctypes.c_int
+        lib.pair_tables.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 2
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 10)
+        lib.pair_tables.restype = ctypes.c_int
     return lib
 
 
@@ -490,6 +512,17 @@ def ray_occupancy(k_supers: int = 6) -> dict:
     return {"kslots_cull": read_occupancy(lib.kslots_cull_occupancy,
                                           k_supers),
             "perray_cull": read_occupancy(lib.perray_cull_occupancy)}
+
+
+def pair_occupancy(c: int) -> dict:
+    """Registers and resident warps per SM of the pair tables' cull, scan
+    and rank kernels (the rank at C clusters; needs the card)."""
+    from path_tracer_ai_tpu_torch.accel.cuda_ctiles import read_occupancy
+
+    fn = cuda_build.load(RAY_SOURCE).pair_tables_occupancy
+    return {name: read_occupancy(fn, which, c)
+            for which, name in enumerate(("pair_cull", "pair_scan",
+                                          "pair_rank"))}
 
 
 def _ray_inputs(who, origins, directions, t_max, boxes):
@@ -642,3 +675,159 @@ def perray_cull(accel, origins, directions, t_min, t_max, cap: int):
     with sync.lock:
         perray_launches += 1
     return order, n_cand, overflow
+
+
+# ---- the pair tables' CULL + PACK: pair_tables ------------------------------
+
+# Elements of each [rows, C] temporary of the plain pair tables: rows are
+# culled this many at a time. The running per-cluster counts carry over,
+# so the tables do not depend on the step.
+PAIR_CULL_ELEMS = 1 << 22
+# The ray tiles of the pair kernels: about this many tiles a call (each a
+# thread block of the cull and a warp of the rank), at least
+# PAIR_MIN_TILE_RAYS rays a tile. The tables do not depend on the tiling
+# (the tests set both to force one ray a tile, or one tile a call).
+PAIR_TILES = 512
+PAIR_MIN_TILE_RAYS = 8
+
+
+def pair_capacity(n: int, pair_budget: int, tile_rays: int,
+                  pair_align: int) -> int:
+    """P, the static pair capacity: n * pair_budget rounded up to whole
+    units of tile_rays * pair_align."""
+    unit = tile_rays * pair_align
+    return -(-(n * pair_budget) // unit) * unit
+
+
+def pair_tables_plain(accel, origins, directions, t_min, t_max, cap: int,
+                      pair_budget: int, tile_rays: int, pair_align: int = 1,
+                      row_chunk: int = 1 << 15):
+    """The pair tables in eager torch: rows culled at most `row_chunk` (and
+    PAIR_CULL_ELEMS / C) at a time, the running per-cluster counts (the
+    reference's lax.scan carry) giving each pair its rank inside its
+    cluster segment. Returns (pair_ray, tile_cluster, dst, n_cand,
+    overflow, n_tiles) as pair_tables; the tables do not depend on either
+    step."""
+    from path_tracer_ai_tpu_torch.accel.worklist import _extract_k
+
+    n = origins.shape[0]
+    c = accel.num_clusters
+    dev = origins.device
+    t = tile_rays
+    p_cap = pair_capacity(n, pair_budget, t, pair_align)
+    k_eff = min(cap, c)
+    step = max(1, min(row_chunk, PAIR_CULL_ELEMS // c))
+
+    counts = torch.zeros((c,), dtype=torch.int64, device=dev)
+    orders, ncands, overs, ranks = [], [], [], []
+    for lo in range(0, n, step):
+        tc = t_max[lo:lo + step]
+        cand = perray_slab_plain(accel, origins[lo:lo + step],
+                                 directions[lo:lo + step], tc, t_min)[0]
+        cand = cand & (tc >= 0.0)[:, None]
+        n_cand = cand.sum(dim=1).to(torch.int32)
+        over = n_cand > cap
+        cand = cand & ~over[:, None]
+        order = _extract_k(cand, k_eff, c - 1)
+        ci = cand.to(torch.int64)
+        rank_full = counts[None, :] + torch.cumsum(ci, dim=0) - ci
+        ranks.append(torch.gather(rank_full, 1, order.long()))
+        counts = counts + ci.sum(dim=0)
+        orders.append(order)
+        ncands.append(torch.where(over, 0, n_cand))
+        overs.append(over)
+    if n:
+        order = torch.cat(orders)
+        n_cand = torch.cat(ncands)
+        overflow = torch.cat(overs)
+        rank = torch.cat(ranks)
+    else:
+        order = rank = torch.zeros((0, k_eff), dtype=torch.int64, device=dev)
+        n_cand = torch.zeros((0,), dtype=torch.int32, device=dev)
+        overflow = torch.zeros((0,), dtype=torch.bool, device=dev)
+
+    # Cluster segments, padded so every tile holds exactly one cluster.
+    seg = -(-counts // t) * t
+    base = torch.cumsum(seg, 0) - seg
+    total = seg.sum()
+
+    valid_k = (torch.arange(k_eff, device=dev)[None, :] < n_cand[:, None])
+    dst = torch.where(valid_k, base[order.long()] + rank, p_cap)
+    # Rays with any pair past the static budget complete via the fallback.
+    over_budget = (valid_k & (dst >= p_cap)).any(dim=1)
+    overflow = overflow | over_budget
+    n_cand = torch.where(over_budget, 0, n_cand)
+    dst = torch.where(over_budget[:, None], p_cap, dst)
+
+    # One permutation scatter (unique destinations; slot p_cap is a sink).
+    pair_ray = torch.full((p_cap + 1,), -1, dtype=torch.int32, device=dev)
+    ray_ids = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+    pair_ray[dst.reshape(-1)] = ray_ids.expand(n, k_eff).reshape(-1)
+    pair_ray = pair_ray[:p_cap]
+
+    # Tile -> cluster: segment lookup at each tile's first slot.
+    tile_starts = torch.arange(p_cap // t, device=dev) * t
+    tile_cluster = torch.searchsorted(base, tile_starts, right=True) - 1
+    tile_cluster = torch.clamp(tile_cluster, 0, c - 1).to(torch.int32)
+    n_tiles = (torch.clamp(total, max=p_cap) // t).to(torch.int32)
+
+    dst = dst.to(torch.int32)
+    if k_eff < cap:
+        dst = torch.nn.functional.pad(dst, (0, cap - k_eff), value=p_cap)
+    return pair_ray, tile_cluster, dst, n_cand, overflow, n_tiles
+
+
+def pair_tile_rays(n: int) -> int:
+    """Rays a tile of the pair kernels: about PAIR_TILES tiles a call."""
+    return max(PAIR_MIN_TILE_RAYS, -(-n // PAIR_TILES))
+
+
+def pair_tables(accel, origins, directions, t_min, t_max, cap: int,
+                pair_budget: int, tile_rays: int, pair_align: int = 1):
+    """The pair tables on the card, three launches (cull, scan, rank) and
+    one fill: (pair_ray [P] i32, tile_cluster [P / T] i32, dst [N, cap]
+    i32, n_cand [N] i32, overflow [N] bool, n_tiles [] i32 on the card), as
+    pair_tables_plain, in ray tiles of pair_tile_rays(N) rays. Raises on a
+    tensor that is not a contiguous f32 CUDA tensor of the layout above,
+    on bad sizes, and where a launch fails."""
+    global pair_launches
+    c = accel.num_clusters
+    boxes = (("bmin", accel.bmin, 2), ("bmax", accel.bmax, 2))
+    if (c < 1 or cap < 0 or pair_budget < 0 or tile_rays < 1
+            or pair_align < 1 or tuple(accel.bmin.shape[:1]) != (c,)):
+        raise ValueError(f"pair_tables takes C >= 1 boxes [C, 3], cap >= 0, "
+                         f"pair_budget >= 0, tile_rays >= 1 and pair_align "
+                         f">= 1, not C = {c}, cap = {cap}, pair_budget = "
+                         f"{pair_budget}, tile_rays = {tile_rays}, "
+                         f"pair_align = {pair_align}")
+    n = _ray_inputs("pair_tables", origins, directions, t_max, boxes)
+    rt = pair_tile_rays(n)
+    k_eff = min(cap, c)
+    p_cap = pair_capacity(n, pair_budget, tile_rays, pair_align)
+    if n * k_eff + c * tile_rays >= 1 << 31 or p_cap >= 1 << 31:
+        raise ValueError("pair_tables counts its pairs in i32: N * min(cap, "
+                         "C) + C * tile_rays and P must stay below 2^31")
+    dev = origins.device
+    nt = -(-n // rt)
+    pair_ray = torch.full((p_cap,), -1, dtype=torch.int32, device=dev)
+    tile_cluster = torch.empty((p_cap // tile_rays,), dtype=torch.int32,
+                               device=dev)
+    dst = torch.empty((n, cap), dtype=torch.int32, device=dev)
+    n_cand = torch.empty((n,), dtype=torch.int32, device=dev)
+    overflow = torch.empty((n,), dtype=torch.bool, device=dev)
+    n_tiles = torch.empty((1,), dtype=torch.int32, device=dev)
+    order = torch.empty((n, k_eff), dtype=torch.int32, device=dev)
+    hist = torch.empty((nt, c), dtype=torch.int32, device=dev)
+    base = torch.empty((c,), dtype=torch.int32, device=dev)
+    err = cuda_build.launch(
+        _ray_lib().pair_tables, dev, origins.data_ptr(),
+        directions.data_ptr(), t_max.data_ptr(), float(t_min),
+        accel.bmin.data_ptr(), accel.bmax.data_ptr(), n, c, cap, rt,
+        tile_rays, p_cap, order.data_ptr(), hist.data_ptr(), base.data_ptr(),
+        pair_ray.data_ptr(), tile_cluster.data_ptr(), dst.data_ptr(),
+        n_cand.data_ptr(), overflow.data_ptr(), n_tiles.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"pair_tables launch failed: cudaError {err}")
+    with sync.lock:
+        pair_launches += 1
+    return pair_ray, tile_cluster, dst, n_cand, overflow, n_tiles.reshape(())

@@ -3,11 +3,14 @@
 Counterpart of accel/pairs.py (the whole module):
 
 1. CULL    — every ray gets its own exact inclusive slab test against all
-             cluster AABBs (`_ray_slab_chunk`, the reference's
-             comparison-select form).
+             cluster AABBs (the reference's comparison-select form).
 2. PACK    — the surviving (ray, cluster) pairs are packed cluster-major:
              each cluster owns a contiguous segment of pair slots padded to
              `tile_rays`; one permutation scatter builds the table.
+             CULL + PACK are `build_pair_tables`: on the card three
+             launches of accel.cuda_cull.pair_tables (csrc/ray_cull.cu),
+             which read nothing on the host; on the CPU its plain version,
+             cuda_cull.pair_tables_plain, eager in row steps.
 3. SWEEP   — tiles of `tile_rays` pair lanes that share one cluster. A pair
              tile is exactly the cluster-tile kernel's unit: the pair table
              goes to ONE accel.cuda_ctiles.slot_sweep launch (per slot
@@ -28,17 +31,13 @@ from typing import NamedTuple
 
 import torch
 
-from path_tracer_ai_tpu_torch.accel import cuda_ctiles, traverse
+from path_tracer_ai_tpu_torch.accel import cuda_ctiles, cuda_cull, traverse
 from path_tracer_ai_tpu_torch.accel.clusters import ClusterAccel
 from path_tracer_ai_tpu_torch.accel.traverse import PacketHit
 from path_tracer_ai_tpu_torch.utils import sync
 
 I32_MAX = cuda_ctiles.I32_MAX
 INF = float("inf")
-# Elements of each [rows, C] temporary of the cull: the rows of a chunk are
-# culled this many at a time. The running per-cluster counts carry over, so
-# the tables do not depend on the step.
-CULL_ELEMS = 1 << 22
 
 # This module's overflow completions since the last reset: calls that had
 # overflow rays, those rays, and the calls that took the whole wave.
@@ -68,102 +67,28 @@ class PairTables(NamedTuple):
     n_tiles: torch.Tensor       # [] i32 real tile count
 
 
-def _ray_slab_chunk(accel: ClusterAccel, oc, dc, tc, t_min):
-    """Exact inclusive slab test of rays oc/dc [R, 3] (t_max tc [R],
-    negative = dead) vs all cluster AABBs -> cand [R, C] bool.
-
-    The reference's comparison-select form, kept apart from kslots._ray_slab:
-    there a NaN (0 * inf) near/far bound is replaced by the axis' identity
-    bound, here a NaN comparison keeps the running bound. Both keep the ray
-    in, but they are written differently, so each module keeps its own."""
-    inv = 1.0 / dc
-    t0 = (accel.bmin[None] - oc[:, None, :]) * inv[:, None, :]
-    t1 = (accel.bmax[None] - oc[:, None, :]) * inv[:, None, :]
-    neg = inv[:, None, :] < 0.0
-    near = torch.where(neg, t1, t0)
-    far = torch.where(neg, t0, t1)
-    lo = torch.full(near.shape[:2], float(t_min), dtype=torch.float32,
-                    device=oc.device)
-    hi = torch.minimum(tc[:, None].expand(near.shape[:2]),
-                       torch.full((), INF, device=oc.device))
-    for a in range(3):
-        lo = torch.where(near[..., a] > lo, near[..., a], lo)
-        hi = torch.where(far[..., a] < hi, far[..., a], hi)
-    return (hi >= lo) & (tc >= 0.0)[:, None]
-
-
 def build_pair_tables(accel: ClusterAccel, origins, directions, t_min, t_max,
                       cap: int = 32, pair_budget: int = 8,
                       tile_rays: int = 128, row_chunk: int = 1 << 15,
                       pair_align: int = 1) -> PairTables:
     """CULL + PACK: exact per-ray candidates -> cluster-major pair table.
 
-    The running per-cluster ray counts (the reference's lax.scan carry) give
-    each pair its rank inside its cluster segment in one pass. Rows are
-    culled at most `row_chunk` (and CULL_ELEMS / C) at a time; the tables
-    do not depend on either. p_cap is rounded to tile_rays * pair_align."""
-    from path_tracer_ai_tpu_torch.accel.worklist import _extract_k
-
-    n = origins.shape[0]
-    c = accel.num_clusters
-    dev = origins.device
-    t = tile_rays
-    unit = t * pair_align
-    p_cap = -(-(n * pair_budget) // unit) * unit
-    k_eff = min(cap, c)
-    step = max(1, min(row_chunk, CULL_ELEMS // c))
-
-    counts = torch.zeros((c,), dtype=torch.int64, device=dev)
-    orders, ncands, overs, ranks = [], [], [], []
-    for lo in range(0, n, step):
-        cand = _ray_slab_chunk(accel, origins[lo:lo + step],
-                               directions[lo:lo + step], t_max[lo:lo + step],
-                               t_min)
-        n_cand = cand.sum(dim=1).to(torch.int32)
-        over = n_cand > cap
-        cand = cand & ~over[:, None]
-        order = _extract_k(cand, k_eff, c - 1)
-        ci = cand.to(torch.int64)
-        rank_full = counts[None, :] + torch.cumsum(ci, dim=0) - ci
-        ranks.append(torch.gather(rank_full, 1, order.long()))
-        counts = counts + ci.sum(dim=0)
-        orders.append(order)
-        ncands.append(torch.where(over, 0, n_cand))
-        overs.append(over)
-    order = torch.cat(orders)
-    n_cand = torch.cat(ncands)
-    overflow = torch.cat(overs)
-    rank = torch.cat(ranks)
-
-    # Cluster segments, padded so every tile holds exactly one cluster.
-    seg = -(-counts // t) * t
-    base = torch.cumsum(seg, 0) - seg
-    total = seg.sum()
-
-    valid_k = (torch.arange(k_eff, device=dev)[None, :] < n_cand[:, None])
-    dst = torch.where(valid_k, base[order.long()] + rank, p_cap)
-    # Rays with any pair past the static budget complete via the fallback.
-    over_budget = (valid_k & (dst >= p_cap)).any(dim=1)
-    overflow = overflow | over_budget
-    n_cand = torch.where(over_budget, 0, n_cand)
-    dst = torch.where(over_budget[:, None], p_cap, dst)
-
-    # One permutation scatter (unique destinations; slot p_cap is a sink).
-    pair_ray = torch.full((p_cap + 1,), -1, dtype=torch.int32, device=dev)
-    ray_ids = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
-    pair_ray[dst.reshape(-1)] = ray_ids.expand(n, k_eff).reshape(-1)
-    pair_ray = pair_ray[:p_cap]
-
-    # Tile -> cluster: segment lookup at each tile's first slot.
-    tile_starts = torch.arange(p_cap // t, device=dev) * t
-    tile_cluster = torch.searchsorted(base, tile_starts, right=True) - 1
-    tile_cluster = torch.clamp(tile_cluster, 0, c - 1).to(torch.int32)
-    n_tiles = (torch.clamp(total, max=p_cap) // t).to(torch.int32)
-
-    dst = dst.to(torch.int32)
-    if k_eff < cap:
-        dst = torch.nn.functional.pad(dst, (0, cap - k_eff), value=p_cap)
-    return PairTables(pair_ray, tile_cluster, dst, n_cand, overflow, n_tiles)
+    Each pair's rank inside its cluster segment counts the rays before its
+    ray that hold the cluster (the reference's lax.scan carry). CPU tensors
+    take cuda_cull.pair_tables_plain, in steps of at most `row_chunk` rows
+    (and PAIR_CULL_ELEMS / C); anything else the kernels
+    (cuda_cull.pair_tables, which raises where it cannot launch); the
+    tables depend on neither step. p_cap is rounded to tile_rays *
+    pair_align; n_tiles stays on the device."""
+    if origins.device.type == "cpu":
+        out = cuda_cull.pair_tables_plain(
+            accel, origins, directions, t_min, t_max, cap, pair_budget,
+            tile_rays, pair_align, row_chunk=row_chunk)
+    else:
+        out = cuda_cull.pair_tables(
+            accel, origins.contiguous(), directions.contiguous(), t_min,
+            t_max.contiguous(), cap, pair_budget, tile_rays, pair_align)
+    return PairTables(*out)
 
 
 def _sweep_tiles(accel, tables: PairTables, origins, directions, t_min,

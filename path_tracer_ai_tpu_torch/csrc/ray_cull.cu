@@ -1,4 +1,5 @@
-// The per-ray culls for Hopper (sm_90a): kslots_cull and perray_cull.
+// The per-ray culls for Hopper (sm_90a): kslots_cull, perray_cull and
+// the pair tables' cull (pair_cull, pair_scan, pair_rank).
 //
 // Replace no Pallas kernel: they are XLA-fused bodies of the JAX package.
 //   kslots_cull: the CULL + EXTRACT of path_tracer_ai_tpu/accel/kslots.py
@@ -9,35 +10,26 @@
 //     first k_clusters cluster ids in ascending order;
 //   perray_cull: `_perray_candidates` in order_mode "id"
 //     (path_tracer_ai_tpu/accel/traverse.py:530-603), one ray's slab test
-//     against every cluster box and its first cap candidate ids ascending.
-// JAX runs each as a lax.map over row chunks inside one executable; the
-// port's plain versions (accel/cuda_cull.py kslots_cull_plain,
-// perray_cull_plain) as chains of eager ops over [rows, boxes]
-// temporaries.
+//     against every cluster box and its first cap candidate ids ascending;
+//   the pair tables: the CULL + PACK of path_tracer_ai_tpu/accel/pairs.py
+//     `build_pair_tables` (pairs.py:61-190), each ray's slab test against
+//     every cluster box, its candidates' ranks inside their clusters'
+//     segments in ray order (the lax.scan's carry of per-cluster counts),
+//     the segments padded to whole tiles, and the cluster-major table.
+// JAX runs each as a lax.map or lax.scan over row chunks inside one
+// executable; the port's plain versions (accel/cuda_cull.py
+// kslots_cull_plain, perray_cull_plain, pair_tables_plain) as chains of
+// eager ops over [rows, boxes] temporaries.
 //
-// The two slab rules differ, and each is kept bit for bit:
-//   kslots (kslots.py:81-107): inv = 1 / d (IEEE division); per axis
-//     t0 = (lo - o) inv, t1 = (hi - o) inv, near = min(t0, t1) and
-//     far = max(t0, t1), where a NaN in t0 or t1 (torch's and jnp's min /
-//     max carry it) makes (near, far) = (-inf, +inf); then
-//     lo = max(max near, t_min), hi = min(min far, t_max or -inf for a
-//     dead ray); candidate: hi >= lo. An inverted box (the padding
-//     children of a partly filled last super, "phantoms") passes for
-//     every live ray: its t0 and t1 swap.
-//   perray (traverse.py:548-566): the comparison-select form. neg =
-//     inv < 0 (a -0.0 direction gives -inf, negative); near = neg ? t1 :
-//     t0, far = neg ? t0 : t1; lo starts at t_min, hi at t_max (a NaN
-//     t_max stays NaN, as torch.minimum(t_max, inf) keeps it); per axis
-//     lo = near > lo ? near : lo, hi = far < hi ? far : hi, so a NaN near
-//     or far keeps the running bound; candidate: hi >= lo.
-// Signed zeros reach only lo and hi, whose zeros compare equal. In both
-// rules lo only grows and hi only shrinks from (t_min, t_max), so a ray
-// whose t_min and t_max fail hi >= lo has no candidate and tests nothing.
+// The slab rules are ray_slab.cuh's: kslots' for kslots_cull, perray's
+// comparison-select form for perray_cull and the pair tables (pairs.py's
+// `_ray_slab_chunk` is the same rule, with every ray whose t_max is not
+// >= 0 dead).
 //
 // Layouts (accel/cuda_cull.py): o, d [N, 3] f32, tm [N] f32 (t_max), all
-// contiguous; boxes bmin, bmax [C, 3] (levels 1, perray) or the supers
-// sbmin, sbmax [Cs, 3] and the children cbmin, cbmax [Cs, ss, 3] (levels
-// 2).
+// contiguous; boxes bmin, bmax [C, 3] (levels 1, perray, pairs) or the
+// supers sbmin, sbmax [Cs, 3] and the children cbmin, cbmax [Cs, ss, 3]
+// (levels 2).
 //   kslots_cull: cid [N, k_clusters] i32 (the first ids ascending, each
 //   clamped to C - 1; every slot past the count, and every slot of an
 //   overflowing ray, holds the pad below); n_cand, n_slots [N] i32; over,
@@ -46,6 +38,10 @@
 //   ascending, also for an overflowing ray; C - 1 past the count up to
 //   min(cap, C), 0 from C to cap); n_cand [N] i32 clipped to cap;
 //   overflow [N] u8 (more than cap candidates).
+//   the pair tables: pair_ray [P] i32 (filled with -1 by the caller),
+//   tile_cluster [P / T] i32, dst [N, cap] i32, n_cand [N] i32, overflow
+//   [N] u8, n_tiles [1] i32; the scratch order [N, k_eff] i32, hist [NT,
+//   C] i32 and base [C] i32 (NT ray tiles of rt rays).
 //
 // kslots at levels 2, per ray:
 //   ns supers pass; over_s = ns > k_supers; the first k_supers of them
@@ -69,83 +65,49 @@
 // their k_supers * ss children are swept flat, (super, child) pairs 32 at
 // a time. perray stops at the chunk where its count passes cap.
 //
+// The pair tables, for N rays, C clusters, cap, k_eff = min(cap, C), tile
+// T and the pair capacity P (pairs.py:138-166 for the steps after the
+// rank):
+//   1. pair_cull, a thread block a ray tile of rt rays, a warp a ray (as
+//      perray_cull): the ray's candidates, scanned until the count passes
+//      cap. A ray whose t_max is not >= 0, or has more than cap
+//      candidates, gets none: n_cand 0 (else its count), overflow set for
+//      the latter. The first n_cand ids ascending go to its order row, and
+//      each one to the tile's row of hist (shared atomics are not needed:
+//      counts do not depend on order, so global atomicAdd into the row the
+//      block zeroed first).
+//   2. pair_scan, one thread block: hist's columns become exclusive offsets
+//      down the tiles (a thread a cluster), the totals are the cluster
+//      counts; seg = counts rounded up to whole tiles of T, base its
+//      exclusive scan, n_tiles = min(sum seg, P) / T; tile_cluster[i] the
+//      last cluster whose base is <= i T (searchsorted, right), clamped to
+//      [0, C - 1].
+//   3. pair_rank, a warp a ray tile (shared memory holds the tile's
+//      running offsets where C fits, else its hist row does): the tile's
+//      rays in ray order, their at most cap candidates on the lanes (a
+//      ray's candidates are distinct clusters, so no two lanes meet).
+//      rank = running[c]++, dst = base[c] + rank. A ray with any dst >= P
+//      is over budget: n_cand 0, overflow set, its dst row all P (its
+//      pairs stay in the counts, as the reference computes seg before the
+//      budget); else its dst row (P past n_cand, and from k_eff to cap)
+//      and pair_ray[dst] = ray.
+//   The rank is the number of rays before the ray, not over cap, that
+//   hold the cluster: the tables depend on neither rt nor any row chunk.
+//
 // What bounds it: the box tests' operations (chip_smoke.py
-// RCULL_AXIS_OPS a box and axis, RCULL_BOX_OPS a box; no division per
-// box, one IEEE division per ray and axis), counted over the boxes this
-// run's rays test, against the rays in and the tables out.
+// KSLOTS_TEST_OPS, PERRAY_TEST_OPS a box; no division per box, one IEEE
+// division per ray and axis), counted over the boxes this run's rays
+// test, against the rays in and the tables out.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#define FULL_MASK 0xffffffffu
+#include "ray_slab.cuh"
+
 #define RC_WARPS 8  // warps (rays) a thread block
 // the largest super list a warp keeps (min(k_supers, Cs) ints a warp, in
 // RC_WARPS * RC_MAX_SUPERS * 4 bytes of shared memory at most)
 #define RC_MAX_SUPERS 1536
-
-struct RayIn {
-  float o[3], inv[3], lo0, hi0;
-};
-
-// One ray's origin, 1 / d (IEEE) and its window, read by every lane.
-__device__ __forceinline__ RayIn load_ray(const float* __restrict__ o,
-                                          const float* __restrict__ d,
-                                          int ray, float lo0, float hi0) {
-  RayIn r;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    r.o[a] = __ldg(o + 3 * (size_t)ray + a);
-    r.inv[a] = __fdiv_rn(1.0f, __ldg(d + 3 * (size_t)ray + a));
-  }
-  r.lo0 = lo0;
-  r.hi0 = hi0;
-  return r;
-}
-
-// kslots' slab rule (above) against the box (lo, hi: 3 floats each).
-__device__ __forceinline__ bool kslots_slab(const RayIn& r,
-                                            const float* __restrict__ lo,
-                                            const float* __restrict__ hi) {
-  float nmax = -INFINITY, fmin = INFINITY;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float t0 = (__ldg(lo + a) - r.o[a]) * r.inv[a];
-    const float t1 = (__ldg(hi + a) - r.o[a]) * r.inv[a];
-    const bool nan = t0 != t0 || t1 != t1;
-    nmax = fmaxf(nmax, nan ? -INFINITY : fminf(t0, t1));
-    fmin = fminf(fmin, nan ? INFINITY : fmaxf(t0, t1));
-  }
-  // lo0 and hi0 are not NaN here (the caller's hi0 >= lo0 held)
-  return fminf(fmin, r.hi0) >= fmaxf(nmax, r.lo0);
-}
-
-// perray's comparison-select slab rule (above).
-__device__ __forceinline__ bool perray_slab(const RayIn& r,
-                                            const float* __restrict__ lo,
-                                            const float* __restrict__ hi) {
-  float lo_t = r.lo0, hi_t = r.hi0;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float t0 = (__ldg(lo + a) - r.o[a]) * r.inv[a];
-    const float t1 = (__ldg(hi + a) - r.o[a]) * r.inv[a];
-    const bool neg = r.inv[a] < 0.0f;
-    const float near = neg ? t1 : t0;
-    const float far = neg ? t0 : t1;
-    lo_t = near > lo_t ? near : lo_t;
-    hi_t = far < hi_t ? far : hi_t;
-  }
-  return hi_t >= lo_t;
-}
-
-// Writes the passing ids of one chunk (hit, id per lane) to row[count..],
-// in lane order, the first k of the row only; returns the chunk's count.
-__device__ __forceinline__ int put_ids(int* row, int k, bool hit, int id,
-                                       int lane, int count) {
-  const unsigned m = __ballot_sync(FULL_MASK, hit);
-  const int pos = count + __popc(m & ((1u << lane) - 1u));
-  if (hit && pos < k) row[pos] = id;
-  return __popc(m);
-}
 
 struct KsArgs {
   const float* o;
@@ -183,8 +145,13 @@ __global__ void __launch_bounds__(RC_WARPS * 32)
   if (a.levels == 1) {
     for (int c0 = 0; any && c0 < a.n_boxes; c0 += 32) {
       const int k = c0 + lane;
-      const bool hit = k < a.n_boxes &&
-                       kslots_slab(r, a.bmin + 3 * k, a.bmax + 3 * k);
+      bool hit = false;
+      if (k < a.n_boxes) {
+        float lo[3], hi[3];
+        load_box(a.bmin + 3 * (size_t)k, lo);
+        load_box(a.bmax + 3 * (size_t)k, hi);
+        hit = kslots_slab(r, lo, hi);
+      }
       count += put_ids(row, a.k_clusters, hit, k, lane, count);
     }
   } else {
@@ -192,8 +159,13 @@ __global__ void __launch_bounds__(RC_WARPS * 32)
     int ns = 0;
     for (int s0 = 0; any && s0 < a.n_boxes && !over_s; s0 += 32) {
       const int sid = s0 + lane;
-      const bool hit = sid < a.n_boxes &&
-                       kslots_slab(r, a.bmin + 3 * sid, a.bmax + 3 * sid);
+      bool hit = false;
+      if (sid < a.n_boxes) {
+        float lo[3], hi[3];
+        load_box(a.bmin + 3 * (size_t)sid, lo);
+        load_box(a.bmax + 3 * (size_t)sid, hi);
+        hit = kslots_slab(r, lo, hi);
+      }
       ns += put_ids(sup, a.list, hit, sid, lane, ns);
       over_s = ns > a.k_supers;
     }
@@ -209,8 +181,10 @@ __global__ void __launch_bounds__(RC_WARPS * 32)
       if (p < pairs) {
         const int si = p / a.ss;
         child = sup[si] * a.ss + (p - si * a.ss);
-        hit = kslots_slab(r, a.cbmin + 3 * (size_t)child,
-                          a.cbmax + 3 * (size_t)child);
+        float lo[3], hi[3];
+        load_box(a.cbmin + 3 * (size_t)child, lo);
+        load_box(a.cbmax + 3 * (size_t)child, hi);
+        hit = kslots_slab(r, lo, hi);
       }
       n_real += __popc(__ballot_sync(FULL_MASK, hit && child < a.c));
       count += put_ids(row, a.k_clusters, hit, min(child, a.c - 1), lane,
@@ -257,7 +231,13 @@ __global__ void __launch_bounds__(RC_WARPS * 32)
   // a NaN t_max fails hi0 >= lo0: no candidate
   for (int c0 = 0; r.hi0 >= r.lo0 && c0 < a.c && count <= a.cap; c0 += 32) {
     const int k = c0 + lane;
-    const bool hit = k < a.c && perray_slab(r, a.bmin + 3 * k, a.bmax + 3 * k);
+    bool hit = false;
+    if (k < a.c) {
+      float lo[3], hi[3];
+      load_box(a.bmin + 3 * (size_t)k, lo);
+      load_box(a.bmax + 3 * (size_t)k, hi);
+      hit = perray_slab(r, lo, hi);
+    }
     count += put_ids(row, kx, hit, k, lane, count);
   }
   for (int j = (count < kx ? count : kx) + lane; j < a.cap; j += 32)
@@ -265,6 +245,186 @@ __global__ void __launch_bounds__(RC_WARPS * 32)
   if (lane == 0) {
     a.n_cand[ray] = count < a.cap ? count : a.cap;
     a.overflow[ray] = count > a.cap;
+  }
+}
+
+struct PairArgs {
+  const float* o;
+  const float* d;
+  const float* tm;
+  const float* bmin;  // [C, 3]
+  const float* bmax;
+  int* order;         // [N, k_eff] scratch
+  int* hist;          // [NT, C] scratch
+  int* base;          // [C] scratch
+  int* pair_ray;      // [P]
+  int* tile_cluster;  // [P / T]
+  int* dst;           // [N, cap]
+  int* n_cand;
+  unsigned char* overflow;
+  int* n_tiles;       // [1]
+  float t_min;
+  int n, c, cap, k_eff, rt, nt, t, p_cap;
+};
+
+// 1. The cull: a thread block a ray tile, a warp a ray.
+__global__ void __launch_bounds__(RC_WARPS * 32)
+    pair_cull_kernel(const PairArgs a) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int* h = a.hist + (size_t)blockIdx.x * a.c;
+  for (int j = threadIdx.x; j < a.c; j += blockDim.x) h[j] = 0;
+  __syncthreads();
+  const int first = blockIdx.x * a.rt;
+  const int end = min(first + a.rt, a.n);
+  for (int ray = first + warp; ray < end; ray += RC_WARPS) {
+    const float tm = __ldg(a.tm + ray);
+    const RayIn r = load_ray(a.o, a.d, ray, a.t_min, tm);
+    int* row = a.order + (size_t)ray * a.k_eff;
+    int count = 0;
+    // a ray whose t_max is not >= 0 (NaN included) has no candidate
+    for (int c0 = 0; tm >= 0.0f && r.hi0 >= r.lo0 && c0 < a.c &&
+                     count <= a.cap;
+         c0 += 32) {
+      const int k = c0 + lane;
+      bool hit = false;
+      if (k < a.c) {
+        float lo[3], hi[3];
+        load_box(a.bmin + 3 * (size_t)k, lo);
+        load_box(a.bmax + 3 * (size_t)k, hi);
+        hit = perray_slab(r, lo, hi);
+      }
+      count += put_ids(row, a.k_eff, hit, k, lane, count);
+    }
+    const bool over = count > a.cap;
+    __syncwarp();  // the row is written: count <= k_eff where not over
+    if (!over)
+      for (int j = lane; j < count; j += 32) atomicAdd(h + row[j], 1);
+    if (lane == 0) {
+      a.n_cand[ray] = over ? 0 : count;
+      a.overflow[ray] = over;
+    }
+  }
+}
+
+#define PAIR_SCAN_THREADS 1024
+#define PAIR_WALK_UNROLL 8
+
+// 2. The offsets, the segments and the tile -> cluster table: one block.
+__global__ void __launch_bounds__(PAIR_SCAN_THREADS)
+    pair_scan_kernel(const PairArgs a) {
+  __shared__ int warp_sums[PAIR_SCAN_THREADS / 32];
+  __shared__ int carry;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // hist's columns -> exclusive offsets down the tiles; base <- counts
+  for (int c = tid; c < a.c; c += PAIR_SCAN_THREADS) {
+    int run = 0;
+    int t0 = 0;
+    for (; t0 + PAIR_WALK_UNROLL <= a.nt; t0 += PAIR_WALK_UNROLL) {
+      int v[PAIR_WALK_UNROLL];
+#pragma unroll
+      for (int u = 0; u < PAIR_WALK_UNROLL; ++u)
+        v[u] = a.hist[(size_t)(t0 + u) * a.c + c];
+#pragma unroll
+      for (int u = 0; u < PAIR_WALK_UNROLL; ++u) {
+        a.hist[(size_t)(t0 + u) * a.c + c] = run;
+        run += v[u];
+      }
+    }
+    for (; t0 < a.nt; ++t0) {
+      const int v = a.hist[(size_t)t0 * a.c + c];
+      a.hist[(size_t)t0 * a.c + c] = run;
+      run += v;
+    }
+    a.base[c] = run;
+  }
+  if (tid == 0) carry = 0;
+  __syncthreads();
+  // base <- the exclusive scan of seg = counts rounded up to whole tiles
+  for (int c0 = 0; c0 < a.c; c0 += PAIR_SCAN_THREADS) {
+    const int c = c0 + tid;
+    const int cnt = c < a.c ? a.base[c] : 0;
+    const int seg = (cnt + a.t - 1) / a.t * a.t;
+    int incl = seg;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(FULL_MASK, incl, off);
+      if (lane >= off) incl += v;
+    }
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      int w = warp_sums[lane];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(FULL_MASK, w, off);
+        if (lane >= off) w += v;
+      }
+      warp_sums[lane] = w;  // inclusive over the warps
+    }
+    __syncthreads();
+    const int before = carry + (warp ? warp_sums[warp - 1] : 0);
+    if (c < a.c) a.base[c] = before + incl - seg;
+    __syncthreads();  // every thread has read carry
+    if (tid == 0) carry += warp_sums[PAIR_SCAN_THREADS / 32 - 1];
+    __syncthreads();
+  }
+  if (tid == 0) a.n_tiles[0] = min(carry, a.p_cap) / a.t;
+  // tile i -> the last cluster whose base is <= i T (base ascends)
+  for (int i = tid; i < a.p_cap / a.t; i += PAIR_SCAN_THREADS) {
+    const int start = i * a.t;
+    int lo = 0, hi = a.c;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (a.base[mid] <= start)
+        lo = mid + 1;
+      else
+        hi = mid;
+    }
+    a.tile_cluster[i] = max(0, min(lo - 1, a.c - 1));
+  }
+}
+
+// 3. The ranks, dst and the scatter: a warp a ray tile, its rays in order.
+__global__ void __launch_bounds__(32) pair_rank_kernel(const PairArgs a,
+                                                        int smem_offsets) {
+  extern __shared__ int offsets_smem[];
+  const int lane = threadIdx.x;
+  int* run = a.hist + (size_t)blockIdx.x * a.c;
+  if (smem_offsets) {
+    for (int j = lane; j < a.c; j += 32) offsets_smem[j] = run[j];
+    run = offsets_smem;
+  }
+  __syncwarp();
+  const int first = blockIdx.x * a.rt;
+  const int end = min(first + a.rt, a.n);
+  for (int ray = first; ray < end; ++ray) {
+    const int nc = a.n_cand[ray];
+    const int* ord = a.order + (size_t)ray * a.k_eff;
+    int* drow = a.dst + (size_t)ray * a.cap;
+    bool past = false;
+    for (int j = lane; j < a.cap; j += 32) {
+      int dv = a.p_cap;
+      if (j < nc) {
+        const int cl = ord[j];
+        const int rank = run[cl];
+        run[cl] = rank + 1;
+        dv = a.base[cl] + rank;
+        past |= dv >= a.p_cap;
+      }
+      drow[j] = dv;
+    }
+    const bool over_budget = __any_sync(FULL_MASK, past);
+    for (int j = lane; j < nc; j += 32) {  // the lanes' own slots
+      if (over_budget)
+        drow[j] = a.p_cap;
+      else
+        a.pair_ray[drow[j]] = ray;
+    }
+    if (lane == 0 && over_budget) {
+      a.n_cand[ray] = 0;
+      a.overflow[ray] = 1;
+    }
+    __syncwarp();  // the running offsets are written for the next ray
   }
 }
 
@@ -319,16 +479,56 @@ extern "C" int perray_cull(const void* o, const void* d, const void* tm,
   return (int)cudaGetLastError();
 }
 
+// the largest C whose running offsets pair_rank keeps in shared memory
+#define PAIR_SMEM_MAX_C 12288
+
+// The pair tables: three launches on `stream`; returns the first
+// cudaError_t (0 = ok). rt rays a tile, nt = ceil(n / rt) tiles; p_cap a
+// multiple of t; pair_ray filled with -1 by the caller; the caller keeps
+// n * k_eff + c * t below 2^31.
+extern "C" int pair_tables(const void* o, const void* d, const void* tm,
+                           float t_min, const void* bmin, const void* bmax,
+                           int n, int c, int cap, int rt, int t, int p_cap,
+                           void* order, void* hist, void* base,
+                           void* pair_ray, void* tile_cluster, void* dst,
+                           void* n_cand, void* overflow, void* n_tiles,
+                           void* stream) {
+  const int k_eff = cap < c ? cap : c;
+  if (n < 0 || c < 1 || cap < 0 || rt < 1 || t < 1 || p_cap < 0 ||
+      p_cap % t)
+    return (int)cudaErrorInvalidValue;
+  const int nt = n > 0 ? (n + rt - 1) / rt : 0;
+  const PairArgs a = {(const float*)o, (const float*)d, (const float*)tm,
+                      (const float*)bmin, (const float*)bmax, (int*)order,
+                      (int*)hist, (int*)base, (int*)pair_ray,
+                      (int*)tile_cluster, (int*)dst, (int*)n_cand,
+                      (unsigned char*)overflow, (int*)n_tiles, t_min, n, c,
+                      cap, k_eff, rt, nt, t, p_cap};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nt > 0) {
+    pair_cull_kernel<<<nt, RC_WARPS * 32, 0, s>>>(a);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  pair_scan_kernel<<<1, PAIR_SCAN_THREADS, 0, s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || nt == 0) return (int)err;
+  const int smem = c <= PAIR_SMEM_MAX_C;
+  pair_rank_kernel<<<nt, 32, smem ? c * sizeof(int) : 0, s>>>(a, smem);
+  return (int)cudaGetLastError();
+}
+
 template <typename K>
-static int occupancy(K kernel, size_t smem, int* regs, int* warps_per_sm) {
+static int occupancy(K kernel, size_t smem, int* regs, int* warps_per_sm,
+                     int threads = RC_WARPS * 32) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                      RC_WARPS * 32, smem);
-  *warps_per_sm = blocks * RC_WARPS;
+                                                      threads, smem);
+  *warps_per_sm = blocks * threads / 32;
   return (int)err;
 }
 
@@ -341,4 +541,17 @@ extern "C" int kslots_cull_occupancy(int list, int* regs, int* warps_per_sm) {
 
 extern "C" int perray_cull_occupancy(int* regs, int* warps_per_sm) {
   return occupancy(perray_cull_kernel, 0, regs, warps_per_sm);
+}
+
+// The pair tables' three kernels (which 0, 1, 2: cull, scan, rank; the
+// rank at C clusters).
+extern "C" int pair_tables_occupancy(int which, int c, int* regs,
+                                     int* warps_per_sm) {
+  if (which == 0) return occupancy(pair_cull_kernel, 0, regs, warps_per_sm);
+  if (which == 1)
+    return occupancy(pair_scan_kernel, 0, regs, warps_per_sm,
+                     PAIR_SCAN_THREADS);
+  return occupancy(pair_rank_kernel,
+                   c <= PAIR_SMEM_MAX_C ? c * sizeof(int) : 0, regs,
+                   warps_per_sm, 32);
 }

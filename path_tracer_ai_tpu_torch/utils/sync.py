@@ -13,16 +13,16 @@ fused cascades' (any_hit_fused, closest_hit_fused; the same module),
 which read one value a cascade, the candidate ids' range check, and the
 perray queries' (closest_hit_perray, any_hit_perray), which read one a
 call, the overflow count. So do ctiles' closest and any-hit queries at
-levels=1 (accel.ctiles: the live-block count and the live tile count stay
-on the card, read by the block_cull and slot_sweep kernels) and the pair
-tiles' sweep (accel.pairs; its compaction builds a static-size index
-list). Still read on the host, as the reference's lax.cond choices: the
-overflow fallbacks' counts (accel.worklist, accel.pairs); and the bounce
-loop's live counts and the counters, which the reference reads too; then
-ctiles' live-block count at levels=2, the worklist's and kslots' table
-sizes, and the host-stepped comparison loops (the stages' and the
-kernels' plain versions, traverse._cascade_traverse), one read a vote or
-a bound.
+both levels (accel.ctiles: the live-block count and the live tile count
+stay on the card, read by the block_cull and slot_sweep kernels) and the
+pair tiles' tables and sweep (accel.pairs: the tile count stays on the
+card; its compaction builds a static-size index list). Still read on the
+host, as the reference's lax.cond choices: the overflow fallbacks'
+counts (accel.worklist, accel.pairs); and the bounce loop's live counts
+and the counters, which the reference reads too; then the exact shadow
+cull's live-block count, the worklist's and kslots' table sizes, and the
+host-stepped comparison loops (the stages' and the kernels' plain
+versions, traverse._cascade_traverse), one read a vote or a bound.
 
 `lock` guards these counts and the port's other module-level counts (the
 kernel wrappers' launches, the overflow counts): the mesh's workers

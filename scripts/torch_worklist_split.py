@@ -1,7 +1,7 @@
 """Splits the worklist route's device time by step, for a tree at a time.
 
     python3 scripts/torch_worklist_split.py [--tree DIR] [--reps N]
-        [--kernels] [--out FILE]
+        [--kernels] [--route worklist|kslots|main|ctiles] [--out FILE]
 
 DIR holds a checkout of the repository (for example a parent commit,
 unpacked with `git archive`; default: this checkout); its
@@ -10,7 +10,15 @@ unpacked with `git archive`; default: this checkout); its
 (327,688 triangles, 2,561 clusters in 161 supers: past 2048, so the
 default routing takes the worklist backend and its 2-level cull),
 1920x1080, 2 spp, 5 bounces, seed 0, waves of 2^20, blocks of 64, through
-`wavefront.render`.
+`wavefront.render`. --route kslots renders the kslots cell instead (blob
+subdiv 6 + room in clusters of 128: 81,928 triangles, 641 clusters,
+backend="kslots"), --route main the main path (the same scene, ctiles
+closest waves on the clusters of 256, packet-cascade shadows), --route
+ctiles the worklist cell through backend="ctiles" (both wave types; past
+2048 clusters its 2-level cull: the eager `ctiles._block_candidates_2level`
+where the tree runs it, else `cuda_ctiles.block_cull`): the same steps
+where the route takes them (kslots and ctiles queries and culls, the
+overflow fallbacks of both).
 
 The steps of each worklist query (closest_hit_worklist, any_hit_worklist)
 are timed with CUDA events around the tree's functions, the same in every
@@ -32,7 +40,8 @@ under torch.profiler (device activity only) counts its device kernels and
 copies, with the profiled render's wall time. Prints one JSON line (and
 appends it to FILE): the card's name and power limit, the tree, the timed
 seconds, the image's sha256, the steps' device seconds by wave type, the
-host reads by site, the launches of the worklist's kernels. Needs a GPU.
+host reads by site, the launches of the worklist's kernels, of the pair
+tables' and of ctiles' 2-level cull. Needs a GPU.
 """
 
 import argparse
@@ -48,6 +57,13 @@ import time
 STEPS = (
     ("worklist", "closest_hit_worklist", "query"),
     ("worklist", "any_hit_worklist", "query"),
+    ("kslots", "closest_hit_kslots", "query"),
+    ("kslots", "any_hit_kslots", "query"),
+    ("ctiles", "closest_hit_ctiles", "query"),
+    ("ctiles", "any_hit_ctiles", "query"),
+    ("ctiles", "_overflow_fallback", "fallback"),
+    ("ctiles", "_block_candidates_2level", "cull"),
+    ("cuda_ctiles", "block_cull", "cull"),
     ("worklist", "_prepare_blocks", "sort"),
     ("worklist", "_build_worklist", "build"),
     ("worklist", "_cull_flat", "cull"),
@@ -70,6 +86,8 @@ def main() -> int:
         os.path.dirname(os.path.abspath(__file__))))
     parser.add_argument("--reps", type=int, default=2)
     parser.add_argument("--kernels", action="store_true")
+    parser.add_argument("--route", default="worklist",
+                        choices=("worklist", "kslots", "main", "ctiles"))
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
     tree = os.path.abspath(args.tree)
@@ -130,18 +148,27 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.splitlines()[0].strip()
-    scene = blob_scene(subdivisions=7, device="cuda")
+    scene = blob_scene(
+        subdivisions=7 if args.route in ("worklist", "ctiles") else 6,
+        device="cuda")
     accel = build_clusters(scene.triangles, cluster_size=128)
     cam = default_camera("cuda")
     settings = RenderSettings(width=1920, height=1080, samples_per_pixel=2,
                               max_bounces=5, seed=0)
-    backend = wavefront.resolve_backend(accel, 64, False, None)
+    render_kw = {"worklist": dict(block_size=64),
+                 "kslots": dict(backend="kslots"),
+                 "ctiles": dict(backend="ctiles"),
+                 "main": dict(accel_closest=build_clusters(
+                     scene.triangles, cluster_size=256))}[args.route]
+    backend = render_kw.get("backend") or (
+        "hybrid" if args.route == "main"
+        else wavefront.resolve_backend(accel, 64, False, None))
     images = []
 
     def render():
         return wavefront.render(scene, cam, settings, accel=accel,
-                                wave_size=1 << 20, block_size=64,
-                                device="cuda")
+                                wave_size=1 << 20, device="cuda",
+                                **render_kw)
 
     def timed() -> float:
         torch.cuda.synchronize()
@@ -153,7 +180,9 @@ def main() -> int:
 
     counters = []
     for modname, attr in (("cuda_cull", "worklist_launches"),
-                          ("cuda_items", "launches")):
+                          ("cuda_items", "launches"),
+                          ("cuda_cull", "pair_launches"),
+                          ("cuda_ctiles", "cull2_launches")):
         try:
             counters.append((importlib.import_module(
                 f"path_tracer_ai_tpu_torch.accel.{modname}"), attr))
@@ -185,7 +214,8 @@ def main() -> int:
         w["resolve_unsort"] = w.get("query", 0.0) - sum(
             w.get(k, 0.0) for k in ("sort", "build", "sweep", "fallback"))
     seconds += [timed() for _ in range(args.reps - 1)]
-    out = {"card": card, "tree": tree, "backend": backend,
+    out = {"card": card, "tree": tree, "route": args.route,
+           "backend": backend,
            "clusters": accel.num_clusters, "supers": accel.num_supers,
            "wrapped": wrapped, "timed_seconds": seconds,
            "image_sha256": sorted(set(images)),

@@ -2727,3 +2727,289 @@ def test_ray_cull_occupancy(cuda):
     occ = cuda_cull.ray_occupancy()
     for name in ("kslots_cull", "perray_cull"):
         assert occ[name]["registers"] > 0 and occ[name]["warps_per_sm"] >= 8
+
+
+# --- the pair tables' CULL + PACK: pair_tables ------------------------------
+
+PAIR_FIELDS = ("pair_ray", "tile_cluster", "dst", "n_cand", "overflow",
+               "n_tiles")
+
+
+def _same_pairs(got, want) -> bool:
+    return all(a.dtype == b.dtype and a.shape == b.shape
+               and torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, want))
+
+
+def _pair_case_args(case, dev):
+    from types import SimpleNamespace
+
+    t = lambda a: torch.as_tensor(a, device=dev)
+    acc = SimpleNamespace(bmin=t(case["bmin"]), bmax=t(case["bmax"]),
+                          num_clusters=case["bmin"].shape[0])
+    return acc, t(case["o"]), t(case["d"]), t(case["tm"])
+
+
+def _pair_tiling(tiling):
+    """Patches the pair kernels' ray tiles: the default, one ray a tile,
+    three rays a tile, or the whole wave in one tile."""
+    from unittest import mock
+
+    tiles, least = {"default": (cuda_cull.PAIR_TILES,
+                                cuda_cull.PAIR_MIN_TILE_RAYS),
+                    "one_ray": (1 << 30, 1), "three_rays": (1 << 30, 3),
+                    "one_tile": (1, 1)}[tiling]
+    return mock.patch.multiple(cuda_cull, PAIR_TILES=tiles,
+                               PAIR_MIN_TILE_RAYS=least)
+
+
+@pytest.mark.parametrize("tiling", ["default", "one_ray", "three_rays",
+                                    "one_tile"])
+@pytest.mark.parametrize("cap_add", [0, 1, -3])
+@pytest.mark.parametrize("name", sorted(cases.PAIR_CASES))
+def test_pair_tables_match_plain(cuda, name, cap_add, tiling):
+    """The pair kernels on the crafted cases at the case's cap, one past it
+    and a cap most rays overflow, at several ray tilings (one ray a tile,
+    three, every ray in one), against the plain version run on the CPU
+    (where the tests hold it against the JAX package): every field bit for
+    bit."""
+    case = cases.pair_case(name)
+    kw = dict(cap=max(case["cap"] + cap_add, 0),
+              pair_budget=case["pair_budget"], tile_rays=case["tile_rays"],
+              pair_align=case["pair_align"])
+    acc, o, d, tm = _pair_case_args(case, cuda)
+    before = cuda_cull.pair_launches
+    with _pair_tiling(tiling):
+        got = cuda_cull.pair_tables(acc, o, d, case["t_min"], tm, **kw)
+    assert cuda_cull.pair_launches == before + 1
+    acc_c, o_c, d_c, tm_c = _pair_case_args(case, "cpu")
+    want = cuda_cull.pair_tables_plain(acc_c, o_c, d_c, case["t_min"], tm_c,
+                                       **kw)
+    torch.cuda.synchronize()
+    assert _same_pairs(got, want)
+    assert got[5].shape == () and got[5].device.type == "cuda"
+
+
+@pytest.mark.parametrize("cap,budget", [(8, 1), (64, 12), (32, 8)])
+@pytest.mark.parametrize("s,n", [(128, 1 << 13), (16, 1 << 15), (2, 1 << 12)])
+def test_pair_tables_on_a_bounce_wave(cuda, rng, s, n, cap, budget):
+    """A bounce wave on the blob accel in clusters of s (41 clusters at S
+    128, 321 at S 16, and at S 2 over subdiv 6 about 41,000, past the
+    running offsets' shared memory), at the fallback's cap and budget, a
+    budget most rays pass and the default's: the kernels against the plain
+    version run on the card, bit for bit, at two tilings."""
+    acc = _accel(cuda, s=s, subdiv=6 if s == 2 else 4)
+    if s == 2:
+        assert acc.num_clusters > 12288
+    o, d, tm = _bounce_wave(acc, n, rng)
+    if s == 2:  # short rays: some within cap among 41,000 small boxes
+        tm = torch.where(tm >= 0.0, torch.clamp(tm, max=0.05), tm)
+    kw = dict(cap=cap, pair_budget=budget, tile_rays=128, pair_align=2)
+    want = cuda_cull.pair_tables_plain(acc, o, d, 1e-3, tm, **kw)
+    for tiling in ("default", "three_rays"):
+        with _pair_tiling(tiling):
+            got = cuda_cull.pair_tables(acc, o, d, 1e-3, tm, **kw)
+        torch.cuda.synchronize()
+        assert _same_pairs(got, want)
+    # rays with pairs, or (a budget of one pair a ray) over the budget
+    assert bool((want[3] > 0).any() or want[4].any())
+
+
+def test_pair_queries_launch_the_kernels(cuda, rng):
+    """On the card closest_hit_pairs, any_hit_pairs and the worklist's
+    overflow fallback build their tables with the kernels (one call each),
+    never the plain version; their results are the CPU's."""
+    from unittest import mock
+
+    from path_tracer_ai_tpu_torch.accel import pairs, worklist
+
+    acc = _accel(cuda)
+    o, d, tm = _bounce_wave(acc, 1 << 12, rng)
+    over = torch.zeros(o.shape[0], dtype=torch.bool, device=cuda)
+    over[::3] = True
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain pair tables ran on the card")
+
+    cpu = acc.to("cpu")
+    with mock.patch.object(cuda_cull, "pair_tables_plain", no_plain):
+        p0 = cuda_cull.pair_launches
+        hit = pairs.closest_hit_pairs(acc, o, d, 1e-3, tm, cap=8)
+        occ = pairs.any_hit_pairs(acc, o, d, 1e-3, tm, cap=8)
+        fb = worklist._overflow_fallback(acc, o, d, 1e-3, tm, over, True,
+                                         4096, 64)
+        assert cuda_cull.pair_launches == p0 + 3
+    want_hit = pairs.closest_hit_pairs(cpu, o.cpu(), d.cpu(), 1e-3,
+                                       tm.cpu(), cap=8)
+    want_occ = pairs.any_hit_pairs(cpu, o.cpu(), d.cpu(), 1e-3, tm.cpu(),
+                                   cap=8)
+    want_fb = worklist._overflow_fallback(cpu, o.cpu(), d.cpu(), 1e-3,
+                                          tm.cpu(), over.cpu(), True, 4096,
+                                          64)
+    assert torch.equal(_bits(hit.t.cpu()), _bits(want_hit.t))
+    assert torch.equal(hit.tri.cpu(), want_hit.tri)
+    assert torch.equal(occ.cpu(), want_occ)
+    assert torch.equal(_bits(fb[0].cpu()), _bits(want_fb[0]))
+
+
+def test_pair_tables_launch_failure_raises(cuda):
+    """A refused launch raises; nothing falls back to the plain version."""
+    from unittest import mock
+
+    case = cases.pair_case("count_edges")
+    acc, o, d, tm = _pair_case_args(case, cuda)
+
+    def refused(*a):
+        return 1  # cudaErrorInvalidValue
+
+    with mock.patch.object(cuda_cull, "_ray_lib",
+                           lambda: mock.Mock(pair_tables=refused)), \
+            mock.patch.object(cuda_cull, "pair_tables_plain",
+                              mock.Mock(side_effect=AssertionError)):
+        with pytest.raises(RuntimeError, match="pair_tables"):
+            cuda_cull.pair_tables(acc, o, d, 1e-3, tm, 6, 8, 4)
+
+
+def test_pair_occupancy(cuda):
+    occ = cuda_cull.pair_occupancy(2561)
+    for name in ("pair_cull", "pair_scan", "pair_rank"):
+        assert occ[name]["registers"] > 0 and occ[name]["warps_per_sm"] >= 1
+
+
+# --- ctiles' 2-level cull: block_cull at levels 2 ----------------------------
+
+CTILES2_CARD = [(name, b) for name in cases.CTILES2_CASES
+                for b in cases.CTILES2_BLOCKS]
+
+
+def _ctiles2_args(case, dev):
+    from types import SimpleNamespace
+
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    acc = SimpleNamespace(**{k: t(case[k]) for k in WL_BOX_KEYS},
+                          num_clusters=case["bmin"].shape[0],
+                          num_supers=case["sbmin"].shape[0],
+                          super_size=case["ss"])
+    return acc, t(case["o_blk"]), t(case["d_blk"]), t(case["tm_blk"])
+
+
+@pytest.mark.parametrize("name,b", CTILES2_CARD)
+def test_block_cull_2level_matches_plain(cuda, name, b):
+    """block_cull at levels 2 on the crafted cases, at the case's cap and
+    super_cap, one past each and kslots' kc / ks, with no live-block count,
+    a count inside the wave (its tail dead, and live) and 0, against the
+    plain version run on the CPU: order, n_cand and over exact."""
+    case = cases.ctiles2_case(name, b)
+    acc, *blk = _ctiles2_args(case, cuda)
+    acc_c, *blk_c = _ctiles2_args(case, "cpu")
+    nb = blk[0].shape[0]
+    cap, scap = case["cap"], case["super_cap"]
+    runs = [(c_, s_, None, False) for c_, s_ in (
+        (cap, scap), (cap + 1, scap), (cap, scap + 1),
+        (case["kc"], case["ks"]))]
+    runs += [(cap, scap, lb, tail) for lb in (nb // 2 + 1, 0, nb)
+             for tail in (False, True)]
+    for c_, s_, lb, live_tail in runs:
+        tm, tm_c = blk[2].clone(), blk_c[2].clone()
+        if lb is not None and not live_tail:
+            tm[lb:] = -1.0
+            tm_c[lb:] = -1.0
+        bound = (None if lb is None else
+                 torch.tensor([lb], dtype=torch.int32, device=cuda))
+        before = cuda_ctiles.cull2_launches
+        got = cuda_ctiles.block_cull(acc, blk[0], blk[1], tm, case["t_min"],
+                                     c_, bound, levels=2, super_cap=s_)
+        assert cuda_ctiles.cull2_launches == before + 1
+        want = cuda_ctiles.block_cull_plain(acc_c, blk_c[0], blk_c[1], tm_c,
+                                            case["t_min"], c_, lb, levels=2,
+                                            super_cap=s_)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), (
+            c_, s_, lb, live_tail)
+
+
+@pytest.mark.parametrize("cap,super_cap", [(48, 48), (16, 4), (200, 64)])
+@pytest.mark.parametrize("b", [8, 4])
+@pytest.mark.parametrize("on_faces", [False, True])
+def test_block_cull_2level_on_a_bounce_wave(cuda, rng, b, cap, super_cap,
+                                           on_faces):
+    """Sorted bounce-wave blocks on the blob accel in clusters of 16 (321
+    clusters in 21 supers of 16, the last partly filled) with the dead
+    rays last, at the routes' caps and caps that overflow: the kernel
+    against the plain version run on the card, with the device live-block
+    count and without it."""
+    acc = _accel(cuda, s=16)
+    n = 1 << 13
+    blocks = _cull_blocks(acc, rng, n, b, n - 1000, on_faces)
+    lb = -(-(n - 1000) // b)
+    for live in (None, lb):
+        bound = (None if live is None else
+                 torch.tensor([live], dtype=torch.int32, device=cuda))
+        got = cuda_ctiles.block_cull(acc, *blocks, 1e-3, cap, bound,
+                                     levels=2, super_cap=super_cap)
+        want = cuda_ctiles.block_cull_plain(acc, *blocks, 1e-3, cap, live,
+                                            levels=2, super_cap=super_cap)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    if super_cap == 48:
+        assert got[1].float().mean() > 1
+
+
+@pytest.mark.parametrize("query", ["closest", "any"])
+def test_ctiles_2level_reads_no_host_value(cuda, rng, query):
+    """closest_hit_ctiles / any_hit_ctiles at levels=2: one launch of the
+    2-level cull, no host read from accel.ctiles, and the bits of the same
+    calls with the plain cull patched in."""
+    from unittest import mock
+
+    from path_tracer_ai_tpu_torch.accel import ctiles
+    from path_tracer_ai_tpu_torch.utils import sync
+
+    acc = _accel(cuda, s=16)
+    o, d, tm = _bounce_wave(acc, 1 << 14, rng)
+    fn = (ctiles.closest_hit_ctiles if query == "closest"
+          else ctiles.any_hit_ctiles)
+    torch.cuda.synchronize()
+    sync.reset()
+    before = cuda_ctiles.cull2_launches
+    got = fn(acc, o, d, 1e-3, tm, levels=2)
+    torch.cuda.synchronize()
+    assert cuda_ctiles.cull2_launches == before + 1
+    assert not [k for k in sync.sites if ".accel.ctiles:" in k]
+    with mock.patch.object(cuda_ctiles, "block_cull",
+                           cuda_ctiles.block_cull_plain):
+        want = fn(acc, o, d, 1e-3, tm, levels=2)
+    if query == "closest":
+        assert torch.equal(_bits(got.t), _bits(want.t))
+        assert torch.equal(got.tri, want.tri) and got.hit.any()
+    else:
+        assert torch.equal(got, want) and 0 < got.float().mean() < 1
+
+
+def test_block_cull_2level_raises(cuda):
+    """Bad tables raise before a launch, a refused launch raises, and
+    nothing falls back to the plain version."""
+    from unittest import mock
+
+    case = cases.ctiles2_case("count_edges", 8)
+    acc, *blk = _ctiles2_args(case, cuda)
+    bad = type(acc)(**{**vars(acc), "cbmin": acc.cbmin.double()})
+    with pytest.raises(TypeError, match="cbmin"):
+        cuda_ctiles.block_cull(bad, *blk, 1e-3, 6, None, levels=2,
+                               super_cap=2)
+    bad = type(acc)(**{**vars(acc),
+                       "cbmax": acc.cbmax[:, :2].contiguous()})
+    with pytest.raises(ValueError, match="children"):
+        cuda_ctiles.block_cull(bad, *blk, 1e-3, 6, None, levels=2,
+                               super_cap=2)
+    lib = mock.Mock(block_cull_2level=mock.Mock(return_value=1))
+    with mock.patch.object(cuda_ctiles.cuda_build, "load", lambda name: lib), \
+            mock.patch.object(cuda_ctiles, "block_cull_plain",
+                              mock.Mock(side_effect=AssertionError)):
+        with pytest.raises(RuntimeError, match="block_cull"):
+            cuda_ctiles.block_cull(acc, *blk, 1e-3, 6, None, levels=2,
+                                   super_cap=2)
+
+
+def test_block_cull_2level_occupancy(cuda):
+    occ = cuda_ctiles.cull_occupancy(8, levels=2, super_cap=48)
+    assert occ["registers"] > 0 and occ["warps_per_sm"] >= 8

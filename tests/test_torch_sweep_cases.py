@@ -1430,3 +1430,82 @@ def ray_cull_case(name: str, seed: int = 0) -> dict:
             "bmin": f(bmin), "bmax": f(bmax),
             **wl_supers(f(bmin), f(bmax), ss), "ss": ss, "ks": ks,
             "kc": kc, "cap": cap}
+
+
+# The pair tables' crafted cases (accel.cuda_cull pair_tables and its plain
+# version): name -> (ray_cull_case, cap, pair_budget, tile_rays,
+# pair_align). Each is held at its cap and at cap + 1.
+PAIR_CASES = {
+    "t_max_values": ("t_max_values", 8, 8, 4, 1),
+    "axis_on_plane": ("axis_on_plane", 8, 8, 4, 2),
+    "signed_zero": ("signed_zero", 8, 8, 4, 1),
+    "flat_boxes": ("flat_boxes", 8, 8, 16, 1),
+    "count_edges": ("count_edges", 6, 8, 4, 1),
+    "over_budget": ("count_edges", 7, 3, 4, 1),
+    "small_c": ("small_c", 24, 8, 4, 1),
+    "phantoms": ("phantoms", 16, 2, 8, 1),
+    "pad_rule": ("pad_rule", 6, 8, 4, 1),
+}
+
+
+def pair_case(name: str, seed: int = 0) -> dict:
+    """One pair-table input: the rays and boxes of its ray_cull_case with
+    its cap, pair_budget, tile_rays (T) and pair_align:
+    t_max_values, axis_on_plane, signed_zero, flat_boxes: the slab edges
+      (dead, -0.0, +0.0, NaN and +inf t_max; 0 x inf in the slab; +-0.0
+      directions; flat boxes), pair_align 2 on one;
+    count_edges: cap 6, lines of 6 candidates (exactly cap) and 7 (cap +
+      1, over cap) and 9;
+    over_budget: count_edges at cap 7 and pair budget 3 (P 384) with the
+      rays in a seeded random order: the 7-candidate line's pairs in
+      cluster 10 pass P for the rays that come late, which are over budget
+      between rays that are not;
+    small_c: C 20 < cap 24 (dst padded from C to cap with P);
+    phantoms: C 49, T 8, budget 2; pad_rule: C 40.
+    Culled in row steps of 5 rays, a cluster's rays straddle the steps."""
+    src, cap, budget, t, align = PAIR_CASES[name]
+    case = dict(ray_cull_case(src, seed))
+    if name == "over_budget":
+        perm = np.random.default_rng([seed, 950]).permutation(
+            case["o"].shape[0])
+        for k in ("o", "d", "tm"):
+            case[k] = np.ascontiguousarray(case[k][perm])
+    case.update(cap=cap, pair_budget=budget, tile_rays=t, pair_align=align)
+    return case
+
+
+# ctiles' 2-level cull's crafted cases (accel.cuda_ctiles block_cull at
+# levels 2 and its plain version): the ray_cull_case rays in blocks of
+# `b`, at the case's cap and super_cap, one past each, and kc / ks.
+CTILES2_CASES = RAY_CULL_CASES
+CTILES2_BLOCKS = (8, 4)
+# the cases whose blocks hold one line of rays each: cap = kc, super_cap
+# = ks; the others' blocks hold random rays, whose union of supers passes
+# ks: cap = C and super_cap = Cs, so that their children are tested
+CTILES2_LINES = ("count_edges", "phantoms", "pad_rule")
+
+
+def ctiles2_case(name: str, b: int = 8, seed: int = 0) -> dict:
+    """One 2-level block-cull input: ray_cull_case(name)'s 128 rays in
+    blocks of b (o_blk, d_blk [128 / b, b, 3], tm_blk [128 / b, b]; a
+    line's rays are consecutive, so a block holds one line, or the two
+    around a border), its boxes, supers and children (a partly filled last
+    super's padding children inverted), cap = kc and super_cap = ks:
+    count_edges: lines of 6 children in 2 supers (exactly cap 6 and
+      super_cap 2), 7 in 2 (cap + 1) and 9 in 3 (super_cap + 1);
+    phantoms: the last super holds cluster 48 and 15 padding children,
+      which the children's sign-select rule fails;
+    pad_rule: a super list past its cap;
+    t_max_values, axis_on_plane, signed_zero, flat_boxes, small_c: the
+      slab edges and C < 32 (these
+    at cap C and super_cap Cs, so that every block's children are
+    tested)."""
+    case = dict(ray_cull_case(name, seed))
+    n = case["o"].shape[0]
+    lines = name in CTILES2_LINES
+    case.update(o_blk=case["o"].reshape(n // b, b, 3),
+                d_blk=case["d"].reshape(n // b, b, 3),
+                tm_blk=case["tm"].reshape(n // b, b), b=b,
+                cap=case["kc"] if lines else case["bmin"].shape[0],
+                super_cap=case["ks"] if lines else case["sbmin"].shape[0])
+    return case
