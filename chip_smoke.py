@@ -670,7 +670,15 @@ def phase_build():
     for c in (641, 2561, cuda_cull.SMEM_SORT_MAX_C + 1):
         occupancy[f"packet_cull C{c}"] = {
             **cuda_cull.occupancy(c), "spill_bytes": sum(
-                e["spill_bytes"] for e in ptxas.get("packet_cull", []))}
+                e["spill_bytes"] for e in ptxas.get("packet_cull", [])
+                if "packet_cull_kernel" in e["entry"])}
+    # the exact cull at the main path's blocks of 64 (ksup 6) and the fused
+    # routes' 128 (ksup 16), on the bench accel's 41 supers of 16
+    for r, ksup in ((64, 6), (128, 16)):
+        occupancy[f"exact_cull R{r} ksup{ksup}"] = {
+            **cuda_cull.exact_occupancy(r, 41, ksup, 16), "spill_bytes": sum(
+                e["spill_bytes"] for e in ptxas.get("packet_cull", [])
+                if "exact_cull_kernel" in e["entry"])}
     occupancy["worklist_cull"] = {
         **cuda_cull.worklist_occupancy(), "spill_bytes": sum(
             e["spill_bytes"] for e in ptxas.get("worklist_cull", []))}
@@ -1489,7 +1497,11 @@ def _read_counts() -> dict:
             # the pair tables (a call: three launches) and ctiles' 2-level
             # cull
             "pair_cull": cuda_cull.pair_launches,
-            "block_cull_2level": cuda_ctiles.cull2_launches}
+            "block_cull_2level": cuda_ctiles.cull2_launches,
+            # the exact shadow cull (a packet_cull launch before each, in
+            # the count above) and perray's entry order
+            "exact_cull": cuda_cull.exact_launches,
+            "perray_entry": cuda_cull.entry_launches}
 
 
 def _tile_shapes() -> list:
@@ -4516,35 +4528,182 @@ FUSED_EXACT_ENGINES = dict(
     HYBRID_CLOSEST_KW=dict(engine="cascade_fused", exact_cull=16),
     HYBRID_OCCLUDE_KW=dict(engine="packets_fused", early_skip=True,
                            sub_skip=True, exact_cull=16))
+EXACT_REPS = 20
+EXACT_ROW_ELEMS = 1 << 24  # [rows, R, Cs] elements a step of _exact_work
+
+
+def _exact_work(call) -> dict:
+    """Bytes and operations of one exact_cull launch on these inputs. The
+    operations: each live lane's (t_max >= t_min) Cs super tests, and in a
+    block within the shortlist (n_sup <= kx) its tests of the listed
+    supers' children below C, at PERRAY_TEST_OPS a test (the kernel's
+    perray_slab). The bytes: the rays (28 B a lane), the boxes, n_cand in
+    and out, the in-cap blocks' finite conservative prefix read (8 B an
+    entry) and their rows written (8 B a cluster)."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cull
+
+    accel, o, d, tm, t_min, ksup = call
+    nb, b = tm.shape
+    c, cs, ss = accel.num_clusters, accel.num_supers, accel.super_size
+    kx = min(ksup, cs)
+    valid = torch.clamp(c - torch.arange(cs, device=o.device) * ss,
+                        0, ss).float()  # children below C a super
+    step = max(1, EXACT_ROW_ELEMS // (b * cs))
+    tests = 0
+    in_cap = 0
+    prefix = 0
+    entry = cuda_cull.block_candidates(accel, o, d, tm)[2]
+    n_fin = torch.isfinite(entry).sum(dim=1)
+    for lo in range(0, nb, step):
+        tc = tm[lo:lo + step]
+        hi0 = torch.where(tc >= 0.0, tc, -float("inf"))
+        sup = cuda_cull._slab_lanes(o[lo:lo + step], d[lo:lo + step], hi0,
+                                    accel.sbmin, accel.sbmax,
+                                    t_min).any(dim=1)
+        n_sup = sup.sum(dim=1)
+        cap = n_sup <= kx
+        live = (tc >= t_min).sum(dim=1)
+        kids = torch.where(cap, sup.float() @ valid, 0.0)
+        tests += int((live * (cs + kids)).sum())
+        in_cap += int(cap.sum())
+        prefix += int(torch.where(cap, n_fin[lo:lo + step], 0).sum())
+    ops = tests * PERRAY_TEST_OPS
+    nbytes = (nb * b * 28 + cs * 24 + cs * ss * 24 + nb * 8 + prefix * 8
+              + in_cap * c * 8)
+    by_bytes = nbytes / PEAK_BYTES_PER_S
+    by_ops = ops / PEAK_F32_PER_S
+    return {"bytes": nbytes, "operations": ops, "box_tests": tests,
+            "in_cap_blocks": in_cap,
+            "bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _exact_kernel_ms(call, reps=EXACT_REPS) -> dict:
+    """Device ms of the exact_cull kernel alone (CUDA events around each
+    launch, on one set of packet_cull tables: the kernel is idempotent) and
+    of packet_cull's launch before it, a call."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cull
+
+    accel, o, d, tm, t_min, ksup = call
+    tables = cuda_cull.block_candidates(accel, o, d, tm)
+    launch = lambda: cuda_cull._exact_launch(accel, o, d, tm, t_min, ksup,
+                                             *tables)
+    return {"ms": cuda_ms(launch, reps),
+            "packet_cull_ms": cuda_ms(
+                lambda: cuda_cull.block_candidates(accel, o, d, tm), reps)}
+
+
+def _same_exact(got, want, bits=True) -> bool:
+    ok = all(bool(torch.equal(a.cpu(), b_.cpu()))
+             for a, b_ in zip(got[:2], want[:2]))
+    if bits:
+        return ok and bool(torch.equal(got[2].cpu().view(torch.int32),
+                                       want[2].cpu().view(torch.int32)))
+    return ok and bool((got[2].cpu() == want[2].cpu()).all())
+
+
+def _check_exact(label, call, reps=EXACT_REPS) -> dict:
+    """One exact cull call (accel, o_blk, d_blk, tm_blk, t_min, ksup) of a
+    route: the kernel against the plain version on the card (whole tables,
+    entries bit for bit), the kernel's ms beside its bound, the whole call
+    (packet_cull and exact_cull) and the plain version on the card."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cull
+
+    accel, o, d, tm, t_min, ksup = call
+    got = cuda_cull.exact_cull(*call)
+    want = cuda_cull.exact_cull_plain(*call)
+    torch.cuda.synchronize()
+    kx = min(ksup, accel.num_supers)
+    res = {"input": label, "blocks": tm.shape[0], "R": tm.shape[1],
+           "C": accel.num_clusters, "supers": accel.num_supers,
+           "ksup": ksup, "kchild": kx * accel.super_size,
+           "live_blocks": int((tm >= 0).any(dim=1).sum()),
+           "candidates_mean": float(got[1].float().mean()),
+           "matches_plain": _same_exact(got, want), "max_abs_err": 0.0,
+           **_exact_kernel_ms(call, reps),
+           "call_ms": cuda_ms(lambda: cuda_cull.exact_cull(*call), reps),
+           "plain_ms": cuda_ms(lambda: cuda_cull.exact_cull_plain(*call), 1),
+           **_exact_work(call)}
+    res["ms_over_bound"] = res["ms"] / res["bound_ms"]
+    res["plain_over_call"] = res["plain_ms"] / res["call_ms"]
+    return res
+
+
+def _crafted_exact() -> list:
+    """exact_cull on every crafted exact case (tests/test_torch_sweep_cases.py
+    exact_case) at its ksup and one past it, against the plain version on
+    the CPU (entries as values: the CPU's conservative entries are the
+    plain cull's)."""
+    from types import SimpleNamespace
+
+    from path_tracer_ai_tpu_torch.accel import cuda_cull
+
+    c = _cases()
+    out = []
+    for name in c.EXACT_CASES:
+        case = c.exact_case(name)
+        args = [(SimpleNamespace(
+            **{k: torch.as_tensor(case[k], device=dev) for k in (
+                "bmin", "bmax", "sbmin", "sbmax", "cbmin", "cbmax")},
+            num_clusters=case["bmin"].shape[0],
+            num_supers=case["sbmin"].shape[0], super_size=case["ss"]),
+            *(torch.as_tensor(case[k], device=dev)
+              for k in ("o_blk", "d_blk", "tm_blk")), case["t_min"])
+            for dev in ("cuda", "cpu")]
+        for ksup in (case["ksup"], case["ksup"] + 1):
+            got = cuda_cull.exact_cull(*args[0], ksup)
+            want = cuda_cull.exact_cull_plain(*args[1], ksup)
+            torch.cuda.synchronize()
+            out.append({"case": name, "ksup": ksup,
+                        "matches_plain": _same_exact(got, want, bits=False)})
+    return out
 
 
 def phase_exact_cull(scene, accel_base, accel_c, card, img_main, img_fused,
-                     worklist_waves, accel_w):
+                     worklist_waves, accel_w, base_syncs):
     """The exact cull on three routes: the main path with the shadow
-    engine's exact_cull=6 (bitwise the main path's image; the kept
-    bounce-1 shadow wave's candidates per block and device ms under each
-    cull); the fused path with exact_cull=16 in both engines (bitwise the
-    fused path's image); the worklist cell's kept shadow wave through
-    any_hit_worklist and through the "packets_exact" cascade (device ms,
-    the same occlusion). The consistency phase holds "packets_exact"
-    against the oracle."""
-    from path_tracer_ai_tpu_torch.accel import traverse, worklist
+    engine's exact_cull=6 (bitwise the main path's image, and its host
+    reads; the kept bounce-1 shadow wave's candidates per block and device
+    ms under each cull); the fused path with exact_cull=16 in both engines
+    (bitwise the fused path's image and host reads); the worklist cell's
+    kept shadow wave through any_hit_worklist and through the
+    "packets_exact" cascade (device ms, the same occlusion). The
+    exact_cull kernel on the routes' kept calls (the main route's first
+    two, the fused route's first four, the worklist wave's) and on every
+    crafted case, against its plain version; its ms beside its bound, the
+    whole call's and the plain version's on the card; launches by route.
+    The consistency phase holds "packets_exact" against the oracle.
+    base_syncs: the host reads of the main and fused renders without the
+    exact cull, which the exact renders must equal (the kernel needs no
+    live-block count)."""
+    import inspect
+
+    from path_tracer_ai_tpu_torch.accel import cuda_cull, traverse, worklist
     from path_tracer_ai_tpu_torch.engine import wavefront
 
+    t0 = time.perf_counter()
+    eager_before = dict(EAGER_CALLS)
     out = {}
     kept = {}
+    calls = {}
+    big = lambda a: a[1].shape[0] >= 4096  # not the 96x54 warm render's
     # the first sorted shadow wave of the bench render: wave 0, bounce 1
     real = _keeping(traverse, "any_hit_packets", kept,
                     lambda a: a[1].shape[0] >= 1 << 21, limit=4)
+    real_cull = _keeping(cuda_cull, "exact_cull", calls,
+                         lambda a: ("main", big(a)), limit=2)
     try:
         res, img, missing, image_ok = _bench_render(
-            "exact_cull", scene, card, ["slot_sweep"], warm_small=True,
+            "exact_cull", scene, card, ["slot_sweep", "exact_cull"],
+            warm_small=True,
             engines={"HYBRID_OCCLUDE_KW": EXACT_OCCLUDE_KW},
             accel=accel_base, accel_closest=accel_c)
     finally:
         traverse.any_hit_packets = real
+        cuda_cull.exact_cull = real_cull
     res["route"] = f"main path, HYBRID_OCCLUDE_KW = {EXACT_OCCLUDE_KW}"
     res["bitwise_equal_to_main"] = bool(np.array_equal(img, img_main))
+    res["host_syncs_without_exact_cull"] = base_syncs["main"]
     waves = [c for c in kept.get(True, []) if c[1].get("sort", True)]
     if waves:
         args, kw = waves[0]
@@ -4552,29 +4711,50 @@ def phase_exact_cull(scene, accel_base, accel_c, card, img_main, img_fused,
     _finish_path(res, missing, image_ok)
     if not res["bitwise_equal_to_main"]:
         fail("exact_cull", "the exact cull changed the main path's image")
+    if res["host_syncs"] != base_syncs["main"]:
+        fail("exact_cull", "the exact cull read the host on the main path")
     if not waves or not res["shadow_wave_bounce_1"]["occlusion_equal"]:
         fail("exact_cull", "no kept bounce-1 shadow wave, or its occlusion "
                            "differs between the culls")
     out["main"] = res
 
-    res, img, missing, image_ok = _bench_render(
-        "exact_cull", scene, card, ["fused_stage_any", "fused_stage_closest"],
-        warm_small=True, engines=FUSED_EXACT_ENGINES, accel=accel_base)
+    real_cull = _keeping(cuda_cull, "exact_cull", calls,
+                         lambda a: ("fused", big(a)), limit=4)
+    try:
+        res, img, missing, image_ok = _bench_render(
+            "exact_cull", scene, card,
+            ["fused_stage_any", "fused_stage_closest", "exact_cull"],
+            warm_small=True, engines=FUSED_EXACT_ENGINES, accel=accel_base)
+    finally:
+        cuda_cull.exact_cull = real_cull
     res["route"] = "fused path, exact_cull=16 in both engines"
     res["bitwise_equal_to_fused"] = bool(np.array_equal(img, img_fused))
+    res["host_syncs_without_exact_cull"] = base_syncs["fused"]
     _finish_path(res, missing, image_ok)
     if not res["bitwise_equal_to_fused"]:
         fail("exact_cull", "the exact cull changed the fused path's image")
+    if res["host_syncs"] != base_syncs["fused"]:
+        fail("exact_cull", "the exact cull read the host on the fused path")
     out["fused"] = res
 
     args, kw = worklist_waves["shadow_wave"]
     pkw = dict(wavefront.WORKLIST_OCCLUDE_PACKETS_KW,
                tri_pack=kw.get("tri_pack"))
     occ_w = worklist.any_hit_worklist(*args, **kw)
-    occ_p = traverse.any_hit_packets(*args, **pkw)
+    real_cull = _keeping(cuda_cull, "exact_cull", calls,
+                         lambda a: ("worklist", True), limit=1)
+    _reset_counts()
+    try:
+        occ_p = traverse.any_hit_packets(*args, **pkw)
+        torch.cuda.synchronize()
+    finally:
+        cuda_cull.exact_cull = real_cull
+    wave_launches = _read_counts()
     res = {"phase": "exact_cull", "card": card,
            "route": "worklist cell, shadow wave 0 bounce 1",
            "rays": int(args[1].shape[0]), "clusters": accel_w.num_clusters,
+           "launches": {k: wave_launches[k] for k in ("packet_cull",
+                                                       "exact_cull")},
            "occlusion_equal": bool(torch.equal(occ_w, occ_p)),
            "worklist_ms": _event_ms(
                lambda: worklist.any_hit_worklist(*args, **kw)),
@@ -4585,6 +4765,41 @@ def phase_exact_cull(scene, accel_base, accel_c, card, img_main, img_fused,
         fail("exact_cull", "packets_exact and the worklist disagree on the "
                            "worklist cell's shadow wave")
     out["worklist_wave"] = res
+
+    checks = []
+    for route in ("main", "fused", "worklist"):
+        for i, (cargs, ckw) in enumerate(calls.get((route, True), [])):
+            bound = inspect.signature(cuda_cull.exact_cull).bind(*cargs,
+                                                                 **ckw)
+            bound.apply_defaults()
+            checks.append(_check_exact(f"{route} route, call {i + 1}",
+                                       tuple(bound.arguments.values())))
+    crafted = _crafted_exact()
+    EAGER_CALLS.update(eager_before)  # the comparisons' own calls
+    line = {"phase": "exact_cull_kernel", "card": card, "waves": checks,
+            "crafted": len(crafted),
+            "crafted_disagree": [[x["case"], x["ksup"]] for x in crafted
+                                 if not x["matches_plain"]],
+            "launches_by_route": {
+                "main_exact": out["main"]["launches"]["exact_cull"],
+                "fused_exact": out["fused"]["launches"]["exact_cull"],
+                "worklist_wave": wave_launches["exact_cull"]},
+            "host_syncs": {"main_exact": out["main"]["host_syncs"],
+                           "fused_exact": out["fused"]["host_syncs"]},
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    if (len(checks) < 7 or not all(c["matches_plain"] for c in checks)
+            or line["crafted_disagree"]):
+        fail("exact_cull", "exact_cull disagrees with its plain version, or "
+                           "a route's calls were not kept")
+    keys = ("input", "blocks", "R", "C", "ksup", "ms", "packet_cull_ms",
+            "call_ms", "plain_ms", "bound_ms", "bound_by", "ms_over_bound",
+            "box_tests", "in_cap_blocks", "candidates_mean",
+            "matches_plain")
+    # the main route's second call (wave 0, bounce 1) heads the line
+    out["check"] = {**checks[1], "matches_plain": all(
+        c["matches_plain"] for c in checks),
+        "waves": [{k: c[k] for k in keys} for c in checks]}
     return out
 
 
@@ -4971,7 +5186,8 @@ def _rcull_work(which, call) -> dict:
     (*_TEST_OPS over the boxes each ray must test: none for a ray whose
     window is empty; kslots at levels 1 every cluster box, at levels 2 the
     supers up to the one past k_supers and the children of the listed
-    ones; perray the boxes up to the one past cap) of one call."""
+    ones; perray the boxes up to the one past cap; perray's entry order,
+    "entry", every box) of one call."""
     from path_tracer_ai_tpu_torch.accel import cuda_cull, kslots
 
     if which == "kslots":
@@ -4980,7 +5196,7 @@ def _rcull_work(which, call) -> dict:
         accel, o, d, t_min, tm, cap = call
     n = o.shape[0]
     c, cs, ss = accel.num_clusters, accel.num_supers, accel.super_size
-    width = c if which == "perray" or levels == 1 else cs
+    width = c if which != "kslots" or levels == 1 else cs
     step = max(1, RCULL_ROW_ELEMS // width)
     tests = 0
     for lo in range(0, n, step):
@@ -4990,6 +5206,9 @@ def _rcull_work(which, call) -> dict:
             some = tc >= t_min
             n_t = _first_past(cuda_cull.perray_slab_plain(
                 accel, oc, dc, tc, t_min)[0], cap)
+        elif which == "entry":
+            some = tc >= t_min
+            n_t = torch.full((rows,), c, device=o.device)
         else:
             hi0 = torch.where(tc >= 0.0, tc, -float("inf"))
             some = hi0 >= t_min
@@ -5006,9 +5225,12 @@ def _rcull_work(which, call) -> dict:
     if which == "kslots":
         boxes = c * 24 if levels == 1 else cs * 24 + cs * ss * 24
         out = n * (kc * 4 + 8 + 5)
-    else:
+    elif which == "perray":
         boxes = c * 24
         out = n * (cap * 4 + 5)
+    else:  # order and entry
+        boxes = c * 24
+        out = n * (cap * 8 + 5)
     nbytes = n * 28 + boxes + out
     by_bytes = nbytes / PEAK_BYTES_PER_S
     by_ops = ops / PEAK_F32_PER_S
@@ -5023,6 +5245,8 @@ def _rcull_fns(which):
 
     if which == "kslots":
         return cuda_cull.kslots_cull, cuda_cull.kslots_cull_plain
+    if which == "entry":
+        return cuda_cull.perray_entry, cuda_cull.perray_entry_plain
     return cuda_cull.perray_cull, cuda_cull.perray_cull_plain
 
 
@@ -5043,7 +5267,8 @@ def _check_rcull(which, label, call, plain_cpu=None, reps=RCULL_REPS,
     want = run_p(*plain_cpu) if plain_cpu is not None else run_p(*call)
     torch.cuda.synchronize()
     accel, o = call[:2]
-    over = got["over"] if which == "kslots" else got[2]
+    over = (got["over"] if which == "kslots"
+            else got[3] if which == "entry" else got[2])
     n_cand = got["n_cand"] if which == "kslots" else got[1]
     res = {"input": label, "rays": o.shape[0], "C": accel.num_clusters,
            "supers": accel.num_supers,
@@ -5100,6 +5325,7 @@ def _crafted_rcull() -> list:
                  for levels in (1, 2)
                  for a, b in ((0, 0), (1, 0), (0, 1))]
         calls += [("perray", (case["cap"] + a,)) for a in (0, 1)]
+        calls += [("entry", (cap,)) for cap in c.perray_entry_caps(case)]
         for which, caps in calls:
             pair = []
             for acc, (o, d, tm) in zip(accs, rays):
@@ -5149,13 +5375,16 @@ def phase_ray_cull(scene, accel_base, card, paths) -> tuple:
     bounce 1, closest and shadow: the bench accel, C 641 in 41 supers of
     16, levels 2) and on the same calls forced to levels 1; perray_cull on
     the perray render's two kept calls (wave 0, bounce 1: 2^16 rays each);
-    both on every crafted case at its caps and one past each. Each render
-    call timed beside its bound (_rcull_work) and the plain version on the
-    card. Then each route's bench render once more with the plain version
-    patched in (the eager cull of before), beside the route phase's own:
-    the kslots cull's stage seconds, the perray render's seconds. Returns
-    the kernels line's checks (the shadow calls)."""
-    from path_tracer_ai_tpu_torch.accel import cuda_cull
+    perray_entry (order_mode "entry", on no route) on the same two calls,
+    first as its path (the counts read around the two calls), then each
+    checked; all three on every crafted case at its caps and one past each
+    (perray_entry also at cap 1). Each render call timed beside its bound
+    (_rcull_work) and the plain version on the card. Then each route's
+    bench render once more with the plain version patched in (the eager
+    cull of before), beside the route phase's own: the kslots cull's stage
+    seconds, the perray render's seconds. Returns the kernels line's
+    checks (the shadow calls) and perray_entry's path."""
+    from path_tracer_ai_tpu_torch.accel import cuda_cull, traverse
 
     t0 = time.perf_counter()
     eager_before = dict(EAGER_CALLS)
@@ -5165,7 +5394,7 @@ def phase_ray_cull(scene, accel_base, card, paths) -> tuple:
     if min(len(k) for k in kept_k) < 2 or len(kept_p) < 2:
         fail("ray_cull", "fewer than two kept kslots_cull calls of a wave "
                          "type, or no kept perray calls")
-    waves = {"kslots_cull": [], "perray_cull": []}
+    waves = {"kslots_cull": [], "perray_cull": [], "perray_entry": []}
     for levels in (2, 1):
         for wave, kept in zip(("closest", "shadow"), kept_k):
             args = kept[1][0]
@@ -5177,6 +5406,21 @@ def phase_ray_cull(scene, accel_base, card, paths) -> tuple:
     for label, _fn, (args, kw) in kept_p:
         waves["perray_cull"].append(_check_rcull(
             "perray", label, _perray_call(args, kw)))
+    # perray's entry order, on no route: its path is the entry-order lists
+    # of the perray render's kept calls (counts set to 0 before, read
+    # after), then each call checked
+    entry_calls = [_perray_call(args, kw) for _l, _f, (args, kw) in kept_p]
+    _reset_counts()
+    for call in entry_calls:
+        traverse._perray_candidates(*call, order_mode="entry")
+    torch.cuda.synchronize()
+    entry_path = {"launches": _read_counts()}
+    if entry_path["launches"]["perray_entry"] != len(entry_calls):
+        fail("ray_cull", "the entry-order lists did not launch perray_entry "
+                         "once a call")
+    waves["perray_entry"] = [_check_rcull("entry", label, call)
+                             for (label, _f, _a), call in zip(kept_p,
+                                                              entry_calls)]
     crafted = _crafted_rcull()
     routes = {
         "kslots": _route_before_after(
@@ -5205,7 +5449,7 @@ def phase_ray_cull(scene, accel_base, card, paths) -> tuple:
          "waves": [{k: w[k] for k in keys + (("levels",) if name ==
                                              "kslots_cull" else ("cap",))}
                    for w in ws]}
-        for name, ws in waves.items())
+        for name, ws in waves.items()) + (entry_path,)
 
 
 # --- the pair tables and ctiles' 2-level cull: pair_cull -------------------
@@ -5658,6 +5902,8 @@ def _spy_eager_sweeps() -> None:
                       (cuda_cull, "kslots_cull_plain"),
                       (cuda_cull, "perray_cull_plain"),
                       (cuda_cull, "pair_tables_plain"),
+                      (cuda_cull, "exact_cull_plain"),
+                      (cuda_cull, "perray_entry_plain"),
                       (ctiles, "_block_candidates_2level")):
         EAGER_CALLS[name] = 0
 
@@ -7386,6 +7632,14 @@ KERNELS = {
     # Pallas kernel): the ctiles backend past 2048 clusters
     "pair_cull": ("ray_cull.cu", None, "main_path"),
     "block_cull_2level": ("ctiles_cull.cu", None, "path_ctiles_2level"),
+    # the exact shadow cull (no Pallas kernel): the XLA-fused body of
+    # traverse._exact_block_candidates, at exact_cull=K on the packets and
+    # fused routes and the worklist's "packets_exact"; perray's entry order
+    # (no Pallas kernel), on no route of either package: its path is
+    # _perray_candidates(order_mode="entry") on the perray render's kept
+    # waves
+    "exact_cull": ("packet_cull.cu", None, "exact_cull_main"),
+    "perray_entry": ("ray_cull.cu", None, "perray_entry"),
 }
 # what a kernel without a Pallas counterpart carries in the JAX package
 CARRIES = {
@@ -7431,6 +7685,13 @@ CARRIES = {
     "block_cull_2level": "path_tracer_ai_tpu/accel/ctiles.py:194-343 "
                          "(_block_candidates_2level; fori_loop to "
                          "live_blocks)",
+    "exact_cull": "path_tracer_ai_tpu/accel/traverse.py:205-397 "
+                  "(_exact_block_candidates: slab_lanes, the super "
+                  "shortlist's top_k, the children, the entry argsort; "
+                  "fori_loop to live_blocks)",
+    "perray_entry": "path_tracer_ai_tpu/accel/traverse.py:530-603 "
+                    "(_perray_candidates, order_mode \"entry\": the "
+                    "argsort of the entries)",
 }
 # what a kernel runs as on its route besides its own launches
 RUNS_AS = {
@@ -7568,7 +7829,12 @@ def main() -> int:
                              render["seconds"])
     paths["config_4k"] = phase_config_4k(card)
     exact = phase_exact_cull(scene, accel_base, accel_c, card, img_main,
-                             img_fused, worklist_waves, accel_w)
+                             img_fused, worklist_waves, accel_w,
+                             {"main": render["host_syncs"],
+                              "fused": paths["path_fused"]["host_syncs"]})
+    checks["exact_cull"] = exact["check"]
+    generic["exact_cull"] = None  # its only instance
+    paths["exact_cull_main"] = exact["main"]
     ctiles_paths = phase_path_ctiles(
         scene, accel_base, accel_c, card, img_main, scene_w, accel_w,
         paths["path_worklist"]["image_sha256"])
@@ -7580,9 +7846,10 @@ def main() -> int:
     checks.update(perray_checks)
     paths["path_kslots"] = phase_path_kslots(scene, accel_base, accel_c,
                                              card, img_main)
-    checks["kslots_cull"], checks["perray_cull"] = phase_ray_cull(
-        scene, accel_base, card, paths)
+    (checks["kslots_cull"], checks["perray_cull"], checks["perray_entry"],
+     paths["perray_entry"]) = phase_ray_cull(scene, accel_base, card, paths)
     generic["kslots_cull"] = generic["perray_cull"] = None  # one instance
+    generic["perray_entry"] = None
     checks["pair_cull"], checks["block_cull_2level"] = phase_pair_cull(
         scene, accel_base, accel_c, scene_w, accel_w, card, paths, occupancy)
     generic["pair_cull"] = generic["block_cull_2level"] = None
@@ -7724,7 +7991,8 @@ def main() -> int:
         **({"waves": checks[name]["waves"]}
            if name in ("block_cull", "slot_sweep", "packet_cull",
                        "worklist_cull", "kslots_cull", "perray_cull",
-                       "pair_cull", "block_cull_2level")
+                       "pair_cull", "block_cull_2level", "exact_cull",
+                       "perray_entry")
            else {}),
         **({"launches_by_route": {
             **{k: v["launches"][name] for k, v in paths.items()
@@ -7734,7 +8002,8 @@ def main() -> int:
             "cli": cli["launches"][name],
             "cli_pallas": cli["pallas"]["launches"][name],
             "cli_perray": cli["perray"]["launches"][name]}}
-           if name in ("packet_cull", "pair_cull", "block_cull_2level")
+           if name in ("packet_cull", "pair_cull", "block_cull_2level",
+                       "exact_cull")
            else {}),
         **({"wave": checks[name]["wave"],
             "host_stepped_ms": checks[name]["host_stepped_ms"],

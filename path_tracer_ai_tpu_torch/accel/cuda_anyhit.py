@@ -231,10 +231,12 @@ def prepare_fused_wave(accel, origins, directions, t_max, block_size, sort,
     d_blk = directions.reshape(nb, block_size, 3)
     tm_blk = t_max.reshape(nb, block_size)
     if exact_cull:
-        # a sorted wave is dead-last: its live blocks are a prefix
+        # a sorted wave is dead-last: its live blocks are a prefix (read on
+        # the CPU only)
+        live = sort and dev.type == "cpu"
         order, n_cand, entry = traverse._exact_block_candidates(
             accel, o_blk, d_blk, tm_blk, t_min, ksup=exact_cull,
-            live_blocks=traverse.live_block_count(tm_blk) if sort else None)
+            live_blocks=traverse.live_block_count(tm_blk) if live else None)
     else:
         order, n_cand, entry = traverse._block_candidates(
             accel, o_blk, d_blk, tm_blk, with_entry=with_entry)

@@ -19,7 +19,7 @@ in row chunks, which the CPU takes (accel.traverse._block_candidates
 dispatches on the device). Both return (order [nb, C] i32, n_cand [nb]
 i32, entry_sorted [nb, C] f32, or None where with_entry is False: callers
 that do not read the entries save its writes). The two agree bit for bit
-on order and n_cand, and on entry_sorted as values (-0.0 == +0.0).
+(a zero entry is +0.0 in both, as in JAX).
 
 Layouts: o_blk, d_blk [nb, R, 3] f32, tm_blk [nb, R] f32 (t_max; negative:
 a dead lane), all contiguous; accel.bmin, accel.bmax [C, 3] f32. Any R >= 1
@@ -59,6 +59,23 @@ over_clusters, phantom_only, live [N] bool), perray_cull (order [N, cap]
 i32, n_cand [N] i32 clipped to cap, overflow [N] bool); each equal to its
 plain version bit for bit.
 
+The exact shadow cull, `exact_cull(accel, o_blk, d_blk, tm_blk, t_min,
+ksup)`, carries the XLA-fused body of the JAX package's
+`_exact_block_candidates` (path_tracer_ai_tpu/accel/traverse.py:205-397:
+each live lane's slab test against the supers and the children of the
+block's first ksup supers, OR'd per block, the exact ids ordered by their
+conservative entry). It launches packet_cull (the conservative tables,
+which overflow blocks keep) and csrc/packet_cull.cu's exact_cull, which
+rewrites the other rows in place, or raises; `exact_cull_plain`, the
+eager body in EXACT_CULL_ELEMS steps (moved from accel/traverse.py), is
+what the CPU takes (accel.traverse._exact_block_candidates dispatches on
+the device). Both return the tables of block_candidates, equal bit for
+bit. `perray_entry(accel, origins, directions, t_min, t_max, cap)`, in
+csrc/ray_cull.cu, carries `_perray_candidates` in order_mode "entry"
+(the first min(cap, C) clusters of each ray by slab entry);
+`perray_entry_plain` is its plain version. Both return (order [N, cap]
+i32, n_cand [N] i32, entry [N, cap] f32, overflow [N] bool).
+
 The pair tables' CULL + PACK, `pair_tables(accel, origins, directions,
 t_min, t_max, cap, pair_budget, tile_rays, pair_align)`, carries the
 XLA-fused body of the JAX package's `build_pair_tables`
@@ -96,24 +113,34 @@ SMEM_SORT_MAX_C = 16384
 # depend on the step.
 CULL_ELEMS = 1 << 23
 
-# Kernel launches since the last reset, packet_cull's, worklist_cull's,
-# kslots_cull's, perray_cull's and the pair tables' (one a call of
-# pair_tables, which launches its three kernels; the plain versions count
-# nothing); updated under sync.lock (the mesh's workers launch from
-# several threads).
+# Elements of each [rows, R, K] temporary of the plain exact cull's
+# per-lane slab stages (64 MB in f32): its block rows are culled this many
+# at a time. The results do not depend on the step.
+EXACT_CULL_ELEMS = 1 << 24
+# the dynamic shared memory an exact_cull thread block may take
+# (csrc/packet_cull.cu SMEM_LIMIT)
+EXACT_SMEM_LIMIT = 227 * 1024 - 1024
+
+# Kernel launches since the last reset, packet_cull's, exact_cull's,
+# worklist_cull's, kslots_cull's, perray_cull's, perray_entry's and the
+# pair tables' (one a call of pair_tables, which launches its three
+# kernels; the plain versions count nothing); updated under sync.lock (the
+# mesh's workers launch from several threads).
 launches = 0
+exact_launches = 0
 worklist_launches = 0
 kslots_launches = 0
 perray_launches = 0
+entry_launches = 0
 pair_launches = 0
 
 
 def reset_launches() -> None:
     global launches, worklist_launches, kslots_launches, perray_launches
-    global pair_launches
+    global pair_launches, exact_launches, entry_launches
     with sync.lock:
         launches = worklist_launches = kslots_launches = perray_launches = 0
-        pair_launches = 0
+        pair_launches = exact_launches = entry_launches = 0
 
 
 def block_candidates_plain(accel, o_blk, d_blk, t_max_blk,
@@ -133,7 +160,9 @@ def block_candidates_plain(accel, o_blk, d_blk, t_max_blk,
                                                  live=tb >= 0.0)
         tmax_ub = tb.amax(dim=1)
         cand = (lb <= ub) & (ub >= 0.0) & (lb <= tmax_ub[:, None])
-        entry = torch.where(cand, torch.clamp(lb, min=0.0), INF)
+        # max(lb, 0) as JAX's jnp.maximum gives it: a zero lb, -0.0 too,
+        # enters at +0.0 (the kernel writes the same bits)
+        entry = torch.where(cand, torch.where(lb > 0.0, lb, 0.0), INF)
         order = torch.argsort(entry, dim=1, stable=True)
         orders.append(order.to(torch.int32))
         if with_entry:
@@ -170,6 +199,12 @@ def _lib():
         fn.restype = ctypes.c_int
         lib.packet_cull_scratch_bytes.argtypes = [ctypes.c_int] * 2
         lib.packet_cull_scratch_bytes.restype = ctypes.c_longlong
+        lib.exact_cull.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 4
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4)
+        lib.exact_cull.restype = ctypes.c_int
+        lib.exact_cull_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.exact_cull_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -225,6 +260,201 @@ def block_candidates(accel, o_blk, d_blk, tm_blk, with_entry: bool = True):
     with sync.lock:
         launches += 1
     return order, n_cand, entry
+
+
+# ---- the exact shadow cull: exact_cull --------------------------------------
+
+def _slab_lanes(o, d, hi0, bmn, bmx, t_min):
+    """Sign-select slab of every lane against boxes: o, d [R, B, 3], hi0
+    [R, B] (-inf for dead lanes); bmn / bmx [K, 3] (shared) or [R, K, 3]
+    (per block). Returns pass [R, B, K] bool. Unlike _interval_slab's
+    min/max form, an inverted box (min > max) fails every lane. A NaN
+    (origin on a slab plane of an axis-parallel ray) must not exclude: it
+    is guarded to the identity bound."""
+    inv = 1.0 / d
+    k = bmn.shape[-2]
+    lo = torch.full(o.shape[:2] + (k,), float(t_min), dtype=torch.float32,
+                    device=o.device)
+    hi = hi0[..., None]
+    for a in range(3):
+        bl = bmn[None, None, :, a] if bmn.dim() == 2 else bmn[:, None, :, a]
+        bh = bmx[None, None, :, a] if bmx.dim() == 2 else bmx[:, None, :, a]
+        iv = inv[..., a][..., None]
+        o_ = o[..., a][..., None]
+        pos = iv >= 0.0
+        tn = (torch.where(pos, bl, bh) - o_) * iv
+        tf = (torch.where(pos, bh, bl) - o_) * iv
+        tn = torch.where(torch.isnan(tn), -INF, tn)
+        tf = torch.where(torch.isnan(tf), INF, tf)
+        lo = torch.maximum(lo, tn)
+        hi = torch.minimum(hi, tf)
+    return lo <= hi
+
+
+def exact_cull_plain(accel, o_blk, d_blk, tm_blk, t_min, ksup: int = 16,
+                     live_blocks=None):
+    """Per-ray-exact OR-union candidate clusters per block
+    (traverse.py:205-398) in eager torch: the union over a block's live
+    lanes of the clusters each lane's own slab test passes, through the
+    2-level hierarchy:
+
+      1. each lane's slab against the supercluster AABBs, OR'd per block;
+      2. the block's super shortlist: its first `ksup` supers in ascending
+         id (the reference's top_k of -id, here _extract_k's cumsum rank);
+      3. each lane's slab against the shortlisted supers' child AABBs,
+         OR'd per block; non-candidates (and ids past C) become the
+         sentinel C.
+
+    A block whose super union exceeds ksup takes the conservative list
+    (traverse._block_candidates), which holds every exact candidate. The
+    exact ids are ordered by their conservative entry (stable sort: ties
+    keep ascending ids), so the interface is _block_candidates': (order
+    [nb, C] i32, n_cand [nb] i32, entry_sorted [nb, C]). The per-lane
+    stages run EXACT_CULL_ELEMS elements a step. live_blocks (an int; valid
+    only when blocks from it on are all dead, as on a wave sorted
+    dead-last): those blocks keep n_cand = 0, which is what the stages
+    would give them."""
+    from path_tracer_ai_tpu_torch.accel import traverse
+    from path_tracer_ai_tpu_torch.accel.worklist import _extract_k
+
+    nb, bs = o_blk.shape[:2]
+    dev = o_blk.device
+    c = accel.num_clusters
+    cs = accel.num_supers
+    ss = accel.super_size
+    kx = min(ksup, cs)
+    kchild = kx * ss
+
+    # the conservative list: overflow blocks' candidates, and the entries
+    # that order the exact ones
+    order_cons, n_cons, entry_cons = traverse._block_candidates(
+        accel, o_blk, d_blk, tm_blk)
+    ids = torch.full((nb, kchild), c, dtype=torch.int64, device=dev)
+    n_ex = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    n_sup = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    entry_ids = torch.full((nb, kchild), INF, dtype=torch.float32,
+                           device=dev)
+    child = torch.arange(ss, dtype=torch.int64, device=dev)
+    inf_col = torch.full((1, 1), INF, dtype=torch.float32, device=dev)
+    n_live = nb if live_blocks is None else min(int(live_blocks), nb)
+    rows = max(1, EXACT_CULL_ELEMS // (bs * max(kchild, cs)))
+    for lo in range(0, n_live, rows):
+        hi = min(lo + rows, n_live)
+        oc, dc, tc = o_blk[lo:hi], d_blk[lo:hi], tm_blk[lo:hi]
+        r = hi - lo
+        hi0 = torch.where(tc >= 0.0, tc, -INF)  # dead lanes fail every box
+        # 1. each lane against the supers, OR'd per block
+        sup_blk = _slab_lanes(oc, dc, hi0, accel.sbmin, accel.sbmax,
+                              t_min).any(dim=1)
+        n_sup[lo:hi] = sup_blk.sum(dim=1).to(torch.int32)
+        # 2. the shortlist; slots past n_sup hold a repeat of super cs - 1
+        sup_ids = _extract_k(sup_blk, kx, cs - 1).long()
+        slot_ok = (torch.arange(kx, device=dev)[None, :]
+                   < n_sup[lo:hi, None])
+        # 3. each lane against the shortlisted children (padding children
+        # hold inverted boxes, which fail every lane)
+        cbmn = accel.cbmin[sup_ids].reshape(r, kchild, 3)
+        cbmx = accel.cbmax[sup_ids].reshape(r, kchild, 3)
+        cand = _slab_lanes(oc, dc, hi0, cbmn, cbmx, t_min).any(dim=1)
+        cand &= slot_ok.repeat_interleave(ss, dim=1)
+        cids = (sup_ids[:, :, None] * ss + child).reshape(r, kchild)
+        idc = torch.where(cand & (cids < c), cids, c)
+        n_ex[lo:hi] = (idc < c).sum(dim=1).to(torch.int32)
+        # each id's conservative entry (the sentinel C: +inf, sorts last)
+        entry_all = torch.empty_like(entry_cons[lo:hi]).scatter_(
+            1, order_cons[lo:hi].long(), entry_cons[lo:hi])
+        ent = torch.gather(torch.cat([entry_all, inf_col.expand(r, 1)], 1),
+                           1, idc)
+        eperm = torch.argsort(ent, dim=1, stable=True)
+        ids[lo:hi] = torch.gather(idc, 1, eperm)
+        entry_ids[lo:hi] = torch.gather(ent, 1, eperm)
+    over = n_sup > kx
+
+    # the uniform [nb, C] order: exact ids first (sentinel-padded) for
+    # blocks within the cap, the conservative list for the others
+    if kchild < c:
+        ids = torch.nn.functional.pad(ids, (0, c - kchild), value=c)
+        entry_ids = torch.nn.functional.pad(entry_ids, (0, c - kchild),
+                                            value=INF)
+    else:
+        ids, entry_ids = ids[:, :c], entry_ids[:, :c]
+    order = torch.where(over[:, None], order_cons,
+                        torch.clamp(ids, max=c - 1).to(torch.int32))
+    entry_sorted = torch.where(over[:, None], entry_cons, entry_ids)
+    n_cand = torch.where(over, n_cons, n_ex)
+    return order, n_cand, entry_sorted
+
+
+def exact_occupancy(r: int, cs: int, kx: int, ss: int) -> dict:
+    """exact_cull's registers and resident warps per SM at blocks of r rays
+    and a shortlist of kx supers of ss (needs the card)."""
+    from path_tracer_ai_tpu_torch.accel.cuda_ctiles import read_occupancy
+
+    return read_occupancy(cuda_build.load(SOURCE).exact_cull_occupancy, r,
+                          cs, kx, ss)
+
+
+def exact_cull(accel, o_blk, d_blk, tm_blk, t_min, ksup: int = 16):
+    """The exact cull on the card: one packet_cull launch (the
+    conservative tables, with entries) and one exact_cull launch, which
+    overwrites the rows of the blocks within the super shortlist in place:
+    (order [nb, C] i32, n_cand [nb] i32, entry_sorted [nb, C] f32), as
+    exact_cull_plain (at any live_blocks: a block with no live lane needs
+    no count). Raises on a tensor that is not a contiguous f32 CUDA tensor
+    of the layout above, on bad sizes, and where a launch fails."""
+    tensors = (("o_blk", o_blk, 3), ("d_blk", d_blk, 3),
+               ("tm_blk", tm_blk, 2), ("sbmin", accel.sbmin, 2),
+               ("sbmax", accel.sbmax, 2), ("cbmin", accel.cbmin, 3),
+               ("cbmax", accel.cbmax, 3))
+    _check(tensors, device=False)
+    c, cs, ss = accel.num_clusters, accel.num_supers, accel.super_size
+    if (ksup < 1 or tuple(accel.sbmin.shape) != (cs, 3)
+            or accel.sbmax.shape != accel.sbmin.shape
+            or tuple(accel.cbmin.shape) != (cs, ss, 3)
+            or accel.cbmax.shape != accel.cbmin.shape or cs * ss < c):
+        raise ValueError(f"exact_cull takes ksup >= 1, supers [Cs, 3] and "
+                         f"children [Cs, ss, 3] with Cs * ss >= C; not ksup "
+                         f"= {ksup}, supers {tuple(accel.sbmin.shape)}, "
+                         f"children {tuple(accel.cbmin.shape)}, C = {c}")
+    _check(tensors, who="exact_cull")
+    if any(x.device != o_blk.device for x in (accel.sbmin, accel.sbmax,
+                                             accel.cbmin, accel.cbmax)):
+        raise ValueError("exact_cull takes every tensor on one card")
+    kx = min(ksup, cs)
+    lib = _lib()
+    smem = lib.exact_cull_smem_bytes(cs, kx, ss)
+    if smem > EXACT_SMEM_LIMIT:
+        raise ValueError(f"exact_cull keeps a block's {kx} x {ss} child "
+                         f"slots in {smem} bytes of shared memory, past "
+                         f"{EXACT_SMEM_LIMIT}: use a smaller ksup")
+    order, n_cand, entry = block_candidates(accel, o_blk, d_blk, tm_blk)
+    _exact_launch(accel, o_blk, d_blk, tm_blk, t_min, ksup, order, n_cand,
+                  entry)
+    return order, n_cand, entry
+
+
+def _exact_launch(accel, o_blk, d_blk, tm_blk, t_min, ksup, order, n_cand,
+                  entry) -> None:
+    """exact_cull's kernel alone on checked inputs: rewrites in place the
+    rows of packet_cull's tables (order, n_cand, entry, of the same rays)
+    whose blocks are within the super shortlist. Applied twice it gives
+    the same tables (an exact row holds its ids' entries in its finite
+    prefix too), so a timing loop may launch it on one set of tables."""
+    global exact_launches
+    nb, r = o_blk.shape[:2]
+    if nb == 0:
+        return
+    err = cuda_build.launch(
+        _lib().exact_cull, o_blk.device, o_blk.data_ptr(), d_blk.data_ptr(),
+        tm_blk.data_ptr(), float(t_min), accel.sbmin.data_ptr(),
+        accel.sbmax.data_ptr(), accel.cbmin.data_ptr(),
+        accel.cbmax.data_ptr(), nb, r, accel.num_clusters, accel.num_supers,
+        accel.super_size, min(ksup, accel.num_supers), order.data_ptr(),
+        n_cand.data_ptr(), entry.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"exact_cull launch failed: cudaError {err}")
+    with sync.lock:
+        exact_launches += 1
 
 
 # ---- the worklist's cull: worklist_cull ------------------------------------
@@ -496,6 +726,10 @@ def _ray_lib():
             [ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 2
             + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
         lib.perray_cull.restype = ctypes.c_int
+        lib.perray_entry.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 2
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+        lib.perray_entry.restype = ctypes.c_int
         lib.pair_tables.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_float] + [ctypes.c_void_p] * 2
             + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 10)
@@ -505,13 +739,15 @@ def _ray_lib():
 
 def ray_occupancy(k_supers: int = 6) -> dict:
     """Registers and resident warps per SM of kslots_cull (a list of
-    k_supers supers a warp) and perray_cull (needs the card)."""
+    k_supers supers a warp), perray_cull and perray_entry (needs the
+    card)."""
     from path_tracer_ai_tpu_torch.accel.cuda_ctiles import read_occupancy
 
     lib = cuda_build.load(RAY_SOURCE)
     return {"kslots_cull": read_occupancy(lib.kslots_cull_occupancy,
                                           k_supers),
-            "perray_cull": read_occupancy(lib.perray_cull_occupancy)}
+            "perray_cull": read_occupancy(lib.perray_cull_occupancy),
+            "perray_entry": read_occupancy(lib.perray_entry_occupancy)}
 
 
 def pair_occupancy(c: int) -> dict:
@@ -675,6 +911,67 @@ def perray_cull(accel, origins, directions, t_min, t_max, cap: int):
     with sync.lock:
         perray_launches += 1
     return order, n_cand, overflow
+
+
+def perray_entry_plain(accel, origins, directions, t_min, t_max, cap: int,
+                       row_chunk: int = 1 << 14):
+    """perray's candidate lists in order_mode "entry", in eager torch,
+    `row_chunk` rays at a time: (order [N, cap] i32: front to back by slab
+    entry, a stable argsort, past the count the non-candidates in id
+    order; n_cand [N] i32 clipped to cap; entry [N, cap] f32, the entry t,
+    inf past the count; overflow [N] bool), as perray_entry. Columns past
+    C, where cap > C, hold 0 and entry inf."""
+    n = origins.shape[0]
+    c = accel.num_clusters
+    dev = origins.device
+    kx = min(cap, c)
+    entry = torch.full((n, cap), INF, dtype=torch.float32, device=dev)
+    order = torch.zeros((n, cap), dtype=torch.int32, device=dev)
+    n_cand = torch.zeros((n,), dtype=torch.int32, device=dev)
+    for lo in range(0, n, row_chunk):
+        hi = min(lo + row_chunk, n)
+        cand, lo_t = perray_slab_plain(accel, origins[lo:hi],
+                                       directions[lo:hi], t_max[lo:hi],
+                                       t_min)
+        n_cand[lo:hi] = cand.sum(dim=1).to(torch.int32)
+        ent = torch.where(cand, lo_t, INF)
+        ok = torch.argsort(ent, dim=1, stable=True)[:, :kx]
+        order[lo:hi, :kx] = ok.to(torch.int32)
+        entry[lo:hi, :kx] = torch.gather(ent, 1, ok)
+    return order, torch.clamp(n_cand, max=cap), entry, n_cand > cap
+
+
+def perray_entry(accel, origins, directions, t_min, t_max, cap: int):
+    """perray's candidate lists in order_mode "entry" on the card, one
+    launch: (order [N, cap] i32, n_cand [N] i32, entry [N, cap] f32,
+    overflow [N] bool), as perray_entry_plain. Raises on a tensor that is
+    not a contiguous f32 CUDA tensor of the layout above, on bad sizes,
+    and where the launch fails."""
+    global entry_launches
+    c = accel.num_clusters
+    boxes = (("bmin", accel.bmin, 2), ("bmax", accel.bmax, 2))
+    if c < 1 or cap < 0 or tuple(accel.bmin.shape[:1]) != (c,):
+        raise ValueError(f"perray_entry takes C >= 1 boxes [C, 3] and cap "
+                         f">= 0, not C = {c}, cap = {cap}")
+    n = _ray_inputs("perray_entry", origins, directions, t_max, boxes)
+    dev = origins.device
+    order = torch.empty((n, cap), dtype=torch.int32, device=dev)
+    entry = torch.empty((n, cap), dtype=torch.float32, device=dev)
+    n_cand = torch.empty((n,), dtype=torch.int32, device=dev)
+    overflow = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n == 0:
+        return order, n_cand, entry, overflow
+    err = cuda_build.launch(
+        _ray_lib().perray_entry, dev, origins.data_ptr(),
+        directions.data_ptr(), t_max.data_ptr(), float(t_min),
+        accel.bmin.data_ptr(), accel.bmax.data_ptr(), n, c, cap,
+        order.data_ptr(), entry.data_ptr(), n_cand.data_ptr(),
+        overflow.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"perray_entry launch failed: cudaError {err}")
+    with sync.lock:
+        entry_launches += 1
+    return order, n_cand, entry, overflow
 
 
 # ---- the pair tables' CULL + PACK: pair_tables ------------------------------

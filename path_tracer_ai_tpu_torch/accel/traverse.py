@@ -19,9 +19,12 @@ reference does (`_cascade_stages`): static stages, each ONE launch of the
 cascade stage kernel (accel.cuda_cascade.cascade_stage), which keeps the
 stage's loop, its active count and k on the card, as the reference's
 while_loop does; between stages the compaction is a stable argsort and a
-whole-array gather, on the device. Neither reads the host (but the exact
-cull's live block count, `live_block_count`). On the CPU the stage runs
-its plain version, a host loop over tile_sweep's plain version.
+whole-array gather, on the device. Neither reads the host. At
+exact_cull=K the cull is the per-ray-exact one, `_exact_block_candidates`
+(on the card a packet_cull launch and an exact_cull launch; on the CPU its
+plain version, which reads the live block count, `live_block_count`). On
+the CPU the stage runs its plain version, a host loop over tile_sweep's
+plain version.
 
 The fused cascades of accel.cuda_anyhit and accel.cuda_closest run the
 same static stages, each ONE call of accel.cuda_cascade.fused_stage
@@ -36,7 +39,8 @@ accel.cuda_cascade.perray_stage (on the card one launch of the stage
 kernel with the perray folds, whose sweeps are the per-ray K-slot sweep's
 walk of one ray, csrc/kslot_sweep.cu); they read the host once a call, the
 overflow count. Their candidate lists are one launch of the perray_cull
-kernel on the card (accel.cuda_cull, csrc/ray_cull.cu). In the reference
+kernel on the card (accel.cuda_cull, csrc/ray_cull.cu; order_mode "entry"
+one launch of perray_entry). In the reference
 these sweeps and lists are XLA-fused bodies, not Pallas kernels. On the
 CPU their stage runs its plain version over the plain eager sweeps
 `_packet_sweep_closest` / `_packet_sweep_any`.
@@ -198,134 +202,35 @@ def _block_candidates(accel, o_blk, d_blk, t_max_blk,
                                       t_max_blk.contiguous(), with_entry)
 
 
-# Elements of each [rows, R, K] temporary of the exact cull's per-lane slab
-# stages (64 MB in f32): its block rows are culled this many at a time.
-# The results do not depend on the step.
-EXACT_CULL_ELEMS = 1 << 24
-
-
-def _slab_lanes(o, d, hi0, bmn, bmx, t_min):
-    """Sign-select slab of every lane against boxes: o, d [R, B, 3], hi0
-    [R, B] (-inf for dead lanes); bmn / bmx [K, 3] (shared) or [R, K, 3]
-    (per block). Returns pass [R, B, K] bool. Unlike _interval_slab's
-    min/max form, an inverted box (min > max) fails every lane. A NaN
-    (origin on a slab plane of an axis-parallel ray) must not exclude: it
-    is guarded to the identity bound."""
-    inv = 1.0 / d
-    k = bmn.shape[-2]
-    lo = torch.full(o.shape[:2] + (k,), float(t_min), dtype=torch.float32,
-                    device=o.device)
-    hi = hi0[..., None]
-    for a in range(3):
-        bl = bmn[None, None, :, a] if bmn.dim() == 2 else bmn[:, None, :, a]
-        bh = bmx[None, None, :, a] if bmx.dim() == 2 else bmx[:, None, :, a]
-        iv = inv[..., a][..., None]
-        o_ = o[..., a][..., None]
-        pos = iv >= 0.0
-        tn = (torch.where(pos, bl, bh) - o_) * iv
-        tf = (torch.where(pos, bh, bl) - o_) * iv
-        tn = torch.where(torch.isnan(tn), -INF, tn)
-        tf = torch.where(torch.isnan(tf), INF, tf)
-        lo = torch.maximum(lo, tn)
-        hi = torch.minimum(hi, tf)
-    return lo <= hi
-
-
 def _exact_block_candidates(accel, o_blk, d_blk, tm_blk, t_min,
                             ksup: int = 16, live_blocks=None):
     """Per-ray-exact OR-union candidate clusters per block
     (traverse.py:205-398): the union over a block's live lanes of the
     clusters each lane's own slab test passes, through the 2-level
-    hierarchy:
+    hierarchy (each lane against the supers, the block's first `ksup`
+    supers in ascending id, each lane against their children). A block
+    whose super union exceeds ksup takes the conservative list. Returns
+    _block_candidates' tables (order [nb, C] i32, n_cand [nb] i32,
+    entry_sorted [nb, C]), the exact ids ordered by conservative entry.
 
-      1. each lane's slab against the supercluster AABBs, OR'd per block;
-      2. the block's super shortlist: its first `ksup` supers in ascending
-         id (the reference's top_k of -id, here _extract_k's cumsum rank);
-      3. each lane's slab against the shortlisted supers' child AABBs,
-         OR'd per block; non-candidates (and ids past C) become the
-         sentinel C.
-
-    A block whose super union exceeds ksup takes the conservative list
-    (_block_candidates), which holds every exact candidate. The exact ids
-    are ordered by their conservative entry (stable sort: ties keep
-    ascending ids), so the interface is _block_candidates': (order [nb, C]
-    i32, n_cand [nb] i32, entry_sorted [nb, C]). The per-lane stages run
-    EXACT_CULL_ELEMS elements a step. live_blocks (an int; valid only when
-    the rays are sorted dead-last): blocks from it on are all dead and
-    keep n_cand = 0, which is what the stages would give them."""
-    from path_tracer_ai_tpu_torch.accel.worklist import _extract_k
-
-    nb, bs = o_blk.shape[:2]
-    dev = o_blk.device
-    c = accel.num_clusters
-    cs = accel.num_supers
-    ss = accel.super_size
-    kx = min(ksup, cs)
-    kchild = kx * ss
-
-    # the conservative list: overflow blocks' candidates, and the entries
-    # that order the exact ones
-    order_cons, n_cons, entry_cons = _block_candidates(accel, o_blk, d_blk,
-                                                       tm_blk)
-    ids = torch.full((nb, kchild), c, dtype=torch.int64, device=dev)
-    n_ex = torch.zeros((nb,), dtype=torch.int32, device=dev)
-    n_sup = torch.zeros((nb,), dtype=torch.int32, device=dev)
-    entry_ids = torch.full((nb, kchild), INF, dtype=torch.float32,
-                           device=dev)
-    child = torch.arange(ss, dtype=torch.int64, device=dev)
-    inf_col = torch.full((1, 1), INF, dtype=torch.float32, device=dev)
-    n_live = nb if live_blocks is None else min(int(live_blocks), nb)
-    rows = max(1, EXACT_CULL_ELEMS // (bs * max(kchild, cs)))
-    for lo in range(0, n_live, rows):
-        hi = min(lo + rows, n_live)
-        oc, dc, tc = o_blk[lo:hi], d_blk[lo:hi], tm_blk[lo:hi]
-        r = hi - lo
-        hi0 = torch.where(tc >= 0.0, tc, -INF)  # dead lanes fail every box
-        # 1. each lane against the supers, OR'd per block
-        sup_blk = _slab_lanes(oc, dc, hi0, accel.sbmin, accel.sbmax,
-                              t_min).any(dim=1)
-        n_sup[lo:hi] = sup_blk.sum(dim=1).to(torch.int32)
-        # 2. the shortlist; slots past n_sup hold a repeat of super cs - 1
-        sup_ids = _extract_k(sup_blk, kx, cs - 1).long()
-        slot_ok = (torch.arange(kx, device=dev)[None, :]
-                   < n_sup[lo:hi, None])
-        # 3. each lane against the shortlisted children (padding children
-        # hold inverted boxes, which fail every lane)
-        cbmn = accel.cbmin[sup_ids].reshape(r, kchild, 3)
-        cbmx = accel.cbmax[sup_ids].reshape(r, kchild, 3)
-        cand = _slab_lanes(oc, dc, hi0, cbmn, cbmx, t_min).any(dim=1)
-        cand &= slot_ok.repeat_interleave(ss, dim=1)
-        cids = (sup_ids[:, :, None] * ss + child).reshape(r, kchild)
-        idc = torch.where(cand & (cids < c), cids, c)
-        n_ex[lo:hi] = (idc < c).sum(dim=1).to(torch.int32)
-        # each id's conservative entry (the sentinel C: +inf, sorts last)
-        entry_all = torch.empty_like(entry_cons[lo:hi]).scatter_(
-            1, order_cons[lo:hi].long(), entry_cons[lo:hi])
-        ent = torch.gather(torch.cat([entry_all, inf_col.expand(r, 1)], 1),
-                           1, idc)
-        eperm = torch.argsort(ent, dim=1, stable=True)
-        ids[lo:hi] = torch.gather(idc, 1, eperm)
-        entry_ids[lo:hi] = torch.gather(ent, 1, eperm)
-    over = n_sup > kx
-
-    # the uniform [nb, C] order: exact ids first (sentinel-padded) for
-    # blocks within the cap, the conservative list for the others
-    if kchild < c:
-        ids = torch.nn.functional.pad(ids, (0, c - kchild), value=c)
-        entry_ids = torch.nn.functional.pad(entry_ids, (0, c - kchild),
-                                            value=INF)
-    else:
-        ids, entry_ids = ids[:, :c], entry_ids[:, :c]
-    order = torch.where(over[:, None], order_cons,
-                        torch.clamp(ids, max=c - 1).to(torch.int32))
-    entry_sorted = torch.where(over[:, None], entry_cons, entry_ids)
-    n_cand = torch.where(over, n_cons, n_ex)
-    return order, n_cand, entry_sorted
+    On the card one packet_cull launch and one exact_cull launch
+    (accel.cuda_cull.exact_cull), which raises if it cannot run and needs
+    no live-block count (live_blocks is not read); on the CPU its plain
+    version, eager torch, whose stages skip the blocks from live_blocks on
+    (an int, valid only when those blocks are all dead, as on a wave
+    sorted dead-last)."""
+    if o_blk.device.type == "cpu":
+        return cuda_cull.exact_cull_plain(accel, o_blk, d_blk, tm_blk, t_min,
+                                          ksup, live_blocks)
+    return cuda_cull.exact_cull(accel, o_blk.contiguous(),
+                                d_blk.contiguous(), tm_blk.contiguous(),
+                                t_min, ksup)
 
 
 def live_block_count(t_max_blk) -> int:
     """Blocks with a live lane (t_max >= 0), read once by the host; on a
-    wave sorted dead-last they are a prefix."""
+    wave sorted dead-last they are a prefix. Only the CPU's exact cull
+    reads it (the card's kernel needs no count)."""
     return sync.host_int((t_max_blk >= 0.0).any(dim=1).sum())
 
 
@@ -451,10 +356,12 @@ def any_hit_packets(accel: ClusterAccel, origins, directions, t_min, t_max,
     tmax_blk = t_max.reshape(nb, block_size)
 
     if exact_cull:
-        # a sorted wave is dead-last: its live blocks are a prefix
+        # a sorted wave is dead-last: its live blocks are a prefix (read on
+        # the CPU only)
+        live = sort and dev.type == "cpu"
         order, n_cand, _entry = _exact_block_candidates(
             accel, o_blk, d_blk, tmax_blk, t_min, ksup=exact_cull,
-            live_blocks=live_block_count(tmax_blk) if sort else None)
+            live_blocks=live_block_count(tmax_blk) if live else None)
     else:
         order, n_cand, _entry = _block_candidates(accel, o_blk, d_blk,
                                                   tmax_blk, with_entry=False)
@@ -601,37 +508,30 @@ def _perray_candidates(accel: ClusterAccel, origins, directions, t_min, t_max,
     version (cumsum + searchsorted, rows `row_chunk` at a time). "entry"
     (no query takes it): front to back by slab entry (a stable argsort;
     past the count, the non-candidates in id order), entry the entry t
-    (inf past the count), eager torch on every device. Columns past C,
-    where cap > C, hold 0 and entry inf.
+    (inf past the count); on the card one launch of the perray_entry
+    kernel, on the CPU its plain version (rows `row_chunk` at a time).
+    Columns past C, where cap > C, hold 0 and entry inf.
     Returns (order [N, cap] i32, n_cand [N] i32 clipped to cap, entry
     [N, cap] f32, overflow [N] bool: more than cap candidates)."""
     n = origins.shape[0]
-    c = accel.num_clusters
     dev = origins.device
-    kx = min(cap, c)
-    entry = torch.full((n, cap), INF, dtype=torch.float32, device=dev)
-    if order_mode != "entry":
+    if order_mode == "entry":
         if dev.type == "cpu":
-            order, n_cand, overflow = cuda_cull.perray_cull_plain(
-                accel, origins, directions, t_min, t_max, cap, row_chunk)
-        else:
-            order, n_cand, overflow = cuda_cull.perray_cull(
-                accel, origins.contiguous(), directions.contiguous(), t_min,
-                t_max.contiguous(), cap)
-        entry[:, :kx] = 0.0
-        return order, n_cand, entry, overflow
-    order = torch.zeros((n, cap), dtype=torch.int32, device=dev)
-    n_cand = torch.zeros((n,), dtype=torch.int32, device=dev)
-    for lo in range(0, n, row_chunk):
-        hi = min(lo + row_chunk, n)
-        cand, lo_t = cuda_cull.perray_slab_plain(
-            accel, origins[lo:hi], directions[lo:hi], t_max[lo:hi], t_min)
-        n_cand[lo:hi] = cand.sum(dim=1).to(torch.int32)
-        ent = torch.where(cand, lo_t, INF)
-        ok = torch.argsort(ent, dim=1, stable=True)[:, :kx]
-        order[lo:hi, :kx] = ok.to(torch.int32)
-        entry[lo:hi, :kx] = torch.gather(ent, 1, ok)
-    return order, torch.clamp(n_cand, max=cap), entry, n_cand > cap
+            return cuda_cull.perray_entry_plain(accel, origins, directions,
+                                                t_min, t_max, cap, row_chunk)
+        return cuda_cull.perray_entry(accel, origins.contiguous(),
+                                      directions.contiguous(), t_min,
+                                      t_max.contiguous(), cap)
+    if dev.type == "cpu":
+        order, n_cand, overflow = cuda_cull.perray_cull_plain(
+            accel, origins, directions, t_min, t_max, cap, row_chunk)
+    else:
+        order, n_cand, overflow = cuda_cull.perray_cull(
+            accel, origins.contiguous(), directions.contiguous(), t_min,
+            t_max.contiguous(), cap)
+    entry = torch.full((n, cap), INF, dtype=torch.float32, device=dev)
+    entry[:, :min(cap, accel.num_clusters)] = 0.0
+    return order, n_cand, entry, overflow
 
 
 def _perray_setup(accel, origins, directions, t_min, t_max, cap, group_size):

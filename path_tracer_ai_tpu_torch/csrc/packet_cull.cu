@@ -59,6 +59,7 @@
 // barriers' latency.
 
 #include "interval.cuh"
+#include "ray_slab.cuh"
 
 #define CULL_THREADS 128
 #define CULL_WARPS (CULL_THREADS / 32)
@@ -301,5 +302,353 @@ extern "C" int packet_cull_occupancy(int c, int* regs, int* warps_per_sm) {
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &blocks, packet_cull_kernel, CULL_THREADS, smem);
   *warps_per_sm = blocks * CULL_WARPS;
+  return (int)err;
+}
+
+// ---- the exact shadow cull: exact_cull --------------------------------------
+//
+// Replaces no Pallas kernel: it is the XLA-fused body of
+// path_tracer_ai_tpu/accel/traverse.py `_exact_block_candidates`
+// (traverse.py:205-397), the per-lane exact OR-union of a ray block's
+// candidate clusters through the 2-level hierarchy, which the packet
+// cascades and the fused cascades take at exact_cull=K (ksup). The port's
+// plain version (accel/cuda_cull.py exact_cull_plain) runs it as eager
+// [rows, R, K] slab temporaries, a stable argsort and gathers.
+//
+// It runs after packet_cull on the same rays (with entries): the
+// conservative row is the overflow blocks' list and gives each exact id
+// its entry; this kernel overwrites the rows of the blocks within the
+// super shortlist in place.
+//
+// Layouts (accel/cuda_cull.py exact_cull): the rays as packet_cull's;
+// sbmin, sbmax [Cs, 3]; cbmin, cbmax [Cs, ss, 3] (the padding children of
+// a partly filled last super inverted); order [nb, C] i32, n_cand [nb]
+// i32 and entry_sorted [nb, C] f32 hold packet_cull's tables on entry.
+//
+// Per ray block, exactly what JAX computes (kx = min(ksup, Cs), kchild =
+// kx * ss):
+//   1. each live lane (t_max >= 0; its window [t_min, t_max]) against the
+//      Cs supers, by ray_slab.cuh's perray_slab (the sign-select slab of
+//      JAX's slab_lanes gives its bits), OR'd over the lanes: n_sup
+//      supers pass. n_sup > kx: an overflow block, whose conservative row
+//      stays as it is;
+//   2. the shortlist, the n_sup supers in ascending id, in slots of ss:
+//      slot j = (shortlist position s, child k), cluster id sup[s] * ss +
+//      k; each lane against the shortlisted children, OR'd: the exact ids
+//      (ids >= C dropped; slots past n_sup * ss hold no id);
+//   3. each exact id's conservative entry, read off the conservative row
+//      (its finite prefix, the first n_cand entries, holds every finite
+//      one; an id found nowhere there has +inf);
+//   4. JAX's stable argsort of the whole kchild slot row: the key is
+//      (entry, slot), the sentinel slots (no exact id) at +inf. The row's
+//      position p holds the slot of rank p: its id (C - 1 for a sentinel)
+//      and entry; positions past kchild hold (C - 1, +inf), and a row of
+//      kchild >= C slots is cut to C. n_cand = the exact ids.
+// An exact id whose conservative entry is +inf (the block's interval
+// test failed where a lane's own test passed) ranks among the sentinels
+// by its slot, as in JAX: it can land past n_cand.
+// Dead blocks need no host count (JAX's live_blocks): a block with no
+// live lane has n_sup 0 and gets the row (C - 1, +inf) and n_cand 0.
+//
+// Design: one thread block a ray block, a lane a thread (R up to 1024
+// threads, lanes strided past that). The box tests' results are OR'd per
+// word of 32 boxes with a warp reduction and one shared atomicOr a warp.
+// The ranks: each finite slot counts the finite slots before it by key
+// (n_fin^2 compares a block, n_fin the block's exact ids of finite entry:
+// 15-25 on the main path), each +inf slot's rank is n_fin plus the +inf
+// slots before it (a popcount prefix). Shared memory: the super and child
+// masks, the shortlist, the slots' entries and the finite list, 4 (2 Cs/32
+// + kx + 3 kchild/32 + 3 kchild) bytes.
+//
+// What bounds it: the box tests' operations (each live lane's Cs super
+// tests, plus n_sup * ss children in an in-cap block; chip_smoke.py
+// PERRAY_TEST_OPS a test) against the bytes (the rays in, the conservative
+// prefix read, the in-cap rows written).
+
+#define EXACT_MAX_THREADS 1024
+
+struct ExactArgs {
+  const float* o_blk;
+  const float* d_blk;
+  const float* tm_blk;
+  const float* sbmin;  // [Cs, 3]
+  const float* sbmax;
+  const float* cbmin;  // [Cs, ss, 3]
+  const float* cbmax;
+  int* order;          // [nb, C], packet_cull's on entry
+  int* n_cand;         // [nb]
+  float* entry;        // [nb, C]
+  float t_min;
+  int nb, r, c, cs, ss, kx;
+};
+
+static __host__ __device__ int words_of(int n) { return (n + 31) >> 5; }
+
+// Bytes of one thread block's dynamic shared memory.
+static __host__ __device__ size_t exact_smem(int cs, int kx, int ss) {
+  const int kchild = kx * ss;
+  return 4 * ((size_t)2 * words_of(cs) + kx + 3 * (size_t)words_of(kchild) +
+              3 * (size_t)kchild);
+}
+
+// Lane l of block blk: its ray, and whether its window [t_min, t_max] is
+// not empty (a dead lane, t_max < 0 or NaN, gets hi0 = -inf).
+__device__ __forceinline__ bool exact_lane(const ExactArgs& a, int blk, int l,
+                                           RayIn* ray) {
+  if (l >= a.r) return false;
+  const size_t i = (size_t)blk * a.r + l;
+  const float tm = __ldg(a.tm_blk + i);
+  *ray = load_ray(a.o_blk, a.d_blk, i, a.t_min, tm >= 0.0f ? tm : -INFINITY);
+  return ray->hi0 >= ray->lo0;
+}
+
+__global__ void __launch_bounds__(EXACT_MAX_THREADS)
+    exact_cull_kernel(const ExactArgs a) {
+  extern __shared__ __align__(16) unsigned char exact_smem_buf[];
+  __shared__ int s_nsup, s_ncons, s_nfin, s_nex;
+  const int blk = blockIdx.x;
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  const int ws = words_of(a.cs), kchild = a.kx * a.ss;
+  const int wk = words_of(kchild);
+  unsigned* sup_mask = reinterpret_cast<unsigned*>(exact_smem_buf);
+  int* sup_pre = reinterpret_cast<int*>(sup_mask + ws);
+  int* sup_ids = sup_pre + ws;
+  unsigned* child_mask = reinterpret_cast<unsigned*>(sup_ids + a.kx);
+  unsigned* fin_mask = child_mask + wk;
+  int* fin_pre = reinterpret_cast<int*>(fin_mask + wk);
+  float* ent = reinterpret_cast<float*>(fin_pre + wk);
+  int* fin_slot = reinterpret_cast<int*>(ent + kchild);
+  float* fin_e = reinterpret_cast<float*>(fin_slot + kchild);
+  const int rounds = (a.r + nt - 1) / nt;
+  const unsigned below = (1u << lane) - 1u;
+
+  for (int w = tid; w < ws; w += nt) sup_mask[w] = 0u;
+  for (int w = tid; w < wk; w += nt) child_mask[w] = fin_mask[w] = 0u;
+  for (int j = tid; j < kchild; j += nt) ent[j] = INFINITY;
+  if (tid == 0) s_ncons = a.n_cand[blk];
+  __syncthreads();
+
+  // 1. each live lane against the supers, OR'd over the block
+  for (int round = 0; round < rounds; ++round) {
+    RayIn ray;
+    const bool live = exact_lane(a, blk, round * nt + tid, &ray);
+    if (!__syncthreads_or(live)) continue;
+    for (int w = 0; w < ws; ++w) {
+      unsigned bits = 0u;
+      if (live) {
+        const int n = a.cs - 32 * w < 32 ? a.cs - 32 * w : 32;
+        for (int b = 0; b < n; ++b) {
+          float lo[3], hi[3];
+          load_box(a.sbmin + 3 * (size_t)(32 * w + b), lo);
+          load_box(a.sbmax + 3 * (size_t)(32 * w + b), hi);
+          if (perray_slab(ray, lo, hi)) bits |= 1u << b;
+        }
+      }
+      bits = __reduce_or_sync(FULL_MASK, bits);
+      if (lane == 0 && bits) atomicOr(&sup_mask[w], bits);
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int acc = 0;
+    for (int w = 0; w < ws; ++w) {
+      sup_pre[w] = acc;
+      acc += __popc(sup_mask[w]);
+    }
+    s_nsup = acc;
+  }
+  __syncthreads();
+  const int n_sup = s_nsup;
+  if (n_sup > a.kx) return;  // overflow: the conservative row stays
+  int* ord = a.order + (size_t)blk * a.c;
+  float* en = a.entry + (size_t)blk * a.c;
+  if (n_sup == 0) {  // no live lane meets a super: no exact id
+    for (int j = tid; j < a.c; j += nt) {
+      ord[j] = a.c - 1;
+      en[j] = INFINITY;
+    }
+    if (tid == 0) a.n_cand[blk] = 0;
+    return;
+  }
+
+  // 2. the shortlist (ascending ids), then each live lane against its
+  // children, OR'd over the block; ids >= C dropped
+  for (int w = tid; w < ws; w += nt) {
+    unsigned bits = sup_mask[w];
+    int rank = sup_pre[w];
+    while (bits) {
+      sup_ids[rank++] = 32 * w + __ffs(bits) - 1;
+      bits &= bits - 1u;
+    }
+  }
+  __syncthreads();
+  const int n_slots = n_sup * a.ss;
+  const int wv = words_of(n_slots);
+  for (int round = 0; round < rounds; ++round) {
+    RayIn ray;
+    const bool live = exact_lane(a, blk, round * nt + tid, &ray);
+    if (!__syncthreads_or(live)) continue;
+    for (int w = 0; w < wv; ++w) {
+      unsigned bits = 0u;
+      if (live) {
+        const int n = n_slots - 32 * w < 32 ? n_slots - 32 * w : 32;
+        int s = (32 * w) / a.ss, k = 32 * w - s * a.ss;
+        for (int b = 0; b < n; ++b) {
+          const size_t child = (size_t)sup_ids[s] * a.ss + k;
+          if (child < (size_t)a.c) {
+            float lo[3], hi[3];
+            load_box(a.cbmin + 3 * child, lo);
+            load_box(a.cbmax + 3 * child, hi);
+            if (perray_slab(ray, lo, hi)) bits |= 1u << b;
+          }
+          if (++k == a.ss) {
+            k = 0;
+            ++s;
+          }
+        }
+      }
+      bits = __reduce_or_sync(FULL_MASK, bits);
+      if (lane == 0 && bits) atomicOr(&child_mask[w], bits);
+    }
+  }
+  __syncthreads();
+
+  // 3. each exact id's entry, off the conservative row's finite prefix
+  // (read before any write to the row)
+  for (int j = tid; j < s_ncons; j += nt) {
+    const float e = en[j];
+    if (!(e < INFINITY)) continue;
+    const int id = ord[j];
+    const int sx = id / a.ss;
+    const unsigned m = sup_mask[sx >> 5], bit = 1u << (sx & 31);
+    if (!(m & bit)) continue;
+    const int slot = (sup_pre[sx >> 5] + __popc(m & (bit - 1u))) * a.ss +
+                     (id - sx * a.ss);
+    if (child_mask[slot >> 5] >> (slot & 31) & 1u) ent[slot] = e;
+  }
+  __syncthreads();
+
+  // 4. the finite slots: a mask, its prefix and the list in slot order
+  for (int base = 0; base < kchild; base += nt) {
+    const int j = base + tid;
+    const bool fin = j < kchild && ent[j] < INFINITY;
+    const unsigned m = __ballot_sync(FULL_MASK, fin);
+    if (lane == 0 && (j >> 5) < wk) fin_mask[j >> 5] = m;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int acc = 0, nex = 0;
+    for (int w = 0; w < wk; ++w) {
+      fin_pre[w] = acc;
+      acc += __popc(fin_mask[w]);
+      nex += __popc(child_mask[w]);
+    }
+    s_nfin = acc;
+    s_nex = nex;
+  }
+  __syncthreads();
+  for (int j = tid; j < kchild; j += nt) {
+    const unsigned m = fin_mask[j >> 5], bit = 1u << (j & 31);
+    if (m & bit) {
+      const int i = fin_pre[j >> 5] + __popc(m & (bit - 1u));
+      fin_slot[i] = j;
+      fin_e[i] = ent[j];
+    }
+  }
+  __syncthreads();
+
+  // 5. each slot's rank by (entry, slot), and the row
+  const int n_fin = s_nfin;
+  for (int j = tid; j < kchild; j += nt) {
+    const int w = j >> 5;
+    const unsigned bit = 1u << (j & 31);
+    const bool fin = fin_mask[w] & bit;
+    int p;
+    float e = INFINITY;
+    if (fin) {
+      e = ent[j];
+      p = 0;
+      for (int i = 0; i < n_fin; ++i) {
+        const float x = fin_e[i];
+        p += x < e || (x == e && fin_slot[i] < j);
+      }
+    } else {
+      p = n_fin + j - (fin_pre[w] + __popc(fin_mask[w] & (bit - 1u)));
+    }
+    if (p < a.c) {
+      int id = a.c - 1;
+      if (child_mask[w] & bit) {
+        const int s = j / a.ss;
+        id = sup_ids[s] * a.ss + (j - s * a.ss);
+      }
+      ord[p] = id;
+      en[p] = e;
+    }
+  }
+  for (int j = kchild + tid; j < a.c; j += nt) {
+    ord[j] = a.c - 1;
+    en[j] = INFINITY;
+  }
+  if (tid == 0) a.n_cand[blk] = s_nex;
+}
+
+// Bytes of dynamic shared memory a thread block of exact_cull takes (the
+// wrapper refuses a shape past EXACT_SMEM_LIMIT).
+extern "C" long long exact_cull_smem_bytes(int cs, int kx, int ss) {
+  return (long long)exact_smem(cs, kx, ss);
+}
+
+static int exact_threads(int r) {
+  const int t = (r + 31) / 32 * 32;
+  return t < EXACT_MAX_THREADS ? t : EXACT_MAX_THREADS;
+}
+
+static cudaError_t exact_smem_attribute(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(exact_cull_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+// Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
+// order, n_cand and entry hold packet_cull's tables of the same rays.
+extern "C" int exact_cull(const void* o_blk, const void* d_blk,
+                          const void* tm_blk, float t_min, const void* sbmin,
+                          const void* sbmax, const void* cbmin,
+                          const void* cbmax, int nb, int r, int c, int cs,
+                          int ss, int kx, void* order, void* n_cand,
+                          void* entry, void* stream) {
+  if (nb <= 0) return 0;
+  if (r < 1 || c < 1 || cs < 1 || ss < 1 || kx < 1 || kx > cs ||
+      (long long)cs * ss < c || entry == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = exact_smem(cs, kx, ss);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = exact_smem_attribute(smem);
+  if (err != cudaSuccess) return (int)err;
+  const ExactArgs a = {(const float*)o_blk, (const float*)d_blk,
+                       (const float*)tm_blk, (const float*)sbmin,
+                       (const float*)sbmax, (const float*)cbmin,
+                       (const float*)cbmax, (int*)order, (int*)n_cand,
+                       (float*)entry, t_min, nb, r, c, cs, ss, kx};
+  exact_cull_kernel<<<nb, exact_threads(r), smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Registers per thread and resident warps per SM at blocks of r rays.
+extern "C" int exact_cull_occupancy(int r, int cs, int kx, int ss, int* regs,
+                                    int* warps_per_sm) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, exact_cull_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  const size_t smem = exact_smem(cs, kx, ss);
+  err = exact_smem_attribute(smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  const int threads = exact_threads(r);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, exact_cull_kernel, threads, smem);
+  *warps_per_sm = blocks * threads / 32;
   return (int)err;
 }

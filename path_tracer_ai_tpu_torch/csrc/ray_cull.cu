@@ -1,5 +1,5 @@
-// The per-ray culls for Hopper (sm_90a): kslots_cull, perray_cull and
-// the pair tables' cull (pair_cull, pair_scan, pair_rank).
+// The per-ray culls for Hopper (sm_90a): kslots_cull, perray_cull,
+// perray_entry and the pair tables' cull (pair_cull, pair_scan, pair_rank).
 //
 // Replace no Pallas kernel: they are XLA-fused bodies of the JAX package.
 //   kslots_cull: the CULL + EXTRACT of path_tracer_ai_tpu/accel/kslots.py
@@ -11,6 +11,9 @@
 //   perray_cull: `_perray_candidates` in order_mode "id"
 //     (path_tracer_ai_tpu/accel/traverse.py:530-603), one ray's slab test
 //     against every cluster box and its first cap candidate ids ascending;
+//   perray_entry: `_perray_candidates` in order_mode "entry" (the same
+//     lines), the same test and the first min(cap, C) clusters by (entry,
+//     id), a stable argsort of the row with the non-candidates at +inf;
 //   the pair tables: the CULL + PACK of path_tracer_ai_tpu/accel/pairs.py
 //     `build_pair_tables` (pairs.py:61-190), each ray's slab test against
 //     every cluster box, its candidates' ranks inside their clusters'
@@ -38,6 +41,10 @@
 //   ascending, also for an overflowing ray; C - 1 past the count up to
 //   min(cap, C), 0 from C to cap); n_cand [N] i32 clipped to cap;
 //   overflow [N] u8 (more than cap candidates).
+//   perray_entry: order [N, cap] i32 and entry [N, cap] f32: the
+//   candidates of finite entry lo by (lo, id), then the other ids
+//   ascending at +inf, min(cap, C) of them; (0, +inf) from C to cap;
+//   n_cand [N] i32 clipped to cap, overflow [N] u8 as perray_cull's.
 //   the pair tables: pair_ray [P] i32 (filled with -1 by the caller),
 //   tile_cluster [P / T] i32, dst [N, cap] i32, n_cand [N] i32, overflow
 //   [N] u8, n_tiles [1] i32; the scratch order [N, k_eff] i32, hist [NT,
@@ -64,6 +71,11 @@
 // levels 2 the passing supers go to the warp's list in shared memory and
 // their k_supers * ss children are swept flat, (super, child) pairs 32 at
 // a time. perray stops at the chunk where its count passes cap.
+// perray_entry scans every box: its row is a top-min(cap, C) selection,
+// kept sorted in the output row itself (each finite candidate, in id
+// order, goes in after the entries <= its own, the warp shifting the rest
+// down a slot; once the row is full, only one below its last), then the
+// ids of no finite entry fill the rest of the row from a second scan.
 //
 // The pair tables, for N rays, C clusters, cap, k_eff = min(cap, C), tile
 // T and the pair capacity P (pairs.py:138-166 for the steps after the
@@ -245,6 +257,94 @@ __global__ void __launch_bounds__(RC_WARPS * 32)
   if (lane == 0) {
     a.n_cand[ray] = count < a.cap ? count : a.cap;
     a.overflow[ray] = count > a.cap;
+  }
+}
+
+// perray's entry order: a warp a ray, as perray_cull; the row is kept in
+// order (entry, id) in the output itself.
+__global__ void __launch_bounds__(RC_WARPS * 32)
+    perray_entry_kernel(const PrArgs a, float* __restrict__ entry) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ray = blockIdx.x * RC_WARPS + warp;
+  if (ray >= a.n) return;
+  const RayIn r = load_ray(a.o, a.d, ray, a.t_min, __ldg(a.tm + ray));
+  const int kx = a.cap < a.c ? a.cap : a.c;
+  int* row = a.order + (size_t)ray * a.cap;
+  float* ent = entry + (size_t)ray * a.cap;
+  // a NaN t_max fails hi0 >= lo0: no candidate
+  const bool open = r.hi0 >= r.lo0;
+  int n_all = 0, count = 0;  // candidates; the row's sorted entries
+  for (int c0 = 0; open && c0 < a.c; c0 += 32) {
+    const int k = c0 + lane;
+    bool hit = false;
+    float lo_t = INFINITY;
+    if (k < a.c) {
+      float lo[3], hi[3];
+      load_box(a.bmin + 3 * (size_t)k, lo);
+      load_box(a.bmax + 3 * (size_t)k, hi);
+      hit = perray_window(r, lo, hi, &lo_t);
+    }
+    n_all += __popc(__ballot_sync(FULL_MASK, hit));
+    unsigned fin = __ballot_sync(FULL_MASK, hit && lo_t < INFINITY);
+    while (fin && kx > 0) {
+      const int src = __ffs(fin) - 1;
+      fin &= fin - 1u;
+      const float e = __shfl_sync(FULL_MASK, lo_t, src);
+      // the row holds smaller ids only: e goes after every entry <= e
+      if (count == kx && !(e < ent[kx - 1])) continue;
+      int p = 0;
+      for (int i = lane; i < count; i += 32) p += ent[i] <= e;
+      p = __reduce_add_sync(FULL_MASK, p);
+      const int end = count < kx ? count : kx - 1;  // [p, end) moves down
+      for (int top = end; top > p; top -= 32) {
+        const int i = top - 1 - lane;
+        const bool mv = i >= p;
+        float ve = 0.0f;
+        int vi = 0;
+        if (mv) {
+          ve = ent[i];
+          vi = row[i];
+        }
+        __syncwarp();
+        if (mv) {
+          ent[i + 1] = ve;
+          row[i + 1] = vi;
+        }
+        __syncwarp();
+      }
+      if (lane == 0) {
+        ent[p] = e;
+        row[p] = c0 + src;
+      }
+      __syncwarp();
+      if (count < kx) ++count;
+    }
+  }
+  // the ids of no finite entry, ascending, at +inf
+  for (int c0 = 0, at = count; at < kx && c0 < a.c; c0 += 32) {
+    const int k = c0 + lane;
+    bool fin = false;
+    if (open && k < a.c) {
+      float lo[3], hi[3], lo_t;
+      load_box(a.bmin + 3 * (size_t)k, lo);
+      load_box(a.bmax + 3 * (size_t)k, hi);
+      fin = perray_window(r, lo, hi, &lo_t) && lo_t < INFINITY;
+    }
+    const unsigned m = __ballot_sync(FULL_MASK, k < a.c && !fin);
+    const int pos = at + __popc(m & ((1u << lane) - 1u));
+    if (k < a.c && !fin && pos < kx) {
+      row[pos] = k;
+      ent[pos] = INFINITY;
+    }
+    at += __popc(m);
+  }
+  for (int j = kx + lane; j < a.cap; j += 32) {
+    row[j] = 0;
+    ent[j] = INFINITY;
+  }
+  if (lane == 0) {
+    a.n_cand[ray] = n_all < a.cap ? n_all : a.cap;
+    a.overflow[ray] = n_all > a.cap;
   }
 }
 
@@ -479,6 +579,21 @@ extern "C" int perray_cull(const void* o, const void* d, const void* tm,
   return (int)cudaGetLastError();
 }
 
+extern "C" int perray_entry(const void* o, const void* d, const void* tm,
+                            float t_min, const void* bmin, const void* bmax,
+                            int n, int c, int cap, void* order, void* entry,
+                            void* n_cand, void* overflow, void* stream) {
+  if (n <= 0) return 0;
+  if (c < 1 || cap < 0) return (int)cudaErrorInvalidValue;
+  const PrArgs a = {(const float*)o, (const float*)d, (const float*)tm,
+                    (const float*)bmin, (const float*)bmax, (int*)order,
+                    (int*)n_cand, (unsigned char*)overflow, t_min, n, c,
+                    cap};
+  perray_entry_kernel<<<grid_of(n), RC_WARPS * 32, 0,
+                        (cudaStream_t)stream>>>(a, (float*)entry);
+  return (int)cudaGetLastError();
+}
+
 // the largest C whose running offsets pair_rank keeps in shared memory
 #define PAIR_SMEM_MAX_C 12288
 
@@ -541,6 +656,10 @@ extern "C" int kslots_cull_occupancy(int list, int* regs, int* warps_per_sm) {
 
 extern "C" int perray_cull_occupancy(int* regs, int* warps_per_sm) {
   return occupancy(perray_cull_kernel, 0, regs, warps_per_sm);
+}
+
+extern "C" int perray_entry_occupancy(int* regs, int* warps_per_sm) {
+  return occupancy(perray_entry_kernel, 0, regs, warps_per_sm);
 }
 
 // The pair tables' three kernels (which 0, 1, 2: cull, scan, rank; the

@@ -1,7 +1,8 @@
 // One ray's inclusive slab test against a box, in the two forms the port
 // keeps bit for bit, shared by the per-ray culls (ray_cull.cu: kslots_cull,
 // perray_cull, the pair tables' cull) and ctiles' 2-level cull
-// (ctiles_cull.cu), so that their copies cannot drift.
+// (ctiles_cull.cu), and by the exact shadow cull (packet_cull.cu), so that
+// their copies cannot drift.
 //
 //   kslots (path_tracer_ai_tpu/accel/kslots.py:81-107): inv = 1 / d (IEEE
 //     division); per axis t0 = (lo - o) inv, t1 = (hi - o) inv, near =
@@ -17,6 +18,9 @@
 //     hi0 stays NaN, as torch.minimum(t_max, inf) keeps it); per axis lo =
 //     near > lo ? near : lo, hi = far < hi ? far : hi, so a NaN near or far
 //     keeps the running bound; candidate: hi >= lo. An inverted box fails.
+//   the exact shadow cull (path_tracer_ai_tpu/accel/traverse.py:205-397,
+//     slab_lanes): the sign-select form, which gives perray's bits
+//     (perray_slab below says why).
 // Signed zeros reach only lo and hi, whose zeros compare equal. In both
 // rules lo only grows and hi only shrinks from (lo0, hi0), so a ray whose
 // window fails hi0 >= lo0 has no candidate and needs no test.
@@ -77,9 +81,12 @@ __device__ __forceinline__ bool kslots_slab(const RayIn& r, const float lo[3],
   return fminf(fmin, r.hi0) >= fmaxf(nmax, r.lo0);
 }
 
-// perray's comparison-select slab rule (above) against the box (lo, hi).
-__device__ __forceinline__ bool perray_slab(const RayIn& r, const float lo[3],
-                                            const float hi[3]) {
+// perray's comparison-select slab rule (above) against the box (lo, hi);
+// *entry = the window's start lo (perray's entry t in order_mode "entry").
+__device__ __forceinline__ bool perray_window(const RayIn& r,
+                                              const float lo[3],
+                                              const float hi[3],
+                                              float* entry) {
   float lo_t = r.lo0, hi_t = r.hi0;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -91,7 +98,21 @@ __device__ __forceinline__ bool perray_slab(const RayIn& r, const float lo[3],
     lo_t = near > lo_t ? near : lo_t;
     hi_t = far < hi_t ? far : hi_t;
   }
+  *entry = lo_t;
   return hi_t >= lo_t;
+}
+
+// perray's rule, the test alone. It is also the exact shadow cull's
+// (packet_cull.cu exact_cull; accel/cuda_cull.py `_slab_lanes`, the
+// sign-select form with pos = inv >= 0 and a NaN near / far guarded to
+// -inf / +inf): for a lane whose window (lo0 = t_min, hi0 = t_max or -inf)
+// holds no NaN the two rules keep the same bounds, as a guarded NaN and a
+// NaN that fails the comparison both leave the running bound, and pos is
+// !neg wherever inv is not NaN (a NaN inv makes near and far NaN in both).
+__device__ __forceinline__ bool perray_slab(const RayIn& r, const float lo[3],
+                                            const float hi[3]) {
+  float entry;
+  return perray_window(r, lo, hi, &entry);
 }
 
 // Writes the passing ids of one chunk (hit, id per lane) to row[count..],

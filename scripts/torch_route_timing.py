@@ -3,7 +3,7 @@ given (default: this checkout).
 
     python3 scripts/torch_route_timing.py [--tree DIR] [--reps N]
         [--routes main_path,virtual_mesh_2x2,fused,pallas,pool,perray]
-        [--profile fused,...]
+        [--profile fused,...] [--out FILE]
 
 DIR holds a checkout of the repository (for example a parent commit,
 unpacked with `git archive`); its `path_tracer_ai_tpu_torch` is imported
@@ -17,7 +17,11 @@ queries), `backend="kslots"`, `backend="packets"` (the packet cascades
 for both wave types), and "worklist": the worklist cell (blob
 subdiv 7 + room in clusters of 128, past 2048 clusters, so the default
 routing takes the worklist backend; blocks of 64, the bench settings),
-built only when asked for. After one warm render of each, each
+built only when asked for. The exact shadow cull's routes: "main_exact"
+(the main path with exact_cull=6 in the shadow engine's table),
+"fused_exact" (above) and "worklist_exact" (the worklist cell with the
+shadow engine "packets_exact", exact_cull=6). After one warm render of
+each, each
 of `reps` rounds renders every route in turn, synchronised, and the script
 prints one JSON line: the card's name and power limit, the tree, each
 round's seconds and each route's time over the main path's. Run two trees
@@ -32,7 +36,11 @@ type; CUDA events, accel.kslots.stage_events), and once under
 torch.profiler (device kernels and their seconds, the busy share over the
 route's fastest round, the kernels whose symbols name a cascade's
 sweep or stage, and the twelve kernels that took the most device time).
-The JSON line then also holds "profiles".
+In the counted render the exact cull's calls
+(traverse._exact_block_candidates, in any tree) are timed with CUDA
+events: "exact_cull_calls" and "exact_cull_device_seconds". The JSON
+line then also holds "profiles". --out FILE appends the line to FILE as
+well.
 """
 
 import argparse
@@ -53,6 +61,7 @@ def main() -> int:
                         "pool")
     parser.add_argument("--profile", default="",
                         help="routes to split by host-read site and kernel")
+    parser.add_argument("--out", help="also append the JSON line here")
     args = parser.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -109,10 +118,28 @@ def main() -> int:
                                 wave_size=1 << 20, block_size=64,
                                 device="cuda")
 
+    def with_tables(fn, **tables):
+        """fn with wavefront's engine tables set while it runs."""
+        def run():
+            saved = {k: getattr(wavefront, k) for k in tables}
+            for k, v in tables.items():
+                setattr(wavefront, k, v)
+            try:
+                return fn()
+            finally:
+                for k, v in saved.items():
+                    setattr(wavefront, k, v)
+        return run
+
+    def main_path():
+        return wavefront.render(scene, cam, settings, accel=accel,
+                                accel_closest=accel_c, wave_size=1 << 20,
+                                device="cuda")
+
     every = {
-        "main_path": lambda: wavefront.render(
-            scene, cam, settings, accel=accel, accel_closest=accel_c,
-            wave_size=1 << 20, device="cuda"),
+        "main_path": main_path,
+        "main_exact": with_tables(main_path, HYBRID_OCCLUDE_KW=dict(
+            wavefront.HYBRID_OCCLUDE_KW, exact_cull=6)),
         "virtual_mesh_2x2": lambda: mesh.render_sharded_wavefront(
             scene, cam, settings, grid, accel=accel),
         "fused": fused,
@@ -133,6 +160,8 @@ def main() -> int:
             scene, cam, settings, accel=accel, backend="packets",
             wave_size=1 << 20, device="cuda"),
         "worklist": worklist,
+        "worklist_exact": with_tables(
+            worklist, WORKLIST_OCCLUDE_ENGINE="packets_exact"),
     }
     names = args.routes.split(",")
     if "main_path" not in names or not set(names) <= set(every):
@@ -162,7 +191,11 @@ def main() -> int:
     if profiled:
         out["profiles"] = {name: _profile(runs[name], timed, min(
             r[name] for r in rounds)) for name in profiled}
-    print(json.dumps(out))
+    line = json.dumps(out)
+    print(line)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
     return 0
 
 
@@ -212,18 +245,36 @@ def _profile(fn, timed, best_seconds) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from path_tracer_ai_tpu_torch.accel import kslots
+    from path_tracer_ai_tpu_torch.accel import kslots, traverse
     from path_tracer_ai_tpu_torch.utils import sync
 
     sync.reset()
     _reset_launches()
     kslots.stage_events = {}
+    events = []
+    real = traverse._exact_block_candidates
+
+    def exact_timed(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*a, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    traverse._exact_block_candidates = exact_timed
     try:
         seconds = timed(fn)
         stages = kslots.stage_seconds()
     finally:
         kslots.stage_events = None
+        traverse._exact_block_candidates = real
+    torch.cuda.synchronize()
     res = {"seconds": seconds, "host_reads": sync.count,
+           "exact_cull_calls": len(events),
+           "exact_cull_device_seconds": sum(
+               s.elapsed_time(e) for s, e in events) / 1e3,
            **({"kslots_stage_seconds": stages} if stages else {}),
            "host_read_sites": dict(sorted(
                getattr(sync, "sites", {}).items(), key=lambda kv: -kv[1])),

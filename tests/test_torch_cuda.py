@@ -1624,8 +1624,8 @@ def test_packet_cascades_read_no_host_value(cuda, rng, monkeypatch, query,
     """any_hit_packets and closest_hit_packets on a bounce wave of the blob
     accel: the stage kernel's results are the host-stepped loop's bits
     (cascade_stage_plain sweeping through tile_sweep, one launch an
-    iteration), and the query reads no value back to the host (but the
-    exact cull's live block count)."""
+    iteration), and the query reads no value back to the host (neither
+    does the exact cull: its kernel needs no live block count)."""
     from functools import partial
 
     from path_tracer_ai_tpu_torch.accel import traverse
@@ -1642,7 +1642,7 @@ def test_packet_cascades_read_no_host_value(cuda, rng, monkeypatch, query,
     reads = sync.count
     got = fn(acc, o, d, 1e-3, tm, **kw)
     torch.cuda.synchronize()
-    assert sync.count - reads == (query == "any_exact")
+    assert sync.count - reads == 0
     monkeypatch.setattr(cuda_cascade, "cascade_stage", partial(
         cuda_cascade.cascade_stage_plain, sweep=cuda_ctiles.tile_sweep))
     want = fn(acc, o, d, 1e-3, tm, **kw)
@@ -1835,7 +1835,8 @@ def test_fused_cascades_read_one_host_value(cuda, rng, monkeypatch, query):
     results are the host-stepped loop's bits (fused_stage_plain sweeping
     through block_anyhit / block_closest, one launch an iteration), and
     the cascade reads one value back to the host, the candidate ids'
-    range check (and the exact cull's live block count)."""
+    range check (the exact cull reads none: its kernel needs no live
+    block count)."""
     from path_tracer_ai_tpu_torch.accel import cuda_cascade
     from path_tracer_ai_tpu_torch.utils import sync
 
@@ -1854,7 +1855,7 @@ def test_fused_cascades_read_one_host_value(cuda, rng, monkeypatch, query):
     before = fused()
     got = fn(acc, o, d, 1e-3, tm, **kw)
     torch.cuda.synchronize()
-    assert sync.count - reads == 1 + ("exact_cull" in kw)
+    assert sync.count - reads == 1
     assert fused() > before
     monkeypatch.setattr(cuda_cascade, "fused_stage",
                         cuda_cascade.fused_stage_plain)
@@ -3012,4 +3013,247 @@ def test_block_cull_2level_raises(cuda):
 
 def test_block_cull_2level_occupancy(cuda):
     occ = cuda_ctiles.cull_occupancy(8, levels=2, super_cap=48)
+    assert occ["registers"] > 0 and occ["warps_per_sm"] >= 8
+
+
+# --- the exact shadow cull: exact_cull; perray's entry order: perray_entry --
+
+def _exact_accel(case, dev):
+    from types import SimpleNamespace
+
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return SimpleNamespace(**{k: t(case[k]) for k in WL_BOX_KEYS},
+                           num_clusters=case["bmin"].shape[0],
+                           num_supers=case["sbmin"].shape[0],
+                           super_size=case["ss"])
+
+
+def _exact_same(got, want, bits=True) -> bool:
+    """order, n_cand identical; entry_sorted bit for bit (bits) or as
+    values (-0.0 == +0.0: against the CPU, whose entries come from the
+    plain conservative cull)."""
+    ok = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got[:2], want[:2]))
+    if bits:
+        return ok and torch.equal(_bits(got[2].cpu()), _bits(want[2].cpu()))
+    return ok and bool((got[2].cpu() == want[2].cpu()).all())
+
+
+def _exact_kernel(acc, blk, t_min, ksup):
+    """exact_cull once: one packet_cull and one exact_cull launch."""
+    before = (cuda_cull.launches, cuda_cull.exact_launches)
+    got = cuda_cull.exact_cull(acc, *blk, t_min, ksup)
+    assert (cuda_cull.launches, cuda_cull.exact_launches) == (
+        before[0] + 1, before[1] + 1)
+    return got
+
+
+@pytest.mark.parametrize("ksup_add", [0, 1])
+@pytest.mark.parametrize("name", cases.EXACT_CASES)
+def test_exact_cull_matches_plain(cuda, name, ksup_add):
+    """exact_cull on the crafted exact cases (the inf-entry id past n_cand
+    among them) at the case's ksup and one past it: bit for bit the plain
+    version on the card, with and without the live-block count, and the
+    plain version on the CPU."""
+    case = cases.exact_case(name)
+    ksup = case["ksup"] + ksup_add
+    t = lambda a, dev: torch.as_tensor(a, device=dev)
+    blk = [t(case[k], cuda) for k in ("o_blk", "d_blk", "tm_blk")]
+    acc = _exact_accel(case, cuda)
+    got = _exact_kernel(acc, blk, case["t_min"], ksup)
+    want = cuda_cull.exact_cull_plain(acc, *blk, case["t_min"], ksup)
+    live = np.nonzero((case["tm_blk"] >= 0).any(axis=1))[0]
+    want_live = cuda_cull.exact_cull_plain(acc, *blk, case["t_min"], ksup,
+                                           int(live[-1]) + 1)
+    cpu = cuda_cull.exact_cull_plain(
+        _exact_accel(case, "cpu"),
+        *(t(case[k], "cpu") for k in ("o_blk", "d_blk", "tm_blk")),
+        case["t_min"], ksup)
+    torch.cuda.synchronize()
+    assert _exact_same(got, want) and _exact_same(got, want_live)
+    assert _exact_same(got, cpu, bits=False)
+
+
+@pytest.mark.parametrize("b,ksup", [(64, 6), (64, 16), (128, 16), (256, 6),
+                                    (1, 6), (300, 6)])
+def test_exact_cull_on_a_shadow_wave(cuda, rng, b, ksup):
+    """A bounce wave of the blob accel (subdiv 4 in clusters of 16: C 321 in
+    21 supers of 16, so that ksup 6 and 16 leave blocks past the shortlist)
+    in sorted blocks of b: the kernel against the plain version on the
+    card (with the live-block count), whole tables."""
+    from path_tracer_ai_tpu_torch.accel import traverse
+
+    acc = _accel(cuda, s=16)
+    n = (1 << 14) // b * b
+    o, d, tm = _bounce_wave(acc, n, rng)
+    o, d, tm, _perm = traverse._sort_rays(acc, o, d, tm, "dir")
+    blk = (o.reshape(-1, b, 3).contiguous(), d.reshape(-1, b, 3).contiguous(),
+           tm.reshape(-1, b).contiguous())
+    got = _exact_kernel(acc, blk, 1e-3, ksup)
+    want = cuda_cull.exact_cull_plain(acc, *blk, 1e-3, ksup,
+                                      traverse.live_block_count(blk[2]))
+    torch.cuda.synchronize()
+    assert _exact_same(got, want) and int(got[1].sum()) > 0
+
+
+def test_exact_cull_on_the_worklist_accel(cuda, rng):
+    """The worklist cell's accel (blob subdiv 7, S 128: C 2,561 in 161
+    supers of 16) at ksup 6, blocks of 64: kernel against plain."""
+    from path_tracer_ai_tpu_torch.accel import traverse
+
+    acc = _accel(cuda, subdiv=7)
+    assert acc.num_clusters > 2048
+    o, d, tm = _bounce_wave(acc, 1 << 14, rng)
+    o, d, tm, _perm = traverse._sort_rays(acc, o, d, tm, "dir")
+    blk = (o.reshape(-1, 64, 3).contiguous(),
+           d.reshape(-1, 64, 3).contiguous(), tm.reshape(-1, 64).contiguous())
+    for ksup in (6, 16):
+        got = _exact_kernel(acc, blk, 1e-3, ksup)
+        want = cuda_cull.exact_cull_plain(acc, *blk, 1e-3, ksup)
+        torch.cuda.synchronize()
+        assert _exact_same(got, want)
+
+
+@pytest.mark.parametrize("route", ["packets", "packets_unsorted",
+                                   "fused_any", "fused_closest"])
+def test_exact_routes_launch_the_kernel(cuda, rng, route):
+    """Each exact route on the card (the blob accel in clusters of 16, C
+    321): one packet_cull and one exact_cull launch a call, no live-block
+    count, no plain version; the result is that of the same route with the
+    plain version on the card (occlusion exact, closest t bit for bit)."""
+    from unittest import mock
+
+    from path_tracer_ai_tpu_torch.accel import traverse
+
+    acc = _accel(cuda, s=16)
+    o, d, tm = _bounce_wave(acc, 1 << 13, rng)
+
+    def run(a, o_, d_, tm_):
+        if route.startswith("packets"):
+            return traverse.any_hit_packets(
+                a, o_, d_, 1e-3, tm_, block_size=64, exact_cull=6,
+                sort=route == "packets")
+        if route == "fused_any":
+            return cuda_anyhit.any_hit_fused(a, o_, d_, 1e-3, tm_,
+                                             exact_cull=16)
+        return cuda_closest.closest_hit_fused(a, o_, d_, 1e-3, tm_,
+                                              exact_cull=16).t
+
+    def refused(*a, **k):
+        raise AssertionError("read on the card")
+
+    before = (cuda_cull.launches, cuda_cull.exact_launches)
+    with mock.patch.object(traverse, "live_block_count", refused), \
+            mock.patch.object(cuda_cull, "exact_cull_plain", refused):
+        got = run(acc, o, d, tm)
+    torch.cuda.synchronize()
+    assert (cuda_cull.launches, cuda_cull.exact_launches) == (
+        before[0] + 1, before[1] + 1)
+    with mock.patch.object(cuda_cull, "exact_cull",
+                           lambda *a: cuda_cull.exact_cull_plain(*a)):
+        want = run(acc, o, d, tm)
+    if got.dtype == torch.float32:
+        assert torch.equal(_bits(got), _bits(want))
+    else:
+        assert torch.equal(got, want)
+
+
+def test_exact_cull_launch_failure_raises(cuda):
+    """A refused launch raises; nothing falls back to the plain version;
+    a shape past the shared memory raises before any launch."""
+    from unittest import mock
+
+    case = cases.exact_case("super_edge")
+    acc = _exact_accel(case, cuda)
+    blk = [torch.as_tensor(case[k], device=cuda)
+           for k in ("o_blk", "d_blk", "tm_blk")]
+    lib = cuda_cull._lib()
+    refused = mock.Mock(return_value=1)  # cudaErrorInvalidValue
+    fake = mock.Mock(packet_cull=lib.packet_cull,
+                     packet_cull_scratch_bytes=lib.packet_cull_scratch_bytes,
+                     exact_cull_smem_bytes=lib.exact_cull_smem_bytes,
+                     exact_cull=refused)
+    with mock.patch.object(cuda_cull, "_lib", lambda: fake), \
+            mock.patch.object(cuda_cull, "exact_cull_plain",
+                              mock.Mock(side_effect=AssertionError)):
+        with pytest.raises(RuntimeError, match="exact_cull"):
+            cuda_cull.exact_cull(acc, *blk, 1e-3, 3)
+    assert refused.called
+    big = type(acc)(**{**vars(acc), "num_supers": 1,
+                       "super_size": 1 << 16})
+    big.sbmin, big.sbmax = acc.sbmin[:1], acc.sbmax[:1]
+    big.cbmin = torch.zeros((1, 1 << 16, 3), device=cuda)
+    big.cbmax = torch.zeros((1, 1 << 16, 3), device=cuda)
+    before = cuda_cull.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_cull.exact_cull(big, *blk, 1e-3, 1)
+    assert cuda_cull.launches == before
+
+
+def test_exact_cull_occupancy(cuda):
+    for r, ksup in ((64, 6), (128, 16), (256, 6)):
+        occ = cuda_cull.exact_occupancy(r, 41, ksup, 16)
+        assert occ["registers"] > 0 and occ["warps_per_sm"] >= 8
+
+
+@pytest.mark.parametrize("name", cases.RAY_CULL_CASES)
+def test_perray_entry_matches_plain(cuda, name):
+    """perray_entry on the per-ray cull cases at three caps (the case's,
+    one past it, 1): bit for bit the plain version on the CPU, one launch
+    a call."""
+    case = cases.ray_cull_case(name)
+    accs = [_exact_accel(case, dev) for dev in (cuda, "cpu")]
+    rays = [[torch.as_tensor(case[k], device=dev) for k in ("o", "d", "tm")]
+            for dev in (cuda, "cpu")]
+    for cap in cases.perray_entry_caps(case):
+        before = cuda_cull.entry_launches
+        (o, d, tm), (oc, dc, tc) = rays
+        got = cuda_cull.perray_entry(accs[0], o, d, case["t_min"], tm, cap)
+        assert cuda_cull.entry_launches == before + 1
+        want = cuda_cull.perray_entry_plain(accs[1], oc, dc, case["t_min"],
+                                            tc, cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+        assert torch.equal(_bits(got[2].cpu()), _bits(want[2]))
+        assert torch.equal(got[3].cpu(), want[3])
+
+
+@pytest.mark.parametrize("s,cap", [(128, 16), (128, 64), (16, 48)])
+def test_perray_entry_on_a_bounce_wave(cuda, rng, s, cap):
+    """A bounce wave through _perray_candidates(order_mode="entry") on the
+    card: one perray_entry launch, the plain version's lists on the card
+    bit for bit."""
+    from unittest import mock
+
+    from path_tracer_ai_tpu_torch.accel import traverse
+
+    acc = _accel(cuda, s=s)
+    o, d, tm = _bounce_wave(acc, 1 << 13, rng)
+    before = cuda_cull.entry_launches
+    with mock.patch.object(cuda_cull, "perray_entry_plain",
+                           mock.Mock(side_effect=AssertionError)):
+        got = traverse._perray_candidates(acc, o, d, 1e-3, tm, cap,
+                                          order_mode="entry")
+    assert cuda_cull.entry_launches == before + 1
+    want = cuda_cull.perray_entry_plain(acc, o, d, 1e-3, tm, cap)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(_bits(got[2]), _bits(want[2]))
+    assert torch.equal(got[3], want[3]) and int(got[1].sum()) > 0
+
+
+def test_perray_entry_launch_failure_raises_and_occupancy(cuda):
+    from unittest import mock
+
+    case = cases.ray_cull_case("count_edges")
+    acc = _exact_accel(case, cuda)
+    o, d, tm = (torch.as_tensor(case[k], device=cuda) for k in ("o", "d",
+                                                                "tm"))
+    lib = mock.Mock(perray_entry=mock.Mock(return_value=1))
+    with mock.patch.object(cuda_cull, "_ray_lib", lambda: lib), \
+            mock.patch.object(cuda_cull, "perray_entry_plain",
+                              mock.Mock(side_effect=AssertionError)):
+        with pytest.raises(RuntimeError, match="perray_entry"):
+            cuda_cull.perray_entry(acc, o, d, 1e-3, tm, 6)
+    occ = cuda_cull.ray_occupancy()["perray_entry"]
     assert occ["registers"] > 0 and occ["warps_per_sm"] >= 8

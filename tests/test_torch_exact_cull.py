@@ -17,7 +17,7 @@ import torch
 
 from path_tracer_ai_tpu.accel import traverse as jtraverse
 from path_tracer_ai_tpu.accel.clusters import build_clusters as jbuild
-from path_tracer_ai_tpu_torch.accel import traverse
+from path_tracer_ai_tpu_torch.accel import cuda_cull, traverse
 from path_tracer_ai_tpu_torch.convert import accel_from_numpy
 from path_tracer_ai_tpu_torch.core.types import triangles_from_numpy
 from path_tracer_ai_tpu_torch.engine import intersect
@@ -190,7 +190,7 @@ def test_exact_cull_step_does_not_change_the_tables(rng, monkeypatch):
     _ja, pa, _ = _scene(rng, 500, 8)
     blk = [T(a) for a in _waves(rng)]
     ref = traverse._exact_block_candidates(pa, *blk, 1e-3, ksup=4)
-    monkeypatch.setattr(traverse, "EXACT_CULL_ELEMS", 64 * 16 * 3)
+    monkeypatch.setattr(cuda_cull, "EXACT_CULL_ELEMS", 64 * 16 * 3)
     got = traverse._exact_block_candidates(pa, *blk, 1e-3, ksup=4)
     for a, b in zip(ref, got):
         assert torch.equal(a, b)

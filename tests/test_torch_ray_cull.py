@@ -293,7 +293,7 @@ def test_queries_run_the_plain_versions_on_cpu(monkeypatch):
     order, _n, entry, _o = traverse._perray_candidates(pa, o, d, 1e-3, tm, 6)
     assert order.shape == entry.shape == (128, 6)
     assert (entry == 0).all()
-    # "entry" mode keeps its own eager body
+    # "entry" mode takes its own plain version (perray_entry_plain)
     traverse._perray_candidates(pa, o, d, 1e-3, tm, 6, order_mode="entry")
     assert calls == ["kslots_cull_plain", "perray_cull_plain"]
     assert cuda_cull.kslots_launches == cuda_cull.perray_launches == 0

@@ -1509,3 +1509,197 @@ def ctiles2_case(name: str, b: int = 8, seed: int = 0) -> dict:
                 cap=case["kc"] if lines else case["bmin"].shape[0],
                 super_cap=case["ks"] if lines else case["sbmin"].shape[0])
     return case
+
+
+# ---- the exact shadow cull (exact_case) ------------------------------------
+
+EXACT_CASES = ("inf_entry", "super_edge", "dead_unsorted",
+               "inverted_children", "axis_planes", "entry_ties",
+               "whole_shortlist")
+
+
+def _f32_interval_pass(bmin, bmax, o, d, tm) -> bool:
+    """The interval cull's test (traverse._interval_slab) of a block whose
+    live lanes are all the ray (o, d): the quotients by d in f32 (no
+    component of d is 0)."""
+    f = np.float32
+    lb, ub = f(-np.inf), f(np.inf)
+    for a in range(3):
+        q = (f(f(bmin[a]) - f(o[a])) / f(d[a]),
+             f(f(bmax[a]) - f(o[a])) / f(d[a]))
+        lb, ub = max(lb, min(q)), min(ub, max(q))
+    return bool(lb <= ub and ub >= 0.0 and lb <= tm)
+
+
+def _f32_lane_pass(bmin, bmax, o, d, t_min, tm) -> bool:
+    """The exact cull's per-lane test (the sign-select slab, products by
+    the f32 reciprocal) of the ray (o, d) on [t_min, tm]."""
+    f = np.float32
+    lo, hi = f(t_min), f(tm)
+    for a in range(3):
+        iv = f(1.0) / f(d[a])
+        near, far = (bmin[a], bmax[a]) if iv >= 0 else (bmax[a], bmin[a])
+        lo = max(lo, f(f(near) - f(o[a])) * iv)
+        hi = min(hi, f(f(far) - f(o[a])) * iv)
+    return bool(lo <= hi)
+
+
+def _grazing_ray(rng, bmin, bmax, tm, t_min):
+    """A ray that grazes the box's edge (x = bmax.x, y = bmin.y) going +x
+    +y, whose own slab test passes where the interval test of a block of
+    it alone fails: the quotient and the product by the reciprocal round
+    the touch time apart. Seeded search."""
+    f = np.float32
+    for _ in range(20000):
+        zm = rng.uniform(bmin[2], bmax[2])
+        p = np.array([bmax[0], bmin[1], zm])
+        d = _unit(np.array([rng.uniform(0.3, 1.0), rng.uniform(0.3, 1.0),
+                            rng.uniform(-0.01, 0.01)])).astype(np.float32)
+        o = (p - rng.uniform(1.0, 3.0) * d).astype(np.float32)
+        if (_f32_lane_pass(bmin, bmax, o, d, t_min, tm)
+                and not _f32_interval_pass(bmin, bmax, o, d, tm)):
+            return o, d
+    raise AssertionError("no grazing ray found")
+
+
+def exact_case(name: str, seed: int = 0) -> dict:
+    """One exact-cull input: o_blk, d_blk [nb, b, 3], tm_blk [nb, b] (t_max;
+    negative or NaN: dead), t_min, the cluster boxes bmin, bmax [C, 3] and
+    their supers of `ss` (wl_supers: a partly filled last super's padding
+    children inverted), all f32, and the case's ksup (held at it and one
+    past it). C 70 in supers of 4 (not a multiple) unless said otherwise:
+    inf_entry: C 40; cluster 7 (super 1, child 3) grazed at an edge by a
+      ray (_grazing_ray) whose own test passes where its block's interval
+      test fails, and cluster 2 (super 0) on its path: an exact id of
+      conservative entry +inf, which sorts among the sentinels by its slot
+      (7) and lands past n_cand (2). Blocks: the ray on lane 0 alone, on
+      every lane, and on lane 3 among dead lanes at the placeholder ray
+      (o 0, d +x); then coherent blocks far from it. ksup 3;
+    super_edge: lines of 12 clusters in 3 supers and 16 in 4 (_line_boxes)
+      at ksup 3: blocks at n_sup = ksup and ksup + 1 (the conservative
+      list);
+    dead_unsorted: coherent blocks with all-dead blocks first, between and
+      last (unsorted), a block of NaN t_max lanes with one live lane (the
+      interval cull's max t_max is NaN: its exact id has entry +inf), dead
+      lanes at NaN origins; blocks at n_sup = ksup and ksup + 1. ksup 8;
+    inverted_children: C 49 in supers of 16 (cluster 48 and 15 inverted
+      padding children in the last), a line through clusters 44-48: the
+      children of supers 2 and 3 listed, the padding ones failed. ksup 2;
+    axis_planes: d = +-e_a with +0.0 / -0.0 in the other components (every
+      third block only -0.0), the origin on a plane of a block's box on an
+      axis the ray does not move (0 x inf = NaN in the slab, guarded),
+      t_max just past the box. ksup 8;
+    entry_ties: boxes repeated at scattered ids (equal entries), nested
+      boxes around a point that half the blocks start at (entries 0), and
+      boxes with a face on x = 0.5 that rays from x = 0.5 going -x enter at
+      lb -0.0. ksup 15;
+    whole_shortlist: boxes of half 0.2-0.6, rays from inside their region:
+      ksup 18 = Cs, kchild 72 >= C (the row cut to C)."""
+    rng = np.random.default_rng([seed, 1100 + EXACT_CASES.index(name)])
+    nb, b, ss, c, t_min = 8, 8, 4, 70, T_MIN
+    ksup = {"inf_entry": 3, "super_edge": 3, "dead_unsorted": 8,
+            "inverted_children": 2, "axis_planes": 8, "entry_ties": 15,
+            "whole_shortlist": 18}[name]
+    if name == "inf_entry":
+        c = 40
+    elif name == "inverted_children":
+        c, ss = 49, 16
+    elif name == "dead_unsorted":
+        nb = 12
+    half = (0.2, 0.6) if name == "whole_shortlist" else (0.02, 0.2)
+    bmin, bmax = _random_boxes(rng, c, half=half)
+    o, d, tm = _coherent_rays(rng, nb, b)
+
+    if name == "inf_entry":
+        bmin += (0.0, -30.0, -30.0)
+        bmax += (0.0, -30.0, -30.0)
+        g = _random_boxes(rng, 1, half=(0.1, 0.3))
+        go, gd = _grazing_ray(rng, g[0][0], g[1][0], 8.0, t_min)
+        bmin[7], bmax[7] = g[0][0], g[1][0]
+        centre = go + 4.0 * gd  # cluster 2, on the path
+        bmin[2], bmax[2] = centre - 0.2, centre + 0.2
+        # the others of supers 0 and 1: off the path, super 1 reaching past
+        # the grazed edge in x and y so that the ray crosses it properly
+        for k, shift in ((0, 3.0), (1, 5.0), (3, 7.0)):
+            bmin[k], bmax[k] = bmin[2] + (0, 0, shift), bmax[2] + (0, 0, shift)
+        for k, shift in ((4, (0.5, -0.5, 3.0)), (5, (0, 0, 5.0)),
+                         (6, (0, 0, 7.0))):
+            bmin[k], bmax[k] = bmin[7] + shift, bmax[7] + shift
+        o[:3], d[:3], tm[:3] = go, gd, 8.0
+        tm[0, 1:] = -1.0
+        tm[2, :] = -1.0
+        tm[2, 3] = 8.0
+        o[2, np.arange(b) != 3] = 0.0
+        d[2, np.arange(b) != 3] = (1.0, 0.0, 0.0)
+        o[3:] += (0.0, -30.0, -30.0)
+    elif name == "super_edge":
+        bmin[28:] += (0.0, -30.0, -30.0)
+        bmax[28:] += (0.0, -30.0, -30.0)
+        for k, (ids, n_on) in enumerate(((list(range(12)), 12),
+                                         (list(range(12, 28)), 16))):
+            _place_line(bmin, bmax, ids, k, n_on)
+        for i in range(nb):
+            n_on = (12, 16)[i % 2]
+            o[i], d[i], tm[i] = _line_rays(rng, i % 2, n_on, b)
+    elif name == "dead_unsorted":
+        for i in (0, 1, 5, nb - 1):
+            tm[i] = -1.0
+        tm[3] = np.nan
+        tm[3, 4] = 2.0
+        tm[4, ::2] = -1.0
+        o[4, ::2] = np.nan
+    elif name == "inverted_children":
+        bmin[:44] += (0.0, -30.0, -30.0)
+        bmax[:44] += (0.0, -30.0, -30.0)
+        _place_line(bmin, bmax, [44, 45, 46, 47, 48], 0, 5)
+        for i in range(nb):
+            o[i], d[i], tm[i] = _line_rays(rng, 0, 5, b)
+    elif name == "axis_planes":
+        axis = rng.integers(0, 3, nb)
+        sign = rng.choice([-1.0, 1.0], nb)
+        for i in range(nb):
+            a = axis[i]
+            zeros = np.where(rng.uniform(size=(b, 3)) < 0.5, -0.0, 0.0)
+            if i % 3 == 0:
+                zeros[:] = -0.0
+            d[i] = zeros
+            d[i, :, a] = sign[i]
+            box = np.full(b, rng.integers(0, c))
+            other = (a + rng.integers(1, 3, b)) % 3
+            third = 3 - a - other
+            lanes = np.arange(b)
+            o[i, lanes, other] = np.where(rng.uniform(size=b) < 0.5,
+                                          bmin[box, other], bmax[box, other])
+            o[i, lanes, third] = (bmin[box, third] + bmax[box, third]) / 2
+            o[i, lanes, a] = (bmin[box, a] + bmax[box, a]) / 2 - sign[i]
+        tm = np.where(tm >= 0.0, 1.5, tm)
+    elif name == "entry_ties":
+        pick = rng.integers(0, c // 3, c)
+        bmin, bmax = bmin[pick], bmax[pick]
+        q = np.array([0.2, -0.1, 0.3])
+        nested = rng.choice(c, 8, replace=False)
+        bmin[nested] = q - 0.05 * np.arange(1, 9)[:, None]
+        bmax[nested] = q + 0.05 * np.arange(1, 9)[:, None]
+        face = rng.choice(np.setdiff1d(np.arange(c), nested), 6,
+                          replace=False)
+        bmin[face] = (0.0, -3.0, -3.0)
+        bmax[face] = (0.5, 3.0, 3.0)
+        o[::2] = q + rng.normal(0.0, 1e-3, (nb // 2, b, 3))
+        o[1::4, :, 0] = 0.5
+        d[1::4] = np.stack([-rng.uniform(0.5, 1.0, (len(d[1::4]), b)),
+                            rng.uniform(-0.5, 0.5, (len(d[1::4]), b)),
+                            rng.uniform(-0.5, 0.5, (len(d[1::4]), b))], -1)
+    elif name == "whole_shortlist":
+        o = rng.uniform(-0.5, 0.5, (nb, b, 3))
+        tm = np.where(tm >= 0.0, 3.0, tm)
+    f = lambda a: np.ascontiguousarray(a, dtype=np.float32)
+    bmin, bmax = f(bmin), f(bmax)
+    return {"o_blk": f(o), "d_blk": f(d), "tm_blk": f(tm), "t_min": t_min,
+            "bmin": bmin, "bmax": bmax, **wl_supers(bmin, bmax, ss),
+            "ss": ss, "ksup": ksup}
+
+
+# perray's entry order (perray_entry): the per-ray cull cases at these caps
+# (the case's, one past it, and 1: a top-1 selection)
+def perray_entry_caps(case: dict) -> tuple:
+    return (case["cap"], case["cap"] + 1, 1)
